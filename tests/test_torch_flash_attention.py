@@ -1,0 +1,139 @@
+"""The port's flash-attention forward against the reference's Pallas kernel.
+
+The reference kernel (``znicz_tpu.ops.pallas_attention._fwd_kernel``)
+runs in interpret mode on the CPU, reached through ``ring_hop`` (which
+returns ``(out, lse)`` at global offsets) and the public
+``flash_attention``.  The port's counterpart on the CPU is
+:func:`znicz_tpu_torch.ops.flash_attention.flash_attention_plain`, the
+plain version its kernel wrapper takes for CPU tensors; the CUDA kernel
+itself is held to that plain version on the card by ``chip_smoke.py``.
+
+Tolerances: float32 operands 2e-5 (summation order only: the plain
+version folds the whole key axis at once, the reference tile by tile);
+bf16 operands 2e-2 (p is rounded to bf16 before the p·v product at the
+running maximum in the reference and at the global maximum here, a
+flip of one bf16 ulp of p).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from znicz_tpu.ops import pallas_attention as ref
+from znicz_tpu_torch.ops import flash_attention as fa
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(b, tq, tk, h, dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, tq, h, dh)).astype(np.float32),
+            rng.normal(0, 1, (b, tk, h, dh)).astype(np.float32),
+            rng.normal(0, 1, (b, tk, h, dh)).astype(np.float32))
+
+
+def _ref_hop(q, k, v, causal, q_off, k_off, dtype, block):
+    """Reference (out (B, Tq, H, dh) f32, lse (B, H, Tq)) through the
+    Pallas kernel in interpret mode."""
+    jdt = getattr(jnp, dtype)
+    qh, kh, vh = (jnp.asarray(a).astype(jdt).transpose(0, 2, 1, 3)
+                  for a in (q, k, v))
+    out, lse = ref.ring_hop(qh, kh, vh, q_off, k_off, causal, block,
+                            block, interpret=True)
+    return (np.asarray(out.astype(jnp.float32)).transpose(0, 2, 1, 3),
+            np.asarray(lse)[..., 0])
+
+
+def _port_plain(q, k, v, causal, q_off, k_off, dtype):
+    tdt = getattr(torch, dtype)
+    out, lse = fa.flash_attention_plain(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal,
+        q_off, k_off)
+    assert out.dtype == tdt and lse.dtype == torch.float32
+    return out.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
+    (False, 0, 0, 32, 32),
+    (True, 0, 0, 32, 32),
+    (False, 0, 0, 32, 64),        # cross lengths, several key tiles
+    (True, 32, 0, 32, 64),        # the diagonal mid-way through the keys
+    (True, 8, 24, 32, 32),        # rows 8..23 see no key: fully masked
+])
+def test_plain_matches_reference_kernel(dtype, causal, q_off, k_off, tq,
+                                        tk):
+    q, k, v = _qkv(1, tq, tk, 2, 16, seed=tq + tk + q_off)
+    want_out, want_lse = _ref_hop(q, k, v, causal, q_off, k_off, dtype,
+                                  block=16)
+    got_out, got_lse = _port_plain(q, k, v, causal, q_off, k_off, dtype)
+    np.testing.assert_allclose(got_out, want_out, rtol=0,
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(got_lse, want_lse, rtol=1e-6,
+                               atol=TOL[dtype])
+    if causal and k_off > q_off:
+        masked = q_off + np.arange(tq) < k_off
+        # the reference's guard: out 0 and lse -1e30, never NaN
+        assert np.all(got_out[:, masked] == 0.0)
+        assert np.all(got_lse[:, :, masked] <= -1e29)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dot_dtype", [None, "bfloat16"])
+def test_public_entry_matches_reference(causal, dot_dtype):
+    """``flash_attention``: operands cast to ``dot_dtype``, out upcast
+    to f32, as the reference's public entry does."""
+    q, k, v = _qkv(2, 32, 32, 2, 16, seed=11)
+    want = ref.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, block_q=16,
+        block_k=16, interpret=True,
+        dot_dtype=None if dot_dtype is None else jnp.bfloat16)
+    got = fa.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        dot_dtype=None if dot_dtype is None else torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL[dot_dtype or "float32"])
+
+
+def test_wrapper_takes_the_plain_version_for_cpu_tensors_only():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 16, 16, 2, 64, seed=3))
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    assert out.shape == (1, 16, 2, 64) and lse.shape == (1, 2, 16)
+    # the counter counts kernel launches, and the CPU launched none
+    assert fa.flash_attention_fwd.launches == before
+    # a device that is neither the CPU nor CUDA is refused, not served
+    meta = [a.to("meta") for a in (q, k, v)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_fwd(*meta)
+
+
+def test_wrapper_checks_shapes():
+    q = torch.zeros(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="disagree"):
+        fa.flash_attention_fwd(q, torch.zeros(1, 16, 4, 32),
+                               torch.zeros(1, 16, 4, 32))
+    with pytest.raises(ValueError, match="dtypes differ"):
+        fa.flash_attention_fwd(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match=r"\(B, T, H, dh\)"):
+        fa.flash_attention_fwd(q[0], q[0], q[0])
+
+
+def test_strided_views_of_a_packed_projection_match_contiguous():
+    """The attention unit hands the kernel strided q/k/v views of one
+    (B, T, 3·D) projection; the result must not depend on the
+    layout."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(0, 1, (2, 16, 3 * 32))
+                           .astype(np.float32))
+    views = [qkv[..., i * 32:(i + 1) * 32].view(2, 16, 2, 16)
+             for i in range(3)]
+    got, _ = fa.flash_attention_fwd(*views, causal=True)
+    want, _ = fa.flash_attention_fwd(*(a.contiguous() for a in views),
+                                     causal=True)
+    assert torch.equal(got, want)

@@ -1,0 +1,207 @@
+"""Exported forward chains: load a bundle and serve it (port of
+``znicz_tpu/export.py``).
+
+The bundle format is the reference's, read unchanged: one ``.npz``
+holding a JSON ``manifest`` (layer types + constructor configs + input
+geometry + the dtype the net trained under) beside the parameter
+arrays, keyed ``layer{i}_{attr}``.  :class:`ExportedModel` rebuilds
+the forward chain from the manifest's layer table
+(:func:`znicz_tpu_torch.models.layers.layer_type`) as ``nn.Module``
+units on one device, in the trained precision mode.
+
+Programs: batch sizes round up to the power-of-two bucket ladder
+(:mod:`znicz_tpu_torch.serving.buckets`), as in the reference, and a
+request runs the chain at its bucket's padded size.  PyTorch runs
+eagerly, so a program here is the chain bound to one bucket size;
+:meth:`ExportedModel.warmup` runs every bucket once at start, which
+builds the kernels and pays every first-launch cost (kernel loading,
+cuBLAS workspaces, allocator growth) before any request does.  Every
+bucket keeps one device input buffer, refilled in place per dispatch.
+
+Parameters stay float32 in every precision mode.  Hot swap, int8
+bundles and replication over several GPUs belong to later slices.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.backends import resolve_device, torch_dtype
+from znicz_tpu_torch.models.layers import layer_type
+from znicz_tpu_torch.serving.buckets import bucket_for, ladder
+from znicz_tpu_torch.utils.logger import Logger
+
+FORMAT_NAME = "znicz-tpu-forward"
+FORMAT_VERSION = 1
+#: default ladder cap for direct ``ExportedModel`` use (the engine
+#: passes its own, typically much smaller, ``max_batch``)
+DEFAULT_MAX_BATCH = 1024
+
+
+def read_bundle(path: str) -> tuple[dict, dict]:
+    """An exported ``.npz`` bundle's ``(manifest, params)`` as numpy,
+    without building a model."""
+    with np.load(path) as bundle:
+        manifest = json.loads(bytes(bundle["manifest"]).decode())
+        params = {k: bundle[k] for k in bundle.files if k != "manifest"}
+    return manifest, params
+
+
+def params_from_jax(manifest: dict, params: dict) -> dict[str, torch.Tensor]:
+    """Carry a reference parameter set across: ``layer{i}_{attr}`` →
+    float32 CPU tensors.
+
+    ``params`` is what the reference holds — a bundle's numpy arrays
+    or live ``jax.Array`` leaves (anything ``np.asarray`` reads).
+    Parameters stay float32 even in bf16 bundles, as the reference
+    keeps them; a non-float parameter is refused, and so is a key
+    that no layer of ``manifest`` owns."""
+    n_layers = len(manifest["layers"])
+    owned = {f"layer{i}_{attr}"
+             for i, spec in enumerate(manifest["layers"])
+             for attr in layer_type(spec["type"]).EXPORT_PARAMS}
+    out: dict[str, torch.Tensor] = {}
+    for key, value in params.items():
+        if key not in owned:
+            raise ValueError(f"parameter '{key}' belongs to no layer of "
+                             f"this {n_layers}-layer manifest")
+        arr = np.asarray(value)
+        if arr.dtype.kind not in "fV":  # 'V': ml_dtypes bfloat16
+            raise ValueError(f"parameter '{key}' has non-float dtype "
+                             f"{arr.dtype}")
+        out[key] = torch.from_numpy(
+            np.ascontiguousarray(arr.astype(np.float32)))
+    return out
+
+
+class ExportedModel(Logger):
+    """A servable forward chain loaded from an exported bundle.
+
+    ``model(x)`` maps a numpy batch of samples of ``input_shape`` to
+    the final layer's output as float32 numpy (a softmax head gives
+    class probabilities).  Inputs are rounded to the manifest dtype —
+    the precision mode the net trained under.
+
+    ``device``: ``None`` → the current CUDA device (raises without a
+    GPU); ``"cpu"`` runs the same arithmetic through the kernels'
+    plain versions."""
+
+    def __init__(self, manifest: dict, params: dict, device=None,
+                 max_batch: int = DEFAULT_MAX_BATCH) -> None:
+        super().__init__()
+        if manifest.get("format") != FORMAT_NAME:
+            raise ValueError("not a znicz-tpu forward bundle")
+        if manifest.get("version", 0) > FORMAT_VERSION:
+            raise ValueError(
+                f"bundle version {manifest['version']} is newer than "
+                f"this framework ({FORMAT_VERSION})")
+        if manifest.get("quant"):
+            raise ValueError("int8-quantized bundles are not ported yet")
+        self.manifest = manifest
+        self.input_shape = tuple(manifest["input_shape"])
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(manifest.get("dtype", "float32"))
+        self.max_batch = int(max_batch)
+        self._params = params_from_jax(manifest, params)
+        self.forwards = self._build_chain()
+        #: bucket size → resident device input buffer (LRU-free: the
+        #: ladder bounds the count at log2(max_batch) + 1)
+        self._programs: dict[int, torch.Tensor] = {}
+        self._lock = threading.Lock()
+        #: programs made resident (one per warmed bucket)
+        self.programs_built = 0
+
+    @classmethod
+    def load(cls, path: str, device=None, **kwargs) -> "ExportedModel":
+        manifest, params = read_bundle(path)
+        return cls(manifest, params, device=device, **kwargs)
+
+    # ------------------------------------------------------------------
+    def _build_chain(self) -> torch.nn.ModuleList:
+        units = []
+        shape = self.input_shape
+        for i, spec in enumerate(self.manifest["layers"]):
+            if spec.get("tied_to") is not None:
+                raise ValueError(f"layer {i}: tied layers are not "
+                                 f"ported yet")
+            cls = layer_type(spec["type"])
+            unit = cls(shape, self.dtype, **dict(spec.get("config", {})))
+            unit.load_params({attr: self._params[f"layer{i}_{attr}"]
+                              for attr in cls.EXPORT_PARAMS
+                              if f"layer{i}_{attr}" in self._params})
+            units.append(unit)
+            shape = unit.output_shape
+        return torch.nn.ModuleList(units).to(self.device).eval()
+
+    # ------------------------------------------------------------------
+    def forward_padded(self, x: torch.Tensor) -> torch.Tensor:
+        """Run the chain on a device batch already in the manifest dtype."""
+        with torch.inference_mode():
+            for unit in self.forwards:
+                x = unit(x)
+        return x
+
+    def program_for(self, size: int):
+        """The program serving a PADDED batch of exactly ``size`` rows:
+        ``fn(x_host) -> device output``, where ``x_host`` is a CPU
+        tensor of the manifest dtype and shape ``(size, *input_shape)``.
+        Made resident on first use.  A program owns one device input
+        buffer, so one caller at a time runs it (the engine's
+        scheduler thread is the sole caller)."""
+        with self._lock:
+            buf = self._programs.get(size)
+            if buf is None:
+                buf = self._programs[size] = torch.empty(
+                    (size,) + self.input_shape, dtype=self.dtype,
+                    device=self.device)
+                self.programs_built += 1
+
+        def run(x_host: torch.Tensor) -> torch.Tensor:
+            buf.copy_(x_host, non_blocking=True)
+            return self.forward_padded(buf)
+
+        return run
+
+    def warmup(self, max_batch: int | None = None) -> int:
+        """Run every ladder bucket up to ``max_batch`` (default: this
+        model's cap) once on zeros, so serve time pays no first-launch
+        cost.  Returns the number of programs made resident."""
+        if max_batch is not None:
+            self.max_batch = max(self.max_batch, int(max_batch))
+        before = self.programs_built
+        for size in ladder(max_batch or self.max_batch):
+            fn = self.program_for(size)
+            fn(torch.zeros((size,) + self.input_shape,
+                           dtype=self.dtype))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.programs_built - before
+
+    def _as_input(self, x) -> torch.Tensor:
+        """A host batch rounded to the manifest dtype, shape-checked."""
+        t = torch.as_tensor(np.asarray(x, dtype=np.float32)).to(
+            self.dtype)
+        if tuple(t.shape[1:]) != self.input_shape:
+            raise ValueError(f"input sample shape {tuple(t.shape[1:])} "
+                             f"!= exported {self.input_shape}")
+        return t.contiguous()
+
+    def __call__(self, x) -> np.ndarray:
+        x = self._as_input(x)
+        batch = x.shape[0]
+        size = bucket_for(batch)
+        if size != batch:
+            # padded rows compute on zeros and are sliced off
+            padded = torch.zeros((size,) + self.input_shape,
+                                 dtype=x.dtype)
+            padded[:batch] = x
+            x = padded
+        out = self.program_for(size)(x)
+        return out[:batch].float().cpu().numpy()
+
+    def predict_classes(self, x) -> np.ndarray:
+        return np.argmax(self(x), axis=1)

@@ -1,0 +1,91 @@
+"""Global configuration tree (copy of ``znicz_tpu/utils/config.py``).
+
+A global ``root`` object whose intermediate nodes auto-vivify on
+attribute access (``root.common.engine.telemetry = False``), as in the
+reference's ``veles/config.py``.  The port keeps only the platform
+subtree it reads; sample subtrees arrive with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator
+
+
+class Config:
+    """A node in the attribute tree.  Leaves are ordinary values."""
+
+    __slots__ = ("__dict__", "_path")
+
+    def __init__(self, path: str = "root", **leaves: Any) -> None:
+        object.__setattr__(self, "_path", path)
+        for name, value in leaves.items():
+            setattr(self, name, value)
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def __getattr__(self, name: str) -> "Config":
+        # Only called when normal lookup fails: auto-vivify a child node.
+        if name.startswith("__") and name.endswith("__"):
+            raise AttributeError(name)
+        child = Config(f"{self._path}.{name}")
+        self.__dict__[name] = child
+        return child
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if isinstance(value, dict):
+            node = Config(f"{self._path}.{name}")
+            node.update(value)
+            value = node
+        self.__dict__[name] = value
+
+    def update(self, tree: dict) -> "Config":
+        """Recursively merge a plain-dict tree into this node."""
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                existing = self.__dict__.get(name)
+                if isinstance(existing, Config):
+                    existing.update(value)
+                else:
+                    setattr(self, name, value)
+            else:
+                setattr(self, name, value)
+        return self
+
+    def get(self, name: str, default: Any = None) -> Any:
+        """Read a leaf without vivifying it."""
+        return self.__dict__.get(name, default)
+
+    def as_dict(self) -> dict:
+        out: dict = {}
+        for name, value in self.__dict__.items():
+            out[name] = value.as_dict() if isinstance(value, Config) else value
+        return out
+
+    def items(self) -> Iterator[tuple[str, Any]]:
+        return iter(self.__dict__.items())
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.__dict__
+
+    def __repr__(self) -> str:
+        return f"Config({self._path}: {sorted(self.__dict__)})"
+
+
+def _default_root() -> Config:
+    r = Config("root")
+    r.common.engine.telemetry = True
+    r.common.seed = 1234
+    return r
+
+
+#: The global configuration tree.
+root = _default_root()
+
+
+def reset_root() -> None:
+    """Restore ``root`` to the platform defaults (used by tests)."""
+    fresh = _default_root()
+    root.__dict__.clear()
+    root.__dict__.update(fresh.__dict__)
