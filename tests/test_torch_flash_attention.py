@@ -1,4 +1,4 @@
-"""The port's flash-attention forward against the reference's Pallas kernel.
+"""The port's flash attention against the reference's Pallas kernels.
 
 The reference kernel (``znicz_tpu.ops.pallas_attention._fwd_kernel``)
 runs in interpret mode on the CPU, reached through ``ring_hop`` (which
@@ -8,13 +8,22 @@ returns ``(out, lse)`` at global offsets) and the public
 plain version its kernel wrapper takes for CPU tensors; the CUDA kernel
 itself is held to that plain version on the card by ``chip_smoke.py``.
 
+The backward (``_dq_kernel`` and ``_dkv_kernel``, reached through
+``jax.vjp`` of ``ring_hop`` with a nonzero lse cotangent) is held the
+same way against :func:`~znicz_tpu_torch.ops.flash_attention.flash_attention_bwd_plain`
+and against the autograd Function ``FlashHop``.
+
 Tolerances: float32 operands 2e-5 (summation order only: the plain
 version folds the whole key axis at once, the reference tile by tile);
 bf16 operands 2e-2 (p is rounded to bf16 before the p·v product at the
 running maximum in the reference and at the global maximum here, a
-flip of one bf16 ulp of p).
+flip of one bf16 ulp of p).  Gradients, relative to the largest
+|reference| of each: float32 5e-6 (summation order); bf16 1e-2 (p and
+ds are rounded to bf16 before their products at f32 values that differ
+in the last bits, which can flip one bf16 rounding of a term).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,3 +146,97 @@ def test_strided_views_of_a_packed_projection_match_contiguous():
     want, _ = fa.flash_attention_fwd(*(a.contiguous() for a in views),
                                      causal=True)
     assert torch.equal(got, want)
+
+
+#: gradient tolerance relative to max |reference gradient|
+BWD_TOL = {"float32": 5e-6, "bfloat16": 1e-2}
+
+
+def _ref_hop_grads(q, k, v, dout, dlse, causal, q_off, k_off, dtype):
+    """dq, dk, dv (B, T, H, dh) f32 from ``jax.vjp`` of the reference
+    hop in interpret mode, with cotangents ``dout`` and ``dlse``."""
+    jdt = getattr(jnp, dtype)
+    qh, kh, vh = (jnp.asarray(a).astype(jdt).transpose(0, 2, 1, 3)
+                  for a in (q, k, v))
+    _, pullback = jax.vjp(
+        lambda a, b, c: ref.ring_hop(a, b, c, q_off, k_off, causal, 16, 16,
+                                     interpret=True), qh, kh, vh)
+    grads = pullback((jnp.asarray(dout).astype(jdt).transpose(0, 2, 1, 3),
+                      jnp.asarray(dlse)[..., None]))
+    return [np.asarray(g.astype(jnp.float32)).transpose(0, 2, 1, 3)
+            for g in grads]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
+    (False, 0, 0, 32, 32),
+    (True, 32, 0, 32, 64),        # cross lengths, the diagonal mid-keys
+    (True, 8, 24, 32, 32),        # rows 8..23 fully masked
+])
+def test_backward_matches_reference_kernels(dtype, causal, q_off, k_off,
+                                            tq, tk):
+    q, k, v = _qkv(1, tq, tk, 2, 16, seed=tq + tk + q_off)
+    rng = np.random.default_rng(q_off + 100)
+    dout = rng.normal(0, 1, q.shape).astype(np.float32)
+    dlse = rng.normal(0, 1, (1, 2, tq)).astype(np.float32)
+    want = _ref_hop_grads(q, k, v, dout, dlse, causal, q_off, k_off, dtype)
+    tdt = getattr(torch, dtype)
+    tq_, tk_, tv_ = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tdo, tdl = torch.from_numpy(dout).to(tdt), torch.from_numpy(dlse)
+    out, lse = fa.flash_attention_plain(tq_, tk_, tv_, causal, q_off, k_off)
+    plain = fa.flash_attention_bwd_plain(tq_, tk_, tv_, out, lse, tdo, tdl,
+                                         causal, q_off, k_off)
+    leaves = [a.clone().requires_grad_() for a in (tq_, tk_, tv_)]
+    o, l = fa.FlashHop.apply(*leaves, causal, q_off, k_off)
+    torch.autograd.backward([o, l], [tdo, tdl])
+    for name, w, got, through_fn in zip("qkv", want, plain,
+                                        (a.grad for a in leaves)):
+        assert got.dtype == tdt and got.shape == w.shape, name
+        atol = BWD_TOL[dtype] * np.abs(w).max()
+        np.testing.assert_allclose(got.float().numpy(), w, rtol=0,
+                                   atol=atol, err_msg=f"d{name} plain")
+        np.testing.assert_allclose(through_fn.float().numpy(), w, rtol=0,
+                                   atol=atol, err_msg=f"d{name} FlashHop")
+
+
+def test_lse_cotangent_enters_the_gradient():
+    """A nonzero lse cotangent moves dq and dk (it folds into delta);
+    without it the Function's gradient is the out-only one."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 2, 16, seed=8))
+    dout = torch.ones(1, 16, 2, 16)
+    out, lse = fa.flash_attention_plain(q, k, v)
+    no_lse = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    with_lse = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                            torch.ones(1, 2, 16))
+    assert not torch.allclose(no_lse[0], with_lse[0])
+    assert torch.equal(no_lse[2], with_lse[2])  # dv does not see delta
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    fa.flash_attention(*leaves).backward(dout)
+    for got, want in zip((a.grad for a in leaves), no_lse):
+        assert torch.equal(got, want)
+
+
+def test_backward_wrappers_take_the_plain_version_for_cpu_tensors_only():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 16, 16, 2, 64, seed=4))
+    out, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    dout = torch.ones_like(out)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = delta.contiguous()
+    before = (fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    args = (q, k, v, dout, lse, delta, True)
+    assert torch.equal(fa.flash_attention_dq(*args),
+                       fa.flash_attention_dq_plain(*args))
+    for got, want in zip(fa.flash_attention_dkv(*args),
+                         fa.flash_attention_dkv_plain(*args)):
+        assert torch.equal(got, want)
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before
+    meta = [a.to("meta") for a in args[:6]]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_dq(*meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_dkv(*meta)
+    with pytest.raises(ValueError, match="must be f32"):
+        fa.flash_attention_dq(q, k, v, dout, lse[:, :1], delta)

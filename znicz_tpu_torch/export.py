@@ -18,13 +18,19 @@ builds the kernels and pays every first-launch cost (kernel loading,
 cuBLAS workspaces, allocator growth) before any request does.  Every
 bucket keeps one device input buffer, refilled in place per dispatch.
 
+:func:`export_forward` writes a trained port workflow in the same
+format, so the bundle serves through this module and through the
+reference's.
+
 Parameters stay float32 in every precision mode.  Hot swap, int8
 bundles and replication over several GPUs belong to later slices.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import threading
 
 import numpy as np
@@ -49,6 +55,41 @@ def read_bundle(path: str) -> tuple[dict, dict]:
         manifest = json.loads(bytes(bundle["manifest"]).decode())
         params = {k: bundle[k] for k in bundle.files if k != "manifest"}
     return manifest, params
+
+
+def export_forward(workflow, path: str) -> str:
+    """Write the forward chain of a trained
+    :class:`~znicz_tpu_torch.models.standard_workflow.StandardWorkflow`
+    to ``path`` as the reference's ``export_forward`` does: the
+    manifest (layer types and configs, input geometry, the precision
+    mode it trained under, ``kind`` "scorer") beside the f32
+    ``layer{i}_{attr}`` arrays in one compressed ``.npz``, written to a
+    temporary file and renamed into place.  Returns the path."""
+    layers = [{"type": spec["type"], "config": spec.get("->", {}),
+               "has_weights": True,
+               "has_bias": bool(getattr(unit, "include_bias", False)),
+               "name": unit.name}
+              for spec, unit in zip(workflow.layers_config,
+                                    workflow.forwards)]
+    manifest = {
+        "format": FORMAT_NAME, "version": FORMAT_VERSION,
+        "workflow": workflow.name, "loss": workflow.loss,
+        "input_shape": list(workflow.loader.sample_shape),
+        "dtype": str(workflow.compute_dtype).removeprefix("torch."),
+        "layers": layers, "kind": "scorer"}
+    arrays = {f"layer{i}_{attr}": getattr(unit, attr).detach().float()
+              .cpu().numpy()
+              for i, unit in enumerate(workflow.forwards)
+              for attr in unit.EXPORT_PARAMS if hasattr(unit, attr)}
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
+                                       dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)
+    return path
 
 
 def params_from_jax(manifest: dict, params: dict) -> dict[str, torch.Tensor]:

@@ -1,0 +1,101 @@
+"""Full-batch loaders: the whole dataset resident on the device, each
+minibatch an on-device gather (port of ``znicz_tpu/loader/fullbatch.py``).
+
+The dataset stays in its original dtype on the device (a bf16 dataset
+costs half of f32); the gathered batch is stored at the activation
+dtype.  The epoch order lives on the device too and is uploaded once
+per shuffle, so a step moves no indices from the host: it gathers
+``order[lo:hi]`` (padded by repeating the first index) straight from
+the resident copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.loader.base import TEST, TRAIN, VALID, Loader
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A dataset array as a CPU tensor (numpy or torch input)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class FullBatchLoader(Loader):
+    """Loader whose subclass provides the entire dataset as tensors.
+
+    Subclasses implement :meth:`load_data` and set ``original_data`` /
+    ``original_labels`` plus ``class_lengths``.  Samples are ordered
+    test, validation, train along axis 0.
+    """
+
+    def __init__(self, workflow=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        self.original_data: torch.Tensor | None = None
+        self.original_labels: torch.Tensor | None = None
+        #: the epoch order on the device (refreshed by each shuffle)
+        self._order: torch.Tensor | None = None
+
+    @property
+    def sample_shape(self) -> tuple:
+        return tuple(self.original_data.shape[1:])
+
+    def create_minibatch_data(self) -> None:
+        self.original_data = self.original_data.to(self.device)
+        if self.original_labels is not None:
+            self.original_labels = self.original_labels.to(self.device)
+
+    def on_shuffled(self) -> None:
+        self._order = torch.from_numpy(self._shuffled).to(self.device)
+
+    def gather(self, lo: int, hi: int) -> None:
+        idx = self._order[lo:hi]
+        pad = self.max_minibatch_size - (hi - lo)
+        if pad:  # the short tail repeats its first sample (masked)
+            idx = torch.cat([idx, idx[:1].expand(pad)])
+        self.minibatch_data = self.original_data.index_select(0, idx).to(
+            self.act_store_dtype)
+        if self.original_labels is not None:
+            self.minibatch_labels = self.original_labels.index_select(0,
+                                                                      idx)
+
+
+class ArrayLoader(FullBatchLoader):
+    """FullBatchLoader fed directly with arrays per class (numpy arrays
+    or CPU tensors; a bf16 tensor keeps a bf16 dataset)."""
+
+    def __init__(self, workflow=None, train_data=None, train_labels=None,
+                 valid_data=None, valid_labels=None, test_data=None,
+                 test_labels=None, **kwargs) -> None:
+        super().__init__(workflow, **kwargs)
+        if train_data is None:
+            raise ValueError("train_data is required")
+        self._arrays = ((test_data, test_labels), (valid_data, valid_labels),
+                        (train_data, train_labels))
+
+    def load_data(self) -> None:
+        datas, labels = [], []
+        lengths = [0, 0, 0]
+        for cls, (d, l) in zip((TEST, VALID, TRAIN), self._arrays):
+            if d is None:
+                if l is not None:
+                    raise ValueError(f"{self.name}: labels without data "
+                                     f"for class {cls}")
+                continue
+            lengths[cls] = len(d)
+            datas.append(_as_tensor(d))
+            labels.append(None if l is None
+                          else _as_tensor(np.asarray(l, dtype=np.int32)))
+        if any(l is not None for l in labels):
+            if any(l is None for l in labels):
+                # labels index by global sample position: partial labels
+                # would misalign the gather
+                raise ValueError(
+                    f"{self.name}: labels given for some classes but not "
+                    f"others — provide labels for every supplied split")
+            self.original_labels = torch.cat(labels)
+        self.class_lengths = lengths
+        self.original_data = torch.cat(datas)

@@ -1,15 +1,17 @@
 """Layer-type registry (counterpart of
 ``znicz_tpu/models/standard_workflow.layer_type``).
 
-Maps a bundle manifest's layer ``type`` name to the port unit that
-computes it.  A type the reference knows but the port has not ported
-yet raises, naming itself, so a bundle the port cannot serve fails
-when it loads rather than serving something else.
+Maps a bundle manifest's (or a workflow's) layer ``type`` name to the
+port unit that computes it; :func:`znicz_tpu_torch.ops.nn_units.gd_for`
+then gives its backward unit.  A type the reference knows but the port
+has not ported yet raises, naming itself, so a bundle the port cannot
+serve fails when it loads rather than serving something else.
 """
 
 from __future__ import annotations
 
 from znicz_tpu_torch.ops import all2all, attention, layer_norm
+from znicz_tpu_torch.ops import gd  # noqa: F401 — registers the pairs
 
 _LAYER_TYPES: dict[str, type] = {
     "all2all": all2all.All2All,

@@ -7,8 +7,9 @@ per-sample argmax ``max_idx`` (int32), as the reference's unit does.
 Its probabilities stay f32 in every precision mode.  The products are
 plain ``torch.matmul`` calls, as the reference left them to XLA.
 
-The activation flavors (tanh, relu, …) and tensor parallelism arrive
-with later slices.
+Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  The
+activation flavors (tanh, relu, …) and tensor parallelism arrive with
+later slices.
 """
 
 from __future__ import annotations
@@ -40,6 +41,18 @@ class All2All(Forward):
         if self.include_bias:
             shapes["bias"] = (n_out,)
         return shapes
+
+    def initial_params(self) -> dict[str, np.ndarray]:
+        n_in = int(np.prod(self.input_shape))
+        shapes = self.param_shapes()
+        params = {"weights": self.fill_array(
+            shapes["weights"], self.weights_filling, self.weights_stddev,
+            fan_in=n_in)}
+        if self.include_bias:
+            params["bias"] = self.fill_array(
+                shapes["bias"], self.bias_filling, self.bias_stddev,
+                fan_in=n_in)
+        return params
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         y = self.mxu_dot(x.reshape(x.shape[0], -1), self.weights)

@@ -1,4 +1,5 @@
-"""Multi-head attention unit (port of ``znicz_tpu/ops/attention.py``).
+"""Multi-head attention unit and its backward (port of
+``znicz_tpu/ops/attention.py``).
 
 ``MultiHeadAttention`` maps (B, T, D) → (B, T, D) as the reference's
 ``xla_forward`` does:
@@ -17,18 +18,29 @@ through :func:`~znicz_tpu_torch.ops.flash_attention.flash_attention`:
 the kernel on the card, its plain version on the CPU.  The q/k/v
 slices reach it as strided views of the projection, with no copy.
 
-The ring (sequence-parallel) path, the decode steps and the backward
-arrive with later slices.  A bundle trained with ``seq_parallel`` or
+Backward: ``GDMultiHeadAttention`` takes ``torch.autograd.grad`` of the
+output the forward kept on the train step, with respect to ``(x,
+W_qkv, b_qkv, W_out, b_out)`` — the counterpart of the reference's
+stashed ``jax.vjp`` pullback, so the forward never runs twice.  The
+core's gradient is the flash backward kernels (through
+:class:`~znicz_tpu_torch.ops.flash_attention.FlashHop`).  Autograd
+rounds each cotangent to bf16 where the forward cast to bf16, as
+``jax.vjp`` does at the same casts, so the forward's chain of casts
+here must stay the reference's.
+
+The ring (sequence-parallel) path and the decode steps arrive with
+later slices.  A bundle trained with ``seq_parallel`` or
 ``flash_block_k`` serves here all the same: both were layout choices
 with identical math.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops.flash_attention import flash_attention
-from znicz_tpu_torch.ops.nn_units import Forward
+from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
 
 
 def split_heads(qkv: torch.Tensor, n_heads: int):
@@ -45,6 +57,8 @@ class MultiHeadAttention(Forward):
     """Weighted multi-head self-attention layer."""
 
     EXPORT_PARAMS = ("weights", "bias", "weights_out", "bias_out")
+    #: fan-scaled initial fill, as the reference's attention defaults to
+    WEIGHTS_FILLING = "xavier"
 
     def __init__(self, input_shape, compute_dtype: torch.dtype,
                  n_heads: int, causal: bool = False,
@@ -60,6 +74,13 @@ class MultiHeadAttention(Forward):
         if d % self.n_heads:
             raise ValueError(f"features {d} not divisible by "
                              f"{self.n_heads} heads")
+        #: set by the backward unit: keep the autograd graph of a call
+        #: made with gradients enabled, and whether ``x``'s gradient is
+        #: wanted too
+        self.keep_graph = False
+        self.input_grad = False
+        #: ``(x, f32 output)`` of the last call that kept its graph
+        self.stash: tuple | None = None
 
     def param_shapes(self) -> dict[str, tuple]:
         d = self.input_shape[1]
@@ -68,7 +89,29 @@ class MultiHeadAttention(Forward):
             shapes.update(bias=(3 * d,), bias_out=(d,))
         return shapes
 
+    def initial_params(self) -> dict[str, np.ndarray]:
+        d = self.input_shape[1]
+        params = {
+            "weights": self.fill_array((d, 3 * d), self.weights_filling,
+                                       self.weights_stddev, fan_in=d),
+            "weights_out": self.fill_array((d, d), self.weights_filling,
+                                           self.weights_stddev, fan_in=d)}
+        if self.include_bias:
+            params.update(bias=np.zeros(3 * d, np.float32),
+                          bias_out=np.zeros(d, np.float32))
+        return params
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.keep_graph and torch.is_grad_enabled()):
+            return self.core(x).to(self.output_store_dtype)
+        x = x.detach().requires_grad_(self.input_grad)
+        y = self.core(x)
+        self.stash = (x, y)
+        return y.detach().to(self.output_store_dtype)
+
+    def core(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 output (B, T, D) before its storage cast — what the
+        reference's ``xla_forward`` returns and differentiates."""
         b, t, d = x.shape
         qkv = self.mxu_dot(x.float().reshape(b * t, d), self.weights)
         if self.include_bias:
@@ -82,4 +125,49 @@ class MultiHeadAttention(Forward):
         y = self.mxu_dot(o.reshape(b * t, d), self.weights_out)
         if self.include_bias:
             y = y + self.bias_out
-        return y.reshape(b, t, d).to(self.output_store_dtype)
+        return y.reshape(b, t, d)
+
+
+class GDMultiHeadAttention(GradientDescentBase):
+    """Attention backward: autograd of the output the forward kept,
+    then the base update for both parameter pairs."""
+
+    MATCHES = (MultiHeadAttention,)
+
+    def __init__(self, forward_unit: MultiHeadAttention, **kwargs) -> None:
+        super().__init__(forward_unit, **kwargs)
+        self.alloc_accumulator("accumulated_gradient_weights_out",
+                               "weights_out", self.gradient_moment)
+        self.alloc_accumulator("accumulated_gradient_bias_out",
+                               "bias_out", self.gradient_moment_bias)
+        for attr in forward_unit.param_shapes():
+            getattr(forward_unit, attr).requires_grad_(True)
+        forward_unit.keep_graph = True
+        forward_unit.input_grad = self.need_err_input
+
+    def run(self, x: torch.Tensor,
+            err_output: torch.Tensor) -> torch.Tensor | None:
+        fwd = self.forward_unit
+        stash, fwd.stash = fwd.stash, None  # the graph is used once
+        if stash is None:
+            raise RuntimeError(f"{type(fwd).__name__}: no forward graph "
+                               f"kept for this step (run the forward "
+                               f"with gradients enabled first)")
+        x_leaf, y = stash
+        names = list(fwd.param_shapes())
+        inputs = [getattr(fwd, n) for n in names]
+        if self.need_err_input:
+            inputs.append(x_leaf)
+        # every gradient is taken before any parameter changes below
+        grads = dict(zip(names + ["x"], torch.autograd.grad(
+            y, inputs, grad_outputs=err_output.float())))
+        self.apply_weights(grads["weights"])
+        self.apply_weights(grads["weights_out"], "weights_out",
+                           "accumulated_gradient_weights_out")
+        if fwd.include_bias:
+            self.apply_bias(grads["bias"])
+            self.apply_bias(grads["bias_out"], "bias_out",
+                            "accumulated_gradient_bias_out")
+        if not self.need_err_input:
+            return None
+        return grads["x"].to(self.act_store_dtype)

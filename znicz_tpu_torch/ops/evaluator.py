@@ -1,0 +1,59 @@
+"""Softmax evaluator: the backward chain's seed error and the quality
+counters (port of ``znicz_tpu/ops/evaluator.py``).
+
+``EvaluatorSoftmax`` takes the softmax output ``p`` (f32), the argmax,
+the labels and the count of valid samples, and gives
+
+- ``err_output = mask·(p − onehot(t)) / max(valid, 1)`` — the combined
+  softmax + cross-entropy derivative with respect to the logits, zero on
+  the padded tail of a short minibatch;
+- ``n_err`` — mispredictions among the valid samples;
+- ``epoch_n_err`` and ``epoch_loss`` — per-class (test, validation,
+  train) error counts and summed cross-entropy ``−log p(true)`` for the
+  epoch, accumulated on the device so the decision unit reads them
+  once per epoch, not once per step.  A non-finite step loss is left
+  out of the accumulator, as in the reference.
+
+The confusion matrix and ``EvaluatorMSE`` arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from znicz_tpu_torch.utils.logger import Logger
+
+
+class EvaluatorSoftmax(Logger):
+    """Softmax cross-entropy evaluator."""
+
+    def __init__(self, device: torch.device, name: str = "evaluator"
+                 ) -> None:
+        super().__init__()
+        self.name = name
+        self.n_err = torch.zeros((), dtype=torch.int32, device=device)
+        self.epoch_n_err = torch.zeros(3, dtype=torch.int32, device=device)
+        self.epoch_loss = torch.zeros(3, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def run(self, p: torch.Tensor, max_idx: torch.Tensor,
+            labels: torch.Tensor, valid: int,
+            minibatch_class: int) -> torch.Tensor:
+        """One minibatch: returns ``err_output`` (f32, p's shape)."""
+        n = p.shape[0]
+        mask = torch.arange(n, device=p.device) < valid
+        onehot = (labels[:, None] == torch.arange(
+            p.shape[1], device=p.device)[None, :]).to(p.dtype)
+        err = mask[:, None] * (p - onehot) / float(max(valid, 1))
+        self.n_err = ((max_idx != labels) & mask).sum().to(torch.int32)
+        self.epoch_n_err[minibatch_class] += self.n_err
+        p_true = torch.clamp(p[torch.arange(n, device=p.device),
+                               labels.long()], min=1e-30)
+        loss = (mask * -torch.log(p_true)).sum()
+        self.epoch_loss[minibatch_class] += torch.where(
+            torch.isfinite(loss), loss, torch.zeros_like(loss))
+        return err
+
+    def state_dict(self) -> dict:
+        return {"epoch_n_err": self.epoch_n_err.cpu().numpy(),
+                "epoch_loss": self.epoch_loss.cpu().numpy()}

@@ -1,24 +1,38 @@
-"""Flash-attention forward (port of ``znicz_tpu/ops/pallas_attention.py``).
+"""Flash attention (port of ``znicz_tpu/ops/pallas_attention.py``).
 
-:func:`flash_attention_fwd` is the wrapper of the CUDA kernel
-``csrc/flash_attention_fwd.cu``, which replaces the Pallas TPU kernel
-``_fwd_kernel`` (B7).  It returns ``(out, lse)`` as the reference's
-``_flash_hop`` does: ``out`` in q's dtype, ``lse`` the f32 row
-logsumexp, with ``q_offset``/``k_offset`` placing the call on a global
-sequence axis for causal masking (the ring-hop geometry a later slice
-builds on).  :func:`flash_attention` is the public entry the attention
-unit calls: it casts the operands to ``dot_dtype`` first and upcasts
-``out`` to f32, as the reference's ``flash_attention`` does.
+Three CUDA kernels, each replacing one Pallas TPU kernel, each with a
+launch counter and a plain PyTorch version beside it:
 
-Layout: the boundary layout (B, T, H, dh) throughout.  The kernel
-reads it through strides, so the reference's head-major transposes
+- :func:`flash_attention_fwd` (``csrc/flash_attention_fwd.cu``,
+  replacing ``_fwd_kernel``, B7) returns ``(out, lse)`` as the
+  reference's ``_flash_hop`` does: ``out`` in q's dtype, ``lse`` the f32
+  row logsumexp;
+- :func:`flash_attention_dq` and :func:`flash_attention_dkv`
+  (``csrc/flash_attention_bwd.cu``, replacing ``_dq_kernel`` and
+  ``_dkv_kernel``, B8 and B9) recompute ``p = exp(s − lse)`` tile by
+  tile and return dq, and dk and dv.
+
+``q_offset``/``k_offset`` place a call on a global sequence axis for
+causal masking (the ring-hop geometry a later slice builds on).
+:func:`flash_attention_bwd` is the backward of one such call: it forms
+``delta = rowsum(do·out) − dlse`` in f32 with plain torch ops, as the
+reference does in XLA between its kernels, then runs both backward
+kernels.  :class:`FlashHop` is the ``torch.autograd.Function`` around
+the pair, the counterpart of the reference's ``_flash_hop`` custom_vjp:
+its backward folds the lse cotangent into ``delta``, so hops composed
+through their lse get the right gradients.  :func:`flash_attention` is
+the public entry the attention unit calls: it casts the operands to
+``dot_dtype`` first and upcasts ``out`` to f32, as the reference's
+``flash_attention`` does, and it is differentiable through
+:class:`FlashHop`.
+
+Layout: the boundary layout (B, T, H, dh) throughout.  The kernels read
+and write it through strides, so the reference's head-major transposes
 (``pack_heads``) have no counterpart here; ``head_pack`` existed to
 fill the TPU's 128-lane tiles and is not carried over.
 
-:func:`flash_attention_plain` computes the same function with plain
-PyTorch.  The wrapper uses it only for tensors on the CPU; a CUDA
-tensor gets the kernel or an error.  Forward only: the backward
-kernels (B8/B9) arrive with the training slice.
+A wrapper uses its plain version only for tensors on the CPU; a CUDA
+tensor gets the kernel or an error.
 """
 
 from __future__ import annotations
@@ -35,19 +49,29 @@ NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
 
-_argtypes_set = False
+_bound: set[str] = set()
 
 
-def _lib() -> ctypes.CDLL:
-    global _argtypes_set
-    lib = _cuda.library("flash_attention_fwd")
-    if not _argtypes_set:
+def _lib(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` with its C signatures
+    declared (pointers and the stream as ``c_void_p``, so ctypes never
+    cuts a 64-bit address)."""
+    lib = _cuda.library(stem)
+    if stem not in _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.znicz_flash_attention_fwd.argtypes = (
-            [p] * 5 + [i] * 5 + [ll] * 12
-            + [ctypes.c_float, i, ll, ll, p])
-        lib.znicz_flash_attention_fwd.restype = i
-        _argtypes_set = True
+        tail = [ctypes.c_float, i, ll, ll, p]
+        if stem == "flash_attention_fwd":
+            lib.znicz_flash_attention_fwd.argtypes = (
+                [p] * 5 + [i] * 5 + [ll] * 12 + tail)
+            lib.znicz_flash_attention_fwd.restype = i
+        else:
+            lib.znicz_flash_attention_dq.argtypes = (
+                [p] * 7 + [i] * 5 + [p] + [ll] * 3 + tail)
+            lib.znicz_flash_attention_dq.restype = i
+            lib.znicz_flash_attention_dkv.argtypes = (
+                [p] * 8 + [i] * 5 + [p, p] + tail)
+            lib.znicz_flash_attention_dkv.restype = i
+        _bound.add(stem)
     return lib
 
 
@@ -67,15 +91,32 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v lie on different devices")
 
 
+def _kernel_layout_ok(a: torch.Tensor) -> bool:
+    """The kernels read and write 16-byte chunks of each (b, t, h) row:
+    the head dim contiguous and every row on a 16-byte boundary."""
+    return (a.stride(-1) == 1 and a.data_ptr() % 16 == 0
+            and not any(s % 8 for s in a.stride()[:3]))
+
+
 def _check_kernel_operand(name: str, a: torch.Tensor) -> None:
-    """The kernel reads 16-byte chunks of each (b, t, h) row."""
-    if a.stride(-1) != 1:
-        raise ValueError(f"{name}: the head dim must be contiguous, "
-                         f"strides {a.stride()}")
-    if a.data_ptr() % 16 or any(s % 8 for s in a.stride()[:3]):
-        raise ValueError(f"{name}: rows must start on 16-byte "
-                         f"boundaries (strides {a.stride()}, "
-                         f"offset {a.data_ptr() % 16})")
+    if not _kernel_layout_ok(a):
+        raise ValueError(f"{name}: the head dim must be contiguous and "
+                         f"rows must start on 16-byte boundaries "
+                         f"(strides {a.stride()}, offset "
+                         f"{a.data_ptr() % 16})")
+
+
+def _check_kernel_call(q: torch.Tensor, name: str) -> None:
+    """What every kernel takes on the card: bf16 operands and a head
+    dim it is instantiated for."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the {name} kernel takes bfloat16 operands, "
+                         f"got {q.dtype}")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {name} kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {q.shape[3]}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,23 +132,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, q_offset, k_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the flash kernel takes bfloat16 operands, got "
-                         f"{q.dtype}")
+    _check_kernel_call(q, "flash")
     b, tq, h, dh = q.shape
     tk = k.shape[1]
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {dh}")
     for name, a in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, a)
     out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().znicz_flash_attention_fwd(
+        err = _lib("flash_attention_fwd").znicz_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, tq, tk, dh,
             q.stride(0), q.stride(1), q.stride(2),
@@ -157,14 +191,235 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (m + torch.log(l)).squeeze(-1)
 
 
+def _check_bwd(q, k, v, dout, lse, delta) -> None:
+    _check(q, k, v)
+    b, tq, h, _ = q.shape
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be f32 of shape {(b, h, tq)} "
+                             f"on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _bwd_args(q, k, v, dout, lse, delta, name):
+    """The checks and the shared leading arguments of both backward
+    kernels' C calls (pointers, geometry, input strides)."""
+    _check_kernel_call(q, name)
+    if dout.dtype != q.dtype:
+        raise ValueError(f"dout must be {q.dtype}, got {dout.dtype}")
+    for arg, a in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _check_kernel_operand(arg, a)
+    for arg, t in (("lse", lse), ("delta", delta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    b, tq, h, dh = q.shape
+    strides = (ctypes.c_longlong * 12)(
+        *(s for a in (q, k, v, dout) for s in a.stride()[:3]))
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()],
+            [b, h, tq, k.shape[1], dh], strides)
+
+
+def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool = False,
+                       q_offset: int = 0, k_offset: int = 0
+                       ) -> torch.Tensor:
+    """dq (B, Tq, H, dh) in q's dtype from the forward's ``lse`` and
+    ``delta = rowsum(do·out) − dlse`` (both (B, H, Tq) f32).  On the
+    card: bf16, dh in :data:`KERNEL_HEAD_DIMS`, any Tq/Tk.  CPU tensors
+    take :func:`flash_attention_dq_plain`."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, dout, lse, delta, causal,
+                                        q_offset, k_offset)
+    ptrs, geom, strides = _bwd_args(q, k, v, dout, lse, delta, "flash dq")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib("flash_attention_bwd").znicz_flash_attention_dq(
+            *ptrs, out.data_ptr(), *geom, strides, *out.stride()[:3],
+            1.0 / math.sqrt(q.shape[3]), int(bool(causal)), int(q_offset),
+            int(k_offset), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_dq kernel launch failed "
+                           f"(cudaError {err})")
+    flash_attention_dq.launches += 1
+    return out
+
+
+#: kernel launches since the counter was last set to 0
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, causal: bool = False,
+                        q_offset: int = 0, k_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)``, each (B, Tk, H, dh) in k's and v's dtype, from the
+    same inputs as :func:`flash_attention_dq`.  CPU tensors take
+    :func:`flash_attention_dkv_plain`."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                         q_offset, k_offset)
+    ptrs, geom, strides = _bwd_args(q, k, v, dout, lse, delta,
+                                    "flash dk/dv")
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    out_strides = (ctypes.c_longlong * 6)(*dk.stride()[:3],
+                                          *dv.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib("flash_attention_bwd").znicz_flash_attention_dkv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *geom, strides,
+            out_strides, 1.0 / math.sqrt(q.shape[3]), int(bool(causal)),
+            int(q_offset), int(k_offset), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_dkv kernel launch failed "
+                           f"(cudaError {err})")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+#: kernel launches since the counter was last set to 0
+flash_attention_dkv.launches = 0
+
+
+def _recompute(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
+    """The backward kernels' shared recompute in plain PyTorch, head-
+    major f32: ``(q, k, do, p, ds)`` with ``p = exp(s − lse)`` (masked
+    logits −1e30 and masked p 0, as the reference's ``_p_tile``) and
+    ``ds = p·(dp − delta)·scale``."""
+    tq, dh = q.shape[1], q.shape[3]
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    qh, kh, vh, doh = (a.permute(0, 2, 1, 3).float()
+                       for a in (q, k, v, dout))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    mask = None
+    if causal:
+        rows = q_offset + torch.arange(tq, device=q.device)
+        cols = k_offset + torch.arange(tk, device=q.device)
+        mask = rows[:, None] >= cols[None, :]
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - delta.float()[..., None]) * scale
+    return qh, kh, doh, p, ds
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 values rounded to ``dtype`` (the operand dtype of the next
+    tile product), kept in f32."""
+    return t.to(dtype).float()
+
+
+def _boundary(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Head-major f32 (B, H, T, dh) → boundary layout in ``dtype``."""
+    return t.to(dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_attention_dq_plain(q, k, v, dout, lse, delta, causal=False,
+                             q_offset=0, k_offset=0) -> torch.Tensor:
+    """dq in plain PyTorch with the reference kernel's numerics: ds
+    rounded to the operand dtype before ``ds·k``, f32 accumulation,
+    stored in q's dtype."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    _, kh, _, _, ds = _recompute(q, k, v, dout, lse, delta, causal,
+                                 q_offset, k_offset)
+    return _boundary(torch.matmul(_rounded(ds, k.dtype), kh), q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal=False,
+                              q_offset=0, k_offset=0
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` in plain PyTorch: p and ds rounded to the operand
+    dtype before ``pᵀ·do`` and ``dsᵀ·q``, f32 accumulation."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    qh, _, doh, p, ds = _recompute(q, k, v, dout, lse, delta, causal,
+                                   q_offset, k_offset)
+    dv = torch.matmul(_rounded(p, dout.dtype).transpose(-1, -2), doh)
+    dk = torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2), qh)
+    return _boundary(dk, k.dtype), _boundary(dv, v.dtype)
+
+
+def _bwd(q, k, v, out, lse, dout, dlse, causal, q_offset, k_offset,
+         dq_fn, dkv_fn):
+    dout = dout.to(q.dtype)
+    if dout.device.type == "cuda" and not _kernel_layout_ok(dout):
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
+    args = (q, k, v, dout, lse, delta, causal, q_offset, k_offset)
+    return (dq_fn(*args), *dkv_fn(*args))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None,
+                        causal: bool = False, q_offset: int = 0,
+                        k_offset: int = 0):
+    """The backward of one flash call: ``(dq, dk, dv)`` from the
+    forward's saved ``(q, k, v, out, lse)`` and the cotangents of
+    ``out`` and ``lse`` (``dlse`` None for a call whose lse was not
+    used).  As the reference's ``_hop_bwd``: ``do`` is cast to q's
+    dtype, ``delta = rowsum(do·out) − dlse`` is formed in f32 by plain
+    torch ops, then the dq and dk/dv kernels run."""
+    return _bwd(q, k, v, out, lse, dout, dlse, causal, q_offset, k_offset,
+                flash_attention_dq, flash_attention_dkv)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, dlse=None,
+                              causal: bool = False, q_offset: int = 0,
+                              k_offset: int = 0):
+    """:func:`flash_attention_bwd` through the kernels' plain versions,
+    on any device."""
+    return _bwd(q, k, v, out, lse, dout, dlse, causal, q_offset, k_offset,
+                flash_attention_dq_plain, flash_attention_dkv_plain)
+
+
+class FlashHop(torch.autograd.Function):
+    """One flash call at global offsets, differentiable in q, k and v:
+    ``(out, lse)`` forward through the flash kernel, the dq and dk/dv
+    kernels backward — the counterpart of the reference's
+    ``_flash_hop`` custom_vjp.  The lse cotangent enters ``delta``, so
+    a composition of hops through their lse (the ring) differentiates
+    correctly."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, k_offset):
+        out, lse = flash_attention_fwd(q, k, v, causal, q_offset, k_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.geometry = (bool(causal), int(q_offset), int(k_offset))
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, dlse,
+                                         *ctx.geometry)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, dot_dtype: torch.dtype | None = None,
                     q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
     """Fused attention (B, T, H, dh) → (B, T, H, dh) f32: operands cast
     to ``dot_dtype`` (the tile-product dtype, bf16 in mixed precision),
     the kernel's ``out`` upcast to f32 — the reference's public
-    ``flash_attention``."""
+    ``flash_attention``.  Differentiable through :class:`FlashHop`."""
     if dot_dtype is not None:
         q, k, v = (a.to(dot_dtype) for a in (q, k, v))
-    out, _ = flash_attention_fwd(q, k, v, causal, q_offset, k_offset)
+    out, _ = FlashHop.apply(q, k, v, causal, q_offset, k_offset)
     return out.float()

@@ -1,0 +1,59 @@
+"""Gradient-descent units of the fully-connected family (port of
+``znicz_tpu/ops/gd.py``).
+
+Math (weights stored ``(in, out)``), the reference's explicit formulas:
+
+.. code-block:: text
+
+    err_input = mxu_dot(δ, Wᵀ)        stored in the activation dtype
+    dL/dW     = mxu_dot(xᵀ, δ)
+    dL/db     = Σ_batch δ             f32
+
+then the shared update of
+:class:`~znicz_tpu_torch.ops.nn_units.GradientDescentBase`.  In bf16 mode
+``mxu_dot`` rounds δ to bf16 *before* each product; autograd through
+the forward would instead round the product's result, so these units
+write the formulas out rather than differentiate.  The evaluator emits
+``err_output`` already divided by the number of valid samples.
+
+``GDSoftmax`` is the linear case: ``EvaluatorSoftmax`` folds the
+softmax + cross-entropy derivative (``p − t``) into ``err_output``.
+The activation flavors arrive with their forward units.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from znicz_tpu_torch.ops.all2all import All2All, All2AllSoftmax
+from znicz_tpu_torch.ops.nn_units import GradientDescentBase
+
+
+class GradientDescent(GradientDescentBase):
+    """Backward of the linear ``All2All``."""
+
+    MATCHES = (All2All,)
+
+    @torch.no_grad()
+    def run(self, x: torch.Tensor,
+            err_output: torch.Tensor) -> torch.Tensor | None:
+        fwd = self.forward_unit
+        batch = x.shape[0]
+        x2d = x.reshape(batch, -1)
+        delta = err_output.reshape(batch, -1)
+        err_input = None
+        if self.need_err_input:
+            # reads W before this unit's own update below
+            err_input = fwd.mxu_dot(delta, fwd.weights.t()).reshape(
+                x.shape).to(self.act_store_dtype)
+        self.apply_weights(fwd.mxu_dot(x2d.t(), delta))
+        if fwd.include_bias:
+            self.apply_bias(delta.float().sum(dim=0))
+        return err_input
+
+
+class GDSoftmax(GradientDescent):
+    """Linear backward: the evaluator already folded the softmax +
+    cross-entropy derivative into ``err_output``."""
+
+    MATCHES = (All2AllSoftmax,)

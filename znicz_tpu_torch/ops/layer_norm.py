@@ -1,20 +1,26 @@
-"""Layer normalization unit (port of ``znicz_tpu/ops/layer_norm.py``).
+"""Layer normalization unit and its backward (port of
+``znicz_tpu/ops/layer_norm.py``).
 
 ``y = γ · (x − μ) / √(σ² + ε) + β`` over the last (feature) axis, with
-γ/β in the bundle's ``weights``/``bias`` (shape (D,), f32).  The
-statistics are f32 even under bf16 activation storage; the output is
-stored at the activation dtype.  The computation is the fused kernel
-:func:`~znicz_tpu_torch.ops.fused_kernels.layer_norm_forward` on the
-card and its plain version on the CPU.  The backward arrives with the
-training slice.
+γ/β in the bundle's ``weights``/``bias`` (shape (D,), f32, initially
+ones and zeros).  The statistics are f32 even under bf16 activation
+storage; the output is stored at the activation dtype.  The forward is
+the fused kernel
+:func:`~znicz_tpu_torch.ops.fused_kernels.layer_norm_forward` and
+``GDLayerNorm`` calls the backward kernel
+:func:`~znicz_tpu_torch.ops.fused_kernels.layer_norm_backward` directly,
+as the reference's ``GDLayerNorm`` does: dx in err's dtype and the f32
+γ/β sums in one pass.  On the CPU both take their plain versions.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from znicz_tpu_torch.ops.fused_kernels import layer_norm_forward
-from znicz_tpu_torch.ops.nn_units import Forward
+from znicz_tpu_torch.ops.fused_kernels import (layer_norm_backward,
+                                               layer_norm_forward)
+from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
 
 
 class LayerNorm(Forward):
@@ -32,7 +38,40 @@ class LayerNorm(Forward):
             shapes["bias"] = (d,)
         return shapes
 
+    def initial_params(self) -> dict[str, np.ndarray]:
+        d = self.input_shape[-1]
+        params = {"weights": np.ones(d, np.float32)}
+        if self.include_bias:
+            params["bias"] = np.zeros(d, np.float32)
+        return params
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = self.bias if self.include_bias else None
         y = layer_norm_forward(x, self.weights, beta, self.eps)
         return y.to(self.output_store_dtype)
+
+
+class GDLayerNorm(GradientDescentBase):
+    """Analytic layer-norm backward through the fused kernel:
+
+    .. code-block:: text
+
+        dβ = Σ err          dγ = Σ err·x̂
+        dx = (err·γ − mean(err·γ) − x̂·mean(err·γ·x̂)) / √(σ² + ε)
+    """
+
+    MATCHES = (LayerNorm,)
+
+    @torch.no_grad()
+    def run(self, x: torch.Tensor,
+            err_output: torch.Tensor) -> torch.Tensor | None:
+        fwd = self.forward_unit
+        dx, grad_g, grad_b = layer_norm_backward(
+            x, err_output, fwd.weights, fwd.eps,
+            with_beta=fwd.include_bias)
+        self.apply_weights(grad_g)
+        if fwd.include_bias:
+            self.apply_bias(grad_b)
+        if not self.need_err_input:
+            return None
+        return dx.to(self.act_store_dtype)

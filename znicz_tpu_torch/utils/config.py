@@ -3,7 +3,8 @@
 A global ``root`` object whose intermediate nodes auto-vivify on
 attribute access (``root.common.engine.telemetry = False``), as in the
 reference's ``veles/config.py``.  The port keeps only the platform
-subtree it reads; sample subtrees arrive with the training slice.
+subtree it reads (telemetry, the precision mode, the seed); its samples
+keep their defaults in module dicts.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ class Config:
 def _default_root() -> Config:
     r = Config("root")
     r.common.engine.telemetry = True
+    r.common.precision_type = "float32"  # "bfloat16" | "float32"
     r.common.seed = 1234
     return r
 
