@@ -240,3 +240,70 @@ def test_backward_wrappers_take_the_plain_version_for_cpu_tensors_only():
         fa.flash_attention_dkv(*meta)
     with pytest.raises(ValueError, match="must be f32"):
         fa.flash_attention_dq(q, k, v, dout, lse[:, :1], delta)
+
+
+def test_head_dim_routing_is_the_reference_rule():
+    """The reference engages its kernel when ``dh % 8 == 0``; the port's
+    kernels are instantiated at 32, 64 and 128 and take any other
+    multiple of 8 up to 128 zero-padded to the next of them."""
+    assert [d for d in range(1, 140) if fa.kernel_legal(d)] == \
+        list(range(8, 140, 8))
+    assert [fa.kernel_head_dim(d) for d in (8, 32, 40, 64, 72, 96, 128)] \
+        == [32, 32, 64, 64, 128, 128, 128]
+    for dh in (4, 12, 136):
+        with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+            fa.kernel_head_dim(dh)
+
+
+@pytest.mark.parametrize("dtype,dh,match", [
+    ("float32", 32, "unsupported device"),   # f32 operands are taken
+    ("bfloat16", 40, "unsupported device"),  # padded to 64
+    ("float16", 64, "operands"),
+    ("bfloat16", 4, "multiples of 8"),
+    ("float32", 136, "up to 128"),
+])
+def test_kernel_entry_takes_f32_and_multiples_of_8(dtype, dh, match):
+    """On a device that is not the CPU the wrappers check what the
+    kernels take before the device: f32 and bf16, dh a multiple of 8
+    up to 128."""
+    q = torch.zeros(1, 8, 2, dh, dtype=getattr(torch, dtype), device="meta")
+    lse = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_dq(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("dot_dtype", [None, "bfloat16"])
+def test_core_routes_dh4_to_the_plain_core_as_the_reference(monkeypatch,
+                                                            dot_dtype):
+    """dh = 4: the reference's XLA core (``local_attention``) in both
+    packages, forward and gradient; no kernel wrapper is reached.
+    dh = 32: the flash kernels' route."""
+    from znicz_tpu.parallel.ring_attention import local_attention
+    jdt = None if dot_dtype is None else jnp.bfloat16
+    tdt = None if dot_dtype is None else torch.bfloat16
+    q, k, v = _qkv(2, 12, 12, 3, 4, seed=17)
+    dout = np.random.default_rng(18).normal(0, 1, q.shape).astype(np.float32)
+    want, pullback = jax.vjp(
+        lambda a, b, c: local_attention(a, b, c, causal=True, dot_dtype=jdt),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = pullback(jnp.asarray(dout))
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("dh = 4 reached the flash route")
+
+    monkeypatch.setattr(fa, "flash_attention", no_kernel)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = fa.attention_core(tq, tk, tv, causal=True, dot_dtype=tdt)
+    got.backward(torch.from_numpy(dout))
+    tol = TOL[dot_dtype or "float32"]
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=tol)
+    for g, w in zip((tq.grad, tk.grad, tv.grad), want_grads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max())
+    q32 = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(AssertionError, match="flash route"):
+        fa.attention_core(q32, q32, q32)

@@ -13,9 +13,11 @@ plain PyTorch version of the same function for tensors on the CPU
 only; a CUDA tensor gets the kernel or an error.
 
 Entry points (:class:`~znicz_tpu_torch.export.ExportedModel`,
-:class:`~znicz_tpu_torch.serving.ServingEngine`) run on ``cuda`` and
-raise when no GPU is present, unless the caller passes
-``device="cpu"``.
+:class:`~znicz_tpu_torch.serving.ServingEngine`,
+:meth:`StandardWorkflow.initialize
+<znicz_tpu_torch.models.standard_workflow.StandardWorkflow.initialize>`)
+run on ``cuda`` and raise when no GPU is present, unless the caller
+passes ``device="cpu"``.
 
 This package import is deliberately light: it pulls in nothing, not
 even torch, until a submodule is imported.

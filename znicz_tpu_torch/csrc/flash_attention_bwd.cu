@@ -45,7 +45,8 @@
 // and delta are contiguous (B, H, Tq) f32.  Any T: rows past T are
 // zero-filled when staged and masked.  q_offset / k_offset place the call
 // on a global axis for causal masking; causal skips whole tiles that no
-// row can see.
+// row can see.  Head dims 32, 64 and 128 are instantiated; the wrapper
+// zero-pads any other multiple of 8 up to the next one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -508,6 +509,8 @@ extern "C" int znicz_flash_attention_dq(
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return static_cast<int>(launch_dq<32>(p, batch, s));
     case 64:
       return static_cast<int>(launch_dq<64>(p, batch, s));
     case 128:
@@ -538,6 +541,8 @@ extern "C" int znicz_flash_attention_dkv(
   if (batch <= 0 || heads <= 0 || tk <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return static_cast<int>(launch_dkv<32, 64>(p, batch, s));
     case 64:
       return static_cast<int>(launch_dkv<64, 64>(p, batch, s));
     case 128:

@@ -1,0 +1,509 @@
+// Flash attention for Hopper (sm_90a) with float32 operands: the forward,
+// the dq kernel and the dk/dv kernel.
+//
+// Replaces: znicz_tpu/ops/pallas_attention.py:_fwd_kernel, :_dq_kernel and
+// :_dkv_kernel when they run on f32 operands (the reference trains in f32
+// by default).  There every tile product runs at the input dtype with f32
+// accumulation, so an f32 call multiplies in f32; here every product is an
+// f32 FMA on the CUDA cores (no tensor cores, no TF32), the same function
+// as the bf16 kernels of flash_attention_fwd.cu and flash_attention_bwd.cu
+// with nothing rounded to bf16:
+//   forward  s = (q . k) * scale, masked s = -1e30 and masked p = 0, online
+//            softmax over key tiles, out = acc / max(l, 1e-30),
+//            lse = m + log(max(l, 1e-30))  (a fully masked row: out 0,
+//            lse -1e30)
+//   dq       p = exp(s - lse) where visible, ds = p * (do.v - delta) * scale,
+//            dq = ds . k
+//   dk/dv    dv = p^T . do, dk = ds^T . q
+//
+// What bounds it on this card: the products.  At T = 2048 and dh = 64 a
+// call does ~1000 FLOP per byte of q/k/v/o, and the f32 SIMT peak is
+// 67 TFLOP/s, so the FMA rate bounds it.  This is the simple first
+// version: a block of 128 threads owns 32 rows (query rows for the forward
+// and dq, keys for dk/dv); four neighbouring threads share a row, each
+// holding a quarter of the head dim of its accumulators and computing a
+// quarter of the row's 64 scores per tile; the other operand's 64-row
+// tiles are staged through shared memory with rows padded by one float, so
+// the four threads of a row and the eight rows of a warp read distinct
+// banks.  A row's scores go through shared memory to the second product;
+// its four threads are one quarter-warp, so a warp barrier suffices there.
+//
+// Geometry, the bf16 kernels': q, k, v, do, out, dq, dk and dv in the
+// boundary layout (B, T, H, dh) through element strides (the last dim
+// contiguous); lse and delta contiguous (B, H, Tq) f32; any T (rows past T
+// are zero-filled when staged and masked); q_offset / k_offset place the
+// call on a global axis for causal masking, and causal skips whole tiles
+// that no row can see.  Head dims 32, 64 and 128 are instantiated; the
+// wrapper zero-pads any other multiple of 8 up to the next one.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int ROWS = 32;        // rows a block owns
+constexpr int TILE = 64;        // rows of the other operand per iteration
+constexpr int SPLIT = 4;        // threads per row
+constexpr int PER = TILE / SPLIT;  // scores of a tile per thread
+constexpr int LP = TILE + 1;    // row pitch of the score tiles
+constexpr float NEG_INF = -1e30f;
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse_in;
+  const float* delta;
+  float* o;
+  float* lse;
+  float* dq;
+  float* dk;
+  float* dv;
+  long long q_sb, q_st, q_sh;
+  long long k_sb, k_st, k_sh;
+  long long v_sb, v_st, v_sh;
+  long long do_sb, do_st, do_sh;
+  long long o_sb, o_st, o_sh;
+  long long dk_sb, dk_st, dk_sh;
+  long long dv_sb, dv_st, dv_sh;
+  int heads, tq, tk;
+  float scale;
+  int causal;
+  long long q_offset, k_offset;
+};
+
+// rows x D floats from global (row stride in elements) into shared memory
+// with row pitch D + 1; rows at or past `valid` are zero-filled, so masked
+// rows never carry garbage (0 * NaN would poison a product)
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row_stride, int rows,
+                                          int valid) {
+  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+    const int r = i / D;
+    const int c = i % D;
+    dst[r * (D + 1) + c] = r < valid ? src[r * row_stride + c] : 0.f;
+  }
+}
+
+// the 16 dot products of one row `a` (pitch D + 1) with rows part,
+// part + 4, ... of tile `t`
+template <int D>
+__device__ __forceinline__ void row_dots(float s[PER], const float* a,
+                                         const float* t, int part) {
+#pragma unroll
+  for (int i = 0; i < PER; ++i) s[i] = 0.f;
+  for (int c = 0; c < D; ++c) {
+    const float av = a[c];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      s[i] = fmaf(av, t[(part + SPLIT * i) * (D + 1) + c], s[i]);
+    }
+  }
+}
+
+// acc[d] += sum_j w[j] * t[j][part + 4 d] over the tile's 64 rows
+template <int D>
+__device__ __forceinline__ void accumulate(float* acc, const float* w,
+                                           const float* t, int part) {
+  for (int j = 0; j < TILE; ++j) {
+    const float wj = w[j];
+#pragma unroll
+    for (int d = 0; d < D / SPLIT; ++d) {
+      acc[d] = fmaf(wj, t[j * (D + 1) + part + SPLIT * d], acc[d]);
+    }
+  }
+}
+
+// tiles of 64 keys the block's rows [q0, q0 + ROWS) can see
+__device__ __forceinline__ int key_tiles(const Params& p, int q0) {
+  int n = (p.tk + TILE - 1) / TILE;
+  if (p.causal) {
+    const long long last = p.q_offset + q0 + ROWS - 1 - p.k_offset;
+    if (last < 0) return 0;
+    if (last / TILE + 1 < n) n = static_cast<int>(last / TILE) + 1;
+  }
+  return n;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
+  constexpr int DP = D / SPLIT;
+  extern __shared__ float smem[];
+  float* s_q = smem;
+  float* s_k = s_q + ROWS * (D + 1);
+  float* s_v = s_k + TILE * (D + 1);
+  float* s_p = s_v + TILE * (D + 1);
+
+  const int q0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int r = threadIdx.x / SPLIT;
+  const int part = threadIdx.x % SPLIT;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  load_rows<D>(s_q, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st,
+               ROWS, p.tq - q0);
+
+  float acc[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  float m = NEG_INF;
+  float l = 0.f;  // this thread's partial row sum
+  const long long row_pos = p.q_offset + q0 + r;
+
+  const int n_tiles = key_tiles(p, q0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * TILE;
+    __syncthreads();  // every thread is done with the previous tile
+    load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
+    load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
+    __syncthreads();
+
+    float s[PER];
+    row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+    unsigned visible = 0u;
+    float tile_max = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int col = k0 + part + SPLIT * i;
+      bool vis = col < p.tk;
+      if (p.causal) vis = vis && row_pos >= p.k_offset + col;
+      s[i] = vis ? s[i] * p.scale : NEG_INF;
+      if (vis) visible |= 1u << i;
+      tile_max = fmaxf(tile_max, s[i]);
+    }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    const float m_new = fmaxf(m, tile_max);
+    const float corr = expf(m - m_new);
+    m = m_new;
+    l *= corr;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float pe = (visible >> i) & 1u ? expf(s[i] - m) : 0.f;
+      l += pe;
+      s_p[r * LP + part + SPLIT * i] = pe;
+    }
+#pragma unroll
+    for (int d = 0; d < DP; ++d) acc[d] *= corr;
+    __syncwarp();
+    accumulate<D>(acc, s_p + r * LP, s_v, part);
+  }
+
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  l = fmaxf(l, 1e-30f);
+  const int row = q0 + r;
+  if (row < p.tq) {
+    float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) orow[part + SPLIT * d] = acc[d] / l;
+    if (part == 0) {
+      p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + row] =
+          m + logf(l);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
+  constexpr int DP = D / SPLIT;
+  extern __shared__ float smem[];
+  float* s_q = smem;
+  float* s_do = s_q + ROWS * (D + 1);
+  float* s_k = s_do + ROWS * (D + 1);
+  float* s_v = s_k + TILE * (D + 1);
+  float* s_ds = s_v + TILE * (D + 1);
+
+  const int q0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int r = threadIdx.x / SPLIT;
+  const int part = threadIdx.x % SPLIT;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
+  load_rows<D>(s_q, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st,
+               ROWS, p.tq - q0);
+  load_rows<D>(s_do, p.dout + b * p.do_sb + h * p.do_sh + q0 * p.do_st,
+               p.do_st, ROWS, p.tq - q0);
+
+  const int row = q0 + r;
+  const long long row_pos = p.q_offset + row;
+  const long long stat = (static_cast<long long>(b) * p.heads + h) * p.tq;
+  const float lse_r = row < p.tq ? p.lse_in[stat + row] : 0.f;
+  const float delta_r = row < p.tq ? p.delta[stat + row] : 0.f;
+
+  float acc[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+
+  const int n_tiles = key_tiles(p, q0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * TILE;
+    __syncthreads();
+    load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
+    load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
+    __syncthreads();
+
+    float s[PER], dp[PER];
+    row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+    row_dots<D>(dp, s_do + r * (D + 1), s_v, part);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int col = k0 + part + SPLIT * i;
+      bool vis = col < p.tk && row < p.tq;
+      if (p.causal) vis = vis && row_pos >= p.k_offset + col;
+      const float pe = vis ? expf(s[i] * p.scale - lse_r) : 0.f;
+      s_ds[r * LP + part + SPLIT * i] = pe * (dp[i] - delta_r) * p.scale;
+    }
+    __syncwarp();
+    accumulate<D>(acc, s_ds + r * LP, s_k, part);
+  }
+
+  if (row < p.tq) {
+    float* out = p.dq + b * p.o_sb + h * p.o_sh + row * p.o_st;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) out[part + SPLIT * d] = acc[d];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
+  constexpr int DP = D / SPLIT;
+  extern __shared__ float smem[];
+  float* s_k = smem;
+  float* s_v = s_k + ROWS * (D + 1);
+  float* s_q = s_v + ROWS * (D + 1);
+  float* s_do = s_q + TILE * (D + 1);
+  float* s_pt = s_do + TILE * (D + 1);
+  float* s_dst = s_pt + ROWS * LP;
+  float* s_lse = s_dst + ROWS * LP;
+  float* s_delta = s_lse + TILE;
+
+  const int k0 = blockIdx.x * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int r = threadIdx.x / SPLIT;
+  const int part = threadIdx.x % SPLIT;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
+  const float* dog = p.dout + b * p.do_sb + h * p.do_sh;
+  const long long stat = (static_cast<long long>(b) * p.heads + h) * p.tq;
+  load_rows<D>(s_k, p.k + b * p.k_sb + h * p.k_sh + k0 * p.k_st, p.k_st,
+               ROWS, p.tk - k0);
+  load_rows<D>(s_v, p.v + b * p.v_sb + h * p.v_sh + k0 * p.v_st, p.v_st,
+               ROWS, p.tk - k0);
+
+  const int key = k0 + r;
+  const long long key_pos = p.k_offset + key;
+  float acc_dk[DP], acc_dv[DP];
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc_dk[d] = acc_dv[d] = 0.f;
+
+  const int nq = (p.tq + TILE - 1) / TILE;
+  int first = 0;
+  if (p.causal) {
+    // whole-tile skip: no query before `lo` sees any key of this block
+    const long long lo = p.k_offset + k0 - p.q_offset;
+    if (lo > 0) first = static_cast<int>(lo / TILE < nq ? lo / TILE : nq);
+  }
+
+  for (int it = first; it < nq; ++it) {
+    const int q0 = it * TILE;
+    __syncthreads();
+    load_rows<D>(s_q, qg + q0 * p.q_st, p.q_st, TILE, p.tq - q0);
+    load_rows<D>(s_do, dog + q0 * p.do_st, p.do_st, TILE, p.tq - q0);
+    for (int i = threadIdx.x; i < TILE; i += THREADS) {
+      const bool ok = q0 + i < p.tq;
+      s_lse[i] = ok ? p.lse_in[stat + q0 + i] : 0.f;
+      s_delta[i] = ok ? p.delta[stat + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    // p^T and ds^T for this key against the tile's queries
+    float st[PER], dpt[PER];
+    row_dots<D>(st, s_k + r * (D + 1), s_q, part);
+    row_dots<D>(dpt, s_v + r * (D + 1), s_do, part);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int qc = part + SPLIT * i;
+      bool vis = q0 + qc < p.tq && key < p.tk;
+      if (p.causal) vis = vis && p.q_offset + q0 + qc >= key_pos;
+      const float pe = vis ? expf(st[i] * p.scale - s_lse[qc]) : 0.f;
+      s_pt[r * LP + qc] = pe;
+      s_dst[r * LP + qc] = pe * (dpt[i] - s_delta[qc]) * p.scale;
+    }
+    __syncwarp();
+    accumulate<D>(acc_dv, s_pt + r * LP, s_do, part);
+    accumulate<D>(acc_dk, s_dst + r * LP, s_q, part);
+  }
+
+  if (key < p.tk) {
+    float* ok = p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_st;
+    float* ov = p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_st;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) {
+      ok[part + SPLIT * d] = acc_dk[d];
+      ov[part + SPLIT * d] = acc_dv[d];
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem_floats, int rows, const Params& p,
+                   int batch, cudaStream_t stream) {
+  const int smem = smem_floats * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((rows + ROWS - 1) / ROWS, p.heads, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t s) {
+  return launch(flash_fwd_f32_kernel<D>,
+                (ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq, p, batch, s);
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int batch, cudaStream_t s) {
+  return launch(flash_dq_f32_kernel<D>,
+                (2 * ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq, p, batch,
+                s);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t s) {
+  return launch(flash_dkv_f32_kernel<D>,
+                (2 * ROWS + 2 * TILE) * (D + 1) + 2 * ROWS * LP + 2 * TILE,
+                p.tk, p, batch, s);
+}
+
+// head-dim dispatch: `which` 0 forward, 1 dq, 2 dk/dv
+int dispatch(int which, int head_dim, const Params& p, int batch,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 32:
+      err = which == 0 ? launch_fwd<32>(p, batch, s)
+            : which == 1 ? launch_dq<32>(p, batch, s)
+                         : launch_dkv<32>(p, batch, s);
+      break;
+    case 64:
+      err = which == 0 ? launch_fwd<64>(p, batch, s)
+            : which == 1 ? launch_dq<64>(p, batch, s)
+                         : launch_dkv<64>(p, batch, s);
+      break;
+    case 128:
+      err = which == 0 ? launch_fwd<128>(p, batch, s)
+            : which == 1 ? launch_dq<128>(p, batch, s)
+                         : launch_dkv<128>(p, batch, s);
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(err);
+}
+
+void set_inputs(Params& p, const void* q, const void* k, const void* v,
+                int heads, int tq, int tk, float scale, int causal,
+                long long q_offset, long long k_offset) {
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.heads = heads;
+  p.tq = tq;
+  p.tk = tk;
+  p.scale = scale;
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.k_offset = k_offset;
+}
+
+void set_strides(Params& p, const long long* s) {
+  long long* dst[] = {&p.q_sb, &p.q_st, &p.q_sh, &p.k_sb, &p.k_st, &p.k_sh,
+                      &p.v_sb, &p.v_st, &p.v_sh, &p.do_sb, &p.do_st,
+                      &p.do_sh};
+  for (int i = 0; i < 12; ++i) *dst[i] = s[i];
+}
+
+}  // namespace
+
+// The C entry points take the arguments of their bf16 counterparts in
+// flash_attention_fwd.cu and flash_attention_bwd.cu, with f32 tensors.
+// Strides are in elements.  Each returns the launch's cudaError_t (0 on
+// success); the caller checks shapes, dtypes and alignment beforehand.
+extern "C" int znicz_flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int heads, int tq, int tk, int head_dim, long long q_sb,
+    long long q_st, long long q_sh, long long k_sb, long long k_st,
+    long long k_sh, long long v_sb, long long v_st, long long v_sh,
+    long long o_sb, long long o_st, long long o_sh, float scale, int causal,
+    long long q_offset, long long k_offset, void* stream) {
+  Params p = {};
+  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
+  p.o = static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = q_sb;
+  p.q_st = q_st;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_st = k_st;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_st = v_st;
+  p.v_sh = v_sh;
+  p.o_sb = o_sb;
+  p.o_st = o_st;
+  p.o_sh = o_sh;
+  if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
+  return dispatch(0, head_dim, p, batch, stream);
+}
+
+extern "C" int znicz_flash_attention_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int batch, int heads,
+    int tq, int tk, int head_dim, const long long* strides, long long dq_sb,
+    long long dq_st, long long dq_sh, float scale, int causal,
+    long long q_offset, long long k_offset, void* stream) {
+  Params p = {};
+  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
+  set_strides(p, strides);
+  p.dout = static_cast<const float*>(dout);
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.o_sb = dq_sb;
+  p.o_st = dq_st;
+  p.o_sh = dq_sh;
+  if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
+  return dispatch(1, head_dim, p, batch, stream);
+}
+
+extern "C" int znicz_flash_attention_dkv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int batch,
+    int heads, int tq, int tk, int head_dim, const long long* strides,
+    const long long* out_strides, float scale, int causal, long long q_offset,
+    long long k_offset, void* stream) {
+  Params p = {};
+  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
+  set_strides(p, strides);
+  p.dout = static_cast<const float*>(dout);
+  p.lse_in = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.dk_sb = out_strides[0];
+  p.dk_st = out_strides[1];
+  p.dk_sh = out_strides[2];
+  p.dv_sb = out_strides[3];
+  p.dv_st = out_strides[4];
+  p.dv_sh = out_strides[5];
+  if (batch <= 0 || heads <= 0 || tk <= 0) return cudaSuccess;
+  return dispatch(2, head_dim, p, batch, stream);
+}

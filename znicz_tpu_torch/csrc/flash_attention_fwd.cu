@@ -30,7 +30,9 @@
 // Layout: q, k, v are read in the boundary layout (B, T, H, dh) through
 // element strides (the last dim contiguous), which lets the caller pass
 // the q/k/v slices of one packed QKV projection without any copy.  out
-// is (B, Tq, H, dh) through strides; lse is contiguous (B, H, Tq).
+// is (B, Tq, H, dh) through strides; lse is contiguous (B, H, Tq).  Head
+// dims 32, 64 and 128 are instantiated; the wrapper zero-pads any other
+// multiple of 8 up to the next one, which leaves every score unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -323,6 +325,8 @@ extern "C" int znicz_flash_attention_fwd(
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return static_cast<int>(launch<32>(p, batch, s));
     case 64:
       return static_cast<int>(launch<64>(p, batch, s));
     case 128:

@@ -174,6 +174,8 @@ class ExportedModel(Logger):
             unit.load_params({attr: self._params[f"layer{i}_{attr}"]
                               for attr in cls.EXPORT_PARAMS
                               if f"layer{i}_{attr}" in self._params})
+            if hasattr(unit, "forward_mode"):
+                unit.forward_mode = "eval"  # dropout = identity
             units.append(unit)
             shape = unit.output_shape
         return torch.nn.ModuleList(units).to(self.device).eval()

@@ -13,7 +13,10 @@
   by repeating its first sample, and ``minibatch_size`` carries the
   true count so the evaluator masks the tail;
 - flags read by the decision unit: ``minibatch_class``,
-  ``epoch_ended``, ``epoch_number``.
+  ``epoch_ended``, ``epoch_number``;
+- ``forward_mode``: "train" on train minibatches, "eval" otherwise,
+  which the workflow hands the stochastic units (dropout) each step, as
+  the reference links it into them.
 
 The index picking is host work (:meth:`Loader.run`); the gather runs on
 the device (:mod:`znicz_tpu_torch.loader.fullbatch`).
@@ -99,6 +102,11 @@ class Loader(Logger):
     @property
     def act_store_dtype(self) -> torch.dtype:
         return precision_dtypes(self.compute_dtype)[1]
+
+    @property
+    def forward_mode(self) -> str:
+        """"train" on train minibatches, else "eval"."""
+        return "train" if self.minibatch_class == TRAIN else "eval"
 
     # -- subclass API ---------------------------------------------------
     def load_data(self) -> None:

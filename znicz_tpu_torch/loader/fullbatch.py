@@ -2,9 +2,21 @@
 minibatch an on-device gather (port of ``znicz_tpu/loader/fullbatch.py``).
 
 The dataset stays in its original dtype on the device (a bf16 dataset
-costs half of f32); the gathered batch is stored at the activation
-dtype.  The epoch order lives on the device too and is uploaded once
-per shuffle, so a step moves no indices from the host: it gathers
+costs half of f32, a uint8 image set a quarter); the gathered batch is
+stored at the activation dtype, after the optional affine
+normalization ``x·normalization_scale + normalization_bias``, both
+constants f32 as in the reference, whose compiled gather fuses the two
+into one multiply-add.  A uint8 dataset takes that rounding exactly: the
+256 values it can hold are normalized once on the host (in f64, where
+the product and the sum are exact, then rounded once to f32 and to the
+activation dtype), and the gather looks each pixel up in that table, so
+the same pixel gives the same activation as in the reference, with no
+f32 pass over the batch between the uint8 gather and the stored
+activations (only the int32 index the lookup takes).  Other dtypes are
+normalized in f32 (two roundings: at most one f32 ulp from the
+reference's fused result).  The epoch order
+lives on the device too and is uploaded once per shuffle, so a step
+moves no indices from the host: it gathers
 ``order[lo:hi]`` (padded by repeating the first index) straight from
 the resident copy.
 """
@@ -32,12 +44,18 @@ class FullBatchLoader(Loader):
     test, validation, train along axis 0.
     """
 
-    def __init__(self, workflow=None, **kwargs) -> None:
+    def __init__(self, workflow=None,
+                 normalization_scale: float | None = None,
+                 normalization_bias: float = 0.0, **kwargs) -> None:
         super().__init__(workflow, **kwargs)
+        self.normalization_scale = normalization_scale
+        self.normalization_bias = normalization_bias
         self.original_data: torch.Tensor | None = None
         self.original_labels: torch.Tensor | None = None
         #: the epoch order on the device (refreshed by each shuffle)
         self._order: torch.Tensor | None = None
+        #: a uint8 dataset's normalized values, by pixel value
+        self._table: torch.Tensor | None = None
 
     @property
     def sample_shape(self) -> tuple:
@@ -47,6 +65,13 @@ class FullBatchLoader(Loader):
         self.original_data = self.original_data.to(self.device)
         if self.original_labels is not None:
             self.original_labels = self.original_labels.to(self.device)
+        if self.normalization_scale is not None \
+                and self.original_data.dtype == torch.uint8:
+            table = (np.arange(256, dtype=np.float64)
+                     * np.float32(self.normalization_scale)
+                     + np.float32(self.normalization_bias))
+            self._table = torch.from_numpy(table.astype(np.float32)).to(
+                self.act_store_dtype).to(self.device)
 
     def on_shuffled(self) -> None:
         self._order = torch.from_numpy(self._shuffled).to(self.device)
@@ -56,8 +81,15 @@ class FullBatchLoader(Loader):
         pad = self.max_minibatch_size - (hi - lo)
         if pad:  # the short tail repeats its first sample (masked)
             idx = torch.cat([idx, idx[:1].expand(pad)])
-        self.minibatch_data = self.original_data.index_select(0, idx).to(
-            self.act_store_dtype)
+        batch = self.original_data.index_select(0, idx)
+        if self._table is not None:
+            batch = self._table.index_select(
+                0, batch.view(-1).int()).view(batch.shape)
+        elif self.normalization_scale is not None:
+            batch = (batch.float()
+                     * float(np.float32(self.normalization_scale))
+                     + float(np.float32(self.normalization_bias)))
+        self.minibatch_data = batch.to(self.act_store_dtype)
         if self.original_labels is not None:
             self.minibatch_labels = self.original_labels.index_select(0,
                                                                       idx)

@@ -10,12 +10,26 @@ serve fails when it loads rather than serving something else.
 
 from __future__ import annotations
 
-from znicz_tpu_torch.ops import all2all, attention, layer_norm
-from znicz_tpu_torch.ops import gd  # noqa: F401 — registers the pairs
+from znicz_tpu_torch.ops import (all2all, attention, conv, dropout,
+                                 layer_norm, normalization, pooling)
+# the backward units register their pairs when imported
+from znicz_tpu_torch.ops import gd, gd_conv, gd_pooling  # noqa: F401
 
 _LAYER_TYPES: dict[str, type] = {
     "all2all": all2all.All2All,
+    "all2all_tanh": all2all.All2AllTanh,
+    "all2all_relu": all2all.All2AllRELU,
+    "all2all_str": all2all.All2AllStrictRELU,
+    "all2all_sigmoid": all2all.All2AllSigmoid,
     "softmax": all2all.All2AllSoftmax,
+    "conv": conv.Conv,
+    "conv_tanh": conv.ConvTanh,
+    "conv_relu": conv.ConvRELU,
+    "conv_str": conv.ConvStrictRELU,
+    "conv_sigmoid": conv.ConvSigmoid,
+    "max_pooling": pooling.MaxPooling,
+    "norm": normalization.LRNormalizerForward,
+    "dropout": dropout.DropoutForward,
     "attention": attention.MultiHeadAttention,
     "layer_norm": layer_norm.LayerNorm,
 }

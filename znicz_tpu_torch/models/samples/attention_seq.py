@@ -6,13 +6,13 @@ one position; the class is which third of the sequence holds the
 marker.  Solving it needs mixing across positions, so a falling
 validation error shows the attention unit training end to end.
 
-At the default widths the head dim is 16 / 4 = 4, which the card's
-flash kernels do not take (they take 64 and 128): the sample runs on
-the CPU, through the kernels' plain versions::
+At the default widths the head dim is 16 / 4 = 4, not a multiple of 8,
+so the attention unit takes the plain attention core, as the reference
+routes it, on the card and on the CPU alike::
 
     from znicz_tpu_torch.models.samples import attention_seq
     wf = attention_seq.build()
-    wf.initialize(device="cpu")
+    wf.initialize()              # the card; device="cpu" on the host
     wf.run()
 """
 

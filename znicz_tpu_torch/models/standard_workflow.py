@@ -18,11 +18,17 @@ compiles into one region program, is one eager :meth:`step`:
     loader gather → forwards → evaluator → backward units (train only)
 
 A train step runs the forwards with gradients enabled (the attention
-unit keeps its autograd graph for its backward unit) and the backward
-units from the last to the first; each backward unit computes its
+unit keeps its autograd graph for its backward unit, max pooling its
+winners) and the backward units from the last to the first.  Each
+backward unit gets its forward's input, the error at its output and
+its forward's output of this step (the conv and all2all flavors take
+their activation derivative from it); per-step state a forward keeps
+(the dropout seed) it reads from its forward unit.  Each computes its
 ``err_input`` and gradients from the weights as they were before the
 step, then updates them in place.  Validation and test minibatches run
-the forwards and the evaluator only.
+the forwards and the evaluator only.  Before the forwards run, every
+unit with a ``forward_mode`` gets the loader's ("train" on a train
+minibatch, else "eval"), as the reference links it.
 
 ``initialize()`` builds the units in the reference's order — the loader
 first (it draws the shuffle seed), then each forward's initial fill —
@@ -140,23 +146,37 @@ class StandardWorkflow(Logger):
         self.gds.extend(reversed(gds))
 
     # ------------------------------------------------------------------
-    def step(self) -> None:
+    def step(self, mark: Callable[[str], None] | None = None) -> None:
         """One minibatch: gather, forwards, evaluator, and on a train
-        minibatch the backward units; then the decision's bookkeeping."""
+        minibatch the backward units; then the decision's bookkeeping.
+        ``mark``, when given, is called with each unit's name just after
+        the unit has queued its work (a caller that records a CUDA event
+        there times each unit on the device)."""
+        done = mark or (lambda name: None)
         loader = self.loader
         loader.run()
+        done(loader.name)
         train = loader.minibatch_class == TRAIN
+        for fwd in self.forwards:
+            if hasattr(fwd, "forward_mode"):
+                fwd.forward_mode = loader.forward_mode
         acts = [loader.minibatch_data]
         with torch.set_grad_enabled(train):
             for fwd in self.forwards[:-1]:
                 acts.append(fwd(acts[-1]))
+                done(fwd.name)
             probs, max_idx = self.forwards[-1].classify(acts[-1])
+            done(self.forwards[-1].name)
         err = self.evaluator.run(probs, max_idx, loader.minibatch_labels,
                                  loader.minibatch_size,
                                  loader.minibatch_class)
+        done(self.evaluator.name)
         if train:
-            for gd, x in zip(reversed(self.gds), reversed(acts)):
-                err = gd.run(x, err)
+            outs = acts[1:] + [probs]
+            for gd, x, y in zip(reversed(self.gds), reversed(acts),
+                                reversed(outs)):
+                err = gd.run(x, err, y)
+                done(gd.name)
         self.decision.run()
 
     def run(self) -> None:

@@ -1,0 +1,83 @@
+"""Activation functions and their derivatives (port of
+``znicz_tpu/ops/activations_math.py``).
+
+The reference's table, in PyTorch:
+
+- ``tanh`` is the scaled LeCun tanh ``y = 1.7159·tanh(0.6666·x)``;
+- ``relu`` is the reference's *smooth* RELU ``y = log(1 + exp(x))``
+  (softplus);
+- ``strict_relu`` is ``max(x, 0)``;
+- ``sigmoid`` and ``log`` (``log(x + sqrt(x²+1))``, i.e. asinh)
+  complete the set.
+
+Derivatives are expressed in terms of the *output* ``y``, as in the
+reference (the backward units read the forward's output); ``log``
+needs the input ``x``.  Each is computed in the dtype of its operand,
+as the reference computes it, so in bf16 mode the derivative of a
+bf16-stored output is bf16.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+_TANH_A = 1.7159
+_TANH_B = 0.6666
+
+
+@dataclass(frozen=True)
+class Activation:
+    """fwd(x) -> y;  derivative(y, x) -> dy/dx."""
+    name: str
+    fwd: Callable
+    derivative: Callable
+    needs_input: bool = False
+
+
+def _softplus(x):
+    # log(1+exp(x)) stably: max(x,0) + log1p(exp(-|x|))
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+ACTIVATIONS: dict[str, Activation] = {
+    "linear": Activation(
+        "linear",
+        fwd=lambda x: x,
+        derivative=lambda y, x: torch.ones_like(y)),
+    "tanh": Activation(
+        "tanh",
+        fwd=lambda x: _TANH_A * torch.tanh(_TANH_B * x),
+        # dy/dx = A·B·(1−tanh²) = (B/A)·(A²−y²)
+        derivative=lambda y, x: (_TANH_B / _TANH_A) * (
+            _TANH_A * _TANH_A - y * y)),
+    "relu": Activation(
+        "relu",
+        fwd=_softplus,
+        # y = log(1+eˣ) ⇒ dy/dx = 1 − e^{−y}
+        derivative=lambda y, x: 1.0 - torch.exp(-y)),
+    "strict_relu": Activation(
+        "strict_relu",
+        fwd=lambda x: torch.clamp_min(x, 0),
+        derivative=lambda y, x: (y > 0).to(y.dtype)),
+    "sigmoid": Activation(
+        "sigmoid",
+        fwd=lambda x: 1.0 / (1.0 + torch.exp(-x)),
+        derivative=lambda y, x: y * (1.0 - y)),
+    "log": Activation(
+        "log",
+        fwd=lambda x: torch.log(x + torch.sqrt(x * x + 1.0)),
+        derivative=lambda y, x: 1.0 / torch.sqrt(x * x + 1.0),
+        needs_input=True),
+}
+
+
+def get(name: str) -> Activation:
+    try:
+        return ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown activation '{name}' "
+            f"(have {sorted(ACTIVATIONS)})") from None

@@ -1,15 +1,19 @@
 """Fully-connected forward units (port of ``znicz_tpu/ops/all2all.py``).
 
-``y = x @ W + b`` over the flattened sample, with W stored
-(in_features, out_features) as in the reference.  ``All2AllSoftmax``
-applies a row softmax over the linear output and also gives the
-per-sample argmax ``max_idx`` (int32), as the reference's unit does.
-Its probabilities stay f32 in every precision mode.  The products are
-plain ``torch.matmul`` calls, as the reference left them to XLA.
+``y = act(x @ W + b)`` over the flattened sample, with W stored
+(in_features, out_features) as in the reference, in the activation
+flavors of :mod:`~znicz_tpu_torch.ops.activations_math` (linear, tanh,
+smooth relu, strict relu, sigmoid).  ``All2AllSoftmax`` applies a row
+softmax over the linear output and also gives the per-sample argmax
+``max_idx`` (int32), as the reference's unit does, both through the
+softmax-argmax kernel
+(:func:`~znicz_tpu_torch.ops.fused_kernels.softmax_argmax`, its plain
+version on the CPU).  Its probabilities stay f32 in every precision
+mode.  The products are plain ``torch.matmul`` calls, as the reference
+left them to XLA.
 
-Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  The
-activation flavors (tanh, relu, …) and tensor parallelism arrive with
-later slices.
+Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  Tensor
+parallelism arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -17,11 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from znicz_tpu_torch.ops import activations_math
+from znicz_tpu_torch.ops.fused_kernels import softmax_argmax
 from znicz_tpu_torch.ops.nn_units import Forward
 
 
 class All2All(Forward):
     """Linear fully-connected layer."""
+
+    ACTIVATION = "linear"
 
     def __init__(self, input_shape, compute_dtype: torch.dtype,
                  output_sample_shape, **kwargs) -> None:
@@ -29,6 +37,7 @@ class All2All(Forward):
         if isinstance(output_sample_shape, (int, np.integer)):
             output_sample_shape = (int(output_sample_shape),)
         self.output_sample_shape = tuple(int(n) for n in output_sample_shape)
+        self.activation = activations_math.get(self.ACTIVATION)
 
     @property
     def output_shape(self) -> tuple:
@@ -59,9 +68,29 @@ class All2All(Forward):
         return y + self.bias if self.include_bias else y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._logits(x)
+        y = self.activation.fwd(self._logits(x))
         return y.reshape((x.shape[0],) + self.output_sample_shape).to(
             self.output_store_dtype)
+
+
+class All2AllTanh(All2All):
+    """Scaled-tanh flavor."""
+    ACTIVATION = "tanh"
+
+
+class All2AllRELU(All2All):
+    """Smooth-RELU (softplus) flavor."""
+    ACTIVATION = "relu"
+
+
+class All2AllStrictRELU(All2All):
+    """max(x, 0) flavor."""
+    ACTIVATION = "strict_relu"
+
+
+class All2AllSigmoid(All2All):
+    """Sigmoid flavor."""
+    ACTIVATION = "sigmoid"
 
 
 class All2AllSoftmax(All2All):
@@ -73,12 +102,9 @@ class All2AllSoftmax(All2All):
         return torch.float32
 
     def classify(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(probabilities f32, max_idx int32)`` for a batch."""
-        logits = self._logits(x)
-        m = logits.amax(dim=1, keepdim=True)
-        e = torch.exp(logits - m)
-        probs = e / e.sum(dim=1, keepdim=True)
-        return probs, torch.argmax(logits, dim=1).to(torch.int32)
+        """``(probabilities f32, max_idx int32)`` for a batch, from the
+        f32 logits through the softmax-argmax kernel."""
+        return softmax_argmax(self._logits(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.classify(x)[0]

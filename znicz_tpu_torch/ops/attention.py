@@ -13,17 +13,20 @@
 
 In bf16 mode the projections take bf16 operands with f32 results, the
 q/k/v slices are stored in bf16 once before the core (the kernel's
-operand dtype), and ``y`` is stored in bf16.  The core always goes
-through :func:`~znicz_tpu_torch.ops.flash_attention.flash_attention`:
-the kernel on the card, its plain version on the CPU.  The q/k/v
-slices reach it as strided views of the projection, with no copy.
+operand dtype), and ``y`` is stored in bf16.  The core is
+:func:`~znicz_tpu_torch.ops.flash_attention.attention_core`, routed as
+the reference routes it: the flash kernels (bf16 or f32, on the card;
+their plain versions on the CPU) when the head dim is a multiple of 8,
+else the plain attention core on every device.  The q/k/v slices reach
+it as strided views of the projection, with no copy.
 
 Backward: ``GDMultiHeadAttention`` takes ``torch.autograd.grad`` of the
 output the forward kept on the train step, with respect to ``(x,
 W_qkv, b_qkv, W_out, b_out)`` — the counterpart of the reference's
 stashed ``jax.vjp`` pullback, so the forward never runs twice.  The
 core's gradient is the flash backward kernels (through
-:class:`~znicz_tpu_torch.ops.flash_attention.FlashHop`).  Autograd
+:class:`~znicz_tpu_torch.ops.flash_attention.FlashHop`), or autograd of
+the plain core where the head dim routes there.  Autograd
 rounds each cotangent to bf16 where the forward cast to bf16, as
 ``jax.vjp`` does at the same casts, so the forward's chain of casts
 here must stay the reference's.
@@ -39,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from znicz_tpu_torch.ops.flash_attention import flash_attention
+from znicz_tpu_torch.ops.flash_attention import attention_core
 from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
 
 
@@ -120,8 +123,7 @@ class MultiHeadAttention(Forward):
         if dot_dtype is not None:
             qkv = qkv.to(dot_dtype)
         q, k, v = split_heads(qkv.reshape(b, t, 3 * d), self.n_heads)
-        o = flash_attention(q, k, v, causal=self.causal,
-                            dot_dtype=dot_dtype)
+        o = attention_core(q, k, v, causal=self.causal, dot_dtype=dot_dtype)
         y = self.mxu_dot(o.reshape(b * t, d), self.weights_out)
         if self.include_bias:
             y = y + self.bias_out
@@ -145,8 +147,8 @@ class GDMultiHeadAttention(GradientDescentBase):
         forward_unit.keep_graph = True
         forward_unit.input_grad = self.need_err_input
 
-    def run(self, x: torch.Tensor,
-            err_output: torch.Tensor) -> torch.Tensor | None:
+    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+            y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         stash, fwd.stash = fwd.stash, None  # the graph is used once
         if stash is None:

@@ -31,6 +31,20 @@ and write it through strides, so the reference's head-major transposes
 (``pack_heads``) have no counterpart here; ``head_pack`` existed to
 fill the TPU's 128-lane tiles and is not carried over.
 
+Operand dtypes and head dims on the card: bf16 operands go to the
+tensor-core kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``),
+f32 operands to the f32 SIMT kernels (``flash_attention_f32.cu``), as
+the reference's kernels take both.  Each is instantiated for head dims
+:data:`KERNEL_HEAD_DIMS`; any other multiple of 8 up to 128 is
+zero-padded to the next one (zero columns change no score; the padded
+columns of the results are sliced off, and the scale stays
+``1/√dh`` of the true dh).  Whether a call goes to the kernels at all
+is :func:`kernel_legal`, the reference's rule: a head dim that is not a
+multiple of 8 takes :func:`local_attention`, the reference's XLA core,
+on every device.  Each wrapper counts its launches in ``launches`` and,
+by kernel, in ``launches_by_variant`` (``"bf16"``, ``"f32"`` and
+``"dh32"``, the bf16 kernels' 32-wide instantiation).
+
 A wrapper uses its plain version only for tensors on the CPU; a CUDA
 tensor gets the kernel or an error.
 """
@@ -41,38 +55,77 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-#: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the kernels are instantiated for
+KERNEL_HEAD_DIMS = (32, 64, 128)
+
+#: operand dtype → (library stem of the forward, of the backward, suffix
+#: of the C entry points)
+_LIBS = {torch.bfloat16: ("flash_attention_fwd", "flash_attention_bwd", ""),
+         torch.float32: ("flash_attention_f32", "flash_attention_f32",
+                         "_f32")}
 
 _bound: set[str] = set()
 
 
-def _lib(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu`` with its C signatures
-    declared (pointers and the stream as ``c_void_p``, so ctypes never
-    cuts a 64-bit address)."""
-    lib = _cuda.library(stem)
-    if stem not in _bound:
+def _fn(dtype: torch.dtype, which: str):
+    """The C entry point ``znicz_flash_attention_<which>`` for operands
+    of ``dtype``, its signature declared (pointers and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit address)."""
+    fwd_stem, bwd_stem, suffix = _LIBS[dtype]
+    lib = _cuda.library(fwd_stem if which == "fwd" else bwd_stem)
+    name = f"znicz_flash_attention_{which}{suffix}"
+    fn = getattr(lib, name)
+    if name not in _bound:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         tail = [ctypes.c_float, i, ll, ll, p]
-        if stem == "flash_attention_fwd":
-            lib.znicz_flash_attention_fwd.argtypes = (
-                [p] * 5 + [i] * 5 + [ll] * 12 + tail)
-            lib.znicz_flash_attention_fwd.restype = i
-        else:
-            lib.znicz_flash_attention_dq.argtypes = (
-                [p] * 7 + [i] * 5 + [p] + [ll] * 3 + tail)
-            lib.znicz_flash_attention_dq.restype = i
-            lib.znicz_flash_attention_dkv.argtypes = (
-                [p] * 8 + [i] * 5 + [p, p] + tail)
-            lib.znicz_flash_attention_dkv.restype = i
-        _bound.add(stem)
-    return lib
+        fn.argtypes = {"fwd": [p] * 5 + [i] * 5 + [ll] * 12 + tail,
+                       "dq": [p] * 7 + [i] * 5 + [p] + [ll] * 3 + tail,
+                       "dkv": [p] * 8 + [i] * 5 + [p, p] + tail}[which]
+        fn.restype = i
+        _bound.add(name)
+    return fn
+
+
+def kernel_legal(dh: int) -> bool:
+    """The reference's rule for engaging its kernel
+    (``pallas_attention.kernel_legal``, copied): the head dim must be a
+    multiple of 8.  Its other terms, T divisible by the TPU's blocks,
+    are tiling limits that the port's kernels do not have: they mask
+    the ragged tile.  Otherwise the attention unit takes
+    :func:`local_attention`, the reference's XLA core."""
+    return dh % 8 == 0
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The instantiated head dim a kernel call of head dim ``dh`` runs
+    at (``dh`` itself or the next wider one, zero-padded)."""
+    if not kernel_legal(dh) or dh > KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"the flash kernels take head dims that are "
+                         f"multiples of 8 up to {KERNEL_HEAD_DIMS[-1]}, "
+                         f"got {dh}")
+    return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
+
+
+def _count(fn, dtype: torch.dtype, width: int) -> None:
+    """One launch of ``fn``'s kernel for ``dtype`` operands at the
+    instantiated head dim ``width``."""
+    variant = ("f32" if dtype == torch.float32
+               else "dh32" if width == 32 else "bf16")
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+
+
+def _padded(a: torch.Tensor, width: int) -> torch.Tensor:
+    """``a`` (…, dh) zero-padded to ``width`` columns (``a`` itself when
+    it is that wide)."""
+    dh = a.shape[-1]
+    return a if dh == width else F.pad(a, (0, width - dh))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -92,31 +145,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _kernel_layout_ok(a: torch.Tensor) -> bool:
-    """The kernels read and write 16-byte chunks of each (b, t, h) row:
-    the head dim contiguous and every row on a 16-byte boundary."""
-    return (a.stride(-1) == 1 and a.data_ptr() % 16 == 0
-            and not any(s % 8 for s in a.stride()[:3]))
+    """The head dim contiguous; for bf16, whose kernels move 16-byte
+    chunks of each (b, t, h) row, every row on a 16-byte boundary too."""
+    if a.stride(-1) != 1:
+        return False
+    return a.dtype != torch.bfloat16 or (
+        a.data_ptr() % 16 == 0 and not any(s % 8 for s in a.stride()[:3]))
 
 
 def _check_kernel_operand(name: str, a: torch.Tensor) -> None:
     if not _kernel_layout_ok(a):
         raise ValueError(f"{name}: the head dim must be contiguous and "
-                         f"rows must start on 16-byte boundaries "
+                         f"bf16 rows must start on 16-byte boundaries "
                          f"(strides {a.stride()}, offset "
                          f"{a.data_ptr() % 16})")
 
 
-def _check_kernel_call(q: torch.Tensor, name: str) -> None:
-    """What every kernel takes on the card: bf16 operands and a head
-    dim it is instantiated for."""
+def _check_kernel_call(q: torch.Tensor, name: str) -> int:
+    """What every kernel takes: bf16 or f32 operands, a head dim that is
+    a multiple of 8 up to 128, on the card.  Returns the instantiated
+    head dim the call runs at."""
+    if q.dtype not in _LIBS:
+        raise ValueError(f"the {name} kernel takes {list(_LIBS)} "
+                         f"operands, got {q.dtype}")
+    width = kernel_head_dim(q.shape[3])
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the {name} kernel takes bfloat16 operands, "
-                         f"got {q.dtype}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the {name} kernel takes head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {q.shape[3]}")
+    return width
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,39 +181,42 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash forward over (B, Tq, H, dh) q and (B, Tk, H, dh) k/v:
     ``(out (B, Tq, H, dh) in q's dtype, lse (B, H, Tq) f32)``.
 
-    On the card: bf16 operands, dh in :data:`KERNEL_HEAD_DIMS`, any
+    On the card: bf16 or f32 operands, dh a multiple of 8 up to 128, any
     Tq/Tk (the ragged tile is masked).  CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, q_offset, k_offset)
-    _check_kernel_call(q, "flash")
+    width = _check_kernel_call(q, "flash")
     b, tq, h, dh = q.shape
     tk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v = (_padded(a, width) for a in (q, k, v))
     for name, a in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, a)
-    out = torch.empty((b, tq, h, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, tq, h, width), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib("flash_attention_fwd").znicz_flash_attention_fwd(
+        err = _fn(q.dtype, "fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, tq, tk, dh,
+            lse.data_ptr(), b, h, tq, tk, width,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            1.0 / math.sqrt(dh), int(bool(causal)), int(q_offset),
-            int(k_offset), stream)
+            scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed "
                            f"(cudaError {err})")
-    flash_attention_fwd.launches += 1
-    return out, lse
+    _count(flash_attention_fwd, q.dtype, width)
+    return out[..., :dh], lse
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0, in all and by
+#: kernel
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,21 +265,26 @@ def _check_bwd(q, k, v, dout, lse, delta) -> None:
 
 def _bwd_args(q, k, v, dout, lse, delta, name):
     """The checks and the shared leading arguments of both backward
-    kernels' C calls (pointers, geometry, input strides)."""
-    _check_kernel_call(q, name)
+    kernels' C calls: ``(width, scale, operands, pointers, geometry,
+    input strides)``, the operands zero-padded to the instantiated head
+    dim ``width`` and the scale that of the true one."""
+    width = _check_kernel_call(q, name)
     if dout.dtype != q.dtype:
         raise ValueError(f"dout must be {q.dtype}, got {dout.dtype}")
-    for arg, a in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+    scale = 1.0 / math.sqrt(q.shape[3])
+    ops = [_padded(a, width) for a in (q, k, v, dout)]
+    for arg, a in zip(("q", "k", "v", "dout"), ops):
         _check_kernel_operand(arg, a)
     for arg, t in (("lse", lse), ("delta", delta)):
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
-    b, tq, h, dh = q.shape
+    b, tq, h, _ = q.shape
     strides = (ctypes.c_longlong * 12)(
-        *(s for a in (q, k, v, dout) for s in a.stride()[:3]))
-    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()],
-            [b, h, tq, k.shape[1], dh], strides)
+        *(s for a in ops for s in a.stride()[:3]))
+    return (width, scale, ops,
+            [*(a.data_ptr() for a in ops), lse.data_ptr(),
+             delta.data_ptr()],
+            [b, h, tq, k.shape[1], width], strides)
 
 
 def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,29 +294,31 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> torch.Tensor:
     """dq (B, Tq, H, dh) in q's dtype from the forward's ``lse`` and
     ``delta = rowsum(do·out) − dlse`` (both (B, H, Tq) f32).  On the
-    card: bf16, dh in :data:`KERNEL_HEAD_DIMS`, any Tq/Tk.  CPU tensors
-    take :func:`flash_attention_dq_plain`."""
+    card: bf16 or f32, dh a multiple of 8 up to 128, any Tq/Tk.  CPU
+    tensors take :func:`flash_attention_dq_plain`."""
     _check_bwd(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, dout, lse, delta, causal,
                                         q_offset, k_offset)
-    ptrs, geom, strides = _bwd_args(q, k, v, dout, lse, delta, "flash dq")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    width, scale, ops, ptrs, geom, strides = _bwd_args(
+        q, k, v, dout, lse, delta, "flash dq")
+    out = torch.empty(ops[0].shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib("flash_attention_bwd").znicz_flash_attention_dq(
+        err = _fn(q.dtype, "dq")(
             *ptrs, out.data_ptr(), *geom, strides, *out.stride()[:3],
-            1.0 / math.sqrt(q.shape[3]), int(bool(causal)), int(q_offset),
-            int(k_offset), stream)
+            scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
     if err:
         raise RuntimeError(f"flash_attention_dq kernel launch failed "
                            f"(cudaError {err})")
-    flash_attention_dq.launches += 1
-    return out
+    _count(flash_attention_dq, q.dtype, width)
+    return out[..., :q.shape[3]]
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0, in all and by
+#: kernel
 flash_attention_dq.launches = 0
+flash_attention_dq.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
 
 
 def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -268,27 +333,30 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal,
                                          q_offset, k_offset)
-    ptrs, geom, strides = _bwd_args(q, k, v, dout, lse, delta,
-                                    "flash dk/dv")
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    width, scale, ops, ptrs, geom, strides = _bwd_args(
+        q, k, v, dout, lse, delta, "flash dk/dv")
+    dk = torch.empty(ops[1].shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(ops[2].shape, dtype=v.dtype, device=v.device)
     out_strides = (ctypes.c_longlong * 6)(*dk.stride()[:3],
                                           *dv.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib("flash_attention_bwd").znicz_flash_attention_dkv(
+        err = _fn(q.dtype, "dkv")(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *geom, strides,
-            out_strides, 1.0 / math.sqrt(q.shape[3]), int(bool(causal)),
-            int(q_offset), int(k_offset), stream)
+            out_strides, scale, int(bool(causal)), int(q_offset),
+            int(k_offset), stream)
     if err:
         raise RuntimeError(f"flash_attention_dkv kernel launch failed "
                            f"(cudaError {err})")
-    flash_attention_dkv.launches += 1
-    return dk, dv
+    _count(flash_attention_dkv, q.dtype, width)
+    dh = q.shape[3]
+    return dk[..., :dh], dv[..., :dh]
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counter was last set to 0, in all and by
+#: kernel
 flash_attention_dkv.launches = 0
+flash_attention_dkv.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
 
 
 def _recompute(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
@@ -423,3 +491,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (a.to(dot_dtype) for a in (q, k, v))
     out, _ = FlashHop.apply(q, k, v, causal, q_offset, k_offset)
     return out.float()
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False,
+                    dot_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Softmax attention over the whole score matrix in plain PyTorch,
+    differentiable by autograd: the reference's XLA core
+    (``ring_attention.local_attention``), which the attention unit takes
+    where :func:`kernel_legal` does not hold.  (B, Tq, H, dh) q and
+    (B, Tk, H, dh) k/v → (B, Tq, H, dh) f32.  With ``dot_dtype`` the
+    operands and the (T, T) scores and probabilities are stored in it,
+    the softmax statistics are f32, and the products accumulate in f32;
+    without it everything is f32."""
+    dh = q.shape[-1]
+    if dot_dtype is not None:
+        q, k, v = (a.to(dot_dtype) for a in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        mask = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+    if dot_dtype is not None:
+        s = s.to(dot_dtype)
+        m = s.amax(dim=-1, keepdim=True).float().detach()
+        e = torch.exp(s.float() - m)
+        p = (e / e.sum(dim=-1, keepdim=True)).to(dot_dtype)
+    else:
+        p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = False,
+                   dot_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The attention unit's core, routed as the reference routes it: the
+    flash kernels (:func:`flash_attention`) where :func:`kernel_legal`
+    holds for the head dim, else :func:`local_attention`."""
+    if kernel_legal(q.shape[-1]):
+        return flash_attention(q, k, v, causal=causal, dot_dtype=dot_dtype)
+    return local_attention(q, k, v, causal=causal, dot_dtype=dot_dtype)

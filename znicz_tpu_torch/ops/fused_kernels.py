@@ -1,5 +1,34 @@
 """Fused row kernels (port of ``znicz_tpu/ops/pallas_kernels.py``).
 
+Each wrapper below launches one CUDA kernel, which replaces one Pallas
+TPU kernel of the reference; each has a plain PyTorch version of the
+same function beside it (``*_plain``) and an integer ``launches``
+counter.  A wrapper uses the plain version only for CPU tensors; a
+CUDA tensor gets the kernel or an error.
+
+The cross-channel LRN of AlexNet, over channels-last activations seen
+as (rows, C):
+
+- :func:`lrn_forward` wraps ``csrc/lrn.cu``'s forward, which replaces
+  ``_lrn_fwd_kernel`` (B1) — ``y = x·(k + α·Σ_win x²)^(−β)``, the
+  window ``[c − n//2, c + n − 1 − n//2]``, f32 math, y in x's dtype;
+- :func:`lrn_backward` wraps its backward, which replaces
+  ``_lrn_bwd_kernel`` (B2) — ``dx = err·d^(−β) − 2αβ·x·Σ_adj(err·x·d^(−β−1))``
+  over the window's adjoint (``[c − (n − 1 − n//2), c + n//2]``, not
+  the forward's window when n is even), dx in err's dtype.
+
+Dropout and the softmax head:
+
+- :func:`dropout_apply` wraps ``csrc/dropout.cu``, which replaces
+  ``_dropout_kernel`` (B3) — keep iff the element's Philox4x32-10 bits
+  (counter = the element index, key = the seed) exceed
+  ``ratio·(2³²−1)``, kept elements scaled by ``1/(1−ratio)``.  The
+  plain version computes the same bits with int64 arithmetic, so a
+  seed gives the same mask on the card and on the CPU;
+- :func:`softmax_argmax` wraps ``csrc/softmax_argmax.cu``, which
+  replaces ``_softmax_argmax_kernel`` (B4) — the row softmax of f32
+  logits and the int32 index of the first maximum.
+
 The layer norm, both directions:
 
 - :func:`layer_norm_forward` wraps the CUDA kernel
@@ -11,19 +40,15 @@ The layer norm, both directions:
   replaces ``_ln_bwd_kernel`` (B6) — dx in err's dtype plus the f32
   cross-row γ and β gradient sums, in one pass over the rows.
 
-Each has a plain PyTorch version of the same function beside it
-(``*_plain``); a wrapper uses it only for CPU tensors, and a CUDA
-tensor gets the kernel or an error.
-
-The reference's other kernels in this module (LRN forward/backward,
-dropout, softmax+argmax) belong to a later slice.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu_torch.ops import _cuda
 
@@ -39,19 +64,50 @@ def _lib(stem: str) -> ctypes.CDLL:
     cuts a 64-bit address)."""
     lib = _cuda.library(stem)
     if stem not in _bound:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if stem == "layer_norm_fwd":
-            lib.znicz_layer_norm_fwd.argtypes = [
-                p, p, p, p, ll, i, ctypes.c_float, i, i, p]
-            lib.znicz_layer_norm_fwd.restype = i
-        else:
-            lib.znicz_layer_norm_bwd_blocks.argtypes = [ll, i, i]
-            lib.znicz_layer_norm_bwd_blocks.restype = ll
-            lib.znicz_layer_norm_bwd.argtypes = [
-                p, p, p, p, p, p, p, ll, i, ctypes.c_float, i, i, i, p]
-            lib.znicz_layer_norm_bwd.restype = i
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        signatures = {
+            "layer_norm_fwd": {
+                "znicz_layer_norm_fwd": ([p, p, p, p, ll, i, f, i, i, p], i)},
+            "layer_norm_bwd": {
+                "znicz_layer_norm_bwd_blocks": ([ll, i, i], ll),
+                "znicz_layer_norm_bwd": (
+                    [p, p, p, p, p, p, p, ll, i, f, i, i, i, p], i)},
+            "lrn": {
+                "znicz_lrn_fwd": ([p, p, ll, i, i, f, f, f, i, p], i),
+                "znicz_lrn_bwd": ([p, p, p, ll, i, i, f, f, f, i, i, p], i)},
+            "dropout": {
+                "znicz_dropout": (
+                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i)},
+            "softmax_argmax": {
+                "znicz_softmax_argmax": ([p, p, p, ll, i, p], i)},
+        }[stem]
+        for name, (argtypes, restype) in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _bound.add(stem)
     return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_card_tensor(name: str, t: torch.Tensor, dtypes) -> None:
+    """What the row kernels take on the card: a contiguous CUDA tensor
+    of one of ``dtypes``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"the kernel takes {list(dtypes)} for {name}, "
+                         f"got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous {name}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError {err})")
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor,
@@ -211,3 +267,251 @@ def layer_norm_backward_plain(x: torch.Tensor, err: torch.Tensor,
     grad_g = (ef * xhat).sum(dim=0)
     grad_b = ef.sum(dim=0) if with_beta else None
     return dx.to(err.dtype).reshape(x.shape), grad_g, grad_b
+
+
+# ----------------------------------------------------------------------
+# LRN (B1, B2)
+# ----------------------------------------------------------------------
+#: the widest channel axis the LRN kernels stage in shared memory
+LRN_MAX_CHANNELS = 16384
+
+
+def _window_sum(a: torch.Tensor, n: int, half_low: int) -> torch.Tensor:
+    """Sliding sum over the last axis, ``out_c = Σ_{j=c−half_low}^{c+n−1−half_low} a_j``
+    (zero outside), added in channel order as the kernels add it."""
+    c = a.shape[-1]
+    padded = F.pad(a, (half_low, n - 1 - half_low))
+    out = torch.zeros_like(a)
+    for off in range(n):
+        out = out + padded[..., off:off + c]
+    return out
+
+
+def _pow_neg(d: torch.Tensor, beta: float) -> torch.Tensor:
+    """``d^(−β)``; AlexNet's β = 0.75 as ``rsqrt(d·√d)``, as the kernel
+    and the reference's XLA path compute it."""
+    if beta == 0.75:
+        return torch.rsqrt(d * torch.sqrt(d))
+    return d ** (-beta)
+
+
+def _check_lrn(x: torch.Tensor, n: int) -> None:
+    if x.dim() < 1 or n < 1:
+        raise ValueError(f"LRN over the last axis of a tensor with n >= 1, "
+                         f"got shape {tuple(x.shape)} and n={n}")
+
+
+def _lrn_rows(x: torch.Tensor) -> tuple[int, int]:
+    """``(rows, C)`` of a tensor the LRN kernels take: contiguous f32 or
+    bf16 on the card, at most :data:`LRN_MAX_CHANNELS` channels."""
+    _check_card_tensor("x", x, _KERNEL_DTYPES)
+    c = x.shape[-1]
+    if c > LRN_MAX_CHANNELS:
+        raise ValueError(f"the LRN kernel takes up to {LRN_MAX_CHANNELS} "
+                         f"channels, got {c}")
+    return (x.numel() // c if c else 0), c
+
+
+def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float,
+                n: int) -> torch.Tensor:
+    """Cross-channel LRN over the last axis of ``x``: y with x's shape
+    and dtype.  On the card x is contiguous f32 or bf16 with at most
+    :data:`LRN_MAX_CHANNELS` channels."""
+    _check_lrn(x, n)
+    if x.device.type == "cpu":
+        return lrn_forward_plain(x, alpha, beta, k, n)
+    rows, c = _lrn_rows(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib("lrn").znicz_lrn_fwd(
+            x.data_ptr(), y.data_ptr(), rows, c, n, alpha, beta, k,
+            _KERNEL_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, "lrn_forward")
+    lrn_forward.launches += 1
+    return y
+
+
+#: kernel launches since the counter was last set to 0
+lrn_forward.launches = 0
+
+
+def lrn_forward_plain(x: torch.Tensor, alpha: float, beta: float, k: float,
+                      n: int) -> torch.Tensor:
+    """The forward kernel's function in plain PyTorch (f32 math, y in
+    x's dtype)."""
+    _check_lrn(x, n)
+    xf = x.float()
+    d = k + alpha * _window_sum(xf * xf, n, n // 2)
+    return (xf * _pow_neg(d, beta)).to(x.dtype)
+
+
+def lrn_backward(x: torch.Tensor, err: torch.Tensor, alpha: float,
+                 beta: float, k: float, n: int) -> torch.Tensor:
+    """The LRN's analytic gradient: dx with x's shape in err's dtype.
+    On the card x and err are contiguous f32 or bf16 (each on its own)
+    with at most :data:`LRN_MAX_CHANNELS` channels."""
+    _check_lrn(x, n)
+    if err.shape != x.shape or err.device != x.device:
+        raise ValueError(f"err {tuple(err.shape)} on {err.device} does not "
+                         f"match x {tuple(x.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return lrn_backward_plain(x, err, alpha, beta, k, n)
+    _check_card_tensor("err", err, _KERNEL_DTYPES)
+    rows, c = _lrn_rows(x)
+    dx = torch.empty_like(err)
+    with torch.cuda.device(x.device):
+        code = _lib("lrn").znicz_lrn_bwd(
+            x.data_ptr(), err.data_ptr(), dx.data_ptr(), rows, c, n, alpha,
+            beta, k, _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[err.dtype],
+            _stream(x))
+    _raise_on(code, "lrn_backward")
+    lrn_backward.launches += 1
+    return dx
+
+
+#: kernel launches since the counter was last set to 0
+lrn_backward.launches = 0
+
+
+def lrn_backward_plain(x: torch.Tensor, err: torch.Tensor, alpha: float,
+                       beta: float, k: float, n: int) -> torch.Tensor:
+    """The backward kernel's function in plain PyTorch (f32 math, dx in
+    err's dtype)."""
+    _check_lrn(x, n)
+    xf, ef = x.float(), err.float()
+    d = k + alpha * _window_sum(xf * xf, n, n // 2)
+    p = _pow_neg(d, beta)
+    t = ef * xf * (p / d)
+    dx = ef * p - 2.0 * alpha * beta * xf * _window_sum(t, n,
+                                                        n - 1 - n // 2)
+    return dx.to(err.dtype)
+
+
+# ----------------------------------------------------------------------
+# dropout (B3)
+# ----------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` 32-bit words of the 64-bit product of the constant
+    ``m`` and the 32-bit values in the int64 tensor ``c``, through 16-bit
+    halves so no int64 product overflows."""
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    c_hi, c_lo = c >> 16, c & 0xFFFF
+    low = m_lo * c_lo
+    mid = m_hi * c_lo + m_lo * c_hi
+    lo = low + ((mid & 0xFFFF) << 16)
+    hi = m_hi * c_hi + (mid >> 16) + (lo >> 32)
+    return hi & _M32, lo & _M32
+
+
+def dropout_bits(n: int, seed: int,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """The 32-bit random words of elements ``0..n−1`` (as int64): word 0
+    of Philox4x32-10 at counter ``(i mod 2³², i div 2³², 0, 0)`` and key
+    ``(seed mod 2³², seed div 2³²)``, the arithmetic of ``csrc/dropout.cu``
+    on int64 tensors masked to 32 bits."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    c0, c1 = i & _M32, i >> 32
+    c2 = torch.zeros_like(i)
+    c3 = torch.zeros_like(i)
+    k0, k1 = seed & _M32, (seed >> 32) & _M32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return c0
+
+
+@functools.lru_cache(maxsize=None)
+def _dropout_constants(dtype: torch.dtype, drop_ratio: float
+                       ) -> tuple[int, float]:
+    """``(threshold, scale)``: keep iff bits > threshold (the TPU
+    kernel's ``ratio·(2³²−1)``, −1 for ratio 0 so that every element is
+    kept), kept elements times ``1/(1−ratio)`` rounded to x's dtype, as
+    the reference's mask is stored in it."""
+    if not 0.0 <= drop_ratio < 1.0:
+        raise ValueError(f"drop_ratio {drop_ratio} not in [0, 1)")
+    threshold = int(drop_ratio * (2 ** 32 - 1)) if drop_ratio else -1
+    scale = float(torch.tensor(1.0 / (1.0 - drop_ratio)).to(dtype))
+    return threshold, scale
+
+
+def dropout_apply(x: torch.Tensor, seed: int,
+                  drop_ratio: float) -> torch.Tensor:
+    """Inverted dropout with the mask of ``seed``: y with x's shape and
+    dtype.  The same seed gives the same mask for any tensor of the
+    same size (the backward applies it to the error).  On the card x is
+    contiguous f32 or bf16."""
+    threshold, scale = _dropout_constants(x.dtype, drop_ratio)
+    if x.device.type == "cpu":
+        return dropout_apply_plain(x, seed, drop_ratio)
+    _check_card_tensor("x", x, _KERNEL_DTYPES)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib("dropout").znicz_dropout(
+            x.data_ptr(), y.data_ptr(), x.numel(), int(seed) & (2 ** 64 - 1),
+            threshold, scale, _KERNEL_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, "dropout_apply")
+    dropout_apply.launches += 1
+    return y
+
+
+#: kernel launches since the counter was last set to 0
+dropout_apply.launches = 0
+
+
+def dropout_apply_plain(x: torch.Tensor, seed: int,
+                        drop_ratio: float) -> torch.Tensor:
+    """The dropout kernel's function in plain PyTorch, bit for bit."""
+    threshold, scale = _dropout_constants(x.dtype, drop_ratio)
+    keep = dropout_bits(x.numel(), int(seed) & (2 ** 64 - 1),
+                        x.device).reshape(x.shape) > threshold
+    return torch.where(keep, x.float() * scale, 0.0).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# softmax + argmax (B4)
+# ----------------------------------------------------------------------
+def _check_logits(v: torch.Tensor) -> None:
+    if v.dim() != 2:
+        raise ValueError(f"softmax_argmax takes (rows, classes) logits, "
+                         f"got shape {tuple(v.shape)}")
+
+
+def softmax_argmax(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row softmax and argmax of (rows, C) logits: ``(probabilities f32,
+    max_idx int32)``, the first index on ties.  On the card v is
+    contiguous f32."""
+    _check_logits(v)
+    if v.device.type == "cpu":
+        return softmax_argmax_plain(v)
+    _check_card_tensor("v", v, (torch.float32,))
+    rows, c = v.shape
+    y = torch.empty_like(v)
+    idx = torch.empty(rows, dtype=torch.int32, device=v.device)
+    with torch.cuda.device(v.device):
+        err = _lib("softmax_argmax").znicz_softmax_argmax(
+            v.data_ptr(), y.data_ptr(), idx.data_ptr(), rows, c, _stream(v))
+    _raise_on(err, "softmax_argmax")
+    softmax_argmax.launches += 1
+    return y, idx
+
+
+#: kernel launches since the counter was last set to 0
+softmax_argmax.launches = 0
+
+
+def softmax_argmax_plain(v: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: ``exp(v − max)`` over its
+    row sum in f32, and ``argmax`` of v (first index on ties)."""
+    _check_logits(v)
+    vf = v.float()
+    e = torch.exp(vf - vf.amax(dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True), torch.argmax(vf, dim=1).to(
+        torch.int32)

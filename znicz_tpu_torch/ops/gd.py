@@ -5,27 +5,31 @@ Math (weights stored ``(in, out)``), the reference's explicit formulas:
 
 .. code-block:: text
 
+    δ         = err_output · act'(y)   in the storage dtype of err and y
     err_input = mxu_dot(δ, Wᵀ)        stored in the activation dtype
     dL/dW     = mxu_dot(xᵀ, δ)
     dL/db     = Σ_batch δ             f32
 
 then the shared update of
-:class:`~znicz_tpu_torch.ops.nn_units.GradientDescentBase`.  In bf16 mode
-``mxu_dot`` rounds δ to bf16 *before* each product; autograd through
-the forward would instead round the product's result, so these units
-write the formulas out rather than differentiate.  The evaluator emits
-``err_output`` already divided by the number of valid samples.
+:class:`~znicz_tpu_torch.ops.nn_units.GradientDescentBase`.  ``act'`` is
+expressed in the forward's output ``y``, which the workflow hands each
+backward unit.  In bf16 mode ``mxu_dot`` rounds δ to bf16 *before* each
+product; autograd through the forward would instead round the
+product's result, so these units write the formulas out rather than
+differentiate.  The evaluator emits ``err_output`` already divided by
+the number of valid samples.
 
 ``GDSoftmax`` is the linear case: ``EvaluatorSoftmax`` folds the
 softmax + cross-entropy derivative (``p − t``) into ``err_output``.
-The activation flavors arrive with their forward units.
 """
 
 from __future__ import annotations
 
 import torch
 
-from znicz_tpu_torch.ops.all2all import All2All, All2AllSoftmax
+from znicz_tpu_torch.ops.all2all import (All2All, All2AllRELU,
+                                         All2AllSigmoid, All2AllSoftmax,
+                                         All2AllStrictRELU, All2AllTanh)
 from znicz_tpu_torch.ops.nn_units import GradientDescentBase
 
 
@@ -35,12 +39,17 @@ class GradientDescent(GradientDescentBase):
     MATCHES = (All2All,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor,
-            err_output: torch.Tensor) -> torch.Tensor | None:
+    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+            y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         batch = x.shape[0]
         x2d = x.reshape(batch, -1)
         delta = err_output.reshape(batch, -1)
+        act = fwd.activation
+        if act.name != "linear":
+            delta = delta * act.derivative(
+                y.reshape(batch, -1),
+                x2d if act.needs_input else None)
         err_input = None
         if self.need_err_input:
             # reads W before this unit's own update below
@@ -50,6 +59,22 @@ class GradientDescent(GradientDescentBase):
         if fwd.include_bias:
             self.apply_bias(delta.float().sum(dim=0))
         return err_input
+
+
+class GDTanh(GradientDescent):
+    MATCHES = (All2AllTanh,)
+
+
+class GDRELU(GradientDescent):
+    MATCHES = (All2AllRELU,)
+
+
+class GDStrictRELU(GradientDescent):
+    MATCHES = (All2AllStrictRELU,)
+
+
+class GDSigmoid(GradientDescent):
+    MATCHES = (All2AllSigmoid,)
 
 
 class GDSoftmax(GradientDescent):

@@ -63,8 +63,8 @@ class GDLayerNorm(GradientDescentBase):
     MATCHES = (LayerNorm,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor,
-            err_output: torch.Tensor) -> torch.Tensor | None:
+    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+            y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         dx, grad_g, grad_b = layer_norm_backward(
             x, err_output, fwd.weights, fwd.eps,

@@ -24,7 +24,7 @@ Two precision rules carry over from the reference's XLA path:
   layers are stored in bf16 in bf16 mode and in f32 otherwise.
 
 :class:`GradientDescentBase` is the reference's update rule, cut to what
-the sequence-training path runs (learning rates, L1/L2 decay, momentum,
+the training paths run (learning rates, L1/L2 decay, momentum,
 gradient-norm clipping); ZeRO-1, the anomaly guard, the SDC fingerprint,
 microbatch accumulation and fp8 belong to later slices.  Momentum is
 stored in bf16 in bf16 mode with its math in f32, as in the reference.
@@ -253,11 +253,12 @@ class GradientDescentBase(nn.Module):
             value.shape, dtype=self.opt_state_dtype, device=value.device)
             if moment and value is not None else None)
 
-    def run(self, x: torch.Tensor,
-            err_output: torch.Tensor) -> torch.Tensor | None:
-        """One backward step from the forward's input ``x`` and the
-        error at its output; returns ``err_input`` in the activation
-        storage dtype, or None when no unit before wants it."""
+    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+            y: torch.Tensor | None = None) -> torch.Tensor | None:
+        """One backward step from the forward's input ``x``, the error
+        at its output and the forward's output ``y`` of this step;
+        returns ``err_input`` in the activation storage dtype, or None
+        when no unit before wants it."""
         raise NotImplementedError
 
     # -- the update rule --------------------------------------------------
