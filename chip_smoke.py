@@ -11,21 +11,23 @@ Phases (any failure raises and exits non-zero):
 1. prints the card's name and power limit (``nvidia-smi``), then builds
    every kernel from ``znicz_tpu_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` a source, all at once) and prints the
-   compiler's register/shared-memory lines; a spill fails the phase;
+   compiler's register/shared-memory lines, each source's build time
+   and the TMA forward's shared memory by width; a spill fails the
+   phase;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card, within the tolerance printed beside each case — the flash
-   kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32 and the
-   zero-padded 40 and 96, causal, with offsets and ragged lengths, and
-   the dh = 4 attention core launching none of them; the layer norm
-   both ways (B5, B6); the LRN both ways (B1, B2) at AlexNet's two
-   shapes in both storage dtypes, n = 5 and 4, an odd channel count
-   over a ragged row count; dropout (B3) bitwise against its plain
-   version, forward and backward masks identical, the keep fraction
-   within 4σ, ratio 0 the identity; softmax + argmax (B4) with planted
-   ties and a −inf column.  Times the kernel, the plain version and one
-   PyTorch library call for the same function (a yardstick only — the
-   port never calls it; B3's and B4's three through CUDA graphs, as
-   their kernels take less time than their wrappers) and computes the
+   kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32, 256 and
+   the zero-padded 40, 96 and 200, causal, with offsets and ragged
+   lengths, and the dh = 4 attention core launching none of them; the
+   layer norm both ways (B5, B6); the LRN both ways (B1, B2) at
+   AlexNet's two shapes in both storage dtypes, n = 5 and 4, an odd
+   channel count over a ragged row count; dropout (B3) bitwise against
+   its plain version, forward and backward masks identical, the keep
+   fraction within 4σ, ratio 0 the identity; softmax + argmax (B4) with
+   planted ties and a −inf column. Times the kernel, the plain version
+   and one PyTorch library call for the same function (a yardstick only
+   — the port never calls it; B3's and B4's three through CUDA graphs,
+   as their kernels take less time than their wrappers) and computes the
    bound (the least time the card could take: bytes over 3.35 TB/s or
    operations over the peak rate for their type, the larger);
 3. serving: writes a full-width bf16 scorer bundle in the reference
@@ -54,9 +56,10 @@ Phases (any failure raises and exits non-zero):
    against its f32 step), and shows that a planted wrong dropout mask
    fails that check;
 6. the sequence stack in f32 (the f32 flash kernels), at dh = 32 (the
-   32-wide bf16 instantiation) and at dh = 4 (the
-   ``attention_seq`` sample, whose attention takes the plain core and
-   launches no flash kernel), a few train steps each.
+   32-wide bf16 instantiation), at dh = 256 in bf16 and in f32 (2 heads
+   of 256 at D = 512, the kernels' column-chunked width) and at dh = 4
+   (the ``attention_seq`` sample, whose attention takes the plain core
+   and launches no flash kernel), a few train steps each.
 
 Each path of phases 3–6 runs with every launch counter set to 0 just
 before it and read just after.  The last two lines of standard output
@@ -68,6 +71,7 @@ result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -169,7 +173,9 @@ def max_err(a, b) -> float:
 #: and the suffix of the kernel row the case is timed for (None: not
 #: timed).  The bf16 kernels at dh 64 and 128, then the f32 kernels
 #: (R1) and the head dims other than 64/128 (R2): the 32-wide
-#: instantiation, and 40 and 96, zero-padded to 64 and 128.
+#: instantiation, and 40 and 96, zero-padded to 64 and 128; then the
+#: head dims past 128 (C2): 256 in both dtypes, and 200 zero-padded to
+#: 256 (the bf16 forward reads it through TMA's zero fill).
 ATTN_CASES = (
     ("serving", "bfloat16", BATCH, SEQ, SEQ, HEADS, DIM // HEADS, False,
      0, 0, ""),
@@ -195,7 +201,20 @@ ATTN_CASES = (
     ("dh32_causal_ragged", "bfloat16", 3, 1000, 1000, 2 * HEADS, 32, True,
      0, 0, None),
     ("dh40_padded", "bfloat16", 2, 1000, 777, 4, 40, True, 300, 0, None),
+    ("dh256", "bfloat16", BATCH, SEQ, SEQ, 2, 256, False, 0, 0, "_dh256"),
+    ("dh256_causal_offsets", "bfloat16", 2, 1024, 1024, 2, 256, True, 512,
+     1024, None),
+    ("dh200_padded", "bfloat16", 2, 1000, 777, 2, 200, True, 300, 0, None),
+    ("f32_dh256", "float32", BATCH, SEQ, SEQ, 2, 256, False, 0, 0,
+     "_f32_dh256"),
+    ("f32_dh256_causal_offsets", "float32", 2, 1024, 1024, 2, 256, True,
+     512, 1024, None),
+    ("f32_dh200_padded", "float32", 2, 1000, 777, 2, 200, True, 300, 0,
+     None),
 )
+#: cases whose forward is timed though they have no row of their own
+#: (their launches count under the "bf16" row)
+FWD_TIMED_ONLY = ("dh128",)
 #: out and lse against the plain version.  bf16 operands: out differs
 #: by bf16 rounding of p at different running maxima and by summation
 #: order; lse is f32 throughout.  f32 operands: f32 products on both
@@ -203,10 +222,12 @@ ATTN_CASES = (
 ATTN_OUT_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ATTN_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 #: kernel row suffix → the variant its launches are counted under
-ROW_VARIANT = {"": "bf16", "_f32": "f32", "_dh32": "dh32"}
-ATTN_SOURCES = {"": ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
-                "_dh32": ("flash_attention_fwd.cu", "flash_attention_bwd.cu"),
-                "_f32": ("flash_attention_f32.cu", "flash_attention_f32.cu")}
+ROW_VARIANT = {"": "bf16", "_f32": "f32", "_dh32": "dh32",
+               "_dh256": "dh256", "_f32_dh256": "f32_dh256"}
+ATTN_SOURCES = {
+    suffix: (("flash_attention_f32.cu",) * 2 if "f32" in suffix else
+             ("flash_attention_fwd.cu", "flash_attention_bwd.cu"))
+    for suffix in ROW_VARIANT}
 
 
 def _visible_pairs(tq: int, tk: int, causal: bool, q_off: int,
@@ -255,14 +276,14 @@ def check_flash(gen) -> dict:
         tol_o, tol_l = ATTN_OUT_TOL[dtype_name], ATTN_LSE_TOL[dtype_name]
         say(f"  flash_attention_fwd {name}: {dtype_name} B={b} Tq={tq} "
             f"Tk={tk} H={h} dh={dh} (kernel width "
-            f"{fa.kernel_head_dim(dh)}) causal={causal} "
+            f"{fa.kernel_head_dim(dh)} in B8/B9) causal={causal} "
             f"offsets=({q_off},{k_off}) max_abs_err out={err_o:.3g} "
             f"(tol {tol_o}) lse={err_l:.3g} (tol {tol_l})")
         if out.dtype != dtype or out.shape != q.shape or not finite \
                 or err_o > tol_o or err_l > tol_l:
             raise AssertionError(f"flash_attention_fwd disagrees with its "
                                  f"plain version in case '{name}'")
-        if suffix is None:
+        if suffix is None and name not in FWD_TIMED_ONLY:
             continue
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), 20)
         plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
@@ -279,6 +300,8 @@ def check_flash(gen) -> dict:
             f"{plain_ms:.4f} ms, scaled_dot_product_attention "
             f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
             f"{flops:.4g} FLOP, {nbytes:.4g} B)")
+        if suffix is None:
+            continue
         key = f"flash_attention_fwd{suffix}"
         rows[key] = {"name": key, "route": "cuda",
                      "source": "znicz_tpu_torch/csrc/"
@@ -319,8 +342,9 @@ def check_core_route(gen) -> None:
                              "disagrees")
 
 
-#: the case given a random nonzero lse cotangent (the ring's term)
-DLSE_CASES = ("ragged_cross", "f32_ragged_cross")
+#: the cases given a random nonzero lse cotangent (the ring's term)
+DLSE_CASES = ("ragged_cross", "f32_ragged_cross", "dh200_padded",
+              "f32_dh200_padded")
 #: dq, dk and dv against the plain version, relative to the largest
 #: |reference|.  bf16: both round p and ds to bf16 before their products,
 #: at exp(s − lse) values that differ in the last f32 bits (expf and
@@ -1462,12 +1486,16 @@ def main() -> int:
     for name in _cuda.SOURCES:
         stem = os.path.splitext(name)[0]
         for line in _cuda.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wall time" in line:
                 say(f"  {stem}: {line.strip()}")
             spills += [(stem, line.strip()) for n in re.findall(
                 r"(\d+) bytes spill", line) if int(n)]
     if spills:
         raise AssertionError(f"the compiler spilled registers: {spills}")
+    smem = _cuda.library("flash_attention_fwd").znicz_flash_attention_fwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    say("  flash_attention_fwd (TMA + wgmma) dynamic shared memory by width: "
+        + ", ".join(f"{w}: {smem(w)} B" for w in (64, 128, 256)))
 
     say("phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
@@ -1495,9 +1523,12 @@ def main() -> int:
     say("phase 5: full-width AlexNet training through StandardWorkflow")
     paths["alexnet"] = alexnet_slice()
 
-    say("phase 6: the sequence stack in f32 and at head dims 32 and 4")
+    say("phase 6: the sequence stack in f32 and at head dims 32, 256 and 4")
     paths["seq_f32"] = seq_pass("seq_f32", "float32", HEADS, "f32")
     paths["seq_dh32"] = seq_pass("seq_dh32", "bfloat16", 2 * HEADS, "dh32")
+    paths["seq_dh256"] = seq_pass("seq_dh256", "bfloat16", 2, "dh256")
+    paths["seq_f32_dh256"] = seq_pass("seq_f32_dh256", "float32", 2,
+                                      "f32_dh256")
     paths["seq_dh4"] = dh4_pass()
 
     for name, row in rows.items():

@@ -244,14 +244,17 @@ def test_backward_wrappers_take_the_plain_version_for_cpu_tensors_only():
 
 def test_head_dim_routing_is_the_reference_rule():
     """The reference engages its kernel when ``dh % 8 == 0``; the port's
-    kernels are instantiated at 32, 64 and 128 and take any other
-    multiple of 8 up to 128 zero-padded to the next of them."""
-    assert [d for d in range(1, 140) if fa.kernel_legal(d)] == \
-        list(range(8, 140, 8))
-    assert [fa.kernel_head_dim(d) for d in (8, 32, 40, 64, 72, 96, 128)] \
-        == [32, 32, 64, 64, 128, 128, 128]
-    for dh in (4, 12, 136):
-        with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+    kernels are instantiated at 32, 64, 128 and 256 and take any other
+    multiple of 8 up to 256 zero-padded to the next of them (C2).  Past
+    256 the whole head dim of a tile no longer fits shared memory: the
+    kernels raise, naming the limit (C5)."""
+    assert [d for d in range(1, 300) if fa.kernel_legal(d)] == \
+        list(range(8, 300, 8))
+    assert [fa.kernel_head_dim(d) for d in
+            (8, 32, 40, 64, 72, 96, 128, 136, 200, 256)] \
+        == [32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
+    for dh in (4, 12, 264, 512):
+        with pytest.raises(ValueError, match="multiples of 8 up to 256"):
             fa.kernel_head_dim(dh)
 
 
@@ -260,12 +263,15 @@ def test_head_dim_routing_is_the_reference_rule():
     ("bfloat16", 40, "unsupported device"),  # padded to 64
     ("float16", 64, "operands"),
     ("bfloat16", 4, "multiples of 8"),
-    ("float32", 136, "up to 128"),
+    ("float32", 136, "unsupported device"),  # padded to 256 (C2)
+    ("bfloat16", 200, "unsupported device"),
+    ("bfloat16", 256, "unsupported device"),
+    ("float32", 264, "up to 256"),           # the limit C5 records
 ])
 def test_kernel_entry_takes_f32_and_multiples_of_8(dtype, dh, match):
     """On a device that is not the CPU the wrappers check what the
     kernels take before the device: f32 and bf16, dh a multiple of 8
-    up to 128."""
+    up to 256."""
     q = torch.zeros(1, 8, 2, dh, dtype=getattr(torch, dtype), device="meta")
     lse = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError, match=match):
@@ -307,3 +313,124 @@ def test_core_routes_dh4_to_the_plain_core_as_the_reference(monkeypatch,
     q32 = torch.zeros(1, 8, 2, 32)
     with pytest.raises(AssertionError, match="flash route"):
         fa.attention_core(q32, q32, q32)
+
+
+def _meta(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16, device="meta")
+
+
+@pytest.mark.parametrize("make,problem", [
+    # the head dim not contiguous
+    (lambda: _meta(1, 8, 2, 64, 2)[..., 0], "the head dim is not contiguous"),
+    # a base 2 bytes past a 16-byte boundary
+    (lambda: _meta(1, 8, 2, 72)[..., 1:65], "the base address"),
+    # heads 68 elements (136 bytes) apart
+    (lambda: _meta(1, 8, 2, 68)[..., :64], "byte strides"),
+    # time steps 132 elements apart: 264 bytes
+    (lambda: _meta(1, 8, 132)[..., :128].view(1, 8, 2, 64), "byte strides"),
+])
+def test_forward_checks_tma_preconditions_before_the_device(make, problem):
+    """The bf16 forward reads through TMA tensor maps: a layout TMA
+    cannot describe raises, naming the precondition, before any device
+    work (on ``meta`` it would otherwise reach "unsupported device")."""
+    bad, good = make(), _meta(1, 8, 2, 64)
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match=f"TMA cannot read this "
+                                             f"operand: {problem}"):
+            fa.flash_attention_fwd(*args)
+    # the packed-QKV views the attention unit passes are legal
+    qkv = _meta(2, 8, 3 * 2 * 40)
+    views = [qkv[..., i * 80:(i + 1) * 80].view(2, 8, 2, 40)
+             for i in range(3)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_fwd(*views)
+
+
+@pytest.mark.parametrize("dh", [200, 256])
+@pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
+    (False, 0, 0, 32, 32),
+    (True, 32, 0, 32, 64),        # cross lengths, the diagonal mid-keys
+    (True, 8, 24, 32, 32),        # rows 8..23 fully masked
+])
+def test_plain_matches_reference_kernels_past_128(dh, causal, q_off, k_off,
+                                                  tq, tk):
+    """Head dims past 128 (C2): the plain forward and backward, which the
+    kernels are held to on the card, against the reference's Pallas
+    kernels at 256 and at a 200 the port pads to 256, in bf16."""
+    q, k, v = _qkv(1, tq, tk, 2, dh, seed=dh + tq + q_off)
+    want_out, want_lse = _ref_hop(q, k, v, causal, q_off, k_off,
+                                  "bfloat16", block=16)
+    got_out, got_lse = _port_plain(q, k, v, causal, q_off, k_off,
+                                   "bfloat16")
+    np.testing.assert_allclose(got_out, want_out, rtol=0,
+                               atol=TOL["bfloat16"])
+    np.testing.assert_allclose(got_lse, want_lse, rtol=1e-6,
+                               atol=TOL["bfloat16"])
+    rng = np.random.default_rng(dh + q_off)
+    dout = rng.normal(0, 1, q.shape).astype(np.float32)
+    dlse = rng.normal(0, 1, (1, 2, tq)).astype(np.float32)
+    want = _ref_hop_grads(q, k, v, dout, dlse, causal, q_off, k_off,
+                          "bfloat16")
+    tq_, tk_, tv_, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                          for a in (q, k, v, dout))
+    out, lse = fa.flash_attention_plain(tq_, tk_, tv_, causal, q_off, k_off)
+    got = fa.flash_attention_bwd_plain(tq_, tk_, tv_, out, lse, tdo,
+                                       torch.from_numpy(dlse), causal,
+                                       q_off, k_off)
+    for name, w, g in zip("qkv", want, got):
+        np.testing.assert_allclose(
+            g.float().numpy(), w, rtol=0,
+            atol=BWD_TOL["bfloat16"] * np.abs(w).max(), err_msg=f"d{name}")
+
+
+def _column_chunks(q, k, v, dout, lse, delta, causal, q_off, k_off,
+                   chunk):
+    """out, dq, dk and dv computed as the kernels compute them past 128:
+    one output column chunk at a time, each from the scores over the
+    whole head dim (f32, head-major (B, H, T, ·))."""
+    qh, kh, doh, p, ds = fa._recompute(q, k, v, dout, lse, delta, causal,
+                                       q_off, k_off)
+    vh = v.permute(0, 2, 1, 3).float()
+    parts = {"out": [], "dq": [], "dk": [], "dv": []}
+    for c in range(0, q.shape[3], chunk):
+        cols = slice(c, c + chunk)
+        parts["out"].append(p @ vh[..., cols])
+        parts["dq"].append(ds @ kh[..., cols])
+        parts["dk"].append(ds.transpose(-1, -2) @ qh[..., cols])
+        parts["dv"].append(p.transpose(-1, -2) @ doh[..., cols])
+    return {key: torch.cat(val, dim=-1) for key, val in parts.items()}
+
+
+@pytest.mark.parametrize("causal,q_off,k_off", [(False, 0, 0),
+                                                (True, 8, 24)])
+def test_column_chunks_make_the_whole(causal, q_off, k_off):
+    """The algebra of the kernels' column split: out[:, c] = p·v[:, c],
+    dq[:, c] = ds·k[:, c], dk[:, c] = dsᵀ·q[:, c] and
+    dv[:, c] = pᵀ·do[:, c], with p and ds from the full head dim, so the
+    chunks of 128 (the last one ragged here) put together equal the
+    products over all columns."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 32, 24, 2, 200, seed=9))
+    dout = torch.from_numpy(np.random.default_rng(10).normal(
+        0, 1, q.shape).astype(np.float32))
+    _, lse = fa.flash_attention_plain(q, k, v, causal, q_off, k_off)
+    delta = torch.from_numpy(np.random.default_rng(11).normal(
+        0, 1, lse.shape).astype(np.float32))
+    chunked = _column_chunks(q, k, v, dout, lse, delta, causal, q_off,
+                             k_off, chunk=128)
+    whole = _column_chunks(q, k, v, dout, lse, delta, causal, q_off,
+                           k_off, chunk=q.shape[3])
+    rows = {"out": 32, "dq": 32, "dk": 24, "dv": 24}
+    for key in whole:
+        assert chunked[key].shape == whole[key].shape == (2, 2, rows[key],
+                                                          200)
+        torch.testing.assert_close(chunked[key], whole[key], rtol=0,
+                                   atol=1e-5, msg=key)
+    # and the whole is the plain versions' function
+    out, _ = fa.flash_attention_plain(q, k, v, causal, q_off, k_off)
+    dq = fa.flash_attention_dq_plain(q, k, v, dout, lse, delta, causal,
+                                     q_off, k_off)
+    dk, dv = fa.flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                          q_off, k_off)
+    for key, plain in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+        torch.testing.assert_close(whole[key].permute(0, 2, 1, 3), plain,
+                                   rtol=0, atol=1e-5, msg=key)

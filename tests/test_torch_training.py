@@ -60,15 +60,15 @@ def port_config():
     reset_root()
 
 
-def _data(seed=5):
+def _data(seed=5, d=D):
     rng = np.random.default_rng(seed)
-    x = rng.normal(0.0, 0.5, (N_TRAIN + N_VALID, T, D)).astype(np.float32)
+    x = rng.normal(0.0, 0.5, (N_TRAIN + N_VALID, T, d)).astype(np.float32)
     return x, rng.integers(0, CLASSES, N_TRAIN + N_VALID).astype(np.int32)
 
 
-def _layers(causal):
+def _layers(causal, heads=HEADS):
     return [{"type": "attention",
-             "->": {"n_heads": HEADS, "causal": causal},
+             "->": {"n_heads": heads, "causal": causal},
              "<-": {**GD, "weights_decay": 1e-3, "l1_vs_l2": 0.3}},
             {"type": "layer_norm", "->": {},
              "<-": {**GD, "learning_rate_bias": 0.02,
@@ -85,7 +85,8 @@ def _loader(cls, x, y):
                          minibatch_size=BATCH)
 
 
-def _reference(dtype, causal, seed=77, anomaly_guard=False):
+def _reference(dtype, causal, seed=77, anomaly_guard=False, d=D,
+               heads=HEADS):
     """The reference workflow, both kernels in interpret mode.  The
     port has no anomaly guard; a finite step is the same with or
     without the reference's."""
@@ -95,8 +96,8 @@ def _reference(dtype, causal, seed=77, anomaly_guard=False):
     ref_root.common.precision_type = dtype
     ref_prng.seed_all(seed)
     wf = RefWorkflow(name="torch_training",
-                     loader_factory=_loader(RefLoader, *_data()),
-                     layers=_layers(causal),
+                     loader_factory=_loader(RefLoader, *_data(d=d)),
+                     layers=_layers(causal, heads),
                      decision_config={"max_epochs": 100},
                      anomaly_guard=anomaly_guard)
     wf._max_fires = 10 ** 6
@@ -105,12 +106,12 @@ def _reference(dtype, causal, seed=77, anomaly_guard=False):
     return wf
 
 
-def _port(dtype, causal, seed=77):
+def _port(dtype, causal, seed=77, d=D, heads=HEADS):
     root.common.precision_type = dtype
     prng.seed_all(seed)
     wf = StandardWorkflow(name="torch_training",
-                          loader_factory=_loader(ArrayLoader, *_data()),
-                          layers=_layers(causal),
+                          loader_factory=_loader(ArrayLoader, *_data(d=d)),
+                          layers=_layers(causal, heads),
                           decision_config={"max_epochs": 100})
     wf.initialize(device="cpu")
     return wf
@@ -212,6 +213,23 @@ def test_train_steps_match_the_reference(dtype, causal, guard):
         else:
             assert abs(got - want) <= TOL[dtype]["loss"] * abs(want)
     assert port.loader.epoch_number == ref.loader.epoch_number == 1
+
+
+def test_train_step_at_head_dim_256_matches_the_reference():
+    """Two heads of 256 at D = 512, the width C2 opened to the kernels:
+    a validation and a train step of the port (the plain versions of the
+    256-wide kernels) against the reference's, whose flash kernel runs
+    at dh = 256 in interpret mode."""
+    ref = _reference("bfloat16", causal=True, d=512, heads=2)
+    port = _port("bfloat16", causal=True, seed=3, d=512, heads=2)
+    port.load_reference_state(ref.state_dict())
+    classes = []
+    for _ in range(2):
+        _ref_step(ref)
+        port.step()
+        classes.append(port.loader.minibatch_class)
+        _assert_close(_port_tensors(port), _ref_tensors(ref), "bfloat16")
+    assert classes == [VALID, TRAIN]
 
 
 def test_gd_softmax_rounds_delta_before_its_products():

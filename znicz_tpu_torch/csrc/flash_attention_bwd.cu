@@ -45,8 +45,22 @@
 // and delta are contiguous (B, H, Tq) f32.  Any T: rows past T are
 // zero-filled when staged and masked.  q_offset / k_offset place the call
 // on a global axis for causal masking; causal skips whole tiles that no
-// row can see.  Head dims 32, 64 and 128 are instantiated; the wrapper
-// zero-pads any other multiple of 8 up to the next one.
+// row can see.  Head dims 32, 64, 128 and 256 are instantiated; the
+// wrapper zero-pads any other multiple of 8 up to the next one.
+//
+// Head dims past 128: the outputs are split into column chunks of DC = 128
+// by a grid axis, since each chunk needs only its own columns of the
+// right-hand operand and the full score tiles:
+//   dq[:, c] = ds . k[:, c],  dv[:, c] = p^T . do[:, c],
+//   dk[:, c] = ds^T . q[:, c].
+// So a block's accumulators stay at the 128-wide size (64 registers a
+// thread for dq, 128 for dk and dv together), while the score products
+// s = q . k^T and dp = do . v^T still sum over the whole head dim, their
+// operands staged whole in shared memory and read 16 columns at a time.
+// Every chunk recomputes the score tiles: at dh = 256 the two chunks do
+// the two score products twice, 5/3 of the dq kernel's single-pass work
+// (s, dp and ds . k) and 3/2 of the dk/dv kernel's (s, dp, p^T . do and
+// ds^T . q).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,11 +215,11 @@ __device__ __forceinline__ void tile_product(float c[][4], const uint16_t* sa,
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS)
     flash_dq_kernel(const Params p) {
   constexpr int LD = D + 8;
-  constexpr int ND = D / 8;         // n-tiles of dq
+  constexpr int ND = DC / 8;        // n-tiles of this block's dq chunk
   constexpr int NS = BLOCK_N / 8;   // n-tiles of the score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* s_q = reinterpret_cast<uint16_t*>(smem_raw);
@@ -214,7 +228,8 @@ __global__ void __launch_bounds__(THREADS)
   uint16_t* s_v = s_k + BLOCK_N * LD;
 
   const int q0 = blockIdx.x * BLOCK_M;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DC);
+  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's dq columns
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -291,10 +306,11 @@ __global__ void __launch_bounds__(THREADS)
         s[nt][e] = s[nt][e] * (dp[nt][e] - delta_r[e >> 1]) * p.scale;
       }
     }
-    // dq += bf16(ds) . k
+    // dq[:, c] += bf16(ds) . k[:, c]
 #pragma unroll
     for (int kb = 0; kb < BLOCK_N / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc, s[2 * kb], s[2 * kb + 1], s_k, kb, lane);
+      acc_from_scores<ND, LD>(acc, s[2 * kb], s[2 * kb + 1], s_k + c0, kb,
+                              lane);
     }
   }
 
@@ -302,7 +318,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] < p.tq) {
-      uint16_t* out = dqg + row[r] * p.dq_st + t4 * 2;
+      uint16_t* out = dqg + row[r] * p.dq_st + c0 + t4 * 2;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         *reinterpret_cast<uint32_t*>(out + n * 8) =
@@ -312,11 +328,11 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D, int BQ>
+template <int D, int BQ, int DC>
 __global__ void __launch_bounds__(THREADS)
     flash_dkv_kernel(const Params p) {
   constexpr int LD = D + 8;
-  constexpr int ND = D / 8;   // n-tiles of dk and dv
+  constexpr int ND = DC / 8;  // n-tiles of this block's dk and dv chunks
   constexpr int NQ = BQ / 8;  // n-tiles of the transposed score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* s_k = reinterpret_cast<uint16_t*>(smem_raw);
@@ -327,7 +343,8 @@ __global__ void __launch_bounds__(THREADS)
   float* s_delta = s_lse + BQ;
 
   const int k0 = blockIdx.x * BLOCK_N;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DC);
+  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's dk/dv columns
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -393,11 +410,11 @@ __global__ void __launch_bounds__(THREADS)
         st[nt][e] = vis ? expf(st[nt][e] * p.scale - s_lse[qc]) : 0.f;
       }
     }
-    // dv += bf16(p^T) . do
+    // dv[:, c] += bf16(p^T) . do[:, c]
 #pragma unroll
     for (int kb = 0; kb < BQ / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc_dv, st[2 * kb], st[2 * kb + 1], s_do, kb,
-                              lane);
+      acc_from_scores<ND, LD>(acc_dv, st[2 * kb], st[2 * kb + 1], s_do + c0,
+                              kb, lane);
     }
     // ds^T = p^T * (v.do - delta) * scale, in place
     float dpt[NQ][4];
@@ -410,11 +427,11 @@ __global__ void __launch_bounds__(THREADS)
         st[nt][e] = st[nt][e] * (dpt[nt][e] - s_delta[qc]) * p.scale;
       }
     }
-    // dk += bf16(ds^T) . q
+    // dk[:, c] += bf16(ds^T) . q[:, c]
 #pragma unroll
     for (int kb = 0; kb < BQ / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc_dk, st[2 * kb], st[2 * kb + 1], s_q, kb,
-                              lane);
+      acc_from_scores<ND, LD>(acc_dk, st[2 * kb], st[2 * kb + 1], s_q + c0,
+                              kb, lane);
     }
   }
 
@@ -423,8 +440,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] < p.tk) {
-      uint16_t* ok = dkg + key[r] * p.dk_st + t4 * 2;
-      uint16_t* ov = dvg + key[r] * p.dv_st + t4 * 2;
+      uint16_t* ok = dkg + key[r] * p.dk_st + c0 + t4 * 2;
+      uint16_t* ov = dvg + key[r] * p.dv_st + c0 + t4 * 2;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         *reinterpret_cast<uint32_t*>(ok + n * 8) =
@@ -436,26 +453,28 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D>
+// DC: the output column chunk of a block (D up to 128, else 128)
+template <int D, int DC = (D < 128 ? D : 128)>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
   const int smem = (2 * BLOCK_M + 2 * BLOCK_N) * (D + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_dq_kernel<D, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.tq + BLOCK_M - 1) / BLOCK_M, p.heads, batch);
-  flash_dq_kernel<D><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.tq + BLOCK_M - 1) / BLOCK_M, p.heads * (D / DC), batch);
+  flash_dq_kernel<D, DC><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int BQ>
+template <int D, int BQ, int DC = (D < 128 ? D : 128)>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
   const int smem = (2 * BLOCK_N + 2 * BQ) * (D + 8) * 2 + 2 * BQ * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_dkv_kernel<D, BQ, DC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.tk + BLOCK_N - 1) / BLOCK_N, p.heads, batch);
-  flash_dkv_kernel<D, BQ><<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.tk + BLOCK_N - 1) / BLOCK_N, p.heads * (D / DC), batch);
+  flash_dkv_kernel<D, BQ, DC><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -515,6 +534,8 @@ extern "C" int znicz_flash_attention_dq(
       return static_cast<int>(launch_dq<64>(p, batch, s));
     case 128:
       return static_cast<int>(launch_dq<128>(p, batch, s));
+    case 256:
+      return static_cast<int>(launch_dq<256>(p, batch, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -547,6 +568,8 @@ extern "C" int znicz_flash_attention_dkv(
       return static_cast<int>(launch_dkv<64, 64>(p, batch, s));
     case 128:
       return static_cast<int>(launch_dkv<128, 32>(p, batch, s));
+    case 256:
+      return static_cast<int>(launch_dkv<256, 32>(p, batch, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

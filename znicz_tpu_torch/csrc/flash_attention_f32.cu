@@ -33,8 +33,16 @@
 // contiguous); lse and delta contiguous (B, H, Tq) f32; any T (rows past T
 // are zero-filled when staged and masked); q_offset / k_offset place the
 // call on a global axis for causal masking, and causal skips whole tiles
-// that no row can see.  Head dims 32, 64 and 128 are instantiated; the
-// wrapper zero-pads any other multiple of 8 up to the next one.
+// that no row can see.  Head dims 32, 64, 128 and 256 are instantiated;
+// the wrapper zero-pads any other multiple of 8 up to the next one.
+//
+// Head dims past 128: the outputs are split into column chunks of DC = 128
+// by a grid axis (out[:, c] = p . v[:, c], dq[:, c] = ds . k[:, c],
+// dv[:, c] = p^T . do[:, c], dk[:, c] = ds^T . q[:, c]), so a thread's
+// accumulators stay at the 128-wide size; the score products still sum
+// over the whole head dim, staged whole in shared memory, and every chunk
+// recomputes them (twice the score work at dh = 256).  The forward's lse
+// is written by the first chunk.
 
 #include <cuda_runtime.h>
 
@@ -103,14 +111,15 @@ __device__ __forceinline__ void row_dots(float s[PER], const float* a,
   }
 }
 
-// acc[d] += sum_j w[j] * t[j][part + 4 d] over the tile's 64 rows
-template <int D>
+// acc[d] += sum_j w[j] * t[j][part + 4 d] over the tile's 64 rows, for
+// the DC columns of a tile of pitch D + 1 that start at t
+template <int D, int DC>
 __device__ __forceinline__ void accumulate(float* acc, const float* w,
                                            const float* t, int part) {
   for (int j = 0; j < TILE; ++j) {
     const float wj = w[j];
 #pragma unroll
-    for (int d = 0; d < D / SPLIT; ++d) {
+    for (int d = 0; d < DC / SPLIT; ++d) {
       acc[d] = fmaf(wj, t[j * (D + 1) + part + SPLIT * d], acc[d]);
     }
   }
@@ -127,9 +136,9 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
   return n;
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
-  constexpr int DP = D / SPLIT;
+  constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_q = smem;
   float* s_k = s_q + ROWS * (D + 1);
@@ -137,7 +146,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
   float* s_p = s_v + TILE * (D + 1);
 
   const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DC);
+  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
@@ -189,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
 #pragma unroll
     for (int d = 0; d < DP; ++d) acc[d] *= corr;
     __syncwarp();
-    accumulate<D>(acc, s_p + r * LP, s_v, part);
+    accumulate<D, DC>(acc, s_p + r * LP, s_v + c0, part);
   }
 
   l += __shfl_xor_sync(0xffffffffu, l, 1);
@@ -197,19 +207,19 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
   l = fmaxf(l, 1e-30f);
   const int row = q0 + r;
   if (row < p.tq) {
-    float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st;
+    float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + c0;
 #pragma unroll
     for (int d = 0; d < DP; ++d) orow[part + SPLIT * d] = acc[d] / l;
-    if (part == 0) {
+    if (part == 0 && c0 == 0) {
       p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + row] =
           m + logf(l);
     }
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
-  constexpr int DP = D / SPLIT;
+  constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_q = smem;
   float* s_do = s_q + ROWS * (D + 1);
@@ -218,7 +228,8 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
   float* s_ds = s_v + TILE * (D + 1);
 
   const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DC);
+  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
@@ -259,19 +270,19 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
       s_ds[r * LP + part + SPLIT * i] = pe * (dp[i] - delta_r) * p.scale;
     }
     __syncwarp();
-    accumulate<D>(acc, s_ds + r * LP, s_k, part);
+    accumulate<D, DC>(acc, s_ds + r * LP, s_k + c0, part);
   }
 
   if (row < p.tq) {
-    float* out = p.dq + b * p.o_sb + h * p.o_sh + row * p.o_st;
+    float* out = p.dq + b * p.o_sb + h * p.o_sh + row * p.o_st + c0;
 #pragma unroll
     for (int d = 0; d < DP; ++d) out[part + SPLIT * d] = acc[d];
   }
 }
 
-template <int D>
+template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
-  constexpr int DP = D / SPLIT;
+  constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_k = smem;
   float* s_v = s_k + ROWS * (D + 1);
@@ -283,7 +294,8 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
   float* s_delta = s_lse + TILE;
 
   const int k0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DC);
+  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
@@ -335,13 +347,13 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
       s_dst[r * LP + qc] = pe * (dpt[i] - s_delta[qc]) * p.scale;
     }
     __syncwarp();
-    accumulate<D>(acc_dv, s_pt + r * LP, s_do, part);
-    accumulate<D>(acc_dk, s_dst + r * LP, s_q, part);
+    accumulate<D, DC>(acc_dv, s_pt + r * LP, s_do + c0, part);
+    accumulate<D, DC>(acc_dk, s_dst + r * LP, s_q + c0, part);
   }
 
   if (key < p.tk) {
-    float* ok = p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_st;
-    float* ov = p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_st;
+    float* ok = p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_st + c0;
+    float* ov = p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_st + c0;
 #pragma unroll
     for (int d = 0; d < DP; ++d) {
       ok[part + SPLIT * d] = acc_dk[d];
@@ -350,36 +362,43 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
   }
 }
 
+// the output column chunk of a block at head dim D
+template <int D>
+constexpr int chunk() {
+  return D < 128 ? D : 128;
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem_floats, int rows, const Params& p,
-                   int batch, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int smem_floats, int rows, int chunks,
+                   const Params& p, int batch, cudaStream_t stream) {
   const int smem = smem_floats * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + ROWS - 1) / ROWS, p.heads, batch);
+  const dim3 grid((rows + ROWS - 1) / ROWS, p.heads * chunks, batch);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t s) {
-  return launch(flash_fwd_f32_kernel<D>,
-                (ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq, p, batch, s);
+  return launch(flash_fwd_f32_kernel<D, chunk<D>()>,
+                (ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq,
+                D / chunk<D>(), p, batch, s);
 }
 
 template <int D>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t s) {
-  return launch(flash_dq_f32_kernel<D>,
-                (2 * ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq, p, batch,
-                s);
+  return launch(flash_dq_f32_kernel<D, chunk<D>()>,
+                (2 * ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq,
+                D / chunk<D>(), p, batch, s);
 }
 
 template <int D>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t s) {
-  return launch(flash_dkv_f32_kernel<D>,
+  return launch(flash_dkv_f32_kernel<D, chunk<D>()>,
                 (2 * ROWS + 2 * TILE) * (D + 1) + 2 * ROWS * LP + 2 * TILE,
-                p.tk, p, batch, s);
+                p.tk, D / chunk<D>(), p, batch, s);
 }
 
 // head-dim dispatch: `which` 0 forward, 1 dq, 2 dk/dv
@@ -402,6 +421,11 @@ int dispatch(int which, int head_dim, const Params& p, int batch,
       err = which == 0 ? launch_fwd<128>(p, batch, s)
             : which == 1 ? launch_dq<128>(p, batch, s)
                          : launch_dkv<128>(p, batch, s);
+      break;
+    case 256:
+      err = which == 0 ? launch_fwd<256>(p, batch, s)
+            : which == 1 ? launch_dq<256>(p, batch, s)
+                         : launch_dkv<256>(p, batch, s);
       break;
     default:
       break;

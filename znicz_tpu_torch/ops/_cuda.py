@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -69,8 +70,9 @@ def build_all() -> dict[str, Path]:
     """Compile every source that has no library yet, one ``nvcc`` per
     source, all running at once.  Returns stem → library path.  The
     compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside each library as ``<stem>.log``.
-    Raises with the compiler's output when any build fails."""
+    spills per kernel) is kept beside each library as ``<stem>.log``,
+    ending with a line ``nvcc wall time <s> s``.  Raises with the
+    compiler's output when any build fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {Path(name).stem: out_dir / f"lib{Path(name).stem}.so"
@@ -80,12 +82,21 @@ def build_all() -> dict[str, Path]:
         return libs
     nvcc = find_nvcc()
     procs = {}
+    start = time.perf_counter()
     for stem, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         log = open(out_dir / f"{stem}.log", "w")
         procs[stem] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    running = dict(procs)
+    while running:  # each build's wall time, from the common start
+        for stem, (proc, _, log) in list(running.items()):
+            if proc.poll() is not None:
+                log.write(f"nvcc wall time "
+                          f"{time.perf_counter() - start:.1f} s\n")
+                del running[stem]
+        time.sleep(0.05)
     failed = []
     for stem, (proc, tmp, log) in procs.items():
         rc = proc.wait()

@@ -34,16 +34,24 @@ fill the TPU's 128-lane tiles and is not carried over.
 Operand dtypes and head dims on the card: bf16 operands go to the
 tensor-core kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``),
 f32 operands to the f32 SIMT kernels (``flash_attention_f32.cu``), as
-the reference's kernels take both.  Each is instantiated for head dims
-:data:`KERNEL_HEAD_DIMS`; any other multiple of 8 up to 128 is
-zero-padded to the next one (zero columns change no score; the padded
-columns of the results are sliced off, and the scale stays
-``1/√dh`` of the true dh).  Whether a call goes to the kernels at all
-is :func:`kernel_legal`, the reference's rule: a head dim that is not a
-multiple of 8 takes :func:`local_attention`, the reference's XLA core,
-on every device.  Each wrapper counts its launches in ``launches`` and,
-by kernel, in ``launches_by_variant`` (``"bf16"``, ``"f32"`` and
-``"dh32"``, the bf16 kernels' 32-wide instantiation).
+the reference's kernels take both.  Every multiple of 8 up to
+:data:`MAX_HEAD_DIM` (256) runs on them.  The backward and f32 kernels
+are instantiated for head dims :data:`KERNEL_HEAD_DIMS`, and any other
+multiple of 8 is zero-padded to the next one (zero columns change no
+score; the padded columns of the results are sliced off, and the scale
+stays ``1/√dh`` of the true dh).  The bf16 forward reads its operands
+through TMA tensor maps that carry the true dh and zero-fill the
+columns past it, so it needs no padded copy; its wrapper checks TMA's
+preconditions (:func:`_check_tma_operand`) before the device.  A head
+dim past 256 raises: the kernels stage the whole head dim of a tile in
+shared memory, which has no room for more (ROADMAP C5).  Whether a call
+goes to the kernels at all is :func:`kernel_legal`, the reference's
+rule: a head dim that is not a multiple of 8 takes
+:func:`local_attention`, the reference's XLA core, on every device.
+Each wrapper counts its launches in ``launches`` and, by kernel, in
+``launches_by_variant`` (:data:`VARIANTS`: ``"bf16"`` and ``"f32"``,
+``"dh32"`` and ``"dh256"`` for bf16 calls of those padded widths, and
+``"f32_dh256"``).
 
 A wrapper uses its plain version only for tensors on the CPU; a CUDA
 tensor gets the kernel or an error.
@@ -61,8 +69,12 @@ from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-#: head dims the kernels are instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
+#: head dims the backward and f32 kernels are instantiated for
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: the widest head dim the kernels take (ROADMAP C5)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+#: the kernels' launch counters by variant: operand dtype and padded width
+VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256")
 
 #: operand dtype → (library stem of the forward, of the backward, suffix
 #: of the C entry points)
@@ -103,20 +115,21 @@ def kernel_legal(dh: int) -> bool:
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The instantiated head dim a kernel call of head dim ``dh`` runs
-    at (``dh`` itself or the next wider one, zero-padded)."""
-    if not kernel_legal(dh) or dh > KERNEL_HEAD_DIMS[-1]:
+    """The instantiated head dim a backward or f32 kernel call of head
+    dim ``dh`` runs at (``dh`` itself or the next wider one,
+    zero-padded)."""
+    if not kernel_legal(dh) or dh > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels take head dims that are "
-                         f"multiples of 8 up to {KERNEL_HEAD_DIMS[-1]}, "
-                         f"got {dh}")
+                         f"multiples of 8 up to {MAX_HEAD_DIM}, got {dh}")
     return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
 
 
 def _count(fn, dtype: torch.dtype, width: int) -> None:
-    """One launch of ``fn``'s kernel for ``dtype`` operands at the
-    instantiated head dim ``width``."""
-    variant = ("f32" if dtype == torch.float32
-               else "dh32" if width == 32 else "bf16")
+    """One launch of ``fn``'s kernel for ``dtype`` operands of the
+    padded head dim ``width``."""
+    variant = {32: "dh32", 256: "dh256"}.get(width, "bf16")
+    if dtype == torch.float32:
+        variant = "f32_dh256" if width == 256 else "f32"
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
 
@@ -161,17 +174,48 @@ def _check_kernel_operand(name: str, a: torch.Tensor) -> None:
                          f"{a.data_ptr() % 16})")
 
 
+#: TMA's limits on a tensor map's strides (bytes) and sizes
+_TMA_MAX_STRIDE = 2 ** 40
+_TMA_MAX_SIZE = 2 ** 32
+
+
+def _check_tma_operand(name: str, a: torch.Tensor) -> None:
+    """TMA's preconditions on a (B, T, H, dh) bf16 operand of the
+    forward kernel, which describes it as the tensor (dh, H, T, B): the
+    head dim contiguous, the base address and every other stride on a
+    16-byte boundary, strides under 2⁴⁰ bytes and sizes under 2³².  (The
+    boxes it loads are 64 columns by at most 128 rows, inside TMA's 256
+    a dim.)  Raises before the device is touched."""
+    es = a.element_size()
+    strides = [s * es for s in a.stride()[:3]]
+    problem = None
+    if a.stride(-1) != 1:
+        problem = f"the head dim is not contiguous (strides {a.stride()})"
+    elif a.data_ptr() % 16:
+        problem = (f"the base address is {a.data_ptr() % 16} bytes past a "
+                   f"16-byte boundary")
+    elif any(s % 16 for s in strides):
+        problem = f"byte strides {strides} are not multiples of 16"
+    elif any(s >= _TMA_MAX_STRIDE for s in strides) or \
+            any(n >= _TMA_MAX_SIZE for n in a.shape):
+        problem = f"shape {tuple(a.shape)} or strides exceed TMA's limits"
+    if problem:
+        raise ValueError(f"{name}: TMA cannot read this operand: {problem}")
+
+
 def _check_kernel_call(q: torch.Tensor, name: str) -> int:
-    """What every kernel takes: bf16 or f32 operands, a head dim that is
-    a multiple of 8 up to 128, on the card.  Returns the instantiated
-    head dim the call runs at."""
+    """What every kernel takes: bf16 or f32 operands and a head dim that
+    is a multiple of 8 up to 256.  Returns the instantiated head dim of
+    the backward and f32 kernels."""
     if q.dtype not in _LIBS:
         raise ValueError(f"the {name} kernel takes {list(_LIBS)} "
                          f"operands, got {q.dtype}")
-    width = kernel_head_dim(q.shape[3])
+    return kernel_head_dim(q.shape[3])
+
+
+def _check_device(q: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return width
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,8 +225,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash forward over (B, Tq, H, dh) q and (B, Tk, H, dh) k/v:
     ``(out (B, Tq, H, dh) in q's dtype, lse (B, H, Tq) f32)``.
 
-    On the card: bf16 or f32 operands, dh a multiple of 8 up to 128, any
-    Tq/Tk (the ragged tile is masked).  CPU tensors take
+    On the card: bf16 or f32 operands, dh a multiple of 8 up to 256, any
+    Tq/Tk (the ragged tile is masked).  bf16 operands go through TMA,
+    whose preconditions are checked first.  CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -191,21 +236,32 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, h, dh = q.shape
     tk = k.shape[1]
     scale = 1.0 / math.sqrt(dh)
-    q, k, v = (_padded(a, width) for a in (q, k, v))
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_operand(name, a)
-    out = torch.empty((b, tq, h, width), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16:
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            _check_tma_operand(name, a)
+        _check_device(q)
+        cols = dh  # TMA zero-fills the columns past dh
+    else:
+        _check_device(q)
+        q, k, v = (_padded(a, width) for a in (q, k, v))
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            _check_kernel_operand(name, a)
+        cols = width
+    out = torch.empty((b, tq, h, cols), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(q.dtype, "fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, tq, tk, width,
+            lse.data_ptr(), b, h, tq, tk, cols,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention_fwd: cuTensorMapEncodeTiled "
+                           f"refused a tensor map (CUresult {-err - 1})")
     if err:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed "
                            f"(cudaError {err})")
@@ -216,7 +272,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: kernel launches since the counter was last set to 0, in all and by
 #: kernel
 flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
+flash_attention_fwd.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,6 +325,7 @@ def _bwd_args(q, k, v, dout, lse, delta, name):
     input strides)``, the operands zero-padded to the instantiated head
     dim ``width`` and the scale that of the true one."""
     width = _check_kernel_call(q, name)
+    _check_device(q)
     if dout.dtype != q.dtype:
         raise ValueError(f"dout must be {q.dtype}, got {dout.dtype}")
     scale = 1.0 / math.sqrt(q.shape[3])
@@ -294,7 +351,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> torch.Tensor:
     """dq (B, Tq, H, dh) in q's dtype from the forward's ``lse`` and
     ``delta = rowsum(do·out) − dlse`` (both (B, H, Tq) f32).  On the
-    card: bf16 or f32, dh a multiple of 8 up to 128, any Tq/Tk.  CPU
+    card: bf16 or f32, dh a multiple of 8 up to 256, any Tq/Tk.  CPU
     tensors take :func:`flash_attention_dq_plain`."""
     _check_bwd(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
@@ -318,7 +375,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: kernel launches since the counter was last set to 0, in all and by
 #: kernel
 flash_attention_dq.launches = 0
-flash_attention_dq.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
+flash_attention_dq.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -356,7 +413,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: kernel launches since the counter was last set to 0, in all and by
 #: kernel
 flash_attention_dkv.launches = 0
-flash_attention_dkv.launches_by_variant = {"bf16": 0, "f32": 0, "dh32": 0}
+flash_attention_dkv.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def _recompute(q, k, v, dout, lse, delta, causal, q_offset, k_offset):
