@@ -16,10 +16,10 @@ Phases (any failure raises and exits non-zero):
    phase;
 2. kernels: holds each kernel against its plain PyTorch version on the
    card, within the tolerance printed beside each case — the flash
-   kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32, 256 and
-   the zero-padded 40, 96 and 200, causal, with offsets and ragged
-   lengths, and the dh = 4 attention core launching none of them; the
-   layer norm both ways (B5, B6); the LRN both ways (B1, B2) at
+   kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32, 256, 512
+   and the zero-padded 40, 96, 200 and 264, causal, with offsets and
+   ragged lengths, and the dh = 4 attention core launching none of
+   them; the layer norm both ways (B5, B6); the LRN both ways (B1, B2) at
    AlexNet's two shapes in both storage dtypes, n = 5 and 4, an odd
    channel count over a ragged row count; dropout (B3) bitwise against
    its plain version, forward and backward masks identical, the keep
@@ -57,9 +57,11 @@ Phases (any failure raises and exits non-zero):
    fails that check;
 6. the sequence stack in f32 (the f32 flash kernels), at dh = 32 (the
    32-wide bf16 instantiation), at dh = 256 in bf16 and in f32 (2 heads
-   of 256 at D = 512, the kernels' column-chunked width) and at dh = 4
-   (the ``attention_seq`` sample, whose attention takes the plain core
-   and launches no flash kernel), a few train steps each.
+   of 256 at D = 512, the kernels' column-chunked width), at dh = 512 in
+   bf16 and in f32 (1 head of 512, the streamed kernels of head dims
+   past 256) and at dh = 4 (the ``attention_seq`` sample, whose
+   attention takes the plain core and launches no flash kernel), a few
+   train steps each.
 
 Each path of phases 3–6 runs with every launch counter set to 0 just
 before it and read just after.  The last two lines of standard output
@@ -175,7 +177,9 @@ def max_err(a, b) -> float:
 #: (R1) and the head dims other than 64/128 (R2): the 32-wide
 #: instantiation, and 40 and 96, zero-padded to 64 and 128; then the
 #: head dims past 128 (C2): 256 in both dtypes, and 200 zero-padded to
-#: 256 (the bf16 forward reads it through TMA's zero fill).
+#: 256 (the bf16 kernels read it through TMA's zero fill); then past
+#: 256 (C5), the streamed kernels: 512 and 264 (the f32 kernels pad it
+#: to 384), the f32 cases at B = 2, T = 1024 to keep the run short.
 ATTN_CASES = (
     ("serving", "bfloat16", BATCH, SEQ, SEQ, HEADS, DIM // HEADS, False,
      0, 0, ""),
@@ -211,6 +215,16 @@ ATTN_CASES = (
      512, 1024, None),
     ("f32_dh200_padded", "float32", 2, 1000, 777, 2, 200, True, 300, 0,
      None),
+    ("dh512", "bfloat16", BATCH, SEQ, SEQ, 1, 512, False, 0, 0, "_wide"),
+    ("dh512_causal_offsets", "bfloat16", 2, 1024, 1024, 1, 512, True, 512,
+     1024, None),
+    ("dh264_padded", "bfloat16", 2, 1000, 777, 2, 264, True, 300, 0, None),
+    ("f32_dh512", "float32", 2, 1024, 1024, 1, 512, False, 0, 0,
+     "_f32_wide"),
+    ("f32_dh512_causal_offsets", "float32", 2, 1024, 1024, 1, 512, True,
+     512, 1024, None),
+    ("f32_dh264_padded", "float32", 2, 1000, 777, 2, 264, True, 300, 0,
+     None),
 )
 #: cases whose forward is timed though they have no row of their own
 #: (their launches count under the "bf16" row)
@@ -223,7 +237,8 @@ ATTN_OUT_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ATTN_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 #: kernel row suffix → the variant its launches are counted under
 ROW_VARIANT = {"": "bf16", "_f32": "f32", "_dh32": "dh32",
-               "_dh256": "dh256", "_f32_dh256": "f32_dh256"}
+               "_dh256": "dh256", "_f32_dh256": "f32_dh256",
+               "_wide": "wide", "_f32_wide": "f32_wide"}
 ATTN_SOURCES = {
     suffix: (("flash_attention_f32.cu",) * 2 if "f32" in suffix else
              ("flash_attention_fwd.cu", "flash_attention_bwd.cu"))
@@ -276,7 +291,7 @@ def check_flash(gen) -> dict:
         tol_o, tol_l = ATTN_OUT_TOL[dtype_name], ATTN_LSE_TOL[dtype_name]
         say(f"  flash_attention_fwd {name}: {dtype_name} B={b} Tq={tq} "
             f"Tk={tk} H={h} dh={dh} (kernel width "
-            f"{fa.kernel_head_dim(dh)} in B8/B9) causal={causal} "
+            f"{fa.kernel_head_dim(dh)} in the f32 kernels) causal={causal} "
             f"offsets=({q_off},{k_off}) max_abs_err out={err_o:.3g} "
             f"(tol {tol_o}) lse={err_l:.3g} (tol {tol_l})")
         if out.dtype != dtype or out.shape != q.shape or not finite \
@@ -344,7 +359,7 @@ def check_core_route(gen) -> None:
 
 #: the cases given a random nonzero lse cotangent (the ring's term)
 DLSE_CASES = ("ragged_cross", "f32_ragged_cross", "dh200_padded",
-              "f32_dh200_padded")
+              "f32_dh200_padded", "dh264_padded", "f32_dh264_padded")
 #: dq, dk and dv against the plain version, relative to the largest
 #: |reference|.  bf16: both round p and ds to bf16 before their products,
 #: at exp(s − lse) values that differ in the last f32 bits (expf and
@@ -1485,17 +1500,27 @@ def main() -> int:
     spills = []
     for name in _cuda.SOURCES:
         stem = os.path.splitext(name)[0]
+        serialized = 0
         for line in _cuda.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line or "wall time" in line:
+            # ptxas's wgmma notes (C75xx) are counted, not printed: each
+            # injected wait is a line
+            if "Performance Loss" in line:
+                serialized += 1
+            elif "C75" in line:
+                continue
+            elif "registers" in line or "spill" in line \
+                    or "wall time" in line:
                 say(f"  {stem}: {line.strip()}")
             spills += [(stem, line.strip()) for n in re.findall(
                 r"(\d+) bytes spill", line) if int(n)]
+        if serialized:
+            say(f"  {stem}: ptxas serialized wgmma in {serialized} place(s)")
     if spills:
         raise AssertionError(f"the compiler spilled registers: {spills}")
     smem = _cuda.library("flash_attention_fwd").znicz_flash_attention_fwd_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     say("  flash_attention_fwd (TMA + wgmma) dynamic shared memory by width: "
-        + ", ".join(f"{w}: {smem(w)} B" for w in (64, 128, 256)))
+        + ", ".join(f"{w}: {smem(w)} B" for w in (64, 128, 256, 512)))
 
     say("phase 2: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
@@ -1523,12 +1548,16 @@ def main() -> int:
     say("phase 5: full-width AlexNet training through StandardWorkflow")
     paths["alexnet"] = alexnet_slice()
 
-    say("phase 6: the sequence stack in f32 and at head dims 32, 256 and 4")
+    say("phase 6: the sequence stack in f32 and at head dims 32, 256, 512 "
+        "and 4")
     paths["seq_f32"] = seq_pass("seq_f32", "float32", HEADS, "f32")
     paths["seq_dh32"] = seq_pass("seq_dh32", "bfloat16", 2 * HEADS, "dh32")
     paths["seq_dh256"] = seq_pass("seq_dh256", "bfloat16", 2, "dh256")
     paths["seq_f32_dh256"] = seq_pass("seq_f32_dh256", "float32", 2,
                                       "f32_dh256")
+    paths["seq_dh512"] = seq_pass("seq_dh512", "bfloat16", 1, "wide")
+    paths["seq_f32_dh512"] = seq_pass("seq_f32_dh512", "float32", 1,
+                                      "f32_wide")
     paths["seq_dh4"] = dh4_pass()
 
     for name, row in rows.items():

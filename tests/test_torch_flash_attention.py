@@ -243,18 +243,22 @@ def test_backward_wrappers_take_the_plain_version_for_cpu_tensors_only():
 
 
 def test_head_dim_routing_is_the_reference_rule():
-    """The reference engages its kernel when ``dh % 8 == 0``; the port's
-    kernels are instantiated at 32, 64, 128 and 256 and take any other
-    multiple of 8 up to 256 zero-padded to the next of them (C2).  Past
-    256 the whole head dim of a tile no longer fits shared memory: the
-    kernels raise, naming the limit (C5)."""
-    assert [d for d in range(1, 300) if fa.kernel_legal(d)] == \
-        list(range(8, 300, 8))
+    """The reference engages its kernel when ``dh % 8 == 0``, at any
+    width; so do the port's kernels.  The f32 kernels are instantiated
+    at 32, 64, 128 and 256 and take any other multiple of 8 up to 256
+    zero-padded to the next of them (C2); past 256 the streamed kernels
+    take it padded to a multiple of their 128-column output chunk (C5).
+    A head dim that is no multiple of 8 goes to the plain core."""
+    assert [d for d in range(1, 600) if fa.kernel_legal(d)] == \
+        list(range(8, 600, 8))
     assert [fa.kernel_head_dim(d) for d in
-            (8, 32, 40, 64, 72, 96, 128, 136, 200, 256)] \
-        == [32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
-    for dh in (4, 12, 264, 512):
-        with pytest.raises(ValueError, match="multiples of 8 up to 256"):
+            (8, 32, 40, 64, 72, 96, 128, 136, 200, 256, 264, 384, 392,
+             512)] \
+        == [32, 32, 64, 64, 128, 128, 128, 256, 256, 256, 384, 384, 512,
+            512]
+    for dh in (4, 12):
+        assert not fa.kernel_legal(dh)
+        with pytest.raises(ValueError, match="multiples of 8, got"):
             fa.kernel_head_dim(dh)
 
 
@@ -266,12 +270,13 @@ def test_head_dim_routing_is_the_reference_rule():
     ("float32", 136, "unsupported device"),  # padded to 256 (C2)
     ("bfloat16", 200, "unsupported device"),
     ("bfloat16", 256, "unsupported device"),
-    ("float32", 264, "up to 256"),           # the limit C5 records
+    ("float32", 264, "unsupported device"),  # padded to 384 (C5)
+    ("bfloat16", 512, "unsupported device"),
 ])
 def test_kernel_entry_takes_f32_and_multiples_of_8(dtype, dh, match):
     """On a device that is not the CPU the wrappers check what the
-    kernels take before the device: f32 and bf16, dh a multiple of 8
-    up to 256."""
+    kernels take before the device: f32 and bf16, dh any multiple of
+    8."""
     q = torch.zeros(1, 8, 2, dh, dtype=getattr(torch, dtype), device="meta")
     lse = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError, match=match):
@@ -346,7 +351,7 @@ def test_forward_checks_tma_preconditions_before_the_device(make, problem):
         fa.flash_attention_fwd(*views)
 
 
-@pytest.mark.parametrize("dh", [200, 256])
+@pytest.mark.parametrize("dh", [200, 256, 264, 512])
 @pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
     (False, 0, 0, 32, 32),
     (True, 32, 0, 32, 64),        # cross lengths, the diagonal mid-keys
@@ -354,9 +359,11 @@ def test_forward_checks_tma_preconditions_before_the_device(make, problem):
 ])
 def test_plain_matches_reference_kernels_past_128(dh, causal, q_off, k_off,
                                                   tq, tk):
-    """Head dims past 128 (C2): the plain forward and backward, which the
-    kernels are held to on the card, against the reference's Pallas
-    kernels at 256 and at a 200 the port pads to 256, in bf16."""
+    """Head dims past 128 (C2) and past 256 (C5): the plain forward and
+    backward, which the kernels are held to on the card, against the
+    reference's Pallas kernels, in bf16: at 256, at a 200 the f32
+    kernels pad to 256, and at 264 and 512, which the streamed kernels
+    take (the f32 ones 264 padded to 384)."""
     q, k, v = _qkv(1, tq, tk, 2, dh, seed=dh + tq + q_off)
     want_out, want_lse = _ref_hop(q, k, v, causal, q_off, k_off,
                                   "bfloat16", block=16)
@@ -434,3 +441,49 @@ def test_column_chunks_make_the_whole(causal, q_off, k_off):
     for key, plain in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
         torch.testing.assert_close(whole[key].permute(0, 2, 1, 3), plain,
                                    rtol=0, atol=1e-5, msg=key)
+
+
+def _bwd_meta_args(bad_at: int, bad: torch.Tensor):
+    """bf16 meta (q, k, v, dout, lse, delta) with ``bad`` in place of
+    operand ``bad_at``."""
+    ops = [_meta(1, 8, 2, 64) for _ in range(4)]
+    ops[bad_at] = bad
+    stat = torch.zeros(1, 2, 8, device="meta")
+    return (*ops, stat, stat)
+
+
+@pytest.mark.parametrize("make,problem", [
+    (lambda: _meta(1, 8, 2, 64, 2)[..., 0], "the head dim is not contiguous"),
+    (lambda: _meta(1, 8, 2, 72)[..., 1:65], "the base address"),
+    (lambda: _meta(1, 8, 2, 68)[..., :64], "byte strides"),
+])
+@pytest.mark.parametrize("fn", ["dq", "dkv"])
+def test_backward_checks_tma_preconditions_before_the_device(make, problem,
+                                                             fn):
+    """The bf16 dq and dk/dv kernels read q, k, v and dout through TMA
+    tensor maps: a layout TMA cannot describe raises, naming the
+    precondition, before any device work; the legal layout reaches the
+    device check."""
+    wrapper = getattr(fa, f"flash_attention_{fn}")
+    for i, name in enumerate(("q", "k", "v", "dout")):
+        with pytest.raises(ValueError, match=f"{name}: TMA cannot read "
+                                             f"this operand: {problem}"):
+            wrapper(*_bwd_meta_args(i, make()))
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*_bwd_meta_args(0, _meta(1, 8, 2, 64)))
+
+
+def test_kernel_build_hashes_the_shared_header(tmp_path, monkeypatch):
+    """The build directory's name hashes the sources and the headers
+    they include (``csrc/*.cuh``): an edited header must not load a
+    library built from the old one."""
+    from znicz_tpu_torch.ops import _cuda
+    for path in _cuda.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    assert "hopper.cuh" in _cuda.headers()
+    before = _cuda.build_dir()
+    assert _cuda.build_dir() == before
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _cuda.build_dir() != before

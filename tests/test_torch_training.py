@@ -215,13 +215,15 @@ def test_train_steps_match_the_reference(dtype, causal, guard):
     assert port.loader.epoch_number == ref.loader.epoch_number == 1
 
 
-def test_train_step_at_head_dim_256_matches_the_reference():
-    """Two heads of 256 at D = 512, the width C2 opened to the kernels:
-    a validation and a train step of the port (the plain versions of the
-    256-wide kernels) against the reference's, whose flash kernel runs
-    at dh = 256 in interpret mode."""
-    ref = _reference("bfloat16", causal=True, d=512, heads=2)
-    port = _port("bfloat16", causal=True, seed=3, d=512, heads=2)
+@pytest.mark.parametrize("heads", [2, 1])
+def test_train_step_at_head_dim_256_matches_the_reference(heads):
+    """Two heads of 256 at D = 512, the width C2 opened to the kernels,
+    and one head of 512, past 256 (C5): a validation and a train step of
+    the port (the plain versions of the kernels) against the
+    reference's, whose flash kernel runs at that head dim in interpret
+    mode."""
+    ref = _reference("bfloat16", causal=True, d=512, heads=heads)
+    port = _port("bfloat16", causal=True, seed=3, d=512, heads=heads)
     port.load_reference_state(ref.state_dict())
     classes = []
     for _ in range(2):

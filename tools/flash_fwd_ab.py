@@ -1,67 +1,103 @@
 #!/usr/bin/env python3
-"""Time the flash-attention forward (B7) of several checkouts on one card.
+"""Time the flash-attention kernels of several checkouts on one card.
 
-Each argument is the root of a checkout of this repository; each is
-timed in a process of its own, in the order given, at the serving shape
-(bf16 q/k/v of shape (16, 2048, 8, 64) as strided views of one packed
-projection, non-causal): three runs of 20 back-to-back calls between
-CUDA events, after 3 warm-up calls.  Give the checkouts in turns to see
-the spread on one card, e.g. with the parent unpacked into ``build/``::
+Each positional argument is the root of a checkout of this repository;
+each is timed in a process of its own, in the order given.  By default
+the forward (B7) at the serving shape: bf16 q/k/v of shape
+(16, 2048, 8, 64) as strided views of one packed projection,
+non-causal.  ``--kernel`` picks the kernels (``fwd``, ``dq`` for B8,
+``dkv`` for B9, or ``all``) and ``--dh`` the head dims, each at
+D = 512 (8 heads of 64, 2 of 256, 16 of 32) with B = 16 and T = 2048.
+Every (kernel, head dim) is timed as three runs of 20 back-to-back
+calls between CUDA events, after 3 warm-up calls.  Give the checkouts
+in turns to see the spread on one card, e.g. with the parent unpacked
+into ``build/``::
 
     git archive HEAD~1 | tar -x -C build/parent
     python3 tools/flash_fwd_ab.py build/parent . . build/parent
+    python3 tools/flash_fwd_ab.py --kernel all --dh 64,256,32 \\
+        build/parent . . build/parent
 
-Prints one line a checkout, then the card's name and power limit.
+Prints one line a checkout and (kernel, head dim), then the card's name
+and power limit.
 """
 
+import argparse
 import os
 import subprocess
 import sys
 
-SHAPE = (16, 2048, 8, 64)  # B, T, H, dh of the scorer chip_smoke.py serves
+BATCH, SEQ, DIM = 16, 2048, 512  # the sequence stack chip_smoke.py runs
+KERNELS = ("fwd", "dq", "dkv")
 
 
-def time_checkout(root: str) -> list[float]:
-    """Three mean times, in ms, of the forward of the checkout at
-    ``root``: this process imports that checkout's package."""
+def time_checkout(root: str, kernels: list[str], dhs: list[int]) -> None:
+    """Prints three mean times, in ms, of each kernel at each head dim
+    of the checkout at ``root``: this process imports that checkout's
+    package."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from znicz_tpu_torch.ops import flash_attention as fa
-    b, t, h, dh = SHAPE
-    d = h * dh
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(7)
-    qkv = torch.randn(b, t, 3 * d, generator=gen, device="cuda",
-                      dtype=torch.bfloat16)
-    q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, t, h, dh)
-               for i in range(3))
-    for _ in range(3):
-        fa.flash_attention_fwd(q, k, v)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            fa.flash_attention_fwd(q, k, v)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 20)
-    return times
+    for dh in dhs:
+        b, t, h = BATCH, SEQ, DIM // dh
+        d = h * dh
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        qkv = torch.randn(b, t, 3 * d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, t, h, dh)
+                   for i in range(3))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        dout = torch.randn(out.shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        calls = {"fwd": lambda: fa.flash_attention_fwd(q, k, v),
+                 "dq": lambda: fa.flash_attention_dq(q, k, v, dout, lse,
+                                                     delta),
+                 "dkv": lambda: fa.flash_attention_dkv(q, k, v, dout, lse,
+                                                       delta)}
+        for name in kernels:
+            fn = calls[name]
+            for _ in range(3):
+                fn()
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(20):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end) / 20)
+            print(f"{name} {(b, t, h, dh)} bf16 from {root}: "
+                  + " ".join(f"{ms:.4f}" for ms in times) + " ms",
+                  flush=True)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        times = time_checkout(sys.argv[2])
-        print(f"B7 {SHAPE} bf16 from {sys.argv[2]}: "
-              + " ".join(f"{ms:.4f}" for ms in times) + " ms", flush=True)
+    parser = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("roots", nargs="+", help="checkout roots, in turn")
+    parser.add_argument("--kernel", choices=(*KERNELS, "all"),
+                        default="fwd", help="fwd (B7, the default), dq "
+                        "(B8), dkv (B9) or all")
+    parser.add_argument("--dh", default="64",
+                        help="comma-separated head dims (default 64)")
+    parser.add_argument("--one", action="store_true",
+                        help=argparse.SUPPRESS)  # time one root, here
+    args = parser.parse_args()
+    kernels = list(KERNELS) if args.kernel == "all" else [args.kernel]
+    dhs = [int(x) for x in args.dh.split(",")]
+    if args.one:
+        time_checkout(args.roots[0], kernels, dhs)
         return 0
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    for root in sys.argv[1:]:
-        subprocess.run([sys.executable, __file__, "--one", root], check=True)
+    for root in args.roots:
+        subprocess.run([sys.executable, __file__, "--one", "--kernel",
+                        args.kernel, "--dh", args.dh, root], check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): the dq kernel and the
-// dk/dv kernel, bf16 operands, f32 accumulators.
+// dk/dv kernel, bf16 operands, f32 accumulators, TMA loads into an
+// mbarrier ring and every product on wgmma.
 //
 // Replaces: znicz_tpu/ops/pallas_attention.py:_dq_kernel and :_dkv_kernel
 // (the Pallas TPU backward reached through _flash_hop's custom_vjp).  Same
@@ -13,491 +14,566 @@
 //   dq = bf16(ds) . k              (dq kernel)
 //   dv = bf16(p)^T . do,  dk = bf16(ds)^T . q   (dk/dv kernel)
 // with f32 accumulators stored in bf16 at the end, as the reference rounds
-// p and ds to the operand dtype before their products.
+// p and ds to the operand dtype before their products.  exp is taken as
+// exp2 with log2(e) folded into the scale and into lse.
 //
 // What bounds it on this card: at the training shape (B=16, H=8, T=2048,
 // dh=64) the dq kernel does 3 and the dk/dv kernel 4 products of
 // 2*B*H*T^2*dh FLOP each, ~2.1e11 and ~2.7e11 FLOP, against ~170 MB of
 // q/k/v/do/lse/delta/dq/dk/dv traffic, well above the H100's ~295
-// FLOP/byte ridge: the tensor cores bound both.  The design answers that
-// as the forward kernel does: every score tile stays in registers, and
-// all products run on the tensor cores through mma.sync.m16n8k16 with f32
-// accumulators.  This is the simple first version: 4 warps a block, tiles
-// staged through padded shared memory without double buffering.
+// FLOP/byte ridge: the tensor cores bound both, and only wgmma reaches
+// their full rate.
 //
-// Structure: two kernels and no atomics, so both are deterministic.
-// - dq: one block per (b, h, 64 query rows), each warp owning 16 rows,
-//   looping over 64-key tiles.  s and dp are m16 x n64 accumulators whose
-//   layout is already the A fragment of ds . k.
-// - dk/dv: one block per (b, h, 64 keys), each warp owning 16 keys,
-//   looping over query tiles.  It computes the transposed tiles s^T = k q^T
-//   and dp^T = v do^T directly, so p^T and ds^T are A fragments in
-//   registers.  The B operands of p^T . do and ds^T . q (do and q with
-//   the query axis as the reduction) are read from shared memory with
-//   ldmatrix.trans.  Two f32 accumulators of 16 keys x dh per warp cost
-//   2*dh/4 registers a thread (64 at dh = 64, 128 at dh = 128), so at
-//   dh = 128 the query tile is 32 wide and the k and v fragments are read
-//   from shared memory at each use instead of being held.
+// One kernel template serves both, because they are the same loop with
+// the roles of the operands exchanged.  A block owns 128 rows of "own"
+// operands X1, X2 (two consumer warpgroups of 64 rows) and walks over
+// 64-row tiles of the "other" operands Y1, Y2:
+//   dq:    X = (q, do) of 128 queries, Y = (k, v) of 64 keys;
+//          S = Q.K^T and dP = dO.V^T, then dQ += bf16(dS) . K[:, chunk]
+//   dk/dv: X = (k, v) of 128 keys, Y = (q, do) of 64 queries; the
+//          transposed tiles S^T = K.Q^T and dP^T = V.dO^T, then
+//          dV += bf16(P^T) . dO[:, chunk] and dK += bf16(dS^T) . Q[:, chunk]
+// So both score products run with both operands K-major in shared memory,
+// P and dS are computed in the registers that hold S and dP and become
+// the register A operands of the second products, and the right-hand Y
+// tiles are read there as transposed (MN-major) B from the same
+// TMA-written, 128-byte-swizzled tiles that the score products read
+// K-major (what the forward does with V).  Warp 0 issues the TMA loads
+// into an mbarrier ring ahead of what the block consumes, and stages the
+// dk/dv kernel's lse and delta of the query tile beside it.
+//
+// Up to a head dim of 128 the loop is software-pipelined: the scores of
+// tile m + 1 and the chunk products of tile m are issued together, and
+// p and ds of m + 1 are computed while the products of m run.  With the
+// elementwise pass on exp2 in its flush-to-zero form this took the pair
+// from ~2.6 to ~1.9 ms at the training shape on an H100 SXM (700 W); the
+// serial loop of the streamed widths is what remains to pipeline.
+//
+// Head dims: every multiple of 8.  The score products contract the head
+// dim in 64-column slices.  Up to 128 (one or two slices) the block's own
+// X tiles stay in shared memory and a ring stage holds a whole Y tile, so
+// the chunk products read their columns from the same stage.  Past 128
+// everything streams: a ring stage holds one slice of X1, X2, Y1 and Y2,
+// S and dP accumulate over the slices, and the output chunk's Y columns
+// come in a buffer of their own, so shared memory stays at 161 KB (dq) or
+// 177 KB (dk/dv) at any width (X is read again from L2 for every tile).
+// The outputs are split into column chunks of DC = 128 by a grid axis
+// (64 up to a head dim of 64, and for dk/dv up to 128), each chunk
+// recomputing the scores over the whole head dim.  The tensor maps carry
+// the true head dim and TMA fills the columns past it with zeros, which
+// change no score; a 32 or 40 wide head dim runs as one 64-column slice,
+// with no padded copy, and up to 32 the score products take only the
+// slice's first 32 columns.
 //
 // Geometry, the forward's: q, k, v, do, dq, dk and dv are read or written
 // in the boundary layout (B, T, H, dh) through element strides (the last
-// dim contiguous), so q/k/v stay views into the packed QKV projection; lse
+// dim contiguous), each operand described to TMA as the 4-d tensor
+// (dh, H, T, B), so q/k/v stay views into the packed QKV projection; lse
 // and delta are contiguous (B, H, Tq) f32.  Any T: rows past T are
-// zero-filled when staged and masked.  q_offset / k_offset place the call
-// on a global axis for causal masking; causal skips whole tiles that no
-// row can see.  Head dims 32, 64, 128 and 256 are instantiated; the
-// wrapper zero-pads any other multiple of 8 up to the next one.
-//
-// Head dims past 128: the outputs are split into column chunks of DC = 128
-// by a grid axis, since each chunk needs only its own columns of the
-// right-hand operand and the full score tiles:
-//   dq[:, c] = ds . k[:, c],  dv[:, c] = p^T . do[:, c],
-//   dk[:, c] = ds^T . q[:, c].
-// So a block's accumulators stay at the 128-wide size (64 registers a
-// thread for dq, 128 for dk and dv together), while the score products
-// s = q . k^T and dp = do . v^T still sum over the whole head dim, their
-// operands staged whole in shared memory and read 16 columns at a time.
-// Every chunk recomputes the score tiles: at dh = 256 the two chunks do
-// the two score products twice, 5/3 of the dq kernel's single-pass work
-// (s, dp and ds . k) and 3/2 of the dk/dv kernel's (s, dp, p^T . do and
-// ds^T . q).
+// zero-filled by TMA and masked.  q_offset / k_offset place the call on a
+// global axis for causal masking; causal skips whole tiles that no row of
+// the block can see.  Two kernels and no atomics: the bits are the same
+// on a rerun.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BLOCK_M = 64;  // dq: query rows per block, 16 per warp
-constexpr int BLOCK_N = 64;  // dq: keys per tile; dk/dv: keys per block
+constexpr int OWN = 128;      // own rows a block: two warpgroups of 64
+constexpr int TILE = 64;      // other rows a tile
+constexpr int THREADS = 256;  // the two warpgroups; warp 0 also loads
+constexpr int STAGES = 3;     // ring depth
+constexpr int OWN_REGION = OWN * ATOM_BYTES;  // one 64-column slice
+constexpr int TILE_REGION = TILE * ATOM_BYTES;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// dynamic shared memory, plus 1 KB to align the base to 1024 bytes.
+// RES > 0: the own slices X1 then X2, then STAGES of the Y1 then Y2
+// slices.  RES = 0 (streamed): STAGES of one slice of X1, X2, Y1 and Y2,
+// then the chunk buffer, the chunk's slices of Y1 (and of Y2 for dk/dv).
+template <bool DKV, int RES, int DC>
+constexpr int smem_bytes() {
+  if constexpr (RES > 0) {
+    return 2 * RES * OWN_REGION + STAGES * 2 * RES * TILE_REGION + 1024;
+  } else {
+    return STAGES * (2 * OWN_REGION + 2 * TILE_REGION) +
+           (DKV ? 2 : 1) * (DC / ATOM) * TILE_REGION + 1024;
+  }
+}
 
 struct Params {
-  const uint16_t* q;
-  const uint16_t* k;
-  const uint16_t* v;
-  const uint16_t* dout;
+  uint16_t* out0;  // dq, or dk
+  uint16_t* out1;  // dv
+  long long o0_sb, o0_st, o0_sh, o1_sb, o1_st, o1_sh;
   const float* lse;
   const float* delta;
-  uint16_t* dq;
-  uint16_t* dk;
-  uint16_t* dv;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long do_sb, do_st, do_sh;
-  long long dq_sb, dq_st, dq_sh;
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
-  int heads, tq, tk;
-  float scale;
+  int heads, tq, tk, dh, slices, chunks;
+  float scale;       // 1 / sqrt(dh)
+  float scale_log2;  // scale * log2(e)
   int causal;
   long long q_offset, k_offset;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// 2^x on the special-function unit, subnormal results flushed to 0: a p
+// under 2^-126 moves no product by more than 2^-126 of its other
+// factor, far under the bf16 rounding of p and ds.  exp2f, which keeps
+// subnormals, costs several instructions more, and the elementwise pass
+// over the score tiles weighs more than the products in these kernels
+// (this took 30 % off both at the training shape on an H100).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// two floats -> one register of two bf16 (round to nearest even), the
-// lower column in the low half as the mma fragments expect
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// DKV: the dk/dv kernel (else dq); RES: 64-column slices of the head dim
+// held whole (1 or 2), or 0 to stream any width; DC: output chunk width;
+// KS: 16-column steps of a held slice that the score products take (2
+// for a head dim up to 32, whose other columns are TMA's zeros; a bound
+// known at compile time keeps the wgmma chain unbroken).
+// Eight warps and no warp of its own for the loads: a block of nine warps
+// is allotted registers as one of twelve (168 a thread), which the two
+// f32 accumulators and two score tiles of a thread overflow; with eight
+// it may use 255.
+template <bool DKV, int RES, int DC, int KS>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_x1,
+                     const __grid_constant__ CUtensorMap tm_x2,
+                     const __grid_constant__ CUtensorMap tm_y1,
+                     const __grid_constant__ CUtensorMap tm_y2,
+                     const Params p) {
+  constexpr int CS = DC / ATOM;  // slices of an output chunk
+  constexpr int STAGE = RES > 0 ? 2 * RES * TILE_REGION
+                                : 2 * OWN_REGION + 2 * TILE_REGION;
+  // the Y2 columns of the chunk, past its Y1 columns
+  constexpr int Y2_OFF = (RES > 0 ? RES : CS) * TILE_REGION;
+  // barriers: own tiles loaded; each ring stage loaded and released; the
+  // streamed chunk buffer loaded and released
+  __shared__ __align__(8) uint64_t bars[3 + 2 * STAGES];
+  // dk/dv: lse * log2(e) and delta of the query tile, for each place a
+  // tile's chunk columns live (ring stage, or the chunk buffer)
+  __shared__ float s_stat[RES > 0 ? STAGES : 1][2][TILE];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t s_own = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_ring = s_own + (RES > 0 ? 2 * RES * OWN_REGION : 0);
+  const uint32_t s_chunk = s_ring + STAGES * STAGE;
+  const uint32_t bar_own = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);  // + 8 * stage
+  const uint32_t bar_free = smem_u32(&bars[1 + STAGES]);
+  const uint32_t bar_cfull = smem_u32(&bars[1 + 2 * STAGES]);
+  const uint32_t bar_cfree = smem_u32(&bars[2 + 2 * STAGES]);
 
-// rows x D bf16 from global (row stride in elements) into padded shared
-// memory; rows at or past `valid` are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          long long row_stride, int rows,
-                                          int valid) {
-  constexpr int LD = D + 8;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// A fragment (16 rows x 16 of the reduction axis) from a row-major
-// [row][k] shared tile: rows r0.., k-block kk
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* s,
-                                       int r0, int kk, int g, int t4) {
-  const uint16_t* base = s + (r0 + g) * LD + kk * 16 + t4 * 2;
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
-}
-
-// B fragment (16 of the reduction axis x 8 columns) from a shared tile
-// stored [column][k]: columns n0.., k-block kk
-template <int LD>
-__device__ __forceinline__ void load_b(uint32_t b[2], const uint16_t* s,
-                                       int n0, int kk, int g, int t4) {
-  const uint16_t* base = s + (n0 + g) * LD + kk * 16 + t4 * 2;
-  b[0] = *reinterpret_cast<const uint32_t*>(base);
-  b[1] = *reinterpret_cast<const uint32_t*>(base + 8);
-}
-
-// B fragments of two neighbouring 8-column tiles (j, j + 1) from a shared
-// tile stored [k][column] (the reduction axis along rows), k-block kb:
-// one ldmatrix.x4.trans; lane l addresses row (l & 7) of matrix l >> 3
-template <int LD>
-__device__ __forceinline__ void load_b_trans(uint32_t b[2][2],
-                                             const uint16_t* s, int kb, int j,
-                                             int lane) {
-  const int mat = lane >> 3;
-  const uint16_t* p =
-      s + (kb * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (j + (mat >> 1)) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
-      : "r"(addr));
-}
-
-// acc[n] += A . B over a 16-wide k-block whose A fragment is built from
-// the m16 x n8 accumulators c[2kb], c[2kb + 1] rounded to bf16, and whose
-// B is the [k][column] shared tile `s`
-template <int ND, int LD>
-__device__ __forceinline__ void acc_from_scores(float acc[][4],
-                                                const float c0[4],
-                                                const float c1[4],
-                                                const uint16_t* s, int kb,
-                                                int lane) {
-  const uint32_t a[4] = {pack_bf16(c0[0], c0[1]), pack_bf16(c0[2], c0[3]),
-                         pack_bf16(c1[0], c1[1]), pack_bf16(c1[2], c1[3])};
-#pragma unroll
-  for (int j = 0; j < ND; j += 2) {
-    uint32_t bf[2][2];
-    load_b_trans<LD>(bf, s, kb, j, lane);
-    mma_bf16_16816(acc[j], a, bf[0]);
-    mma_bf16_16816(acc[j + 1], a, bf[1]);
-  }
-}
-
-// c[nt] = A(rows r0.. of sa) . B(columns of sb)^T over the whole head dim
-template <int D, int NT>
-__device__ __forceinline__ void tile_product(float c[][4], const uint16_t* sa,
-                                             int r0, const uint16_t* sb,
-                                             int g, int t4) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, sa, r0, kk, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bf[2];
-      load_b<LD>(bf, sb, nt * 8, kk, g, t4);
-      mma_bf16_16816(c[nt], a, bf);
-    }
-  }
-}
-
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS)
-    flash_dq_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int ND = DC / 8;        // n-tiles of this block's dq chunk
-  constexpr int NS = BLOCK_N / 8;   // n-tiles of the score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* s_q = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* s_do = s_q + BLOCK_M * LD;
-  uint16_t* s_k = s_do + BLOCK_M * LD;
-  uint16_t* s_v = s_k + BLOCK_N * LD;
-
-  const int q0 = blockIdx.x * BLOCK_M;
-  const int h = blockIdx.y / (D / DC);
-  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's dq columns
+  const int x0 = blockIdx.x * OWN;
+  const int h = blockIdx.y / p.chunks;
+  const int c0 = blockIdx.y % p.chunks * DC;  // this block's output columns
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wr = warp * 16;
+  const int slices = RES > 0 ? RES : p.slices;
+  const int t_own = DKV ? p.tk : p.tq;
+  const int t_oth = DKV ? p.tq : p.tk;
+  // query iq sees key ik when shift + iq >= ik
+  const long long shift = p.q_offset - p.k_offset;
 
-  const uint16_t* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const uint16_t* vg = p.v + b * p.v_sb + h * p.v_sh;
-  load_tile<D>(s_q, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st,
-               BLOCK_M, p.tq - q0);
-  load_tile<D>(s_do, p.dout + b * p.do_sb + h * p.do_sh + q0 * p.do_st,
-               p.do_st, BLOCK_M, p.tq - q0);
-
-  // this thread's two rows (g and g + 8): position, lse and delta
-  const long long stat0 = (static_cast<long long>(b) * p.heads + h) * p.tq;
-  int row[2];
-  long long row_pos[2];
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row[r] = q0 + wr + g + 8 * r;
-    row_pos[r] = p.q_offset + row[r];
-    const bool ok = row[r] < p.tq;
-    lse_r[r] = ok ? p.lse[stat0 + row[r]] : 0.f;
-    delta_r[r] = ok ? p.delta[stat0 + row[r]] : 0.f;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-
-  int n_tiles = (p.tk + BLOCK_N - 1) / BLOCK_N;
-  if (p.causal) {
-    // whole-tile skip: no row of this block sees a key past `last`
-    const long long last = p.q_offset + q0 + BLOCK_M - 1 - p.k_offset;
-    if (last < 0) {
-      n_tiles = 0;
-    } else if (last / BLOCK_N + 1 < n_tiles) {
-      n_tiles = static_cast<int>(last / BLOCK_N) + 1;
-    }
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BLOCK_N;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(s_k, kg + k0 * p.k_st, p.k_st, BLOCK_N, p.tk - k0);
-    load_tile<D>(s_v, vg + k0 * p.v_st, p.v_st, BLOCK_N, p.tk - k0);
-    __syncthreads();
-
-    // p = exp(q.k * scale - lse) where visible
-    float s[NS][4];
-    tile_product<D, NS>(s, s_q, wr, s_k, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int r = e >> 1;
-        bool vis = col < p.tk && row[r] < p.tq;
-        if (p.causal) vis = vis && row_pos[r] >= p.k_offset + col;
-        s[nt][e] = vis ? expf(s[nt][e] * p.scale - lse_r[r]) : 0.f;
-      }
-    }
-    // ds = p * (do.v - delta) * scale, in place
-    float dp[NS][4];
-    tile_product<D, NS>(dp, s_do, wr, s_v, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = s[nt][e] * (dp[nt][e] - delta_r[e >> 1]) * p.scale;
-      }
-    }
-    // dq[:, c] += bf16(ds) . k[:, c]
-#pragma unroll
-    for (int kb = 0; kb < BLOCK_N / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc, s[2 * kb], s[2 * kb + 1], s_k + c0, kb,
-                              lane);
-    }
-  }
-
-  uint16_t* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] < p.tq) {
-      uint16_t* out = dqg + row[r] * p.dq_st + c0 + t4 * 2;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<uint32_t*>(out + n * 8) =
-            pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <int D, int BQ, int DC>
-__global__ void __launch_bounds__(THREADS)
-    flash_dkv_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int ND = DC / 8;  // n-tiles of this block's dk and dv chunks
-  constexpr int NQ = BQ / 8;  // n-tiles of the transposed score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* s_k = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* s_v = s_k + BLOCK_N * LD;
-  uint16_t* s_q = s_v + BLOCK_N * LD;
-  uint16_t* s_do = s_q + BQ * LD;
-  float* s_lse = reinterpret_cast<float*>(s_do + BQ * LD);
-  float* s_delta = s_lse + BQ;
-
-  const int k0 = blockIdx.x * BLOCK_N;
-  const int h = blockIdx.y / (D / DC);
-  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's dk/dv columns
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int wr = warp * 16;
-
-  const uint16_t* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const uint16_t* dog = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long stat0 = (static_cast<long long>(b) * p.heads + h) * p.tq;
-  load_tile<D>(s_k, p.k + b * p.k_sb + h * p.k_sh + k0 * p.k_st, p.k_st,
-               BLOCK_N, p.tk - k0);
-  load_tile<D>(s_v, p.v + b * p.v_sb + h * p.v_sh + k0 * p.v_st, p.v_st,
-               BLOCK_N, p.tk - k0);
-
-  // this thread's two keys (g and g + 8)
-  int key[2];
-  long long key_pos[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    key[r] = k0 + wr + g + 8 * r;
-    key_pos[r] = p.k_offset + key[r];
-  }
-
-  float acc_dk[ND][4], acc_dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    acc_dk[n][0] = acc_dk[n][1] = acc_dk[n][2] = acc_dk[n][3] = 0.f;
-    acc_dv[n][0] = acc_dv[n][1] = acc_dv[n][2] = acc_dv[n][3] = 0.f;
-  }
-
-  const int nq = (p.tq + BQ - 1) / BQ;
+  // the other operand's tiles the block visits: [first, n_end)
   int first = 0;
+  int n_end = (t_oth + TILE - 1) / TILE;
   if (p.causal) {
-    // whole-tile skip: no query before `lo` sees any key of this block
-    const long long lo = p.k_offset + k0 - p.q_offset;
-    if (lo > 0) first = static_cast<int>(lo / BQ < nq ? lo / BQ : nq);
-  }
-
-  for (int it = first; it < nq; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(s_q, qg + q0 * p.q_st, p.q_st, BQ, p.tq - q0);
-    load_tile<D>(s_do, dog + q0 * p.do_st, p.do_st, BQ, p.tq - q0);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const bool ok = q0 + i < p.tq;
-      s_lse[i] = ok ? p.lse[stat0 + q0 + i] : 0.f;
-      s_delta[i] = ok ? p.delta[stat0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // p^T = exp(k.q * scale - lse) where visible
-    float st[NQ][4];
-    tile_product<D, NQ>(st, s_k, wr, s_q, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + t4 * 2 + (e & 1);
-        const int r = e >> 1;
-        bool vis = q0 + qc < p.tq && key[r] < p.tk;
-        if (p.causal) vis = vis && p.q_offset + q0 + qc >= key_pos[r];
-        st[nt][e] = vis ? expf(st[nt][e] * p.scale - s_lse[qc]) : 0.f;
+    if (DKV) {
+      // no query before `lo` sees any key of this block
+      const long long lo = x0 - shift;
+      if (lo > 0) first = static_cast<int>(lo / TILE < n_end ? lo / TILE
+                                                             : n_end);
+    } else {
+      // no query of this block sees a key past `last`
+      const long long last = shift + x0 + OWN - 1;
+      if (last < 0) {
+        n_end = 0;
+      } else if (last / TILE + 1 < n_end) {
+        n_end = static_cast<int>(last / TILE) + 1;
       }
     }
-    // dv[:, c] += bf16(p^T) . do[:, c]
-#pragma unroll
-    for (int kb = 0; kb < BQ / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc_dv, st[2 * kb], st[2 * kb + 1], s_do + c0,
-                              kb, lane);
+  }
+  const long long stat0 = (static_cast<long long>(b) * p.heads + h) * p.tq;
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const bool loader = threadIdx.x < 32;  // warp 0 issues every load
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 32);              // every lane of warp 0
+      mbar_init(bar_free + 8 * s, THREADS / 32);    // one arrival a warp
     }
-    // ds^T = p^T * (v.do - delta) * scale, in place
-    float dpt[NQ][4];
-    tile_product<D, NQ>(dpt, s_v, wr, s_do, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + t4 * 2 + (e & 1);
-        st[nt][e] = st[nt][e] * (dpt[nt][e] - s_delta[qc]) * p.scale;
+    mbar_init(bar_cfull, 32);
+    mbar_init(bar_cfree, THREADS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The loads, issued by warp 0 ahead of what the block consumes: lane 0
+  // issues the TMA loads, every lane stages two of the dk/dv kernel's
+  // query statistics and arrives on the full barrier of what it filled.
+  auto stage_stats = [&](float (*st)[TILE], int y0) {
+    if constexpr (DKV) {
+      for (int i = lane; i < TILE; i += 32) {
+        const bool ok = y0 + i < p.tq;
+        st[0][i] = ok ? p.lse[stat0 + y0 + i] * LOG2E : 0.f;
+        st[1][i] = ok ? p.delta[stat0 + y0 + i] : 0.f;
       }
     }
-    // dk[:, c] += bf16(ds^T) . q[:, c]
-#pragma unroll
-    for (int kb = 0; kb < BQ / 16; ++kb) {
-      acc_from_scores<ND, LD>(acc_dk, st[2 * kb], st[2 * kb + 1], s_q + c0,
-                              kb, lane);
+  };
+  // ring items: a tile (RES > 0), or a slice of a tile (streamed)
+  const int n_items = (n_end - first) * (RES > 0 ? 1 : slices);
+  int issued = 0;
+  auto issue_until = [&](int upto) {  // ring items [issued, upto)
+    for (; issued < min(upto, n_items); ++issued) {
+      const int m = issued;
+      const int s = m % STAGES;
+      const uint32_t dst = s_ring + s * STAGE;
+      const uint32_t bar = bar_full + 8 * s;
+      mbar_wait(bar_free + 8 * s, ((m / STAGES) & 1) ^ 1);
+      if constexpr (RES > 0) {
+        const int y0 = (first + m) * TILE;
+        stage_stats(s_stat[s], y0);
+        if (lane == 0) {
+          mbar_expect_tx(bar, STAGE);
+          for (int c = 0; c < RES; ++c) {
+            tma_load(dst + c * TILE_REGION, &tm_y1, bar, c * ATOM, h, y0, b);
+            tma_load(dst + (RES + c) * TILE_REGION, &tm_y2, bar, c * ATOM, h,
+                     y0, b);
+          }
+        }
+      } else {
+        const int y0 = (first + m / slices) * TILE;
+        const int c = m % slices;
+        if (lane == 0) {
+          mbar_expect_tx(bar, STAGE);
+          tma_load(dst, &tm_x1, bar, c * ATOM, h, x0, b);
+          tma_load(dst + OWN_REGION, &tm_x2, bar, c * ATOM, h, x0, b);
+          tma_load(dst + 2 * OWN_REGION, &tm_y1, bar, c * ATOM, h, y0, b);
+          tma_load(dst + 2 * OWN_REGION + TILE_REGION, &tm_y2, bar, c * ATOM,
+                   h, y0, b);
+        }
+      }
+      if (lane != 0) mbar_arrive(bar);
+    }
+  };
+  // the streamed kernel's chunk of tile t, once tile t - 1 is done with it
+  auto issue_chunk = [&](int t) {
+    const int y0 = t * TILE;
+    mbar_wait(bar_cfree, ((t - first) & 1) ^ 1);
+    stage_stats(s_stat[0], y0);
+    if (lane == 0) {
+      // the chunk's slices that hold any column (a box wholly past dh is
+      // not loaded; the columns it would fill are never stored)
+      const int nc = min(CS, slices - c0 / ATOM);
+      mbar_expect_tx(bar_cfull, (DKV ? 2 : 1) * nc * TILE_REGION);
+      for (int r = 0; r < nc; ++r) {
+        tma_load(s_chunk + r * TILE_REGION, &tm_y1, bar_cfull, c0 + r * ATOM,
+                 h, y0, b);
+        if (DKV) {
+          tma_load(s_chunk + Y2_OFF + r * TILE_REGION, &tm_y2, bar_cfull,
+                   c0 + r * ATOM, h, y0, b);
+        }
+      }
+    } else {
+      mbar_arrive(bar_cfull);
+    }
+  };
+  if constexpr (RES > 0) {
+    if (threadIdx.x == 0 && first < n_end) {
+      mbar_expect_tx(bar_own, 2 * RES * OWN_REGION);
+      for (int c = 0; c < RES; ++c) {
+        tma_load(s_own + c * OWN_REGION, &tm_x1, bar_own, c * ATOM, h, x0, b);
+        tma_load(s_own + (RES + c) * OWN_REGION, &tm_x2, bar_own, c * ATOM, h,
+                 x0, b);
+      }
     }
   }
 
-  uint16_t* dkg = p.dk + b * p.dk_sb + h * p.dk_sh;
-  uint16_t* dvg = p.dv + b * p.dv_sb + h * p.dv_sh;
+  // warpgroup wg owns rows x0 + 64 wg ..; this thread the rows g and
+  // g + 8 of its warp's 16, as the wgmma fragments lay them out
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row0 = x0 + wg * 64 + warp * 16 + g;
+  const uint32_t wg_rows = wg * 64 * ATOM_BYTES;  // into an own slice
+
+  // dq: lse * log2(e) and delta of this thread's two query rows
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < p.tq) {
+        lse_r[r] = p.lse[stat0 + row] * LOG2E;
+        delta_r[r] = p.delta[stat0 + row];
+      }
+    }
+  }
+
+  float acc0[DC / 2];            // dq, or dk
+  float acc1[DKV ? DC / 2 : 1];  // dv
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DKV ? DC / 2 : 1); ++i) acc1[i] = 0.f;
+
+  float sc[TILE / 2], dp[TILE / 2];     // S and dP, then p and ds
+  uint32_t pa[DKV ? TILE / 16 : 1][4];  // bf16(p), dk/dv only
+  uint32_t da[TILE / 16][4];            // bf16(ds)
+
+  // p and ds of the tile at y0 in the registers of S and dP, masked where
+  // the tile crosses the ragged ends or the causal diagonal, then rounded
+  // to bf16 as the A operands of the chunk products
+  const int wg0 = x0 + wg * 64;  // this warpgroup's first own row
+  auto make_pds = [&](int y0, const float (*st)[TILE]) {
+    bool masked = y0 + TILE > t_oth || wg0 + 64 > t_own;
+    if (p.causal) {
+      masked = masked || (DKV ? shift + y0 < wg0 + 63
+                              : y0 + TILE - 1 > shift + wg0);
+    }
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) {
+      const int col = (i / 4) * 8 + t4 * 2 + (i & 1);  // in the tile
+      const int r = (i >> 1) & 1;
+      const float l2 = DKV ? st[0][col] : lse_r[r];
+      const float dl = DKV ? st[1][col] : delta_r[r];
+      bool vis = true;
+      if (masked) {
+        const int own = row0 + 8 * r;
+        const int oth = y0 + col;
+        vis = oth < t_oth && own < t_own;
+        if (p.causal) vis = vis && (DKV ? shift + oth >= own
+                                        : shift + own >= oth);
+      }
+      const float pe = vis ? exp2_ftz(sc[i] * p.scale_log2 - l2) : 0.f;
+      sc[i] = pe;
+      dp[i] = pe * (dp[i] - dl) * p.scale;
+    }
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kb = 0; kb < TILE / 16; ++kb) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (DKV) {
+          pa[kb][j] = pack_bf16(sc[8 * kb + 2 * j], sc[8 * kb + 2 * j + 1]);
+        }
+        da[kb][j] = pack_bf16(dp[8 * kb + 2 * j], dp[8 * kb + 2 * j + 1]);
+      }
+    }
+  };
+  // dq += bf16(ds) . k[:, chunk]; or dv += bf16(p^T) . do[:, chunk] and
+  // dk += bf16(ds^T) . q[:, chunk]: Y read MN-major, 16 rows a step
+  auto issue_chunk_products = [&](uint32_t y_chunk) {
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < TILE / 16; ++kb) {
+      const uint32_t off = kb * 16 * ATOM_BYTES;
+      if constexpr (DKV) {
+        wgmma_rs<DC>(acc1, pa[kb],
+                     desc_sw128(y_chunk + Y2_OFF + off, TILE_REGION, 1024),
+                     1);
+      }
+      wgmma_rs<DC>(acc0, da[kb],
+                   desc_sw128(y_chunk + off, TILE_REGION, 1024), 1);
+    }
+    wgmma_commit();
+  };
+  auto fence_acc = [&]() {
+    fence_regs<DC / 2>(acc0);
+    if constexpr (DKV) fence_regs<DC / 2>(acc1);
+  };
+
+  if constexpr (RES > 0) {
+    // Software-pipelined: while the chunk products of tile m run on the
+    // tensor cores, the threads compute p and ds of tile m + 1.  Ring
+    // item m is tile first + m; warp 0 keeps the loads STAGES - 2 items
+    // ahead of the item whose scores are issued, so it only ever waits
+    // for a stage that every warp has already released.
+    const int n_tiles = n_end - first;
+    auto issue_scores = [&](int m) {  // S and dP of item m into sc, dp
+      if (loader) issue_until(m + STAGES - 1);
+      const int s = m % STAGES;
+      const uint32_t ys = s_ring + s * STAGE;
+      mbar_wait(bar_full + 8 * s, (m / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < RES * KS; ++kk) {
+        const uint32_t off = (kk / 4) * OWN_REGION + wg_rows + (kk % 4) * 32;
+        const uint32_t yoff = (kk / 4) * TILE_REGION + (kk % 4) * 32;
+        wgmma_ss<TILE>(sc, desc_sw128(s_own + off, 16, 1024),
+                       desc_sw128(ys + yoff, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < RES * KS; ++kk) {
+        const uint32_t off = (RES + kk / 4) * OWN_REGION + wg_rows +
+                             (kk % 4) * 32;
+        const uint32_t yoff = (RES + kk / 4) * TILE_REGION + (kk % 4) * 32;
+        wgmma_ss<TILE>(dp, desc_sw128(s_own + off, 16, 1024),
+                       desc_sw128(ys + yoff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // item 0's scores, p and ds; then each iteration issues the scores of
+    // m + 1 and the chunk products of m, and computes p and ds of m + 1
+    // from the former while the latter run; the last item's products
+    // after the loop.  (The loop body has no branch around a wgmma or a
+    // wait, so ptxas can see which group each wait retires and keeps
+    // the products asynchronous.)
+    auto chunk_of = [&](int m) {
+      return s_ring + (m % STAGES) * STAGE + (c0 / ATOM) * TILE_REGION;
+    };
+    if (n_tiles > 0) {
+      mbar_wait(bar_own, 0);
+      issue_scores(0);
+      wgmma_wait_all();
+      fence_regs<TILE / 2>(sc);
+      fence_regs<TILE / 2>(dp);
+      make_pds(first * TILE, s_stat[0]);
+      pack();
+      for (int m = 0; m + 1 < n_tiles; ++m) {
+        issue_scores(m + 1);
+        issue_chunk_products(chunk_of(m));
+        wgmma_wait_one();  // the scores of m + 1; the products may run on
+        fence_regs<TILE / 2>(sc);
+        fence_regs<TILE / 2>(dp);
+        make_pds((first + m + 1) * TILE, s_stat[(m + 1) % STAGES]);
+        // the chunk products of m are done: its stage is free, and
+        // pa/da may be written
+        wgmma_wait_all();
+        fence_acc();
+        if (lane == 0) mbar_arrive(bar_free + 8 * (m % STAGES));
+        pack();
+      }
+      issue_chunk_products(chunk_of(n_tiles - 1));
+      wgmma_wait_all();
+      fence_acc();
+    }
+  } else {
+    int n = 0;  // ring items consumed so far
+    for (int t = first; t < n_end; ++t) {
+      // S = X1 . Y1^T and dP = X2 . Y2^T, one 64-column slice a ring
+      // item, 16 columns a step, both operands K-major
+      if (loader) issue_chunk(t);
+      for (int c = 0; c < slices; ++c, ++n) {
+        if (loader) issue_until(n + STAGES);
+        const int s = n % STAGES;
+        const uint32_t xs = s_ring + s * STAGE;
+        mbar_wait(bar_full + 8 * s, (n / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<TILE>(sc, desc_sw128(xs + wg_rows + kk * 32, 16, 1024),
+                         desc_sw128(xs + 2 * OWN_REGION + kk * 32, 16, 1024),
+                         c > 0 || kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<TILE>(
+              dp, desc_sw128(xs + OWN_REGION + wg_rows + kk * 32, 16, 1024),
+              desc_sw128(xs + 2 * OWN_REGION + TILE_REGION + kk * 32, 16,
+                         1024),
+              c > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<TILE / 2>(sc);
+        fence_regs<TILE / 2>(dp);
+        if (lane == 0) mbar_arrive(bar_free + 8 * s);
+      }
+      mbar_wait(bar_cfull, (t - first) & 1);
+      make_pds(t * TILE, s_stat[0]);
+      pack();
+      fence_acc();
+      issue_chunk_products(s_chunk);
+      wgmma_wait_all();
+      fence_acc();
+      // this warp is done with the chunk buffer
+      if (lane == 0) mbar_arrive(bar_cfree);
+    }
+  }
+
+  // store this thread's rows of the chunk, in bf16
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] < p.tk) {
-      uint16_t* ok = dkg + key[r] * p.dk_st + c0 + t4 * 2;
-      uint16_t* ov = dvg + key[r] * p.dv_st + c0 + t4 * 2;
+    const int row = row0 + 8 * r;
+    if (row >= t_own) continue;
+    uint16_t* o0 = p.out0 + b * p.o0_sb + h * p.o0_sh + row * p.o0_st +
+                   c0 + t4 * 2;
+    uint16_t* o1 = p.out1 + b * p.o1_sb + h * p.o1_sh + row * p.o1_st +
+                   c0 + t4 * 2;
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<uint32_t*>(ok + n * 8) =
-            pack_bf16(acc_dk[n][2 * r], acc_dk[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(ov + n * 8) =
-            pack_bf16(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+    for (int c = 0; c < DC / 8; ++c) {
+      if (c0 + c * 8 >= p.dh) continue;
+      *reinterpret_cast<uint32_t*>(o0 + c * 8) =
+          pack_bf16(acc0[4 * c + 2 * r], acc0[4 * c + 2 * r + 1]);
+      if constexpr (DKV) {
+        *reinterpret_cast<uint32_t*>(o1 + c * 8) =
+            pack_bf16(acc1[4 * c + 2 * r], acc1[4 * c + 2 * r + 1]);
       }
     }
   }
 }
 
-// DC: the output column chunk of a block (D up to 128, else 128)
-template <int D, int DC = (D < 128 ? D : 128)>
-cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
-  const int smem = (2 * BLOCK_M + 2 * BLOCK_N) * (D + 8) * 2;
+// encodes the four maps (the own operands X in boxes of OWN rows, the
+// other operands Y in boxes of TILE rows, both 64 columns wide, so the
+// boxes and the expected bytes come from the same constants) and
+// launches; a negative return is a CUresult of the encoding, negated and
+// less one
+template <bool DKV, int RES, int DC, int KS = 4>
+int launch(const Operand& x1, const Operand& x2, const Operand& y1,
+           const Operand& y2, Params p, int batch, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const Operand* ops[4] = {&x1, &x2, &y1, &y2};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult res = encode(&maps[i], *ops[i], p.dh, p.heads, batch,
+                                i < 2 ? OWN : TILE);
+    if (res != CUDA_SUCCESS) return -static_cast<int>(res) - 1;
+  }
+  constexpr int smem = smem_bytes<DKV, RES, DC>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<D, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.tq + BLOCK_M - 1) / BLOCK_M, p.heads * (D / DC), batch);
-  flash_dq_kernel<D, DC><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D, int BQ, int DC = (D < 128 ? D : 128)>
-cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
-  const int smem = (2 * BLOCK_N + 2 * BQ) * (D + 8) * 2 + 2 * BQ * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D, BQ, DC>,
+      flash_bwd_kernel<DKV, RES, DC, KS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.tk + BLOCK_N - 1) / BLOCK_N, p.heads * (D / DC), batch);
-  flash_dkv_kernel<D, BQ, DC><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.slices = (p.dh + ATOM - 1) / ATOM;
+  p.chunks = (p.dh + DC - 1) / DC;
+  const int t_own = DKV ? p.tk : p.tq;
+  const dim3 grid((t_own + OWN - 1) / OWN, p.heads * p.chunks, batch);
+  flash_bwd_kernel<DKV, RES, DC, KS><<<grid, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   int heads, int tq, int tk, const long long* strides,
-                   float scale, int causal, long long q_offset,
-                   long long k_offset) {
+// the instantiation of a head dim: one or two slices held, else streamed
+template <bool DKV>
+int dispatch(const Operand& x1, const Operand& x2, const Operand& y1,
+             const Operand& y2, const Params& p, int batch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.dh <= 0 || p.dh % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.dh <= 32) return launch<DKV, 1, 64, 2>(x1, x2, y1, y2, p, batch, s);
+  if (p.dh <= 64) return launch<DKV, 1, 64>(x1, x2, y1, y2, p, batch, s);
+  // dk/dv holding two slices takes chunks of 64: two 128-wide f32
+  // accumulators beside the pipelined score tiles spill
+  if (p.dh <= 128) {
+    return launch<DKV, 2, DKV ? 64 : 128>(x1, x2, y1, y2, p, batch, s);
+  }
+  return launch<DKV, 0, 128>(x1, x2, y1, y2, p, batch, s);
+}
+
+Params make_params(const void* lse, const void* delta, int heads, int tq,
+                   int tk, int head_dim, float scale, int causal,
+                   long long q_offset, long long k_offset) {
   Params p = {};
-  p.q = static_cast<const uint16_t*>(q);
-  p.k = static_cast<const uint16_t*>(k);
-  p.v = static_cast<const uint16_t*>(v);
-  p.dout = static_cast<const uint16_t*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  long long* dst[] = {&p.q_sb, &p.q_st, &p.q_sh, &p.k_sb, &p.k_st, &p.k_sh,
-                      &p.v_sb, &p.v_st, &p.v_sh, &p.do_sb, &p.do_st,
-                      &p.do_sh};
-  for (int i = 0; i < 12; ++i) *dst[i] = strides[i];
   p.heads = heads;
   p.tq = tq;
   p.tk = tk;
+  p.dh = head_dim;
   p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
   p.causal = causal;
   p.q_offset = q_offset;
   p.k_offset = k_offset;
@@ -507,38 +583,32 @@ Params make_params(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Operands q (B, Tq, H, dh), k and v (B, Tk, H, dh), do (B, Tq, H, dh),
-// bf16 with the last dim contiguous; `strides` holds the (batch, time,
-// head) element strides of q, k, v and do in that order (12 values);
-// lse and delta: contiguous (B, H, Tq) f32.  dq: (B, Tq, H, dh) bf16 with
-// (batch, time, head) strides dq_sb, dq_st, dq_sh.  Returns the launch's
-// cudaError_t (0 on success); the caller checks shapes, dtypes and
-// alignment beforehand.
+// bf16 with the last dim contiguous, base and strides on 16-byte
+// boundaries; `strides` holds the (batch, time, head) element strides of
+// q, k, v and do in that order (12 values); lse and delta: contiguous
+// (B, H, Tq) f32; head_dim the true dh, any multiple of 8.  dq:
+// (B, Tq, H, dh) bf16 with (batch, time, head) strides dq_sb, dq_st,
+// dq_sh.  Returns the launch's cudaError_t (0 on success), or a negative
+// CUresult when a tensor map cannot be encoded; the caller checks shapes,
+// dtypes and alignment beforehand.
 extern "C" int znicz_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int heads,
     int tq, int tk, int head_dim, const long long* strides, long long dq_sb,
     long long dq_st, long long dq_sh, float scale, int causal,
     long long q_offset, long long k_offset, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, heads, tq, tk, strides,
-                         scale, causal, q_offset, k_offset);
-  p.dq = static_cast<uint16_t*>(dq);
-  p.dq_sb = dq_sb;
-  p.dq_st = dq_st;
-  p.dq_sh = dq_sh;
+  Params p = make_params(lse, delta, heads, tq, tk, head_dim, scale, causal,
+                         q_offset, k_offset);
+  p.out0 = p.out1 = static_cast<uint16_t*>(dq);
+  p.o0_sb = p.o1_sb = dq_sb;
+  p.o0_st = p.o1_st = dq_st;
+  p.o0_sh = p.o1_sh = dq_sh;
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return static_cast<int>(launch_dq<32>(p, batch, s));
-    case 64:
-      return static_cast<int>(launch_dq<64>(p, batch, s));
-    case 128:
-      return static_cast<int>(launch_dq<128>(p, batch, s));
-    case 256:
-      return static_cast<int>(launch_dq<256>(p, batch, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Operand oq = {q, tq, strides[0], strides[1], strides[2]};
+  const Operand ok = {k, tk, strides[3], strides[4], strides[5]};
+  const Operand ov = {v, tk, strides[6], strides[7], strides[8]};
+  const Operand od = {dout, tq, strides[9], strides[10], strides[11]};
+  return dispatch<false>(oq, od, ok, ov, p, batch, stream);
 }
 
 // As znicz_flash_attention_dq, writing dk and dv: (B, Tk, H, dh) bf16
@@ -549,28 +619,20 @@ extern "C" int znicz_flash_attention_dkv(
     int heads, int tq, int tk, int head_dim, const long long* strides,
     const long long* out_strides, float scale, int causal, long long q_offset,
     long long k_offset, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, heads, tq, tk, strides,
-                         scale, causal, q_offset, k_offset);
-  p.dk = static_cast<uint16_t*>(dk);
-  p.dv = static_cast<uint16_t*>(dv);
-  p.dk_sb = out_strides[0];
-  p.dk_st = out_strides[1];
-  p.dk_sh = out_strides[2];
-  p.dv_sb = out_strides[3];
-  p.dv_st = out_strides[4];
-  p.dv_sh = out_strides[5];
+  Params p = make_params(lse, delta, heads, tq, tk, head_dim, scale, causal,
+                         q_offset, k_offset);
+  p.out0 = static_cast<uint16_t*>(dk);
+  p.out1 = static_cast<uint16_t*>(dv);
+  p.o0_sb = out_strides[0];
+  p.o0_st = out_strides[1];
+  p.o0_sh = out_strides[2];
+  p.o1_sb = out_strides[3];
+  p.o1_st = out_strides[4];
+  p.o1_sh = out_strides[5];
   if (batch <= 0 || heads <= 0 || tk <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return static_cast<int>(launch_dkv<32, 64>(p, batch, s));
-    case 64:
-      return static_cast<int>(launch_dkv<64, 64>(p, batch, s));
-    case 128:
-      return static_cast<int>(launch_dkv<128, 32>(p, batch, s));
-    case 256:
-      return static_cast<int>(launch_dkv<256, 32>(p, batch, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Operand oq = {q, tq, strides[0], strides[1], strides[2]};
+  const Operand ok = {k, tk, strides[3], strides[4], strides[5]};
+  const Operand ov = {v, tk, strides[6], strides[7], strides[8]};
+  const Operand od = {dout, tq, strides[9], strides[10], strides[11]};
+  return dispatch<true>(ok, ov, oq, od, p, batch, stream);
 }

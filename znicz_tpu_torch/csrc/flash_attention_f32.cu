@@ -43,6 +43,13 @@
 // over the whole head dim, staged whole in shared memory, and every chunk
 // recomputes them (twice the score work at dh = 256).  The forward's lse
 // is written by the first chunk.
+//
+// Head dims past 256: the streamed instantiation (D = 0) takes any width
+// that is a multiple of 128 (the wrapper zero-pads to one), given at run
+// time.  Its staging loop gains an outer loop over 64-column slices of
+// the score operands, s and dp summing over the slices, and the chunk's
+// columns of the right-hand operands are staged after them, so shared
+// memory does not grow with the head dim.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +61,7 @@ constexpr int TILE = 64;        // rows of the other operand per iteration
 constexpr int SPLIT = 4;        // threads per row
 constexpr int PER = TILE / SPLIT;  // scores of a tile per thread
 constexpr int LP = TILE + 1;    // row pitch of the score tiles
+constexpr int SL = 64;          // columns of a slice (streamed kernels)
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -76,6 +84,7 @@ struct Params {
   long long dk_sb, dk_st, dk_sh;
   long long dv_sb, dv_st, dv_sh;
   int heads, tq, tk;
+  int width;  // the padded head dim (streamed kernels)
   float scale;
   int causal;
   long long q_offset, k_offset;
@@ -95,13 +104,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// the 16 dot products of one row `a` (pitch D + 1) with rows part,
-// part + 4, ... of tile `t`
+// adds the 16 dot products of one row `a` (pitch D + 1) with rows part,
+// part + 4, ... of tile `t` to s
 template <int D>
-__device__ __forceinline__ void row_dots(float s[PER], const float* a,
-                                         const float* t, int part) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) s[i] = 0.f;
+__device__ __forceinline__ void row_dots_add(float s[PER], const float* a,
+                                             const float* t, int part) {
   for (int c = 0; c < D; ++c) {
     const float av = a[c];
 #pragma unroll
@@ -109,6 +116,44 @@ __device__ __forceinline__ void row_dots(float s[PER], const float* a,
       s[i] = fmaf(av, t[(part + SPLIT * i) * (D + 1) + c], s[i]);
     }
   }
+}
+
+// the 16 dot products of one row `a` (pitch D + 1) with rows part,
+// part + 4, ... of tile `t`
+template <int D>
+__device__ __forceinline__ void row_dots(float s[PER], const float* a,
+                                         const float* t, int part) {
+#pragma unroll
+  for (int i = 0; i < PER; ++i) s[i] = 0.f;
+  row_dots_add<D>(s, a, t, part);
+}
+
+// the streamed kernels' score products: s (and dp, when `b` is given)
+// summed over the 64-column slices of the head dim, each slice of the
+// block's rows (a, b from global rows `own`, ROWS of them) and of the
+// tile's rows (ta, tb from global rows `oth`, TILE of them) staged
+// through shared memory; ends with every thread past its last read
+__device__ __forceinline__ void sliced_dots(
+    float s[PER], float dp[PER], const Params& p, const float* a,
+    long long a_st, const float* b, long long b_st, int own_valid,
+    const float* ta, long long ta_st, const float* tb, long long tb_st,
+    int oth_valid, float* s_a, float* s_b, float* s_ta, float* s_tb, int r,
+    int part) {
+#pragma unroll
+  for (int i = 0; i < PER; ++i) s[i] = dp[i] = 0.f;
+  for (int c = 0; c < p.width; c += SL) {
+    __syncthreads();  // every thread is done with the previous slice
+    load_rows<SL>(s_a, a + c, a_st, ROWS, own_valid);
+    load_rows<SL>(s_ta, ta + c, ta_st, TILE, oth_valid);
+    if (b != nullptr) {
+      load_rows<SL>(s_b, b + c, b_st, ROWS, own_valid);
+      load_rows<SL>(s_tb, tb + c, tb_st, TILE, oth_valid);
+    }
+    __syncthreads();
+    row_dots_add<SL>(s, s_a + r * (SL + 1), s_ta, part);
+    if (b != nullptr) row_dots_add<SL>(dp, s_b + r * (SL + 1), s_tb, part);
+  }
+  __syncthreads();
 }
 
 // acc[d] += sum_j w[j] * t[j][part + 4 d] over the tile's 64 rows, for
@@ -136,25 +181,30 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
   return n;
 }
 
+// D = 0: the streamed instantiation (a head dim of p.width, past 256)
 template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
+  constexpr bool WIDE = D == 0;
+  constexpr int QD = WIDE ? SL : D;  // columns of the staged q and k
+  constexpr int VD = WIDE ? DC : D;  // columns of the staged v
   constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_q = smem;
-  float* s_k = s_q + ROWS * (D + 1);
-  float* s_v = s_k + TILE * (D + 1);
-  float* s_p = s_v + TILE * (D + 1);
+  float* s_k = s_q + ROWS * (QD + 1);
+  float* s_v = s_k + TILE * (QD + 1);
+  float* s_p = s_v + TILE * (VD + 1);
 
+  const int chunks = (WIDE ? p.width : D) / DC;
   const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / (D / DC);
-  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
+  const int h = blockIdx.y / chunks;
+  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
   const float* kg = p.k + b * p.k_sb + h * p.k_sh;
   const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  load_rows<D>(s_q, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st,
-               ROWS, p.tq - q0);
+  if (!WIDE) load_rows<QD>(s_q, qg, p.q_st, ROWS, p.tq - q0);
 
   float acc[DP];
 #pragma unroll
@@ -166,13 +216,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
   const int n_tiles = key_tiles(p, q0);
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * TILE;
-    __syncthreads();  // every thread is done with the previous tile
-    load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
-    load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
-    __syncthreads();
-
     float s[PER];
-    row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+    if constexpr (WIDE) {
+      float unused[PER];
+      sliced_dots(s, unused, p, qg, p.q_st, nullptr, 0, p.tq - q0,
+                  kg + k0 * p.k_st, p.k_st, nullptr, 0, p.tk - k0, s_q,
+                  nullptr, s_k, nullptr, r, part);
+      load_rows<VD>(s_v, vg + k0 * p.v_st + c0, p.v_st, TILE, p.tk - k0);
+      __syncthreads();
+    } else {
+      __syncthreads();  // every thread is done with the previous tile
+      load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
+      load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
+      __syncthreads();
+      row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+    }
+
     unsigned visible = 0u;
     float tile_max = NEG_INF;
 #pragma unroll
@@ -199,7 +258,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
 #pragma unroll
     for (int d = 0; d < DP; ++d) acc[d] *= corr;
     __syncwarp();
-    accumulate<D, DC>(acc, s_p + r * LP, s_v + c0, part);
+    accumulate<VD, DC>(acc, s_p + r * LP, s_v + (WIDE ? 0 : c0), part);
   }
 
   l += __shfl_xor_sync(0xffffffffu, l, 1);
@@ -219,26 +278,34 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
 
 template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
+  constexpr bool WIDE = D == 0;
+  constexpr int QD = WIDE ? SL : D;  // columns of the staged score operands
+  constexpr int KD = WIDE ? DC : D;  // columns of the staged k for ds . k
   constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_q = smem;
-  float* s_do = s_q + ROWS * (D + 1);
-  float* s_k = s_do + ROWS * (D + 1);
-  float* s_v = s_k + TILE * (D + 1);
-  float* s_ds = s_v + TILE * (D + 1);
+  float* s_do = s_q + ROWS * (QD + 1);
+  float* s_k = s_do + ROWS * (QD + 1);
+  float* s_v = s_k + TILE * (QD + 1);
+  // the streamed kernel stages the chunk's columns of k on their own
+  float* s_kc = WIDE ? s_v + TILE * (QD + 1) : s_k;
+  float* s_ds = s_kc + (WIDE ? TILE * (KD + 1) : 2 * TILE * (D + 1));
 
+  const int chunks = (WIDE ? p.width : D) / DC;
   const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / (D / DC);
-  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
+  const int h = blockIdx.y / chunks;
+  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
+  const float* dog = p.dout + b * p.do_sb + h * p.do_sh + q0 * p.do_st;
   const float* kg = p.k + b * p.k_sb + h * p.k_sh;
   const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  load_rows<D>(s_q, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st, p.q_st,
-               ROWS, p.tq - q0);
-  load_rows<D>(s_do, p.dout + b * p.do_sb + h * p.do_sh + q0 * p.do_st,
-               p.do_st, ROWS, p.tq - q0);
+  if (!WIDE) {
+    load_rows<D>(s_q, qg, p.q_st, ROWS, p.tq - q0);
+    load_rows<D>(s_do, dog, p.do_st, ROWS, p.tq - q0);
+  }
 
   const int row = q0 + r;
   const long long row_pos = p.q_offset + row;
@@ -253,14 +320,21 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
   const int n_tiles = key_tiles(p, q0);
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * TILE;
-    __syncthreads();
-    load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
-    load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
-    __syncthreads();
-
     float s[PER], dp[PER];
-    row_dots<D>(s, s_q + r * (D + 1), s_k, part);
-    row_dots<D>(dp, s_do + r * (D + 1), s_v, part);
+    if constexpr (WIDE) {
+      sliced_dots(s, dp, p, qg, p.q_st, dog, p.do_st, p.tq - q0,
+                  kg + k0 * p.k_st, p.k_st, vg + k0 * p.v_st, p.v_st,
+                  p.tk - k0, s_q, s_do, s_k, s_v, r, part);
+      load_rows<KD>(s_kc, kg + k0 * p.k_st + c0, p.k_st, TILE, p.tk - k0);
+      __syncthreads();
+    } else {
+      __syncthreads();
+      load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
+      load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
+      __syncthreads();
+      row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+      row_dots<D>(dp, s_do + r * (D + 1), s_v, part);
+    }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int col = k0 + part + SPLIT * i;
@@ -270,7 +344,7 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
       s_ds[r * LP + part + SPLIT * i] = pe * (dp[i] - delta_r) * p.scale;
     }
     __syncwarp();
-    accumulate<D, DC>(acc, s_ds + r * LP, s_k + c0, part);
+    accumulate<KD, DC>(acc, s_ds + r * LP, s_kc + (WIDE ? 0 : c0), part);
   }
 
   if (row < p.tq) {
@@ -282,30 +356,39 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
 
 template <int D, int DC>
 __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
+  constexpr bool WIDE = D == 0;
+  constexpr int QD = WIDE ? SL : D;  // columns of the staged score operands
+  constexpr int CD = WIDE ? DC : D;  // columns of the staged q, do chunks
   constexpr int DP = DC / SPLIT;
   extern __shared__ float smem[];
   float* s_k = smem;
-  float* s_v = s_k + ROWS * (D + 1);
-  float* s_q = s_v + ROWS * (D + 1);
-  float* s_do = s_q + TILE * (D + 1);
-  float* s_pt = s_do + TILE * (D + 1);
+  float* s_v = s_k + ROWS * (QD + 1);
+  float* s_q = s_v + ROWS * (QD + 1);
+  float* s_do = s_q + TILE * (QD + 1);
+  // the streamed kernel stages the chunk's columns of q and do on their own
+  float* s_qc = WIDE ? s_do + TILE * (QD + 1) : s_q;
+  float* s_doc = WIDE ? s_qc + TILE * (CD + 1) : s_do;
+  float* s_pt = s_doc + TILE * (CD + 1);
   float* s_dst = s_pt + ROWS * LP;
   float* s_lse = s_dst + ROWS * LP;
   float* s_delta = s_lse + TILE;
 
+  const int chunks = (WIDE ? p.width : D) / DC;
   const int k0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / (D / DC);
-  const int c0 = blockIdx.y % (D / DC) * DC;  // this block's output columns
+  const int h = blockIdx.y / chunks;
+  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
   const int b = blockIdx.z;
   const int r = threadIdx.x / SPLIT;
   const int part = threadIdx.x % SPLIT;
+  const float* kg = p.k + b * p.k_sb + h * p.k_sh + k0 * p.k_st;
+  const float* vg = p.v + b * p.v_sb + h * p.v_sh + k0 * p.v_st;
   const float* qg = p.q + b * p.q_sb + h * p.q_sh;
   const float* dog = p.dout + b * p.do_sb + h * p.do_sh;
   const long long stat = (static_cast<long long>(b) * p.heads + h) * p.tq;
-  load_rows<D>(s_k, p.k + b * p.k_sb + h * p.k_sh + k0 * p.k_st, p.k_st,
-               ROWS, p.tk - k0);
-  load_rows<D>(s_v, p.v + b * p.v_sb + h * p.v_sh + k0 * p.v_st, p.v_st,
-               ROWS, p.tk - k0);
+  if (!WIDE) {
+    load_rows<D>(s_k, kg, p.k_st, ROWS, p.tk - k0);
+    load_rows<D>(s_v, vg, p.v_st, ROWS, p.tk - k0);
+  }
 
   const int key = k0 + r;
   const long long key_pos = p.k_offset + key;
@@ -323,20 +406,30 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
 
   for (int it = first; it < nq; ++it) {
     const int q0 = it * TILE;
-    __syncthreads();
-    load_rows<D>(s_q, qg + q0 * p.q_st, p.q_st, TILE, p.tq - q0);
-    load_rows<D>(s_do, dog + q0 * p.do_st, p.do_st, TILE, p.tq - q0);
+    // p^T and ds^T for this key against the tile's queries
+    float st[PER], dpt[PER];
+    if constexpr (WIDE) {
+      sliced_dots(st, dpt, p, kg, p.k_st, vg, p.v_st, p.tk - k0,
+                  qg + q0 * p.q_st, p.q_st, dog + q0 * p.do_st, p.do_st,
+                  p.tq - q0, s_k, s_v, s_q, s_do, r, part);
+      load_rows<CD>(s_qc, qg + q0 * p.q_st + c0, p.q_st, TILE, p.tq - q0);
+      load_rows<CD>(s_doc, dog + q0 * p.do_st + c0, p.do_st, TILE,
+                    p.tq - q0);
+    } else {
+      __syncthreads();
+      load_rows<D>(s_q, qg + q0 * p.q_st, p.q_st, TILE, p.tq - q0);
+      load_rows<D>(s_do, dog + q0 * p.do_st, p.do_st, TILE, p.tq - q0);
+    }
     for (int i = threadIdx.x; i < TILE; i += THREADS) {
       const bool ok = q0 + i < p.tq;
       s_lse[i] = ok ? p.lse_in[stat + q0 + i] : 0.f;
       s_delta[i] = ok ? p.delta[stat + q0 + i] : 0.f;
     }
     __syncthreads();
-
-    // p^T and ds^T for this key against the tile's queries
-    float st[PER], dpt[PER];
-    row_dots<D>(st, s_k + r * (D + 1), s_q, part);
-    row_dots<D>(dpt, s_v + r * (D + 1), s_do, part);
+    if constexpr (!WIDE) {
+      row_dots<D>(st, s_k + r * (D + 1), s_q, part);
+      row_dots<D>(dpt, s_v + r * (D + 1), s_do, part);
+    }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int qc = part + SPLIT * i;
@@ -347,8 +440,8 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
       s_dst[r * LP + qc] = pe * (dpt[i] - s_delta[qc]) * p.scale;
     }
     __syncwarp();
-    accumulate<D, DC>(acc_dv, s_pt + r * LP, s_do + c0, part);
-    accumulate<D, DC>(acc_dk, s_dst + r * LP, s_q + c0, part);
+    accumulate<CD, DC>(acc_dv, s_pt + r * LP, s_doc + (WIDE ? 0 : c0), part);
+    accumulate<CD, DC>(acc_dk, s_dst + r * LP, s_qc + (WIDE ? 0 : c0), part);
   }
 
   if (key < p.tk) {
@@ -362,10 +455,22 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
   }
 }
 
-// the output column chunk of a block at head dim D
+// the output column chunk of a block at head dim D (0: streamed)
 template <int D>
 constexpr int chunk() {
-  return D < 128 ? D : 128;
+  return D == 0 || D >= 128 ? 128 : D;
+}
+
+// the staged width of the score operands: the head dim, or a slice
+template <int D>
+constexpr int staged() {
+  return D == 0 ? SL : D;
+}
+
+// output chunks of a block row
+template <int D>
+int chunks(const Params& p) {
+  return (D == 0 ? p.width : D) / chunk<D>();
 }
 
 template <typename Kernel>
@@ -380,32 +485,49 @@ cudaError_t launch(Kernel kernel, int smem_floats, int rows, int chunks,
   return cudaGetLastError();
 }
 
+// shared memory in floats: the staged score operands, then (streamed
+// kernels) the chunk's columns of the right-hand operands, then the score
+// rows and statistics
 template <int D>
 cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t s) {
+  constexpr int VD = D == 0 ? chunk<D>() : D;
   return launch(flash_fwd_f32_kernel<D, chunk<D>()>,
-                (ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq,
-                D / chunk<D>(), p, batch, s);
+                (ROWS + TILE) * (staged<D>() + 1) + TILE * (VD + 1) +
+                    ROWS * LP,
+                p.tq, chunks<D>(p), p, batch, s);
 }
 
 template <int D>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t s) {
+  constexpr int KC = D == 0 ? TILE * (chunk<D>() + 1) : 0;
   return launch(flash_dq_f32_kernel<D, chunk<D>()>,
-                (2 * ROWS + 2 * TILE) * (D + 1) + ROWS * LP, p.tq,
-                D / chunk<D>(), p, batch, s);
+                (2 * ROWS + 2 * TILE) * (staged<D>() + 1) + KC + ROWS * LP,
+                p.tq, chunks<D>(p), p, batch, s);
 }
 
 template <int D>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t s) {
+  constexpr int QC = D == 0 ? 2 * TILE * (chunk<D>() + 1) : 0;
   return launch(flash_dkv_f32_kernel<D, chunk<D>()>,
-                (2 * ROWS + 2 * TILE) * (D + 1) + 2 * ROWS * LP + 2 * TILE,
-                p.tk, D / chunk<D>(), p, batch, s);
+                (2 * ROWS + 2 * TILE) * (staged<D>() + 1) + QC +
+                    2 * ROWS * LP + 2 * TILE,
+                p.tk, chunks<D>(p), p, batch, s);
 }
 
-// head-dim dispatch: `which` 0 forward, 1 dq, 2 dk/dv
-int dispatch(int which, int head_dim, const Params& p, int batch,
-             void* stream) {
+// head-dim dispatch: `which` 0 forward, 1 dq, 2 dk/dv; a head dim past
+// 256 must be a multiple of 128 (the wrapper pads it)
+int dispatch(int which, int head_dim, Params p, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  p.width = head_dim;
+  if (head_dim > 256) {
+    if (head_dim % 128 == 0) {
+      err = which == 0 ? launch_fwd<0>(p, batch, s)
+            : which == 1 ? launch_dq<0>(p, batch, s)
+                         : launch_dkv<0>(p, batch, s);
+    }
+    return static_cast<int>(err);
+  }
   switch (head_dim) {
     case 32:
       err = which == 0 ? launch_fwd<32>(p, batch, s)

@@ -36,6 +36,13 @@
 // each chunk recomputes the scores over the full head dim, so at width
 // 256 the score product is done twice (1.5x the FLOP of one pass).
 //
+// Head dims past 256 take the streamed instantiation (D = 0), whose
+// shared memory does not grow with dh: the score operands pass through a
+// ring of 64-column slices, one slice of Q and one of K a stage, and s
+// sums over the slices before the softmax.  Q is read again (from L2)
+// for every key tile; the output chunks, the V chunk and everything past
+// s are the 256-wide kernel's.
+//
 // Numerics follow the reference kernel step for step, with exp2 and
 // log2(e) folded into the scale:
 //   s = (q . k) * scale            scale applied after the product
@@ -56,11 +63,7 @@
 // cudaGetDriverEntryPoint, so the library links against the runtime
 // alone.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,8 +71,6 @@ constexpr int BLOCK_M = 128;             // query rows per block
 constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int STAGES = 2;                // K/V ring depth
-constexpr int ATOM = 64;                 // bf16 columns of a 128-byte row
-constexpr int ATOM_BYTES = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -92,14 +93,27 @@ template <>
 struct Tile<256> {
   static constexpr int BN = 64, DC = 128;
 };
+// the streamed kernel of head dims past 256 (D = 0): 256's tiles
+template <>
+struct Tile<0> {
+  static constexpr int BN = 64, DC = 128;
+};
 
 // dynamic shared memory of width D: Q (BLOCK_M x D), then STAGES of K
 // (BN x D) and of the V chunk (BN x DC), each stored as 64-column regions
-// of 128-byte swizzled rows, plus 1 KB to align the base to 1024 bytes
+// of 128-byte swizzled rows, plus 1 KB to align the base to 1024 bytes.
+// The streamed kernel (D = 0) holds no whole Q: its STAGES of the score
+// ring hold one 64-column slice of Q and of K each.
 template <int D>
 constexpr int smem_bytes() {
-  return BLOCK_M * D * 2 +
-         STAGES * (Tile<D>::BN * D * 2 + Tile<D>::BN * Tile<D>::DC * 2) + 1024;
+  if constexpr (D == 0) {
+    return STAGES * ((BLOCK_M + Tile<0>::BN) * ATOM_BYTES +
+                     Tile<0>::BN * Tile<0>::DC * 2) + 1024;
+  } else {
+    return BLOCK_M * D * 2 +
+           STAGES * (Tile<D>::BN * D * 2 + Tile<D>::BN * Tile<D>::DC * 2) +
+           1024;
+  }
 }
 
 struct Params {
@@ -107,234 +121,12 @@ struct Params {
   float* lse;
   long long o_sb, o_st, o_sh;
   int heads, tq, tk, dh, chunks;
+  int slices;        // 64-column slices of the head dim (streamed kernel)
   float scale_log2;  // scale * log2(e)
   int causal;
   long long q_offset, k_offset;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), swizzle mode
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of wgmma registers across
-// the fence, commit and wait instructions
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d[32] (+)= A . B, A (64 x 16) and B (16 x 64) both read from shared
-// memory, K-major, through their descriptors: wgmma m64n64k16
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[64] (+)= A . B, A (64 x 16) and B (16 x 128) both read from shared
-// memory, K-major, through their descriptors: wgmma m64n128k16
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[32] (+)= A . B, A (64 x 16) from registers (the mma A fragment
-// layout, one per warp of 16 rows), B (16 x 64) from shared memory,
-// MN-major (transposed): wgmma m64n64k16
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// d[64] (+)= A . B, A (64 x 16) from registers (the mma A fragment
-// layout, one per warp of 16 rows), B (16 x 128) from shared memory,
-// MN-major (transposed): wgmma m64n128k16
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
-                                         int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_ss_n64(d, a, b, accumulate);
-  } else {
-    wgmma_ss_n128(d, a, b, accumulate);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b, int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, b, accumulate);
-  } else {
-    wgmma_rs_n128(d, a, b, accumulate);
-  }
-}
-
-// two floats -> one register of two bf16 (round to nearest even), the
-// lower column in the low half as the A fragments expect
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -342,22 +134,28 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const Params p) {
+  // D = 0: head dims past 256, streamed.  The score ring's stages then
+  // hold a 64-column slice of Q and of K each, s accumulates over the
+  // slices, and Q is read again (from L2) for every key tile.
+  constexpr bool WIDE = D == 0;
   constexpr int BN = Tile<D>::BN;
   constexpr int DC = Tile<D>::DC;
   constexpr int Q_REGION = BLOCK_M * ATOM_BYTES;  // one 64-column region
   constexpr int K_REGION = BN * ATOM_BYTES;
-  constexpr int K_STAGE = BN * D * 2;
+  constexpr int K_STAGE = WIDE ? Q_REGION + K_REGION : BN * D * 2;
   constexpr int V_STAGE = BN * DC * 2;
-  // barriers: Q loaded; K and V of each stage loaded; each stage released
-  __shared__ __align__(8) uint64_t bars[1 + 3 * STAGES];
+  // barriers: Q loaded; K and V of each stage loaded; each stage released;
+  // the streamed kernel's score-ring stages released
+  __shared__ __align__(8) uint64_t bars[1 + (WIDE ? 4 : 3) * STAGES];
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t s_k = s_q + BLOCK_M * D * 2;
+  const uint32_t s_k = s_q + (WIDE ? 0 : BLOCK_M * D * 2);
   const uint32_t s_v = s_k + STAGES * K_STAGE;
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_k = smem_u32(&bars[1]);  // + 8 * stage
   const uint32_t bar_v = smem_u32(&bars[1 + STAGES]);
   const uint32_t bar_free = smem_u32(&bars[1 + 2 * STAGES]);
+  const uint32_t bar_qk_free = smem_u32(&bars[1 + (WIDE ? 3 : 2) * STAGES]);
 
   const int q0 = blockIdx.x * BLOCK_M;
   const int h = blockIdx.y / p.chunks;
@@ -382,6 +180,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_free + 8 * s, CONSUMERS / 32);  // one arrival a warp
+      if (WIDE) mbar_init(bar_qk_free + 8 * s, CONSUMERS / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -389,7 +188,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (threadIdx.x >= CONSUMERS) {
     // the producer: one thread issues every load of the block
-    if (threadIdx.x == CONSUMERS && n_tiles > 0) {
+    if (WIDE && threadIdx.x == CONSUMERS) {
+      int n = 0;  // score-ring loads so far
+      for (int j = 0; j < n_tiles; ++j) {
+        for (int c = 0; c < p.slices; ++c, ++n) {
+          const int s = n % STAGES;
+          mbar_wait(bar_qk_free + 8 * s, ((n / STAGES) & 1) ^ 1);
+          const uint32_t dst = s_k + s * K_STAGE;
+          mbar_expect_tx(bar_k + 8 * s, K_STAGE);
+          tma_load(dst, &tm_q, bar_k + 8 * s, c * ATOM, h, q0, b);
+          tma_load(dst + Q_REGION, &tm_k, bar_k + 8 * s, c * ATOM, h, j * BN,
+                   b);
+        }
+        const int s = j % STAGES;
+        mbar_wait(bar_free + 8 * s, ((j / STAGES) & 1) ^ 1);
+        // the chunk's slices that hold any column (a box wholly past dh is
+        // not loaded; the columns it would fill are never stored)
+        const int nv = min(DC / ATOM, p.slices - c0 / ATOM);
+        mbar_expect_tx(bar_v + 8 * s, nv * K_REGION);
+        for (int r = 0; r < nv; ++r) {
+          tma_load(s_v + s * V_STAGE + r * K_REGION, &tm_v, bar_v + 8 * s,
+                   c0 + r * ATOM, h, j * BN, b);
+        }
+      }
+    } else if (!WIDE && threadIdx.x == CONSUMERS && n_tiles > 0) {
       mbar_expect_tx(bar_q, BLOCK_M * D * 2);
 #pragma unroll
       for (int r = 0; r < D / ATOM; ++r) {
@@ -452,7 +274,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   float m_i[2] = {NEG_INF, NEG_INF};  // running max, log2 units
   float l_i[2] = {0.f, 0.f};          // per-thread partial row sums
 
-  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  if (!WIDE && n_tiles > 0) mbar_wait(bar_q, 0);
+  int n = 0;  // the streamed kernel's score-ring stages consumed so far
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
     const uint32_t parity = (j / STAGES) & 1;
@@ -462,19 +285,41 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // s = q . k^T over the full head dim, 16 columns a step
     float sc[BN / 2];
-    mbar_wait(bar_k + 8 * s, parity);
-    wgmma_fence();
+    if constexpr (WIDE) {
+      // one 64-column slice of q and k a ring stage, s summed over them
+      for (int c = 0; c < p.slices; ++c, ++n) {
+        const int sn = n % STAGES;
+        const uint32_t qk = s_k + sn * K_STAGE;
+        mbar_wait(bar_k + 8 * sn, (n / STAGES) & 1);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
-      wgmma_ss<BN>(sc,
-                   desc_sw128(q_rows + (kk / 4) * Q_REGION + off, 16, 1024),
-                   desc_sw128(k_src + (kk / 4) * K_REGION + off, 16, 1024),
-                   kk > 0);
+        for (int kk = 0; kk < ATOM / 16; ++kk) {
+          const uint32_t off = kk * 32;
+          wgmma_ss<BN>(sc,
+                       desc_sw128(qk + wg * 64 * ATOM_BYTES + off, 16, 1024),
+                       desc_sw128(qk + Q_REGION + off, 16, 1024),
+                       c > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<BN / 2>(sc);
+        if (lane == 0) mbar_arrive(bar_qk_free + 8 * sn);
+      }
+    } else {
+      mbar_wait(bar_k + 8 * s, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
+        wgmma_ss<BN>(sc,
+                     desc_sw128(q_rows + (kk / 4) * Q_REGION + off, 16, 1024),
+                     desc_sw128(k_src + (kk / 4) * K_REGION + off, 16, 1024),
+                     kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<BN / 2>(sc);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs<BN / 2>(sc);
 
     // scale (log2 units), mask where the tile straddles the diagonal or
     // the ragged end, tile row max
@@ -574,53 +419,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(ptr);
-    }
-  }
-  return fn;
-}
-
-// one (B, T, H, dh) bf16 operand: base, length and element strides
-struct Operand {
-  const void* ptr;
-  int t;
-  long long sb, st, sh;
-};
-
-// `a` as the 4-d tensor (dh, H, T, B), read in boxes of 64 columns x
-// `rows` time steps of one head, swizzled by 128 bytes; columns and rows
-// past the tensor are filled with zeros
-CUresult encode(CUtensorMap* map, const Operand& a, int dh, int heads,
-                int batch, int rows) {
-  PFN_cuTensorMapEncodeTiled fn = encode_fn();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(a.t),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(a.sh) * 2,
-                                 static_cast<cuuint64_t>(a.st) * 2,
-                                 static_cast<cuuint64_t>(a.sb) * 2};
-  const cuuint32_t box[4] = {ATOM, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(a.ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
 
 // encodes the three maps with the boxes of width D (Q: BLOCK_M rows, K
 // and V: the key tile) and launches; a negative return is a CUresult of
@@ -641,15 +439,18 @@ int launch(const Operand& q, const Operand& k, const Operand& v, Params p,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.chunks = D / Tile<D>::DC;
+  p.chunks = D == 0 ? (p.dh + Tile<0>::DC - 1) / Tile<0>::DC
+                    : D / Tile<D>::DC;
+  p.slices = (p.dh + ATOM - 1) / ATOM;
   const dim3 grid((p.tq + BLOCK_M - 1) / BLOCK_M, p.heads * p.chunks, batch);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiated width a head dim runs at (0: none)
+// the instantiated width a head dim runs at (0: the streamed kernel of
+// head dims past 256; -1: none)
 int kernel_width(int head_dim) {
-  if (head_dim <= 0 || head_dim % 8) return 0;
+  if (head_dim <= 0 || head_dim % 8) return -1;
   return head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : head_dim <= 256 ? 256
                                                                          : 0;
 }
@@ -666,6 +467,8 @@ extern "C" int znicz_flash_attention_fwd_smem(int head_dim) {
       return smem_bytes<128>();
     case 256:
       return smem_bytes<256>();
+    case 0:
+      return smem_bytes<0>();
     default:
       return 0;
   }
@@ -673,7 +476,7 @@ extern "C" int znicz_flash_attention_fwd_smem(int head_dim) {
 
 // q (B, Tq, H, dh), k and v (B, Tk, H, dh), out (B, Tq, H, dh): bf16, the
 // last dim contiguous, base and (batch, time, head) strides (in elements)
-// on 16-byte boundaries; head_dim the true dh, a multiple of 8 up to 256.
+// on 16-byte boundaries; head_dim the true dh, a multiple of 8.
 // Returns the cudaError_t of the launch (0 on success), or a negative
 // CUresult when a tensor map cannot be encoded; the caller checks shapes,
 // dtypes and alignment beforehand.
@@ -685,7 +488,7 @@ extern "C" int znicz_flash_attention_fwd(
     long long o_sb, long long o_st, long long o_sh, float scale, int causal,
     long long q_offset, long long k_offset, void* stream) {
   const int width = kernel_width(head_dim);
-  if (width == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (width < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
   const Operand oq = {q, tq, q_sb, q_st, q_sh};
   const Operand ok = {k, tk, k_sb, k_st, k_sh};
@@ -710,7 +513,9 @@ extern "C" int znicz_flash_attention_fwd(
       return launch<64>(oq, ok, ov, p, batch, s);
     case 128:
       return launch<128>(oq, ok, ov, p, batch, s);
-    default:
+    case 256:
       return launch<256>(oq, ok, ov, p, batch, s);
+    default:
+      return launch<0>(oq, ok, ov, p, batch, s);
   }
 }

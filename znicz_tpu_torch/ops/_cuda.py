@@ -4,10 +4,11 @@ Each ``csrc/*.cu`` file is a kernel with a plain C entry point.  On
 first use every source is compiled by its own ``nvcc`` process, all
 started together, into a shared library under
 ``build/znicz_tpu_torch/<hash>/`` at the root of the checkout, and
-loaded with ``ctypes``.  The directory name is a hash of the sources
-and the flags, so an edited kernel rebuilds and an unchanged one is
-reused.  Nothing here runs at import: the tests import every module
-on machines without ``nvcc``.
+loaded with ``ctypes``.  The directory name is a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, so an edited
+kernel or header rebuilds and an unchanged one is reused.  Nothing
+here runs at import: the tests import every module on machines
+without ``nvcc``.
 
 ``nvcc`` is found through ``CUDA_HOME``, then ``/usr/local/cuda/bin``,
 then ``PATH``; when none has it, :func:`library` raises.
@@ -57,10 +58,16 @@ def find_nvcc() -> str:
                        "cannot be built")
 
 
+def headers() -> tuple[str, ...]:
+    """The headers the sources share (``csrc/*.cuh``), by name."""
+    return tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+
+
 def build_dir() -> Path:
-    """The build directory for the current sources and flags."""
+    """The build directory for the current sources, headers and
+    flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + headers():
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

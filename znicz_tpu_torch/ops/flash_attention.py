@@ -32,26 +32,31 @@ and write it through strides, so the reference's head-major transposes
 fill the TPU's 128-lane tiles and is not carried over.
 
 Operand dtypes and head dims on the card: bf16 operands go to the
-tensor-core kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``),
-f32 operands to the f32 SIMT kernels (``flash_attention_f32.cu``), as
-the reference's kernels take both.  Every multiple of 8 up to
-:data:`MAX_HEAD_DIM` (256) runs on them.  The backward and f32 kernels
-are instantiated for head dims :data:`KERNEL_HEAD_DIMS`, and any other
-multiple of 8 is zero-padded to the next one (zero columns change no
-score; the padded columns of the results are sliced off, and the scale
-stays ``1/√dh`` of the true dh).  The bf16 forward reads its operands
-through TMA tensor maps that carry the true dh and zero-fill the
-columns past it, so it needs no padded copy; its wrapper checks TMA's
-preconditions (:func:`_check_tma_operand`) before the device.  A head
-dim past 256 raises: the kernels stage the whole head dim of a tile in
-shared memory, which has no room for more (ROADMAP C5).  Whether a call
-goes to the kernels at all is :func:`kernel_legal`, the reference's
-rule: a head dim that is not a multiple of 8 takes
-:func:`local_attention`, the reference's XLA core, on every device.
-Each wrapper counts its launches in ``launches`` and, by kernel, in
-``launches_by_variant`` (:data:`VARIANTS`: ``"bf16"`` and ``"f32"``,
-``"dh32"`` and ``"dh256"`` for bf16 calls of those padded widths, and
-``"f32_dh256"``).
+tensor-core kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``,
+TMA + wgmma), f32 operands to the f32 SIMT kernels
+(``flash_attention_f32.cu``), as the reference's kernels take both.
+Every multiple of 8 runs on them, as the reference's kernel takes it.
+The bf16 kernels read their operands through TMA tensor maps that carry
+the true dh and zero-fill the columns past it (zero columns change no
+score), so they need no padded copy; their wrappers check TMA's
+preconditions (:func:`_check_tma_operand`) before the device.  The f32
+kernels are instantiated for head dims :data:`KERNEL_HEAD_DIMS`, and
+any other multiple of 8 up to 256 is zero-padded to the next one (the
+padded columns of the results are sliced off, and the scale stays
+``1/√dh`` of the true dh).  Past 256 (:data:`STREAMED_PAST`) the
+forward kernels take a streamed variant that passes the score
+operands through shared memory in 64-column slices, so shared memory
+does not grow with dh; the bf16 backward streams past 128 by design,
+and the f32 kernels' streamed variant takes the head dim zero-padded
+to a multiple of :data:`STREAMED_CHUNK`, its output column chunk
+(:func:`kernel_head_dim`).  Whether a call goes to the kernels at all
+is :func:`kernel_legal`, the reference's rule: a head dim that is not
+a multiple of 8 takes :func:`local_attention`, the reference's XLA
+core, on every device.  Each wrapper counts its launches in
+``launches`` and, by kernel, in ``launches_by_variant``
+(:data:`VARIANTS`: ``"bf16"`` and ``"f32"``, ``"dh32"``, ``"dh256"``
+and ``"wide"`` for bf16 calls of head dims up to 32, from 129 to 256
+and past 256, and ``"f32_dh256"`` and ``"f32_wide"`` alike).
 
 A wrapper uses its plain version only for tensors on the CPU; a CUDA
 tensor gets the kernel or an error.
@@ -69,12 +74,16 @@ from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-#: head dims the backward and f32 kernels are instantiated for
+#: head dims the f32 kernels are instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-#: the widest head dim the kernels take (ROADMAP C5)
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-#: the kernels' launch counters by variant: operand dtype and padded width
-VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256")
+#: head dims past this one take the streamed kernels
+STREAMED_PAST = KERNEL_HEAD_DIMS[-1]
+#: the streamed kernels' output column chunk: their f32 head dim is
+#: padded to a multiple of it
+STREAMED_CHUNK = 128
+#: the kernels' launch counters by variant: operand dtype and width
+VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256", "wide",
+            "f32_wide")
 
 #: operand dtype → (library stem of the forward, of the backward, suffix
 #: of the C entry points)
@@ -115,21 +124,28 @@ def kernel_legal(dh: int) -> bool:
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The instantiated head dim a backward or f32 kernel call of head
-    dim ``dh`` runs at (``dh`` itself or the next wider one,
-    zero-padded)."""
-    if not kernel_legal(dh) or dh > MAX_HEAD_DIM:
+    """The width an f32 kernel call of head dim ``dh`` runs at, ``dh``
+    zero-padded: the next of :data:`KERNEL_HEAD_DIMS` up to 256, past
+    that the next multiple of :data:`STREAMED_CHUNK` (the streamed
+    kernels).  It also names the launch counters' variant of a bf16
+    call, whose kernels read the true dh.  Any multiple of 8 is
+    taken."""
+    if not kernel_legal(dh) or dh <= 0:
         raise ValueError(f"the flash kernels take head dims that are "
-                         f"multiples of 8 up to {MAX_HEAD_DIM}, got {dh}")
+                         f"multiples of 8, got {dh}")
+    if dh > STREAMED_PAST:
+        return -(-dh // STREAMED_CHUNK) * STREAMED_CHUNK
     return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
 
 
 def _count(fn, dtype: torch.dtype, width: int) -> None:
     """One launch of ``fn``'s kernel for ``dtype`` operands of the
-    padded head dim ``width``."""
-    variant = {32: "dh32", 256: "dh256"}.get(width, "bf16")
+    width ``width`` (:func:`kernel_head_dim`)."""
+    variant = "wide" if width > STREAMED_PAST else \
+        {32: "dh32", 256: "dh256"}.get(width, "bf16")
     if dtype == torch.float32:
-        variant = "f32_dh256" if width == 256 else "f32"
+        variant = {"wide": "f32_wide", "dh256": "f32_dh256"}.get(variant,
+                                                                 "f32")
     fn.launches += 1
     fn.launches_by_variant[variant] += 1
 
@@ -158,8 +174,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _kernel_layout_ok(a: torch.Tensor) -> bool:
-    """The head dim contiguous; for bf16, whose kernels move 16-byte
-    chunks of each (b, t, h) row, every row on a 16-byte boundary too."""
+    """The head dim contiguous; for bf16, whose kernels read through
+    TMA, the base and every (b, t, h) stride on 16-byte boundaries too
+    (:func:`_check_tma_operand` checks the rest of TMA's rules)."""
     if a.stride(-1) != 1:
         return False
     return a.dtype != torch.bfloat16 or (
@@ -180,12 +197,12 @@ _TMA_MAX_SIZE = 2 ** 32
 
 
 def _check_tma_operand(name: str, a: torch.Tensor) -> None:
-    """TMA's preconditions on a (B, T, H, dh) bf16 operand of the
-    forward kernel, which describes it as the tensor (dh, H, T, B): the
-    head dim contiguous, the base address and every other stride on a
-    16-byte boundary, strides under 2⁴⁰ bytes and sizes under 2³².  (The
-    boxes it loads are 64 columns by at most 128 rows, inside TMA's 256
-    a dim.)  Raises before the device is touched."""
+    """TMA's preconditions on a (B, T, H, dh) bf16 operand of the bf16
+    kernels, which describe it as the tensor (dh, H, T, B): the head dim
+    contiguous, the base address and every other stride on a 16-byte
+    boundary, strides under 2⁴⁰ bytes and sizes under 2³².  (The boxes
+    they load are 64 columns by at most 128 rows, inside TMA's 256 a
+    dim.)  Raises before the device is touched."""
     es = a.element_size()
     strides = [s * es for s in a.stride()[:3]]
     problem = None
@@ -205,8 +222,7 @@ def _check_tma_operand(name: str, a: torch.Tensor) -> None:
 
 def _check_kernel_call(q: torch.Tensor, name: str) -> int:
     """What every kernel takes: bf16 or f32 operands and a head dim that
-    is a multiple of 8 up to 256.  Returns the instantiated head dim of
-    the backward and f32 kernels."""
+    is a multiple of 8.  Returns :func:`kernel_head_dim`."""
     if q.dtype not in _LIBS:
         raise ValueError(f"the {name} kernel takes {list(_LIBS)} "
                          f"operands, got {q.dtype}")
@@ -218,6 +234,17 @@ def _check_device(q: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
+def _check_launch(name: str, err: int) -> None:
+    """Raises for a C entry point's return: a negative CUresult of
+    ``cuTensorMapEncodeTiled``, or a launch's cudaError."""
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult {-err - 1})")
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (cudaError "
+                           f"{err})")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, q_offset: int = 0,
                         k_offset: int = 0
@@ -225,8 +252,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash forward over (B, Tq, H, dh) q and (B, Tk, H, dh) k/v:
     ``(out (B, Tq, H, dh) in q's dtype, lse (B, H, Tq) f32)``.
 
-    On the card: bf16 or f32 operands, dh a multiple of 8 up to 256, any
-    Tq/Tk (the ragged tile is masked).  bf16 operands go through TMA,
+    On the card: bf16 or f32 operands, dh a multiple of 8, any Tq/Tk
+    (the ragged tile is masked).  bf16 operands go through TMA,
     whose preconditions are checked first.  CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
@@ -259,12 +286,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
-    if err < 0:
-        raise RuntimeError(f"flash_attention_fwd: cuTensorMapEncodeTiled "
-                           f"refused a tensor map (CUresult {-err - 1})")
-    if err:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed "
-                           f"(cudaError {err})")
+    _check_launch("flash_attention_fwd", err)
     _count(flash_attention_fwd, q.dtype, width)
     return out[..., :dh], lse
 
@@ -322,16 +344,25 @@ def _check_bwd(q, k, v, dout, lse, delta) -> None:
 def _bwd_args(q, k, v, dout, lse, delta, name):
     """The checks and the shared leading arguments of both backward
     kernels' C calls: ``(width, scale, operands, pointers, geometry,
-    input strides)``, the operands zero-padded to the instantiated head
-    dim ``width`` and the scale that of the true one."""
+    input strides)``.  bf16 operands are read through TMA at the true
+    head dim (their preconditions checked first); f32 operands are
+    zero-padded to ``width`` (:func:`kernel_head_dim`).  The scale is
+    that of the true head dim."""
     width = _check_kernel_call(q, name)
-    _check_device(q)
     if dout.dtype != q.dtype:
         raise ValueError(f"dout must be {q.dtype}, got {dout.dtype}")
+    names = ("q", "k", "v", "dout")
+    if q.dtype == torch.bfloat16:
+        for arg, a in zip(names, (q, k, v, dout)):
+            _check_tma_operand(arg, a)
+        _check_device(q)
+        ops, cols = [q, k, v, dout], q.shape[3]
+    else:
+        _check_device(q)
+        ops, cols = [_padded(a, width) for a in (q, k, v, dout)], width
+        for arg, a in zip(names, ops):
+            _check_kernel_operand(arg, a)
     scale = 1.0 / math.sqrt(q.shape[3])
-    ops = [_padded(a, width) for a in (q, k, v, dout)]
-    for arg, a in zip(("q", "k", "v", "dout"), ops):
-        _check_kernel_operand(arg, a)
     for arg, t in (("lse", lse), ("delta", delta)):
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
@@ -341,7 +372,7 @@ def _bwd_args(q, k, v, dout, lse, delta, name):
     return (width, scale, ops,
             [*(a.data_ptr() for a in ops), lse.data_ptr(),
              delta.data_ptr()],
-            [b, h, tq, k.shape[1], width], strides)
+            [b, h, tq, k.shape[1], cols], strides)
 
 
 def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -351,8 +382,9 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> torch.Tensor:
     """dq (B, Tq, H, dh) in q's dtype from the forward's ``lse`` and
     ``delta = rowsum(do·out) − dlse`` (both (B, H, Tq) f32).  On the
-    card: bf16 or f32, dh a multiple of 8 up to 256, any Tq/Tk.  CPU
-    tensors take :func:`flash_attention_dq_plain`."""
+    card: bf16 or f32, dh a multiple of 8, any Tq/Tk; bf16 operands go
+    through TMA, whose preconditions are checked first.  CPU tensors
+    take :func:`flash_attention_dq_plain`."""
     _check_bwd(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_dq_plain(q, k, v, dout, lse, delta, causal,
@@ -365,9 +397,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _fn(q.dtype, "dq")(
             *ptrs, out.data_ptr(), *geom, strides, *out.stride()[:3],
             scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
-    if err:
-        raise RuntimeError(f"flash_attention_dq kernel launch failed "
-                           f"(cudaError {err})")
+    _check_launch("flash_attention_dq", err)
     _count(flash_attention_dq, q.dtype, width)
     return out[..., :q.shape[3]]
 
@@ -402,9 +432,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *ptrs, dk.data_ptr(), dv.data_ptr(), *geom, strides,
             out_strides, scale, int(bool(causal)), int(q_offset),
             int(k_offset), stream)
-    if err:
-        raise RuntimeError(f"flash_attention_dkv kernel launch failed "
-                           f"(cudaError {err})")
+    _check_launch("flash_attention_dkv", err)
     _count(flash_attention_dkv, q.dtype, width)
     dh = q.shape[3]
     return dk[..., :dh], dv[..., :dh]
@@ -479,8 +507,6 @@ def flash_attention_dkv_plain(q, k, v, dout, lse, delta, causal=False,
 def _bwd(q, k, v, out, lse, dout, dlse, causal, q_offset, k_offset,
          dq_fn, dkv_fn):
     dout = dout.to(q.dtype)
-    if dout.device.type == "cuda" and not _kernel_layout_ok(dout):
-        dout = dout.contiguous()
     delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
     if dlse is not None:
         delta = delta - dlse.float()
@@ -532,6 +558,11 @@ class FlashHop(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
+        # one layout rule, not a fallback: autograd may hand over a dout
+        # the kernels cannot read (for bf16, TMA's 16-byte base and
+        # strides); such a dout is copied to a contiguous one
+        if dout.device.type == "cuda" and not _kernel_layout_ok(dout):
+            dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, dlse,
                                          *ctx.geometry)
         return dq, dk, dv, None, None, None
