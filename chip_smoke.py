@@ -17,11 +17,12 @@ Phases (any failure raises and exits non-zero):
 2. kernels: holds each kernel against its plain PyTorch version on the
    card, within the tolerance printed beside each case — the flash
    kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32, 256, 512
-   and the zero-padded 40, 96, 200 and 264, causal, with offsets and
-   ragged lengths, and the dh = 4 attention core launching none of
-   them; the layer norm both ways (B5, B6); the LRN both ways (B1, B2) at
-   AlexNet's two shapes in both storage dtypes, n = 5 and 4, an odd
-   channel count over a ragged row count; dropout (B3) bitwise against
+   and the zero-padded 8, 40, 96, 200 and 264, causal, with offsets and
+   ragged lengths (in f32 also at the backward's tile edges), and the
+   dh = 4 attention core launching none of them; the layer norm both
+   ways (B5, B6); the LRN both ways (B1, B2) at AlexNet's two shapes
+   in both storage dtypes, n = 5 and 4, an odd channel count over a
+   ragged row count; dropout (B3) bitwise against
    its plain version, forward and backward masks identical, the keep
    fraction within 4σ, ratio 0 the identity; softmax + argmax (B4) with
    planted ties and a −inf column. Times the kernel, the plain version
@@ -55,13 +56,15 @@ Phases (any failure raises and exits non-zero):
    bf16 (bf16 against its own rounding noise, the CPU's bf16 step
    against its f32 step), and shows that a planted wrong dropout mask
    fails that check;
-6. the sequence stack in f32 (the f32 flash kernels), at dh = 32 (the
-   32-wide bf16 instantiation), at dh = 256 in bf16 and in f32 (2 heads
-   of 256 at D = 512, the kernels' column-chunked width), at dh = 512 in
-   bf16 and in f32 (1 head of 512, the streamed kernels of head dims
-   past 256) and at dh = 4 (the ``attention_seq`` sample, whose
-   attention takes the plain core and launches no flash kernel), a few
-   train steps each.
+6. the sequence stack of phase 4 in f32 (the default precision, the
+   f32 flash kernels), timed the same way: 2 + 10 steps, the step time,
+   tokens/s, MFU against the f32 peak, the device time of each unit and
+   the busy share and top kernels; then a few train steps each at
+   dh = 32 (the 32-wide bf16 instantiation), at dh = 256 in bf16 and in
+   f32 (2 heads of 256 at D = 512), at dh = 512 in bf16 and in f32 (1
+   head of 512, the streamed kernels of head dims past 256) and at
+   dh = 4 (the ``attention_seq`` sample, whose attention takes the plain
+   core and launches no flash kernel).
 
 Each path of phases 3–6 runs with every launch counter set to 0 just
 before it and read just after.  The last two lines of standard output
@@ -225,6 +228,16 @@ ATTN_CASES = (
      512, 1024, None),
     ("f32_dh264_padded", "float32", 2, 1000, 777, 2, 264, True, 300, 0,
      None),
+    # the f32 backward's tile edges (64 rows, 32-column slices): lengths
+    # just past a multiple of 64, a causal diagonal that cuts its tiles
+    # with offsets, dh 8 (padded to 32, the 32-wide chunk), and one head
+    # of 512 at B = 1 (a grid too small for the card: narrower chunks)
+    ("f32_129x65", "float32", 2, 129, 65, 4, 64, False, 0, 0, None),
+    ("f32_causal_cut_tile", "float32", 2, 300, 200, 4, 128, True, 37,
+     101, None),
+    ("f32_dh8_padded", "float32", 2, 333, 333, 8, 8, True, 0, 0, None),
+    ("f32_dh512_small_grid", "float32", 1, 1000, 1000, 1, 512, True, 0, 0,
+     None),
 )
 #: cases whose forward is timed though they have no row of their own
 #: (their launches count under the "bf16" row)
@@ -239,8 +252,10 @@ ATTN_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 ROW_VARIANT = {"": "bf16", "_f32": "f32", "_dh32": "dh32",
                "_dh256": "dh256", "_f32_dh256": "f32_dh256",
                "_wide": "wide", "_f32_wide": "f32_wide"}
+#: kernel row suffix → the (forward, backward) sources of its kernels
 ATTN_SOURCES = {
-    suffix: (("flash_attention_f32.cu",) * 2 if "f32" in suffix else
+    suffix: (("flash_attention_f32.cu", "flash_attention_bwd_f32.cu")
+             if "f32" in suffix else
              ("flash_attention_fwd.cu", "flash_attention_bwd.cu"))
     for suffix in ROW_VARIANT}
 
@@ -359,7 +374,8 @@ def check_core_route(gen) -> None:
 
 #: the cases given a random nonzero lse cotangent (the ring's term)
 DLSE_CASES = ("ragged_cross", "f32_ragged_cross", "dh200_padded",
-              "f32_dh200_padded", "dh264_padded", "f32_dh264_padded")
+              "f32_dh200_padded", "dh264_padded", "f32_dh264_padded",
+              "f32_causal_cut_tile")
 #: dq, dk and dv against the plain version, relative to the largest
 #: |reference|.  bf16: both round p and ds to bf16 before their products,
 #: at exp(s − lse) values that differ in the last f32 bits (expf and
@@ -1118,20 +1134,24 @@ def timed_steps(wf, warmup: int, steps: int) -> float:
     return start.elapsed_time(end) / steps
 
 
-def train_slice() -> dict:
+def train_slice(precision: str = "bfloat16") -> dict:
+    """The sequence stack trained at full width in ``precision``: 2 + 10
+    timed steps, each flash kernel of that dtype launched once a step;
+    in bf16 also one step held against the CPU's."""
     import math
     import numpy as np
     import torch
     from znicz_tpu_torch.loader.base import TRAIN
     rng = np.random.default_rng(SEED + 2)
     n = 4 * BATCH
-    # the dataset resident in bf16, as seq_bench stores it
+    # the dataset resident in the working dtype (bf16 as seq_bench
+    # stores it)
     x = torch.from_numpy(rng.normal(0.0, 0.3, size=(n, SEQ, DIM))
-                         .astype(np.float32)).to(torch.bfloat16)
+                         .astype(np.float32)).to(getattr(torch, precision))
     y = rng.integers(0, CLASSES, size=n).astype(np.int32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    wf = make_trainer(x, y, BATCH)
+    wf = make_trainer(x, y, BATCH, precision=precision)
     say(f"  StandardWorkflow.initialize() on {wf.device} in "
         f"{time.perf_counter() - t0:.2f} s: "
         + ", ".join(type(u).__name__ for u in wf.forwards) + " / "
@@ -1143,26 +1163,32 @@ def train_slice() -> dict:
     step_ms = timed_steps(wf, warmup, steps)
     launches = read_counts()
     say(f"  {warmup} + {steps} train steps (B={BATCH}, T={SEQ}, D={DIM}, "
-        f"{HEADS} heads, bf16)")
+        f"{HEADS} heads, {precision})")
     n_steps = warmup + steps
-    expect_counts("training", launches, {
-        "flash_attention_fwd": n_steps, "flash_attention_dq": n_steps,
-        "flash_attention_dkv": n_steps, "layer_norm_forward": n_steps,
-        "layer_norm_backward": n_steps, "softmax_argmax": n_steps})
+    flash = "" if precision == "bfloat16" else "_f32"
+    path = "training" if precision == "bfloat16" else "seq_f32"
+    expect_counts(path, launches, {
+        **{f"flash_attention_{k}{flash}": n_steps
+           for k in ("fwd", "dq", "dkv")},
+        "layer_norm_forward": n_steps, "layer_norm_backward": n_steps,
+        "softmax_argmax": n_steps})
     loss = wf.decision.epoch_loss[TRAIN]
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"train loss {loss}")
     flops = train_flops(BATCH)
+    peak = PEAK_BF16_FLOP_S if precision == "bfloat16" else PEAK_F32_FLOP_S
     say(f"  step {step_ms:.3f} ms, {BATCH * SEQ / step_ms * 1e3:.0f} "
-        f"tokens/s, MFU {flops / (step_ms * 1e-3) / PEAK_BF16_FLOP_S:.4f} "
-        f"({flops:.4g} FLOP/step against {PEAK_BF16_FLOP_S:.3g}), mean "
+        f"tokens/s, MFU {flops / (step_ms * 1e-3) / peak:.4f} "
+        f"({flops:.4g} FLOP/step against {peak:.3g}), mean "
         f"train loss of the last epoch {loss:.4f}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     step_breakdown(wf)
     device_busy(wf)
     del wf
-    check_step_on_cpu(lambda device: make_trainer(x[:2], y[:2], 2, device),
-                      "B=2", TRAIN_STEP_TOL)
+    if precision == "bfloat16":
+        check_step_on_cpu(lambda device: make_trainer(x[:2], y[:2], 2,
+                                                      device),
+                          "B=2", TRAIN_STEP_TOL)
     return launches
 
 
@@ -1548,9 +1574,9 @@ def main() -> int:
     say("phase 5: full-width AlexNet training through StandardWorkflow")
     paths["alexnet"] = alexnet_slice()
 
-    say("phase 6: the sequence stack in f32 and at head dims 32, 256, 512 "
-        "and 4")
-    paths["seq_f32"] = seq_pass("seq_f32", "float32", HEADS, "f32")
+    say("phase 6: the full-width sequence stack in f32, then short runs at "
+        "head dims 32, 256, 512 and 4")
+    paths["seq_f32"] = train_slice("float32")
     paths["seq_dh32"] = seq_pass("seq_dh32", "bfloat16", 2 * HEADS, "dh32")
     paths["seq_dh256"] = seq_pass("seq_dh256", "bfloat16", 2, "dh256")
     paths["seq_f32_dh256"] = seq_pass("seq_f32_dh256", "float32", 2,

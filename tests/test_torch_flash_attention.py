@@ -167,15 +167,33 @@ def _ref_hop_grads(q, k, v, dout, dlse, causal, q_off, k_off, dtype):
             for g in grads]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
-    (False, 0, 0, 32, 32),
-    (True, 32, 0, 32, 64),        # cross lengths, the diagonal mid-keys
-    (True, 8, 24, 32, 32),        # rows 8..23 fully masked
-])
+#: (causal, q_off, k_off, tq, tk, dh, dtypes).  At dh 16 in both dtypes:
+#: square, cross lengths with the diagonal mid-keys, and rows 8..23 fully
+#: masked.  Then f32 cases at the edges of the f32 backward kernel's tiles
+#: (64 rows, 32-column slices of the head dim): lengths that the
+#: reference's blocks of 16 take but that are no multiple of 64, causal
+#: offsets that leave a partial tile, and head dims 8 and 40 (zero-padded
+#: to 32 and 64 on the card).
+_BWD_CASES = (
+    (False, 0, 0, 32, 32, 16, ("float32", "bfloat16")),
+    (True, 32, 0, 32, 64, 16, ("float32", "bfloat16")),
+    (True, 8, 24, 32, 32, 16, ("float32", "bfloat16")),
+    (False, 0, 0, 48, 80, 8, ("float32",)),
+    (False, 0, 0, 80, 48, 40, ("float32",)),
+    (True, 40, 8, 80, 48, 40, ("float32",)),
+    (True, 16, 40, 48, 80, 8, ("float32",)),
+)
+
+
+@pytest.mark.parametrize("dtype,causal,q_off,k_off,tq,tk,dh", [
+    pytest.param(dtype, causal, q_off, k_off, tq, tk, dh,
+                 id="-".join(map(str, (causal, q_off, k_off, tq, tk)))
+                 + ("" if dh == 16 else f"-dh{dh}") + f"-{dtype}")
+    for causal, q_off, k_off, tq, tk, dh, dtypes in _BWD_CASES
+    for dtype in dtypes])
 def test_backward_matches_reference_kernels(dtype, causal, q_off, k_off,
-                                            tq, tk):
-    q, k, v = _qkv(1, tq, tk, 2, 16, seed=tq + tk + q_off)
+                                            tq, tk, dh):
+    q, k, v = _qkv(1, tq, tk, 2, dh, seed=tq + tk + q_off)
     rng = np.random.default_rng(q_off + 100)
     dout = rng.normal(0, 1, q.shape).astype(np.float32)
     dlse = rng.normal(0, 1, (1, 2, tq)).astype(np.float32)
@@ -240,6 +258,33 @@ def test_backward_wrappers_take_the_plain_version_for_cpu_tensors_only():
         fa.flash_attention_dkv(*meta)
     with pytest.raises(ValueError, match="must be f32"):
         fa.flash_attention_dq(q, k, v, dout, lse[:, :1], delta)
+
+
+def test_every_kernel_source_is_built_and_named():
+    """Every ``csrc/*.cu`` is in ``_cuda.SOURCES`` (so it is built and
+    hashed), and every library stem the flash wrappers load is one of
+    them."""
+    from znicz_tpu_torch.ops import _cuda
+    assert sorted(_cuda.SOURCES) == sorted(
+        path.name for path in _cuda.CSRC.glob("*.cu"))
+    stems = {name[:-len(".cu")] for name in _cuda.SOURCES}
+    for fwd, bwd, _ in fa._LIBS.values():
+        assert {fwd, bwd} <= stems
+    assert fa._LIBS[torch.float32][1] == "flash_attention_bwd_f32"
+
+
+def test_f32_backward_operands_get_16_byte_rows():
+    """The f32 backward copies its operands 16 bytes at a time: a view
+    whose base or row stride is off a 16-byte boundary is copied, an
+    aligned one (a packed projection's slice) is passed as it is."""
+    packed = torch.zeros(2, 8, 3 * 64)
+    aligned = packed[..., 64:128].view(2, 8, 2, 32)
+    assert fa._rows_aligned(aligned) is aligned
+    for off in (packed[..., 1:65].view(2, 8, 2, 32),
+                torch.zeros(2, 8, 2, 33)[..., :32]):
+        got = fa._rows_aligned(off)
+        assert got is not off and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, off)
 
 
 def test_head_dim_routing_is_the_reference_rule():

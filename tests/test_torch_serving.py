@@ -269,6 +269,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "znicz_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

@@ -1,55 +1,48 @@
-// Flash attention for Hopper (sm_90a) with float32 operands: the forward,
-// the dq kernel and the dk/dv kernel.
+// Flash-attention forward for Hopper (sm_90a) with float32 operands.
 //
-// Replaces: znicz_tpu/ops/pallas_attention.py:_fwd_kernel, :_dq_kernel and
-// :_dkv_kernel when they run on f32 operands (the reference trains in f32
-// by default).  There every tile product runs at the input dtype with f32
-// accumulation, so an f32 call multiplies in f32; here every product is an
-// f32 FMA on the CUDA cores (no tensor cores, no TF32), the same function
-// as the bf16 kernels of flash_attention_fwd.cu and flash_attention_bwd.cu
-// with nothing rounded to bf16:
-//   forward  s = (q . k) * scale, masked s = -1e30 and masked p = 0, online
-//            softmax over key tiles, out = acc / max(l, 1e-30),
-//            lse = m + log(max(l, 1e-30))  (a fully masked row: out 0,
-//            lse -1e30)
-//   dq       p = exp(s - lse) where visible, ds = p * (do.v - delta) * scale,
-//            dq = ds . k
-//   dk/dv    dv = p^T . do, dk = ds^T . q
+// Replaces: znicz_tpu/ops/pallas_attention.py:_fwd_kernel when it runs on
+// f32 operands (the reference trains in f32 by default).  There every tile
+// product runs at the input dtype with f32 accumulation, so an f32 call
+// multiplies in f32; here every product is an f32 FMA on the CUDA cores
+// (no tensor cores, no TF32), the same function as the bf16 kernel of
+// flash_attention_fwd.cu with nothing rounded to bf16:
+//   s = (q . k) * scale, masked s = -1e30 and masked p = 0, online softmax
+//   over key tiles, out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
+//   (a fully masked row: out 0, lse -1e30)
+// The f32 backward (dq, dk/dv) is flash_attention_bwd_f32.cu.
 //
 // What bounds it on this card: the products.  At T = 2048 and dh = 64 a
 // call does ~1000 FLOP per byte of q/k/v/o, and the f32 SIMT peak is
 // 67 TFLOP/s, so the FMA rate bounds it.  This is the simple first
-// version: a block of 128 threads owns 32 rows (query rows for the forward
-// and dq, keys for dk/dv); four neighbouring threads share a row, each
-// holding a quarter of the head dim of its accumulators and computing a
-// quarter of the row's 64 scores per tile; the other operand's 64-row
-// tiles are staged through shared memory with rows padded by one float, so
-// the four threads of a row and the eight rows of a warp read distinct
-// banks.  A row's scores go through shared memory to the second product;
-// its four threads are one quarter-warp, so a warp barrier suffices there.
+// version: a block of 128 threads owns 32 query rows; four neighbouring
+// threads share a row, each holding a quarter of the head dim of its
+// accumulators and computing a quarter of the row's 64 scores per tile;
+// the k and v tiles of 64 rows are staged through shared memory with rows
+// padded by one float, so the four threads of a row and the eight rows of
+// a warp read distinct banks.  A row's scores go through shared memory to
+// the second product; its four threads are one quarter-warp, so a warp
+// barrier suffices there.
 //
-// Geometry, the bf16 kernels': q, k, v, do, out, dq, dk and dv in the
-// boundary layout (B, T, H, dh) through element strides (the last dim
-// contiguous); lse and delta contiguous (B, H, Tq) f32; any T (rows past T
-// are zero-filled when staged and masked); q_offset / k_offset place the
-// call on a global axis for causal masking, and causal skips whole tiles
-// that no row can see.  Head dims 32, 64, 128 and 256 are instantiated;
-// the wrapper zero-pads any other multiple of 8 up to the next one.
+// Geometry, the bf16 kernel's: q, k, v and out in the boundary layout
+// (B, T, H, dh) through element strides (the last dim contiguous); lse
+// contiguous (B, H, Tq) f32; any T (rows past T are zero-filled when
+// staged and masked); q_offset / k_offset place the call on a global axis
+// for causal masking, and causal skips whole tiles that no row can see.
+// Head dims 32, 64, 128 and 256 are instantiated; the wrapper zero-pads
+// any other multiple of 8 up to the next one.
 //
-// Head dims past 128: the outputs are split into column chunks of DC = 128
-// by a grid axis (out[:, c] = p . v[:, c], dq[:, c] = ds . k[:, c],
-// dv[:, c] = p^T . do[:, c], dk[:, c] = ds^T . q[:, c]), so a thread's
-// accumulators stay at the 128-wide size; the score products still sum
-// over the whole head dim, staged whole in shared memory, and every chunk
-// recomputes them (twice the score work at dh = 256).  The forward's lse
-// is written by the first chunk.
+// Head dims past 128: the output is split into column chunks of DC = 128
+// by a grid axis (out[:, c] = p . v[:, c]), so a thread's accumulators
+// stay at the 128-wide size; the score product still sums over the whole
+// head dim, staged whole in shared memory, and every chunk recomputes it
+// (twice the score work at dh = 256).  The lse is written by the first
+// chunk.
 //
 // Head dims past 256: the streamed instantiation (D = 0) takes any width
 // that is a multiple of 128 (the wrapper zero-pads to one), given at run
-// time.  Its staging loop gains an outer loop over 64-column slices of
-// the score operands, s and dp summing over the slices, and the chunk's
-// columns of the right-hand operands are staged after them, so shared
-// memory does not grow with the head dim.
+// time.  Its staging loop gains an outer loop over 64-column slices of q
+// and k, s summing over the slices, and the chunk's columns of v are
+// staged after them, so shared memory does not grow with the head dim.
 
 #include <cuda_runtime.h>
 
@@ -68,21 +61,12 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
-  const float* dout;
-  const float* lse_in;
-  const float* delta;
   float* o;
   float* lse;
-  float* dq;
-  float* dk;
-  float* dv;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
-  long long do_sb, do_st, do_sh;
   long long o_sb, o_st, o_sh;
-  long long dk_sb, dk_st, dk_sh;
-  long long dv_sb, dv_st, dv_sh;
   int heads, tq, tk;
   int width;  // the padded head dim (streamed kernels)
   float scale;
@@ -128,30 +112,22 @@ __device__ __forceinline__ void row_dots(float s[PER], const float* a,
   row_dots_add<D>(s, a, t, part);
 }
 
-// the streamed kernels' score products: s (and dp, when `b` is given)
-// summed over the 64-column slices of the head dim, each slice of the
-// block's rows (a, b from global rows `own`, ROWS of them) and of the
-// tile's rows (ta, tb from global rows `oth`, TILE of them) staged
-// through shared memory; ends with every thread past its last read
+// the streamed kernel's score product: s summed over the 64-column
+// slices of the head dim, each slice of the block's query rows (a, ROWS
+// of them) and of the tile's key rows (ta, TILE of them) staged through
+// shared memory; ends with every thread past its last read
 __device__ __forceinline__ void sliced_dots(
-    float s[PER], float dp[PER], const Params& p, const float* a,
-    long long a_st, const float* b, long long b_st, int own_valid,
-    const float* ta, long long ta_st, const float* tb, long long tb_st,
-    int oth_valid, float* s_a, float* s_b, float* s_ta, float* s_tb, int r,
-    int part) {
+    float s[PER], const Params& p, const float* a, long long a_st,
+    int own_valid, const float* ta, long long ta_st, int oth_valid,
+    float* s_a, float* s_ta, int r, int part) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < PER; ++i) s[i] = 0.f;
   for (int c = 0; c < p.width; c += SL) {
     __syncthreads();  // every thread is done with the previous slice
     load_rows<SL>(s_a, a + c, a_st, ROWS, own_valid);
     load_rows<SL>(s_ta, ta + c, ta_st, TILE, oth_valid);
-    if (b != nullptr) {
-      load_rows<SL>(s_b, b + c, b_st, ROWS, own_valid);
-      load_rows<SL>(s_tb, tb + c, tb_st, TILE, oth_valid);
-    }
     __syncthreads();
     row_dots_add<SL>(s, s_a + r * (SL + 1), s_ta, part);
-    if (b != nullptr) row_dots_add<SL>(dp, s_b + r * (SL + 1), s_tb, part);
   }
   __syncthreads();
 }
@@ -218,10 +194,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
     const int k0 = j * TILE;
     float s[PER];
     if constexpr (WIDE) {
-      float unused[PER];
-      sliced_dots(s, unused, p, qg, p.q_st, nullptr, 0, p.tq - q0,
-                  kg + k0 * p.k_st, p.k_st, nullptr, 0, p.tk - k0, s_q,
-                  nullptr, s_k, nullptr, r, part);
+      sliced_dots(s, p, qg, p.q_st, p.tq - q0, kg + k0 * p.k_st, p.k_st,
+                  p.tk - k0, s_q, s_k, r, part);
       load_rows<VD>(s_v, vg + k0 * p.v_st + c0, p.v_st, TILE, p.tk - k0);
       __syncthreads();
     } else {
@@ -276,185 +250,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
   }
 }
 
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_dq_f32_kernel(Params p) {
-  constexpr bool WIDE = D == 0;
-  constexpr int QD = WIDE ? SL : D;  // columns of the staged score operands
-  constexpr int KD = WIDE ? DC : D;  // columns of the staged k for ds . k
-  constexpr int DP = DC / SPLIT;
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_do = s_q + ROWS * (QD + 1);
-  float* s_k = s_do + ROWS * (QD + 1);
-  float* s_v = s_k + TILE * (QD + 1);
-  // the streamed kernel stages the chunk's columns of k on their own
-  float* s_kc = WIDE ? s_v + TILE * (QD + 1) : s_k;
-  float* s_ds = s_kc + (WIDE ? TILE * (KD + 1) : 2 * TILE * (D + 1));
-
-  const int chunks = (WIDE ? p.width : D) / DC;
-  const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / chunks;
-  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
-  const int b = blockIdx.z;
-  const int r = threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
-  const float* dog = p.dout + b * p.do_sb + h * p.do_sh + q0 * p.do_st;
-  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  if (!WIDE) {
-    load_rows<D>(s_q, qg, p.q_st, ROWS, p.tq - q0);
-    load_rows<D>(s_do, dog, p.do_st, ROWS, p.tq - q0);
-  }
-
-  const int row = q0 + r;
-  const long long row_pos = p.q_offset + row;
-  const long long stat = (static_cast<long long>(b) * p.heads + h) * p.tq;
-  const float lse_r = row < p.tq ? p.lse_in[stat + row] : 0.f;
-  const float delta_r = row < p.tq ? p.delta[stat + row] : 0.f;
-
-  float acc[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
-
-  const int n_tiles = key_tiles(p, q0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * TILE;
-    float s[PER], dp[PER];
-    if constexpr (WIDE) {
-      sliced_dots(s, dp, p, qg, p.q_st, dog, p.do_st, p.tq - q0,
-                  kg + k0 * p.k_st, p.k_st, vg + k0 * p.v_st, p.v_st,
-                  p.tk - k0, s_q, s_do, s_k, s_v, r, part);
-      load_rows<KD>(s_kc, kg + k0 * p.k_st + c0, p.k_st, TILE, p.tk - k0);
-      __syncthreads();
-    } else {
-      __syncthreads();
-      load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
-      load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
-      __syncthreads();
-      row_dots<D>(s, s_q + r * (D + 1), s_k, part);
-      row_dots<D>(dp, s_do + r * (D + 1), s_v, part);
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int col = k0 + part + SPLIT * i;
-      bool vis = col < p.tk && row < p.tq;
-      if (p.causal) vis = vis && row_pos >= p.k_offset + col;
-      const float pe = vis ? expf(s[i] * p.scale - lse_r) : 0.f;
-      s_ds[r * LP + part + SPLIT * i] = pe * (dp[i] - delta_r) * p.scale;
-    }
-    __syncwarp();
-    accumulate<KD, DC>(acc, s_ds + r * LP, s_kc + (WIDE ? 0 : c0), part);
-  }
-
-  if (row < p.tq) {
-    float* out = p.dq + b * p.o_sb + h * p.o_sh + row * p.o_st + c0;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) out[part + SPLIT * d] = acc[d];
-  }
-}
-
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_dkv_f32_kernel(Params p) {
-  constexpr bool WIDE = D == 0;
-  constexpr int QD = WIDE ? SL : D;  // columns of the staged score operands
-  constexpr int CD = WIDE ? DC : D;  // columns of the staged q, do chunks
-  constexpr int DP = DC / SPLIT;
-  extern __shared__ float smem[];
-  float* s_k = smem;
-  float* s_v = s_k + ROWS * (QD + 1);
-  float* s_q = s_v + ROWS * (QD + 1);
-  float* s_do = s_q + TILE * (QD + 1);
-  // the streamed kernel stages the chunk's columns of q and do on their own
-  float* s_qc = WIDE ? s_do + TILE * (QD + 1) : s_q;
-  float* s_doc = WIDE ? s_qc + TILE * (CD + 1) : s_do;
-  float* s_pt = s_doc + TILE * (CD + 1);
-  float* s_dst = s_pt + ROWS * LP;
-  float* s_lse = s_dst + ROWS * LP;
-  float* s_delta = s_lse + TILE;
-
-  const int chunks = (WIDE ? p.width : D) / DC;
-  const int k0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / chunks;
-  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
-  const int b = blockIdx.z;
-  const int r = threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const float* kg = p.k + b * p.k_sb + h * p.k_sh + k0 * p.k_st;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh + k0 * p.v_st;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh;
-  const float* dog = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long stat = (static_cast<long long>(b) * p.heads + h) * p.tq;
-  if (!WIDE) {
-    load_rows<D>(s_k, kg, p.k_st, ROWS, p.tk - k0);
-    load_rows<D>(s_v, vg, p.v_st, ROWS, p.tk - k0);
-  }
-
-  const int key = k0 + r;
-  const long long key_pos = p.k_offset + key;
-  float acc_dk[DP], acc_dv[DP];
-#pragma unroll
-  for (int d = 0; d < DP; ++d) acc_dk[d] = acc_dv[d] = 0.f;
-
-  const int nq = (p.tq + TILE - 1) / TILE;
-  int first = 0;
-  if (p.causal) {
-    // whole-tile skip: no query before `lo` sees any key of this block
-    const long long lo = p.k_offset + k0 - p.q_offset;
-    if (lo > 0) first = static_cast<int>(lo / TILE < nq ? lo / TILE : nq);
-  }
-
-  for (int it = first; it < nq; ++it) {
-    const int q0 = it * TILE;
-    // p^T and ds^T for this key against the tile's queries
-    float st[PER], dpt[PER];
-    if constexpr (WIDE) {
-      sliced_dots(st, dpt, p, kg, p.k_st, vg, p.v_st, p.tk - k0,
-                  qg + q0 * p.q_st, p.q_st, dog + q0 * p.do_st, p.do_st,
-                  p.tq - q0, s_k, s_v, s_q, s_do, r, part);
-      load_rows<CD>(s_qc, qg + q0 * p.q_st + c0, p.q_st, TILE, p.tq - q0);
-      load_rows<CD>(s_doc, dog + q0 * p.do_st + c0, p.do_st, TILE,
-                    p.tq - q0);
-    } else {
-      __syncthreads();
-      load_rows<D>(s_q, qg + q0 * p.q_st, p.q_st, TILE, p.tq - q0);
-      load_rows<D>(s_do, dog + q0 * p.do_st, p.do_st, TILE, p.tq - q0);
-    }
-    for (int i = threadIdx.x; i < TILE; i += THREADS) {
-      const bool ok = q0 + i < p.tq;
-      s_lse[i] = ok ? p.lse_in[stat + q0 + i] : 0.f;
-      s_delta[i] = ok ? p.delta[stat + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    if constexpr (!WIDE) {
-      row_dots<D>(st, s_k + r * (D + 1), s_q, part);
-      row_dots<D>(dpt, s_v + r * (D + 1), s_do, part);
-    }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int qc = part + SPLIT * i;
-      bool vis = q0 + qc < p.tq && key < p.tk;
-      if (p.causal) vis = vis && p.q_offset + q0 + qc >= key_pos;
-      const float pe = vis ? expf(st[i] * p.scale - s_lse[qc]) : 0.f;
-      s_pt[r * LP + qc] = pe;
-      s_dst[r * LP + qc] = pe * (dpt[i] - s_delta[qc]) * p.scale;
-    }
-    __syncwarp();
-    accumulate<CD, DC>(acc_dv, s_pt + r * LP, s_doc + (WIDE ? 0 : c0), part);
-    accumulate<CD, DC>(acc_dk, s_dst + r * LP, s_qc + (WIDE ? 0 : c0), part);
-  }
-
-  if (key < p.tk) {
-    float* ok = p.dk + b * p.dk_sb + h * p.dk_sh + key * p.dk_st + c0;
-    float* ov = p.dv + b * p.dv_sb + h * p.dv_sh + key * p.dv_st + c0;
-#pragma unroll
-    for (int d = 0; d < DP; ++d) {
-      ok[part + SPLIT * d] = acc_dk[d];
-      ov[part + SPLIT * d] = acc_dv[d];
-    }
-  }
-}
-
 // the output column chunk of a block at head dim D (0: streamed)
 template <int D>
 constexpr int chunk() {
@@ -497,57 +292,30 @@ cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t s) {
                 p.tq, chunks<D>(p), p, batch, s);
 }
 
-template <int D>
-cudaError_t launch_dq(const Params& p, int batch, cudaStream_t s) {
-  constexpr int KC = D == 0 ? TILE * (chunk<D>() + 1) : 0;
-  return launch(flash_dq_f32_kernel<D, chunk<D>()>,
-                (2 * ROWS + 2 * TILE) * (staged<D>() + 1) + KC + ROWS * LP,
-                p.tq, chunks<D>(p), p, batch, s);
-}
-
-template <int D>
-cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t s) {
-  constexpr int QC = D == 0 ? 2 * TILE * (chunk<D>() + 1) : 0;
-  return launch(flash_dkv_f32_kernel<D, chunk<D>()>,
-                (2 * ROWS + 2 * TILE) * (staged<D>() + 1) + QC +
-                    2 * ROWS * LP + 2 * TILE,
-                p.tk, chunks<D>(p), p, batch, s);
-}
-
-// head-dim dispatch: `which` 0 forward, 1 dq, 2 dk/dv; a head dim past
-// 256 must be a multiple of 128 (the wrapper pads it)
-int dispatch(int which, int head_dim, Params p, int batch, void* stream) {
+// head-dim dispatch; a head dim past 256 must be a multiple of 128 (the
+// wrapper pads it)
+int dispatch(int head_dim, Params p, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   p.width = head_dim;
   if (head_dim > 256) {
     if (head_dim % 128 == 0) {
-      err = which == 0 ? launch_fwd<0>(p, batch, s)
-            : which == 1 ? launch_dq<0>(p, batch, s)
-                         : launch_dkv<0>(p, batch, s);
+      err = launch_fwd<0>(p, batch, s);
     }
     return static_cast<int>(err);
   }
   switch (head_dim) {
     case 32:
-      err = which == 0 ? launch_fwd<32>(p, batch, s)
-            : which == 1 ? launch_dq<32>(p, batch, s)
-                         : launch_dkv<32>(p, batch, s);
+      err = launch_fwd<32>(p, batch, s);
       break;
     case 64:
-      err = which == 0 ? launch_fwd<64>(p, batch, s)
-            : which == 1 ? launch_dq<64>(p, batch, s)
-                         : launch_dkv<64>(p, batch, s);
+      err = launch_fwd<64>(p, batch, s);
       break;
     case 128:
-      err = which == 0 ? launch_fwd<128>(p, batch, s)
-            : which == 1 ? launch_dq<128>(p, batch, s)
-                         : launch_dkv<128>(p, batch, s);
+      err = launch_fwd<128>(p, batch, s);
       break;
     case 256:
-      err = which == 0 ? launch_fwd<256>(p, batch, s)
-            : which == 1 ? launch_dq<256>(p, batch, s)
-                         : launch_dkv<256>(p, batch, s);
+      err = launch_fwd<256>(p, batch, s);
       break;
     default:
       break;
@@ -570,19 +338,12 @@ void set_inputs(Params& p, const void* q, const void* k, const void* v,
   p.k_offset = k_offset;
 }
 
-void set_strides(Params& p, const long long* s) {
-  long long* dst[] = {&p.q_sb, &p.q_st, &p.q_sh, &p.k_sb, &p.k_st, &p.k_sh,
-                      &p.v_sb, &p.v_st, &p.v_sh, &p.do_sb, &p.do_st,
-                      &p.do_sh};
-  for (int i = 0; i < 12; ++i) *dst[i] = s[i];
-}
-
 }  // namespace
 
-// The C entry points take the arguments of their bf16 counterparts in
-// flash_attention_fwd.cu and flash_attention_bwd.cu, with f32 tensors.
-// Strides are in elements.  Each returns the launch's cudaError_t (0 on
-// success); the caller checks shapes, dtypes and alignment beforehand.
+// The C entry point takes the arguments of its bf16 counterpart in
+// flash_attention_fwd.cu, with f32 tensors.  Strides are in elements.  It
+// returns the launch's cudaError_t (0 on success); the caller checks
+// shapes, dtypes and alignment beforehand.
 extern "C" int znicz_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int heads, int tq, int tk, int head_dim, long long q_sb,
@@ -607,49 +368,5 @@ extern "C" int znicz_flash_attention_fwd_f32(
   p.o_st = o_st;
   p.o_sh = o_sh;
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
-  return dispatch(0, head_dim, p, batch, stream);
-}
-
-extern "C" int znicz_flash_attention_dq_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int batch, int heads,
-    int tq, int tk, int head_dim, const long long* strides, long long dq_sb,
-    long long dq_st, long long dq_sh, float scale, int causal,
-    long long q_offset, long long k_offset, void* stream) {
-  Params p = {};
-  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
-  set_strides(p, strides);
-  p.dout = static_cast<const float*>(dout);
-  p.lse_in = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<float*>(dq);
-  p.o_sb = dq_sb;
-  p.o_st = dq_st;
-  p.o_sh = dq_sh;
-  if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
-  return dispatch(1, head_dim, p, batch, stream);
-}
-
-extern "C" int znicz_flash_attention_dkv_f32(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int batch,
-    int heads, int tq, int tk, int head_dim, const long long* strides,
-    const long long* out_strides, float scale, int causal, long long q_offset,
-    long long k_offset, void* stream) {
-  Params p = {};
-  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
-  set_strides(p, strides);
-  p.dout = static_cast<const float*>(dout);
-  p.lse_in = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.dk_sb = out_strides[0];
-  p.dk_st = out_strides[1];
-  p.dk_sh = out_strides[2];
-  p.dv_sb = out_strides[3];
-  p.dv_st = out_strides[4];
-  p.dv_sh = out_strides[5];
-  if (batch <= 0 || heads <= 0 || tk <= 0) return cudaSuccess;
-  return dispatch(2, head_dim, p, batch, stream);
+  return dispatch(head_dim, p, batch, stream);
 }

@@ -30,8 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "znicz_tpu_torch"
 #: one library per source; the kernel wrappers load them by stem
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "flash_attention_f32.cu", "layer_norm_fwd.cu",
-           "layer_norm_bwd.cu", "lrn.cu", "dropout.cu",
+           "flash_attention_f32.cu", "flash_attention_bwd_f32.cu",
+           "layer_norm_fwd.cu", "layer_norm_bwd.cu", "lrn.cu", "dropout.cu",
            "softmax_argmax.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

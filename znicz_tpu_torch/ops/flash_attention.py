@@ -8,9 +8,10 @@ launch counter and a plain PyTorch version beside it:
   reference's ``_flash_hop`` does: ``out`` in q's dtype, ``lse`` the f32
   row logsumexp;
 - :func:`flash_attention_dq` and :func:`flash_attention_dkv`
-  (``csrc/flash_attention_bwd.cu``, replacing ``_dq_kernel`` and
-  ``_dkv_kernel``, B8 and B9) recompute ``p = exp(s − lse)`` tile by
-  tile and return dq, and dk and dv.
+  (``csrc/flash_attention_bwd.cu``, and ``csrc/flash_attention_bwd_f32.cu``
+  for f32 operands, replacing ``_dq_kernel`` and ``_dkv_kernel``, B8 and
+  B9) recompute ``p = exp(s − lse)`` tile by tile and return dq, and dk
+  and dv.
 
 ``q_offset``/``k_offset`` place a call on a global sequence axis for
 causal masking (the ring-hop geometry a later slice builds on).
@@ -34,7 +35,8 @@ fill the TPU's 128-lane tiles and is not carried over.
 Operand dtypes and head dims on the card: bf16 operands go to the
 tensor-core kernels (``flash_attention_fwd.cu``, ``flash_attention_bwd.cu``,
 TMA + wgmma), f32 operands to the f32 SIMT kernels
-(``flash_attention_f32.cu``), as the reference's kernels take both.
+(``flash_attention_f32.cu`` forward, ``flash_attention_bwd_f32.cu``
+backward), as the reference's kernels take both.
 Every multiple of 8 runs on them, as the reference's kernel takes it.
 The bf16 kernels read their operands through TMA tensor maps that carry
 the true dh and zero-fill the columns past it (zero columns change no
@@ -47,9 +49,13 @@ padded columns of the results are sliced off, and the scale stays
 forward kernels take a streamed variant that passes the score
 operands through shared memory in 64-column slices, so shared memory
 does not grow with dh; the bf16 backward streams past 128 by design,
-and the f32 kernels' streamed variant takes the head dim zero-padded
+and the f32 forward's streamed variant takes the head dim zero-padded
 to a multiple of :data:`STREAMED_CHUNK`, its output column chunk
-(:func:`kernel_head_dim`).  Whether a call goes to the kernels at all
+(:func:`kernel_head_dim`).  The f32 backward streams every width in
+32-column slices and takes the same padded operands; it copies an
+operand whose rows do not start on 16-byte boundaries
+(:func:`_rows_aligned`), as its loads are 16 bytes wide.  Whether a
+call goes to the kernels at all
 is :func:`kernel_legal`, the reference's rule: a head dim that is not
 a multiple of 8 takes :func:`local_attention`, the reference's XLA
 core, on every device.  Each wrapper counts its launches in
@@ -88,7 +94,7 @@ VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256", "wide",
 #: operand dtype → (library stem of the forward, of the backward, suffix
 #: of the C entry points)
 _LIBS = {torch.bfloat16: ("flash_attention_fwd", "flash_attention_bwd", ""),
-         torch.float32: ("flash_attention_f32", "flash_attention_f32",
+         torch.float32: ("flash_attention_f32", "flash_attention_bwd_f32",
                          "_f32")}
 
 _bound: set[str] = set()
@@ -181,6 +187,17 @@ def _kernel_layout_ok(a: torch.Tensor) -> bool:
         return False
     return a.dtype != torch.bfloat16 or (
         a.data_ptr() % 16 == 0 and not any(s % 8 for s in a.stride()[:3]))
+
+
+def _rows_aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a contiguous copy where its base or a (b, t, h) stride
+    is off a 16-byte boundary: the f32 backward copies its operands in
+    16-byte pieces."""
+    es = a.element_size()
+    if a.data_ptr() % 16 == 0 and not any(s * es % 16
+                                          for s in a.stride()[:3]):
+        return a
+    return a.contiguous()
 
 
 def _check_kernel_operand(name: str, a: torch.Tensor) -> None:
@@ -346,8 +363,9 @@ def _bwd_args(q, k, v, dout, lse, delta, name):
     kernels' C calls: ``(width, scale, operands, pointers, geometry,
     input strides)``.  bf16 operands are read through TMA at the true
     head dim (their preconditions checked first); f32 operands are
-    zero-padded to ``width`` (:func:`kernel_head_dim`).  The scale is
-    that of the true head dim."""
+    zero-padded to ``width`` (:func:`kernel_head_dim`), rows on 16-byte
+    boundaries (:func:`_rows_aligned`).  The scale is that of the true
+    head dim."""
     width = _check_kernel_call(q, name)
     if dout.dtype != q.dtype:
         raise ValueError(f"dout must be {q.dtype}, got {dout.dtype}")
@@ -359,7 +377,8 @@ def _bwd_args(q, k, v, dout, lse, delta, name):
         ops, cols = [q, k, v, dout], q.shape[3]
     else:
         _check_device(q)
-        ops, cols = [_padded(a, width) for a in (q, k, v, dout)], width
+        ops = [_rows_aligned(_padded(a, width)) for a in (q, k, v, dout)]
+        cols = width
         for arg, a in zip(names, ops):
             _check_kernel_operand(arg, a)
     scale = 1.0 / math.sqrt(q.shape[3])
