@@ -18,7 +18,9 @@ Phases (any failure raises and exits non-zero):
    card, within the tolerance printed beside each case — the flash
    kernels (B7–B9) in bf16 and f32, at head dims 64, 128, 32, 256, 512
    and the zero-padded 8, 40, 96, 200 and 264, causal, with offsets and
-   ragged lengths (in f32 also at the backward's tile edges), and the
+   ragged lengths (in f32 also at the tile edges of the forward and the
+   backward, and on views whose rows are off 16-byte boundaries), fully
+   masked rows exactly at out 0 and lse −1e30, and the
    dh = 4 attention core launching none of them; the layer norm both
    ways (B5, B6); the LRN both ways (B1, B2) at AlexNet's two shapes
    in both storage dtypes, n = 5 and 4, an odd channel count over a
@@ -59,10 +61,11 @@ Phases (any failure raises and exits non-zero):
 6. the sequence stack of phase 4 in f32 (the default precision, the
    f32 flash kernels), timed the same way: 2 + 10 steps, the step time,
    tokens/s, MFU against the f32 peak, the device time of each unit and
-   the busy share and top kernels; then a few train steps each at
-   dh = 32 (the 32-wide bf16 instantiation), at dh = 256 in bf16 and in
-   f32 (2 heads of 256 at D = 512), at dh = 512 in bf16 and in f32 (1
-   head of 512, the streamed kernels of head dims past 256) and at
+   the busy share and top kernels, and one train step at B=2 against
+   the CPU's (within ``TRAIN_STEP_TOL_F32``); then a few train steps
+   each at dh = 32 (the 32-wide bf16 instantiation), at dh = 256 in
+   bf16 and in f32 (2 heads of 256 at D = 512), at dh = 512 in bf16 and
+   in f32 (1 head of 512, column chunks past 256) and at
    dh = 4 (the ``attention_seq`` sample, whose attention takes the plain
    core and launches no flash kernel).
 
@@ -110,6 +113,11 @@ SLICE_TOL = 1e-2
 #: bf16 step of that term (2⁻⁸ relative), and the CPU tests see ~1e-2
 #: of the largest momentum after several steps for the same reason.
 TRAIN_STEP_TOL = 5e-2
+#: the same check in f32 (phase 6): nothing is rounded to bf16 on either
+#: side and TF32 is off, so the kernels and the CPU's plain versions
+#: differ in summation order only (a few f32 ulps of each term, summed
+#: over T = 2048 keys and B·T rows): around 1e-4 of the largest update.
+TRAIN_STEP_TOL_F32 = 1e-4
 
 
 def say(msg: str) -> None:
@@ -181,8 +189,8 @@ def max_err(a, b) -> float:
 #: instantiation, and 40 and 96, zero-padded to 64 and 128; then the
 #: head dims past 128 (C2): 256 in both dtypes, and 200 zero-padded to
 #: 256 (the bf16 kernels read it through TMA's zero fill); then past
-#: 256 (C5), the streamed kernels: 512 and 264 (the f32 kernels pad it
-#: to 384), the f32 cases at B = 2, T = 1024 to keep the run short.
+#: 256 (C5): 512 and 264 (the f32 kernels pad it to 384), the f32
+#: cases at B = 2, T = 1024 to keep the run short.
 ATTN_CASES = (
     ("serving", "bfloat16", BATCH, SEQ, SEQ, HEADS, DIM // HEADS, False,
      0, 0, ""),
@@ -238,7 +246,22 @@ ATTN_CASES = (
     ("f32_dh8_padded", "float32", 2, 333, 333, 8, 8, True, 0, 0, None),
     ("f32_dh512_small_grid", "float32", 1, 1000, 1000, 1, 512, True, 0, 0,
      None),
+    # the f32 forward's edges (blocks of 128 query rows up to dh 128, of
+    # 64 past it): one row past a block at both heights over a ragged
+    # key count; a causal diagonal that leaves the first block one
+    # visible key (its other rows fully masked); operands whose rows
+    # start off 16-byte boundaries (copied before the kernel's 16-byte
+    # loads)
+    ("f32_129_dh128", "float32", 2, 129, 100, 4, 128, False, 0, 0, None),
+    ("f32_65_dh256", "float32", 2, 65, 99, 2, 256, True, 0, 0, None),
+    ("f32_causal_one_key", "float32", 2, 300, 300, 4, 64, True, 0, 127,
+     None),
+    ("f32_unaligned_view", "float32", 2, 300, 250, 4, 64, True, 20, 0,
+     None),
 )
+#: cases whose q, k and v are views one element into their packed
+#: projection, so no row starts on a 16-byte boundary
+OFF_ALIGN_CASES = ("f32_unaligned_view",)
 #: cases whose forward is timed though they have no row of their own
 #: (their launches count under the "bf16" row)
 FWD_TIMED_ONLY = ("dh128",)
@@ -267,18 +290,18 @@ def _visible_pairs(tq: int, tk: int, causal: bool, q_off: int,
     return sum(min(max(q_off + i - k_off + 1, 0), tk) for i in range(tq))
 
 
-def _attn_operands(gen, dtype, b, tq, tk, h, dh):
+def _attn_operands(gen, dtype, b, tq, tk, h, dh, off=0):
     """q/k/v as strided slices of packed projections, as the attention
-    unit hands them over."""
+    unit hands them over, each ``off`` elements into its slot."""
     import torch
     d = h * dh
-    qkv_q = torch.randn(b, tq, 3 * d, generator=gen, device="cuda",
+    qkv_q = torch.randn(b, tq, 3 * d + off, generator=gen, device="cuda",
                         dtype=dtype)
-    qkv_k = torch.randn(b, tk, 3 * d, generator=gen, device="cuda",
+    qkv_k = torch.randn(b, tk, 3 * d + off, generator=gen, device="cuda",
                         dtype=dtype)
-    return (qkv_q[..., :d].view(b, tq, h, dh),
-            qkv_k[..., d:2 * d].view(b, tk, h, dh),
-            qkv_k[..., 2 * d:].view(b, tk, h, dh))
+    return (qkv_q[..., off:off + d].view(b, tq, h, dh),
+            qkv_k[..., off + d:off + 2 * d].view(b, tk, h, dh),
+            qkv_k[..., off + 2 * d:off + 3 * d].view(b, tk, h, dh))
 
 
 def _peak(dtype) -> float:
@@ -295,7 +318,8 @@ def check_flash(gen) -> dict:
          suffix) in ATTN_CASES:
         dtype = getattr(torch, dtype_name)
         d = h * dh
-        q, k, v = _attn_operands(gen, dtype, b, tq, tk, h, dh)
+        q, k, v = _attn_operands(gen, dtype, b, tq, tk, h, dh,
+                                 int(name in OFF_ALIGN_CASES))
         out, lse = fa.flash_attention_fwd(q, k, v, causal, q_off, k_off)
         ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, q_off,
                                                     k_off)
@@ -303,14 +327,19 @@ def check_flash(gen) -> dict:
         err_o, err_l = max_err(out, ref_out), max_err(lse, ref_lse)
         finite = bool(torch.isfinite(out.float()).all()
                       and torch.isfinite(lse).all())
+        # fully masked rows: exactly the plain version's out 0 and lse
+        masked = ref_lse == fa.NEG_INF
+        exact = bool(torch.equal(lse[masked], ref_lse[masked])
+                     and (out.transpose(1, 2)[masked] == 0).all())
         tol_o, tol_l = ATTN_OUT_TOL[dtype_name], ATTN_LSE_TOL[dtype_name]
         say(f"  flash_attention_fwd {name}: {dtype_name} B={b} Tq={tq} "
             f"Tk={tk} H={h} dh={dh} (kernel width "
             f"{fa.kernel_head_dim(dh)} in the f32 kernels) causal={causal} "
             f"offsets=({q_off},{k_off}) max_abs_err out={err_o:.3g} "
-            f"(tol {tol_o}) lse={err_l:.3g} (tol {tol_l})")
+            f"(tol {tol_o}) lse={err_l:.3g} (tol {tol_l}), "
+            f"{int(masked.sum())} fully masked rows exact={exact}")
         if out.dtype != dtype or out.shape != q.shape or not finite \
-                or err_o > tol_o or err_l > tol_l:
+                or err_o > tol_o or err_l > tol_l or not exact:
             raise AssertionError(f"flash_attention_fwd disagrees with its "
                                  f"plain version in case '{name}'")
         if suffix is None and name not in FWD_TIMED_ONLY:
@@ -402,7 +431,8 @@ def check_flash_bwd(gen) -> dict:
          suffix) in ATTN_CASES:
         dtype = getattr(torch, dtype_name)
         d = h * dh
-        q, k, v = _attn_operands(gen, dtype, b, tq, tk, h, dh)
+        q, k, v = _attn_operands(gen, dtype, b, tq, tk, h, dh,
+                                 int(name in OFF_ALIGN_CASES))
         out, lse = fa.flash_attention_fwd(q, k, v, causal, q_off, k_off)
         dout = torch.randn(b, tq, h, dh, generator=gen, device="cuda",
                            dtype=dtype)
@@ -1137,7 +1167,7 @@ def timed_steps(wf, warmup: int, steps: int) -> float:
 def train_slice(precision: str = "bfloat16") -> dict:
     """The sequence stack trained at full width in ``precision``: 2 + 10
     timed steps, each flash kernel of that dtype launched once a step;
-    in bf16 also one step held against the CPU's."""
+    then one step at B=2 held against the CPU's."""
     import math
     import numpy as np
     import torch
@@ -1185,10 +1215,10 @@ def train_slice(precision: str = "bfloat16") -> dict:
     step_breakdown(wf)
     device_busy(wf)
     del wf
-    if precision == "bfloat16":
-        check_step_on_cpu(lambda device: make_trainer(x[:2], y[:2], 2,
-                                                      device),
-                          "B=2", TRAIN_STEP_TOL)
+    check_step_on_cpu(
+        lambda device: make_trainer(x[:2], y[:2], 2, device, precision),
+        f"B=2, {precision}",
+        TRAIN_STEP_TOL if precision == "bfloat16" else TRAIN_STEP_TOL_F32)
     return launches
 
 

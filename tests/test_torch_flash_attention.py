@@ -23,11 +23,15 @@ ds are rounded to bf16 before their products at f32 values that differ
 in the last bits, which can flip one bf16 rounding of a term).
 """
 
+import math
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu.ops import pallas_attention as ref
 from znicz_tpu_torch.ops import flash_attention as fa
@@ -532,3 +536,109 @@ def test_kernel_build_hashes_the_shared_header(tmp_path, monkeypatch):
     header = tmp_path / "hopper.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     assert _cuda.build_dir() != before
+
+
+def _f32_kernel_order(q, k, v, causal, q_off, k_off):
+    """The f32 forward kernel's order of work (``csrc/flash_attention_f32.cu``)
+    in torch, f32, on (B, T, H, dh) numpy operands: the head dim
+    zero-padded to the kernel's width, the output in column chunks of
+    the widest power of two up to 256 that divides it, each chunk
+    walking 64-key tiles (causal: only those a row can see) with a
+    base-2 online softmax: log2 e folded into the scale, the running sum
+    and output rescaled by ``exp2(m − m_new)`` each tile, ``lse`` turned
+    back to the natural log, exactly -1e30 where no key was visible.
+    Returns (out (B, Tq, H, dh), lse (B, H, Tq))."""
+    tq, dh = q.shape[1], q.shape[3]
+    width = fa.kernel_head_dim(dh)
+    qh, kh, vh = (F.pad(torch.from_numpy(a), (0, width - dh))
+                  .permute(0, 2, 1, 3) for a in (q, k, v))
+    tk = kh.shape[2]
+    scale_log2 = math.log2(math.e) / math.sqrt(dh)
+    chunk = 256
+    while width % chunk:
+        chunk //= 2
+    rows = q_off + torch.arange(tq)[:, None]
+    tiles = range(0, tk, 64)
+    if causal:
+        tiles = [k0 for k0 in tiles if k_off + k0 <= q_off + tq - 1]
+    outs = []
+    for c0 in range(0, width, chunk):
+        m = torch.full(qh.shape[:3], fa.NEG_INF)
+        l = torch.zeros(qh.shape[:3])
+        acc = torch.zeros(*qh.shape[:3], chunk)
+        for k0 in tiles:
+            kt, vt = kh[:, :, k0:k0 + 64], vh[:, :, k0:k0 + 64, c0:c0 + chunk]
+            visible = torch.ones(tq, kt.shape[2], dtype=torch.bool)
+            if causal:
+                visible = rows >= k_off + k0 + torch.arange(kt.shape[2])
+            s = torch.where(visible, (qh @ kt.transpose(-1, -2)) * scale_log2,
+                            torch.tensor(fa.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.where(visible, torch.exp2(s - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vt
+            m = m_new
+        l = l.clamp_min(1e-30)
+        outs.append(acc / l[..., None])
+    lse = torch.where(m == fa.NEG_INF, torch.tensor(fa.NEG_INF),
+                      (m + torch.log2(l)) * math.log(2.0))
+    out = torch.cat(outs, dim=-1)[..., :dh].permute(0, 2, 1, 3)
+    return out.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("dh", [40, 264])
+@pytest.mark.parametrize("causal,q_off,k_off,tq,tk", [
+    (False, 0, 0, 32, 80),        # a ragged second key tile
+    (True, 0, 0, 48, 80),         # the diagonal through both key tiles
+    (True, 32, 0, 32, 80),        # cross lengths, the diagonal mid-keys
+    (True, 8, 24, 32, 48),        # rows 8..23 see no key: fully masked
+])
+def test_f32_kernel_order_matches_reference_kernel(dh, causal, q_off, k_off,
+                                                   tq, tk):
+    """The f32 forward kernel's order of work, emulated in torch on the
+    CPU, against the reference's Pallas ``_fwd_kernel`` in interpret
+    mode: 64-key tiles and a base-2 online softmax here, 16-key blocks
+    and a natural-base one there, so the two differ in summation order
+    and in the rounding of exp and log only (the file's f32 ``TOL``).
+    dh 40 runs at width 64 in one chunk, dh 264 at width 384 in chunks
+    of 128.  Fully masked rows give out 0 and lse exactly -1e30, as the
+    plain version does."""
+    q, k, v = _qkv(2, tq, tk, 2, dh, seed=dh + tq + tk + q_off)
+    want_out, want_lse = _ref_hop(q, k, v, causal, q_off, k_off, "float32",
+                                  block=16)
+    got_out, got_lse = _f32_kernel_order(q, k, v, causal, q_off, k_off)
+    np.testing.assert_allclose(got_out, want_out, rtol=0,
+                               atol=TOL["float32"])
+    np.testing.assert_allclose(got_lse, want_lse, rtol=1e-6,
+                               atol=TOL["float32"])
+    _, plain_lse = _port_plain(q, k, v, causal, q_off, k_off, "float32")
+    masked = q_off + np.arange(tq) < k_off if causal else np.zeros(tq, bool)
+    np.testing.assert_array_equal(plain_lse == fa.NEG_INF,
+                                  np.broadcast_to(masked, plain_lse.shape))
+    assert np.all(got_lse[:, :, masked] == np.float32(fa.NEG_INF))
+    assert np.all(got_lse[:, :, masked] == plain_lse[:, :, masked])
+    assert np.all(got_out[:, masked] == 0.0)
+
+
+def test_f32_kernels_share_one_header():
+    """Both f32 sources build on ``csrc/simt_f32.cuh`` (hashed into the
+    build directory with the other headers), and neither keeps a copy
+    of what it holds: the swizzle, the 128-bit load, the register-tiled
+    score product, the ``cp.async`` ring's pieces and ``ex2``."""
+    from znicz_tpu_torch.ops import _cuda
+    assert "simt_f32.cuh" in _cuda.headers()
+    def defines(text, name):
+        return re.search(rf"\b(?:void|int|float4?|bool)\s+{name}\s*\(",
+                         text) is not None
+
+    header = (_cuda.CSRC / "simt_f32.cuh").read_text()
+    helpers = ("swz", "ld4", "slice_dots", "cp_async16", "cp_async_commit",
+               "cp_async_wait", "exp2_ftz", "stage", "chunk_width")
+    for name in helpers:
+        assert defines(header, name), name
+    for source in ("flash_attention_f32.cu", "flash_attention_bwd_f32.cu"):
+        text = (_cuda.CSRC / source).read_text()
+        assert '#include "simt_f32.cuh"' in text, source
+        for name in helpers:
+            assert not defines(text, name), (source, name)

@@ -77,18 +77,15 @@
 
 #include <cuda_runtime.h>
 
+#include "simt_f32.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 64;     // other rows a tile
-constexpr int SL = 32;       // head-dim columns of a score slice
-constexpr int STAGES = 3;    // ring slots
 // widths up to these (dq, dk/dv) take 8 own rows a thread, wider ones 4:
 // the taller tile does more FMAs a shared load, but past them its
 // accumulators no longer fit the registers
 constexpr int TALL_DQ = 128;
 constexpr int TALL_DKV = 64;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // the shapes of a kernel whose threads own RT own rows each (4 or 8): a
 // block owns 16 RT rows; a ring slot holds a score item (the slices of
@@ -101,11 +98,6 @@ struct Shape {
   static constexpr int SLOT = 2 * X_SLICE + 2 * Y_SLICE;
   static constexpr int W_TILE = OWN * TILE;   // floats of the P or dS tile
   static_assert(SLOT >= 2 * TILE * 64, "a chunk item fits a slot");
-};
-
-struct Operand {
-  const float* p;
-  long long sb, st, sh;  // element strides of B, T, H
 };
 
 struct Params {
@@ -121,90 +113,6 @@ struct Params {
   long long q_offset, k_offset;
 };
 
-// float offset of 16-byte column k of `row` in a row-major tile of PITCH
-// floats a row, the column XOR-swizzled by the row's low 3 bits.  PITCH
-// is a multiple of 32, so swz(row, k) = swz(row, 0) ^ (k << 2): a loop
-// over k costs one XOR an address, and rows 8 apart are 8 * PITCH apart.
-template <int PITCH>
-__device__ __forceinline__ int swz(int row, int k) {
-  return row * PITCH + ((k ^ (row & 7)) << 2);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// t[i][m] += the dot products, over one SL-column slice, of the thread's
-// rows r0 + 4 i of xs with its rows c0 + 8 m of ys (rows r0 + 8 n share
-// r0's swizzle, so xo0 = swz(r0, 0), xo1 = swz(r0 + 4, 0), yo = swz(c0, 0)
-// locate them all): RT + 4 128-bit loads and 16 RT FMAs a 4-column step
-template <int RT>
-__device__ __forceinline__ void slice_dots(float (&t)[RT][4], const float* xs,
-                                           const float* ys, int xo0, int xo1,
-                                           int yo) {
-#pragma unroll
-  for (int k = 0; k < SL / 4; ++k) {
-    float4 xa[RT], yb[4];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-      xa[i] = ld4(xs + (((i & 1) ? xo1 : xo0) ^ (k << 2)) + (i >> 1) * 8 * SL);
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      yb[m] = ld4(ys + (yo ^ (k << 2)) + m * 8 * SL);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        t[i][m] = fmaf(xa[i].x, yb[m].x, t[i][m]);
-        t[i][m] = fmaf(xa[i].y, yb[m].y, t[i][m]);
-        t[i][m] = fmaf(xa[i].z, yb[m].z, t[i][m]);
-        t[i][m] = fmaf(xa[i].w, yb[m].w, t[i][m]);
-      }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ROWS rows x COLS columns from `src` (row stride st) into a swizzled
-// tile; rows at or past `valid` are zero-filled (0 * NaN would poison a
-// product)
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      long long st, int valid) {
-  constexpr int KC = COLS / 4;
-  static_assert(ROWS * KC % THREADS == 0, "whole copies a thread");
-#pragma unroll
-  for (int n = 0; n < ROWS * KC / THREADS; ++n) {
-    const int i = threadIdx.x + n * THREADS;
-    const int r = i / KC;
-    const int k = i % KC;
-    const bool ok = r < valid;
-    cp_async16(dst + swz<COLS>(r, k), ok ? src + r * st + 4 * k : src, ok);
-  }
-}
-
 // DKV: the dk/dv kernel (else dq); DC: the output chunk's columns; RT:
 // own rows a thread (a block owns 16 RT)
 template <bool DKV, int DC, int RT>
@@ -218,14 +126,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int JS = 16 / CG;            // splits of a tile's rows (1, 2)
   constexpr int NW = DKV ? 2 : 1;        // P/dS tiles, chunk products
   constexpr int J4 = TILE / JS / 4;      // 4-row steps of a chunk product
-  // Fully unrolled, the product loops come to about BODY instructions (a
-  // 4-column step issues RT + 4 loads and 16 RT FMAs).  Past ~6000 they
-  // ran 12-13 % slower on an H100 SXM (dk/dv at 64 and dq at 128 with 8
-  // rows a thread; the instruction cache, by those measurements), so
-  // such a body unrolls the chunk products 4 steps at a time; smaller
-  // ones lose 5-8 % that way and unroll them whole.
+  // the unrolled body's size (BODY_MAX): two score products, NW chunk
+  // products
   constexpr int BODY = (2 * SL / 4 + NW * NSL * J4) * (17 * RT + 4);
-  constexpr int U = BODY > 6000 ? 4 : J4;
+  constexpr int U = BODY > BODY_MAX ? 4 : J4;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* w_tile = smem + STAGES * S::SLOT;  // dS, then (dk/dv) P
@@ -374,8 +278,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int sub = 0; sub < n_score; ++sub, ++it) {
       const float* slot = advance(it);
       const float* ys = slot + 2 * S::X_SLICE;
-      slice_dots<RT>(s, slot, ys, sxo0, sxo1, syo);
-      slice_dots<RT>(dp, slot + S::X_SLICE, ys + S::Y_SLICE, sxo0, sxo1,
+      slice_dots<RT, 4>(s, slot, ys, sxo0, sxo1, syo);
+      slice_dots<RT, 4>(dp, slot + S::X_SLICE, ys + S::Y_SLICE, sxo0, sxo1,
                      syo);
     }
 
@@ -509,27 +413,6 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the output chunk: the widest power of two that divides the width, at
-// most 256 (dq) or 128 (dk/dv), halved down to 64 while the grid has
-// fewer blocks than half the SMs
-int chunk_width(bool dkv, int width, long long blocks_per_chunk) {
-  int dc = dkv ? 128 : 256;
-  while (width % dc) dc /= 2;
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  while (dc > 64 && 2 * blocks_per_chunk * (width / dc) <= sms) dc /= 2;
-  return dc;
-}
-
-bool aligned(const void* ptr) {
-  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
-}
-
-bool rows_aligned(const Operand& o) {
-  return aligned(o.p) && o.sb % 4 == 0 && o.st % 4 == 0 && o.sh % 4 == 0;
-}
-
 // `which` 1 dq, 2 dk/dv; the head dim must be a multiple of 32 and every
 // row 16-byte aligned
 int dispatch(bool dkv, int width, Params p, int batch, void* stream) {
@@ -547,7 +430,7 @@ int dispatch(bool dkv, int width, Params p, int batch, void* stream) {
   const int own = tall ? Shape<8>::OWN : Shape<4>::OWN;
   const long long blocks =
       static_cast<long long>((p.t_own + own - 1) / own) * p.heads * batch;
-  const int dc = chunk_width(dkv, width, blocks);
+  const int dc = chunk_width(dkv ? 128 : 256, width, blocks);
   p.chunks = width / dc;
   cudaError_t err = cudaErrorInvalidValue;
   if (tall) {  // dc = width, or 64 on a small grid at 128

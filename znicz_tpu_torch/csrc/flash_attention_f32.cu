@@ -4,346 +4,472 @@
 // f32 operands (the reference trains in f32 by default).  There every tile
 // product runs at the input dtype with f32 accumulation, so an f32 call
 // multiplies in f32; here every product is an f32 FMA on the CUDA cores
-// (no tensor cores, no TF32), the same function as the bf16 kernel of
-// flash_attention_fwd.cu with nothing rounded to bf16:
+// (Hopper's tensor cores take no f32 operand, and TF32 would keep three
+// digits), the function of the bf16 kernel of flash_attention_fwd.cu with
+// nothing rounded to bf16:
 //   s = (q . k) * scale, masked s = -1e30 and masked p = 0, online softmax
 //   over key tiles, out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
-//   (a fully masked row: out 0, lse -1e30)
-// The f32 backward (dq, dk/dv) is flash_attention_bwd_f32.cu.
+//   (a fully masked row: out 0, lse -1e30 exactly)
+// exp is taken as exp2 of a pre-scaled score (log2 e folded into the
+// scale) with ex2.approx.ftz, and lse turned back to the natural log.
+// The f32 backward (dq, dk/dv) is flash_attention_bwd_f32.cu; the pieces
+// both share (swizzled tiles, the cp.async ring, the register-tiled score
+// product) are in simt_f32.cuh.
 //
 // What bounds it on this card: the products.  At T = 2048 and dh = 64 a
 // call does ~1000 FLOP per byte of q/k/v/o, and the f32 SIMT peak is
-// 67 TFLOP/s, so the FMA rate bounds it.  This is the simple first
-// version: a block of 128 threads owns 32 query rows; four neighbouring
-// threads share a row, each holding a quarter of the head dim of its
-// accumulators and computing a quarter of the row's 64 scores per tile;
-// the k and v tiles of 64 rows are staged through shared memory with rows
-// padded by one float, so the four threads of a row and the eight rows of
-// a warp read distinct banks.  A row's scores go through shared memory to
-// the second product; its four threads are one quarter-warp, so a warp
-// barrier suffices there.
+// 67 TFLOP/s, so the FMA rate bounds it.
+//
+// One block of 256 threads (8 warps) owns 16 RT query rows and walks over
+// 64-key tiles: S = Q.K^T, an online softmax of S, P into shared memory,
+// out[:, chunk] += P . V[:, chunk].  The dq kernel's shape with one score
+// product instead of two.  What the design does about the limits of the
+// first f32 forward (a thread a quarter of a row, scalar loads through a
+// padded pitch, synchronous staging, the scores recomputed for every
+// 128-column chunk of the output):
+// 1. One shared load per FMA.  RT = 8 up to a width of 128, else 4 (the
+//    accumulators of a 256-wide chunk would not fit at 8).  A thread owns
+//    SR rows x SC keys of the score tile (SR SC = 4 RT) and RT rows x 4
+//    columns of every 64-column slice of its output chunk.  A 4-column
+//    step of the score product reads SR rows of Q and SC of K, a 4-key
+//    step of the chunk product RT rows of P and 4 of V, as 128-bit loads:
+//    16 RT FMAs for SR + SC or RT + 4 loads (10.7 FMAs a load at RT = 8,
+//    8 at 4).  A warp's threads are 4 row groups x 8 key groups, so each
+//    of its loads touches 4 or 8 distinct 16-byte words, in distinct
+//    banks by the swizzle.
+// 2. The online softmax.  A row's 64 keys lie in the 8 lanes of one row
+//    group of PAIR warps.  At RT = 8 PAIR = 1 (SR = 4, SC = 8): a warp
+//    owns whole rows, and a row's max and sum are three shuffles each.
+//    At RT = 4 that layout would read 6.4 FMAs a load (SR = 2), so
+//    PAIR = 2 (SR = 4, SC = 4): each half-row's max is three shuffles,
+//    then the two warps exchange their halves through shared memory
+//    behind a 64-thread named barrier, once a tile.  The sums stay
+//    partial until the end.  On an H100 SXM the exchange ran 10-15 %
+//    faster than whole rows at dh 256 and 512, and whole rows 1-8 %
+//    faster than the exchange at dh 32, 64 and 128.  Each row's correction
+//    factor for the tile reaches the chunk products through shared
+//    memory with P.
+// 3. Asynchronous staging.  Everything a block reads passes through a
+//    ring of STAGES slots filled by 16-byte cp.async (rows past T
+//    zero-filled): the score product's 32-column slices of Q and K, then
+//    the chunk product's 64-column slices of V.  The slot STAGES - 1
+//    items ahead is in flight while this one's products run; one barrier
+//    an item.  Shared memory does not grow with the head dim (105 KB at
+//    RT = 8, 65 KB at 4): one code path serves every width that is a
+//    multiple of 32.
+// 4. Scores recomputed per output chunk.  Only past 256: the output is
+//    split into column chunks of DC = 256 (64 accumulators a thread),
+//    each chunk recomputing the scores over the whole head dim; on a grid
+//    of fewer blocks than half the SMs the chunks are halved (down to 64)
+//    to fill the card.  The lse is written by the first chunk.
 //
 // Geometry, the bf16 kernel's: q, k, v and out in the boundary layout
-// (B, T, H, dh) through element strides (the last dim contiguous); lse
-// contiguous (B, H, Tq) f32; any T (rows past T are zero-filled when
-// staged and masked); q_offset / k_offset place the call on a global axis
-// for causal masking, and causal skips whole tiles that no row can see.
-// Head dims 32, 64, 128 and 256 are instantiated; the wrapper zero-pads
-// any other multiple of 8 up to the next one.
-//
-// Head dims past 128: the output is split into column chunks of DC = 128
-// by a grid axis (out[:, c] = p . v[:, c]), so a thread's accumulators
-// stay at the 128-wide size; the score product still sums over the whole
-// head dim, staged whole in shared memory, and every chunk recomputes it
-// (twice the score work at dh = 256).  The lse is written by the first
-// chunk.
-//
-// Head dims past 256: the streamed instantiation (D = 0) takes any width
-// that is a multiple of 128 (the wrapper zero-pads to one), given at run
-// time.  Its staging loop gains an outer loop over 64-column slices of q
-// and k, s summing over the slices, and the chunk's columns of v are
-// staged after them, so shared memory does not grow with the head dim.
+// (B, T, H, dh) through element strides (the last dim contiguous, rows
+// 16-byte aligned); lse contiguous (B, H, Tq) f32; any T; q_offset /
+// k_offset place the call on a global axis for causal masking, and causal
+// skips whole key tiles that no row of the block can see.
 
 #include <cuda_runtime.h>
 
+#include "simt_f32.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int ROWS = 32;        // rows a block owns
-constexpr int TILE = 64;        // rows of the other operand per iteration
-constexpr int SPLIT = 4;        // threads per row
-constexpr int PER = TILE / SPLIT;  // scores of a tile per thread
-constexpr int LP = TILE + 1;    // row pitch of the score tiles
-constexpr int SL = 64;          // columns of a slice (streamed kernels)
+// widths up to this take 8 query rows a thread, wider ones 4
+constexpr int TALL = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// the shapes of a kernel whose threads own RT rows each (4 or 8): a
+// block owns 16 RT query rows; a ring slot holds a score item (the slices
+// of Q and K) or a chunk item (a 64 x 64 slice of V)
+template <int RT>
+struct Shape {
+  static constexpr int PAIR = RT == 8 ? 1 : 2;  // warps that share a row
+  static constexpr int OWN = 16 * RT;        // query rows a block
+  static constexpr int Q_SLICE = OWN * SL;   // floats of a Q slice
+  static constexpr int SCORE = Q_SLICE + TILE * SL;
+  static constexpr int SLOT = SCORE > TILE * 64 ? SCORE : TILE * 64;
+  static constexpr int P_TILE = OWN * TILE;  // floats of the P tile
+};
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  Operand q, k, v;
   float* o;
-  float* lse;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;
-  int heads, tq, tk;
-  int width;  // the padded head dim (streamed kernels)
-  float scale;
+  float* lse;
+  int heads, tq, tk, width, chunks;
+  float scale_log2;
   int causal;
   long long q_offset, k_offset;
 };
 
-// rows x D floats from global (row stride in elements) into shared memory
-// with row pitch D + 1; rows at or past `valid` are zero-filled, so masked
-// rows never carry garbage (0 * NaN would poison a product)
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long row_stride, int rows,
-                                          int valid) {
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * (D + 1) + c] = r < valid ? src[r * row_stride + c] : 0.f;
-  }
+// waits for the 64 threads of warps 2 n and 2 n + 1, n = warp / 2
+// (named barrier 1 + n; 0 is __syncthreads's)
+__device__ __forceinline__ void pair_barrier(int warp) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (warp >> 1)) : "memory");
 }
 
-// adds the 16 dot products of one row `a` (pitch D + 1) with rows part,
-// part + 4, ... of tile `t` to s
-template <int D>
-__device__ __forceinline__ void row_dots_add(float s[PER], const float* a,
-                                             const float* t, int part) {
-  for (int c = 0; c < D; ++c) {
-    const float av = a[c];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      s[i] = fmaf(av, t[(part + SPLIT * i) * (D + 1) + c], s[i]);
-    }
-  }
-}
+// DC: the output chunk's columns; RT: query rows a thread (a block owns
+// 16 RT)
+template <int DC, int RT>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_f32_kernel(const Params p) {
+  using S = Shape<RT>;
+  constexpr int OWN = S::OWN;
+  constexpr int PAIR = S::PAIR;
+  constexpr int SR = RT * PAIR / 2;      // score rows a thread
+  constexpr int SC = 8 / PAIR;           // score keys a thread
+  constexpr int CS = DC < 64 ? DC : 64;  // columns of a chunk slice
+  constexpr int NSL = DC / CS;           // chunk slices
+  constexpr int CG = CS / 4;             // column groups of a chunk slice
+  constexpr int JS = 16 / CG;            // splits of a tile's keys (1, 2)
+  constexpr int J4 = TILE / JS / 4;      // 4-key steps of a chunk product
+  // the unrolled body's size (BODY_MAX): one score product, the chunk
+  // products
+  constexpr int BODY = (SL / 4 + NSL * J4) * (17 * RT + 4);
+  constexpr int U = BODY > BODY_MAX ? 4 : J4;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* p_tile = smem + STAGES * S::SLOT;
+  float* row_corr = p_tile + S::P_TILE;  // each row's factor for a tile
+  float* parts = row_corr + OWN;  // PAIR a row: the parts' max, then sum
 
-// the 16 dot products of one row `a` (pitch D + 1) with rows part,
-// part + 4, ... of tile `t`
-template <int D>
-__device__ __forceinline__ void row_dots(float s[PER], const float* a,
-                                         const float* t, int part) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) s[i] = 0.f;
-  row_dots_add<D>(s, a, t, part);
-}
-
-// the streamed kernel's score product: s summed over the 64-column
-// slices of the head dim, each slice of the block's query rows (a, ROWS
-// of them) and of the tile's key rows (ta, TILE of them) staged through
-// shared memory; ends with every thread past its last read
-__device__ __forceinline__ void sliced_dots(
-    float s[PER], const Params& p, const float* a, long long a_st,
-    int own_valid, const float* ta, long long ta_st, int oth_valid,
-    float* s_a, float* s_ta, int r, int part) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) s[i] = 0.f;
-  for (int c = 0; c < p.width; c += SL) {
-    __syncthreads();  // every thread is done with the previous slice
-    load_rows<SL>(s_a, a + c, a_st, ROWS, own_valid);
-    load_rows<SL>(s_ta, ta + c, ta_st, TILE, oth_valid);
-    __syncthreads();
-    row_dots_add<SL>(s, s_a + r * (SL + 1), s_ta, part);
-  }
-  __syncthreads();
-}
-
-// acc[d] += sum_j w[j] * t[j][part + 4 d] over the tile's 64 rows, for
-// the DC columns of a tile of pitch D + 1 that start at t
-template <int D, int DC>
-__device__ __forceinline__ void accumulate(float* acc, const float* w,
-                                           const float* t, int part) {
-  for (int j = 0; j < TILE; ++j) {
-    const float wj = w[j];
-#pragma unroll
-    for (int d = 0; d < DC / SPLIT; ++d) {
-      acc[d] = fmaf(wj, t[j * (D + 1) + part + SPLIT * d], acc[d]);
-    }
-  }
-}
-
-// tiles of 64 keys the block's rows [q0, q0 + ROWS) can see
-__device__ __forceinline__ int key_tiles(const Params& p, int q0) {
-  int n = (p.tk + TILE - 1) / TILE;
-  if (p.causal) {
-    const long long last = p.q_offset + q0 + ROWS - 1 - p.k_offset;
-    if (last < 0) return 0;
-    if (last / TILE + 1 < n) n = static_cast<int>(last / TILE) + 1;
-  }
-  return n;
-}
-
-// D = 0: the streamed instantiation (a head dim of p.width, past 256)
-template <int D, int DC>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Params p) {
-  constexpr bool WIDE = D == 0;
-  constexpr int QD = WIDE ? SL : D;  // columns of the staged q and k
-  constexpr int VD = WIDE ? DC : D;  // columns of the staged v
-  constexpr int DP = DC / SPLIT;
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_k = s_q + ROWS * (QD + 1);
-  float* s_v = s_k + TILE * (QD + 1);
-  float* s_p = s_v + TILE * (VD + 1);
-
-  const int chunks = (WIDE ? p.width : D) / DC;
-  const int q0 = blockIdx.x * ROWS;
-  const int h = blockIdx.y / chunks;
-  const int c0 = blockIdx.y % chunks * DC;  // this block's output columns
+  const int q0 = blockIdx.x * OWN;
+  const int h = blockIdx.y / p.chunks;
+  const int c0 = blockIdx.y % p.chunks * DC;
   const int b = blockIdx.z;
-  const int r = threadIdx.x / SPLIT;
-  const int part = threadIdx.x % SPLIT;
-  const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_st;
-  const float* kg = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vg = p.v + b * p.v_sb + h * p.v_sh;
-  if (!WIDE) load_rows<QD>(s_q, qg, p.q_st, ROWS, p.tq - q0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = lane / 8;  // a warp is 4 row groups x 8 column groups
+  const int cg = lane % 8;
 
-  float acc[DP];
+  // score tile: warp (w / PAIR, w % PAIR) covers rows
+  // 4 SR (w / PAIR) + [0, 4 SR) and keys 32 (w % PAIR) + [0, 64 / PAIR);
+  // a thread rows rg + 4 i and keys cg + 8 m of that block, so the part
+  // of a row a warp holds lies in the 8 lanes of a row group
+  const int part = warp % PAIR;
+  int srow[SR], scol[SC];
 #pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;  // this thread's partial row sum
-  const long long row_pos = p.q_offset + q0 + r;
+  for (int i = 0; i < SR; ++i)
+    srow[i] = warp / PAIR * 4 * SR + rg + 4 * i;
+#pragma unroll
+  for (int m = 0; m < SC; ++m) scol[m] = part * 32 + cg + 8 * m;
+  // chunk products: warp (w / 2, w % 2) covers rows 4 RT (w / 2) +
+  // [0, 4 RT) and 16-byte columns 8 (w % 2) + [0, 8) of a 64-column
+  // slice (JS = 1), or warp (w % 4) rows 4 RT (w % 4) + [0, 4 RT), all
+  // 8 columns of a 32-column slice and the tile's keys
+  // [32 (w / 4), 32 (w / 4) + 32) (JS = 2); a thread rows rg + 4 i and
+  // 16-byte column ccol
+  const int cwr = JS == 1 ? warp >> 1 : warp & 3;
+  const int ccol = (JS == 1 ? (warp & 1) * 8 : 0) + cg;
+  const int js = JS == 1 ? 0 : warp >> 2;
+  int crow[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) crow[i] = cwr * 4 * RT + rg + 4 * i;
+  // swizzled offsets (swz) of the first rows and columns
+  const int sxo0 = swz<SL>(srow[0], 0), sxo1 = swz<SL>(srow[1], 0);
+  const int syo = swz<SL>(scol[0], 0);
+  const int wo0 = swz<TILE>(crow[0], 0), wo1 = swz<TILE>(crow[1], 0);
+  int yco[8];  // column ccol of a chunk slice's row r, by r & 7
+#pragma unroll
+  for (int r = 0; r < 8; ++r) yco[r] = (ccol ^ r) << 2;
 
-  const int n_tiles = key_tiles(p, q0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * TILE;
-    float s[PER];
-    if constexpr (WIDE) {
-      sliced_dots(s, p, qg, p.q_st, p.tq - q0, kg + k0 * p.k_st, p.k_st,
-                  p.tk - k0, s_q, s_k, r, part);
-      load_rows<VD>(s_v, vg + k0 * p.v_st + c0, p.v_st, TILE, p.tk - k0);
-      __syncthreads();
-    } else {
-      __syncthreads();  // every thread is done with the previous tile
-      load_rows<D>(s_k, kg + k0 * p.k_st, p.k_st, TILE, p.tk - k0);
-      load_rows<D>(s_v, vg + k0 * p.v_st, p.v_st, TILE, p.tk - k0);
-      __syncthreads();
-      row_dots<D>(s, s_q + r * (D + 1), s_k, part);
+  const auto base = [&](const Operand& o) {
+    return o.p + b * o.sb + h * o.sh;
+  };
+  const float* qg = base(p.q) + q0 * p.q.st;
+  const float* kg = base(p.k);
+  const float* vg = base(p.v);
+
+  // the key tiles this block can see: causal, keys k with
+  // k_offset + k <= q_offset + q0 + OWN - 1
+  const int n_keys = (p.tk + TILE - 1) / TILE;
+  int last = n_keys;
+  if (p.causal) {
+    const long long hi = p.q_offset + q0 + OWN - 1 - p.k_offset;
+    last = hi < 0 ? 0 : static_cast<int>(hi / TILE + 1 < n_keys
+                                             ? hi / TILE + 1 : n_keys);
+  }
+  const int n_score = p.width / SL;
+  const int per_tile = n_score + NSL;
+  const int items = last * per_tile;
+
+  // item it: the score slice or chunk slice `it % per_tile` of key tile
+  // `it / per_tile`, staged into slot it % STAGES
+  const auto fetch = [&](int it) {
+    if (it < items) {
+      const int k0 = it / per_tile * TILE;
+      const int sub = it % per_tile;
+      float* slot = ring + it % STAGES * S::SLOT;
+      if (sub < n_score) {  // Q, K
+        const int col = sub * SL;
+        stage<OWN, SL>(slot, qg + col, p.q.st, p.tq - q0);
+        stage<TILE, SL>(slot + S::Q_SLICE, kg + k0 * p.k.st + col, p.k.st,
+                        p.tk - k0);
+      } else {  // V
+        const int col = c0 + (sub - n_score) * CS;
+        stage<TILE, CS>(slot, vg + k0 * p.v.st + col, p.v.st, p.tk - k0);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  // waits for item it, frees the slot of it - 1 for item it + STAGES - 1
+  const auto advance = [&](int it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    fetch(it + STAGES - 1);
+    return ring + it % STAGES * S::SLOT;
+  };
+
+  // each score row's running max (of the base-2 scores) and this
+  // thread's part of its running sum
+  float m_run[SR], l_run[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    m_run[i] = NEG_INF;
+    l_run[i] = 0.f;
+  }
+  float acc[NSL][RT][4];
+#pragma unroll
+  for (int c = 0; c < NSL; ++c)
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][i][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+
+  int it = 0;
+  for (int tile = 0; tile < last; ++tile) {
+    const int k0 = tile * TILE;
+    // the score product over the head dim, a 32-column slice an item
+    float s[SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int m = 0; m < SC; ++m) s[i][m] = 0.f;
+    for (int sub = 0; sub < n_score; ++sub, ++it) {
+      const float* slot = advance(it);
+      slice_dots<SR, SC>(s, slot, slot + S::Q_SLICE, sxo0, sxo1, syo);
     }
 
-    unsigned visible = 0u;
-    float tile_max = NEG_INF;
+    // the online softmax in base 2: each part's max (PAIR = 2: exchanged
+    // with the pair's other warp); then p and each row's correction into
+    // shared memory (every thread is past the last reads of the previous
+    // tile's: a barrier of this tile's first item)
+    unsigned visible[SR];
+    float mx[SR];
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int col = k0 + part + SPLIT * i;
-      bool vis = col < p.tk;
-      if (p.causal) vis = vis && row_pos >= p.k_offset + col;
-      s[i] = vis ? s[i] * p.scale : NEG_INF;
-      if (vis) visible |= 1u << i;
-      tile_max = fmaxf(tile_max, s[i]);
+    for (int i = 0; i < SR; ++i) {
+      const long long qpos = p.q_offset + q0 + srow[i];
+      visible[i] = 0u;
+      mx[i] = NEG_INF;
+#pragma unroll
+      for (int m = 0; m < SC; ++m) {
+        const int key = k0 + scol[m];
+        const bool vis =
+            key < p.tk && (!p.causal || qpos >= p.k_offset + key);
+        s[i][m] = vis ? s[i][m] * p.scale_log2 : NEG_INF;
+        if (vis) visible[i] |= 1u << m;
+        mx[i] = fmaxf(mx[i], s[i][m]);
+      }
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
+      if (PAIR > 1 && cg == 0) parts[PAIR * srow[i] + part] = mx[i];
     }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    m = m_new;
-    l *= corr;
+    if (PAIR > 1) pair_barrier(warp);
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float pe = (visible >> i) & 1u ? expf(s[i] - m) : 0.f;
-      l += pe;
-      s_p[r * LP + part + SPLIT * i] = pe;
+    for (int i = 0; i < SR; ++i) {
+      if (PAIR > 1) mx[i] = fmaxf(parts[2 * srow[i]], parts[2 * srow[i] + 1]);
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      const float corr = exp2_ftz(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int m = 0; m < SC; ++m) {
+        const float pe =
+            (visible[i] >> m) & 1u ? exp2_ftz(s[i][m] - m_new) : 0.f;
+        sum += pe;
+        p_tile[swz<TILE>(srow[i], scol[m] >> 2) + (scol[m] & 3)] = pe;
+      }
+      l_run[i] = l_run[i] * corr + sum;
+      if (cg == 0 && part == 0) row_corr[srow[i]] = corr;
     }
+
+    // the chunk products, a 64-column slice (32 at DC = 32) an item; the
+    // first item's barrier also publishes P and the corrections
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= corr;
-    __syncwarp();
-    accumulate<VD, DC>(acc, s_p + r * LP, s_v + (WIDE ? 0 : c0), part);
+    for (int c = 0; c < NSL; ++c, ++it) {
+      const float* slot = advance(it);
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float corr = row_corr[crow[i]];
+#pragma unroll
+          for (int n = 0; n < NSL; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][i][e] *= corr;
+        }
+      }
+      // this thread's keys of the tile: js * 64 / JS + [0, 64 / JS)
+      const float* yc = slot + js * (TILE / JS) * CS;
+#pragma unroll 1
+      for (int u = 0; u < J4; u += U) {
+#pragma unroll
+        for (int t = 0; t < U; ++t) {
+          const int j4 = u + t;
+          const int jk = js * J4 + j4;
+          float4 wa[RT];
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+            wa[i] = ld4(p_tile + (((i & 1) ? wo1 : wo0) ^ (jk << 2)) +
+                        (i >> 1) * 8 * TILE);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // key 4 j4 + e of the thread's keys; js * 64 / JS and 4 u are
+            // multiples of 8, so its swizzle is that of 4 t + e
+            const float4 y =
+                ld4(yc + (4 * j4 + e) * CS + yco[(4 * t + e) & 7]);
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              const float w = e == 0 ? wa[i].x : e == 1 ? wa[i].y
+                              : e == 2 ? wa[i].z : wa[i].w;
+              float(&a)[4] = acc[c][i];
+              a[0] = fmaf(w, y.x, a[0]);
+              a[1] = fmaf(w, y.y, a[1]);
+              a[2] = fmaf(w, y.z, a[2]);
+              a[3] = fmaf(w, y.w, a[3]);
+            }
+          }
+        }
+      }
+    }
   }
 
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  l = fmaxf(l, 1e-30f);
-  const int row = q0 + r;
-  if (row < p.tq) {
-    float* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_st + c0;
+  // each part's sum (its 8 lanes) into shared memory; every thread is
+  // past the last tile's reads of the maxima (its chunk items' barriers)
 #pragma unroll
-    for (int d = 0; d < DP; ++d) orow[part + SPLIT * d] = acc[d] / l;
-    if (part == 0 && c0 == 0) {
-      p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + row] =
-          m + logf(l);
+  for (int i = 0; i < SR; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    if (cg == 0) parts[PAIR * srow[i] + part] = l;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // publishes the sums; the ring is free
+  // a row's sum, floored
+  const auto row_sum = [&](int r) {
+    return fmaxf(PAIR > 1 ? parts[2 * r] + parts[2 * r + 1] : parts[r],
+                 1e-30f);
+  };
+  // the lse, from the first chunk: exactly -1e30 where no key was visible
+  if (c0 == 0 && cg == 0 && part == 0) {
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = q0 + srow[i];
+      if (row < p.tq) {
+        p.lse[(static_cast<long long>(b) * p.heads + h) * p.tq + row] =
+            m_run[i] == NEG_INF
+                ? NEG_INF
+                : (m_run[i] + log2f(row_sum(srow[i]))) * LN2;
+      }
+    }
+  }
+  if (JS > 1) {  // the second half of the tile's keys adds into the first
+    constexpr int PER = NSL * RT * 4;  // accumulators a thread
+    float* red = smem + (threadIdx.x % 128) * PER;
+    if (js == 1) {
+#pragma unroll
+      for (int c = 0; c < NSL; ++c)
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(c * RT + i) * 4 + e] = acc[c][i][e];
+    }
+    __syncthreads();
+    if (js == 1) return;
+#pragma unroll
+    for (int c = 0; c < NSL; ++c)
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][i][e] += red[(c * RT + i) * 4 + e];
+  }
+
+  float* out = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + crow[i];
+    if (row >= p.tq) continue;
+    const float l = row_sum(crow[i]);
+#pragma unroll
+    for (int c = 0; c < NSL; ++c) {
+      *reinterpret_cast<float4*>(out + row * p.o_st + c0 + c * CS +
+                                 4 * ccol) =
+          make_float4(acc[c][i][0] / l, acc[c][i][1] / l, acc[c][i][2] / l,
+                      acc[c][i][3] / l);
     }
   }
 }
 
-// the output column chunk of a block at head dim D (0: streamed)
-template <int D>
-constexpr int chunk() {
-  return D == 0 || D >= 128 ? 128 : D;
-}
-
-// the staged width of the score operands: the head dim, or a slice
-template <int D>
-constexpr int staged() {
-  return D == 0 ? SL : D;
-}
-
-// output chunks of a block row
-template <int D>
-int chunks(const Params& p) {
-  return (D == 0 ? p.width : D) / chunk<D>();
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem_floats, int rows, int chunks,
-                   const Params& p, int batch, cudaStream_t stream) {
-  const int smem = smem_floats * static_cast<int>(sizeof(float));
+template <int DC, int RT>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  using S = Shape<RT>;
+  constexpr int smem =
+      (STAGES * S::SLOT + S::P_TILE + (1 + S::PAIR) * S::OWN) *
+                       static_cast<int>(sizeof(float));
+  const auto kernel = flash_fwd_f32_kernel<DC, RT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + ROWS - 1) / ROWS, p.heads * chunks, batch);
+  const dim3 grid((p.tq + S::OWN - 1) / S::OWN, p.heads * p.chunks, batch);
   kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// shared memory in floats: the staged score operands, then (streamed
-// kernels) the chunk's columns of the right-hand operands, then the score
-// rows and statistics
-template <int D>
-cudaError_t launch_fwd(const Params& p, int batch, cudaStream_t s) {
-  constexpr int VD = D == 0 ? chunk<D>() : D;
-  return launch(flash_fwd_f32_kernel<D, chunk<D>()>,
-                (ROWS + TILE) * (staged<D>() + 1) + TILE * (VD + 1) +
-                    ROWS * LP,
-                p.tq, chunks<D>(p), p, batch, s);
-}
-
-// head-dim dispatch; a head dim past 256 must be a multiple of 128 (the
-// wrapper pads it)
-int dispatch(int head_dim, Params p, int batch, void* stream) {
+// the head dim must be a multiple of 32 and every row 16-byte aligned
+int dispatch(int width, Params p, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  p.width = head_dim;
-  if (head_dim > 256) {
-    if (head_dim % 128 == 0) {
-      err = launch_fwd<0>(p, batch, s);
-    }
-    return static_cast<int>(err);
+  if (width <= 0 || width % SL != 0 || !rows_aligned(p.q) ||
+      !rows_aligned(p.k) || !rows_aligned(p.v) || !aligned(p.o) ||
+      p.o_sb % 4 != 0 || p.o_st % 4 != 0 || p.o_sh % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (head_dim) {
-    case 32:
-      err = launch_fwd<32>(p, batch, s);
-      break;
-    case 64:
-      err = launch_fwd<64>(p, batch, s);
-      break;
-    case 128:
-      err = launch_fwd<128>(p, batch, s);
-      break;
-    case 256:
-      err = launch_fwd<256>(p, batch, s);
-      break;
-    default:
-      break;
+  p.width = width;
+  const bool tall = width <= TALL;
+  const int own = tall ? Shape<8>::OWN : Shape<4>::OWN;
+  const long long blocks =
+      static_cast<long long>((p.tq + own - 1) / own) * p.heads * batch;
+  const int dc = chunk_width(256, width, blocks);
+  p.chunks = width / dc;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tall) {  // dc = width, or 64 on a small grid at 128
+    err = dc == 32   ? launch<32, 8>(p, batch, s)
+          : dc == 64 ? launch<64, 8>(p, batch, s)
+                     : launch<128, 8>(p, batch, s);
+  } else {
+    switch (dc) {
+      case 64: err = launch<64, 4>(p, batch, s); break;
+      case 128: err = launch<128, 4>(p, batch, s); break;
+      case 256: err = launch<256, 4>(p, batch, s); break;
+      default: break;
+    }
   }
   return static_cast<int>(err);
-}
-
-void set_inputs(Params& p, const void* q, const void* k, const void* v,
-                int heads, int tq, int tk, float scale, int causal,
-                long long q_offset, long long k_offset) {
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.heads = heads;
-  p.tq = tq;
-  p.tk = tk;
-  p.scale = scale;
-  p.causal = causal;
-  p.q_offset = q_offset;
-  p.k_offset = k_offset;
 }
 
 }  // namespace
 
 // The C entry point takes the arguments of its bf16 counterpart in
-// flash_attention_fwd.cu, with f32 tensors.  Strides are in elements.  It
-// returns the launch's cudaError_t (0 on success); the caller checks
-// shapes, dtypes and alignment beforehand.
+// flash_attention_fwd.cu, with f32 tensors zero-padded to a head dim that
+// is a multiple of 32.  Strides are in elements.  It returns the launch's
+// cudaError_t (0 on success; cudaErrorInvalidValue for a head dim or a
+// row alignment the kernel does not take).
 extern "C" int znicz_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int heads, int tq, int tk, int head_dim, long long q_sb,
@@ -352,21 +478,21 @@ extern "C" int znicz_flash_attention_fwd_f32(
     long long o_sb, long long o_st, long long o_sh, float scale, int causal,
     long long q_offset, long long k_offset, void* stream) {
   Params p = {};
-  set_inputs(p, q, k, v, heads, tq, tk, scale, causal, q_offset, k_offset);
+  p.q = {static_cast<const float*>(q), q_sb, q_st, q_sh};
+  p.k = {static_cast<const float*>(k), k_sb, k_st, k_sh};
+  p.v = {static_cast<const float*>(v), v_sb, v_st, v_sh};
   p.o = static_cast<float*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.q_sb = q_sb;
-  p.q_st = q_st;
-  p.q_sh = q_sh;
-  p.k_sb = k_sb;
-  p.k_st = k_st;
-  p.k_sh = k_sh;
-  p.v_sb = v_sb;
-  p.v_st = v_st;
-  p.v_sh = v_sh;
   p.o_sb = o_sb;
   p.o_st = o_st;
   p.o_sh = o_sh;
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.tq = tq;
+  p.tk = tk;
+  p.scale_log2 = scale * LOG2E;
+  p.causal = causal;
+  p.q_offset = q_offset;
+  p.k_offset = k_offset;
   if (batch <= 0 || heads <= 0 || tq <= 0) return cudaSuccess;
   return dispatch(head_dim, p, batch, stream);
 }

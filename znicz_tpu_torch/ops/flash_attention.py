@@ -42,20 +42,20 @@ The bf16 kernels read their operands through TMA tensor maps that carry
 the true dh and zero-fill the columns past it (zero columns change no
 score), so they need no padded copy; their wrappers check TMA's
 preconditions (:func:`_check_tma_operand`) before the device.  The f32
-kernels are instantiated for head dims :data:`KERNEL_HEAD_DIMS`, and
-any other multiple of 8 up to 256 is zero-padded to the next one (the
-padded columns of the results are sliced off, and the scale stays
-``1/√dh`` of the true dh).  Past 256 (:data:`STREAMED_PAST`) the
-forward kernels take a streamed variant that passes the score
-operands through shared memory in 64-column slices, so shared memory
-does not grow with dh; the bf16 backward streams past 128 by design,
-and the f32 forward's streamed variant takes the head dim zero-padded
-to a multiple of :data:`STREAMED_CHUNK`, its output column chunk
-(:func:`kernel_head_dim`).  The f32 backward streams every width in
-32-column slices and takes the same padded operands; it copies an
-operand whose rows do not start on 16-byte boundaries
-(:func:`_rows_aligned`), as its loads are 16 bytes wide.  Whether a
-call goes to the kernels at all
+kernels take head dims :data:`KERNEL_HEAD_DIMS`, and any other
+multiple of 8 up to 256 is zero-padded to the next one (the padded
+columns of the results are sliced off, and the scale stays ``1/√dh``
+of the true dh).  Past 256 (:data:`STREAMED_PAST`) the bf16 forward
+takes a streamed variant that passes the score operands through
+shared memory in 64-column slices, so shared memory does not grow
+with dh; the bf16 backward streams past 128 by design.  The f32
+kernels, forward and backward, stream every width in 32-column slices
+through a ``cp.async`` ring and split the output into column chunks
+past 256 (the forward, dq) or 128 (dk/dv); past 256 they take the
+head dim zero-padded to a multiple of :data:`STREAMED_CHUNK`
+(:func:`kernel_head_dim`).  They copy an operand whose rows do not
+start on 16-byte boundaries (:func:`_rows_aligned`), as their loads
+are 16 bytes wide.  Whether a call goes to the kernels at all
 is :func:`kernel_legal`, the reference's rule: a head dim that is not
 a multiple of 8 takes :func:`local_attention`, the reference's XLA
 core, on every device.  Each wrapper counts its launches in
@@ -80,12 +80,12 @@ from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.ops import _cuda
 
 NEG_INF = -1e30
-#: head dims the f32 kernels are instantiated for
+#: head dims the f32 kernels take up to 256
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-#: head dims past this one take the streamed kernels
+#: head dims past this one take the bf16 forward's streamed variant
 STREAMED_PAST = KERNEL_HEAD_DIMS[-1]
-#: the streamed kernels' output column chunk: their f32 head dim is
-#: padded to a multiple of it
+#: past :data:`STREAMED_PAST`, the f32 kernels' head dim is padded to a
+#: multiple of it
 STREAMED_CHUNK = 128
 #: the kernels' launch counters by variant: operand dtype and width
 VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256", "wide",
@@ -132,10 +132,9 @@ def kernel_legal(dh: int) -> bool:
 def kernel_head_dim(dh: int) -> int:
     """The width an f32 kernel call of head dim ``dh`` runs at, ``dh``
     zero-padded: the next of :data:`KERNEL_HEAD_DIMS` up to 256, past
-    that the next multiple of :data:`STREAMED_CHUNK` (the streamed
-    kernels).  It also names the launch counters' variant of a bf16
-    call, whose kernels read the true dh.  Any multiple of 8 is
-    taken."""
+    that the next multiple of :data:`STREAMED_CHUNK`.  It also names
+    the launch counters' variant of a bf16 call, whose kernels read the
+    true dh.  Any multiple of 8 is taken."""
     if not kernel_legal(dh) or dh <= 0:
         raise ValueError(f"the flash kernels take head dims that are "
                          f"multiples of 8, got {dh}")
@@ -191,7 +190,7 @@ def _kernel_layout_ok(a: torch.Tensor) -> bool:
 
 def _rows_aligned(a: torch.Tensor) -> torch.Tensor:
     """``a``, or a contiguous copy where its base or a (b, t, h) stride
-    is off a 16-byte boundary: the f32 backward copies its operands in
+    is off a 16-byte boundary: the f32 kernels copy their operands in
     16-byte pieces."""
     es = a.element_size()
     if a.data_ptr() % 16 == 0 and not any(s * es % 16
@@ -287,7 +286,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cols = dh  # TMA zero-fills the columns past dh
     else:
         _check_device(q)
-        q, k, v = (_padded(a, width) for a in (q, k, v))
+        q, k, v = (_rows_aligned(_padded(a, width)) for a in (q, k, v))
         for name, a in (("q", q), ("k", k), ("v", v)):
             _check_kernel_operand(name, a)
         cols = width
