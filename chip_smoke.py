@@ -22,9 +22,14 @@ Phases (any failure raises and exits non-zero):
    backward, and on views whose rows are off 16-byte boundaries), fully
    masked rows exactly at out 0 and lse −1e30, and the
    dh = 4 attention core launching none of them; the layer norm both
-   ways (B5, B6); the LRN both ways (B1, B2) at AlexNet's two shapes
-   in both storage dtypes, n = 5 and 4, an odd channel count over a
-   ragged row count; dropout (B3) bitwise against
+   ways (B5, B6); the LRN both ways (B1, B2) on both of its routes,
+   each case on the one it must take: the vector kernels at AlexNet's
+   two shapes in both storage dtypes, n = 5 and 4, at their edges (one
+   vector a row, n = 19, mixed dtypes, tiles left short), the general
+   kernels on an odd channel count and on views off 16-byte
+   boundaries; the two shapes timed over a rotation of three input
+   copies, as conv2's bf16 input would fit the 50 MB L2, the kernels in
+   CUDA graphs; dropout (B3) bitwise against
    its plain version, forward and backward masks identical, the keep
    fraction within 4σ, ratio 0 the identity; softmax + argmax (B4) with
    planted ties and a −inf column. Times the kernel, the plain version
@@ -50,8 +55,9 @@ Phases (any failure raises and exits non-zero):
    CPU;
 5. AlexNet training: ``models/samples/alexnet.py`` at full width (bf16,
    B=128, dropout 0.5, uint8 frames resident on the card), 2 warm-up
-   and 10 timed train steps; B1 and B2 launch twice a step, B3 four
-   times and B4 once; prints step time, img/s, MFU (``bench.py``'s FLOP
+   and 10 timed train steps; B1 and B2 launch twice a step (at conv1's
+   and conv2's shape, both on the vector route), B3 four times and B4
+   once; prints step time, img/s, MFU (``bench.py``'s FLOP
    count), the device time of each unit, the busy share and top
    kernels and the peak memory; then holds one train step at B=2 with
    dropout on against the CPU's, each parameter's update in f32 and in
@@ -80,6 +86,7 @@ result.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import re
@@ -659,20 +666,54 @@ def check_layer_norm_bwd(gen) -> dict:
 #: the AlexNet minibatch of phase 5
 ALEX_BATCH = 128
 LRN_CFG = {"alpha": 1e-4, "beta": 0.75, "k": 2.0}
-#: name, rows, C, storage dtype, n, timed.  The two shapes of the slice
-#: (after conv1 and conv2) in both storage dtypes; n = 4, whose forward
-#: window and its adjoint differ; an odd channel count over a row count
-#: that fills no block evenly.
+#: conv1's and conv2's LRN inputs at the minibatch of phase 5, as rows
+LRN_CONV1, LRN_CONV2 = ALEX_BATCH * 55 * 55, ALEX_BATCH * 27 * 27
+#: name, rows, C, x dtype, err dtype, n, offset, the route it must take,
+#: timed.  The two shapes of the slice (after conv1 and conv2) in both
+#: storage dtypes; n = 4, whose forward window and its adjoint differ; the
+#: vector kernels' edges: one vector a row (C = 8), a window no template
+#: takes reaching two vectors away (n = 19 at C = 32), x and err in
+#: different dtypes, row counts that fill no tile (21 rows of 96 a tile, 8
+#: of 256); and the general kernels: an odd channel count over a ragged row
+#: count, views ``offset`` elements into their buffers, off 16-byte
+#: boundaries.
 LRN_CASES = (
-    ("conv1", ALEX_BATCH * 55 * 55, 96, "bfloat16", 5, True),
-    ("conv2", ALEX_BATCH * 27 * 27, 256, "bfloat16", 5, True),
-    ("conv1_f32", ALEX_BATCH * 55 * 55, 96, "float32", 5, False),
-    ("conv2_f32", ALEX_BATCH * 27 * 27, 256, "float32", 5, False),
-    ("conv1_n4", ALEX_BATCH * 55 * 55, 96, "bfloat16", 4, False),
-    ("conv2_f32_n4", ALEX_BATCH * 27 * 27, 256, "float32", 4, False),
-    ("odd_ragged", 100003, 37, "bfloat16", 4, False),
-    ("odd_ragged_f32", 100003, 37, "float32", 5, False),
+    ("conv1", LRN_CONV1, 96, "bfloat16", "bfloat16", 5, 0, "vector", True),
+    ("conv2", LRN_CONV2, 256, "bfloat16", "bfloat16", 5, 0, "vector", True),
+    ("conv1_f32", LRN_CONV1, 96, "float32", "float32", 5, 0, "vector",
+     False),
+    ("conv2_f32", LRN_CONV2, 256, "float32", "float32", 5, 0, "vector",
+     False),
+    ("conv1_n4", LRN_CONV1, 96, "bfloat16", "bfloat16", 4, 0, "vector",
+     False),
+    ("conv2_f32_n4", LRN_CONV2, 256, "float32", "float32", 4, 0, "vector",
+     False),
+    ("c8", 100003, 8, "bfloat16", "bfloat16", 5, 0, "vector", False),
+    ("c8_f32_n3", 100003, 8, "float32", "float32", 3, 0, "vector", False),
+    ("c32_n19", 100003, 32, "bfloat16", "bfloat16", 19, 0, "vector", False),
+    ("c32_f32_n19", 100003, 32, "float32", "float32", 19, 0, "vector",
+     False),
+    ("x_f32_err_bf16", LRN_CONV2, 256, "float32", "bfloat16", 5, 0,
+     "vector", False),
+    ("x_bf16_err_f32", LRN_CONV1, 96, "bfloat16", "float32", 4, 0,
+     "vector", False),
+    ("conv1_ragged", 21 * 997 + 9, 96, "bfloat16", "bfloat16", 5, 0,
+     "vector", False),
+    ("conv2_ragged_f32", 8 * 997 + 5, 256, "float32", "float32", 4, 0,
+     "vector", False),
+    ("conv1_off", LRN_CONV1, 96, "bfloat16", "bfloat16", 5, 1, "general",
+     False),
+    ("conv2_off_f32", LRN_CONV2, 256, "float32", "float32", 5, 1,
+     "general", False),
+    ("odd_ragged", 100003, 37, "bfloat16", "bfloat16", 4, 0, "general",
+     False),
+    ("odd_ragged_f32", 100003, 37, "float32", "float32", 5, 0, "general",
+     False),
 )
+#: LRN row suffix → the channel count its launches are counted under
+LRN_ROW_CHANNELS = {"": 96, "_conv2": 256}
+#: input copies the LRN timings rotate over
+LRN_ROTATION = 3
 
 
 def _rel_tol(dtype) -> float:
@@ -686,75 +727,118 @@ def _rel_tol(dtype) -> float:
     return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
 
 
+def rotating(fn, copies):
+    """A call of ``fn`` on the next of ``copies`` (argument tuples) each
+    time, round and round."""
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
+
+
 def check_lrn(gen) -> dict:
-    """B1 and B2 against their plain versions, then their times and the
-    library call's (``F.local_response_norm`` with α·n, which computes
-    the same function, and its autograd)."""
+    """B1 and B2 against their plain versions on every case of
+    :data:`LRN_CASES`, each on the route the case names (read from the
+    wrappers' counters), then the times of the two timed shapes beside
+    the library call's (``F.local_response_norm`` with α·n, which
+    computes the same function, and its autograd).  The timed calls
+    rotate over :data:`LRN_ROTATION` copies of their inputs: conv2's
+    bf16 x and err (47.8 MB each) would fit the 50 MB L2, and
+    back-to-back calls on one buffer could read them faster than device
+    memory gives them.  The kernels' times come from calls captured in
+    a CUDA graph, as at conv2's shape the wrapper's enqueue (tens of µs
+    of Python) comes near the kernel's time and back-to-back calls may
+    time the host; their back-to-back times are printed beside."""
     import torch
     import torch.nn.functional as F
     from znicz_tpu_torch.ops import fused_kernels as fk
     rows = {}
-    for name, m, c, dtype_name, n, timed in LRN_CASES:
-        dtype = getattr(torch, dtype_name)
+    for (name, m, c, x_dtype, err_dtype, n, offset, route,
+         timed) in LRN_CASES:
+        dtype, edtype = getattr(torch, x_dtype), getattr(torch, err_dtype)
         cfg = dict(LRN_CFG, n=n)
         # conv outputs large enough that α·Σx² moves d well off k
-        x = (30.0 * torch.randn(m, c, generator=gen, device="cuda")).to(dtype)
-        err = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+        x = (30.0 * torch.randn(m * c + offset, generator=gen,
+                                device="cuda")).to(dtype)[offset:]
+        err = torch.randn(m * c + offset, generator=gen,
+                          device="cuda").to(edtype)[offset:]
+        x, err = x.view(m, c), err.view(m, c)
+        before = {fn: dict(fn.launches_by_route)
+                  for fn in (fk.lrn_forward, fk.lrn_backward)}
         y = fk.lrn_forward(x, **cfg)
         dx = fk.lrn_backward(x, err, **cfg)
+        took = {fn.__name__: [r for r in fk.LRN_ROUTES
+                              if fn.launches_by_route[r] != counts[r]]
+                for fn, counts in before.items()}
+        if any(t != [route] for t in took.values()):
+            raise AssertionError(f"LRN case '{name}' took the routes {took}, "
+                                 f"not {route}")
         ref_y = fk.lrn_forward_plain(x, **cfg)
         ref_dx = fk.lrn_backward_plain(x, err, **cfg)
         torch.cuda.synchronize()
         errs = {}
-        for key, got, ref in (("y", y, ref_y), ("dx", dx, ref_dx)):
-            tol = _rel_tol(dtype) * float(ref.float().abs().max())
+        for key, got, ref, want in (("y", y, ref_y, dtype),
+                                    ("dx", dx, ref_dx, edtype)):
+            tol = _rel_tol(want) * float(ref.float().abs().max())
             errs[key] = max_err(got, ref)
-            if got.dtype != dtype or got.shape != x.shape \
+            if got.dtype != want or got.shape != x.shape \
                     or not bool(torch.isfinite(got.float()).all()) \
                     or errs[key] > tol:
                 raise AssertionError(f"LRN {key} disagrees with its plain "
                                      f"version in case '{name}': "
                                      f"{errs[key]:.3g} > {tol:.3g}")
-        say(f"  lrn_forward/backward {name}: ({m}, {c}) {dtype_name} n={n} "
-            f"max_abs_err y={errs['y']:.3g} dx={errs['dx']:.3g} (tol "
-            f"{_rel_tol(dtype):.3g} x max|ref|)")
+        say(f"  lrn_forward/backward {name}: ({m}, {c}) x {x_dtype} err "
+            f"{err_dtype} n={n}, {route} route: max_abs_err y="
+            f"{errs['y']:.3g} (tol {_rel_tol(dtype):.3g} x max|ref|) dx="
+            f"{errs['dx']:.3g} (tol {_rel_tol(edtype):.3g} x max|ref|)")
         if not timed:
             continue
-        ms_f = time_ms(lambda: fk.lrn_forward(x, **cfg), 20)
-        ms_b = time_ms(lambda: fk.lrn_backward(x, err, **cfg), 20)
-        plain_f = time_ms(lambda: fk.lrn_forward_plain(x, **cfg), 5)
-        plain_b = time_ms(lambda: fk.lrn_backward_plain(x, err, **cfg), 5)
+        copies = [(x, err)] + [(x.clone(), err.clone())
+                               for _ in range(LRN_ROTATION - 1)]
+        fwd = rotating(lambda a, e: fk.lrn_forward(a, **cfg), copies)
+        bwd = rotating(lambda a, e: fk.lrn_backward(a, e, **cfg), copies)
+        calls = 7 * LRN_ROTATION
+        wrapper_f, wrapper_b = time_ms(fwd, calls), time_ms(bwd, calls)
+        ms_f, ms_b = graph_ms(fwd, calls), graph_ms(bwd, calls)
+        plain_f = time_ms(rotating(
+            lambda a, e: fk.lrn_forward_plain(a, **cfg), copies), 5)
+        plain_b = time_ms(rotating(
+            lambda a, e: fk.lrn_backward_plain(a, e, **cfg), copies), 5)
         lib_args = dict(size=n, alpha=cfg["alpha"] * n, beta=cfg["beta"],
                         k=cfg["k"])
-        x3 = x.view(m, c, 1)
-        lib_f = time_ms(lambda: F.local_response_norm(x3, **lib_args), 20)
-        xg = x3.detach().requires_grad_()
-        yl = F.local_response_norm(xg, **lib_args)
-        e3 = err.view(m, c, 1)
-        lib_b = time_ms(lambda: torch.autograd.grad(yl, xg, e3,
-                                                    retain_graph=True), 20)
+        lib_f = time_ms(rotating(
+            lambda a, e: F.local_response_norm(a.view(m, c, 1), **lib_args),
+            copies), 20)
+        graphs = []
+        for a, e in copies:
+            xg = a.view(m, c, 1).detach().requires_grad_()
+            graphs.append((F.local_response_norm(xg, **lib_args), xg,
+                           e.view(m, c, 1)))
+        lib_b = time_ms(rotating(
+            lambda yl, xg, e3: torch.autograd.grad(yl, xg, e3,
+                                                   retain_graph=True),
+            graphs), 20)
+        del graphs, copies
         elem, es = m * c, x.element_size()
-        for key, lib, ms, plain_ms, lib_ms, nbytes, ops, replaces in (
-                ("lrn_forward", "F.local_response_norm", ms_f, plain_f,
-                 lib_f, 2.0 * elem * es, elem * (2.0 * n + 6),
+        suffix = "" if name == "conv1" else "_" + name
+        for (key, lib, ms, wrapper_ms, plain_ms, lib_ms, nbytes, ops,
+             replaces) in (
+                ("lrn_forward", "F.local_response_norm", ms_f, wrapper_f,
+                 plain_f, lib_f, 2.0 * elem * es, elem * (2.0 * n + 6),
                  "znicz_tpu/ops/pallas_kernels.py:103"),
-                ("lrn_backward", "its autograd", ms_b, plain_b, lib_b,
-                 3.0 * elem * es, elem * (3.0 * n + 12),
+                ("lrn_backward", "its autograd", ms_b, wrapper_b, plain_b,
+                 lib_b, 3.0 * elem * es, elem * (3.0 * n + 12),
                  "znicz_tpu/ops/pallas_kernels.py:109")):
             bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_FLOP_S)
-            say(f"  {key} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, {lib} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}: {nbytes:.4g} B, {ops:.4g} f32 ops)")
-            if name != "conv1":
-                continue  # the row is conv1's, the larger of the two
-            rows[key] = {"name": key, "route": "cuda",
-                         "source": "znicz_tpu_torch/csrc/lrn.cu",
-                         "replaces": replaces,
-                         "max_abs_err": errs["y" if key == "lrn_forward"
-                                             else "dx"],
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": lib_ms}
+            say(f"  {key} {name}: kernel {ms:.4f} ms in a graph (back to "
+                f"back {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, {lib} "
+                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{nbytes:.4g} B, {ops:.4g} f32 ops; {100 * bound_ms / ms:.1f}"
+                f" % of it)")
+            rows[key + suffix] = {
+                "name": key + suffix, "route": "cuda",
+                "source": "znicz_tpu_torch/csrc/lrn.cu", "replaces": replaces,
+                "max_abs_err": errs["y" if key == "lrn_forward" else "dx"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms}
     return rows
 
 
@@ -944,19 +1028,29 @@ def unit_breakdown(model, x) -> None:
         + ", ".join(parts))
 
 
+#: the wrappers' counters of launches by kind: by variant (flash), by
+#: route and by channel count (LRN)
+SPLIT_COUNTERS = ("launches_by_variant", "launches_by_route",
+                  "launches_by_channels")
+
+
 def kernel_counters() -> dict:
-    """Row name of the ``kernels`` line → (wrapper, the variant its
-    launches are counted under, or None for the wrapper's own count)."""
+    """Row name of the ``kernels`` line → (wrapper, (its counter by kind,
+    the key its launches are counted under) or None for the wrapper's
+    own count)."""
     from znicz_tpu_torch.ops import flash_attention as fa
     from znicz_tpu_torch.ops import fused_kernels as fk
     table = {}
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv):
         for suffix, variant in ROW_VARIANT.items():
-            table[fn.__name__ + suffix] = (fn, variant)
+            table[fn.__name__ + suffix] = (fn, ("launches_by_variant",
+                                                variant))
+    for fn in (fk.lrn_forward, fk.lrn_backward):
+        for suffix, c in LRN_ROW_CHANNELS.items():
+            table[fn.__name__ + suffix] = (fn, ("launches_by_channels", c))
     for fn in (fk.layer_norm_forward, fk.layer_norm_backward,
-               fk.lrn_forward, fk.lrn_backward, fk.dropout_apply,
-               fk.softmax_argmax):
+               fk.dropout_apply, fk.softmax_argmax):
         table[fn.__name__] = (fn, None)
     return table
 
@@ -965,15 +1059,16 @@ def reset_counts() -> None:
     """Every launch counter to 0."""
     for fn, _ in kernel_counters().values():
         fn.launches = 0
-        for variant in getattr(fn, "launches_by_variant", {}):
-            fn.launches_by_variant[variant] = 0
+        for split in SPLIT_COUNTERS:
+            counts = getattr(fn, split, {})
+            for key in counts:
+                counts[key] = 0
 
 
 def read_counts() -> dict:
     """Row name → launches since :func:`reset_counts`."""
-    return {name: fn.launches_by_variant[variant] if variant
-            else fn.launches
-            for name, (fn, variant) in kernel_counters().items()}
+    return {name: getattr(fn, by[0])[by[1]] if by else fn.launches
+            for name, (fn, by) in kernel_counters().items()}
 
 
 def expect_counts(path: str, counts: dict, want: dict) -> None:
@@ -985,6 +1080,21 @@ def expect_counts(path: str, counts: dict, want: dict) -> None:
            if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"{path}: launches (got, want) {bad}")
+
+
+def closed_loop(eng, x):
+    """Sends ``eng`` 30 requests of 1, 3 and 16 rows of ``x`` in turn, each
+    after the last reply; returns their latencies in seconds, sorted, and
+    the rows served a second."""
+    lat, rows = [], 0
+    t_loop = time.perf_counter()
+    for i in range(30):
+        n = (1, 3, 16)[i % 3]
+        t_req = time.perf_counter()
+        eng(x[:n], timeout=300)
+        lat.append(time.perf_counter() - t_req)
+        rows += n
+    return sorted(lat), rows / (time.perf_counter() - t_loop)
 
 
 def serve_slice(path: str, kernels) -> dict:
@@ -1020,19 +1130,10 @@ def serve_slice(path: str, kernels) -> dict:
                     or np.abs(y.sum(axis=1) - 1.0).max() > 1e-4:
                 raise AssertionError(f"bad {n}-row reply: {y}")
             replies[n] = y
-        lat, rows = [], 0
-        t_loop = time.perf_counter()
-        for i in range(30):
-            n = (1, 3, 16)[i % 3]
-            t_req = time.perf_counter()
-            eng(x[:n], timeout=300)
-            lat.append(time.perf_counter() - t_req)
-            rows += n
-        wall = time.perf_counter() - t_loop
+        lat, rate = closed_loop(eng, x)
         launches = read_counts()
-        lat.sort()
         say(f"  served 30 sequential requests (1/3/16 rows): p50 latency "
-            f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rows / wall:.1f} rows/s, "
+            f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s, "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         unit_breakdown(eng.model, x)
@@ -1415,6 +1516,7 @@ def alexnet_flops(wf) -> float:
 def alexnet_slice() -> dict:
     import math
     import torch
+    from znicz_tpu_torch.ops import fused_kernels as fk
     from znicz_tpu_torch.loader.base import TRAIN
     warmup, steps = 2, 10
     torch.cuda.reset_peak_memory_stats()
@@ -1437,8 +1539,14 @@ def alexnet_slice() -> dict:
     say(f"  {warmup} + {steps} train steps (B={ALEX_BATCH}, 227×227×3, "
         f"bf16, dropout 0.5) in {host_s:.2f} s on the host clock")
     expect_counts("alexnet", launches, {
-        "lrn_forward": 2 * n, "lrn_backward": 2 * n,
-        "dropout_apply": 4 * n, "softmax_argmax": n})
+        "lrn_forward": n, "lrn_forward_conv2": n, "lrn_backward": n,
+        "lrn_backward_conv2": n, "dropout_apply": 4 * n,
+        "softmax_argmax": n})
+    routes = {fn.__name__: dict(fn.launches_by_route)
+              for fn in (fk.lrn_forward, fk.lrn_backward)}
+    say(f"  B1/B2 launches by route: {routes}")
+    if any(r != {"vector": 2 * n, "general": 0} for r in routes.values()):
+        raise AssertionError(f"alexnet: B1/B2 off the vector route: {routes}")
     loss = wf.decision.epoch_loss[TRAIN]
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"train loss {loss}")

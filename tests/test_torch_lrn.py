@@ -19,6 +19,7 @@ Tolerances (relative to the largest |reference|):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -152,3 +153,146 @@ def test_wrappers_take_the_plain_versions_for_cpu_tensors_only():
         fk.lrn_forward(x.to("meta"), n=5, **ALEXNET)
     with pytest.raises(ValueError, match="does not match"):
         fk.lrn_backward(x, err[:4], n=5, **ALEXNET)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_rule(dtype):
+    """Which kernel a call takes on the card (:func:`fk.lrn_route`), from
+    the channel count and the operands' addresses: AlexNet's two shapes
+    take the vector kernels; a channel count that is not a multiple of 8
+    or past 2048, or an operand off a 16-byte boundary, take the general
+    ones; past 16384 channels none does."""
+    def route(c, *tensors):
+        return fk.lrn_route(c, *(t.data_ptr() for t in tensors))
+
+    for c in (96, 256):  # after conv1 and conv2
+        x = torch.empty(21, c, dtype=dtype)
+        assert route(c, x, torch.empty_like(x)) == "vector"
+        assert route(c, x, x, torch.empty_like(x)) == "vector"
+    x = torch.empty(4, fk.LRN_VECTOR_MAX_CHANNELS, dtype=dtype)
+    assert route(x.shape[1], x) == "vector"
+    assert route(8, x) == "vector"
+    assert route(37, x) == "general"  # chip_smoke's odd_ragged
+    assert route(fk.LRN_VECTOR_MAX_CHANNELS + 8, x) == "general"
+    assert route(fk.LRN_MAX_CHANNELS, x) == "general"
+    # a view one element off a 16-byte boundary, and one 16 bytes off
+    flat = torch.empty(21 * 96 + 16, dtype=dtype)
+    per16 = 16 // flat.element_size()
+    off = flat[1:1 + 21 * 96].view(21, 96)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert route(96, flat, off) == "general"
+    assert route(96, flat[per16:per16 + 21 * 96].view(21, 96)) == "vector"
+    with pytest.raises(ValueError, match="up to 16384 channels"):
+        fk.lrn_route(fk.LRN_MAX_CHANNELS + 8, x.data_ptr())
+
+
+#: the vector kernels' block (csrc/lrn.cu) and the window whose halos
+#: they keep in registers
+THREADS, REGISTER_WINDOW = 256, 5
+
+
+def _vector_windows(own, staged, c, lo, hi, in_registers):
+    """``window_sums`` of ``csrc/lrn.cu`` for every thread of every tile:
+    own (tiles, THREADS, V) the thread's values, staged (tiles, V,
+    THREADS) the tile's values as the threads wrote them (element e of
+    vector v at [e, v]); each sum added in channel order over
+    [i − lo, i + hi], a channel outside the row adding 0.  With
+    ``in_registers`` the terms in the thread's own vector come from own
+    and the halos from staged; otherwise a window of V terms, first read
+    from staged at tap −lo, slides one channel a tap and reads its one
+    new term from staged."""
+    v = fk.LRN_VECTOR
+    vec = torch.arange(THREADS)
+    c0 = (vec % (c // v)) * v
+    zero = torch.zeros(own.shape[:2])
+
+    def value(o):  # channel c0 + o: element o mod V of vector o div V
+        if in_registers and 0 <= o < v:
+            return own[..., o]
+        near = staged[:, o % v, (vec + o // v).clamp(0, THREADS - 1)]
+        return torch.where((c0 + o >= 0) & (c0 + o < c), near, zero)
+
+    sums = [zero] * v
+    if in_registers:
+        for j in range(-lo, hi + 1):
+            sums = [sums[i] + value(i + j) for i in range(v)]
+        return torch.stack(sums, -1)
+    w = [value(i - lo) for i in range(v)]
+    for j in range(-lo, hi + 1):
+        sums = [sums[i] + w[i] for i in range(v)]
+        w = w[1:] + [value(v + j)]
+    return torch.stack(sums, -1)
+
+
+def _vector_kernel_order(x, err, alpha, beta, k, n):
+    """The vector kernels' order of work in torch, f32 math on the stored
+    values: 256 threads a tile of whole rows, V = 8 channels a thread,
+    the squares staged and the window summed by :func:`_vector_windows`;
+    the backward keeps err·d^(−β) and stages t for the adjoint window.
+    Returns (y, dx) in f32."""
+    v = fk.LRN_VECTOR
+    rows, c = x.shape
+    per_tile = THREADS // (c // v)
+    tiles = -(-rows // per_tile)
+    lo, hi = n // 2, n - 1 - n // 2
+    regs = n == REGISTER_WINDOW
+
+    def own(a):  # (rows, c) → (tiles, THREADS, V); no thread past the rows
+        a = F.pad(a.float(), (0, 0, 0, tiles * per_tile - rows))
+        a = a.reshape(tiles, per_tile * c // v, v)
+        return F.pad(a, (0, 0, 0, THREADS - per_tile * c // v))
+
+    def back(a):
+        return a[:, :per_tile * c // v].reshape(-1, c)[:rows]
+
+    f32 = torch.float32
+    alpha_, beta_, k_ = (torch.tensor(a, dtype=f32) for a in (alpha, beta, k))
+    xv, ev = own(x), own(err)
+    sq = xv * xv
+    sums = _vector_windows(sq, sq.transpose(1, 2), c, lo, hi, regs)
+    d = k_ + alpha_ * sums
+    p = fk._pow_neg(d, beta)
+    y = xv * p
+    t = ev * xv * (p / d)
+    adj = _vector_windows(t, t.transpose(1, 2), c, hi, lo, regs)
+    dx = ev * p - 2.0 * alpha_ * beta_ * xv * adj
+    return back(y), back(dx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c,n", [
+    (40, 96, 5),    # conv1's width: 21 rows a tile, the second one short
+    (40, 96, 4),    # an even window: its adjoint differs
+    (40, 96, 3),
+    (20, 256, 5),   # conv2's width: 8 rows a tile
+    (20, 256, 4),
+    (9, 8, 5),      # one vector a row
+    (9, 8, 3),
+    (33, 32, 19),   # any n: the sliding window, two vectors away
+    (30, 24, 2),
+])
+def test_vector_kernel_order_matches_reference_kernel(dtype, rows, c, n):
+    """The vector kernels' order of work, emulated in torch on the CPU
+    (:func:`_vector_kernel_order`), against the reference's Pallas
+    ``lrn_forward``/``lrn_backward`` in interpret mode, on the same
+    stored values: the file's ``F32_TOL``, or one bf16 step where y and
+    dx are stored in bf16.  The emulation's f32 results also match the
+    port's plain versions: the same terms in the same order."""
+    tdt = getattr(torch, dtype)
+    cfg = dict(ALEXNET, n=n)
+    x = torch.from_numpy(_x(rows, c, seed=rows + c + n)).to(tdt)
+    err = torch.from_numpy(np.random.default_rng(n).normal(
+        0, 1, (rows, c)).astype(np.float32)).to(tdt)
+    want_y = np.asarray(pallas_kernels.lrn_forward(
+        jnp.asarray(x.float().numpy()), interpret=True, **cfg))
+    want_dx = np.asarray(pallas_kernels.lrn_backward(
+        jnp.asarray(x.float().numpy()), jnp.asarray(err.float().numpy()),
+        interpret=True, **cfg))
+    y, dx = _vector_kernel_order(x, err, **cfg)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert _rel(y.to(tdt).float(), want_y) <= tol
+    assert _rel(dx.to(tdt).float(), want_dx) <= tol
+    plain_y = fk.lrn_forward_plain(x.float(), **cfg)
+    plain_dx = fk.lrn_backward_plain(x.float(), err.float(), **cfg)
+    assert _rel(y, plain_y.numpy()) <= F32_TOL
+    assert _rel(dx, plain_dx.numpy()) <= F32_TOL

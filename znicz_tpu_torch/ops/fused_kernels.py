@@ -17,6 +17,13 @@ as (rows, C):
   over the window's adjoint (``[c − (n − 1 − n//2), c + n//2]``, not
   the forward's window when n is even), dx in err's dtype.
 
+Each picks one of the source's two kernels by :func:`lrn_route`, a
+rule on the channel count and the operands' addresses: the vector
+kernels (8 channels a thread, 128-bit accesses) where they take the
+shape, AlexNet's among them, the general kernels elsewhere.  Each
+counts its launches in all, by route (``launches_by_route``) and by
+channel count (``launches_by_channels``).
+
 Dropout and the softmax head:
 
 - :func:`dropout_apply` wraps ``csrc/dropout.cu``, which replaces
@@ -44,6 +51,7 @@ The layer norm, both directions:
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -75,7 +83,10 @@ def _lib(stem: str) -> ctypes.CDLL:
                     [p, p, p, p, p, p, p, ll, i, f, i, i, i, p], i)},
             "lrn": {
                 "znicz_lrn_fwd": ([p, p, ll, i, i, f, f, f, i, p], i),
-                "znicz_lrn_bwd": ([p, p, p, ll, i, i, f, f, f, i, i, p], i)},
+                "znicz_lrn_bwd": ([p, p, p, ll, i, i, f, f, f, i, i, p], i),
+                "znicz_lrn_fwd_vec": ([p, p, ll, i, i, f, f, f, i, p], i),
+                "znicz_lrn_bwd_vec": (
+                    [p, p, p, ll, i, i, f, f, f, i, i, p], i)},
             "dropout": {
                 "znicz_dropout": (
                     [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i)},
@@ -272,8 +283,19 @@ def layer_norm_backward_plain(x: torch.Tensor, err: torch.Tensor,
 # ----------------------------------------------------------------------
 # LRN (B1, B2)
 # ----------------------------------------------------------------------
-#: the widest channel axis the LRN kernels stage in shared memory
+#: the widest channel axis the LRN kernels take (the general kernels stage
+#: whole rows in shared memory)
 LRN_MAX_CHANNELS = 16384
+#: channels a thread of the vector kernels owns: one 16-byte load in bf16
+LRN_VECTOR = 8
+#: the widest row the vector kernels take: a block of 256 threads, a
+#: vector each, holds whole rows
+LRN_VECTOR_MAX_CHANNELS = 256 * LRN_VECTOR
+#: the LRN kernels' launch counters by route (:func:`lrn_route`)
+LRN_ROUTES = ("vector", "general")
+#: route → (forward, backward) C entry point of ``csrc/lrn.cu``
+_LRN_ENTRY = {"vector": ("znicz_lrn_fwd_vec", "znicz_lrn_bwd_vec"),
+              "general": ("znicz_lrn_fwd", "znicz_lrn_bwd")}
 
 
 def _window_sum(a: torch.Tensor, n: int, half_low: int) -> torch.Tensor:
@@ -301,38 +323,63 @@ def _check_lrn(x: torch.Tensor, n: int) -> None:
                          f"got shape {tuple(x.shape)} and n={n}")
 
 
+def lrn_route(c: int, *pointers: int) -> str:
+    """Which LRN kernel takes ``C`` channels and operands at the addresses
+    ``pointers``: ``"vector"`` when C is a multiple of
+    :data:`LRN_VECTOR` up to :data:`LRN_VECTOR_MAX_CHANNELS` and every
+    pointer lies on a 16-byte boundary, else ``"general"`` (any n goes
+    either way).  Past :data:`LRN_MAX_CHANNELS` no kernel does."""
+    if c > LRN_MAX_CHANNELS:
+        raise ValueError(f"the LRN kernels take up to {LRN_MAX_CHANNELS} "
+                         f"channels, got {c}")
+    if (c % LRN_VECTOR == 0 and c <= LRN_VECTOR_MAX_CHANNELS
+            and all(p % 16 == 0 for p in pointers)):
+        return "vector"
+    return "general"
+
+
 def _lrn_rows(x: torch.Tensor) -> tuple[int, int]:
     """``(rows, C)`` of a tensor the LRN kernels take: contiguous f32 or
-    bf16 on the card, at most :data:`LRN_MAX_CHANNELS` channels."""
+    bf16 on the card."""
     _check_card_tensor("x", x, _KERNEL_DTYPES)
     c = x.shape[-1]
-    if c > LRN_MAX_CHANNELS:
-        raise ValueError(f"the LRN kernel takes up to {LRN_MAX_CHANNELS} "
-                         f"channels, got {c}")
     return (x.numel() // c if c else 0), c
+
+
+def _count_lrn(fn, route: str, c: int) -> None:
+    """One launch of ``fn``'s kernel on ``route`` for rows of ``c``
+    channels."""
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+    fn.launches_by_channels[c] += 1
 
 
 def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float,
                 n: int) -> torch.Tensor:
     """Cross-channel LRN over the last axis of ``x``: y with x's shape
     and dtype.  On the card x is contiguous f32 or bf16 with at most
-    :data:`LRN_MAX_CHANNELS` channels."""
+    :data:`LRN_MAX_CHANNELS` channels, and :func:`lrn_route` picks the
+    kernel."""
     _check_lrn(x, n)
     if x.device.type == "cpu":
         return lrn_forward_plain(x, alpha, beta, k, n)
     rows, c = _lrn_rows(x)
     y = torch.empty_like(x)
+    route = lrn_route(c, x.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
-        err = _lib("lrn").znicz_lrn_fwd(
+        err = getattr(_lib("lrn"), _LRN_ENTRY[route][0])(
             x.data_ptr(), y.data_ptr(), rows, c, n, alpha, beta, k,
             _KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "lrn_forward")
-    lrn_forward.launches += 1
+    _count_lrn(lrn_forward, route, c)
     return y
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all, by
+#: route and by channel count
 lrn_forward.launches = 0
+lrn_forward.launches_by_route = dict.fromkeys(LRN_ROUTES, 0)
+lrn_forward.launches_by_channels = collections.Counter()
 
 
 def lrn_forward_plain(x: torch.Tensor, alpha: float, beta: float, k: float,
@@ -349,7 +396,8 @@ def lrn_backward(x: torch.Tensor, err: torch.Tensor, alpha: float,
                  beta: float, k: float, n: int) -> torch.Tensor:
     """The LRN's analytic gradient: dx with x's shape in err's dtype.
     On the card x and err are contiguous f32 or bf16 (each on its own)
-    with at most :data:`LRN_MAX_CHANNELS` channels."""
+    with at most :data:`LRN_MAX_CHANNELS` channels, and
+    :func:`lrn_route` picks the kernel."""
     _check_lrn(x, n)
     if err.shape != x.shape or err.device != x.device:
         raise ValueError(f"err {tuple(err.shape)} on {err.device} does not "
@@ -359,18 +407,22 @@ def lrn_backward(x: torch.Tensor, err: torch.Tensor, alpha: float,
     _check_card_tensor("err", err, _KERNEL_DTYPES)
     rows, c = _lrn_rows(x)
     dx = torch.empty_like(err)
+    route = lrn_route(c, x.data_ptr(), err.data_ptr(), dx.data_ptr())
     with torch.cuda.device(x.device):
-        code = _lib("lrn").znicz_lrn_bwd(
+        code = getattr(_lib("lrn"), _LRN_ENTRY[route][1])(
             x.data_ptr(), err.data_ptr(), dx.data_ptr(), rows, c, n, alpha,
             beta, k, _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[err.dtype],
             _stream(x))
     _raise_on(code, "lrn_backward")
-    lrn_backward.launches += 1
+    _count_lrn(lrn_backward, route, c)
     return dx
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all, by
+#: route and by channel count
 lrn_backward.launches = 0
+lrn_backward.launches_by_route = dict.fromkeys(LRN_ROUTES, 0)
+lrn_backward.launches_by_channels = collections.Counter()
 
 
 def lrn_backward_plain(x: torch.Tensor, err: torch.Tensor, alpha: float,
