@@ -22,7 +22,15 @@ Phases (any failure raises and exits non-zero):
    backward, and on views whose rows are off 16-byte boundaries), fully
    masked rows exactly at out 0 and lse −1e30, and the
    dh = 4 attention core launching none of them; the layer norm both
-   ways (B5, B6); the LRN both ways (B1, B2) on both of its routes,
+   ways (B5, B6) on both of its routes, each case on the one it must
+   take: the register kernels at the sequence stack's training shape in
+   both dtypes, serving's 2048-row bucket, the widest row (1024), 3
+   vectors a lane and ragged row counts, the general kernels on a width
+   that is not a multiple of 8, one past 1024 and views off 16-byte
+   boundaries; B6's sums the same bits on a rerun; the timed shapes in
+   CUDA graphs over three rotating input copies, B6's two launches (rows,
+   fold) apart from a profiler window; the LRN both ways (B1, B2) on both
+   of its routes,
    each case on the one it must take: the vector kernels at AlexNet's
    two shapes in both storage dtypes, n = 5 and 4, at their edges (one
    vector a row, n = 19, mixed dtypes, tiles left short), the general
@@ -42,13 +50,15 @@ Phases (any failure raises and exits non-zero):
    format (attention 8 heads → layer_norm → softmax over 8 classes,
    T=2048, D=512, weights from a fixed seed), serves ragged requests of
    1, 3 and 16 rows through ``ServingEngine(max_batch=16)``, checks
-   that B7, B5 and B4 launched on every dispatch, and holds the 1-row
-   reply against ``ExportedModel.load(path, device="cpu")``;
+   that B7, B5 and B4 launched on every dispatch, B5 on its register
+   route only, and holds the 1-row reply against
+   ``ExportedModel.load(path, device="cpu")``;
 4. sequence training: the same stack (bf16, momentum SGD on every
    layer, as ``benchmarks/seq_bench.py`` trains it) through the port's
    ``StandardWorkflow`` on 4 × 16 samples made from a fixed seed,
    ``initialize()`` with no device (the card), 2 warm-up and 10 timed
-   train steps; B4–B9 launch once a step; prints the step time,
+   train steps; B4–B9 launch once a step, B5 and B6 on their register
+   route only (as in phase 6); prints the step time,
    tokens/s, MFU, the device time of each unit, the profiler's busy
    share and top kernels and the peak memory; then holds one train
    step on the card (B=2, full T and D) against the same step on the
@@ -517,14 +527,33 @@ def check_flash_bwd(gen) -> dict:
     return rows
 
 
-#: name, rows, D, dtype, with beta
+#: name, rows, D, dtype, with beta, offset (elements the operands lie
+#: into their buffers), the route it must take (fused_kernels.
+#: layer_norm_route), and the kernel row it is timed for ("bucket1":
+#: timed and printed only; None: not timed).  The sequence stack's
+#: shapes: training (16·2048 rows) in both dtypes, serving's bucket of 1
+#: (2048 rows); the register kernels' edges: the widest row (1024) in
+#: both dtypes, 3 vectors a lane (520), ragged row counts; and the general
+#: kernels: a width that is not a multiple of 8, one past 1024, and views
+#: off 16-byte boundaries.
 LN_CASES = (
-    ("serving", BATCH * SEQ, DIM, "bfloat16", True),
-    ("no_beta", BATCH * SEQ, DIM, "bfloat16", False),
-    ("f32", BATCH * SEQ, DIM, "float32", True),
-    ("f32_no_beta", BATCH * SEQ, DIM, "float32", False),
-    ("ragged_width", 1000, 100, "bfloat16", True),
+    ("serving", BATCH * SEQ, DIM, "bfloat16", True, 0, "register", ""),
+    ("no_beta", BATCH * SEQ, DIM, "bfloat16", False, 0, "register", None),
+    ("f32", BATCH * SEQ, DIM, "float32", True, 0, "register", "_f32"),
+    ("f32_no_beta", BATCH * SEQ, DIM, "float32", False, 0, "register",
+     None),
+    ("bucket1", SEQ, DIM, "bfloat16", True, 0, "register", "bucket1"),
+    ("wide", 4099, 1024, "bfloat16", True, 0, "register", None),
+    ("wide_f32", 4099, 1024, "float32", False, 0, "register", None),
+    ("d520_f32", 3001, 520, "float32", True, 0, "register", None),
+    ("ragged_width", 1000, 100, "bfloat16", True, 0, "general", None),
+    ("past_1024", 1000, 1032, "float32", True, 0, "general", None),
+    ("off16", 4096, DIM, "bfloat16", True, 1, "general", None),
 )
+#: layer-norm row suffix → the x dtype its launches are counted under
+LN_ROW_DTYPE = {"": "bfloat16", "_f32": "float32"}
+#: input copies the layer-norm timings rotate over
+LN_ROTATION = 3
 
 
 def _ln_tol(dtype, ref) -> float:
@@ -537,77 +566,161 @@ def _ln_tol(dtype, ref) -> float:
     return 1e-5
 
 
+def _ln_operands(gen, m, d, dtype, offset, n):
+    """``n`` (m, d) tensors of ``dtype`` (x, then err), each a view
+    ``offset`` elements into its buffer: x ~ 2·N + 0.5, err ~ 0.1·N."""
+    import torch
+    out = []
+    for scale, shift in ((2.0, 0.5), (0.1, 0.0))[:n]:
+        flat = (scale * torch.randn(m * d + offset, generator=gen,
+                                    device="cuda") + shift).to(dtype)
+        out.append(flat[offset:].view(m, d))
+    return out
+
+
+def _took(fn, before: dict) -> list:
+    """The routes ``fn`` launched on since its by-route counts were
+    ``before``."""
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    return [r for r in fk.LN_ROUTES if fn.launches_by_route[r] != before[r]]
+
+
 def check_layer_norm(gen) -> dict:
+    """B5 against its plain version on every case of :data:`LN_CASES`,
+    each on the route the case names (read from the wrapper's counters);
+    then the timed cases: the kernel in CUDA graphs over
+    :data:`LN_ROTATION` input copies (back-to-back calls printed beside:
+    at serving's 2 MB bucket the wrapper's enqueue outlasts the kernel),
+    the plain version, and ``F.layer_norm`` in graphs over the same
+    copies.  Rotating matters: a 32 MB bf16 x would stay in the 50 MB
+    L2."""
     import torch
     import torch.nn.functional as F
     from znicz_tpu_torch.ops import fused_kernels as fk
-    row = None
+    rows = {}
     eps = 1e-5
-    for name, m, d, dtype_name, with_beta in LN_CASES:
+    for name, m, d, dtype_name, with_beta, offset, route, timed in LN_CASES:
         dtype = getattr(torch, dtype_name)
-        x = (torch.randn(m, d, generator=gen, device="cuda") * 2.0
-             + 0.5).to(dtype)
+        (x,) = _ln_operands(gen, m, d, dtype, offset, 1)
         gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         beta = (0.1 * torch.randn(d, generator=gen, device="cuda")
                 if with_beta else None)
+        before = dict(fk.layer_norm_forward.launches_by_route)
         y = fk.layer_norm_forward(x, gamma, beta, eps)
+        took = _took(fk.layer_norm_forward, before)
         ref = fk.layer_norm_forward_plain(x, gamma, beta, eps)
         torch.cuda.synchronize()
         err, tol = max_err(y, ref), _ln_tol(dtype, ref)
         say(f"  layer_norm_forward {name}: ({m}, {d}) {dtype_name} "
-            f"beta={with_beta} max_abs_err={err:.3g} (tol {tol:.3g})")
+            f"beta={with_beta} offset={offset}, {took} route: "
+            f"max_abs_err={err:.3g} (tol {tol:.3g})")
+        if took != [route]:
+            raise AssertionError(f"layer_norm_forward case '{name}' took "
+                                 f"the routes {took}, not {route}")
         if y.dtype != x.dtype or not bool(torch.isfinite(y.float()).all()) \
                 or err > tol:
             raise AssertionError(f"layer_norm_forward disagrees with its "
                                  f"plain version in case '{name}'")
-        if name != "serving":
+        if timed is None:
             continue
-        ms = time_ms(lambda: fk.layer_norm_forward(x, gamma, beta, eps), 50)
-        plain_ms = time_ms(
-            lambda: fk.layer_norm_forward_plain(x, gamma, beta, eps), 20)
-        g16, b16 = gamma.to(dtype), beta.to(dtype)
-        lib_ms = time_ms(lambda: F.layer_norm(x, (d,), g16, b16, eps), 50)
+        copies = [(x,)] + [(x.clone(),) for _ in range(LN_ROTATION - 1)]
+        fwd = rotating(lambda a: fk.layer_norm_forward(a, gamma, beta, eps),
+                       copies)
+        calls = 7 * LN_ROTATION
+        wrapper_ms, ms = time_ms(fwd, calls), graph_ms(fwd, calls)
+        plain_ms = time_ms(rotating(
+            lambda a: fk.layer_norm_forward_plain(a, gamma, beta, eps),
+            copies), 5)
+        g_t = gamma.to(dtype)
+        b_t = None if beta is None else beta.to(dtype)
+        lib_ms = graph_ms(rotating(
+            lambda a: F.layer_norm(a, (d,), g_t, b_t, eps), copies), calls)
+        del copies
         elem = m * d
         nbytes = 2.0 * elem * x.element_size() + 4.0 * d * 2
         bound_ms, bound_by = bound(nbytes, 8.0 * elem, PEAK_F32_FLOP_S)
-        say(f"  layer_norm_forward {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B)")
-        row = {"name": "layer_norm_forward", "route": "cuda",
-               "source": "znicz_tpu_torch/csrc/layer_norm_fwd.cu",
-               "replaces": "znicz_tpu/ops/pallas_kernels.py:182",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms}
-    return row
+        say(f"  layer_norm_forward {name}: kernel {ms:.5f} ms in a graph "
+            f"(back to back {wrapper_ms:.5f}), plain {plain_ms:.4f} ms, "
+            f"F.layer_norm {lib_ms:.5f} ms in a graph, bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {nbytes:.4g} B; "
+            f"{100 * bound_ms / ms:.1f} % of it)")
+        if timed not in LN_ROW_DTYPE:
+            continue
+        rows["layer_norm_forward" + timed] = {
+            "name": "layer_norm_forward" + timed, "route": "cuda",
+            "source": "znicz_tpu_torch/csrc/layer_norm_fwd.cu",
+            "replaces": "znicz_tpu/ops/pallas_kernels.py:182",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    return rows
 
 
-#: name, rows, D, dtype, with beta; 32771 rows fit no block tiling
+#: name, rows, D, dtype, with beta, offset, route, the kernel row it is
+#: timed for (None: not timed); 32771 rows fit no block tiling
 LN_BWD_CASES = (
-    ("training", BATCH * SEQ, DIM, "bfloat16", True),
-    ("no_beta", BATCH * SEQ, DIM, "bfloat16", False),
-    ("f32", BATCH * SEQ, DIM, "float32", True),
-    ("ragged_width", 1000, 100, "bfloat16", True),
-    ("ragged_rows", 32771, DIM, "bfloat16", True),
+    ("training", BATCH * SEQ, DIM, "bfloat16", True, 0, "register", ""),
+    ("no_beta", BATCH * SEQ, DIM, "bfloat16", False, 0, "register", None),
+    ("f32", BATCH * SEQ, DIM, "float32", True, 0, "register", "_f32"),
+    ("ragged_rows", 32771, DIM, "bfloat16", True, 0, "register", None),
+    ("seq_pass", 4 * 1024, DIM, "float32", True, 0, "register", None),
+    ("wide", 4099, 1024, "bfloat16", True, 0, "register", None),
+    ("wide_f32", 4099, 1024, "float32", True, 0, "register", None),
+    ("d520_f32", 3001, 520, "float32", False, 0, "register", None),
+    ("one_row", 1, DIM, "bfloat16", True, 0, "register", None),
+    ("ragged_width", 1000, 100, "bfloat16", True, 0, "general", None),
+    ("past_1024", 1000, 1032, "float32", True, 0, "general", None),
+    ("off16", 4096, DIM, "bfloat16", True, 1, "general", None),
 )
 #: the f32 γ/β sums against the plain version, per column, relative to
 #: the sum of the absolute terms: both add f32 terms, in other orders
 LN_SUM_TOL = 1e-5
 
 
+def kernel_split_ms(fn, calls: int, names) -> dict:
+    """Mean device time a call of each kernel whose name contains one of
+    ``names``, from a ``torch.profiler`` window over ``calls`` calls of
+    ``fn`` (0.0 where the profiler saw none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for key in names:
+            if key + "<" in e.key or key + "(" in e.key:
+                out[key] += getattr(e, "self_device_time_total", getattr(
+                    e, "self_cuda_time_total", 0)) / 1e3 / calls
+    return out
+
+
 def check_layer_norm_bwd(gen) -> dict:
+    """B6 against its plain version on every case of
+    :data:`LN_BWD_CASES`, each on the route the case names, its sums
+    the same bits on a rerun; then the timed cases as
+    :func:`check_layer_norm` times them, beside
+    ``native_layer_norm_backward`` in graphs, and its two launches (the
+    rows kernel and the fold over blocks) apart from a profiler
+    window."""
     import torch
     from znicz_tpu_torch.ops import fused_kernels as fk
-    row = None
+    rows = {}
     eps = 1e-5
-    for name, m, d, dtype_name, with_beta in LN_BWD_CASES:
+    for name, m, d, dtype_name, with_beta, offset, route, timed in \
+            LN_BWD_CASES:
         dtype = getattr(torch, dtype_name)
-        x = (torch.randn(m, d, generator=gen, device="cuda") * 2.0
-             + 0.5).to(dtype)
-        err = (0.1 * torch.randn(m, d, generator=gen,
-                                 device="cuda")).to(dtype)
+        x, err = _ln_operands(gen, m, d, dtype, offset, 2)
         gamma = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        before = dict(fk.layer_norm_backward.launches_by_route)
         dx, gg, gb = fk.layer_norm_backward(x, err, gamma, eps, with_beta)
+        took = _took(fk.layer_norm_backward, before)
         rdx, rgg, rgb = fk.layer_norm_backward_plain(x, err, gamma, eps,
                                                      with_beta)
         again = fk.layer_norm_backward(x, err, gamma, eps, with_beta)
@@ -625,39 +738,59 @@ def check_layer_norm_bwd(gen) -> dict:
         same_bits = all(torch.equal(a, b) for a, b in
                         zip((dx, gg, gb), again) if a is not None)
         say(f"  layer_norm_backward {name}: ({m}, {d}) {dtype_name} "
-            f"beta={with_beta} dx max_abs_err={err_dx:.3g} (tol "
-            f"{dx_tol:.3g}), sums max rel_err gamma={rel_g:.3g} "
-            f"beta={rel_b:.3g} (tol {LN_SUM_TOL} of sum |terms|), rerun "
-            f"bitwise={same_bits}")
+            f"beta={with_beta} offset={offset}, {took} route: dx "
+            f"max_abs_err={err_dx:.3g} (tol {dx_tol:.3g}), sums max rel_err "
+            f"gamma={rel_g:.3g} beta={rel_b:.3g} (tol {LN_SUM_TOL} of sum "
+            f"|terms|), rerun bitwise={same_bits}")
+        if took != [route]:
+            raise AssertionError(f"layer_norm_backward case '{name}' took "
+                                 f"the routes {took}, not {route}")
         if dx.dtype != err.dtype or err_dx > dx_tol \
                 or rel_g > LN_SUM_TOL or rel_b > LN_SUM_TOL \
                 or (gb is None) == with_beta or not same_bits \
                 or not bool(torch.isfinite(dx.float()).all()):
             raise AssertionError(f"layer_norm_backward disagrees with its "
                                  f"plain version in case '{name}'")
-        if name != "training":
+        if timed is None:
             continue
-        args = (x, err, gamma, eps, with_beta)
-        ms = time_ms(lambda: fk.layer_norm_backward(*args), 50)
-        plain_ms = time_ms(lambda: fk.layer_norm_backward_plain(*args), 20)
-        g16, b16 = gamma.to(dtype), torch.zeros_like(gamma).to(dtype)
-        _, mean, rstd = torch.ops.aten.native_layer_norm(x, (d,), g16, b16,
-                                                         eps)
-        lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            err, x, (d,), mean, rstd, g16, b16, [True, True, True]), 50)
+        copies = [(x, err)] + [(x.clone(), err.clone())
+                               for _ in range(LN_ROTATION - 1)]
+        bwd = rotating(lambda a, e: fk.layer_norm_backward(
+            a, e, gamma, eps, with_beta), copies)
+        calls = 7 * LN_ROTATION
+        wrapper_ms, ms = time_ms(bwd, calls), graph_ms(bwd, calls)
+        kernels = ("ln_bwd_reg_kernel", "ln_bwd_reg_fold_kernel")
+        split = kernel_split_ms(bwd, calls, kernels)
+        plain_ms = time_ms(rotating(
+            lambda a, e: fk.layer_norm_backward_plain(a, e, gamma, eps,
+                                                      with_beta), copies), 5)
+        g_t, b_t = gamma.to(dtype), torch.zeros_like(gamma).to(dtype)
+        stats = [torch.ops.aten.native_layer_norm(a, (d,), g_t, b_t, eps)[1:]
+                 for a, _ in copies]
+        lib_ms = graph_ms(rotating(
+            lambda a, e, mean, rstd: torch.ops.aten.native_layer_norm_backward(
+                e, a, (d,), mean, rstd, g_t, b_t, [True, True, with_beta]),
+            [c + s for c, s in zip(copies, stats)]), calls)
+        del copies, stats
         elem = m * d
         nbytes = 3.0 * elem * x.element_size() + 4.0 * d * 3
         bound_ms, bound_by = bound(nbytes, 20.0 * elem, PEAK_F32_FLOP_S)
-        say(f"  layer_norm_backward {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, native_layer_norm_backward {lib_ms:.4f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B)")
-        row = {"name": "layer_norm_backward", "route": "cuda",
-               "source": "znicz_tpu_torch/csrc/layer_norm_bwd.cu",
-               "replaces": "znicz_tpu/ops/pallas_kernels.py:191",
-               "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms}
-    return row
+        say(f"  layer_norm_backward {name}: kernel {ms:.5f} ms in a graph "
+            f"(back to back {wrapper_ms:.5f}; profiler: rows kernel "
+            f"{split[kernels[0]]:.5f} ms, fold {split[kernels[1]]:.5f} ms), "
+            f"plain {plain_ms:.4f} ms, native_layer_norm_backward "
+            f"{lib_ms:.5f} ms in a graph, bound {bound_ms:.5f} ms "
+            f"({bound_by}: {nbytes:.4g} B; {100 * bound_ms / ms:.1f} % of "
+            f"it)")
+        rows["layer_norm_backward" + timed] = {
+            "name": "layer_norm_backward" + timed, "route": "cuda",
+            "source": "znicz_tpu_torch/csrc/layer_norm_bwd.cu",
+            "replaces": "znicz_tpu/ops/pallas_kernels.py:191",
+            "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "split_ms": {"rows": split[kernels[0]],
+                         "fold": split[kernels[1]]}}
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -1029,9 +1162,10 @@ def unit_breakdown(model, x) -> None:
 
 
 #: the wrappers' counters of launches by kind: by variant (flash), by
-#: route and by channel count (LRN)
+#: route (LRN, layer norm), by channel count (LRN) and by x's dtype
+#: (layer norm)
 SPLIT_COUNTERS = ("launches_by_variant", "launches_by_route",
-                  "launches_by_channels")
+                  "launches_by_channels", "launches_by_dtype")
 
 
 def kernel_counters() -> dict:
@@ -1049,8 +1183,10 @@ def kernel_counters() -> dict:
     for fn in (fk.lrn_forward, fk.lrn_backward):
         for suffix, c in LRN_ROW_CHANNELS.items():
             table[fn.__name__ + suffix] = (fn, ("launches_by_channels", c))
-    for fn in (fk.layer_norm_forward, fk.layer_norm_backward,
-               fk.dropout_apply, fk.softmax_argmax):
+    for fn in (fk.layer_norm_forward, fk.layer_norm_backward):
+        for suffix, dtype in LN_ROW_DTYPE.items():
+            table[fn.__name__ + suffix] = (fn, ("launches_by_dtype", dtype))
+    for fn in (fk.dropout_apply, fk.softmax_argmax):
         table[fn.__name__] = (fn, None)
     return table
 
@@ -1080,6 +1216,18 @@ def expect_counts(path: str, counts: dict, want: dict) -> None:
            if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"{path}: launches (got, want) {bad}")
+
+
+def expect_ln_register(path: str) -> None:
+    """Every layer-norm launch since :func:`reset_counts` went by the
+    register route: each path of phases 3, 4 and 6 runs at D = 512."""
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    by_route = {fn.__name__: dict(fn.launches_by_route)
+                for fn in (fk.layer_norm_forward, fk.layer_norm_backward)}
+    say(f"  layer-norm launches on the {path} path by route: {by_route}")
+    if any(counts["general"] for counts in by_route.values()):
+        raise AssertionError(f"{path}: a layer-norm launch at D = {DIM} "
+                             f"took the general route: {by_route}")
 
 
 def closed_loop(eng, x):
@@ -1132,6 +1280,7 @@ def serve_slice(path: str, kernels) -> dict:
             replies[n] = y
         lat, rate = closed_loop(eng, x)
         launches = read_counts()
+        expect_ln_register("serving")
         say(f"  served 30 sequential requests (1/3/16 rows): p50 latency "
             f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s, "
             f"peak device memory "
@@ -1301,8 +1450,10 @@ def train_slice(precision: str = "bfloat16") -> dict:
     expect_counts(path, launches, {
         **{f"flash_attention_{k}{flash}": n_steps
            for k in ("fwd", "dq", "dkv")},
-        "layer_norm_forward": n_steps, "layer_norm_backward": n_steps,
+        f"layer_norm_forward{flash}": n_steps,
+        f"layer_norm_backward{flash}": n_steps,
         "softmax_argmax": n_steps})
+    expect_ln_register(path)
     loss = wf.decision.epoch_loss[TRAIN]
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"train loss {loss}")
@@ -1591,11 +1742,13 @@ def seq_pass(path: str, precision: str, heads: int, variant: str) -> dict:
     say(f"  {path}: {steps} train steps (B={batch}, T={seq}, D={DIM}, "
         f"{heads} heads, dh={DIM // heads}, {precision}), loss {loss:.4f}")
     suffix = {v: s for s, v in ROW_VARIANT.items()}[variant]
+    ln = {dtype: s for s, dtype in LN_ROW_DTYPE.items()}[precision]
     expect_counts(path, launches, {
         **{f"flash_attention_{k}{suffix}": steps
            for k in ("fwd", "dq", "dkv")},
-        "layer_norm_forward": steps, "layer_norm_backward": steps,
+        f"layer_norm_forward{ln}": steps, f"layer_norm_backward{ln}": steps,
         "softmax_argmax": steps})
+    expect_ln_register(path)
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"{path}: train loss {loss}")
     return launches
@@ -1690,9 +1843,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = check_flash(gen)
-    rows["layer_norm_forward"] = check_layer_norm(gen)
+    rows.update(check_layer_norm(gen))
     rows.update(check_flash_bwd(gen))
-    rows["layer_norm_backward"] = check_layer_norm_bwd(gen)
+    rows.update(check_layer_norm_bwd(gen))
     rows.update(check_lrn(gen))
     rows.update(check_dropout(gen))
     rows.update(check_softmax_argmax(gen))

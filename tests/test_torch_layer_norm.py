@@ -16,12 +16,19 @@ where the f32 values straddle a rounding boundary.  Backward: dx 1e-6
 for float32 and one bf16 step of the largest |dx| for bf16, as above;
 the f32 γ/β sums 1e-5 of the sum of the absolute terms (f32 terms
 added in another order).
+
+The CUDA kernels cannot run here, so the register kernels' order of
+work (which warp takes which row, how a lane's column sums run across
+its rows, the fold within a block and over blocks) is emulated in torch
+and held to the same references at the same tolerances; its γ/β sums
+are pinned bitwise to a scalar walk of the documented order.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from znicz_tpu.ops.pallas_kernels import layer_norm_backward as ref_ln_bwd
 from znicz_tpu.ops.pallas_kernels import layer_norm_forward as ref_ln
@@ -181,3 +188,264 @@ def test_gd_layer_norm_updates_gamma_beta_and_returns_dx():
     np.testing.assert_array_equal(unit.bias.detach().numpy(),
                                   (torch.from_numpy(b) - 0.5 * want_b)
                                   .numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_rule(dtype):
+    """Which kernel a call takes on the card (:func:`fk.layer_norm_route`),
+    from the width and the operands' addresses: the sequence stack's
+    D = 512 and every multiple of 8 from 8 to 1024 take the register
+    kernels; a width that is not a multiple of 8 or past 1024, or an
+    operand off a 16-byte boundary, take the general ones."""
+    def route(d, *tensors):
+        return fk.layer_norm_route(d, *(t.data_ptr() for t in tensors))
+
+    x = torch.empty(21, 512, dtype=dtype)
+    g = torch.empty(512)
+    assert route(512, x, torch.empty_like(x), g, torch.empty(512)) \
+        == "register"
+    for d in (8, 64, 520, fk.LN_REGISTER_MAX_WIDTH):
+        assert route(d, torch.empty(3, d, dtype=dtype)) == "register"
+    for d in (0, 4, 100, 513, fk.LN_REGISTER_MAX_WIDTH + 8, 4096):
+        assert route(d, torch.empty(3, max(d, 1), dtype=dtype)) == "general"
+    # a view one element off a 16-byte boundary, and one 16 bytes off
+    flat = torch.empty(21 * 512 + 16, dtype=dtype)
+    per16 = 16 // flat.element_size()
+    off = flat[1:1 + 21 * 512].view(21, 512)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    assert route(512, off, g) == "general"
+    assert route(512, x, off, g) == "general"
+    assert route(512, flat[per16:per16 + 21 * 512].view(21, 512), g) \
+        == "register"
+
+
+#: the register kernels of csrc/layer_norm_fwd.cu and layer_norm_bwd.cu:
+#: a warp of 32 lanes a row, 8-element vectors, 8 warps a block; the
+#: backward's most blocks and its fold's warps
+WARP, VEC, REG_WARPS, REG_BLOCKS, FOLD_WARPS = 32, 8, 8, 264, 32
+
+
+def _lanes(a):
+    """(R, D) → (R, 32, NV, 8), lane l's vector k the row's vector
+    l + 32 k (zeros past the row), and own (32, NV): which of them lie
+    in the row."""
+    rows, d = a.shape
+    vecs = d // VEC
+    nv = -(-vecs // WARP)
+    lanes = F.pad(a.float(), (0, nv * WARP * VEC - d)).reshape(
+        rows, nv, WARP, VEC).transpose(1, 2)
+    own = (torch.arange(WARP)[:, None] + WARP * torch.arange(nv)) < vecs
+    return lanes, own
+
+
+def _columns(lanes, d):
+    """The inverse of :func:`_lanes`: (..., 32, NV, 8) → (..., D)."""
+    *lead, _, nv, _ = lanes.shape
+    return lanes.transpose(-3, -2).reshape(*lead, nv * WARP * VEC)[..., :d]
+
+
+def _row_sum(terms, own):
+    """A row sum as a warp takes it: each lane adds its terms vector by
+    vector, element by element, then ``warp_sum``'s butterfly (xor 16,
+    8, 4, 2, 1).  (R, 32, NV, 8) → (R,)."""
+    s = torch.zeros(terms.shape[:2])
+    for k in range(terms.shape[2]):
+        for j in range(VEC):
+            s = torch.where(own[:, k], s + terms[:, :, k, j], s)
+    lane = torch.arange(WARP)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ off]
+    return s[:, 0]
+
+
+def _statistics(v, own, d):
+    """``(x − μ, rstd)`` of the rows in lane layout, two passes over the
+    registers as the kernels take them."""
+    c = v - (_row_sum(v, own) / d)[:, None, None, None]
+    rstd = torch.rsqrt(_row_sum(c * c, own) / d + EPS)
+    return c, rstd[:, None, None, None]
+
+
+def _fwd_register_order(x, gamma, beta, blocks):
+    """The forward register kernel's order of work in torch (f32 math on
+    the stored values): ``blocks`` persistent blocks of 8 warps, warp gw
+    taking rows gw, gw + G, ... (G warps in all), each row from its
+    lanes' registers.  Returns y (m, d) in f32; a row no warp took stays
+    NaN."""
+    m, d = x.shape
+    v, own = _lanes(x)
+    g = _lanes(gamma[None])[0]
+    b = _lanes(beta[None])[0] if beta is not None else None
+    y = torch.full(v.shape, float("nan"))
+    warps = blocks * REG_WARPS
+    for step in range(-(-m // warps)):
+        rows = torch.arange(warps) + step * warps
+        rows = rows[rows < m]
+        c, rstd = _statistics(v[rows], own, d)
+        out = c * rstd * g
+        y[rows] = out + b if b is not None else out
+    return _columns(y, d)
+
+
+def _reg_blocks(m):
+    """``(blocks, rows a block)`` of the backward register kernel, as
+    ``reg_blocks`` in csrc/layer_norm_bwd.cu takes them."""
+    if m <= 0:
+        return 0, 0
+    n = min(-(-m // REG_WARPS), REG_BLOCKS)
+    per = -(-m // n)
+    return -(-m // per), per
+
+
+def _bwd_rows(x, err, gamma):
+    """The backward register kernel's work on each row, from its lanes'
+    registers: dx (f32) and the column terms ``err·x̂`` and ``err``, in
+    lane layout."""
+    d = x.shape[1]
+    v, own = _lanes(x)
+    e = _lanes(err)[0]
+    g = _lanes(gamma[None])[0]
+    c, rstd = _statistics(v, own, d)
+    t = e * g
+    mean_dxhat = (_row_sum(t, own) / d)[:, None, None, None]
+    mean_dxhat_xhat = (_row_sum(t * c, own) / d)[:, None, None, None] * rstd
+    xhat = c * rstd
+    return (t - mean_dxhat - xhat * mean_dxhat_xhat) * rstd, [e * xhat, e]
+
+
+def _walk_sums(terms):
+    """One column sum of the backward, a scalar walk through the order the
+    kernels document: in each block, each warp's rows in order, the warps
+    in warp order; then the fold's warps over their ranges of blocks, in
+    warp order.  terms: (m, d) f32 numpy; returns (d,) f32."""
+    m, d = terms.shape
+    n_blocks, per = _reg_blocks(m)
+    work = []
+    for b in range(n_blocks):
+        acc = np.zeros(d, np.float32)
+        for w in range(REG_WARPS):
+            part = np.zeros(d, np.float32)
+            for r in range(b * per + w, min((b + 1) * per, m), REG_WARPS):
+                part = part + terms[r]
+            acc = acc + part
+        work.append(acc)
+    q = -(-n_blocks // FOLD_WARPS)
+    total = np.zeros(d, np.float32)
+    for w in range(FOLD_WARPS):
+        acc = np.zeros(d, np.float32)
+        for i in range(w * q, min((w + 1) * q, n_blocks)):
+            acc = acc + work[i]
+        total = total + acc
+    return total
+
+
+def _bwd_register_order(x, err, gamma, with_beta, finish):
+    """The backward register kernels' order of work in torch (f32 math on
+    the stored values).  Block b owns rows [b·per, (b + 1)·per), warp w of
+    it rows b·per + w + 8 i; a lane keeps its columns' ``err·x̂`` and
+    ``err`` partials across its rows, in order; the blocks finish in the
+    order ``finish`` and each folds its warps' partials in warp order
+    into its workspace row; then the fold over blocks, warp w of it
+    adding workspace rows [w·q, (w + 1)·q) in order and the warps' sums
+    in warp order.  Returns (dx f32, grad_gamma, grad_beta or None)."""
+    m, d = x.shape
+    dx, terms = _bwd_rows(x, err, gamma)
+    terms = terms[:2 if with_beta else 1]
+    n_blocks, per = _reg_blocks(m)
+    start = torch.arange(n_blocks)[:, None] * per
+    end = torch.clamp(start + per, max=m)
+    partials = [torch.zeros((n_blocks, REG_WARPS) + terms[0].shape[1:])
+                for _ in terms]
+    for i in range(-(-per // REG_WARPS)):
+        rows = start + torch.arange(REG_WARPS) + REG_WARPS * i
+        took = (rows < end)[..., None, None, None]
+        r = rows.clamp(max=m - 1)
+        partials = [torch.where(took, p + term[r], p)
+                    for p, term in zip(partials, terms)]
+    work = torch.full((len(terms), n_blocks, d), float("nan"))
+    for blk in finish:
+        for s, p in enumerate(partials):
+            acc = torch.zeros(terms[0].shape[1:])
+            for w in range(REG_WARPS):
+                acc = acc + p[blk, w]
+            work[s, blk] = _columns(acc, d)
+    q = -(-n_blocks // FOLD_WARPS)
+    sums = []
+    for s in range(len(terms)):
+        total = torch.zeros(d)
+        for w in range(FOLD_WARPS):
+            acc = torch.zeros(d)
+            for i in range(w * q, min((w + 1) * q, n_blocks)):
+                acc = acc + work[s, i]
+            total = total + acc
+        sums.append(total)
+    return (_columns(dx, d), sums[0], sums[1] if with_beta else None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_beta", [True, False])
+@pytest.mark.parametrize("rows,d", [
+    (1000, 64),    # 125 blocks of 8 rows: a row a warp
+    (1031, 512),   # 129 blocks, the last one 7 rows short of 8
+    (4261, 64),    # 251 blocks of 17 rows: 2-3 rows a warp, the last 11
+    (1, 512),      # one row: one block, one warp
+])
+def test_register_kernel_order_matches_reference_kernel(dtype, with_beta,
+                                                        rows, d):
+    """The register kernels' order of work, emulated in torch on the CPU
+    (:func:`_fwd_register_order`, :func:`_bwd_register_order`), against
+    the reference's Pallas ``_ln_fwd_kernel`` / ``_ln_bwd_kernel`` in
+    interpret mode, on the same stored values, at the file's tolerances
+    (y and dx rounded to the stored dtype).  The γ/β sums have the bits
+    of a scalar walk through the documented order (:func:`_walk_sums`)
+    and do not depend on the order in which the blocks finish: two
+    finishing orders give the same bits."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x, g, b = _inputs((rows, d), seed=rows + d)
+    err = np.random.default_rng(d).normal(0, 0.1, (rows, d)).astype(
+        np.float32)
+    tx, terr = (torch.from_numpy(a).to(tdt) for a in (x, err))
+    tg, tb = torch.from_numpy(g), torch.from_numpy(b) if with_beta else None
+    jx, jerr = (jnp.asarray(a.float().numpy()).astype(jdt)
+                for a in (tx, terr))
+
+    want_y = np.asarray(ref_ln(jx, jnp.asarray(g),
+                               jnp.asarray(b) if with_beta else None, EPS,
+                               interpret=True).astype(jnp.float32))
+    y = _fwd_register_order(tx, tg, tb, blocks=3).to(tdt).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(y, want_y, rtol=0, atol=2e-6)
+    else:
+        np.testing.assert_allclose(y, want_y, rtol=2.0 ** -7, atol=0)
+
+    want_dx, want_g, want_b = ref_ln_bwd(jx, jerr, jnp.asarray(g), EPS,
+                                         with_beta=with_beta, interpret=True)
+    n_blocks = _reg_blocks(rows)[0]
+    dx, grad_g, grad_b = _bwd_register_order(tx, terr, tg, with_beta,
+                                             range(n_blocks))
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    dx_tol = 1e-6 if dtype == "float32" else \
+        2.0 ** -7 * np.abs(want_dx).max()
+    np.testing.assert_allclose(dx.to(tdt).float().numpy(), want_dx, rtol=0,
+                               atol=dx_tol)
+    xf, ef = tx.float(), terr.float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+        xf.var(-1, unbiased=False, keepdim=True) + EPS)
+    for got, want, terms in ((grad_g, want_g, ef * xhat),
+                             (grad_b, want_b, ef)):
+        if not with_beta and want is None:
+            assert got is None
+            continue
+        bound = 1e-5 * terms.abs().sum(0).numpy()
+        assert np.all(np.abs(got.numpy() - np.asarray(want)) <= bound)
+    finish = torch.randperm(n_blocks,
+                            generator=torch.Generator().manual_seed(rows))
+    again = _bwd_register_order(tx, terr, tg, with_beta, finish.tolist())
+    for a, b_ in zip((grad_g, grad_b), again[1:]):
+        assert (a is None) == (b_ is None)
+        assert a is None or torch.equal(a, b_)
+    terms = _bwd_rows(tx, terr, tg)[1]
+    for got, term in zip((grad_g, grad_b), terms):
+        if got is not None:
+            np.testing.assert_array_equal(
+                got.numpy(), _walk_sums(_columns(term, d).numpy()))

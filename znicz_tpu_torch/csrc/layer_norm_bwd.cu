@@ -12,30 +12,54 @@
 //
 // What bounds it on this card: ~25 operations per element against reading
 // x and err and writing dx once each, ~4 operations per byte in bf16, far
-// below the H100's ~295 FLOP/byte ridge: device-memory bandwidth bounds it.
-// The design answers that by reading each row from device memory once:
-// one warp per row, 16-byte vector loads where the row is aligned, and the
-// second and third passes over the row served from L1, as the forward
-// kernel does.
+// below the H100's ~295 FLOP/byte ridge: device-memory bandwidth bounds it,
+// and the design is about keeping device memory busy.
 //
 // The cross-row sums: the TPU kernel walks its row tiles in order and
 // carries the sums in scratch memory.  Hopper blocks run in no order, so
-// each block owns a fixed, contiguous range of rows.  Every warp adds its
-// rows' terms into its own shared-memory row of partial sums (each column
-// belongs to one lane, so no two threads touch one address); at the end
-// the block folds its warps' rows in warp order and writes one row of an
-// f32 workspace (n_blocks, D).  A second kernel folds the workspace over
-// blocks in block order.  No atomics: a rerun gives the same bits.
+// each block owns a fixed, contiguous range of rows and writes one row of
+// an f32 workspace (n_blocks, D) per sum; a second kernel folds the
+// workspace over blocks.  The ranges depend on M and constants only, never
+// on the card, and every sum runs in an order they fix; no atomics: a
+// rerun gives the same bits.  Rows past M are never read (the counterpart
+// of the reference's tail-tile guard).
 //
-// Rows past M are never read (the counterpart of the reference's tail-tile
-// guard), and any row count and any D up to the shared memory one warp's
-// partial sums fit in (51200, or 25600 with beta) are taken: the vector
-// path needs D % 8 == 0 and 16-byte alignment, the scalar path takes the
-// rest.
+// The register kernels (the route rows with D % 8 == 0 up to 1024, on
+// 16-byte boundaries, take; the rule is layer_norm_route in
+// ops/fused_kernels.py):
+//   - A warp owns a row and holds it in registers: lane l takes the
+//     8-element vectors l, l + 32, ... of x and err (16 elements of each a
+//     lane at D = 512) through 128-bit loads.  The mean, the centred
+//     variance, mean(dxhat) and mean(dxhat * (x - mu)) come from the
+//     registers (two passes over them, as the reference), and dx leaves
+//     through 128-bit stores: x and err are read once, dx written once.
+//   - Each lane loads its gamma columns once, for all its rows.
+//   - A lane owns the same columns in every row it takes, so it keeps their
+//     err * xhat and err partial sums in registers across the rows.  They
+//     touch shared memory once, at the end: each warp writes its row of
+//     partials, and the block folds them in warp order into its workspace
+//     row (gamma's sums, then beta's, through one 8-row buffer).
+//   - 8 warps a block, warp w taking rows row0 + w, row0 + w + 8, ... of
+//     its block's range, and each warp starts its next row's loads before
+//     it computes the current one (where the registers hold two rows: every
+//     width in bf16, up to 512 otherwise).  At most REG_BLOCKS = 264
+//     blocks: one wave at the bf16 kernel's occupancy on an H100 (2 blocks
+//     an SM at 126 registers), two at the f32 kernel's (1 at 149).
+//   - The fold over blocks is parallel: a block a sum and 32 columns, its
+//     32 warps each adding a fixed contiguous range of at most 9 workspace
+//     rows in order (all their loads in flight at once), then the 32
+//     results in warp order.
+// The general kernels take the rest (D not a multiple of 8 or over 1024, a
+// pointer off 16 bytes), any row count and any D up to the shared memory
+// one warp's partial sums fit in (51200, or 25600 with beta): one warp per
+// row, the second and third passes over the row served from L1; every warp
+// adds its rows' terms into its own shared-memory row of partial sums (each
+// column belongs to one lane, so no two threads touch one address), the
+// block folds its warps' rows in warp order, and the fold over blocks runs
+// in block order, a thread a column.  Its vector path needs D % 8 == 0 and
+// 16-byte alignment, its scalar path takes the rest.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rows.cuh"
 
 namespace {
 
@@ -45,57 +69,6 @@ constexpr int MAX_WARPS = 8;
 constexpr int MAX_BLOCKS = 1024;
 constexpr int FOLD_THREADS = 256;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// 8 consecutive elements <-> 8 floats through 16-byte accesses
-__device__ __forceinline__ void load8(const float* p, float out[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float out[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 // 8 consecutive shared-memory floats += v (two 16-byte accesses)
 __device__ __forceinline__ void add8(float* p, const float v[8]) {
   float4* q = reinterpret_cast<float4*>(p);
@@ -292,6 +265,278 @@ cudaError_t launch(const void* x, const void* err, const float* gamma,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// the register kernels
+// ---------------------------------------------------------------------
+
+constexpr int REG_WARPS = 8;
+constexpr int REG_THREADS = REG_WARPS * 32;
+//: 8-element vectors a lane holds at most: rows of up to 32 * 8 *
+//: REG_MAX_NV = 1024 elements
+constexpr int REG_MAX_NV = 4;
+//: the most blocks of the register kernel, so the most workspace rows: two
+//: blocks on each of an H100's 132 SMs, one wave at the occupancy the bf16
+//: kernel has, two at the f32 kernel's.  The rows a block owns depend on M
+//: and this constant only, never on the card, so neither do the bits.
+constexpr int REG_BLOCKS = 264;
+//: the fold over blocks: 32 warps a block, each adding at most
+//: ceil(REG_BLOCKS / FOLD_WARPS) = 9 workspace rows, all loads in flight
+constexpr int FOLD_WARPS = 32;
+constexpr int FOLD_BATCH = 16;
+
+// Whether the registers hold a second row of x and err in flight: every
+// width in bf16, up to 512 (NV = 2) with an f32 operand.
+template <typename TX, typename TE, int NV>
+__host__ __device__ constexpr bool reg_prefetch() {
+  return NV * (sizeof(TX) + sizeof(TE)) <= 16;
+}
+
+// the three row sums of the backward over the warp, their butterflies
+// interleaved (each the bits of warp_sum)
+__device__ __forceinline__ void warp_sum3(float& a, float& b, float& c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ta = __shfl_xor_sync(0xffffffffu, a, off);
+    const float tb = __shfl_xor_sync(0xffffffffu, b, off);
+    const float tc = __shfl_xor_sync(0xffffffffu, c, off);
+    a += ta;
+    b += tb;
+    c += tc;
+  }
+}
+
+// start the loads of the lane's vectors of row r of x and err
+template <typename TX, typename TE, int NV>
+__device__ __forceinline__ void load_row(Raw8<TX> (&nx)[NV],
+                                         Raw8<TE> (&ne)[NV],
+                                         const bool (&own)[NV],
+                                         const TX* x, const TE* err,
+                                         long long r, int d, int lane) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (own[k]) {
+      nx[k].load(x + r * d + (lane + 32 * k) * 8);
+      ne[k].load(err + r * d + (lane + 32 * k) * 8);
+    }
+}
+
+// One block: REG_WARPS warps over rows [row0, row1), warp w taking rows
+// row0 + w, row0 + w + REG_WARPS, ...; lane l holds vectors l + 32 k
+// (k < NV, those below d / 8) of each.  Every sum runs in a fixed order:
+// within a row a lane adds vector by vector, element by element, then the
+// butterfly; a column partial adds the warp's rows in order; the block
+// adds its warps' partials in warp order.
+template <typename TX, typename TE, int NV>
+__global__ void __launch_bounds__(REG_THREADS)
+    ln_bwd_reg_kernel(const TX* __restrict__ x, const TE* __restrict__ err,
+                      const float* __restrict__ gamma, TE* __restrict__ dx,
+                      float* __restrict__ work_g, float* __restrict__ work_b,
+                      long long m, int d, long long rows_per_block,
+                      float eps) {
+  constexpr bool PREFETCH = reg_prefetch<TX, TE, NV>();
+  __shared__ __align__(16) float part[REG_WARPS * 32 * 8 * NV];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int vecs = d / 8;
+  bool own[NV];
+  float g[NV][8], pg[NV][8], pb[NV][8];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    own[k] = lane + 32 * k < vecs;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) g[k][j] = pg[k][j] = pb[k][j] = 0.f;
+    if (own[k]) load8(gamma + (lane + 32 * k) * 8, g[k]);
+  }
+
+  const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  long long row1 = row0 + rows_per_block;
+  if (row1 > m) row1 = m;
+  Raw8<TX> nx[NV];
+  Raw8<TE> ne[NV];
+  long long row = row0 + warp;
+  if (PREFETCH && row < row1) load_row(nx, ne, own, x, err, row, d, lane);
+  for (; row < row1; row += REG_WARPS) {
+    if (!PREFETCH) load_row(nx, ne, own, x, err, row, d, lane);
+    float v[NV][8], e[NV][8];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      nx[k].unpack(v[k]);
+      ne[k].unpack(e[k]);
+    }
+    if (PREFETCH && row + REG_WARPS < row1)
+      load_row(nx, ne, own, x, err, row + REG_WARPS, d, lane);
+
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (own[k]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += v[k][j];
+      }
+    const float mu = warp_sum(s) / d;
+    // centred variance, mean(dxhat), sum(dxhat * (x - mu))
+    float sq = 0.f, sd = 0.f, sdx = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (own[k]) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float c = v[k][j] - mu;
+          const float t = e[k][j] * g[k][j];
+          sq += c * c;
+          sd += t;
+          sdx += t * c;
+        }
+      }
+    warp_sum3(sq, sd, sdx);
+    const float rstd = rsqrtf(sq / d + eps);
+    const float mean_dxhat = sd / d;
+    // mean(dxhat * xhat) = rstd * mean(dxhat * (x - mu))
+    const float mean_dxhat_xhat = sdx / d * rstd;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (own[k]) {
+        float out[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xhat = (v[k][j] - mu) * rstd;
+          const float t = e[k][j] * g[k][j];
+          out[j] = (t - mean_dxhat - xhat * mean_dxhat_xhat) * rstd;
+          pg[k][j] += e[k][j] * xhat;
+          pb[k][j] += e[k][j];
+        }
+        store8(dx + row * d + (lane + 32 * k) * 8, out);
+      }
+  }
+
+  // fold the warps' partials in warp order into this block's workspace
+  // rows: gamma's, then beta's, through one buffer of REG_WARPS rows
+  const int pitch = 32 * 8 * NV;
+  for (int sum = 0; sum < (work_b != nullptr ? 2 : 1); ++sum) {
+    if (sum) __syncthreads();  // the gamma fold has read the buffer
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      if (own[k]) store8(part + warp * pitch + (lane + 32 * k) * 8,
+                         sum ? pb[k] : pg[k]);
+    __syncthreads();
+    float* w = (sum ? work_b : work_g) + static_cast<long long>(blockIdx.x) * d;
+    for (int c = threadIdx.x; c < d; c += REG_THREADS) {
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < REG_WARPS; ++i) a += part[i * pitch + c];
+      w[c] = a;
+    }
+  }
+}
+
+// grad[c] = the sum of work[i][c] over the n_blocks workspace rows: warp w
+// adds rows [w q, (w + 1) q) in order (q = ceil(n_blocks / FOLD_WARPS)),
+// then the warps' sums are added in warp order.  blockIdx.x picks 32
+// columns, blockIdx.y the sum (0: gamma, 1: beta, whose workspace follows
+// gamma's).
+__global__ void __launch_bounds__(FOLD_WARPS * 32)
+    ln_bwd_reg_fold_kernel(const float* __restrict__ work,
+                           float* __restrict__ grad_g,
+                           float* __restrict__ grad_b, int n_blocks, int d) {
+  __shared__ float part[FOLD_WARPS][32];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  const float* w =
+      work + static_cast<long long>(blockIdx.y) * n_blocks * d + c;
+  const int q = (n_blocks + FOLD_WARPS - 1) / FOLD_WARPS;
+  const int i0 = warp * q;
+  const int i1 = i0 + q < n_blocks ? i0 + q : n_blocks;
+  float a = 0.f;
+  if (c < d) {
+    // FOLD_BATCH loads in flight, then their adds in row order
+    for (int i = i0; i < i1; i += FOLD_BATCH) {
+      float t[FOLD_BATCH];
+#pragma unroll
+      for (int u = 0; u < FOLD_BATCH; ++u)
+        t[u] = i + u < i1 ? w[static_cast<long long>(i + u) * d] : 0.f;
+#pragma unroll
+      for (int u = 0; u < FOLD_BATCH; ++u)
+        if (i + u < i1) a += t[u];
+    }
+  }
+  part[warp][lane] = a;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < FOLD_WARPS; ++i) s += part[i][lane];
+    (blockIdx.y ? grad_b : grad_g)[c] = s;
+  }
+}
+
+// the register kernel's blocks (workspace rows) for m rows, and the rows
+// each owns
+long long reg_blocks(long long m, long long* rows_per_block) {
+  *rows_per_block = 0;
+  if (m <= 0) return 0;
+  long long n = (m + REG_WARPS - 1) / REG_WARPS;
+  if (n > REG_BLOCKS) n = REG_BLOCKS;
+  *rows_per_block = (m + n - 1) / n;
+  return (m + *rows_per_block - 1) / *rows_per_block;
+}
+
+template <typename TX, typename TE, int NV>
+cudaError_t launch_reg_rows(const void* x, const void* err,
+                            const float* gamma, void* dx, float* work_g,
+                            float* work_b, long long m, int d,
+                            long long n_blocks, long long rows_per_block,
+                            float eps, cudaStream_t stream) {
+  ln_bwd_reg_kernel<TX, TE, NV>
+      <<<static_cast<unsigned>(n_blocks), REG_THREADS, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TE*>(err), gamma,
+          static_cast<TE*>(dx), work_g, work_b, m, d, rows_per_block, eps);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TE>
+cudaError_t launch_reg(const void* x, const void* err, const float* gamma,
+                       void* dx, float* grad_g, float* grad_b, float* work,
+                       long long m, int d, float eps, cudaStream_t stream) {
+  long long rows_per_block = 0;
+  const long long n_blocks = reg_blocks(m, &rows_per_block);
+  float* work_b = grad_b != nullptr ? work + n_blocks * d : nullptr;
+  if (n_blocks > 0) {
+    cudaError_t e;
+    switch ((d / 8 + 31) / 32) {
+      case 1:
+        e = launch_reg_rows<TX, TE, 1>(x, err, gamma, dx, work, work_b, m, d,
+                                       n_blocks, rows_per_block, eps, stream);
+        break;
+      case 2:
+        e = launch_reg_rows<TX, TE, 2>(x, err, gamma, dx, work, work_b, m, d,
+                                       n_blocks, rows_per_block, eps, stream);
+        break;
+      case 3:
+        e = launch_reg_rows<TX, TE, 3>(x, err, gamma, dx, work, work_b, m, d,
+                                       n_blocks, rows_per_block, eps, stream);
+        break;
+      default:
+        e = launch_reg_rows<TX, TE, 4>(x, err, gamma, dx, work, work_b, m, d,
+                                       n_blocks, rows_per_block, eps, stream);
+    }
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((d + 31) / 32, grad_b != nullptr ? 2 : 1);
+  ln_bwd_reg_fold_kernel<<<grid, FOLD_WARPS * 32, 0, stream>>>(
+      work, grad_g, grad_b, static_cast<int>(n_blocks), d);
+  return cudaGetLastError();
+}
+
+bool reg_takes(int d, const void* x, const void* err, const void* gamma,
+               const void* dx) {
+  const auto off = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  return d >= 8 && d % 8 == 0 && d <= 32 * 8 * REG_MAX_NV && !off(x) &&
+         !off(err) && !off(gamma) && !off(dx);
+}
+
 }  // namespace
 
 // The number of workspace rows (blocks) the kernel uses for m rows of
@@ -338,6 +583,49 @@ extern "C" int znicz_layer_norm_bwd(const void* x, const void* err,
     case 3:
       return static_cast<int>(launch<__nv_bfloat16, __nv_bfloat16>(
           x, err, g, dx, gg, gb, w, m, d, eps, vec, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The register kernels' workspace rows (blocks) for m rows: the caller
+// allocates a workspace of (rows * d * (1 + beta)) floats for
+// znicz_layer_norm_bwd_reg.
+extern "C" long long znicz_layer_norm_bwd_reg_blocks(long long m) {
+  long long rows_per_block = 0;
+  return reg_blocks(m, &rows_per_block);
+}
+
+// The register kernels, the same operands as znicz_layer_norm_bwd with the
+// workspace sized by znicz_layer_norm_bwd_reg_blocks: takes 8 <= d <= 1024
+// with d % 8 == 0 and x, err, gamma, dx on 16-byte boundaries, and returns
+// cudaErrorInvalidValue for anything else.
+extern "C" int znicz_layer_norm_bwd_reg(const void* x, const void* err,
+                                        const void* gamma, void* dx,
+                                        void* grad_gamma, void* grad_beta,
+                                        void* work, long long m, int d,
+                                        float eps, int x_dtype, int err_dtype,
+                                        void* stream) {
+  if (!reg_takes(d, x, err, gamma, dx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  float* gg = static_cast<float*>(grad_gamma);
+  float* gb = static_cast<float*>(grad_beta);
+  float* w = static_cast<float*>(work);
+  switch (x_dtype * 2 + err_dtype) {
+    case 0:
+      return static_cast<int>(
+          launch_reg<float, float>(x, err, g, dx, gg, gb, w, m, d, eps, s));
+    case 1:
+      return static_cast<int>(launch_reg<float, __nv_bfloat16>(
+          x, err, g, dx, gg, gb, w, m, d, eps, s));
+    case 2:
+      return static_cast<int>(launch_reg<__nv_bfloat16, float>(
+          x, err, g, dx, gg, gb, w, m, d, eps, s));
+    case 3:
+      return static_cast<int>(launch_reg<__nv_bfloat16, __nv_bfloat16>(
+          x, err, g, dx, gg, gb, w, m, d, eps, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

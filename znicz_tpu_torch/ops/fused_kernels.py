@@ -47,6 +47,13 @@ The layer norm, both directions:
   replaces ``_ln_bwd_kernel`` (B6) — dx in err's dtype plus the f32
   cross-row γ and β gradient sums, in one pass over the rows.
 
+Each picks one of its source's two kernels by :func:`layer_norm_route`,
+a rule on the width and the operands' addresses: the register kernels
+(a warp a row, the row held in registers) where they take the shape,
+the sequence stack's D = 512 among them, the general kernels
+elsewhere.  Each counts its launches in all, by route
+(``launches_by_route``) and by x's dtype (``launches_by_dtype``).
+
 """
 
 from __future__ import annotations
@@ -76,11 +83,16 @@ def _lib(stem: str) -> ctypes.CDLL:
                        ctypes.c_float)
         signatures = {
             "layer_norm_fwd": {
-                "znicz_layer_norm_fwd": ([p, p, p, p, ll, i, f, i, i, p], i)},
+                "znicz_layer_norm_fwd": ([p, p, p, p, ll, i, f, i, i, p], i),
+                "znicz_layer_norm_fwd_reg": (
+                    [p, p, p, p, ll, i, f, i, p], i)},
             "layer_norm_bwd": {
                 "znicz_layer_norm_bwd_blocks": ([ll, i, i], ll),
                 "znicz_layer_norm_bwd": (
-                    [p, p, p, p, p, p, p, ll, i, f, i, i, i, p], i)},
+                    [p, p, p, p, p, p, p, ll, i, f, i, i, i, p], i),
+                "znicz_layer_norm_bwd_reg_blocks": ([ll], ll),
+                "znicz_layer_norm_bwd_reg": (
+                    [p, p, p, p, p, p, p, ll, i, f, i, i, p], i)},
             "lrn": {
                 "znicz_lrn_fwd": ([p, p, ll, i, i, f, f, f, i, p], i),
                 "znicz_lrn_bwd": ([p, p, p, ll, i, i, f, f, f, i, i, p], i),
@@ -133,22 +145,47 @@ def _check(x: torch.Tensor, gamma: torch.Tensor,
             raise ValueError(f"{name} lies on {p.device}, x on {x.device}")
 
 
+#: elements of a vector of the layer-norm register kernels: one 16-byte
+#: load in bf16, two in f32
+LN_VECTOR = 8
+#: the widest row the register kernels take: a warp holds a row, at most
+#: 4 vectors a lane (what the registers hold without spilling)
+LN_REGISTER_MAX_WIDTH = 32 * 4 * LN_VECTOR
+#: the layer-norm kernels' launch counters by route (:func:`layer_norm_route`)
+LN_ROUTES = ("register", "general")
+
+
+def layer_norm_route(d: int, *pointers: int) -> str:
+    """Which layer-norm kernel (either direction) takes rows of ``d``
+    elements with operands at the addresses ``pointers``: ``"register"``
+    when d is a multiple of :data:`LN_VECTOR` from 8 up to
+    :data:`LN_REGISTER_MAX_WIDTH` and every pointer lies on a 16-byte
+    boundary, else ``"general"``."""
+    if (d % LN_VECTOR == 0 and LN_VECTOR <= d <= LN_REGISTER_MAX_WIDTH
+            and all(p % 16 == 0 for p in pointers)):
+        return "register"
+    return "general"
+
+
+def _count_ln(fn, route: str, x: torch.Tensor) -> None:
+    """One launch of ``fn``'s kernel on ``route`` for an ``x`` of its
+    dtype."""
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+    fn.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
+
+
 def layer_norm_forward(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor | None,
                        eps: float) -> torch.Tensor:
     """Layer norm over the last axis of ``x`` (..., D) with f32 γ/β of
     shape (D,); the output has x's shape and dtype.  On the card x is
-    contiguous f32 or bf16 and γ/β are contiguous f32."""
+    contiguous f32 or bf16 and γ/β are contiguous f32, and
+    :func:`layer_norm_route` picks the kernel."""
     _check(x, gamma, beta)
     if x.device.type == "cpu":
         return layer_norm_forward_plain(x, gamma, beta, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the layer-norm kernel takes "
-                         f"{list(_KERNEL_DTYPES)}, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("the layer-norm kernel takes a contiguous x")
+    _check_card_tensor("x", x, _KERNEL_DTYPES)
     for name, p in (("gamma", gamma), ("beta", beta)):
         if p is not None and (p.dtype != torch.float32
                               or not p.is_contiguous()):
@@ -156,24 +193,28 @@ def layer_norm_forward(x: torch.Tensor, gamma: torch.Tensor,
     d = x.shape[-1]
     m = x.numel() // d if d else 0
     y = torch.empty_like(x)
-    vec = int(d % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, y, gamma, beta)
-        if t is not None))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib("layer_norm_fwd").znicz_layer_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(),
+    pointers = [t.data_ptr() for t in (x, y, gamma, beta) if t is not None]
+    route = layer_norm_route(d, *pointers)
+    lib = _lib("layer_norm_fwd")
+    args = (x.data_ptr(), gamma.data_ptr(),
             None if beta is None else beta.data_ptr(), y.data_ptr(), m, d,
-            float(eps), _KERNEL_DTYPES[x.dtype], vec, stream)
-    if err:
-        raise RuntimeError(f"layer_norm_forward kernel launch failed "
-                           f"(cudaError {err})")
-    layer_norm_forward.launches += 1
+            float(eps), _KERNEL_DTYPES[x.dtype])
+    with torch.cuda.device(x.device):
+        if route == "register":
+            err = lib.znicz_layer_norm_fwd_reg(*args, _stream(x))
+        else:
+            vec = int(d % 8 == 0 and all(p % 16 == 0 for p in pointers))
+            err = lib.znicz_layer_norm_fwd(*args, vec, _stream(x))
+    _raise_on(err, "layer_norm_forward")
+    _count_ln(layer_norm_forward, route, x)
     return y
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all, by
+#: route and by x's dtype
 layer_norm_forward.launches = 0
+layer_norm_forward.launches_by_route = dict.fromkeys(LN_ROUTES, 0)
+layer_norm_forward.launches_by_dtype = collections.Counter()
 
 
 def layer_norm_forward_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -201,58 +242,59 @@ def layer_norm_backward(x: torch.Tensor, err: torch.Tensor,
     grad_beta or None)`` — dx with x's shape in err's dtype, the sums
     f32 of shape (D,), as the reference's ``layer_norm_backward``
     returns them.  On the card x and err are contiguous f32 or bf16
-    (each on its own) and γ is contiguous f32.  The cross-row sums are
-    folded in a fixed order, so a rerun gives the same bits."""
+    (each on its own) and γ is contiguous f32, and
+    :func:`layer_norm_route` picks the kernel.  The cross-row sums are
+    folded in an order fixed by the shape, so a rerun gives the same
+    bits."""
     _check(x, gamma, None)
     if err.shape != x.shape or err.device != x.device:
         raise ValueError(f"err {tuple(err.shape)} on {err.device} does not "
                          f"match x {tuple(x.shape)} on {x.device}")
     if x.device.type == "cpu":
         return layer_norm_backward_plain(x, err, gamma, eps, with_beta)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    for name, t in (("x", x), ("err", err)):
-        if t.dtype not in _KERNEL_DTYPES:
-            raise ValueError(f"the layer-norm kernel takes "
-                             f"{list(_KERNEL_DTYPES)} for {name}, got "
-                             f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"the layer-norm kernel takes a contiguous "
-                             f"{name}")
+    _check_card_tensor("x", x, _KERNEL_DTYPES)
+    _check_card_tensor("err", err, _KERNEL_DTYPES)
     if gamma.dtype != torch.float32 or not gamma.is_contiguous():
         raise ValueError("gamma must be contiguous float32")
     d = x.shape[-1]
     m = x.numel() // d if d else 0
     lib = _lib("layer_norm_bwd")
-    n_blocks = lib.znicz_layer_norm_bwd_blocks(m, d, int(with_beta))
-    if n_blocks < 0:
-        raise ValueError(f"the layer-norm backward kernel keeps its "
-                         f"partial sums in shared memory and takes "
-                         f"D up to 51200 (25600 with beta), got {d}")
     dx = torch.empty_like(err)
+    pointers = [t.data_ptr() for t in (x, err, dx, gamma)]
+    route = layer_norm_route(d, *pointers)
+    if route == "register":
+        n_blocks = lib.znicz_layer_norm_bwd_reg_blocks(m)
+    else:
+        n_blocks = lib.znicz_layer_norm_bwd_blocks(m, d, int(with_beta))
+        if n_blocks < 0:
+            raise ValueError(f"the layer-norm backward kernel keeps its "
+                             f"partial sums in shared memory and takes "
+                             f"D up to 51200 (25600 with beta), got {d}")
     grad_g = torch.empty(d, dtype=torch.float32, device=x.device)
     grad_b = (torch.empty(d, dtype=torch.float32, device=x.device)
               if with_beta else None)
     work = torch.empty(max(n_blocks, 1) * d * (2 if with_beta else 1),
                        dtype=torch.float32, device=x.device)
-    vec = int(d % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, err, dx, gamma)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.znicz_layer_norm_bwd(
-            x.data_ptr(), err.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+    args = (x.data_ptr(), err.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
             grad_g.data_ptr(), None if grad_b is None else grad_b.data_ptr(),
             work.data_ptr(), m, d, float(eps), _KERNEL_DTYPES[x.dtype],
-            _KERNEL_DTYPES[err.dtype], vec, stream)
-    if code:
-        raise RuntimeError(f"layer_norm_backward kernel launch failed "
-                           f"(cudaError {code})")
-    layer_norm_backward.launches += 1
+            _KERNEL_DTYPES[err.dtype])
+    with torch.cuda.device(x.device):
+        if route == "register":
+            code = lib.znicz_layer_norm_bwd_reg(*args, _stream(x))
+        else:
+            vec = int(d % 8 == 0 and all(p % 16 == 0 for p in pointers))
+            code = lib.znicz_layer_norm_bwd(*args, vec, _stream(x))
+    _raise_on(code, "layer_norm_backward")
+    _count_ln(layer_norm_backward, route, x)
     return dx, grad_g, grad_b
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all, by
+#: route and by x's dtype
 layer_norm_backward.launches = 0
+layer_norm_backward.launches_by_route = dict.fromkeys(LN_ROUTES, 0)
+layer_norm_backward.launches_by_dtype = collections.Counter()
 
 
 def layer_norm_backward_plain(x: torch.Tensor, err: torch.Tensor,
