@@ -26,21 +26,27 @@ Phases (any failure raises and exits non-zero):
    take: the register kernels at the sequence stack's training shape in
    both dtypes, serving's 2048-row bucket, the widest row (1024), 3
    vectors a lane and ragged row counts, the general kernels on a width
-   that is not a multiple of 8, one past 1024 and views off 16-byte
-   boundaries; B6's sums the same bits on a rerun; the timed shapes in
+   that is not a multiple of 8, one past 1024, views off 16-byte
+   boundaries and B6 at D = 25,608 with β and 51,208 without (their
+   columns walked in chunks); B6's sums the same bits on a rerun; the
+   timed shapes in
    CUDA graphs over three rotating input copies, B6's two launches (rows,
    fold) apart from a profiler window; the LRN both ways (B1, B2) on both
    of its routes,
    each case on the one it must take: the vector kernels at AlexNet's
    two shapes in both storage dtypes, n = 5 and 4, at their edges (one
    vector a row, n = 19, mixed dtypes, tiles left short), the general
-   kernels on an odd channel count and on views off 16-byte
-   boundaries; the two shapes timed over a rotation of three input
+   kernels on an odd channel count, on views off 16-byte boundaries and
+   at C = 16,392 with n = 5 and 257 (the channels tiled, the halos
+   staged); the two AlexNet shapes timed over a rotation of three input
    copies, as conv2's bf16 input would fit the 50 MB L2, the kernels in
-   CUDA graphs; dropout (B3) bitwise against
+   CUDA graphs; dropout (B3) on both of its routes, bitwise against
    its plain version, forward and backward masks identical, the keep
-   fraction within 4σ, ratio 0 the identity; softmax + argmax (B4) with
-   planted ties and a −inf column. Times the kernel, the plain version
+   fraction within 4σ, ratio 0 the identity; softmax + argmax (B4) on
+   both of its routes with planted ties, a −inf column and a row of
+   NaNs, the serving buckets' (16, 8) timed beside the head's
+   (128, 1000); an empty kernel's launch timed as the floor under B3's
+   and B4's bounds. Times the kernel, the plain version
    and one PyTorch library call for the same function (a yardstick only
    — the port never calls it; B3's and B4's three through CUDA graphs,
    as their kernels take less time than their wrappers) and computes the
@@ -50,15 +56,15 @@ Phases (any failure raises and exits non-zero):
    format (attention 8 heads → layer_norm → softmax over 8 classes,
    T=2048, D=512, weights from a fixed seed), serves ragged requests of
    1, 3 and 16 rows through ``ServingEngine(max_batch=16)``, checks
-   that B7, B5 and B4 launched on every dispatch, B5 on its register
-   route only, and holds the 1-row reply against
+   that B7, B5 and B4 launched on every dispatch, B5 and B4 on their
+   register routes only, and holds the 1-row reply against
    ``ExportedModel.load(path, device="cpu")``;
 4. sequence training: the same stack (bf16, momentum SGD on every
    layer, as ``benchmarks/seq_bench.py`` trains it) through the port's
    ``StandardWorkflow`` on 4 × 16 samples made from a fixed seed,
    ``initialize()`` with no device (the card), 2 warm-up and 10 timed
-   train steps; B4–B9 launch once a step, B5 and B6 on their register
-   route only (as in phase 6); prints the step time,
+   train steps; B4–B9 launch once a step, B4, B5 and B6 on their
+   register routes only (as in phase 6); prints the step time,
    tokens/s, MFU, the device time of each unit, the profiler's busy
    share and top kernels and the peak memory; then holds one train
    step on the card (B=2, full T and D) against the same step on the
@@ -66,8 +72,9 @@ Phases (any failure raises and exits non-zero):
 5. AlexNet training: ``models/samples/alexnet.py`` at full width (bf16,
    B=128, dropout 0.5, uint8 frames resident on the card), 2 warm-up
    and 10 timed train steps; B1 and B2 launch twice a step (at conv1's
-   and conv2's shape, both on the vector route), B3 four times and B4
-   once; prints step time, img/s, MFU (``bench.py``'s FLOP
+   and conv2's shape, both on the vector route), B3 four times (on its
+   vector route) and B4 once (on its register route); prints step time,
+   img/s, MFU (``bench.py``'s FLOP
    count), the device time of each unit, the busy share and top
    kernels and the peak memory; then holds one train step at B=2 with
    dropout on against the CPU's, each parameter's update in f32 and in
@@ -86,9 +93,12 @@ Phases (any failure raises and exits non-zero):
    core and launches no flash kernel).
 
 Each path of phases 3–6 runs with every launch counter set to 0 just
-before it and read just after.  The last two lines of standard output
-are one JSON object listing the kernels with their numbers and their
-launches by path, then ``{"ok": true, "device": ...}``.  Without a
+before it and read just after, and every B3 and B4 launch on them must
+take the route rebuilt for Hopper.  The last three lines of standard
+output are one JSON object with the rows timed at shapes no path gives
+their kernel (C7's wide rows, ``off_path_kernels``), one listing the
+kernels of the paths with their numbers and their launches by path,
+then ``{"ok": true, "device": ...}``.  Without a
 CUDA device, or without ``nvcc``, it exits non-zero and prints no
 result.
 """
@@ -581,8 +591,7 @@ def _ln_operands(gen, m, d, dtype, offset, n):
 def _took(fn, before: dict) -> list:
     """The routes ``fn`` launched on since its by-route counts were
     ``before``."""
-    from znicz_tpu_torch.ops import fused_kernels as fk
-    return [r for r in fk.LN_ROUTES if fn.launches_by_route[r] != before[r]]
+    return [r for r, n in before.items() if fn.launches_by_route[r] != n]
 
 
 def check_layer_norm(gen) -> dict:
@@ -656,7 +665,10 @@ def check_layer_norm(gen) -> dict:
 
 
 #: name, rows, D, dtype, with beta, offset, route, the kernel row it is
-#: timed for (None: not timed); 32771 rows fit no block tiling
+#: timed for (None: not timed); 32771 rows fit no block tiling.  The last
+#: four are the general route's widest, past what one block's shared memory
+#: held before the columns were walked in chunks: timed rows of their own
+#: (:data:`OFF_PATH_ROWS`), over a ragged row count
 LN_BWD_CASES = (
     ("training", BATCH * SEQ, DIM, "bfloat16", True, 0, "register", ""),
     ("no_beta", BATCH * SEQ, DIM, "bfloat16", False, 0, "register", None),
@@ -670,7 +682,20 @@ LN_BWD_CASES = (
     ("ragged_width", 1000, 100, "bfloat16", True, 0, "general", None),
     ("past_1024", 1000, 1032, "float32", True, 0, "general", None),
     ("off16", 4096, DIM, "bfloat16", True, 1, "general", None),
+    ("d25608", 1031, 25608, "bfloat16", True, 0, "general", "_d25608"),
+    ("d25608_f32", 1031, 25608, "float32", True, 0, "general", None),
+    ("d51208_no_beta", 1031, 51208, "bfloat16", False, 0, "general",
+     "_d51208_no_beta"),
+    ("d51208_no_beta_f32", 1031, 51208, "float32", False, 0, "general",
+     None),
 )
+#: kernel rows timed at shapes no main path gives the kernel (the general
+#: routes at C7's widths): printed on a line of their own, not in the
+#: ``kernels`` line, whose every row a main path launches
+OFF_PATH_ROWS = ("layer_norm_backward_d25608",
+                 "layer_norm_backward_d51208_no_beta",
+                 "lrn_forward_c16392", "lrn_backward_c16392",
+                 "lrn_forward_c16392_n257", "lrn_backward_c16392_n257")
 #: the f32 γ/β sums against the plain version, per column, relative to
 #: the sum of the absolute terms: both add f32 terms, in other orders
 LN_SUM_TOL = 1e-5
@@ -759,7 +784,9 @@ def check_layer_norm_bwd(gen) -> dict:
             a, e, gamma, eps, with_beta), copies)
         calls = 7 * LN_ROTATION
         wrapper_ms, ms = time_ms(bwd, calls), graph_ms(bwd, calls)
-        kernels = ("ln_bwd_reg_kernel", "ln_bwd_reg_fold_kernel")
+        kernels = {"register": ("ln_bwd_reg_kernel", "ln_bwd_reg_fold_kernel"),
+                   "general": ("ln_bwd_rows_kernel", "ln_bwd_fold_kernel")
+                   }[route]
         split = kernel_split_ms(bwd, calls, kernels)
         plain_ms = time_ms(rotating(
             lambda a, e: fk.layer_norm_backward_plain(a, e, gamma, eps,
@@ -789,7 +816,8 @@ def check_layer_norm_bwd(gen) -> dict:
             "max_abs_err": err_dx, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             "split_ms": {"rows": split[kernels[0]],
-                         "fold": split[kernels[1]]}}
+                         "fold": split[kernels[1]]},
+            "shape": [m, d], "dtype": dtype_name, "kernel_route": route}
     return rows
 
 
@@ -809,7 +837,9 @@ LRN_CONV1, LRN_CONV2 = ALEX_BATCH * 55 * 55, ALEX_BATCH * 27 * 27
 #: different dtypes, row counts that fill no tile (21 rows of 96 a tile, 8
 #: of 256); and the general kernels: an odd channel count over a ragged row
 #: count, views ``offset`` elements into their buffers, off 16-byte
-#: boundaries.
+#: boundaries, and C7's wide rows (C = 16392, past what one block's shared
+#: memory held before the channels were tiled) at AlexNet's n and at a
+#: window that spans many tiles, timed as rows of their own.
 LRN_CASES = (
     ("conv1", LRN_CONV1, 96, "bfloat16", "bfloat16", 5, 0, "vector", True),
     ("conv2", LRN_CONV2, 256, "bfloat16", "bfloat16", 5, 0, "vector", True),
@@ -842,6 +872,14 @@ LRN_CASES = (
      False),
     ("odd_ragged_f32", 100003, 37, "float32", "float32", 5, 0, "general",
      False),
+    ("c16392", ALEX_BATCH, 16392, "bfloat16", "bfloat16", 5, 0, "general",
+     True),
+    ("c16392_f32", ALEX_BATCH, 16392, "float32", "float32", 5, 0, "general",
+     False),
+    ("c16392_n257", ALEX_BATCH, 16392, "bfloat16", "bfloat16", 257, 0,
+     "general", True),
+    ("c16392_n257_f32", ALEX_BATCH, 16392, "float32", "float32", 257, 0,
+     "general", False),
 )
 #: LRN row suffix → the channel count its launches are counted under
 LRN_ROW_CHANNELS = {"": 96, "_conv2": 256}
@@ -898,8 +936,7 @@ def check_lrn(gen) -> dict:
                   for fn in (fk.lrn_forward, fk.lrn_backward)}
         y = fk.lrn_forward(x, **cfg)
         dx = fk.lrn_backward(x, err, **cfg)
-        took = {fn.__name__: [r for r in fk.LRN_ROUTES
-                              if fn.launches_by_route[r] != counts[r]]
+        took = {fn.__name__: _took(fn, counts)
                 for fn, counts in before.items()}
         if any(t != [route] for t in took.values()):
             raise AssertionError(f"LRN case '{name}' took the routes {took}, "
@@ -971,15 +1008,31 @@ def check_lrn(gen) -> dict:
                 "source": "znicz_tpu_torch/csrc/lrn.cu", "replaces": replaces,
                 "max_abs_err": errs["y" if key == "lrn_forward" else "dx"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms}
+                "bound_by": bound_by, "library_ms": lib_ms, "shape": [m, c],
+                "n": n, "kernel_route": route}
     return rows
 
 
-#: name, shape, dtype, timed: the slice's fc activations in both storage
-#: dtypes, and a long ragged vector that takes the grid-stride loop
-DROPOUT_CASES = (("fc", (ALEX_BATCH, 4096), "bfloat16", True),
-                 ("fc_f32", (ALEX_BATCH, 4096), "float32", False),
-                 ("long_ragged", (4_000_037,), "bfloat16", False))
+def launch_floor_ms() -> float:
+    """Device time of one launch of an empty kernel (one block of 32
+    threads), 50 in a CUDA graph as :func:`graph_ms` times B3 and B4:
+    the least time any kernel node of such a graph takes."""
+    import torch
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    empty = fk._lib("dropout").znicz_empty_launch
+    return graph_ms(lambda: empty(torch.cuda.current_stream().cuda_stream))
+
+
+#: name, shape, dtype, offset, the route it must take, timed: the slice's
+#: fc activations in both storage dtypes, a long ragged vector whose last
+#: run of 8 is short and which takes the grid-stride loop, and a view off
+#: 16-byte boundaries
+DROPOUT_CASES = (
+    ("fc", (ALEX_BATCH, 4096), "bfloat16", 0, "vector", True),
+    ("fc_f32", (ALEX_BATCH, 4096), "float32", 0, "vector", False),
+    ("long_ragged", (4_000_037,), "bfloat16", 0, "vector", False),
+    ("long_ragged_f32", (4_000_037,), "float32", 0, "vector", False),
+    ("off16", (ALEX_BATCH, 4096), "bfloat16", 1, "general", False))
 DROP_RATIO = 0.5
 #: Philox4x32-10: ten rounds of two 32-bit multiplies (high and low
 #: words each), four xors and two key adds, then the compare, the select
@@ -987,24 +1040,29 @@ DROP_RATIO = 0.5
 PHILOX_OPS_PER_ELEMENT = 10 * 10 + 4
 
 
-def check_dropout(gen) -> dict:
-    """B3: the mask bitwise equal to the plain version's, forward and
+def check_dropout(gen, floor_ms: float) -> dict:
+    """B3 on every case of :data:`DROPOUT_CASES`, each on the route it
+    names: the mask bitwise equal to the plain version's, forward and
     backward masks identical, the keep fraction within 4σ of 1 − ratio,
     ratio 0 the identity; times beside ``F.dropout`` (time only: its
-    mask is another one)."""
+    mask is another one) and the launch floor."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from znicz_tpu_torch.ops import fused_kernels as fk
     seeds = np.random.default_rng(SEED).integers(0, 2 ** 63, size=8)
     row = None
-    for (name, shape, dtype_name, timed), seed in zip(DROPOUT_CASES, seeds):
+    for (name, shape, dtype_name, offset, route, timed), seed in zip(
+            DROPOUT_CASES, seeds):
         dtype = getattr(torch, dtype_name)
         seed = int(seed)
-        x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-        err = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        numel = int(np.prod(shape))
+        x, err = (torch.randn(numel + offset, generator=gen, device="cuda")
+                  .to(dtype)[offset:].view(shape) for _ in range(2))
+        before = dict(fk.dropout_apply.launches_by_route)
         y = fk.dropout_apply(x, seed, DROP_RATIO)
         dx = fk.dropout_apply(err, seed, DROP_RATIO)
+        took = _took(fk.dropout_apply, before)
         same_y = torch.equal(y, fk.dropout_apply_plain(x, seed, DROP_RATIO))
         same_dx = torch.equal(dx, fk.dropout_apply_plain(err, seed,
                                                          DROP_RATIO))
@@ -1014,11 +1072,15 @@ def check_dropout(gen) -> dict:
         sigma = (DROP_RATIO * (1 - DROP_RATIO) / int(nonzero.sum())) ** 0.5
         identity = torch.equal(fk.dropout_apply(x, seed, 0.0), x)
         torch.cuda.synchronize()
-        say(f"  dropout_apply {name}: {tuple(shape)} {dtype_name} ratio "
-            f"{DROP_RATIO}: bitwise = plain y {same_y} dx {same_dx}, "
-            f"forward mask = backward mask {same_mask}, keep fraction "
-            f"{frac:.5f} ({abs(frac - (1 - DROP_RATIO)) / sigma:.2f} σ, tol "
-            f"4 σ), ratio 0 identity {identity}")
+        say(f"  dropout_apply {name}: {tuple(shape)} {dtype_name} offset "
+            f"{offset} ratio {DROP_RATIO}, {took} route: bitwise = plain y "
+            f"{same_y} dx {same_dx}, forward mask = backward mask "
+            f"{same_mask}, keep fraction {frac:.5f} "
+            f"({abs(frac - (1 - DROP_RATIO)) / sigma:.2f} σ, tol 4 σ), "
+            f"ratio 0 identity {identity}")
+        if took != [route]:
+            raise AssertionError(f"dropout_apply case '{name}' took the "
+                                 f"routes {took}, not {route}")
         if not (same_y and same_dx and same_mask and identity) \
                 or abs(frac - (1 - DROP_RATIO)) > 4 * sigma:
             raise AssertionError(f"dropout_apply fails its contract in case "
@@ -1039,56 +1101,97 @@ def check_dropout(gen) -> dict:
         # stands in for the Philox integer operations
         ops = float(elem * PHILOX_OPS_PER_ELEMENT)
         bound_ms, bound_by = bound(nbytes, ops, PEAK_F32_FLOP_S)
-        say(f"  dropout_apply {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, F.dropout {lib_ms:.4f} ms (CUDA graphs), "
+        say(f"  dropout_apply {name}: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, F.dropout {lib_ms:.5f} ms (CUDA graphs), "
             f"the wrapper back to back {wrapper_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} "
-            f"integer ops)")
+            f"{bound_ms:.3g} ms ({bound_by}: {nbytes:.4g} B, {ops:.4g} "
+            f"integer ops; {100 * bound_ms / ms:.1f} % of it), launch floor "
+            f"{floor_ms:.5f} ms")
         row = {"name": "dropout_apply", "route": "cuda",
                "source": "znicz_tpu_torch/csrc/dropout.cu",
                "replaces": "znicz_tpu/ops/pallas_kernels.py:143",
                "max_abs_err": max_err(y, fk.dropout_apply_plain(
                    x, seed, DROP_RATIO)),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms}
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "floor_ms": floor_ms, "kernel_route": route}
     return {"dropout_apply": row}
 
 
-#: rows, classes, timed: the AlexNet head, and a small case
-SOFTMAX_CASES = (("head", ALEX_BATCH, 1000, True), ("small", 16, 8, False))
+#: name, rows, classes, offset, the route it must take, the kernel row it
+#: is timed for (None: not timed): the AlexNet head (a group of 8 warps a
+#: row) and the serving buckets' and sequence stack's 8 classes (four rows
+#: a warp); a lone class, 33 classes (two warps a row, most of them
+#: padding), the register route's widest row, a view off 16 bytes (its
+#: scalar loads, 4 a thread), and one class past it (the general route)
+SOFTMAX_CASES = (
+    ("head", ALEX_BATCH, 1000, 0, "register", ""),
+    ("small", 16, 8, 0, "register", "_small"),
+    ("one_class", 5, 1, 0, "register", None),
+    ("c33", 7, 33, 0, "register", None),
+    ("c1024", 7, 1024, 0, "register", None),
+    ("head_off", ALEX_BATCH + 1, 1000, 1, "register", None),
+    ("c1025", 6, 1025, 0, "general", None))
 #: probabilities against the plain version: f32 exp on both sides and
 #: another summation order of the row sum
 PROB_TOL = 1e-6
+#: softmax row suffix → the class count its launches are counted under
+SOFTMAX_ROW_CLASSES = {"": 1000, "_small": CLASSES}
 
 
-def check_softmax_argmax(gen) -> dict:
-    """B4 with planted ties (the first index wins) and a −inf column."""
+def check_softmax_argmax(gen, floor_ms: float) -> dict:
+    """B4 on every case of :data:`SOFTMAX_CASES`, each on the route it
+    names, with planted ties (the first index wins), a −inf column and
+    (from 6 rows) a row of NaNs after its first columns, which counts as
+    the maximum; the argmax equal to the plain version's and the sums
+    the same bits on a rerun.  The timed cases beside
+    ``torch.softmax`` and the launch floor."""
     import torch
     from znicz_tpu_torch.ops import fused_kernels as fk
-    row = None
-    for name, rows, c, timed in SOFTMAX_CASES:
-        v = 3.0 * torch.randn(rows, c, generator=gen, device="cuda")
-        v[0, 5] = v[0, 2] = v[0].max() + 1.0
-        v[1, :] = 0.5
-        v[2, 3] = float("-inf")
-        v[3, -1] = v[3, 0] = v[3].max() + 2.0
+    rows_out = {}
+    for name, rows, c, offset, route, timed in SOFTMAX_CASES:
+        v = 3.0 * torch.randn(rows * c + offset, generator=gen,
+                              device="cuda")[offset:].view(rows, c)
+        if c >= 6 and rows >= 4:
+            v[0, 5] = v[0, 2] = v[0].max() + 1.0
+            v[1, :] = 0.5
+            v[2, 3] = float("-inf")
+            v[3, -1] = v[3, 0] = v[3].max() + 2.0
+        if c >= 6 and rows >= 6:
+            v[5, c // 2:] = float("nan")
+        before = dict(fk.softmax_argmax.launches_by_route)
         probs, idx = fk.softmax_argmax(v)
+        took = _took(fk.softmax_argmax, before)
+        again = fk.softmax_argmax(v)
         ref_p, ref_i = fk.softmax_argmax_plain(v)
         torch.cuda.synchronize()
-        err = max_err(probs, ref_p)
+        finite = torch.isfinite(ref_p).all(dim=1)
+        err = max_err(probs[finite], ref_p[finite])
+        nan_rows = bool(torch.isnan(probs[~finite]).all())
         same_idx = torch.equal(idx, ref_i)
+        same_bits = torch.equal(probs.nan_to_num(), again[0].nan_to_num()) \
+            and torch.equal(idx, again[1])
         firsts = idx[:4].tolist()
-        say(f"  softmax_argmax {name}: ({rows}, {c}) max_abs_err "
-            f"probabilities {err:.3g} (tol {PROB_TOL}), argmax equal "
-            f"{same_idx}, planted ties → {firsts[:2] + firsts[3:]} "
-            f"(want [2, 0, 0]), p(−inf) = {float(probs[2, 3])}")
+        planted = c >= 6 and rows >= 4
+        say(f"  softmax_argmax {name}: ({rows}, {c}) offset {offset}, "
+            f"{took} route: max_abs_err probabilities {err:.3g} (tol "
+            f"{PROB_TOL}), argmax equal {same_idx}, rerun bitwise "
+            f"{same_bits}"
+            + (f", planted ties → {firsts[:2] + firsts[3:]} (want [2, 0, "
+               f"0]), p(−inf) = {float(probs[2, 3])}" if planted else "")
+            + (f", NaN row → {int(idx[5])} (want {c // 2})"
+               if rows >= 6 and c >= 6 else ""))
+        if took != [route]:
+            raise AssertionError(f"softmax_argmax case '{name}' took the "
+                                 f"routes {took}, not {route}")
         if probs.dtype != torch.float32 or idx.dtype != torch.int32 \
-                or err > PROB_TOL or not same_idx \
-                or firsts[:2] + firsts[3:] != [2, 0, 0] \
-                or float(probs[2, 3]) != 0.0:
+                or err > PROB_TOL or not same_idx or not same_bits \
+                or not nan_rows \
+                or (planted and (firsts[:2] + firsts[3:] != [2, 0, 0]
+                                 or float(probs[2, 3]) != 0.0)):
             raise AssertionError(f"softmax_argmax disagrees with its plain "
                                  f"version in case '{name}'")
-        if not timed:
+        if timed is None:
             continue
         wrapper_ms = time_ms(lambda: fk.softmax_argmax(v), 50)
         ms = graph_ms(lambda: fk.softmax_argmax(v))
@@ -1096,17 +1199,20 @@ def check_softmax_argmax(gen) -> dict:
         lib_ms = graph_ms(lambda: torch.softmax(v, dim=1))
         nbytes = 2.0 * 4 * rows * c + 4.0 * rows
         bound_ms, bound_by = bound(nbytes, 5.0 * rows * c, PEAK_F32_FLOP_S)
-        say(f"  softmax_argmax {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.softmax {lib_ms:.4f} ms (CUDA "
+        say(f"  softmax_argmax {name}: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.softmax {lib_ms:.5f} ms (CUDA "
             f"graphs), the wrapper back to back {wrapper_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes:.4g} B)")
-        row = {"name": "softmax_argmax", "route": "cuda",
-               "source": "znicz_tpu_torch/csrc/softmax_argmax.cu",
-               "replaces": "znicz_tpu/ops/pallas_kernels.py:382",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms}
-    return {"softmax_argmax": row}
+            f"bound {bound_ms:.3g} ms ({bound_by}: {nbytes:.4g} B; "
+            f"{100 * bound_ms / ms:.1f} % of it), launch floor "
+            f"{floor_ms:.5f} ms")
+        rows_out["softmax_argmax" + timed] = {
+            "name": "softmax_argmax" + timed, "route": "cuda",
+            "source": "znicz_tpu_torch/csrc/softmax_argmax.cu",
+            "replaces": "znicz_tpu/ops/pallas_kernels.py:382",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "floor_ms": floor_ms, "shape": [rows, c], "kernel_route": route}
+    return rows_out
 
 
 # ----------------------------------------------------------------------
@@ -1162,10 +1268,11 @@ def unit_breakdown(model, x) -> None:
 
 
 #: the wrappers' counters of launches by kind: by variant (flash), by
-#: route (LRN, layer norm), by channel count (LRN) and by x's dtype
-#: (layer norm)
+#: route (LRN, layer norm, dropout, softmax), by channel count (LRN), by
+#: x's dtype (layer norm) and by class count (softmax)
 SPLIT_COUNTERS = ("launches_by_variant", "launches_by_route",
-                  "launches_by_channels", "launches_by_dtype")
+                  "launches_by_channels", "launches_by_dtype",
+                  "launches_by_classes")
 
 
 def kernel_counters() -> dict:
@@ -1186,8 +1293,10 @@ def kernel_counters() -> dict:
     for fn in (fk.layer_norm_forward, fk.layer_norm_backward):
         for suffix, dtype in LN_ROW_DTYPE.items():
             table[fn.__name__ + suffix] = (fn, ("launches_by_dtype", dtype))
-    for fn in (fk.dropout_apply, fk.softmax_argmax):
-        table[fn.__name__] = (fn, None)
+    for suffix, c in SOFTMAX_ROW_CLASSES.items():
+        table["softmax_argmax" + suffix] = (
+            fk.softmax_argmax, ("launches_by_classes", c))
+    table["dropout_apply"] = (fk.dropout_apply, None)
     return table
 
 
@@ -1228,6 +1337,22 @@ def expect_ln_register(path: str) -> None:
     if any(counts["general"] for counts in by_route.values()):
         raise AssertionError(f"{path}: a layer-norm launch at D = {DIM} "
                              f"took the general route: {by_route}")
+
+
+def expect_new_routes(path: str) -> None:
+    """Every B3 and B4 launch since :func:`reset_counts` took the route
+    rebuilt for Hopper: dropout's vector kernel and the softmax's
+    register kernel (every path's tensors lie on 16-byte boundaries, and
+    no head has more than 1024 classes)."""
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    by_route = {fn.__name__: dict(fn.launches_by_route)
+                for fn in (fk.dropout_apply, fk.softmax_argmax)}
+    say(f"  dropout and softmax launches on the {path} path by route: "
+        f"{by_route}")
+    if by_route["dropout_apply"]["general"] \
+            or by_route["softmax_argmax"]["general"]:
+        raise AssertionError(f"{path}: a dropout or softmax launch took "
+                             f"the old route: {by_route}")
 
 
 def closed_loop(eng, x):
@@ -1281,6 +1406,7 @@ def serve_slice(path: str, kernels) -> dict:
         lat, rate = closed_loop(eng, x)
         launches = read_counts()
         expect_ln_register("serving")
+        expect_new_routes("serving")
         say(f"  served 30 sequential requests (1/3/16 rows): p50 latency "
             f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s, "
             f"peak device memory "
@@ -1452,8 +1578,9 @@ def train_slice(precision: str = "bfloat16") -> dict:
            for k in ("fwd", "dq", "dkv")},
         f"layer_norm_forward{flash}": n_steps,
         f"layer_norm_backward{flash}": n_steps,
-        "softmax_argmax": n_steps})
+        "softmax_argmax_small": n_steps})
     expect_ln_register(path)
+    expect_new_routes(path)
     loss = wf.decision.epoch_loss[TRAIN]
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"train loss {loss}")
@@ -1693,6 +1820,7 @@ def alexnet_slice() -> dict:
         "lrn_forward": n, "lrn_forward_conv2": n, "lrn_backward": n,
         "lrn_backward_conv2": n, "dropout_apply": 4 * n,
         "softmax_argmax": n})
+    expect_new_routes("alexnet")
     routes = {fn.__name__: dict(fn.launches_by_route)
               for fn in (fk.lrn_forward, fk.lrn_backward)}
     say(f"  B1/B2 launches by route: {routes}")
@@ -1747,8 +1875,9 @@ def seq_pass(path: str, precision: str, heads: int, variant: str) -> dict:
         **{f"flash_attention_{k}{suffix}": steps
            for k in ("fwd", "dq", "dkv")},
         f"layer_norm_forward{ln}": steps, f"layer_norm_backward{ln}": steps,
-        "softmax_argmax": steps})
+        "softmax_argmax_small": steps})
     expect_ln_register(path)
+    expect_new_routes(path)
     if loss is None or not math.isfinite(loss):
         raise AssertionError(f"{path}: train loss {loss}")
     return launches
@@ -1757,7 +1886,10 @@ def seq_pass(path: str, precision: str, heads: int, variant: str) -> dict:
 def dh4_pass() -> dict:
     """``models/samples/attention_seq.py`` at its defaults (dh = 4) on
     the card: the attention core is the plain one, as the reference
-    routes it, so no flash kernel launches; the loss must fall."""
+    routes it, so no flash kernel launches, and its head of 3 classes
+    launches the softmax (counted in no row of the ``kernels`` line,
+    whose rows hold 1000 and 8 classes); the loss must fall."""
+    from znicz_tpu_torch.ops import fused_kernels as fk
     import torch
     from znicz_tpu_torch.loader.base import TRAIN
     from znicz_tpu_torch.models.samples import attention_seq
@@ -1778,9 +1910,10 @@ def dh4_pass() -> dict:
     say(f"  seq_dh4: attention_seq sample on {wf.device} (dh=4), train "
         f"loss by epoch {[round(v, 4) for v in losses]}, best validation "
         f"error {wf.decision.min_validation_n_err_pt:.1f} %")
-    expect_counts("seq_dh4", launches,
-                  {"softmax_argmax": launches["softmax_argmax"]})
-    if not launches["softmax_argmax"] or not losses[-1] < losses[0]:
+    expect_counts("seq_dh4", launches, {})
+    expect_new_routes("seq_dh4")
+    if not fk.softmax_argmax.launches_by_classes[3] \
+            or not losses[-1] < losses[0]:
         raise AssertionError("seq_dh4: no softmax launch, or the loss did "
                              "not fall")
     return launches
@@ -1847,8 +1980,12 @@ def main() -> int:
     rows.update(check_flash_bwd(gen))
     rows.update(check_layer_norm_bwd(gen))
     rows.update(check_lrn(gen))
-    rows.update(check_dropout(gen))
-    rows.update(check_softmax_argmax(gen))
+    floor_ms = launch_floor_ms()
+    say(f"  launch floor: an empty kernel {floor_ms:.5f} ms (one block of "
+        f"32 threads, 50 in a CUDA graph)")
+    rows.update(check_dropout(gen, floor_ms))
+    rows.update(check_softmax_argmax(gen, floor_ms))
+    off_path = {name: rows.pop(name) for name in OFF_PATH_ROWS}
 
     paths = {}
     say("phase 3: full-width bf16 scorer through ServingEngine")
@@ -1884,7 +2021,12 @@ def main() -> int:
     idle = [name for name, row in rows.items() if not row["launches"]]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
+    for row in off_path.values():
+        # no main path launches the general routes at these widths (the
+        # paths check their layer-norm and LRN routes)
+        row["launches"], row["launches_by_path"] = 0, {}
 
+    print(json.dumps({"off_path_kernels": list(off_path.values())}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,3 +142,99 @@ def test_unit_draws_one_seed_a_train_step_from_the_port_generator():
     assert torch.equal(dx, y)  # the same mask, and the same scale
     y2 = unit(x)
     assert unit.seed != seed and not torch.equal(y2, y)
+
+
+def test_route_rule():
+    """Which kernel a call takes on the card (:func:`fk.dropout_route`):
+    the vector kernel when every operand lies on a 16-byte boundary, in
+    either dtype and at any size (its last short run element by
+    element), the general kernel for a view off 16 bytes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.empty(128, 4096, dtype=dtype)
+        assert fk.dropout_route(x.data_ptr(), torch.empty_like(
+            x).data_ptr()) == "vector"
+        flat = torch.empty(1001, dtype=dtype)
+        per16 = 16 // flat.element_size()
+        assert fk.dropout_route(flat[1:].data_ptr()) == "general"
+        assert fk.dropout_route(flat[per16:].data_ptr()) == "vector"
+
+
+#: the vector kernel of csrc/dropout.cu: elements a thread owns at once,
+#: threads a block, and a resident wave of blocks on an H100 (8 blocks of
+#: 256 threads on each of 132 SMs)
+RUN, THREADS, RESIDENT = 8, 256, 8 * 132
+M32 = 0xFFFFFFFF
+
+
+def _philox_word0(c0, c1, seed):
+    """Word 0 of Philox4x32-10 at counters (c0, c1, 0, 0), key (seed mod
+    2³², seed div 2³²), on int64 tensors of 32-bit words: the rounds as
+    ``philox_bits8`` takes them, each product of a 32-bit constant and a
+    32-bit word as one 64-bit product (exact in int64 through its 16-bit
+    halves) split into its high and low words."""
+    def wide(m, c):
+        lo = (m & 0xFFFF) * c
+        hi = (m >> 16) * c
+        full_lo = lo + ((hi & 0xFFFF) << 16)
+        return ((hi >> 16) + (full_lo >> 32)) & M32, full_lo & M32
+
+    c2, c3 = torch.zeros_like(c0), torch.zeros_like(c0)
+    k0, k1 = seed & M32, (seed >> 32) & M32
+    for _ in range(10):
+        hi0, lo0 = wide(0xD2511F53, c0)
+        hi1, lo1 = wide(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + 0x9E3779B9) & M32, (k1 + 0xBB67AE85) & M32
+    return c0
+
+
+def _vector_kernel_bits(n, seed, start_run=0):
+    """The vector kernel's bits for elements ``8·start_run`` on, in its
+    order of work: a grid of min(⌈runs / 256⌉, RESIDENT) blocks, thread t
+    taking the runs t, t + grid, ... of 8 elements; a run's 8 counters
+    share the high word of its first index and take low words lo .. lo
+    + 7; in the last, short run only the elements below n are written.
+    Returns the words of elements 8·start_run .. n − 1 (−1 where no
+    thread wrote) and how often each run was taken."""
+    runs = -(-n // RUN)
+    grid = min(-(-(runs - start_run) // THREADS), RESIDENT) * THREADS
+    out = torch.full((n - RUN * start_run,), -1, dtype=torch.int64)
+    taken = torch.zeros(runs - start_run, dtype=torch.int64)
+    for first in range(start_run, runs, grid):
+        run = torch.arange(first, min(first + grid, runs))
+        taken[run - start_run] += 1
+        i0 = run * RUN
+        lo, hi = i0 & M32, i0 >> 32
+        assert int((lo + RUN - 1).max()) <= M32  # no run crosses 2³²
+        for j in range(RUN):
+            bits = _philox_word0(lo + j, hi, seed)
+            at = i0 + j
+            inside = at < n
+            out[at[inside] - RUN * start_run] = bits[inside]
+    return out, taken
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 4_000_037])
+def test_vector_kernel_order_gives_the_plain_bits(n):
+    """The vector kernel's index mapping with its tail, emulated on the
+    CPU (:func:`_vector_kernel_bits`), writes every element once, with
+    exactly the bits of :func:`fk.dropout_bits`, the plain version's
+    mask.  4,000,037 elements (chip_smoke's ``long_ragged``) need more
+    than one resident wave, so threads take a second run."""
+    seed = 0x1234_5678_9ABC_DEF0
+    bits, taken = _vector_kernel_bits(n, seed)
+    assert bool((taken == 1).all())
+    assert torch.equal(bits, fk.dropout_bits(n, seed))
+
+
+def test_vector_kernel_runs_across_the_high_counter_word():
+    """Runs of 8 just below and above element 2³², where the counter's
+    high word changes: an 8-aligned run never crosses it, so a run's 8
+    counters share one high word and the bits stay the plain ones."""
+    seed = 20261016
+    start_run = (2 ** 32 - 64) // RUN
+    n = 2 ** 32 + 61
+    bits, taken = _vector_kernel_bits(n, seed, start_run)
+    assert bool((taken == 1).all())
+    assert torch.equal(bits, fk.dropout_bits(n - RUN * start_run, seed,
+                                             start=RUN * start_run))

@@ -449,3 +449,141 @@ def test_register_kernel_order_matches_reference_kernel(dtype, with_beta,
         if got is not None:
             np.testing.assert_array_equal(
                 got.numpy(), _walk_sums(_columns(term, d).numpy()))
+
+
+def test_route_rule_names_no_width_limit():
+    """Past the register kernels' 1024 the general kernels take every
+    width: the route rule names none, and the wrapper no longer refuses
+    a width (on the CPU it takes the plain version at any width)."""
+    for d in (1032, 25608, 51208, 10 ** 6 + 1):
+        assert fk.layer_norm_route(d, 0, 16, 32) == "general"
+    x, g, _ = (torch.from_numpy(a) for a in _inputs((3, 25608), seed=8))
+    dx, grad_g, grad_b = fk.layer_norm_backward(x, x * 0.1, g, EPS)
+    assert dx.shape == x.shape and grad_g.shape == grad_b.shape == (25608,)
+
+
+#: the general kernels of csrc/layer_norm_bwd.cu: 8 warps a block, at most
+#: 1024 blocks and 2^23 workspace floats, 32 rows' statistics a block at
+#: once, 512 columns' partial sums at once
+GEN_WARPS, GEN_MAX_BLOCKS, GEN_WORK_FLOATS = 8, 1024, 2 ** 23
+GEN_GROUP, GEN_CHUNK = 32, 512
+
+
+def _gen_blocks(m, d, with_beta, work_floats=GEN_WORK_FLOATS):
+    """``(blocks, rows a block)`` of the general kernels, as
+    ``gen_blocks`` in csrc/layer_norm_bwd.cu takes them."""
+    if m <= 0:
+        return 0, 0
+    n = min(-(-m // GEN_WARPS), GEN_MAX_BLOCKS)
+    fit = work_floats // (d * (2 if with_beta else 1))
+    if n > fit:
+        n = max(fit, 1)
+    per = -(-m // n)
+    return -(-m // per), per
+
+
+def _bwd_general_order(x, err, gamma, with_beta, chunk=GEN_CHUNK,
+                       group=GEN_GROUP, work_floats=GEN_WORK_FLOATS):
+    """The general kernels' order of work in torch (f32 math on the
+    stored values).  Block b owns rows [b·per, (b + 1)·per) and takes
+    them in groups of ``group``: the group's row statistics first, then
+    the columns ``chunk`` at a time, warp w computing dx of the group's
+    rows w, w + 8, ... over the chunk and adding their ``err·x̂`` and
+    ``err`` terms into its partial row in row order; the block adds its
+    warps' rows in warp order and writes the chunk of its workspace row
+    (the first group) or adds to it (the later ones, in group order);
+    the fold adds the workspace rows in block order.  Returns (dx f32
+    with NaN where nothing wrote, grad_gamma, grad_beta or None)."""
+    m, d = x.shape
+    xf, ef = x.float(), err.float()
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + EPS)
+    dxhat = ef * gamma
+    mean_dxhat = dxhat.mean(-1, keepdim=True)
+    mean_dxhat_xhat = (dxhat * (xf - mu)).mean(-1, keepdim=True) * rstd
+    n_sums = 2 if with_beta else 1
+    n_blocks, per = _gen_blocks(m, d, with_beta, work_floats)
+    dx = torch.full((m, d), float("nan"))
+    work = torch.full((n_sums, n_blocks, d), float("nan"))
+    for b in range(n_blocks):
+        row0, row1 = b * per, min((b + 1) * per, m)
+        for g0 in range(row0, row1, group):
+            rows = range(g0, min(g0 + group, row1))
+            for c0 in range(0, d, chunk):
+                cols = slice(c0, min(c0 + chunk, d))
+                acc = torch.zeros(n_sums, GEN_WARPS, cols.stop - c0)
+                for w in range(GEN_WARPS):
+                    for r in rows[w::GEN_WARPS]:
+                        xhat = (xf[r, cols] - mu[r]) * rstd[r]
+                        dx[r, cols] = (dxhat[r, cols] - mean_dxhat[r]
+                                       - xhat * mean_dxhat_xhat[r]) * rstd[r]
+                        acc[0, w] = acc[0, w] + ef[r, cols] * xhat
+                        if with_beta:
+                            acc[1, w] = acc[1, w] + ef[r, cols]
+                fold = torch.zeros(n_sums, cols.stop - c0)
+                for w in range(GEN_WARPS):
+                    fold = fold + acc[:, w]
+                if g0 == row0:
+                    work[:, b, cols] = fold
+                else:
+                    work[:, b, cols] = work[:, b, cols] + fold
+    sums = torch.zeros(n_sums, d)
+    for b in range(n_blocks):
+        sums = sums + work[:, b]
+    return dx, sums[0], sums[1] if with_beta else None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_beta", [True, False])
+@pytest.mark.parametrize("rows,d,group,work_floats", [
+    (70, 40, 4, GEN_WORK_FLOATS),  # 9 blocks of 8 rows, two groups each
+    # the workspace cap: 3 blocks of 100 rows, 9 groups each, 1-2 rows a
+    # warp in a group
+    (300, 37, 12, 3 * 2 * 37),
+    (5, 1030, 4, GEN_WORK_FLOATS),  # one block, a ragged last chunk
+])
+def test_general_kernel_order_matches_reference_kernel(dtype, with_beta,
+                                                       rows, d, group,
+                                                       work_floats):
+    """The general kernels' order of work, emulated in torch on the CPU
+    with a tiny chunk (16 columns) and group (4 or 12 rows) so that
+    several of each run (:func:`_bwd_general_order`), against the
+    reference's Pallas
+    ``_ln_bwd_kernel`` in interpret mode, at the file's tolerances: every
+    element of dx written once; and the sums' bits do not depend on the
+    chunk width (each column's terms are added in the same order), so
+    the kernel's 512 gives the same bits as 16."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x, g, _ = _inputs((rows, d), seed=rows + d)
+    err = np.random.default_rng(d).normal(0, 0.1, (rows, d)).astype(
+        np.float32)
+    tx, terr = (torch.from_numpy(a).to(tdt) for a in (x, err))
+    tg = torch.from_numpy(g)
+    jx, jerr = (jnp.asarray(a.float().numpy()).astype(jdt)
+                for a in (tx, terr))
+    want_dx, want_g, want_b = ref_ln_bwd(jx, jerr, jnp.asarray(g), EPS,
+                                         with_beta=with_beta, interpret=True)
+    dx, grad_g, grad_b = _bwd_general_order(tx, terr, tg, with_beta,
+                                            chunk=16, group=group,
+                                            work_floats=work_floats)
+    assert not bool(torch.isnan(dx).any())
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    dx_tol = 1e-6 if dtype == "float32" else \
+        2.0 ** -7 * np.abs(want_dx).max()
+    np.testing.assert_allclose(dx.to(tdt).float().numpy(), want_dx, rtol=0,
+                               atol=dx_tol)
+    xf, ef = tx.float(), terr.float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+        xf.var(-1, unbiased=False, keepdim=True) + EPS)
+    for got, want, terms in ((grad_g, want_g, ef * xhat),
+                             (grad_b, want_b, ef)):
+        if not with_beta and want is None:
+            assert got is None
+            continue
+        bound = 1e-5 * terms.abs().sum(0).numpy()
+        assert np.all(np.abs(got.numpy() - np.asarray(want)) <= bound)
+    wide = _bwd_general_order(tx, terr, tg, with_beta, group=group,
+                              work_floats=work_floats)
+    assert torch.equal(wide[0], dx)
+    for a, b_ in zip((grad_g, grad_b), wide[1:]):
+        assert a is None or torch.equal(a, b_)

@@ -161,7 +161,7 @@ def test_route_rule(dtype):
     the channel count and the operands' addresses: AlexNet's two shapes
     take the vector kernels; a channel count that is not a multiple of 8
     or past 2048, or an operand off a 16-byte boundary, take the general
-    ones; past 16384 channels none does."""
+    ones, at any width."""
     def route(c, *tensors):
         return fk.lrn_route(c, *(t.data_ptr() for t in tensors))
 
@@ -174,7 +174,7 @@ def test_route_rule(dtype):
     assert route(8, x) == "vector"
     assert route(37, x) == "general"  # chip_smoke's odd_ragged
     assert route(fk.LRN_VECTOR_MAX_CHANNELS + 8, x) == "general"
-    assert route(fk.LRN_MAX_CHANNELS, x) == "general"
+    assert route(16384, x) == "general"
     # a view one element off a 16-byte boundary, and one 16 bytes off
     flat = torch.empty(21 * 96 + 16, dtype=dtype)
     per16 = 16 // flat.element_size()
@@ -182,8 +182,9 @@ def test_route_rule(dtype):
     assert off.is_contiguous() and off.data_ptr() % 16
     assert route(96, flat, off) == "general"
     assert route(96, flat[per16:per16 + 21 * 96].view(21, 96)) == "vector"
-    with pytest.raises(ValueError, match="up to 16384 channels"):
-        fk.lrn_route(fk.LRN_MAX_CHANNELS + 8, x.data_ptr())
+    # the general kernels tile the channels: no width is refused
+    for c in (16392, 2 ** 20 + 3):
+        assert fk.lrn_route(c, x.data_ptr()) == "general"
 
 
 #: the vector kernels' block (csrc/lrn.cu) and the window whose halos
@@ -295,4 +296,123 @@ def test_vector_kernel_order_matches_reference_kernel(dtype, rows, c, n):
     plain_y = fk.lrn_forward_plain(x.float(), **cfg)
     plain_dx = fk.lrn_backward_plain(x.float(), err.float(), **cfg)
     assert _rel(y, plain_y.numpy()) <= F32_TOL
+    assert _rel(dx, plain_dx.numpy()) <= F32_TOL
+
+
+#: the general kernels of csrc/lrn.cu: elements a block owns, and values a
+#: staging buffer holds
+GEN_TILE, GEN_STAGE = 4 * 256, 2048
+
+
+def _reach(e0, e1, c, lo, hi):
+    """``reach`` of csrc/lrn.cu: the elements the windows [e − lo, e + hi]
+    of elements e0..e1 of the flat (rows·C) array reach, each cut to its
+    own row."""
+    first, last = e0 // c * c, e1 // c * c + c - 1
+    return max(e0 - lo, first), min(e1 + hi, last)
+
+
+def _add_staged(sums, e, staged, base, c, lo, hi):
+    """``add_staged`` for elements ``e`` at once: each adds, in channel
+    order, the staged terms of the part of its window (cut to its row)
+    that lies in the chunk [base, base + len)."""
+    row = e // c * c
+    wa = torch.maximum(e - lo, row)
+    wz = torch.minimum(e + hi, row + c - 1)
+    for j in range(staged.numel()):
+        inside = (base + j >= wa) & (base + j <= wz)
+        sums = torch.where(inside, sums + staged[j], sums)
+    return sums
+
+
+def _general_kernel_order(x, err, alpha, beta, k, n, tile=GEN_TILE,
+                          stage=GEN_STAGE):
+    """The general kernels' order of work in torch, f32 math on the
+    stored values.  The (rows, C) array is one run of elements, a block
+    owning ``tile`` of them.  Forward: the squares of the range the
+    tile's windows reach are staged ``stage`` at a time and added to each
+    element's window sum chunk by chunk.  Backward: the adjoint range of
+    the tile is walked ``stage`` elements at a time; for each chunk the
+    squares its forward windows reach are staged (chunk by chunk again)
+    into its elements' forward sums, the chunk's t = err·x·d^(−β−1) and
+    d^(−β) staged, and t added to the tile's adjoint sums.  Returns (y,
+    dx) in f32."""
+    rows, c = x.shape
+    count = rows * c
+    lo, hi = n // 2, n - 1 - n // 2
+    f32 = torch.float32
+    alpha_, beta_, k_ = (torch.tensor(a, dtype=f32) for a in (alpha, beta, k))
+    xf, ef = x.float().reshape(-1), err.float().reshape(-1)
+    sq = xf * xf
+    y = torch.full((count,), float("nan"))
+    dx = torch.full((count,), float("nan"))
+
+    def forward_sums(e0, e1):  # the window sums of elements e0..e1
+        e = torch.arange(e0, e1 + 1)
+        sums = torch.zeros(e.numel())
+        a, z = _reach(e0, e1, c, lo, hi)
+        for base in range(a, z + 1, stage):
+            sums = _add_staged(sums, e, sq[base:min(base + stage, z + 1)],
+                               base, c, lo, hi)
+        return k_ + alpha_ * sums
+
+    for e0 in range(0, count, tile):
+        e1 = min(e0 + tile, count) - 1
+        e = torch.arange(e0, e1 + 1)
+        d = forward_sums(e0, e1)
+        y[e] = xf[e] * fk._pow_neg(d, beta)
+        adj = torch.zeros(e.numel())
+        p_own = torch.full((e.numel(),), float("nan"))
+        ta, tz = _reach(e0, e1, c, hi, lo)
+        for tb in range(ta, tz + 1, stage):
+            te = min(tb + stage, tz + 1) - 1
+            dj = forward_sums(tb, te)
+            pj = fk._pow_neg(dj, beta)
+            j = torch.arange(tb, te + 1)
+            t = ef[j] * xf[j] * (pj / dj)
+            adj = _add_staged(adj, e, t, tb, c, hi, lo)
+            mine = (e >= tb) & (e <= te)
+            p_own[mine] = pj[e[mine] - tb]
+        dx[e] = ef[e] * p_own - 2.0 * alpha_ * beta_ * xf[e] * adj
+    return y.reshape(rows, c), dx.reshape(rows, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,c,n,tile,stage", [
+    (5, 37, 5, 16, 8),     # tiles across rows, AlexNet's window
+    (3, 40, 4, 16, 8),     # an even window: its adjoint differs
+    (2, 70, 23, 32, 16),   # halos wider than a chunk: several chunks a tile
+    (4, 9, 25, 8, 4),      # a window past both row ends
+    (6, 1, 3, 4, 2),       # one channel
+    (3, 50, 5, GEN_TILE, GEN_STAGE),  # the kernel's own tile and buffer
+])
+def test_general_kernel_order_matches_reference_kernel(dtype, rows, c, n,
+                                                       tile, stage):
+    """The general kernels' order of work, emulated in torch on the CPU
+    with tiny tiles and staging buffers (:func:`_general_kernel_order`),
+    against the reference's Pallas ``lrn_forward``/``lrn_backward`` in
+    interpret mode on the same stored values, at the file's ``F32_TOL``
+    or one bf16 step: windows cut to their rows at both ends, never
+    wrapping into the next row, halos in several chunks.  In f32 the
+    emulation's y has the plain version's bits (the same terms in the
+    same order); its dx matches the plain version's to ``F32_TOL``, as
+    the kernels round 2αβ in f32 where the plain version rounds it from
+    a double."""
+    tdt = getattr(torch, dtype)
+    cfg = dict(ALEXNET, n=n)
+    x = torch.from_numpy(_x(rows, c, seed=rows + c + n)).to(tdt)
+    err = torch.from_numpy(np.random.default_rng(n).normal(
+        0, 1, (rows, c)).astype(np.float32)).to(tdt)
+    want_y = np.asarray(pallas_kernels.lrn_forward(
+        jnp.asarray(x.float().numpy()), interpret=True, **cfg))
+    want_dx = np.asarray(pallas_kernels.lrn_backward(
+        jnp.asarray(x.float().numpy()), jnp.asarray(err.float().numpy()),
+        interpret=True, **cfg))
+    y, dx = _general_kernel_order(x, err, **cfg, tile=tile, stage=stage)
+    assert not bool(torch.isnan(y).any() or torch.isnan(dx).any())
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert _rel(y.to(tdt).float(), want_y) <= tol
+    assert _rel(dx.to(tdt).float(), want_dx) <= tol
+    assert torch.equal(y, fk.lrn_forward_plain(x.float(), **cfg))
+    plain_dx = fk.lrn_backward_plain(x.float(), err.float(), **cfg)
     assert _rel(dx, plain_dx.numpy()) <= F32_TOL

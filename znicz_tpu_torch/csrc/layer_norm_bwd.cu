@@ -50,23 +50,33 @@
 //     rows in order (all their loads in flight at once), then the 32
 //     results in warp order.
 // The general kernels take the rest (D not a multiple of 8 or over 1024, a
-// pointer off 16 bytes), any row count and any D up to the shared memory
-// one warp's partial sums fit in (51200, or 25600 with beta): one warp per
-// row, the second and third passes over the row served from L1; every warp
-// adds its rows' terms into its own shared-memory row of partial sums (each
-// column belongs to one lane, so no two threads touch one address), the
-// block folds its warps' rows in warp order, and the fold over blocks runs
-// in block order, a thread a column.  Its vector path needs D % 8 == 0 and
-// 16-byte alignment, its scalar path takes the rest.
+// pointer off 16 bytes), any row count and any width: one warp per row.  A
+// block takes its rows in groups of 32: the statistics of a group's rows
+// (two passes over each row) go to shared memory, then the block walks the
+// columns in chunks of 512, each warp computing dx of its rows over the
+// chunk and adding their terms into its own shared row of partial sums; the
+// block folds its warps' rows in warp order into its workspace row (written
+// by the first group, added to by the later ones in group order), and the
+// fold over blocks runs in block order, a thread a column.  So shared
+// memory holds 32 KB whatever the width, and the block count (at most
+// 1024, and at most 2^23 workspace floats) depends on M and D only.  Its
+// vector path needs D % 8 == 0 and 16-byte alignment, its scalar path
+// takes the rest.
 
 #include "rows.cuh"
 
 namespace {
 
 constexpr int MAX_WARPS = 8;
-//: blocks are capped so the workspace stays small; the row range a block
-//: owns depends on M and this constant only, never on the card
+constexpr int GEN_THREADS = MAX_WARPS * 32;
+//: columns whose partial sums a block holds in shared memory at once
+constexpr int GEN_CHUNK = 512;
+//: rows whose statistics a block holds at once (4 a warp)
+constexpr int GEN_GROUP = 32;
+//: the most blocks, and the most workspace floats: the rows a block owns
+//: depend on M, D and these constants only, never on the card
 constexpr int MAX_BLOCKS = 1024;
+constexpr long long GEN_WORK_FLOATS = 1LL << 23;
 constexpr int FOLD_THREADS = 256;
 
 // 8 consecutive shared-memory floats += v (two 16-byte accesses)
@@ -79,127 +89,155 @@ __device__ __forceinline__ void add8(float* p, const float v[8]) {
   q[1] = b;
 }
 
-// One block: `warps` warps over rows [row0, row1), warp w taking rows
-// row0 + w, row0 + w + warps, ...  Dynamic shared memory holds `warps`
-// rows of D partial gamma sums, then (with beta) `warps` rows of partial
-// beta sums.
+// One block: 8 warps over rows [row0, row1), in groups of GEN_GROUP rows.
+// For each group: warp w computes the statistics of the group's rows w,
+// w + 8, ... (passes 1 and 2 over the whole row) into shared memory; then,
+// a chunk of GEN_CHUNK columns at a time, each warp computes dx of its
+// rows over the chunk (pass 3) and adds their err * xhat and err terms
+// into its own shared row of partial sums, row by row; the block folds its
+// warps' rows in warp order and writes the chunk of its workspace row (the
+// first group) or adds to it (the later ones, in group order).  Every
+// column belongs to one lane of a warp, so no two threads touch one
+// address between barriers.  The bound of 2 blocks an SM lets ptxas take
+// the registers the kernel needs: without it, it held the vector path to
+// 48 and spilled.
 template <typename TX, typename TE, bool VEC>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
+__global__ void __launch_bounds__(GEN_THREADS, 2)
     ln_bwd_rows_kernel(const TX* __restrict__ x, const TE* __restrict__ err,
                        const float* __restrict__ gamma, TE* __restrict__ dx,
                        float* __restrict__ work_g, float* __restrict__ work_b,
                        long long m, int d, long long rows_per_block,
                        float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x / 32;
+  __shared__ __align__(16) float acc[2][MAX_WARPS][GEN_CHUNK];
+  // mu, rstd, mean(dxhat), mean(dxhat * xhat) of the group's rows
+  __shared__ float4 stats[GEN_GROUP];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const bool has_beta = work_b != nullptr;
-  float* acc_g = smem + static_cast<long long>(warp) * d;
-  float* acc_b = smem + static_cast<long long>(warps + warp) * d;
-
-  for (int i = threadIdx.x; i < warps * d * (has_beta ? 2 : 1);
-       i += blockDim.x) {
-    smem[i] = 0.f;
-  }
-  __syncthreads();
-
+  float* acc_g = acc[0][warp];
+  float* acc_b = acc[1][warp];
   const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   long long row1 = row0 + rows_per_block;
   if (row1 > m) row1 = m;
   const float inv_d = 1.0f / static_cast<float>(d);
+  float* wg = work_g + static_cast<long long>(blockIdx.x) * d;
+  float* wb = has_beta ? work_b + static_cast<long long>(blockIdx.x) * d
+                       : nullptr;
 
-  for (long long row = row0 + warp; row < row1; row += warps) {
-    const TX* xr = x + row * d;
-    const TE* er = err + row * d;
-    TE* dr = dx + row * d;
-
-    // pass 1: mean of x
-    float s = 0.f;
-    if (VEC) {
-      for (int i = lane * 8; i < d; i += 32 * 8) {
-        float v[8];
-        load8(xr + i, v);
+  for (long long g0 = row0; g0 < row1; g0 += GEN_GROUP) {
+    const int rows = static_cast<int>(
+        row1 - g0 < GEN_GROUP ? row1 - g0 : GEN_GROUP);
+    for (int r = warp; r < rows; r += MAX_WARPS) {
+      const TX* xr = x + (g0 + r) * d;
+      const TE* er = err + (g0 + r) * d;
+      // pass 1: mean of x
+      float s = 0.f;
+      if (VEC) {
+        for (int i = lane * 8; i < d; i += 32 * 8) {
+          float v[8];
+          load8(xr + i, v);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s += v[j];
+          for (int j = 0; j < 8; ++j) s += v[j];
+        }
+      } else {
+        for (int i = lane; i < d; i += 32) s += to_f32(xr[i]);
       }
-    } else {
-      for (int i = lane; i < d; i += 32) s += to_f32(xr[i]);
-    }
-    const float mu = warp_sum(s) * inv_d;
-
-    // pass 2: centred variance, mean(dxhat), sum(dxhat * (x - mu))
-    float sq = 0.f, sd = 0.f, sdx = 0.f;
-    if (VEC) {
-      for (int i = lane * 8; i < d; i += 32 * 8) {
-        float v[8], e[8];
-        load8(xr + i, v);
-        load8(er + i, e);
+      const float mu = warp_sum(s) * inv_d;
+      // pass 2: centred variance, mean(dxhat), sum(dxhat * (x - mu))
+      float sq = 0.f, sd = 0.f, sdx = 0.f;
+      if (VEC) {
+        for (int i = lane * 8; i < d; i += 32 * 8) {
+          float v[8], e[8];
+          load8(xr + i, v);
+          load8(er + i, e);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float c = v[j] - mu;
-          const float g = e[j] * gamma[i + j];
+          for (int j = 0; j < 8; ++j) {
+            const float c = v[j] - mu;
+            const float g = e[j] * gamma[i + j];
+            sq += c * c;
+            sd += g;
+            sdx += g * c;
+          }
+        }
+      } else {
+        for (int i = lane; i < d; i += 32) {
+          const float c = to_f32(xr[i]) - mu;
+          const float g = to_f32(er[i]) * gamma[i];
           sq += c * c;
           sd += g;
           sdx += g * c;
         }
       }
-    } else {
-      for (int i = lane; i < d; i += 32) {
-        const float c = to_f32(xr[i]) - mu;
-        const float g = to_f32(er[i]) * gamma[i];
-        sq += c * c;
-        sd += g;
-        sdx += g * c;
-      }
+      const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
+      const float mean_dxhat = warp_sum(sd) * inv_d;
+      // mean(dxhat * xhat) = rstd * mean(dxhat * (x - mu))
+      const float mean_dxhat_xhat = warp_sum(sdx) * inv_d * rstd;
+      if (lane == 0)
+        stats[r] = make_float4(mu, rstd, mean_dxhat, mean_dxhat_xhat);
     }
-    const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
-    const float mean_dxhat = warp_sum(sd) * inv_d;
-    // mean(dxhat * xhat) = rstd * mean(dxhat * (x - mu))
-    const float mean_dxhat_xhat = warp_sum(sdx) * inv_d * rstd;
+    __syncthreads();
 
-    // pass 3: dx, and this warp's column partials
-    if (VEC) {
-      for (int i = lane * 8; i < d; i += 32 * 8) {
-        float v[8], e[8], out[8], tg[8];
-        load8(xr + i, v);
-        load8(er + i, e);
+    // pass 3, a chunk of columns at a time
+    for (int c0 = 0; c0 < d; c0 += GEN_CHUNK) {
+      const int cols = d - c0 < GEN_CHUNK ? d - c0 : GEN_CHUNK;
+      if (VEC) {
+        for (int i = lane * 8; i < cols; i += 32 * 8)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float xhat = (v[j] - mu) * rstd;
-          const float g = e[j] * gamma[i + j];
-          out[j] = (g - mean_dxhat - xhat * mean_dxhat_xhat) * rstd;
-          tg[j] = e[j] * xhat;
+          for (int j = 0; j < 8; ++j) acc_g[i + j] = acc_b[i + j] = 0.f;
+      } else {
+        for (int i = lane; i < cols; i += 32) acc_g[i] = acc_b[i] = 0.f;
+      }
+      for (int r = warp; r < rows; r += MAX_WARPS) {
+        const float4 st = stats[r];  // mu, rstd, mean_dxhat, mean_dxhat_xhat
+        const TX* xr = x + (g0 + r) * d + c0;
+        const TE* er = err + (g0 + r) * d + c0;
+        TE* dr = dx + (g0 + r) * d + c0;
+        const float* gr = gamma + c0;
+        if (VEC) {
+          for (int i = lane * 8; i < cols; i += 32 * 8) {
+            float v[8], e[8], out[8];
+            load8(xr + i, v);
+            load8(er + i, e);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              v[j] = (v[j] - st.x) * st.y;  // xhat
+              out[j] = (e[j] * gr[i + j] - st.z - v[j] * st.w) * st.y;
+            }
+            store8(dr + i, out);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = e[j] * v[j];  // err * xhat
+            add8(acc_g + i, v);
+            if (has_beta) add8(acc_b + i, e);
+          }
+        } else {
+          for (int i = lane; i < cols; i += 32) {
+            const float e = to_f32(er[i]);
+            const float xhat = (to_f32(xr[i]) - st.x) * st.y;
+            const float g = e * gr[i];
+            dr[i] = from_f32<TE>((g - st.z - xhat * st.w) * st.y);
+            acc_g[i] += e * xhat;
+            if (has_beta) acc_b[i] += e;
+          }
         }
-        store8(dr + i, out);
-        add8(acc_g + i, tg);
-        if (has_beta) add8(acc_b + i, e);
       }
-    } else {
-      for (int i = lane; i < d; i += 32) {
-        const float e = to_f32(er[i]);
-        const float xhat = (to_f32(xr[i]) - mu) * rstd;
-        const float g = e * gamma[i];
-        dr[i] = from_f32<TE>((g - mean_dxhat - xhat * mean_dxhat_xhat) * rstd);
-        acc_g[i] += e * xhat;
-        if (has_beta) acc_b[i] += e;
+      __syncthreads();
+      // fold this block's warps in warp order into its workspace row
+      for (int c = threadIdx.x; c < cols; c += GEN_THREADS) {
+        float g = 0.f, b = 0.f;
+        for (int w = 0; w < MAX_WARPS; ++w) {
+          g += acc[0][w][c];
+          if (has_beta) b += acc[1][w][c];
+        }
+        if (g0 == row0) {
+          wg[c0 + c] = g;
+          if (has_beta) wb[c0 + c] = b;
+        } else {
+          wg[c0 + c] += g;
+          if (has_beta) wb[c0 + c] += b;
+        }
       }
+      __syncthreads();  // the partial rows and the statistics are read
     }
-  }
-  __syncthreads();
-
-  // fold this block's warps in warp order into its workspace row
-  float* wg = work_g + static_cast<long long>(blockIdx.x) * d;
-  float* wb = has_beta ? work_b + static_cast<long long>(blockIdx.x) * d
-                       : nullptr;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float g = 0.f, b = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      g += smem[w * d + c];
-      if (has_beta) b += smem[(warps + w) * d + c];
-    }
-    wg[c] = g;
-    if (has_beta) wb[c] = b;
   }
 }
 
@@ -220,14 +258,20 @@ __global__ void __launch_bounds__(FOLD_THREADS)
   if (grad_b != nullptr) grad_b[c] = b;
 }
 
-// warps per block such that the partial-sum rows fit the shared memory a
-// block may use; 0 when even one warp's rows do not fit
-int warps_for(int d, bool has_beta) {
-  const long long per_warp = static_cast<long long>(d) * 4 * (has_beta ? 2 : 1);
-  const long long limit = 200 * 1024;
-  int warps = MAX_WARPS;
-  while (warps > 0 && warps * per_warp > limit) warps /= 2;
-  return warps;
+// the general kernel's blocks (workspace rows) for m rows of width d, and
+// the rows each owns: a warp's row or more a block, at most MAX_BLOCKS, and
+// at most GEN_WORK_FLOATS floats of workspace
+long long gen_blocks(long long m, int d, bool has_beta,
+                     long long* rows_per_block) {
+  *rows_per_block = 0;
+  if (m <= 0 || d <= 0) return 0;
+  long long n = (m + MAX_WARPS - 1) / MAX_WARPS;
+  if (n > MAX_BLOCKS) n = MAX_BLOCKS;
+  const long long fit = GEN_WORK_FLOATS / (static_cast<long long>(d) *
+                                           (has_beta ? 2 : 1));
+  if (n > fit) n = fit > 0 ? fit : 1;
+  *rows_per_block = (m + n - 1) / n;
+  return (m + *rows_per_block - 1) / *rows_per_block;
 }
 
 template <typename TX, typename TE>
@@ -236,29 +280,18 @@ cudaError_t launch(const void* x, const void* err, const float* gamma,
                    long long m, int d, float eps, int vec,
                    cudaStream_t stream) {
   const bool has_beta = grad_b != nullptr;
-  const int warps = warps_for(d, has_beta);
-  if (warps == 0) return cudaErrorInvalidValue;
-  long long n_blocks = 0;
-  if (m > 0) {
-    n_blocks = (m + warps - 1) / warps;
-    if (n_blocks > MAX_BLOCKS) n_blocks = MAX_BLOCKS;
-    const long long rows_per_block = (m + n_blocks - 1) / n_blocks;
-    n_blocks = (m + rows_per_block - 1) / rows_per_block;
-    float* work_g = work;
-    float* work_b = has_beta ? work + n_blocks * d : nullptr;
-    const int smem = warps * d * 4 * (has_beta ? 2 : 1);
+  long long rows_per_block = 0;
+  const long long n_blocks = gen_blocks(m, d, has_beta, &rows_per_block);
+  float* work_b = has_beta ? work + n_blocks * d : nullptr;
+  if (n_blocks > 0) {
     auto kernel = vec ? ln_bwd_rows_kernel<TX, TE, true>
                       : ln_bwd_rows_kernel<TX, TE, false>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<static_cast<unsigned>(n_blocks), warps * 32, smem, stream>>>(
+    kernel<<<static_cast<unsigned>(n_blocks), GEN_THREADS, 0, stream>>>(
         static_cast<const TX*>(x), static_cast<const TE*>(err), gamma,
-        static_cast<TE*>(dx), work_g, work_b, m, d, rows_per_block, eps);
-    e = cudaGetLastError();
+        static_cast<TE*>(dx), work, work_b, m, d, rows_per_block, eps);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  const float* work_b = has_beta ? work + n_blocks * d : nullptr;
   ln_bwd_fold_kernel<<<(d + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0,
                        stream>>>(work, work_b, grad_g, grad_b,
                                  static_cast<int>(n_blocks), d);
@@ -539,18 +572,13 @@ bool reg_takes(int d, const void* x, const void* err, const void* gamma,
 
 }  // namespace
 
-// The number of workspace rows (blocks) the kernel uses for m rows of
-// width d; the caller allocates a workspace of (rows * d * (1 + beta))
-// floats.  -1 when d is too wide for the shared-memory partial sums.
+// The number of workspace rows (blocks) the general kernels use for m rows
+// of width d; the caller allocates a workspace of (rows * d * (1 + beta))
+// floats, at most 2^23.
 extern "C" long long znicz_layer_norm_bwd_blocks(long long m, int d,
                                                  int has_beta) {
-  const int warps = warps_for(d, has_beta != 0);
-  if (warps == 0) return -1;
-  if (m <= 0) return 0;
-  long long n_blocks = (m + warps - 1) / warps;
-  if (n_blocks > MAX_BLOCKS) n_blocks = MAX_BLOCKS;
-  const long long rows_per_block = (m + n_blocks - 1) / n_blocks;
-  return (m + rows_per_block - 1) / rows_per_block;
+  long long rows_per_block = 0;
+  return gen_blocks(m, d, has_beta != 0, &rows_per_block);
 }
 
 // x: (m, d) row-major in x_dtype; err, dx: (m, d) row-major in err_dtype;

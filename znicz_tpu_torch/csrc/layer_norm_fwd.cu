@@ -32,8 +32,6 @@
 // the row served from L1 (a 512-wide bf16 row is 1 KB, a block of 8 rows
 // 8 KB).
 
-#include <atomic>
-
 #include "rows.cuh"
 
 namespace {
@@ -207,29 +205,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// the blocks of Kernel that the current device holds at once; the runtime
-// is asked once a device, as the answer never changes
-template <auto Kernel>
-cudaError_t resident_blocks(int* blocks) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> known[kDevices];  // 0: not asked yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<int>* slot = dev < kDevices ? &known[dev] : nullptr;
-  if (slot && (*blocks = slot->load(std::memory_order_relaxed)) > 0)
-    return cudaSuccess;
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      THREADS, 0);
-  if (e != cudaSuccess) return e;
-  *blocks = sms * per_sm;
-  if (slot) slot->store(*blocks, std::memory_order_relaxed);
-  return cudaSuccess;
-}
-
 // a persistent grid: as many blocks as the card holds at once, at most
 // one a warp's row
 template <auto Kernel, typename T>
@@ -237,7 +212,7 @@ cudaError_t launch_reg(const void* x, const float* gamma, const float* beta,
                        void* y, long long m, int d, float eps,
                        cudaStream_t stream) {
   int resident = 0;
-  const cudaError_t e = resident_blocks<Kernel>(&resident);
+  const cudaError_t e = resident_blocks<Kernel, THREADS>(&resident);
   if (e != cudaSuccess) return e;
   long long blocks = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
   if (blocks > resident) blocks = resident;

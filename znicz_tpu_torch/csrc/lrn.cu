@@ -52,36 +52,39 @@
 //     template stays.)
 // The general kernels take what the vector kernels do not (C not a multiple
 // of 8, C over 2048, a pointer off 16 bytes; the rule is lrn_route in
-// ops/fused_kernels.py): a block stages a contiguous run of whole rows in
-// shared memory as f32 and takes every window sum from there.
+// ops/fused_kernels.py), at any C and any n:
+//   - The (rows, C) array is seen as one run of rows * C elements, and a
+//     block owns the tile of GEN_TILE consecutive elements tile * GEN_TILE
+//     on (4 a thread, neighbouring threads on neighbouring elements), which
+//     may hold many short rows or a piece of a long one.
+//   - An element's window is cut to its own row: it never wraps into the
+//     next row and stops at both row ends.  The windows of a tile reach a
+//     range of elements from lo before its first element to hi after its
+//     last, cut to the rows of those two elements; the block stages that
+//     range's squares in shared memory, GEN_STAGE values at a time, and
+//     each thread adds the staged terms of its elements' windows in channel
+//     order, chunk after chunk, so a halo of any width (n up to the row and
+//     beyond) passes through a fixed 8 KB buffer.  With AlexNet's n a tile's
+//     range is one chunk.
+//   - The backward needs t over the adjoint windows of its tile, and each t
+//     its own forward window: the block walks the adjoint range a chunk at a
+//     time, stages the squares that chunk's forward windows reach (chunk by
+//     chunk again), computes the chunk's t and d^(-beta) into shared memory,
+//     and adds the chunk's terms to its elements' adjoint sums.
+//   - Every sum adds the plain version's terms in its order, from 0: the
+//     general kernels give the plain version's bits but for the card's
+//     rsqrt/sqrt/pow.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "rows.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TILE_VALUES = 4096;  // values a general block stages
-constexpr int V = 8;               // channels a vector-kernel thread owns
+constexpr int V = 8;  // channels a vector-kernel thread owns
 constexpr int VEC_MAX_C = V * THREADS;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+constexpr int GEN_PER = 4;                   // elements a general thread owns
+constexpr int GEN_TILE = GEN_PER * THREADS;  // elements a general block owns
+constexpr int GEN_STAGE = 2048;              // values a staging buffer holds
 
 // d^(-beta): AlexNet's beta = 0.75 as rsqrt(d * sqrt(d)), as the
 // reference's XLA path computes it; powf otherwise
@@ -92,52 +95,6 @@ __device__ __forceinline__ float pow_neg(float d, float beta) {
 // ---------------------------------------------------------------------
 // the vector kernels
 // ---------------------------------------------------------------------
-
-// V values of T as they arrive from device memory: a load fills the
-// registers and nothing waits on it until unpack
-template <typename T>
-struct Raw;
-template <>
-struct Raw<__nv_bfloat16> {
-  uint4 w;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    w = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void unpack(float (&v)[V]) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&v)[V]) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < V / 2; ++i)
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-};
-template <>
-struct Raw<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  __device__ __forceinline__ void unpack(float (&v)[V]) const {
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
 
 struct VecGeometry {
   long long rows, tiles;
@@ -231,11 +188,11 @@ __global__ void __launch_bounds__(THREADS)
            tile * g.rows_per_tile + r < g.rows;
   };
   long long tile = blockIdx.x;
-  Raw<T> next;
+  Raw8<T> next;
   bool next_ok = holds(tile);
   if (next_ok) next.load(x + tile * step + own);
   for (int buf = 0; tile < g.tiles; tile += gridDim.x, buf ^= 1) {
-    const Raw<T> cur = next;
+    const Raw8<T> cur = next;
     const bool ok = next_ok;
     next_ok = holds(tile + gridDim.x);
     if (next_ok) next.load(x + (tile + gridDim.x) * step + own);
@@ -256,7 +213,7 @@ __global__ void __launch_bounds__(THREADS)
       const float d = __fadd_rn(g.k, __fmul_rn(g.alpha, sum[i]));
       sum[i] = __fmul_rn(xv[i], pow_neg(d, g.beta));
     }
-    Raw<T>::store(y + tile * step + own, sum);
+    store8(y + tile * step + own, sum);
   }
 }
 
@@ -276,16 +233,16 @@ __global__ void __launch_bounds__(THREADS)
            tile * g.rows_per_tile + r < g.rows;
   };
   long long tile = blockIdx.x;
-  Raw<TX> next_x;
-  Raw<TE> next_e;
+  Raw8<TX> next_x;
+  Raw8<TE> next_e;
   bool next_ok = holds(tile);
   if (next_ok) {
     next_x.load(x + tile * step + own);
     next_e.load(err + tile * step + own);
   }
   for (; tile < g.tiles; tile += gridDim.x) {
-    const Raw<TX> cur_x = next_x;
-    const Raw<TE> cur_e = next_e;
+    const Raw8<TX> cur_x = next_x;
+    const Raw8<TE> cur_e = next_e;
     const bool ok = next_ok;
     next_ok = holds(tile + gridDim.x);
     if (next_ok) {
@@ -323,7 +280,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < V; ++i)
       adj[i] = __fsub_rn(ev[i], __fmul_rn(__fmul_rn(g.coef, xv[i]), adj[i]));
-    Raw<TE>::store(dx + tile * step + own, adj);
+    store8(dx + tile * step + own, adj);
   }
 }
 
@@ -353,36 +310,13 @@ bool vec_takes(int c, int n, const void* a, const void* b, const void* z) {
          !off(a) && !off(b) && !off(z);
 }
 
-// the blocks of Kernel that the current device holds at once; the runtime
-// is asked once a device, as the answer never changes
-template <auto Kernel>
-cudaError_t resident_blocks(int* blocks) {
-  constexpr int kDevices = 64;
-  static std::atomic<int> known[kDevices];  // 0: not asked yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::atomic<int>* slot = dev < kDevices ? &known[dev] : nullptr;
-  if (slot && (*blocks = slot->load(std::memory_order_relaxed)) > 0)
-    return cudaSuccess;
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      THREADS, 0);
-  if (e != cudaSuccess) return e;
-  *blocks = sms * per_sm;
-  if (slot) slot->store(*blocks, std::memory_order_relaxed);
-  return cudaSuccess;
-}
-
 // a persistent grid: as many blocks as the card holds at once, at most one
 // a tile
 template <auto Kernel, typename... Args>
 cudaError_t launch_vec(const VecGeometry& g, cudaStream_t stream,
                        Args... args) {
   int resident = 0;
-  const cudaError_t e = resident_blocks<Kernel>(&resident);
+  const cudaError_t e = resident_blocks<Kernel, THREADS>(&resident);
   if (e != cudaSuccess) return e;
   const long long blocks = g.tiles < resident ? g.tiles : resident;
   Kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(args..., g);
@@ -412,147 +346,195 @@ int bwd_vec(const void* x, const void* err, void* dx, const VecGeometry& g,
 // the general kernels
 // ---------------------------------------------------------------------
 
-// sum of s[row_base + j] over the window [ch - lo, ch + hi] cut to [0, c),
-// in channel order; `square` sums s^2
-template <bool square>
-__device__ __forceinline__ float window_sum(const float* s, int row_base,
-                                            int ch, int c, int lo, int hi) {
-  const int a = ch - lo > 0 ? ch - lo : 0;
-  const int z = ch + hi < c - 1 ? ch + hi : c - 1;
-  float sum = 0.f;
-  for (int j = a; j <= z; ++j) {
-    const float v = s[row_base + j];
-    sum += square ? v * v : v;
-  }
-  return sum;
+struct Geometry {
+  long long count, tiles;  // rows * c elements, in tiles of GEN_TILE
+  int c;
+  long long lo, hi;        // the forward window [i - lo, i + hi]
+  float alpha, beta, k, coef;
+};
+
+// [a, z]: the elements the windows [e - lo, e + hi] of the elements
+// e0 <= e <= e1 reach, each cut to the row of its element
+__device__ __forceinline__ void reach(long long e0, long long e1, int c,
+                                      long long lo, long long hi,
+                                      long long& a, long long& z) {
+  const long long first = e0 / c * c, last = e1 / c * c + c - 1;
+  a = e0 - lo > first ? e0 - lo : first;
+  z = e1 + hi < last ? e1 + hi : last;
 }
 
-struct Geometry {
-  long long rows;
-  int c, n, rows_per_block;
-  float alpha, beta, k;
-};
+// sum += the staged terms s[j - base] of element e's window [e - lo,
+// e + hi] cut to its row, j in channel order over the part of it in the
+// chunk [base, base + len)
+__device__ __forceinline__ void add_staged(float& sum, const float* s,
+                                           long long base, int len,
+                                           long long e, int c, long long lo,
+                                           long long hi) {
+  long long wa, wz;
+  reach(e, e, c, lo, hi, wa, wz);
+  const long long j0 = wa > base ? wa - base : 0;
+  const long long j1 = wz < base + len - 1 ? wz - base : len - 1;
+  for (long long j = j0; j <= j1; ++j) sum = __fadd_rn(sum, s[j]);
+}
+
+// stage the squares of x over [base, base + len) into s (len <= GEN_STAGE)
+template <typename T>
+__device__ __forceinline__ void stage_squares(float* s, const T* x,
+                                              long long base, int len) {
+  for (int i = threadIdx.x; i < len; i += THREADS) {
+    const float v = to_f32(x[base + i]);
+    s[i] = __fmul_rn(v, v);
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, Geometry g) {
-  extern __shared__ float s_x[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * g.rows_per_block;
-  const long long left = g.rows - row0;
-  const int rows = left < g.rows_per_block ? static_cast<int>(left)
-                                           : g.rows_per_block;
-  const long long base = row0 * g.c;
-  const int count = rows * g.c;
-  for (int e = threadIdx.x; e < count; e += THREADS) {
-    s_x[e] = to_f(x[base + e]);
+  __shared__ float s_sq[GEN_STAGE];
+  const long long e0 = blockIdx.x * static_cast<long long>(GEN_TILE);
+  const long long e1 =
+      (e0 + GEN_TILE < g.count ? e0 + GEN_TILE : g.count) - 1;
+  float sum[GEN_PER] = {};
+  long long a, z;
+  reach(e0, e1, g.c, g.lo, g.hi, a, z);
+  for (long long base = a; base <= z; base += GEN_STAGE) {
+    const int len = static_cast<int>(z - base + 1 < GEN_STAGE ? z - base + 1
+                                                              : GEN_STAGE);
+    __syncthreads();  // the last chunk is read
+    stage_squares(s_sq, x, base, len);
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < GEN_PER; ++p) {
+      const long long e = e0 + p * THREADS + threadIdx.x;
+      if (e <= e1) add_staged(sum[p], s_sq, base, len, e, g.c, g.lo, g.hi);
+    }
   }
-  __syncthreads();
-  const int lo = g.n / 2;
-  const int hi = g.n - 1 - lo;
-  for (int e = threadIdx.x; e < count; e += THREADS) {
-    const int ch = e % g.c;
-    const float d =
-        g.k + g.alpha * window_sum<true>(s_x, e - ch, ch, g.c, lo, hi);
-    y[base + e] = from_f<T>(s_x[e] * pow_neg(d, g.beta));
+#pragma unroll
+  for (int p = 0; p < GEN_PER; ++p) {
+    const long long e = e0 + p * THREADS + threadIdx.x;
+    if (e > e1) continue;
+    const float d = __fadd_rn(g.k, __fmul_rn(g.alpha, sum[p]));
+    y[e] = from_f32<T>(__fmul_rn(to_f32(x[e]), pow_neg(d, g.beta)));
   }
 }
+
+//: adjoint-range elements a thread computes t for in one chunk
+constexpr int GEN_T_PER = GEN_STAGE / THREADS;
 
 template <typename TX, typename TE>
 __global__ void __launch_bounds__(THREADS)
     lrn_bwd_kernel(const TX* __restrict__ x, const TE* __restrict__ err,
                    TE* __restrict__ dx, Geometry g) {
-  extern __shared__ float smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * g.rows_per_block;
-  const long long left = g.rows - row0;
-  const int rows = left < g.rows_per_block ? static_cast<int>(left)
-                                           : g.rows_per_block;
-  const long long base = row0 * g.c;
-  const int count = rows * g.c;
-  float* s_x = smem;
-  float* s_e = s_x + count;  // err, then err * d^(-beta)
-  float* s_t = s_e + count;  // t = err * x * d^(-beta - 1)
-  for (int e = threadIdx.x; e < count; e += THREADS) {
-    s_x[e] = to_f(x[base + e]);
-    s_e[e] = to_f(err[base + e]);
+  __shared__ float s_sq[GEN_STAGE];  // squares of x, a chunk
+  __shared__ float s_t[GEN_STAGE];   // t = err * x * d^(-beta - 1), a chunk
+  __shared__ float s_p[GEN_STAGE];   // d^(-beta), the same chunk
+  const long long e0 = blockIdx.x * static_cast<long long>(GEN_TILE);
+  const long long e1 =
+      (e0 + GEN_TILE < g.count ? e0 + GEN_TILE : g.count) - 1;
+  // each element's adjoint sum, over [e - hi, e + lo], and its d^(-beta)
+  float adj[GEN_PER] = {}, pv[GEN_PER] = {};
+  long long ta, tz;
+  reach(e0, e1, g.c, g.hi, g.lo, ta, tz);
+  for (long long tb = ta; tb <= tz; tb += GEN_STAGE) {
+    const int tlen = static_cast<int>(tz - tb + 1 < GEN_STAGE ? tz - tb + 1
+                                                              : GEN_STAGE);
+    // the forward sums of the chunk's elements j = tb + q * THREADS + tid
+    float fs[GEN_T_PER] = {};
+    long long a, z;
+    reach(tb, tb + tlen - 1, g.c, g.lo, g.hi, a, z);
+    for (long long base = a; base <= z; base += GEN_STAGE) {
+      const int len = static_cast<int>(z - base + 1 < GEN_STAGE
+                                           ? z - base + 1
+                                           : GEN_STAGE);
+      __syncthreads();  // the last chunk of squares, and of t, is read
+      stage_squares(s_sq, x, base, len);
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < GEN_T_PER; ++q) {
+        const int i = q * THREADS + threadIdx.x;
+        if (i < tlen)
+          add_staged(fs[q], s_sq, base, len, tb + i, g.c, g.lo, g.hi);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < GEN_T_PER; ++q) {
+      const int i = q * THREADS + threadIdx.x;
+      if (i >= tlen) continue;
+      const float xj = to_f32(x[tb + i]), ej = to_f32(err[tb + i]);
+      const float d = __fadd_rn(g.k, __fmul_rn(g.alpha, fs[q]));
+      const float p = pow_neg(d, g.beta);
+      s_t[i] = __fmul_rn(__fmul_rn(ej, xj), p / d);
+      s_p[i] = p;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < GEN_PER; ++p) {
+      const long long e = e0 + p * THREADS + threadIdx.x;
+      if (e > e1) continue;
+      add_staged(adj[p], s_t, tb, tlen, e, g.c, g.hi, g.lo);
+      if (e >= tb && e < tb + tlen) pv[p] = s_p[e - tb];
+    }
   }
-  __syncthreads();
-  const int lo = g.n / 2;
-  const int hi = g.n - 1 - lo;
-  for (int e = threadIdx.x; e < count; e += THREADS) {
-    const int ch = e % g.c;
-    const float d =
-        g.k + g.alpha * window_sum<true>(s_x, e - ch, ch, g.c, lo, hi);
-    const float p = pow_neg(d, g.beta);
-    const float er = s_e[e];
-    s_t[e] = er * s_x[e] * (p / d);
-    s_e[e] = er * p;  // each thread rewrites only its own elements
-  }
-  __syncthreads();
-  // the adjoint window: [ch - hi, ch + lo]
-  for (int e = threadIdx.x; e < count; e += THREADS) {
-    const int ch = e % g.c;
-    const float adj = window_sum<false>(s_t, e - ch, ch, g.c, hi, lo);
-    dx[base + e] =
-        from_f<TE>(s_e[e] - 2.f * g.alpha * g.beta * s_x[e] * adj);
+#pragma unroll
+  for (int p = 0; p < GEN_PER; ++p) {
+    const long long e = e0 + p * THREADS + threadIdx.x;
+    if (e > e1) continue;
+    const float xv = to_f32(x[e]), ev = to_f32(err[e]);
+    dx[e] = from_f32<TE>(__fsub_rn(__fmul_rn(ev, pv[p]),
+                                   __fmul_rn(__fmul_rn(g.coef, xv),
+                                             adj[p])));
   }
 }
 
 Geometry make_geometry(long long rows, int c, int n, float alpha, float beta,
                        float k) {
   Geometry g;
-  g.rows = rows;
+  g.count = rows * c;
+  g.tiles = (g.count + GEN_TILE - 1) / GEN_TILE;
   g.c = c;
-  g.n = n;
-  g.rows_per_block = TILE_VALUES / c > 0 ? TILE_VALUES / c : 1;
+  g.lo = n / 2;
+  g.hi = n - 1 - n / 2;
   g.alpha = alpha;
   g.beta = beta;
   g.k = k;
+  g.coef = 2.f * alpha * beta;
   return g;
 }
 
+// a block a tile
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int arrays, const Geometry& g,
-                   cudaStream_t stream, Args... args) {
-  const int smem =
-      arrays * g.rows_per_block * g.c * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (g.rows + g.rows_per_block - 1) / g.rows_per_block;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(args...,
-                                                                   g);
-  return cudaGetLastError();
+int launch(Kernel kernel, const Geometry& g, cudaStream_t stream,
+           Args... args) {
+  kernel<<<static_cast<unsigned>(g.tiles), THREADS, 0, stream>>>(args..., g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TX, typename TE>
 int bwd(const void* x, const void* err, void* dx, const Geometry& g,
         cudaStream_t s) {
-  return static_cast<int>(launch(lrn_bwd_kernel<TX, TE>, 3, g, s,
-                                 static_cast<const TX*>(x),
-                                 static_cast<const TE*>(err),
-                                 static_cast<TE*>(dx)));
+  return launch(lrn_bwd_kernel<TX, TE>, g, s, static_cast<const TX*>(x),
+                static_cast<const TE*>(err), static_cast<TE*>(dx));
 }
 
 }  // namespace
 
 // The general route.  x and y: contiguous (rows, c), dtype 0 = f32, 1 =
-// bf16 (both the same).  Returns the launch's cudaError_t (0 on success);
-// the caller checks shapes, dtypes and c <= 16384 (the staged rows must fit
-// shared memory).
+// bf16 (both the same); any c >= 1 and n >= 1.  Returns the launch's
+// cudaError_t (0 on success); the caller checks shapes and dtypes.
 extern "C" int znicz_lrn_fwd(const void* x, void* y, long long rows, int c,
                              int n, float alpha, float beta, float k,
                              int dtype, void* stream) {
   if (rows <= 0 || c <= 0) return cudaSuccess;
+  if (n < 1) return cudaErrorInvalidValue;
   const Geometry g = make_geometry(rows, c, n, alpha, beta, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return static_cast<int>(launch(lrn_fwd_kernel<float>, 1, g, s,
-                                   static_cast<const float*>(x),
-                                   static_cast<float*>(y)));
+    return launch(lrn_fwd_kernel<float>, g, s, static_cast<const float*>(x),
+                  static_cast<float*>(y));
   }
-  return static_cast<int>(launch(lrn_fwd_kernel<__nv_bfloat16>, 1, g, s,
-                                 static_cast<const __nv_bfloat16*>(x),
-                                 static_cast<__nv_bfloat16*>(y)));
+  return launch(lrn_fwd_kernel<__nv_bfloat16>, g, s,
+                static_cast<const __nv_bfloat16*>(x),
+                static_cast<__nv_bfloat16*>(y));
 }
 
 // The general route.  x, err and dx: contiguous (rows, c); x_dtype and
@@ -562,6 +544,7 @@ extern "C" int znicz_lrn_bwd(const void* x, const void* err, void* dx,
                              float beta, float k, int x_dtype, int err_dtype,
                              void* stream) {
   if (rows <= 0 || c <= 0) return cudaSuccess;
+  if (n < 1) return cudaErrorInvalidValue;
   const Geometry g = make_geometry(rows, c, n, alpha, beta, k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && err_dtype == 0) return bwd<float, float>(x, err, dx, g, s);

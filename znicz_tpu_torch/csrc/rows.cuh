@@ -1,6 +1,7 @@
-// Device helpers shared by the port's layer-norm kernels
-// (layer_norm_fwd.cu, layer_norm_bwd.cu): f32 math on rows of f32 or
-// bf16 values, moved 8 elements at a time through 16-byte accesses.
+// Helpers shared by the port's row kernels (layer_norm_fwd.cu,
+// layer_norm_bwd.cu, lrn.cu, dropout.cu): f32 math on rows of f32 or
+// bf16 values, moved 8 elements at a time through 16-byte accesses, and
+// the size of a persistent grid.
 //
 // Each includer is its own shared library, so everything here has
 // internal linkage.
@@ -10,6 +11,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -100,5 +103,29 @@ struct Raw8<float> {
     v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
   }
 };
+
+// the blocks of Kernel, launched with Threads threads, that the current
+// device holds at once; the runtime is asked once a device, as the answer
+// never changes
+template <auto Kernel, int Threads>
+cudaError_t resident_blocks(int* blocks) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::atomic<int>* slot = dev < kDevices ? &known[dev] : nullptr;
+  if (slot && (*blocks = slot->load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                      Threads, 0);
+  if (e != cudaSuccess) return e;
+  *blocks = sms * per_sm;
+  if (slot) slot->store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
 
 }  // namespace

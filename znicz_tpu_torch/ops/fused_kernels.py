@@ -20,9 +20,10 @@ as (rows, C):
 Each picks one of the source's two kernels by :func:`lrn_route`, a
 rule on the channel count and the operands' addresses: the vector
 kernels (8 channels a thread, 128-bit accesses) where they take the
-shape, AlexNet's among them, the general kernels elsewhere.  Each
-counts its launches in all, by route (``launches_by_route``) and by
-channel count (``launches_by_channels``).
+shape, AlexNet's among them, the general kernels (any C, any n)
+elsewhere.  Each counts its launches in all, by route
+(``launches_by_route``) and by channel count
+(``launches_by_channels``).
 
 Dropout and the softmax head:
 
@@ -31,10 +32,20 @@ Dropout and the softmax head:
   (counter = the element index, key = the seed) exceed
   ``ratio·(2³²−1)``, kept elements scaled by ``1/(1−ratio)``.  The
   plain version computes the same bits with int64 arithmetic, so a
-  seed gives the same mask on the card and on the CPU;
+  seed gives the same mask on the card and on the CPU.  It picks one of
+  the source's two kernels by :func:`dropout_route`: the vector kernel
+  (8 elements a thread) where the operands lie on 16-byte boundaries,
+  the general one elsewhere;
 - :func:`softmax_argmax` wraps ``csrc/softmax_argmax.cu``, which
   replaces ``_softmax_argmax_kernel`` (B4) — the row softmax of f32
-  logits and the int32 index of the first maximum.
+  logits and the int32 index of the first maximum.  It picks one of the
+  source's two kernels by :func:`softmax_route`: the register kernel (a
+  row in the registers of a group of up to 256 threads, several rows a
+  warp at small C) up to :data:`SOFTMAX_REGISTER_MAX_CLASSES` classes,
+  the general kernel (a block a row) past it.
+
+Dropout counts its launches in all and by route, the softmax in all, by
+route and by class count (``launches_by_classes``).
 
 The layer norm, both directions:
 
@@ -101,9 +112,13 @@ def _lib(stem: str) -> ctypes.CDLL:
                     [p, p, p, ll, i, i, f, f, f, i, i, p], i)},
             "dropout": {
                 "znicz_dropout": (
-                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i)},
+                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i),
+                "znicz_dropout_vec": (
+                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i),
+                "znicz_empty_launch": ([p], i)},
             "softmax_argmax": {
-                "znicz_softmax_argmax": ([p, p, p, ll, i, p], i)},
+                "znicz_softmax_argmax": ([p, p, p, ll, i, p], i),
+                "znicz_softmax_argmax_reg": ([p, p, p, ll, i, p], i)},
         }[stem]
         for name, (argtypes, restype) in signatures.items():
             fn = getattr(lib, name)
@@ -266,10 +281,6 @@ def layer_norm_backward(x: torch.Tensor, err: torch.Tensor,
         n_blocks = lib.znicz_layer_norm_bwd_reg_blocks(m)
     else:
         n_blocks = lib.znicz_layer_norm_bwd_blocks(m, d, int(with_beta))
-        if n_blocks < 0:
-            raise ValueError(f"the layer-norm backward kernel keeps its "
-                             f"partial sums in shared memory and takes "
-                             f"D up to 51200 (25600 with beta), got {d}")
     grad_g = torch.empty(d, dtype=torch.float32, device=x.device)
     grad_b = (torch.empty(d, dtype=torch.float32, device=x.device)
               if with_beta else None)
@@ -325,9 +336,6 @@ def layer_norm_backward_plain(x: torch.Tensor, err: torch.Tensor,
 # ----------------------------------------------------------------------
 # LRN (B1, B2)
 # ----------------------------------------------------------------------
-#: the widest channel axis the LRN kernels take (the general kernels stage
-#: whole rows in shared memory)
-LRN_MAX_CHANNELS = 16384
 #: channels a thread of the vector kernels owns: one 16-byte load in bf16
 LRN_VECTOR = 8
 #: the widest row the vector kernels take: a block of 256 threads, a
@@ -369,11 +377,8 @@ def lrn_route(c: int, *pointers: int) -> str:
     """Which LRN kernel takes ``C`` channels and operands at the addresses
     ``pointers``: ``"vector"`` when C is a multiple of
     :data:`LRN_VECTOR` up to :data:`LRN_VECTOR_MAX_CHANNELS` and every
-    pointer lies on a 16-byte boundary, else ``"general"`` (any n goes
-    either way).  Past :data:`LRN_MAX_CHANNELS` no kernel does."""
-    if c > LRN_MAX_CHANNELS:
-        raise ValueError(f"the LRN kernels take up to {LRN_MAX_CHANNELS} "
-                         f"channels, got {c}")
+    pointer lies on a 16-byte boundary, else ``"general"`` (any C;
+    any n goes either way)."""
     if (c % LRN_VECTOR == 0 and c <= LRN_VECTOR_MAX_CHANNELS
             and all(p % 16 == 0 for p in pointers)):
         return "vector"
@@ -399,9 +404,8 @@ def _count_lrn(fn, route: str, c: int) -> None:
 def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float,
                 n: int) -> torch.Tensor:
     """Cross-channel LRN over the last axis of ``x``: y with x's shape
-    and dtype.  On the card x is contiguous f32 or bf16 with at most
-    :data:`LRN_MAX_CHANNELS` channels, and :func:`lrn_route` picks the
-    kernel."""
+    and dtype.  On the card x is contiguous f32 or bf16, and
+    :func:`lrn_route` picks the kernel."""
     _check_lrn(x, n)
     if x.device.type == "cpu":
         return lrn_forward_plain(x, alpha, beta, k, n)
@@ -437,9 +441,8 @@ def lrn_forward_plain(x: torch.Tensor, alpha: float, beta: float, k: float,
 def lrn_backward(x: torch.Tensor, err: torch.Tensor, alpha: float,
                  beta: float, k: float, n: int) -> torch.Tensor:
     """The LRN's analytic gradient: dx with x's shape in err's dtype.
-    On the card x and err are contiguous f32 or bf16 (each on its own)
-    with at most :data:`LRN_MAX_CHANNELS` channels, and
-    :func:`lrn_route` picks the kernel."""
+    On the card x and err are contiguous f32 or bf16 (each on its own),
+    and :func:`lrn_route` picks the kernel."""
     _check_lrn(x, n)
     if err.shape != x.shape or err.device != x.device:
         raise ValueError(f"err {tuple(err.shape)} on {err.device} does not "
@@ -502,13 +505,13 @@ def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi & _M32, lo & _M32
 
 
-def dropout_bits(n: int, seed: int,
-                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """The 32-bit random words of elements ``0..n−1`` (as int64): word 0
-    of Philox4x32-10 at counter ``(i mod 2³², i div 2³², 0, 0)`` and key
-    ``(seed mod 2³², seed div 2³²)``, the arithmetic of ``csrc/dropout.cu``
-    on int64 tensors masked to 32 bits."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def dropout_bits(n: int, seed: int, device: torch.device | str = "cpu",
+                 start: int = 0) -> torch.Tensor:
+    """The 32-bit random words of elements ``start..start+n−1`` (as
+    int64): word 0 of Philox4x32-10 at counter ``(i mod 2³², i div 2³²,
+    0, 0)`` and key ``(seed mod 2³², seed div 2³²)``, the arithmetic of
+    ``csrc/dropout.cu`` on int64 tensors masked to 32 bits."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
     c0, c1 = i & _M32, i >> 32
     c2 = torch.zeros_like(i)
     c3 = torch.zeros_like(i)
@@ -535,28 +538,47 @@ def _dropout_constants(dtype: torch.dtype, drop_ratio: float
     return threshold, scale
 
 
+#: the dropout kernel's launch counters by route (:func:`dropout_route`)
+DROPOUT_ROUTES = ("vector", "general")
+#: route → C entry point of ``csrc/dropout.cu``
+_DROPOUT_ENTRY = {"vector": "znicz_dropout_vec", "general": "znicz_dropout"}
+
+
+def dropout_route(*pointers: int) -> str:
+    """Which dropout kernel takes operands at the addresses ``pointers``:
+    ``"vector"`` (8 elements a thread, 16-byte accesses; any size, the
+    last short run element by element) when every pointer lies on a
+    16-byte boundary, else ``"general"``."""
+    return "vector" if all(p % 16 == 0 for p in pointers) else "general"
+
+
 def dropout_apply(x: torch.Tensor, seed: int,
                   drop_ratio: float) -> torch.Tensor:
     """Inverted dropout with the mask of ``seed``: y with x's shape and
     dtype.  The same seed gives the same mask for any tensor of the
     same size (the backward applies it to the error).  On the card x is
-    contiguous f32 or bf16."""
+    contiguous f32 or bf16, and :func:`dropout_route` picks the
+    kernel."""
     threshold, scale = _dropout_constants(x.dtype, drop_ratio)
     if x.device.type == "cpu":
         return dropout_apply_plain(x, seed, drop_ratio)
     _check_card_tensor("x", x, _KERNEL_DTYPES)
     y = torch.empty_like(x)
+    route = dropout_route(x.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
-        err = _lib("dropout").znicz_dropout(
+        err = getattr(_lib("dropout"), _DROPOUT_ENTRY[route])(
             x.data_ptr(), y.data_ptr(), x.numel(), int(seed) & (2 ** 64 - 1),
             threshold, scale, _KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "dropout_apply")
     dropout_apply.launches += 1
+    dropout_apply.launches_by_route[route] += 1
     return y
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all and by
+#: route
 dropout_apply.launches = 0
+dropout_apply.launches_by_route = dict.fromkeys(DROPOUT_ROUTES, 0)
 
 
 def dropout_apply_plain(x: torch.Tensor, seed: int,
@@ -577,10 +599,26 @@ def _check_logits(v: torch.Tensor) -> None:
                          f"got shape {tuple(v.shape)}")
 
 
+#: the widest row the register kernel takes: 256 threads hold it, 4
+#: elements each
+SOFTMAX_REGISTER_MAX_CLASSES = 1024
+#: the softmax kernel's launch counters by route (:func:`softmax_route`)
+SOFTMAX_ROUTES = ("register", "general")
+
+
+def softmax_route(c: int) -> str:
+    """Which softmax kernel takes rows of ``c`` classes: ``"register"``
+    up to :data:`SOFTMAX_REGISTER_MAX_CLASSES` (128-bit loads past 256
+    classes where C % 4 == 0 and the rows lie on 16-byte boundaries,
+    scalar ones otherwise), else ``"general"``."""
+    return ("register" if c <= SOFTMAX_REGISTER_MAX_CLASSES
+            else "general")
+
+
 def softmax_argmax(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Row softmax and argmax of (rows, C) logits: ``(probabilities f32,
     max_idx int32)``, the first index on ties.  On the card v is
-    contiguous f32."""
+    contiguous f32, and :func:`softmax_route` picks the kernel."""
     _check_logits(v)
     if v.device.type == "cpu":
         return softmax_argmax_plain(v)
@@ -588,16 +626,26 @@ def softmax_argmax(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rows, c = v.shape
     y = torch.empty_like(v)
     idx = torch.empty(rows, dtype=torch.int32, device=v.device)
+    route = softmax_route(c)
+    lib = _lib("softmax_argmax")
+    args = (v.data_ptr(), y.data_ptr(), idx.data_ptr(), rows, c)
     with torch.cuda.device(v.device):
-        err = _lib("softmax_argmax").znicz_softmax_argmax(
-            v.data_ptr(), y.data_ptr(), idx.data_ptr(), rows, c, _stream(v))
+        if route == "register":
+            err = lib.znicz_softmax_argmax_reg(*args, _stream(v))
+        else:
+            err = lib.znicz_softmax_argmax(*args, _stream(v))
     _raise_on(err, "softmax_argmax")
     softmax_argmax.launches += 1
+    softmax_argmax.launches_by_route[route] += 1
+    softmax_argmax.launches_by_classes[c] += 1
     return y, idx
 
 
-#: kernel launches since the counter was last set to 0
+#: kernel launches since the counters were last set to 0: in all, by route
+#: and by class count
 softmax_argmax.launches = 0
+softmax_argmax.launches_by_route = dict.fromkeys(SOFTMAX_ROUTES, 0)
+softmax_argmax.launches_by_classes = collections.Counter()
 
 
 def softmax_argmax_plain(v: torch.Tensor
