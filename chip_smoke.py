@@ -105,9 +105,11 @@ result.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -827,6 +829,11 @@ def check_layer_norm_bwd(gen) -> dict:
 #: the AlexNet minibatch of phase 5
 ALEX_BATCH = 128
 LRN_CFG = {"alpha": 1e-4, "beta": 0.75, "k": 2.0}
+#: CIFAR-10's (phase 7): minibatch 100, LRNs after the 16×16 and 8×8
+#: pools at C = 32, α = 5e-5, and its head of 10 classes
+CIFAR_BATCH = 100
+CIFAR_LRN1, CIFAR_LRN2 = CIFAR_BATCH * 16 * 16, CIFAR_BATCH * 8 * 8
+CIFAR_LRN_CFG = {"alpha": 5e-5, "beta": 0.75, "k": 2.0}
 #: conv1's and conv2's LRN inputs at the minibatch of phase 5, as rows
 LRN_CONV1, LRN_CONV2 = ALEX_BATCH * 55 * 55, ALEX_BATCH * 27 * 27
 #: name, rows, C, x dtype, err dtype, n, offset, the route it must take,
@@ -880,11 +887,22 @@ LRN_CASES = (
      "general", True),
     ("c16392_n257_f32", ALEX_BATCH, 16392, "float32", "float32", 257, 0,
      "general", False),
+    ("cifar1", CIFAR_LRN1, 32, "float32", "float32", 5, 0, "vector", True),
+    ("cifar2", CIFAR_LRN2, 32, "float32", "float32", 5, 0, "vector", True),
 )
-#: LRN row suffix → the channel count its launches are counted under
-LRN_ROW_CHANNELS = {"": 96, "_conv2": 256}
-#: input copies the LRN timings rotate over
+#: LRN cases at another α than AlexNet's
+LRN_CASE_CFG = {"cifar1": CIFAR_LRN_CFG, "cifar2": CIFAR_LRN_CFG}
+#: LRN row suffix → the counter its launches are counted under and the
+#: key: AlexNet's rows by channel count, CIFAR's (both at C = 32) by
+#: (rows, C)
+LRN_ROW_KEYS = {"": ("launches_by_channels", 96),
+                "_conv2": ("launches_by_channels", 256),
+                "_cifar1": ("launches_by_shape", (CIFAR_LRN1, 32)),
+                "_cifar2": ("launches_by_shape", (CIFAR_LRN2, 32))}
+#: input copies the LRN timings rotate over, at least: more where the
+#: copies of x and err would otherwise fit twice in the 50 MB L2
 LRN_ROTATION = 3
+L2_BYTES = 50e6
 
 
 def _rel_tol(dtype) -> float:
@@ -925,7 +943,7 @@ def check_lrn(gen) -> dict:
     for (name, m, c, x_dtype, err_dtype, n, offset, route,
          timed) in LRN_CASES:
         dtype, edtype = getattr(torch, x_dtype), getattr(torch, err_dtype)
-        cfg = dict(LRN_CFG, n=n)
+        cfg = dict(LRN_CASE_CFG.get(name, LRN_CFG), n=n)
         # conv outputs large enough that α·Σx² moves d well off k
         x = (30.0 * torch.randn(m * c + offset, generator=gen,
                                 device="cuda")).to(dtype)[offset:]
@@ -961,11 +979,13 @@ def check_lrn(gen) -> dict:
             f"{errs['dx']:.3g} (tol {_rel_tol(edtype):.3g} x max|ref|)")
         if not timed:
             continue
+        rotation = max(LRN_ROTATION, math.ceil(
+            2 * L2_BYTES / (m * c * (x.element_size() + err.element_size()))))
         copies = [(x, err)] + [(x.clone(), err.clone())
-                               for _ in range(LRN_ROTATION - 1)]
+                               for _ in range(rotation - 1)]
         fwd = rotating(lambda a, e: fk.lrn_forward(a, **cfg), copies)
         bwd = rotating(lambda a, e: fk.lrn_backward(a, e, **cfg), copies)
-        calls = 7 * LRN_ROTATION
+        calls = max(7 * LRN_ROTATION, rotation)
         wrapper_f, wrapper_b = time_ms(fwd, calls), time_ms(bwd, calls)
         ms_f, ms_b = graph_ms(fwd, calls), graph_ms(bwd, calls)
         plain_f = time_ms(rotating(
@@ -1002,7 +1022,7 @@ def check_lrn(gen) -> dict:
                 f"back {wrapper_ms:.4f}), plain {plain_ms:.4f} ms, {lib} "
                 f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                 f"{nbytes:.4g} B, {ops:.4g} f32 ops; {100 * bound_ms / ms:.1f}"
-                f" % of it)")
+                f" % of it; {rotation} input copies)")
             rows[key + suffix] = {
                 "name": key + suffix, "route": "cuda",
                 "source": "znicz_tpu_torch/csrc/lrn.cu", "replaces": replaces,
@@ -1131,12 +1151,13 @@ SOFTMAX_CASES = (
     ("c33", 7, 33, 0, "register", None),
     ("c1024", 7, 1024, 0, "register", None),
     ("head_off", ALEX_BATCH + 1, 1000, 1, "register", None),
-    ("c1025", 6, 1025, 0, "general", None))
+    ("c1025", 6, 1025, 0, "general", None),
+    ("cifar", CIFAR_BATCH, 10, 0, "register", "_cifar"))
 #: probabilities against the plain version: f32 exp on both sides and
 #: another summation order of the row sum
 PROB_TOL = 1e-6
 #: softmax row suffix → the class count its launches are counted under
-SOFTMAX_ROW_CLASSES = {"": 1000, "_small": CLASSES}
+SOFTMAX_ROW_CLASSES = {"": 1000, "_small": CLASSES, "_cifar": 10}
 
 
 def check_softmax_argmax(gen, floor_ms: float) -> dict:
@@ -1268,11 +1289,12 @@ def unit_breakdown(model, x) -> None:
 
 
 #: the wrappers' counters of launches by kind: by variant (flash), by
-#: route (LRN, layer norm, dropout, softmax), by channel count (LRN), by
-#: x's dtype (layer norm) and by class count (softmax)
+#: route (LRN, layer norm, dropout, softmax), by channel count and by
+#: (rows, C) (LRN), by x's dtype (layer norm) and by class count
+#: (softmax)
 SPLIT_COUNTERS = ("launches_by_variant", "launches_by_route",
-                  "launches_by_channels", "launches_by_dtype",
-                  "launches_by_classes")
+                  "launches_by_channels", "launches_by_shape",
+                  "launches_by_dtype", "launches_by_classes")
 
 
 def kernel_counters() -> dict:
@@ -1288,8 +1310,8 @@ def kernel_counters() -> dict:
             table[fn.__name__ + suffix] = (fn, ("launches_by_variant",
                                                 variant))
     for fn in (fk.lrn_forward, fk.lrn_backward):
-        for suffix, c in LRN_ROW_CHANNELS.items():
-            table[fn.__name__ + suffix] = (fn, ("launches_by_channels", c))
+        for suffix, key in LRN_ROW_KEYS.items():
+            table[fn.__name__ + suffix] = (fn, key)
     for fn in (fk.layer_norm_forward, fk.layer_norm_backward):
         for suffix, dtype in LN_ROW_DTYPE.items():
             table[fn.__name__ + suffix] = (fn, ("launches_by_dtype", dtype))
@@ -1919,6 +1941,244 @@ def dh4_pass() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 7: CIFAR-10 through the port's CLI, with snapshots and resume
+# ----------------------------------------------------------------------
+#: epochs of the uninterrupted run; it writes a snapshot at the end of
+#: epoch CIFAR_EPOCHS − 2, from which the resumed runs train the last
+#: epoch again.  An epoch of the synthetic stand-in is 10 test, 5
+#: validation and 45 train minibatches.  The reference's validation
+#: error on the CPU (``python -m znicz_tpu cifar --root
+#: cifar.max_epochs=7``, seed 1234) falls 90.6, 82.4, 55.6, 24.6, 2.8,
+#: 1.2, then 1.4 %.
+CIFAR_EPOCHS = 8
+CIFAR_STEPS, CIFAR_TRAIN_STEPS = 60, 45
+#: the best validation error must fall under half of chance (90 %)
+CIFAR_MAX_ERR_PT = 45.0
+#: Two CIFAR runs on the card do not give the same bits: cuDNN's filter
+#: gradient (``wgrad_alg0``) adds with atomics, and two runs from one
+#: seed part by epoch 3 (25.8 against 26.8 % validation error).  So the
+#: snapshot is written by the uninterrupted run itself at the end of the
+#: last epoch but one, and a run resumed from it with ``-s`` retrains the
+#: last epoch.  Each of its tensors (parameters, momentum, evaluator
+#: sums) must lie within CIFAR_STEP_TOL of the uninterrupted run's after
+#: the first train step, and within CIFAR_EPOCH_TOL at the end, as
+#: ‖resumed − straight‖ / ‖straight‖; its counters (loader, decision,
+#: evaluator) must be equal, since the last epoch's test and validation
+#: errors come from the snapshot's weights.  One step from the same state
+#: differs only where the card adds in another order, a few f32 ulps of
+#: a reduction (~1e-7 of a tensor); over the epoch's 45 steps such
+#: differences grow, as training amplifies them, to ~1e-3 (PERF.md, the
+#: CIFAR resume runs).  A resume that lost its momentum moves a tensor by
+#: its whole size after one step, and one that lost the decision's state
+#: counts differently; the planted faults below must fail the check.
+CIFAR_STEP_TOL, CIFAR_EPOCH_TOL = 1e-5, 1e-2
+
+
+def zero_momentum(state: dict) -> None:
+    for unit in state["__units__"].values():
+        for key in unit:
+            if key.startswith("accumulated_gradient"):
+                unit[key] = unit[key] * 0
+
+
+def drop_decision(state: dict) -> None:
+    state["__units__"]["decision"] = {}
+    state["__units__"]["evaluator"] = {}
+
+
+#: faults planted in a copy of the snapshot: the momentum lost, and the
+#: decision's and evaluator's state lost (C8)
+CIFAR_FAULTS = {"momentum lost": zero_momentum,
+                "decision state lost": drop_decision}
+
+
+def cifar_cli(snapshots: str, *args: str, snapshot_at: int | None = None):
+    """``python -m znicz_tpu_torch cifar <args>`` in this process, on the
+    card (no ``-b``), writing its snapshots into ``snapshots`` (and,
+    with ``snapshot_at``, ``cifar_epoch<k>`` at the end of epoch k
+    through ``Snapshotter.write``, as the emergency snapshot is
+    written).  Returns the ``Main`` that ran, the validation error of
+    each epoch, and the run's state (:func:`run_state`) after the first
+    train step of its last epoch."""
+    from znicz_tpu_torch.__main__ import Main
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.utils.config import reset_root, root
+    from znicz_tpu_torch.utils.snapshotter import Snapshotter
+    reset_root()
+    root.common.dirs.snapshots = snapshots
+    errors, first_step = [], {}
+    step = StandardWorkflow.step
+
+    def step_and_record(wf, mark=None):
+        step(wf, mark)
+        if wf.loader.minibatch_class == TRAIN and not first_step \
+                and wf.loader.epoch_number == wf.decision.max_epochs - 1:
+            first_step.update(run_state(wf))
+        if not wf.decision.epoch_ended:
+            return
+        errors.append(wf.decision.epoch_n_err_pt[VALID])
+        if wf.loader.epoch_number == snapshot_at:
+            Snapshotter.write(wf.state_dict(), snapshots, "cifar",
+                              f"epoch{snapshot_at}")
+
+    StandardWorkflow.step = step_and_record
+    try:
+        main = Main()
+        rc = main.run(["cifar", *args])
+    finally:
+        StandardWorkflow.step = step
+    if rc:
+        raise AssertionError(f"cifar {args}: exit code {rc}")
+    return main, errors, first_step
+
+
+def run_state(wf) -> dict:
+    """The state a resumed run must reproduce, flat: each unit's
+    tensors and counters, the loader's schedule and the generator."""
+    import numpy as np
+    flat = {}
+    for unit, values in wf.state_dict()["__units__"].items():
+        for key, value in values.items():
+            flat[f"{unit}.{key}"] = value
+    flat["prng"] = str(wf.state_dict()["__prng__"]["numpy_state"])
+    return {k: (np.asarray(v) if isinstance(v, np.ndarray) else v)
+            for k, v in flat.items()}
+
+
+def state_diff(a: dict, b: dict) -> tuple[dict, list]:
+    """``({tensor: ‖a − b‖ / ‖a‖}, [other keys that differ])``."""
+    import numpy as np
+    rel, other = {}, []
+    for key, va in a.items():
+        vb = b[key]
+        if isinstance(va, np.ndarray) and va.dtype.kind == "f":
+            d = float(np.linalg.norm(va - vb))
+            rel[key] = d / max(float(np.linalg.norm(va)), 1e-30)
+        elif isinstance(va, np.ndarray):
+            if not np.array_equal(va, vb):
+                other.append(key)
+        elif va != vb:
+            other.append(key)
+    return rel, other
+
+
+def cifar_pass() -> dict:
+    """CIFAR-10 trained through ``Main().run(["cifar", ...])`` on the
+    card: the launches of an uninterrupted run, its validation error by
+    epoch, the train step time, images/s, per-unit device time and busy
+    share; then two runs resumed with ``-s`` from the snapshot the
+    uninterrupted run wrote an epoch before its end must stay with it
+    (:data:`CIFAR_STEP_TOL`, :data:`CIFAR_EPOCH_TOL`, equal counters),
+    and runs from snapshots with planted faults must not; the snapshot
+    loads back through the port's ``Snapshotter.load`` with its sidecar
+    checked."""
+    import torch
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.utils.snapshotter import Snapshotter
+    tmp = tempfile.mkdtemp(prefix="cifar_snapshots_")
+    reset_counts()
+    t0 = time.perf_counter()
+    main, errors, straight_step = cifar_cli(
+        os.path.join(tmp, "straight"), "--root",
+                             f"cifar.max_epochs={CIFAR_EPOCHS}",
+                             snapshot_at=CIFAR_EPOCHS - 2)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    wf = main.launcher.workflow
+    if wf.device.type != "cuda":
+        raise AssertionError(f"the CLI chose {wf.device}")
+    say(f"  python -m znicz_tpu_torch cifar --root cifar.max_epochs="
+        f"{CIFAR_EPOCHS}: {CIFAR_EPOCHS} epochs on {wf.device} in "
+        f"{host_s:.2f} s on the host clock (build, initialize and the "
+        f"first calls included), dataset {tuple(wf.loader.class_lengths)} "
+        f"(test, validation, train); validation error by epoch, %: "
+        f"{[round(e, 2) for e in errors]}")
+    steps, train = CIFAR_EPOCHS * CIFAR_STEPS, CIFAR_EPOCHS * CIFAR_TRAIN_STEPS
+    expect_counts("cifar", launches, {
+        "lrn_forward_cifar1": steps, "lrn_forward_cifar2": steps,
+        "lrn_backward_cifar1": train, "lrn_backward_cifar2": train,
+        "softmax_argmax_cifar": steps})
+    expect_new_routes("cifar")
+    routes = {fn.__name__: dict(fn.launches_by_route)
+              for fn in (fk.lrn_forward, fk.lrn_backward)}
+    say(f"  B1/B2 launches by route: {routes}")
+    if routes != {"lrn_forward": {"vector": 2 * steps, "general": 0},
+                  "lrn_backward": {"vector": 2 * train, "general": 0}}:
+        raise AssertionError(f"cifar: B1/B2 off the vector route: {routes}")
+    best = wf.decision.min_validation_n_err_pt
+    if len(errors) != CIFAR_EPOCHS or not best < CIFAR_MAX_ERR_PT:
+        raise AssertionError(f"cifar: best validation error {best} % (want "
+                             f"< {CIFAR_MAX_ERR_PT} %)")
+    straight = run_state(wf)
+
+    # timing: the next epoch's 15 test and validation minibatches, then
+    # train minibatches only
+    for _ in range(CIFAR_STEPS - CIFAR_TRAIN_STEPS):
+        wf.step()
+    warmup, timed = 2, 20
+    step_ms = timed_steps(wf, warmup, timed)
+    if wf.loader.minibatch_class != TRAIN:
+        raise AssertionError("cifar: a timed step was not a train step")
+    say(f"  train step (B={CIFAR_BATCH}, f32) {step_ms:.4f} ms over "
+        f"{timed} steps after {warmup}, "
+        f"{CIFAR_BATCH / step_ms * 1e3:.0f} img/s")
+    step_breakdown(wf)
+    device_busy(wf)
+
+    # resume: the last epoch again from the snapshot of the one before
+    path = os.path.join(tmp, "straight",
+                        f"cifar_epoch{CIFAR_EPOCHS - 2}.pickle.gz")
+    state = Snapshotter.load(path)  # the sidecar's digest checked
+    if not os.path.exists(path + ".sha256") or state["__units__"][
+            wf.loader.name]["epoch_number"] != CIFAR_EPOCHS - 2:
+        raise AssertionError(f"cifar: snapshot {path} has no sidecar or "
+                             f"the wrong epoch")
+
+    def resume(name: str, snapshot: str) -> tuple[float, float, list]:
+        """``-s snapshot`` to the end: the worst distance from the
+        uninterrupted run after the first train step and at the end, and
+        the counters that differ."""
+        main, _, first = cifar_cli(os.path.join(tmp, name), "-s", snapshot,
+                                   "--root",
+                                   f"cifar.max_epochs={CIFAR_EPOCHS}")
+        step_rel, step_other = state_diff(straight_step, first)
+        rel, other = state_diff(straight, run_state(main.launcher.workflow))
+        worst = max(rel, key=rel.get)
+        say(f"    {name}: after one step worst {max(step_rel.values()):.3g}"
+            f", at the end worst {rel[worst]:.3g} ({worst}), "
+            f"{sum(v == 0.0 for v in rel.values())} of {len(rel)} tensors "
+            f"bit-equal, counters that differ: {sorted(set(step_other + other))}")
+        return max(step_rel.values()), rel[worst], step_other + other
+
+    def passes(step_err: float, end_err: float, other: list) -> bool:
+        return (step_err <= CIFAR_STEP_TOL and end_err <= CIFAR_EPOCH_TOL
+                and not other)
+
+    say(f"  resume: {os.path.basename(path)} (written by the uninterrupted "
+        f"run at the end of epoch {CIFAR_EPOCHS - 2}, sidecar checked by "
+        f"Snapshotter.load), epoch {CIFAR_EPOCHS - 1} again through -s; "
+        f"‖resumed − straight‖ / ‖straight‖ by tensor (tol "
+        f"{CIFAR_STEP_TOL} after one step, {CIFAR_EPOCH_TOL} at the end)")
+    for i in range(2):
+        if not passes(*resume(f"resumed{i}", path)):
+            raise AssertionError("cifar: the resumed run leaves the "
+                                 "uninterrupted one")
+    for fault, plant in CIFAR_FAULTS.items():
+        planted = copy.deepcopy(state)
+        plant(planted)
+        name = "planted_" + fault.replace(" ", "_")
+        bad = Snapshotter.write(planted, os.path.join(tmp, name), "cifar",
+                                name)
+        if passes(*resume(name, bad)):
+            raise AssertionError(f"cifar: the resume check passes a "
+                                 f"planted fault ({fault})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2013,6 +2273,10 @@ def main() -> int:
     paths["seq_f32_dh512"] = seq_pass("seq_f32_dh512", "float32", 1,
                                       "f32_wide")
     paths["seq_dh4"] = dh4_pass()
+
+    say("phase 7: CIFAR-10 through python -m znicz_tpu_torch, with "
+        "snapshots and resume")
+    paths["cifar"] = cifar_pass()
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

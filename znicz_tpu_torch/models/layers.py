@@ -28,6 +28,9 @@ _LAYER_TYPES: dict[str, type] = {
     "conv_str": conv.ConvStrictRELU,
     "conv_sigmoid": conv.ConvSigmoid,
     "max_pooling": pooling.MaxPooling,
+    "maxabs_pooling": pooling.MaxAbsPooling,
+    "avg_pooling": pooling.AvgPooling,
+    "stochastic_pooling": pooling.StochasticPooling,
     "norm": normalization.LRNormalizerForward,
     "dropout": dropout.DropoutForward,
     "attention": attention.MultiHeadAttention,

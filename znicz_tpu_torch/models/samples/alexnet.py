@@ -33,8 +33,9 @@ from __future__ import annotations
 from znicz_tpu_torch import datasets
 from znicz_tpu_torch.loader.fullbatch import ArrayLoader
 from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+from znicz_tpu_torch.utils.config import register_defaults, root
 
-#: the reference sample's defaults
+#: the reference sample's defaults, registered as ``root.alexnet``
 DEFAULTS = {
     "minibatch_size": 128,
     "learning_rate": 0.01,
@@ -47,6 +48,7 @@ DEFAULTS = {
     "n_train_samples": 1024,   # synthetic-mode dataset size
     "n_valid_samples": 128,
 }
+register_defaults("alexnet", DEFAULTS)
 
 
 def layers(cfg: dict) -> list[dict]:
@@ -93,13 +95,14 @@ def layers(cfg: dict) -> list[dict]:
 
 def build(streaming_dir: str | None = None,
           **overrides) -> StandardWorkflow:
-    """The sample's workflow with ``DEFAULTS`` updated by ``overrides``,
+    """The sample's workflow from ``root.alexnet`` (``DEFAULTS`` unless a
+    config or ``--root`` set a leaf) updated by ``overrides``,
     fed from :func:`~znicz_tpu_torch.datasets.synthetic_imagenet`."""
     if streaming_dir is not None:
         raise NotImplementedError(
             "alexnet.build(streaming_dir=...): the streaming "
             "FileImageLoader is not ported yet")
-    cfg = {**DEFAULTS, **overrides}
+    cfg = {**root.alexnet.as_dict(), **overrides}
     n_train, n_valid = cfg["n_train_samples"], cfg["n_valid_samples"]
     x, y = datasets.synthetic_imagenet(n_train + n_valid,
                                        size=cfg["image_size"],
@@ -112,4 +115,13 @@ def build(streaming_dir: str | None = None,
             minibatch_size=cfg["minibatch_size"],
             normalization_scale=2.0 / 255.0, normalization_bias=-1.0),
         layers=layers(cfg),
-        decision_config={"max_epochs": cfg["max_epochs"]})
+        decision_config={"max_epochs": cfg["max_epochs"]},
+        snapshotter_config=cfg.get("snapshotter_config"))
+
+
+def run(load, main):
+    """The reference's sample protocol (``veles <sample> <config>``):
+    the launcher passes ``load`` (construct or resume) and ``main``
+    (initialize and train)."""
+    load(build)
+    main()

@@ -22,8 +22,9 @@ import numpy as np
 
 from znicz_tpu_torch.loader.fullbatch import ArrayLoader
 from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+from znicz_tpu_torch.utils.config import register_defaults, root
 
-#: the reference sample's defaults
+#: the reference sample's defaults, registered as ``root.attention_seq``
 DEFAULTS = {
     "minibatch_size": 32,
     "learning_rate": 0.05,
@@ -37,6 +38,7 @@ DEFAULTS = {
     "max_epochs": 30,
     "seed": 9,
 }
+register_defaults("attention_seq", DEFAULTS)
 
 
 def make_data(cfg: dict) -> tuple[np.ndarray, np.ndarray]:
@@ -55,8 +57,10 @@ def make_data(cfg: dict) -> tuple[np.ndarray, np.ndarray]:
 
 
 def build(**overrides) -> StandardWorkflow:
-    """The sample's workflow with ``DEFAULTS`` updated by ``overrides``."""
-    cfg = {**DEFAULTS, **overrides}
+    """The sample's workflow from ``root.attention_seq`` (``DEFAULTS``
+    unless a config or ``--root`` set a leaf) updated by ``overrides``; a
+    ``snapshotter_config`` override attaches a snapshotter."""
+    cfg = {**root.attention_seq.as_dict(), **overrides}
     x, y = make_data(cfg)
     n_train = cfg["n_train"]
     gd_cfg = {"learning_rate": cfg["learning_rate"],
@@ -74,4 +78,13 @@ def build(**overrides) -> StandardWorkflow:
              "->": {"output_sample_shape": cfg["n_classes"]},
              "<-": gd_cfg},
         ],
-        decision_config={"max_epochs": cfg["max_epochs"]})
+        decision_config={"max_epochs": cfg["max_epochs"]},
+        snapshotter_config=cfg.get("snapshotter_config"))
+
+
+def run(load, main):
+    """The reference's sample protocol (``veles <sample> <config>``):
+    the launcher passes ``load`` (construct or resume) and ``main``
+    (initialize and train)."""
+    load(build)
+    main()

@@ -3,15 +3,17 @@
 
 The constructor is the reference's: a ``loader_factory``, a ``layers``
 list of ``{"type": <name>, "->": {forward kwargs}, "<-": {gradient
-kwargs}}`` dicts, ``loss="softmax"`` and a ``decision_config``.  So are
-the attributes ``forwards``, ``gds``, ``loader``, ``evaluator`` and
-``decision``, and the entry points :meth:`initialize`, :meth:`run`,
-:meth:`state_dict` and :meth:`export_forward`.
+kwargs}}`` dicts, ``loss="softmax"``, a ``decision_config`` and a
+``snapshotter_config``.  So are the attributes ``forwards``, ``gds``,
+``loader``, ``evaluator``, ``decision`` and ``snapshotter``, and the
+entry points :meth:`initialize`, :meth:`run`, :meth:`stop`,
+:meth:`state_dict`, :meth:`load_state` and :meth:`export_forward`.
 
 The reference's topology (start → repeater → loader → hot chain →
-decision → repeater, or end once the decision completes) is a plain
-Python loop here, :meth:`run`; its hot chain, which the reference
-compiles into one region program, is one eager :meth:`step`:
+decision → snapshotter on improvement → repeater, or end once the
+decision completes) is a plain Python loop here, :meth:`run`; its hot
+chain, which the reference compiles into one region program, is one
+eager :meth:`step`:
 
 .. code-block:: text
 
@@ -34,13 +36,15 @@ minibatch, else "eval"), as the reference links it.
 first (it draws the shuffle seed), then each forward's initial fill —
 so one :func:`~znicz_tpu_torch.utils.prng.seed_all` seed gives the same
 initial weights and sample order as the reference.  Units carry the
-reference's default names, so :meth:`load_reference_state` reads the
-reference's ``Workflow.state_dict()`` as it stands.
+reference's default names, so :meth:`load_state` reads the reference's
+``Workflow.state_dict()`` as it stands, and the reference reads this
+class's: a snapshot carries every unit's state, the decision's and the
+evaluator's counters included, so a resumed run goes on as the
+uninterrupted one would have.
 
 Not ported with it (later slices): the Veles unit graph, gates and
-``Vector`` buffers, the snapshotter, the anomaly guard, learning-rate
-schedules, the chunked, accumulated and pipelined training loops and
-the MSE loss.
+``Vector`` buffers, the anomaly guard, learning-rate schedules, the
+chunked, accumulated and pipelined training loops and the MSE loss.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from znicz_tpu_torch.ops.nn_units import gd_for
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.logger import Logger
+from znicz_tpu_torch.utils.snapshotter import Snapshotter
 
 
 class StandardWorkflow(Logger):
@@ -74,6 +79,9 @@ class StandardWorkflow(Logger):
         ``"softmax"`` (classification; the only loss ported so far).
     decision_config:
         kwargs of :class:`~znicz_tpu_torch.ops.decision.DecisionGD`.
+    snapshotter_config:
+        kwargs of :class:`~znicz_tpu_torch.utils.snapshotter.Snapshotter`
+        (``None``: no snapshots).
     """
 
     def __init__(self, name: str | None = None,
@@ -81,7 +89,8 @@ class StandardWorkflow(Logger):
                  | None = None,
                  layers: Sequence[dict] = (),
                  loss: str = "softmax",
-                 decision_config: dict[str, Any] | None = None) -> None:
+                 decision_config: dict[str, Any] | None = None,
+                 snapshotter_config: dict[str, Any] | None = None) -> None:
         super().__init__()
         if loader_factory is None:
             raise ValueError("loader_factory is required")
@@ -103,6 +112,15 @@ class StandardWorkflow(Logger):
         self.evaluator: EvaluatorSoftmax | None = None
         self.device: torch.device | None = None
         self.compute_dtype = torch.float32
+        self.snapshotter: Snapshotter | None = None
+        if snapshotter_config is not None:
+            self.snapshotter = Snapshotter(self, **snapshotter_config)
+            self.snapshotter.decision = self.decision
+        self._stop_requested = False
+
+    @property
+    def is_initialized(self) -> bool:
+        return self.evaluator is not None
 
     # ------------------------------------------------------------------
     def initialize(self, device=None) -> None:
@@ -180,24 +198,35 @@ class StandardWorkflow(Logger):
         self.decision.run()
 
     def run(self) -> None:
-        """Train until the decision unit completes."""
-        if self.evaluator is None:
+        """Train until the decision unit completes or :meth:`stop` is
+        called; after each step on which the decision raised
+        ``improved``, fire the snapshotter."""
+        if not self.is_initialized:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
-        while not self.decision.complete:
+        self._stop_requested = False
+        while not self.decision.complete and not self._stop_requested:
             self.step()
+            if self.snapshotter is not None and self.decision.improved:
+                self.snapshotter.run()
+
+    def stop(self) -> None:
+        """Make :meth:`run` return at the next step boundary."""
+        self._stop_requested = True
 
     # -- state -------------------------------------------------------------
     def _param_units(self):
         return [*self.forwards, *self.gds]
 
     def state_dict(self) -> dict:
-        """The reference's snapshot layout as plain numpy: per-unit
-        parameters and momentum (f32), the loader's schedule, the
-        evaluator's and decision's counters, and the host generator."""
+        """The reference's snapshot layout as plain numpy copies (no view
+        of a live tensor): per-unit parameters and momentum (f32), the
+        loader's schedule, the evaluator's and decision's counters, and
+        the host generator."""
         units: dict = {}
         for unit in self._param_units():
             units[unit.name] = {
-                name: t.detach().float().cpu().numpy()
+                name: t.detach().to("cpu", torch.float32,
+                                    copy=True).numpy()
                 for name, t in [*unit.named_parameters(recurse=False),
                                 *unit.named_buffers(recurse=False)]}
         units[self.loader.name] = self.loader.state_dict()
@@ -206,12 +235,16 @@ class StandardWorkflow(Logger):
         return {"__units__": units, "__prng__": prng.get().get_state()}
 
     @torch.no_grad()
-    def load_reference_state(self, state: dict) -> None:
+    def load_state(self, state: dict) -> None:
         """Carry a state across: the reference's ``Workflow.state_dict()``
         (or this class's own).  Reads each unit's parameters and
         momentum accumulators (f32 or bf16 numpy, rounded to this run's
-        storage dtype), the loader's ``_shuffle_seed``, ``_shuffled``,
-        ``_cursor`` and ``epoch_number``, and the host generator."""
+        storage dtype; a missing one raises), the loader's
+        ``_shuffle_seed``, ``_shuffled``, ``_cursor`` and
+        ``epoch_number``, the evaluator's epoch counters, the decision's
+        best errors and epochs without improvement, and the host
+        generator.  A loader, evaluator or decision key the state lacks
+        keeps its value, as in the reference."""
         by_name = state["__units__"]
         for unit in self._param_units():
             unit_state = by_name.get(unit.name, {})
@@ -225,8 +258,13 @@ class StandardWorkflow(Logger):
                                      f"{value.shape} != {tuple(t.shape)}")
                 t.copy_(torch.from_numpy(value))
         self.loader.load_state(by_name.get(self.loader.name, {}))
+        self.evaluator.load_state(by_name.get(self.evaluator.name, {}))
+        self.decision.load_state(by_name.get(self.decision.name, {}))
         if "__prng__" in state:
             prng.get().set_state(state["__prng__"])
+
+    #: the name the port's first slices gave :meth:`load_state`
+    load_reference_state = load_state
 
     def export_forward(self, path: str) -> str:
         """Write the trained forward chain as a bundle in the

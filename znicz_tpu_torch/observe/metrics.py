@@ -6,7 +6,8 @@ model — counters, gauges and fixed-bucket histograms, each optionally
 split by a small fixed set of labels — with the Prometheus text
 (0.0.4) exposition.  The registry core is a copy of the reference's; of its
 canonical series this slice carries the ``znicz_serving_*`` family
-the serving engine and its batcher write, plus ``recoveries``.  The
+the serving engine and its batcher write, the snapshotter's
+``znicz_snapshot_*`` pair, plus ``recoveries``.  The
 port's registry is its own: a process that imports both packages
 keeps two.
 """
@@ -299,11 +300,29 @@ def serving_warmup_seconds(engine: str) -> Gauge:
 def recoveries(kind: str) -> Counter:
     """Recovery events: the system absorbed a fault and kept going
     (here: ``serving_retry``, a request served after a failed
-    dispatch was retried)."""
+    dispatch was retried; ``snapshot_write``, training went on after a
+    failed snapshot write; ``snapshot_fallback``, a corrupt snapshot
+    was replaced by an older good one)."""
     return REGISTRY.counter(
         "znicz_recoveries_total",
         "Faults absorbed without failing the run, by recovery kind",
         labels=("kind",)).labels(kind=kind)
+
+
+def snapshot_failures(op: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_snapshot_failures_total",
+        "Snapshot operations that failed and were absorbed "
+        "(op=write: training continued on the last good snapshot; "
+        "op=load: a corrupt file fell back to an older snapshot)",
+        labels=("op",)).labels(op=op)
+
+
+def snapshot_seconds(op: str) -> Histogram:
+    return REGISTRY.histogram(
+        "znicz_snapshot_seconds",
+        "Snapshot state-tree save/load duration",
+        labels=("op",)).labels(op=op)
 
 
 def serving_breaker_state(engine: str) -> Gauge:

@@ -11,11 +11,17 @@
 - it raises ``complete`` when ``max_epochs`` epochs are done or the
   error has not improved for ``fail_iterations`` epochs.
 
-The reference's telemetry spans and resilience hooks (anomaly guard,
-heartbeats) are not ported with it.
+Its ``SNAPSHOT_ATTRS`` (the best errors so far, the epochs without
+improvement and the epoch counts) go into a snapshot and come back
+from it (:meth:`DecisionGD.load_state`), so a resumed run keeps its
+best validation error and its stop rule's count.  The reference's
+telemetry spans and resilience hooks (anomaly guard, heartbeats) are
+not ported with it.
 """
 
 from __future__ import annotations
+
+import copy
 
 from znicz_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
 from znicz_tpu_torch.utils.logger import Logger
@@ -106,4 +112,13 @@ class DecisionGD(Logger):
         self.epoch_n_err = [0, 0, 0]
 
     def state_dict(self) -> dict:
-        return {name: getattr(self, name) for name in self.SNAPSHOT_ATTRS}
+        return {name: copy.deepcopy(getattr(self, name))
+                for name in self.SNAPSHOT_ATTRS}
+
+    def load_state(self, state: dict) -> None:
+        """Adopt the counters of a snapshot (the reference's keys); a key
+        the state lacks keeps its initial value, as the reference's
+        ``Unit.load_state`` leaves it."""
+        for name in self.SNAPSHOT_ATTRS:
+            if name in state:
+                setattr(self, name, copy.deepcopy(state[name]))

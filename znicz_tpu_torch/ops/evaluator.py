@@ -14,11 +14,13 @@ the labels and the count of valid samples, and gives
   once per epoch, not once per step.  A non-finite step loss is left
   out of the accumulator, as in the reference.
 
+The two epoch accumulators go into a snapshot and come back from it.
 The confusion matrix and ``EvaluatorMSE`` arrive with later slices.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.utils.logger import Logger
@@ -54,6 +56,19 @@ class EvaluatorSoftmax(Logger):
             torch.isfinite(loss), loss, torch.zeros_like(loss))
         return err
 
+    #: the counters a snapshot carries (the reference's names)
+    SNAPSHOT_TENSORS = ("epoch_n_err", "epoch_loss")
+
     def state_dict(self) -> dict:
-        return {"epoch_n_err": self.epoch_n_err.cpu().numpy(),
-                "epoch_loss": self.epoch_loss.cpu().numpy()}
+        return {name: getattr(self, name).cpu().numpy().copy()
+                for name in self.SNAPSHOT_TENSORS}
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """Adopt the epoch counters of a snapshot (the reference's keys);
+        a key the state lacks keeps its value."""
+        for name in self.SNAPSHOT_TENSORS:
+            if name in state:
+                t = getattr(self, name)
+                t.copy_(torch.as_tensor(np.asarray(state[name]).reshape(
+                    t.shape)).to(t.dtype))

@@ -22,8 +22,8 @@ rule on the channel count and the operands' addresses: the vector
 kernels (8 channels a thread, 128-bit accesses) where they take the
 shape, AlexNet's among them, the general kernels (any C, any n)
 elsewhere.  Each counts its launches in all, by route
-(``launches_by_route``) and by channel count
-(``launches_by_channels``).
+(``launches_by_route``), by channel count (``launches_by_channels``)
+and by ``(rows, C)`` (``launches_by_shape``).
 
 Dropout and the softmax head:
 
@@ -393,12 +393,13 @@ def _lrn_rows(x: torch.Tensor) -> tuple[int, int]:
     return (x.numel() // c if c else 0), c
 
 
-def _count_lrn(fn, route: str, c: int) -> None:
-    """One launch of ``fn``'s kernel on ``route`` for rows of ``c``
-    channels."""
+def _count_lrn(fn, route: str, rows: int, c: int) -> None:
+    """One launch of ``fn``'s kernel on ``route`` for ``rows`` rows of
+    ``c`` channels."""
     fn.launches += 1
     fn.launches_by_route[route] += 1
     fn.launches_by_channels[c] += 1
+    fn.launches_by_shape[rows, c] += 1
 
 
 def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float,
@@ -417,15 +418,16 @@ def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float,
             x.data_ptr(), y.data_ptr(), rows, c, n, alpha, beta, k,
             _KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "lrn_forward")
-    _count_lrn(lrn_forward, route, c)
+    _count_lrn(lrn_forward, route, rows, c)
     return y
 
 
 #: kernel launches since the counters were last set to 0: in all, by
-#: route and by channel count
+#: route, by channel count and by (rows, C)
 lrn_forward.launches = 0
 lrn_forward.launches_by_route = dict.fromkeys(LRN_ROUTES, 0)
 lrn_forward.launches_by_channels = collections.Counter()
+lrn_forward.launches_by_shape = collections.Counter()
 
 
 def lrn_forward_plain(x: torch.Tensor, alpha: float, beta: float, k: float,
@@ -459,15 +461,16 @@ def lrn_backward(x: torch.Tensor, err: torch.Tensor, alpha: float,
             beta, k, _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[err.dtype],
             _stream(x))
     _raise_on(code, "lrn_backward")
-    _count_lrn(lrn_backward, route, c)
+    _count_lrn(lrn_backward, route, rows, c)
     return dx
 
 
 #: kernel launches since the counters were last set to 0: in all, by
-#: route and by channel count
+#: route, by channel count and by (rows, C)
 lrn_backward.launches = 0
 lrn_backward.launches_by_route = dict.fromkeys(LRN_ROUTES, 0)
 lrn_backward.launches_by_channels = collections.Counter()
+lrn_backward.launches_by_shape = collections.Counter()
 
 
 def lrn_backward_plain(x: torch.Tensor, err: torch.Tensor, alpha: float,

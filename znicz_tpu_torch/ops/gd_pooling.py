@@ -1,11 +1,22 @@
-"""Max-pooling backward (port of ``GDMaxPooling`` in
-``znicz_tpu/ops/gd_pooling.py``).
+"""Pooling backward units (port of ``znicz_tpu/ops/gd_pooling.py``).
 
-The error of each window goes to the element the forward picked, the
-first maximum of the window (the reference's select-and-scatter), and
-sums where overlapping windows picked the same element.  The forward
-kept the winners' indices on this train step, so nothing is recomputed:
-one ``aten.max_pool2d_with_indices_backward`` scatters the error.
+Each sends the error of a window to the cells its forward read, and
+sums where overlapping windows reach the same cell:
+
+- :class:`GDMaxPooling` — to the element the forward picked, the first
+  maximum of the window.  The forward kept the winners' indices on this
+  train step, so one ``aten.max_pool2d_with_indices_backward`` scatters
+  the error (in the activation dtype).
+- :class:`GDMaxAbsPooling` — to the largest-|x| element the forward
+  picked: its kept indices go through the same scatter, in f32.
+- :class:`GDAvgPooling` — spread over the window's cells inside the
+  input, each taking the window's error over their count
+  (``aten.avg_pool2d_backward`` of the forward's window sums).
+- :class:`GDStochasticPooling` — to the element the forward drew
+  (``last_choice``, full-window coordinates).
+
+The MaxAbs, average and stochastic backwards sum their errors in f32
+and store them once in the activation dtype.
 """
 
 from __future__ import annotations
@@ -13,13 +24,35 @@ from __future__ import annotations
 import torch
 
 from znicz_tpu_torch.ops.nn_units import GradientDescentBase
-from znicz_tpu_torch.ops.pooling import MaxPooling
+from znicz_tpu_torch.ops.pooling import (AvgPooling, MaxAbsPooling,
+                                         MaxPooling, StochasticPooling)
+
+
+class GDPoolingBase(GradientDescentBase):
+    """Weightless backward in f32: ``err_output`` → ``err_input``."""
+
+    @torch.no_grad()
+    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+            y: torch.Tensor | None = None) -> torch.Tensor | None:
+        if not self.need_err_input:
+            return None
+        dx = self.err_input(x, err_output.float().permute(0, 3, 1, 2))
+        return dx.to(self.act_store_dtype).contiguous()
+
+    def err_input(self, x: torch.Tensor, err: torch.Tensor
+                  ) -> torch.Tensor:
+        """The NHWC f32 error at the input from the NCHW f32 error
+        ``err`` at the output."""
+        raise NotImplementedError
 
 
 class GDMaxPooling(GradientDescentBase):
-    """Scatter of the error to the forward's winners (weightless)."""
+    """Scatter of the error to the forward's winners, summed in the
+    activation dtype (as the reference's select-and-scatter sums, which
+    AlexNet's bf16 step is held to)."""
 
     MATCHES = (MaxPooling,)
+    SUM_IN_F32 = False
 
     @torch.no_grad()
     def run(self, x: torch.Tensor, err_output: torch.Tensor,
@@ -32,11 +65,55 @@ class GDMaxPooling(GradientDescentBase):
             raise RuntimeError(f"{type(fwd).__name__}: no winners kept for "
                                f"this step (run the forward with gradients "
                                f"enabled first)")
-        xc = fwd.padded_nchw(x)
+        dtype = torch.float32 if self.SUM_IN_F32 else x.dtype
+        xc = fwd.padded_nchw(x.to(dtype), float("-inf"))
         grad = torch.ops.aten.max_pool2d_with_indices_backward(
-            err_output.to(x.dtype).permute(0, 3, 1, 2), xc,
+            err_output.to(dtype).permute(0, 3, 1, 2), xc,
             [fwd.ky, fwd.kx], list(fwd.sliding), [0, 0], [1, 1], False,
             indices)
         h, w = x.shape[1], x.shape[2]
         return grad[:, :, :h, :w].permute(0, 2, 3, 1).to(
             self.act_store_dtype).contiguous()
+
+
+class GDMaxAbsPooling(GDMaxPooling):
+    """Scatter of the error to the forward's largest-|x| elements, summed
+    in f32 as the average and stochastic backwards sum."""
+
+    MATCHES = (MaxAbsPooling,)
+    SUM_IN_F32 = True
+
+
+class GDAvgPooling(GDPoolingBase):
+    """The error spread evenly over each window's cells in the input."""
+
+    MATCHES = (AvgPooling,)
+
+    def err_input(self, x, err):
+        fwd = self.forward_unit
+        h, w = x.shape[1], x.shape[2]
+        xc = fwd.padded_nchw(x.float(), 0.0)
+        grad = torch.ops.aten.avg_pool2d_backward(
+            err / fwd.counts(h, w, x.device), xc, [fwd.ky, fwd.kx],
+            list(fwd.sliding), [0, 0], False, True, 1)
+        return grad[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+class GDStochasticPooling(GDPoolingBase):
+    """Scatter of the error to the elements the forward drew."""
+
+    MATCHES = (StochasticPooling,)
+
+    def err_input(self, x, err):
+        fwd = self.forward_unit
+        choice, fwd.last_choice = fwd.last_choice, None  # used once
+        if choice is None:
+            raise RuntimeError("StochasticPooling: no choice kept for this "
+                               "step (run the forward in train mode first)")
+        n, c, oh, ow = err.shape
+        wins = torch.zeros((n, c, fwd.window, oh, ow), dtype=err.dtype,
+                           device=err.device)
+        # the choices are NHWC offsets in full-window coordinates
+        wins.scatter_(2, choice.permute(0, 3, 1, 2).unsqueeze(2).long(),
+                      err.unsqueeze(2))
+        return fwd.scatter_windows(wins, x.shape)

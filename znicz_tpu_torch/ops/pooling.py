@@ -1,18 +1,39 @@
-"""Max pooling (port of ``MaxPooling`` in ``znicz_tpu/ops/pooling.py``).
+"""Pooling forward units (port of ``znicz_tpu/ops/pooling.py``).
 
-Window geometry is the reference's: ``kx``/``ky`` and ``sliding``
-(default: the window, no overlap) over NHWC inputs, with the ceil form
-of the output size — ``ceil((h − ky) / sy) + 1`` windows, 1 when
-``h ≤ ky`` — and the tail windows cut at the edge.  The input is padded
-with −inf up to the last window's end where the windows overhang it
-(never at AlexNet's 55, 27 and 13), so ``F.max_pool2d`` on the
-channels-last view covers exactly the reference's windows.
+Window geometry is the reference's, in :class:`Pooling`: ``kx``/``ky``
+and ``sliding`` (default: the window, no overlap) over NHWC inputs, with
+the ceil form of the output size — ``ceil((h − ky) / sy) + 1`` windows,
+1 when ``h ≤ ky`` — and the tail windows cut at the edge.  Each unit
+pads its input at the bottom and right up to the end of the last window
+and marks the padded cells so that none can win or count:
 
-On a train step (gradients enabled) the unit keeps the winners' indices
-for :class:`~znicz_tpu_torch.ops.gd_pooling.GDMaxPooling`: the first
-maximum of each window in row-major window order, the element the
-reference's select-and-scatter picks.  The other pooling kinds
-(max-abs, average, stochastic) arrive with a later slice.
+- :class:`MaxPooling` — the window's maximum (``F.max_pool2d`` over −inf
+  padding).  On a train step (gradients enabled) it keeps the winners'
+  indices: the first maximum in row-major window order, the element the
+  reference's select-and-scatter picks.
+- :class:`MaxAbsPooling` — the element of largest |x|, its sign kept:
+  the window's maximum or its minimum, from two max pools (of x and of
+  −x, both padded with −inf, so a padded cell never wins).  Where
+  |max| = |min| the first of the two cells in row-major window order
+  wins, as in the reference (its indices into the padded plane grow in
+  that order), so a signed tie goes where the reference sends it.  A
+  train step keeps the winners' indices, which the max-pooling backward
+  takes as they are.
+- :class:`AvgPooling` — the window's sum over the count of its cells
+  inside the input, so a cut window divides by its true count.
+- :class:`StochasticPooling` — on a train step one element of each
+  window, drawn with probability ∝ max(x, 0) (uniformly over the window's
+  cells inside the input when none is positive), recorded in
+  ``last_choice`` in full-window coordinates; in eval mode the
+  probability-weighted mean.  Each train step draws one seed from the
+  port's default generator (:mod:`znicz_tpu_torch.utils.prng`), as the
+  dropout unit does, so a snapshot carries the stream; the uniforms come
+  from a ``torch.Generator`` of that seed, whose stream differs from the
+  reference's (only the distribution is owed).
+
+The reference computes pooling in XLA (``lax.reduce_window`` and
+gathers), not in Pallas, so these are PyTorch operations: no kernel of
+the TPU has a counterpart here.
 """
 
 from __future__ import annotations
@@ -21,10 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.ops.nn_units import Forward
+from znicz_tpu_torch.utils import prng
 
 
-class MaxPooling(Forward):
-    """Plain max pooling (weightless forward)."""
+class Pooling(Forward):
+    """Base pooling unit (weightless forward): the window geometry."""
 
     def __init__(self, input_shape, compute_dtype: torch.dtype, kx: int,
                  ky: int, sliding=None, **kwargs) -> None:
@@ -36,9 +58,6 @@ class MaxPooling(Forward):
         if sliding is None:
             sliding = (self.ky, self.kx)  # the reference's default
         self.sliding = (int(sliding[0]), int(sliding[1]))
-        #: the last train step's winners (indices into the padded
-        #: input's planes), for the backward unit
-        self.indices: torch.Tensor | None = None
 
     def output_spatial(self, h: int, w: int) -> tuple[int, int]:
         sy, sx = self.sliding
@@ -51,30 +70,161 @@ class MaxPooling(Forward):
         h, w, c = self.input_shape
         return (*self.output_spatial(h, w), c)
 
+    @property
+    def window(self) -> int:
+        return self.ky * self.kx
+
     def param_shapes(self) -> dict[str, tuple]:
         return {}
 
     def initial_params(self) -> dict:
         return {}
 
-    def padded_nchw(self, x: torch.Tensor) -> torch.Tensor:
-        """x as a channels-last NCHW view, padded with −inf at the bottom
-        and right up to the end of the last window."""
+    def padded_nchw(self, x: torch.Tensor, value: float) -> torch.Tensor:
+        """x as a channels-last NCHW view, padded with ``value`` at the
+        bottom and right up to the end of the last window."""
         h, w = x.shape[1], x.shape[2]
         oh, ow = self.output_spatial(h, w)
         sy, sx = self.sliding
         ph, pw = (oh - 1) * sy + self.ky - h, (ow - 1) * sx + self.kx - w
         xc = x.permute(0, 3, 1, 2)
         if ph or pw:
-            xc = F.pad(xc, (0, pw, 0, ph), value=float("-inf"))
+            xc = F.pad(xc, (0, pw, 0, ph), value=value)
         return xc
 
+    def store(self, y_nchw: torch.Tensor) -> torch.Tensor:
+        """An ``(n, c, oh, ow)`` result as this unit's NHWC output."""
+        return y_nchw.permute(0, 2, 3, 1).to(
+            self.output_store_dtype).contiguous()
+
+
+class MaxPooling(Pooling):
+    """Plain max pooling."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        #: the last train step's winners (indices into the padded
+        #: input's planes), for the backward unit
+        self.indices: torch.Tensor | None = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xc = self.padded_nchw(x)
+        xc = self.padded_nchw(x, float("-inf"))
         window = (self.ky, self.kx)
         if torch.is_grad_enabled():
             y, self.indices = F.max_pool2d(xc, window, self.sliding,
                                            return_indices=True)
         else:
             y = F.max_pool2d(xc, window, self.sliding)
-        return y.permute(0, 2, 3, 1).to(self.output_store_dtype).contiguous()
+        return self.store(y)
+
+
+class MaxAbsPooling(MaxPooling):
+    """Largest-|x| element of each window, its sign kept."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        window = (self.ky, self.kx)
+        hi, i_hi = F.max_pool2d(self.padded_nchw(x, float("-inf")), window,
+                                self.sliding, return_indices=True)
+        lo, i_lo = F.max_pool2d(self.padded_nchw(-x, float("-inf")), window,
+                                self.sliding, return_indices=True)
+        # lo is −min, and max ≥ min, so |max| > |min| where hi > lo; the
+        # first cell wins where |max| = |min|
+        take_hi = (hi > lo) | ((hi == lo) & (i_hi <= i_lo))
+        if torch.is_grad_enabled():
+            self.indices = torch.where(take_hi, i_hi, i_lo)
+        return self.store(torch.where(take_hi, hi, -lo))
+
+
+class AvgPooling(Pooling):
+    """Window mean; a cut tail window divides by its true count."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self._counts: dict = {}
+
+    def counts(self, h: int, w: int, device) -> torch.Tensor:
+        """``(oh, ow)`` f32: the cells of each window inside the input."""
+        key = (h, w, str(device))
+        if key not in self._counts:
+            ones = torch.ones(1, h, w, 1, device=device)
+            self._counts[key] = self.window_sums(ones)[0, 0]
+        return self._counts[key]
+
+    def window_sums(self, x: torch.Tensor) -> torch.Tensor:
+        """``(n, c, oh, ow)`` f32 sums of each window (zero padding)."""
+        return F.avg_pool2d(self.padded_nchw(x.float(), 0.0),
+                            (self.ky, self.kx), self.sliding,
+                            divisor_override=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        return self.store(self.window_sums(x) / self.counts(h, w, x.device))
+
+
+class StochasticPooling(Pooling):
+    """Train: one element of each window drawn ∝ max(x, 0); eval: the
+    probability-weighted mean.  ``forward_mode`` ("train"/"eval") is set
+    by the workflow from the minibatch class."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.forward_mode = "train"
+        #: this step's seed (None in eval mode)
+        self.seed: int | None = None
+        #: the last train step's choices, NHWC ``(n, oh, ow, c)`` int32
+        #: offsets in full-window coordinates (the reference's layout)
+        self.last_choice: torch.Tensor | None = None
+
+    def windows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every window of x as ``(n, c, ky·kx, oh, ow)``, the cells in
+        row-major window order, −inf on the padded ones (one copy of a
+        strided view; ``F.unfold`` loops over the samples)."""
+        n, h, w, c = x.shape
+        sy, sx = self.sliding
+        view = self.padded_nchw(x, float("-inf")).unfold(
+            2, self.ky, sy).unfold(3, self.kx, sx)  # (n, c, oh, ow, ky, kx)
+        return view.permute(0, 1, 4, 5, 2, 3).reshape(
+            n, c, self.window, *self.output_spatial(h, w))
+
+    def scatter_windows(self, err_wins: torch.Tensor,
+                        x_shape) -> torch.Tensor:
+        """The inverse of :meth:`windows`: each window cell's error
+        ``(n, c, ky·kx, oh, ow)`` added into an NHWC tensor of
+        ``x_shape`` (overlapping windows sum, in window order; padded
+        cells drop)."""
+        n, h, w, c = x_shape
+        oh, ow = self.output_spatial(h, w)
+        sy, sx = self.sliding
+        out = err_wins.new_zeros(
+            (n, c, (oh - 1) * sy + self.ky, (ow - 1) * sx + self.kx))
+        for cell in range(self.window):
+            i, j = divmod(cell, self.kx)
+            out[:, :, i:i + (oh - 1) * sy + 1:sy,
+                j:j + (ow - 1) * sx + 1:sx] += err_wins[:, :, cell]
+        return out[:, :, :h, :w].permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wins = self.windows(x).float()
+        valid = torch.isfinite(wins)
+        wins0 = torch.where(valid, wins, torch.zeros_like(wins))
+        pos = torch.clamp(wins0, min=0.0)
+        total = pos.sum(dim=2, keepdim=True)
+        uniform = valid.float() / valid.sum(dim=2, keepdim=True).clamp(
+            min=1).float()
+        probs = torch.where(total > 0, pos / torch.where(
+            total > 0, total, torch.ones_like(total)), uniform)
+        if self.forward_mode != "train":
+            self.seed = None
+            return self.store((probs * wins0).sum(dim=2))
+        self.seed = int(prng.get().randint(0, 2 ** 63))
+        gen = torch.Generator(device=x.device).manual_seed(self.seed)
+        n, c, _, oh, ow = wins.shape
+        r = torch.rand((n, c, 1, oh, ow), generator=gen, device=x.device)
+        cum = probs.cumsum(dim=2)
+        # no draw may land past the last cell with mass when the sum of
+        # the probabilities rounds under r
+        cum = torch.where(cum >= cum[:, :, -1:], float("inf"), cum)
+        idx = (r > cum).sum(dim=2, keepdim=True)
+        self.last_choice = idx[:, :, 0].permute(0, 2, 3, 1).to(
+            torch.int32).contiguous()
+        return self.store(wins0.gather(2, idx).squeeze(2))

@@ -13,6 +13,12 @@ returns the default).  Each generator owns
   device randomness.  Nothing on the sequence-training path draws from
   it yet; its streams differ from the reference's bit for bit (only
   statistical parity is owed there).
+
+A state (:meth:`RandomGenerator.get_state`) has the reference's keys, so
+a snapshot loads in either package: the reference's ``jax_key`` is kept
+as it came, or, for a generator seeded here, written as the key the
+reference derives from the seed (``jax.random.key(seed)``'s data,
+``[0, seed mod 2³²]``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ class RandomGenerator:
         self._seed = int(seed)
         self.numpy = np.random.default_rng(self._seed)
         self.torch = torch.Generator().manual_seed(self._seed)
+        self._jax_key: np.ndarray | None = None
 
     # --- host-side fills and draws (the reference's, copied) -----------
     def fill_uniform(self, shape, vmin: float, vmax: float,
@@ -49,17 +56,23 @@ class RandomGenerator:
         return self.numpy.integers(low, high, size=size)
 
     def get_state(self) -> dict:
-        """Serializable state: the seed and the host stream's state
-        (the reference's keys; the torch stream is re-derived from the
-        seed)."""
+        """Serializable state: the seed, the host stream's state and the
+        reference's device key (the reference's keys; the torch stream
+        is re-derived from the seed)."""
+        key = self._jax_key
+        if key is None:
+            key = np.array([0, self._seed & 0xFFFFFFFF], dtype=np.uint32)
         return {"seed": self._seed,
-                "numpy_state": self.numpy.bit_generator.state}
+                "numpy_state": self.numpy.bit_generator.state,
+                "jax_key": key.copy()}
 
     def set_state(self, state: dict) -> None:
         """Adopt a state from :meth:`get_state` or from the reference's
-        ``get_state`` (whose ``jax_key`` has no counterpart here)."""
+        ``get_state`` (whose ``jax_key`` is only carried along)."""
         self.seed(int(state["seed"]))
         self.numpy.bit_generator.state = state["numpy_state"]
+        if state.get("jax_key") is not None:
+            self._jax_key = np.asarray(state["jax_key"], dtype=np.uint32)
 
 
 _generators: dict[str, RandomGenerator] = {}
