@@ -90,11 +90,43 @@ Phases (any failure raises and exits non-zero):
    bf16 and in f32 (2 heads of 256 at D = 512), at dh = 512 in bf16 and
    in f32 (1 head of 512, column chunks past 256) and at
    dh = 4 (the ``attention_seq`` sample, whose attention takes the plain
-   core and launches no flash kernel).
+   core and launches no flash kernel);
+7. CIFAR-10 through ``Main().run(["cifar", ...])`` on the card: 8 epochs
+   of the synthetic stand-in, B1/B2 and B4 launch counts, validation
+   error by epoch under 45 %, step time, img/s, per-unit times and busy
+   share; two runs resumed with ``-s`` from the snapshot the
+   uninterrupted run wrote at the end of epoch 6 stay within 1e-5 of it
+   after one train step and 1e-2 at the end, counters equal, and runs
+   resumed from two planted faults must fail that check;
+8. the three training paths with their regions as CUDA graphs (phases
+   4–7 run them eagerly, as a ``mark``ed step runs, as before the port
+   had graphs): CIFAR-10 through ``Main().run(["cifar",
+   "--chunk", "16", ...])`` for 8 epochs (launch counts exact through
+   the replay accounting, one capture a key and none after the first
+   epoch, the validation bar of phase 7), the last epoch resumed from
+   phase 7's snapshot graphed step by step and in chunks against phase
+   7's eager run (1e-5 after the first two train steps, 1e-2 at the end,
+   counters equal), the train step graphed and 16 a dispatch beside the
+   eager one, ``--dump-graph`` naming the region; AlexNet at B = 128
+   graphed (B1–B4 counts, the step beside phase 5's, each step's dropout
+   seed that of phase 5's eager step, outputs zero wherever their step's
+   mask drops and masks new each step, and a planted fault — the seed
+   passed by value, frozen in the capture — caught by that check); the
+   bf16 sequence stack graphed (B4–B9 counts, the step beside phase
+   4's).  AlexNet and the sequence stack also run 3 steps eager and 3
+   graphed (the capture's warm-up, then replays) from one seed, each
+   state tensor held to the eager run's within 2⁻⁸ and the counters
+   equal, and a planted fault (the head's update left out of the
+   capture) must fail that check.  In each path's profiled window the
+   launches the wrappers counted (on a graphed path, through the replay
+   accounting) must be the hand-written kernels the profiler saw run.
+   Each time is printed beside the card's name and power limit.
 
-Each path of phases 3–6 runs with every launch counter set to 0 just
+Each path of phases 3–8 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
-take the route rebuilt for Hopper.  The last three lines of standard
+take the route rebuilt for Hopper.  A replayed graph runs no Python, so
+a region adds what its capture counted once a replay
+(``znicz_tpu_torch/ops/launch_counts.py``).  The last three lines of standard
 output are one JSON object with the rows timed at shapes no path gives
 their kernel (C7's wide rows, ``off_path_kernels``), one listing the
 kernels of the paths with their numbers and their launches by path,
@@ -147,6 +179,14 @@ TRAIN_STEP_TOL = 5e-2
 #: differ in summation order only (a few f32 ulps of each term, summed
 #: over T = 2048 keys and B·T rows): around 1e-4 of the largest update.
 TRAIN_STEP_TOL_F32 = 1e-4
+
+#: phases 4–7 run their regions eagerly (:func:`set_graphs`), as the
+#: paths ran before the port had CUDA graphs; phase 8 runs the same paths
+#: graphed (the port's way on the card) and reads their eager numbers
+#: here
+EAGER: dict = {}
+#: each :func:`device_busy` reading's kernel time a step, in ms
+BUSY_KERNEL_MS: list = []
 
 
 def say(msg: str) -> None:
@@ -1079,10 +1119,14 @@ def check_dropout(gen, floor_ms: float) -> dict:
         numel = int(np.prod(shape))
         x, err = (torch.randn(numel + offset, generator=gen, device="cuda")
                   .to(dtype)[offset:].view(shape) for _ in range(2))
+        # the seed as the training path passes it: a device tensor the
+        # kernel reads through a pointer
+        seed_t = fk.seed_tensor(seed, "cuda")
         before = dict(fk.dropout_apply.launches_by_route)
-        y = fk.dropout_apply(x, seed, DROP_RATIO)
-        dx = fk.dropout_apply(err, seed, DROP_RATIO)
+        y = fk.dropout_apply(x, seed_t, DROP_RATIO)
+        dx = fk.dropout_apply(err, seed_t, DROP_RATIO)
         took = _took(fk.dropout_apply, before)
+        by_value = torch.equal(fk.dropout_apply(x, seed, DROP_RATIO), y)
         same_y = torch.equal(y, fk.dropout_apply_plain(x, seed, DROP_RATIO))
         same_dx = torch.equal(dx, fk.dropout_apply_plain(err, seed,
                                                          DROP_RATIO))
@@ -1097,11 +1141,12 @@ def check_dropout(gen, floor_ms: float) -> dict:
             f"{same_y} dx {same_dx}, forward mask = backward mask "
             f"{same_mask}, keep fraction {frac:.5f} "
             f"({abs(frac - (1 - DROP_RATIO)) / sigma:.2f} σ, tol 4 σ), "
-            f"ratio 0 identity {identity}")
+            f"ratio 0 identity {identity}, an int seed the same bits "
+            f"{by_value}")
         if took != [route]:
             raise AssertionError(f"dropout_apply case '{name}' took the "
                                  f"routes {took}, not {route}")
-        if not (same_y and same_dx and same_mask and identity) \
+        if not (same_y and same_dx and same_mask and identity and by_value) \
                 or abs(frac - (1 - DROP_RATIO)) > 4 * sigma:
             raise AssertionError(f"dropout_apply fails its contract in case "
                                  f"'{name}'")
@@ -1109,9 +1154,9 @@ def check_dropout(gen, floor_ms: float) -> dict:
             continue
         # the kernel is shorter than its wrapper: device times from CUDA
         # graphs, beside the wrapper's back-to-back rate
-        wrapper_ms = time_ms(lambda: fk.dropout_apply(x, seed, DROP_RATIO),
-                             50)
-        ms = graph_ms(lambda: fk.dropout_apply(x, seed, DROP_RATIO))
+        wrapper_ms = time_ms(lambda: fk.dropout_apply(x, seed_t,
+                                                      DROP_RATIO), 50)
+        ms = graph_ms(lambda: fk.dropout_apply(x, seed_t, DROP_RATIO))
         plain_ms = graph_ms(lambda: fk.dropout_apply_plain(x, seed,
                                                            DROP_RATIO), 10)
         lib_ms = graph_ms(lambda: F.dropout(x, DROP_RATIO, training=True))
@@ -1322,6 +1367,56 @@ def kernel_counters() -> dict:
     return table
 
 
+#: each wrapper's kernels as the profiler names them (in anonymous
+#: namespaces, each name ending at ``<`` or ``(``), and how many of them
+#: one call launches: B6 launches its rows kernel and its fold, the flash
+#: backward's one template is the dq kernel with DKV false and the dk/dv
+#: kernel with DKV true
+DEVICE_KERNELS = {
+    "flash_attention_fwd": (r"flash_fwd(_f32)?_kernel[<(]", 1),
+    "flash_attention_dq": (r"flash_bwd(_f32)?_kernel<false", 1),
+    "flash_attention_dkv": (r"flash_bwd(_f32)?_kernel<true", 1),
+    "layer_norm_forward": (r"ln_fwd(_reg)?_kernel[<(]", 1),
+    "layer_norm_backward": (r"ln_bwd_(rows|fold|reg|reg_fold)_kernel[<(]",
+                            2),
+    "lrn_forward": (r"lrn_fwd(_vec)?_kernel[<(]", 1),
+    "lrn_backward": (r"lrn_bwd(_vec)?_kernel[<(]", 1),
+    "dropout_apply": (r"dropout(_vec)?_kernel[<(]", 1),
+    "softmax_argmax": (r"softmax_argmax(_reg)?_kernel[<(]", 1),
+}
+
+
+def wrapper_launches() -> dict:
+    """Each wrapper's ``launches`` counter now, by its name."""
+    return {fn.__name__: fn.launches
+            for fn, _ in kernel_counters().values()}
+
+
+def expect_device_launches(prof, before: dict, window: str) -> None:
+    """What the wrappers counted since ``before`` against the kernels the
+    profiler saw run on the card in the same window, by name: equal for
+    every wrapper.  On a graphed path the counts are the replay
+    accounting (what a capture counted, once a replay), so this shows
+    that the captured kernels ran on every replay."""
+    from torch.autograd import DeviceType
+    ran = dict.fromkeys(DEVICE_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, (pattern, _) in DEVICE_KERNELS.items():
+            if re.search(r"(?<!\w)" + pattern, e.key):
+                ran[name] += e.count
+    counted = {name: (n - before[name]) * DEVICE_KERNELS[name][1]
+               for name, n in wrapper_launches().items()}
+    seen = {name: (counted[name], ran[name]) for name in DEVICE_KERNELS
+            if counted[name] or ran[name]}
+    say(f"  {window}: kernel launches counted by the wrappers (× kernels a "
+        f"call) against those the profiler saw run: {seen}")
+    if any(c != r for c, r in seen.values()) or not seen:
+        raise AssertionError(f"{window}: the counted launches are not the "
+                             f"kernels that ran: {seen}")
+
+
 def reset_counts() -> None:
     """Every launch counter to 0."""
     for fn, _ in kernel_counters().values():
@@ -1509,14 +1604,20 @@ def step_breakdown(wf) -> None:
     say("  per-unit device time of one train step: " + ", ".join(parts))
 
 
-def device_busy(wf, steps: int = 3) -> None:
+def device_busy(wf, steps: int = 3, window: str = "") -> float | None:
     """The device's busy share over a few steady train steps: the sum of
     the CUDA kernels' times in a ``torch.profiler`` window over the
-    window's host time (which ends in a synchronize)."""
+    window's host time (which ends in a synchronize); None when the
+    profiler saw no device time.  The kernels' time a step is kept in
+    ``BUSY_KERNEL_MS`` for phase 8.  In the same window the wrappers'
+    counts must be the hand-written kernels the profiler saw run
+    (:func:`expect_device_launches`); a ``window`` that the profiler saw
+    nothing of fails when it names a graphed path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = wrapper_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1529,20 +1630,32 @@ def device_busy(wf, steps: int = 3) -> None:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0)) / 1e3
 
-    # kernels only: an operator's row repeats its kernels' time
+    # kernels only: an operator's row repeats its kernels' time, and the
+    # units' spans (``record_function`` ranges while the profiler is
+    # open) show on the device lanes as the time between their first and
+    # last kernel
+    spans = {u.name for u in wf.units}
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.key not in spans
+               and not e.key.startswith(("workflow:", "chunk:",
+                                         "capture:"))]
     busy_ms = sum(device_ms(e) for e in kernels)
     if busy_ms <= 0.0:
         say("  device busy share: not measured (the profiler saw no "
             "device time)")
-        return
+        if "graphed" in window:
+            raise AssertionError(f"{window}: the profiler saw no kernel, "
+                                 f"so nothing shows the replays ran")
+        return None
+    expect_device_launches(prof, before, window or "profiled steps")
     top = sorted(kernels, key=device_ms, reverse=True)[:10]
+    BUSY_KERNEL_MS.append(busy_ms / steps)
     say(f"  device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms over {steps} "
         f"profiled train steps ({100 * busy_ms / wall_ms:.1f} % busy, "
         f"{100 - 100 * busy_ms / wall_ms:.1f} % idle); kernels by time, "
         f"ms a step: " + "; ".join(f"{e.key[:48]} {device_ms(e) / steps:.3f}"
                                    for e in top))
+    return busy_ms / wall_ms
 
 
 def timed_steps(wf, warmup: int, steps: int) -> float:
@@ -1614,7 +1727,8 @@ def train_slice(precision: str = "bfloat16") -> dict:
         f"train loss of the last epoch {loss:.4f}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     step_breakdown(wf)
-    device_busy(wf)
+    EAGER[f"seq_{precision}"] = {"step_ms": step_ms,
+                                 "busy": device_busy(wf, window=path)}
     del wf
     check_step_on_cpu(
         lambda device: make_trainer(x[:2], y[:2], 2, device, precision),
@@ -1830,6 +1944,9 @@ def alexnet_slice() -> dict:
     data = wf.loader.original_data
     say(f"  dataset on the device: {tuple(data.shape)} {data.dtype}, "
         f"{data.numel() * data.element_size() / 2 ** 20:.1f} MiB")
+    dropouts = [u for u in wf.forwards if type(u).__name__ == "DropoutForward"]
+    seeds = []  # each step's seed tensors (new ones every eager step)
+    wf.add_step_hook(lambda: seeds.append([u.seed for u in dropouts]))
     reset_counts()
     t_host = time.perf_counter()
     step_ms = timed_steps(wf, warmup, steps)
@@ -1858,7 +1975,9 @@ def alexnet_slice() -> dict:
         f"train loss of the epoch {loss:.4f}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     step_breakdown(wf)
-    device_busy(wf)
+    EAGER["alexnet"] = {"step_ms": step_ms,
+                        "busy": device_busy(wf, window="alexnet"),
+                        "seeds": [[int(t) for t in step] for step in seeds]}
     del wf
     check_alexnet_step()
     return launches
@@ -1998,40 +2117,44 @@ def cifar_cli(snapshots: str, *args: str, snapshot_at: int | None = None):
     card (no ``-b``), writing its snapshots into ``snapshots`` (and,
     with ``snapshot_at``, ``cifar_epoch<k>`` at the end of epoch k
     through ``Snapshotter.write``, as the emergency snapshot is
-    written).  Returns the ``Main`` that ran, the validation error of
-    each epoch, and the run's state (:func:`run_state`) after the first
-    train step of its last epoch."""
+    written).  Returns the ``Main`` that ran, the validation error and
+    the region's graph captures at the end of each epoch, and the run's
+    state (:func:`run_state`) after each of the first two decisions of a
+    train minibatch in its last epoch (after the first two train steps;
+    under ``--chunk``, after the first two chunks)."""
     from znicz_tpu_torch.__main__ import Main
     from znicz_tpu_torch.loader.base import TRAIN, VALID
-    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.ops.decision import DecisionGD
     from znicz_tpu_torch.utils.config import reset_root, root
     from znicz_tpu_torch.utils.snapshotter import Snapshotter
     reset_root()
     root.common.dirs.snapshots = snapshots
-    errors, first_step = [], {}
-    step = StandardWorkflow.step
+    errors, captures, train_steps = [], [], []
+    decide = DecisionGD.run
 
-    def step_and_record(wf, mark=None):
-        step(wf, mark)
-        if wf.loader.minibatch_class == TRAIN and not first_step \
-                and wf.loader.epoch_number == wf.decision.max_epochs - 1:
-            first_step.update(run_state(wf))
-        if not wf.decision.epoch_ended:
+    def decide_and_record(decision):
+        decide(decision)
+        wf = decision.workflow
+        if wf.loader.minibatch_class == TRAIN and len(train_steps) < 2 \
+                and wf.loader.epoch_number == decision.max_epochs - 1:
+            train_steps.append(run_state(wf))
+        if not decision.epoch_ended:
             return
-        errors.append(wf.decision.epoch_n_err_pt[VALID])
+        errors.append(decision.epoch_n_err_pt[VALID])
+        captures.append(wf.region.captures)
         if wf.loader.epoch_number == snapshot_at:
             Snapshotter.write(wf.state_dict(), snapshots, "cifar",
                               f"epoch{snapshot_at}")
 
-    StandardWorkflow.step = step_and_record
+    DecisionGD.run = decide_and_record
     try:
         main = Main()
         rc = main.run(["cifar", *args])
     finally:
-        StandardWorkflow.step = step
+        DecisionGD.run = decide
     if rc:
         raise AssertionError(f"cifar {args}: exit code {rc}")
-    return main, errors, first_step
+    return main, errors, captures, train_steps
 
 
 def run_state(wf) -> dict:
@@ -2081,10 +2204,10 @@ def cifar_pass() -> dict:
     tmp = tempfile.mkdtemp(prefix="cifar_snapshots_")
     reset_counts()
     t0 = time.perf_counter()
-    main, errors, straight_step = cifar_cli(
+    main, errors, _, straight_steps = cifar_cli(
         os.path.join(tmp, "straight"), "--root",
-                             f"cifar.max_epochs={CIFAR_EPOCHS}",
-                             snapshot_at=CIFAR_EPOCHS - 2)
+        f"cifar.max_epochs={CIFAR_EPOCHS}", snapshot_at=CIFAR_EPOCHS - 2)
+    straight_step = straight_steps[0]
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     launches = read_counts()
@@ -2127,7 +2250,7 @@ def cifar_pass() -> dict:
         f"{timed} steps after {warmup}, "
         f"{CIFAR_BATCH / step_ms * 1e3:.0f} img/s")
     step_breakdown(wf)
-    device_busy(wf)
+    busy = device_busy(wf, window="cifar")
 
     # resume: the last epoch again from the snapshot of the one before
     path = os.path.join(tmp, "straight",
@@ -2142,10 +2265,10 @@ def cifar_pass() -> dict:
         """``-s snapshot`` to the end: the worst distance from the
         uninterrupted run after the first train step and at the end, and
         the counters that differ."""
-        main, _, first = cifar_cli(os.path.join(tmp, name), "-s", snapshot,
-                                   "--root",
-                                   f"cifar.max_epochs={CIFAR_EPOCHS}")
-        step_rel, step_other = state_diff(straight_step, first)
+        main, _, _, first = cifar_cli(
+            os.path.join(tmp, name), "-s", snapshot, "--root",
+            f"cifar.max_epochs={CIFAR_EPOCHS}")
+        step_rel, step_other = state_diff(straight_step, first[0])
         rel, other = state_diff(straight, run_state(main.launcher.workflow))
         worst = max(rel, key=rel.get)
         say(f"    {name}: after one step worst {max(step_rel.values()):.3g}"
@@ -2176,6 +2299,397 @@ def cifar_pass() -> dict:
         if passes(*resume(name, bad)):
             raise AssertionError(f"cifar: the resume check passes a "
                                  f"planted fault ({fault})")
+    EAGER["cifar"] = {"step_ms": step_ms, "busy": busy, "errors": errors,
+                      "straight": straight, "steps": straight_steps,
+                      "snapshot": path, "tmp": tmp}
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 8: the three training paths with their regions as CUDA graphs
+# ----------------------------------------------------------------------
+_GRAPHED: list = []
+
+
+def set_graphs(on: bool) -> None:
+    """Every region graphed, the port's way on the card
+    (``JitRegion.graphed``: on the card, with no ``mark``), or, off, run
+    eagerly on the card as a ``mark``ed step runs: the eager baseline of
+    phases 4–7 and of phase 8's turns, for this process only."""
+    from znicz_tpu_torch.accelerated_units import JitRegion
+    if not _GRAPHED:
+        _GRAPHED.append(JitRegion.graphed)
+    JitRegion.graphed = _GRAPHED[0] if on else property(lambda self: False)
+
+
+#: the order of the eager and graphed timings of one workflow in phase 8:
+#: each mode twice, in turns, so that a drift of the host's speed over
+#: the call falls on both
+AB_ORDER = ("eager", "graphed", "graphed", "eager")
+
+
+def ab_steps(wf, name: str, warmup: int, steps: int, ready=None) -> dict:
+    """Train step times (ms, CUDA events) of one workflow with its region
+    eager and graphed, in the turns of :data:`AB_ORDER`, then each
+    mode's busy share over 3 profiled steps, in whose windows the
+    counted launches must be the kernels that ran (the path's ``name``
+    printed); ``ready(n)`` first makes the next n steps train steps."""
+    out = {"eager": [], "graphed": []}
+    for mode in AB_ORDER:
+        set_graphs(mode == "graphed")
+        if ready:
+            ready(warmup + steps)
+        out[mode].append(timed_steps(wf, warmup, steps))
+    for mode in ("eager", "graphed"):
+        set_graphs(mode == "graphed")
+        if ready:
+            ready(3)
+        out[f"{mode}_busy"] = device_busy(wf, window=f"{name} {mode}")
+        out[f"{mode}_kernel_ms"] = BUSY_KERNEL_MS[-1] if out[
+            f"{mode}_busy"] is not None else None
+    set_graphs(True)
+    return out
+
+
+def ab_line(ab: dict, per_step: float, unit: str) -> str:
+    """``graphed … ms (rate, busy), eager … ms (rate, busy)``, each
+    mode's two readings with the rate of the first; beside the
+    profiler's busy share (whose short window the host's profiled
+    overhead dilutes), the kernels' time a step over the unprofiled
+    step time."""
+    def one(mode):
+        ms = ab[mode]
+        kernel = ab[mode + "_kernel_ms"]
+        share = ("not measured" if kernel is None else
+                 f"kernels {kernel:.4f} ms a step, "
+                 f"{100 * kernel * len(ms) / sum(ms):.1f} % of the step")
+        return (f"{mode} {' / '.join(f'{v:.4f}' for v in ms)} ms "
+                f"({per_step / ms[0] * 1e3:.0f} {unit}, busy "
+                f"{pct(ab[mode + '_busy'])} in the profiler's window, "
+                f"{share})")
+    return one("graphed") + "; " + one("eager")
+
+
+def cifar_graphed(card: str) -> dict:
+    """CIFAR-10 through ``Main().run(["cifar", "--chunk", "16", ...])``:
+    8 epochs, the region replayed (16 steps a dispatch); exact launch
+    counts through the replay accounting, one capture a key and none
+    after the first epoch, the validation bar of phase 7; then the last
+    epoch again from phase 7's snapshot, graphed step by step and in
+    chunks, against phase 7's eager run (CIFAR_STEP_TOL after the first
+    and the second train step, the first a warm-up and the second a
+    replay; CIFAR_EPOCH_TOL at the end; counters equal); the train step
+    graphed and in chunks beside phase 7's eager step; ``--dump-graph``
+    names the region."""
+    import torch
+    from znicz_tpu_torch.__main__ import Main
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.observe import metrics
+    eager = EAGER["cifar"]
+    tmp = eager["tmp"]
+    reset_counts()
+    before = metrics.graph_captures("train_region").value
+    t0 = time.perf_counter()
+    main, errors, captures, _ = cifar_cli(
+        os.path.join(tmp, "graphed"), "--chunk", "16", "--root",
+        f"cifar.max_epochs={CIFAR_EPOCHS}")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    wf = main.launcher.workflow
+    steps, train = CIFAR_EPOCHS * CIFAR_STEPS, CIFAR_EPOCHS * CIFAR_TRAIN_STEPS
+    say(f"  python -m znicz_tpu_torch cifar --chunk 16: {CIFAR_EPOCHS} "
+        f"epochs in {host_s:.2f} s on the host clock (build and initialize "
+        f"included); validation error by epoch, %: "
+        f"{[round(e, 2) for e in errors]} (eager, phase 7: "
+        f"{[round(e, 2) for e in eager['errors']]}); graph captures at "
+        f"each epoch's end {captures} (counter "
+        f"{metrics.graph_captures('train_region').value - before:.0f})")
+    expect_counts("cifar_graphed", launches, {
+        "lrn_forward_cifar1": steps, "lrn_forward_cifar2": steps,
+        "lrn_backward_cifar1": train, "lrn_backward_cifar2": train,
+        "softmax_argmax_cifar": steps})
+    expect_new_routes("cifar_graphed")
+    if len(set(captures)) != 1 or captures[0] != 3:
+        raise AssertionError(f"cifar_graphed: captures by epoch {captures}, "
+                             f"want one a key (3: test, validation, train) "
+                             f"and none after the first epoch")
+    best = wf.decision.min_validation_n_err_pt
+    if len(errors) != CIFAR_EPOCHS or not best < CIFAR_MAX_ERR_PT:
+        raise AssertionError(f"cifar_graphed: best validation error {best} "
+                             f"% (want < {CIFAR_MAX_ERR_PT} %)")
+
+    # the trajectory against phase 7's eager run, from its snapshot
+    snapshot, straight = eager["snapshot"], eager["straight"]
+    worst = {}
+    for name, chunk in (("graphed_steps", ()), ("graphed_chunks",
+                                                ("--chunk", "16"))):
+        resumed, _, _, firsts = cifar_cli(
+            os.path.join(tmp, name), "-s", snapshot, *chunk, "--root",
+            f"cifar.max_epochs={CIFAR_EPOCHS}")
+        rel, other = state_diff(straight,
+                                run_state(resumed.launcher.workflow))
+        step_errs = [] if chunk else [
+            max(state_diff(e, g)[0].values())
+            for e, g in zip(eager["steps"], firsts)]
+        other += [k for e, g in zip(eager["steps"] if not chunk else [],
+                                    firsts) for k in state_diff(e, g)[1]]
+        end = max(rel.values())
+        say(f"    {name}: after the first and second train step "
+            f"{[f'{v:.3g}' for v in step_errs] or 'not seen (chunks)'}, "
+            f"at the end worst {end:.3g}, counters that differ: "
+            f"{sorted(set(other))}")
+        if any(v > CIFAR_STEP_TOL for v in step_errs) \
+                or end > CIFAR_EPOCH_TOL or other \
+                or (not chunk and len(step_errs) != 2):
+            raise AssertionError(f"cifar_graphed: the {name} run leaves the "
+                                 f"eager one")
+        worst[name] = end
+
+    # timing on the graphed run's workflow: its train steps eager and
+    # graphed in turns, then 16 graphed steps a dispatch
+    loader, region = wf.loader, wf.region
+
+    def train_ahead(n):
+        """Step until the next n minibatches are train minibatches."""
+        while sum(1 for cls, _, _ in loader._schedule[loader._cursor:]
+                  if cls == TRAIN) < n \
+                or (loader._cursor < len(loader._schedule)
+                    and loader._schedule[loader._cursor][0] != TRAIN):
+            wf.step()
+
+    ab = ab_steps(wf, "cifar_graphed", 1, 8, train_ahead)
+    train_ahead(16)
+    for _ in range(16):
+        loader.run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    region.run_chunk(16)
+    b.record()
+    torch.cuda.synchronize()
+    chunk_ms = a.elapsed_time(b) / 16
+    say(f"  train step (B={CIFAR_BATCH}, f32) on {card}: "
+        + ab_line(ab, CIFAR_BATCH, "img/s")
+        + f"; 16 a dispatch {chunk_ms:.4f} ms "
+        f"({CIFAR_BATCH / chunk_ms * 1e3:.0f} img/s); phase 7's eager run "
+        f"{eager['step_ms']:.4f} ms (busy {pct(eager['busy'])})")
+    EAGER["cifar_ab"] = dict(ab, chunk_ms=chunk_ms)
+
+    path = os.path.join(tmp, "cifar.dot")
+    if Main().run(["cifar", "--dump-graph", path]) != 0:
+        raise AssertionError("cifar --dump-graph failed")
+    with open(path) as f:
+        dot = f.read()
+    say(f"  cifar --dump-graph: {len(dot.splitlines())} lines of DOT, "
+        f"train_region named: {'train_region' in dot}")
+    if "train_region\\nRegionUnit" not in dot:
+        raise AssertionError("the dumped graph names no region unit")
+    return launches
+
+
+def pct(share) -> str:
+    return "not measured" if share is None else f"{100 * share:.1f} %"
+
+
+def by_value(frozen: list):
+    """The planted fault of phase 8: ``dropout_apply`` with its seed
+    read on the host and passed by value, which a capture freezes."""
+    import torch
+    from znicz_tpu_torch.ops import fused_kernels as fk
+
+    def dropout_apply(x, seed, ratio):
+        if not torch.cuda.is_current_stream_capturing():
+            frozen[:] = [int(seed)]
+        return fk.dropout_apply(x, frozen[0], ratio)
+    return dropout_apply
+
+
+#: the trajectory of a graphed run against an eager one on the card, from
+#: one seed: each state tensor (parameters, momentum, the evaluator's
+#: sums) after GRAPH_STEPS steps, the first the capture's warm-up and the
+#: others replays, as ‖graphed − eager‖ / ‖eager‖.  The two run the same
+#: kernels in the same order and differ only where a kernel adds with
+#: atomics (cuDNN's filter gradient), in the last f32 bits of a sum; a
+#: bf16 store (activations, momentum) turns that at worst into one
+#: rounding step of an element, so 2⁻⁸ of a tensor's norm bounds it.
+#: The counters must be equal.  A planted fault, the head's update left
+#: out of the capture, must fail the check.
+GRAPH_STEPS, GRAPH_TOL_BF16 = 3, 2.0 ** -8
+
+
+def frozen_update(wf) -> None:
+    """The planted fault: the last unit's gradient step (the head's GD,
+    the first of the backward) runs eagerly but is left out of the
+    capture, so its parameters do not move on a replay and the GDs
+    after it read the error the warm-up left."""
+    import torch
+    gd = wf.gds[-1]
+    device_run = gd.device_run
+
+    def skipped_in_capture():
+        if not torch.cuda.is_current_stream_capturing():
+            device_run()
+    gd.device_run = skipped_in_capture
+
+
+def graphed_vs_eager(make, path: str) -> float:
+    """GRAPH_STEPS steps of ``make()`` eager, then of a second ``make()``
+    graphed, then of a third graphed with :func:`frozen_update` planted;
+    each graphed state held to the eager one (GRAPH_TOL_BF16, counters
+    equal).  Returns the worst distance of the true graphed run."""
+    import torch
+    states = {}
+    for mode in ("eager", "graphed", "planted"):
+        set_graphs(mode != "eager")
+        wf = make()
+        if mode == "planted":
+            frozen_update(wf)
+        for _ in range(GRAPH_STEPS):
+            wf.step()
+        torch.cuda.synchronize()
+        if mode != "eager" and wf.region.captures != 1:
+            raise AssertionError(f"{path}: {wf.region.captures} captures")
+        states[mode] = run_state(wf)
+        del wf
+    set_graphs(True)
+    worst = {}
+    for mode, how in (("graphed", ""), ("planted", ", the head update "
+                                        "left out of the capture")):
+        rel, other = state_diff(states["eager"], states[mode])
+        name = max(rel, key=rel.get)
+        worst[mode] = (rel[name], other)
+        say(f"  {path}: {GRAPH_STEPS} steps graphed (a warm-up, then "
+            f"replays{how}) against eager from one seed: worst "
+            f"‖graphed − eager‖ / "
+            f"‖eager‖ {rel[name]:.3g} ({name}; tol {GRAPH_TOL_BF16:.3g}), "
+            f"{sum(v == 0.0 for v in rel.values())} of {len(rel)} tensors "
+            f"bit-equal, counters that differ: {sorted(other)}")
+    if worst["graphed"][0] > GRAPH_TOL_BF16 or worst["graphed"][1]:
+        raise AssertionError(f"{path}: the graphed run leaves the eager one")
+    if worst["planted"][0] <= GRAPH_TOL_BF16 and not worst["planted"][1]:
+        raise AssertionError(f"{path}: the trajectory check passes an update "
+                             f"left out of the capture")
+    say(f"  {path}: planted fault (the head update left out of the "
+        f"capture) caught")
+    return worst["graphed"][0]
+
+
+def alexnet_graphed(card: str) -> dict:
+    """AlexNet at B=128 with its region graphed: B1–B4 counts, the step
+    beside phase 5's eager one; each step's dropout seed that of phase
+    5's eager step, the masks of consecutive steps different, and each
+    output zero wherever the step's mask drops; the same check must
+    catch a planted fault (the seed passed by value, frozen in the
+    capture)."""
+    import torch
+    from znicz_tpu_torch.ops import dropout as dropout_mod
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    eager = EAGER["alexnet"]
+    warmup, steps = 2, 10
+    n = warmup + steps
+
+    def masks_check(wf, k: int) -> tuple[bool, bool, list]:
+        """``k`` steps: (seeds = eager's, every output consistent with
+        its step's mask and masks differ step to step, the seeds)."""
+        units = [u for u in wf.forwards
+                 if type(u).__name__ == "DropoutForward"]
+        seeds, consistent, prev = [], True, None
+        for _ in range(k):
+            wf.step()
+            step = [int(u.seed) for u in units]
+            seeds.append(step)
+            masks = [fk.dropout_apply(torch.ones_like(u.output), u.seed,
+                                      u.dropout_ratio) != 0 for u in units]
+            for u, m in zip(units, masks):
+                consistent &= not bool(((u.output != 0) & ~m).any())
+            if prev is not None:
+                consistent &= all(not torch.equal(a, b)
+                                  for a, b in zip(prev, masks))
+            prev = masks
+        return seeds == eager["seeds"][:k], consistent, seeds
+
+    wf = make_alexnet(ALEX_BATCH, n * ALEX_BATCH)
+    reset_counts()
+    timed_steps(wf, warmup, steps)
+    launches = read_counts()
+    expect_counts("alexnet_graphed", launches, {
+        "lrn_forward": n, "lrn_forward_conv2": n, "lrn_backward": n,
+        "lrn_backward_conv2": n, "dropout_apply": 4 * n,
+        "softmax_argmax": n})
+    expect_new_routes("alexnet_graphed")
+    captures = wf.region.captures
+    ab = ab_steps(wf, "alexnet_graphed", warmup, steps)
+    say(f"  AlexNet B={ALEX_BATCH} bf16 on {card}: "
+        + ab_line(ab, ALEX_BATCH, "img/s")
+        + f"; {captures} capture(s); phase 5's eager run "
+        f"{eager['step_ms']:.3f} ms (busy {pct(eager['busy'])})")
+    EAGER["alexnet_ab"] = ab
+    if captures != 1 or wf.region.captures != 1:
+        raise AssertionError(f"alexnet_graphed: {wf.region.captures} "
+                             f"captures")
+    del wf
+    EAGER["alexnet_ab"]["trajectory"] = graphed_vs_eager(
+        lambda: make_alexnet(ALEX_BATCH, n * ALEX_BATCH), "alexnet_graphed")
+    k = 4
+    same, consistent, seeds = masks_check(
+        make_alexnet(ALEX_BATCH, n * ALEX_BATCH), k)
+    say(f"  dropout over {k} graphed steps (a warm-up, then replays): seeds "
+        f"= phase 5's eager seeds {same}, outputs within their step's "
+        f"masks and masks new each step {consistent}")
+    if not (same and consistent):
+        raise AssertionError("alexnet_graphed: the graphed dropout masks "
+                             "are not the eager run's")
+    frozen = []
+    real = dropout_mod.dropout_apply
+    dropout_mod.dropout_apply = by_value(frozen)
+    try:
+        _, consistent, _ = masks_check(
+            make_alexnet(ALEX_BATCH, n * ALEX_BATCH), k)
+    finally:
+        dropout_mod.dropout_apply = real
+    say(f"  planted fault (the seed passed by value, frozen in the "
+        f"capture): {'caught' if not consistent else 'not caught'}")
+    if consistent:
+        raise AssertionError("alexnet_graphed: the mask check passes a "
+                             "seed frozen in the capture")
+    return launches
+
+
+def seq_graphed(card: str) -> dict:
+    """The bf16 sequence stack of phase 4 graphed: B5–B9 launch counts,
+    the step beside phase 4's eager one."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.normal(0.0, 0.3, size=(4 * BATCH, SEQ, DIM))
+                         .astype(np.float32)).to(torch.bfloat16)
+    y = rng.integers(0, CLASSES, size=4 * BATCH).astype(np.int32)
+    wf = make_trainer(x, y, BATCH)
+    reset_counts()
+    warmup, steps = 2, 10
+    timed_steps(wf, warmup, steps)
+    launches = read_counts()
+    n = warmup + steps
+    expect_counts("seq_graphed", launches, {
+        **{f"flash_attention_{k}": n for k in ("fwd", "dq", "dkv")},
+        "layer_norm_forward": n, "layer_norm_backward": n,
+        "softmax_argmax_small": n})
+    expect_ln_register("seq_graphed")
+    expect_new_routes("seq_graphed")
+    ab = ab_steps(wf, "seq_graphed", warmup, steps)
+    eager = EAGER["seq_bfloat16"]
+    say(f"  sequence stack (B={BATCH}, T={SEQ}, D={DIM}, bf16) on {card}: "
+        + ab_line(ab, BATCH * SEQ, "tokens/s")
+        + f"; {wf.region.captures} capture(s); phase 4's eager run "
+        f"{eager['step_ms']:.3f} ms (busy {pct(eager['busy'])})")
+    EAGER["seq_ab"] = ab
+    if wf.region.captures != 1:
+        raise AssertionError(f"seq_graphed: {wf.region.captures} captures")
+    del wf
+    ab["trajectory"] = graphed_vs_eager(lambda: make_trainer(x, y, BATCH),
+                                        "seq_graphed")
     return launches
 
 
@@ -2256,6 +2770,8 @@ def main() -> int:
                                               fk.layer_norm_forward,
                                               fk.softmax_argmax))
 
+    # phases 4–7: the regions eager, as before the port had CUDA graphs
+    set_graphs(False)
     say("phase 4: full-width bf16 training through StandardWorkflow")
     paths["training"] = train_slice()
 
@@ -2277,6 +2793,14 @@ def main() -> int:
     say("phase 7: CIFAR-10 through python -m znicz_tpu_torch, with "
         "snapshots and resume")
     paths["cifar"] = cifar_pass()
+
+    say("phase 8: the three training paths with their regions as CUDA "
+        "graphs")
+    set_graphs(True)
+    paths["cifar_graphed"] = cifar_graphed(smi)
+    set_graphs(True)
+    paths["alexnet_graphed"] = alexnet_graphed(smi)
+    paths["seq_graphed"] = seq_graphed(smi)
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -247,8 +247,6 @@ def test_listen_master_exclusive():
     (["--optimize", "2x4"], "A13"),
     (["--root", "attention_seq.learning_rate=Tune(0.1, 0.01, 1.0)"], "A13"),
     (["--web-status", "0"], "A12"),
-    (["--chunk", "4"], "A1"),
-    (["--dump-graph", "graph.dot"], "A1"),
 ])
 def test_an_unported_flag_names_its_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError,

@@ -68,11 +68,16 @@ def time_checkout(root: str) -> None:
                lambda: fk.softmax_argmax(v))
         report("torch.softmax", name, (rows, c), "float32",
                lambda: torch.softmax(v, dim=1))
+    # a checkout whose kernel reads its seed from device memory gets it
+    # as a device tensor, as its training path passes it (an int would
+    # add a fill kernel to every call)
+    seed = (fk.seed_tensor(SEED, "cuda") if hasattr(fk, "seed_tensor")
+            else SEED)
     for name, (shape, dtype_name) in DROPOUT_SHAPES.items():
         x = torch.randn(*shape, generator=gen, device="cuda").to(
             getattr(torch, dtype_name))
         report("dropout_apply", name, shape, dtype_name,
-               lambda: fk.dropout_apply(x, SEED, 0.5))
+               lambda: fk.dropout_apply(x, seed, 0.5))
         report("F.dropout", name, shape, dtype_name,
                lambda: F.dropout(x, 0.5, training=True))
     lib = fk._lib("dropout")

@@ -12,11 +12,17 @@ path, a dotted module name or a bare sample name (``cifar`` →
     python -m znicz_tpu_torch cifar                       # on the card
     python -m znicz_tpu_torch cifar -b cpu --root cifar.max_epochs=1
     python -m znicz_tpu_torch cifar -s <snapshot.pickle.gz>  # resume
+    python -m znicz_tpu_torch cifar --chunk 16            # 16 steps a dispatch
+    python -m znicz_tpu_torch cifar --dump-graph cifar.dot
 
 ``-b/--backend`` takes ``cuda`` (the default: the card, an error when
-there is none) or ``cpu``.  The reference's multi-process, search,
-dashboard, chunked-step and graph flags are in the parser and raise,
-naming the ROADMAP item that ports them.
+there is none) or ``cpu``.  ``--chunk N`` trains through
+``run_chunked(N)`` (N steps a region dispatch: on the card, N replays
+of the step's CUDA graph).  ``--dump-graph FILE`` builds and
+initializes the workflow on the device, writes its unit graph as
+Graphviz DOT (the ``train_region`` unit included) and exits without
+training.  The reference's multi-process, search and dashboard flags
+are in the parser and raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -46,8 +52,6 @@ UNPORTED_FLAGS = {
     "n_model": ("--n-model", "tensor parallelism", "A9"),
     "optimize": ("--optimize", "the genetic hyper-parameter search", "A13"),
     "web_status": ("--web-status", "the web status page", "A12"),
-    "chunk": ("--chunk", "chunked training steps", "A1"),
-    "dump_graph": ("--dump-graph", "the unit graph", "A1"),
 }
 
 
@@ -138,11 +142,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimize", metavar="GENSxPOP",
                    help="genetic hyper-parameter search (not ported)")
     p.add_argument("--chunk", type=int, metavar="N",
-                   help="train N steps per dispatch (not ported)")
+                   help="train N steps per region dispatch "
+                        "(StandardWorkflow.run_chunked)")
     p.add_argument("--n-model", type=int, metavar="M",
                    help="model-axis size (not ported)")
     p.add_argument("--dump-graph", metavar="FILE",
-                   help="write the workflow's graph (not ported)")
+                   help="initialize the workflow, write its unit graph as "
+                        "Graphviz DOT and exit")
     p.add_argument("--dry-run", action="store_true",
                    help="build and initialize only; do not train")
     p.add_argument("--list-samples", action="store_true",
@@ -179,9 +185,9 @@ class Main(Logger):
                        module.__name__)
             return 1
         launcher = Launcher(backend=args.backend, snapshot=args.snapshot,
-                            retries=args.retries)
+                            retries=args.retries, chunk=args.chunk)
         self.launcher = launcher  # for tests and embedding callers
-        if args.dry_run:
+        if args.dry_run or args.dump_graph:
             def initialize_only(**kwargs):
                 wf = launcher.workflow
                 wf.initialize(device=launcher.make_device(), **kwargs)
@@ -191,6 +197,10 @@ class Main(Logger):
                     launcher._snapshot_state = None
 
             run_fn(launcher._load, initialize_only)
+            if args.dump_graph:
+                with open(args.dump_graph, "w") as f:
+                    f.write(launcher.workflow.generate_graph())
+                self.info("graph → %s", args.dump_graph)
             return 0
         try:
             launcher.boot(run_fn)

@@ -7,6 +7,14 @@ plain versions of the kernels.  A caller that names no device gets the
 GPU, and an error when there is none: the port never falls back to
 the CPU on its own.
 
+:class:`Device` is the counterpart of the reference's ``Device`` on one
+device: :meth:`Device.create` gives a :class:`CudaDevice` (the card) or,
+asked for by name, a :class:`CpuDevice`; each moves
+:class:`~znicz_tpu_torch.memory.Vector` contents with :meth:`Device.put`
+and :meth:`Device.get` and waits for queued work with
+:meth:`Device.sync`.  Sharding over several cards waits for the
+parallel slice (ROADMAP A9).
+
 Numerics stated here, once for the whole package: a float32 matrix
 product stays float32 on the card (no TF32), as it is in the
 reference, and so does a float32 convolution through cuDNN.
@@ -14,7 +22,10 @@ reference, and so does a float32 convolution through cuDNN.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from znicz_tpu_torch.utils.config import root
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -56,3 +67,79 @@ def resolve_device(device=None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class Device:
+    """One device the workflow runs on (the reference's ``Device``).
+
+    ``torch_device`` is the ``torch.device``; :attr:`type` and ``str()``
+    are its own, so a caller may read a ``Device`` where
+    it read a ``torch.device`` before.  The compute dtype comes from
+    ``root.common.precision_type`` and ``precision_level`` from
+    ``root.common.precision_level``, as in the reference.  The port runs
+    every float32 product in float32 at every level (the numerics
+    stated above); the reference's levels pick a ``jax.lax.Precision``
+    for the TPU's products, which has no counterpart here, so the level
+    is kept and reported, and changes nothing.
+    """
+
+    backend = "abstract"
+
+    def __init__(self, device: torch.device) -> None:
+        self.torch_device = device
+        self.compute_dtype = torch_dtype(
+            root.common.get("precision_type", "float32"))
+        self.precision_level = int(root.common.get("precision_level", 0))
+
+    @staticmethod
+    def create(backend: str | None = None) -> "Device":
+        """The device of ``backend``: ``None`` or ``"cuda"`` is the card
+        (an error when there is none), ``"cpu"`` the host, a
+        ``torch.device`` or ``"cuda:N"`` that device."""
+        if isinstance(backend, Device):
+            return backend
+        dev = resolve_device(None if backend in (None, "cuda") else backend)
+        return CudaDevice(dev) if dev.type == "cuda" else CpuDevice(dev)
+
+    @property
+    def type(self) -> str:
+        return self.torch_device.type
+
+    def __str__(self) -> str:
+        return str(self.torch_device)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.torch_device})"
+
+    # -- the transfers Vector makes ---------------------------------------
+    def put(self, arr: np.ndarray) -> torch.Tensor:
+        """A new device tensor holding a copy of ``arr``."""
+        return torch.from_numpy(np.array(arr, copy=True)).to(
+            self.torch_device)
+
+    def get(self, tensor: torch.Tensor) -> np.ndarray:
+        """A host copy of ``tensor`` (bf16 as float32: numpy has no
+        bfloat16)."""
+        t = tensor.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+
+    def sync(self) -> None:
+        """Wait for the work queued on the device."""
+
+
+class CudaDevice(Device):
+    """The card."""
+
+    backend = "cuda"
+
+    def sync(self) -> None:
+        torch.cuda.synchronize(self.torch_device)
+
+
+class CpuDevice(Device):
+    """The host, asked for by name: the plain versions of the kernels,
+    no CUDA graphs."""
+
+    backend = "cpu"

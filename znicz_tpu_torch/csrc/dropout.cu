@@ -1,6 +1,11 @@
 // Dropout for Hopper (sm_90a): a counter-based random mask generated and
 // applied in one pass, y = keep ? x * scale : 0.
 //
+// The seed is read from device memory (a 64-bit word the caller's step
+// advances), not passed by value: a CUDA graph that captures the launch
+// then draws a new mask on every replay, where a seed passed by value
+// would be frozen into the graph and repeat one mask.
+//
 // Replaces: znicz_tpu/ops/pallas_kernels.py:_dropout_kernel (B3), reached
 // through dropout_apply (the dropout units' Pallas path): mask generation
 // and apply fused, no mask array in device memory, the backward
@@ -101,8 +106,12 @@ __device__ __forceinline__ void philox_bits8(unsigned long long i0,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dropout_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       long long n, uint32_t k0, uint32_t k1,
+                       long long n,
+                       const unsigned long long* __restrict__ seed,
                        long long threshold, float scale) {
+  const unsigned long long key = *seed;
+  const uint32_t k0 = static_cast<uint32_t>(key);
+  const uint32_t k1 = static_cast<uint32_t>(key >> 32);
   const long long runs = (n + 7) / 8;
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long run = static_cast<long long>(blockIdx.x) * THREADS +
@@ -135,8 +144,11 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   uint32_t k0, uint32_t k1, long long threshold,
-                   float scale) {
+                   const unsigned long long* __restrict__ seed,
+                   long long threshold, float scale) {
+  const unsigned long long key = *seed;
+  const uint32_t k0 = static_cast<uint32_t>(key);
+  const uint32_t k1 = static_cast<uint32_t>(key >> 32);
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
   for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
                      threadIdx.x;
@@ -148,7 +160,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T>
-int launch_vec(const void* x, void* y, long long n, uint32_t k0, uint32_t k1,
+int launch_vec(const void* x, void* y, long long n, const void* seed,
                long long threshold, float scale, cudaStream_t s) {
   int resident = 0;
   const cudaError_t e =
@@ -157,20 +169,20 @@ int launch_vec(const void* x, void* y, long long n, uint32_t k0, uint32_t k1,
   const long long want = ((n + 7) / 8 + THREADS - 1) / THREADS;
   const long long blocks = want < resident ? want : resident;
   dropout_vec_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, k0, k1, threshold,
-      scale);
+      static_cast<const T*>(x), static_cast<T*>(y), n,
+      static_cast<const unsigned long long*>(seed), threshold, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long n, uint32_t k0, uint32_t k1,
+int launch(const void* x, void* y, long long n, const void* seed,
            long long threshold, float scale, cudaStream_t s) {
   const long long want = (n + THREADS - 1) / THREADS;
   const unsigned blocks =
       static_cast<unsigned>(want < 132 * 32 ? want : 132 * 32);
   dropout_kernel<T><<<blocks, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, k0, k1, threshold,
-      scale);
+      static_cast<const T*>(x), static_cast<T*>(y), n,
+      static_cast<const unsigned long long*>(seed), threshold, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -179,35 +191,31 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // The general route.  x and y: contiguous, n elements, dtype 0 = f32, 1 =
-// bf16.  Returns the launch's cudaError_t (0 on success).
+// bf16; seed: the device address of the 64-bit key (low word k0, high word
+// k1).  Returns the launch's cudaError_t (0 on success).
 extern "C" int znicz_dropout(const void* x, void* y, long long n,
-                             unsigned long long seed, long long threshold,
+                             const void* seed, long long threshold,
                              float scale, int dtype, void* stream) {
   if (n <= 0) return cudaSuccess;
-  const uint32_t k0 = static_cast<uint32_t>(seed);
-  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch<float>(x, y, n, k0, k1, threshold, scale, s)
-             : launch<__nv_bfloat16>(x, y, n, k0, k1, threshold, scale, s);
+             ? launch<float>(x, y, n, seed, threshold, scale, s)
+             : launch<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
 }
 
 // The vector route: the arguments of znicz_dropout, with x and y on 16-byte
 // boundaries (cudaErrorInvalidValue otherwise).
 extern "C" int znicz_dropout_vec(const void* x, void* y, long long n,
-                                 unsigned long long seed, long long threshold,
+                                 const void* seed, long long threshold,
                                  float scale, int dtype, void* stream) {
   if (reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
-  const uint32_t k0 = static_cast<uint32_t>(seed);
-  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch_vec<float>(x, y, n, k0, k1, threshold, scale, s)
-             : launch_vec<__nv_bfloat16>(x, y, n, k0, k1, threshold, scale,
-                                         s);
+             ? launch_vec<float>(x, y, n, seed, threshold, scale, s)
+             : launch_vec<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
 }
 
 // One block of 32 threads of an empty kernel: the least time a launch

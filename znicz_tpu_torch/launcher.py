@@ -12,6 +12,9 @@ workflow on the device, loads the staged state and trains it.
   is none; the CPU only when ``backend="cpu"`` asks for it.
 - ``retries > 0``: a run that raises is started again, resuming from
   the workflow's newest snapshot (:meth:`latest_snapshot`).
+- ``chunk > 1``: the workflow trains through ``run_chunked(chunk)``,
+  up to ``chunk`` steps a region dispatch (on the card, replays of the
+  step's CUDA graph with no host work between them).
 - SIGINT and SIGTERM write the emergency snapshot
   ``<workflow name>_interrupted`` into ``root.common.dirs.snapshots``,
   then stop the workflow at the next step boundary; a second signal
@@ -47,7 +50,8 @@ class Launcher(Logger):
                  snapshot: str | None = None, retries: int = 0,
                  listen: str | None = None, master: str | None = None,
                  n_processes: int | None = None,
-                 process_id: int | None = None, n_model: int = 1) -> None:
+                 process_id: int | None = None, n_model: int = 1,
+                 chunk: int | None = None) -> None:
         super().__init__()
         if listen and master:
             raise ValueError("--listen and --master are exclusive")
@@ -63,6 +67,9 @@ class Launcher(Logger):
         self.backend = backend
         self.snapshot = snapshot
         self.retries = int(retries)
+        self.chunk = 1 if chunk is None else int(chunk)
+        if self.chunk < 1:
+            raise ValueError(f"chunk {chunk}: at least one step a dispatch")
         self.workflow = None
         self.device = None
         self._snapshot_state: dict | None = None
@@ -130,7 +137,10 @@ class Launcher(Logger):
             self._snapshot_state = None
         self._install_signal_handlers(workflow)
         try:
-            workflow.run()
+            if self.chunk > 1 and hasattr(workflow, "run_chunked"):
+                workflow.run_chunked(self.chunk)
+            else:
+                workflow.run()
         except KeyboardInterrupt:
             self._emergency_snapshot(workflow)
             raise

@@ -15,11 +15,13 @@
 - flags read by the decision unit: ``minibatch_class``,
   ``epoch_ended``, ``epoch_number``;
 - ``forward_mode``: "train" on train minibatches, "eval" otherwise,
-  which the workflow hands the stochastic units (dropout) each step, as
-  the reference links it into them.
+  linked (one way) into the stochastic units (dropout), as the
+  reference links it.
 
-The index picking is host work (:meth:`Loader.run`); the gather runs on
-the device (:mod:`znicz_tpu_torch.loader.fullbatch`).
+A loader is a unit.  The index picking is host work
+(:meth:`Loader.host_run`, which the workflow's graph fires before the
+region); the gather is the unit's device work, which runs in the
+training step's region (:mod:`znicz_tpu_torch.loader.fullbatch`).
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from znicz_tpu_torch.ops.nn_units import precision_dtypes
+from znicz_tpu_torch.accelerated_units import AcceleratedUnit
+from znicz_tpu_torch.mutable import Bool
 from znicz_tpu_torch.utils import prng
-from znicz_tpu_torch.utils.logger import Logger
 
 TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAME = {TEST: "test", VALID: "validation", TRAIN: "train"}
@@ -46,13 +48,17 @@ def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
     return gen.permutation(n).astype(np.int32)
 
 
-class Loader(Logger):
+class Loader(AcceleratedUnit):
     """Abstract minibatch provider.
 
     Subclasses implement :meth:`load_data` (set ``class_lengths`` and
-    the storage), :meth:`create_minibatch_data` and :meth:`gather`.
+    the storage), :meth:`create_minibatch_data` and the gather
+    (``device_run``).
     """
 
+    #: True for a loader whose schedule lives on the device, so that a
+    #: region step finds its minibatch itself (a run in chunks needs it)
+    device_schedule = False
     #: schedule state a snapshot carries (the reference's names)
     SNAPSHOT_ATTRS = ("epoch_number", "_cursor", "_shuffled",
                       "_shuffle_seed", "minibatch_class",
@@ -60,26 +66,27 @@ class Loader(Logger):
 
     def __init__(self, workflow=None, name: str | None = None,
                  minibatch_size: int = 100) -> None:
-        # ``workflow``: the reference's first argument (loader factories
-        # pass it); the port's loader needs nothing from it
-        super().__init__()
-        self.name = name or type(self).__name__
+        super().__init__(workflow, name=name)
         self.max_minibatch_size = int(minibatch_size)
-        self.device: torch.device | None = None
-        self.compute_dtype = torch.float32
-        #: this step's batch (activation storage dtype) and labels
+        #: this step's batch (activation storage dtype), labels, sample
+        #: indices and count of valid samples (a 0-d int64 device tensor:
+        #: the last minibatch of a class is short)
         self.minibatch_data: torch.Tensor | None = None
         self.minibatch_labels: torch.Tensor | None = None
+        self.minibatch_indices: torch.Tensor | None = None
+        self.minibatch_valid: torch.Tensor | None = None
         self.class_lengths = [0, 0, 0]
         self.epoch_number = 0
         self.minibatch_class = TRAIN
         self.minibatch_size = 0          # true sample count this step
         self.minibatch_offset = 0
-        self.epoch_ended = False
+        self.epoch_ended = Bool(False)
         self._schedule: list[tuple[int, int, int]] = []  # (class, lo, hi)
         self._cursor = 0
         self._shuffled: np.ndarray | None = None
         self._shuffle_seed = 0
+        #: the device copies of the schedule need writing
+        self._sched_dirty = True
 
     # ------------------------------------------------------------------
     @property
@@ -100,10 +107,6 @@ class Loader(Logger):
         return lo, lo + self.class_lengths[cls]
 
     @property
-    def act_store_dtype(self) -> torch.dtype:
-        return precision_dtypes(self.compute_dtype)[1]
-
-    @property
     def forward_mode(self) -> str:
         """"train" on train minibatches, else "eval"."""
         return "train" if self.minibatch_class == TRAIN else "eval"
@@ -115,17 +118,14 @@ class Loader(Logger):
     def create_minibatch_data(self) -> None:
         raise NotImplementedError
 
-    def gather(self, lo: int, hi: int) -> None:
-        """Fill this step's ``minibatch_data``/``minibatch_labels`` with
-        the samples at positions ``lo..hi`` of the epoch order, padded
-        to the minibatch size by repeating the first."""
-        raise NotImplementedError
-
     # ------------------------------------------------------------------
-    def initialize(self, device: torch.device,
-                   compute_dtype: torch.dtype) -> None:
-        self.device = device
-        self.compute_dtype = compute_dtype
+    def initialize(self, device=None, compute_dtype: torch.dtype
+                   | None = None, **kwargs) -> None:
+        """Attach to ``device`` (the workflow's when None), load the data
+        and draw the shuffle seed.  The dtype of the stored batch
+        follows ``compute_dtype``, else the device's precision mode."""
+        super().initialize(device=device, **kwargs)
+        self.compute_dtype = compute_dtype or self.device.compute_dtype
         self.load_data()
         if self.total_samples == 0:
             raise ValueError(f"{self.name}: load_data produced no samples")
@@ -139,6 +139,10 @@ class Loader(Logger):
         self._shuffled = np.arange(self.total_samples, dtype=np.int32)
         self._cursor = 0
         self._shuffle_train()
+        self.init_schedule()
+
+    def init_schedule(self) -> None:
+        """Hook: put the schedule on the device."""
 
     def _build_schedule(self) -> None:
         self._schedule = []
@@ -154,12 +158,9 @@ class Loader(Logger):
         if hi > lo:
             self._shuffled[lo:hi] = lo + epoch_permutation(
                 self._shuffle_seed, self.epoch_number, hi - lo)
-            self.on_shuffled()
+            self._sched_dirty = True  # the device copy is stale
 
-    def on_shuffled(self) -> None:
-        """Hook: the order changed (a device copy is stale)."""
-
-    def state_dict(self) -> dict:
+    def state_dict(self, allow_collective: bool = False) -> dict:
         return {name: (np.array(getattr(self, name)) if name == "_shuffled"
                        else getattr(self, name))
                 for name in self.SNAPSHOT_ATTRS}
@@ -172,11 +173,12 @@ class Loader(Logger):
                 value = state[name]
                 setattr(self, name, np.array(value, dtype=np.int32)
                         if name == "_shuffled" else int(value))
-        self.on_shuffled()
+        self._sched_dirty = True  # the device copies are stale
 
     # -- per-step control plane -------------------------------------------
-    def run(self) -> None:
-        """Pick the next minibatch of the schedule and gather it."""
+    def host_run(self) -> None:
+        """Pick the next minibatch of the schedule (the gather is the
+        device work)."""
         if self._cursor >= len(self._schedule):
             # the previous step ended the epoch; begin the next one
             self._cursor = 0
@@ -187,5 +189,9 @@ class Loader(Logger):
         self.minibatch_class = cls
         self.minibatch_size = hi - lo
         self.minibatch_offset = lo
-        self.epoch_ended = self._cursor >= len(self._schedule)
-        self.gather(lo, hi)
+        self.epoch_ended.value = self._cursor >= len(self._schedule)
+        self.sync_schedule()
+
+    def sync_schedule(self) -> None:
+        """Hook: write what the device's copy of the schedule needs after
+        the pick (in place)."""

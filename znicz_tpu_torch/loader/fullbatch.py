@@ -14,11 +14,15 @@ the same pixel gives the same activation as in the reference, with no
 f32 pass over the batch between the uint8 gather and the stored
 activations (only the int32 index the lookup takes).  Other dtypes are
 normalized in f32 (two roundings: at most one f32 ulp from the
-reference's fused result).  The epoch order
-lives on the device too and is uploaded once per shuffle, so a step
-moves no indices from the host: it gathers
-``order[lo:hi]`` (padded by repeating the first index) straight from
-the resident copy.
+reference's fused result).
+
+The schedule lives on the device (the reference's ``device_schedule``):
+the epoch order, each minibatch's start and count, and a cursor, from
+which the gather indexes.  A step moves no index from the host, and a
+captured CUDA graph, which reads no host value, finds each step's
+minibatch by itself.  The host writes the order into its tensor once a
+shuffle and the cursor once a resume, in place (:class:`Vector`'s
+rule), so the graph sees them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from znicz_tpu_torch.loader.base import TEST, TRAIN, VALID, Loader
+from znicz_tpu_torch.memory import Vector
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -44,6 +49,8 @@ class FullBatchLoader(Loader):
     test, validation, train along axis 0.
     """
 
+    device_schedule = True
+
     def __init__(self, workflow=None,
                  normalization_scale: float | None = None,
                  normalization_bias: float = 0.0, **kwargs) -> None:
@@ -52,35 +59,73 @@ class FullBatchLoader(Loader):
         self.normalization_bias = normalization_bias
         self.original_data: torch.Tensor | None = None
         self.original_labels: torch.Tensor | None = None
-        #: the epoch order on the device (refreshed by each shuffle)
-        self._order: torch.Tensor | None = None
         #: a uint8 dataset's normalized values, by pixel value
         self._table: torch.Tensor | None = None
+        #: the schedule on the device: the epoch order, each entry's start
+        #: and count, the cursor at the entry the last step gathered
+        self.sched_perm = Vector(name=f"{self.name}.sched_perm")
+        self.sched_starts = Vector(name=f"{self.name}.sched_starts")
+        self.sched_counts = Vector(name=f"{self.name}.sched_counts")
+        self.sched_cursor = Vector(name=f"{self.name}.sched_cursor")
+
+    @property
+    def _order(self) -> torch.Tensor:
+        """The epoch order on the device."""
+        return self.sched_perm.devmem
 
     @property
     def sample_shape(self) -> tuple:
         return tuple(self.original_data.shape[1:])
 
     def create_minibatch_data(self) -> None:
-        self.original_data = self.original_data.to(self.device)
+        self.original_data = self.original_data.to(self.torch_device)
         if self.original_labels is not None:
-            self.original_labels = self.original_labels.to(self.device)
+            self.original_labels = self.original_labels.to(
+                self.torch_device)
         if self.normalization_scale is not None \
                 and self.original_data.dtype == torch.uint8:
             table = (np.arange(256, dtype=np.float64)
                      * np.float32(self.normalization_scale)
                      + np.float32(self.normalization_bias))
             self._table = torch.from_numpy(table.astype(np.float32)).to(
-                self.act_store_dtype).to(self.device)
+                self.act_store_dtype).to(self.torch_device)
 
-    def on_shuffled(self) -> None:
-        self._order = torch.from_numpy(self._shuffled).to(self.device)
+    # -- the schedule on the device ----------------------------------------
+    def init_schedule(self) -> None:
+        self.sched_perm.reset(self._shuffled.astype(np.int64))
+        self.sched_starts.reset(np.asarray(
+            [lo for _, lo, _ in self._schedule], dtype=np.int64))
+        self.sched_counts.reset(np.asarray(
+            [hi - lo for _, lo, hi in self._schedule], dtype=np.int64))
+        self.sched_cursor.reset(np.zeros((), dtype=np.int64))
+        self.init_vectors(self.sched_perm, self.sched_starts,
+                          self.sched_counts, self.sched_cursor)
+        self._sched_dirty = False  # just written
 
-    def gather(self, lo: int, hi: int) -> None:
-        idx = self._order[lo:hi]
-        pad = self.max_minibatch_size - (hi - lo)
-        if pad:  # the short tail repeats its first sample (masked)
-            idx = torch.cat([idx, idx[:1].expand(pad)])
+    def sync_schedule(self) -> None:
+        if not self._sched_dirty:
+            return
+        # once a shuffle or a resume: the order, and the cursor at the
+        # entry just picked; both written into their tensors in place
+        self.sched_perm.map_invalidate()
+        self.sched_perm.mem[...] = self._shuffled
+        self.sched_cursor.map_invalidate()
+        self.sched_cursor.mem[...] = self._cursor - 1
+        self.unmap_vectors(self.sched_perm, self.sched_cursor)
+        self._sched_dirty = False
+
+    # -- the gather (the unit's device work) ------------------------------
+    def device_run(self) -> None:
+        cursor = self.sched_cursor.devmem.view(1)
+        start = self.sched_starts.devmem.index_select(0, cursor)
+        count = self.sched_counts.devmem.index_select(0, cursor)
+        offs = torch.arange(self.max_minibatch_size, device=start.device)
+        # the short tail repeats its first sample (masked by count)
+        pos = start + torch.where(offs < count, offs, 0)
+        idx = self.sched_perm.devmem.index_select(0, pos)
+        self.sched_cursor.devmem = (cursor[0] + 1) % len(self._schedule)
+        self.minibatch_indices = idx
+        self.minibatch_valid = count[0]
         batch = self.original_data.index_select(0, idx)
         if self._table is not None:
             batch = self._table.index_select(

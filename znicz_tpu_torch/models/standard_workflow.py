@@ -4,69 +4,74 @@
 The constructor is the reference's: a ``loader_factory``, a ``layers``
 list of ``{"type": <name>, "->": {forward kwargs}, "<-": {gradient
 kwargs}}`` dicts, ``loss="softmax"``, a ``decision_config`` and a
-``snapshotter_config``.  So are the attributes ``forwards``, ``gds``,
-``loader``, ``evaluator``, ``decision`` and ``snapshotter``, and the
-entry points :meth:`initialize`, :meth:`run`, :meth:`stop`,
-:meth:`state_dict`, :meth:`load_state` and :meth:`export_forward`.
+``snapshotter_config``.  So are the builders (:meth:`link_forwards`,
+:meth:`link_evaluator`, :meth:`link_decision`, :meth:`link_gds`,
+:meth:`link_loop`, :meth:`link_snapshotter`), the unit names, and the
+graph they build from units joined by control links and gates:
 
-The reference's topology (start → repeater → loader → hot chain →
-decision → snapshotter on improvement → repeater, or end once the
-decision completes) is a plain Python loop here, :meth:`run`; its hot
-chain, which the reference compiles into one region program, is one
-eager :meth:`step`:
+.. code-block:: text
+
+    start → repeater → loader (host pick) → train_region → decision ─→ repeater
+                                                             ├─(improved)→ snapshotter
+                                                             └─(complete)→ end
+
+``train_region`` is a :class:`~znicz_tpu_torch.accelerated_units.RegionUnit`
+over the hot chain (:meth:`hot_chain_units`):
 
 .. code-block:: text
 
     loader gather → forwards → evaluator → backward units (train only)
 
-A train step runs the forwards with gradients enabled (the attention
-unit keeps its autograd graph for its backward unit, max pooling its
-winners) and the backward units from the last to the first.  Each
-backward unit gets its forward's input, the error at its output and
-its forward's output of this step (the conv and all2all flavors take
-their activation derivative from it); per-step state a forward keeps
-(the dropout seed) it reads from its forward unit.  Each computes its
-``err_input`` and gradients from the weights as they were before the
-step, then updates them in place.  Validation and test minibatches run
-the forwards and the evaluator only.  Before the forwards run, every
-unit with a ``forward_mode`` gets the loader's ("train" on a train
-minibatch, else "eval"), as the reference links it.
+On the card it replays a CUDA graph captured once per key (train,
+validation, test minibatches); on the CPU it runs the same members
+eagerly.  A train step runs the forwards with gradients enabled (the
+attention unit keeps its autograd graph for its backward unit, max
+pooling its winners) and the backward units from the last to the
+first, each gated on the minibatch class.  Each backward unit reads its
+forward's ``input`` and ``output`` and the ``err_output`` the unit after
+it wrote, computes its ``err_input`` and gradients from the weights as
+they were before the step, then updates them in place.  Stochastic
+units take ``forward_mode`` from the loader.
+
+:meth:`step` is one pass round the loop (from the repeater back to it),
+:meth:`run` steps until the decision completes or :meth:`stop` is
+called, and :meth:`run_chunked` runs up to ``steps_per_dispatch``
+steps of one class a region dispatch (``JitRegion.run_chunk``), with
+the same trajectory.  ``step(mark)`` runs the region's members eagerly
+and calls ``mark(unit_name)`` after each (per-unit timing).
 
 ``initialize()`` builds the units in the reference's order — the loader
 first (it draws the shuffle seed), then each forward's initial fill —
 so one :func:`~znicz_tpu_torch.utils.prng.seed_all` seed gives the same
-initial weights and sample order as the reference.  Units carry the
-reference's default names, so :meth:`load_state` reads the reference's
-``Workflow.state_dict()`` as it stands, and the reference reads this
-class's: a snapshot carries every unit's state, the decision's and the
-evaluator's counters included, so a resumed run goes on as the
-uninterrupted one would have.
+initial weights and sample order as the reference.  A snapshot
+(:meth:`state_dict`) carries every unit's state by the reference's unit
+names, so snapshots cross between the packages both ways.
 
-Not ported with it (later slices): the Veles unit graph, gates and
-``Vector`` buffers, the anomaly guard, learning-rate schedules, the
-chunked, accumulated and pipelined training loops and the MSE loss.
+Not ported with it (later slices): the anomaly guard, learning-rate
+schedules, the accumulated and pipelined training loops and the MSE
+loss.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Any, Callable, Sequence
 
-import numpy as np
 import torch
 
-from znicz_tpu_torch.backends import resolve_device, torch_dtype
+from znicz_tpu_torch.accelerated_units import AcceleratedWorkflow, RegionUnit
 from znicz_tpu_torch.loader.base import TRAIN, Loader
 from znicz_tpu_torch.models.layers import layer_type
+from znicz_tpu_torch.mutable import Bool
+from znicz_tpu_torch.observe import tracing as _tracing
 from znicz_tpu_torch.ops.decision import DecisionGD
 from znicz_tpu_torch.ops.evaluator import EvaluatorSoftmax
 from znicz_tpu_torch.ops.nn_units import gd_for
-from znicz_tpu_torch.utils import prng
-from znicz_tpu_torch.utils.config import root
-from znicz_tpu_torch.utils.logger import Logger
+from znicz_tpu_torch.units import Repeater
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
 
 
-class StandardWorkflow(Logger):
+class StandardWorkflow(AcceleratedWorkflow):
     """Declarative training workflow.
 
     Parameters
@@ -84,14 +89,14 @@ class StandardWorkflow(Logger):
         (``None``: no snapshots).
     """
 
-    def __init__(self, name: str | None = None,
+    def __init__(self, workflow=None, name: str | None = None,
                  loader_factory: Callable[["StandardWorkflow"], Loader]
                  | None = None,
                  layers: Sequence[dict] = (),
                  loss: str = "softmax",
                  decision_config: dict[str, Any] | None = None,
-                 snapshotter_config: dict[str, Any] | None = None) -> None:
-        super().__init__()
+                 snapshotter_config: dict[str, Any] | None = None,
+                 **kwargs) -> None:
         if loader_factory is None:
             raise ValueError("loader_factory is required")
         if loss != "softmax":
@@ -100,168 +105,244 @@ class StandardWorkflow(Logger):
         if not layers or layers[-1]["type"] != "softmax":
             raise ValueError("a softmax workflow ends with a 'softmax' "
                              "layer")
-        self.name = name or type(self).__name__
+        super().__init__(workflow, name=name, **kwargs)
         self.layers_config = list(layers)
         self.loss = loss
+        self.compute_dtype = torch.float32
+        self.repeater = Repeater(self, name="repeater")
         self.loader = loader_factory(self)
         if not isinstance(self.loader, Loader):
             raise TypeError(f"loader_factory gave {type(self.loader)}")
-        self.decision = DecisionGD(**(decision_config or {}))
         self.forwards = torch.nn.ModuleList()
         self.gds = torch.nn.ModuleList()
-        self.evaluator: EvaluatorSoftmax | None = None
-        self.device: torch.device | None = None
-        self.compute_dtype = torch.float32
+        self.link_forwards()
+        self.link_evaluator()
+        self.link_decision(**(decision_config or {}))
+        self.link_gds()
+        self.link_loop()
         self.snapshotter: Snapshotter | None = None
         if snapshotter_config is not None:
-            self.snapshotter = Snapshotter(self, **snapshotter_config)
-            self.snapshotter.decision = self.decision
-        self._stop_requested = False
+            self.link_snapshotter(**snapshotter_config)
+        self._region_unit: RegionUnit | None = None
 
-    @property
-    def is_initialized(self) -> bool:
-        return self.evaluator is not None
-
-    # ------------------------------------------------------------------
-    def initialize(self, device=None) -> None:
-        """Resolve the device (``None`` → the current GPU, raising when
-        there is none; ``"cpu"`` only when asked), then build and fill
-        every unit.  The precision mode is
-        ``root.common.precision_type``, as in the reference."""
-        self.device = resolve_device(device)
-        self.compute_dtype = torch_dtype(root.common.precision_type)
-        self.loader.initialize(self.device, self.compute_dtype)
-        names = {self.loader.name}
-
-        def unique(name: str) -> str:
-            # the reference's Container.add_ref naming: the class name,
-            # then _2, _3, … for repeats
-            if name in names:
-                i = 2
-                while f"{name}_{i}" in names:
-                    i += 1
-                name = f"{name}_{i}"
-            names.add(name)
-            return name
-
-        shape = self.loader.sample_shape
+    # -- builders (the reference's) ----------------------------------------
+    def link_forwards(self) -> None:
+        prev = None
         for spec in self.layers_config:
-            unit = layer_type(spec["type"])(shape, self.compute_dtype,
+            unit = layer_type(spec["type"])(workflow=self,
                                             **dict(spec.get("->", {})))
-            unit.name = unique(type(unit).__name__)
-            unit.init_params(self.device)
+            if prev is None:
+                unit.link_attrs(self.loader, ("input", "minibatch_data"))
+            else:
+                unit.link_attrs(prev, ("input", "output"))
+            if "forward_mode" in unit.__dict__:  # stochastic units track
+                unit.link_attrs(self.loader, "forward_mode",
+                                two_way=False)  # the minibatch class
             self.forwards.append(unit)
-            shape = unit.output_shape
-        self.evaluator = EvaluatorSoftmax(self.device)
+            prev = unit
+
+    def link_evaluator(self) -> None:
+        ev = EvaluatorSoftmax(self, name="evaluator")
+        ev.link_attrs(self.forwards[-1], "output", "max_idx")
+        ev.link_attrs(self.loader, ("labels", "minibatch_labels"),
+                      "minibatch_valid", "minibatch_class")
+        self.evaluator = ev
+
+    def link_decision(self, **config) -> None:
+        self.decision = DecisionGD(self, name="decision", **config)
         self.decision.loader = self.loader
         self.decision.evaluator = self.evaluator
+
+    def link_gds(self) -> None:
+        """The backward chain through the forward↔backward pairing
+        registry, built from the last layer to the first."""
         gds = []
-        for i, fwd in reversed(list(enumerate(self.forwards))):
-            unit = gd_for(type(fwd))(fwd, need_err_input=i > 0,
-                                     **self.layers_config[i].get("<-", {}))
-            unit.name = unique(type(unit).__name__)
+        next_gd = None
+        for i, fwd in enumerate(reversed(self.forwards)):
+            spec = self.layers_config[len(self.forwards) - 1 - i]
+            unit = gd_for(type(fwd))(
+                fwd, workflow=self,
+                need_err_input=(i != len(self.forwards) - 1),
+                **spec.get("<-", {}))
+            unit.link_attrs(fwd, "input", "output")
+            if next_gd is None:
+                unit.link_attrs(self.evaluator, "err_output")
+            else:
+                unit.link_attrs(next_gd, ("err_output", "err_input"))
+            # train minibatches only
+            unit.gate_skip = Bool._derived(
+                lambda: self.loader.minibatch_class != TRAIN)
             gds.append(unit)
+            next_gd = unit
         self.gds.extend(reversed(gds))
 
-    # ------------------------------------------------------------------
-    def step(self, mark: Callable[[str], None] | None = None) -> None:
-        """One minibatch: gather, forwards, evaluator, and on a train
-        minibatch the backward units; then the decision's bookkeeping.
-        ``mark``, when given, is called with each unit's name just after
-        the unit has queued its work (a caller that records a CUDA event
-        there times each unit on the device)."""
-        done = mark or (lambda name: None)
-        loader = self.loader
-        loader.run()
-        done(loader.name)
-        train = loader.minibatch_class == TRAIN
+    def link_loop(self) -> None:
+        """The training loop's control flow."""
+        decision = self.decision
+        self.repeater.link_from(self.start_point)
+        self.loader.link_from(self.repeater)
+        decision.link_from(self._link_hot_chain(self.loader))
+        self.repeater.link_from(decision)
+        self.repeater.gate_block = Bool._derived(lambda: decision.complete)
+        self.end_point.link_from(decision)
+        self.end_point.gate_block = Bool._derived(
+            lambda: not decision.complete)
+
+    def _link_hot_chain(self, after):
+        """The hot chain unit by unit; :meth:`initialize` puts the region
+        in its place."""
+        prev = after
         for fwd in self.forwards:
-            if hasattr(fwd, "forward_mode"):
-                fwd.forward_mode = loader.forward_mode
-        acts = [loader.minibatch_data]
-        with torch.set_grad_enabled(train):
-            for fwd in self.forwards[:-1]:
-                acts.append(fwd(acts[-1]))
-                done(fwd.name)
-            probs, max_idx = self.forwards[-1].classify(acts[-1])
-            done(self.forwards[-1].name)
-        err = self.evaluator.run(probs, max_idx, loader.minibatch_labels,
-                                 loader.minibatch_size,
-                                 loader.minibatch_class)
-        done(self.evaluator.name)
-        if train:
-            outs = acts[1:] + [probs]
-            for gd, x, y in zip(reversed(self.gds), reversed(acts),
-                                reversed(outs)):
-                err = gd.run(x, err, y)
-                done(gd.name)
-        self.decision.run()
+            fwd.link_from(prev)
+            prev = fwd
+        self.evaluator.link_from(prev)
+        prev = self.evaluator
+        for gd_unit in reversed(self.gds):
+            gd_unit.link_from(prev)
+            prev = gd_unit
+        return prev
+
+    def _relink_end_point_last(self) -> None:
+        """Keep ``end_point`` the decision's last successor, so a side
+        unit still fires on the last epoch."""
+        if self.decision in self.end_point.links_from:
+            self.end_point.unlink_from(self.decision)
+            self.end_point.link_from(self.decision)
+
+    def link_snapshotter(self, **config) -> None:
+        decision = self.decision
+        self.snapshotter = Snapshotter(self, name="snapshotter", **config)
+        self.snapshotter.decision = decision
+        self.snapshotter.link_from(decision)
+        self._relink_end_point_last()
+        self.snapshotter.gate_skip = Bool._derived(
+            lambda: not decision.improved)
+
+    def hot_chain_units(self) -> list:
+        """The per-minibatch hot chain in the region's order."""
+        return [self.loader, *self.forwards, self.evaluator,
+                *reversed(self.gds)]
+
+    # -- lifecycle ------------------------------------------------------------
+    def initialize(self, device=None, **kwargs) -> None:
+        """Resolve the device (``None`` → the current GPU, raising when
+        there is none; ``"cpu"`` only when asked), then initialize every
+        unit and put the region in the hot chain's place.  The
+        precision mode is ``root.common.precision_type``, as in the
+        reference."""
+        super().initialize(device=device, **kwargs)
+        self.compute_dtype = self.device.compute_dtype
+        if self._region_unit is None:
+            self._compile_region()
+
+    def _compile_region(self) -> None:
+        """Swap the hot chain for one region unit."""
+        region = RegionUnit(self, self.hot_chain_units(),
+                            name="train_region")
+        region.initialize(device=self.device)
+        region._initialized = True
+        self.decision.unlink_from(self.gds[0] if self.gds
+                                  else self.evaluator)
+        self.forwards[0].unlink_from(self.loader)
+        region.link_from(self.loader)
+        self.decision.link_from(region)
+        self._region_unit = region
+
+    @property
+    def region(self):
+        """The training step's :class:`JitRegion` (after initialize)."""
+        return None if self._region_unit is None \
+            else self._region_unit.region
+
+    # -- running -----------------------------------------------------------------
+    def step(self, mark: Callable[[str], None] | None = None) -> None:
+        """One pass round the loop: the loader's pick, the region, the
+        decision's bookkeeping, the snapshotter when the decision raised
+        ``improved``.  ``mark``, when given, makes the region run its
+        members eagerly and is called with each member's name just after
+        it queued its work (a caller that records a CUDA event there
+        times each unit on the device)."""
+        region = self.region
+        if region is None:
+            raise RuntimeError(f"workflow '{self.name}' not initialized")
+        self._finished = False
+        region.mark = mark
+        try:
+            self._drain(deque(self.repeater.links_to),
+                        pause_at=self.repeater, honor_stop=False)
+        finally:
+            region.mark = None
 
     def run(self) -> None:
-        """Train until the decision unit completes or :meth:`stop` is
-        called; after each step on which the decision raised
-        ``improved``, fire the snapshotter."""
-        if not self.is_initialized:
+        """Step until the decision completes or :meth:`stop` is called
+        (checked between steps)."""
+        queue = self._begin_run()
+        self._drain(queue, pause_at=self.repeater)
+        with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow"):
+            while not (self._finished or self.stopped
+                       or self.decision.complete):
+                self.step()
+        self.on_workflow_finished()
+
+    def run_chunked(self, steps_per_dispatch: int = 32) -> None:
+        """Up to ``steps_per_dispatch`` steps a region dispatch
+        (``JitRegion.run_chunk``: a captured step's graph replayed with
+        no host work between), with :meth:`run`'s trajectory: the
+        loader's device schedule gives each step its minibatch, the seed
+        chains and the evaluator's sums advance on the device.  A chunk
+        never crosses a class segment or an epoch, so the decision and
+        the units after it (the snapshotter) fire where they would.
+        With one step a dispatch, or a loader whose schedule is not on
+        the device, this is :meth:`run`."""
+        region = self.region
+        loader = self.loader
+        if region is None:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
-        self._stop_requested = False
-        while not self.decision.complete and not self._stop_requested:
-            self.step()
-            if self.snapshotter is not None and self.decision.improved:
-                self.snapshotter.run()
+        if steps_per_dispatch <= 1 or not loader.device_schedule:
+            return self.run()
+        decision = self.decision
+        side_units = [u for u in decision.links_to
+                      if u is not self.repeater and u is not self.end_point]
+        self._begin_run()
+        chunks = 0
+        with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow",
+                                  chunk=steps_per_dispatch):
+            while not decision.complete and not self.stopped:
+                loader.run()  # the host's pick (the gather is the region's)
+                cls = loader.minibatch_class
+                k = 1
+                while (k < steps_per_dispatch and not loader.epoch_ended
+                       and loader._schedule[loader._cursor][0] == cls):
+                    loader.run()
+                    k += 1
+                region.run_chunk(k)
+                decision._fire()
+                for unit in side_units:
+                    if not unit.gate_block and not unit.gate_skip:
+                        unit._fire()
+                chunks += 1
+                if self._max_fires is not None and chunks > self._max_fires:
+                    raise RuntimeError(
+                        f"workflow '{self.name}' exceeded max_fires="
+                        f"{self._max_fires} chunks (runaway loop?)")
+        self.on_workflow_finished()
 
-    def stop(self) -> None:
-        """Make :meth:`run` return at the next step boundary."""
-        self._stop_requested = True
-
-    # -- state -------------------------------------------------------------
-    def _param_units(self):
-        return [*self.forwards, *self.gds]
-
-    def state_dict(self) -> dict:
-        """The reference's snapshot layout as plain numpy copies (no view
-        of a live tensor): per-unit parameters and momentum (f32), the
-        loader's schedule, the evaluator's and decision's counters, and
-        the host generator."""
-        units: dict = {}
-        for unit in self._param_units():
-            units[unit.name] = {
-                name: t.detach().to("cpu", torch.float32,
-                                    copy=True).numpy()
-                for name, t in [*unit.named_parameters(recurse=False),
-                                *unit.named_buffers(recurse=False)]}
-        units[self.loader.name] = self.loader.state_dict()
-        units[self.evaluator.name] = self.evaluator.state_dict()
-        units[self.decision.name] = self.decision.state_dict()
-        return {"__units__": units, "__prng__": prng.get().get_state()}
-
-    @torch.no_grad()
+    # -- state -----------------------------------------------------------------------
     def load_state(self, state: dict) -> None:
         """Carry a state across: the reference's ``Workflow.state_dict()``
         (or this class's own).  Reads each unit's parameters and
         momentum accumulators (f32 or bf16 numpy, rounded to this run's
-        storage dtype; a missing one raises), the loader's
-        ``_shuffle_seed``, ``_shuffled``, ``_cursor`` and
+        storage dtype, written in place; a missing one raises), the
+        loader's ``_shuffle_seed``, ``_shuffled``, ``_cursor`` and
         ``epoch_number``, the evaluator's epoch counters, the decision's
-        best errors and epochs without improvement, and the host
-        generator.  A loader, evaluator or decision key the state lacks
-        keeps its value, as in the reference."""
+        best errors and epochs without improvement, the seed chains, and
+        the host generator.  A loader, evaluator or decision key the
+        state lacks keeps its value, as in the reference."""
         by_name = state["__units__"]
-        for unit in self._param_units():
-            unit_state = by_name.get(unit.name, {})
-            for name, t in [*unit.named_parameters(recurse=False),
-                            *unit.named_buffers(recurse=False)]:
-                if name not in unit_state:
-                    raise KeyError(f"state has no '{unit.name}.{name}'")
-                value = np.asarray(unit_state[name]).astype(np.float32)
-                if value.shape != tuple(t.shape):
-                    raise ValueError(f"{unit.name}.{name}: state shape "
-                                     f"{value.shape} != {tuple(t.shape)}")
-                t.copy_(torch.from_numpy(value))
-        self.loader.load_state(by_name.get(self.loader.name, {}))
-        self.evaluator.load_state(by_name.get(self.evaluator.name, {}))
-        self.decision.load_state(by_name.get(self.decision.name, {}))
-        if "__prng__" in state:
-            prng.get().set_state(state["__prng__"])
+        for unit in [*self.forwards, *self.gds]:
+            if unit.own_tensors() and unit.name not in by_name:
+                unit.load_state({})  # raises, naming what is missing
+        super().load_state(state)
 
     #: the name the port's first slices gave :meth:`load_state`
     load_reference_state = load_state

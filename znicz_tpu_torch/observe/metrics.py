@@ -5,9 +5,14 @@ A thread-safe registry of named metric families in the Prometheus data
 model — counters, gauges and fixed-bucket histograms, each optionally
 split by a small fixed set of labels — with the Prometheus text
 (0.0.4) exposition.  The registry core is a copy of the reference's; of its
-canonical series this slice carries the ``znicz_serving_*`` family
+canonical series the port carries the ``znicz_serving_*`` family
 the serving engine and its batcher write, the snapshotter's
-``znicz_snapshot_*`` pair, plus ``recoveries``.  The
+``znicz_snapshot_*`` pair, ``recoveries``, and the runtime core's
+series: workflow runs, per-unit run time, region steps, the
+host↔device bytes of the ``Vector`` protocol and CUDA-graph captures
+(the counterpart of the reference's ``xla_compiles("region:…")``).
+The hot-path series (unit times, transfer bytes) are gated on
+:func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
 keeps two.
 """
@@ -295,6 +300,54 @@ def serving_warmup_seconds(engine: str) -> Gauge:
         "znicz_serving_warmup_seconds",
         "Wall time spent warming the bucket ladder at start()",
         labels=("engine",)).labels(engine=engine)
+
+
+def enabled() -> bool:
+    """The telemetry gate: ``root.common.engine.telemetry`` (default
+    on).  Per-unit spans and times and the transfer byte counts skip
+    their work when it is off; rare events (captures, snapshots) are
+    always counted."""
+    from znicz_tpu_torch.utils.config import root
+    return bool(root.common.engine.get("telemetry", True))
+
+
+def workflow_runs(workflow: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_workflow_runs_total", "Workflow.run invocations",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
+def unit_run_seconds(unit: str) -> Histogram:
+    """Per-unit ``run()`` wall time (host control plane)."""
+    return REGISTRY.histogram(
+        "znicz_unit_run_seconds", "Unit.run wall time by unit name",
+        labels=("unit",)).labels(unit=unit)
+
+
+def transfer_bytes(direction: str) -> Counter:
+    """Host↔device bytes through the ``Vector`` map/unmap protocol
+    (``h2d`` uploads, ``d2h`` fetches)."""
+    return REGISTRY.counter(
+        "znicz_device_transfer_bytes_total",
+        "Vector host<->device transfer bytes by direction",
+        labels=("direction",)).labels(direction=direction)
+
+
+def region_steps(region: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_region_steps_total",
+        "Region steps run (a chunk counts each of its steps)",
+        labels=("region",)).labels(region=region)
+
+
+def graph_captures(region: str) -> Counter:
+    """CUDA-graph captures of a region, one per static key: the
+    counterpart of the reference's ``xla_compiles("region:<name>")``.
+    It stays flat once every key of a run has been seen."""
+    return REGISTRY.counter(
+        "znicz_graph_captures_total",
+        "CUDA-graph captures of a region's step, by region",
+        labels=("region",)).labels(region=region)
 
 
 def recoveries(kind: str) -> Counter:

@@ -31,8 +31,8 @@ class All2All(Forward):
 
     ACTIVATION = "linear"
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
-                 output_sample_shape, **kwargs) -> None:
+    def __init__(self, input_shape=None, compute_dtype: torch.dtype
+                 | None = None, output_sample_shape=1, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
         if isinstance(output_sample_shape, (int, np.integer)):
             output_sample_shape = (int(output_sample_shape),)
@@ -108,3 +108,6 @@ class All2AllSoftmax(All2All):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.classify(x)[0]
+
+    def device_run(self) -> None:
+        self.output, self.max_idx = self.classify(self.input)

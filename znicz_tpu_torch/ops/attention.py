@@ -63,20 +63,13 @@ class MultiHeadAttention(Forward):
     #: fan-scaled initial fill, as the reference's attention defaults to
     WEIGHTS_FILLING = "xavier"
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
-                 n_heads: int, causal: bool = False,
+    def __init__(self, input_shape=None, compute_dtype: torch.dtype
+                 | None = None, n_heads: int = 1, causal: bool = False,
                  seq_parallel: bool = False,
                  flash_block_k: int | None = None, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
-        if len(self.input_shape) != 2:
-            raise ValueError(f"attention expects (time, features) "
-                             f"samples, got {self.input_shape}")
         self.n_heads = int(n_heads)
         self.causal = bool(causal)
-        d = self.input_shape[1]
-        if d % self.n_heads:
-            raise ValueError(f"features {d} not divisible by "
-                             f"{self.n_heads} heads")
         #: set by the backward unit: keep the autograd graph of a call
         #: made with gradients enabled, and whether ``x``'s gradient is
         #: wanted too
@@ -84,6 +77,17 @@ class MultiHeadAttention(Forward):
         self.input_grad = False
         #: ``(x, f32 output)`` of the last call that kept its graph
         self.stash: tuple | None = None
+        if self.input_shape is not None:
+            self.check_input_shape()
+
+    def check_input_shape(self) -> None:
+        if len(self.input_shape) != 2:
+            raise ValueError(f"attention expects (time, features) "
+                             f"samples, got {self.input_shape}")
+        d = self.input_shape[1]
+        if d % self.n_heads:
+            raise ValueError(f"features {d} not divisible by "
+                             f"{self.n_heads} heads")
 
     def param_shapes(self) -> dict[str, tuple]:
         d = self.input_shape[1]
@@ -136,8 +140,9 @@ class GDMultiHeadAttention(GradientDescentBase):
 
     MATCHES = (MultiHeadAttention,)
 
-    def __init__(self, forward_unit: MultiHeadAttention, **kwargs) -> None:
-        super().__init__(forward_unit, **kwargs)
+    def bind_forward(self) -> None:
+        super().bind_forward()
+        forward_unit = self.forward_unit
         self.alloc_accumulator("accumulated_gradient_weights_out",
                                "weights_out", self.gradient_moment)
         self.alloc_accumulator("accumulated_gradient_bias_out",
@@ -147,8 +152,8 @@ class GDMultiHeadAttention(GradientDescentBase):
         forward_unit.keep_graph = True
         forward_unit.input_grad = self.need_err_input
 
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         stash, fwd.stash = fwd.stash, None  # the graph is used once
         if stash is None:

@@ -49,18 +49,22 @@ class Conv(Forward):
 
     ACTIVATION = "linear"
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
-                 n_kernels: int, kx: int, ky: int, sliding=(1, 1),
-                 padding=0, **kwargs) -> None:
+    def __init__(self, input_shape=None, compute_dtype: torch.dtype
+                 | None = None, n_kernels: int = 1, kx: int = 1,
+                 ky: int = 1, sliding=(1, 1), padding=0, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
-        if len(self.input_shape) != 3:
-            raise ValueError(f"conv expects (H, W, C) samples, got "
-                             f"{self.input_shape}")
         self.n_kernels = int(n_kernels)
         self.kx, self.ky = int(kx), int(ky)
         self.sliding = (int(sliding[0]), int(sliding[1]))  # (sy, sx)
         self.padding = normalize_padding(padding)
         self.activation = activations_math.get(self.ACTIVATION)
+        if self.input_shape is not None:
+            self.check_input_shape()
+
+    def check_input_shape(self) -> None:
+        if len(self.input_shape) != 3:
+            raise ValueError(f"conv expects (H, W, C) samples, got "
+                             f"{self.input_shape}")
 
     def output_spatial(self, h: int, w: int) -> tuple[int, int]:
         pt, pb, pl, pr = self.padding

@@ -1,7 +1,9 @@
 """Decision unit: end-of-minibatch bookkeeping and the stop rule (port of
 ``znicz_tpu/ops/decision.py``).
 
-``DecisionGD`` runs on the host after every minibatch:
+``DecisionGD`` is a unit that runs on the host after every step (after
+every chunk under ``run_chunked``, whose chunks end where an epoch
+does):
 
 - at the end of an epoch it reads the evaluator's per-class counters
   (one device read per epoch), turns them into error percentages and a
@@ -24,21 +26,20 @@ from __future__ import annotations
 import copy
 
 from znicz_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
-from znicz_tpu_torch.utils.logger import Logger
+from znicz_tpu_torch.units import Unit
 
 
-class DecisionGD(Logger):
+class DecisionGD(Unit):
     """Classification decision driven by ``EvaluatorSoftmax``."""
 
     SNAPSHOT_ATTRS = ("epoch_n_err", "epoch_n_err_pt",
                       "min_validation_n_err", "min_validation_n_err_pt",
                       "min_train_n_err", "_epochs_without_improvement")
 
-    def __init__(self, max_epochs: int | None = None,
-                 fail_iterations: int = 100, name: str = "decision"
-                 ) -> None:
-        super().__init__()
-        self.name = name
+    def __init__(self, workflow=None, name: str = "decision",
+                 max_epochs: int | None = None,
+                 fail_iterations: int = 100) -> None:
+        super().__init__(workflow, name=name)
         self.max_epochs = max_epochs
         self.fail_iterations = fail_iterations
         self.complete = False
@@ -58,6 +59,12 @@ class DecisionGD(Logger):
         self.last_epoch_n_err = [None, None, None]
 
     def run(self) -> None:
+        self.decide()
+        wf = self.workflow
+        if wf is not None:
+            wf.on_step_boundary()
+
+    def decide(self) -> None:
         loader = self.loader
         self.improved = False
         self.epoch_ended = False
@@ -111,7 +118,7 @@ class DecisionGD(Logger):
         self.last_epoch_n_err = list(self.epoch_n_err)
         self.epoch_n_err = [0, 0, 0]
 
-    def state_dict(self) -> dict:
+    def state_dict(self, allow_collective: bool = False) -> dict:
         return {name: copy.deepcopy(getattr(self, name))
                 for name in self.SNAPSHOT_ATTRS}
 

@@ -3,20 +3,26 @@
 Train mode: zero each activation with probability ``dropout_ratio`` and
 scale the survivors by ``1/(1−ratio)`` (inverted dropout, so eval mode
 is the identity, as in the reference).  ``forward_mode`` ("train" /
-"eval") is set by the workflow from the minibatch class, as the
-reference links it from the loader.
+"eval") is linked from the loader in a workflow, as the reference links
+it, and set by hand on a unit used alone.
 
 The port runs the reference's fused path: mask generation and apply in
 one kernel (:func:`~znicz_tpu_torch.ops.fused_kernels.dropout_apply`),
-with no mask array in memory.  Each train step draws one seed on the
-host from the port's default generator
-(:mod:`znicz_tpu_torch.utils.prng`); ``DropoutBackward`` applies the
-mask of the same seed to the error, so the backward regenerates the
-forward's mask bit for bit.  The kernel's bits are Philox4x32-10 of
-(seed, element index), which the plain version computes too, so one
-seed gives the same mask on the card and on the CPU.  The reference's
-bits come from the TPU core or from ``jax.random``; only their
-distribution is owed.
+with no mask array in memory.  Each train step takes its seed from the
+unit's :class:`~znicz_tpu_torch.utils.prng.SeedChain`: a seed on the
+device, rooted in one draw from the port's default generator and
+advanced by the step itself, which the kernel reads through a pointer.
+So a captured CUDA graph draws a new mask on every replay, and a run
+in chunks sees the masks of a run step by step.  ``DropoutBackward``
+applies the mask of the same seed to the error, so the backward
+regenerates the forward's mask bit for bit.  The kernel's bits are
+Philox4x32-10 of (seed, element index), which the plain version
+computes too, so one seed gives the same mask on the card and on the
+CPU.  The reference's bits come from the TPU core or from
+``jax.random``; only their distribution is owed.
+
+A snapshot carries the chain's next seed (``seed_chain``), so a resumed
+run draws the masks the uninterrupted one would have.
 """
 
 from __future__ import annotations
@@ -24,22 +30,21 @@ from __future__ import annotations
 import torch
 
 from znicz_tpu_torch.ops.fused_kernels import dropout_apply
-from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
-from znicz_tpu_torch.utils import prng
+from znicz_tpu_torch.ops.nn_units import (Forward, GradientDescentBase,
+                                          Stochastic)
 
 
-class DropoutForward(Forward):
+class DropoutForward(Stochastic, Forward):
     """Inverted dropout (weightless forward)."""
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
+    def __init__(self, input_shape=None,
+                 compute_dtype: torch.dtype | None = None,
                  dropout_ratio: float = 0.5, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
+        self.init_stochastic()
         if not 0.0 <= dropout_ratio < 1.0:
             raise ValueError(f"dropout_ratio {dropout_ratio} not in [0,1)")
         self.dropout_ratio = float(dropout_ratio)
-        self.forward_mode = "train"
-        #: this step's mask seed (None in eval mode)
-        self.seed: int | None = None
 
     def param_shapes(self) -> dict[str, tuple]:
         return {}
@@ -51,8 +56,8 @@ class DropoutForward(Forward):
         if self.forward_mode != "train":
             self.seed = None
             return x.to(self.output_store_dtype)
-        self.seed = int(prng.get().randint(0, 2 ** 63))
-        return dropout_apply(x.contiguous(), self.seed,
+        seed = self.next_seed(x.device)
+        return dropout_apply(x.contiguous(), seed,
                              self.dropout_ratio).to(self.output_store_dtype)
 
 
@@ -63,8 +68,8 @@ class DropoutBackward(GradientDescentBase):
     MATCHES = (DropoutForward,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         if not self.need_err_input:
             return None
         fwd = self.forward_unit

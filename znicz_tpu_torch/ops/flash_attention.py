@@ -77,7 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
-from znicz_tpu_torch.ops import _cuda
+from znicz_tpu_torch.ops import _cuda, launch_counts
 
 NEG_INF = -1e30
 #: head dims the f32 kernels take up to 256
@@ -638,3 +638,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kernel_legal(q.shape[-1]):
         return flash_attention(q, k, v, causal=causal, dot_dtype=dot_dtype)
     return local_attention(q, k, v, causal=causal, dot_dtype=dot_dtype)
+
+
+launch_counts.register(flash_attention_fwd, flash_attention_dq,
+                       flash_attention_dkv)

@@ -76,7 +76,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.ops import _cuda
+from znicz_tpu_torch.ops import _cuda, launch_counts
 
 #: x dtypes the kernel takes → its dtype code
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,9 +112,9 @@ def _lib(stem: str) -> ctypes.CDLL:
                     [p, p, p, ll, i, i, f, f, f, i, i, p], i)},
             "dropout": {
                 "znicz_dropout": (
-                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i),
+                    [p, p, ll, p, ll, f, i, p], i),
                 "znicz_dropout_vec": (
-                    [p, p, ll, ctypes.c_ulonglong, ll, f, i, p], i),
+                    [p, p, ll, p, ll, f, i, p], i),
                 "znicz_empty_launch": ([p], i)},
             "softmax_argmax": {
                 "znicz_softmax_argmax": ([p, p, p, ll, i, p], i),
@@ -555,22 +555,45 @@ def dropout_route(*pointers: int) -> str:
     return "vector" if all(p % 16 == 0 for p in pointers) else "general"
 
 
-def dropout_apply(x: torch.Tensor, seed: int,
+def seed_tensor(seed, device) -> torch.Tensor:
+    """``seed`` as the 0-d int64 device tensor the dropout kernel reads:
+    a tensor on ``device`` as it is, a Python int through a fill (its
+    value is then part of the call: frozen in a captured graph)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.device != torch.device(device) or seed.dtype != torch.int64:
+            raise ValueError(f"dropout seed: an int64 tensor on {device}, "
+                             f"got {seed.dtype} on {seed.device}")
+        return seed.reshape(())
+    value = int(seed) & (2 ** 64 - 1)
+    return torch.full((), value - 2 ** 64 if value >= 2 ** 63 else value,
+                      dtype=torch.int64, device=device)
+
+
+def _seed_value(seed) -> int:
+    """The seed as the unsigned 64-bit key (host code only)."""
+    return int(seed) & (2 ** 64 - 1)
+
+
+def dropout_apply(x: torch.Tensor, seed,
                   drop_ratio: float) -> torch.Tensor:
     """Inverted dropout with the mask of ``seed``: y with x's shape and
     dtype.  The same seed gives the same mask for any tensor of the
-    same size (the backward applies it to the error).  On the card x is
+    same size (the backward applies it to the error).  ``seed`` is a
+    Python int or a 0-d int64 tensor on x's device; the kernel reads it
+    through a pointer, so a seed tensor that the step advances gives
+    each replay of a captured graph its own mask.  On the card x is
     contiguous f32 or bf16, and :func:`dropout_route` picks the
     kernel."""
     threshold, scale = _dropout_constants(x.dtype, drop_ratio)
     if x.device.type == "cpu":
         return dropout_apply_plain(x, seed, drop_ratio)
     _check_card_tensor("x", x, _KERNEL_DTYPES)
+    seed_t = seed_tensor(seed, x.device)
     y = torch.empty_like(x)
     route = dropout_route(x.data_ptr(), y.data_ptr())
     with torch.cuda.device(x.device):
         err = getattr(_lib("dropout"), _DROPOUT_ENTRY[route])(
-            x.data_ptr(), y.data_ptr(), x.numel(), int(seed) & (2 ** 64 - 1),
+            x.data_ptr(), y.data_ptr(), x.numel(), seed_t.data_ptr(),
             threshold, scale, _KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "dropout_apply")
     dropout_apply.launches += 1
@@ -584,11 +607,12 @@ dropout_apply.launches = 0
 dropout_apply.launches_by_route = dict.fromkeys(DROPOUT_ROUTES, 0)
 
 
-def dropout_apply_plain(x: torch.Tensor, seed: int,
+def dropout_apply_plain(x: torch.Tensor, seed,
                         drop_ratio: float) -> torch.Tensor:
-    """The dropout kernel's function in plain PyTorch, bit for bit."""
+    """The dropout kernel's function in plain PyTorch, bit for bit
+    (``seed``: an int, or a 0-d int64 tensor read on the host)."""
     threshold, scale = _dropout_constants(x.dtype, drop_ratio)
-    keep = dropout_bits(x.numel(), int(seed) & (2 ** 64 - 1),
+    keep = dropout_bits(x.numel(), _seed_value(seed),
                         x.device).reshape(x.shape) > threshold
     return torch.where(keep, x.float() * scale, 0.0).to(x.dtype)
 
@@ -660,3 +684,7 @@ def softmax_argmax_plain(v: torch.Tensor
     e = torch.exp(vf - vf.amax(dim=1, keepdim=True))
     return e / e.sum(dim=1, keepdim=True), torch.argmax(vf, dim=1).to(
         torch.int32)
+
+
+launch_counts.register(layer_norm_forward, layer_norm_backward, lrn_forward,
+                       lrn_backward, dropout_apply, softmax_argmax)

@@ -39,8 +39,8 @@ class GradientDescent(GradientDescentBase):
     MATCHES = (All2All,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         batch = x.shape[0]
         x2d = x.reshape(batch, -1)

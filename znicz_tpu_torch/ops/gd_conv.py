@@ -36,8 +36,8 @@ class GradientDescentConv(GradientDescentBase):
     MATCHES = (Conv,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         act = fwd.activation
         delta = err_output

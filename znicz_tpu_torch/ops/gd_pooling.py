@@ -32,15 +32,15 @@ class GDPoolingBase(GradientDescentBase):
     """Weightless backward in f32: ``err_output`` → ``err_input``."""
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         if not self.need_err_input:
             return None
-        dx = self.err_input(x, err_output.float().permute(0, 3, 1, 2))
+        dx = self.input_error(x, err_output.float().permute(0, 3, 1, 2))
         return dx.to(self.act_store_dtype).contiguous()
 
-    def err_input(self, x: torch.Tensor, err: torch.Tensor
-                  ) -> torch.Tensor:
+    def input_error(self, x: torch.Tensor, err: torch.Tensor
+                    ) -> torch.Tensor:
         """The NHWC f32 error at the input from the NCHW f32 error
         ``err`` at the output."""
         raise NotImplementedError
@@ -55,8 +55,8 @@ class GDMaxPooling(GradientDescentBase):
     SUM_IN_F32 = False
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         indices, fwd.indices = fwd.indices, None  # used once
         if not self.need_err_input:
@@ -89,7 +89,7 @@ class GDAvgPooling(GDPoolingBase):
 
     MATCHES = (AvgPooling,)
 
-    def err_input(self, x, err):
+    def input_error(self, x, err):
         fwd = self.forward_unit
         h, w = x.shape[1], x.shape[2]
         xc = fwd.padded_nchw(x.float(), 0.0)
@@ -104,7 +104,7 @@ class GDStochasticPooling(GDPoolingBase):
 
     MATCHES = (StochasticPooling,)
 
-    def err_input(self, x, err):
+    def input_error(self, x, err):
         fwd = self.forward_unit
         choice, fwd.last_choice = fwd.last_choice, None  # used once
         if choice is None:

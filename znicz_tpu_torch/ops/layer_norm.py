@@ -26,7 +26,8 @@ from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
 class LayerNorm(Forward):
     """Per-position feature normalization with learned scale/shift."""
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
+    def __init__(self, input_shape=None,
+                 compute_dtype: torch.dtype | None = None,
                  eps: float = 1e-5, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
         self.eps = float(eps)
@@ -63,8 +64,8 @@ class GDLayerNorm(GradientDescentBase):
     MATCHES = (LayerNorm,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit
         dx, grad_g, grad_b = layer_norm_backward(
             x, err_output, fwd.weights, fwd.eps,

@@ -2,8 +2,19 @@
 ``znicz_tpu/ops/nn_units.py`` and the precision rules of
 ``znicz_tpu/accelerated_units.py``).
 
-A forward unit here is an ``nn.Module`` over a batch of samples of one
-input shape, in one compute dtype.  Its parameters carry the bundle's
+A forward unit here is both an
+:class:`~znicz_tpu_torch.accelerated_units.AcceleratedUnit` (a node of
+the workflow's graph, with the reference's attribute names: ``input``,
+``output``, ``weights``, ``bias``; a backward unit's ``err_output`` and
+``err_input``) and an ``nn.Module`` over a batch of samples of one
+input shape, in one compute dtype.  A unit built by a workflow learns
+its input shape and dtype at ``initialize`` (from the unit its
+``input`` is linked to, deferring until that one is initialized, as the
+reference's units do); one built with them runs on its own, called as
+a module (``unit(x)``, ``gd.run(x, err, y)``).  Any of the named
+attributes is reachable as a :class:`~znicz_tpu_torch.memory.Vector`
+through :meth:`AcceleratedUnit.vector` (the same storage).  Its
+parameters carry the bundle's
 names (``weights``, ``bias``, …) and stay float32 in every precision
 mode, as in the reference.  They come either from a bundle
 (:meth:`Forward.load_params`) or from the reference's initial fills
@@ -13,14 +24,14 @@ packages).
 
 Two precision rules carry over from the reference's XLA path:
 
-- :meth:`Forward.mxu_dot` — in bf16 mode the product's operands are
+- :meth:`AcceleratedUnit.mxu_dot` — in bf16 mode the product's operands are
   rounded to bf16 and the result is f32 (the reference's ``jnp.dot``
   with ``preferred_element_type=float32``).  Here that is an f32
   product of bf16-rounded operands; with TF32 off
   (:mod:`znicz_tpu_torch.backends`) it is exact up to summation order.
   Autograd through it rounds the cotangent of each operand to bf16,
   where ``jax.vjp`` of the reference's ``mxu_dot`` does.
-- :attr:`Forward.act_store_dtype` — activations and errors between
+- :attr:`AcceleratedUnit.act_store_dtype` — activations and errors between
   layers are stored in bf16 in bf16 mode and in f32 otherwise.
 
 :class:`GradientDescentBase` is the reference's update rule, cut to what
@@ -37,19 +48,46 @@ import torch
 from torch import nn
 
 from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
+from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
+                                               precision_dtypes)
 from znicz_tpu_torch.utils import prng
+from znicz_tpu_torch.utils.prng import SeedChain
+
+__all__ = ["Forward", "GradientDescentBase", "Stochastic", "gd_for"]
 
 
-def precision_dtypes(compute_dtype: torch.dtype
-                     ) -> tuple[torch.dtype | None, torch.dtype]:
-    """``(product operand dtype or None, storage dtype)`` of activations,
-    errors and momentum in one precision mode."""
-    if compute_dtype == torch.bfloat16:
-        return torch.bfloat16, torch.bfloat16
-    return None, torch.float32
+class ModuleUnit(AcceleratedUnit, nn.Module):
+    """An accelerated unit that is an ``nn.Module``: its snapshot state
+    is its own parameters and buffers (f32 host copies), and a snapshot
+    that lacks one raises.  Called with ``nn.Module``'s arguments
+    (``destination``, ``prefix``, ``keep_vars``), :meth:`state_dict` is
+    ``nn.Module``'s, so a module tree holding the unit keeps working."""
+
+    def state_dict(self, *args, allow_collective: bool = False, **kwargs):
+        if args or kwargs:
+            return nn.Module.state_dict(self, *args, **kwargs)
+        return {name: t.detach().to("cpu", torch.float32, copy=True).numpy()
+                for name, t in self.own_tensors()}
+
+    def own_tensors(self) -> list[tuple[str, torch.Tensor]]:
+        return [*self.named_parameters(recurse=False),
+                *self.named_buffers(recurse=False)]
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """Each parameter and buffer from ``state`` (f32 or bf16 numpy,
+        rounded to the tensor's dtype, written in place)."""
+        for name, t in self.own_tensors():
+            if name not in state:
+                raise KeyError(f"state has no '{self.name}.{name}'")
+            value = np.asarray(state[name]).astype(np.float32)
+            if value.shape != tuple(t.shape):
+                raise ValueError(f"{self.name}.{name}: state shape "
+                                 f"{value.shape} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(value))
 
 
-class Forward(nn.Module):
+class Forward(ModuleUnit):
     """Base forward unit over a batch of samples of ``input_shape``."""
 
     #: parameter attributes an exported bundle carries for this unit
@@ -60,21 +98,51 @@ class Forward(nn.Module):
     #: the initial weight fill when the config names none
     WEIGHTS_FILLING = "uniform"
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
-                 include_bias: bool = True, **init_config) -> None:
+    def __init__(self, input_shape=None, compute_dtype: torch.dtype
+                 | None = None, include_bias: bool = True, *,
+                 workflow=None, name: str | None = None,
+                 **init_config) -> None:
         unknown = set(init_config) - self.INIT_ONLY
         if unknown:
             raise TypeError(f"{type(self).__name__}: unsupported config "
                             f"{sorted(unknown)}")
-        super().__init__()
-        self.input_shape = tuple(int(n) for n in input_shape)
-        self.compute_dtype = compute_dtype
+        super().__init__(workflow, name=name)
+        self.input_shape = (None if input_shape is None
+                            else tuple(int(n) for n in input_shape))
+        self.compute_dtype = compute_dtype or torch.float32
         self.include_bias = bool(include_bias)
         self.weights_filling = init_config.get("weights_filling",
                                                self.WEIGHTS_FILLING)
         self.weights_stddev = init_config.get("weights_stddev")
         self.bias_filling = init_config.get("bias_filling", "uniform")
         self.bias_stddev = init_config.get("bias_stddev")
+
+    def check_input_shape(self) -> None:
+        """Raise when :attr:`input_shape` does not suit the unit (called
+        once the shape is known)."""
+
+    # -- the unit ---------------------------------------------------------
+    def initialize(self, device=None, **kwargs) -> None:
+        """Learn the input shape from the unit ``input`` is linked to (a
+        forward's ``output_shape``, the loader's ``sample_shape``; the
+        AttributeError of one not yet initialized defers this unit), the
+        dtype from the device, then fill the parameters."""
+        super().initialize(device=device, **kwargs)
+        link = self._linked_attrs.get("input")
+        if link is not None:
+            source = link.source
+            if not source.is_initialized:
+                raise AttributeError(f"{self}: input source {source} not "
+                                     f"initialized yet")
+            self.input_shape = tuple(
+                source.output_shape if isinstance(source, Forward)
+                else source.sample_shape)
+        self.compute_dtype = self.device.compute_dtype
+        self.check_input_shape()
+        self.init_params(self.torch_device)
+
+    def device_run(self) -> None:
+        self.output = self(self.input)
 
     # -- geometry and parameters ------------------------------------------
     def param_shapes(self) -> dict[str, tuple]:
@@ -139,29 +207,49 @@ class Forward(nn.Module):
                           for k, v in self.initial_params().items()})
         self.to(device)
 
-    # -- precision --------------------------------------------------------
-    @property
-    def mxu_dtype(self) -> torch.dtype | None:
-        """Product operand dtype: bf16 in bf16 mode, else None (full
-        f32 products)."""
-        return precision_dtypes(self.compute_dtype)[0]
-
-    @property
-    def act_store_dtype(self) -> torch.dtype:
-        """Storage dtype of activations: bf16 in bf16 mode, else f32."""
-        return precision_dtypes(self.compute_dtype)[1]
-
     @property
     def output_store_dtype(self) -> torch.dtype:
         return self.act_store_dtype
 
-    def mxu_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """``a @ b`` with f32 result; operands rounded to bf16 first in
-        bf16 mode."""
-        dt = self.mxu_dtype
-        if dt is not None:
-            a, b = a.to(dt), b.to(dt)
-        return torch.matmul(a.float(), b.float())
+
+class Stochastic:
+    """Mixin of a forward that draws a seed a train step (dropout,
+    stochastic pooling) from its :class:`SeedChain`: a seed on the
+    device that the step advances, rooted in one draw from the default
+    generator.  ``forward_mode`` is part of the region key; the chain's
+    next seed is part of the snapshot (``seed_chain``)."""
+
+    def init_stochastic(self) -> None:
+        self.forward_mode = "train"
+        #: this step's seed, a 0-d int64 tensor (None in eval mode)
+        self.seed = None
+        self.__dict__["seed_chain"] = SeedChain()
+
+    def next_seed(self, device):
+        """This train step's seed (the chain advanced on the device)."""
+        self.seed = self.seed_chain.next(device)
+        return self.seed
+
+    def region_key(self) -> tuple:
+        return (self.forward_mode,)
+
+    def sync_host_state(self) -> None:
+        if self.forward_mode == "train":
+            self.seed_chain.sync(self.torch_device)
+
+    def state_dict(self, *args, allow_collective: bool = False, **kwargs):
+        out = super().state_dict(*args, **kwargs)
+        if args or kwargs:
+            return out
+        value = self.seed_chain.get_value()
+        if value is not None:
+            out["seed_chain"] = value
+        return out
+
+    def load_state(self, state: dict) -> None:
+        super().load_state(state)
+        if "seed_chain" in state:
+            self.seed_chain.set_value(int(state["seed_chain"]))
 
 
 #: forward class → its backward class, filled from each backward
@@ -179,7 +267,7 @@ def gd_for(forward_cls: type) -> type:
     raise KeyError(f"no gradient unit registered for {forward_cls.__name__}")
 
 
-class GradientDescentBase(nn.Module):
+class GradientDescentBase(ModuleUnit):
     """Base backward unit: the reference's update rule for each
     parameter tensor of its forward unit.
 
@@ -190,14 +278,17 @@ class GradientDescentBase(nn.Module):
         acc = gradient_moment·acc − learning_rate·g
         W  += acc
 
-    A subclass's :meth:`run` computes ``err_input`` (when the previous
-    unit wants it) and its parameter gradients from the weights as they
-    were before this step, then updates the parameters in place through
-    :meth:`apply_param`.
+    A subclass's :meth:`backprop` computes ``err_input`` (when the
+    previous unit wants it) and its parameter gradients from the weights
+    as they were before this step, then updates the parameters in place
+    through :meth:`apply_param`.  As a unit it reads ``input``,
+    ``output`` and ``err_output`` and writes ``err_input``; called with
+    tensors, :meth:`run` returns the error instead.
     """
 
     #: forward classes this backward unit belongs to
     MATCHES: tuple = ()
+    NEEDS_AUTOGRAD = True
 
     def __init_subclass__(cls, **kwargs) -> None:
         super().__init_subclass__(**kwargs)
@@ -212,8 +303,9 @@ class GradientDescentBase(nn.Module):
                  gradient_moment: float = 0.0,
                  gradient_moment_bias: float | None = None,
                  gradient_clip: float = 0.0,
-                 need_err_input: bool = True) -> None:
-        super().__init__()
+                 need_err_input: bool = True, *, workflow=None,
+                 name: str | None = None) -> None:
+        super().__init__(workflow, name=name)
         # a plain attribute, not a submodule: the forward owns its
         # parameters
         self.__dict__["forward_unit"] = forward_unit
@@ -229,10 +321,25 @@ class GradientDescentBase(nn.Module):
                                      else gradient_moment_bias)
         self.gradient_clip = gradient_clip
         self.need_err_input = need_err_input
+        self.err_input: torch.Tensor | None = None
+        if forward_unit.input_shape is not None:
+            self.bind_forward()
+
+    def bind_forward(self) -> None:
+        """Allocate what the forward's parameters decide: the momentum
+        buffers (zero), and whatever a subclass keeps beside them."""
         self.alloc_accumulator("accumulated_gradient_weights", "weights",
                                self.gradient_moment)
         self.alloc_accumulator("accumulated_gradient_bias", "bias",
                                self.gradient_moment_bias)
+
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device=device, **kwargs)
+        if not self.forward_unit.is_initialized:
+            raise AttributeError(f"{self}: forward {self.forward_unit} not "
+                                 f"initialized yet")
+        self.compute_dtype = self.forward_unit.compute_dtype
+        self.bind_forward()
 
     @property
     def opt_state_dtype(self) -> torch.dtype:
@@ -253,12 +360,25 @@ class GradientDescentBase(nn.Module):
             value.shape, dtype=self.opt_state_dtype, device=value.device)
             if moment and value is not None else None)
 
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
+    def run(self, x: torch.Tensor | None = None,
+            err_output: torch.Tensor | None = None,
             y: torch.Tensor | None = None) -> torch.Tensor | None:
-        """One backward step from the forward's input ``x``, the error
-        at its output and the forward's output ``y`` of this step;
-        returns ``err_input`` in the activation storage dtype, or None
-        when no unit before wants it."""
+        """With no tensors: one firing of the unit.  With them: one
+        backward step from the forward's input ``x``, the error at its
+        output and the forward's output ``y`` of this step, returning
+        ``err_input`` (see :meth:`backprop`)."""
+        if x is None and err_output is None:
+            return super().run()
+        return self.backprop(x, err_output, y)
+
+    def device_run(self) -> None:
+        self.err_input = self.backprop(self.input, self.err_output,
+                                       self.output)
+
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
+        """One backward step; returns ``err_input`` in the activation
+        storage dtype, or None when no unit before wants it."""
         raise NotImplementedError
 
     # -- the update rule --------------------------------------------------

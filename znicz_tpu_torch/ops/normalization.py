@@ -32,7 +32,8 @@ from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
 class LRNormalizerForward(Forward):
     """Across-channel LRN (weightless forward)."""
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype,
+    def __init__(self, input_shape=None,
+                 compute_dtype: torch.dtype | None = None,
                  alpha: float = 1e-4, beta: float = 0.75, k: float = 2.0,
                  n: int = 5, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
@@ -60,8 +61,8 @@ class LRNormalizerBackward(GradientDescentBase):
     MATCHES = (LRNormalizerForward,)
 
     @torch.no_grad()
-    def run(self, x: torch.Tensor, err_output: torch.Tensor,
-            y: torch.Tensor | None = None) -> torch.Tensor | None:
+    def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor | None:
         if not self.need_err_input:
             return None
         fwd = self.forward_unit

@@ -25,11 +25,11 @@ and marks the padded cells so that none can win or count:
   window, drawn with probability ∝ max(x, 0) (uniformly over the window's
   cells inside the input when none is positive), recorded in
   ``last_choice`` in full-window coordinates; in eval mode the
-  probability-weighted mean.  Each train step draws one seed from the
-  port's default generator (:mod:`znicz_tpu_torch.utils.prng`), as the
-  dropout unit does, so a snapshot carries the stream; the uniforms come
-  from a ``torch.Generator`` of that seed, whose stream differs from the
-  reference's (only the distribution is owed).
+  probability-weighted mean.  Each train step takes its seed from the
+  unit's device seed chain (:class:`~znicz_tpu_torch.utils.prng.SeedChain`),
+  as the dropout unit does, and its uniforms from the Philox bits of
+  that seed, whose stream differs from the reference's (only the
+  distribution is owed).
 
 The reference computes pooling in XLA (``lax.reduce_window`` and
 gathers), not in Pallas, so these are PyTorch operations: no kernel of
@@ -41,23 +41,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.ops.nn_units import Forward
-from znicz_tpu_torch.utils import prng
+from znicz_tpu_torch.ops.fused_kernels import dropout_bits
+from znicz_tpu_torch.ops.nn_units import Forward, Stochastic
 
 
 class Pooling(Forward):
     """Base pooling unit (weightless forward): the window geometry."""
 
-    def __init__(self, input_shape, compute_dtype: torch.dtype, kx: int,
-                 ky: int, sliding=None, **kwargs) -> None:
+    def __init__(self, input_shape=None, compute_dtype: torch.dtype
+                 | None = None, kx: int = 2, ky: int = 2, sliding=None,
+                 **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
-        if len(self.input_shape) != 3:
-            raise ValueError(f"pooling expects (H, W, C) samples, got "
-                             f"{self.input_shape}")
         self.kx, self.ky = int(kx), int(ky)
         if sliding is None:
             sliding = (self.ky, self.kx)  # the reference's default
         self.sliding = (int(sliding[0]), int(sliding[1]))
+        if self.input_shape is not None:
+            self.check_input_shape()
+
+    def check_input_shape(self) -> None:
+        if len(self.input_shape) != 3:
+            raise ValueError(f"pooling expects (H, W, C) samples, got "
+                             f"{self.input_shape}")
 
     def output_spatial(self, h: int, w: int) -> tuple[int, int]:
         sy, sx = self.sliding
@@ -161,16 +166,19 @@ class AvgPooling(Pooling):
         return self.store(self.window_sums(x) / self.counts(h, w, x.device))
 
 
-class StochasticPooling(Pooling):
+class StochasticPooling(Stochastic, Pooling):
     """Train: one element of each window drawn ∝ max(x, 0); eval: the
-    probability-weighted mean.  ``forward_mode`` ("train"/"eval") is set
-    by the workflow from the minibatch class."""
+    probability-weighted mean.  ``forward_mode`` ("train"/"eval") is
+    linked from the loader in a workflow.  A train step takes its seed
+    from the unit's device seed chain (as dropout does) and its uniform
+    draws from the Philox bits of that seed
+    (:func:`~znicz_tpu_torch.ops.fused_kernels.dropout_bits`, on the
+    device, with no host sync), so a captured graph draws anew on each
+    replay."""
 
     def __init__(self, *args, **kwargs) -> None:
         super().__init__(*args, **kwargs)
-        self.forward_mode = "train"
-        #: this step's seed (None in eval mode)
-        self.seed: int | None = None
+        self.init_stochastic()
         #: the last train step's choices, NHWC ``(n, oh, ow, c)`` int32
         #: offsets in full-window coordinates (the reference's layout)
         self.last_choice: torch.Tensor | None = None
@@ -216,10 +224,11 @@ class StochasticPooling(Pooling):
         if self.forward_mode != "train":
             self.seed = None
             return self.store((probs * wins0).sum(dim=2))
-        self.seed = int(prng.get().randint(0, 2 ** 63))
-        gen = torch.Generator(device=x.device).manual_seed(self.seed)
+        self.next_seed(x.device)
         n, c, _, oh, ow = wins.shape
-        r = torch.rand((n, c, 1, oh, ow), generator=gen, device=x.device)
+        # 24 random bits a window, a uniform draw in [0, 1)
+        bits = dropout_bits(n * c * oh * ow, self.seed, x.device)
+        r = ((bits >> 8).float() * 2.0 ** -24).view(n, c, 1, oh, ow)
         cum = probs.cumsum(dim=2)
         # no draw may land past the last cell with mass when the sum of
         # the probabilities rounds under r

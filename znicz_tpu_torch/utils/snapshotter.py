@@ -17,9 +17,11 @@ its digest.
 - :meth:`Snapshotter.prune` keeps the ``keep_last`` newest good
   snapshots of a prefix.
 
-A :class:`Snapshotter` attached to a ``StandardWorkflow`` fires after
-the decision whenever it raised ``improved`` (every ``interval``-th
-such time) and names the file by the best validation error,
+A :class:`Snapshotter` is a unit: a ``StandardWorkflow`` links it from
+the decision and gates it on ``improved``
+(``StandardWorkflow.link_snapshotter``), so it fires after each step on
+which the decision raised ``improved`` (every ``interval``-th such
+time), and names the file by the best validation error,
 ``min_validation_n_err_pt``.  A failed write is absorbed by default:
 it is counted (``znicz_snapshot_failures_total{op=write}``), training
 goes on, and ``destination`` keeps pointing at the last good snapshot
@@ -29,8 +31,7 @@ instead).
 Not ported with it: the ``snapshot.write_fail`` fault site (ROADMAP
 A11) and the multi-process write discipline, where processes other
 than 0 fence on process 0's sidecar (ROADMAP A9).  The port is one
-process, and the snapshotter is a plain object the workflow's loop
-calls, as the port has no unit graph yet.
+process.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import pickle
 import time
 
 from znicz_tpu_torch.observe import metrics as _metrics
+from znicz_tpu_torch.units import Unit
 from znicz_tpu_torch.utils.config import root
-from znicz_tpu_torch.utils.logger import Logger
 
 
 class SnapshotCorrupt(RuntimeError):
@@ -63,16 +64,14 @@ def _sha256_file(path: str, chunk: int = 1 << 20) -> str:
             h.update(buf)
 
 
-class Snapshotter(Logger):
+class Snapshotter(Unit):
     """Writes ``<prefix>_<suffix>.pickle.gz`` of its workflow's state
-    each time :meth:`run` is called (every ``interval``-th call)."""
+    each time it fires (every ``interval``-th time)."""
 
     def __init__(self, workflow, name: str = "snapshotter",
                  prefix: str = "snapshot", directory: str | None = None,
                  interval: int = 1, keep_last: int = 5) -> None:
-        super().__init__()
-        self.workflow = workflow
-        self.name = name
+        super().__init__(workflow, name=name)
         self.prefix = prefix
         self.directory = directory or str(root.common.dirs.snapshots)
         self.interval = max(1, int(interval))
