@@ -172,7 +172,13 @@ class Main(Logger):
             make_parser().print_usage()
             return 2
         if args.config:
-            _import_module(args.config, "config")
+            imported = set(sys.modules)
+            config = _import_module(args.config, "config")
+            if config.__name__ in imported:
+                # a config module works by setting leaves of root: run
+                # it again on a later call in this process (a reset
+                # root would otherwise miss them)
+                importlib.reload(config)
         _apply_root_overrides(args.root)
         if args.seed is not None:
             root.common.seed = args.seed

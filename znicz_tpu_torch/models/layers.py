@@ -10,8 +10,8 @@ serve fails when it loads rather than serving something else.
 
 from __future__ import annotations
 
-from znicz_tpu_torch.ops import (all2all, attention, conv, dropout,
-                                 layer_norm, normalization, pooling)
+from znicz_tpu_torch.ops import (activation, all2all, attention, conv,
+                                 dropout, layer_norm, normalization, pooling)
 # the backward units register their pairs when imported
 from znicz_tpu_torch.ops import gd, gd_conv, gd_pooling  # noqa: F401
 
@@ -33,6 +33,12 @@ _LAYER_TYPES: dict[str, type] = {
     "stochastic_pooling": pooling.StochasticPooling,
     "norm": normalization.LRNormalizerForward,
     "dropout": dropout.DropoutForward,
+    "activation_tanh": activation.ForwardTanh,
+    "activation_relu": activation.ForwardRELU,
+    "activation_str": activation.ForwardStrictRELU,
+    "activation_sigmoid": activation.ForwardSigmoid,
+    "activation_log": activation.ForwardLog,
+    "activation_mul": activation.ForwardMul,
     "attention": attention.MultiHeadAttention,
     "layer_norm": layer_norm.LayerNorm,
 }

@@ -3,15 +3,19 @@
 
 The constructor is the reference's: a ``loader_factory``, a ``layers``
 list of ``{"type": <name>, "->": {forward kwargs}, "<-": {gradient
-kwargs}}`` dicts, ``loss="softmax"``, a ``decision_config`` and a
-``snapshotter_config``.  So are the builders (:meth:`link_forwards`,
+kwargs}}`` dicts, ``loss`` (``"softmax"`` or ``"mse"``: the loss picks
+the evaluator and the decision), an ``evaluator_config``, a
+``decision_config``, a ``snapshotter_config`` and an
+``lr_adjuster_config``.  So are the builders (:meth:`link_forwards`,
 :meth:`link_evaluator`, :meth:`link_decision`, :meth:`link_gds`,
-:meth:`link_loop`, :meth:`link_snapshotter`), the unit names, and the
-graph they build from units joined by control links and gates:
+:meth:`link_loop`, :meth:`link_snapshotter`, :meth:`link_lr_adjuster`),
+the unit names, and the graph they build from units joined by control
+links and gates:
 
 .. code-block:: text
 
     start → repeater → loader (host pick) → train_region → decision ─→ repeater
+                                                             ├─→ lr_adjuster
                                                              ├─(improved)→ snapshotter
                                                              └─(complete)→ end
 
@@ -47,9 +51,17 @@ initial weights and sample order as the reference.  A snapshot
 (:meth:`state_dict`) carries every unit's state by the reference's unit
 names, so snapshots cross between the packages both ways.
 
-Not ported with it (later slices): the anomaly guard, learning-rate
-schedules, the accumulated and pipelined training loops and the MSE
-loss.
+A learning-rate schedule (``lr_adjuster_config``, or an ``lr_policy``
+or ``bias_lr_policy`` in a layer's ``"<-"`` dict) is a
+:class:`~znicz_tpu_torch.ops.lr_adjust.LearningRateAdjust` after the
+decision; it writes each scheduled unit's rates into the device tensor
+the captured step reads (``lr_state``), once a train step, or once a
+chunk under :meth:`run_chunked`, as in the reference.
+
+Not ported with it (later slices): the anomaly guard (A11), the
+accumulated and pipelined training loops (A1b, A9), the population
+engine's ``promote_lr_leaves`` (A13), the plotters, the image saver and
+the publisher (A12).
 """
 
 from __future__ import annotations
@@ -64,9 +76,10 @@ from znicz_tpu_torch.loader.base import TRAIN, Loader
 from znicz_tpu_torch.models.layers import layer_type
 from znicz_tpu_torch.mutable import Bool
 from znicz_tpu_torch.observe import tracing as _tracing
-from znicz_tpu_torch.ops.decision import DecisionGD
-from znicz_tpu_torch.ops.evaluator import EvaluatorSoftmax
-from znicz_tpu_torch.ops.nn_units import gd_for
+from znicz_tpu_torch.ops.decision import DecisionGD, DecisionMSE
+from znicz_tpu_torch.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
+from znicz_tpu_torch.ops.lr_adjust import LearningRateAdjust
+from znicz_tpu_torch.ops.nn_units import WeightlessGradientUnit, gd_for
 from znicz_tpu_torch.units import Repeater
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
 
@@ -81,12 +94,21 @@ class StandardWorkflow(AcceleratedWorkflow):
     layers:
         list of layer dicts (``{"type", "->", "<-"}``).
     loss:
-        ``"softmax"`` (classification; the only loss ported so far).
+        ``"softmax"`` (classification: ``EvaluatorSoftmax`` and
+        ``DecisionGD``, the last layer a ``softmax``) or ``"mse"``
+        (regression and autoencoders: ``EvaluatorMSE`` against the
+        loader's ``minibatch_data`` and ``DecisionMSE``).
+    evaluator_config:
+        kwargs of the evaluator (``compute_confusion=True`` for the
+        softmax's confusion matrices).
     decision_config:
-        kwargs of :class:`~znicz_tpu_torch.ops.decision.DecisionGD`.
+        kwargs of the decision.
     snapshotter_config:
         kwargs of :class:`~znicz_tpu_torch.utils.snapshotter.Snapshotter`
         (``None``: no snapshots).
+    lr_adjuster_config:
+        kwargs of :meth:`link_lr_adjuster` (``None``: no schedule, unless
+        a layer names its own policy).
     """
 
     def __init__(self, workflow=None, name: str | None = None,
@@ -94,17 +116,25 @@ class StandardWorkflow(AcceleratedWorkflow):
                  | None = None,
                  layers: Sequence[dict] = (),
                  loss: str = "softmax",
+                 evaluator_config: dict[str, Any] | None = None,
                  decision_config: dict[str, Any] | None = None,
                  snapshotter_config: dict[str, Any] | None = None,
+                 lr_adjuster_config: dict[str, Any] | None = None,
                  **kwargs) -> None:
         if loader_factory is None:
             raise ValueError("loader_factory is required")
-        if loss != "softmax":
-            raise ValueError(f"loss '{loss}' is not ported yet (ported: "
-                             f"softmax)")
-        if not layers or layers[-1]["type"] != "softmax":
+        if loss not in ("softmax", "mse"):
+            raise ValueError(f"unknown loss '{loss}' (softmax or mse)")
+        last = layers[-1]["type"] if layers else None
+        if loss == "softmax" and last != "softmax":
             raise ValueError("a softmax workflow ends with a 'softmax' "
                              "layer")
+        if loss == "mse" and last == "softmax":
+            # GDSoftmax is linear: it takes the softmax evaluator's
+            # folded derivative (p − t) as the error at the logits
+            raise ValueError("loss 'mse' is not ported over a 'softmax' "
+                             "layer, whose backward takes the softmax "
+                             "evaluator's error at the logits")
         super().__init__(workflow, name=name, **kwargs)
         self.layers_config = list(layers)
         self.loss = loss
@@ -116,10 +146,20 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.forwards = torch.nn.ModuleList()
         self.gds = torch.nn.ModuleList()
         self.link_forwards()
-        self.link_evaluator()
+        self.link_evaluator(**(evaluator_config or {}))
         self.link_decision(**(decision_config or {}))
         self.link_gds()
         self.link_loop()
+        self.lr_adjuster: LearningRateAdjust | None = None
+        if lr_adjuster_config is None and any(
+                key in spec.get("<-", {}) for spec in self.layers_config
+                for key in ("lr_policy", "bias_lr_policy")):
+            lr_adjuster_config = {}  # a layer's own policy implies one
+        if lr_adjuster_config is not None:
+            self.link_lr_adjuster(**lr_adjuster_config)
+        # after the adjuster (C9): a snapshot holds the iteration count
+        # the step it closes has reached, so a resume goes on at the
+        # rate the uninterrupted run takes
         self.snapshotter: Snapshotter | None = None
         if snapshotter_config is not None:
             self.link_snapshotter(**snapshotter_config)
@@ -141,15 +181,24 @@ class StandardWorkflow(AcceleratedWorkflow):
             self.forwards.append(unit)
             prev = unit
 
-    def link_evaluator(self) -> None:
-        ev = EvaluatorSoftmax(self, name="evaluator")
-        ev.link_attrs(self.forwards[-1], "output", "max_idx")
-        ev.link_attrs(self.loader, ("labels", "minibatch_labels"),
-                      "minibatch_valid", "minibatch_class")
+    def link_evaluator(self, **config) -> None:
+        last = self.forwards[-1]
+        if self.loss == "softmax":
+            ev = EvaluatorSoftmax(self, name="evaluator", **config)
+            ev.link_attrs(last, "output", "max_idx")
+            ev.link_attrs(self.loader, ("labels", "minibatch_labels"),
+                          "minibatch_valid", "minibatch_class")
+        else:
+            # an autoencoder's target: the normalized input minibatch
+            ev = EvaluatorMSE(self, name="evaluator", **config)
+            ev.link_attrs(last, "output")
+            ev.link_attrs(self.loader, ("target", "minibatch_data"),
+                          "minibatch_valid", "minibatch_class")
         self.evaluator = ev
 
     def link_decision(self, **config) -> None:
-        self.decision = DecisionGD(self, name="decision", **config)
+        cls = DecisionGD if self.loss == "softmax" else DecisionMSE
+        self.decision = cls(self, name="decision", **config)
         self.decision.loader = self.loader
         self.decision.evaluator = self.evaluator
 
@@ -160,10 +209,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         next_gd = None
         for i, fwd in enumerate(reversed(self.forwards)):
             spec = self.layers_config[len(self.forwards) - 1 - i]
+            gd_kwargs = {k: v for k, v in spec.get("<-", {}).items()
+                         if k not in ("lr_policy", "bias_lr_policy")}
             unit = gd_for(type(fwd))(
                 fwd, workflow=self,
-                need_err_input=(i != len(self.forwards) - 1),
-                **spec.get("<-", {}))
+                need_err_input=(i != len(self.forwards) - 1), **gd_kwargs)
             unit.link_attrs(fwd, "input", "output")
             if next_gd is None:
                 unit.link_attrs(self.evaluator, "err_output")
@@ -217,6 +267,24 @@ class StandardWorkflow(AcceleratedWorkflow):
         self._relink_end_point_last()
         self.snapshotter.gate_skip = Bool._derived(
             lambda: not decision.improved)
+
+    def link_lr_adjuster(self, lr_policy=None, bias_lr_policy=None) -> None:
+        """A :class:`LearningRateAdjust` after the decision over the
+        units that have weights; a layer's ``lr_policy`` and
+        ``bias_lr_policy`` in its ``"<-"`` dict override the arguments
+        here, which are the defaults."""
+        adj = LearningRateAdjust(self, name="lr_adjuster")
+        adj.loader = self.loader
+        for i, gd_unit in enumerate(self.gds):
+            if isinstance(gd_unit, WeightlessGradientUnit):
+                continue  # no rate to schedule
+            spec = self.layers_config[i].get("<-", {})
+            adj.add_gd_unit(
+                gd_unit, lr_policy=spec.get("lr_policy", lr_policy),
+                bias_lr_policy=spec.get("bias_lr_policy", bias_lr_policy))
+        adj.link_from(self.decision)
+        self._relink_end_point_last()
+        self.lr_adjuster = adj
 
     def hot_chain_units(self) -> list:
         """The per-minibatch hot chain in the region's order."""
@@ -291,8 +359,10 @@ class StandardWorkflow(AcceleratedWorkflow):
         loader's device schedule gives each step its minibatch, the seed
         chains and the evaluator's sums advance on the device.  A chunk
         never crosses a class segment or an epoch, so the decision and
-        the units after it (the snapshotter) fire where they would.
-        With one step a dispatch, or a loader whose schedule is not on
+        the units after it (the snapshotter) fire where they would.  A
+        learning-rate schedule is the exception, as in the reference: it
+        writes its rate once a chunk, so the rate is constant within a
+        chunk.  With one step a dispatch, or a loader whose schedule is not on
         the device, this is :meth:`run`."""
         region = self.region
         loader = self.loader
@@ -301,8 +371,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         if steps_per_dispatch <= 1 or not loader.device_schedule:
             return self.run()
         decision = self.decision
+        adjuster = self.lr_adjuster
         side_units = [u for u in decision.links_to
-                      if u is not self.repeater and u is not self.end_point]
+                      if u not in (self.repeater, self.end_point, adjuster)]
         self._begin_run()
         chunks = 0
         with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow",
@@ -316,6 +387,11 @@ class StandardWorkflow(AcceleratedWorkflow):
                     loader.run()
                     k += 1
                 region.run_chunk(k)
+                if adjuster is not None and cls == TRAIN:
+                    # the rate of the next chunk's first step, held
+                    # through that chunk (the reference's granularity)
+                    adjuster._n_iterations += k - 1
+                    adjuster._fire()
                 decision._fire()
                 for unit in side_units:
                     if not unit.gate_block and not unit.gate_skip:

@@ -30,8 +30,8 @@ from __future__ import annotations
 import torch
 
 from znicz_tpu_torch.ops.fused_kernels import dropout_apply
-from znicz_tpu_torch.ops.nn_units import (Forward, GradientDescentBase,
-                                          Stochastic)
+from znicz_tpu_torch.ops.nn_units import (Forward, Stochastic,
+                                          WeightlessGradientUnit)
 
 
 class DropoutForward(Stochastic, Forward):
@@ -61,7 +61,7 @@ class DropoutForward(Stochastic, Forward):
                              self.dropout_ratio).to(self.output_store_dtype)
 
 
-class DropoutBackward(GradientDescentBase):
+class DropoutBackward(WeightlessGradientUnit):
     """The error through the forward's mask, regenerated from its seed
     (weightless: nothing to update)."""
 

@@ -1,27 +1,38 @@
-"""Softmax evaluator: the backward chain's seed error and the quality
-counters (port of ``znicz_tpu/ops/evaluator.py``).
+"""Evaluators: the backward chain's seed error and the quality counters
+(port of ``znicz_tpu/ops/evaluator.py``).
 
-``EvaluatorSoftmax`` is a unit.  It takes the softmax output ``p``
-(f32) and the argmax from the last forward (``output``, ``max_idx``),
-and the labels, the count of valid samples and the minibatch class
-from the loader (``labels``, ``minibatch_valid``, ``minibatch_class``),
-and gives
+Both are units.  They take the last forward's ``output`` and, from the
+loader, the count of valid samples and the minibatch class
+(``minibatch_valid``, ``minibatch_class``).  The valid count is a device
+tensor (the last minibatch of a class is short) and the class is part
+of the region's key, so a captured graph bakes in neither.  Their epoch
+sums live on the device, so the decision reads them once an epoch, not
+once a step, and go into a snapshot and come back from it.
+
+``EvaluatorSoftmax`` also takes the argmax (``max_idx``) and the labels
+(``labels``), and gives
 
 - ``err_output = mask·(p − onehot(t)) / max(valid, 1)`` — the combined
   softmax + cross-entropy derivative with respect to the logits, zero on
   the padded tail of a short minibatch;
 - ``n_err`` — mispredictions among the valid samples;
 - ``epoch_n_err`` and ``epoch_loss`` — per-class (test, validation,
-  train) error counts and summed cross-entropy ``−log p(true)`` for the
-  epoch, accumulated on the device so the decision unit reads them
-  once per epoch, not once per step.  A non-finite step loss is left
-  out of the accumulator, as in the reference.
+  train) error counts and summed cross-entropy ``−log p(true)``; a
+  non-finite step loss is left out of the sum, as in the reference;
+- with ``compute_confusion``, ``confusion_matrix``: (3, C, C) int32
+  counts by (class, true label, prediction).
 
-The valid count is a device tensor (the last minibatch of a class is
-short) and the class is part of the region's key, so a captured graph
-bakes in neither.  The two epoch accumulators go into a snapshot and
-come back from it.  The confusion matrix and ``EvaluatorMSE`` arrive
-with later slices.
+``EvaluatorMSE`` takes the ``target`` (the loader's normalized
+``minibatch_data`` for an autoencoder) and gives
+
+- ``err_output = mask·(y − t)·2 / max(valid, 1)``;
+- ``metrics`` — the step's summed squared error;
+- ``epoch_sse`` — per-class sums of it, a non-finite step left out.
+
+Its math is f32 whatever the activations are stored in: the sum over a
+minibatch would lose small terms in bf16, and the decision selects
+models on it.  The reference's fault-injection and anomaly-guard hooks
+are not ported with them.
 """
 
 from __future__ import annotations
@@ -32,15 +43,54 @@ import torch
 from znicz_tpu_torch.accelerated_units import AcceleratedUnit
 
 
-class EvaluatorSoftmax(AcceleratedUnit):
-    """Softmax cross-entropy evaluator."""
+class EvaluatorBase(AcceleratedUnit):
+    """The links and the snapshot protocol the evaluators share."""
+
+    #: the device tensors a snapshot carries (the reference's names)
+    SNAPSHOT_TENSORS: tuple = ()
 
     def __init__(self, workflow=None, name: str = "evaluator") -> None:
         super().__init__(workflow, name=name)
+        self.err_output: torch.Tensor | None = None
+
+    def region_key(self) -> tuple:
+        return (self.minibatch_class,)
+
+    def _valid_mask(self, n_rows: int, device) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+        """``(rows < valid, valid)`` for a minibatch of ``n_rows``."""
+        valid = torch.as_tensor(self.minibatch_valid, device=device)
+        return torch.arange(n_rows, device=device) < valid, valid
+
+    def state_dict(self, allow_collective: bool = False) -> dict:
+        return {name: getattr(self, name).cpu().numpy().copy()
+                for name in self.SNAPSHOT_TENSORS
+                if getattr(self, name) is not None}
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """Adopt the epoch counters of a snapshot (the reference's keys);
+        a key the state lacks keeps its value."""
+        for name in self.SNAPSHOT_TENSORS:
+            t = getattr(self, name)
+            if name in state and t is not None:
+                t.copy_(torch.as_tensor(np.asarray(state[name]).reshape(
+                    t.shape)).to(t.dtype))
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Softmax cross-entropy evaluator."""
+
+    SNAPSHOT_TENSORS = ("epoch_n_err", "epoch_loss", "confusion_matrix")
+
+    def __init__(self, workflow=None, name: str = "evaluator",
+                 compute_confusion: bool = False) -> None:
+        super().__init__(workflow, name=name)
+        self.compute_confusion = bool(compute_confusion)
         self.n_err: torch.Tensor | None = None
         self.epoch_n_err: torch.Tensor | None = None
         self.epoch_loss: torch.Tensor | None = None
-        self.err_output: torch.Tensor | None = None
+        self.confusion_matrix: torch.Tensor | None = None
 
     def initialize(self, device=None, **kwargs) -> None:
         super().initialize(device=device, **kwargs)
@@ -48,9 +98,14 @@ class EvaluatorSoftmax(AcceleratedUnit):
         self.n_err = torch.zeros((), dtype=torch.int32, device=dev)
         self.epoch_n_err = torch.zeros(3, dtype=torch.int32, device=dev)
         self.epoch_loss = torch.zeros(3, dtype=torch.float32, device=dev)
-
-    def region_key(self) -> tuple:
-        return (self.minibatch_class,)
+        if self.compute_confusion:
+            source = self._linked_attrs["output"].source
+            if not source.is_initialized:
+                raise AttributeError(f"{self}: {source} not initialized "
+                                     f"yet")
+            c = int(np.prod(source.output_shape))
+            self.confusion_matrix = torch.zeros((3, c, c), dtype=torch.int32,
+                                                device=dev)
 
     def device_run(self) -> None:
         self.err_output = self.evaluate(
@@ -76,21 +131,48 @@ class EvaluatorSoftmax(AcceleratedUnit):
         loss = (mask * -torch.log(p_true)).sum()
         self.epoch_loss[minibatch_class] += torch.where(
             torch.isfinite(loss), loss, torch.zeros_like(loss))
+        if self.compute_confusion:
+            # masked rows add 0; an atomic add, exact in int32
+            c = p.shape[1]
+            self.confusion_matrix[minibatch_class].view(-1).index_add_(
+                0, labels.long() * c + max_idx.long(), mask.to(torch.int32))
         return err
 
-    #: the counters a snapshot carries (the reference's names)
-    SNAPSHOT_TENSORS = ("epoch_n_err", "epoch_loss")
 
-    def state_dict(self, allow_collective: bool = False) -> dict:
-        return {name: getattr(self, name).cpu().numpy().copy()
-                for name in self.SNAPSHOT_TENSORS}
+class EvaluatorMSE(EvaluatorBase):
+    """Mean-squared-error evaluator (regression, autoencoders)."""
+
+    SNAPSHOT_TENSORS = ("epoch_sse",)
+
+    def __init__(self, workflow=None, name: str = "evaluator") -> None:
+        super().__init__(workflow, name=name)
+        self.metrics: torch.Tensor | None = None
+        self.epoch_sse: torch.Tensor | None = None
+
+    def initialize(self, device=None, **kwargs) -> None:
+        super().initialize(device=device, **kwargs)
+        dev = self.torch_device
+        self.metrics = torch.zeros((), dtype=torch.float32, device=dev)
+        self.epoch_sse = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    def device_run(self) -> None:
+        self.err_output = self.evaluate(self.output, self.target,
+                                        self.minibatch_class)
 
     @torch.no_grad()
-    def load_state(self, state: dict) -> None:
-        """Adopt the epoch counters of a snapshot (the reference's keys);
-        a key the state lacks keeps its value."""
-        for name in self.SNAPSHOT_TENSORS:
-            if name in state:
-                t = getattr(self, name)
-                t.copy_(torch.as_tensor(np.asarray(state[name]).reshape(
-                    t.shape)).to(t.dtype))
+    def evaluate(self, output: torch.Tensor, target: torch.Tensor,
+                 minibatch_class: int) -> torch.Tensor:
+        """One minibatch: returns ``err_output`` (f32, the output's
+        shape) and writes the step's summed squared error into
+        ``metrics``."""
+        y = output.float()
+        batch = y.shape[0]
+        t = target.reshape(batch, -1).float()
+        mask, valid = self._valid_mask(batch, y.device)
+        diff = mask[:, None] * (y.reshape(batch, -1) - t)
+        err = (diff * (2.0 / valid.clamp(min=1).float())).reshape(y.shape)
+        sse = (diff * diff).sum()
+        self.metrics.copy_(sse)
+        self.epoch_sse[minibatch_class] += torch.where(
+            torch.isfinite(sse), sse, torch.zeros_like(sse))
+        return err

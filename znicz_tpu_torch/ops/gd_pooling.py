@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from znicz_tpu_torch.ops.nn_units import GradientDescentBase
+from znicz_tpu_torch.ops.nn_units import WeightlessGradientUnit
 from znicz_tpu_torch.ops.pooling import (AvgPooling, MaxAbsPooling,
                                          MaxPooling, StochasticPooling)
 
 
-class GDPoolingBase(GradientDescentBase):
+class GDPoolingBase(WeightlessGradientUnit):
     """Weightless backward in f32: ``err_output`` → ``err_input``."""
 
     @torch.no_grad()
@@ -46,7 +46,7 @@ class GDPoolingBase(GradientDescentBase):
         raise NotImplementedError
 
 
-class GDMaxPooling(GradientDescentBase):
+class GDMaxPooling(WeightlessGradientUnit):
     """Scatter of the error to the forward's winners, summed in the
     activation dtype (as the reference's select-and-scatter sums, which
     AlexNet's bf16 step is held to)."""

@@ -53,7 +53,8 @@ from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.prng import SeedChain
 
-__all__ = ["Forward", "GradientDescentBase", "Stochastic", "gd_for"]
+__all__ = ["Forward", "GradientDescentBase", "Stochastic",
+           "WeightlessGradientUnit", "gd_for"]
 
 
 class ModuleUnit(AcceleratedUnit, nn.Module):
@@ -322,6 +323,11 @@ class GradientDescentBase(ModuleUnit):
         self.gradient_clip = gradient_clip
         self.need_err_input = need_err_input
         self.err_input: torch.Tensor | None = None
+        #: ``[lr, lr_bias]`` on the device (f32), None until a
+        #: learning-rate schedule claims it (:meth:`claim_lr_state`); the
+        #: update then reads the rates from it, so a captured step takes
+        #: the rate the schedule wrote before each replay
+        self.register_buffer("lr_state", None)
         if forward_unit.input_shape is not None:
             self.bind_forward()
 
@@ -340,6 +346,44 @@ class GradientDescentBase(ModuleUnit):
                                  f"initialized yet")
         self.compute_dtype = self.forward_unit.compute_dtype
         self.bind_forward()
+
+    @torch.no_grad()
+    def claim_lr_state(self) -> None:
+        """Give the unit its ``lr_state`` (once), holding
+        ``[learning_rate, learning_rate_bias]`` on the forward's
+        device."""
+        if self.lr_state is None:
+            self.lr_state = torch.tensor(
+                [self.learning_rate, self.learning_rate_bias],
+                dtype=torch.float32,
+                device=self.forward_unit.weights.device)
+
+    @torch.no_grad()
+    def write_lr_state(self, lr: float, lr_bias: float) -> None:
+        """Both rates into ``lr_state`` in place, as f32 (the tensor a
+        captured step reads keeps its address).  Each slot is a fill
+        whose value travels with its launch: no host buffer, no sync."""
+        self.lr_state[0] = lr
+        self.lr_state[1] = lr_bias
+
+    def _lr(self):
+        """The weights' rate: a 0-d device tensor when a schedule holds
+        ``lr_state``, else the float."""
+        return self.learning_rate if self.lr_state is None \
+            else self.lr_state[0]
+
+    def _lr_bias(self):
+        return self.learning_rate_bias if self.lr_state is None \
+            else self.lr_state[1]
+
+    @torch.no_grad()
+    def load_state(self, state: dict) -> None:
+        """As :meth:`ModuleUnit.load_state`, but ``lr_state`` may be
+        missing: its schedule writes it again from its own iteration
+        count (``LearningRateAdjust.load_state``)."""
+        if self.lr_state is not None and "lr_state" not in state:
+            state = {**state, "lr_state": self.lr_state.cpu().numpy()}
+        super().load_state(state)
 
     @property
     def opt_state_dtype(self) -> torch.dtype:
@@ -401,9 +445,11 @@ class GradientDescentBase(ModuleUnit):
 
     @torch.no_grad()
     def apply_param(self, param: torch.Tensor, grad: torch.Tensor,
-                    acc: torch.Tensor | None, decay: float, lr: float,
-                    moment: float) -> None:
-        """Update one parameter tensor in place from its f32 gradient."""
+                    acc: torch.Tensor | None, decay: float,
+                    lr: float | torch.Tensor, moment: float) -> None:
+        """Update one parameter tensor in place from its f32 gradient;
+        ``lr`` is a float or a 0-d f32 device tensor (the same f32
+        multiply)."""
         g = self._regularized(self._clipped(grad.float()), param, decay)
         if moment:
             # f32 math whatever the accumulator stores; the weight takes
@@ -418,10 +464,21 @@ class GradientDescentBase(ModuleUnit):
                       acc: str = "accumulated_gradient_weights") -> None:
         self.apply_param(getattr(self.forward_unit, param), grad,
                          getattr(self, acc), self.weights_decay,
-                         self.learning_rate, self.gradient_moment)
+                         self._lr(), self.gradient_moment)
 
     def apply_bias(self, grad: torch.Tensor, param: str = "bias",
                    acc: str = "accumulated_gradient_bias") -> None:
         self.apply_param(getattr(self.forward_unit, param), grad,
                          getattr(self, acc), self.weights_decay_bias,
-                         self.learning_rate_bias, self.gradient_moment_bias)
+                         self._lr_bias(), self.gradient_moment_bias)
+
+
+class WeightlessGradientUnit(GradientDescentBase):
+    """Base of the backward units of weightless forwards (activations,
+    pooling, dropout, LRN): ``err_output → err_input`` only, no
+    learning rate, so no schedule claims them.  A ``learning_rate`` in
+    their ``"<-"`` config is dropped, as in the reference."""
+
+    def __init__(self, forward_unit: Forward, *args, **kwargs) -> None:
+        kwargs.pop("learning_rate", None)
+        super().__init__(forward_unit, *args, **kwargs)

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from znicz_tpu_torch.ops.fused_kernels import lrn_backward, lrn_forward
-from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
+from znicz_tpu_torch.ops.nn_units import Forward, WeightlessGradientUnit
 
 
 class LRNormalizerForward(Forward):
@@ -54,7 +54,7 @@ class LRNormalizerForward(Forward):
         return y.to(self.output_store_dtype)
 
 
-class LRNormalizerBackward(GradientDescentBase):
+class LRNormalizerBackward(WeightlessGradientUnit):
     """The LRN's analytic gradient through the fused kernel (weightless:
     nothing to update)."""
 

@@ -85,10 +85,15 @@ class Snapshotter(Unit):
         self._fire_count = 0
 
     def snapshot_suffix(self) -> str:
+        """The best validation error (``DecisionGD``) or MSE
+        (``DecisionMSE``) so far, as the reference names its files."""
         d = self.decision
-        if d is not None and d.min_validation_n_err_pt is not None \
-                and d.loader is not None:
+        if d is not None and getattr(d, "min_validation_n_err_pt", None) \
+                is not None and d.loader is not None:
             return f"{d.min_validation_n_err_pt:.2f}pt"
+        if d is not None and getattr(d, "min_validation_mse", None) \
+                is not None:
+            return f"{d.min_validation_mse:.6f}mse"
         return f"e{self._fire_count}"
 
     def run(self) -> None:
