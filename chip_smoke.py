@@ -141,8 +141,39 @@ Phases (any failure raises and exits non-zero):
    floats, frozen in the capture (Wine); an adjuster that rebinds
    ``lr_state`` must raise at the next replay.  The phase prints which
    Wine data the card used (the UCI set needs scikit-learn).
+10. the token LM and the LSTM chain, bf16: the byte LM
+   (``benchmarks/serve_bench.py``'s ``train_and_export_lm`` chain at the
+   sequence stack's widths, a layer_norm before the head: embedding
+   (256, 512) → pos_encoding → causal attention, 8 heads of 64 →
+   layer_norm → last_token → softmax over 256; T=2048, B=16, the
+   reference's synthetic next-token task from a seed) trained eager and
+   then graphed, 2 + 10 steps each: B7–B9 causal, B5, B6 and B4 at
+   (16, 256) once a step (the graphed counts through the replay
+   accounting), step time, tokens/s, MFU, per-unit times, busy share, top
+   kernels, peak memory; graphed and eager in turns; 3 graphed steps
+   against 3 eager from one seed (2⁻⁸) with the embedding's update left
+   out of the capture planted; one step at B=2 against the CPU
+   (``TRAIN_STEP_TOL``); the embedding's gradient the same bits on
+   reruns.  Then ``run_accumulated(4)`` at 16 rows a microbatch,
+   graphed, for one epoch: captures for validation, accumulate and
+   apply, flat after the first optimizer step; B7–B9 4 times an
+   optimizer step; the parameters after 3 optimizer steps against a
+   fused run of 64-row minibatches (``LM_ACCUM_TOL``), graphed against
+   eager (2⁻⁸), and two planted faults caught (the apply phase not
+   dividing by M, accumulate phases that write the parameters); the
+   optimizer step's time beside the fused step's.  Then the trained LM
+   exported (``kind`` "lm", the reference's ``sequence`` block, written
+   out here as ``LM_SEQUENCE``) and served through
+   ``ServingEngine(max_batch=16)`` with 1, 3 and 16 rows of 2048 ids (B7
+   causal, B5 and B4 on every dispatch, the 1-row reply against the CPU
+   within ``SLICE_TOL``, p50 and rows/s).  Then the LSTM chain, embedding
+   (256, 512) → lstm (512) → softmax (256) at T=256 (the recurrence is
+   serial), eager and graphed, timed, graphed against eager, one step
+   against the CPU, B4 counted, the embedding's gradient rerun; and one
+   train step of conv → to_sequence → attention → softmax (bf16) against
+   the CPU.
 
-Each path of phases 3–9 runs with every launch counter set to 0 just
+Each path of phases 3–10 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -157,6 +188,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import itertools
@@ -284,7 +316,7 @@ ATTN_CASES = (
     ("serving", "bfloat16", BATCH, SEQ, SEQ, HEADS, DIM // HEADS, False,
      0, 0, ""),
     ("causal", "bfloat16", BATCH, SEQ, SEQ, HEADS, DIM // HEADS, True, 0, 0,
-     None),
+     "_causal"),
     ("dh128", "bfloat16", 4, SEQ, SEQ, 4, 128, False, 0, 0, None),
     ("dh128_causal", "bfloat16", 4, SEQ, SEQ, 4, 128, True, 0, 0, None),
     # keys placed after the first 512 queries: those rows are fully
@@ -361,7 +393,8 @@ FWD_TIMED_ONLY = ("dh128",)
 ATTN_OUT_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 ATTN_LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 #: kernel row suffix → the variant its launches are counted under
-ROW_VARIANT = {"": "bf16", "_f32": "f32", "_dh32": "dh32",
+ROW_VARIANT = {"": "bf16", "_causal": "causal", "_f32": "f32",
+               "_dh32": "dh32",
                "_dh256": "dh256", "_f32_dh256": "f32_dh256",
                "_wide": "wide", "_f32_wide": "f32_wide"}
 #: kernel row suffix → the (forward, backward) sources of its kernels
@@ -894,6 +927,8 @@ LRN_CFG = {"alpha": 1e-4, "beta": 0.75, "k": 2.0}
 CIFAR_BATCH = 100
 #: the Wine sample's minibatch (phase 9), the B4 row of its head
 WINE_BATCH = 10
+#: the byte LM's vocabulary (phase 10): its head's B4 row at (16, 256)
+LM_VOCAB = 256
 CIFAR_LRN1, CIFAR_LRN2 = CIFAR_BATCH * 16 * 16, CIFAR_BATCH * 8 * 8
 CIFAR_LRN_CFG = {"alpha": 5e-5, "beta": 0.75, "k": 2.0}
 #: conv1's and conv2's LRN inputs at the minibatch of phase 5, as rows
@@ -1220,13 +1255,14 @@ SOFTMAX_CASES = (
     ("head_off", ALEX_BATCH + 1, 1000, 1, "register", None),
     ("c1025", 6, 1025, 0, "general", None),
     ("cifar", CIFAR_BATCH, 10, 0, "register", "_cifar"),
-    ("wine", WINE_BATCH, 3, 0, "register", "_wine"))
+    ("wine", WINE_BATCH, 3, 0, "register", "_wine"),
+    ("lm", BATCH, LM_VOCAB, 0, "register", "_lm"))
 #: probabilities against the plain version: f32 exp on both sides and
 #: another summation order of the row sum
 PROB_TOL = 1e-6
 #: softmax row suffix → the class count its launches are counted under
 SOFTMAX_ROW_CLASSES = {"": 1000, "_small": CLASSES, "_cifar": 10,
-                       "_wine": 3}
+                       "_wine": 3, "_lm": LM_VOCAB}
 
 
 def check_softmax_argmax(gen, floor_ms: float) -> dict:
@@ -2550,13 +2586,13 @@ def by_value(frozen: list):
 GRAPH_STEPS, GRAPH_TOL_BF16 = 3, 2.0 ** -8
 
 
-def frozen_update(wf) -> None:
-    """The planted fault: the last unit's gradient step (the head's GD,
-    the first of the backward) runs eagerly but is left out of the
-    capture, so its parameters do not move on a replay and the GDs
-    after it read the error the warm-up left."""
+def frozen_update(wf, index: int = -1) -> None:
+    """The planted fault: a unit's gradient step (by default the last
+    unit's, the head's GD, the first of the backward) runs eagerly but
+    is left out of the capture, so its parameters do not move on a
+    replay and the GDs after it read the error the warm-up left."""
     import torch
-    gd = wf.gds[-1]
+    gd = wf.gds[index]
     device_run = gd.device_run
 
     def skipped_in_capture():
@@ -3088,6 +3124,519 @@ def wine_pass(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 10: the token LM and the LSTM chain
+# ----------------------------------------------------------------------
+#: the byte LM: ``benchmarks/serve_bench.py``'s ``train_and_export_lm``
+#: chain at the sequence stack's widths, a layer_norm before the head;
+#: its train and validation sequences, and its updates
+LM_TRAIN, LM_VALID = 4 * BATCH, 2 * BATCH
+LM_GD = {"learning_rate": 0.01, "gradient_moment": 0.9}
+LM_LAYERS = (
+    {"type": "embedding", "->": {"vocab_size": LM_VOCAB, "dim": DIM},
+     "<-": LM_GD},
+    {"type": "pos_encoding", "->": {}},
+    {"type": "attention", "->": {"n_heads": HEADS, "causal": True},
+     "<-": LM_GD},
+    {"type": "layer_norm", "->": {}, "<-": LM_GD},
+    {"type": "last_token", "->": {}},
+    {"type": "softmax", "->": {"output_sample_shape": LM_VOCAB},
+     "<-": LM_GD})
+#: the sequence block the reference's ``_sequence_meta`` gives for
+#: LM_LAYERS at T = SEQ (``znicz_tpu/export.py:74-113``), written out
+LM_SEQUENCE = {"train_t": SEQ, "vocab": LM_VOCAB, "dim": DIM,
+               "cache": [{"layer": 2, "kind": "attention", "heads": HEADS,
+                          "head_dim": DIM // HEADS, "features": DIM}]}
+#: microbatches of an accumulated optimizer step, and the steps held
+#: against fused 64-row minibatches
+LM_MICRO, LM_ACCUM_STEPS = 4, 3
+#: accumulated against fused, each parameter's ‖accum − fused‖ over its
+#: ‖update‖ after LM_ACCUM_STEPS steps.  Each sample's forward and
+#: backward are the same on both sides (the evaluator's 1/16 and 1/64
+#: scale the errors by powers of two, which bf16 stores exactly); only
+#: the sums over the batch (the weight gradients, the embedding's
+#: scatter, B6's column sums) add in other orders.  That moves the
+#: parameters by f32 ulps, which can flip a bf16 rounding of a later
+#: step's activations or errors: at most 2⁻⁸ of the terms it feeds, in
+#: each step after the first.
+LM_ACCUM_TOL = LM_ACCUM_STEPS * 2.0 ** -8
+#: the LSTM chain's sequence length: its recurrence is serial, an eager
+#: train step ~14,000 launches at T = 256 (~10⁵ at 2048); widths full
+LSTM_SEQ = 256
+LSTM_LAYERS = (
+    {"type": "embedding", "->": {"vocab_size": LM_VOCAB, "dim": DIM},
+     "<-": LM_GD},
+    {"type": "lstm", "->": {"units": DIM}, "<-": LM_GD},
+    {"type": "softmax", "->": {"output_sample_shape": LM_VOCAB},
+     "<-": LM_GD})
+#: conv → to_sequence → attention → softmax, small, bf16: the attention
+#: one head of 32 (the flash kernels' dh-32 instantiation)
+SEQ_CONV_LAYERS = (
+    {"type": "conv", "->": {"n_kernels": 32, "kx": 3, "ky": 3,
+                            "padding": 1}, "<-": LM_GD},
+    {"type": "to_sequence", "->": {}},
+    {"type": "attention", "->": {"n_heads": 1}, "<-": LM_GD},
+    {"type": "softmax", "->": {"output_sample_shape": 10}, "<-": LM_GD})
+
+
+def lm_data(n: int, t: int, seed: int):
+    """The reference's synthetic next-token task: ``x_{t+1} = (x_t + 1)
+    mod V`` from a random start, the label ``(x_0 + T) mod V``; ids as
+    f32, as the loader's float minibatch path carries them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, LM_VOCAB, size=n)
+    x = ((start[:, None] + np.arange(t)[None, :]) % LM_VOCAB)
+    return x.astype(np.float32), ((start + t) % LM_VOCAB).astype(np.int32)
+
+
+def make_lm(x, y, n_train: int, batch: int, device=None, layers=LM_LAYERS,
+            grad_accum: int = 1, max_epochs: int = 10 ** 6,
+            precision: str = "bfloat16"):
+    """A token chain (``layers``) through the port's ``StandardWorkflow``
+    from ``SEED``: the first ``n_train`` samples for training, the rest
+    (if any) for validation; ``grad_accum`` microbatch buffers."""
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    root.common.precision_type = precision
+    root.common.engine.grad_accum = grad_accum
+    prng.seed_all(SEED)
+    valid = ({"valid_data": x[n_train:], "valid_labels": y[n_train:]}
+             if len(x) > n_train else {})
+    wf = StandardWorkflow(
+        name="chip_smoke_lm",
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=x[:n_train], train_labels=y[:n_train],
+            minibatch_size=batch, **valid),
+        layers=[dict(spec) for spec in layers],
+        decision_config={"max_epochs": max_epochs})
+    wf.initialize(device=device)
+    return wf
+
+
+def lm_train_flops(b: int) -> float:
+    """Model FLOPs of one LM train step: the four D×D projections, the
+    score and value products over the visible (causal) pairs and the
+    head at the last position, times three for forward and backward
+    (the embedding's gather and scatter, the encoding and the norms are
+    not counted)."""
+    proj = 4 * 2.0 * b * SEQ * DIM * DIM
+    pairs = SEQ * (SEQ + 1) / 2
+    scores = 2 * 2.0 * b * HEADS * pairs * (DIM // HEADS)
+    head = 2.0 * b * DIM * LM_VOCAB
+    return 3.0 * (proj + scores + head)
+
+
+def lstm_train_flops(b: int) -> float:
+    """Model FLOPs of one LSTM-chain train step: each step's
+    (F+H)×4H product and the head, times three (the backward's
+    recomputed forward not counted)."""
+    return 3.0 * (2.0 * b * LSTM_SEQ * (2 * DIM) * 4 * DIM
+                  + 2.0 * b * DIM * LM_VOCAB)
+
+
+def lm_counts(n_train: int, n_eval: int = 0) -> dict:
+    """The kernels of the byte LM: each once a train step, the forward's
+    once an evaluation step."""
+    fwd = n_train + n_eval
+    return {"flash_attention_fwd_causal": fwd,
+            "flash_attention_dq_causal": n_train,
+            "flash_attention_dkv_causal": n_train,
+            "layer_norm_forward": fwd, "layer_norm_backward": n_train,
+            "softmax_argmax_lm": fwd}
+
+
+def add_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def embedding_rerun(tokens, path: str) -> None:
+    """The embedding's table gradient at the path's (B, T) ids, D wide:
+    the same bits on four reruns (the scatter-add is deterministic),
+    beside the CPU's (``index_add_``, in order) and its time."""
+    import torch
+    from znicz_tpu_torch.ops.embedding import Embedding
+    from znicz_tpu_torch.ops.nn_units import gd_for
+    b, t = tokens.shape
+    fwd = Embedding((t,), torch.bfloat16, vocab_size=LM_VOCAB, dim=DIM)
+    fwd.init_params("cuda")
+    grads = []
+    gd = gd_for(Embedding)(fwd, learning_rate=1.0)
+    gd.apply_weights = grads.append
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    err = torch.randn(b, t, DIM, generator=gen, device="cuda").bfloat16()
+    x = tokens.cuda()
+    for _ in range(5):
+        gd.run(x, err, None)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, grads[0]) for g in grads[1:])
+    cpu = torch.zeros(LM_VOCAB, DIM).index_add_(
+        0, x.cpu().long().reshape(-1), err.float().cpu().reshape(-1, DIM))
+    diff = float((grads[0].cpu() - cpu).abs().max())
+    ms = time_ms(lambda: gd.run(x, err, None), 10)
+    say(f"  {path}: the embedding's gradient ({b}·{t} rows onto "
+        f"{LM_VOCAB}, D={DIM}) the same bits on 4 reruns {same}; against "
+        f"the CPU's in-order sum: max_abs_err {diff:.3g} (bit-equal "
+        f"{diff == 0.0}); the backward {ms:.4f} ms")
+    if not same:
+        raise AssertionError(f"{path}: the embedding's gradient changes "
+                             f"from run to run")
+
+
+def lm_pass(card: str) -> tuple[dict, dict]:
+    """The byte LM at B=16, T=2048, bf16 with its region eager, then
+    graphed: 2 + 10 train steps each, every kernel of the chain once a
+    step (the graphed run's counts through the replay accounting);
+    step time, tokens/s, MFU, the units' device times, busy share, top
+    kernels and peak memory; graphed and eager in turns; 3 graphed steps
+    against 3 eager from one seed (with the embedding's update left out
+    of the capture planted); one step at B=2 against the CPU's; the
+    embedding's gradient the same on a rerun."""
+    import torch
+    x, y = lm_data(LM_TRAIN, SEQ, SEED + 10)
+    warmup, steps = 2, 10
+    n = warmup + steps
+    flops = lm_train_flops(BATCH)
+    counts = {}
+    for mode in ("eager", "graphed"):
+        set_graphs(mode == "graphed")
+        path = "lm" if mode == "eager" else "lm_graphed"
+        torch.cuda.reset_peak_memory_stats()
+        wf = make_lm(x, y, LM_TRAIN, BATCH)
+        reset_counts()
+        step_ms = timed_steps(wf, warmup, steps)
+        counts[mode] = read_counts()
+        expect_counts(path, counts[mode], lm_counts(n))
+        expect_ln_register(path)
+        expect_new_routes(path)
+        say(f"  byte LM {mode} (V={LM_VOCAB}, D={DIM}, {HEADS} causal "
+            f"heads, T={SEQ}, B={BATCH}, bf16) on {card}: {warmup} + "
+            f"{steps} train steps, step {step_ms:.3f} ms, "
+            f"{BATCH * SEQ / step_ms * 1e3:.0f} tokens/s, MFU "
+            f"{flops / (step_ms * 1e-3) / PEAK_BF16_FLOP_S:.4f} "
+            f"({flops:.4g} FLOP a step, the causal pairs only), peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+            f" GiB, {wf.region.captures} capture(s)")
+        if mode == "eager":
+            step_breakdown(wf)
+            EAGER["lm"] = {"step_ms": step_ms,
+                           "busy": device_busy(wf, window=path)}
+        else:
+            if wf.region.captures != 1:
+                raise AssertionError(f"{path}: {wf.region.captures} "
+                                     f"captures")
+            ab = ab_steps(wf, path, warmup, steps)
+            say("  byte LM in turns: " + ab_line(ab, BATCH * SEQ,
+                                                   "tokens/s"))
+            EAGER["lm_ab"] = ab
+        del wf
+    EAGER["lm_ab"]["trajectory"] = graphed_vs_eager(
+        lambda: make_lm(x, y, LM_TRAIN, BATCH), "lm_graphed",
+        plant=lambda wf: frozen_update(wf, 0),
+        fault="the embedding's update left out of the capture")
+    check_step_on_cpu(lambda device: make_lm(x[:2], y[:2], 2, 2, device),
+                      "the byte LM, B=2, bf16", TRAIN_STEP_TOL)
+    embedding_rerun(torch.from_numpy(x[:BATCH]), "lm")
+    return counts["eager"], counts["graphed"]
+
+
+def lm_params(wf) -> dict:
+    return {f"{u.name}.{name}": p.detach().float().cpu().clone()
+            for u in wf.forwards for name, p in u.named_parameters()}
+
+
+@contextlib.contextmanager
+def accum_fault(kind: str | None):
+    """A context in which the backward units see a wrong accumulation
+    phase (the phase they read when a step runs eagerly or is captured):
+    ``"no division"`` — the apply phase as ``("apply", 1)``, so the sum
+    is not divided by M; ``"accumulate writes"`` — no phase in the
+    accumulate microbatches, so each writes its parameters."""
+    from znicz_tpu_torch.ops import nn_units
+    real = nn_units.current_accum_phase
+
+    def wrong():
+        phase = real()
+        if phase is None or kind is None:
+            return phase
+        if kind == "no division" and phase[0] == "apply":
+            return ("apply", 1)
+        if kind == "accumulate writes" and phase[0] == "accum":
+            return None
+        return phase
+
+    nn_units.current_accum_phase = wrong
+    try:
+        yield
+    finally:
+        nn_units.current_accum_phase = real
+
+
+def lm_accum_pass(card: str) -> dict:
+    """``run_accumulated(4)`` of the byte LM at 16 rows a microbatch for
+    one epoch (two validation minibatches, run unaccumulated, then
+    LM_ACCUM_STEPS optimizer steps), graphed: three captures (validation,
+    accumulate, apply), flat after the first optimizer step; B7–B9
+    4 times an optimizer step; the parameters against a fused run of
+    64-row minibatches within LM_ACCUM_TOL, graphed against eager
+    within 2⁻⁸ (counters equal), and two planted faults caught; the
+    optimizer step's time beside the fused step's."""
+    import torch
+    from znicz_tpu_torch.loader.base import TRAIN
+    n_train = LM_ACCUM_STEPS * LM_MICRO * BATCH
+    x, y = lm_data(n_train + LM_VALID, SEQ, SEED + 11)
+    n_valid = LM_VALID // BATCH
+
+    def accumulated(graphed: bool, fault: str | None = None):
+        set_graphs(graphed)
+        wf = make_lm(x, y, n_train, BATCH, grad_accum=LM_MICRO,
+                     max_epochs=1)
+        captures, marks = [], []
+
+        def hook():
+            captures.append(wf.region.captures)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((wf.loader.minibatch_class, ev))
+
+        wf.add_step_hook(hook)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks.append((None, start))
+        with accum_fault(fault):
+            wf.run_accumulated(LM_MICRO)
+        torch.cuda.synchronize()
+        times = [(cls, a.elapsed_time(b)) for (_, a), (cls, b)
+                 in zip(marks, marks[1:])]
+        return wf, captures, times
+
+    # the fused reference: 64-row minibatches, the same samples a step
+    set_graphs(True)
+    torch.cuda.reset_peak_memory_stats()
+    fused = make_lm(x, y, n_train, LM_MICRO * BATCH, max_epochs=1)
+    init = lm_params(fused)
+    fused.run()
+    fused_mem = torch.cuda.max_memory_allocated()
+    want = lm_params(fused)
+    del fused
+    fused = make_lm(x[:n_train], y[:n_train], n_train, LM_MICRO * BATCH)
+    fused_ms = timed_steps(fused, 2, 6)
+    del fused
+
+    def against_fused(wf) -> tuple[float, str]:
+        got = lm_params(wf)
+        rel = {k: float((got[k] - want[k]).norm()
+                        / (want[k] - init[k]).norm()) for k in want}
+        name = max(rel, key=rel.get)
+        return rel[name], name
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wf, captures, times = accumulated(True)
+    launches = read_counts()
+    accum_mem = torch.cuda.max_memory_allocated()
+    expect_counts("lm_accum", launches, lm_counts(
+        LM_ACCUM_STEPS * LM_MICRO, n_valid))
+    expect_ln_register("lm_accum")
+    expect_new_routes("lm_accum")
+    opt_ms = [ms for cls, ms in times if cls == TRAIN]
+    worst, name = against_fused(wf)
+    graphed_state = run_state(wf)
+    say(f"  run_accumulated({LM_MICRO}) graphed on {card}: {n_valid} "
+        f"validation steps and {LM_ACCUM_STEPS} optimizer steps of "
+        f"{LM_MICRO} × {BATCH} rows; captures after each step {captures} "
+        f"(validation, accumulate, apply); B7–B9 "
+        f"{launches['flash_attention_dq_causal'] / LM_ACCUM_STEPS:.0f} "
+        f"times an optimizer step; optimizer step "
+        f"{' / '.join(f'{v:.3f}' for v in opt_ms)} ms (the first with "
+        f"both captures), {opt_ms[-1] / LM_MICRO:.3f} ms a microbatch, "
+        f"beside a fused 64-row step of {fused_ms:.3f} ms "
+        f"({fused_ms / LM_MICRO:.3f} ms per 16 rows); peak device memory "
+        f"{accum_mem / 2 ** 30:.2f} GiB accumulated, "
+        f"{fused_mem / 2 ** 30:.2f} GiB fused")
+    say(f"  accumulated against fused: worst ‖accum − fused‖ / ‖update‖ "
+        f"{worst:.3g} ({name}; tol {LM_ACCUM_TOL:.4g} = "
+        f"{LM_ACCUM_STEPS} steps × 2⁻⁸)")
+    if captures != [1] * n_valid + [3] * LM_ACCUM_STEPS:
+        raise AssertionError(f"lm_accum: captures {captures}")
+    if worst > LM_ACCUM_TOL:
+        raise AssertionError("lm_accum: the accumulated run leaves the "
+                             "fused one")
+    del wf
+    eager, _, _ = accumulated(False)
+    rel, other = state_diff(run_state(eager), graphed_state)
+    key = max(rel, key=rel.get)
+    say(f"  run_accumulated graphed against eager from one seed: worst "
+        f"‖graphed − eager‖ / ‖eager‖ {rel[key]:.3g} ({key}; tol "
+        f"{GRAPH_TOL_BF16:.3g}), {sum(v == 0.0 for v in rel.values())} of "
+        f"{len(rel)} tensors bit-equal, counters that differ: "
+        f"{sorted(other)}")
+    if rel[key] > GRAPH_TOL_BF16 or other:
+        raise AssertionError("lm_accum: the graphed accumulation leaves "
+                             "the eager one")
+    del eager
+    for fault in ("no division", "accumulate writes"):
+        wf, _, _ = accumulated(True, fault)
+        worst, name = against_fused(wf)
+        say(f"  planted fault ({fault}): worst ‖accum − fused‖ / "
+            f"‖update‖ {worst:.3g} ({name}): "
+            f"{'caught' if worst > LM_ACCUM_TOL else 'not caught'}")
+        if worst <= LM_ACCUM_TOL:
+            raise AssertionError(f"lm_accum: the check passes a planted "
+                                 f"fault ({fault})")
+        del wf
+    set_graphs(True)
+    return launches
+
+
+def lm_serve_pass(card: str) -> dict:
+    """The byte LM trained 4 graphed steps, exported (``kind`` "lm", the
+    reference's ``sequence`` block) and served through
+    ``ServingEngine(max_batch=16)``: ragged requests of 1, 3 and 16 rows
+    of 2048 ids, B7 (causal), B5 and B4 on every dispatch, the 1-row
+    reply against ``ExportedModel.load(path, device="cpu")``, p50 and
+    rows/s."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.export import ExportedModel, read_bundle
+    from znicz_tpu_torch.ops import flash_attention as fa
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    from znicz_tpu_torch.serving import ServingEngine
+    x, y = lm_data(LM_TRAIN + BATCH, SEQ, SEED + 12)
+    wf = make_lm(x[:LM_TRAIN], y[:LM_TRAIN], LM_TRAIN, BATCH)
+    for _ in range(4):
+        wf.step()
+    kernels = (fa.flash_attention_fwd, fk.layer_norm_forward,
+               fk.softmax_argmax)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = wf.export_forward(os.path.join(tmp, "lm.npz"))
+        del wf
+        manifest, _ = read_bundle(path)
+        say(f"  export_forward: kind {manifest['kind']!r}, sequence "
+            f"{manifest.get('sequence')}")
+        if manifest["kind"] != "lm" or manifest.get("sequence") \
+                != LM_SEQUENCE:
+            raise AssertionError("the LM's bundle is not the reference's "
+                                 "lm bundle")
+        requests = x[LM_TRAIN:]
+        reset_counts()
+        eng = ServingEngine(path, max_batch=BATCH, max_delay_ms=2.0)
+        try:
+            eng.start()
+            replies = {}
+            for n in (1, 3, BATCH):
+                before = [k.launches for k in kernels]
+                reply = eng(requests[:n], timeout=300)
+                rose = [k.launches - b for k, b in zip(kernels, before)]
+                say(f"  request of {n} rows of {SEQ} ids → reply "
+                    f"{reply.shape}, launches "
+                    f"{dict(zip((k.__name__ for k in kernels), rose))}")
+                if any(r < 1 for r in rose):
+                    raise AssertionError(f"lm_serve: a kernel did not "
+                                         f"launch on the {n}-row dispatch")
+                if reply.shape != (n, LM_VOCAB) \
+                        or not np.isfinite(reply).all() \
+                        or np.abs(reply.sum(axis=1) - 1.0).max() > 1e-4:
+                    raise AssertionError(f"lm_serve: bad {n}-row reply")
+                replies[n] = reply
+            lat, rate = closed_loop(eng, requests)
+            launches = read_counts()
+            expect_ln_register("lm_serve")
+            expect_new_routes("lm_serve")
+            if launches["flash_attention_fwd_causal"] \
+                    != fa.flash_attention_fwd.launches:
+                raise AssertionError("lm_serve: a flash forward that is "
+                                     "not causal")
+            say(f"  served 30 sequential requests (1/3/16 rows) on {card}: "
+                f"p50 latency {1e3 * lat[len(lat) // 2]:.3f} ms, "
+                f"{rate:.1f} rows/s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        finally:
+            eng.shutdown()
+        cpu = ExportedModel.load(path, device="cpu")
+        want = cpu(requests[:1])
+    err = float(np.abs(want - replies[1]).max())
+    say(f"  1-row reply vs ExportedModel(device='cpu'): max_abs_err "
+        f"{err:.3g} (tol {SLICE_TOL}), kind {cpu.kind!r}")
+    if err > SLICE_TOL or cpu.kind != "lm":
+        raise AssertionError("lm_serve: the card's reply disagrees with "
+                             "the CPU's")
+    return launches
+
+
+def lstm_pass(card: str) -> dict:
+    """embedding (256, 512) → lstm (512) → softmax (256), B=16, T=256,
+    bf16: 1 + 3 train steps eager, then 1 + 5 graphed, B4 once a step;
+    3 graphed steps against 3 eager (with the head's update left out of
+    the capture planted); one step at B=2 against the CPU's; the
+    embedding's gradient the same on a rerun."""
+    import torch
+    x, y = lm_data(LM_TRAIN, LSTM_SEQ, SEED + 13)
+    flops = lstm_train_flops(BATCH)
+    counts = []
+    for mode, warmup, steps in (("eager", 1, 3), ("graphed", 1, 5)):
+        set_graphs(mode == "graphed")
+        torch.cuda.reset_peak_memory_stats()
+        wf = make_lm(x, y, LM_TRAIN, BATCH, layers=LSTM_LAYERS)
+        reset_counts()
+        t0 = time.perf_counter()
+        step_ms = timed_steps(wf, warmup, steps)
+        host_s = time.perf_counter() - t0
+        counts.append(read_counts())
+        expect_counts(f"lstm {mode}", counts[-1],
+                      {"softmax_argmax_lm": warmup + steps})
+        expect_new_routes("lstm")
+        say(f"  LSTM chain {mode} (V={LM_VOCAB}, D=H={DIM}, T={LSTM_SEQ}, "
+            f"B={BATCH}, bf16) on {card}: {warmup} + {steps} train steps "
+            f"in {host_s:.2f} s on the host clock, step {step_ms:.3f} ms, "
+            f"{BATCH * LSTM_SEQ / step_ms * 1e3:.0f} tokens/s, MFU "
+            f"{flops / (step_ms * 1e-3) / PEAK_BF16_FLOP_S:.5f} "
+            f"({flops:.4g} FLOP a step), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"{wf.region.captures} capture(s)")
+        if mode == "graphed":
+            if wf.region.captures != 1:
+                raise AssertionError(f"lstm: {wf.region.captures} captures")
+            busy = device_busy(wf, window="lstm graphed")
+            say(f"  LSTM chain graphed: busy {pct(busy)} in the profiler's "
+                f"window")
+        del wf
+    graphed_vs_eager(lambda: make_lm(x, y, LM_TRAIN, BATCH,
+                                     layers=LSTM_LAYERS), "lstm")
+    check_step_on_cpu(lambda device: make_lm(
+        x[:2], y[:2], 2, 2, device, layers=LSTM_LAYERS),
+        "the LSTM chain, B=2, bf16", TRAIN_STEP_TOL)
+    embedding_rerun(torch.from_numpy(x[:BATCH]), "lstm")
+    return add_counts(*counts)
+
+
+def to_sequence_pass() -> dict:
+    """One train step of conv → to_sequence → attention → softmax (8×8×3
+    images, 32 kernels, one head of 32, 10 classes, bf16) on the card
+    against the CPU's."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 14)
+    x = rng.normal(0.0, 1.0, size=(8, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=8).astype(np.int32)
+    reset_counts()
+
+    def make(device):
+        if device == "cpu":
+            launches.update(read_counts())  # the card's step is done
+        return make_lm(x, y, 8, 8, device, layers=SEQ_CONV_LAYERS)
+
+    launches = {}
+    check_step_on_cpu(make, "conv → to_sequence → attention → softmax, "
+                      "bf16", TRAIN_STEP_TOL)
+    expect_counts("to_sequence", launches, {
+        **{f"flash_attention_{k}_dh32": 1 for k in ("fwd", "dq", "dkv")},
+        "softmax_argmax_cifar": 1})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3204,6 +3753,16 @@ def main() -> int:
     paths["mnist784"] = mnist784_pass(smi)
     paths["wine"] = wine_pass(smi)
     say(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    say("phase 10: the byte LM (eager, graphed, accumulated, served), the "
+        "LSTM chain and to_sequence")
+    t10 = time.perf_counter()
+    paths["lm"], paths["lm_graphed"] = lm_pass(smi)
+    paths["lm_accum"] = lm_accum_pass(smi)
+    paths["lm_serve"] = lm_serve_pass(smi)
+    paths["lstm"] = lstm_pass(smi)
+    paths["to_sequence"] = to_sequence_pass()
+    say(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -28,6 +28,7 @@ single steps.
 """
 
 import contextlib
+import gc
 import re
 
 import numpy as np
@@ -348,6 +349,64 @@ def test_a_replay_binds_its_outputs_and_refuses_a_rebound_input(
     with pytest.raises(RuntimeError, match="b.weights was rebound"):
         region.run()
     assert len(replays) == 4
+
+
+def test_no_garbage_collection_during_a_capture(monkeypatch):
+    """C10: a graph that only a cycle holds (a dropped workflow's) is
+    destroyed when the collector finds it, and destroyed during another
+    capture it invalidates that capture.  With a stand-in for the CUDA
+    graph API: a region dropped while the collector is off has its graph
+    destroyed before the next capture begins, and the collector is off
+    during the capture."""
+    events = []
+
+    class Graph:
+        def replay(self):
+            pass
+
+        def __del__(self):
+            events.append("a graph destroyed")
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def capturing(graph):
+        events.append(("capture", gc.isenabled()))
+        yield
+        events.append("capture ends")
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", capturing)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(JitRegion, "graphed",
+                        property(lambda self: self.mark is None))
+
+    def region(name):
+        unit = _Scale(name=name)
+        unit.initialize(device="cpu")
+        return JitRegion(name, [unit], unit.device)
+
+    old = region("old")
+    old.run()
+    old.loop = old  # held by a cycle only, once dropped
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del old
+        new = region("new")
+        new.run()
+        assert gc.isenabled() is False  # the collector's state comes back
+    finally:
+        if collecting:
+            gc.enable()
+    assert events == [("capture", False), "capture ends",
+                      "a graph destroyed", ("capture", False),
+                      "capture ends"]
 
 
 def _graph(dot: str) -> tuple[set, set]:

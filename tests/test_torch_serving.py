@@ -213,8 +213,8 @@ def test_bundle_checks():
     with pytest.raises(ValueError, match="'deconv' is not ported"):
         layer_type("deconv")
     bad = _manifest("float32")
-    bad["layers"][2]["type"] = "lstm"
-    with pytest.raises(ValueError, match="'lstm' is not ported"):
+    bad["layers"][2]["type"] = "depooling"
+    with pytest.raises(ValueError, match="'depooling' is not ported"):
         ExportedModel(bad, params, device="cpu")
     with pytest.raises(ValueError, match="missing from the bundle"):
         ExportedModel(_manifest("float32"),
@@ -271,6 +271,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
     assert len(files) > 10
+    # the sequence units of the token LM among them
+    assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
+                                "lstm")} <= {p.name for p in files}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -20,6 +20,9 @@
   timing).
 - :meth:`JitRegion.run_chunk` runs n steps with no host bookkeeping and
   no sync between them: n replays of one step's graph.
+- :meth:`JitRegion.run_accum` runs one optimizer step over M
+  microbatches: M − 1 replays of an accumulate-only graph, then one of
+  an apply graph (:func:`current_accum_phase`).
 - :class:`RegionUnit` puts a region into the workflow's graph and
   :class:`AcceleratedWorkflow` owns the device.
 
@@ -44,11 +47,13 @@ another key's graph may have bound its own since.  Every other device
 tensor a capture left bound must still be bound at each replay: a
 replay that finds one rebound raises, naming it, rather than compute on
 the tensor the graph captured.  There is no fallback: a capture that
-fails raises, naming the unit.
+fails raises, naming the unit.  The garbage collector does not run
+during a capture (it could destroy a dropped region's graph there).
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Sequence
 
 import torch
@@ -61,6 +66,36 @@ from znicz_tpu_torch.ops import launch_counts
 from znicz_tpu_torch.units import Unit
 from znicz_tpu_torch.utils.logger import Logger
 from znicz_tpu_torch.workflow import Workflow
+
+
+#: the accumulation phase of the region step being run or captured: None
+#: (a fused step), ``("accum", M)`` (the microbatch's gradients summed
+#: into the backward units' microbatch buffers, no parameter written) or
+#: ``("apply", M)`` (the last microbatch: one optimizer step from the
+#: sum).  A replay runs no Python, so the phase steers only what an
+#: eager run or a capture records: each phase is its own graph.
+_ACCUM_PHASE: tuple[str, int] | None = None
+
+
+def current_accum_phase() -> tuple[str, int] | None:
+    """The accumulation phase of the region step now running
+    (``None``, ``("accum", M)`` or ``("apply", M)``)."""
+    return _ACCUM_PHASE
+
+
+class _Phase:
+    """``with _Phase(phase):`` sets :data:`_ACCUM_PHASE` for a block."""
+
+    def __init__(self, phase: tuple[str, int] | None) -> None:
+        self.phase = phase
+
+    def __enter__(self) -> None:
+        global _ACCUM_PHASE
+        self.prev, _ACCUM_PHASE = _ACCUM_PHASE, self.phase
+
+    def __exit__(self, *exc) -> None:
+        global _ACCUM_PHASE
+        _ACCUM_PHASE = self.prev
 
 
 def precision_dtypes(compute_dtype: torch.dtype
@@ -351,12 +386,21 @@ class JitRegion(Logger):
         graph = torch.cuda.CUDAGraph()
         for vec in self._vectors:
             vec._tracing = True
+        # a graph that nothing holds any more (a dropped workflow's) is
+        # destroyed when the collector finds its cycle: destroyed during
+        # a capture, it calls the driver, which invalidates the capture;
+        # so collect now, and not again until the capture has ended
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with _tracing.TRACER.span(f"capture:{self.name}",
                                       cat="capture"):
                 with torch.cuda.graph(graph):
                     self._run_members(skips, capture=True)
         finally:
+            if collecting:
+                gc.enable()
             for vec in self._vectors:
                 vec._tracing = False
         outputs, fixed = _split(warm, _bindings(self.units), dev)
@@ -442,6 +486,51 @@ class JitRegion(Logger):
                     left -= 1
                 self._replay(entry, left)
         _metrics.region_steps(self.name).inc(n_steps)
+
+    def run_accum(self, n_micro: int) -> None:
+        """One optimizer step over ``n_micro`` consecutive microbatches
+        of the loader's device schedule, with no host work between them:
+        the first ``n_micro − 1`` in the ``("accum", M)`` phase (forwards
+        and gradients; each weighted backward unit adds its gradients to
+        its f32 microbatch buffers and leaves its parameters and momentum
+        alone), the last in the ``("apply", M)`` phase (the mean of the
+        buffered sums through the unchanged update; the buffers zeroed).
+
+        On the card these are two graphs, captured once per key
+        ``(…, "accum", M)`` and ``(…, "apply", M)``: the accumulate graph
+        replayed ``M − 1`` times, the apply graph once, the gather of
+        each replay advancing the schedule's cursor as under
+        :meth:`run_chunk`.  Elsewhere (the CPU, or a step with a
+        ``mark``) the same phases run eagerly.  The caller's contract is
+        :meth:`run_chunk`'s, and the microbatches are full train
+        minibatches of one key; ``StandardWorkflow.run_accumulated``
+        keeps it.  ``n_micro == 1`` is :meth:`run`."""
+        if n_micro == 1:
+            return self.run()
+        key, skips = self._prepare()
+        accum, apply = ("accum", n_micro), ("apply", n_micro)
+        with _tracing.TRACER.span(f"accum:{self.name}", cat="region",
+                                  micro=n_micro):
+            if not self.graphed:
+                for i in range(n_micro):
+                    with _Phase(accum if i < n_micro - 1 else apply):
+                        self._run_eager(skips)
+            else:
+                left = n_micro - 1
+                with _Phase(accum):
+                    entry = self._cache.get(key + accum)
+                    if entry is None:
+                        entry = self._capture(key + accum, skips)
+                        left -= 1
+                if left:
+                    self._replay(entry, left)
+                with _Phase(apply):
+                    entry = self._cache.get(key + apply)
+                    if entry is None:
+                        self._capture(key + apply, skips)
+                    else:
+                        self._replay(entry, 1)
+        _metrics.region_steps(self.name).inc(n_micro)
 
 
 class RegionUnit(AcceleratedUnit):

@@ -20,7 +20,11 @@ bucket keeps one device input buffer, refilled in place per dispatch.
 
 :func:`export_forward` writes a trained port workflow in the same
 format, so the bundle serves through this module and through the
-reference's.
+reference's.  A token-first causal chain (an ``embedding`` first, every
+attention causal, something to cache: an attention or an LSTM) is an
+``"lm"`` bundle with the reference's ``sequence`` block (the decode
+slice's metadata); any other chain a ``"scorer"``.  Both serve one-shot
+here: an LM's reply is the head's distribution over the next token.
 
 Parameters stay float32 in every precision mode.  Hot swap, int8
 bundles and replication over several GPUs belong to later slices.
@@ -57,26 +61,68 @@ def read_bundle(path: str) -> tuple[dict, dict]:
     return manifest, params
 
 
+def _sequence_meta(layers: list[dict], input_shape) -> dict | None:
+    """Decode metadata of a token-first causal chain, from its layer
+    specs (the reference's ``_sequence_meta``, copied): the sequence
+    length it trained at, the vocabulary, the width, and one cache entry
+    a stateful layer (an attention's heads, an LSTM's carries).  None
+    for a chain a decoder cannot drive: no leading ``embedding``, a
+    non-causal attention, or nothing to cache.  It also derives
+    ``kind`` and ``sequence`` for a bundle written before they
+    existed."""
+    if not layers or layers[0]["type"] != "embedding":
+        return None
+    cfg0 = layers[0].get("config", {})
+    vocab = int(cfg0["vocab_size"])
+    dim = int(cfg0["dim"])
+    d = dim
+    cache: list[dict] = []
+    for i, spec in enumerate(layers):
+        kind, cfg = spec["type"], spec.get("config", {})
+        if kind == "attention":
+            if not cfg.get("causal"):
+                return None  # bidirectional: no incremental step
+            heads = int(cfg["n_heads"])
+            cache.append({"layer": i, "kind": "attention",
+                          "heads": heads, "head_dim": d // heads,
+                          "features": d})
+        elif kind == "lstm":
+            hidden = cfg.get("units", cfg.get("output_sample_shape"))
+            cache.append({"layer": i, "kind": "lstm",
+                          "hidden": int(hidden)})
+            d = int(hidden)
+    if not cache:
+        return None
+    return {"train_t": int(input_shape[0]), "vocab": vocab,
+            "dim": dim, "cache": cache}
+
+
 def export_forward(workflow, path: str) -> str:
     """Write the forward chain of a trained
     :class:`~znicz_tpu_torch.models.standard_workflow.StandardWorkflow`
     to ``path`` as the reference's ``export_forward`` does: the
-    manifest (layer types and configs, input geometry, the precision
-    mode it trained under, ``kind`` "scorer") beside the f32
+    manifest (layer types and configs, which parameters each layer
+    has, input geometry, the precision mode it trained under, ``kind``
+    "lm" with its ``sequence`` block or "scorer") beside the f32
     ``layer{i}_{attr}`` arrays in one compressed ``.npz``, written to a
     temporary file and renamed into place.  Returns the path."""
-    layers = [{"type": spec["type"], "config": spec.get("->", {}),
-               "has_weights": True,
-               "has_bias": bool(getattr(unit, "include_bias", False)),
-               "name": unit.name}
-              for spec, unit in zip(workflow.layers_config,
-                                    workflow.forwards)]
+    layers = []
+    for spec, unit in zip(workflow.layers_config, workflow.forwards):
+        params = unit.param_shapes()
+        layers.append({"type": spec["type"], "config": spec.get("->", {}),
+                       "has_weights": "weights" in params,
+                       "has_bias": "bias" in params, "name": unit.name})
+    input_shape = list(workflow.loader.sample_shape)
     manifest = {
         "format": FORMAT_NAME, "version": FORMAT_VERSION,
         "workflow": workflow.name, "loss": workflow.loss,
-        "input_shape": list(workflow.loader.sample_shape),
+        "input_shape": input_shape,
         "dtype": str(workflow.compute_dtype).removeprefix("torch."),
-        "layers": layers, "kind": "scorer"}
+        "layers": layers}
+    seq = _sequence_meta(layers, input_shape)
+    manifest["kind"] = "scorer" if seq is None else "lm"
+    if seq is not None:
+        manifest["sequence"] = seq
     arrays = {f"layer{i}_{attr}": getattr(unit, attr).detach().float()
               .cpu().numpy()
               for i, unit in enumerate(workflow.forwards)
@@ -160,6 +206,25 @@ class ExportedModel(Logger):
     def load(cls, path: str, device=None, **kwargs) -> "ExportedModel":
         manifest, params = read_bundle(path)
         return cls(manifest, params, device=device, **kwargs)
+
+    @property
+    def kind(self) -> str:
+        """``"lm"`` (a token-first causal chain) or ``"scorer"``; a
+        bundle without the key derives it from its layers."""
+        kind = self.manifest.get("kind")
+        if kind is None:
+            kind = "lm" if self.sequence is not None else "scorer"
+        return kind
+
+    @property
+    def sequence(self) -> dict | None:
+        """An LM bundle's decode metadata (``train_t``, ``vocab``,
+        ``dim``, the per-layer cache entries), None for a scorer; derived
+        from the layers for a bundle written without ``kind``."""
+        seq = self.manifest.get("sequence")
+        if seq is None and "kind" not in self.manifest:
+            seq = _sequence_meta(self.manifest["layers"], self.input_shape)
+        return seq
 
     # ------------------------------------------------------------------
     def _build_chain(self) -> torch.nn.ModuleList:

@@ -11,7 +11,9 @@ serve fails when it loads rather than serving something else.
 from __future__ import annotations
 
 from znicz_tpu_torch.ops import (activation, all2all, attention, conv,
-                                 dropout, layer_norm, normalization, pooling)
+                                 dropout, embedding, layer_norm, lstm,
+                                 normalization, pooling, pos_encoding,
+                                 seq_reshape)
 # the backward units register their pairs when imported
 from znicz_tpu_torch.ops import gd, gd_conv, gd_pooling  # noqa: F401
 
@@ -41,6 +43,11 @@ _LAYER_TYPES: dict[str, type] = {
     "activation_mul": activation.ForwardMul,
     "attention": attention.MultiHeadAttention,
     "layer_norm": layer_norm.LayerNorm,
+    "embedding": embedding.Embedding,
+    "pos_encoding": pos_encoding.PositionalEncoding,
+    "to_sequence": seq_reshape.ToSequence,
+    "last_token": seq_reshape.LastToken,
+    "lstm": lstm.LSTM,
 }
 
 

@@ -41,7 +41,8 @@ units take ``forward_mode`` from the loader.
 :meth:`run` steps until the decision completes or :meth:`stop` is
 called, and :meth:`run_chunked` runs up to ``steps_per_dispatch``
 steps of one class a region dispatch (``JitRegion.run_chunk``), with
-the same trajectory.  ``step(mark)`` runs the region's members eagerly
+the same trajectory.  :meth:`run_accumulated` takes one optimizer step
+over M train minibatches a dispatch (``JitRegion.run_accum``).  ``step(mark)`` runs the region's members eagerly
 and calls ``mark(unit_name)`` after each (per-unit timing).
 
 ``initialize()`` builds the units in the reference's order — the loader
@@ -59,9 +60,9 @@ the captured step reads (``lr_state``), once a train step, or once a
 chunk under :meth:`run_chunked`, as in the reference.
 
 Not ported with it (later slices): the anomaly guard (A11), the
-accumulated and pipelined training loops (A1b, A9), the population
-engine's ``promote_lr_leaves`` (A13), the plotters, the image saver and
-the publisher (A12).
+pipelined training loop (A9), the population engine's
+``promote_lr_leaves`` (A13), the plotters, the image saver and the
+publisher (A12).
 """
 
 from __future__ import annotations
@@ -75,12 +76,14 @@ from znicz_tpu_torch.accelerated_units import AcceleratedWorkflow, RegionUnit
 from znicz_tpu_torch.loader.base import TRAIN, Loader
 from znicz_tpu_torch.models.layers import layer_type
 from znicz_tpu_torch.mutable import Bool
+from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.observe import tracing as _tracing
 from znicz_tpu_torch.ops.decision import DecisionGD, DecisionMSE
 from znicz_tpu_torch.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from znicz_tpu_torch.ops.lr_adjust import LearningRateAdjust
 from znicz_tpu_torch.ops.nn_units import WeightlessGradientUnit, gd_for
 from znicz_tpu_torch.units import Repeater
+from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
 
 
@@ -401,6 +404,77 @@ class StandardWorkflow(AcceleratedWorkflow):
                     raise RuntimeError(
                         f"workflow '{self.name}' exceeded max_fires="
                         f"{self._max_fires} chunks (runaway loop?)")
+        self.on_workflow_finished()
+
+    def run_accumulated(self, microbatches: int | None = None) -> None:
+        """Train with microbatch gradient accumulation: every optimizer
+        step takes ``M`` consecutive train minibatches (``microbatches``,
+        by default ``root.common.engine.grad_accum``) in one region
+        dispatch (``JitRegion.run_accum``), so the step's batch is ``M``
+        times the loader's minibatch while the activations stay those of
+        one minibatch.  Each microbatch's gradient is normalized by its
+        own size and the apply phase divides the sum by ``M``, so where
+        the arithmetic is exact the update equals a fused batch of
+        ``M × minibatch_size`` bit for bit.  Validation and test
+        minibatches run unaccumulated, one a dispatch; the learning-rate
+        schedule advances once an optimizer step.
+
+        The backward units must have their microbatch buffers: set
+        ``root.common.engine.grad_accum`` before :meth:`initialize`.
+        The train set must divide into whole accumulated steps, and the
+        loader's schedule must be on the device.  The reference's
+        anomaly guard, ZeRO-1 and SDC fingerprints compose here once
+        they are ported (A9, A11).  ``M == 1`` is :meth:`run`."""
+        region = self.region
+        loader = self.loader
+        if region is None:
+            raise RuntimeError(f"workflow '{self.name}' not initialized")
+        if microbatches is None:
+            microbatches = int(root.common.engine.get("grad_accum", 1) or 1)
+        n_micro = int(microbatches)
+        if n_micro <= 1:
+            return self.run()
+        if not loader.device_schedule:
+            raise RuntimeError(
+                f"workflow '{self.name}': run_accumulated needs a loader "
+                f"whose schedule is on the device (the microbatches of a "
+                f"step run in one dispatch with no host work between)")
+        span = loader.max_minibatch_size * n_micro
+        n_train = int(loader.class_lengths[TRAIN])
+        if n_train % span:
+            raise RuntimeError(
+                f"workflow '{self.name}': a train set of {n_train} does "
+                f"not divide into accumulated steps of "
+                f"{loader.max_minibatch_size} × {n_micro} microbatches: a "
+                f"short last microbatch would break the fixed step")
+        decision = self.decision
+        adjuster = self.lr_adjuster
+        side_units = [u for u in decision.links_to
+                      if u not in (self.repeater, self.end_point, adjuster)]
+        _metrics.grad_accum_microbatches(self.name).set(n_micro)
+        self._begin_run()
+        steps = 0
+        with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow",
+                                  accum=n_micro):
+            while not decision.complete and not self.stopped:
+                loader.run()  # the host's pick (the gather is the region's)
+                if loader.minibatch_class == TRAIN:
+                    for _ in range(n_micro - 1):
+                        loader.run()
+                    region.run_accum(n_micro)
+                    if adjuster is not None:
+                        adjuster._fire()  # one optimizer step, whatever M
+                else:
+                    region.run()
+                decision._fire()
+                for unit in side_units:
+                    if not unit.gate_block and not unit.gate_skip:
+                        unit._fire()
+                steps += 1
+                if self._max_fires is not None and steps > self._max_fires:
+                    raise RuntimeError(
+                        f"workflow '{self.name}' exceeded max_fires="
+                        f"{self._max_fires} steps (runaway loop?)")
         self.on_workflow_finished()
 
     # -- state -----------------------------------------------------------------------

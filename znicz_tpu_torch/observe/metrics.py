@@ -340,6 +340,15 @@ def region_steps(region: str) -> Counter:
         labels=("region",)).labels(region=region)
 
 
+def grad_accum_microbatches(workflow: str) -> Gauge:
+    """Microbatches accumulated on the device an optimizer step
+    (``engine.grad_accum``); 1 means fused batches."""
+    return REGISTRY.gauge(
+        "znicz_grad_accum_microbatches",
+        "Gradient-accumulation microbatches per optimizer step",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
 def graph_captures(region: str) -> Counter:
     """CUDA-graph captures of a region, one per static key: the
     counterpart of the reference's ``xla_compiles("region:<name>")``.

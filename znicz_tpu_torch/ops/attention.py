@@ -152,6 +152,11 @@ class GDMultiHeadAttention(GradientDescentBase):
         forward_unit.keep_graph = True
         forward_unit.input_grad = self.need_err_input
 
+    def micro_accum_params(self) -> list[tuple[str, str]]:
+        # the output projection's pair accumulates too
+        return super().micro_accum_params() + [("wo", "weights_out"),
+                                               ("bo", "bias_out")]
+
     def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
                  y: torch.Tensor | None = None) -> torch.Tensor | None:
         fwd = self.forward_unit

@@ -62,7 +62,8 @@ core, on every device.  Each wrapper counts its launches in
 ``launches`` and, by kernel, in ``launches_by_variant``
 (:data:`VARIANTS`: ``"bf16"`` and ``"f32"``, ``"dh32"``, ``"dh256"``
 and ``"wide"`` for bf16 calls of head dims up to 32, from 129 to 256
-and past 256, and ``"f32_dh256"`` and ``"f32_wide"`` alike).
+and past 256, and ``"f32_dh256"`` and ``"f32_wide"`` alike; a causal
+bf16 call of a head dim from 33 to 128 counts as ``"causal"``).
 
 A wrapper uses its plain version only for tensors on the CPU; a CUDA
 tensor gets the kernel or an error.
@@ -88,7 +89,7 @@ STREAMED_PAST = KERNEL_HEAD_DIMS[-1]
 #: multiple of it
 STREAMED_CHUNK = 128
 #: the kernels' launch counters by variant: operand dtype and width
-VARIANTS = ("bf16", "f32", "dh32", "dh256", "f32_dh256", "wide",
+VARIANTS = ("bf16", "causal", "f32", "dh32", "dh256", "f32_dh256", "wide",
             "f32_wide")
 
 #: operand dtype → (library stem of the forward, of the backward, suffix
@@ -143,11 +144,13 @@ def kernel_head_dim(dh: int) -> int:
     return next(w for w in KERNEL_HEAD_DIMS if w >= dh)
 
 
-def _count(fn, dtype: torch.dtype, width: int) -> None:
+def _count(fn, dtype: torch.dtype, width: int, causal: bool) -> None:
     """One launch of ``fn``'s kernel for ``dtype`` operands of the
     width ``width`` (:func:`kernel_head_dim`)."""
     variant = "wide" if width > STREAMED_PAST else \
         {32: "dh32", 256: "dh256"}.get(width, "bf16")
+    if variant == "bf16" and causal:
+        variant = "causal"
     if dtype == torch.float32:
         variant = {"wide": "f32_wide", "dh256": "f32_dh256"}.get(variant,
                                                                  "f32")
@@ -303,7 +306,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.stride(0), out.stride(1), out.stride(2),
             scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
     _check_launch("flash_attention_fwd", err)
-    _count(flash_attention_fwd, q.dtype, width)
+    _count(flash_attention_fwd, q.dtype, width, causal)
     return out[..., :dh], lse
 
 
@@ -416,7 +419,7 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *ptrs, out.data_ptr(), *geom, strides, *out.stride()[:3],
             scale, int(bool(causal)), int(q_offset), int(k_offset), stream)
     _check_launch("flash_attention_dq", err)
-    _count(flash_attention_dq, q.dtype, width)
+    _count(flash_attention_dq, q.dtype, width, causal)
     return out[..., :q.shape[3]]
 
 
@@ -451,7 +454,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out_strides, scale, int(bool(causal)), int(q_offset),
             int(k_offset), stream)
     _check_launch("flash_attention_dkv", err)
-    _count(flash_attention_dkv, q.dtype, width)
+    _count(flash_attention_dkv, q.dtype, width, causal)
     dh = q.shape[3]
     return dk[..., :dh], dv[..., :dh]
 

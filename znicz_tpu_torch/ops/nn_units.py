@@ -36,9 +36,11 @@ Two precision rules carry over from the reference's XLA path:
 
 :class:`GradientDescentBase` is the reference's update rule, cut to what
 the training paths run (learning rates, L1/L2 decay, momentum,
-gradient-norm clipping); ZeRO-1, the anomaly guard, the SDC fingerprint,
-microbatch accumulation and fp8 belong to later slices.  Momentum is
-stored in bf16 in bf16 mode with its math in f32, as in the reference.
+gradient-norm clipping) and microbatch gradient accumulation
+(``root.common.engine.grad_accum``, :meth:`GradientDescentBase.apply_param`);
+ZeRO-1, the anomaly guard, the SDC fingerprint and fp8 belong to later
+slices.  Momentum is stored in bf16 in bf16 mode with its math in f32,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -49,9 +51,15 @@ from torch import nn
 
 from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
+                                               current_accum_phase,
                                                precision_dtypes)
 from znicz_tpu_torch.utils import prng
+from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.prng import SeedChain
+
+#: microbatches a weighted backward unit accumulates a step for
+#: (``StandardWorkflow.run_accumulated``); 1: fused batches
+register_defaults("common", {"engine": {"grad_accum": 1}})
 
 __all__ = ["Forward", "GradientDescentBase", "Stochastic",
            "WeightlessGradientUnit", "gd_for"]
@@ -333,11 +341,40 @@ class GradientDescentBase(ModuleUnit):
 
     def bind_forward(self) -> None:
         """Allocate what the forward's parameters decide: the momentum
-        buffers (zero), and whatever a subclass keeps beside them."""
+        buffers (zero), the microbatch accumulation buffers, and whatever
+        a subclass keeps beside them."""
         self.alloc_accumulator("accumulated_gradient_weights", "weights",
                                self.gradient_moment)
         self.alloc_accumulator("accumulated_gradient_bias", "bias",
                                self.gradient_moment_bias)
+        self.alloc_micro_accum()
+
+    def micro_accum_params(self) -> list[tuple[str, str]]:
+        """``(suffix, parameter attribute)`` pairs that microbatch
+        accumulation covers; a unit with more parameter pairs
+        (attention's output projection) extends this."""
+        return [("w", "weights"), ("b", "bias")]
+
+    def alloc_micro_accum(self) -> None:
+        """With ``root.common.engine.grad_accum`` > 1: one f32 zero
+        buffer ``micro_accum_<suffix>`` a parameter (the reference's
+        names), which :meth:`apply_param` finds by the parameter.  A
+        weightless unit has none."""
+        #: id(parameter) → its microbatch gradient sum
+        self.__dict__["_micro_accum"] = {}
+        if int(root.common.engine.get("grad_accum", 1) or 1) < 2:
+            return
+        fwd = self.forward_unit
+        if getattr(fwd, "weights", None) is None:
+            return
+        for suffix, attr in self.micro_accum_params():
+            param = getattr(fwd, attr, None)
+            if param is None:
+                continue
+            buf = torch.zeros(param.shape, dtype=torch.float32,
+                              device=param.device)
+            self.register_buffer(f"micro_accum_{suffix}", buf)
+            self._micro_accum[id(param)] = buf
 
     def initialize(self, device=None, **kwargs) -> None:
         super().initialize(device=device, **kwargs)
@@ -379,10 +416,16 @@ class GradientDescentBase(ModuleUnit):
     @torch.no_grad()
     def load_state(self, state: dict) -> None:
         """As :meth:`ModuleUnit.load_state`, but ``lr_state`` may be
-        missing: its schedule writes it again from its own iteration
-        count (``LearningRateAdjust.load_state``)."""
+        missing (its schedule writes it again from its own iteration
+        count, ``LearningRateAdjust.load_state``), and so may the
+        microbatch sums (zero then)."""
         if self.lr_state is not None and "lr_state" not in state:
             state = {**state, "lr_state": self.lr_state.cpu().numpy()}
+        # a state taken between optimizer steps holds zero sums; one
+        # written without accumulation has none
+        state = {**{name: np.zeros(tuple(t.shape), np.float32)
+                    for name, t in self.named_buffers(recurse=False)
+                    if name.startswith("micro_accum_")}, **state}
         super().load_state(state)
 
     @property
@@ -449,7 +492,29 @@ class GradientDescentBase(ModuleUnit):
                     lr: float | torch.Tensor, moment: float) -> None:
         """Update one parameter tensor in place from its f32 gradient;
         ``lr`` is a float or a 0-d f32 device tensor (the same f32
-        multiply)."""
+        multiply).
+
+        In a region step of an accumulated optimizer step
+        (:func:`~znicz_tpu_torch.accelerated_units.current_accum_phase`),
+        an ``("accum", M)`` microbatch adds its gradient to the
+        parameter's f32 sum and returns, leaving the parameter and its
+        momentum as they were; the ``("apply", M)`` microbatch takes
+        ``(sum + grad) / M``, in that order, through the update below and
+        zeroes the sum."""
+        phase = current_accum_phase()
+        if phase is not None:
+            mode, n_micro = phase
+            buf = self._micro_accum.get(id(param))
+            if buf is None:
+                raise RuntimeError(
+                    f"{self}: accumulation phase {phase} but no "
+                    f"microbatch buffer for this parameter; set "
+                    f"root.common.engine.grad_accum before initialize")
+            if mode == "accum":
+                buf.add_(grad.float())
+                return
+            grad = (buf + grad.float()) / n_micro
+            buf.zero_()
         g = self._regularized(self._clipped(grad.float()), param, decay)
         if moment:
             # f32 math whatever the accumulator stores; the weight takes
