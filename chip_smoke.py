@@ -172,8 +172,26 @@ Phases (any failure raises and exits non-zero):
    against the CPU, B4 counted, the embedding's gradient rerun; and one
    train step of conv → to_sequence → attention → softmax (bf16) against
    the CPU.
+11. the A1b options (under a minute): Wine on the numpy oracle
+   (``NumpyDevice``: no region, every unit's ``numpy_run``) against the
+   card, f32, after 3 train steps (``ORACLE_TOL``); ``engine.debug_checks``
+   on the graphed bf16 sequence stack and on AlexNet: 2 + 5 steps with
+   the checks off and, on a second workflow from the same seed, on,
+   every state tensor bit-equal, the flags written a step counted; the
+   checks switched on (one more capture) and off (none); a NaN planted
+   in place in the layer norm's γ (AlexNet: conv1's weights) must raise
+   naming that unit; the step time on beside off;
+   ``engine.fp8_matmul``: ``mxu_dot`` on ``torch._scaled_mm`` against its
+   plain version at MNIST's and the byte LM's product shapes
+   (``FP8_TOL``), timed in CUDA graphs beside the bf16 and f32 products,
+   what ``_scaled_mm`` refuses unpadded, the overflow case (±463.9,
+   ±464, ±464.1, ±inf) against the CPU with a saturating cast planted in
+   place of ``q8``, which must fail it; MNIST 784-100-10 and the byte LM
+   graphed with the lever on, beside their f32 and bf16 steps, every
+   product on ``_scaled_mm``, graphed against eager from one seed with a
+   planted fault caught.
 
-Each path of phases 3–10 runs with every launch counter set to 0 just
+Each path of phases 3–11 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -3637,6 +3655,360 @@ def to_sequence_pass() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 11: the numpy oracle, engine.debug_checks and engine.fp8_matmul
+# ----------------------------------------------------------------------
+#: the numpy oracle against the card, Wine in f32 after 3 train steps:
+#: each parameter's max|card − oracle| over its max|value|.  Both compute
+#: in f32 (TF32 off on the card) and round at the same points; numpy's
+#: BLAS and cuBLAS sum the products in other orders, a few ulps of each
+#: term (the CPU tests measure ~1e-7 against the CPU device)
+ORACLE_TOL = 1e-5
+#: timed steps of each phase-11 workflow, after 2 of warm-up
+CHECK_STEPS = 5
+#: ``fp8.fp8_dot`` on the card against its plain version (the same e4m3
+#: operands multiplied in f32, TF32 off), each element's |difference|
+#: over Σ|a₈||b₈| of its dot product: every e4m3 product is exact, so
+#: only the accumulation differs.  Hopper's fp8 tensor cores add inside
+#: an MMA with about 14 bits of mantissa before cuBLAS promotes the
+#: partial sums to f32 (``use_fast_accum=False``): ~2⁻¹⁴ of the terms
+#: for each of the ≤ 16 additions of a block, 2⁻¹⁰ at most
+FP8_TOL = 2.0 ** -10
+#: the product shapes the lever's paths give ``mxu_dot`` (M, K, N): MNIST
+#: 784-100-10 at B = 100 (both forwards, the explicit GD products δ·Wᵀ
+#: and xᵀ·δ of both layers), the byte LM at B = 16, T = 2048 (the QKV
+#: and output projections, the head, the head's GD products)
+FP8_SHAPES = {"mnist": ((100, 784, 100), (100, 100, 10), (100, 10, 100),
+                        (784, 100, 100), (100, 100, 10)),
+              "lm": ((BATCH * SEQ, DIM, 3 * DIM), (BATCH * SEQ, DIM, DIM),
+                     (BATCH, DIM, LM_VOCAB), (BATCH, LM_VOCAB, DIM),
+                     (DIM, BATCH, LM_VOCAB))}
+
+
+def param_state(wf) -> dict:
+    """Each parameter and momentum tensor of ``wf``'s units, f32 numpy."""
+    return {f"{u.name}.{n}": t.detach().float().cpu().numpy()
+            for u in [*wf.forwards, *wf.gds]
+            for n, t in [*u.named_parameters(recurse=False),
+                         *u.named_buffers(recurse=False)]}
+
+
+def oracle_pass(card: str) -> dict:
+    """Wine on the numpy oracle (``-b numpy``'s device: no region, every
+    unit's ``numpy_run``) and on the card, graphed, from one seed, until
+    3 train steps ran: each parameter within ``ORACLE_TOL``; the oracle
+    launches no kernel, the card B4 (10, 3) once a step."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.backends import NumpyDevice
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.models.samples import wine
+    states, launches, times = {}, {}, {}
+    for device in ("numpy", None):
+        reset_counts()
+        t0 = time.perf_counter()
+        wf = make_mlp(wine, device=device)
+        steps = trained = 0
+        while trained < 3:
+            wf.step()
+            steps += 1
+            trained += wf.loader.minibatch_class == TRAIN
+        if device is None:
+            torch.cuda.synchronize()
+        times[device or "card"] = time.perf_counter() - t0
+        launches[device or "card"] = read_counts()
+        states[device or "card"] = param_state(wf)
+        if device == "numpy" and (wf.region is not None
+                                  or not isinstance(wf.device, NumpyDevice)):
+            raise AssertionError("oracle: the workflow is not on the "
+                                 "numpy oracle")
+    expect_counts("oracle_wine (the oracle)", launches["numpy"], {})
+    expect_counts("oracle_wine (the card)", launches["card"],
+                  {"softmax_argmax_wine": steps})
+    worst = {k: float(np.abs(states["card"][k] - v).max()
+                      / max(float(np.abs(v).max()), 1e-30))
+             for k, v in states["numpy"].items()}
+    name = max(worst, key=worst.get)
+    say(f"  Wine on the numpy oracle against the card ({card}), f32, "
+        f"{steps} steps (3 train): {len(worst)} tensors, worst max|card − "
+        f"oracle| / max|oracle| {worst[name]:.3g} ({name}; tol "
+        f"{ORACLE_TOL}); host time build + steps: oracle "
+        f"{times['numpy']:.2f} s, card {times['card']:.2f} s")
+    if worst[name] > ORACLE_TOL:
+        raise AssertionError("oracle: the card leaves the numpy oracle")
+    return launches["card"]
+
+
+def checks_pass(card: str, path: str, make, per_step: dict,
+                plant_unit: int) -> dict:
+    """``engine.debug_checks`` on a graphed path (``make()`` from one
+    seed, every step a train step): 2 + ``CHECK_STEPS`` steps with the
+    checks off and, on a second workflow, on, every state tensor equal
+    to the bit and the flags written once a member's tensor a step
+    (through the replay accounting); on the first workflow the checks
+    switched on (one more capture) and off again (none); then a NaN
+    planted in place in the weights of forward ``plant_unit`` must
+    raise naming that unit.  The step time with the checks on beside
+    off.  Every B-kernel launch of the path counted (``per_step`` a
+    step)."""
+    import torch
+    from znicz_tpu_torch import accelerated_units as au
+    from znicz_tpu_torch.utils.config import root
+    set_graphs(True)
+    reset_counts()
+    runs, ms, flags = {}, {}, {}
+    for checks in (False, True):
+        root.common.engine.debug_checks = checks
+        wf = make()
+        before = au.nan_flag.launches
+        ms[checks] = timed_steps(wf, 2, CHECK_STEPS)
+        flags[checks] = au.nan_flag.launches - before
+        if wf.region.captures != 1:
+            raise AssertionError(f"{path}: {wf.region.captures} captures")
+        runs[checks] = (wf, run_state(wf))
+    wf = runs[False][0]
+    rel, other = state_diff(runs[False][1], runs[True][1])
+    equal = sum(v == 0.0 for v in rel.values())
+    n_flags = len(runs[True][0].region._flag_owner)
+    del runs
+    root.common.engine.debug_checks = True
+    wf.step()
+    on = wf.region.captures
+    root.common.engine.debug_checks = False
+    wf.step()
+    off = wf.region.captures
+    root.common.engine.debug_checks = True
+    wf.step()  # a replay of the checked graph
+    unit = wf.forwards[plant_unit]
+    with torch.no_grad():
+        unit.weights.view(-1)[0] = float("nan")
+    raised = ""
+    try:
+        wf.step()
+    except RuntimeError as exc:
+        raised = str(exc)
+    root.common.engine.debug_checks = False
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n = 2 * (2 + CHECK_STEPS) + 4
+    expect_counts(path, launches, {k: v * n for k, v in per_step.items()})
+    expect_new_routes(path)
+    say(f"  {path} on {card}: the graphed step with the checks off "
+        f"{ms[False]:.4f} ms, on {ms[True]:.4f} ms ({n_flags} flags "
+        f"laid out, {flags[True] / (2 + CHECK_STEPS):.0f} written a step "
+        f"and one read, {flags[False]} with the checks off); checks on "
+        f"against off over {2 + CHECK_STEPS} steps: {equal} of {len(rel)} "
+        f"tensors bit-equal, counters that differ {sorted(other)}; "
+        f"captures: 1, {on} after the checks went on, {off} after they "
+        f"went off; a NaN planted in {unit.name}'s weights: "
+        + (f"raised: {raised[:160]}" if raised else "not caught"))
+    if equal != len(rel) or other:
+        raise AssertionError(f"{path}: the checked step is not the "
+                             f"unchecked one")
+    if on != 2 or off != 2 or flags[False] or not flags[True]:
+        raise AssertionError(f"{path}: the checks' key: captures {on}, "
+                             f"{off}; flags {flags}")
+    if f"written by unit '{unit.name}'" not in raised \
+            or "nan" not in raised:
+        raise AssertionError(f"{path}: the planted NaN in {unit.name} was "
+                             f"not named: {raised!r}")
+    return launches
+
+
+def fp8_products(card: str) -> None:
+    """``mxu_dot`` with the lever on, on ``_scaled_mm``, against its plain
+    version at the paths' product shapes (``FP8_TOL``), timed beside the
+    plain version and the bf16 and f32 products; what ``_scaled_mm``
+    refuses unpadded; the overflow case against the CPU's, and the
+    saturating cast planted in place of ``q8``, which must fail it."""
+    import torch
+    from znicz_tpu_torch.ops import fp8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    one = torch.ones((), device=dev)
+    for path, shapes in FP8_SHAPES.items():
+        for m, k, n in shapes:
+            a = torch.randn(m, k, device=dev, generator=gen)
+            b = torch.randn(k, n, device=dev, generator=gen) * 0.1
+            before = fp8.fp8_matmul.launches_by_route["scaled_mm"]
+            got = fp8.fp8_dot(a, b)
+            if fp8.fp8_matmul.launches_by_route["scaled_mm"] != before + 1:
+                raise AssertionError("fp8: the product did not take "
+                                     "_scaled_mm")
+            a8, b8 = fp8.q8(a).float(), fp8.q8(b).float()
+            plain = a8 @ b8
+            scale = a8.abs() @ b8.abs()
+            err = float(((got - plain).abs() / scale.clamp(min=1e-30))
+                        .max())
+            # device times, 10 calls a CUDA graph, as the main path runs
+            # them inside its captured step
+            t_fp8 = graph_ms(lambda: fp8.fp8_dot(a, b), 10)
+            t_plain = graph_ms(lambda: fp8.q8(a).float() @ fp8.q8(b).float(),
+                               10)
+            ab, bb = a.bfloat16(), b.bfloat16()
+            t_bf16 = graph_ms(lambda: ab @ bb, 10)
+            t_f32 = graph_ms(lambda: a @ b, 10)
+            refused = []
+            for mm, kk, nn in ((m, k, n),):
+                try:
+                    torch._scaled_mm(
+                        fp8.q8(a[:mm, :kk]), fp8.q8(b[:kk, :nn]).t()
+                        .contiguous().t(), scale_a=one, scale_b=one,
+                        out_dtype=torch.float32)
+                except RuntimeError as exc:
+                    refused.append(str(exc).splitlines()[0][:120])
+            say(f"  fp8 mxu_dot {path} ({m}, {k}) @ ({k}, {n}) on {card}: "
+                f"max |scaled_mm − plain| / Σ|a₈||b₈| {err:.3g} (tol "
+                f"{FP8_TOL:.3g}); ms: fp8 {t_fp8:.4f} (casts and padding "
+                f"included), plain {t_plain:.4f}, bf16 matmul "
+                f"{t_bf16:.4f}, f32 matmul {t_f32:.4f}; _scaled_mm "
+                f"unpadded: " + (f"refused ({refused[0]})" if refused
+                                 else "accepted"))
+            if not err <= FP8_TOL:
+                raise AssertionError(f"fp8: ({m}, {k}, {n}) off by {err}")
+    # the overflow case: the card's product against the CPU's
+    x = torch.zeros(4, 32)
+    x[0, :6] = torch.tensor([463.9, -463.9, 464.0, -464.0, 1.5, -2.25])
+    x[1, 3], x[2, 5], x[3, 0] = 464.1, float("inf"), -464.1
+    w = torch.full((32, 16), 0.5)
+
+    def agrees() -> bool:
+        cpu = fp8.fp8_dot(x, w)
+        gpu = fp8.fp8_dot(x.cuda(), w.cuda()).cpu()
+        nan_rows = torch.isnan(gpu).all(dim=1).tolist()
+        return (torch.equal(torch.isnan(cpu), torch.isnan(gpu))
+                and torch.equal(torch.nan_to_num(cpu),
+                                torch.nan_to_num(gpu))
+                and nan_rows == [False, True, True, True])
+
+    ok = agrees()
+    real = fp8.q8
+    # the planted fault: a cast that saturates to ±448, inf included, as
+    # torch's own ``.to(float8_e4m3fn)`` does in the CPU tests' build
+    fp8.q8 = lambda t: t.clamp(-448.0, 448.0).to(fp8.FP8)
+    try:
+        planted = agrees()
+    finally:
+        fp8.q8 = real
+    edge = torch.tensor([463.9, 464.0, 464.1, float("inf")])
+    own = {dev: edge.to(dev).to(fp8.FP8).float().cpu().tolist()
+           for dev in ("cpu", "cuda")}
+    say(f"  fp8 overflow case (±463.9, ±464, ±464.1, ±inf) on the card "
+        f"against the CPU: {'equal' if ok else 'differs'}; planted fault "
+        f"(a saturating cast in place of q8): "
+        f"{'caught' if not planted else 'not caught'}; this build's own "
+        f"`.to(float8_e4m3fn)` of (463.9, 464, 464.1, inf): {own}")
+    if not ok or planted:
+        raise AssertionError("fp8: the overflow case")
+
+
+def fp8_mnist(card: str) -> dict:
+    """MNIST 784-100-10 graphed with the lever on: the step beside the
+    f32 step (the same workflow, lever off) and a bf16 one, then graphed
+    against eager from one seed with the lever on (``MLP_GRAPH_TOL``, the
+    head's update left out of the capture planted).  B4 (100, 10) once a
+    step; the fp8 products on ``_scaled_mm`` inside the captured step."""
+    from znicz_tpu_torch.models.samples import mnist
+    from znicz_tpu_torch.ops import fp8
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root, root
+
+    def make():
+        wf = make_mlp(mnist)  # (resets root)
+        root.common.engine.fp8_matmul = True
+        return wf
+
+    set_graphs(True)
+    reset_counts()
+    steps = 2 + CHECK_STEPS
+    ms = {}
+    wf = make()
+    train_ahead(wf, 4 * steps)
+    before = dict(fp8.fp8_matmul.launches_by_route)
+    ms["fp8"] = timed_steps(wf, 2, CHECK_STEPS)
+    captures = wf.region.captures
+    routes = {k: v - before[k]
+              for k, v in fp8.fp8_matmul.launches_by_route.items()}
+    root.common.engine.fp8_matmul = False
+    ms["f32"] = timed_steps(wf, 2, CHECK_STEPS)
+    root.common.engine.fp8_matmul = True
+    ms["fp8 again"] = timed_steps(wf, 2, CHECK_STEPS)
+    reset_root()
+    root.common.precision_type = "bfloat16"
+    prng.seed_all(SEED)
+    bf = mnist.build()
+    bf.initialize()
+    train_ahead(bf, steps)
+    ms["bf16"] = timed_steps(bf, 2, CHECK_STEPS)
+    launches = read_counts()
+    del bf
+    say(f"  MNIST B=100 graphed on {card}, ms a train step: fp8 "
+        f"{ms['fp8']:.4f} / {ms['fp8 again']:.4f}, f32 {ms['f32']:.4f}, "
+        f"bf16 {ms['bf16']:.4f}; {captures} capture(s) with the lever on "
+        f"(+1 a key when flipped: {wf.region.captures}); fp8 products a "
+        f"step by route {({k: v / steps for k, v in routes.items()})}")
+    if routes["plain"] or routes["scaled_mm"] != 5 * steps:
+        raise AssertionError(f"fp8_mnist: products by route {routes}")
+    del wf
+    root.common.engine.fp8_matmul = False
+    graphed_vs_eager(make, "fp8_mnist", tol=MLP_GRAPH_TOL,
+                     ready=train_ahead, captures=3)
+    root.common.engine.fp8_matmul = False
+    return launches
+
+
+def fp8_lm(card: str) -> dict:
+    """The byte LM graphed with the lever on (bf16 activations, e4m3
+    products): the step beside the bf16 step (lever off) and the f32
+    step, then graphed against eager from one seed with the lever on.
+    Its kernels once a step, the f32 run's the f32 rows."""
+    from znicz_tpu_torch.ops import fp8
+    from znicz_tpu_torch.utils.config import root
+    x, y = lm_data(LM_TRAIN, SEQ, SEED + 10)
+    steps = 2 + CHECK_STEPS
+    set_graphs(True)
+    reset_counts()
+    ms = {}
+    root.common.engine.fp8_matmul = True
+    wf = make_lm(x, y, LM_TRAIN, BATCH)
+    before = dict(fp8.fp8_matmul.launches_by_route)
+    ms["fp8"] = timed_steps(wf, 2, CHECK_STEPS)
+    routes = {k: v - before[k]
+              for k, v in fp8.fp8_matmul.launches_by_route.items()}
+    root.common.engine.fp8_matmul = False
+    ms["bf16"] = timed_steps(wf, 2, CHECK_STEPS)
+    del wf
+    want = lm_counts(2 * steps)
+    wf = make_lm(x, y, LM_TRAIN, BATCH, precision="float32")
+    ms["f32"] = timed_steps(wf, 2, CHECK_STEPS)
+    del wf
+    launches = read_counts()
+    want.update({"flash_attention_fwd_f32": steps,
+                 "flash_attention_dq_f32": steps,
+                 "flash_attention_dkv_f32": steps,
+                 "layer_norm_forward_f32": steps,
+                 "layer_norm_backward_f32": steps})
+    want["softmax_argmax_lm"] += steps
+    expect_counts("fp8_lm", launches, want)
+    expect_new_routes("fp8_lm")
+    say(f"  byte LM B={BATCH} T={SEQ} graphed on {card}, ms a train step: "
+        f"fp8 products (bf16 activations) {ms['fp8']:.4f}, bf16 "
+        f"{ms['bf16']:.4f}, f32 {ms['f32']:.4f}; fp8 products a step by "
+        f"route {({k: v / steps for k, v in routes.items()})}")
+    if routes["plain"] or not routes["scaled_mm"]:
+        raise AssertionError(f"fp8_lm: products by route {routes}")
+
+    def make_fp8():
+        root.common.engine.fp8_matmul = True
+        return make_lm(x, y, LM_TRAIN, BATCH)
+
+    graphed_vs_eager(make_fp8, "fp8_lm", plant=lambda wf: frozen_update(
+        wf, 0), fault="the embedding's update left out of the capture")
+    root.common.engine.fp8_matmul = False
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3763,6 +4135,31 @@ def main() -> int:
     paths["lstm"] = lstm_pass(smi)
     paths["to_sequence"] = to_sequence_pass()
     say(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    say("phase 11: the numpy oracle, engine.debug_checks and "
+        "engine.fp8_matmul")
+    t11 = time.perf_counter()
+    paths["oracle_wine"] = oracle_pass(smi)
+    import numpy as np
+    rng = np.random.default_rng(SEED + 12)
+    x11 = torch.from_numpy(rng.normal(0.0, 0.3, size=(4 * BATCH, SEQ, DIM))
+                           .astype(np.float32)).to(torch.bfloat16)
+    y11 = rng.integers(0, CLASSES, size=4 * BATCH).astype(np.int32)
+    paths["checks_seq"] = checks_pass(
+        smi, "checks_seq", lambda: make_trainer(x11, y11, BATCH), {
+            **{f"flash_attention_{k}": 1 for k in ("fwd", "dq", "dkv")},
+            "layer_norm_forward": 1, "layer_norm_backward": 1,
+            "softmax_argmax_small": 1}, plant_unit=1)
+    paths["checks_alexnet"] = checks_pass(
+        smi, "checks_alexnet",
+        lambda: make_alexnet(ALEX_BATCH, 4 * ALEX_BATCH), {
+            "lrn_forward": 1, "lrn_forward_conv2": 1, "lrn_backward": 1,
+            "lrn_backward_conv2": 1, "dropout_apply": 4,
+            "softmax_argmax": 1}, plant_unit=0)
+    fp8_products(smi)
+    paths["fp8_mnist"] = fp8_mnist(smi)
+    paths["fp8_lm"] = fp8_lm(smi)
+    say(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

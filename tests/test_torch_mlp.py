@@ -338,3 +338,49 @@ def test_cli_wine_config_trains_and_resumes(tmp_path, schedule):
     wf2 = resumed.launcher.workflow
     assert wf2.loader.epoch_number + 1 == 12
     _assert_same(_final(wf2), _final(wf))
+
+
+def test_mse_over_a_softmax_layer_matches_the_reference():
+    """C12: ``loss="mse"`` over ``all2all_tanh(8) → softmax(6)`` on an
+    ``ArrayLoader`` of 6 features, the target the input itself.  The
+    reference links ``EvaluatorMSE`` to whatever the last layer is, and
+    its linear ``GDSoftmax`` takes the MSE error at the probabilities as
+    it comes; the port trains the same configuration for 3 epochs on its
+    CPU device against the reference's ``xla_run``: the validation MSE
+    by epoch and the weights within 1e-5, the MSE falling."""
+    from znicz_tpu.loader.fullbatch import ArrayLoader as RefLoader
+    from znicz_tpu.models.standard_workflow import \
+        StandardWorkflow as RefWorkflow
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(60, 6)).astype(np.float32)
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 8},
+               "<-": {"learning_rate": 0.05, "gradient_moment": 0.5}},
+              {"type": "softmax", "->": {"output_sample_shape": 6},
+               "<-": {"learning_rate": 0.05, "gradient_moment": 0.5}}]
+
+    def build(cls, loader):
+        return cls(name="c12", loss="mse", layers=layers,
+                   loader_factory=lambda w: loader(
+                       w, train_data=x[20:], valid_data=x[:20],
+                       minibatch_size=10),
+                   decision_config={"max_epochs": 3})
+
+    ref_prng.seed_all(SEED)
+    ref = build(RefWorkflow, RefLoader)
+    ref.initialize(device=XLADevice())
+    prng.seed_all(SEED)
+    port = build(StandardWorkflow, ArrayLoader)
+    port.initialize(device="cpu")
+    assert isinstance(port.evaluator, EvaluatorMSE)
+    while not ref.decision.complete:
+        _ref_step(ref)
+    port.run()
+    want = ref.decision.epoch_mse_history[VALID]
+    got = port.decision.epoch_mse_history[VALID]
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert want[0] > want[1] > want[2]
+    _assert_close(port, ref)

@@ -306,9 +306,13 @@ def test_initialize_raises_without_a_gpu(monkeypatch):
 
 
 def test_workflow_checks():
-    with pytest.raises(ValueError, match="'mse' is not ported"):
+    # C12: an MSE loss over a softmax layer is the reference's, and builds
+    wf = StandardWorkflow(loader_factory=_loader(ArrayLoader, *_data()),
+                          layers=_layers(False), loss="mse")
+    assert type(wf.evaluator).__name__ == "EvaluatorMSE"
+    with pytest.raises(ValueError, match="unknown loss 'hinge'"):
         StandardWorkflow(loader_factory=_loader(ArrayLoader, *_data()),
-                         layers=_layers(False), loss="mse")
+                         layers=_layers(False), loss="hinge")
     with pytest.raises(ValueError, match="ends with a 'softmax'"):
         StandardWorkflow(loader_factory=_loader(ArrayLoader, *_data()),
                          layers=_layers(False)[:2])

@@ -11,12 +11,14 @@ path, a dotted module name or a bare sample name (``cifar`` →
 
     python -m znicz_tpu_torch cifar                       # on the card
     python -m znicz_tpu_torch cifar -b cpu --root cifar.max_epochs=1
+    python -m znicz_tpu_torch wine -b numpy               # the numpy oracle
     python -m znicz_tpu_torch cifar -s <snapshot.pickle.gz>  # resume
     python -m znicz_tpu_torch cifar --chunk 16            # 16 steps a dispatch
     python -m znicz_tpu_torch cifar --dump-graph cifar.dot
 
 ``-b/--backend`` takes ``cuda`` (the default: the card, an error when
-there is none) or ``cpu``.  ``--chunk N`` trains through
+there is none), ``cpu`` or ``numpy`` (the numpy oracle: every unit's
+``numpy_run``; its snapshots resume on the CPU and on the card).  ``--chunk N`` trains through
 ``run_chunked(N)`` (N steps a region dispatch: on the card, N replays
 of the step's CUDA graph).  ``--dump-graph FILE`` builds and
 initializes the workflow on the device, writes its unit graph as
@@ -117,9 +119,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("config", nargs="?",
                    help="config .py file/module setting the root tree")
     p.add_argument("-s", "--snapshot", help="resume from a snapshot file")
-    p.add_argument("-b", "--backend", choices=("cuda", "cpu"),
+    p.add_argument("-b", "--backend", choices=("cuda", "cpu", "numpy"),
                    help="device (default: the card, an error without "
-                        "one)")
+                        "one; numpy: the numpy oracle)")
     p.add_argument("-l", "--listen", metavar="HOST:PORT",
                    help="coordinate a multi-process run (not ported)")
     p.add_argument("-m", "--master", metavar="HOST:PORT",

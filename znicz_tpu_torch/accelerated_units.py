@@ -24,7 +24,27 @@
   microbatches: M − 1 replays of an accumulate-only graph, then one of
   an apply graph (:func:`current_accum_phase`).
 - :class:`RegionUnit` puts a region into the workflow's graph and
-  :class:`AcceleratedWorkflow` owns the device.
+  :class:`AcceleratedWorkflow` owns the device.  On the numpy oracle
+  (:class:`~znicz_tpu_torch.backends.NumpyDevice`) there is no region:
+  each unit's :meth:`~AcceleratedUnit.run` calls its ``numpy_run``.
+
+``root.common.engine.debug_checks`` (default off) is the port's
+counterpart of the reference's ``checkify`` region: a CUDA graph cannot
+raise partway through a replay, so every member of a step writes, after
+its device work, one device flag for each floating tensor it wrote
+(:meth:`AcceleratedUnit.written_tensors`): whether it holds a NaN.  The
+flags are one buffer that lives as long as the region; the host reads
+it after the step (one sync) and raises a ``RuntimeError`` naming the
+first unit in step order that produced a NaN, and the tensor.  The
+checks are part of the region's key, so switching them on captures one
+more graph and switching them off replays the old one; with them off
+nothing of this is captured.  ``run_chunk`` with the checks on replays
+one step at a time and reads the flags after each; ``run_accum``
+refuses them, as the reference does.  On the numpy oracle the check is
+a host check after each ``numpy_run``.  So is
+``root.common.engine.fp8_matmul`` (:mod:`~znicz_tpu_torch.ops.fp8`):
+:meth:`AcceleratedUnit.mxu_dot` then multiplies e4m3 operands, and
+flipping the lever captures the step again.
 
 A captured graph computes the wrong thing silently where a step's
 input is a host value, so the region's contract is the reference's:
@@ -56,6 +76,7 @@ from __future__ import annotations
 import gc
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.backends import Device
@@ -63,9 +84,37 @@ from znicz_tpu_torch.memory import Vector
 from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.observe import tracing as _tracing
 from znicz_tpu_torch.ops import launch_counts
+from znicz_tpu_torch.ops.fp8 import fp8_dot, fp8_enabled
 from znicz_tpu_torch.units import Unit
+from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.logger import Logger
 from znicz_tpu_torch.workflow import Workflow
+
+register_defaults("common", {"engine": {"debug_checks": False}})
+
+
+def debug_checks_enabled() -> bool:
+    """``root.common.engine.debug_checks`` (default off)."""
+    return bool(root.common.engine.get("debug_checks", False))
+
+
+def nan_error(where: str, unit, label: str) -> RuntimeError:
+    """The located error of a NaN a unit wrote."""
+    return RuntimeError(
+        f"{where}: debug check failed: nan in '{label}' written by unit "
+        f"'{unit.name}' ({type(unit).__name__}), the first unit of the "
+        f"step to write one (root.common.engine.debug_checks)")
+
+
+def nan_flag(flags: torch.Tensor, slot: int, tensor: torch.Tensor) -> None:
+    """``flags[slot]`` ← whether ``tensor`` holds a NaN, on the device
+    (no sync)."""
+    nan_flag.launches += 1
+    flags[slot] = torch.isnan(tensor).any()
+
+
+nan_flag.launches = 0
+launch_counts.register(nan_flag)
 
 
 #: the accumulation phase of the region step being run or captured: None
@@ -114,6 +163,9 @@ class AcceleratedUnit(Unit):
     #: True for a unit whose device work needs autograd on (a backward
     #: unit): a region step runs with gradients enabled iff it runs one
     NEEDS_AUTOGRAD = False
+    #: the attributes a step of the unit writes, whose floating tensors
+    #: (or arrays, on the numpy oracle) ``engine.debug_checks`` checks
+    WRITES: tuple = ()
 
     def __init__(self, workflow=None, name: str | None = None,
                  **kwargs) -> None:
@@ -153,7 +205,11 @@ class AcceleratedUnit(Unit):
         first in bf16 mode (the reference's ``jnp.dot`` with
         ``preferred_element_type=float32``; with TF32 off an f32
         product of bf16-rounded operands, exact up to summation
-        order)."""
+        order).  The reference's ladder: with ``engine.fp8_matmul`` on,
+        in either precision mode, the operands are e4m3
+        (:class:`~znicz_tpu_torch.ops.fp8.Fp8Dot`)."""
+        if fp8_enabled():
+            return fp8_dot(a, b)
         dt = self.mxu_dtype
         if dt is not None:
             a, b = a.to(dt), b.to(dt)
@@ -202,11 +258,51 @@ class AcceleratedUnit(Unit):
         """The unit's device work for one step."""
         raise NotImplementedError(f"{type(self).__name__}.device_run")
 
+    def numpy_run(self) -> None:
+        """The unit's step on the numpy oracle: the reference's numpy
+        path, numpy only, reading and writing state through
+        ``Tensor.numpy()`` views."""
+        raise NotImplementedError(f"{type(self).__name__}.numpy_run")
+
     def run(self) -> None:
         self.host_run()
         if self._in_region:
             return  # the region runs the device work
+        if self.device is not None and self.device.is_host_only:
+            self.numpy_run()
+            if debug_checks_enabled():
+                self.check_host_nan()
+            return
         self.device_run()
+
+    def written_values(self) -> list[tuple[str, object]]:
+        """``(label, value)`` of everything the unit's step may write:
+        its :attr:`WRITES` (a backward unit adds the parameters and
+        momentum it updates).  The labels do not change from step to
+        step."""
+        return [(name, getattr(self, name, None)) for name in self.WRITES]
+
+    def written_tensors(self) -> list[tuple[str, object]]:
+        """The :meth:`written_values` that hold a floating tensor (or a
+        float array, on the numpy oracle)."""
+        out = []
+        for label, value in self.written_values():
+            if isinstance(value, torch.Tensor):
+                if value.is_floating_point():
+                    out.append((label, value))
+            elif isinstance(value, np.ndarray) \
+                    and np.issubdtype(value.dtype, np.floating):
+                out.append((label, value))
+        return out
+
+    def check_host_nan(self) -> None:
+        """The numpy oracle's debug check: raise when a tensor this
+        step wrote holds a NaN."""
+        for label, value in self.written_tensors():
+            arr = value.detach().numpy() \
+                if isinstance(value, torch.Tensor) else value
+            if np.isnan(arr).any():
+                raise nan_error("numpy oracle", self, label)
 
     # -- region protocol ---------------------------------------------------------
     def region_vectors(self) -> list[Vector]:
@@ -318,6 +414,11 @@ class JitRegion(Logger):
         #: ``mark(unit_name)``, when set, is called after each member's
         #: work and the step runs eagerly (per-unit timing)
         self.mark = None
+        #: ``engine.debug_checks``: the NaN flags (bool, on the device)
+        #: and, by member, the slot of each tensor it may write
+        self._flags: torch.Tensor | None = None
+        self._flag_slots: list[dict[str, int]] = []
+        self._flag_owner: list[tuple] = []
 
     @property
     def graphed(self) -> bool:
@@ -337,8 +438,9 @@ class JitRegion(Logger):
                 seen.setdefault(id(vec), vec)
         return list(seen.values())
 
-    def _prepare(self) -> tuple[tuple, tuple]:
-        """Host writes to the device, then ``(key, skips)``."""
+    def _prepare(self) -> tuple[tuple, tuple, bool]:
+        """Host writes to the device, then ``(key, skips, checks)``:
+        the debug checks and the fp8 lever are part of the key."""
         if self._vectors is None:
             self._vectors = self._collect_vectors()
         for vec in self._vectors:
@@ -348,38 +450,80 @@ class JitRegion(Logger):
             if not skip:
                 unit.sync_host_state()
         key = tuple(unit.region_key() for unit in self.units) + (skips,)
-        return key, skips
+        checks = debug_checks_enabled()
+        if checks:
+            self._alloc_flags()
+            key += ("debug_checks",)
+        if fp8_enabled():
+            key += ("fp8_matmul",)
+        return key, skips, checks
 
-    def _run_members(self, skips, capture: bool = False) -> None:
+    def _alloc_flags(self) -> None:
+        """The flag buffer, once a region: a slot for each tensor a
+        member may write, in step order."""
+        if self._flags is not None:
+            return
+        self._flag_slots, self._flag_owner = [], []
+        for unit in self.units:
+            slots = {}
+            for label, _ in unit.written_values():
+                slots[label] = len(self._flag_owner)
+                self._flag_owner.append((unit, label))
+            self._flag_slots.append(slots)
+        self._flags = torch.zeros(max(len(self._flag_owner), 1),
+                                  dtype=torch.bool,
+                                  device=self.device.torch_device)
+
+    def _write_flags(self, index: int, unit) -> None:
+        slots = self._flag_slots[index]
+        for label, tensor in unit.written_tensors():
+            nan_flag(self._flags, slots[label], tensor)
+
+    def _check_flags(self) -> None:
+        """After a checked step: one read of the flags; raise naming the
+        first unit in step order that wrote a NaN."""
+        hit = torch.nonzero(self._flags.cpu())
+        if len(hit):
+            unit, label = self._flag_owner[int(hit[0, 0])]
+            raise nan_error(f"region '{self.name}'", unit, label)
+
+    def _run_members(self, skips, capture: bool = False,
+                     checks: bool = False) -> None:
         grad = any(unit.NEEDS_AUTOGRAD and not skip
                    for unit, skip in zip(self.units, skips))
         mark = self.mark
+        if checks:
+            self._flags.zero_()
         with torch.set_grad_enabled(grad):
-            for unit, skip in zip(self.units, skips):
+            for index, (unit, skip) in enumerate(zip(self.units, skips)):
                 if skip:
                     continue
                 if not capture:
                     with _tracing.TRACER.span(unit.name, cat="unit"):
                         unit.device_run()
+                    if checks:
+                        self._write_flags(index, unit)
                     if mark is not None:
                         mark(unit.name)
                     continue
                 try:
                     unit.device_run()
+                    if checks:
+                        self._write_flags(index, unit)
                 except Exception as exc:
                     raise RuntimeError(
                         f"region '{self.name}': the CUDA-graph capture "
                         f"failed in unit '{unit.name}' "
                         f"({type(unit).__name__}): {exc}") from exc
 
-    def _capture(self, key, skips) -> _Graph:
+    def _capture(self, key, skips, checks: bool = False) -> _Graph:
         """This step eagerly on a side stream (the warm-up), then the
         same chain captured into a graph for the key's later steps."""
         dev = self.device.torch_device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._run_members(skips)
+            self._run_members(skips, checks=checks)
         torch.cuda.current_stream(dev).wait_stream(side)
         warm = _bindings(self.units)
         before = launch_counts.snapshot()
@@ -397,7 +541,7 @@ class JitRegion(Logger):
             with _tracing.TRACER.span(f"capture:{self.name}",
                                       cat="capture"):
                 with torch.cuda.graph(graph):
-                    self._run_members(skips, capture=True)
+                    self._run_members(skips, capture=True, checks=checks)
         finally:
             if collecting:
                 gc.enable()
@@ -423,14 +567,14 @@ class JitRegion(Logger):
         for entry in self._cache.values():
             entry.fixed = [f for f in entry.fixed if f[0] not in self._outputs]
 
-    def _run_eager(self, skips) -> None:
+    def _run_eager(self, skips, checks: bool = False) -> None:
         """One step's members in order; on the card, once graphs exist,
         what the step bound is noted as outputs (so that a ``mark``ed
         step of a key not captured yet does not read as a rebinding)."""
         if not self._cache:
-            return self._run_members(skips)
+            return self._run_members(skips, checks=checks)
         before = _bindings(self.units)
-        self._run_members(skips)
+        self._run_members(skips, checks=checks)
         self._note_outputs(
             key for key, (_, _, value, _) in _bindings(self.units).items()
             if key not in before or before[key][2] is not value)
@@ -448,17 +592,23 @@ class JitRegion(Logger):
             entry.graph.replay()
         launch_counts.add(entry.launches, n)
 
-    def run(self) -> None:
-        """One step."""
-        key, skips = self._prepare()
+    def _step(self, key, skips, checks: bool) -> None:
+        """One step of a prepared key, its flags read when checked."""
         if not self.graphed:
-            self._run_eager(skips)
+            self._run_eager(skips, checks)
         else:
             entry = self._cache.get(key)
             if entry is None:
-                self._capture(key, skips)
+                self._capture(key, skips, checks)
             else:
                 self._replay(entry, 1)
+        if checks:
+            self._check_flags()
+
+    def run(self) -> None:
+        """One step."""
+        key, skips, checks = self._prepare()
+        self._step(key, skips, checks)
         _metrics.region_steps(self.name).inc()
 
     def run_chunk(self, n_steps: int) -> None:
@@ -472,10 +622,15 @@ class JitRegion(Logger):
         both."""
         if n_steps == 1:
             return self.run()
-        key, skips = self._prepare()
+        key, skips, checks = self._prepare()
         with _tracing.TRACER.span(f"chunk:{self.name}", cat="region",
                                   steps=n_steps):
-            if not self.graphed:
+            if checks:
+                # one replay a step, its flags read after each (the
+                # reference's per-step path under checkify)
+                for _ in range(n_steps):
+                    self._step(key, skips, checks)
+            elif not self.graphed:
                 for _ in range(n_steps):
                     self._run_eager(skips)
             else:
@@ -507,7 +662,12 @@ class JitRegion(Logger):
         keeps it.  ``n_micro == 1`` is :meth:`run`."""
         if n_micro == 1:
             return self.run()
-        key, skips = self._prepare()
+        if debug_checks_enabled():
+            raise NotImplementedError(
+                "engine.debug_checks does not compose with run_accum (the "
+                "flags of the accumulated microbatches are not read "
+                "between them); disable one of them")
+        key, skips, _ = self._prepare()
         accum, apply = ("accum", n_micro), ("apply", n_micro)
         with _tracing.TRACER.span(f"accum:{self.name}", cat="region",
                                   micro=n_micro):
@@ -546,6 +706,12 @@ class RegionUnit(AcceleratedUnit):
 
     def initialize(self, device=None, **kwargs) -> None:
         super().initialize(device=device, **kwargs)
+        if self.device.is_host_only:
+            # the oracle: no region; the members run themselves
+            for unit in self._member_units:
+                unit._in_region = False
+            self.gate_skip.value = True
+            return
         for unit in self._member_units:
             if not unit.is_initialized:
                 raise AttributeError(f"region member {unit} not initialized")

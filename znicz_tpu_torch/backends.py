@@ -3,13 +3,15 @@
 The reference picks an XLA device (TPU in production) or the numpy
 oracle.  The port runs PyTorch on one CUDA device, or on the CPU when
 the caller asks for it by name — the CPU is where the tests run the
-plain versions of the kernels.  A caller that names no device gets the
-GPU, and an error when there is none: the port never falls back to
-the CPU on its own.
+plain versions of the kernels — or, asked for as ``"numpy"``, runs the
+numpy oracle.  A caller that names no device gets the GPU, and an error
+when there is none: the port never falls back to the CPU on its own.
 
 :class:`Device` is the counterpart of the reference's ``Device`` on one
 device: :meth:`Device.create` gives a :class:`CudaDevice` (the card) or,
-asked for by name, a :class:`CpuDevice`; each moves
+asked for by name, a :class:`CpuDevice` or a :class:`NumpyDevice` (the
+oracle: every unit's ``numpy_run``, numpy only, f32 whatever
+``precision_type`` says); each moves
 :class:`~znicz_tpu_torch.memory.Vector` contents with :meth:`Device.put`
 and :meth:`Device.get` and waits for queued work with
 :meth:`Device.sync`.  Sharding over several cards waits for the
@@ -84,6 +86,10 @@ class Device:
     """
 
     backend = "abstract"
+    #: True when there is no device memory apart from the host's (the
+    #: numpy oracle): units run ``numpy_run``, a Vector's array is its
+    #: buffer
+    is_host_only = False
 
     def __init__(self, device: torch.device) -> None:
         self.torch_device = device
@@ -94,10 +100,13 @@ class Device:
     @staticmethod
     def create(backend: str | None = None) -> "Device":
         """The device of ``backend``: ``None`` or ``"cuda"`` is the card
-        (an error when there is none), ``"cpu"`` the host, a
-        ``torch.device`` or ``"cuda:N"`` that device."""
+        (an error when there is none), ``"cpu"`` the host,
+        ``"numpy"`` the numpy oracle, a ``torch.device`` or
+        ``"cuda:N"`` that device."""
         if isinstance(backend, Device):
             return backend
+        if backend == "numpy":
+            return NumpyDevice(torch.device("cpu"))
         dev = resolve_device(None if backend in (None, "cuda") else backend)
         return CudaDevice(dev) if dev.type == "cuda" else CpuDevice(dev)
 
@@ -143,3 +152,19 @@ class CpuDevice(Device):
     no CUDA graphs."""
 
     backend = "cpu"
+
+
+class NumpyDevice(Device):
+    """The host oracle (the reference's ``NumpyDevice``): each unit runs
+    its ``numpy_run``, copied from the reference's numpy path, with no
+    torch operation; state a snapshot carries stays in CPU tensors,
+    which the numpy code reads and writes through ``Tensor.numpy()``
+    views.  Its compute dtype is f32 whatever ``precision_type`` says,
+    as the reference's oracle stores and computes f32."""
+
+    backend = "numpy"
+    is_host_only = True
+
+    def __init__(self, device: torch.device) -> None:
+        super().__init__(device)
+        self.compute_dtype = torch.float32

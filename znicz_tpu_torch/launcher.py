@@ -9,7 +9,8 @@ workflow on the device, loads the staged state and trains it.
 
 - The device comes from :func:`znicz_tpu_torch.backends.resolve_device`:
   ``backend=None`` (or ``"cuda"``) is the card, and raises when there
-  is none; the CPU only when ``backend="cpu"`` asks for it.
+  is none; the CPU only when ``backend="cpu"`` asks for it, the numpy
+  oracle only when ``backend="numpy"`` does.
 - ``retries > 0``: a run that raises is started again, resuming from
   the workflow's newest snapshot (:meth:`latest_snapshot`).
 - ``chunk > 1``: the workflow trains through ``run_chunked(chunk)``,
@@ -34,7 +35,7 @@ import signal
 import traceback
 from typing import Any, Callable
 
-from znicz_tpu_torch.backends import resolve_device
+from znicz_tpu_torch.backends import Device, resolve_device
 from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.logger import Logger
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
@@ -62,8 +63,8 @@ class Launcher(Logger):
         if given:
             raise not_ported(f"Launcher({given[0]}=...): multi-process "
                              f"training", "A9")
-        if backend not in (None, "cuda", "cpu"):
-            raise ValueError(f"backend '{backend}' (cuda or cpu)")
+        if backend not in (None, "cuda", "cpu", "numpy"):
+            raise ValueError(f"backend '{backend}' (cuda, cpu or numpy)")
         self.backend = backend
         self.snapshot = snapshot
         self.retries = int(retries)
@@ -78,10 +79,11 @@ class Launcher(Logger):
 
     def make_device(self):
         """The device the workflow runs on: the card unless the backend
-        is ``"cpu"``."""
+        is ``"cpu"`` or ``"numpy"`` (the numpy oracle)."""
         if self.device is None:
-            self.device = resolve_device(
-                "cpu" if self.backend == "cpu" else None)
+            self.device = Device.create("numpy") \
+                if self.backend == "numpy" else resolve_device(
+                    "cpu" if self.backend == "cpu" else None)
         return self.device
 
     # -- the sample protocol: run(load, main) ---------------------------

@@ -23,6 +23,10 @@ captured CUDA graph, which reads no host value, finds each step's
 minibatch by itself.  The host writes the order into its tensor once a
 shuffle and the cursor once a resume, in place (:class:`Vector`'s
 rule), so the graph sees them.
+
+On the numpy oracle the gather is the reference's ``numpy_run``: the
+host's pick indexes the dataset, normalized in f32 (a multiply, then an
+add) as the reference's numpy path does.
 """
 
 from __future__ import annotations
@@ -77,7 +81,12 @@ class FullBatchLoader(Loader):
     def sample_shape(self) -> tuple:
         return tuple(self.original_data.shape[1:])
 
+    WRITES = ("minibatch_data",)
+
     def create_minibatch_data(self) -> None:
+        if self.device.is_host_only \
+                and self.original_data.dtype == torch.bfloat16:
+            self.original_data = self.original_data.float()  # numpy: f32
         self.original_data = self.original_data.to(self.torch_device)
         if self.original_labels is not None:
             self.original_labels = self.original_labels.to(
@@ -138,6 +147,22 @@ class FullBatchLoader(Loader):
         if self.original_labels is not None:
             self.minibatch_labels = self.original_labels.index_select(0,
                                                                       idx)
+
+    def numpy_run(self) -> None:
+        _, lo, hi = self._schedule[self._cursor - 1]
+        count = hi - lo
+        offs = np.arange(self.max_minibatch_size)
+        # the short tail repeats its first sample (masked by count)
+        idx = self._shuffled[lo + np.where(offs < count, offs, 0)]
+        self.minibatch_indices = idx
+        self.minibatch_valid = count
+        batch = self.original_data.numpy()[idx].astype(np.float32)
+        if self.normalization_scale is not None:
+            batch = batch * np.float32(self.normalization_scale) \
+                + np.float32(self.normalization_bias)
+        self.minibatch_data = batch
+        if self.original_labels is not None:
+            self.minibatch_labels = self.original_labels.numpy()[idx]
 
 
 class ArrayLoader(FullBatchLoader):

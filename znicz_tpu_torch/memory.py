@@ -19,6 +19,11 @@ Only a write of another shape binds a new tensor.
 
 numpy has no bfloat16, so a bf16 tensor's host mirror is float32; a
 host write is rounded to bf16 when it reaches the device.
+
+On a host-only device (the numpy oracle,
+:class:`~znicz_tpu_torch.backends.NumpyDevice`) the host array is the
+buffer, as in the reference: ``unmap`` uploads nothing, ``devmem`` is
+the host array, and a write through the ``devmem`` setter goes into it.
 """
 
 from __future__ import annotations
@@ -103,6 +108,8 @@ class Vector:
         ``Vector.initialize``, from ``AcceleratedUnit.init_vectors``)."""
         self._check_not_tracing("initialize")
         self._device = device
+        if device.is_host_only:
+            return
         if self._state == _State.HOST:
             self._upload()
             self._state = _State.SYNCED
@@ -140,7 +147,7 @@ class Vector:
         self._check_not_tracing("unmap")
         if self._state == _State.EMPTY:
             raise ValueError(f"Vector '{self.name}': unmap on empty buffer")
-        if self._device is None:
+        if self._device is None or self._device.is_host_only:
             return
         if self._state == _State.HOST:
             self._upload()
@@ -173,7 +180,9 @@ class Vector:
 
     @property
     def devmem(self) -> torch.Tensor:
-        """The device tensor."""
+        """The device tensor (the host array on a host-only device)."""
+        if self._host_only:
+            return self.mem
         if self._state == _State.HOST and not self._tracing:
             raise ValueError(
                 f"Vector '{self.name}': device access while the host copy "
@@ -187,7 +196,17 @@ class Vector:
     def devmem(self, value: torch.Tensor) -> None:
         """A result of device compute: copied into the device tensor when
         the shape holds (its address is kept; a float value is cast to
-        the tensor's dtype), else bound as the device tensor."""
+        the tensor's dtype), else bound as the device tensor.  On a
+        host-only device the value (an array) goes into the host array
+        in the same way."""
+        if self._host_only:
+            mem = self._mem
+            if mem is not None and mem.shape == np.shape(value):
+                mem[...] = value
+            else:
+                self._mem = np.array(value)
+            self._state = _State.HOST
+            return
         dev = self._devmem
         if dev is not None and tuple(dev.shape) == tuple(value.shape) \
                 and (dev.dtype == value.dtype
@@ -198,6 +217,10 @@ class Vector:
         else:
             self._devmem = value
         self._state = _State.DEVICE
+
+    @property
+    def _host_only(self) -> bool:
+        return self._device is not None and self._device.is_host_only
 
     @property
     def state_name(self) -> str:

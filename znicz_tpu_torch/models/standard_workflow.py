@@ -28,7 +28,9 @@ over the hot chain (:meth:`hot_chain_units`):
 
 On the card it replays a CUDA graph captured once per key (train,
 validation, test minibatches); on the CPU it runs the same members
-eagerly.  A train step runs the forwards with gradients enabled (the
+eagerly.  On the numpy oracle (``initialize(device="numpy")``) there is
+no region: the hot chain stays in the graph unit by unit, each unit
+running its ``numpy_run``, as in the reference.  A train step runs the forwards with gradients enabled (the
 attention unit keeps its autograd graph for its backward unit, max
 pooling its winners) and the backward units from the last to the
 first, each gated on the minibatch class.  Each backward unit reads its
@@ -100,7 +102,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         ``"softmax"`` (classification: ``EvaluatorSoftmax`` and
         ``DecisionGD``, the last layer a ``softmax``) or ``"mse"``
         (regression and autoencoders: ``EvaluatorMSE`` against the
-        loader's ``minibatch_data`` and ``DecisionMSE``).
+        loader's ``minibatch_data`` and ``DecisionMSE``, over any last
+        layer, a ``softmax`` included: its linear backward takes the
+        MSE error at the probabilities, as the reference's does).
     evaluator_config:
         kwargs of the evaluator (``compute_confusion=True`` for the
         softmax's confusion matrices).
@@ -132,12 +136,6 @@ class StandardWorkflow(AcceleratedWorkflow):
         if loss == "softmax" and last != "softmax":
             raise ValueError("a softmax workflow ends with a 'softmax' "
                              "layer")
-        if loss == "mse" and last == "softmax":
-            # GDSoftmax is linear: it takes the softmax evaluator's
-            # folded derivative (p − t) as the error at the logits
-            raise ValueError("loss 'mse' is not ported over a 'softmax' "
-                             "layer, whose backward takes the softmax "
-                             "evaluator's error at the logits")
         super().__init__(workflow, name=name, **kwargs)
         self.layers_config = list(layers)
         self.loss = loss
@@ -297,13 +295,14 @@ class StandardWorkflow(AcceleratedWorkflow):
     # -- lifecycle ------------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:
         """Resolve the device (``None`` → the current GPU, raising when
-        there is none; ``"cpu"`` only when asked), then initialize every
-        unit and put the region in the hot chain's place.  The
-        precision mode is ``root.common.precision_type``, as in the
+        there is none; ``"cpu"`` or ``"numpy"`` only when asked), then
+        initialize every unit and put the region in the hot chain's
+        place (not on the numpy oracle, whose units run one by one).
+        The precision mode is ``root.common.precision_type``, as in the
         reference."""
         super().initialize(device=device, **kwargs)
         self.compute_dtype = self.device.compute_dtype
-        if self._region_unit is None:
+        if not self.device.is_host_only and self._region_unit is None:
             self._compile_region()
 
     def _compile_region(self) -> None:
@@ -320,6 +319,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         self._region_unit = region
 
     @property
+    def _oracle(self) -> bool:
+        """True once initialized on the numpy oracle (no region)."""
+        return self.device is not None and self.device.is_host_only
+
+    @property
     def region(self):
         """The training step's :class:`JitRegion` (after initialize)."""
         return None if self._region_unit is None \
@@ -334,9 +338,13 @@ class StandardWorkflow(AcceleratedWorkflow):
         it queued its work (a caller that records a CUDA event there
         times each unit on the device)."""
         region = self.region
-        if region is None:
+        if region is None and not self._oracle:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
         self._finished = False
+        if region is None:  # the oracle: no region to time
+            self._drain(deque(self.repeater.links_to),
+                        pause_at=self.repeater, honor_stop=False)
+            return
         region.mark = mark
         try:
             self._drain(deque(self.repeater.links_to),
@@ -365,10 +373,12 @@ class StandardWorkflow(AcceleratedWorkflow):
         the units after it (the snapshotter) fire where they would.  A
         learning-rate schedule is the exception, as in the reference: it
         writes its rate once a chunk, so the rate is constant within a
-        chunk.  With one step a dispatch, or a loader whose schedule is not on
-        the device, this is :meth:`run`."""
+        chunk.  With one step a dispatch, a loader whose schedule is not on
+        the device, or on the numpy oracle, this is :meth:`run`."""
         region = self.region
         loader = self.loader
+        if self._oracle:
+            return self.run()
         if region is None:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
         if steps_per_dispatch <= 1 or not loader.device_schedule:
@@ -427,6 +437,10 @@ class StandardWorkflow(AcceleratedWorkflow):
         they are ported (A9, A11).  ``M == 1`` is :meth:`run`."""
         region = self.region
         loader = self.loader
+        if self._oracle:
+            raise RuntimeError(
+                f"workflow '{self.name}': run_accumulated runs the region's "
+                f"accumulation phases, and the numpy oracle has no region")
         if region is None:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
         if microbatches is None:

@@ -9,7 +9,8 @@ an activation that is not fused into an ``All2All`` or a ``Conv``.
 reads ``x``).  ``ForwardMul`` scales by a constant ``factor`` and
 ``BackwardMul`` scales the error by it.  Both directions compute in the
 dtype of their operands, as the reference's region does, and store in
-the activation dtype.
+the activation dtype.  On the numpy oracle they run the reference's
+numpy path.
 
 They are weightless: a backward takes no learning rate, and no
 learning-rate schedule claims it.  The layer types are
@@ -20,6 +21,7 @@ learning-rate schedule claims it.  The layer types are
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops import activations_math
@@ -46,6 +48,9 @@ class ActivationForward(Forward):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.activation.fwd(x).to(self.output_store_dtype)
 
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return self.activation.np_fwd(x.astype(np.float32))
+
 
 class ActivationBackward(WeightlessGradientUnit):
     """Weightless backward ``err_input = err_output ⊙ act'``."""
@@ -60,6 +65,13 @@ class ActivationBackward(WeightlessGradientUnit):
         act = self.forward_unit.activation
         return (err_output * act.derivative(
             y, x if act.needs_input else None)).to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        if not self.need_err_input:
+            return None
+        act = self.forward_unit.activation
+        return err_output * act.np_derivative(
+            y, x if act.needs_input else None)
 
 
 class ForwardTanh(ActivationForward):
@@ -114,6 +126,9 @@ class ForwardMul(ActivationForward):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (x * self.factor).to(self.output_store_dtype)
 
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return x * self.factor
+
 
 class BackwardMul(WeightlessGradientUnit):
     """``err_input = err_output · factor``."""
@@ -128,3 +143,8 @@ class BackwardMul(WeightlessGradientUnit):
             return None
         return (err_output * self.forward_unit.factor).to(
             self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        if not self.need_err_input:
+            return None
+        return err_output * self.forward_unit.factor

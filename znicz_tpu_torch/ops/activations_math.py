@@ -15,6 +15,9 @@ reference (the backward units read the forward's output); ``log``
 needs the input ``x``.  Each is computed in the dtype of its operand,
 as the reference computes it, so in bf16 mode the derivative of a
 bf16-stored output is bf16.
+
+Each entry also carries the reference's numpy forms (``np_fwd``,
+``np_derivative``), which the numpy oracle runs.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 _TANH_A = 1.7159
@@ -30,10 +34,12 @@ _TANH_B = 0.6666
 
 @dataclass(frozen=True)
 class Activation:
-    """fwd(x) -> y;  derivative(y, x) -> dy/dx."""
+    """fwd(x) -> y;  derivative(y, x) -> dy/dx; the same two in numpy."""
     name: str
     fwd: Callable
     derivative: Callable
+    np_fwd: Callable
+    np_derivative: Callable
     needs_input: bool = False
 
 
@@ -42,34 +48,51 @@ def _softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _np_softplus(x):
+    return np.maximum(x, 0) + np.log1p(np.exp(-np.abs(x)))
+
+
 ACTIVATIONS: dict[str, Activation] = {
     "linear": Activation(
         "linear",
         fwd=lambda x: x,
-        derivative=lambda y, x: torch.ones_like(y)),
+        derivative=lambda y, x: torch.ones_like(y),
+        np_fwd=lambda x: x,
+        np_derivative=lambda y, x: np.ones_like(y)),
     "tanh": Activation(
         "tanh",
         fwd=lambda x: _TANH_A * torch.tanh(_TANH_B * x),
         # dy/dx = A·B·(1−tanh²) = (B/A)·(A²−y²)
         derivative=lambda y, x: (_TANH_B / _TANH_A) * (
+            _TANH_A * _TANH_A - y * y),
+        np_fwd=lambda x: _TANH_A * np.tanh(_TANH_B * x),
+        np_derivative=lambda y, x: (_TANH_B / _TANH_A) * (
             _TANH_A * _TANH_A - y * y)),
     "relu": Activation(
         "relu",
         fwd=_softplus,
         # y = log(1+eˣ) ⇒ dy/dx = 1 − e^{−y}
-        derivative=lambda y, x: 1.0 - torch.exp(-y)),
+        derivative=lambda y, x: 1.0 - torch.exp(-y),
+        np_fwd=_np_softplus,
+        np_derivative=lambda y, x: 1.0 - np.exp(-y)),
     "strict_relu": Activation(
         "strict_relu",
         fwd=lambda x: torch.clamp_min(x, 0),
-        derivative=lambda y, x: (y > 0).to(y.dtype)),
+        derivative=lambda y, x: (y > 0).to(y.dtype),
+        np_fwd=lambda x: np.maximum(x, 0),
+        np_derivative=lambda y, x: (y > 0).astype(y.dtype)),
     "sigmoid": Activation(
         "sigmoid",
         fwd=lambda x: 1.0 / (1.0 + torch.exp(-x)),
-        derivative=lambda y, x: y * (1.0 - y)),
+        derivative=lambda y, x: y * (1.0 - y),
+        np_fwd=lambda x: 1.0 / (1.0 + np.exp(-x)),
+        np_derivative=lambda y, x: y * (1.0 - y)),
     "log": Activation(
         "log",
         fwd=lambda x: torch.log(x + torch.sqrt(x * x + 1.0)),
         derivative=lambda y, x: 1.0 / torch.sqrt(x * x + 1.0),
+        np_fwd=lambda x: np.log(x + np.sqrt(x * x + 1.0)),
+        np_derivative=lambda y, x: 1.0 / np.sqrt(x * x + 1.0),
         needs_input=True),
 }
 

@@ -10,7 +10,8 @@ softmax-argmax kernel
 (:func:`~znicz_tpu_torch.ops.fused_kernels.softmax_argmax`, its plain
 version on the CPU).  Its probabilities stay f32 in every precision
 mode.  The products are plain ``torch.matmul`` calls, as the reference
-left them to XLA.
+left them to XLA.  On the numpy oracle each runs the reference's numpy
+path (:meth:`All2All.numpy_forward`).
 
 Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  Tensor
 parallelism arrives with a later slice.
@@ -23,7 +24,7 @@ import torch
 
 from znicz_tpu_torch.ops import activations_math
 from znicz_tpu_torch.ops.fused_kernels import softmax_argmax
-from znicz_tpu_torch.ops.nn_units import Forward
+from znicz_tpu_torch.ops.nn_units import Forward, as_numpy, stored_f32
 
 
 class All2All(Forward):
@@ -72,6 +73,15 @@ class All2All(Forward):
         return y.reshape((x.shape[0],) + self.output_sample_shape).to(
             self.output_store_dtype)
 
+    def _np_logits(self, x: np.ndarray) -> np.ndarray:
+        y = x.astype(np.float32).reshape(x.shape[0], -1) \
+            @ self.np_param("weights")
+        return y + self.np_param("bias") if self.include_bias else y
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        y = self.activation.np_fwd(self._np_logits(x))
+        return y.reshape((x.shape[0],) + self.output_sample_shape)
+
 
 class All2AllTanh(All2All):
     """Scaled-tanh flavor."""
@@ -111,3 +121,9 @@ class All2AllSoftmax(All2All):
 
     def device_run(self) -> None:
         self.output, self.max_idx = self.classify(self.input)
+
+    def numpy_run(self) -> None:
+        logits = self._np_logits(as_numpy(self.input))
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        self.output = stored_f32(e / e.sum(axis=1, keepdims=True))
+        self.max_idx = np.argmax(logits, axis=1).astype(np.int32)

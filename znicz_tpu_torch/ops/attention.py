@@ -31,6 +31,10 @@ rounds each cotangent to bf16 where the forward cast to bf16, as
 ``jax.vjp`` does at the same casts, so the forward's chain of casts
 here must stay the reference's.
 
+On the numpy oracle the pair runs the reference's numpy path: the
+projections and the core with ``np.einsum`` (:func:`local_attention_np`),
+and the analytic backward written out.
+
 The ring (sequence-parallel) path and the decode steps arrive with
 later slices.  A bundle trained with ``seq_parallel`` or
 ``flash_block_k`` serves here all the same: both were layout choices
@@ -54,6 +58,23 @@ def split_heads(qkv: torch.Tensor, n_heads: int):
     shape = (b, t, n_heads, d // n_heads)
     return (qkv[..., :d].view(shape), qkv[..., d:2 * d].view(shape),
             qkv[..., 2 * d:].view(shape))
+
+
+def local_attention_np(q, k, v, causal: bool):
+    """The oracle's attention core (the reference's
+    ``_local_attention_np``, copied): ``(o, p)`` from (B, T, H, Dh)
+    q, k, v."""
+    d = q.shape[-1]
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(d)
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        mask = np.arange(tq)[:, None] >= np.arange(tk)[None, :]
+        s = np.where(mask[None, None], s, -1e30)
+    s = s - s.max(axis=-1, keepdims=True)
+    p = np.exp(s)
+    p = p / p.sum(axis=-1, keepdims=True)
+    o = np.einsum("bhqk,bkhd->bqhd", p, v)
+    return o, p
 
 
 class MultiHeadAttention(Forward):
@@ -133,6 +154,24 @@ class MultiHeadAttention(Forward):
             y = y + self.bias_out
         return y.reshape(b, t, d)
 
+    def forward_np(self, x: np.ndarray):
+        """The oracle's forward: ``(y, (qkv, q, k, v, o, p))``."""
+        b, t, d = x.shape
+        qkv = x.reshape(b * t, d) @ self.np_param("weights")
+        if self.include_bias:
+            qkv = qkv + self.np_param("bias")
+        shape = (b, t, self.n_heads, d // self.n_heads)
+        q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(shape)
+                   for i in range(3))
+        o, p = local_attention_np(q, k, v, self.causal)
+        y = o.reshape(b * t, d) @ self.np_param("weights_out")
+        if self.include_bias:
+            y = y + self.np_param("bias_out")
+        return y.reshape(b, t, d), (qkv, q, k, v, o, p)
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return self.forward_np(x.astype(np.float32))[0]
+
 
 class GDMultiHeadAttention(GradientDescentBase):
     """Attention backward: autograd of the output the forward kept,
@@ -183,3 +222,42 @@ class GDMultiHeadAttention(GradientDescentBase):
         if not self.need_err_input:
             return None
         return grads["x"].to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        """The reference's analytic attention backward."""
+        fwd = self.forward_unit
+        x = x.astype(np.float32)
+        b, t, d = x.shape
+        h = fwd.n_heads
+        dh = d // h
+        _, (qkv, q, k, v, o, p) = fwd.forward_np(x)
+        dy = err_output.astype(np.float32).reshape(b * t, d)
+        # the output projection
+        grad_wo = o.reshape(b * t, d).T @ dy
+        grad_bo = dy.sum(axis=0)
+        do = (dy @ fwd.np_param("weights_out").T).reshape(b, t, h, dh)
+        # the core: dv, the softmax's jacobian, dq and dk
+        dv = np.einsum("bhqk,bqhd->bkhd", p, do)
+        dp = np.einsum("bqhd,bkhd->bhqk", do, v)
+        ds = p * (dp - (dp * p).sum(axis=-1, keepdims=True))
+        ds = ds / np.sqrt(dh)
+        dq = np.einsum("bhqk,bkhd->bqhd", ds, k)
+        dk = np.einsum("bhqk,bqhd->bkhd", ds, q)
+        dqkv = np.concatenate(
+            [a.reshape(b, t, d) for a in (dq, dk, dv)],
+            axis=-1).reshape(b * t, 3 * d)
+        # the input projection
+        grad_wq = x.reshape(b * t, d).T @ dqkv
+        grad_bq = dqkv.sum(axis=0)
+        err_input = None
+        if self.need_err_input:
+            err_input = (dqkv @ fwd.np_param("weights").T).reshape(b, t, d)
+        self.numpy_apply_weights(grad_wq)
+        if fwd.include_bias:
+            self.numpy_apply_bias(grad_bq)
+        self.numpy_apply_weights(grad_wo, "weights_out",
+                                 "accumulated_gradient_weights_out")
+        if fwd.include_bias:
+            self.numpy_apply_bias(grad_bo, "bias_out",
+                                  "accumulated_gradient_bias_out")
+        return err_input

@@ -19,6 +19,10 @@ which is then upcast, biased and activated in f32 and stored at the
 activation dtype.  The flavors ``ConvTanh``, ``ConvRELU``,
 ``ConvStrictRELU`` and ``ConvSigmoid`` fuse their activation the same
 way.  The backward units are in :mod:`znicz_tpu_torch.ops.gd_conv`.
+
+On the numpy oracle the convolution is the reference's: :func:`im2col`
+patches times the flattened weights (and :func:`col2im` for the
+backward's error), copied.
 """
 
 from __future__ import annotations
@@ -42,6 +46,41 @@ def normalize_padding(padding) -> tuple[int, int, int, int]:
     if len(padding) == 4:
         return padding
     raise ValueError(f"bad padding spec {padding!r}")
+
+
+def im2col(x: np.ndarray, ky: int, kx: int, sy: int, sx: int,
+           pad: tuple[int, int, int, int]) -> np.ndarray:
+    """NHWC patches → (N, oh, ow, ky*kx*C) (the reference's oracle
+    'unpack', copied)."""
+    pt, pb, pl, pr = pad
+    xp = np.pad(x, ((0, 0), (pt, pb), (pl, pr), (0, 0)))
+    n, h, w, c = xp.shape
+    oh = (h - ky) // sy + 1
+    ow = (w - kx) // sx + 1
+    cols = np.zeros((n, oh, ow, ky, kx, c), dtype=x.dtype)
+    for i in range(ky):
+        for j in range(kx):
+            cols[:, :, :, i, j, :] = \
+                xp[:, i:i + oh * sy:sy, j:j + ow * sx:sx, :]
+    return cols.reshape(n, oh, ow, ky * kx * c)
+
+
+def col2im(cols: np.ndarray, x_shape, ky: int, kx: int, sy: int, sx: int,
+           pad: tuple[int, int, int, int]) -> np.ndarray:
+    """Patches added back into an NHWC array of ``x_shape`` (the
+    reference's oracle col2im, copied)."""
+    pt, pb, pl, pr = pad
+    n, h, w, c = x_shape
+    hp, wp = h + pt + pb, w + pl + pr
+    out = np.zeros((n, hp, wp, c), dtype=cols.dtype)
+    oh = (hp - ky) // sy + 1
+    ow = (wp - kx) // sx + 1
+    cols6 = cols.reshape(n, oh, ow, ky, kx, c)
+    for i in range(ky):
+        for j in range(kx):
+            out[:, i:i + oh * sy:sy, j:j + ow * sx:sx, :] += \
+                cols6[:, :, :, i, j, :]
+    return out[:, pt:pt + h, pl:pl + w, :]
 
 
 class Conv(Forward):
@@ -132,6 +171,16 @@ class Conv(Forward):
             y = y + self.bias
         return self.activation.fwd(y).to(
             self.output_store_dtype).contiguous()
+
+    def im2col(self, x: np.ndarray) -> np.ndarray:
+        return im2col(x, self.ky, self.kx, *self.sliding, self.padding)
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        y = self.im2col(x.astype(np.float32)) \
+            @ self.np_param("weights").reshape(-1, self.n_kernels)
+        if self.include_bias:
+            y = y + self.np_param("bias")
+        return self.activation.np_fwd(y)
 
 
 class ConvTanh(Conv):

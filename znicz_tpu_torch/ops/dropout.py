@@ -23,15 +23,22 @@ CPU.  The reference's bits come from the TPU core or from
 
 A snapshot carries the chain's next seed (``seed_chain``), so a resumed
 run draws the masks the uninterrupted one would have.
+
+On the numpy oracle the mask is the reference's host rule: uniforms
+from the default generator's numpy stream, kept where below
+``1 − ratio``, scaled by ``1/(1 − ratio)``, held in ``mask`` for the
+backward (:meth:`DropoutForward.numpy_mask` draws it).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops.fused_kernels import dropout_apply
 from znicz_tpu_torch.ops.nn_units import (Forward, Stochastic,
                                           WeightlessGradientUnit)
+from znicz_tpu_torch.utils import prng
 
 
 class DropoutForward(Stochastic, Forward):
@@ -45,6 +52,8 @@ class DropoutForward(Stochastic, Forward):
         if not 0.0 <= dropout_ratio < 1.0:
             raise ValueError(f"dropout_ratio {dropout_ratio} not in [0,1)")
         self.dropout_ratio = float(dropout_ratio)
+        #: the numpy oracle's mask of the last train step (None in eval)
+        self.mask: np.ndarray | None = None
 
     def param_shapes(self) -> dict[str, tuple]:
         return {}
@@ -59,6 +68,19 @@ class DropoutForward(Stochastic, Forward):
         seed = self.next_seed(x.device)
         return dropout_apply(x.contiguous(), seed,
                              self.dropout_ratio).to(self.output_store_dtype)
+
+    def numpy_mask(self, shape) -> np.ndarray:
+        """The oracle's train mask (the reference's host rule)."""
+        keep = 1.0 - self.dropout_ratio
+        return (prng.get().numpy.uniform(size=shape) < keep).astype(
+            np.float32) / keep
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        if self.forward_mode != "train":
+            self.mask = None
+            return x
+        self.mask = self.numpy_mask(x.shape)
+        return x * self.mask
 
 
 class DropoutBackward(WeightlessGradientUnit):
@@ -77,3 +99,9 @@ class DropoutBackward(WeightlessGradientUnit):
             return err_output.to(self.act_store_dtype)
         return dropout_apply(err_output.contiguous(), fwd.seed,
                              fwd.dropout_ratio).to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        if not self.need_err_input:
+            return None
+        mask = self.forward_unit.mask
+        return err_output if mask is None else err_output * mask

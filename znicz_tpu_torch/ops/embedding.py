@@ -23,6 +23,10 @@ another order from run to run).  On the CPU it is ``index_add_``, which
 adds the rows one after the other (``index_put_`` there splits the sum
 across threads).
 
+On the numpy oracle the pair is the reference's numpy path: the rounded
+and clipped ids index the table, and the backward adds the error rows
+with ``np.add.at``.
+
 The decode gather (``xla_embed``) belongs to the decode slice.
 """
 
@@ -94,6 +98,14 @@ class Embedding(Forward):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.weights[self.tokens(x)].to(self.output_store_dtype)
 
+    def tokens_np(self, x: np.ndarray) -> np.ndarray:
+        """:meth:`tokens` in numpy (the reference's ``_tokens``)."""
+        idx = np.round(np.asarray(x).astype(np.float32)).astype(np.int32)
+        return np.clip(idx, 0, self.vocab_size - 1)
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return self.np_param("weights")[self.tokens_np(x)]
+
 
 class GDEmbedding(GradientDescentBase):
     """Embedding backward: the error rows added into the table's
@@ -126,4 +138,13 @@ class GDEmbedding(GradientDescentBase):
         else:
             grad.index_put_((tokens,), err, accumulate=True)
         self.apply_weights(grad)
+        return None
+
+    def numpy_backprop(self, x, err_output, y=None):
+        fwd = self.forward_unit
+        tokens = fwd.tokens_np(x).reshape(-1)
+        err = np.asarray(err_output, np.float32).reshape(len(tokens), -1)
+        grad = np.zeros(fwd.np_param("weights").shape, np.float32)
+        np.add.at(grad, tokens, err)
+        self.numpy_apply_weights(grad)
         return None

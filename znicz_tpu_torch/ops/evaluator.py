@@ -33,6 +33,11 @@ Its math is f32 whatever the activations are stored in: the sum over a
 minibatch would lose small terms in bf16, and the decision selects
 models on it.  The reference's fault-injection and anomaly-guard hooks
 are not ported with them.
+
+On the numpy oracle each runs the reference's ``numpy_run``: numpy
+arrays in, the error out as an array, the counters and sums written in
+place through views of their tensors, which the decision reads and
+zeroes as on any device.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from znicz_tpu_torch.accelerated_units import AcceleratedUnit
+from znicz_tpu_torch.ops.nn_units import as_numpy, stored_f32
 
 
 class EvaluatorBase(AcceleratedUnit):
@@ -48,6 +54,7 @@ class EvaluatorBase(AcceleratedUnit):
 
     #: the device tensors a snapshot carries (the reference's names)
     SNAPSHOT_TENSORS: tuple = ()
+    WRITES = ("err_output",)
 
     def __init__(self, workflow=None, name: str = "evaluator") -> None:
         super().__init__(workflow, name=name)
@@ -138,11 +145,35 @@ class EvaluatorSoftmax(EvaluatorBase):
                 0, labels.long() * c + max_idx.long(), mask.to(torch.int32))
         return err
 
+    def numpy_run(self) -> None:
+        p = as_numpy(self.output)
+        t = as_numpy(self.labels)
+        n = p.shape[0]
+        valid = int(self.minibatch_valid)
+        mask = np.arange(n) < valid
+        onehot = np.zeros_like(p)
+        onehot[np.arange(n), t] = 1.0
+        self.err_output = stored_f32(
+            mask[:, None] * (p - onehot) / max(valid, 1))
+        pred = as_numpy(self.max_idx)
+        n_err = int(np.sum((pred != t) & mask))
+        as_numpy(self.n_err)[...] = n_err
+        cls = int(self.minibatch_class)
+        as_numpy(self.epoch_n_err)[cls] += n_err
+        p_true = np.maximum(p[np.arange(n), t], 1e-30)
+        loss_sum = np.float32(np.sum(mask * -np.log(p_true)))
+        as_numpy(self.epoch_loss)[cls] += float(
+            loss_sum if np.isfinite(loss_sum) else 0.0)
+        if self.compute_confusion:
+            np.add.at(as_numpy(self.confusion_matrix)[cls],
+                      (t[mask], pred[mask]), 1)
+
 
 class EvaluatorMSE(EvaluatorBase):
     """Mean-squared-error evaluator (regression, autoencoders)."""
 
     SNAPSHOT_TENSORS = ("epoch_sse",)
+    WRITES = ("err_output", "metrics")
 
     def __init__(self, workflow=None, name: str = "evaluator") -> None:
         super().__init__(workflow, name=name)
@@ -176,3 +207,17 @@ class EvaluatorMSE(EvaluatorBase):
         self.epoch_sse[minibatch_class] += torch.where(
             torch.isfinite(sse), sse, torch.zeros_like(sse))
         return err
+
+    def numpy_run(self) -> None:
+        y = as_numpy(self.output)
+        batch = y.shape[0]
+        t = as_numpy(self.target).reshape(batch, -1).astype(np.float32)
+        valid = int(self.minibatch_valid)
+        mask = np.arange(batch) < valid
+        diff = mask[:, None] * (y.reshape(batch, -1) - t)
+        self.err_output = stored_f32(
+            (diff * (2.0 / max(valid, 1))).reshape(y.shape))
+        sse = np.float32(np.sum(diff * diff))
+        as_numpy(self.metrics)[...] = sse
+        as_numpy(self.epoch_sse)[int(self.minibatch_class)] += \
+            sse if np.isfinite(sse) else 0.0

@@ -19,12 +19,17 @@ product's result, so these units write the formulas out rather than
 differentiate.  The evaluator emits ``err_output`` already divided by
 the number of valid samples.
 
-``GDSoftmax`` is the linear case: ``EvaluatorSoftmax`` folds the
-softmax + cross-entropy derivative (``p − t``) into ``err_output``.
+``GDSoftmax`` is the linear case: it takes ``err_output`` as it comes,
+the softmax + cross-entropy derivative (``p − t``) that
+``EvaluatorSoftmax`` folds into it, or ``EvaluatorMSE``'s error at the
+probabilities under the MSE loss, as the reference's linear
+``GDSoftmax`` does.  On the numpy oracle each unit runs the reference's
+numpy path (:meth:`GradientDescent.numpy_backprop`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops.all2all import (All2All, All2AllRELU,
@@ -58,6 +63,22 @@ class GradientDescent(GradientDescentBase):
         self.apply_weights(fwd.mxu_dot(x2d.t(), delta))
         if fwd.include_bias:
             self.apply_bias(delta.float().sum(dim=0))
+        return err_input
+
+    def numpy_backprop(self, x, err_output, y=None):
+        fwd = self.forward_unit
+        x = x.astype(np.float32)
+        batch = x.shape[0]
+        x2d = x.reshape(batch, -1)
+        act = fwd.activation
+        delta = err_output.reshape(batch, -1) * act.np_derivative(
+            y.reshape(batch, -1), x2d if act.needs_input else None)
+        err_input = None
+        if self.need_err_input:
+            err_input = (delta @ fwd.np_param("weights").T).reshape(x.shape)
+        self.numpy_apply_weights(x2d.T @ delta)
+        if fwd.include_bias:
+            self.numpy_apply_bias(delta.sum(axis=0))
         return err_input
 
 

@@ -18,15 +18,18 @@ not re-run.
 Rounding points are the reference's: in bf16 mode δ is rounded to bf16
 before both gradient convolutions, and each gives a bf16 result before
 the f32 cast.  Then the shared update of
-:class:`~znicz_tpu_torch.ops.nn_units.GradientDescentBase`.
+:class:`~znicz_tpu_torch.ops.nn_units.GradientDescentBase`.  On the
+numpy oracle the gradients are the reference's explicit im2col
+products and col2im.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops.conv import (Conv, ConvRELU, ConvSigmoid,
-                                      ConvStrictRELU, ConvTanh)
+                                      ConvStrictRELU, ConvTanh, col2im)
 from znicz_tpu_torch.ops.nn_units import GradientDescentBase
 
 
@@ -59,6 +62,27 @@ class GradientDescentConv(GradientDescentBase):
             grad_x = grad_x[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
         return grad_x.permute(0, 2, 3, 1).float().to(
             self.act_store_dtype).contiguous()
+
+    def numpy_backprop(self, x, err_output, y=None):
+        fwd = self.forward_unit
+        x = x.astype(np.float32)
+        w = fwd.np_param("weights")
+        # conv activations are expressed in the output
+        delta = err_output * fwd.activation.np_derivative(y, None)
+        k = delta.shape[-1]
+        delta2d = delta.reshape(-1, k)
+        cols = fwd.im2col(x)
+        grad_w = (cols.reshape(-1, cols.shape[-1]).T @ delta2d).reshape(
+            w.shape)
+        err_input = None
+        if self.need_err_input:
+            err_cols = (delta2d @ w.reshape(-1, k).T).reshape(cols.shape)
+            err_input = col2im(err_cols, x.shape, fwd.ky, fwd.kx,
+                               *fwd.sliding, fwd.padding)
+        self.numpy_apply_weights(grad_w)
+        if fwd.include_bias:
+            self.numpy_apply_bias(delta2d.sum(axis=0))
+        return err_input
 
 
 class GDTanhConv(GradientDescentConv):

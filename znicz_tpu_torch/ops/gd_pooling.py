@@ -16,11 +16,15 @@ sums where overlapping windows reach the same cell:
   (``last_choice``, full-window coordinates).
 
 The MaxAbs, average and stochastic backwards sum their errors in f32
-and store them once in the activation dtype.
+and store them once in the activation dtype.  On the numpy oracle each
+runs the reference's window loop: the winners found again by
+``argmax`` and the error added at them (``np.add.at``), the average
+spread by count, the stochastic choices read back.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from znicz_tpu_torch.ops.nn_units import WeightlessGradientUnit
@@ -53,6 +57,8 @@ class GDMaxPooling(WeightlessGradientUnit):
 
     MATCHES = (MaxPooling,)
     SUM_IN_F32 = False
+    #: the winner is the largest |x| (MaxAbs), else the largest x
+    USE_ABS = False
 
     @torch.no_grad()
     def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
@@ -75,6 +81,24 @@ class GDMaxPooling(WeightlessGradientUnit):
         return grad[:, :, :h, :w].permute(0, 2, 3, 1).to(
             self.act_store_dtype).contiguous()
 
+    def numpy_backprop(self, x, err_output, y=None):
+        """The error added at each window's winner (the reference's
+        ``_numpy_scatter``)."""
+        if not self.need_err_input:
+            return None
+        fwd = self.forward_unit
+        n, h, w, c = x.shape
+        out = np.zeros(x.shape, np.float32)
+        bi = np.arange(n)[:, None]
+        ci = np.arange(c)[None, :]
+        for oy, ox, y0, y1, x0, x1 in fwd.windows_np(h, w):
+            win = x[:, y0:y1, x0:x1, :].reshape(n, -1, c)
+            idx = (np.abs(win) if self.USE_ABS else win).argmax(axis=1)
+            ww = x1 - x0
+            np.add.at(out, (bi, y0 + idx // ww, x0 + idx % ww, ci),
+                      err_output[:, oy, ox, :])
+        return out
+
 
 class GDMaxAbsPooling(GDMaxPooling):
     """Scatter of the error to the forward's largest-|x| elements, summed
@@ -82,6 +106,7 @@ class GDMaxAbsPooling(GDMaxPooling):
 
     MATCHES = (MaxAbsPooling,)
     SUM_IN_F32 = True
+    USE_ABS = True
 
 
 class GDAvgPooling(GDPoolingBase):
@@ -97,6 +122,18 @@ class GDAvgPooling(GDPoolingBase):
             err / fwd.counts(h, w, x.device), xc, [fwd.ky, fwd.kx],
             list(fwd.sliding), [0, 0], False, True, 1)
         return grad[:, :, :h, :w].permute(0, 2, 3, 1)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        if not self.need_err_input:
+            return None
+        n, h, w, c = x.shape
+        out = np.zeros(x.shape, np.float32)
+        for oy, ox, y0, y1, x0, x1 in self.forward_unit.windows_np(h, w):
+            count = (y1 - y0) * (x1 - x0)
+            out[:, y0:y1, x0:x1, :] += \
+                err_output[:, oy, ox, None, None, :].reshape(n, 1, 1, c) \
+                / count
+        return out
 
 
 class GDStochasticPooling(GDPoolingBase):
@@ -117,3 +154,21 @@ class GDStochasticPooling(GDPoolingBase):
         wins.scatter_(2, choice.permute(0, 3, 1, 2).unsqueeze(2).long(),
                       err.unsqueeze(2))
         return fwd.scatter_windows(wins, x.shape)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        fwd = self.forward_unit
+        choice, fwd.last_choice = fwd.last_choice, None  # used once
+        if not self.need_err_input:
+            return None
+        if choice is None:
+            raise RuntimeError("StochasticPooling: no choice kept for this "
+                               "step (run the forward in train mode first)")
+        n, h, w, c = x.shape
+        out = np.zeros(x.shape, np.float32)
+        bi = np.arange(n)[:, None]
+        ci = np.arange(c)[None, :]
+        for oy, ox, y0, y1, x0, x1 in fwd.windows_np(h, w):
+            idx = choice[:, oy, ox, :]  # full-window coordinates
+            np.add.at(out, (bi, y0 + idx // fwd.kx, x0 + idx % fwd.kx, ci),
+                      err_output[:, oy, ox, :])
+        return out

@@ -10,7 +10,8 @@ the fused kernel
 ``GDLayerNorm`` calls the backward kernel
 :func:`~znicz_tpu_torch.ops.fused_kernels.layer_norm_backward` directly,
 as the reference's ``GDLayerNorm`` does: dx in err's dtype and the f32
-γ/β sums in one pass.  On the CPU both take their plain versions.
+γ/β sums in one pass.  On the CPU both take their plain versions.  On
+the numpy oracle the pair runs the reference's numpy math.
 """
 
 from __future__ import annotations
@@ -51,6 +52,17 @@ class LayerNorm(Forward):
         y = layer_norm_forward(x, self.weights, beta, self.eps)
         return y.to(self.output_store_dtype)
 
+    def normalize_np(self, x: np.ndarray):
+        """``(x̂, σ²)`` over the last axis (the reference's numpy)."""
+        mu = x.mean(axis=-1, keepdims=True)
+        var = ((x - mu) ** 2).mean(axis=-1, keepdims=True)
+        return (x - mu) / np.sqrt(var + self.eps), var
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        xhat, _ = self.normalize_np(x.astype(np.float32))
+        y = self.np_param("weights") * xhat
+        return y + self.np_param("bias") if self.include_bias else y
+
 
 class GDLayerNorm(GradientDescentBase):
     """Analytic layer-norm backward through the fused kernel:
@@ -76,3 +88,19 @@ class GDLayerNorm(GradientDescentBase):
         if not self.need_err_input:
             return None
         return dx.to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        fwd = self.forward_unit
+        x = x.astype(np.float32)
+        err = err_output.astype(np.float32)
+        xhat, var = fwd.normalize_np(x)
+        axes = tuple(range(x.ndim - 1))
+        dxhat = err * fwd.np_param("weights")
+        dx = (dxhat - dxhat.mean(axis=-1, keepdims=True)
+              - xhat * (dxhat * xhat).mean(axis=-1, keepdims=True)) \
+            / np.sqrt(var + fwd.eps)
+        grad_b = err.sum(axis=axes) if fwd.include_bias else None
+        self.numpy_apply_weights((err * xhat).sum(axis=axes))
+        if fwd.include_bias:
+            self.numpy_apply_bias(grad_b)
+        return dx if self.need_err_input else None

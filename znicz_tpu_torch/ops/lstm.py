@@ -26,6 +26,10 @@ where ``jax.vjp`` does.  The error at the output is taken in f32, the
 output's dtype (the reference's ``jax.vjp`` refuses the bf16 error a
 bf16 chain hands it).
 
+On the numpy oracle the pair is the reference's numpy path: the
+forward an explicit loop, the backward explicit backpropagation through
+time (the gates' derivatives written out).
+
 The decode entry points (``xla_prefill``, ``xla_decode_step``) belong to
 the decode slice.
 """
@@ -114,6 +118,32 @@ class LSTM(Forward):
         return self.scan(x, self.weights,
                          self.bias if self.include_bias else None)
 
+    def step_np(self, x_t, h_prev, c_prev, w, b):
+        """One oracle step: ``(h, c, (i, f, g, o))`` (the reference's
+        ``_step`` in numpy)."""
+        z = np.concatenate([x_t, h_prev], axis=1) @ w
+        if b is not None:
+            z = z + b
+        n = self.units
+        i, f, o = (1.0 / (1.0 + np.exp(-z[:, k * n:(k + 1) * n]))
+                   for k in (0, 1, 3))
+        g = np.tanh(z[:, 2 * n:3 * n])
+        c = f * c_prev + i * g
+        return o * np.tanh(c), c, (i, f, g, o)
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        x = x.astype(np.float32)
+        w = self.np_param("weights")
+        b = self.np_param("bias") if self.include_bias else None
+        batch, steps, _ = x.shape
+        h = np.zeros((batch, self.units), np.float32)
+        c = np.zeros((batch, self.units), np.float32)
+        hs = np.zeros((batch, steps, self.units), np.float32)
+        for t in range(steps):
+            h, c, _ = self.step_np(x[:, t], h, c, w, b)
+            hs[:, t] = h
+        return hs if self.return_sequence else h
+
 
 class GDLSTM(GradientDescentBase):
     """LSTM backward: autograd of a recomputed forward (backpropagation
@@ -141,3 +171,50 @@ class GDLSTM(GradientDescentBase):
         if not self.need_err_input:
             return None
         return grads.pop(0).to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        """The reference's explicit BPTT, from a forward replay that
+        keeps each step's state."""
+        fwd = self.forward_unit
+        x = x.astype(np.float32)
+        w = fwd.np_param("weights")
+        b = fwd.np_param("bias") if fwd.include_bias else None
+        err = err_output
+        batch, steps, features = x.shape
+        hsz = fwd.units
+        h = np.zeros((batch, hsz), np.float32)
+        c = np.zeros((batch, hsz), np.float32)
+        cache = []
+        for t in range(steps):
+            h_prev, c_prev = h, c
+            h, c, (i, f, g, o) = fwd.step_np(x[:, t], h_prev, c_prev, w, b)
+            cache.append((h_prev, c_prev, c, i, f, g, o))
+        grad_w = np.zeros_like(w)
+        grad_b = np.zeros(4 * hsz, np.float32)
+        grad_x = np.zeros_like(x)
+        dh = np.zeros((batch, hsz), np.float32)
+        dc = np.zeros((batch, hsz), np.float32)
+        for t in reversed(range(steps)):
+            h_prev, c_prev, c_t, i, f, g, o = cache[t]
+            dh_t = dh + (err[:, t] if fwd.return_sequence
+                         else (err if t == steps - 1 else 0.0))
+            tc = np.tanh(c_t)
+            do = dh_t * tc
+            dc_t = dc + dh_t * o * (1.0 - tc * tc)
+            di = dc_t * g
+            df = dc_t * c_prev
+            dg = dc_t * i
+            dz = np.concatenate([
+                di * i * (1.0 - i), df * f * (1.0 - f),
+                dg * (1.0 - g * g), do * o * (1.0 - o)], axis=1)
+            xc = np.concatenate([x[:, t], h_prev], axis=1)
+            grad_w += xc.T @ dz
+            grad_b += dz.sum(axis=0)
+            dxc = dz @ w.T
+            grad_x[:, t] = dxc[:, :features]
+            dh = dxc[:, features:]
+            dc = dc_t * f
+        self.numpy_apply_weights(grad_w)
+        if b is not None:
+            self.numpy_apply_bias(grad_b)
+        return grad_x if self.need_err_input else None

@@ -38,9 +38,20 @@ Two precision rules carry over from the reference's XLA path:
 the training paths run (learning rates, L1/L2 decay, momentum,
 gradient-norm clipping) and microbatch gradient accumulation
 (``root.common.engine.grad_accum``, :meth:`GradientDescentBase.apply_param`);
-ZeRO-1, the anomaly guard, the SDC fingerprint and fp8 belong to later
+ZeRO-1, the anomaly guard and the SDC fingerprint belong to later
 slices.  Momentum is stored in bf16 in bf16 mode with its math in f32,
-as in the reference.
+as in the reference.  With ``engine.fp8_matmul`` on, each parameter's
+gradient takes a round-trip through e4m3 after the accumulation mean
+and before the update, as in the reference.
+
+On the numpy oracle (:class:`~znicz_tpu_torch.backends.NumpyDevice`) a
+forward's :meth:`Forward.numpy_run` is ``output = numpy_forward(input)``
+and a backward's :meth:`GradientDescentBase.numpy_run` is
+``err_input = numpy_backprop(x, err_output, y)`` with the update of
+:meth:`GradientDescentBase.numpy_apply_param` (the reference's
+``_apply_weights_np``/``_apply_bias_np``): numpy arrays between units,
+and the parameters and momentum updated in place through
+``Tensor.numpy()`` views, so a snapshot reads them as on any device.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
                                                current_accum_phase,
                                                precision_dtypes)
+from znicz_tpu_torch.ops.fp8 import fp8_enabled, fp8_round_trip
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.prng import SeedChain
@@ -62,7 +74,24 @@ from znicz_tpu_torch.utils.prng import SeedChain
 register_defaults("common", {"engine": {"grad_accum": 1}})
 
 __all__ = ["Forward", "GradientDescentBase", "Stochastic",
-           "WeightlessGradientUnit", "gd_for"]
+           "WeightlessGradientUnit", "as_numpy", "gd_for", "stored_f32"]
+
+
+def as_numpy(value) -> np.ndarray | None:
+    """An oracle operand as a numpy array: an array as it is, a CPU
+    tensor as a view of its storage (no copy, no torch operation)."""
+    if value is None or isinstance(value, np.ndarray):
+        return value
+    return value.detach().numpy()
+
+
+def stored_f32(value: np.ndarray | None) -> np.ndarray | None:
+    """An oracle result as the reference stores it: in an f32 array
+    (its numpy math promotes to f64 in places, e.g. through
+    ``np.sqrt`` of an integer)."""
+    if value is None:
+        return None
+    return np.asarray(value, dtype=np.float32)
 
 
 class ModuleUnit(AcceleratedUnit, nn.Module):
@@ -99,6 +128,7 @@ class ModuleUnit(AcceleratedUnit, nn.Module):
 class Forward(ModuleUnit):
     """Base forward unit over a batch of samples of ``input_shape``."""
 
+    WRITES = ("output",)
     #: parameter attributes an exported bundle carries for this unit
     EXPORT_PARAMS: tuple = ("weights", "bias")
     #: manifest config keys that only shape the random initial fill
@@ -152,6 +182,17 @@ class Forward(ModuleUnit):
 
     def device_run(self) -> None:
         self.output = self(self.input)
+
+    def numpy_run(self) -> None:
+        self.output = stored_f32(self.numpy_forward(as_numpy(self.input)))
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        """The oracle's forward of a batch (numpy only)."""
+        raise NotImplementedError(f"{type(self).__name__}.numpy_forward")
+
+    def np_param(self, name: str) -> np.ndarray | None:
+        """A parameter as a numpy view (writes reach the tensor)."""
+        return as_numpy(getattr(self, name, None))
 
     # -- geometry and parameters ------------------------------------------
     def param_shapes(self) -> dict[str, tuple]:
@@ -298,6 +339,7 @@ class GradientDescentBase(ModuleUnit):
     #: forward classes this backward unit belongs to
     MATCHES: tuple = ()
     NEEDS_AUTOGRAD = True
+    WRITES = ("err_input",)
 
     def __init_subclass__(cls, **kwargs) -> None:
         super().__init_subclass__(**kwargs)
@@ -462,6 +504,29 @@ class GradientDescentBase(ModuleUnit):
         self.err_input = self.backprop(self.input, self.err_output,
                                        self.output)
 
+    def numpy_run(self) -> None:
+        self.err_input = stored_f32(self.numpy_backprop(
+            as_numpy(self.input), as_numpy(self.err_output),
+            as_numpy(self.output)))
+
+    def numpy_backprop(self, x: np.ndarray, err_output: np.ndarray,
+                       y: np.ndarray | None = None) -> np.ndarray | None:
+        """The oracle's backward step (numpy only): returns
+        ``err_input`` or None, and updates the parameters through
+        :meth:`numpy_apply_param`."""
+        raise NotImplementedError(f"{type(self).__name__}.numpy_backprop")
+
+    def written_values(self) -> list[tuple[str, object]]:
+        """``err_input``, then the forward's parameters and the unit's
+        momentum and microbatch sums, which its step updates."""
+        fwd = self.forward_unit
+        out = super().written_values()
+        out += [(f"{fwd.name}.{name}", t)
+                for name, t in fwd.named_parameters(recurse=False)]
+        out += [(name, t) for name, t in self.named_buffers(recurse=False)
+                if name != "lr_state"]
+        return out
+
     def backprop(self, x: torch.Tensor, err_output: torch.Tensor,
                  y: torch.Tensor | None = None) -> torch.Tensor | None:
         """One backward step; returns ``err_input`` in the activation
@@ -515,6 +580,8 @@ class GradientDescentBase(ModuleUnit):
                 return
             grad = (buf + grad.float()) / n_micro
             buf.zero_()
+        if fp8_enabled():
+            grad = fp8_round_trip(grad)
         g = self._regularized(self._clipped(grad.float()), param, decay)
         if moment:
             # f32 math whatever the accumulator stores; the weight takes
@@ -524,6 +591,79 @@ class GradientDescentBase(ModuleUnit):
             param.add_(step)
         else:
             param.sub_(lr * g)
+
+    # -- the update rule on the numpy oracle (the reference's
+    # _apply_weights_np/_apply_bias_np) ----------------------------------
+    def _np_clipped(self, grad: np.ndarray) -> np.ndarray:
+        clip = self.gradient_clip
+        if not clip:
+            return grad
+        g32 = grad.astype(np.float32)
+        norm = np.sqrt(np.sum(g32 * g32))
+        return grad * np.minimum(1.0, clip / np.maximum(norm, 1e-30))
+
+    def _np_regularized(self, grad: np.ndarray, weights: np.ndarray,
+                        decay: float) -> np.ndarray:
+        if not decay:
+            return grad
+        l1 = self.l1_vs_l2
+        reg = (1.0 - l1) * weights
+        if l1:
+            reg = reg + 0.5 * l1 * np.sign(weights)
+        return grad + decay * reg
+
+    def numpy_apply_param(self, param: torch.Tensor, grad: np.ndarray,
+                          acc: torch.Tensor | None, decay: float,
+                          lr: float, moment: float) -> None:
+        """:meth:`apply_param` in numpy, in place in the parameter's and
+        the momentum's storage (the accumulation phases as there)."""
+        w = as_numpy(param)
+        phase = current_accum_phase()
+        if phase is not None:
+            mode, n_micro = phase
+            buf = self._micro_accum.get(id(param))
+            if buf is None:
+                raise RuntimeError(
+                    f"{self}: accumulation phase {phase} but no "
+                    f"microbatch buffer for this parameter; set "
+                    f"root.common.engine.grad_accum before initialize")
+            buf = as_numpy(buf)
+            if mode == "accum":
+                buf += grad
+                return
+            grad = (buf + grad) / np.float32(n_micro)
+            buf[...] = 0.0
+        g = self._np_regularized(self._np_clipped(grad), w, decay)
+        if moment:
+            a = as_numpy(acc)
+            a *= moment
+            a -= lr * g
+            w += a
+        else:
+            w -= lr * g
+
+    def _np_rates(self) -> tuple[float, float]:
+        """``(lr, lr_bias)`` as the oracle reads them: the host value of
+        ``lr_state`` when a schedule holds it (the reference's
+        ``float(lr_state.mem[i])``), else the unit's rates."""
+        if self.lr_state is None:
+            return self.learning_rate, self.learning_rate_bias
+        state = as_numpy(self.lr_state)
+        return float(state[0]), float(state[1])
+
+    def numpy_apply_weights(self, grad: np.ndarray, param: str = "weights",
+                            acc: str = "accumulated_gradient_weights"
+                            ) -> None:
+        self.numpy_apply_param(getattr(self.forward_unit, param), grad,
+                               getattr(self, acc), self.weights_decay,
+                               self._np_rates()[0], self.gradient_moment)
+
+    def numpy_apply_bias(self, grad: np.ndarray, param: str = "bias",
+                         acc: str = "accumulated_gradient_bias") -> None:
+        self.numpy_apply_param(getattr(self.forward_unit, param), grad,
+                               getattr(self, acc), self.weights_decay_bias,
+                               self._np_rates()[1],
+                               self.gradient_moment_bias)
 
     def apply_weights(self, grad: torch.Tensor, param: str = "weights",
                       acc: str = "accumulated_gradient_weights") -> None:

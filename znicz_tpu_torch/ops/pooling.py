@@ -33,16 +33,21 @@ and marks the padded cells so that none can win or count:
 
 The reference computes pooling in XLA (``lax.reduce_window`` and
 gathers), not in Pallas, so these are PyTorch operations: no kernel of
-the TPU has a counterpart here.
+the TPU has a counterpart here.  On the numpy oracle each unit runs the
+reference's window loop (:meth:`Pooling.windows_np`), stochastic
+pooling drawing its uniforms from the default generator's numpy stream
+as the reference's oracle does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from znicz_tpu_torch.ops.fused_kernels import dropout_bits
 from znicz_tpu_torch.ops.nn_units import Forward, Stochastic
+from znicz_tpu_torch.utils import prng
 
 
 class Pooling(Forward):
@@ -102,6 +107,29 @@ class Pooling(Forward):
         return y_nchw.permute(0, 2, 3, 1).to(
             self.output_store_dtype).contiguous()
 
+    def windows_np(self, h: int, w: int):
+        """The oracle's windows: ``(oy, ox, y0, y1, x0, x1)``, cut at the
+        edge (the reference's ``_windows``)."""
+        sy, sx = self.sliding
+        oh, ow = self.output_spatial(h, w)
+        for oy in range(oh):
+            y0 = oy * sy
+            for ox in range(ow):
+                x0 = ox * sx
+                yield (oy, ox, y0, min(y0 + self.ky, h),
+                       x0, min(x0 + self.kx, w))
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        n, h, w, c = x.shape
+        out = np.zeros((n, *self.output_spatial(h, w), c), np.float32)
+        for oy, ox, y0, y1, x0, x1 in self.windows_np(h, w):
+            out[:, oy, ox, :] = self.pool_np(x[:, y0:y1, x0:x1, :])
+        return out
+
+    def pool_np(self, win: np.ndarray) -> np.ndarray:
+        """One (n, wh, ww, c) window of the input → (n, c)."""
+        raise NotImplementedError(f"{type(self).__name__}.pool_np")
+
 
 class MaxPooling(Pooling):
     """Plain max pooling."""
@@ -122,6 +150,9 @@ class MaxPooling(Pooling):
             y = F.max_pool2d(xc, window, self.sliding)
         return self.store(y)
 
+    def pool_np(self, win):
+        return win.max(axis=(1, 2))
+
 
 class MaxAbsPooling(MaxPooling):
     """Largest-|x| element of each window, its sign kept."""
@@ -138,6 +169,12 @@ class MaxAbsPooling(MaxPooling):
         if torch.is_grad_enabled():
             self.indices = torch.where(take_hi, i_hi, i_lo)
         return self.store(torch.where(take_hi, hi, -lo))
+
+    def pool_np(self, win):
+        n, c = win.shape[0], win.shape[3]
+        win = win.reshape(n, -1, c)
+        idx = np.abs(win).argmax(axis=1)
+        return np.take_along_axis(win, idx[:, None, :], axis=1)[:, 0, :]
 
 
 class AvgPooling(Pooling):
@@ -164,6 +201,9 @@ class AvgPooling(Pooling):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
         return self.store(self.window_sums(x) / self.counts(h, w, x.device))
+
+    def pool_np(self, win):
+        return win.mean(axis=(1, 2))
 
 
 class StochasticPooling(Stochastic, Pooling):
@@ -237,3 +277,37 @@ class StochasticPooling(Stochastic, Pooling):
         self.last_choice = idx[:, :, 0].permute(0, 2, 3, 1).to(
             torch.int32).contiguous()
         return self.store(wins0.gather(2, idx).squeeze(2))
+
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        """The reference's oracle: each window padded to its full size
+        with −inf, the draw from the default generator's numpy stream,
+        the choice in full-window coordinates."""
+        n, h, w, c = x.shape
+        oh, ow = self.output_spatial(h, w)
+        out = np.zeros((n, oh, ow, c), np.float32)
+        train = self.forward_mode == "train"
+        choice = np.zeros((n, oh, ow, c), np.int32) if train else None
+        rnd = prng.get().numpy
+        for oy, ox, y0, y1, x0, x1 in self.windows_np(h, w):
+            win = np.full((n, self.ky, self.kx, c), -np.inf, dtype=x.dtype)
+            win[:, :y1 - y0, :x1 - x0, :] = x[:, y0:y1, x0:x1, :]
+            win = win.reshape(n, self.window, c)
+            valid = np.isfinite(win)
+            win0 = np.where(valid, win, 0.0)
+            pos = np.maximum(win0, 0.0) * valid
+            total = pos.sum(axis=1, keepdims=True)
+            kcnt = valid.sum(axis=1, keepdims=True).astype(x.dtype)
+            uniform = valid.astype(x.dtype) / np.maximum(kcnt, 1.0)
+            p = np.where(total > 0,
+                         pos / np.where(total > 0, total, 1.0), uniform)
+            if train:
+                cum = p.cumsum(axis=1)
+                r = rnd.uniform(size=(n, 1, c))
+                idx = (r > cum).sum(axis=1)
+                out[:, oy, ox, :] = np.take_along_axis(
+                    win0, idx[:, None, :], axis=1)[:, 0, :]
+                choice[:, oy, ox, :] = idx
+            else:
+                out[:, oy, ox, :] = (p * win0).sum(axis=1)
+        self.last_choice = choice
+        return out

@@ -9,6 +9,9 @@ result is stored at the activation dtype (bf16 in bf16 mode), the one
 rounding the reference makes.  Weightless, so the backward is the
 identity.
 
+On the numpy oracle the add is the reference's numpy path (f32 input
+plus the host table).
+
 The decode step (``xla_decode_step``) belongs to the decode slice;
 :meth:`PositionalEncoding.table_to`, the table to any horizon, is here.
 """
@@ -70,6 +73,9 @@ class PositionalEncoding(Forward):
             table = self._table = table.to(x.device)
         return (x.float() + table).to(self.output_store_dtype)
 
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return x.astype(np.float32) + self.table_to(*self.input_shape)
+
 
 class GDPositionalEncoding(WeightlessGradientUnit):
     """Backward of an added constant: the error passes through."""
@@ -83,3 +89,6 @@ class GDPositionalEncoding(WeightlessGradientUnit):
         if not self.need_err_input:
             return None
         return err_output.to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        return err_output if self.need_err_input else None

@@ -6,7 +6,8 @@ the last position's features, the bridge from a causal stack to a
 position-independent head.  Their backwards are the exact adjoints (a
 reshape; the error written into the last position, zeros elsewhere), so
 both pairs are weightless.  Outputs and errors are stored at the
-activation dtype, as in the reference.
+activation dtype, as in the reference.  On the numpy oracle they move
+numpy arrays the same way.
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ class ToSequence(_Reshape):
         return x.reshape((x.shape[0],) + self.output_shape).to(
             self.output_store_dtype)
 
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return x.reshape((x.shape[0],) + self.output_shape)
+
 
 class LastToken(_Reshape):
     """Select the final time position: (B, T, D) → (B, D)."""
@@ -67,6 +71,9 @@ class LastToken(_Reshape):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x[:, -1].to(self.output_store_dtype)
 
+    def numpy_forward(self, x: np.ndarray) -> np.ndarray:
+        return x[:, -1]
+
 
 class GDToSequence(WeightlessGradientUnit):
     """Reshape the error back to the input's shape."""
@@ -80,6 +87,9 @@ class GDToSequence(WeightlessGradientUnit):
         if not self.need_err_input:
             return None
         return err_output.reshape(x.shape).to(self.act_store_dtype)
+
+    def numpy_backprop(self, x, err_output, y=None):
+        return err_output.reshape(x.shape) if self.need_err_input else None
 
 
 class GDLastToken(WeightlessGradientUnit):
@@ -96,5 +106,12 @@ class GDLastToken(WeightlessGradientUnit):
             return None
         err = torch.zeros(x.shape, dtype=self.act_store_dtype,
                           device=x.device)
+        err[:, -1] = err_output
+        return err
+
+    def numpy_backprop(self, x, err_output, y=None):
+        if not self.need_err_input:
+            return None
+        err = np.zeros(x.shape, np.float32)
         err[:, -1] = err_output
         return err
