@@ -190,8 +190,35 @@ Phases (any failure raises and exits non-zero):
    graphed with the lever on, beside their f32 and bf16 steps, every
    product on ``_scaled_mm``, graphed against eager from one seed with a
    planted fault caught.
+12. the small vision samples and the conv autoencoders, graphed, f32:
+   ``hands``, ``yale_faces`` and ``channels`` through ``Main().run([...])``
+   for 8 epochs each (B4 once a step at (40, 2), (20, 15) and (50, 8) on
+   its register route, counted through the replay accounting; one
+   capture a key; the best validation error under the reference test's
+   bars, 15 %, 25 % and 30 %; the step graphed and eager in turns);
+   ``mnist_ae`` (B = 100, 28² → 12² → 6² and back) and ``imagenet_ae``
+   (B = 64, 216² → 53² → 27², the pool's last window cut, and back) at
+   full width through ``Main().run([...])`` for 3 epochs (imagenet_ae
+   at its default learning rate, printed, then at ``AE_LR``; no
+   hand-written kernel; the validation and train MSE falling; step time,
+   img/s, peak memory, graphed and eager in turns; 3 graphed steps
+   against 3 eager from one seed within ``MLP_GRAPH_TOL`` with the
+   deconv's update left out of the capture planted; one train step
+   against the CPU's within ``TRAIN_STEP_TOL_F32``, which a planted
+   depooling that scatters every window to its first cell must fail;
+   imagenet_ae's bf16 step against the CPU's bf16 step within
+   ``TRAIN_STEP_TOL``); the trained mnist_ae exported (its ties in the
+   manifest) and served through ``ServingEngine(max_batch=16)`` with
+   1, 3 and 16 rows, the 1-row reply against the CPU's within
+   ``SLICE_TOL``; then mnist_ae with ``tied_weights`` graphed: after 10
+   train steps the conv's and the deconv's weights one moved storage
+   (a deconv untied to a copy, planted, must fail that), and graphed
+   against eager with the deconv's update left out of the capture
+   planted.  Phase 2 also times B4 at the three new heads' shapes
+   beside ``torch.softmax``; channels' 8-class launches count in the
+   ``softmax_argmax_small`` row.
 
-Each path of phases 3–11 runs with every launch counter set to 0 just
+Each path of phases 3–12 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -814,6 +841,15 @@ OFF_PATH_ROWS = ("layer_norm_backward_d25608",
 LN_SUM_TOL = 1e-5
 
 
+#: idle time at each end of a profiler window: the trace keeps only the
+#: device activity it places inside its window, and a graph replay
+#: starts its first kernels microseconds after the host enqueues it, so
+#: a window that opens straight into a replay now and then loses the
+#: replay's opening kernels (``tools/profile_window_probe.py`` counts
+#: such windows with and without the margin)
+PROFILE_MARGIN_S = 0.05
+
+
 def kernel_split_ms(fn, calls: int, names) -> dict:
     """Mean device time a call of each kernel whose name contains one of
     ``names``, from a ``torch.profiler`` window over ``calls`` calls of
@@ -825,9 +861,11 @@ def kernel_split_ms(fn, calls: int, names) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     out = dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1274,13 +1312,18 @@ SOFTMAX_CASES = (
     ("c1025", 6, 1025, 0, "general", None),
     ("cifar", CIFAR_BATCH, 10, 0, "register", "_cifar"),
     ("wine", WINE_BATCH, 3, 0, "register", "_wine"),
-    ("lm", BATCH, LM_VOCAB, 0, "register", "_lm"))
+    ("lm", BATCH, LM_VOCAB, 0, "register", "_lm"),
+    ("hands", 40, 2, 0, "register", "_hands"),
+    ("yale", 20, 15, 0, "register", "_yale"),
+    # channels' head: timed here, its launches counted in the 8-class row
+    ("channels", 50, 8, 0, "register", "_channels"))
 #: probabilities against the plain version: f32 exp on both sides and
 #: another summation order of the row sum
 PROB_TOL = 1e-6
 #: softmax row suffix → the class count its launches are counted under
 SOFTMAX_ROW_CLASSES = {"": 1000, "_small": CLASSES, "_cifar": 10,
-                       "_wine": 3, "_lm": LM_VOCAB}
+                       "_wine": 3, "_lm": LM_VOCAB, "_hands": 2,
+                       "_yale": 15}
 
 
 def check_softmax_argmax(gen, floor_ms: float) -> dict:
@@ -1349,6 +1392,8 @@ def check_softmax_argmax(gen, floor_ms: float) -> dict:
             f"bound {bound_ms:.3g} ms ({bound_by}: {nbytes:.4g} B; "
             f"{100 * bound_ms / ms:.1f} % of it), launch floor "
             f"{floor_ms:.5f} ms")
+        if timed not in SOFTMAX_ROW_CLASSES:
+            continue  # a timing only: no row of the kernels line
         rows_out["softmax_argmax" + timed] = {
             "name": "softmax_argmax" + timed, "route": "cuda",
             "source": "znicz_tpu_torch/csrc/softmax_argmax.cu",
@@ -1701,11 +1746,13 @@ def device_busy(wf, steps: int = 3, window: str = "",
     before = wrapper_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             wf.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
 
     def device_ms(e):
         return getattr(e, "self_device_time_total",
@@ -4009,6 +4056,344 @@ def fp8_lm(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 12: the small vision samples and the conv autoencoders
+# ----------------------------------------------------------------------
+#: epochs of each small vision sample (tests/test_vision_samples.py's)
+A6A_EPOCHS = 8
+#: (sample, minibatch, classes, the ``kernels`` row its head's launches
+#: count in, the best validation error (%) its 8 epochs must reach:
+#: tests/test_vision_samples.py's bars); channels' 8-class head counts
+#: in the scorer head's 8-class row
+A6A = (("hands", 40, 2, "softmax_argmax_hands", 15.0),
+       ("yale_faces", 20, 15, "softmax_argmax_yale", 25.0),
+       ("channels", 50, 8, "softmax_argmax_small", 30.0))
+#: epochs of each autoencoder's CLI run
+AE_EPOCHS = 3
+#: (sample, minibatch, the region's keys (test, validation, train),
+#: warm-up and timed train steps of ab_steps: no more than an epoch's
+#: train minibatches)
+AE = (("mnist_ae", 100, 3, 2, 20), ("imagenet_ae", 64, 2, 2, 6))
+#: imagenet_ae's learning rate for the run whose MSE must fall: at the
+#: sample's 0.005 (the reference's) the reconstruction of its uniform
+#: noise frames diverges to the tanh's saturation in both packages (the
+#: default run is printed first); at 5e-5 the reference's falls too
+AE_LR = {"imagenet_ae": 5e-05}
+#: graphed train steps of the tied mnist_ae before its storage check
+AE_TIED_STEPS = 10
+
+
+def steps_per_epoch(loader) -> int:
+    """Minibatches of one epoch, a short last one of a class included."""
+    return sum(-(-n // loader.max_minibatch_size)
+               for n in loader.class_lengths)
+
+
+def a6a_pass(card: str, name: str, batch: int, classes: int, row: str,
+             bar: float) -> dict:
+    """A small vision sample through ``Main().run([name, ...])`` graphed
+    for 8 epochs: B4 once a step at (batch, classes) on its register
+    route (the replay accounting), one capture a key, the best
+    validation error under the reference test's bar; the train step
+    graphed and eager in turns, the counted launches the kernels the
+    profiler saw."""
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    wf, errors, captures = mlp_cli(name, "--root",
+                                   f"{name}.max_epochs={A6A_EPOCHS}")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    steps = A6A_EPOCHS * steps_per_epoch(wf.loader)
+    head = tuple(wf.forwards[-1].output.shape)
+    say(f"  python -m znicz_tpu_torch {name} --root {name}.max_epochs="
+        f"{A6A_EPOCHS}: {A6A_EPOCHS} epochs ({steps} steps) in "
+        f"{host_s:.2f} s on the host clock, dataset "
+        f"{tuple(wf.loader.class_lengths)} (test, validation, train), "
+        f"head {head}; validation error by epoch, %: {errors}; graph "
+        f"captures at each epoch's end {captures}")
+    if head != (batch, classes):
+        raise AssertionError(f"{name}: the head is {head}")
+    expect_counts(name, launches, {row: steps})
+    expect_new_routes(name)
+    expect_captures(name, captures, 2)
+    best = wf.decision.min_validation_n_err_pt
+    if len(errors) != A6A_EPOCHS or not best <= bar:
+        raise AssertionError(f"{name}: best validation error {best} % "
+                             f"(want <= {bar} %)")
+    ab = ab_steps(wf, name, 2, 6, lambda n: train_ahead(wf, n))
+    say(f"  {name} train step (B={batch}, f32) on {card}: "
+        + ab_line(ab, batch, "img/s"))
+    EAGER[f"{name}_ab"] = ab
+    return launches
+
+
+def make_ae(module, device=None, precision: str = "float32",
+            **overrides):
+    """An autoencoder sample's workflow from ``SEED`` on ``device``
+    (None: the card) in ``precision``."""
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root, root
+    reset_root()
+    root.common.precision_type = precision
+    prng.seed_all(SEED)
+    wf = module.build(**overrides)
+    wf.initialize(device=device)
+    return wf
+
+
+def first_cell_depooling(wf) -> None:
+    """The planted fault of phase 12: the depooling scatters every window
+    to its first cell, not to the pooling's winner."""
+    import copy
+    import torch
+    depool = wf.forwards[2]
+    pool = depool.pooling_unit
+    fake = copy.copy(pool)
+
+    def winners(px, with_indices=True):
+        n, h, w, c = px.shape
+        oh, ow = pool.output_spatial(h, w)
+        sy, sx = pool.sliding
+        wp = (ow - 1) * sx + pool.kx
+        first = (torch.arange(oh, device=px.device)[:, None] * sy * wp
+                 + torch.arange(ow, device=px.device)[None, :] * sx)
+        return None, first.expand(n, c, oh, ow).contiguous()
+
+    fake.winners = winners
+    depool.__dict__["pooling_unit"] = fake
+
+
+def ae_steps_vs_cpu(module, label: str, batch: int, precision: str,
+                    tol: float, plant=None) -> None:
+    """One train step on the card against the CPU's from the same seed,
+    each parameter's update (max-relative, as :func:`check_step_on_cpu`);
+    with ``plant`` a second card step with that fault planted must fail
+    the same bound."""
+    def ready(device):
+        wf = make_ae(module, device, precision)
+        train_ahead(wf, 1)
+        return wf
+
+    t0 = time.perf_counter()
+    cpu = step_updates(ready("cpu"))
+    runs = {"true": None} if plant is None else {"true": None,
+                                                  "planted": plant}
+    worst = {}
+    for mode, fault in runs.items():
+        wf = ready(None)
+        if fault is not None:
+            fault(wf)
+        card = step_updates(wf)
+        del wf
+        check_finite(card)
+        worst[mode] = (max(max_rel(card[k], cpu[k]) for k in cpu),
+                       max(norm_rel(card[k], cpu[k]) for k in cpu))
+    say(f"  one train step ({label}, B={batch}, {precision}) on the card "
+        f"vs the CPU: worst max|card − cpu| / max|cpu update| "
+        f"{worst['true'][0]:.3g} (tol {tol}), worst ‖card − cpu‖ / ‖cpu "
+        f"update‖ {worst['true'][1]:.3g}"
+        + ("" if plant is None else
+           f"; with a depooling that scatters every window to its first "
+           f"cell planted: {worst['planted'][0]:.3g}")
+        + f", {time.perf_counter() - t0:.1f} s")
+    if worst["true"][0] > tol:
+        raise AssertionError(f"{label}: the card's train step disagrees "
+                             f"with the CPU's")
+    if plant is not None and worst["planted"][0] <= tol:
+        raise AssertionError(f"{label}: the check against the CPU passes "
+                             f"a planted depooling fault")
+
+
+def ae_serve(card: str, wf) -> dict:
+    """``wf`` (the trained mnist_ae) exported and served through
+    ``ServingEngine(max_batch=16)``: 1, 3 and 16 rows, no hand-written
+    kernel, the 1-row reply against ``ExportedModel.load(path,
+    device="cpu")`` within ``SLICE_TOL``, p50 and rows/s."""
+    import numpy as np
+    from znicz_tpu_torch import datasets
+    from znicz_tpu_torch.export import ExportedModel, read_bundle
+    from znicz_tpu_torch.serving import ServingEngine
+    x = (datasets.load_mnist()[2][:16, :, :, None].astype(np.float32)
+         / np.float32(255.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = wf.export_forward(os.path.join(tmp, "mnist_ae.npz"))
+        manifest, _ = read_bundle(path)
+        ties = [(i, spec.get("tied_to"), spec.get("tied_weights"))
+                for i, spec in enumerate(manifest["layers"])
+                if "tied_to" in spec]
+        reset_counts()
+        eng = ServingEngine(path, max_batch=BATCH, max_delay_ms=2.0)
+        try:
+            eng.start()
+            replies = {}
+            for n in (1, 3, BATCH):
+                reply = eng(x[:n], timeout=300)
+                if reply.shape != (n, 28, 28, 1) \
+                        or not np.isfinite(reply).all() \
+                        or np.abs(reply).max() > 1.7159:
+                    raise AssertionError(f"mnist_ae_serve: bad {n}-row "
+                                         f"reply {reply.shape}")
+                replies[n] = reply
+            lat, rate = closed_loop(eng, x)
+            launches = read_counts()
+        finally:
+            eng.shutdown()
+        want = ExportedModel.load(path, device="cpu")(x[:1])
+    expect_counts("mnist_ae_serve", launches, {})
+    err = float(np.abs(want - replies[1]).max())
+    say(f"  mnist_ae exported (ties {ties}: (layer, tied_to, tied_weights))"
+        f" and served through ServingEngine(max_batch={BATCH}) on {card}: "
+        f"replies of 1, 3 and 16 rows (28, 28, 1), p50 latency "
+        f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s; 1-row reply "
+        f"vs ExportedModel(device='cpu'): max_abs_err {err:.3g} (tol "
+        f"{SLICE_TOL})")
+    if err > SLICE_TOL or ties != [(2, 1, False), (3, 0, False)]:
+        raise AssertionError("mnist_ae_serve: the card's reply disagrees "
+                             "with the CPU's, or the ties are lost")
+    return launches
+
+
+def ae_pass(card: str, name: str, batch: int, keys: int, warmup: int,
+            steps: int) -> dict:
+    """An autoencoder sample through ``Main().run([name, ...])`` graphed
+    at full width, f32: no hand-written kernel, one capture a key, the
+    validation MSE by epoch falling; the train step graphed and eager in
+    turns (img/s, peak memory); 3 graphed steps against 3 eager from one
+    seed (``MLP_GRAPH_TOL``) with the deconv's update left out of the
+    capture planted; one train step against the CPU's
+    (``TRAIN_STEP_TOL_F32``), a planted first-cell depooling caught by
+    it; imagenet_ae also in bf16 (``TRAIN_STEP_TOL``); mnist_ae exported
+    and served.  Returns the launches by path."""
+    import importlib
+    import torch
+    from znicz_tpu_torch.loader.base import TRAIN, VALID
+    module = importlib.import_module(f"znicz_tpu_torch.models.samples.{name}")
+    args = ["--root", f"{name}.max_epochs={AE_EPOCHS}"]
+    if name in AE_LR:
+        reset_counts()
+        wf, mses, _ = mlp_cli(name, *args)
+        expect_counts(name, read_counts(), {})
+        say(f"  python -m znicz_tpu_torch {name} at the sample's learning "
+            f"rate {wf.gds[0].learning_rate}: MSE by epoch (test, "
+            f"validation, train): {mses}")
+        del wf
+        args += ["--root", f"{name}.learning_rate={AE_LR[name]}"]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wf, mses, captures = mlp_cli(name, *args)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    out = {name: read_counts()}
+    history = wf.decision.epoch_mse_history
+    shapes = [tuple(u.output.shape) for u in wf.forwards]
+    say(f"  python -m znicz_tpu_torch {name} {' '.join(args)}: "
+        f"{AE_EPOCHS} epochs in {host_s:.2f} s on the host "
+        f"clock, dataset {tuple(wf.loader.class_lengths)} (test, "
+        f"validation, train), outputs {shapes}; MSE by epoch (test, "
+        f"validation, train): {mses}; graph captures at each epoch's end "
+        f"{captures}")
+    expect_counts(name, out[name], {})
+    expect_captures(name, captures, keys)
+    if shapes[-1] != (batch, *wf.loader.sample_shape):
+        raise AssertionError(f"{name}: the decoder gives {shapes[-1]}")
+    for cls in (VALID, TRAIN):
+        h = history[cls]
+        if len(h) != AE_EPOCHS or not h[-1] < h[0]:
+            raise AssertionError(f"{name}: the MSE does not fall: {h}")
+    ab = ab_steps(wf, name, warmup, steps, lambda n: train_ahead(wf, n),
+                  no_kernels=True)
+    say(f"  {name} train step (B={batch}, f32) on {card}: "
+        + ab_line(ab, batch, "img/s") + f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if name == "mnist_ae":
+        out["mnist_ae_serve"] = ae_serve(card, wf)
+    del wf
+    ab["trajectory"] = graphed_vs_eager(
+        lambda: make_ae(module), name, tol=MLP_GRAPH_TOL, ready=train_ahead,
+        captures=keys, fault="the deconv's update left out of the capture")
+    ae_steps_vs_cpu(module, name, batch, "float32", TRAIN_STEP_TOL_F32,
+                    plant=first_cell_depooling)
+    if name == "imagenet_ae":
+        ae_steps_vs_cpu(module, name, batch, "bfloat16", TRAIN_STEP_TOL)
+    EAGER[f"{name}_ab"] = ab
+    return out
+
+
+def untie(wf) -> None:
+    """The planted fault: the deconv's weights untied to a copy of the
+    conv's."""
+    import torch
+    deconv, conv = wf.forwards[3], wf.forwards[0]
+    deconv._linked_attrs.pop("weights")
+    deconv.weights = torch.nn.Parameter(conv.weights.detach().clone(),
+                                        requires_grad=False)
+
+
+def tied_ae_pass(card: str) -> dict:
+    """mnist_ae with ``tied_weights`` on its deconv, graphed: after
+    ``AE_TIED_STEPS`` train steps the deconv's and the conv's weights are
+    one storage and have moved, with a deconv untied to a copy planted
+    (which that check must catch); 3 graphed steps against 3 eager from
+    one seed (``MLP_GRAPH_TOL``), the deconv's update left out of the
+    capture planted."""
+    import torch
+    from znicz_tpu_torch.models.samples import mnist_ae
+    plain = mnist_ae.ae_layers
+
+    def tied_layers(cfg):
+        layers = plain(cfg)
+        layers[3] = {**layers[3], "tied_weights": True}
+        return layers
+
+    mnist_ae.ae_layers = tied_layers
+    try:
+        shared = {}
+        launches = None
+        for mode in ("true", "planted"):
+            reset_counts()
+            wf = make_ae(mnist_ae)
+            if mode == "planted":
+                untie(wf)
+            train_ahead(wf, AE_TIED_STEPS)
+            conv, deconv = wf.forwards[0], wf.forwards[3]
+            w0 = conv.weights.detach().clone()
+            for _ in range(AE_TIED_STEPS):
+                wf.step()
+            torch.cuda.synchronize()
+            if mode == "true":
+                launches = read_counts()
+            shared[mode] = (deconv.weights.data_ptr()
+                            == conv.weights.data_ptr()
+                            and deconv.weights is conv.weights
+                            and not torch.equal(w0, conv.weights),
+                            wf.region.captures)
+            del wf
+        say(f"  mnist_ae with tied_weights, {AE_TIED_STEPS} graphed train "
+            f"steps on {card}: the conv's and the deconv's weights one "
+            f"moved storage {shared['true'][0]} (captures "
+            f"{shared['true'][1]}); with the deconv untied to a copy "
+            f"planted: {shared['planted'][0]}")
+        expect_counts("mnist_ae_tied", launches, {})
+        if not shared["true"][0]:
+            raise AssertionError("mnist_ae_tied: the tied weights are not "
+                                 "one storage")
+        if shared["planted"][0]:
+            raise AssertionError("mnist_ae_tied: the storage check passes "
+                                 "a deconv untied to a copy")
+        say("  mnist_ae_tied: planted fault (the deconv untied to a copy) "
+            "caught")
+        graphed_vs_eager(lambda: make_ae(mnist_ae), "mnist_ae_tied",
+                         tol=MLP_GRAPH_TOL, ready=train_ahead, captures=3,
+                         fault="the deconv's update left out of the "
+                               "capture")
+    finally:
+        mnist_ae.ae_layers = plain
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4160,6 +4545,16 @@ def main() -> int:
     paths["fp8_mnist"] = fp8_mnist(smi)
     paths["fp8_lm"] = fp8_lm(smi)
     say(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    say("phase 12: the small vision samples (hands, yale_faces, channels) "
+        "and the conv autoencoders (mnist_ae, imagenet_ae, tied), graphed")
+    t12 = time.perf_counter()
+    for name, batch, classes, row, bar in A6A:
+        paths[name] = a6a_pass(smi, name, batch, classes, row, bar)
+    for name, batch, keys, warmup, steps in AE:
+        paths.update(ae_pass(smi, name, batch, keys, warmup, steps))
+    paths["mnist_ae_tied"] = tied_ae_pass(smi)
+    say(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -210,11 +210,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 def test_bundle_checks():
     params = _params()
-    with pytest.raises(ValueError, match="'deconv' is not ported"):
-        layer_type("deconv")
+    with pytest.raises(ValueError, match="'cutter' is not ported"):
+        layer_type("cutter")
     bad = _manifest("float32")
-    bad["layers"][2]["type"] = "depooling"
-    with pytest.raises(ValueError, match="'depooling' is not ported"):
+    bad["layers"][2]["type"] = "cutter"
+    with pytest.raises(ValueError, match="'cutter' is not ported"):
         ExportedModel(bad, params, device="cpu")
     with pytest.raises(ValueError, match="missing from the bundle"):
         ExportedModel(_manifest("float32"),

@@ -26,6 +26,11 @@ attention causal, something to cache: an attention or an LSTM) is an
 slice's metadata); any other chain a ``"scorer"``.  Both serve one-shot
 here: an LM's reply is the head's distribution over the next token.
 
+A layer's ``tied_to`` (a conv autoencoder's decoder) is written into
+the manifest with ``tied_weights`` as the reference writes it, and the
+chain is rebuilt with its ties: a deconv tied with ``tied_weights``
+holds its conv's weights tensor itself, not a copy.
+
 Parameters stay float32 in every precision mode.  Hot swap, int8
 bundles and replication over several GPUs belong to later slices.
 """
@@ -41,7 +46,8 @@ import numpy as np
 import torch
 
 from znicz_tpu_torch.backends import resolve_device, torch_dtype
-from znicz_tpu_torch.models.layers import layer_type
+from znicz_tpu_torch.models.layers import layer_type, tie, tied_config
+from znicz_tpu_torch.ops.depooling import Depooling
 from znicz_tpu_torch.serving.buckets import bucket_for, ladder
 from znicz_tpu_torch.utils.logger import Logger
 
@@ -109,9 +115,16 @@ def export_forward(workflow, path: str) -> str:
     layers = []
     for spec, unit in zip(workflow.layers_config, workflow.forwards):
         params = unit.param_shapes()
-        layers.append({"type": spec["type"], "config": spec.get("->", {}),
-                       "has_weights": "weights" in params,
-                       "has_bias": "bias" in params, "name": unit.name})
+        entry = {"type": spec["type"], "config": spec.get("->", {}),
+                 # a deconv tied to its conv's weights has them too
+                 "has_weights": "weights" in params
+                 or bool(spec.get("tied_weights")),
+                 "has_bias": "bias" in params, "name": unit.name}
+        if spec.get("tied_to") is not None:
+            # the tie, which the chain is rebuilt with
+            entry["tied_to"] = int(spec["tied_to"])
+            entry["tied_weights"] = bool(spec.get("tied_weights"))
+        layers.append(entry)
     input_shape = list(workflow.loader.sample_shape)
     manifest = {
         "format": FORMAT_NAME, "version": FORMAT_VERSION,
@@ -228,16 +241,27 @@ class ExportedModel(Logger):
 
     # ------------------------------------------------------------------
     def _build_chain(self) -> torch.nn.ModuleList:
+        """The units of the manifest's layers, each on the one before's
+        output shape, their parameters loaded; a tied layer paired with
+        the layer it names, as ``StandardWorkflow.link_forwards`` pairs
+        it (a deconv tied with ``tied_weights`` holds its conv's weights
+        tensor itself; the bundle's copy of them is not read)."""
         units = []
         shape = self.input_shape
-        for i, spec in enumerate(self.manifest["layers"]):
-            if spec.get("tied_to") is not None:
-                raise ValueError(f"layer {i}: tied layers are not "
-                                 f"ported yet")
+        layers = self.manifest["layers"]
+        for i, spec in enumerate(layers):
             cls = layer_type(spec["type"])
-            unit = cls(shape, self.dtype, **dict(spec.get("config", {})))
+            tied = spec.get("tied_to")
+            cfg = dict(spec.get("config", {}))
+            if tied is not None:
+                cfg = tied_config(cls, cfg, layers[tied].get("config", {}))
+            unit = cls(shape, self.dtype, **cfg)
+            if tied is not None:
+                tie(unit, units[tied], spec["type"],
+                    spec.get("tied_weights"))
+                unit.check_input_shape()
             unit.load_params({attr: self._params[f"layer{i}_{attr}"]
-                              for attr in cls.EXPORT_PARAMS
+                              for attr in unit.param_shapes()
                               if f"layer{i}_{attr}" in self._params})
             if hasattr(unit, "forward_mode"):
                 unit.forward_mode = "eval"  # dropout = identity
@@ -247,10 +271,16 @@ class ExportedModel(Logger):
 
     # ------------------------------------------------------------------
     def forward_padded(self, x: torch.Tensor) -> torch.Tensor:
-        """Run the chain on a device batch already in the manifest dtype."""
+        """Run the chain on a device batch already in the manifest dtype
+        (a depooling also reads its pooling's input)."""
+        inputs = []
         with torch.inference_mode():
-            for unit in self.forwards:
-                x = unit(x)
+            for unit, spec in zip(self.forwards, self.manifest["layers"]):
+                inputs.append(x)
+                if isinstance(unit, Depooling):
+                    x = unit(x, inputs[spec["tied_to"]])
+                else:
+                    x = unit(x)
         return x
 
     def program_for(self, size: int):

@@ -76,7 +76,7 @@ import torch
 
 from znicz_tpu_torch.accelerated_units import AcceleratedWorkflow, RegionUnit
 from znicz_tpu_torch.loader.base import TRAIN, Loader
-from znicz_tpu_torch.models.layers import layer_type
+from znicz_tpu_torch.models.layers import layer_type, tie, tied_config
 from znicz_tpu_torch.mutable import Bool
 from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.observe import tracing as _tracing
@@ -168,10 +168,24 @@ class StandardWorkflow(AcceleratedWorkflow):
 
     # -- builders (the reference's) ----------------------------------------
     def link_forwards(self) -> None:
+        """The forward units in order, each reading the one before; a
+        layer with ``tied_to`` is paired with that earlier layer (a
+        deconv with its conv, whose geometry it takes unless its own
+        ``->`` sets it, and whose weights it shares with
+        ``tied_weights``; a depooling with its pooling), and any other
+        type refuses it, as in the reference."""
         prev = None
         for spec in self.layers_config:
-            unit = layer_type(spec["type"])(workflow=self,
-                                            **dict(spec.get("->", {})))
+            cls = layer_type(spec["type"])
+            tied = spec.get("tied_to")
+            cfg = dict(spec.get("->", {}))
+            if tied is not None:
+                cfg = tied_config(cls, cfg,
+                                  self.layers_config[tied].get("->", {}))
+            unit = cls(workflow=self, **cfg)
+            if tied is not None:
+                tie(unit, self.forwards[tied], spec["type"],
+                    spec.get("tied_weights"))
             if prev is None:
                 unit.link_attrs(self.loader, ("input", "minibatch_data"))
             else:

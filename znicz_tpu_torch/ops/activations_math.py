@@ -14,7 +14,9 @@ Derivatives are expressed in terms of the *output* ``y``, as in the
 reference (the backward units read the forward's output); ``log``
 needs the input ``x``.  Each is computed in the dtype of its operand,
 as the reference computes it, so in bf16 mode the derivative of a
-bf16-stored output is bf16.
+bf16-stored output is bf16, and so are its constants: the reference's
+Python constants are weakly typed, so ``(B/A)·(A² − y²)`` on a bf16
+``y`` takes B/A and A² rounded to bf16 (:func:`_const`).
 
 Each entry also carries the reference's numpy forms (``np_fwd``,
 ``np_derivative``), which the numpy oracle runs.
@@ -43,6 +45,17 @@ class Activation:
     needs_input: bool = False
 
 
+#: the tanh derivative's constants rounded to bf16 once
+_BF16_CONST = {c: float(torch.tensor(c, dtype=torch.bfloat16))
+               for c in (_TANH_B / _TANH_A, _TANH_A * _TANH_A)}
+
+
+def _const(c: float, like: torch.Tensor) -> float:
+    """``c`` as an operation on ``like`` takes the reference's weakly
+    typed constant: rounded to bf16 when ``like`` is bf16."""
+    return _BF16_CONST[c] if like.dtype == torch.bfloat16 else c
+
+
 def _softplus(x):
     # log(1+exp(x)) stably: max(x,0) + log1p(exp(-|x|))
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
@@ -63,8 +76,8 @@ ACTIVATIONS: dict[str, Activation] = {
         "tanh",
         fwd=lambda x: _TANH_A * torch.tanh(_TANH_B * x),
         # dy/dx = A·B·(1−tanh²) = (B/A)·(A²−y²)
-        derivative=lambda y, x: (_TANH_B / _TANH_A) * (
-            _TANH_A * _TANH_A - y * y),
+        derivative=lambda y, x: _const(_TANH_B / _TANH_A, y) * (
+            _const(_TANH_A * _TANH_A, y) - y * y),
         np_fwd=lambda x: _TANH_A * np.tanh(_TANH_B * x),
         np_derivative=lambda y, x: (_TANH_B / _TANH_A) * (
             _TANH_A * _TANH_A - y * y)),

@@ -141,14 +141,21 @@ class MaxPooling(Pooling):
         self.indices: torch.Tensor | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xc = self.padded_nchw(x, float("-inf"))
-        window = (self.ky, self.kx)
         if torch.is_grad_enabled():
-            y, self.indices = F.max_pool2d(xc, window, self.sliding,
-                                           return_indices=True)
+            y, self.indices = self.winners(x)
         else:
-            y = F.max_pool2d(xc, window, self.sliding)
+            y = F.max_pool2d(self.padded_nchw(x, float("-inf")),
+                             (self.ky, self.kx), self.sliding)
         return self.store(y)
+
+    def winners(self, x: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(y, indices)`` of x, NCHW: each window's pick and its index
+        into the padded input's plane, kept by nothing (the depooling
+        finds a tied pooling's winners through it)."""
+        return F.max_pool2d(self.padded_nchw(x, float("-inf")),
+                            (self.ky, self.kx), self.sliding,
+                            return_indices=True)
 
     def pool_np(self, win):
         return win.max(axis=(1, 2))
@@ -158,6 +165,12 @@ class MaxAbsPooling(MaxPooling):
     """Largest-|x| element of each window, its sign kept."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, indices = self.winners(x, torch.is_grad_enabled())
+        if indices is not None:
+            self.indices = indices
+        return self.store(y)
+
+    def winners(self, x, with_indices: bool = True):
         window = (self.ky, self.kx)
         hi, i_hi = F.max_pool2d(self.padded_nchw(x, float("-inf")), window,
                                 self.sliding, return_indices=True)
@@ -166,9 +179,8 @@ class MaxAbsPooling(MaxPooling):
         # lo is −min, and max ≥ min, so |max| > |min| where hi > lo; the
         # first cell wins where |max| = |min|
         take_hi = (hi > lo) | ((hi == lo) & (i_hi <= i_lo))
-        if torch.is_grad_enabled():
-            self.indices = torch.where(take_hi, i_hi, i_lo)
-        return self.store(torch.where(take_hi, hi, -lo))
+        return (torch.where(take_hi, hi, -lo),
+                torch.where(take_hi, i_hi, i_lo) if with_indices else None)
 
     def pool_np(self, win):
         n, c = win.shape[0], win.shape[3]
