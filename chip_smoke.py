@@ -217,8 +217,33 @@ Phases (any failure raises and exits non-zero):
    planted.  Phase 2 also times B4 at the three new heads' shapes
    beside ``torch.softmax``; channels' 8-class launches count in the
    ``softmax_argmax_small`` row.
+13. the RBM, the Kohonen map and the last op units, graphed, f32:
+   ``mnist_rbm`` (64 visible → 48 hidden, B = 32) through
+   ``Main().run(["mnist_rbm"])`` for its 25 epochs (no hand-written
+   kernel, two captures: train and eval; the best validation MSE under
+   0.75 × the first epoch's, the reference test's bar; the step graphed
+   and eager in turns; one train step against the CPU's within
+   ``TRAIN_STEP_TOL_F32``; 20 steps across an epoch's end graphed
+   against eager from one seed, every state tensor bit-equal, with the
+   weight update bound to a new tensor planted, which that check must
+   catch); ``kohonen`` (an 8 × 8 map, B = 40) the same way for its 12
+   epochs (the best quantization error under 0.5 × the first epoch's,
+   the neurons used by epoch; 25 steps graphed bit-equal to eager, and
+   the decision's reset of the hits by rebinding planted, which a
+   replay refuses); the cutter chain, conv (5 × 5, 16) → cutter (2) →
+   max_pooling → all2all (64) → softmax (10) on synthetic 32 × 32 RGB
+   images at B = 100, with a ``ZeroFiller`` masking a third of the
+   conv's weights in the step's graph and an ``ImageSaver`` linked,
+   through
+   ``run_chunked(8)``, which falls back to per-step replays (B4 once a
+   step at (100, 10) on its register route, in the
+   ``softmax_argmax_cifar`` row; the masked weights exactly 0; the
+   saver's PNGs read back, pixels equal to their samples'; the step
+   graphed and eager in turns; one train step against the CPU's); and
+   the filter similarity of the trained conv (``diversity``'s Gram
+   product) on the card against numpy within ``DIVERSITY_TOL``.
 
-Each path of phases 3–12 runs with every launch counter set to 0 just
+Each path of phases 3–13 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -2863,9 +2888,9 @@ MLP_GRAPH_TOL = 1e-5
 
 def mlp_cli(*args: str):
     """``python -m znicz_tpu_torch <args>`` in this process, on the card,
-    graphed: returns the workflow that ran, the validation error (%) or
-    the MSE by class of each epoch, and the region's graph captures at
-    each epoch's end."""
+    graphed: returns the workflow that ran, the validation error (%), the
+    MSE by class or the SOM's quantization error and neurons used of
+    each epoch, and the region's graph captures at each epoch's end."""
     from znicz_tpu_torch.__main__ import Main
     from znicz_tpu_torch.loader.base import VALID
     from znicz_tpu_torch.ops.decision import DecisionBase
@@ -2878,8 +2903,13 @@ def mlp_cli(*args: str):
         decide(decision)
         if decision.epoch_ended:
             err = getattr(decision, "epoch_n_err_pt", None)
-            metric.append(round(err[VALID], 2) if err is not None
-                          else [round(v, 4) for v in decision.epoch_mse])
+            if err is not None:
+                metric.append(round(err[VALID], 2))
+            elif hasattr(decision, "epoch_mse"):
+                metric.append([round(v, 4) for v in decision.epoch_mse])
+            else:  # the SOM's quantization error and neurons used
+                metric.append((round(decision.epoch_qe, 5),
+                               decision.neurons_used))
             captures.append(decision.workflow.region.captures)
 
     DecisionBase.decide = decide_and_record
@@ -4394,6 +4424,433 @@ def tied_ae_pass(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 13: the RBM, the Kohonen map and the last op units, graphed
+# ----------------------------------------------------------------------
+#: the reference test's bars: mnist_rbm's best validation MSE under this
+#: share of its first epoch's, kohonen's best quantization error under
+#: this share of its first epoch's
+RBM_MSE_BAR, SOM_QE_BAR = 0.75, 0.5
+#: steps of the graphed-against-eager runs after the first three train
+#: minibatches are reached: across an epoch's end (mnist_rbm: 13 steps
+#: an epoch, kohonen: 20), so the eval key and the decision's in-place
+#: resets are replayed too
+LOOP_GRAPH_STEPS = {"mnist_rbm": 20, "kohonen": 25}
+#: the cutter chain: 10 classes of synthetic 32 × 32 RGB images, 800
+#: train and 200 validation, B = 100, two epochs
+CHAIN_BATCH, CHAIN_TRAIN, CHAIN_VALID, CHAIN_EPOCHS = 100, 800, 200, 2
+CHAIN_LAYERS = (
+    {"type": "conv_tanh", "->": {"n_kernels": 16, "kx": 5, "ky": 5,
+                                 "padding": 2},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}},
+    {"type": "cutter", "->": {"padding": 2}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "all2all_tanh", "->": {"output_sample_shape": 64},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}},
+    {"type": "softmax", "->": {"output_sample_shape": 10},
+     "<-": {"learning_rate": 0.01, "gradient_moment": 0.9}},
+)
+#: the cutter chain's image saver: at most this many files an epoch
+CHAIN_SAVE_LIMIT = 8
+#: the filter similarity (a Gram product of fan-in 75) on the card
+#: against numpy, f32 on both sides: sums in other orders, a few ulps of
+#: a unit-diagonal matrix
+DIVERSITY_TOL = 1e-5
+
+
+def param_updates(wf, params) -> dict:
+    """One step of ``wf``: the update of each of ``params`` (name →
+    tensor), as f32 on the CPU."""
+    before = {k: p.detach().float().cpu().clone() for k, p in params.items()}
+    wf.step()
+    return {k: p.detach().float().cpu() - before[k]
+            for k, p in params.items()}
+
+
+def loop_params(wf) -> dict:
+    """The trained tensors of the RBM's or the SOM's workflow."""
+    if hasattr(wf, "grbm"):
+        return {"encoder.weights": wf.encoder.weights,
+                "encoder.bias": wf.encoder.bias,
+                "gradient_rbm.vbias": wf.grbm.vbias}
+    return {"kohonen.weights": wf.forward.weights}
+
+
+def loop_step_vs_cpu(module, label: str) -> None:
+    """One train step of a sample on the card against the CPU's from
+    ``SEED`` (each tensor's update, max-relative, ``TRAIN_STEP_TOL_F32``:
+    f32 on both sides, the products summed in other orders)."""
+    def ready(device):
+        wf = make_mlp(module, device)
+        train_ahead(wf, 1)
+        return wf
+
+    t0 = time.perf_counter()
+    cpu_wf = ready("cpu")
+    cpu = param_updates(cpu_wf, loop_params(cpu_wf))
+    card_wf = ready(None)
+    card = param_updates(card_wf, loop_params(card_wf))
+    del card_wf
+    check_finite(card)
+    worst = max(max_rel(card[k], cpu[k]) for k in cpu)
+    say(f"  one train step ({label}) on the card vs the CPU: worst "
+        f"max|card − cpu| / max|cpu update| {worst:.3g} (tol "
+        f"{TRAIN_STEP_TOL_F32}), {time.perf_counter() - t0:.1f} s")
+    if worst > TRAIN_STEP_TOL_F32:
+        raise AssertionError(f"{label}: the card's train step disagrees "
+                             f"with the CPU's")
+
+
+def rebound_rbm_update(wf) -> None:
+    """The planted fault of mnist_rbm: the weight update bound to a new
+    tensor (``W + ΔW``, a new Parameter) instead of written into W."""
+    import torch
+    grbm, enc = wf.grbm, wf.encoder
+    cd = grbm.cd
+
+    def cd_rebinding(v0, h0, s0):
+        w = enc.weights
+        old = w.detach().clone()
+        out = cd(v0, h0, s0)                # W += ΔW in place
+        new = w.detach().clone()
+        w.data.copy_(old)                   # W left as it was
+        enc.weights = torch.nn.Parameter(new, requires_grad=False)
+        return out
+
+    grbm.cd = cd_rebinding
+
+
+def rebound_hits(wf) -> None:
+    """The planted fault of kohonen: ``DecisionSOM`` resets the hit
+    counts by binding a new zero tensor, not by zeroing them in place."""
+    import torch
+    decision, fwd = wf.decision, wf.forward
+    on_epoch_ended = decision.on_epoch_ended
+
+    def rebinding():
+        hits = fwd.hits
+        counts = hits.clone()
+        on_epoch_ended()                    # zeroes them in place
+        hits.copy_(counts)                  # the old tensor keeps them
+        fwd.hits = torch.zeros_like(counts)
+
+    decision.on_epoch_ended = rebinding
+
+
+def loop_graphed_vs_eager(module, path: str, plant, fault: str) -> None:
+    """``LOOP_GRAPH_STEPS[path]`` steps of the sample from ``SEED`` with
+    its region eager, then graphed (2 captures: train and eval), then
+    graphed with ``plant`` planted; the graphed run's state bit-equal to
+    the eager run's (parameters, sums, counts, the seed chain, the
+    clock), the planted run caught: its state leaves the eager one, or
+    a replay refuses a rebound tensor."""
+    import torch
+    steps = LOOP_GRAPH_STEPS[path]
+    states, caught = {}, None
+    for mode in ("eager", "graphed", "planted"):
+        set_graphs(mode != "eager")
+        wf = make_mlp(module)
+        if mode == "planted":
+            plant(wf)
+        try:
+            train_ahead(wf, 3)
+            for _ in range(steps):
+                wf.step()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            if mode != "planted" or "rebound" not in str(exc):
+                raise
+            caught = str(exc)
+            del wf
+            continue
+        if mode != "eager" and wf.region.captures != 2:
+            raise AssertionError(f"{path}: {wf.region.captures} captures")
+        states[mode] = run_state(wf)
+        del wf
+    set_graphs(True)
+    rel, other = state_diff(states["eager"], states["graphed"])
+    same = sum(v == 0.0 for v in rel.values())
+    say(f"  {path}: {steps} steps graphed (a warm-up a key, then replays) "
+        f"against eager from one seed: {same} of {len(rel)} tensors "
+        f"bit-equal (worst ‖graphed − eager‖ / ‖eager‖ "
+        f"{max(rel.values()):.3g}), counters that differ: {sorted(other)}")
+    if same != len(rel) or other:
+        raise AssertionError(f"{path}: the graphed run is not the eager "
+                             f"run bit for bit")
+    if caught is None:
+        rel, other = state_diff(states["eager"], states["planted"])
+        worst = max(rel.values())
+        say(f"  {path}: with {fault} planted: worst ‖planted − eager‖ / "
+            f"‖eager‖ {worst:.3g}, counters that differ: {sorted(other)}")
+        if worst == 0.0 and not other:
+            raise AssertionError(f"{path}: the check passes a planted "
+                                 f"fault ({fault})")
+    else:
+        say(f"  {path}: with {fault} planted, a replay refused: "
+            f"{caught[:160]}")
+    say(f"  {path}: planted fault ({fault}) caught")
+
+
+def rbm_pass(card: str) -> dict:
+    """mnist_rbm through ``Main().run(["mnist_rbm"])`` graphed for the
+    sample's 25 epochs: no hand-written kernel, one capture a key, the
+    reference test's MSE bar; the step graphed and eager in turns; one
+    train step against the CPU's; graphed bit-equal to eager with a
+    rebound weight update planted."""
+    import importlib
+    import torch
+    from znicz_tpu_torch.loader.base import VALID
+    module = importlib.import_module("znicz_tpu_torch.models.samples."
+                                     "mnist_rbm")
+    reset_counts()
+    t0 = time.perf_counter()
+    wf, mses, captures = mlp_cli("mnist_rbm")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    history = wf.decision.epoch_mse_history[VALID]
+    epochs = len(history)
+    say(f"  python -m znicz_tpu_torch mnist_rbm: {epochs} epochs "
+        f"({epochs * steps_per_epoch(wf.loader)} steps) in {host_s:.2f} s "
+        f"on the host clock, dataset {tuple(wf.loader.class_lengths)} "
+        f"(test, validation, train), 64 visible → 48 hidden, B = "
+        f"{wf.loader.max_minibatch_size}; MSE by epoch (test, validation, "
+        f"train): first {mses[0]}, last {mses[-1]}; best validation "
+        f"{wf.decision.min_validation_mse:.4f} (bar < {RBM_MSE_BAR} × "
+        f"{history[0]:.4f}); graph captures at each epoch's end "
+        f"{sorted(set(captures))}")
+    expect_counts("mnist_rbm", launches, {})
+    expect_captures("mnist_rbm", captures, 2)
+    if epochs != 25 or not wf.decision.min_validation_mse \
+            < RBM_MSE_BAR * history[0]:
+        raise AssertionError("mnist_rbm: the reconstruction MSE misses the "
+                             "reference test's bar")
+    ab = ab_steps(wf, "mnist_rbm", 2, 6, lambda n: train_ahead(wf, n),
+                  no_kernels=True)
+    say(f"  mnist_rbm train step (B={wf.loader.max_minibatch_size}, f32) "
+        f"on {card}: " + ab_line(ab, wf.loader.max_minibatch_size,
+                                 "samples/s"))
+    EAGER["mnist_rbm_ab"] = ab
+    del wf
+    loop_step_vs_cpu(module, "mnist_rbm")
+    loop_graphed_vs_eager(module, "mnist_rbm", rebound_rbm_update,
+                          "the weight update bound to a new tensor")
+    return launches
+
+
+def som_pass(card: str) -> dict:
+    """kohonen through ``Main().run(["kohonen"])`` graphed for the
+    sample's 12 epochs: no hand-written kernel, one capture a key, the
+    reference test's QE bar, the neurons used; the step graphed and
+    eager in turns; one train step against the CPU's; graphed bit-equal
+    to eager with the decision's reset of the hits by rebinding
+    planted."""
+    import importlib
+    import torch
+    module = importlib.import_module("znicz_tpu_torch.models.samples."
+                                     "kohonen")
+    reset_counts()
+    t0 = time.perf_counter()
+    wf, qes, captures = mlp_cli("kohonen")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    say(f"  python -m znicz_tpu_torch kohonen: {len(qes)} epochs "
+        f"({len(qes) * steps_per_epoch(wf.loader)} steps) in {host_s:.2f} "
+        f"s on the host clock, dataset {tuple(wf.loader.class_lengths)} "
+        f"(test, validation, train), an 8 × 8 map of 2-D points, B = "
+        f"{wf.loader.max_minibatch_size}; (quantization error, neurons "
+        f"used of 64) by epoch: {qes}; best {wf.decision.best_qe:.5f} (bar "
+        f"< {SOM_QE_BAR} × {qes[0][0]}); graph captures at each epoch's "
+        f"end {sorted(set(captures))}")
+    expect_counts("kohonen", launches, {})
+    expect_captures("kohonen", captures, 2)
+    if len(qes) != 12 or not wf.decision.best_qe < SOM_QE_BAR * qes[0][0]:
+        raise AssertionError("kohonen: the quantization error misses the "
+                             "reference test's bar")
+    if not all(0 < used <= 64 for _, used in qes):
+        raise AssertionError(f"kohonen: neurons used by epoch {qes}")
+    ab = ab_steps(wf, "kohonen", 2, 6, lambda n: train_ahead(wf, n),
+                  no_kernels=True)
+    say(f"  kohonen train step (B={wf.loader.max_minibatch_size}, f32) on "
+        f"{card}: " + ab_line(ab, wf.loader.max_minibatch_size,
+                              "samples/s"))
+    EAGER["kohonen_ab"] = ab
+    del wf
+    loop_step_vs_cpu(module, "kohonen")
+    loop_graphed_vs_eager(module, "kohonen", rebound_hits,
+                          "the decision's reset of the hits by rebinding")
+    return launches
+
+
+def make_chain(device=None, out_dir: str | None = None):
+    """The cutter chain (``CHAIN_LAYERS``) on synthetic 10-class images
+    from ``SEED``; with ``out_dir`` a zero filler masking every third of
+    the conv's weights (after the backward chain: the last member of
+    the region) and an image saver writing there (after the decision)
+    are linked.  Returns ``(workflow, mask)``."""
+    import numpy as np
+    from znicz_tpu_torch import datasets
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.ops.weights_zerofilling import ZeroFiller
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root
+    reset_root()
+    prng.seed_all(SEED)
+    x, y, _, _ = datasets.synthetic_images(
+        n_train=CHAIN_TRAIN + CHAIN_VALID, n_test=0, size=32, channels=3,
+        n_classes=10, seed=SEED)
+    wf = StandardWorkflow(
+        name="cutter_chain",
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=x[CHAIN_VALID:], train_labels=y[CHAIN_VALID:],
+            valid_data=x[:CHAIN_VALID], valid_labels=y[:CHAIN_VALID],
+            minibatch_size=CHAIN_BATCH, normalization_scale=2.0 / 255.0,
+            normalization_bias=-1.0),
+        layers=[dict(spec) for spec in CHAIN_LAYERS],
+        decision_config={"max_epochs": CHAIN_EPOCHS})
+    mask = None
+    if out_dir is not None:
+        mask = (np.arange(5 * 5 * 3 * 16).reshape(5, 5, 3, 16) % 3 != 0
+                ).astype(np.float32)
+        zf = ZeroFiller(wf, name="zero_filler")
+        zf.link_attrs(wf.forwards[0], ("target_weights", "weights"))
+        zf.zero_mask.reset(mask)
+        zf.link_from(wf.gds[0])          # in the region, after the update
+        wf.link_image_saver(out_dir=out_dir, limit=CHAIN_SAVE_LIMIT)
+    wf.initialize(device=device)
+    return wf, mask
+
+
+def read_png(path: str):
+    """A PNG that ``ImageSaver`` wrote, decoded (8-bit L or RGB, one
+    filter type 0 a row): checks the signature and every chunk's CRC."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head
+    ch = {0: 1, 2: 3}[color]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * ch)
+    if depth != 8 or raw[:, 0].any():
+        raise AssertionError(f"{path}: depth {depth}, row filters "
+                             f"{set(raw[:, 0])}")
+    img = raw[:, 1:].reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
+
+
+def chain_pass(card: str) -> dict:
+    """conv → cutter → max_pooling → all2all → softmax (10 classes) with
+    a zero filler and an image saver, through ``run_chunked(8)``, which
+    falls back to per-step replays for the saver: B4 once a step on its
+    register route (the ``softmax_argmax_cifar`` row), two captures, the
+    masked weights exactly 0, the saver's PNGs read back against their
+    samples; the step graphed and eager in turns; one train step against
+    the CPU's; the filter similarity of the trained conv on the card
+    against numpy."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.ops import diversity
+    from znicz_tpu_torch.ops.image_saver import to_image_array
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        wf, mask = make_chain(out_dir=tmp)
+        t0 = time.perf_counter()
+        wf.run_chunked(8)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = read_counts()
+        steps = CHAIN_EPOCHS * steps_per_epoch(wf.loader)
+        saver = wf.image_saver
+        shapes = [tuple(u.output.shape) for u in wf.forwards]
+        say(f"  the cutter chain, {CHAIN_EPOCHS} epochs ({steps} steps) "
+            f"through run_chunked(8) in {host_s:.2f} s on the host clock: "
+            f"outputs {shapes}; validation error by epoch "
+            f"{wf.decision.epoch_n_err_pt}; captures "
+            f"{wf.region.captures}; the image saver ran {saver.run_count} "
+            f"times")
+        expect_counts("cutter_chain", launches,
+                      {"softmax_argmax_cifar": steps})
+        expect_new_routes("cutter_chain")
+        if shapes[1] != (CHAIN_BATCH, 28, 28, 16) \
+                or wf.region.captures != 2 or saver.run_count != steps \
+                or type(wf.region.units[-1]).__name__ != "ZeroFiller":
+            raise AssertionError("cutter_chain: the cutter's shape, the "
+                                 "captures, the per-step fallback or the "
+                                 "zero filler in the region")
+        w = wf.forwards[0].weights.detach().cpu().numpy()
+        masked = w[mask == 0.0]
+        say(f"  zero filler (in the step's graph): {masked.size} masked "
+            f"conv weights, max |w| "
+            f"there {np.abs(masked).max()}, {int((w[mask == 1.0] != 0).sum())}"
+            f" of {int(mask.sum())} others nonzero")
+        if np.any(masked != 0.0) or not np.all(w[mask == 1.0] != 0.0):
+            raise AssertionError("cutter_chain: the masked weights are not "
+                                 "exactly 0")
+        files = sorted(os.path.join(d, f) for d, _, names in os.walk(tmp)
+                       for f in names)
+        data = wf.loader.original_data.cpu().numpy()
+        for path in files:
+            sample = int(os.path.basename(path).split("_")[0])
+            norm = (data[sample].astype(np.float64) * np.float32(2.0 / 255.0)
+                    + np.float32(-1.0)).astype(np.float32)
+            if not np.array_equal(read_png(path), to_image_array(norm)):
+                raise AssertionError(f"{path}: the pixels are not the "
+                                     f"sample's")
+        epochs = sorted({os.path.basename(os.path.dirname(p))
+                         for p in files})
+        say(f"  image saver: {len(files)} PNGs of misclassified "
+            f"validation samples in {epochs}, each read back (signature, "
+            f"CRCs, pixels equal to its sample's)")
+        if not files:
+            raise AssertionError("cutter_chain: the image saver wrote no "
+                                 "file")
+        sim = diversity.filter_similarity(
+            diversity.filter_rows(wf.forwards[0].weights), xp=torch)
+        want = diversity.filter_similarity(w)
+        err = float(np.abs(sim.cpu().numpy() - want).max())
+        say(f"  diversity of the trained conv (16 filters of fan-in 75): "
+            f"the Gram product on the card vs numpy max_abs_err {err:.3g} "
+            f"(tol {DIVERSITY_TOL}), groups at 0.85 "
+            f"{diversity.similar_kernel_groups(w)}")
+        if err > DIVERSITY_TOL:
+            raise AssertionError("the filter similarity on the card "
+                                 "disagrees with numpy")
+        ab = ab_steps(wf, "cutter_chain", 2, 6, lambda n: train_ahead(wf, n))
+        say(f"  cutter chain train step (B={CHAIN_BATCH}, f32, the zero "
+            f"filler in the step's graph, the image saver after it) on "
+            f"{card}: "
+            + ab_line(ab, CHAIN_BATCH, "img/s"))
+        EAGER["cutter_chain_ab"] = ab
+        del wf
+
+    def ready(device):
+        chain, _ = make_chain(device)
+        train_ahead(chain, 1)
+        return chain
+
+    check_step_on_cpu(ready, "the cutter chain, B=100, f32",
+                      TRAIN_STEP_TOL_F32)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4555,6 +5012,14 @@ def main() -> int:
         paths.update(ae_pass(smi, name, batch, keys, warmup, steps))
     paths["mnist_ae_tied"] = tied_ae_pass(smi)
     say(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    say("phase 13: the RBM (mnist_rbm), the Kohonen map (kohonen) and the "
+        "cutter chain with a zero filler and an image saver, graphed")
+    t13 = time.perf_counter()
+    paths["mnist_rbm"] = rbm_pass(smi)
+    paths["kohonen"] = som_pass(smi)
+    paths["cutter_chain"] = chain_pass(smi)
+    say(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -67,8 +67,32 @@ def test_root_overrides():
 def test_list_samples(capsys):
     assert Main().run(["--list-samples"]) == 0
     out = capsys.readouterr().out.split()
-    for name in ("cifar", "alexnet", "attention_seq"):
+    for name in ("cifar", "alexnet", "attention_seq", "mnist_rbm",
+                 "kohonen"):
         assert name in out
+
+
+@pytest.mark.parametrize("name", ["mnist_rbm", "kohonen"])
+def test_cli_chunk_trains_a_custom_loop_as_without(name):
+    """``--chunk 4`` on a workflow with no ``run_chunked`` (the RBM's and
+    the SOM's own loops) trains it with ``run()``: the same epochs, the
+    same weights."""
+    runs = []
+    for chunk in ([], ["--chunk", "4"]):
+        main = Main()
+        assert main.run([name, "-b", "cpu", *chunk,
+                         "--root", f"{name}.max_epochs=2"]) == 0
+        wf = main.launcher.workflow
+        assert wf.device.type == "cpu" and wf.decision.complete
+        assert wf.loader.epoch_number == 1
+        runs.append(wf)
+    state = [{k: v for k, v in wf.state_dict()["__units__"].items()
+              if k not in ("loader", "decision")} for wf in runs]
+    assert state[0].keys() == state[1].keys()
+    for unit, values in state[0].items():
+        for key, value in values.items():
+            np.testing.assert_array_equal(state[1][unit][key], value,
+                                          err_msg=f"{unit}.{key}")
 
 
 def test_cli_trains_attention_seq_on_the_cpu():

@@ -208,13 +208,20 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     assert backends.resolve_device("cpu") == torch.device("cpu")
 
 
+#: a layer type no registry has (the reference's or the port's)
+UNKNOWN_TYPE = "no_such_layer"
+
+
 def test_bundle_checks():
+    from znicz_tpu.models.standard_workflow import layer_type as ref_type
     params = _params()
-    with pytest.raises(ValueError, match="'cutter' is not ported"):
-        layer_type("cutter")
+    with pytest.raises(ValueError, match="unknown layer type"):
+        ref_type(UNKNOWN_TYPE)
+    with pytest.raises(ValueError, match=f"'{UNKNOWN_TYPE}' is not ported"):
+        layer_type(UNKNOWN_TYPE)
     bad = _manifest("float32")
-    bad["layers"][2]["type"] = "cutter"
-    with pytest.raises(ValueError, match="'cutter' is not ported"):
+    bad["layers"][2]["type"] = UNKNOWN_TYPE
+    with pytest.raises(ValueError, match=f"'{UNKNOWN_TYPE}' is not ported"):
         ExportedModel(bad, params, device="cpu")
     with pytest.raises(ValueError, match="missing from the bundle"):
         ExportedModel(_manifest("float32"),
@@ -225,6 +232,43 @@ def test_bundle_checks():
     with pytest.raises(ValueError, match="input sample shape"):
         ExportedModel(_manifest("float32"), params, device="cpu")(
             np.zeros((1, T, D + 1), np.float32))
+
+
+def test_reference_cutter_bundle_serves(tmp_path):
+    """A bundle with a ``cutter`` layer, written by the reference's
+    exporter from a trained conv → cutter → max_pooling → softmax chain,
+    serves on the port (CPU) as the reference's ``ExportedModel``
+    serves it."""
+    from znicz_tpu.export import export_forward
+    from znicz_tpu.loader.fullbatch import ArrayLoader
+    from znicz_tpu.models.standard_workflow import StandardWorkflow
+    from znicz_tpu.utils import prng
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(24, 8, 8, 2)).astype(np.float32)
+    y = rng.integers(0, 3, size=24).astype(np.int32)
+    gd = {"learning_rate": 0.05}
+    prng.seed_all(9)
+    wf = StandardWorkflow(
+        name="cutter_chain",
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=x, train_labels=y, minibatch_size=8),
+        layers=[{"type": "conv_tanh", "->": {"n_kernels": 3, "kx": 3,
+                                             "ky": 3}, "<-": gd},
+                {"type": "cutter", "->": {"padding": (1, 0, 0, 1)}},
+                {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+                {"type": "softmax", "->": {"output_sample_shape": 3},
+                 "<-": gd}],
+        decision_config={"max_epochs": 1})
+    wf.initialize(device=XLADevice())
+    wf.run()
+    path = export_forward(wf, str(tmp_path / "cutter.npz"))
+    manifest, _ = read_bundle(path)
+    assert manifest["layers"][1]["type"] == "cutter"
+    rows = x[:5]
+    want = RefModel.load(path, device=XLADevice())(rows)
+    got = ExportedModel.load(path, device="cpu")(rows)
+    assert got.shape == (5, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL["float32"])
 
 
 def test_batcher_backpressure_deadline_and_retry():
@@ -271,9 +315,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
     assert len(files) > 10
-    # the sequence units of the token LM among them
+    # the sequence units of the token LM among them, and the RBM, the
+    # SOM and the cutter
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
-                                "lstm")} <= {p.name for p in files}
+                                "lstm", "rbm_units", "kohonen", "cutter")} \
+        <= {p.name for p in files}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -14,9 +14,9 @@ encoder layer it inverts, in a workflow and in a bundle's chain alike.
 from __future__ import annotations
 
 from znicz_tpu_torch.ops import (activation, all2all, attention, conv,
-                                 deconv, depooling, dropout, embedding,
-                                 layer_norm, lstm, normalization, pooling,
-                                 pos_encoding, seq_reshape)
+                                 cutter, deconv, depooling, dropout,
+                                 embedding, layer_norm, lstm, normalization,
+                                 pooling, pos_encoding, seq_reshape)
 # the backward units register their pairs when imported
 from znicz_tpu_torch.ops import gd, gd_conv, gd_deconv  # noqa: F401
 from znicz_tpu_torch.ops import gd_pooling  # noqa: F401
@@ -38,6 +38,7 @@ _LAYER_TYPES: dict[str, type] = {
     "avg_pooling": pooling.AvgPooling,
     "stochastic_pooling": pooling.StochasticPooling,
     "norm": normalization.LRNormalizerForward,
+    "cutter": cutter.Cutter,
     "dropout": dropout.DropoutForward,
     "activation_tanh": activation.ForwardTanh,
     "activation_relu": activation.ForwardRELU,

@@ -25,6 +25,7 @@ over the hot chain (:meth:`hot_chain_units`):
 .. code-block:: text
 
     loader gather → forwards → evaluator → backward units (train only)
+                  → side units linked after the last backward unit
 
 On the card it replays a CUDA graph captured once per key (train,
 validation, test minibatches); on the CPU it runs the same members
@@ -61,10 +62,12 @@ decision; it writes each scheduled unit's rates into the device tensor
 the captured step reads (``lr_state``), once a train step, or once a
 chunk under :meth:`run_chunked`, as in the reference.
 
+:meth:`link_image_saver` writes the misclassified samples of each
+epoch as images after the decision.
+
 Not ported with it (later slices): the anomaly guard (A11), the
 pipelined training loop (A9), the population engine's
-``promote_lr_leaves`` (A13), the plotters, the image saver and the
-publisher (A12).
+``promote_lr_leaves`` (A13), the plotters and the publisher (A12).
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from znicz_tpu_torch.accelerated_units import AcceleratedWorkflow, RegionUnit
+from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
+                                               AcceleratedWorkflow, RegionUnit)
 from znicz_tpu_torch.loader.base import TRAIN, Loader
 from znicz_tpu_torch.models.layers import layer_type, tie, tied_config
 from znicz_tpu_torch.mutable import Bool
@@ -301,10 +305,37 @@ class StandardWorkflow(AcceleratedWorkflow):
         self._relink_end_point_last()
         self.lr_adjuster = adj
 
+    def link_image_saver(self, **config):
+        """Write the misclassified samples of each epoch as images (the
+        reference's ``link_image_saver``;
+        :class:`~znicz_tpu_torch.ops.image_saver.ImageSaver`):
+        classification workflows only.  It runs after the decision,
+        every step."""
+        from znicz_tpu_torch.ops.image_saver import ImageSaver
+        if self.loss != "softmax":
+            raise ValueError("image saver needs a classification loss")
+        s = ImageSaver(self, name="image_saver", **config)
+        s.link_attrs(self.loader, ("input", "minibatch_data"),
+                     ("labels", "minibatch_labels"),
+                     ("indices", "minibatch_indices"),
+                     "minibatch_valid", "minibatch_class", "epoch_number",
+                     two_way=False)
+        s.link_attrs(self.forwards[-1], "max_idx", two_way=False)
+        s.link_from(self.decision)  # after the step's compute
+        self._relink_end_point_last()
+        self.image_saver = s
+        return s
+
     def hot_chain_units(self) -> list:
-        """The per-minibatch hot chain in the region's order."""
-        return [self.loader, *self.forwards, self.evaluator,
-                *reversed(self.gds)]
+        """The per-minibatch hot chain in the region's order, then the
+        accelerated side units linked after its last unit (a
+        ``ZeroFiller`` after the backward chain), which the region runs
+        after it."""
+        chain = [self.loader, *self.forwards, self.evaluator,
+                 *reversed(self.gds)]
+        side = [u for u in chain[-1].links_to
+                if u is not self.decision and isinstance(u, AcceleratedUnit)]
+        return chain + side
 
     # -- lifecycle ------------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:
@@ -388,7 +419,10 @@ class StandardWorkflow(AcceleratedWorkflow):
         learning-rate schedule is the exception, as in the reference: it
         writes its rate once a chunk, so the rate is constant within a
         chunk.  With one step a dispatch, a loader whose schedule is not on
-        the device, or on the numpy oracle, this is :meth:`run`."""
+        the device, on the numpy oracle, or with a unit linked that needs
+        every minibatch (``NEEDS_PER_STEP_MINIBATCHES``: the image saver),
+        this is :meth:`run` (the last with a warning, as in the
+        reference)."""
         region = self.region
         loader = self.loader
         if self._oracle:
@@ -396,6 +430,14 @@ class StandardWorkflow(AcceleratedWorkflow):
         if region is None:
             raise RuntimeError(f"workflow '{self.name}' not initialized")
         if steps_per_dispatch <= 1 or not loader.device_schedule:
+            return self.run()
+        per_step = [u.name for u in self.units
+                    if getattr(u, "NEEDS_PER_STEP_MINIBATCHES", False)]
+        if per_step:
+            # such a unit reads every minibatch (the image saver's
+            # misclassified samples); a chunk keeps only its last one
+            self.warning("run_chunked: %s need per-step minibatches — "
+                         "falling back to per-step run()", per_step)
             return self.run()
         decision = self.decision
         adjuster = self.lr_adjuster

@@ -64,6 +64,7 @@ from znicz_tpu_torch import backends  # noqa: F401 — no TF32 in f32 products
 from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
                                                current_accum_phase,
                                                precision_dtypes)
+from znicz_tpu_torch.memory import Vector
 from znicz_tpu_torch.ops.fp8 import fp8_enabled, fp8_round_trip
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import register_defaults, root
@@ -74,7 +75,8 @@ from znicz_tpu_torch.utils.prng import SeedChain
 register_defaults("common", {"engine": {"grad_accum": 1}})
 
 __all__ = ["Forward", "GradientDescentBase", "Stochastic",
-           "WeightlessGradientUnit", "as_numpy", "gd_for", "stored_f32"]
+           "WeightlessGradientUnit", "as_numpy", "gd_for", "stored_f32",
+           "to_host"]
 
 
 def as_numpy(value) -> np.ndarray | None:
@@ -83,6 +85,19 @@ def as_numpy(value) -> np.ndarray | None:
     if value is None or isinstance(value, np.ndarray):
         return value
     return value.detach().numpy()
+
+
+def to_host(value) -> np.ndarray | None:
+    """A value read back to the host as numpy: a Vector mapped for
+    reading, a tensor on any device copied (bf16 as f32), an array as it
+    is; None for None."""
+    if isinstance(value, Vector):
+        value.map_read()
+        return np.asarray(value.mem)
+    if isinstance(value, torch.Tensor):
+        t = value.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    return None if value is None else np.asarray(value)
 
 
 def stored_f32(value: np.ndarray | None) -> np.ndarray | None:

@@ -11,7 +11,8 @@ config module find them.
 ``root.common.dirs.datasets`` is the reference's own directory, so both
 packages read the same dataset files; ``root.common.dirs.snapshots`` is
 the port's (the snapshot format is the reference's, and a file loads
-in either package).
+in either package), and so is ``root.common.dirs.images`` (where
+``ImageSaver`` writes).
 """
 
 from __future__ import annotations
@@ -93,6 +94,8 @@ def _default_root() -> Config:
         "~/.cache/znicz_tpu_torch/snapshots")
     r.common.dirs.datasets = os.path.expanduser(
         "~/.cache/znicz_tpu/datasets")
+    r.common.dirs.images = os.path.expanduser(
+        "~/.cache/znicz_tpu_torch/images")
     return r
 
 
