@@ -55,9 +55,12 @@ Phases (any failure raises and exits non-zero):
 3. serving: writes a full-width bf16 scorer bundle in the reference
    format (attention 8 heads → layer_norm → softmax over 8 classes,
    T=2048, D=512, weights from a fixed seed), serves ragged requests of
-   1, 3 and 16 rows through ``ServingEngine(max_batch=16)``, checks
-   that B7, B5 and B4 launched on every dispatch, B5 and B4 on their
-   register routes only, and holds the 1-row reply against
+   1, 3 and 16 rows through ``ServingEngine(max_batch=16)``, each bucket
+   a CUDA graph captured at ``start()`` (5 captures), checks that B7,
+   B5 and B4 launched exactly once a dispatch (the replay accounting),
+   B5 and B4 on their register routes only, times the closed loop with
+   the buckets eager and graphed in turns (p50, rows/s, peak device
+   memory), and holds the 1-row reply against
    ``ExportedModel.load(path, device="cpu")``;
 4. sequence training: the same stack (bf16, momentum SGD on every
    layer, as ``benchmarks/seq_bench.py`` trains it) through the port's
@@ -164,9 +167,10 @@ Phases (any failure raises and exits non-zero):
    optimizer step's time beside the fused step's.  Then the trained LM
    exported (``kind`` "lm", the reference's ``sequence`` block, written
    out here as ``LM_SEQUENCE``) and served through
-   ``ServingEngine(max_batch=16)`` with 1, 3 and 16 rows of 2048 ids (B7
-   causal, B5 and B4 on every dispatch, the 1-row reply against the CPU
-   within ``SLICE_TOL``, p50 and rows/s).  Then the LSTM chain, embedding
+   ``ServingEngine(max_batch=16)``, graphed, with 1, 3 and 16 rows of
+   2048 ids (B7 causal, B5 and B4 once a dispatch, the 1-row reply
+   against the CPU within ``SLICE_TOL``, p50 and rows/s eager and
+   graphed in turns).  Then the LSTM chain, embedding
    (256, 512) → lstm (512) → softmax (256) at T=256 (the recurrence is
    serial), eager and graphed, timed, graphed against eager, one step
    against the CPU, B4 counted, the embedding's gradient rerun; and one
@@ -208,9 +212,9 @@ Phases (any failure raises and exits non-zero):
    depooling that scatters every window to its first cell must fail;
    imagenet_ae's bf16 step against the CPU's bf16 step within
    ``TRAIN_STEP_TOL``); the trained mnist_ae exported (its ties in the
-   manifest) and served through ``ServingEngine(max_batch=16)`` with
-   1, 3 and 16 rows, the 1-row reply against the CPU's within
-   ``SLICE_TOL``; then mnist_ae with ``tied_weights`` graphed: after 10
+   manifest) and served through ``ServingEngine(max_batch=16)``, graphed,
+   with 1, 3 and 16 rows, the 1-row reply against the CPU's within
+   ``SLICE_TOL``, p50 and rows/s eager and graphed in turns; then mnist_ae with ``tied_weights`` graphed: after 10
    train steps the conv's and the deconv's weights one moved storage
    (a deconv untied to a copy, planted, must fail that), and graphed
    against eager with the deconv's update left out of the capture
@@ -242,8 +246,28 @@ Phases (any failure raises and exits non-zero):
    graphed and eager in turns; one train step against the CPU's); and
    the filter similarity of the trained conv (``diversity``'s Gram
    product) on the card against numpy within ``DIVERSITY_TOL``.
+14. serving graphed, on phase 3's bf16 scorer (B ≤ 16): 5 captures at
+   ``start()`` that stay 5 through every step below, B7, B5 and B4 once
+   a dispatch; graphed replies against eager ones at 1, 3 and 16 rows
+   (``SERVE_GRAPH_TOL``); ``SWAPS`` hot swaps between the bundle and a
+   perturbed twin while a thread sends requests, every reply one weight
+   set's bit for bit, the publish's pause and the staging time printed;
+   ``SwapIncompatible`` candidates leaving the replies bit-identical; a
+   bucket above the ladder captured while another thread stages a swap;
+   a planted rebinding swap caught by the next replay; the journal of
+   the swaps, and an event dropped and counted under
+   ``observe.recorder_stall``; ``serving.program_error`` retried to
+   success and ``serving.latency_spike`` expiring a deadlined request
+   whose rows never reach a graph, both counted; every served request
+   traced with its queue and dispatch phases; the shadow audit at rate
+   1 clean on every batch, and a planted ``sdc.serving_bitflip``
+   corrected from the oracle, the engine suspect, the hook called once
+   (the audit's host time printed); then the int8 twin
+   (``quantize_bundle``) served graphed, its replies against the int8
+   numpy oracle (``INT8_ORACLE_TOL``) with the same argmax, its
+   ``bytes_ratio`` and resident weight bytes printed.
 
-Each path of phases 3–13 runs with every launch counter set to 0 just
+Each path of phases 3–14 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -1463,8 +1487,15 @@ def write_scorer_bundle(path: str) -> None:
                     "has_bias": True, "name": f"{kind}{i}"}
                    for i, (kind, cfg) in enumerate(layers)],
     }
+    write_bundle(path, manifest, params)
+
+
+def write_bundle(path: str, manifest: dict, params: dict) -> str:
+    """``params`` beside ``manifest`` in the reference's ``.npz`` format."""
+    import numpy as np
     np.savez(path, manifest=np.frombuffer(json.dumps(manifest).encode(),
                                           dtype=np.uint8), **params)
+    return path
 
 
 def unit_breakdown(model, x) -> None:
@@ -1637,7 +1668,83 @@ def closed_loop(eng, x):
     return sorted(lat), rows / (time.perf_counter() - t_loop)
 
 
-def serve_slice(path: str, kernels) -> dict:
+#: ``ExportedModel.graphed`` as the port has it, kept while a phase runs
+#: the serving buckets eagerly
+_SERVE_GRAPHED: list = []
+
+
+def set_serve_graphs(on: bool) -> None:
+    """Every serving bucket a CUDA graph, the port's way on the card
+    (``ExportedModel.graphed``), or, off, the chain eagerly on the card
+    over the same resident input buffer: the eager turns of phases 3,
+    10, 12 and 14, for this process only."""
+    from znicz_tpu_torch.export import ExportedModel
+    if not _SERVE_GRAPHED:
+        _SERVE_GRAPHED.append(ExportedModel.graphed)
+    ExportedModel.graphed = _SERVE_GRAPHED[0] if on \
+        else property(lambda self: False)
+
+
+def serve_ab(eng, x, label: str, card: str) -> dict:
+    """The closed loop of :func:`closed_loop` on a started engine, its
+    buckets eager and graphed in the turns of :data:`AB_ORDER`: each
+    turn's p50 (ms), rows/s and peak device memory (GiB) by mode."""
+    import torch
+    out = {"eager": [], "graphed": []}
+    for mode in AB_ORDER:
+        set_serve_graphs(mode == "graphed")
+        torch.cuda.reset_peak_memory_stats()
+        lat, rate = closed_loop(eng, x)
+        out[mode].append((1e3 * lat[len(lat) // 2], rate,
+                          torch.cuda.max_memory_allocated() / 2 ** 30))
+    set_serve_graphs(True)
+
+    def one(mode):
+        return " / ".join(f"p50 {p:.3f} ms, {r:.1f} rows/s" for p, r, _
+                          in out[mode]) + (f", peak device memory "
+                                           f"{out[mode][0][2]:.2f} GiB")
+    say(f"  {label}: 30 sequential requests (1/3/16 rows) a turn on "
+        f"{card}, in turns {'/'.join(AB_ORDER)}: graphed {one('graphed')}; "
+        f"eager {one('eager')}")
+    return out
+
+
+def expect_ladder_captures(eng, label: str) -> None:
+    """The engine's model holds one captured graph a bucket of its
+    ladder, and no other."""
+    from znicz_tpu_torch.serving.buckets import ladder
+    want = len(ladder(eng.max_batch))
+    if eng.model.captures != want:
+        raise AssertionError(f"{label}: {eng.model.captures} captures, "
+                             f"the ladder has {want} buckets")
+
+
+def graphed_dispatches(eng, x, kernels, label: str) -> dict:
+    """Requests of 1, 3 and 16 rows through the started engine, graphed:
+    each launches each of ``kernels`` exactly once (the replay
+    accounting); returns the replies by row count."""
+    import numpy as np
+    replies = {}
+    for n in (1, 3, 16):
+        before = [k.launches for k in kernels]
+        y = eng(x[:n], timeout=300)
+        rose = [k.launches - b for k, b in zip(kernels, before)]
+        say(f"  {label}: request of {n} rows → reply {y.shape}, launches "
+            f"{dict(zip((k.__name__ for k in kernels), rose))}")
+        if any(r != 1 for r in rose):
+            raise AssertionError(f"{label}: the {n}-row dispatch did not "
+                                 f"launch each kernel once: {rose}")
+        if not np.isfinite(y).all():
+            raise AssertionError(f"{label}: a {n}-row reply is not finite")
+        replies[n] = y
+    return replies
+
+
+def serve_slice(path: str, kernels, card: str) -> dict:
+    """Phase 3: the scorer through ``ServingEngine(max_batch=16)``, each
+    bucket a CUDA graph captured at ``start()``: 1, 3 and 16 rows (each
+    kernel once a dispatch), the closed loop eager and graphed in turns,
+    and the 1-row reply against the CPU's."""
     import numpy as np
     import torch
     from znicz_tpu_torch.export import ExportedModel
@@ -1645,39 +1752,30 @@ def serve_slice(path: str, kernels) -> dict:
     rng = np.random.default_rng(SEED + 1)
     x = rng.normal(0.0, 0.3, size=(BATCH, SEQ, DIM)).astype(np.float32)
 
-    def counts():
-        return [k.launches for k in kernels]
-
     reset_counts()
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(path, max_batch=BATCH, max_delay_ms=2.0)
     try:
         eng.start()
+        expect_ladder_captures(eng, "serving")
         say(f"  engine started in {time.perf_counter() - t0:.2f} s "
-            f"(buckets {eng.stats()['buckets_warmed']}, warmup "
-            f"{eng.warmup_seconds:.2f} s)")
-        replies = {}
-        for n in (1, 3, 16):
-            before = counts()
-            y = eng(x[:n], timeout=300)
-            rose = [a - b for a, b in zip(counts(), before)]
-            say(f"  request of {n} rows → reply {y.shape}, launches "
-                f"{dict(zip((k.__name__ for k in kernels), rose))}")
-            if any(r < 1 for r in rose):
-                raise AssertionError(f"a kernel did not launch on the "
-                                     f"{n}-row dispatch: {rose}")
-            if y.shape != (n, CLASSES) or not np.isfinite(y).all() \
+            f"(buckets {eng.stats()['buckets_warmed']}, "
+            f"{eng.model.captures} captured, warmup "
+            f"{eng.warmup_seconds:.2f} s; peak device memory while "
+            f"capturing the ladder "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held after)")
+        replies = graphed_dispatches(eng, x, kernels, "serving")
+        for n, y in replies.items():
+            if y.shape != (n, CLASSES) \
                     or np.abs(y.sum(axis=1) - 1.0).max() > 1e-4:
                 raise AssertionError(f"bad {n}-row reply: {y}")
-            replies[n] = y
-        lat, rate = closed_loop(eng, x)
+        serve_ab(eng, x, "the scorer", card)
+        expect_ladder_captures(eng, "serving")
         launches = read_counts()
         expect_ln_register("serving")
         expect_new_routes("serving")
-        say(f"  served 30 sequential requests (1/3/16 rows): p50 latency "
-            f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s, "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         unit_breakdown(eng.model, x)
     finally:
         eng.shutdown()
@@ -3590,12 +3688,12 @@ def lm_accum_pass(card: str) -> dict:
 def lm_serve_pass(card: str) -> dict:
     """The byte LM trained 4 graphed steps, exported (``kind`` "lm", the
     reference's ``sequence`` block) and served through
-    ``ServingEngine(max_batch=16)``: ragged requests of 1, 3 and 16 rows
-    of 2048 ids, B7 (causal), B5 and B4 on every dispatch, the 1-row
-    reply against ``ExportedModel.load(path, device="cpu")``, p50 and
-    rows/s."""
+    ``ServingEngine(max_batch=16)``, each bucket a CUDA graph: ragged
+    requests of 1, 3 and 16 rows of 2048 ids, B7 (causal), B5 and B4
+    once a dispatch, the 1-row reply against
+    ``ExportedModel.load(path, device="cpu")``, p50 and rows/s eager and
+    graphed in turns."""
     import numpy as np
-    import torch
     from znicz_tpu_torch.export import ExportedModel, read_bundle
     from znicz_tpu_torch.ops import flash_attention as fa
     from znicz_tpu_torch.ops import fused_kernels as fk
@@ -3621,23 +3719,15 @@ def lm_serve_pass(card: str) -> dict:
         eng = ServingEngine(path, max_batch=BATCH, max_delay_ms=2.0)
         try:
             eng.start()
-            replies = {}
-            for n in (1, 3, BATCH):
-                before = [k.launches for k in kernels]
-                reply = eng(requests[:n], timeout=300)
-                rose = [k.launches - b for k, b in zip(kernels, before)]
-                say(f"  request of {n} rows of {SEQ} ids → reply "
-                    f"{reply.shape}, launches "
-                    f"{dict(zip((k.__name__ for k in kernels), rose))}")
-                if any(r < 1 for r in rose):
-                    raise AssertionError(f"lm_serve: a kernel did not "
-                                         f"launch on the {n}-row dispatch")
+            expect_ladder_captures(eng, "lm_serve")
+            replies = graphed_dispatches(eng, requests, kernels,
+                                         f"lm_serve ({SEQ} ids a row)")
+            for n, reply in replies.items():
                 if reply.shape != (n, LM_VOCAB) \
-                        or not np.isfinite(reply).all() \
                         or np.abs(reply.sum(axis=1) - 1.0).max() > 1e-4:
                     raise AssertionError(f"lm_serve: bad {n}-row reply")
-                replies[n] = reply
-            lat, rate = closed_loop(eng, requests)
+            serve_ab(eng, requests, "the byte LM", card)
+            expect_ladder_captures(eng, "lm_serve")
             launches = read_counts()
             expect_ln_register("lm_serve")
             expect_new_routes("lm_serve")
@@ -3645,10 +3735,6 @@ def lm_serve_pass(card: str) -> dict:
                     != fa.flash_attention_fwd.launches:
                 raise AssertionError("lm_serve: a flash forward that is "
                                      "not causal")
-            say(f"  served 30 sequential requests (1/3/16 rows) on {card}: "
-                f"p50 latency {1e3 * lat[len(lat) // 2]:.3f} ms, "
-                f"{rate:.1f} rows/s, peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         finally:
             eng.shutdown()
         cpu = ExportedModel.load(path, device="cpu")
@@ -4238,9 +4324,10 @@ def ae_steps_vs_cpu(module, label: str, batch: int, precision: str,
 
 def ae_serve(card: str, wf) -> dict:
     """``wf`` (the trained mnist_ae) exported and served through
-    ``ServingEngine(max_batch=16)``: 1, 3 and 16 rows, no hand-written
-    kernel, the 1-row reply against ``ExportedModel.load(path,
-    device="cpu")`` within ``SLICE_TOL``, p50 and rows/s."""
+    ``ServingEngine(max_batch=16)``, each bucket a CUDA graph: 1, 3 and
+    16 rows, no hand-written kernel, the 1-row reply against
+    ``ExportedModel.load(path, device="cpu")`` within ``SLICE_TOL``, p50
+    and rows/s eager and graphed in turns."""
     import numpy as np
     from znicz_tpu_torch import datasets
     from znicz_tpu_torch.export import ExportedModel, read_bundle
@@ -4257,16 +4344,15 @@ def ae_serve(card: str, wf) -> dict:
         eng = ServingEngine(path, max_batch=BATCH, max_delay_ms=2.0)
         try:
             eng.start()
-            replies = {}
-            for n in (1, 3, BATCH):
-                reply = eng(x[:n], timeout=300)
+            expect_ladder_captures(eng, "mnist_ae_serve")
+            replies = graphed_dispatches(eng, x, (), "mnist_ae_serve")
+            for n, reply in replies.items():
                 if reply.shape != (n, 28, 28, 1) \
-                        or not np.isfinite(reply).all() \
                         or np.abs(reply).max() > 1.7159:
                     raise AssertionError(f"mnist_ae_serve: bad {n}-row "
                                          f"reply {reply.shape}")
-                replies[n] = reply
-            lat, rate = closed_loop(eng, x)
+            ab = serve_ab(eng, x, "mnist_ae", card)
+            expect_ladder_captures(eng, "mnist_ae_serve")
             launches = read_counts()
         finally:
             eng.shutdown()
@@ -4275,8 +4361,9 @@ def ae_serve(card: str, wf) -> dict:
     err = float(np.abs(want - replies[1]).max())
     say(f"  mnist_ae exported (ties {ties}: (layer, tied_to, tied_weights))"
         f" and served through ServingEngine(max_batch={BATCH}) on {card}: "
-        f"replies of 1, 3 and 16 rows (28, 28, 1), p50 latency "
-        f"{1e3 * lat[len(lat) // 2]:.3f} ms, {rate:.1f} rows/s; 1-row reply "
+        f"replies of 1, 3 and 16 rows (28, 28, 1), graphed p50 latency "
+        f"{ab['graphed'][0][0]:.3f} ms, {ab['graphed'][0][1]:.1f} rows/s; "
+        f"1-row reply "
         f"vs ExportedModel(device='cpu'): max_abs_err {err:.3g} (tol "
         f"{SLICE_TOL})")
     if err > SLICE_TOL or ties != [(2, 1, False), (3, 0, False)]:
@@ -4851,6 +4938,425 @@ def chain_pass(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 14: the serving buckets as CUDA graphs — hot swap under load,
+# int8, the SDC shadow audit, the fault sites, request traces and the
+# flight recorder
+# ----------------------------------------------------------------------
+#: weight swaps under load in phase 14, in and out
+SWAPS = 8
+#: graphed replies against eager ones of the same engine and input: the
+#: same kernels in the same order, with no atomics in a forward, so the
+#: bits must agree
+SERVE_GRAPH_TOL = 0.0
+#: an int8 reply of the card against the int8 bundle's numpy oracle,
+#: probabilities: both dequantize the same q·scale rounded to bf16, but
+#: the card rounds the request, q/k/v, p and the attention and
+#: layer-norm outputs to bf16 where the oracle stays f32 (~2⁻⁸ relative
+#: on each activation); the bound is the shadow audit's own (rtol 0.05
+#: of max(|p|, 1)), which the engine's audit applies to the same pair
+INT8_ORACLE_TOL = 5e-2
+
+
+def perturbed(params: dict, seed: int) -> dict:
+    """A second weight set for the swaps: each tensor plus gaussian
+    noise of 5 % of its spread, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {k: (v + rng.normal(0.0, 0.05 * float(v.std()) + 1e-3,
+                               v.shape)).astype(np.float32)
+            for k, v in params.items()}
+
+
+def oracle_rows(x):
+    """Request rows as the engine stages them (bf16), as f32 numpy: what
+    the shadow audit gives its oracle."""
+    import torch
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def swap_under_load(eng, path_a: str, path_b: str, x, card: str) -> None:
+    """``SWAPS`` swaps between the two bundles while a thread sends
+    requests of 3 rows one after another: every reply is one weight
+    set's graphed reply bit for bit, and no bucket is captured again."""
+    import threading
+    import numpy as np
+    x3 = x[:3]
+    ref_a = eng(x3, timeout=300)
+    eng.swap_weights(path_b)
+    ref_b = eng(x3, timeout=300)
+    eng.swap_weights(path_a)
+    if np.array_equal(ref_a, ref_b):
+        raise AssertionError("serve_graphs: the two weight sets reply "
+                             "alike; the swap check would see nothing")
+    replies, stop = [], threading.Event()
+
+    def hammer():
+        while not stop.is_set():
+            replies.append(eng(x3, timeout=300))
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        for i in range(SWAPS):
+            eng.swap_weights(path_b if i % 2 == 0 else path_a)
+            # let the submitter through between two swaps
+            n = len(replies)
+            while len(replies) == n and t.is_alive():
+                time.sleep(0.001)
+    finally:
+        stop.set()
+        t.join(300)
+    seen = {"a": 0, "b": 0}
+    for i, y in enumerate(replies):
+        if np.array_equal(y, ref_a):
+            seen["a"] += 1
+        elif np.array_equal(y, ref_b):
+            seen["b"] += 1
+        else:
+            raise AssertionError(f"serve_graphs: reply {i} under swaps is "
+                                 f"neither weight set's, bit for bit "
+                                 f"(max dev {np.abs(y - ref_a).min():.3g})")
+    pauses, stages = eng.swap_pauses_ms(), eng.swap_stages_ms()
+    say(f"  {SWAPS} swaps under load ({len(replies)} replies of 3 rows "
+        f"meanwhile: {seen['a']} the first weight set's, {seen['b']} the "
+        f"second's, bit for bit, never a mix) on {card}: publish pause "
+        f"(one device-to-device copy of "
+        f"{eng.model.resident_weight_bytes() / 2 ** 20:.1f} MiB, waited "
+        f"for) min / median / max {min(pauses):.3f} / "
+        f"{sorted(pauses)[len(pauses) // 2]:.3f} / {max(pauses):.3f} ms, "
+        f"staging (validate, upload on a side stream, off the dispatch "
+        f"path) {min(stages):.2f} / {sorted(stages)[len(stages) // 2]:.2f}"
+        f" / {max(stages):.2f} ms")
+    if not seen["a"] or not seen["b"]:
+        raise AssertionError(f"serve_graphs: the replies under swaps saw "
+                             f"one weight set only: {seen}")
+    expect_ladder_captures(eng, "serve_graphs under swaps")
+
+
+def capture_race_and_rebinding(manifest: dict, params_a: dict,
+                               params_b: dict, x) -> None:
+    """A bucket above the warmed ladder captured lazily while another
+    thread stages a swap's weights (thread-local capture mode); then a
+    swap that rebinds a parameter instead of copying into it, which the
+    next replay must refuse."""
+    import threading
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.export import ExportedModel
+    model = ExportedModel(manifest, params_a, max_batch=2)
+    model.warmup(2)
+    staged, capturing, stop = [], threading.Event(), threading.Event()
+
+    def stage():
+        capturing.wait(60)
+        while not stop.is_set():
+            staged.append(model.stage_weights(params_b, manifest))
+
+    t = threading.Thread(target=stage)
+    t.start()
+    try:
+        capturing.set()
+        while not staged:
+            time.sleep(0.001)
+        before = len(staged)
+        warm = model(x[:4])  # bucket 4: captured here, the warm-up's reply
+        during = len(staged) - before
+    finally:
+        stop.set()
+        t.join(300)
+    replay = model(x[:4])
+    if model.captures != 3 or not np.array_equal(warm, replay):
+        raise AssertionError(f"serve_graphs: the lazily captured bucket "
+                             f"({model.captures} captures) replays "
+                             f"{np.abs(warm - replay).max():.3g} off its "
+                             f"warm-up")
+    say(f"  bucket 4 captured above a ladder of 2 while another thread "
+        f"staged the swap {during} time(s) (thread-local capture): its "
+        f"replay bit-equal to the capture's warm-up reply")
+    unit = model.forwards[2]
+    unit.load_params({"weights": torch.from_numpy(params_b["layer2_weights"]),
+                      "bias": torch.from_numpy(params_b["layer2_bias"])})
+    try:
+        model(x[:1])
+    except RuntimeError as exc:
+        if "rebound" not in str(exc):
+            raise
+        say(f"  planted: a swap that rebinds the head's weights instead of "
+            f"copying into them — caught by the next replay ({exc})")
+    else:
+        raise AssertionError("serve_graphs: a rebound parameter was not "
+                             "caught by the replay")
+
+
+def audit_checks(eng, manifest: dict, x, card: str) -> None:
+    """The sampled SDC shadow audit on the graphed engine: at rate 1 a
+    clean run audits every batch with no mismatch; a planted
+    ``sdc.serving_bitflip`` is corrected from the oracle, marks the
+    engine suspect and calls the hook once."""
+    import numpy as np
+    from znicz_tpu_torch.export import ExportedModel
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils.config import root
+    eng.shadow_audit_rate = 1.0
+    stats0 = dict(eng._audit_stats)
+    t0 = eng._audit_seconds
+    for n in (1, 2, 3):
+        eng(x[:n], timeout=300)
+    sdc = eng.stats()["resilience"]["sdc"]
+    audited = sdc["audited"] - stats0["audited"]
+    per_batch = 1e3 * (eng._audit_seconds - t0) / max(audited, 1)
+    say(f"  shadow audit at rate 1, clean: {audited} of 3 batches audited "
+        f"on the numpy oracle, {sdc['mismatched']} mismatched (rtol "
+        f"{eng.sdc_audit_rtol}), host time {per_batch:.1f} ms a batch "
+        f"(2 rows a batch on average) on {card}'s host")
+    if audited != 3 or sdc["mismatched"] != stats0["mismatched"]:
+        raise AssertionError(f"serve_graphs: the clean audit {sdc}")
+    hooked = []
+    eng.on_sdc_suspect = hooked.append
+    detected = metrics.sdc_detected("serving").value
+    root.common.engine.faults = {
+        "sdc.serving_bitflip": {"at": [1], "factor": 64.0}}
+    try:
+        got = eng(x[:2], timeout=300)
+        again = eng(x[:1], timeout=300)
+    finally:
+        root.common.engine.faults = None
+    oracle = ExportedModel(manifest, eng.current_bundle()[1],
+                           device="numpy")
+    want = oracle(oracle_rows(x[:2]))
+    sdc = eng.stats()["resilience"]["sdc"]
+    say(f"  planted sdc.serving_bitflip (column 0 × 64): reply corrected "
+        f"from the oracle (bit-equal {np.array_equal(got, want)}), suspect "
+        f"{sdc['suspect']}, hook calls {len(hooked)}, then every batch "
+        f"audited ({sdc['audited'] - stats0['audited']} audits in all, "
+        f"{sdc['mismatched'] - stats0['mismatched']} mismatched)")
+    if not np.array_equal(got, want) or not eng.sdc_suspect \
+            or hooked != [eng] or sdc["mismatched"] \
+            != stats0["mismatched"] + 1 \
+            or metrics.sdc_detected("serving").value != detected + 1 \
+            or not np.isfinite(again).all():
+        raise AssertionError(f"serve_graphs: the planted bitflip {sdc}")
+
+
+def fault_site_checks(eng, x) -> None:
+    """``serving.program_error`` retried to success and
+    ``serving.latency_spike`` expiring a deadlined request queued behind
+    it, whose rows never reach a graph, each counted on
+    ``znicz_faults_injected_total``."""
+    import numpy as np
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    from znicz_tpu_torch.serving import DeadlineExceeded
+    from znicz_tpu_torch.utils.config import root
+    injected = {site: metrics.faults_injected(site).value
+                for site in ("serving.program_error",
+                             "serving.latency_spike")}
+    retried = eng.stats()["resilience"]["retried"]
+    root.common.engine.faults = {"serving.program_error": {"at": [1]}}
+    try:
+        y = eng(x[:2], timeout=300)
+    finally:
+        root.common.engine.faults = None
+    if eng.stats()["resilience"]["retried"] != retried + 1 \
+            or not np.isfinite(y).all():
+        raise AssertionError("serve_graphs: serving.program_error was not "
+                             "retried to success")
+    rows0 = sum(b["rows"] for b in eng.stats()["buckets"].values())
+    root.common.engine.faults = {
+        "serving.latency_spike": {"at": [1], "ms": 300}}
+    try:
+        # B4 launches once a replay of the scorer's graph
+        ran0 = fk.softmax_argmax.launches
+        slow = eng.submit(x[:2])
+        while eng._batcher.queue_rows:  # taken into the spiked dispatch
+            time.sleep(0.0005)
+        doomed = eng.submit(x[2:5], deadline_ms=60)
+        try:
+            doomed.result(timeout=300)
+        except DeadlineExceeded:
+            pass
+        else:
+            raise AssertionError("serve_graphs: the deadlined request "
+                                 "behind the spike was served")
+        slow.result(timeout=300)
+        ran = fk.softmax_argmax.launches - ran0
+    finally:
+        root.common.engine.faults = None
+    rows = sum(b["rows"] for b in eng.stats()["buckets"].values()) - rows0
+    fired = {site: metrics.faults_injected(site).value - n
+             for site, n in injected.items()}
+    say(f"  serving.program_error retried to success; "
+        f"serving.latency_spike (300 ms): the 60 ms-deadlined request "
+        f"behind it expired, rows dispatched meanwhile {rows}, graph "
+        f"replays {ran}; znicz_faults_injected_total by site {fired}")
+    if rows != 2 or ran != 1 or fired != {"serving.program_error": 1,
+                                          "serving.latency_spike": 1}:
+        raise AssertionError("serve_graphs: the fault sites")
+
+
+def trace_checks(mark: int, served: int) -> None:
+    """Every request served since ``mark`` has a trace whose root span
+    closed ``ok`` with its queue and dispatch (``decode``) phases."""
+    from znicz_tpu_torch.observe.tracing import TRACER
+    events = TRACER.to_chrome_trace(mark)["traceEvents"]
+    phases: dict = {}
+    roots = []
+    for ev in events:
+        if ev.get("cat") != "request" or ev.get("ph") != "X":
+            continue
+        args = ev["args"]
+        if args.get("parent_span_id") == 0:
+            roots.append(args)
+        elif "phase" in args:
+            phases.setdefault(args["trace_id"], set()).add(args["phase"])
+    ok = [r for r in roots if r["outcome"] == "ok"]
+    bad = [r["trace_id"] for r in ok
+           if phases.get(r["trace_id"]) != {"queue", "decode"}]
+    outcomes = {}
+    for r in roots:
+        outcomes[r["outcome"]] = outcomes.get(r["outcome"], 0) + 1
+    say(f"  request traces: {len(roots)} closed ({outcomes}), "
+        f"{len(ok) - len(bad)} of the {served} served with their queue and "
+        f"dispatch phases")
+    if len(ok) != served or bad:
+        raise AssertionError(f"serve_graphs: {served} served, {len(ok)} "
+                             f"traces ok, {len(bad)} without their phases")
+
+
+def serve_graphs_pass(card: str) -> dict:
+    """Phase 14 on the full-width bf16 scorer of phase 3, through
+    ``ServingEngine(max_batch=16)`` with every bucket a CUDA graph."""
+    import numpy as np
+    from znicz_tpu_torch.export import (ExportedModel, SwapIncompatible,
+                                        read_bundle)
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.observe.recorder import (FlightRecorder,
+                                                  set_recorder)
+    from znicz_tpu_torch.observe.tracing import TRACER
+    from znicz_tpu_torch.ops import flash_attention as fa
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    from znicz_tpu_torch.serving import ServingEngine
+    from znicz_tpu_torch.serving import quantize as qz
+    from znicz_tpu_torch.utils.config import root
+    kernels = (fa.flash_attention_fwd, fk.layer_norm_forward,
+               fk.softmax_argmax)
+    rng = np.random.default_rng(SEED + 14)
+    x = rng.normal(0.0, 0.3, size=(BATCH, SEQ, DIM)).astype(np.float32)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path_a = os.path.join(tmp, "scorer.npz")
+        write_scorer_bundle(path_a)
+        manifest, params_a = read_bundle(path_a)
+        params_b = perturbed(params_a, SEED + 15)
+        path_b = write_bundle(os.path.join(tmp, "scorer_b.npz"), manifest,
+                              params_b)
+        rec = FlightRecorder(os.path.join(tmp, "journal"))
+        set_recorder(rec)
+        reset_counts()
+        eng = ServingEngine(path_a, max_batch=BATCH, max_delay_ms=2.0,
+                            retry_budget=1)
+        try:
+            eng.start()
+            mark = TRACER.mark()
+            served0 = eng.requests_served
+            expect_ladder_captures(eng, "serve_graphs")
+            graphed = graphed_dispatches(eng, x, kernels, "serve_graphs")
+            set_serve_graphs(False)
+            try:
+                eager = {n: eng(x[:n], timeout=300) for n in graphed}
+            finally:
+                set_serve_graphs(True)
+            dev = {n: float(np.abs(graphed[n] - eager[n]).max())
+                   for n in graphed}
+            say(f"  graphed replies against eager ones of the same engine: "
+                f"max |Δ| by rows {dev}, bit-equal "
+                f"{all(np.array_equal(graphed[n], eager[n]) for n in graphed)}"
+                f" (tol {SERVE_GRAPH_TOL})")
+            if max(dev.values()) > SERVE_GRAPH_TOL:
+                raise AssertionError("serve_graphs: graphed replies off the "
+                                     "eager ones")
+            expect_ladder_captures(eng, "serve_graphs")
+            swap_under_load(eng, path_a, path_b, x, card)
+            before = eng(x[:3], timeout=300)
+            for bad, why in (({"layer0_weights": np.zeros((2, 2),
+                                                          np.float32)},
+                              "shape"),
+                             ((dict(manifest, dtype="float32"), params_a),
+                              "dtype")):
+                try:
+                    eng.swap_weights(bad)
+                except SwapIncompatible as exc:
+                    if why not in str(exc):
+                        raise
+                else:
+                    raise AssertionError(f"serve_graphs: a candidate of "
+                                         f"the wrong {why} was taken")
+            if not np.array_equal(eng(x[:3], timeout=300), before):
+                raise AssertionError("serve_graphs: a refused candidate "
+                                     "changed the replies")
+            say("  SwapIncompatible candidates (a wrong shape, a wrong "
+                "dtype) refused, the replies bit-identical after")
+            swaps = rec.dump_since(0, kinds=["swap"])
+            want_swaps = eng.swap_counts["promoted"]
+            dropped = metrics.flightrecord_dropped().value
+            root.common.engine.faults = {
+                "observe.recorder_stall": {"at": [1]}}
+            try:
+                eng.swap_weights(path_a)
+            finally:
+                root.common.engine.faults = None
+            after = rec.dump_since(0, kinds=["swap"])
+            say(f"  flight recorder: {len(swaps)} swaps journaled of "
+                f"{want_swaps}; under observe.recorder_stall the next "
+                f"swap went through and its event was dropped (journal "
+                f"{len(after)}, dropped "
+                f"{metrics.flightrecord_dropped().value - dropped:.0f})")
+            if len(swaps) != want_swaps or len(after) != len(swaps) \
+                    or metrics.flightrecord_dropped().value != dropped + 1:
+                raise AssertionError("serve_graphs: the journal")
+            capture_race_and_rebinding(manifest, params_a, params_b, x)
+            fault_site_checks(eng, x)
+            trace_checks(mark, eng.requests_served - served0)
+            audit_checks(eng, manifest, x, card)
+            expect_ladder_captures(eng, "serve_graphs")
+            out["serve_graphs"] = read_counts()
+        finally:
+            eng.shutdown()
+            set_recorder(None)
+            root.common.engine.faults = None
+
+        qman, qparams, info = qz.quantize_bundle(manifest, params_a)
+        path_q = write_bundle(os.path.join(tmp, "scorer_int8.npz"), qman,
+                              qparams)
+        reset_counts()
+        eng = ServingEngine(path_q, max_batch=BATCH, max_delay_ms=2.0)
+        try:
+            eng.start()
+            expect_ladder_captures(eng, "serve_int8")
+            replies = graphed_dispatches(eng, x, kernels, "serve_int8")
+            resident = eng.model.resident_weight_bytes()
+            expect_ladder_captures(eng, "serve_int8")
+            out["serve_int8"] = read_counts()
+        finally:
+            eng.shutdown()
+        f32 = ExportedModel(manifest, params_a, device="cpu")
+        oracle = ExportedModel(qman, qparams, device="numpy")
+        want = oracle(oracle_rows(x[:3]))
+    err = float(np.abs(replies[3] - want).max())
+    same = bool((replies[3].argmax(1) == want.argmax(1)).all())
+    say(f"  int8 ({', '.join(qman['quant']['weights'])}): bytes_ratio "
+        f"{info['bytes_ratio']:.4f} ({info['bytes_quant']} of "
+        f"{info['bytes_f32']} B), resident weight bytes on the card "
+        f"{resident} (f32 chain {f32.resident_weight_bytes()}); 3-row "
+        f"reply vs the int8 numpy oracle max_abs_err {err:.3g} (tol "
+        f"{INT8_ORACLE_TOL}), argmax agree={same}")
+    if err > INT8_ORACLE_TOL or not same or resident != info["bytes_quant"]:
+        raise AssertionError("serve_int8: the int8 replies disagree with "
+                             "the oracle")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4926,7 +5432,7 @@ def main() -> int:
         write_scorer_bundle(path)
         paths["serving"] = serve_slice(path, (fa.flash_attention_fwd,
                                               fk.layer_norm_forward,
-                                              fk.softmax_argmax))
+                                              fk.softmax_argmax), smi)
 
     # phases 4–7: the regions eager, as before the port had CUDA graphs
     set_graphs(False)
@@ -5020,6 +5526,13 @@ def main() -> int:
     paths["kohonen"] = som_pass(smi)
     paths["cutter_chain"] = chain_pass(smi)
     say(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    say("phase 14: the scorer's buckets as CUDA graphs: hot swap under "
+        "load, int8, the SDC shadow audit, the fault sites, request traces "
+        "and the flight recorder")
+    t14 = time.perf_counter()
+    paths.update(serve_graphs_pass(smi))
+    say(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -125,7 +125,8 @@ def test_serving_engines_agree_on_ragged_requests(tmp_path):
         assert g.shape == (n, CLASSES)
         np.testing.assert_allclose(g, w, rtol=0, atol=TOL["bfloat16"])
     assert stats["buckets_warmed"] == [1, 2, 4, 8]
-    assert stats["programs_built"] == 4
+    assert stats["programs"] == {"built": 4, "live": 4, "captures": 0,
+                                 "graphed": False}
     assert stats["submitted"] == stats["served"] == 3
     assert sum(b["rows"] for b in stats["buckets"].values()) == 12
     scrape = metrics.REGISTRY.to_prometheus()
@@ -315,10 +316,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
     assert len(files) > 10
-    # the sequence units of the token LM among them, and the RBM, the
-    # SOM and the cutter
+    # the sequence units of the token LM among them, the RBM, the SOM
+    # and the cutter, and the fault plan, the flight recorder and the
+    # quantizer (host-only modules the port copies)
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
-                                "lstm", "rbm_units", "kohonen", "cutter")} \
+                                "lstm", "rbm_units", "kohonen", "cutter",
+                                "faults", "recorder", "quantize")} \
         <= {p.name for p in files}
     for path in files:
         for name in _imports(path):

@@ -1,1 +1,3 @@
-"""Telemetry: the metrics registry the serving engine writes."""
+"""Telemetry: the metrics registry (:mod:`.metrics`), host spans and
+request traces (:mod:`.tracing`) and the ops flight recorder
+(:mod:`.recorder`)."""

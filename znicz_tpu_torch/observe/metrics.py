@@ -10,7 +10,9 @@ the serving engine and its batcher write, the snapshotter's
 ``znicz_snapshot_*`` pair, ``recoveries``, and the runtime core's
 series: workflow runs, per-unit run time, region steps, the
 host↔device bytes of the ``Vector`` protocol and CUDA-graph captures
-(the counterpart of the reference's ``xla_compiles("region:…")``).
+(the counterpart of the reference's ``xla_compiles("region:…")``),
+and the series of fault injection, hot swap, the SDC shadow audit,
+request traces and the flight recorder.
 The hot-path series (unit times, transfer bytes) are gated on
 :func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
@@ -420,3 +422,90 @@ def _percentile(sorted_vals: list, q: float) -> float:
     idx = min(len(sorted_vals) - 1,
               max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
     return sorted_vals[idx]
+
+
+# ----------------------------------------------------------------------
+# fault injection, hot swap, the SDC audit, request traces and the
+# flight recorder (the reference's series of the same names)
+# ----------------------------------------------------------------------
+def faults_injected(site: str) -> Counter:
+    """Deterministic fault-injection events by named site (one event
+    per transient firing; a persistent fault counts once)."""
+    return REGISTRY.counter(
+        "znicz_faults_injected_total",
+        "Injected fault events by site (resilience.faults)",
+        labels=("site",)).labels(site=site)
+
+
+def swaps_total(engine: str, outcome: str) -> Counter:
+    """Weight hot-swap verdicts per serving engine (``promoted``,
+    ``rejected``, ``rolled_back``)."""
+    return REGISTRY.counter(
+        "znicz_swaps_total",
+        "Weight hot-swap outcomes (promoted/rejected/rolled_back)",
+        labels=("engine", "outcome")).labels(engine=engine,
+                                             outcome=outcome)
+
+
+def model_version(engine: str) -> Gauge:
+    """The published-model version an engine is serving (0 = the
+    bundle it started from)."""
+    return REGISTRY.gauge(
+        "znicz_model_version",
+        "Published model version currently live on the engine",
+        labels=("engine",)).labels(engine=engine)
+
+
+def swap_duration_seconds(engine: str) -> Histogram:
+    """Hot-swap duration: staging the candidate on the device, off the
+    dispatch path, plus the publish between two dispatches."""
+    return REGISTRY.histogram(
+        "znicz_swap_duration_seconds",
+        "Weight hot-swap duration (stage + drain + atomic flip)",
+        labels=("engine",)).labels(engine=engine)
+
+
+def sdc_detected(kind: str) -> Counter:
+    """Confirmed silent-data-corruption detections by detector (here
+    ``serving``: the sampled shadow re-score of live replies)."""
+    return REGISTRY.counter(
+        "znicz_sdc_detected_total",
+        "Confirmed SDC detections by detector (vote/audit/serving)",
+        labels=("kind",)).labels(kind=kind)
+
+
+def sdc_suspects(process, device: str) -> Counter:
+    """SDC suspicion events by process and serving replica."""
+    return REGISTRY.counter(
+        "znicz_sdc_suspect_total",
+        "SDC suspicion events by process and device/replica",
+        labels=("process", "device")).labels(process=process,
+                                             device=device)
+
+
+def trace_requests(engine: str, outcome: str) -> Counter:
+    """Request traces closed per engine by outcome (``ok``, ``shed``,
+    ``expired``, ``failed``)."""
+    return REGISTRY.counter(
+        "znicz_trace_requests_total",
+        "Request-scoped traces finished, by outcome",
+        labels=("engine", "outcome")).labels(engine=engine,
+                                             outcome=outcome)
+
+
+def flightrecord_events(kind: str) -> Counter:
+    """Ops events journaled by the flight recorder, by kind."""
+    return REGISTRY.counter(
+        "znicz_flightrecord_events_total",
+        "Flight-recorder events journaled, by kind",
+        labels=("kind",)).labels(kind=kind)
+
+
+def flightrecord_dropped() -> Counter:
+    """Flight-recorder events dropped because the journal write stalled
+    or failed: telemetry degrades to counting here and never blocks a
+    dispatch or a swap."""
+    return REGISTRY.counter(
+        "znicz_flightrecord_dropped_total",
+        "Flight-recorder events dropped on journal write "
+        "stall/failure").labels()

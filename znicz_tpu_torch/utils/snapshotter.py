@@ -28,10 +28,11 @@ goes on, and ``destination`` keeps pointing at the last good snapshot
 (``root.common.engine.snapshot_tolerate_failures = False`` raises
 instead).
 
-Not ported with it: the ``snapshot.write_fail`` fault site (ROADMAP
-A11) and the multi-process write discipline, where processes other
-than 0 fence on process 0's sidecar (ROADMAP A9).  The port is one
-process.
+The ``snapshot.write_fail`` fault site fires inside :meth:`write`, mid
+stream, and goes through the same tolerate-and-continue path.  Not
+ported with it: the multi-process write discipline, where processes
+other than 0 fence on process 0's sidecar (ROADMAP A9).  The port is
+one process.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import pickle
 import time
 
 from znicz_tpu_torch.observe import metrics as _metrics
+from znicz_tpu_torch.observe import tracing as _tracing
+from znicz_tpu_torch.resilience import faults as _faults
 from znicz_tpu_torch.units import Unit
 from znicz_tpu_torch.utils.config import root
 
@@ -129,10 +132,14 @@ class Snapshotter(Unit):
         tmp = f"{path}.{os.getpid()}.tmp"
         start = time.perf_counter()
         try:
-            with gzip.open(tmp, "wb") as f:
-                pickle.dump(state, f, protocol=pickle.HIGHEST_PROTOCOL)
-            digest = _sha256_file(tmp)
-            os.replace(tmp, path)
+            with _tracing.TRACER.span("snapshot_save", cat="snapshot"):
+                with gzip.open(tmp, "wb") as f:
+                    if _faults.fire("snapshot.write_fail") is not None:
+                        raise OSError("injected snapshot write failure")
+                    pickle.dump(state, f,
+                                protocol=pickle.HIGHEST_PROTOCOL)
+                digest = _sha256_file(tmp)
+                os.replace(tmp, path)
         except BaseException:
             if os.path.exists(tmp):  # never leave half a stream behind
                 os.unlink(tmp)
