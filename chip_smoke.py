@@ -266,8 +266,34 @@ Phases (any failure raises and exits non-zero):
    (``quantize_bundle``) served graphed, its replies against the int8
    numpy oracle (``INT8_ORACLE_TOL``) with the same argmax, its
    ``bytes_ratio`` and resident weight bytes printed.
+15. decode, through ``DecodeEngine`` on the card, each decode program a
+   CUDA graph: the byte LM of phase 10 without its layer norm (the
+   decoder takes none; bf16, trained graphed at T = 64 until the
+   validation error is under 5 % or a step cap, which it prints), a
+   drafter (the same chain at D = 128) and the LSTM chain of phase 10
+   (its seed's weights), at 16 lanes, sequences to 2048 tokens,
+   16-token pages and prompts to 1024 (LSTM: 256) in steps of 64.  The
+   paged, prefix-sharing, speculative engine's captures at ``start()``
+   equal its programs and stay flat through a ragged mix of 32 prompts
+   of 1–1024 tokens with 16–256 new tokens and 3 hot swaps (TTFT and
+   per-token p50/p99, the prefix hit and draft acceptance rates
+   printed); greedy tokens equal the CPU engine's on the same bundle
+   and prompts for flat, paged, paged + prefix sharing, paged +
+   speculative, self-drafted (every draft accepted), int8 KV pages, int8
+   weights and the LSTM chain flat and paged — where two sequences
+   part, the CPU's top-two logit margin there must be under
+   ``TIE_TOL`` (the count of such ties printed); the first-token
+   logits within ``DECODE_LOGIT_TOL`` of the CPU's; the graphed engine
+   against the same engine eager, tokens equal and logits bit-equal;
+   tokens/s for the flat, paged and speculative arms at equal KV bytes
+   in turns, KV bytes a lane f32 and int8, warmup seconds, captures and
+   peak device memory; and three planted faults caught: a paged write
+   that rebinds its pool, a swap that leaves the prefix cache stale
+   (tokens other than a fresh engine's on the new weights), a swap that
+   rebinds a weight (and a cache rebound at the model), each refused.
+   Decode launches none of B1–B9: its path's counts are all 0.
 
-Each path of phases 3–14 runs with every launch counter set to 0 just
+Each path of phases 3–15 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -5357,6 +5383,563 @@ def serve_graphs_pass(card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 15: decode — the KV caches flat and paged, prefix sharing,
+# continuous token batching, speculative decoding, int8 pages and int8
+# weights, hot swap; each decode program a CUDA graph
+# ----------------------------------------------------------------------
+#: the byte LM of phase 10 without its layer norm (the decoder takes no
+#: layer_norm), trained at DEC_TRAIN_T until the validation error is
+#: under DEC_ERR_BAR % or DEC_STEP_CAP steps (train and validation
+#: minibatches); the drafter the same chain at DRAFT_DIM, 2 heads; both
+#: bf16, as phase 10.  Phase 10's rate (0.01) leaves the task at chance
+#: for 3000 steps; 0.05 (half on the attention) reaches 2 % in ~1400
+DEC_GD = {"learning_rate": 0.05, "gradient_moment": 0.9}
+DEC_GD_ATTENTION = dict(DEC_GD, learning_rate=0.025)
+DECODE_LAYERS = tuple(
+    dict(spec, **{"<-": DEC_GD_ATTENTION if spec["type"] == "attention"
+                  else DEC_GD}) if "<-" in spec else spec
+    for spec in LM_LAYERS if spec["type"] != "layer_norm")
+DEC_TRAIN_T, DEC_TRAIN, DEC_VALID, DEC_BATCH = 64, 1024, 256, 64
+DEC_STEP_CAP, DEC_ERR_BAR = 3000, 5.0
+DRAFT_DIM, DRAFT_HEADS = 128, 2
+#: the decode geometry: 16 lanes, sequences to 2048 tokens, 16-token
+#: pages, prompts to 1024 in steps of 64; the pool at its default, the
+#: flat arm's bytes (max_slots · max_t tokens)
+DECODE_GEOMETRY = {"max_slots": 16, "max_t": 2048, "max_prompt": 1024,
+                   "prompt_align": 64, "page_tokens": 16}
+#: the LSTM chain decodes prompts to its phase-10 length
+LSTM_DECODE_GEOMETRY = dict(DECODE_GEOMETRY, max_prompt=LSTM_SEQ)
+#: the planted faults' engines: small, as only their behavior is checked
+PLANT_GEOMETRY = {"max_slots": 2, "max_t": 256, "max_prompt": 128,
+                  "prompt_align": 64, "page_tokens": 16}
+SPEC_K = 3
+#: the card's first-token logits against the CPU's: f32 on both sides,
+#: TF32 off, so the products differ in summation order only (~1e-6
+#: relative); but the bf16 head rounds its f32 features to bf16, and a
+#: feature within that difference of a rounding midpoint rounds the
+#: other way on one side (rare: ~1e-4 of the features), moving a logit
+#: by |w|·2⁻⁸·|x|, ~2e-4: the bound leaves a margin of five over one
+#: such flip
+DECODE_LOGIT_TOL = 1e-3
+#: two greedy sequences may part only where the CPU's top two logits
+#: are closer than the two sides' logits can differ
+TIE_TOL = 2 * DECODE_LOGIT_TOL
+#: graphed against eager on the card: the same kernels on the same
+#: inputs in the same order, no atomics, so the same bits
+DECODE_GRAPH_TOL = 0.0
+#: the ragged mix: prompts of 1–1024 tokens (system prompts shared), a
+#: budget of 16–256 new tokens each; the throughput arms' batch
+MIX_PROMPTS, MIX_NEW = 32, (16, 256)
+TPUT_PROMPT, TPUT_NEW = 256, 128
+#: the prompts held to the CPU engine, and their new tokens
+CPU_LENGTHS = (1, 17, 64, 130, 300, 511, 777, 1024)
+LSTM_CPU_LENGTHS = (1, 9, 64, 100, 200, 256)
+CPU_NEW = 24
+#: the prefix arm's prompts: a system prompt with tails, and two that
+#: part from it mid-page (copy on write)
+PREFIX_SYSTEM, PREFIX_TAILS = 300, (1, 5, 40, 200)
+_DECODE_GRAPHED: list = []
+
+
+def set_decode_graphs(on: bool) -> None:
+    """Every decode program a CUDA graph (``DecodeModel.graphed``, the
+    port's way on the card) or, off, its body run eagerly on the card:
+    the eager engine phase 15 holds the graphed one to."""
+    from znicz_tpu_torch.serving.decode import DecodeModel
+    if not _DECODE_GRAPHED:
+        _DECODE_GRAPHED.append(DecodeModel.graphed)
+    DecodeModel.graphed = _DECODE_GRAPHED[0] if on \
+        else property(lambda self: False)
+
+
+def train_decode_lm(path: str, layers, seed: int, cap: int,
+                    bar: float | None) -> tuple:
+    """A token chain trained bf16 and graphed through the port's
+    ``StandardWorkflow`` on the reference's next-token rule at
+    T = DEC_TRAIN_T, stepped until the validation error is under
+    ``bar`` % or ``cap`` steps, then exported.  Returns (steps, best
+    validation error %, whether the bar was met)."""
+    x, y = lm_data(DEC_TRAIN + DEC_VALID, DEC_TRAIN_T, seed)
+    wf = make_lm(x, y, DEC_TRAIN, DEC_BATCH, layers=layers)
+    steps = 0
+    met = False
+    while steps < cap:
+        wf.step()
+        steps += 1
+        best = wf.decision.min_validation_n_err_pt
+        if bar is not None and wf.decision.epoch_ended and best < bar:
+            met = True
+            break
+    wf.export_forward(path)
+    best = wf.decision.min_validation_n_err_pt
+    del wf
+    return steps, best, met
+
+
+def narrowed(layers, dim: int, heads: int):
+    out = []
+    for spec in layers:
+        spec = copy.deepcopy(spec)
+        if spec["type"] == "embedding":
+            spec["->"]["dim"] = dim
+        if spec["type"] == "attention":
+            spec["->"]["n_heads"] = heads
+        out.append(spec)
+    return tuple(out)
+
+
+def decode_engine(path: str, geometry=DECODE_GEOMETRY, device=None,
+                  **kwargs):
+    from znicz_tpu_torch.serving import DecodeEngine
+    return DecodeEngine(path, device=device, **{**geometry, **kwargs})
+
+
+def generate_all(eng, prompts, n_new) -> list:
+    """Every prompt submitted at once (continuous admission); the
+    generated ids."""
+    budgets = n_new if isinstance(n_new, list) else [n_new] * len(prompts)
+    futs = [eng.submit(p, max_new_tokens=b)
+            for p, b in zip(prompts, budgets)]
+    return [[int(t) for t in f.result(timeout=600)] for f in futs]
+
+
+def recording(eng) -> list:
+    """The logits each of ``eng``'s samples reads, in order."""
+    import numpy as np
+    rec: list = []
+    real = eng._sample
+
+    def sample(logits):
+        rec.append(np.array(logits, copy=True))
+        return real(logits)
+
+    eng._sample = sample
+    return rec
+
+
+def cpu_margin(path: str, prompt, prefix, geometry, kwargs) -> float:
+    """The CPU's top-two logit margin where it sampled the token after
+    ``prompt + prefix``: a one-request CPU engine of the arm's paging
+    (no speculation: a verify window computes the same logits) replays
+    it."""
+    import numpy as np
+    kw = {k: v for k, v in kwargs.items()
+          if k not in ("spec_draft_k", "drafter")}
+    with decode_engine(path, geometry, device="cpu", **kw) as eng:
+        rec = recording(eng)
+        eng.generate(prompt, max_new_tokens=len(prefix) + 1, timeout=600)
+    top = np.sort(rec[len(prefix)])[-2:]
+    return float(top[1] - top[0])
+
+
+def tokens_vs_cpu(label: str, path: str, gpu, prompts, n_new, geometry,
+                  kwargs) -> int:
+    """The card's greedy tokens (engine ``gpu``) against the CPU engine's
+    of the same arm on the same bundle and prompts.  Where two sequences
+    part, the CPU's top-two margin there must be under ``TIE_TOL``;
+    returns how many sequences parted at such a tie."""
+    t0 = time.perf_counter()
+    got = generate_all(gpu, prompts, n_new)
+    with decode_engine(path, geometry, device="cpu", **kwargs) as cpu:
+        want = generate_all(cpu, prompts, n_new)
+    ties = 0
+    for p, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        margin = cpu_margin(path, p, w[:i], geometry, kwargs)
+        say(f"  {label}: a {len(p)}-token prompt parts from the CPU's at "
+            f"token {i} ({g[i:i + 3]} against {w[i:i + 3]}), the CPU's "
+            f"top-two margin there {margin:.3g} (tie bound {TIE_TOL})")
+        if margin >= TIE_TOL:
+            raise AssertionError(f"{label}: greedy tokens differ from the "
+                                 f"CPU's with a margin of {margin}")
+        ties += 1
+    say(f"  {label}: {len(prompts)} prompts × {n_new} tokens, card = CPU "
+        f"on {len(prompts) - ties}, {ties} ended at a tie "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return ties
+
+
+def expect_decode_captures(eng, label: str) -> int:
+    """After ``start()``: each program resident is one captured graph."""
+    st = eng.stats()
+    say(f"  {label}: {st['programs_live']} programs resident, "
+        f"{st['captures']} captured in {st['warmup_seconds']:.2f} s "
+        f"(warmup), cache {st['cache_bytes']} B, "
+        f"{st['kv_bytes_per_lane']} B a lane")
+    if not (st["captures"] == st["programs_live"] == eng.warmup_compiles
+            > 0):
+        raise AssertionError(f"{label}: captures {st['captures']}, "
+                             f"programs {st['programs_live']}")
+    return st["captures"]
+
+
+def capture_metric() -> float:
+    from znicz_tpu_torch.observe import metrics
+    return sum(metrics.graph_captures(site).value for site in
+               ("serving-prefill", "serving-decode", "serving-verify",
+                "serving-page"))
+
+
+def ragged_prompts(rng, n: int, systems) -> tuple[list, list]:
+    """``n`` prompts of 1–1024 tokens, half of them a shared system
+    prompt plus a tail, the others runs of the training rule (each id the
+    last plus 1), and their budgets of 16–256 new tokens."""
+    import numpy as np
+    prompts = []
+    for i in range(n):
+        if i % 2:
+            system = systems[i % len(systems)]
+            tail = rng.integers(0, LM_VOCAB, size=int(rng.integers(1, 257)))
+            p = list(system) + list(tail)
+        else:
+            start = int(rng.integers(0, LM_VOCAB))
+            p = list((start + np.arange(int(rng.integers(1, 1025))))
+                     % LM_VOCAB)
+        prompts.append([int(t) for t in p[:DECODE_GEOMETRY["max_prompt"]]])
+    # the ends of the range
+    prompts[0] = prompts[0][:1]
+    prompts[2] = [int(t) for t in rng.integers(
+        0, LM_VOCAB, size=DECODE_GEOMETRY["max_prompt"])]
+    budgets = [int(b) for b in rng.integers(MIX_NEW[0], MIX_NEW[1] + 1,
+                                            size=n)]
+    budgets[0], budgets[1] = MIX_NEW
+    return prompts, budgets
+
+
+def mix_pass(path: str, drafter: str, params_a: dict, params_b: dict,
+             manifest: dict, card: str) -> dict:
+    """The paged, prefix-sharing, speculative engine at full geometry:
+    its captures at ``start()`` equal its programs and stay flat through
+    a ragged mix of MIX_PROMPTS prompts and 3 hot swaps; TTFT and
+    per-token p50/p99, the prefix hit rate, the acceptance rate."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 20)
+    systems = [list(rng.integers(0, LM_VOCAB, size=n))
+               for n in (256, 512, 768)]
+    prompts, budgets = ragged_prompts(rng, MIX_PROMPTS, systems)
+    eng = decode_engine(path, spec_draft_k=SPEC_K, drafter=drafter)
+    metric0 = capture_metric()
+    eng.start()
+    try:
+        captures = expect_decode_captures(eng, "paged + prefix + "
+                                          "speculative")
+        if capture_metric() - metric0 != captures:
+            raise AssertionError("the captures series disagrees with "
+                                 "the programs captured")
+        t0 = time.perf_counter()
+        out = generate_all(eng, prompts, budgets)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        pc, spec = st["prefix_cache"], st["speculative"]
+        hit = pc["hits"] / max(1, pc["hits"] + pc["misses"])
+        n_tok = sum(len(o) for o in out)
+        say(f"  ragged mix on {card}: {MIX_PROMPTS} prompts of "
+            f"{min(map(len, prompts))}–{max(map(len, prompts))} tokens, "
+            f"{n_tok} tokens generated in {wall:.2f} s "
+            f"({n_tok / wall:.0f} tokens/s); TTFT p50 "
+            f"{st['ttft_ms']['p50']} ms, p99 {st['ttft_ms']['p99']} ms; "
+            f"per token p50 {st['token_ms']['p50']} ms, p99 "
+            f"{st['token_ms']['p99']} ms; prefix hits {pc['hits']} of "
+            f"{pc['hits'] + pc['misses']} ({100 * hit:.1f} %), "
+            f"{pc['shared_tokens']} prompt tokens shared; drafts accepted "
+            f"{spec['accepted']} of {spec['accepted'] + spec['rejected']} "
+            f"({100 * spec['accept_rate']:.1f} %)")
+        if any(len(o) != b for o, b in zip(out, budgets)):
+            raise AssertionError("a sequence stopped short of its budget")
+        for k, state in enumerate((params_b, params_a, params_b)):
+            res = eng.swap_weights((manifest, state), drain_ms=10_000)
+            generate_all(eng, [p[:300] for p in prompts[k::8]], 16)
+            say(f"  swap {k + 1}: version {res['version']}, pause "
+                f"{res['pause_ms']} ms, captures "
+                f"{eng.stats()['captures']}")
+        st = eng.stats()
+        if st["captures"] != captures \
+                or capture_metric() - metric0 != captures \
+                or st["swaps"]["promoted"] != 3:
+            raise AssertionError(f"captures moved across the mix and the "
+                                 f"swaps: {st['captures']} != {captures}")
+        return {"ttft": st["ttft_ms"], "token": st["token_ms"],
+                "hit_rate": hit, "accept_rate": spec["accept_rate"],
+                "captures": captures, "warmup_s": st["warmup_seconds"]}
+    finally:
+        eng.shutdown()
+
+
+def throughput(eng, prompts) -> float:
+    t0 = time.perf_counter()
+    n = sum(len(o) for o in generate_all(eng, prompts, TPUT_NEW))
+    return n / (time.perf_counter() - t0)
+
+
+def planted_faults(path: str, manifest: dict, params: dict) -> None:
+    """The three faults phase 15 must catch: a cache update that rebinds
+    its pool, a swap that leaves the prefix cache stale, a swap that
+    rebinds a weight (and a cache rebound at the model) — each on small
+    engines."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.ops.attention import MultiHeadAttention
+    from znicz_tpu_torch.serving.decode import DecodeEngine, DecodeModel
+
+    def rebinding(pool, rows, tables, positions, live):
+        ptok, nb = pool.shape[1], tables.shape[1] - 1
+        block = torch.div(positions.long(), ptok, rounding_mode="floor")
+        page = torch.gather(tables.long(), 1, block.clamp(max=nb))
+        return pool.index_put((page, positions.long() % ptok),
+                              rows.to(pool.dtype))
+
+    real = MultiHeadAttention.__dict__["_paged_write"]
+    MultiHeadAttention._paged_write = staticmethod(rebinding)
+    try:
+        DecodeModel(path, paged=True, **PLANT_GEOMETRY).warmup()
+        caught = None
+    except RuntimeError as exc:
+        caught = str(exc)
+    finally:
+        MultiHeadAttention._paged_write = real
+    say(f"  planted: a paged write that rebinds its pool → {caught}")
+    if caught is None or "rebound by its update" not in caught:
+        raise AssertionError("a cache update that rebinds was not caught")
+    # the new weights: the attention's key and value projections redrawn
+    # (the trained chain reads mostly the last position's own value, so
+    # only stale keys and values of the prefix show in its tokens)
+    rng = np.random.default_rng(SEED + 21)
+    far = dict(params)
+    w, b = params["layer2_weights"], params["layer2_bias"]
+    far["layer2_weights"] = np.concatenate(
+        [w[:, :DIM], rng.normal(0.0, float(w.std()), (DIM, 2 * DIM))],
+        axis=1).astype(np.float32)
+    far["layer2_bias"] = np.concatenate(
+        [b[:DIM], rng.normal(0.0, float(b.std()) + 1e-3, 2 * DIM)]
+    ).astype(np.float32)
+    shared = [int(t) for t in rng.integers(0, LM_VOCAB, size=96)]
+    prompt = shared + [5, 7, 9]
+    with decode_engine(path, PLANT_GEOMETRY) as fresh:
+        fresh.swap_weights((manifest, far))
+        want = [int(t) for t in fresh.generate(prompt, max_new_tokens=32)]
+    got = {}
+    real_clear = DecodeEngine._clear_prefix
+    for planted in (False, True):
+        if planted:
+            DecodeEngine._clear_prefix = lambda self: None
+        try:
+            with decode_engine(path, PLANT_GEOMETRY) as eng:
+                eng.generate(shared, max_new_tokens=4)
+                eng.swap_weights((manifest, far), drain_ms=10_000)
+                got[planted] = [int(t) for t in eng.generate(
+                    prompt, max_new_tokens=32)]
+                hits = eng.stats()["prefix_cache"]["hits"]
+        finally:
+            DecodeEngine._clear_prefix = real_clear
+        say(f"  {'planted' if planted else 'sound'} swap: prefix hits "
+            f"after it {hits}, tokens equal a fresh engine's on the new "
+            f"weights {got[planted] == want}")
+    if got[False] != want or got[True] == want:
+        raise AssertionError("a swap that leaves the prefix cache stale "
+                             "was not caught")
+    model = DecodeModel(path, paged=False, **PLANT_GEOMETRY)
+    model.warmup()
+    model.run_prefill(np.array([1, 2, 3]), 0)
+    step = (np.array([4]), np.array([0]), np.array([3]))
+    model.run_decode(*step)
+    for what in ("weight", "cache"):
+        if what == "weight":
+            # a swap that binds a new tensor in place of copying into it
+            ws = list(model._weights)
+            ws[2] = (torch.from_numpy(far["layer2_weights"]).cuda(),) \
+                + ws[2][1:]
+            model._weights = tuple(ws)
+        else:
+            model.cache.arrays[0] = model.cache.arrays[0].clone()
+        try:
+            model.run_decode(*step)
+            caught = None
+        except RuntimeError as exc:
+            caught = str(exc)
+        say(f"  planted: a {what} rebound → {caught}")
+        if caught is None or "rebound after the capture" not in caught:
+            raise AssertionError(f"a rebound {what} was not refused")
+        model = DecodeModel(path, paged=False, **PLANT_GEOMETRY)
+        model.warmup()
+
+
+def decode_pass(card: str) -> dict:
+    """Phase 15: train the decode LM and its drafter, write the int8 twin
+    and the LSTM chain, then drive decode through ``DecodeEngine`` on the
+    card with every launch counter at 0 (decode runs none of B1–B9)."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.export import read_bundle
+    from znicz_tpu_torch.serving import quantize as qz
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decode_lm.npz")
+        drafter = os.path.join(tmp, "drafter.npz")
+        lstm = os.path.join(tmp, "lstm.npz")
+        t0 = time.perf_counter()
+        steps, best, met = train_decode_lm(path, DECODE_LAYERS, SEED + 16,
+                                           DEC_STEP_CAP, DEC_ERR_BAR)
+        say(f"  the decode LM (V={LM_VOCAB}, D={DIM}, {HEADS} causal heads, "
+            f"no layer norm, bf16, T={DEC_TRAIN_T}, B={DEC_BATCH}) graphed: "
+            f"{steps} steps, best validation error {best:.2f} % — "
+            + (f"under {DEC_ERR_BAR} %" if met else
+               f"the step cap ({DEC_STEP_CAP}) reached first"))
+        d_steps, d_best, d_met = train_decode_lm(
+            drafter, narrowed(DECODE_LAYERS, DRAFT_DIM, DRAFT_HEADS),
+            SEED + 17, DEC_STEP_CAP, DEC_ERR_BAR)
+        say(f"  the drafter (D={DRAFT_DIM}, {DRAFT_HEADS} heads): {d_steps} "
+            f"steps, best validation error {d_best:.2f} % — "
+            + (f"under {DEC_ERR_BAR} %" if d_met else "the step cap first"))
+        x, y = lm_data(4 * BATCH, 64, SEED + 18)
+        wf = make_lm(x, y, 4 * BATCH, BATCH, layers=LSTM_LAYERS)
+        wf.export_forward(lstm)  # its weights the seed's
+        del wf
+        manifest, params = read_bundle(path)
+        qman, qparams, info = qz.quantize_bundle(manifest, params)
+        int8 = write_bundle(os.path.join(tmp, "decode_lm_int8.npz"), qman,
+                            qparams)
+        say(f"  set-up (training, exports, the int8 twin: bytes_ratio "
+            f"{info['bytes_ratio']:.4f}) {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        out = {"mix": mix_pass(path, drafter, params,
+                               perturbed(params, SEED + 19), manifest, card)}
+        rng = np.random.default_rng(SEED + 22)
+        cpu_prompts = [[int(t) for t in rng.integers(0, LM_VOCAB, size=n)]
+                       for n in CPU_LENGTHS]
+        system = [int(t) for t in rng.integers(0, LM_VOCAB,
+                                               size=PREFIX_SYSTEM)]
+        half = PREFIX_SYSTEM // 2
+        prefix_prompts = [system + [int(t) for t in rng.integers(
+            0, LM_VOCAB, size=n)] for n in PREFIX_TAILS] \
+            + [system[:half] + [1, 2, 3], system[:half + 7] + [9] * 30]
+        tput_prompts = [[int(t) for t in rng.integers(
+            0, LM_VOCAB, size=TPUT_PROMPT)] for _ in range(16)]
+        unshared = {"prefix_cache": False}
+        arms = {
+            "flat": ({"paged": False}, cpu_prompts),
+            "paged": (unshared, cpu_prompts),
+            "paged + prefix sharing": ({}, prefix_prompts),
+            "paged + speculative": (dict(unshared, spec_draft_k=SPEC_K,
+                                         drafter=drafter), cpu_prompts),
+            "paged, self-drafted": (dict(unshared, spec_draft_k=SPEC_K,
+                                         drafter=path), cpu_prompts[:4]),
+            "int8 KV pages": (dict(unshared, kv_quant=True), cpu_prompts),
+        }
+        ties, engines, stats = {}, {}, {}
+        for label, (kw, prompts) in arms.items():
+            eng = engines[label] = decode_engine(path, **kw)
+            eng.start()
+            expect_decode_captures(eng, label)
+            ties[label] = tokens_vs_cpu(label, path, eng, prompts, CPU_NEW,
+                                        DECODE_GEOMETRY, kw)
+            stats[label] = eng.stats()
+        # the drafter on the runs it was trained on (positions < T = 64)
+        spec_eng = engines["paged + speculative"]
+        before = stats["paged + speculative"]["speculative"]
+        rule_runs = [[int(t) for t in (int(rng.integers(0, LM_VOCAB))
+                                       + np.arange(32)) % LM_VOCAB]
+                     for _ in range(16)]
+        generate_all(spec_eng, rule_runs, 24)
+        after = spec_eng.stats()["speculative"]
+        acc = after["accepted"] - before["accepted"]
+        drafted = acc + after["rejected"] - before["rejected"]
+        say(f"  the drafter on 16 runs of the training rule (32 tokens, 24 "
+            f"new): {acc} of {drafted} drafts accepted "
+            f"({100 * acc / max(1, drafted):.1f} %)")
+        self_spec = stats["paged, self-drafted"]["speculative"]
+        say(f"  self-drafted: {self_spec['accepted']} of "
+            f"{self_spec['accepted'] + self_spec['rejected']} drafts "
+            f"accepted")
+        if self_spec["rejected"] or not self_spec["accepted"]:
+            raise AssertionError("the bundle as its own drafter had a "
+                                 "draft rejected")
+        tput = {k: [] for k in ("flat", "paged", "paged + speculative")}
+        for label in list(tput) + list(tput)[::-1]:
+            tput[label].append(throughput(engines[label], tput_prompts))
+        kv = {"f32": stats["paged"]["kv_bytes_per_lane"],
+              "int8": stats["int8 KV pages"]["kv_bytes_per_lane"],
+              "flat": stats["flat"]["kv_bytes_per_lane"]}
+        say(f"  tokens/s at 16 lanes ({TPUT_PROMPT}-token prompts, "
+            f"{TPUT_NEW} new tokens each, in turns) on {card}: "
+            + "; ".join(f"{k} {v[0]:.0f} / {v[1]:.0f}"
+                        for k, v in tput.items())
+            + f"; KV bytes a lane: flat {kv['flat']}, paged f32 "
+            f"{kv['f32']}, int8 {kv['int8']} "
+            f"({kv['int8'] / kv['f32']:.4f} of f32)")
+        # graphed against eager, one request at a time: the prefix arm
+        # graphed, then the same engine eager
+        runs = {}
+        for mode in ("graphed", "eager"):
+            set_decode_graphs(mode == "graphed")
+            if mode == "graphed":
+                eng = engines["paged + prefix sharing"]
+            else:
+                eng = decode_engine(path)
+                eng.start()
+            rec = recording(eng)
+            toks = [[int(t) for t in eng.generate(p, max_new_tokens=32)]
+                    for p in cpu_prompts[1:5]]
+            runs[mode] = (toks, np.stack(rec))
+            say(f"  {mode}: {eng.stats()['captures']} captures")
+            if mode == "eager":
+                eng.shutdown()
+        set_decode_graphs(True)
+        diff = float(np.abs(runs["graphed"][1] - runs["eager"][1]).max())
+        say(f"  graphed against eager (4 prompts × 32 tokens): tokens "
+            f"equal {runs['graphed'][0] == runs['eager'][0]}, logits "
+            f"max_abs_err {diff:.3g} (tol {DECODE_GRAPH_TOL}: bit-equal)")
+        if runs["graphed"][0] != runs["eager"][0] \
+                or diff > DECODE_GRAPH_TOL:
+            raise AssertionError("decode graphed disagrees with eager")
+        # the first-token logits of the flat arm, card against CPU
+        from znicz_tpu_torch.serving import DecodeModel
+        card_model = engines["flat"].model
+        for eng in engines.values():
+            eng.shutdown()
+        cpu_model = DecodeModel(path, paged=False, device="cpu",
+                                **DECODE_GEOMETRY)
+        err = max(float(np.abs(card_model.run_prefill(np.array(p), 0)
+                               - cpu_model.run_prefill(np.array(p), 0))
+                        .max()) for p in cpu_prompts[::2])
+        say(f"  first-token logits, card against CPU (flat, prompts of "
+            f"{CPU_LENGTHS[::2]}): max_abs_err {err:.3g} (tol "
+            f"{DECODE_LOGIT_TOL})")
+        if err > DECODE_LOGIT_TOL:
+            raise AssertionError("decode logits: the card disagrees with "
+                                 "the CPU")
+        # int8 weights
+        with decode_engine(int8, **unshared) as eng:
+            expect_decode_captures(eng, "int8 weights")
+            ties["int8 weights"] = tokens_vs_cpu(
+                "int8 weights", int8, eng, cpu_prompts, CPU_NEW,
+                DECODE_GEOMETRY, unshared)
+        # the LSTM chain, flat and paged
+        rng = np.random.default_rng(SEED + 23)
+        lstm_prompts = [[int(t) for t in rng.integers(0, LM_VOCAB, size=n)]
+                        for n in LSTM_CPU_LENGTHS]
+        for label, kw in (("LSTM flat", {"paged": False}),
+                          ("LSTM paged", {})):
+            with decode_engine(lstm, LSTM_DECODE_GEOMETRY, **kw) as eng:
+                expect_decode_captures(eng, label)
+                ties[label] = tokens_vs_cpu(label, lstm, eng, lstm_prompts,
+                                            CPU_NEW, LSTM_DECODE_GEOMETRY,
+                                            kw)
+        planted_faults(path, manifest, params)
+        launches = read_counts()
+        expect_counts("decode", launches, {})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"  sequences ended at a tie, by arm: {ties}")
+        say(f"  phase 15 on {card}: peak device memory {peak:.2f} GiB; the "
+            f"decode drive {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5533,6 +6116,12 @@ def main() -> int:
     t14 = time.perf_counter()
     paths.update(serve_graphs_pass(smi))
     say(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    say("phase 15: decode — the byte LM and the LSTM chain through "
+        "DecodeEngine, each program a CUDA graph")
+    t15 = time.perf_counter()
+    paths["decode"] = decode_pass(smi)
+    say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

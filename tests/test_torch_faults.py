@@ -164,8 +164,8 @@ def test_every_ported_site_has_a_live_fire_call():
     assert sorted(fired) == sorted(set(faults.SITES) - set(UNFIRED)), (
         f"fired {sorted(fired)}; unfired {sorted(UNFIRED)}")
     assert fired == {
-        "serving.program_error": {"engine.py"},
-        "serving.latency_spike": {"engine.py"},
+        "serving.program_error": {"engine.py", "decode.py"},
+        "serving.latency_spike": {"engine.py", "decode.py"},
         "sdc.serving_bitflip": {"engine.py"},
         "snapshot.write_fail": {"snapshotter.py"},
         "quant.calib_corrupt": {"quantize.py"},

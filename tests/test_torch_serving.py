@@ -317,12 +317,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
     assert len(files) > 10
     # the sequence units of the token LM among them, the RBM, the SOM
-    # and the cutter, and the fault plan, the flight recorder and the
-    # quantizer (host-only modules the port copies)
+    # and the cutter, the fault plan, the flight recorder and the
+    # quantizer (host-only modules the port copies), and decode
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
-                                "faults", "recorder", "quantize")} \
+                                "faults", "recorder", "quantize",
+                                "decode")} \
         <= {p.name for p in files}
+    assert REPO / "znicz_tpu_torch" / "serving" / "decode.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -47,9 +47,17 @@ programs do: the weight is ``q·scale`` rounded to the manifest dtype.
 format, so the bundle serves through this module and through the
 reference's.  A token-first causal chain (an ``embedding`` first, every
 attention causal, something to cache: an attention or an LSTM) is an
-``"lm"`` bundle with the reference's ``sequence`` block (the decode
-slice's metadata); any other chain a ``"scorer"``.  Both serve one-shot
-here: an LM's reply is the head's distribution over the next token.
+``"lm"`` bundle with the reference's ``sequence`` block (what a
+decoder reads); any other chain a ``"scorer"``.  Both serve one-shot
+here (an LM's reply is the head's distribution over the next token),
+and an LM generates through
+:class:`~znicz_tpu_torch.serving.decode.DecodeEngine`.
+
+:func:`attach_decode_meta` stamps the decode plane's defaults (page
+geometry, a drafter) into an LM bundle, which
+:class:`~znicz_tpu_torch.serving.decode.DecodeModel` reads through
+:attr:`ExportedModel.decode_meta` beside the host parameters, the int8
+keys and the units.
 
 A layer's ``tied_to`` (a conv autoencoder's decoder) is written into
 the manifest with ``tied_weights`` as the reference writes it, and the
@@ -182,6 +190,14 @@ def export_forward(workflow, path: str) -> str:
               .cpu().numpy()
               for i, unit in enumerate(workflow.forwards)
               for attr in unit.EXPORT_PARAMS if hasattr(unit, attr)}
+    _write_bundle(path, manifest, arrays)
+    return path
+
+
+def _write_bundle(path: str, manifest: dict, arrays: dict) -> None:
+    """``arrays`` and the JSON ``manifest`` as one compressed ``.npz``,
+    written to a temporary file and renamed into place."""
+    arrays = dict(arrays)
     arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
                                        dtype=np.uint8)
     buf = io.BytesIO()
@@ -190,7 +206,43 @@ def export_forward(workflow, path: str) -> str:
     with open(tmp, "wb") as f:
         f.write(buf.getvalue())
     os.replace(tmp, path)
-    return path
+
+
+def attach_decode_meta(path: str, *, page_tokens: int | None = None,
+                       pool_tokens: int | None = None,
+                       drafter: str | None = None,
+                       spec_draft_k: int | None = None) -> dict:
+    """Stamp decode defaults into an LM bundle's manifest (the
+    reference's ``attach_decode_meta``): the paged cache's geometry
+    (``kv_page_tokens``, ``pool_tokens``) and a speculative drafter (a
+    bundle path and ``spec_draft_k``), merged into any ``decode``
+    section already there, so a
+    :class:`~znicz_tpu_torch.serving.decode.DecodeEngine` built from the
+    bundle alone serves with them.  The file is rewritten atomically; a
+    published bundle's ``.sha256`` sidecar is rewritten to the new
+    digest.  Refuses a scorer bundle.  Returns the section written."""
+    manifest, params = read_bundle(path)
+    if manifest.get("kind", "lm") != "lm":
+        raise ValueError(f"bundle '{path}' is a '{manifest.get('kind')}' "
+                         f"— decode metadata belongs on LM bundles")
+    meta = dict(manifest.get("decode", {}))
+    for key, value in (("kv_page_tokens", page_tokens),
+                       ("pool_tokens", pool_tokens),
+                       ("drafter", drafter),
+                       ("spec_draft_k", spec_draft_k)):
+        if value is not None:
+            meta[key] = value
+    manifest["decode"] = meta
+    _write_bundle(path, manifest, {k: np.asarray(v)
+                                   for k, v in params.items()})
+    sidecar = f"{path}.sha256"
+    if os.path.exists(sidecar):
+        from znicz_tpu_torch.utils.snapshotter import _sha256_file
+        side_tmp = f"{sidecar}.{os.getpid()}.tmp"
+        with open(side_tmp, "w") as f:
+            f.write(_sha256_file(path) + "\n")
+        os.replace(side_tmp, sidecar)
+    return meta
 
 
 def params_from_jax(manifest: dict, params: dict) -> dict[str, torch.Tensor]:
@@ -358,6 +410,12 @@ class ExportedModel(Logger):
         if seq is None and "kind" not in self.manifest:
             seq = _sequence_meta(self.manifest["layers"], self.input_shape)
         return seq
+
+    @property
+    def decode_meta(self) -> dict:
+        """The manifest's ``decode`` section (:func:`attach_decode_meta`),
+        empty when the bundle has none."""
+        return dict(self.manifest.get("decode", {}))
 
     @property
     def graphed(self) -> bool:

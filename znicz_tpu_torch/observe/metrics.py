@@ -11,8 +11,11 @@ the serving engine and its batcher write, the snapshotter's
 series: workflow runs, per-unit run time, region steps, the
 host↔device bytes of the ``Vector`` protocol and CUDA-graph captures
 (the counterpart of the reference's ``xla_compiles("region:…")``),
-and the series of fault injection, hot swap, the SDC shadow audit,
-request traces and the flight recorder.
+the series of fault injection, hot swap, the SDC shadow audit,
+request traces and the flight recorder, and decode's: time to first
+token and per token, token counts, live slots, the KV page pool, the
+prefix cache, speculative verdicts, the per-phase p99 gauges and the
+swap drain's admission pause.
 The hot-path series (unit times, transfer bytes) are gated on
 :func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
@@ -354,7 +357,9 @@ def grad_accum_microbatches(workflow: str) -> Gauge:
 def graph_captures(region: str) -> Counter:
     """CUDA-graph captures of a region, one per static key: the
     counterpart of the reference's ``xla_compiles("region:<name>")``.
-    It stays flat once every key of a run has been seen."""
+    It stays flat once every key of a run has been seen.  Decode's
+    programs count under the reference's sites (``serving-prefill``,
+    ``serving-decode``, ``serving-verify``, ``serving-page``)."""
     return REGISTRY.counter(
         "znicz_graph_captures_total",
         "CUDA-graph captures of a region's step, by region",
@@ -509,3 +514,130 @@ def flightrecord_dropped() -> Counter:
         "znicz_flightrecord_dropped_total",
         "Flight-recorder events dropped on journal write "
         "stall/failure").labels()
+
+
+# ----------------------------------------------------------------------
+# decode (serving.decode): the reference's series of the same names
+# ----------------------------------------------------------------------
+def serving_ttft_seconds(engine: str) -> Histogram:
+    """Time to first token: submit → the first generated token (queue
+    wait, prefill and the first sample), from admission-eligible time."""
+    return REGISTRY.histogram(
+        "znicz_serving_ttft_seconds",
+        "Decode time-to-first-token (submit -> first token)",
+        labels=("engine",)).labels(engine=engine)
+
+
+def serving_token_seconds(engine: str) -> Histogram:
+    """Per-token decode latency: one observation a generated token after
+    the first (the cadence a streaming client sees)."""
+    return REGISTRY.histogram(
+        "znicz_serving_token_seconds",
+        "Decode per-token latency (inter-token cadence after the "
+        "first token)", labels=("engine",)).labels(engine=engine)
+
+
+def serving_tokens(engine: str, kind: str) -> Counter:
+    """Tokens by kind: ``prompt`` (prefilled positions) and
+    ``generated`` (sampled tokens)."""
+    return REGISTRY.counter(
+        "znicz_serving_tokens_total",
+        "Decode tokens by kind (prompt=prefilled, generated=sampled)",
+        labels=("engine", "kind")).labels(engine=engine, kind=kind)
+
+
+def serving_decode_slots(engine: str) -> Gauge:
+    """Sequences mid-generation, each holding a KV-cache slot."""
+    return REGISTRY.gauge(
+        "znicz_serving_decode_slots",
+        "Sequences currently occupying KV-cache decode slots",
+        labels=("engine",)).labels(engine=engine)
+
+
+def kv_pages_total(engine: str) -> Gauge:
+    """Pages of the paged KV pool (fixed at construction)."""
+    return REGISTRY.gauge(
+        "znicz_kv_pages_total",
+        "KV-cache pages in the paged decode pool",
+        labels=("engine",)).labels(engine=engine)
+
+
+def kv_pages_used(engine: str) -> Gauge:
+    """Pages held by live sequences and the prefix cache (a live
+    callback gauge)."""
+    return REGISTRY.gauge(
+        "znicz_kv_pages_used",
+        "KV-cache pages held by live sequences + the prefix cache",
+        labels=("engine",)).labels(engine=engine)
+
+
+def kv_bytes_per_lane(engine: str) -> Gauge:
+    """KV-cache bytes over ``max_slots`` (int8 pages' scale pools
+    included): what bounds decode concurrency per byte."""
+    return REGISTRY.gauge(
+        "znicz_kv_bytes_per_lane",
+        "KV-cache bytes reserved per decode lane",
+        labels=("engine",)).labels(engine=engine)
+
+
+def kv_page_migrations(engine: str, direction: str) -> Counter:
+    """KV pages moved between tiers or pools by direction (``spill``,
+    ``restore``, ``handoff``).  The port has neither a second tier nor a
+    pool handoff yet (ROADMAP A12), so nothing writes it."""
+    return REGISTRY.counter(
+        "znicz_kv_page_migrations_total",
+        "KV pages moved between cache tiers / serving pools",
+        labels=("engine", "direction")).labels(engine=engine,
+                                               direction=direction)
+
+
+def prefix_cache_events(engine: str, event: str) -> Counter:
+    """Prefix-sharing admissions: ``hit``, ``miss``, and ``evicted``
+    (a cached block released under pool pressure)."""
+    return REGISTRY.counter(
+        "znicz_prefix_cache_total",
+        "Prefix-cache admission events (hit/miss/evicted)",
+        labels=("engine", "event")).labels(engine=engine, event=event)
+
+
+def prefix_tokens(engine: str, kind: str) -> Counter:
+    """Prompt tokens by prefix-cache outcome: ``shared`` (their K/V
+    pages reused) and ``computed`` (prefilled)."""
+    return REGISTRY.counter(
+        "znicz_prefix_tokens_total",
+        "Prompt tokens by prefix-cache outcome (shared/computed)",
+        labels=("engine", "kind")).labels(engine=engine, kind=kind)
+
+
+def spec_tokens(engine: str, verdict: str) -> Counter:
+    """Drafted tokens by the verifier's verdict (``accepted``,
+    ``rejected``)."""
+    return REGISTRY.counter(
+        "znicz_spec_tokens_total",
+        "Drafted tokens by verification verdict (accepted/rejected)",
+        labels=("engine", "verdict")).labels(engine=engine,
+                                             verdict=verdict)
+
+
+def swap_pause_seconds(engine: str) -> Counter:
+    """Wall time decode admission was paused by swap drains: what the
+    TTFT clocks (admission-eligible time) leave out."""
+    return REGISTRY.counter(
+        "znicz_swap_pause_seconds_total",
+        "Decode admission pause time accumulated by swap drains",
+        labels=("engine",)).labels(engine=engine)
+
+
+def window_p99(win, n0: int = 0) -> float:
+    """p99 of a latency window's samples after the first ``n0``."""
+    return _percentile(sorted(list(win)[n0:]), 99.0)
+
+
+def phase_p99_seconds(engine: str, phase: str) -> Gauge:
+    """Exact windowed p99 of one serving phase (``queue``, ``prefill``,
+    ``handoff``, ``decode``, ``ttft``, ``token``), a live callback
+    gauge over the engine's bounded window."""
+    return REGISTRY.gauge(
+        "znicz_phase_p99_seconds",
+        "Exact windowed p99 latency per serving phase",
+        labels=("engine", "phase")).labels(engine=engine, phase=phase)

@@ -13,6 +13,11 @@ mode.  The products are plain ``torch.matmul`` calls, as the reference
 left them to XLA.  On the numpy oracle each runs the reference's numpy
 path (:meth:`All2All.numpy_forward`).
 
+:meth:`All2All.head` is the same layer as a pure function of explicit
+``(x, w, b)``, through the same :meth:`mxu_dot` (the reference's
+``_forward`` and ``_logits``): a decoder's head layers, whose weights
+it holds itself.
+
 Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  Tensor
 parallelism arrives with a later slice.
 """
@@ -72,6 +77,20 @@ class All2All(Forward):
         y = self.activation.fwd(self._logits(x))
         return y.reshape((x.shape[0],) + self.output_sample_shape).to(
             self.output_store_dtype)
+
+    def head(self, x: torch.Tensor, w: torch.Tensor,
+             b: torch.Tensor | None, final: bool = False) -> torch.Tensor:
+        """The layer on (B, ...) features with the weights ``w`` and
+        ``b`` (None: no bias), f32: the activated output, or with
+        ``final`` the raw logits (a softmax head's argmax is its
+        logits')."""
+        y = self.mxu_dot(x.reshape(x.shape[0], -1), w)
+        if b is not None:
+            y = y + b
+        if final:
+            return y
+        return self.activation.fwd(y).reshape(
+            (x.shape[0],) + self.output_sample_shape)
 
     def _np_logits(self, x: np.ndarray) -> np.ndarray:
         y = x.astype(np.float32).reshape(x.shape[0], -1) \

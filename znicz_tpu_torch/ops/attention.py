@@ -35,10 +35,31 @@ On the numpy oracle the pair runs the reference's numpy path: the
 projections and the core with ``np.einsum`` (:func:`local_attention_np`),
 and the analytic backward written out.
 
-The ring (sequence-parallel) path and the decode steps arrive with
-later slices.  A bundle trained with ``seq_parallel`` or
-``flash_block_k`` serves here all the same: both were layout choices
-with identical math.
+Decode (:mod:`znicz_tpu_torch.serving.decode`) has its own entry points,
+the reference's, in plain f32 products and gathers whatever the
+bundle's dtype (the reference's einsums: a decode step's products are
+(B, 1, ·) slivers where the flash kernel's tiling has nothing to win):
+
+- the flat forms: :meth:`MultiHeadAttention.prefill`, the causal
+  forward that also gives every position's K and V, and
+  :meth:`MultiHeadAttention.decode_step`, one token a lane over its own
+  (Tmax, H, Dh) rows, returned updated (a functional update of the rows
+  the decoder gathered, which it writes back itself);
+- the paged forms over a shared pool of pages addressed through block
+  tables (the last entry of a table is the trash page):
+  :meth:`MultiHeadAttention.prefill_paged`,
+  :meth:`MultiHeadAttention.decode_step_paged` and
+  :meth:`MultiHeadAttention.window_paged`, with optional int8 pools and
+  their f32 scale pools.  These write the pools they are given IN PLACE
+  (``index_put_``) and return them, the same tensors: the decoder's
+  pools live outside any CUDA graph's memory pool, and a functional
+  update would leave the graph writing a copy.  Dead lanes, padded
+  positions and positions past a table write into the trash page, so
+  every scatter and gather index stays inside the pool.
+
+The ring (sequence-parallel) path arrives with a later slice.  A bundle
+trained with ``seq_parallel`` or ``flash_block_k`` serves here all the
+same: both were layout choices with identical math.
 """
 
 from __future__ import annotations
@@ -171,6 +192,202 @@ class MultiHeadAttention(Forward):
 
     def numpy_forward(self, x: np.ndarray) -> np.ndarray:
         return self.forward_np(x.astype(np.float32))[0]
+
+    # -- decode ---------------------------------------------------------
+    def _scores(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        """(B, Q, H, Dh) × (B, K, H, Dh) → (B, H, Q, K) over √dₕ (the
+        divisor the f32 value of the reference's ``jnp.sqrt``)."""
+        root = float(np.sqrt(np.float32(q.shape[-1])))
+        return torch.einsum("bqhd,bkhd->bhqk", q, k) / root
+
+    @staticmethod
+    def _softmax_av(s: torch.Tensor, mask: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+        """The masked softmax of the scores times V: (B, Q, H, Dh)."""
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        s = s - s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s)
+        p = p / p.sum(dim=-1, keepdim=True)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    def _project_qkv(self, x: torch.Tensor, w_qkv: torch.Tensor,
+                     b_qkv: torch.Tensor | None):
+        """(B, W, D) → q, k, v, each (B, W, H, Dh), f32."""
+        b, w, d = x.shape
+        qkv = torch.matmul(x.float().reshape(b * w, d), w_qkv)
+        if b_qkv is not None:
+            qkv = qkv + b_qkv
+        return split_heads(qkv.reshape(b, w, 3 * d), self.n_heads)
+
+    @staticmethod
+    def _out_proj(o: torch.Tensor, w_out: torch.Tensor,
+                  b_out: torch.Tensor | None) -> torch.Tensor:
+        b, w, h, dh = o.shape
+        y = torch.matmul(o.reshape(b * w, h * dh), w_out)
+        if b_out is not None:
+            y = y + b_out
+        return y.reshape(b, w, h * dh)
+
+    def prefill(self, x: torch.Tensor, w_qkv, b_qkv, w_out, b_out):
+        """The causal forward over a right-padded prompt that also gives
+        each position's K and V: (B, T, D) → ``(y, k, v)``, k and v
+        (B, T, H, Dh).  A padded position's K and V are garbage no real
+        position sees: the causal mask keeps them out here, and a later
+        step overwrites the row before its mask admits it."""
+        t = x.shape[1]
+        q, k, v = self._project_qkv(x, w_qkv, b_qkv)
+        s = self._scores(q, k)
+        if self.causal:
+            idx = torch.arange(t, device=x.device)
+            mask = (idx[:, None] >= idx[None, :])[None, None]
+        else:
+            mask = torch.ones((1, 1, t, t), dtype=torch.bool,
+                              device=x.device)
+        o = self._softmax_av(s, mask, v)
+        return self._out_proj(o, w_out, b_out), k, v
+
+    def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos: torch.Tensor,
+                    w_qkv, b_qkv, w_out, b_out):
+        """One token a lane over its own cache rows: ``x`` (B, 1, D),
+        ``k_cache``/``v_cache`` (B, Tmax, H, Dh), ``pos`` (B,) the
+        position of this token in each lane (ragged).  Returns ``(y,
+        k_cache, v_cache)``, the rows functionally updated at ``pos``
+        (new tensors; the operands are untouched).  Keys past ``pos``
+        (a slot's earlier tenant, a prefill's padding) are masked."""
+        b, _, d = x.shape
+        t_max = k_cache.shape[1]
+        q, k, v = self._project_qkv(x, w_qkv, b_qkv)
+        rows = torch.arange(b, device=x.device)
+        pos = pos.long()
+        k_cache = k_cache.index_put((rows, pos), k[:, 0])
+        v_cache = v_cache.index_put((rows, pos), v[:, 0])
+        s = self._scores(q, k_cache)
+        live = torch.arange(t_max, device=x.device)[None, :] <= pos[:, None]
+        o = self._softmax_av(s, live[:, None, None, :], v_cache)
+        return self._out_proj(o, w_out, b_out), k_cache, v_cache
+
+    @staticmethod
+    def _kv_quantize(rows: torch.Tensor):
+        """(..., Dh) f32 K or V rows → ``(q int8, scale f32 (...))``:
+        symmetric absmax over each head's row, rounded half to even as
+        ``jnp.round``."""
+        s = torch.clamp_min(rows.abs().amax(dim=-1), 1e-8) / 127.0
+        q = torch.clamp(torch.round(rows / s[..., None]), -127, 127)
+        return q.to(torch.int8), s
+
+    def _paged_attend(self, q, k_pool, v_pool, tables, q_pos,
+                      k_scale=None, v_scale=None) -> torch.Tensor:
+        """(B, W, H, Dh) queries at global positions ``q_pos`` (B, W)
+        over the pages of ``tables`` (B, nb+1, the last the trash page):
+        key position ``p`` is admitted iff ``p <= q_pos``.  int8 pools
+        are dequantized with their scale pools on the gather."""
+        b = q.shape[0]
+        nb = tables.shape[1] - 1
+        ptok = k_pool.shape[1]
+        dh = q.shape[-1]
+        pages = tables[:, :nb].long()
+        k_rows = k_pool[pages].reshape(b, nb * ptok, self.n_heads, dh)
+        v_rows = v_pool[pages].reshape(b, nb * ptok, self.n_heads, dh)
+        if k_scale is not None:
+            ks = k_scale[pages].reshape(b, nb * ptok, self.n_heads)
+            vs = v_scale[pages].reshape(b, nb * ptok, self.n_heads)
+            k_rows = k_rows.float() * ks[..., None]
+            v_rows = v_rows.float() * vs[..., None]
+        keys = torch.arange(nb * ptok, device=q.device)
+        mask = keys[None, None, :] <= q_pos.long()[:, :, None]
+        return self._softmax_av(self._scores(q, k_rows), mask[:, None],
+                                v_rows)
+
+    @staticmethod
+    def _paged_write(pool, rows, tables, positions, live):
+        """Write (B, W, ...) rows into ``pool`` in place through the
+        block tables at global ``positions`` (B, W); a dead lane or
+        position, and a live one past its table, writes into the trash
+        page (the table's last entry) at offset 0.  Returns ``pool``."""
+        ptok = pool.shape[1]
+        nb = tables.shape[1] - 1
+        positions = positions.long()
+        block = torch.div(positions, ptok, rounding_mode="floor")
+        block = torch.where(live & (block < nb), block,
+                            torch.full_like(block, nb))
+        page = torch.gather(tables.long(), 1, block)
+        off = torch.where(live, positions % ptok,
+                          torch.zeros_like(positions))
+        pool.index_put_((page, off), rows.to(pool.dtype))
+        return pool
+
+    def _paged_update(self, k, v, k_pool, v_pool, k_scale, v_scale,
+                      tables, positions, live):
+        """This window's K and V written through the tables, quantized
+        on the write where scale pools ride along (a scale row shares
+        its data row's page, offset and trash)."""
+        if k_scale is not None:
+            k, ks = self._kv_quantize(k)
+            v, vs = self._kv_quantize(v)
+            k_scale = self._paged_write(k_scale, ks, tables, positions,
+                                        live)
+            v_scale = self._paged_write(v_scale, vs, tables, positions,
+                                        live)
+        k_pool = self._paged_write(k_pool, k, tables, positions, live)
+        v_pool = self._paged_write(v_pool, v, tables, positions, live)
+        return k_pool, v_pool, k_scale, v_scale
+
+    def _paged(self, x, k_pool, v_pool, tables, positions, live, weights,
+               k_scale, v_scale):
+        w_qkv, b_qkv, w_out, b_out = weights
+        q, k, v = self._project_qkv(x, w_qkv, b_qkv)
+        k_pool, v_pool, k_scale, v_scale = self._paged_update(
+            k, v, k_pool, v_pool, k_scale, v_scale, tables, positions,
+            live)
+        o = self._paged_attend(q, k_pool, v_pool, tables, positions,
+                               k_scale, v_scale)
+        y = self._out_proj(o, w_out, b_out)
+        if k_scale is not None:
+            return y, k_pool, v_pool, k_scale, v_scale
+        return y, k_pool, v_pool
+
+    def prefill_paged(self, x, k_pool, v_pool, table, start, length,
+                      w_qkv, b_qkv, w_out, b_out, k_scale=None,
+                      v_scale=None):
+        """A prompt window through the page table: ``x`` (1, W, D) the
+        features of positions ``start..start+W-1`` (right-padded past
+        ``length`` real tokens; ``start`` and ``length`` 0-dim device
+        tensors), ``table`` (nb+1,) the sequence's block row.  Writes
+        the window's K and V, attends each position over the cached
+        prefix and the window (``<= q_pos``); returns ``(y, k_pool,
+        v_pool[, k_scale, v_scale])``, the pools written in place.  At
+        ``start > 0`` (the tail after a prefix-cache hit) the shared
+        pages below ``start`` are read, never written."""
+        idx = torch.arange(x.shape[1], device=x.device)
+        positions = (start.long() + idx)[None, :]
+        live = (idx < length)[None, :]
+        return self._paged(x, k_pool, v_pool, table[None, :], positions,
+                           live, (w_qkv, b_qkv, w_out, b_out), k_scale,
+                           v_scale)
+
+    def decode_step_paged(self, x, k_pool, v_pool, tables, pos, w_qkv,
+                          b_qkv, w_out, b_out, k_scale=None, v_scale=None):
+        """One token a lane through the page table: ``x`` (B, 1, D),
+        ``tables`` (B, nb+1), ``pos`` (B,) (a padded lane carries the
+        trash table and writes there)."""
+        positions = pos.long()[:, None]
+        live = torch.ones_like(positions, dtype=torch.bool)
+        return self._paged(x, k_pool, v_pool, tables, positions, live,
+                           (w_qkv, b_qkv, w_out, b_out), k_scale, v_scale)
+
+    def window_paged(self, x, k_pool, v_pool, tables, pos, lengths, w_qkv,
+                     b_qkv, w_out, b_out, k_scale=None, v_scale=None):
+        """A multi-token window a lane through the page table, in one
+        forward: speculative verification (the last accepted token and
+        the drafts, ``lengths`` K+1) and the batched tail prefill
+        (ragged ``lengths``).  ``x`` (B, W, D) starts at ``pos`` (B,);
+        positions past ``lengths`` write into the trash page."""
+        idx = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = pos.long()[:, None] + idx
+        live = idx < lengths.long()[:, None]
+        return self._paged(x, k_pool, v_pool, tables, positions, live,
+                           (w_qkv, b_qkv, w_out, b_out), k_scale, v_scale)
 
 
 class GDMultiHeadAttention(GradientDescentBase):

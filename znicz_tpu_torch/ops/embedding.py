@@ -27,7 +27,12 @@ On the numpy oracle the pair is the reference's numpy path: the rounded
 and clipped ids index the table, and the backward adds the error rows
 with ``np.add.at``.
 
-The decode gather (``xla_embed``) belongs to the decode slice.
+:meth:`Embedding.embed` is the decode gather (the reference's
+``xla_embed``): a pure function of the table and the ids, under the same
+rounding and clipping as :meth:`Embedding.tokens`, so an id a decoder
+feeds back reads the row training read.  The clip also keeps every
+gather index inside the table, where CUDA would otherwise stop on a
+device-side assert.
 """
 
 from __future__ import annotations
@@ -97,6 +102,11 @@ class Embedding(Forward):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.weights[self.tokens(x)].to(self.output_store_dtype)
+
+    def embed(self, w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of the table ``w`` at token ids of any shape: shape
+        ``ids.shape + (D,)``, ``w``'s dtype."""
+        return w[self.tokens(ids)]
 
     def tokens_np(self, x: np.ndarray) -> np.ndarray:
         """:meth:`tokens` in numpy (the reference's ``_tokens``)."""

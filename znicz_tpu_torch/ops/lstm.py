@@ -30,8 +30,12 @@ On the numpy oracle the pair is the reference's numpy path: the
 forward an explicit loop, the backward explicit backpropagation through
 time (the gates' derivatives written out).
 
-The decode entry points (``xla_prefill``, ``xla_decode_step``) belong to
-the decode slice.
+The decode entry points are :meth:`LSTM.prefill`, the scan over a
+right-padded prompt that also gives the final carries (a step at
+``t >= length`` holds them), and :meth:`LSTM.decode_step`, one token from
+the carries (the reference's ``xla_prefill`` and ``xla_decode_step``),
+both built on :meth:`LSTM.step`.  A decoder keeps the carries in its
+slot arrays.
 """
 
 from __future__ import annotations
@@ -113,6 +117,38 @@ class LSTM(Forward):
             h, c = self.step(x[:, t], h, c, w, b)
             hs.append(h)
         return torch.stack(hs, dim=1) if self.return_sequence else h
+
+    def prefill(self, x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None, length: torch.Tensor | None = None):
+        """The scan over a prompt with its final carries: (B, T, F) →
+        ``(y, h, c)``, h and c (B, H) f32.  ``length`` ((B,) int, on the
+        input's device) is each row's real prompt length: steps at
+        ``t >= length`` hold the carries instead of folding the padding
+        in (a select on the device, no host read)."""
+        batch, steps, _ = x.shape
+        h = torch.zeros((batch, self.units), dtype=torch.float32,
+                        device=x.device)
+        c = h
+        hs = []
+        for t in range(steps):
+            h_new, c_new = self.step(x[:, t].float(), h, c, w, b)
+            if length is not None:
+                live = (length > t)[:, None]
+                h_new = torch.where(live, h_new, h)
+                c_new = torch.where(live, c_new, c)
+            h, c = h_new, c_new
+            hs.append(h)
+        y = torch.stack(hs, dim=1) if self.return_sequence else h
+        return y, h, c
+
+    def decode_step(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                    w: torch.Tensor, b: torch.Tensor | None):
+        """One token from the carries: (B, F) or (B, 1, F) input, (B, H)
+        carries → ``(y, h, c)`` with ``y`` the new h."""
+        if x.dim() == 3:
+            x = x.reshape(x.shape[0], -1)
+        h, c = self.step(x.float(), h, c, w, b)
+        return h, h, c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.scan(x, self.weights,

@@ -12,8 +12,10 @@ identity.
 On the numpy oracle the add is the reference's numpy path (f32 input
 plus the host table).
 
-The decode step (``xla_decode_step``) belongs to the decode slice;
-:meth:`PositionalEncoding.table_to`, the table to any horizon, is here.
+:meth:`PositionalEncoding.table_to` builds the table to any horizon (a
+decoder extends it to twice its ``max_t``), and
+:meth:`PositionalEncoding.decode_step` adds one row of it a lane at
+ragged positions (the reference's ``xla_decode_step``).
 """
 
 from __future__ import annotations
@@ -66,6 +68,16 @@ class PositionalEncoding(Forward):
         """The scaled (t, D) table to any horizon (positions are global
         indices, so a decoder extends the training table unchanged)."""
         return self.scale * sinusoid_table(t, d)
+
+    def decode_step(self, x: torch.Tensor, pos: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+        """``x + table[pos]`` for one token a lane: (B, 1, D) features,
+        (B,) positions, a (rows, D) f32 table → (B, 1, D) f32.  A
+        position past the table reads its last row, as the reference's
+        gather clamps (the decoder's table is twice its horizon, so none
+        does)."""
+        rows = pos.long().clamp(0, table.shape[0] - 1)
+        return x.float() + table[rows][:, None, :]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         table = self._table

@@ -1,5 +1,6 @@
-"""One-shot serving: the bucket ladder, the continuous batcher, the engine
-over them and int8 weight quantization (port of
+"""Serving: the bucket ladder, the continuous batcher, the one-shot engine
+over them, int8 weight quantization, and decode (KV caches, the
+prefill/decode programs and the token-batching engine) (port of
 ``znicz_tpu/serving``)."""
 
 from znicz_tpu_torch.serving.batcher import (  # noqa: F401
@@ -8,3 +9,6 @@ from znicz_tpu_torch.serving.batcher import (  # noqa: F401
 from znicz_tpu_torch.serving.buckets import bucket_for, ladder  # noqa: F401
 from znicz_tpu_torch.serving.engine import (  # noqa: F401
     ServingEngine, resolve_swap_state)
+from znicz_tpu_torch.serving.decode import (  # noqa: F401
+    DecodeEngine, DecodeModel, KVCache, PagedKVCache, PoolExhausted,
+    PrefixCache)
