@@ -292,8 +292,26 @@ Phases (any failure raises and exits non-zero):
    (tokens other than a fresh engine's on the new weights), a swap that
    rebinds a weight (and a cache rebound at the model), each refused.
    Decode launches none of B1–B9: its path's counts are all 0.
+16. parallelism: (a) ``Launcher()`` through the env contract
+   (``ZNICZ_COORDINATOR`` on a free port, one process) starts an NCCL
+   world of one and gives the card with a (data 1, model 1) mesh; the
+   sequence stack of phase 4 trains graphed on it, its gradient fold and
+   the evaluator's sums all-reduces captured in the step's graph, held
+   to the one-process graphed step (expected bit-equal), timed in turns
+   beside it (ratio printed), the group's backend ``nccl`` and NCCL in
+   a profiler window; (b) the ring fold (``LocalRing``, 4 members of 512
+   rows in one process) at the stack's attention, (16, 2048, 8, 64), in
+   bf16 and f32, non-causal and causal: 16 hops of B7 forward and 16 of
+   B8 and of B9 backward, counted, the output and dq, dk, dv held to one
+   whole-sequence B7/B8/B9 call and to the same fold on the plain
+   versions (``RING_TOL``), timed beside the whole-sequence call, and a
+   remote hop's key offset planted one tile off caught; (c)
+   ``run_pipelined(2 stages, M = 4)`` of the stack graphed (one graph an
+   op, 16 captures) against ``run_accumulated(4)`` graphed on the same
+   data, expected bit-equal, with the measured bubble and both arms'
+   peak device memory.
 
-Each path of phases 3–15 runs with every launch counter set to 0 just
+Each path of phases 3–16 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -923,6 +941,9 @@ LN_SUM_TOL = 1e-5
 #: replay's opening kernels (``tools/profile_window_probe.py`` counts
 #: such windows with and without the margin)
 PROFILE_MARGIN_S = 0.05
+#: profiler windows at most for one reading of the launches, each one
+#: repeated only when the profiler lost a record (see above)
+PROFILE_TRIES = 3
 
 
 def kernel_split_ms(fn, calls: int, names) -> dict:
@@ -1598,13 +1619,21 @@ def wrapper_launches() -> dict:
 
 
 def expect_device_launches(prof, before: dict, window: str,
-                           no_kernels: bool = False) -> None:
+                           no_kernels: bool = False,
+                           last_try: bool = True) -> bool:
     """What the wrappers counted since ``before`` against the kernels the
     profiler saw run on the card in the same window, by name: equal for
     every wrapper.  On a graphed path the counts are the replay
     accounting (what a capture counted, once a replay), so this shows
     that the captured kernels ran on every replay.  With ``no_kernels``
-    (a path that runs none, the autoencoder's) both must be empty."""
+    (a path that runs none, the autoencoder's) both must be empty.
+
+    The profiler can lose a kernel's record (once it saw 2 of 3 replays'
+    flash forward and every other kernel of the same replays).  So when
+    the only disagreement is the profiler seeing fewer than counted and
+    this is not the ``last_try``, it returns False for the caller to
+    repeat the window; a replay that really skips a kernel skips it in
+    every window.  Any other disagreement raises at once."""
     from torch.autograd import DeviceType
     ran = dict.fromkeys(DEVICE_KERNELS, 0)
     for e in prof.key_averages():
@@ -1619,9 +1648,15 @@ def expect_device_launches(prof, before: dict, window: str,
             if counted[name] or ran[name]}
     say(f"  {window}: kernel launches counted by the wrappers (× kernels a "
         f"call) against those the profiler saw run: {seen}")
-    if any(c != r for c, r in seen.values()) or bool(seen) == no_kernels:
-        raise AssertionError(f"{window}: the counted launches are not the "
-                             f"kernels that ran: {seen}")
+    if not any(c != r for c, r in seen.values()) \
+            and bool(seen) != no_kernels:
+        return True
+    if not last_try and all(c >= r for c, r in seen.values()):
+        say(f"  {window}: the profiler saw fewer kernels than were "
+            f"counted; the window is repeated")
+        return False
+    raise AssertionError(f"{window}: the counted launches are not the "
+                         f"kernels that ran: {seen}")
 
 
 def reset_counts() -> None:
@@ -1823,10 +1858,11 @@ def serve_slice(path: str, kernels, card: str) -> dict:
 # phase 4: the training slice at full width
 # ----------------------------------------------------------------------
 def make_trainer(x, y, batch: int, device=None, precision: str = "bfloat16",
-                 heads: int = HEADS):
+                 heads: int = HEADS, seq_parallel: bool = False):
     """The seq_bench stack through the port's ``StandardWorkflow``:
-    attention (``heads`` heads) → layer_norm → softmax, momentum SGD on
-    every layer, train samples only."""
+    attention (``heads`` heads; over the ring with ``seq_parallel``) →
+    layer_norm → softmax, momentum SGD on every layer, train samples
+    only."""
     from znicz_tpu_torch.loader.fullbatch import ArrayLoader
     from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
     from znicz_tpu_torch.utils import prng
@@ -1839,7 +1875,8 @@ def make_trainer(x, y, batch: int, device=None, precision: str = "bfloat16",
         loader_factory=lambda w: ArrayLoader(
             w, train_data=x, train_labels=y, minibatch_size=batch),
         layers=[{"type": "attention",
-                 "->": {"n_heads": heads, "causal": False}, "<-": gd},
+                 "->": {"n_heads": heads, "causal": False,
+                        "seq_parallel": seq_parallel}, "<-": gd},
                 {"type": "layer_norm", "->": {}, "<-": gd},
                 {"type": "softmax", "->": {"output_sample_shape": CLASSES},
                  "<-": gd}],
@@ -1886,46 +1923,53 @@ def device_busy(wf, steps: int = 3, window: str = "",
     profiler saw no device time.  The kernels' time a step is kept in
     ``BUSY_KERNEL_MS`` for phase 8.  In the same window the wrappers'
     counts must be the hand-written kernels the profiler saw run
-    (:func:`expect_device_launches`); a ``window`` that the profiler saw
-    nothing of fails when it names a graphed path."""
+    (:func:`expect_device_launches`; a window whose profiler lost a
+    record is repeated, ``PROFILE_TRIES`` windows at most); a
+    ``window`` that the profiler saw nothing of fails when it names a
+    graphed path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    before = wrapper_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_MARGIN_S)
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            wf.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILE_MARGIN_S)
 
     def device_ms(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0)) / 1e3
 
-    # kernels only: an operator's row repeats its kernels' time, and the
-    # units' spans (``record_function`` ranges while the profiler is
-    # open) show on the device lanes as the time between their first and
-    # last kernel
-    spans = {u.name for u in wf.units}
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in spans
-               and not e.key.startswith(("workflow:", "chunk:",
-                                         "capture:"))]
-    busy_ms = sum(device_ms(e) for e in kernels)
-    if busy_ms <= 0.0:
-        say("  device busy share: not measured (the profiler saw no "
-            "device time)")
-        if "graphed" in window:
-            raise AssertionError(f"{window}: the profiler saw no kernel, "
-                                 f"so nothing shows the replays ran")
-        return None
-    expect_device_launches(prof, before, window or "profiled steps",
-                           no_kernels)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        before = wrapper_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                wf.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_MARGIN_S)
+        # kernels only: an operator's row repeats its kernels' time, and
+        # the units' spans (``record_function`` ranges while the profiler
+        # is open) show on the device lanes as the time between their
+        # first and last kernel
+        spans = {u.name for u in wf.units}
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in spans
+                   and not e.key.startswith(("workflow:", "chunk:",
+                                             "capture:"))]
+        busy_ms = sum(device_ms(e) for e in kernels)
+        if busy_ms <= 0.0:
+            say("  device busy share: not measured (the profiler saw no "
+                "device time)")
+            if "graphed" in window:
+                raise AssertionError(f"{window}: the profiler saw no "
+                                     f"kernel, so nothing shows the "
+                                     f"replays ran")
+            return None
+        if expect_device_launches(prof, before, window or "profiled steps",
+                                  no_kernels,
+                                  last_try=attempt == PROFILE_TRIES):
+            break
     top = sorted(kernels, key=device_ms, reverse=True)[:10]
     BUSY_KERNEL_MS.append(busy_ms / steps)
     say(f"  device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms over {steps} "
@@ -5940,6 +5984,345 @@ def decode_pass(card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 16: parallelism
+# ----------------------------------------------------------------------
+#: graphed train steps of the world-size-1 NCCL path and of its
+#: one-process twin, held to each other (expected bit-equal: a sum over
+#: one rank is that rank's value)
+DP_STEPS = 6
+#: the ring's members, in one process (LocalRing)
+RING_MEMBERS = 4
+#: the ring against one whole-sequence flash call, and against the same
+#: fold on the kernels' plain versions: max|ring − whole| / max|whole| of
+#: the output and of each gradient.  bf16: each hop's output and
+#: gradients are rounded to bf16 before the f32 combine, where the
+#: whole-sequence kernel rounds once (2⁻⁸ relative a rounding, a few
+#: roundings deep); f32 as phase 2's f32 tolerances
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the planted fault: a remote hop's key offset one tile (64 rows) off
+RING_FAULT_ROWS = 64
+PIPE_STAGES, PIPE_MICRO, PIPE_STEPS = 2, 4, 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def seq_data(n: int, seed: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0.0, 0.3, size=(n, SEQ, DIM))
+                         .astype(np.float32)).to(torch.bfloat16)
+    return x, rng.integers(0, CLASSES, size=n).astype(np.int32)
+
+
+def params_of(wf) -> dict:
+    return {f"{u.name}.{name}": p.detach().float().cpu().clone()
+            for u in wf.forwards for name, p in u.named_parameters()}
+
+
+def params_diff(got: dict, want: dict) -> tuple[float, str, int]:
+    """(worst ‖got − want‖ / ‖want‖, its name, tensors bit-equal)."""
+    rel = {k: norm_rel(got[k], want[k]) for k in want}
+    name = max(rel, key=rel.get)
+    return rel[name], name, sum(bool((got[k] == want[k]).all())
+                                for k in want)
+
+
+def nccl_events(prof) -> tuple[int, int]:
+    """(NCCL kernels on the card, NCCL ranges on the host) in a profiler
+    window."""
+    from torch.autograd import DeviceType
+    dev = host = 0
+    for e in prof.key_averages():
+        if "nccl" not in e.key.lower():
+            continue
+        if e.device_type == DeviceType.CUDA:
+            dev += e.count
+        else:
+            host += e.count
+    return dev, host
+
+
+def dp_nccl_pass(card: str) -> dict:
+    """(a) The sequence stack through the launcher's env contract at
+    world size 1 on NCCL: ``Launcher()`` reads ``ZNICZ_*``, starts the
+    group and gives the card with a (data 1, model 1) mesh; the step's
+    gradient fold and the evaluator's sums are all-reduces captured in
+    the step's graph.  Held to the one-process graphed step, timed in
+    turns beside it, and NCCL shown in a profiler window."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from znicz_tpu_torch.launcher import Launcher
+    from znicz_tpu_torch.parallel import distributed
+    from znicz_tpu_torch.utils.config import root
+    # the device takes the precision mode when it is made
+    root.common.precision_type = "bfloat16"
+    env = {"ZNICZ_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "ZNICZ_NUM_PROCESSES": "1", "ZNICZ_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        launcher = Launcher()
+        device = launcher.make_device()
+    finally:
+        for key in env:
+            os.environ.pop(key)
+    backend = dist.get_backend(device.group("data"))
+    say(f"  Launcher() from ZNICZ_*: mode {launcher.mode}, "
+        f"{device!r}, the data group's backend {backend}")
+    if launcher.mode != "master" or backend != "nccl" \
+            or device.mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError("dp_nccl: the env contract did not start "
+                             "an NCCL world of one")
+    x, y = seq_data(4 * BATCH, SEED + 16)
+    set_graphs(True)
+    single = make_trainer(x, y, BATCH)
+    dp = make_trainer(x, y, BATCH, device=device)
+    if dp.device.mesh is None or single.device.mesh is not None:
+        raise AssertionError("dp_nccl: the workflows' devices")
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dp.step()  # the warm-up and the capture
+        torch.cuda.synchronize()
+    captured = nccl_events(prof)
+    for _ in range(DP_STEPS - 1):
+        dp.step()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expect_counts("dp_nccl", launches, {
+        **{f"flash_attention_{k}": DP_STEPS for k in ("fwd", "dq", "dkv")},
+        "layer_norm_forward": DP_STEPS, "layer_norm_backward": DP_STEPS,
+        "softmax_argmax_small": DP_STEPS})
+    for _ in range(DP_STEPS):
+        single.step()
+    worst, name, equal = params_diff(params_of(dp), params_of(single))
+    say(f"  {DP_STEPS} graphed steps, NCCL world of one against one "
+        f"process: worst ‖dp − single‖ / ‖single‖ {worst:.3g} ({name}), "
+        f"{equal} of {len(params_of(dp))} parameters bit-equal (expected "
+        f"all; tol {GRAPH_TOL_BF16:.3g})")
+    if worst > GRAPH_TOL_BF16:
+        raise AssertionError("dp_nccl: the NCCL step leaves the "
+                             "one-process step")
+    times = {"single": [], "nccl": []}
+    for mode in ("single", "nccl", "nccl", "single"):
+        times[mode].append(timed_steps(dp if mode == "nccl" else single,
+                                       2, 10))
+    ratio = sum(times["nccl"]) / sum(times["single"])
+    say(f"  graphed step on {card}: one process "
+        f"{' / '.join(f'{v:.4f}' for v in times['single'])} ms, NCCL "
+        f"world of one {' / '.join(f'{v:.4f}' for v in times['nccl'])} "
+        f"ms, ratio {ratio:.4f}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(3):
+            dp.step()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    graphed = nccl_events(prof)
+    set_graphs(False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dp.step()
+        torch.cuda.synchronize()
+    set_graphs(True)
+    eager = nccl_events(prof)
+    # one all-reduce a parameter (the fold) and two of the evaluator's
+    # sums (its errors and its loss) a step
+    calls = len(params_of(dp)) + 2
+    say(f"  NCCL in the profiler (kernels on the card, host ranges): the "
+        f"first step, its warm-up and its capture, {captured}; 1 eager "
+        f"step {eager}; 3 graphed steps {graphed}; {calls} all-reduces a "
+        f"step (NCCL launches no kernel for an all-reduce over one rank; "
+        f"a replay calls no NCCL function)")
+    if eager[1] != calls or captured[1] != 2 * calls or graphed[1]:
+        raise AssertionError("dp_nccl: the NCCL calls of the step are not "
+                             "the captured ones")
+    device_busy(dp, window="dp_nccl graphed")
+    del dp, single
+    distributed.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ring_operands(gen, dtype):
+    import torch
+    shape = (BATCH, SEQ, HEADS, DIM // HEADS)
+    return [torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            for _ in range(4)]
+
+
+def ring_run(fold: str, causal: bool, q, k, v, do):
+    """The ring over ``RING_MEMBERS`` members in one process, forward
+    and backward through ``RingFold``: (out, dq, dk, dv), whole."""
+    import torch
+    from znicz_tpu_torch.parallel import ring_attention as ra
+    ring = ra.LocalRing(RING_MEMBERS)
+    leaves = [a.detach().chunk(RING_MEMBERS, dim=1) for a in (q, k, v)]
+    leaves = [[c.requires_grad_(True) for c in group] for group in leaves]
+    outs = ra.RingFold.apply(ring, fold, causal, *leaves[0], *leaves[1],
+                             *leaves[2])[:RING_MEMBERS]
+    torch.autograd.backward(outs, do.chunk(RING_MEMBERS, dim=1))
+    return [torch.cat(outs, dim=1).detach()] + [
+        torch.cat([c.grad for c in group], dim=1) for group in leaves]
+
+
+def ring_errs(got, want) -> dict:
+    return {key: max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+            for key, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+
+
+def ring_pass(card: str, dtype_name: str, causal: bool, gen) -> dict:
+    """(b) The ring fold at the stack's attention, (16, 2048, 8, 64),
+    over 4 members of 512 rows in one process: 16 hops of B7 forward and
+    16 of B8 and B9 backward, counted; held to one whole-sequence
+    B7/B8/B9 call and to the same fold on the plain versions; with
+    ``causal``, a remote hop's key offset planted one tile off must be
+    caught."""
+    import torch
+    from znicz_tpu_torch.ops import flash_attention as fa
+    from znicz_tpu_torch.parallel import ring_attention as ra
+    dtype = getattr(torch, dtype_name)
+    q, k, v, do = ring_operands(gen, dtype)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = ring_run("kernel", causal, q, k, v, do)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    suffix = "_f32" if dtype == torch.float32 else (
+        "_causal" if causal else "")
+    hops = RING_MEMBERS ** 2
+    path = f"ring_{dtype_name}{'_causal' if causal else ''}"
+    expect_counts(path, launches, {f"flash_attention_{k}{suffix}": hops
+                                   for k in ("fwd", "dq", "dkv")})
+    out_w, lse_w = fa.flash_attention_fwd(q, k, v, causal)
+    whole = [out_w, *fa.flash_attention_bwd(q, k, v, out_w, lse_w, do,
+                                            None, causal)]
+    plain = ring_run("plain", causal, q, k, v, do)
+    torch.cuda.synchronize()
+    tol = RING_TOL[dtype_name]
+    e_whole, e_plain = ring_errs(got, whole), ring_errs(got, plain)
+    for e in (e_whole, e_plain):
+        if max(e.values()) > tol or not all(
+                bool(torch.isfinite(t.float()).all()) for t in got):
+            raise AssertionError(f"{path}: the ring disagrees: {e} "
+                                 f"(tol {tol})")
+    ring_ms = time_ms(lambda: ring_run("kernel", causal, q, k, v, do), 3,
+                      warmup=1)
+
+    def whole_pass():
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        fa.flash_attention_bwd(q, k, v, o, lse, do, None, causal)
+
+    whole_ms = time_ms(whole_pass, 3, warmup=1)
+    say(f"  {path}: {RING_MEMBERS} members × {SEQ // RING_MEMBERS} rows, "
+        f"B7/B8/B9 {hops} hops each; against one whole-sequence call "
+        + ", ".join(f"{k} {v:.3g}" for k, v in e_whole.items())
+        + "; against the plain fold "
+        + ", ".join(f"{k} {v:.3g}" for k, v in e_plain.items())
+        + f" (tol {tol} × max|ref|); forward + backward {ring_ms:.3f} ms "
+        f"on {card}, one whole-sequence call {whole_ms:.3f} ms")
+    if causal:
+        kernels = ra._FNS["kernel"]
+
+        def shifted(q_, k_, v_, causal_, q_off, k_off):
+            if k_off != q_off:
+                k_off += RING_FAULT_ROWS
+            return kernels[0](q_, k_, v_, causal_, q_off, k_off)
+
+        ra._FNS["kernel"] = (shifted, *kernels[1:])
+        try:
+            bad = ring_run("kernel", causal, q, k, v, do)
+        finally:
+            ra._FNS["kernel"] = kernels
+        err = ring_errs(bad, whole)["out"]
+        say(f"  planted fault (a remote hop's keys {RING_FAULT_ROWS} rows "
+            f"off): out {err:.3g}: "
+            f"{'caught' if err > tol else 'not caught'}")
+        if err <= tol:
+            raise AssertionError(f"{path}: the check passes a planted "
+                                 f"fault")
+    del q, k, v, do, got, whole, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_pass(card: str) -> dict:
+    """(c) ``run_pipelined(2 stages, M = 4)`` of the sequence stack,
+    graphed (one graph an op: 2 · K · M captures), against
+    ``run_accumulated(4)`` graphed on the same data, from one seed, for
+    ``PIPE_STEPS`` optimizer steps: the same kernels on the same
+    microbatches in the same order, expected bit-equal; the captures,
+    the measured bubble and each arm's peak device memory."""
+    import torch
+    from znicz_tpu_torch.parallel.pipeline import bubble_fraction
+    from znicz_tpu_torch.utils.config import root
+    x, y = seq_data(PIPE_STEPS * PIPE_MICRO * BATCH, SEED + 17)
+    set_graphs(True)
+    arms = {}
+    for arm in ("accumulated", "pipelined"):
+        root.common.engine.grad_accum = PIPE_MICRO
+        wf = make_trainer(x, y, BATCH)
+        wf.decision.max_epochs = 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        if arm == "pipelined":
+            wf.run_pipelined(PIPE_STAGES, PIPE_MICRO)
+        else:
+            wf.run_accumulated(PIPE_MICRO)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        arms[arm] = {"params": params_of(wf), "launches": launches,
+                     "mem": torch.cuda.max_memory_allocated(),
+                     "wall": wall, "wf": wf}
+        n = PIPE_STEPS * PIPE_MICRO
+        expect_counts(f"pipeline_{arm}", launches, {
+            **{f"flash_attention_{k}": n for k in ("fwd", "dq", "dkv")},
+            "layer_norm_forward": n, "layer_norm_backward": n,
+            "softmax_argmax_small": n})
+    root.common.engine.grad_accum = 1
+    pipe = arms["pipelined"]["wf"]._pipeline
+    if pipe.captures != 2 * PIPE_STAGES * PIPE_MICRO:
+        raise AssertionError(f"pipeline: {pipe.captures} captures")
+    worst, name, equal = params_diff(arms["pipelined"]["params"],
+                                     arms["accumulated"]["params"])
+    say(f"  run_pipelined({PIPE_STAGES} stages, M={PIPE_MICRO}) against "
+        f"run_accumulated({PIPE_MICRO}), {PIPE_STEPS} optimizer steps of "
+        f"{PIPE_MICRO} × {BATCH} rows, graphed on {card}: worst "
+        f"‖pipe − accum‖ / ‖accum‖ {worst:.3g} ({name}), {equal} of "
+        f"{len(arms['pipelined']['params'])} parameters bit-equal "
+        f"(expected all; tol {GRAPH_TOL_BF16:.3g}); {pipe.captures} "
+        f"captures (one an op); last step makespan "
+        f"{1e3 * pipe.last_makespan:.3f} ms, bubble "
+        f"{1e3 * pipe.last_bubble_seconds:.3f} stage-ms (the model's "
+        f"fraction {bubble_fraction(PIPE_STAGES, PIPE_MICRO):.3f} of "
+        f"{PIPE_STAGES} × makespan: "
+        f"{pipe.last_bubble_seconds / (PIPE_STAGES * pipe.last_makespan):.3f}"
+        f" measured); peak device memory "
+        f"{arms['pipelined']['mem'] / 2 ** 30:.2f} GiB pipelined, "
+        f"{arms['accumulated']['mem'] / 2 ** 30:.2f} GiB accumulated; "
+        f"wall {arms['pipelined']['wall']:.2f} s / "
+        f"{arms['accumulated']['wall']:.2f} s (captures included)")
+    if worst > GRAPH_TOL_BF16:
+        raise AssertionError("pipeline: the pipelined run leaves the "
+                             "accumulated one")
+    launches = arms["pipelined"]["launches"]
+    del arms, pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6122,6 +6505,17 @@ def main() -> int:
     t15 = time.perf_counter()
     paths["decode"] = decode_pass(smi)
     say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    say("phase 16: parallelism — the NCCL world of one through the "
+        "launcher, the ring fold at full width, the temporal pipeline")
+    t16 = time.perf_counter()
+    paths["dp_nccl"] = dp_nccl_pass(smi)
+    for dtype_name in ("bfloat16", "float32"):
+        for causal in (False, True):
+            paths[f"ring_{dtype_name}{'_causal' if causal else ''}"] = \
+                ring_pass(smi, dtype_name, causal, gen)
+    paths["pipeline"] = pipeline_pass(smi)
+    say(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -8,8 +8,9 @@ and trained on the card by ``chip_smoke.py``.  Beyond the reference's
 tests: a run resumed from a snapshot ends bit-equal to the run that was
 never interrupted (parameters, momentum, loader, decision and evaluator
 state), every flag of the reference's parser the port has not ported
-raises naming its ROADMAP item, and with no ``-b`` and no GPU the CLI
-raises instead of falling back to the CPU.
+raises naming its ROADMAP item, the multi-process flags act as the
+reference's launcher does given the same request, and with no ``-b``
+and no GPU the CLI raises instead of falling back to the CPU.
 """
 
 import glob
@@ -258,16 +259,63 @@ def test_sigint_writes_the_emergency_snapshot_and_stops(tmp_path,
 def test_listen_master_exclusive():
     with pytest.raises(ValueError):
         Launcher(listen="h:1", master="h:2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # a coordinator without the process count cannot start a group
+    # (torch.distributed needs the world size); nothing is started
+    with pytest.raises(ValueError, match="process count"):
         Launcher(listen="h:1")
 
 
+def _reference_launcher(**kwargs):
+    from znicz_tpu.launcher import Launcher as RefLauncher
+    return RefLauncher(**kwargs)
+
+
+@pytest.mark.parametrize("flags,kwargs,outcome", [
+    # tensor parallelism without a process grid: both refuse it
+    (["--n-model", "2"], {"n_model": 2},
+     (ValueError, "requires distributed mode")),
+    (["--listen", "h:1", "--master", "h:2"],
+     {"listen": "h:1", "master": "h:2"}, (ValueError, "exclusive")),
+    # a process count or index without a coordinator: a standalone run
+    (["--nodes", "2"], {"n_processes": 2}, "standalone"),
+    (["--process-id", "1"], {"process_id": 1}, "standalone"),
+    # the numpy oracle cannot join a mesh: both refuse it
+    (["--master", "127.0.0.1:1", "-b", "numpy"], {"backend": "numpy"},
+     (ValueError, "numpy")),
+])
+def test_a_multi_process_flag_acts_as_in_the_reference(flags, kwargs,
+                                                       outcome):
+    """The multi-process flags, each against the reference's launcher
+    given the same request (the coordinator of the numpy case set after
+    construction, as the reference's own test does, so that neither
+    starts a group)."""
+    argv = ["attention_seq", *flags, "--root", "attention_seq.max_epochs=1"]
+    if "-b" not in flags:
+        argv += ["-b", "cpu"]
+    if outcome == "standalone":
+        main = Main()
+        assert main.run(argv) == 0
+        assert main.launcher.mode == "standalone"
+        assert main.launcher.workflow.decision.complete
+        assert _reference_launcher(**kwargs).mode == "standalone"
+        return
+    exc, match = outcome
+    with pytest.raises(exc, match=match):
+        Main().run(argv)
+    ref = _reference_launcher(**{k: v for k, v in kwargs.items()
+                                 if k not in ("listen", "master")}) \
+        if "listen" not in kwargs else None
+    if ref is None:
+        with pytest.raises(exc, match=match):
+            _reference_launcher(**kwargs)
+        return
+    if kwargs.get("backend") == "numpy":
+        ref.coordinator = "127.0.0.1:1"
+    with pytest.raises(exc, match=match):
+        ref.make_device()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--listen", "localhost:1234"], "A9"),
-    (["--master", "localhost:1234"], "A9"),
-    (["--nodes", "2"], "A9"),
-    (["--process-id", "1"], "A9"),
-    (["--n-model", "2"], "A9"),
     (["--optimize", "2x4"], "A13"),
     (["--root", "attention_seq.learning_rate=Tune(0.1, 0.01, 1.0)"], "A13"),
     (["--web-status", "0"], "A12"),

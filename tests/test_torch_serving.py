@@ -315,16 +315,23 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "znicz_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("*.py"))  # the port's A/B tools
+    # the spawned ranks of the parallel tests run these alone
+    files += [REPO / "tests" / "torch_parallel_worker.py",
+              REPO / "tests" / "torch_dist_workflow.py"]
     assert len(files) > 10
     # the sequence units of the token LM among them, the RBM, the SOM
     # and the cutter, the fault plan, the flight recorder and the
-    # quantizer (host-only modules the port copies), and decode
+    # quantizer (host-only modules the port copies), decode, and the
+    # parallel package (its host-only code copied too)
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
-                                "decode")} \
+                                "decode", "axis", "distributed", "mesh",
+                                "partition", "process_shard",
+                                "ring_attention", "pipeline")} \
         <= {p.name for p in files}
     assert REPO / "znicz_tpu_torch" / "serving" / "decode.py" in files
+    assert REPO / "znicz_tpu_torch" / "parallel" / "partition.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

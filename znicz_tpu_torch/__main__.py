@@ -23,8 +23,17 @@ there is none), ``cpu`` or ``numpy`` (the numpy oracle: every unit's
 of the step's CUDA graph).  ``--dump-graph FILE`` builds and
 initializes the workflow on the device, writes its unit graph as
 Graphviz DOT (the ``train_region`` unit included) and exits without
-training.  The reference's multi-process, search and dashboard flags
-are in the parser and raise, naming the ROADMAP item that ports them.
+training.  ``--listen HOST:PORT`` (process 0) or ``--master HOST:PORT``
+(the others), with ``--nodes N`` and ``--process-id I``, train one
+workflow over N processes (one card each under NCCL, or gloo ranks with
+``-b cpu``), the reference's distributed mode; ``--n-model M`` splits
+the model-parallel layers over M of them::
+
+    python -m znicz_tpu_torch wine -b cpu --listen 127.0.0.1:29500 --nodes 2 --process-id 0
+    python -m znicz_tpu_torch wine -b cpu --master 127.0.0.1:29500 --nodes 2 --process-id 1
+
+The reference's search and dashboard flags are in the parser and raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -47,11 +56,6 @@ SAMPLES_PACKAGE = "znicz_tpu_torch.models.samples"
 #: flags of the reference's parser the port has not ported: attribute →
 #: (flag, what it does, the ROADMAP item that ports it)
 UNPORTED_FLAGS = {
-    "listen": ("--listen", "multi-process training", "A9"),
-    "master": ("--master", "multi-process training", "A9"),
-    "nodes": ("--nodes", "multi-process training", "A9"),
-    "process_id": ("--process-id", "multi-process training", "A9"),
-    "n_model": ("--n-model", "tensor parallelism", "A9"),
     "optimize": ("--optimize", "the genetic hyper-parameter search", "A13"),
     "web_status": ("--web-status", "the web status page", "A12"),
 }
@@ -123,13 +127,14 @@ def make_parser() -> argparse.ArgumentParser:
                    help="device (default: the card, an error without "
                         "one; numpy: the numpy oracle)")
     p.add_argument("-l", "--listen", metavar="HOST:PORT",
-                   help="coordinate a multi-process run (not ported)")
+                   help="coordinate a multi-process run (process 0; the "
+                        "reference's master --listen)")
     p.add_argument("-m", "--master", metavar="HOST:PORT",
-                   help="join a multi-process run (not ported)")
-    p.add_argument("--nodes", type=int,
-                   help="total process count (not ported)")
+                   help="join a multi-process run (the reference's slave "
+                        "--master)")
+    p.add_argument("--nodes", type=int, help="total process count")
     p.add_argument("--process-id", type=int,
-                   help="this process's index (not ported)")
+                   help="this process's index")
     p.add_argument("--retries", type=int, default=0,
                    help="auto-resume attempts after a crash")
     p.add_argument("--seed", type=int, help="override root.common.seed")
@@ -146,8 +151,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, metavar="N",
                    help="train N steps per region dispatch "
                         "(StandardWorkflow.run_chunked)")
-    p.add_argument("--n-model", type=int, metavar="M",
-                   help="model-axis size (not ported)")
+    p.add_argument("--n-model", type=int, default=1, metavar="M",
+                   help="model-axis size of the process grid (tensor "
+                        "parallelism: layers with model_parallel="
+                        "'column'/'row' split over it; requires "
+                        "--listen/--master)")
     p.add_argument("--dump-graph", metavar="FILE",
                    help="initialize the workflow, write its unit graph as "
                         "Graphviz DOT and exit")
@@ -193,7 +201,11 @@ class Main(Logger):
                        module.__name__)
             return 1
         launcher = Launcher(backend=args.backend, snapshot=args.snapshot,
-                            retries=args.retries, chunk=args.chunk)
+                            retries=args.retries, chunk=args.chunk,
+                            listen=args.listen, master=args.master,
+                            n_processes=args.nodes,
+                            process_id=args.process_id,
+                            n_model=args.n_model)
         self.launcher = launcher  # for tests and embedding callers
         if args.dry_run or args.dump_graph:
             def initialize_only(**kwargs):
@@ -209,12 +221,14 @@ class Main(Logger):
                 with open(args.dump_graph, "w") as f:
                     f.write(launcher.workflow.generate_graph())
                 self.info("graph → %s", args.dump_graph)
+            launcher.shutdown()
             return 0
         try:
             launcher.boot(run_fn)
         except KeyboardInterrupt:
             self.warning("interrupted")
             return 130
+        launcher.shutdown()
         return 0
 
 

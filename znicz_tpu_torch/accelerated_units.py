@@ -23,6 +23,10 @@
 - :meth:`JitRegion.run_accum` runs one optimizer step over M
   microbatches: M − 1 replays of an accumulate-only graph, then one of
   an apply graph (:func:`current_accum_phase`).
+- a step runs under the data axis of its device's mesh
+  (:func:`~znicz_tpu_torch.parallel.axis.data_axis`), so the backward
+  units' gradient fold is an all-reduce over it, captured into the
+  step's graph with the kernels (NCCL on the card);
 - :class:`RegionUnit` puts a region into the workflow's graph and
   :class:`AcceleratedWorkflow` owns the device.  On the numpy oracle
   (:class:`~znicz_tpu_torch.backends.NumpyDevice`) there is no region:
@@ -85,6 +89,7 @@ from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.observe import tracing as _tracing
 from znicz_tpu_torch.ops import launch_counts
 from znicz_tpu_torch.ops.fp8 import fp8_dot, fp8_enabled
+from znicz_tpu_torch.parallel.axis import DATA_AXIS, data_axis
 from znicz_tpu_torch.units import Unit
 from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.logger import Logger
@@ -166,6 +171,11 @@ class AcceleratedUnit(Unit):
     #: the attributes a step of the unit writes, whose floating tensors
     #: (or arrays, on the numpy oracle) ``engine.debug_checks`` checks
     WRITES: tuple = ()
+    #: False for a unit whose step is wrong on a block of a minibatch's
+    #: rows (a data axis of 2 or more): its ``initialize`` raises there,
+    #: naming :attr:`DATA_PARALLEL_NOTE`, rather than train replicas
+    DATA_PARALLEL = True
+    DATA_PARALLEL_NOTE = ""
 
     def __init__(self, workflow=None, name: str | None = None,
                  **kwargs) -> None:
@@ -181,6 +191,11 @@ class AcceleratedUnit(Unit):
         if device is None:
             raise ValueError(f"{self}: no device supplied")
         self.device = Device.create(device)
+        if self.device.n_data_shards > 1 and not self.DATA_PARALLEL:
+            raise ValueError(
+                f"{self}: {type(self).__name__} does not run over a data "
+                f"axis of {self.device.n_data_shards} yet "
+                f"({self.DATA_PARALLEL_NOTE}); train it on one device")
         super().initialize(**kwargs)
 
     @property
@@ -414,6 +429,9 @@ class JitRegion(Logger):
         #: ``mark(unit_name)``, when set, is called after each member's
         #: work and the step runs eagerly (per-unit timing)
         self.mark = None
+        #: run with autograd on even when no member is a backward unit
+        #: (a pipeline stage's forward, whose backward is another region)
+        self.force_grad = False
         #: ``engine.debug_checks``: the NaN flags (bool, on the device)
         #: and, by member, the slot of each tensor it may write
         self._flags: torch.Tensor | None = None
@@ -430,6 +448,10 @@ class JitRegion(Logger):
     def captures(self) -> int:
         """Graphs captured so far (one per key seen)."""
         return len(self._cache)
+
+    def release(self) -> None:
+        """Drop the captured graphs; a later step captures again."""
+        self._cache.clear()
 
     def _collect_vectors(self) -> list[Vector]:
         seen: dict[int, Vector] = {}
@@ -489,12 +511,14 @@ class JitRegion(Logger):
 
     def _run_members(self, skips, capture: bool = False,
                      checks: bool = False) -> None:
-        grad = any(unit.NEEDS_AUTOGRAD and not skip
-                   for unit, skip in zip(self.units, skips))
+        grad = self.force_grad or any(
+            unit.NEEDS_AUTOGRAD and not skip
+            for unit, skip in zip(self.units, skips))
         mark = self.mark
         if checks:
             self._flags.zero_()
-        with torch.set_grad_enabled(grad):
+        with torch.set_grad_enabled(grad), \
+                data_axis(self.device.group(DATA_AXIS)):
             for index, (unit, skip) in enumerate(zip(self.units, skips)):
                 if skip:
                     continue
@@ -723,14 +747,28 @@ class RegionUnit(AcceleratedUnit):
 
 class AcceleratedWorkflow(Workflow):
     """A workflow that owns a device (``Device.create``: the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU) and its partition-rule table
+    (:class:`~znicz_tpu_torch.parallel.partition.PartitionTable`)."""
 
     def __init__(self, workflow=None, name: str | None = None,
                  **kwargs) -> None:
+        from znicz_tpu_torch.parallel.partition import PartitionTable
         super().__init__(workflow, name=name, **kwargs)
         self.device: Device | None = None
+        self.partition = PartitionTable(self.name)
 
     def initialize(self, device=None, **kwargs) -> None:
         self.device = Device.create(device)
         super().initialize(device=self.device, **kwargs)
+
+    def release_graphs(self) -> None:
+        """Destroy every CUDA graph the workflow's regions captured (a
+        later step captures again).  NCCL does not destroy a
+        communicator while a graph holding its collectives lives, so a
+        process group's teardown comes after this."""
+        for unit in self.units:
+            region = getattr(unit, "region", None)
+            if isinstance(region, JitRegion):
+                region.release()
+        gc.collect()
 

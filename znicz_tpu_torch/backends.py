@@ -14,8 +14,16 @@ oracle: every unit's ``numpy_run``, numpy only, f32 whatever
 ``precision_type`` says); each moves
 :class:`~znicz_tpu_torch.memory.Vector` contents with :meth:`Device.put`
 and :meth:`Device.get` and waits for queued work with
-:meth:`Device.sync`.  Sharding over several cards waits for the
-parallel slice (ROADMAP A9).
+:meth:`Device.sync`.
+
+A :class:`CudaDevice` or :class:`CpuDevice` made with ``mesh=`` (a
+:class:`~znicz_tpu_torch.parallel.mesh.Mesh`, the counterpart of the
+reference's ``XLADevice(mesh=…)``) is this process's device in a
+multi-process run: one card a process under NCCL, or a CPU rank under
+gloo.  Every process holds the whole of each replicated tensor and its
+own rows of each minibatch (:attr:`Device.n_data_shards` of them, at
+:attr:`Device.data_rank`); the units write the collectives out over
+the mesh's process groups.
 
 Numerics stated here, once for the whole package: a float32 matrix
 product stays float32 on the card (no TF32), as it is in the
@@ -91,11 +99,38 @@ class Device:
     #: buffer
     is_host_only = False
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, mesh=None) -> None:
         self.torch_device = device
         self.compute_dtype = torch_dtype(
             root.common.get("precision_type", "float32"))
         self.precision_level = int(root.common.get("precision_level", 0))
+        #: this process's place in a multi-process grid, or None
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type} mesh on a "
+                             f"{device.type} device")
+
+    # -- the mesh -----------------------------------------------------------
+    @property
+    def n_data_shards(self) -> int:
+        """Processes a minibatch's rows are split over (1 without a
+        mesh)."""
+        return 1 if self.mesh is None else self.mesh.size("data")
+
+    #: the reference's name for the data-axis size
+    n_data = n_data_shards
+
+    @property
+    def data_rank(self) -> int:
+        """This process's block of a minibatch's rows."""
+        return 0 if self.mesh is None else self.mesh.index("data")
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None without a mesh)."""
+        return None if self.mesh is None else self.mesh.group(axis)
+
+    def axis_size(self, axis: str) -> int:
+        return 1 if self.mesh is None else self.mesh.size(axis)
 
     @staticmethod
     def create(backend: str | None = None) -> "Device":
@@ -118,7 +153,8 @@ class Device:
         return str(self.torch_device)
 
     def __repr__(self) -> str:
-        return f"{type(self).__name__}({self.torch_device})"
+        mesh = "" if self.mesh is None else f", mesh={self.mesh.shape}"
+        return f"{type(self).__name__}({self.torch_device}{mesh})"
 
     # -- the transfers Vector makes ---------------------------------------
     def put(self, arr: np.ndarray) -> torch.Tensor:
@@ -165,6 +201,10 @@ class NumpyDevice(Device):
     backend = "numpy"
     is_host_only = True
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, mesh=None) -> None:
+        if mesh is not None:
+            raise ValueError(
+                "the numpy oracle cannot join a device mesh (each process "
+                "would silently train an independent replica)")
         super().__init__(device)
         self.compute_dtype = torch.float32

@@ -161,7 +161,10 @@ def export_forward(workflow, path: str) -> str:
     has, input geometry, the precision mode it trained under, ``kind``
     "lm" with its ``sequence`` block or "scorer") beside the f32
     ``layer{i}_{attr}`` arrays in one compressed ``.npz``, written to a
-    temporary file and renamed into place.  Returns the path."""
+    temporary file and renamed into place.  Under tensor parallelism the
+    parameters are gathered from their blocks first (a collective every
+    process joins) and process 0 writes.  Returns the path."""
+    from znicz_tpu_torch.parallel.distributed import process_info
     layers = []
     for spec, unit in zip(workflow.layers_config, workflow.forwards):
         params = unit.param_shapes()
@@ -186,11 +189,14 @@ def export_forward(workflow, path: str) -> str:
     manifest["kind"] = "scorer" if seq is None else "lm"
     if seq is not None:
         manifest["sequence"] = seq
-    arrays = {f"layer{i}_{attr}": getattr(unit, attr).detach().float()
-              .cpu().numpy()
-              for i, unit in enumerate(workflow.forwards)
-              for attr in unit.EXPORT_PARAMS if hasattr(unit, attr)}
-    _write_bundle(path, manifest, arrays)
+    # a parameter held in blocks over processes (tensor parallelism) is
+    # gathered (every process calls this in lockstep); process 0 writes
+    arrays = {f"layer{i}_{attr}": unit.full_tensor(
+        attr, getattr(unit, attr)).detach().float().cpu().numpy()
+        for i, unit in enumerate(workflow.forwards)
+        for attr in unit.EXPORT_PARAMS if hasattr(unit, attr)}
+    if process_info()[0] == 0:
+        _write_bundle(path, manifest, arrays)
     return path
 
 

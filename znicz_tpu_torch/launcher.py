@@ -1,5 +1,5 @@
 """Launcher: owns the workflow's life from construction to the end of
-training (port of ``znicz_tpu/launcher.py``, one process).
+training (port of ``znicz_tpu/launcher.py``).
 
 The reference's sample protocol is kept: every sample module exposes
 ``run(load, main)``; :meth:`Launcher.boot` calls it with
@@ -21,10 +21,21 @@ workflow on the device, loads the staged state and trains it.
   then stop the workflow at the next step boundary; a second signal
   interrupts at once.
 
-Not ported yet: the multi-process modes (``listen``, ``master``,
-``n_processes``, ``process_id``, ``n_model``: ROADMAP A9), the graphics
-server, the web status page and the worker supervisor (A12, A13).  The
-first raise :class:`NotImplementedError`; the others are not offered.
+- multi-process (the reference's distributed mode): ``listen``
+  (process 0, the master) or ``master`` (every other process) names the
+  coordinator ``host:port``, with ``n_processes`` and ``process_id``;
+  or the environment contract of
+  :mod:`~znicz_tpu_torch.parallel.distributed` gives all three.  Each
+  process starts ``torch.distributed`` (NCCL on the card, one card a
+  process; gloo with ``backend="cpu"``) and trains over a
+  ``(data, model[, seq])`` mesh of ``n_model`` × ``n_seq`` (the rest on
+  ``data``), synchronously, as the reference's SPMD program does.  It
+  refuses what would train replicas by accident: the numpy oracle
+  cannot join a mesh, and ``n_model``/``n_seq`` > 1 needs distributed
+  mode.  Process 0 writes the snapshots; the others fence on them.
+
+Not ported yet: the graphics server, the web status page and the worker
+supervisor (A12, A13); they are not offered.
 """
 
 from __future__ import annotations
@@ -35,7 +46,10 @@ import signal
 import traceback
 from typing import Any, Callable
 
-from znicz_tpu_torch.backends import Device, resolve_device
+from znicz_tpu_torch.backends import (CpuDevice, CudaDevice, Device,
+                                      resolve_device)
+from znicz_tpu_torch.parallel import distributed
+from znicz_tpu_torch.parallel.mesh import make_mesh
 from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.logger import Logger
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
@@ -45,24 +59,18 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class Launcher(Logger):
-    """Device selection, resume and the run loop of one workflow."""
+    """Device selection, distributed bring-up, resume and the run loop
+    of one workflow."""
 
     def __init__(self, backend: str | None = None,
                  snapshot: str | None = None, retries: int = 0,
                  listen: str | None = None, master: str | None = None,
                  n_processes: int | None = None,
                  process_id: int | None = None, n_model: int = 1,
-                 chunk: int | None = None) -> None:
+                 chunk: int | None = None, n_seq: int = 1) -> None:
         super().__init__()
         if listen and master:
             raise ValueError("--listen and --master are exclusive")
-        multi = {"listen": listen, "master": master,
-                 "n_processes": n_processes, "process_id": process_id,
-                 "n_model": None if n_model == 1 else n_model}
-        given = [arg for arg, value in multi.items() if value is not None]
-        if given:
-            raise not_ported(f"Launcher({given[0]}=...): multi-process "
-                             f"training", "A9")
         if backend not in (None, "cuda", "cpu", "numpy"):
             raise ValueError(f"backend '{backend}' (cuda, cpu or numpy)")
         self.backend = backend
@@ -71,18 +79,92 @@ class Launcher(Logger):
         self.chunk = 1 if chunk is None else int(chunk)
         if self.chunk < 1:
             raise ValueError(f"chunk {chunk}: at least one step a dispatch")
+        #: model- and seq-axis sizes of the mesh (1: pure data parallel)
+        self.n_model = 1 if n_model is None else int(n_model)
+        self.n_seq = int(n_seq)
         self.workflow = None
         self.device = None
         self._snapshot_state: dict | None = None
         self._interrupted = False
         self._old_handlers: dict[int, Any] = {}
+        # distributed mode ---------------------------------------------
+        self.coordinator = listen or master
+        self.process_id = process_id
+        self.n_processes = n_processes
+        self.is_master = master is None  # standalone or the --listen one
+        if not self.coordinator:
+            spec = distributed.env_spec()
+            if spec is not None:
+                self.coordinator = spec["coordinator_address"]
+                self.n_processes = spec.get("num_processes",
+                                            self.n_processes)
+                if self.process_id is None:
+                    self.process_id = spec.get("process_id")
+        if self.coordinator:
+            if self.process_id is None and listen is not None:
+                self.process_id = 0
+            if self.backend != "numpy":
+                self._init_distributed()
+
+    @property
+    def mode(self) -> str:
+        if not self.coordinator:
+            return "standalone"
+        return "master" if self.is_master else "slave"
+
+    @property
+    def device_type(self) -> str:
+        return "cpu" if self.backend == "cpu" else "cuda"
+
+    def _init_distributed(self) -> None:
+        """``torch.distributed`` over the coordinator (the reference's
+        ``jax.distributed`` bring-up)."""
+        self.info("distributed init (%s, process %s of %s) @ %s",
+                  distributed.backend_for(self.device_type),
+                  self.process_id, self.n_processes, self.coordinator)
+        distributed.ensure_initialized(
+            coordinator=self.coordinator, num_processes=self.n_processes,
+            process_id=self.process_id, device_type=self.device_type)
+        self.is_master = distributed.process_info()[0] == 0
+
+    def shutdown(self) -> None:
+        """End distributed mode: the workflow's graphs destroyed, then
+        the process group torn down (every process calls this, as every
+        process started the group)."""
+        if not self.coordinator:
+            return
+        if self.workflow is not None:
+            self.workflow.release_graphs()
+        distributed.shutdown()
 
     def make_device(self):
         """The device the workflow runs on: the card unless the backend
-        is ``"cpu"`` or ``"numpy"`` (the numpy oracle)."""
+        is ``"cpu"`` or ``"numpy"`` (the numpy oracle); in distributed
+        mode this process's card (or CPU rank) with the global mesh."""
         if self.device is None:
-            self.device = Device.create("numpy") \
-                if self.backend == "numpy" else resolve_device(
+            if self.coordinator and self.backend == "numpy":
+                raise ValueError(
+                    "distributed mode needs the card or -b cpu: the "
+                    "host-only numpy oracle cannot join a device mesh "
+                    "(each process would silently train an independent "
+                    "replica)")
+            if not self.coordinator and (self.n_model > 1
+                                         or self.n_seq > 1):
+                raise ValueError(
+                    f"n_model={self.n_model}/n_seq={self.n_seq} requires "
+                    f"distributed mode (--listen/--master or the ZNICZ_* "
+                    f"environment builds the global mesh); a standalone "
+                    f"run would silently ignore it")
+            if self.coordinator:
+                mesh = make_mesh(n_model=self.n_model, n_seq=self.n_seq,
+                                 device_type=self.device_type)
+                dev = distributed.local_device(self.device_type)
+                cls = CudaDevice if dev.type == "cuda" else CpuDevice
+                self.device = cls(dev, mesh=mesh)
+            elif self.backend == "numpy":
+                self.device = Device.create("numpy")
+            else:
+                self.device = resolve_device(
                     "cpu" if self.backend == "cpu" else None)
         return self.device
 

@@ -16,7 +16,15 @@
   ``epoch_ended``, ``epoch_number``;
 - ``forward_mode``: "train" on train minibatches, "eval" otherwise,
   linked (one way) into the stochastic units (dropout), as the
-  reference links it.
+  reference links it;
+- on a device with a mesh (data parallelism) the bookkeeping stays
+  global: every process draws the same order from the same seed and
+  picks the same minibatch, and the gather takes only this process's
+  block of its rows (``max_minibatch_size // n_data_shards`` of them,
+  the reference's ``put_local_batch``).  ``minibatch_valid`` stays the
+  global count, so the evaluator normalizes by the global batch.  The
+  minibatch is clamped down to a multiple of the data shards, and one
+  that cannot be sharded at all raises, as in the reference.
 
 A loader is a unit.  The index picking is host work
 (:meth:`Loader.host_run`, which the workflow's graph fires before the
@@ -107,6 +115,12 @@ class Loader(AcceleratedUnit):
         return lo, lo + self.class_lengths[cls]
 
     @property
+    def local_rows(self) -> int:
+        """Rows of a minibatch this process gathers (all of them without
+        a mesh)."""
+        return self.max_minibatch_size // self.device.n_data_shards
+
+    @property
     def forward_mode(self) -> str:
         """"train" on train minibatches, else "eval"."""
         return "train" if self.minibatch_class == TRAIN else "eval"
@@ -131,6 +145,18 @@ class Loader(AcceleratedUnit):
             raise ValueError(f"{self.name}: load_data produced no samples")
         self.max_minibatch_size = min(self.max_minibatch_size,
                                       max(self.class_lengths))
+        shards = self.device.n_data_shards
+        if self.max_minibatch_size % shards:
+            aligned = (self.max_minibatch_size // shards) * shards
+            if aligned == 0:
+                raise ValueError(
+                    f"{self}: minibatch_size {self.max_minibatch_size} "
+                    f"cannot be sharded over the mesh's {shards} data "
+                    f"shards")
+            self.warning(
+                "minibatch_size %d not divisible by %d data shards — "
+                "clamped to %d", self.max_minibatch_size, shards, aligned)
+            self.max_minibatch_size = aligned
         self.create_minibatch_data()
         # one draw from the shared stream roots all epoch permutations
         # (the reference draws it here too, before any weight fill)

@@ -128,7 +128,11 @@ class FullBatchLoader(Loader):
         cursor = self.sched_cursor.devmem.view(1)
         start = self.sched_starts.devmem.index_select(0, cursor)
         count = self.sched_counts.devmem.index_select(0, cursor)
-        offs = torch.arange(self.max_minibatch_size, device=start.device)
+        rows = self.local_rows
+        # this process's block of the minibatch's rows (all of them
+        # without a mesh)
+        offs = torch.arange(rows, device=start.device) \
+            + self.device.data_rank * rows
         # the short tail repeats its first sample (masked by count)
         pos = start + torch.where(offs < count, offs, 0)
         idx = self.sched_perm.devmem.index_select(0, pos)

@@ -65,9 +65,14 @@ chunk under :meth:`run_chunked`, as in the reference.
 :meth:`link_image_saver` writes the misclassified samples of each
 epoch as images after the decision.
 
+:meth:`run_pipelined` splits the chain into K stages and drives each
+optimizer step through the temporal pipeline
+(:class:`~znicz_tpu_torch.parallel.pipeline.PipelineExecutor`, 1F1B or
+GPipe over the M microbatches), on ``run_accumulated``'s trajectory.
+
 Not ported with it (later slices): the anomaly guard (A11), the
-pipelined training loop (A9), the population engine's
-``promote_lr_leaves`` (A13), the plotters and the publisher (A12).
+population engine's ``promote_lr_leaves`` (A13), the plotters and the
+publisher (A12).
 """
 
 from __future__ import annotations
@@ -169,6 +174,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         if snapshotter_config is not None:
             self.link_snapshotter(**snapshotter_config)
         self._region_unit: RegionUnit | None = None
+        #: the pipeline executor of :meth:`run_pipelined`, kept between
+        #: calls of one geometry
+        self._pipeline = None
 
     # -- builders (the reference's) ----------------------------------------
     def link_forwards(self) -> None:
@@ -534,6 +542,76 @@ class StandardWorkflow(AcceleratedWorkflow):
                     region.run_accum(n_micro)
                     if adjuster is not None:
                         adjuster._fire()  # one optimizer step, whatever M
+                else:
+                    region.run()
+                decision._fire()
+                for unit in side_units:
+                    if not unit.gate_block and not unit.gate_skip:
+                        unit._fire()
+                steps += 1
+                if self._max_fires is not None and steps > self._max_fires:
+                    raise RuntimeError(
+                        f"workflow '{self.name}' exceeded max_fires="
+                        f"{self._max_fires} steps (runaway loop?)")
+        self.on_workflow_finished()
+
+    def release_graphs(self) -> None:
+        """Also the pipeline executor's graphs."""
+        self._pipeline = None
+        super().release_graphs()
+
+    def run_pipelined(self, n_stages: int, microbatches: int | None = None,
+                      schedule: str = "1f1b") -> None:
+        """Train through the temporal pipeline (the reference's
+        ``run_pipelined``): the forward and backward chain split into
+        ``n_stages`` contiguous stages, each train optimizer step driven
+        through the merged 1F1B (or GPipe) schedule over ``M``
+        microbatches (``microbatches``, by default
+        ``root.common.engine.grad_accum``), each stage accumulating M − 1
+        microbatch gradients and applying once, so the trajectory is
+        :meth:`run_accumulated`'s.  Validation and test minibatches run
+        through the unstaged region.  The anomaly guard's place in the
+        last backward op stays empty (ROADMAP A11).  The train set must
+        divide into whole pipelined steps."""
+        from znicz_tpu_torch.parallel.pipeline import PipelineExecutor
+        region = self.region
+        loader = self.loader
+        if microbatches is None:
+            microbatches = int(root.common.engine.get("grad_accum", 1) or 1)
+        n_micro = int(microbatches)
+        if region is None or not loader.device_schedule:
+            raise RuntimeError(
+                f"workflow '{self.name}': run_pipelined needs the region "
+                f"and a loader whose schedule is on the device")
+        span = loader.max_minibatch_size * n_micro
+        n_train = int(loader.class_lengths[TRAIN])
+        if n_train % span:
+            raise RuntimeError(
+                f"workflow '{self.name}': a train set of {n_train} does "
+                f"not divide into pipelined steps of "
+                f"{loader.max_minibatch_size} × {n_micro} microbatches")
+        executor = self._pipeline
+        if (executor is None or executor.n_stages != int(n_stages)
+                or executor.n_micro != n_micro
+                or executor.schedule_kind != schedule):
+            executor = self._pipeline = PipelineExecutor(
+                self, n_stages, n_micro, schedule=schedule)
+        decision = self.decision
+        adjuster = self.lr_adjuster
+        side_units = [u for u in decision.links_to
+                      if u not in (self.repeater, self.end_point, adjuster)]
+        self._begin_run()
+        steps = 0
+        with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow",
+                                  pipeline=n_stages):
+            while not decision.complete and not self.stopped:
+                loader.run()  # the host's pick (the gather is stage 0's)
+                if loader.minibatch_class == TRAIN:
+                    for _ in range(n_micro - 1):
+                        loader.run()
+                    executor.run_step()
+                    if adjuster is not None:
+                        adjuster._fire()  # one optimizer step
                 else:
                     region.run()
                 decision._fire()

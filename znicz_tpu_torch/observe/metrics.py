@@ -354,6 +354,40 @@ def grad_accum_microbatches(workflow: str) -> Gauge:
         labels=("workflow",)).labels(workflow=workflow)
 
 
+def partition_rules(workflow: str) -> Gauge:
+    """Size of a workflow's partition-rule table (unit overrides and
+    the default tail)."""
+    return REGISTRY.gauge(
+        "znicz_partition_rules",
+        "Partition-rule table size (overrides + default tail)",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
+def partition_leaves(workflow: str) -> Gauge:
+    """Leaves resolved through a workflow's partition table."""
+    return REGISTRY.gauge(
+        "znicz_partition_leaves",
+        "Leaves resolved through the partition-rule table",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
+def pipeline_stages(workflow: str) -> Gauge:
+    """Pipeline stages the forward/backward chain is split into."""
+    return REGISTRY.gauge(
+        "znicz_pipeline_stages",
+        "Pipeline-parallel stages the forward/backward chain spans",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
+def pipeline_bubble_seconds(workflow: str) -> Counter:
+    """Summed over optimizer steps and stages: the schedule's makespan
+    less the stage's busy time."""
+    return REGISTRY.counter(
+        "znicz_pipeline_bubble_seconds_total",
+        "Stage idle (bubble) seconds summed over pipeline stages",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
 def graph_captures(region: str) -> Counter:
     """CUDA-graph captures of a region, one per static key: the
     counterpart of the reference's ``xla_compiles("region:<name>")``.

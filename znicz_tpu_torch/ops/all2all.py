@@ -18,8 +18,24 @@ path (:meth:`All2All.numpy_forward`).
 ``_forward`` and ``_logits``): a decoder's head layers, whose weights
 it holds itself.
 
-Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.  Tensor
-parallelism arrives with a later slice.
+Their backward units are in :mod:`znicz_tpu_torch.ops.gd`.
+
+Tensor parallelism (``model_parallel``, the reference's Megatron pair)
+on a device whose mesh has a ``model`` axis of 2 or more: every process
+draws the whole initial fill from the shared seed and keeps its block
+of it (the placement, through the workflow's partition table:
+:func:`~znicz_tpu_torch.parallel.partition.model_sharded`).
+
+- ``"column"``: the weights and the bias split ``n_out``; the output is
+  this process's block of the features.  The backward sums ``err_input``
+  over ``model`` (:meth:`All2All.fold_err_input`).
+- ``"row"``: the weights split ``n_in``, the input is the previous
+  column layer's block of features; the partial product is summed over
+  ``model``, then the bias is added and the activation applied.
+
+A width that the axis does not divide raises, as in the reference.
+Without a model axis the option changes nothing, so a bundle trained
+that way serves on one device (the export gathers the blocks).
 """
 
 from __future__ import annotations
@@ -30,6 +46,8 @@ import torch
 from znicz_tpu_torch.ops import activations_math
 from znicz_tpu_torch.ops.fused_kernels import softmax_argmax
 from znicz_tpu_torch.ops.nn_units import Forward, as_numpy, stored_f32
+from znicz_tpu_torch.parallel import partition
+from znicz_tpu_torch.parallel.axis import MODEL_AXIS, all_reduce
 
 
 class All2All(Forward):
@@ -38,12 +56,59 @@ class All2All(Forward):
     ACTIVATION = "linear"
 
     def __init__(self, input_shape=None, compute_dtype: torch.dtype
-                 | None = None, output_sample_shape=1, **kwargs) -> None:
+                 | None = None, output_sample_shape=1,
+                 model_parallel: str | None = None, **kwargs) -> None:
         super().__init__(input_shape, compute_dtype, **kwargs)
         if isinstance(output_sample_shape, (int, np.integer)):
             output_sample_shape = (int(output_sample_shape),)
         self.output_sample_shape = tuple(int(n) for n in output_sample_shape)
         self.activation = activations_math.get(self.ACTIVATION)
+        if model_parallel not in (None, "column", "row"):
+            raise ValueError(f"model_parallel '{model_parallel}' (column, "
+                             f"row or None)")
+        self.model_parallel = model_parallel
+
+    @property
+    def model_split(self) -> str | None:
+        """``"column"`` or ``"row"`` when this process holds a block of
+        the weights (a model axis of 2 or more), else None."""
+        if self.model_parallel is None or self.device is None \
+                or self.device.axis_size(MODEL_AXIS) < 2:
+            return None
+        return self.model_parallel
+
+    def init_params(self, device) -> None:
+        """The whole initial fill (the same draws on every process), then
+        this process's block of it under tensor parallelism."""
+        super().init_params(device)
+        split = self.model_split
+        if split is None:
+            return
+        n = self.device.axis_size(MODEL_AXIS)
+        shapes = self.param_shapes()
+        n_in, n_out = shapes["weights"]
+        width = n_out if split == "column" else n_in
+        if width % n:
+            raise ValueError(
+                f"{self.name}: {split}-parallel width {width} not "
+                f"divisible by the model axis ({n})")
+        names = ["weights"] + (["bias"] if split == "column"
+                               and self.include_bias else [])
+        for name in names:
+            dim = (1 if name == "weights" else 0) if split == "column" \
+                else 0
+            self.place(name, partition.model_sharded(dim), shapes[name])
+            full = getattr(self, name).detach()
+            block = partition.local_slice(full, self.placements[name],
+                                          self.device.mesh)
+            setattr(self, name, torch.nn.Parameter(block, requires_grad=False))
+
+    def fold_err_input(self, err: torch.Tensor) -> torch.Tensor:
+        """A column layer's ``err_input`` is a partial sum over its block
+        of features: summed over ``model``.  Otherwise unchanged."""
+        if self.model_split != "column":
+            return err
+        return all_reduce(err, self.device.group(MODEL_AXIS))
 
     @property
     def output_shape(self) -> tuple:
@@ -71,12 +136,16 @@ class All2All(Forward):
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         y = self.mxu_dot(x.reshape(x.shape[0], -1), self.weights)
+        if self.model_split == "row":
+            # the partial products of the blocks of n_in
+            y = all_reduce(y, self.device.group(MODEL_AXIS))
         return y + self.bias if self.include_bias else y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.activation.fwd(self._logits(x))
-        return y.reshape((x.shape[0],) + self.output_sample_shape).to(
-            self.output_store_dtype)
+        shape = (self.output_sample_shape if self.model_split != "column"
+                 else (-1,))
+        return y.reshape((x.shape[0],) + shape).to(self.output_store_dtype)
 
     def head(self, x: torch.Tensor, w: torch.Tensor,
              b: torch.Tensor | None, final: bool = False) -> torch.Tensor:

@@ -57,9 +57,18 @@ bundle's dtype (the reference's einsums: a decode step's products are
   positions and positions past a table write into the trash page, so
   every scatter and gather index stays inside the pool.
 
-The ring (sequence-parallel) path arrives with a later slice.  A bundle
+``seq_parallel=True`` on a device whose mesh has a ``seq`` (else
+``model``) axis of 2 or more runs the ring (the reference's
+``sequence_sharded_attention``): each process projects q, k and v for
+its block of time, the blocks meet around the ring
+(:mod:`znicz_tpu_torch.parallel.ring_attention`, the flash kernels a
+hop), the output projection runs on the block, and the blocks are
+all-gathered along time, so every unit after the attention sees the
+whole sequence.  The backward sums the parameter gradients and
+``err_input`` (each process's covers its block of time) over the ring's
+axis.  Without such an axis the option changes nothing, so a bundle
 trained with ``seq_parallel`` or ``flash_block_k`` serves here all the
-same: both were layout choices with identical math.
+same: both are layout choices with identical math.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ import torch
 
 from znicz_tpu_torch.ops.flash_attention import attention_core
 from znicz_tpu_torch.ops.nn_units import Forward, GradientDescentBase
+from znicz_tpu_torch.parallel import ring_attention
+from znicz_tpu_torch.parallel.axis import all_reduce
 
 
 def split_heads(qkv: torch.Tensor, n_heads: int):
@@ -119,8 +130,24 @@ class MultiHeadAttention(Forward):
         self.input_grad = False
         #: ``(x, f32 output)`` of the last call that kept its graph
         self.stash: tuple | None = None
+        self.seq_parallel = bool(seq_parallel)
         if self.input_shape is not None:
             self.check_input_shape()
+
+    @property
+    def ring(self):
+        """The :class:`~znicz_tpu_torch.parallel.ring_attention.ProcessRing`
+        of ``seq_parallel`` over the mesh's ring axis, or None."""
+        if not self.seq_parallel or self.device is None:
+            return None
+        axis = ring_attention.ring_axis(self.device.mesh)
+        if axis is None:
+            return None
+        ring = self.__dict__.get("_ring")
+        if ring is None:
+            ring = self.__dict__["_ring"] = ring_attention.ProcessRing(
+                self.device.group(axis))
+        return ring
 
     def check_input_shape(self) -> None:
         if len(self.input_shape) != 2:
@@ -161,6 +188,9 @@ class MultiHeadAttention(Forward):
     def core(self, x: torch.Tensor) -> torch.Tensor:
         """The f32 output (B, T, D) before its storage cast — what the
         reference's ``xla_forward`` returns and differentiates."""
+        ring = self.ring
+        if ring is not None:
+            return self._ring_core(x, ring)
         b, t, d = x.shape
         qkv = self.mxu_dot(x.float().reshape(b * t, d), self.weights)
         if self.include_bias:
@@ -174,6 +204,30 @@ class MultiHeadAttention(Forward):
         if self.include_bias:
             y = y + self.bias_out
         return y.reshape(b, t, d)
+
+    def _ring_core(self, x: torch.Tensor, ring) -> torch.Tensor:
+        """:meth:`core` with time split over ``ring``: this process's
+        block of x projected, the ring, the output projection of the
+        block, the blocks all-gathered along time."""
+        b, t, d = x.shape
+        if t % ring.n:
+            raise ValueError(f"{self.name}: sequence of {t} does not split "
+                             f"over a ring of {ring.n}")
+        tl = t // ring.n
+        xl = x[:, ring.rank * tl:(ring.rank + 1) * tl]
+        qkv = self.mxu_dot(xl.float().reshape(b * tl, d), self.weights)
+        if self.include_bias:
+            qkv = qkv + self.bias
+        dot_dtype = self.mxu_dtype
+        if dot_dtype is not None:
+            qkv = qkv.to(dot_dtype)
+        q, k, v = split_heads(qkv.reshape(b, tl, 3 * d), self.n_heads)
+        o = ring_attention.sequence_sharded_attention(
+            ring, q, k, v, causal=self.causal, dot_dtype=dot_dtype)
+        y = self.mxu_dot(o.reshape(b * tl, d), self.weights_out)
+        if self.include_bias:
+            y = y + self.bias_out
+        return ring_attention.gather_time(y.reshape(b, tl, d), ring)
 
     def forward_np(self, x: np.ndarray):
         """The oracle's forward: ``(y, (qkv, q, k, v, o, p))``."""
@@ -429,6 +483,10 @@ class GDMultiHeadAttention(GradientDescentBase):
         # every gradient is taken before any parameter changes below
         grads = dict(zip(names + ["x"], torch.autograd.grad(
             y, inputs, grad_outputs=err_output.float())))
+        ring = fwd.ring
+        if ring is not None:
+            # each process's gradients cover its block of time
+            grads = {k: all_reduce(g, ring.group) for k, g in grads.items()}
         self.apply_weights(grads["weights"])
         self.apply_weights(grads["weights_out"], "weights_out",
                            "accumulated_gradient_weights_out")

@@ -29,6 +29,13 @@ once a step, and go into a snapshot and come back from it.
 - ``metrics`` — the step's summed squared error;
 - ``epoch_sse`` — per-class sums of it, a non-finite step left out.
 
+Under data parallelism (a device with a mesh) each process holds its
+block of the minibatch's rows, the mask places them by the block's
+first row, the error is divided by the global valid count, and every
+sum the decision reads (``n_err``, the loss, the confusion counts, the
+squared error) is summed over the data axis before it is added in
+(:func:`~znicz_tpu_torch.parallel.axis.maybe_psum`).
+
 Its math is f32 whatever the activations are stored in: the sum over a
 minibatch would lose small terms in bf16, and the decision selects
 models on it.  The reference's fault-injection and anomaly-guard hooks
@@ -47,6 +54,7 @@ import torch
 
 from znicz_tpu_torch.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.ops.nn_units import as_numpy, stored_f32
+from znicz_tpu_torch.parallel.axis import current_data_axis, maybe_psum
 
 
 class EvaluatorBase(AcceleratedUnit):
@@ -65,9 +73,16 @@ class EvaluatorBase(AcceleratedUnit):
 
     def _valid_mask(self, n_rows: int, device) -> tuple[torch.Tensor,
                                                         torch.Tensor]:
-        """``(rows < valid, valid)`` for a minibatch of ``n_rows``."""
+        """``(rows < valid, valid)`` for this process's ``n_rows`` rows
+        of the minibatch (its block, under data parallelism)."""
         valid = torch.as_tensor(self.minibatch_valid, device=device)
-        return torch.arange(n_rows, device=device) < valid, valid
+        return self._rows(n_rows, device) < valid, valid
+
+    def _rows(self, n_rows: int, device) -> torch.Tensor:
+        """The minibatch positions of this process's rows."""
+        rows = torch.arange(n_rows, device=device)
+        rank = self.device.data_rank if self.device is not None else 0
+        return rows + rank * n_rows if rank else rows
 
     def state_dict(self, allow_collective: bool = False) -> dict:
         return {name: getattr(self, name).cpu().numpy().copy()
@@ -127,22 +142,31 @@ class EvaluatorSoftmax(EvaluatorBase):
         ``valid`` is the count of valid samples, a 0-d device tensor."""
         n = p.shape[0]
         valid = torch.as_tensor(valid, device=p.device)
-        mask = torch.arange(n, device=p.device) < valid
+        mask = self._rows(n, p.device) < valid
         onehot = (labels[:, None] == torch.arange(
             p.shape[1], device=p.device)[None, :]).to(p.dtype)
         err = mask[:, None] * (p - onehot) / valid.clamp(min=1).to(p.dtype)
-        self.n_err = ((max_idx != labels) & mask).sum().to(torch.int32)
+        self.n_err = maybe_psum(
+            ((max_idx != labels) & mask).sum().to(torch.int32))
         self.epoch_n_err[minibatch_class] += self.n_err
         p_true = torch.clamp(p[torch.arange(n, device=p.device),
                                labels.long()], min=1e-30)
-        loss = (mask * -torch.log(p_true)).sum()
+        loss = maybe_psum((mask * -torch.log(p_true)).sum())
         self.epoch_loss[minibatch_class] += torch.where(
             torch.isfinite(loss), loss, torch.zeros_like(loss))
         if self.compute_confusion:
             # masked rows add 0; an atomic add, exact in int32
             c = p.shape[1]
-            self.confusion_matrix[minibatch_class].view(-1).index_add_(
-                0, labels.long() * c + max_idx.long(), mask.to(torch.int32))
+            cells = labels.long() * c + max_idx.long()
+            counts = mask.to(torch.int32)
+            if current_data_axis() is None:
+                self.confusion_matrix[minibatch_class].view(-1).index_add_(
+                    0, cells, counts)
+            else:
+                step = torch.zeros(c * c, dtype=torch.int32, device=p.device)
+                step.index_add_(0, cells, counts)
+                self.confusion_matrix[minibatch_class].view(-1).add_(
+                    maybe_psum(step))
         return err
 
     def numpy_run(self) -> None:
@@ -202,7 +226,7 @@ class EvaluatorMSE(EvaluatorBase):
         mask, valid = self._valid_mask(batch, y.device)
         diff = mask[:, None] * (y.reshape(batch, -1) - t)
         err = (diff * (2.0 / valid.clamp(min=1).float())).reshape(y.shape)
-        sse = (diff * diff).sum()
+        sse = maybe_psum((diff * diff).sum())
         self.metrics.copy_(sse)
         self.epoch_sse[minibatch_class] += torch.where(
             torch.isfinite(sse), sse, torch.zeros_like(sse))

@@ -58,7 +58,8 @@ class GradientDescent(GradientDescentBase):
         err_input = None
         if self.need_err_input:
             # reads W before this unit's own update below
-            err_input = fwd.mxu_dot(delta, fwd.weights.t()).reshape(
+            err_input = fwd.fold_err_input(
+                fwd.mxu_dot(delta, fwd.weights.t())).reshape(
                 x.shape).to(self.act_store_dtype)
         self.apply_weights(fwd.mxu_dot(x2d.t(), delta))
         if fwd.include_bias:

@@ -126,6 +126,9 @@ class KohonenTrainer(ModuleUnit):
     minibatches leave the map alone).  ``shape_grid`` is the forward's
     grid."""
 
+    DATA_PARALLEL = False
+    DATA_PARALLEL_NOTE = "its update is not folded over the data axis"
+
     WRITES = ()
 
     def __init__(self, workflow=None, name: str | None = None,

@@ -36,13 +36,20 @@ Two precision rules carry over from the reference's XLA path:
 
 :class:`GradientDescentBase` is the reference's update rule, cut to what
 the training paths run (learning rates, L1/L2 decay, momentum,
-gradient-norm clipping) and microbatch gradient accumulation
-(``root.common.engine.grad_accum``, :meth:`GradientDescentBase.apply_param`);
-ZeRO-1, the anomaly guard and the SDC fingerprint belong to later
-slices.  Momentum is stored in bf16 in bf16 mode with its math in f32,
-as in the reference.  With ``engine.fp8_matmul`` on, each parameter's
-gradient takes a round-trip through e4m3 after the accumulation mean
-and before the update, as in the reference.
+gradient-norm clipping), microbatch gradient accumulation
+(``root.common.engine.grad_accum``, :meth:`GradientDescentBase.apply_param`)
+and, on a device with a mesh, the data-parallel fold: each process's
+gradient (of its rows, already divided by the global batch) is summed
+over the data axis where the reference calls ``maybe_pmean``, and with
+ZeRO-1 (``root.common.engine.zero1``, on by default for a data axis of
+2 or more) reduce-scattered instead, each process updating its slice
+of the parameter and of its momentum, which it stores sharded and
+zero-padded, then all-gathering the parameter.  The anomaly guard and
+the SDC fingerprint belong to later slices.  Momentum is stored in bf16
+in bf16 mode with its math in f32, as in the reference.  With
+``engine.fp8_matmul`` on, each parameter's gradient takes a round-trip
+through e4m3 after the accumulation mean and before the update, as in
+the reference.
 
 On the numpy oracle (:class:`~znicz_tpu_torch.backends.NumpyDevice`) a
 forward's :meth:`Forward.numpy_run` is ``output = numpy_forward(input)``
@@ -66,6 +73,10 @@ from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
                                                precision_dtypes)
 from znicz_tpu_torch.memory import Vector
 from znicz_tpu_torch.ops.fp8 import fp8_enabled, fp8_round_trip
+from znicz_tpu_torch.parallel import partition
+from znicz_tpu_torch.parallel.axis import (DATA_AXIS, all_gather_flat,
+                                           all_reduce, maybe_psum,
+                                           reduce_scatter_flat)
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.prng import SeedChain
@@ -114,13 +125,60 @@ class ModuleUnit(AcceleratedUnit, nn.Module):
     is its own parameters and buffers (f32 host copies), and a snapshot
     that lacks one raises.  Called with ``nn.Module``'s arguments
     (``destination``, ``prefix``, ``keep_vars``), :meth:`state_dict` is
-    ``nn.Module``'s, so a module tree holding the unit keeps working."""
+    ``nn.Module``'s, so a module tree holding the unit keeps working.
+
+    A tensor that this process holds only a shard of (a model-axis
+    parameter, a ZeRO-1 momentum) has its placement in
+    :attr:`placements`; the snapshot holds the logical tensor, gathered
+    from the shards (a collective, so the caller must allow one), and a
+    load cuts this process's shard from it, so a snapshot resumes on
+    any layout."""
+
+    def place(self, name: str, placement, logical_shape) -> None:
+        """Resolve the placement of the tensor ``name`` through the
+        workflow's partition table (or directly, with
+        ``engine.partition_rules`` off) and keep it in
+        :attr:`placements`."""
+        resolved = partition.declare(self, None, placement, slot=name,
+                                     logical_shape=logical_shape)
+        table = partition.table_for(self.workflow)
+        if table is not None:
+            table.leaves[resolved.path] = resolved
+            table._publish()
+        self.placements[name] = resolved
+
+    @property
+    def placements(self) -> dict:
+        """Tensor name → its resolved placement, for the tensors this
+        process holds a shard of."""
+        return self.__dict__.setdefault("_placements", {})
+
+    def _sharded(self, name: str):
+        mesh = None if self.device is None else self.device.mesh
+        resolved = self.placements.get(name)
+        return resolved if partition.is_sharded(resolved, mesh) else None
+
+    def full_tensor(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The logical value of own tensor ``name`` (``t``): gathered from
+        the shards where this process holds one (a collective)."""
+        resolved = self._sharded(name)
+        if resolved is None:
+            return t
+        return partition.gather_full(t.detach(), resolved, self.device.mesh)
 
     def state_dict(self, *args, allow_collective: bool = False, **kwargs):
         if args or kwargs:
             return nn.Module.state_dict(self, *args, **kwargs)
-        return {name: t.detach().to("cpu", torch.float32, copy=True).numpy()
-                for name, t in self.own_tensors()}
+        out = {}
+        for name, t in self.own_tensors():
+            if self._sharded(name) is not None and not allow_collective:
+                raise RuntimeError(
+                    f"{self.name}.{name} is sharded over processes: its "
+                    f"snapshot gathers it, a collective every process "
+                    f"must join (state_dict(allow_collective=True))")
+            out[name] = self.full_tensor(name, t).detach().to(
+                "cpu", torch.float32, copy=True).numpy()
+        return out
 
     def own_tensors(self) -> list[tuple[str, torch.Tensor]]:
         return [*self.named_parameters(recurse=False),
@@ -129,15 +187,26 @@ class ModuleUnit(AcceleratedUnit, nn.Module):
     @torch.no_grad()
     def load_state(self, state: dict) -> None:
         """Each parameter and buffer from ``state`` (f32 or bf16 numpy,
-        rounded to the tensor's dtype, written in place)."""
+        rounded to the tensor's dtype, written in place; a sharded one
+        cut to this process's shard first)."""
         for name, t in self.own_tensors():
             if name not in state:
                 raise KeyError(f"state has no '{self.name}.{name}'")
-            value = np.asarray(state[name]).astype(np.float32)
-            if value.shape != tuple(t.shape):
+            value = torch.from_numpy(np.asarray(state[name]).astype(
+                np.float32))
+            resolved = self._sharded(name)
+            if resolved is not None:
+                if tuple(value.shape) != tuple(resolved.logical_shape):
+                    raise ValueError(
+                        f"{self.name}.{name}: state shape "
+                        f"{tuple(value.shape)} != "
+                        f"{tuple(resolved.logical_shape)}")
+                value = partition.local_slice(value, resolved,
+                                              self.device.mesh)
+            if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(f"{self.name}.{name}: state shape "
-                                 f"{value.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(value))
+                                 f"{tuple(value.shape)} != {tuple(t.shape)}")
+            t.copy_(value)
 
 
 class Forward(ModuleUnit):
@@ -283,6 +352,11 @@ class Stochastic:
     device that the step advances, rooted in one draw from the default
     generator.  ``forward_mode`` is part of the region key; the chain's
     next seed is part of the snapshot (``seed_chain``)."""
+
+    DATA_PARALLEL = False
+    DATA_PARALLEL_NOTE = ("its kernel draws the mask from the seed and the "
+                          "element's index, so every process would drop "
+                          "the same positions of its rows")
 
     def init_stochastic(self) -> None:
         self.forward_mode = "train"
@@ -498,11 +572,51 @@ class GradientDescentBase(ModuleUnit):
     def alloc_accumulator(self, name: str, param: str,
                           moment: float) -> None:
         """A zero momentum buffer ``name`` for the forward's ``param``
-        (None when the parameter or the moment is absent)."""
+        (None when the parameter or the moment is absent).  With ZeRO-1
+        (:meth:`zero1_plan`) the buffer is this process's slice of the
+        zero-padded momentum."""
         value = getattr(self.forward_unit, param, None)
+        shape = None if value is None else tuple(value.shape)
+        plan = self.zero1_plan(param, name if moment else None)
+        if plan is not None and shape is not None:
+            dim, pad = plan.data_shard_dim, plan.data_shard_pad
+            shape = list(shape)
+            shape[dim] = (shape[dim] + pad) // self.device.n_data_shards
         self.register_buffer(name, torch.zeros(
-            value.shape, dtype=self.opt_state_dtype, device=value.device)
+            shape, dtype=self.opt_state_dtype, device=value.device)
             if moment and value is not None else None)
+
+    def zero1_plan(self, param: str, acc: str | None = None):
+        """The ZeRO-1 placement of the forward's ``param`` (its
+        momentum ``acc``'s leaf, when it has one), or None when the
+        update stays replicated: no mesh, a data axis of 1,
+        ``engine.zero1`` off, or nothing to shard."""
+        from znicz_tpu_torch.parallel.mesh import zero1_choice
+        plans = self.__dict__.setdefault("_zero1", {})
+        plans.pop(param, None)
+        value = getattr(self.forward_unit, param, None)
+        if value is None or not zero1_choice(self.device):
+            return None
+        fwd = self.forward_unit
+        tp = fwd.placements.get(param) if isinstance(fwd, ModuleUnit) \
+            else None
+        model_dim = None if tp is None else tp.model_shard_dim
+        logical = list(value.shape)
+        if model_dim is not None:
+            logical[model_dim] *= self.device.axis_size(
+                tp.model_shard_axis)
+        placement = partition.Zero1(model_dim=model_dim)
+        if acc is not None:
+            self.place(acc, placement, tuple(logical))
+            plan = self.placements[acc]
+        else:
+            plan = partition.materialize(
+                placement, f"{self.name}/{param}", tuple(logical),
+                self.device.n_data_shards)
+        if plan.data_shard_dim is None:
+            return None
+        plans[param] = plan
+        return plan
 
     def run(self, x: torch.Tensor | None = None,
             err_output: torch.Tensor | None = None,
@@ -558,13 +672,33 @@ class GradientDescentBase(ModuleUnit):
             reg = reg + 0.5 * l1 * torch.sign(weights)
         return grad + decay * reg
 
-    def _clipped(self, grad):
+    def _clipped(self, grad, groups=()):
+        """``grad`` scaled down to the norm ``gradient_clip``, the norm
+        that of the logical tensor: its square summed over each process
+        group in ``groups`` that holds another block of it."""
         clip = self.gradient_clip
         if not clip:
             return grad
-        norm = torch.sqrt(torch.sum(grad * grad))
+        sq = torch.sum(grad * grad)
+        for group in groups:
+            sq = all_reduce(sq.reshape(1), group)[0]
+        norm = torch.sqrt(sq)
         return grad * torch.clamp(clip / torch.clamp(norm, min=1e-30),
                                   max=1.0)
+
+    def _model_groups(self, param: torch.Tensor) -> tuple:
+        """The model-axis group the forward parameter ``param`` (found by
+        identity) is split over under tensor parallelism, as a 1-tuple,
+        or ``()`` when this process holds all of it."""
+        fwd = self.forward_unit
+        if not isinstance(fwd, ModuleUnit):
+            return ()
+        for name in fwd.placements:
+            if getattr(fwd, name, None) is param:
+                tp = fwd._sharded(name)
+                if tp is not None and tp.model_shard_dim is not None:
+                    return (self.device.group(tp.model_shard_axis),)
+        return ()
 
     @torch.no_grad()
     def apply_param(self, param: torch.Tensor, grad: torch.Tensor,
@@ -595,9 +729,18 @@ class GradientDescentBase(ModuleUnit):
                 return
             grad = (buf + grad.float()) / n_micro
             buf.zero_()
+        plan = self._zero1_for(param)
+        if plan is not None:
+            return self._apply_zero1(param, grad, acc, decay, lr, moment,
+                                     plan)
+        # the data-parallel fold (identity without a data axis): each
+        # process's gradient is already divided by the global batch
+        grad = maybe_psum(grad.float())
         if fp8_enabled():
             grad = fp8_round_trip(grad)
-        g = self._regularized(self._clipped(grad.float()), param, decay)
+        g = self._regularized(
+            self._clipped(grad.float(), self._model_groups(param)), param,
+            decay)
         if moment:
             # f32 math whatever the accumulator stores; the weight takes
             # the f32 step, the store rounds to opt_state_dtype
@@ -606,6 +749,59 @@ class GradientDescentBase(ModuleUnit):
             param.add_(step)
         else:
             param.sub_(lr * g)
+
+    def _zero1_for(self, param: torch.Tensor):
+        """The ZeRO-1 plan of the forward parameter ``param`` (found by
+        identity), or None."""
+        plans = self.__dict__.get("_zero1")
+        if not plans:
+            return None
+        fwd = self.forward_unit
+        for name, plan in plans.items():
+            if getattr(fwd, name, None) is param:
+                return plan
+        return None
+
+    @torch.no_grad()
+    def _apply_zero1(self, param, grad, acc, decay, lr, moment,
+                     plan) -> None:
+        """The ZeRO-1 form of the update (the reference's
+        ``_apply_param_zero1``, its collectives written out over the data
+        axis): the gradient zero-padded along the plan's dim and
+        reduce-scattered, this process's slice of the parameter and of
+        its momentum updated (the clip's norm summed over the data axis
+        first, and over the model axis for a tensor-parallel block),
+        the slices all-gathered back into the parameter.  The
+        pad rows carry exact zeros through every step."""
+        group = self.device.group(DATA_AXIS)
+        n = self.device.n_data_shards
+        rank = self.device.data_rank
+        dim, pad = plan.data_shard_dim, plan.data_shard_pad
+        rows = param.shape[dim]
+        g = grad.float().movedim(dim, 0)
+        if pad:
+            g = torch.cat([g, g.new_zeros((pad,) + tuple(g.shape[1:]))])
+        block = (rows + pad) // n
+        shard = g.new_empty((block,) + tuple(g.shape[1:]))
+        reduce_scatter_flat(shard, g, group)
+        if fp8_enabled():
+            shard = fp8_round_trip(shard)
+        w = param.movedim(dim, 0)
+        if pad:
+            w = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
+        w_shard = w[rank * block:(rank + 1) * block]
+        shard = self._clipped(shard, (group,) + self._model_groups(param))
+        gs = self._regularized(shard, w_shard, decay)
+        if moment:
+            acc_m = acc.movedim(dim, 0)
+            step = moment * acc_m.float() - lr * gs
+            acc_m.copy_(step)
+            new = w_shard + step
+        else:
+            new = w_shard - lr * gs
+        whole = new.new_empty((block * n,) + tuple(new.shape[1:]))
+        all_gather_flat(whole, new.contiguous(), group)
+        param.copy_(whole[:rows].movedim(0, dim))
 
     # -- the update rule on the numpy oracle (the reference's
     # _apply_weights_np/_apply_bias_np) ----------------------------------

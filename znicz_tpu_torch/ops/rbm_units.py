@@ -96,6 +96,9 @@ class BatchWeights(AcceleratedUnit):
     statistics of one CD phase (the reference's ``BatchWeights``;
     ``GradientRBM`` computes two of these)."""
 
+    DATA_PARALLEL = False
+    DATA_PARALLEL_NOTE = "a statistic over the whole minibatch"
+
     WRITES = ("weights_batch", "v_mean", "h_mean")
 
     def __init__(self, workflow=None, name: str | None = None,
@@ -134,6 +137,9 @@ class GradientRBM(ModuleUnit):
     from the loader) gates the update, and is part of the region's key:
     an eval minibatch only computes the reconstruction.
     """
+
+    DATA_PARALLEL = False
+    DATA_PARALLEL_NOTE = "its update is not folded over the data axis"
 
     WRITES = ("reconstruction",)
 

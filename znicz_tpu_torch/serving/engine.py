@@ -45,12 +45,21 @@ corrected from the oracle, and fires ``on_sdc_suspect`` once.  The
 fault sites ``serving.latency_spike``, ``serving.program_error`` and
 ``sdc.serving_bitflip`` fire in the dispatch.
 
-Replication over several GPUs belongs to ROADMAP A9.
+Replication (the reference's ``resolve_device(replicate)``): with two
+or more devices visible and ``root.common.serving.replicate`` not
+False, :meth:`ServingEngine.resolve_device` gives one device each, and
+an engine given such a list (a bundle path) loads one graphed
+:class:`~znicz_tpu_torch.export.ExportedModel` replica a device.  A
+dispatch splits its padded bucket's rows into blocks of the smallest
+ladder bucket that lets the replicas cover them all (three replicas
+take a bucket of 4 as two blocks of 2), runs the blocks on as many
+replicas, and joins the replies in order; a swap stages and publishes on every
+replica.  One visible device gives that device and one model, as in
+the reference.
 """
 
 from __future__ import annotations
 
-import functools
 import itertools
 import threading
 import time
@@ -133,13 +142,21 @@ class ServingEngine(Logger):
         self.breaker_window = int(breaker_window)
         self.breaker_cooldown_ms = float(breaker_cooldown_ms)
         self.max_queue_age_ms = max_queue_age_ms
+        devices = list(device) if isinstance(device, (list, tuple)) \
+            else [device]
         if isinstance(model, (str, bytes)) or hasattr(model, "__fspath__"):
-            model = ExportedModel.load(model, device=device,
-                                       max_batch=self.max_batch)
+            replicas = [ExportedModel.load(model, device=dev,
+                                           max_batch=self.max_batch)
+                        for dev in devices]
+            model = replicas[0]
         elif device is not None:
             raise ValueError("device applies to a bundle path; a built "
                              "ExportedModel keeps its own")
+        else:
+            replicas = [model]
         self.model = model
+        #: one model a device; a dispatch splits its rows over them
+        self.replicas = replicas
         self.device = model.device
         self._batcher: ContinuousBatcher | None = None
         self._staging: dict[int, list[torch.Tensor]] = {}
@@ -191,6 +208,21 @@ class ServingEngine(Logger):
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
+    @staticmethod
+    def resolve_device(replicate: bool | None = None):
+        """The serving device(s) under the replication gate
+        (``root.common.serving.replicate``, default on): every visible
+        card, one replica each, when there are two or more, else the
+        one device (the card, an error without one)."""
+        from znicz_tpu_torch.backends import resolve_device
+        if replicate is None:
+            replicate = bool(root.common.serving.get("replicate", True))
+        if replicate and torch.cuda.is_available() \
+                and torch.cuda.device_count() >= 2:
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return resolve_device(None)
+
     def _staging_pair(self, size: int) -> list[torch.Tensor]:
         shape = (size,) + self.model.input_shape
         pin = self.device.type == "cuda"
@@ -203,7 +235,8 @@ class ServingEngine(Logger):
         if self._started:
             return self
         t0 = time.monotonic()
-        self.warmup_programs = self.model.warmup(self.max_batch)
+        self.warmup_programs = sum(replica.warmup(self.max_batch)
+                                   for replica in self.replicas)
         self.warmup_seconds = time.monotonic() - t0
         for size in ladder(self.max_batch):
             self._staging[size] = self._staging_pair(size)
@@ -302,10 +335,16 @@ class ServingEngine(Logger):
         Returns a summary: the version, the publish's pause and the
         staging time."""
         manifest, params = resolve_swap_state(state)
-        staged = self.model.stage_weights(params, manifest)
-        publish = functools.partial(self.model.publish, staged)
+        staged = [replica.stage_weights(params, manifest)
+                  for replica in self.replicas]
+
+        def publish():
+            return sum(replica.publish(one)
+                       for replica, one in zip(self.replicas, staged))
+
         b = self._batcher
         pause = b.run_between(publish) if b is not None else publish()
+        staged = staged[0]
         self.model_version = int(self.model_version + 1 if version is None
                                  else version)
         self._m_version.set(self.model_version)
@@ -367,9 +406,7 @@ class ServingEngine(Logger):
             row += req.n
         if row < size:
             buf[row:] = 0  # padded tail: never leaks, but keep it clean
-        with self.model._lock, torch.inference_mode():
-            out = self.model.program_for(size)(buf)
-            out = out[:total].float().cpu().numpy()
+        out = self._dispatch(buf, size, total)
         out = self._shadow_audit(buf, out, total)
         now = time.monotonic()
         row = 0
@@ -390,6 +427,28 @@ class ServingEngine(Logger):
                 lat = now - req.t_submit
                 self._lat.append(lat)
                 self._m_latency.observe(lat)
+
+    def _dispatch(self, buf: torch.Tensor, size: int,
+                  total: int) -> np.ndarray:
+        """The padded batch ``buf`` through the program of bucket
+        ``size``: on one model, or split over the replicas into blocks
+        of one ladder bucket (the smallest that lets the replicas cover
+        every row; a bucket is a power of two, so the blocks tile it),
+        all launched before any is read back, the replies joined in
+        order."""
+        block = bucket_for(-(-size // len(self.replicas)))
+        if block == size:
+            with self.model._lock, torch.inference_mode():
+                out = self.model.program_for(size)(buf)
+                return out[:total].float().cpu().numpy()
+        outs = []
+        with torch.inference_mode():
+            for row, replica in zip(range(0, size, block), self.replicas):
+                with replica._lock:
+                    outs.append(replica.program_for(block)(
+                        buf[row:row + block]))
+            joined = [o.float().cpu() for o in outs]
+        return torch.cat(joined)[:total].numpy()
 
     # ------------------------------------------------------------------
     # the sampled SDC shadow audit
@@ -440,8 +499,8 @@ class ServingEngine(Logger):
         self._audit_stats["mismatched"] += 1
         first = not self.sdc_suspect
         self.sdc_suspect = True
-        # process index 0: one process until ROADMAP A9's process_shard
-        _metrics.sdc_suspects(0, self.sdc_replica).inc()
+        from znicz_tpu_torch.parallel.process_shard import process_info
+        _metrics.sdc_suspects(process_info()[0], self.sdc_replica).inc()
         if first:
             _metrics.sdc_detected("serving").inc()
             self.error(
@@ -496,6 +555,7 @@ class ServingEngine(Logger):
             "device": "numpy" if m.host_only else str(self.device),
             "max_batch": self.max_batch,
             "max_delay_ms": self.max_delay_ms,
+            "replicas": len(self.replicas),
             "buckets_warmed": sorted(self._staging),
             "programs": {"built": m.programs_built,
                          "live": len(m._programs),

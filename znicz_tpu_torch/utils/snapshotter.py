@@ -29,10 +29,16 @@ goes on, and ``destination`` keeps pointing at the last good snapshot
 instead).
 
 The ``snapshot.write_fail`` fault site fires inside :meth:`write`, mid
-stream, and goes through the same tolerate-and-continue path.  Not
-ported with it: the multi-process write discipline, where processes
-other than 0 fence on process 0's sidecar (ROADMAP A9).  The port is
-one process.
+stream, and goes through the same tolerate-and-continue path.
+
+Multi-process (the reference's discipline): every process gathers the
+state (sharded tensors are collectives) and records the same path, and
+only process 0 writes and prunes; a call of :meth:`write` on any other
+process fences on process 0's ``.sha256`` sidecar
+(:meth:`_fence_on_sidecar`, ``engine.snapshot_fence_timeout_s``, default
+120 s) and returns the same path, and a failed write on process 0 is
+decided on by every process together.  The snapshot directory must be
+one that every process sees.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import logging
 import os
 import pickle
 import time
+
+import numpy as np
 
 from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.observe import tracing as _tracing
@@ -103,32 +111,104 @@ class Snapshotter(Unit):
         self._fire_count += 1
         if self._fire_count % self.interval:
             return
-        state = self.workflow.state_dict()
+        from znicz_tpu_torch.parallel.process_shard import (allgather_sum,
+                                                            process_info)
+        pidx, pcount = process_info()
+        # every process joins the gathers of sharded tensors
+        state = self.workflow.state_dict(allow_collective=True)
         suffix = self.snapshot_suffix()
-        try:
-            path = self.write(state, self.directory, self.prefix, suffix)
-        except Exception as exc:
-            if not root.common.engine.get("snapshot_tolerate_failures",
-                                          True):
-                raise
+        tolerate = bool(root.common.engine.get(
+            "snapshot_tolerate_failures", True))
+        write_exc: Exception | None = None
+        path = None
+        if pidx == 0:
+            try:
+                path = self.write(state, self.directory, self.prefix,
+                                  suffix)
+            except Exception as exc:
+                if pcount == 1 and not tolerate:
+                    raise
+                # with peers: decide together below, never strand them
+                write_exc = exc
+        if pcount > 1:
+            failed = allgather_sum(
+                np.array([1.0 if write_exc else 0.0]))[0] > 0
+            if failed:
+                if not tolerate:
+                    raise RuntimeError(
+                        "snapshot write failed on process 0; every "
+                        "process stops together") from write_exc
+                write_exc = write_exc or RuntimeError(
+                    "snapshot write failed on process 0")
+            elif pidx != 0:
+                path = self.write(state, self.directory, self.prefix,
+                                  suffix)  # the fence on process 0's file
+        if write_exc is not None:
             _metrics.snapshot_failures("write").inc()
             _metrics.recoveries("snapshot_write").inc()
             self.warning("snapshot write failed (%s) — continuing; last "
-                         "good snapshot remains %s", exc, self.destination)
+                         "good snapshot remains %s", write_exc,
+                         self.destination)
             return
         self.info("snapshot → %s", path)
         self.destination = path
-        if self.keep_last:
+        if pidx == 0 and self.keep_last:
             self.prune(self.directory, self.prefix, self.keep_last,
                        keep=path)
+
+    @staticmethod
+    def _fence_on_sidecar(path: str, entry_mtime: float | None,
+                          timeout_s: float) -> str:
+        """Wait for process 0's ``.sha256`` sidecar of ``path`` (it lands
+        after the data's atomic replace, so it proves a whole file).
+        ``entry_mtime`` is the sidecar's mtime before the fence (None:
+        absent); a sidecar that was there only counts once its mtime
+        moves, or when it is fresh (written within 2 s of the fence's
+        start: process 0 finished first), so a stale file of an earlier
+        run cannot pass for this one.  The reference's rule."""
+        log = logging.getLogger("znicz_tpu_torch.Snapshotter")
+        sidecar = f"{path}.sha256"
+        entry_wall = time.time()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                mtime = os.path.getmtime(sidecar)
+            except OSError:
+                mtime = None
+            if mtime is not None and (entry_mtime is None
+                                      or mtime > entry_mtime
+                                      or mtime >= entry_wall - 2.0):
+                return path
+            time.sleep(0.02)
+        if os.path.exists(sidecar) and os.path.exists(path):
+            log.warning("sidecar fence on %s timed out after %.0fs but the "
+                        "file exists — accepting the (possibly stale) "
+                        "file", path, timeout_s)
+            return path
+        raise OSError(
+            f"sidecar fence on {path} timed out after {timeout_s:.0f}s — "
+            f"process 0 never completed the write (a snapshot directory "
+            f"not shared by every process, or a failed write)")
 
     @staticmethod
     def write(state: dict, directory: str, prefix: str,
               suffix: str) -> str:
         """Write ``<prefix>_<suffix>.pickle.gz`` atomically, then its
-        ``.sha256`` sidecar; returns the path."""
+        ``.sha256`` sidecar; returns the path.  In a multi-process run
+        only process 0 writes: any other process fences on the sidecar
+        (:meth:`_fence_on_sidecar`) and returns the same path."""
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"{prefix}_{suffix}.pickle.gz")
+        from znicz_tpu_torch.parallel.process_shard import process_info
+        pidx, pcount = process_info()
+        if pcount > 1 and pidx != 0:
+            try:
+                entry_mtime = os.path.getmtime(f"{path}.sha256")
+            except OSError:
+                entry_mtime = None
+            return Snapshotter._fence_on_sidecar(
+                path, entry_mtime, float(root.common.engine.get(
+                    "snapshot_fence_timeout_s", 120.0)))
         tmp = f"{path}.{os.getpid()}.tmp"
         start = time.perf_counter()
         try:
