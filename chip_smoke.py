@@ -309,9 +309,24 @@ Phases (any failure raises and exits non-zero):
    ``run_pipelined(2 stages, M = 4)`` of the stack graphed (one graph an
    op, 16 captures) against ``run_accumulated(4)`` graphed on the same
    data, expected bit-equal, with the measured bubble and both arms'
-   peak device memory.
+   peak device memory;
+17. the input plane: the alexnet sample's synthetic set (1024 train and
+   128 validation frames, 227×227×3 uint8) written as shards under
+   ``build/``, then AlexNet at B = 128 in bf16, graphed, for 3 epochs
+   through ``StreamingLoader`` (``prefetch_depth=2``: page-locked
+   staging ring, side-stream uploads, each batch copied in place into
+   the graph's input) and through the resident ``ArrayLoader``, epoch
+   by epoch in turns: every delivered batch equal to the set's rows at
+   its schedule entry exactly, the parameters within ``CIFAR_EPOCH_TOL``
+   of the resident run's, B1–B4 counted on both paths (equal); the
+   train and validation step times of both, the input wait p50/p99, the
+   share of the input's time hidden, the H2D bytes a step, the ring's
+   page-locked bytes and the staging tensors', the pinned H2D and the
+   in-place D2D timed alone; a delivery that rebinds ``minibatch_raw``
+   must be refused by the next replay, and ``loader.reader_death`` fired
+   mid-epoch must restart the pipeline with every batch still exact.
 
-Each path of phases 3–16 runs with every launch counter set to 0 just
+Each path of phases 3–17 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
@@ -6323,6 +6338,328 @@ def pipeline_pass(card: str) -> dict:
     return launches
 
 
+#: phase 17: the synthetic ImageNet set of the alexnet sample, streamed
+STREAM_TRAIN, STREAM_VALID, STREAM_EPOCHS = 1024, 128, 3
+#: rows per shard file of phase 17's set (5 files, 256 · 154,587 bytes)
+STREAM_ROWS_PER_SHARD = 256
+#: the reader_death fault's arrival (the producer's 5th batch: mid-epoch)
+STREAM_DEATH_AT = 5
+
+
+def stream_shards(x, y) -> str:
+    """Phase 17's set (``STREAM_VALID`` validation frames, then the
+    train frames) written as shards under ``build/`` (gitignored)."""
+    from znicz_tpu_torch.loader.streaming import write_shards
+    out = os.path.join(REPO, "build", "stream_shards")
+    return write_shards(out, x[:STREAM_TRAIN], y[:STREAM_TRAIN],
+                        valid_data=x[STREAM_TRAIN:],
+                        valid_labels=y[STREAM_TRAIN:],
+                        rows_per_shard=STREAM_ROWS_PER_SHARD)
+
+
+def make_streamed(shard_dir: str, **loader_kwargs):
+    """The alexnet sample's net at full width in bf16, fed through a
+    ``StreamingLoader`` over ``shard_dir`` (normalized as the sample's
+    resident loader does)."""
+    from znicz_tpu_torch.loader.streaming import StreamingLoader
+    from znicz_tpu_torch.models.samples import alexnet
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    root.common.precision_type = "bfloat16"
+    cfg = {**root.alexnet.as_dict(), "minibatch_size": ALEX_BATCH}
+    prng.seed_all(SEED)
+    wf = StandardWorkflow(
+        name="alexnet_stream",
+        loader_factory=lambda w: StreamingLoader(
+            w, shard_dir, minibatch_size=ALEX_BATCH,
+            normalization_scale=2.0 / 255.0, normalization_bias=-1.0,
+            **loader_kwargs),
+        layers=alexnet.layers(cfg),
+        decision_config={"max_epochs": cfg["max_epochs"]})
+    wf.initialize()
+    return wf
+
+
+def same_seeds(*wfs) -> None:
+    """One seed chain for the workflows' dropout units, unit by unit: a
+    chain roots lazily, after the last ``seed_all``, so two workflows
+    built one after the other and stepped in turns would draw different
+    roots."""
+    for wf in wfs:
+        chains = [u.seed_chain for u in wf.forwards
+                  if hasattr(u, "seed_chain")]
+        for i, chain in enumerate(chains):
+            chain.set_value(SEED + i)
+
+
+def delivered_ok(loader, glob) -> bool:
+    """This step's delivery against the set: the rows of ``minibatch_raw``
+    equal ``glob[idx]`` exactly, where ``idx`` is the schedule's entry for
+    the step (also ``minibatch_indices``), and the count and labels are
+    the entry's."""
+    import numpy as np
+    import torch
+    idx, _, count = loader.schedule_entry(loader.epoch_number,
+                                          loader._cursor - 1)
+    want = torch.from_numpy(idx.astype(np.int64)).to(glob["x"].device)
+    return (torch.equal(loader.minibatch_indices, want)
+            and int(loader.minibatch_valid) == count
+            and torch.equal(loader.minibatch_raw.devmem,
+                            glob["x"].index_select(0, want))
+            and torch.equal(loader.minibatch_labels,
+                            glob["y"].index_select(0, want)))
+
+
+def pctl(values, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(values), q)) if values else 0.0
+
+
+def stream_pass(card: str) -> tuple[dict, dict]:
+    """Phase 17 (a): AlexNet at B = 128 in bf16, graphed, for
+    ``STREAM_EPOCHS`` epochs through ``StreamingLoader`` over the
+    alexnet sample's synthetic set written as shards, epoch by epoch in
+    turns with the same net fed by the resident ``ArrayLoader`` (phase
+    8's path, here with its validation set).  Every delivered batch must
+    equal the set's rows at its schedule entry, exactly; after the run
+    every parameter must lie within ``CIFAR_EPOCH_TOL`` of the resident
+    run's; B1–B4 must launch on the streamed path as on the resident
+    one.  Prints the step times (train and validation steps apart), the
+    input wait, the share of the input's time hidden, the bytes moved
+    and held, then times the pipeline's copies alone.  Two planted
+    faults: a delivery that rebinds ``minibatch_raw`` must be refused by
+    the next replay, and ``loader.reader_death`` fired mid-epoch must
+    restart the pipeline with every batch still exact.  Returns the
+    launches of the streamed path and of the resident one."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch import datasets
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.memory import Vector
+    from znicz_tpu_torch.models.samples import alexnet
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    t0 = time.perf_counter()
+    x, y = datasets.synthetic_imagenet(STREAM_TRAIN + STREAM_VALID,
+                                       size=227, n_classes=1000)
+    shard_dir = stream_shards(x, y)
+    say(f"  wrote {x.nbytes / 1e6:.1f} MB as "
+        f"{-(-len(x) // STREAM_ROWS_PER_SHARD)} shards in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the set in global order (validation, then train) on the card
+    glob = {"x": torch.from_numpy(np.concatenate(
+                [x[STREAM_TRAIN:], x[:STREAM_TRAIN]])).cuda(),
+            "y": torch.from_numpy(np.concatenate(
+                [y[STREAM_TRAIN:], y[:STREAM_TRAIN]])).cuda()}
+    root.common.precision_type = "bfloat16"
+    prng.seed_all(SEED)
+    resident = alexnet.build(minibatch_size=ALEX_BATCH,
+                             n_train_samples=STREAM_TRAIN,
+                             n_valid_samples=STREAM_VALID)
+    resident.initialize()
+    streamed = make_streamed(shard_dir, prefetch_depth=2)
+    same_seeds(resident, streamed)
+    loader = streamed.loader
+    n_sched = len(loader._schedule)
+    name = loader.name
+    stage0 = metrics.input_stage_seconds(name)
+    stage_sum0, stage_n0 = stage0.sum, stage0.count
+    ms = {("stream", TRAIN): [], ("stream", "valid"): [],
+          ("resident", TRAIN): [], ("resident", "valid"): []}
+    waits = {TRAIN: [], "valid": []}
+    counts = {"stream": {}, "resident": {}}
+    bad = []
+    torch.cuda.synchronize()
+    for epoch in range(STREAM_EPOCHS):
+        order = ("resident", "stream") if epoch % 2 == 0 \
+            else ("stream", "resident")
+        for mode in order:
+            wf = streamed if mode == "stream" else resident
+            reset_counts()
+            for _ in range(n_sched):
+                waited = loader.input_wait_s
+                t1 = time.perf_counter()
+                wf.step()
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t1) * 1e3
+                cls = wf.loader.minibatch_class
+                kind = TRAIN if cls == TRAIN else "valid"
+                ms[mode, kind].append(step_ms)
+                if mode == "stream":
+                    waits[kind].append(
+                        (loader.input_wait_s - waited) * 1e3)
+                    if not delivered_ok(loader, glob):
+                        bad.append((loader.epoch_number,
+                                    loader._cursor - 1))
+            for k, v in read_counts().items():
+                counts[mode][k] = counts[mode].get(k, 0) + v
+    stage_s = stage0.sum - stage_sum0
+    stage_n = stage0.count - stage_n0
+    pipe = loader.pipeline
+    raw_bytes = pipe.ring.buffer(0).nbytes
+    meta_bytes = pipe.meta_ring.buffer(0).nbytes
+    wait_s = sum(waits[TRAIN] + waits["valid"]) / 1e3
+    hidden = 1.0 - wait_s / stage_s if stage_s else float("nan")
+    # the first step starts the pipeline: its read is synchronous
+    first_s = waits["valid"][0] / 1e3
+    steady = 1.0 - (wait_s - first_s) / stage_s if stage_s else float("nan")
+    steps = STREAM_EPOCHS * n_sched
+    say(f"  {steps} steps each ({STREAM_EPOCHS} epochs of "
+        f"{n_sched - 1} train steps and 1 validation step) on {card}, "
+        f"graphed ({streamed.region.captures} captures streamed, "
+        f"{resident.region.captures} resident), epochs in turns; host "
+        f"time a step to a synchronize:")
+    for kind, label in ((TRAIN, "train"), ("valid", "validation")):
+        for mode in ("stream", "resident"):
+            vals = ms[mode, kind][1:]  # the first of a kind: a capture
+            say(f"    {label} {mode}: p50 {pctl(vals, 50):.4f} ms, mean "
+                f"{float(np.mean(vals)):.4f} ms, max {max(vals):.4f} ms "
+                f"over {len(vals)} steps (the first, a capture, "
+                f"{ms[mode, kind][0]:.1f} ms, left out)")
+    say(f"  input wait (host time blocked on the pipeline): train p50 "
+        f"{pctl(waits[TRAIN], 50):.4f} ms, p99 {pctl(waits[TRAIN], 99):.4f}"
+        f" ms; validation p50 {pctl(waits['valid'], 50):.4f} ms, p99 "
+        f"{pctl(waits['valid'], 99):.4f} ms; hits {loader.prefetch_hits}, "
+        f"misses {loader.prefetch_misses}, epoch crossings served "
+        f"{loader.epoch_cross_prefetches}")
+    say(f"  shard gather: {stage_n} batches, {1e3 * stage_s / stage_n:.3f}"
+        f" ms a batch in the producer ({loader.n_reader_threads} reader "
+        f"threads, page cache warm); input time hidden "
+        f"{100 * hidden:.2f} % (1 − wait {wait_s * 1e3:.3f} ms / stage "
+        f"{stage_s * 1e3:.3f} ms), {100 * steady:.2f} % without the first "
+        f"step's synchronous start ({first_s * 1e3:.3f} ms)")
+    say(f"  H2D a step: {raw_bytes + meta_bytes:,} bytes (batch "
+        f"{raw_bytes:,} + count, indices and labels {meta_bytes:,}); "
+        f"ring: {pipe.ring.n_slots} slots, {pipe.ring.nbytes:,} bytes "
+        f"page-locked={pipe.ring.pinned} (+ {pipe.meta_ring.nbytes:,} of "
+        f"meta rows); device staging {len(pipe.stage_raw)} × "
+        f"{raw_bytes:,} + meta = {pipe.staging_nbytes:,} bytes")
+    if bad:
+        raise AssertionError(f"stream: delivered batches differ from the "
+                             f"set at (epoch, cursor) {bad}")
+    say(f"  every one of the {steps} delivered batches equals the set's "
+        f"rows at its schedule entry, exactly (indices, count, labels "
+        f"too), across {STREAM_EPOCHS - 1} epoch boundaries and the "
+        f"{streamed.region.captures} captures taken while the pipeline "
+        f"ran")
+    if raw_bytes != ALEX_BATCH * 227 * 227 * 3 or not pipe.ring.pinned:
+        raise AssertionError("stream: the ring is not the pinned batch")
+    ran = {k: v for k, v in counts["stream"].items() if v}
+    say(f"  launches on the stream path: {ran}")
+    if counts["stream"] != counts["resident"] or not all(
+            counts["stream"][k] for k in (
+                "lrn_forward", "lrn_forward_conv2", "lrn_backward",
+                "lrn_backward_conv2", "dropout_apply", "softmax_argmax")):
+        raise AssertionError(f"stream: launches {ran} against the "
+                             f"resident run's {counts['resident']}")
+    err, worst, same = params_diff(params_of(streamed), params_of(resident))
+    say(f"  streamed against resident after {steps} steps: worst "
+        f"‖streamed − resident‖ / ‖resident‖ {err:.3g} ({worst}; tol "
+        f"{CIFAR_EPOCH_TOL}), {same} of {len(params_of(resident))} "
+        f"parameters bit-equal")
+    if err > CIFAR_EPOCH_TOL:
+        raise AssertionError("stream: the streamed run leaves the resident "
+                             "one")
+    copies = stream_copy_ms(pipe)
+    say(f"  the pipeline's copies alone ({ALEX_BATCH} frames, CUDA events,"
+        f" 20 each): pinned H2D on a side stream {copies['h2d']:.4f} ms "
+        f"({raw_bytes / copies['h2d'] / 1e6:.1f} GB/s), the in-place "
+        f"delivery D2D {copies['d2d']:.4f} ms "
+        f"({2 * raw_bytes / copies['d2d'] / 1e6:.1f} GB/s read + write)")
+    # planted fault 1: a delivery that rebinds minibatch_raw
+    real = Vector.accept_device
+
+    def rebinding(self, value):
+        self._devmem = value.clone()
+    Vector.accept_device = rebinding
+    try:
+        streamed.step()
+        refused = False
+    except RuntimeError as exc:
+        refused = "rebound" in str(exc)
+    finally:
+        Vector.accept_device = real
+    say(f"  planted fault (a delivery that rebinds minibatch_raw): "
+        f"{'refused by the next replay' if refused else 'not caught'}")
+    if not refused:
+        raise AssertionError("stream: a rebinding delivery was replayed")
+    loader.stop()
+    streamed.stop()
+    del streamed, resident
+    stream_reader_death(shard_dir, glob, n_sched)
+    say(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return counts["stream"], counts["resident"]
+
+
+def stream_copy_ms(pipe) -> dict:
+    """The pipeline's two copies of one batch timed alone (fresh
+    tensors of the pipeline's shapes): the page-locked slot to a staging
+    tensor on a side stream, and a staging tensor into another device
+    tensor (the delivery)."""
+    import torch
+    ring = pipe.ring.tensor(0)
+    src = torch.empty(ring.shape, dtype=ring.dtype, pin_memory=True)
+    stage = torch.empty_like(pipe.stage_raw[0])
+    dst = torch.empty_like(stage)
+    side = torch.cuda.Stream()
+    out = {}
+    for name, stream, fn in (
+            ("h2d", side, lambda: stage.copy_(src, non_blocking=True)),
+            ("d2d", torch.cuda.current_stream(),
+             lambda: dst.copy_(stage, non_blocking=True))):
+        with torch.cuda.stream(stream):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(20):
+                fn()
+            end.record(stream)
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / 20
+    return out
+
+
+def stream_reader_death(shard_dir: str, glob, n_sched: int) -> None:
+    """The planted ``loader.reader_death`` on the card: the producer dies
+    at its ``STREAM_DEATH_AT``-th batch, mid-epoch; over one epoch and
+    two steps the loader must restart the pipeline once, and deliver
+    every batch exactly (the clean run's batches are the set's rows at
+    the same entries).  A bare loader, no region: the delivery is what
+    is checked."""
+    from znicz_tpu_torch.loader.streaming import StreamingLoader
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    from znicz_tpu_torch.workflow import Workflow
+    root.common.engine.faults = {"loader.reader_death":
+                                 {"at": [STREAM_DEATH_AT]}}
+    try:
+        prng.seed_all(SEED)
+        loader = StreamingLoader(
+            Workflow(name="stream_fault"), shard_dir,
+            minibatch_size=ALEX_BATCH, prefetch_depth=2,
+            normalization_scale=2.0 / 255.0, normalization_bias=-1.0)
+        loader.initialize(device="cuda")
+        bad = []
+        for _ in range(n_sched + 2):
+            loader.run()
+            if not delivered_ok(loader, glob):
+                bad.append((loader.epoch_number, loader._cursor - 1))
+        restarts = loader.pipeline_restarts
+        loader.stop()
+    finally:
+        root.common.engine.faults = None
+    say(f"  planted fault (loader.reader_death at the producer's batch "
+        f"{STREAM_DEATH_AT}): {restarts} pipeline restart(s), "
+        f"{n_sched + 2 - len(bad)} of {n_sched + 2} batches exact")
+    if restarts != 1 or bad:
+        raise AssertionError(f"stream: reader death gave {restarts} "
+                             f"restarts, wrong batches at {bad}")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6516,6 +6853,11 @@ def main() -> int:
                 ring_pass(smi, dtype_name, causal, gen)
     paths["pipeline"] = pipeline_pass(smi)
     say(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    say("phase 17: the input plane — AlexNet streamed from shards through "
+        "the pinned staging ring, graphed, in turns with the resident "
+        "loader")
+    paths["stream"], paths["stream_resident"] = stream_pass(smi)
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

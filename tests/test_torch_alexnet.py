@@ -437,8 +437,14 @@ def test_sample_matches_the_reference_sample():
     rx, ry = ref_datasets.synthetic_imagenet(3, size=11, n_classes=5)
     np.testing.assert_array_equal(x, rx)
     np.testing.assert_array_equal(y, ry)
-    with pytest.raises(NotImplementedError, match="FileImageLoader"):
-        alexnet.build(streaming_dir="/nonexistent")
+    # the streaming branch: the reference's FileImageLoader settings
+    # (tests/test_torch_vision_dirs.py trains it)
+    port = alexnet.build(streaming_dir="/nonexistent").loader
+    ref = ref_alexnet.build(streaming_dir="/nonexistent").loader
+    for attr in ("train_dir", "validation_fraction", "out_hw", "resize_hw",
+                 "max_minibatch_size", "random_crop", "random_flip",
+                 "normalization_scale", "normalization_bias"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
 
 
 def test_full_width_alexnet_steps_on_the_cpu():

@@ -69,7 +69,7 @@ def test_list_samples(capsys):
     assert Main().run(["--list-samples"]) == 0
     out = capsys.readouterr().out.split()
     for name in ("cifar", "alexnet", "attention_seq", "mnist_rbm",
-                 "kohonen"):
+                 "kohonen", "imagenet"):
         assert name in out
 
 

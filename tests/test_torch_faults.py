@@ -10,7 +10,8 @@ against the reference's, on the CPU.
 - the chaos-matrix pins of ``tests/test_chaos_matrix.py`` for the port:
   every site whose module is ported has a live ``fire("<site>"`` call
   in ``znicz_tpu_torch/``, every other site is listed with the ROADMAP
-  item that owns its module, and no call names an unknown site;
+  item that owns its module, and no call names an unknown site; the
+  streaming loader's three sites fire live and are absorbed;
 - ``snapshot.write_fail`` is absorbed: training goes on, the failure is
   counted, and ``destination`` keeps the last good snapshot, which
   loads (the port of
@@ -45,8 +46,6 @@ UNFIRED = {
     "swap.probation_fail": "A11", "host.loss": "A11",
     "host.preempt": "A11", "heartbeat.stall": "A11",
     "checkpoint.signal_corrupt": "A11",
-    "loader.reader_death": "A10", "loader.corrupt_shard": "A10",
-    "loader.short_read": "A10",
     "fleet.tenant_flood": "A12", "fleet.replica_loss": "A12",
     "disagg.handoff_drop": "A12", "aotcache.corrupt": "A12",
     "fleet.model_corrupt": "A13",
@@ -169,8 +168,11 @@ def test_every_ported_site_has_a_live_fire_call():
         "sdc.serving_bitflip": {"engine.py"},
         "snapshot.write_fail": {"snapshotter.py"},
         "quant.calib_corrupt": {"quantize.py"},
-        "observe.recorder_stall": {"recorder.py"}}
-    assert set(UNFIRED.values()) <= {"A10", "A11", "A12", "A13"}
+        "observe.recorder_stall": {"recorder.py"},
+        "loader.reader_death": {"streaming.py"},
+        "loader.corrupt_shard": {"streaming.py"},
+        "loader.short_read": {"streaming.py"}}
+    assert set(UNFIRED.values()) <= {"A11", "A12", "A13"}
 
 
 @pytest.mark.parametrize("site", sorted(faults.SITES))
@@ -178,6 +180,33 @@ def test_every_site_accepts_a_one_event_recipe(site):
     plan = faults.FaultPlan({site: {"at": [1]}})
     assert plan.configured_sites() == {site}
     assert len(faults.SITES[site]) > 30
+
+
+@pytest.mark.parametrize("site", ["loader.reader_death",
+                                  "loader.corrupt_shard",
+                                  "loader.short_read"])
+def test_loader_sites_fire_live(site, tmp_path):
+    """Each of the streaming loader's sites fires on its first arrival
+    in a live pipeline and is absorbed: the steps go on."""
+    from znicz_tpu_torch.loader.streaming import (StreamingLoader,
+                                                  write_shards)
+    from znicz_tpu_torch.workflow import Workflow
+    data, labels = make_blobs(24, 3, 10, spread=1.2)
+    write_shards(str(tmp_path / "s"), data, labels, rows_per_shard=20)
+    root.common.engine.read_backoff_s = 0.0
+    root.common.engine.faults = {site: {"at": [1]}}
+    injected = metrics.faults_injected(site).value
+    prng.seed_all(5)
+    loader = StreamingLoader(Workflow(name="w"), str(tmp_path / "s"),
+                             minibatch_size=12)
+    loader.initialize(device="cpu")
+    try:
+        for _ in range(3):
+            loader.run()
+    finally:
+        loader.stop()
+    assert metrics.faults_injected(site).value == injected + 1
+    assert loader.pipeline_restarts == (site == "loader.reader_death")
 
 
 # ----------------------------------------------------------------------

@@ -321,15 +321,20 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 10
     # the sequence units of the token LM among them, the RBM, the SOM
     # and the cutter, the fault plan, the flight recorder and the
-    # quantizer (host-only modules the port copies), decode, and the
-    # parallel package (its host-only code copied too)
+    # quantizer (host-only modules the port copies), decode, the
+    # parallel package (its host-only code copied too) and the input
+    # plane
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
                                 "decode", "axis", "distributed", "mesh",
                                 "partition", "process_shard",
-                                "ring_attention", "pipeline")} \
+                                "ring_attention", "pipeline", "streaming",
+                                "image", "imagenet")} \
         <= {p.name for p in files}
+    # the input plane, the native pool's loader among them
+    assert REPO / "znicz_tpu_torch" / "native" / "__init__.py" in files
+    assert REPO / "znicz_tpu_torch" / "loader" / "streaming.py" in files
     assert REPO / "znicz_tpu_torch" / "serving" / "decode.py" in files
     assert REPO / "znicz_tpu_torch" / "parallel" / "partition.py" in files
     for path in files:

@@ -11,7 +11,7 @@ the five samples of the slice on the port's command line, on the CPU
   with its conv widths narrowed by four (its head kept).
 - Each converges on the CPU to the reference test's bar in 8 epochs.
 - With the sample's image directory under ``root.common.dirs.datasets``
-  the sample raises, naming A10 (the image loader is not ported yet).
+  the sample reads it through ``FullBatchImageLoader`` (A10).
 - ``python -m znicz_tpu_torch <sample> -b cpu`` trains each of the five
   samples of the slice (the autoencoders cut by ``--root``).
 """
@@ -26,6 +26,7 @@ from znicz_tpu.utils import prng as ref_prng
 from znicz_tpu.utils.config import root as ref_root
 from znicz_tpu_torch.__main__ import Main
 from znicz_tpu_torch.loader.base import TRAIN, VALID
+from znicz_tpu_torch.loader.image import FullBatchImageLoader
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import reset_root, root
 
@@ -139,11 +140,17 @@ def test_sample_converges(name):
                                             ("yale_faces", "yalefaces"),
                                             ("channels", "channels")])
 def test_image_directory_waits_for_a10(name, directory, tmp_path):
+    """A10 is ported: with the sample's image directory the sample reads
+    it through ``FullBatchImageLoader``, as the reference does
+    (``tests/test_torch_vision_dirs.py`` steps it beside the
+    reference)."""
     (tmp_path / "datasets" / directory / "class0").mkdir(parents=True)
     root.common.dirs.datasets = str(tmp_path / "datasets")
     _, port_mod = _modules(name)
-    with pytest.raises(NotImplementedError, match=r"\(A10\)"):
-        port_mod.build()
+    wf = port_mod.build()
+    assert isinstance(wf.loader, FullBatchImageLoader)
+    assert wf.loader.train_dir == str(tmp_path / "datasets" / directory)
+    assert wf.loader.grayscale == (name != "channels")
 
 
 CLI = {

@@ -72,12 +72,17 @@ tensor a capture left bound must still be bound at each replay: a
 replay that finds one rebound raises, naming it, rather than compute on
 the tensor the graph captured.  There is no fallback: a capture that
 fails raises, naming the unit.  The garbage collector does not run
-during a capture (it could destroy a dropped region's graph there).
+during a capture (it could destroy a dropped region's graph there), and
+a capture holds :data:`CAPTURE_LOCK`, which the streaming loader's
+uploader thread takes around its own CUDA calls: the region captures
+in the default global mode, which a copy, an event or a sync from
+another thread during the capture would invalidate.
 """
 
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -96,6 +101,11 @@ from znicz_tpu_torch.utils.logger import Logger
 from znicz_tpu_torch.workflow import Workflow
 
 register_defaults("common", {"engine": {"debug_checks": False}})
+
+#: held by a region for the length of its CUDA-graph capture; a thread
+#: that works on the card beside the training step (the streaming
+#: loader's uploader) holds it around its CUDA calls
+CAPTURE_LOCK = threading.Lock()
 
 
 def debug_checks_enabled() -> bool:
@@ -563,7 +573,7 @@ class JitRegion(Logger):
         gc.disable()
         try:
             with _tracing.TRACER.span(f"capture:{self.name}",
-                                      cat="capture"):
+                                      cat="capture"), CAPTURE_LOCK:
                 with torch.cuda.graph(graph):
                     self._run_members(skips, capture=True, checks=checks)
         finally:

@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from znicz_tpu_torch.loader.base import TEST, TRAIN, VALID, Loader
+from znicz_tpu_torch.loader.base import (TEST, TRAIN, VALID, Loader,
+                                         normalization_table, normalize)
 from znicz_tpu_torch.memory import Vector
 
 
@@ -93,11 +94,9 @@ class FullBatchLoader(Loader):
                 self.torch_device)
         if self.normalization_scale is not None \
                 and self.original_data.dtype == torch.uint8:
-            table = (np.arange(256, dtype=np.float64)
-                     * np.float32(self.normalization_scale)
-                     + np.float32(self.normalization_bias))
-            self._table = torch.from_numpy(table.astype(np.float32)).to(
-                self.act_store_dtype).to(self.torch_device)
+            self._table = normalization_table(
+                self.normalization_scale, self.normalization_bias,
+                self.act_store_dtype, self.torch_device)
 
     # -- the schedule on the device ----------------------------------------
     def init_schedule(self) -> None:
@@ -139,15 +138,10 @@ class FullBatchLoader(Loader):
         self.sched_cursor.devmem = (cursor[0] + 1) % len(self._schedule)
         self.minibatch_indices = idx
         self.minibatch_valid = count[0]
-        batch = self.original_data.index_select(0, idx)
-        if self._table is not None:
-            batch = self._table.index_select(
-                0, batch.view(-1).int()).view(batch.shape)
-        elif self.normalization_scale is not None:
-            batch = (batch.float()
-                     * float(np.float32(self.normalization_scale))
-                     + float(np.float32(self.normalization_bias)))
-        self.minibatch_data = batch.to(self.act_store_dtype)
+        self.minibatch_data = normalize(
+            self.original_data.index_select(0, idx), self._table,
+            self.normalization_scale, self.normalization_bias,
+            self.act_store_dtype)
         if self.original_labels is not None:
             self.minibatch_labels = self.original_labels.index_select(0,
                                                                       idx)

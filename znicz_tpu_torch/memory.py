@@ -20,6 +20,12 @@ Only a write of another shape binds a new tensor.
 numpy has no bfloat16, so a bf16 tensor's host mirror is float32; a
 host write is rounded to bf16 when it reaches the device.
 
+The streaming data plane's delivery keeps that rule too:
+:meth:`Vector.accept_device` copies a batch already on the device into
+the Vector's tensor (the reference swaps the pointer, which a replay
+would refuse), and :class:`StagingRing` is the bounded pool of host
+buffers (pinned on the card) its readers fill.
+
 On a host-only device (the numpy oracle,
 :class:`~znicz_tpu_torch.backends.NumpyDevice`) the host array is the
 buffer, as in the reference: ``unmap`` uploads nothing, ``devmem`` is
@@ -29,6 +35,7 @@ the host array, and a write through the ``devmem`` setter goes into it.
 from __future__ import annotations
 
 import enum
+import queue
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -218,6 +225,40 @@ class Vector:
             self._devmem = value
         self._state = _State.DEVICE
 
+    def accept_device(self, value) -> None:
+        """Take a batch that is already on the device as this step's
+        contents: the streaming loaders' delivery.  The batch is copied
+        into the Vector's tensor (one device-to-device copy on the
+        current stream), so the address a captured graph reads is kept;
+        the reference swaps the pointer instead.  Shape and dtype must
+        be the declared ones.  On a host-only device ``value`` (an array
+        or a CPU tensor) is copied into the host array."""
+        self._check_not_tracing("accept_device")
+        if self._state == _State.EMPTY:
+            raise ValueError(
+                f"Vector '{self.name}': accept_device on empty buffer")
+        if self._host_only:
+            mem = self._mem
+            src = value.numpy() if isinstance(value, torch.Tensor) \
+                else np.asarray(value)
+            if src.shape != mem.shape or src.dtype != mem.dtype:
+                raise ValueError(
+                    f"Vector '{self.name}': accept_device {src.shape}/"
+                    f"{src.dtype} does not match the declared "
+                    f"{mem.shape}/{mem.dtype}")
+            mem[...] = src
+            self._state = _State.HOST
+            return
+        dev = self._devmem
+        if tuple(value.shape) != tuple(dev.shape) \
+                or value.dtype != dev.dtype:
+            raise ValueError(
+                f"Vector '{self.name}': accept_device "
+                f"{tuple(value.shape)}/{value.dtype} does not match the "
+                f"declared {tuple(dev.shape)}/{dev.dtype}")
+        dev.copy_(value, non_blocking=True)
+        self._state = _State.DEVICE
+
     @property
     def _host_only(self) -> bool:
         return self._device is not None and self._device.is_host_only
@@ -268,3 +309,73 @@ def _host_dtype(dtype: torch.dtype) -> np.dtype:
     if dtype == torch.bfloat16:
         return np.dtype(np.float32)
     return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def host_buffer(shape: tuple[int, ...], dtype, pin: bool
+                ) -> tuple[torch.Tensor, np.ndarray]:
+    """A zeroed host buffer as ``(tensor, numpy view of it)``, in
+    page-locked memory when ``pin`` (a copy from it to the card is then
+    asynchronous)."""
+    t = torch.zeros(shape, dtype=torch.from_numpy(
+        np.zeros(0, dtype=dtype)).dtype, pin_memory=pin)
+    return t, t.numpy()
+
+
+class StagingRing:
+    """A bounded ring of reusable host staging buffers: the streaming
+    loader's slot pool (port of the reference's ``StagingRing``).
+
+    Readers :meth:`acquire` a free slot, fill its buffer and hand the
+    index on; whoever is done with the contents (the uploader once its
+    copy to the device has completed) :meth:`release`\\ s it.  The bound
+    is the back-pressure: a stalled consumer blocks the readers at
+    ``acquire``, so the host memory stays ``n_slots × batch bytes``
+    however large the dataset.  Every buffer is allocated once, here
+    (page-locked when ``pin``: the card's copies from it are then
+    asynchronous); the steady state allocates nothing.  Thread-safe.
+    """
+
+    def __init__(self, n_slots: int, shape: tuple[int, ...], dtype,
+                 pin: bool = False) -> None:
+        if n_slots < 1:
+            raise ValueError(f"StagingRing needs >= 1 slot, got {n_slots}")
+        self.pinned = bool(pin)
+        slots = [host_buffer(shape, dtype, pin) for _ in range(n_slots)]
+        self._tensors = [t for t, _ in slots]
+        self._bufs = [b for _, b in slots]
+        self._free: "queue.Queue[int]" = queue.Queue()
+        for i in range(n_slots):
+            self._free.put(i)
+
+    @property
+    def n_slots(self) -> int:
+        return len(self._bufs)
+
+    @property
+    def n_free(self) -> int:
+        return self._free.qsize()
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes the ring holds."""
+        return sum(b.nbytes for b in self._bufs)
+
+    def buffer(self, slot: int) -> np.ndarray:
+        """The slot's buffer, which the readers fill."""
+        return self._bufs[slot]
+
+    def tensor(self, slot: int) -> torch.Tensor:
+        """The slot's buffer as the tensor the uploader copies from."""
+        return self._tensors[slot]
+
+    def acquire(self, timeout: float | None = None) -> int | None:
+        """The next free slot; blocks (up to ``timeout``) while every
+        slot is downstream, and gives ``None`` on the timeout so that a
+        pipeline thread can check its stop flag instead of hanging."""
+        try:
+            return self._free.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def release(self, slot: int) -> None:
+        self._free.put(slot)

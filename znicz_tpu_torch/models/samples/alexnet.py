@@ -24,8 +24,12 @@ the device and normalizes each gathered batch to [−1, 1] in f32::
     for _ in range(10):
         wf.step()
 
-The reference's streaming ``FileImageLoader`` branch (``streaming_dir``)
-is not ported yet and raises.
+``build(streaming_dir=...)`` trains from a class-per-subdirectory image
+tree instead, through the streaming
+:class:`~znicz_tpu_torch.loader.image.FileImageLoader` (the native
+decode pool: resize 256, random 227 crops and flips on train; on the
+card the pool must build, or the loader raises).  The :mod:`.imagenet`
+sample is that path with its own defaults.
 """
 
 from __future__ import annotations
@@ -96,24 +100,31 @@ def layers(cfg: dict) -> list[dict]:
 def build(streaming_dir: str | None = None,
           **overrides) -> StandardWorkflow:
     """The sample's workflow from ``root.alexnet`` (``DEFAULTS`` unless a
-    config or ``--root`` set a leaf) updated by ``overrides``,
-    fed from :func:`~znicz_tpu_torch.datasets.synthetic_imagenet`."""
-    if streaming_dir is not None:
-        raise NotImplementedError(
-            "alexnet.build(streaming_dir=...): the streaming "
-            "FileImageLoader is not ported yet")
+    config or ``--root`` set a leaf) updated by ``overrides``, fed from
+    :func:`~znicz_tpu_torch.datasets.synthetic_imagenet`, or from the
+    image tree ``streaming_dir`` (the validation share carved off by
+    ``n_valid_samples / (n_train_samples + n_valid_samples)``)."""
     cfg = {**root.alexnet.as_dict(), **overrides}
     n_train, n_valid = cfg["n_train_samples"], cfg["n_valid_samples"]
-    x, y = datasets.synthetic_imagenet(n_train + n_valid,
-                                       size=cfg["image_size"],
-                                       n_classes=cfg["n_classes"])
-    return StandardWorkflow(
-        name="alexnet",
-        loader_factory=lambda w: ArrayLoader(
+    size = cfg["image_size"]
+    if streaming_dir is not None:
+        from znicz_tpu_torch.loader.image import FileImageLoader
+        loader_factory = lambda w: FileImageLoader(  # noqa: E731
+            w, train_dir=streaming_dir,
+            validation_fraction=n_valid / max(1, n_train + n_valid),
+            out_hw=(size, size), resize_hw=(256, 256),
+            minibatch_size=cfg["minibatch_size"])
+    else:
+        x, y = datasets.synthetic_imagenet(n_train + n_valid, size=size,
+                                           n_classes=cfg["n_classes"])
+        loader_factory = lambda w: ArrayLoader(  # noqa: E731
             w, train_data=x[:n_train], train_labels=y[:n_train],
             valid_data=x[n_train:], valid_labels=y[n_train:],
             minibatch_size=cfg["minibatch_size"],
-            normalization_scale=2.0 / 255.0, normalization_bias=-1.0),
+            normalization_scale=2.0 / 255.0, normalization_bias=-1.0)
+    return StandardWorkflow(
+        name="alexnet",
+        loader_factory=loader_factory,
         layers=layers(cfg),
         decision_config={"max_epochs": cfg["max_epochs"]},
         snapshotter_config=cfg.get("snapshotter_config"))

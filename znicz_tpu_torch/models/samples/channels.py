@@ -15,8 +15,8 @@ minibatches of 50, 15 % of the images held out for validation.  With no
 reference's stand-in: 60 images a channel of
 :func:`~znicz_tpu_torch.datasets.synthetic_images` (seed 48), uint8,
 scaled to [−1, 1] by the loader.  A real directory (one subdirectory per
-channel, read by the reference's ``FullBatchImageLoader``) waits for
-the image loader (A10) and raises::
+channel) is decoded once by ``FullBatchImageLoader`` at 32×32, as in
+the reference::
 
     python -m znicz_tpu_torch channels -b cpu --root channels.max_epochs=2
 """
@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from znicz_tpu_torch import datasets
 from znicz_tpu_torch.loader.fullbatch import ArrayLoader
-from znicz_tpu_torch.models.samples._vision import refuse_data_dir
+from znicz_tpu_torch.models.samples._vision import image_dir_loader
 from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
 from znicz_tpu_torch.utils.config import register_defaults, root
 
@@ -69,18 +69,21 @@ def build(**overrides) -> StandardWorkflow:
     """The sample's workflow from ``root.channels`` updated by
     ``overrides``."""
     cfg = {**root.channels.as_dict(), **overrides}
-    refuse_data_dir("channels", "channels")
-    x, y, _, _ = datasets.synthetic_images(
-        n_train=cfg["n_channels"] * 60, n_test=0, size=cfg["image_size"],
-        channels=3, n_classes=cfg["n_channels"], seed=48)
-    n_valid = int(len(x) * cfg["validation_fraction"])
-    wf = StandardWorkflow(
-        name="channels",
-        loader_factory=lambda w: ArrayLoader(
+    loader_factory = image_dir_loader("channels", cfg, grayscale=False)
+    if loader_factory is None:
+        x, y, _, _ = datasets.synthetic_images(
+            n_train=cfg["n_channels"] * 60, n_test=0,
+            size=cfg["image_size"], channels=3,
+            n_classes=cfg["n_channels"], seed=48)
+        n_valid = int(len(x) * cfg["validation_fraction"])
+        loader_factory = lambda w: ArrayLoader(  # noqa: E731
             w, train_data=x[n_valid:], train_labels=y[n_valid:],
             valid_data=x[:n_valid], valid_labels=y[:n_valid],
             minibatch_size=cfg["minibatch_size"],
-            normalization_scale=2.0 / 255.0, normalization_bias=-1.0),
+            normalization_scale=2.0 / 255.0, normalization_bias=-1.0)
+    wf = StandardWorkflow(
+        name="channels",
+        loader_factory=loader_factory,
         layers=layers(cfg),
         decision_config={"max_epochs": cfg["max_epochs"]})
     wf._max_fires = 100_000_000

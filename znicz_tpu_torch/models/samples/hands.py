@@ -7,9 +7,8 @@ of 40, 15 % of the images held out for validation.  With no
 ``root.common.dirs.datasets/hands`` directory the data is the
 reference's stand-in: 400 two-class
 :func:`~znicz_tpu_torch.datasets.synthetic_images` (seed 47) scaled to
-[−1, 1].  A real directory (one subdirectory per posture, read by the
-reference's ``FullBatchImageLoader``) waits for the image loader (A10)
-and raises::
+[−1, 1].  A real directory (one subdirectory per posture) is decoded
+once by ``FullBatchImageLoader``, grayscale, as in the reference::
 
     python -m znicz_tpu_torch hands -b cpu
 """

@@ -7,9 +7,8 @@ moment 0.9) on minibatches of 20, 15 % of the images held out for
 validation.  With no ``root.common.dirs.datasets/yalefaces`` directory
 the data is the reference's stand-in: 11 images a subject of
 :func:`~znicz_tpu_torch.datasets.synthetic_images` (seed 46) scaled to
-[−1, 1].  A real directory (one subdirectory per subject, read by the
-reference's ``FullBatchImageLoader``) waits for the image loader (A10)
-and raises::
+[−1, 1].  A real directory (one subdirectory per subject) is decoded
+once by ``FullBatchImageLoader``, grayscale, as in the reference::
 
     python -m znicz_tpu_torch yale_faces -b cpu
 """

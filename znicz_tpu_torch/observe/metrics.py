@@ -15,7 +15,9 @@ the series of fault injection, hot swap, the SDC shadow audit,
 request traces and the flight recorder, and decode's: time to first
 token and per token, token counts, live slots, the KV page pool, the
 prefix cache, speculative verdicts, the per-phase p99 gauges and the
-swap drain's admission pause.
+swap drain's admission pause, and the input plane's: the input wait
+and staging time, the prefetch depth and events, the ready batches,
+and the shard reader's retries, quarantines and pipeline restarts.
 The hot-path series (unit times, transfer bytes) are gated on
 :func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
@@ -336,6 +338,83 @@ def transfer_bytes(direction: str) -> Counter:
         "znicz_device_transfer_bytes_total",
         "Vector host<->device transfer bytes by direction",
         labels=("direction",)).labels(direction=direction)
+
+
+def input_wait_seconds(loader: str) -> Histogram:
+    """Host time a step spent blocked on the input pipeline (a prefetch
+    miss, an empty queue).  A hidden input plane keeps it near 0 while
+    :func:`input_stage_seconds` accrues; ``1 − wait_sum/stage_sum`` is
+    the share of the input's time the step hid."""
+    return REGISTRY.histogram(
+        "znicz_input_wait_seconds",
+        "Step time blocked waiting for the input pipeline",
+        labels=("loader",)).labels(loader=loader)
+
+
+def input_stage_seconds(loader: str) -> Histogram:
+    """Producer time of one minibatch (shard read or decode into a
+    staging slot): the work the prefetch hides under the step."""
+    return REGISTRY.histogram(
+        "znicz_input_stage_seconds",
+        "Producer time to read+stage one minibatch",
+        labels=("loader",)).labels(loader=loader)
+
+
+def prefetch_depth(loader: str) -> Gauge:
+    """Batches a loader stages ahead of the step (0: synchronous)."""
+    return REGISTRY.gauge(
+        "znicz_prefetch_depth",
+        "Loader prefetch depth (0 = synchronous input)",
+        labels=("loader",)).labels(loader=loader)
+
+
+def loader_prefetch(loader: str, event: str) -> Counter:
+    """Prefetch events: ``hit`` (a step served from a batch staged
+    ahead), ``miss`` (a synchronous read), ``epoch_cross`` (a hit on
+    an epoch's first minibatch, staged before the epoch began)."""
+    return REGISTRY.counter(
+        "znicz_loader_prefetch_total",
+        "Loader prefetch events (hit/miss/epoch_cross)",
+        labels=("loader", "event")).labels(loader=loader, event=event)
+
+
+def prefetch_ready(loader: str) -> Gauge:
+    """Staged batches waiting for the consumer."""
+    return REGISTRY.gauge(
+        "znicz_prefetch_ready_batches",
+        "Uploaded batches waiting for the consumer",
+        labels=("loader",)).labels(loader=loader)
+
+
+def loader_read_retries(loader: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_loader_read_retries_total",
+        "Shard read attempts that failed and were retried",
+        labels=("loader",)).labels(loader=loader)
+
+
+def loader_shards_quarantined(loader: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_loader_shards_quarantined_total",
+        "Shards quarantined after exhausting read retries (their rows "
+        "deliver zeros for the rest of the run)",
+        labels=("loader",)).labels(loader=loader)
+
+
+def loader_pipeline_restarts(loader: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_loader_pipeline_restarts_total",
+        "Streaming pipelines rebuilt after a producer/uploader thread "
+        "died", labels=("loader",)).labels(loader=loader)
+
+
+def loader_rows_quarantined(loader: str) -> Counter:
+    """Rows delivered as zeros because their shard is quarantined: the
+    data a quarantine costs, counted."""
+    return REGISTRY.counter(
+        "znicz_loader_rows_quarantined_total",
+        "Rows zero-filled from quarantined shards (silent data loss, "
+        "now loud)", labels=("loader",)).labels(loader=loader)
 
 
 def region_steps(region: str) -> Counter:

@@ -2,9 +2,9 @@
 
 ``y = (x − mean) · rdisp``: per-feature whitening of the input with
 dataset statistics, the mean and the reciprocal dispersion, each of the
-sample's shape.  The reference's image loader computes them; until that
-loader is ported (ROADMAP A10) the caller sets them (``mean`` and
-``rdisp``, arrays or tensors, before ``initialize``).
+sample's shape.  The caller sets them (``mean`` and ``rdisp``, arrays or
+tensors, before ``initialize``), as in the reference, whose loaders do
+not compute them.
 :class:`GDMeanDispNormalizer` gives ``err_input = err_output · rdisp``.
 Elementwise, weightless; on the numpy oracle both run the reference's
 numpy path.
