@@ -63,7 +63,8 @@ Phases (any failure raises and exits non-zero):
    memory), and holds the 1-row reply against
    ``ExportedModel.load(path, device="cpu")``;
 4. sequence training: the same stack (bf16, momentum SGD on every
-   layer, as ``benchmarks/seq_bench.py`` trains it) through the port's
+   layer as ``benchmarks/seq_bench.py`` trains it, at a tenth of its
+   rate, :data:`SEQ_GD`) through the port's
    ``StandardWorkflow`` on 4 × 16 samples made from a fixed seed,
    ``initialize()`` with no device (the card), 2 warm-up and 10 timed
    train steps; B4–B9 launch once a step, B4, B5 and B6 on their
@@ -325,10 +326,40 @@ Phases (any failure raises and exits non-zero):
    in-place D2D timed alone; a delivery that rebinds ``minibatch_raw``
    must be refused by the next replay, and ``loader.reader_death`` fired
    mid-epoch must restart the pipeline with every batch still exact.
+18. resilience, with the anomaly guard and the SDC fingerprints on, the
+   default (every phase before runs with them too): (a) AlexNet at B =
+   128 in bf16, graphed, and the full-width sequence stack: the step's
+   p50 and mean with the guard on, off and on without its per-step read,
+   in turns; the kernels' launches a step the same guarded and not, the
+   clean steps reading no anomaly; ``train.nonfinite_loss`` at one step and
+   ``train.nonfinite_grad`` at another, each leaving every parameter and
+   momentum tensor bit-equal with no new capture, the totals (1, 1);
+   five injected steps in a row rolled back to a snapshot written before
+   them (a step after them: the card reads the guard's state a step
+   behind), the graphed run going on after; a clean guarded step against
+   the unguarded one from that snapshot, beside two unguarded ones (conv
+   backward adds with atomics); (b) the byte LM's
+   ``run_accumulated(4)`` graphed and guarded, a NaN in one microbatch
+   of one optimizer step skipping the whole step; (c) MNIST 784-100-10
+   guarded bit-equal to unguarded, ``sdc.flip_param`` localized by the
+   sticky self-check and the vote of a world of one, ``sdc.flip_grad``
+   caught by the shadow audit on the numpy oracle after a clean audit;
+   (d) the full-width stack trained and published into phase 14's
+   graphed scorer engine under a closed loop of requests: promoted,
+   ``publish.corrupt`` refused by the watcher, ``swap.canary_regress``
+   refused at the canary, ``swap.probation_fail`` rolled back, no new
+   capture, every reply one version's; (e) the ``ElasticSupervisor``
+   with one-process gangs of ``elastic_worker`` on the card:
+   ``host.preempt`` → the checkpoint on signal → a restart from it,
+   bit-equal to an uninterrupted run (gangs of several processes need
+   a card each and stay on the CPU under gloo).
 
-Each path of phases 3–17 runs with every launch counter set to 0 just
+Each path of phases 3–18 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
-take the route rebuilt for Hopper.  A replayed graph runs no Python, so
+take the route rebuilt for Hopper.  After each of phases 3–17 the state
+of every anomaly guard built in it is read: a step skipped as
+non-finite on a clean path fails the run (phase 11's planted NaN is
+left out).  A replayed graph runs no Python, so
 a region adds what its capture counted once a replay
 (``znicz_tpu_torch/ops/launch_counts.py``).  The last three lines of standard
 output are one JSON object with the rows timed at shapes no path gives
@@ -344,10 +375,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import gzip
 import itertools
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -1872,6 +1905,16 @@ def serve_slice(path: str, kernels, card: str) -> dict:
 # ----------------------------------------------------------------------
 # phase 4: the training slice at full width
 # ----------------------------------------------------------------------
+#: the sequence stack's update: benchmarks/seq_bench.py's momentum at a
+#: tenth of its rate.  At its rate (0.01) this full-width stack (a head
+#: of fan-in T·D = 1 M over random labels) diverges on the card: the
+#: layer-norm gain and the attention weights pass 1e4 by step 20 and
+#: Σ g² overflows f32 by step 22, on the kernels and on their plain
+#: versions alike, in bf16 and f32 (tools/seq_divergence.py); the guard
+#: then skips every step.  At 1e-3 the run stays finite
+SEQ_GD = {"learning_rate": 1e-3, "gradient_moment": 0.9}
+
+
 def make_trainer(x, y, batch: int, device=None, precision: str = "bfloat16",
                  heads: int = HEADS, seq_parallel: bool = False):
     """The seq_bench stack through the port's ``StandardWorkflow``:
@@ -1884,7 +1927,7 @@ def make_trainer(x, y, batch: int, device=None, precision: str = "bfloat16",
     from znicz_tpu_torch.utils.config import root
     root.common.precision_type = precision
     prng.seed_all(SEED)
-    gd = {"learning_rate": 0.01, "gradient_moment": 0.9}
+    gd = SEQ_GD
     wf = StandardWorkflow(
         name="chip_smoke_trainer",
         loader_factory=lambda w: ArrayLoader(
@@ -4028,6 +4071,7 @@ def checks_pass(card: str, path: str, make, per_step: dict,
     root.common.engine.debug_checks = True
     wf.step()  # a replay of the checked graph
     unit = wf.forwards[plant_unit]
+    drilled(wf)
     with torch.no_grad():
         unit.weights.view(-1)[0] = float("nan")
     raised = ""
@@ -6660,6 +6704,776 @@ def stream_reader_death(shard_dir: str, glob, n_sched: int) -> None:
 
 
 
+# ----------------------------------------------------------------------
+# phase 18: resilience — the anomaly guard and the SDC fingerprints in
+# the graphed step (on by default), the sentinel's vote and audit, the
+# publisher into the graphed scorer engine, the elastic supervisor
+# ----------------------------------------------------------------------
+#: AlexNet steps a timed turn of phase 18 (after one warm-up step)
+RES_STEPS = 8
+#: the turns of phase 18's step timing: the guard on with its state read
+#: after every step (the default), no guard, the guard on with the read
+#: off (``engine.anomaly_check_interval`` past the run)
+RES_ORDER = ("on", "off", "noread", "noread", "off", "on")
+#: AlexNet steps whose launches phase 18 counts, guarded and not
+RES_COUNTED = 2
+#: the byte LM's optimizer steps in phase 18 (4 microbatches each)
+RES_LM_STEPS = 3
+#: the held-out rows the publishing canary scores on the numpy oracle
+RES_CANARY_ROWS = 1
+#: requests of the publishing drill's probation
+RES_PROBATION = 4
+
+
+def state_bits(wf) -> dict:
+    """Every parameter, momentum and microbatch-sum tensor of ``wf``,
+    cloned on the device."""
+    out = {}
+    for unit in [*wf.forwards, *wf.gds]:
+        for name, t in [*unit.named_parameters(recurse=False),
+                        *unit.named_buffers(recurse=False)]:
+            if name != "lr_state":
+                out[f"{unit.name}.{name}"] = t.detach().clone()
+    return out
+
+
+def bits_differ(a: dict, b: dict) -> list:
+    """The tensors of ``a`` and ``b`` that differ in any bit, every NaN
+    taken as one (the card's arithmetic returns its canonical NaN, a
+    planted NaN has torch's payload)."""
+    import torch
+
+    def raw(t):
+        if t.is_floating_point():
+            t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")),
+                            t)
+        return t.contiguous().view(torch.uint8)
+
+    return [k for k in a if not torch.equal(raw(a[k]), raw(b[k]))]
+
+
+def worst_rel(a: dict, b: dict) -> float:
+    """The largest ‖a − b‖ / ‖b‖ over the tensors."""
+    return max(float((a[k].float() - b[k].float()).norm())
+               / max(float(b[k].float().norm()), 1e-30) for k in a)
+
+
+def turn_ms(wf, steps: int) -> tuple[float, float]:
+    """One warm-up step, then ``steps`` steps each between CUDA events:
+    ``(p50 of the steps, mean over the run)`` in ms.  A step that reads
+    the guard's state waits for it, so its span holds the read and the
+    host's work after it."""
+    import torch
+    wf.step()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        wf.step()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    per = sorted(a.elapsed_time(b) for a, b in evs)
+    return per[len(per) // 2], evs[0][0].elapsed_time(evs[-1][1]) / steps
+
+
+def guard_alexnet(card: str, tmp: str) -> dict:
+    """Phase 18 (a): AlexNet at B=128 in bf16, graphed, with the guard
+    and the fingerprints on (the default) and off: the step times in
+    turns, B1–B4's launches a step the same both ways, an injected
+    non-finite loss and an injected non-finite gradient each leaving
+    every parameter and momentum bit for bit with no new capture, five
+    injected steps in a row rolled back to the run's snapshot with the
+    graphed run going on after, and a clean guarded step against the
+    unguarded one from that snapshot beside two unguarded ones."""
+    import torch
+    from znicz_tpu_torch.models.samples import alexnet
+    from znicz_tpu_torch.mutable import Bool
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    from znicz_tpu_torch.utils.snapshotter import Snapshotter
+    # the guarded workflow's steps before the drill: two timed turns
+    # with the read, two without, then the counted steps
+    drill = 4 * (1 + RES_STEPS) + RES_COUNTED
+    loss_at, grad_at = drill + 2, drill + 4
+    streak = list(range(drill + 6, drill + 11))
+
+    def build(guard: bool):
+        root.common.precision_type = "bfloat16"
+        root.common.engine.anomaly_guard = guard
+        prng.seed_all(SEED)
+        wf = alexnet.build(minibatch_size=ALEX_BATCH,
+                           n_train_samples=8 * ALEX_BATCH,
+                           n_valid_samples=0,
+                           snapshotter_config={"prefix": "alex18",
+                                               "directory": tmp})
+        # the drill writes its own snapshot
+        wf.snapshotter.gate_skip = Bool._derived(lambda: True)
+        wf.initialize()
+        return wf
+
+    root.common.engine.faults = None
+    unguarded = build(False)
+    # the drill's plan, for the guarded workflow's arrivals only (the
+    # unguarded one has no guard to arm)
+    root.common.engine.faults = {
+        "train.nonfinite_loss": {"at": [loss_at] + streak},
+        "train.nonfinite_grad": {"at": [grad_at]}}
+    guarded = build(True)
+    root.common.engine.anomaly_guard = True
+    if guarded.anomaly_guard is None or unguarded.anomaly_guard is not None:
+        raise AssertionError("guard_alexnet: the guard is not on by default")
+    times = {"on": [], "off": [], "noread": []}
+    for mode in RES_ORDER:
+        root.common.engine.anomaly_check_interval = \
+            10 ** 9 if mode == "noread" else 1
+        times[mode].append(turn_ms(unguarded if mode == "off" else guarded,
+                                   RES_STEPS))
+    root.common.engine.anomaly_check_interval = 1
+
+    def line(mode):
+        return " / ".join(f"p50 {p:.3f} ms, mean {m:.3f} ms"
+                          for p, m in times[mode])
+
+    on = min(m for _, m in times["on"])
+    off = min(m for _, m in times["off"])
+    noread = min(m for _, m in times["noread"])
+    say(f"  AlexNet B={ALEX_BATCH} bf16 graphed on {card}, {RES_STEPS} steps "
+        f"a turn in the order {'/'.join(RES_ORDER)}: guard on (state read "
+        f"a step) {line('on')}; no guard {line('off')}; guard on without "
+        f"the read {line('noread')}; the guard in the graph costs "
+        f"{noread - off:+.3f} ms a step ({100 * (noread - off) / off:+.2f} "
+        f"%), the read {on - noread:+.3f} ms ({100 * (on - noread) / off:+.2f}"
+        f" %), both {on - off:+.3f} ms ({100 * (on - off) / off:+.2f} %) "
+        f"(best mean of each mode)")
+    counts = {}
+    for name, wf in (("guarded", guarded), ("unguarded", unguarded)):
+        reset_counts()
+        for _ in range(RES_COUNTED):
+            wf.step()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+    want = {"lrn_forward": RES_COUNTED, "lrn_forward_conv2": RES_COUNTED,
+            "lrn_backward": RES_COUNTED, "lrn_backward_conv2": RES_COUNTED,
+            "dropout_apply": 4 * RES_COUNTED, "softmax_argmax": RES_COUNTED}
+    expect_counts("guard_alexnet", counts["guarded"], want)
+    expect_counts("guard_alexnet unguarded", counts["unguarded"], want)
+    expect_new_routes("guard_alexnet")
+
+    guard = guarded.anomaly_guard
+    captures = guarded.region.captures
+    base = guard.read_state()
+    if base != (0, 0, 0):
+        raise AssertionError(f"guard_alexnet: the clean steps before the "
+                             f"drill read (streak, loss, grad) {base}")
+    for k in range(1, 6):
+        before = state_bits(guarded)
+        guarded.step()
+        moved = bits_differ(before, state_bits(guarded))
+        injected = drill + k in (loss_at, grad_at)
+        if injected and moved:
+            raise AssertionError(f"guard_alexnet: the injected step {drill + k}"
+                                 f" changed {moved[:4]}")
+        if not injected and not moved:
+            raise AssertionError("guard_alexnet: a clean step changed "
+                                 "nothing")
+    totals = guard.read_state()
+    say(f"  train.nonfinite_loss at step {loss_at} and train.nonfinite_grad "
+        f"at step {grad_at}: every parameter and momentum tensor bit-equal "
+        f"across each, the clean steps between them moved; (streak, loss, "
+        f"grad) {base} → {totals}; captures {captures} → "
+        f"{guarded.region.captures}")
+    if totals[1:] != (base[1] + 1, base[2] + 1) or totals[0] != 0 \
+            or guarded.region.captures != captures or captures != 1:
+        raise AssertionError("guard_alexnet: the anomaly totals or the "
+                             "captures")
+
+    # the drill's snapshot in gzip's stored blocks (level 0) and without a
+    # sidecar, which Snapshotter.load reads: the state is 0.5 GB of
+    # floats, which compress little, and level 9 takes ~20 s to write
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "alex18_pre.pickle.gz")
+    with gzip.open(path, "wb", compresslevel=0) as fh:
+        pickle.dump(guarded.state_dict(), fh,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    write_s = time.perf_counter() - t0
+    guarded.snapshotter.destination = path
+    snap = state_bits(guarded)
+    rollbacks = metrics.anomaly_rollbacks(guarded.name).value
+    t0 = time.perf_counter()
+    for _ in streak:
+        guarded.step()
+    early = metrics.anomaly_rollbacks(guarded.name).value - rollbacks
+    # the tick reads the state a step behind on the card: the streak's
+    # fifth step is read after the next (clean) step, whose update the
+    # rollback's load then overwrites
+    guarded.step()
+    torch.cuda.synchronize()
+    streak_s = time.perf_counter() - t0
+    restored = bits_differ(snap, state_bits(guarded))
+    after = guard.read_state()
+    say(f"  five injected steps in a row ({streak[0]}–{streak[-1]}): "
+        f"{early:.0f} rollback after them, then "
+        f"{metrics.anomaly_rollbacks(guarded.name).value - rollbacks:.0f} "
+        f"after one more step (the read a step behind) to the snapshot "
+        f"written before them ({write_s:.2f} s to write at gzip level 0; "
+        f"the six steps and the load {streak_s:.2f} s), "
+        f"{len(snap) - len(restored)} of {len(snap)} tensors bit-equal to "
+        f"it after, streak {after[0]}")
+    if metrics.anomaly_rollbacks(guarded.name).value != rollbacks + 1 \
+            or early or restored or after[0] != 0:
+        raise AssertionError("guard_alexnet: the rollback")
+    before = state_bits(guarded)
+    for _ in range(3):
+        guarded.step()
+    now = state_bits(guarded)
+    finite = all(bool(torch.isfinite(t).all()) for t in now.values())
+    say(f"  3 graphed steps after the rollback: parameters moved "
+        f"{bool(bits_differ(before, now))}, finite {finite}, captures "
+        f"{guarded.region.captures}")
+    if not finite or not bits_differ(before, now) \
+            or guarded.region.captures != 1:
+        raise AssertionError("guard_alexnet: the run after the rollback")
+
+    # a clean step from the run's snapshot, guarded and unguarded (conv
+    # backward adds with atomics, so two unguarded steps give the noise)
+    root.common.engine.faults = None
+    state = Snapshotter.load(path)
+    steps = {}
+    for name, wf in (("guarded", guarded), ("unguarded", unguarded),
+                     ("unguarded again", unguarded)):
+        wf.load_state(state)
+        wf.step()
+        steps[name] = state_bits(wf)
+    noise = worst_rel(steps["unguarded again"], steps["unguarded"])
+    dev = worst_rel(steps["guarded"], steps["unguarded"])
+    bound = max(4 * noise, 1e-5)
+    say(f"  one clean step from the snapshot: guarded against unguarded "
+        f"worst ‖Δ‖/‖x‖ {dev:.3g}, two unguarded steps {noise:.3g} (bound "
+        f"{bound:.3g}); tensors bit-equal guarded/unguarded "
+        f"{len(steps['guarded']) - len(bits_differ(steps['guarded'], steps['unguarded']))}"
+        f" of {len(steps['guarded'])}")
+    if dev > bound:
+        raise AssertionError("guard_alexnet: the guarded step leaves the "
+                             "unguarded one")
+    EAGER["guard_alexnet"] = {"on": on, "off": off, "noread": noread}
+    return counts["guarded"]
+
+
+def guard_seq(card: str) -> dict:
+    """Phase 18 (a), continued: the full-width bf16 sequence stack's
+    graphed train step (phase 4's trainer) with the guard and the
+    fingerprints on, off, and on without the per-step read, in turns;
+    its kernels' launches a step the same guarded and not."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.utils.config import root
+    rng = np.random.default_rng(SEED + 20)
+    x = torch.from_numpy(rng.normal(0.0, 0.3, size=(4 * BATCH, SEQ, DIM))
+                         .astype(np.float32)).to(torch.bfloat16)
+    y = rng.integers(0, CLASSES, size=4 * BATCH).astype(np.int32)
+    root.common.engine.faults = None
+    wfs = {}
+    for guard in (False, True):
+        root.common.engine.anomaly_guard = guard
+        wfs[guard] = make_trainer(x, y, BATCH)
+    root.common.engine.anomaly_guard = True
+    times = {"on": [], "off": [], "noread": []}
+    for mode in RES_ORDER:
+        root.common.engine.anomaly_check_interval = \
+            10 ** 9 if mode == "noread" else 1
+        times[mode].append(turn_ms(wfs[mode != "off"], RES_STEPS))
+    root.common.engine.anomaly_check_interval = 1
+    counts = {}
+    for guard, wf in wfs.items():
+        reset_counts()
+        for _ in range(RES_COUNTED):
+            wf.step()
+        torch.cuda.synchronize()
+        counts[guard] = read_counts()
+    want = {f"flash_attention_{k}": RES_COUNTED for k in ("fwd", "dq",
+                                                          "dkv")}
+    want.update(layer_norm_forward=RES_COUNTED,
+                layer_norm_backward=RES_COUNTED,
+                softmax_argmax_small=RES_COUNTED)
+    expect_counts("guard_seq", counts[True], want)
+    expect_counts("guard_seq unguarded", counts[False], want)
+    state = wfs[True].anomaly_guard.read_state()
+    if state != (0, 0, 0):
+        raise AssertionError(f"guard_seq: the clean guarded steps read "
+                             f"(streak, loss, grad) {state}")
+    on, off, noread = (min(m for _, m in times[k])
+                       for k in ("on", "off", "noread"))
+    say(f"  the sequence stack B={BATCH} bf16 graphed on {card}, "
+        f"{RES_STEPS} steps a turn: guard on "
+        + " / ".join(f"p50 {p:.3f} ms, mean {m:.3f} ms"
+                     for p, m in times["on"])
+        + "; no guard " + " / ".join(f"p50 {p:.3f} ms, mean {m:.3f} ms"
+                                     for p, m in times["off"])
+        + "; without the read " + " / ".join(
+            f"p50 {p:.3f} ms, mean {m:.3f} ms" for p, m in times["noread"])
+        + f"; the guard in the graph {noread - off:+.3f} ms "
+        f"({100 * (noread - off) / off:+.2f} %), the read "
+        f"{on - noread:+.3f} ms ({100 * (on - noread) / off:+.2f} %)")
+    EAGER["guard_seq"] = {"on": on, "off": off, "noread": noread}
+    return counts[True]
+
+
+def guard_lm_accum(card: str) -> dict:
+    """Phase 18 (b): the byte LM's ``run_accumulated(4)``, graphed and
+    guarded: a NaN in one microbatch of one optimizer step (token 255,
+    whose embedding row is made NaN, planted in one sample that the
+    step's second microbatch gathers, and in no other) skips the whole
+    step — every parameter, momentum and microbatch sum bit-equal across
+    it, one loss anomaly counted — and the next step trains."""
+    import torch
+    from znicz_tpu_torch.observe import metrics
+    n_train = RES_LM_STEPS * LM_MICRO * BATCH
+    x, y = lm_data(n_train, SEQ, SEED + 18)
+    x[x == 255] = 254  # token 255 appears only where it is planted
+    set_graphs(True)
+    reset_counts()
+    wf = make_lm(x, y, n_train, BATCH, grad_accum=LM_MICRO, max_epochs=1)
+    loader, emb = wf.loader, wf.forwards[0].weights
+    guard = wf.anomaly_guard
+    seen, plant = {}, {}
+
+    def hook():
+        step = len(seen) + 1
+        seen[step] = (state_bits(wf), guard.read_state(),
+                      wf.region.captures)
+        if step == 1:
+            # the next step's second microbatch: plant token 255 in one
+            # of its samples, and make its embedding row NaN
+            idx, _, _ = loader.schedule_entry(loader.epoch_number,
+                                              loader._cursor + 1)
+            sample = int(idx[0])
+            plant["at"] = (sample, loader.original_data[sample, 0].item(),
+                           emb[255].clone())
+            loader.original_data[sample, 0] = 255.0
+            emb[255] = float("nan")
+            seen[step] = (state_bits(wf),) + seen[step][1:]
+        elif step == 2:
+            sample, token, row = plant["at"]
+            loader.original_data[sample, 0] = token
+            emb[255] = row
+
+    wf.add_step_hook(hook)
+    wf.run_accumulated(LM_MICRO)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    skipped = bits_differ(seen[1][0], seen[2][0])
+    trained = bits_differ(seen[2][0], seen[3][0])
+    (_, s1, c1), (_, s2, c2), (_, s3, c3) = seen[1], seen[2], seen[3]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in seen[3][0].values())
+    say(f"  byte LM run_accumulated({LM_MICRO}) graphed and guarded on "
+        f"{card}: a NaN in microbatch 2 of optimizer step 2 only: "
+        f"{len(seen[1][0]) - len(skipped)} of {len(seen[1][0])} parameter, "
+        f"momentum and microbatch-sum tensors bit-equal across the step "
+        f"(every NaN taken as one); "
+        f"(streak, loss, grad) {s1} → {s2} → {s3}; step 3 moved "
+        f"{len(trained)} tensors, finite {finite}; captures {c1}, {c2}, {c3}"
+        f" (loss anomalies counted "
+        f"{metrics.step_anomalies(wf.name, 'loss').value:.0f})")
+    if skipped or s2[1] != s1[1] + 1 or not trained or not finite \
+            or not c1 == c2 == c3:
+        say(f"  tensors that moved across the skipped step: {skipped}")
+        raise AssertionError("guard_lm_accum: one NaN microbatch did not "
+                             "skip exactly its optimizer step")
+    expect_counts("guard_lm_accum", counts,
+                  lm_counts(RES_LM_STEPS * LM_MICRO))
+    expect_ln_register("guard_lm_accum")
+    return counts
+
+
+def sdc_mnist(card: str) -> None:
+    """Phase 18 (c) at phase 9's MNIST 784-100-10 width (f32, graphed):
+    the guarded run bit-equal to the unguarded one; ``sdc.flip_param``
+    raising the sticky self-check to 1 and the vote of a world of one
+    naming process 0; ``sdc.flip_grad`` caught by the shadow audit on
+    the numpy oracle, after a clean audit at the reference's
+    ``sdc_audit_rtol`` that raised nothing."""
+    from znicz_tpu_torch.models.samples import mnist
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root, root
+
+    def build(faults=None, guard=True):
+        reset_root()
+        root.common.engine.faults = faults
+        root.common.engine.anomaly_guard = guard
+        prng.seed_all(SEED)
+        wf = mnist.build()
+        wf.initialize()
+        train_ahead(wf, 8)  # past the validation minibatches
+        if wf.integrity is not None:
+            wf.integrity._tick = 0
+        return wf
+
+    runs = {}
+    for guard in (True, False):
+        wf = build(guard=guard)
+        for _ in range(3):
+            wf.step()
+        runs[guard] = state_bits(wf)
+        del wf
+    differ = bits_differ(runs[True], runs[False])
+    say(f"  MNIST 784-100-10 graphed on {card}: 3 train steps guarded "
+        f"against unguarded from one seed: {len(runs[True]) - len(differ)} "
+        f"of {len(runs[True])} tensors bit-equal")
+    if differ:
+        raise AssertionError(f"sdc_mnist: the guarded run differs: {differ}")
+
+    wf = build({"sdc.flip_param": {"at": [2]}})
+    sentinel = wf.integrity
+    sentinel.vote_interval = 3
+    votes = metrics.sdc_votes(wf.name, "divergent").value
+    wf.step()
+    wf.step()
+    sticky = wf.anomaly_guard.read_sdc_fingerprint()[3]
+    wf.step()  # the third tick votes
+    verdict = getattr(sentinel, "last_verdict", None)
+    say(f"  sdc.flip_param before train step 2: the sticky self-check "
+        f"{sticky:.0f} after it; the vote of a world of one at tick 3 "
+        f"{verdict}; quarantined {sentinel.quarantined}")
+    if sticky != 1.0 or verdict is None or verdict["culprits"] != [0] \
+            or metrics.sdc_votes(wf.name, "divergent").value != votes + 1:
+        raise AssertionError("sdc_mnist: flip_param not localized")
+    del wf
+
+    wf = build({"sdc.flip_grad": {"at": [6]}})
+    sentinel = wf.integrity
+    sentinel.vote_interval, sentinel.audit_interval = 0, 3
+    audits, real = [], sentinel._run_audit
+
+    def timed_audit():
+        t0 = time.perf_counter()
+        real()
+        audits.append((list(sentinel.last_audit), time.perf_counter() - t0))
+
+    sentinel._run_audit = timed_audit
+    for _ in range(6):
+        wf.step()
+    say(f"  shadow audits on the numpy oracle at rtol "
+        f"{sentinel.audit_rtol:g}: step 3 (clean) mismatches "
+        f"{audits[0][0] if audits else None} in {audits[0][1]:.3f} s (the "
+        f"shadow clone built in it), step 6 (sdc.flip_grad) mismatches "
+        f"{[name for name, _, _ in audits[1][0]]} in {audits[1][1]:.3f} s")
+    if len(audits) != 2 or audits[0][0] or not audits[1][0] \
+            or not sentinel.quarantined:
+        raise AssertionError("sdc_mnist: the audits")
+    root.common.engine.faults = None
+
+
+def publish_serve(card: str, tmp: str) -> dict:
+    """Phase 18 (d): the full-width bf16 sequence stack trains graphed and
+    publishes (``publish_bundle``) into phase 14's scorer engine, every
+    bucket a CUDA graph, under a closed loop of requests: a good bundle
+    promoted and through its probation, ``publish.corrupt`` refused by
+    the watcher, ``swap.canary_regress`` refused at the canary (the
+    numpy oracle on held-out rows), a promoted bundle rolled back by
+    ``swap.probation_fail``; no new capture, and every reply one
+    version's bit for bit."""
+    import threading
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.export import read_bundle
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.resilience.publisher import (AOT_PROGRAMS,
+                                                      PublicationWatcher,
+                                                      SwapController,
+                                                      classifier_score,
+                                                      publish_bundle)
+    from znicz_tpu_torch.serving import ServingEngine
+    from znicz_tpu_torch.utils.config import root
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.normal(0.0, 0.3, size=(2 * BATCH, SEQ, DIM)).astype(np.float32)
+    y = rng.integers(0, CLASSES, size=2 * BATCH).astype(np.int32)
+    root.common.engine.faults = None
+    set_graphs(True)
+    reset_counts()
+    trainer = make_trainer(torch.from_numpy(x).to(torch.bfloat16), y, BATCH)
+    # the trainer's capture before the engine's threads run: a capture
+    # in the default global mode is invalidated by another thread's
+    # CUDA work, so the serving threads see only the trainer's replays
+    trainer.step()
+    torch.cuda.synchronize()
+    scorer = os.path.join(tmp, "scorer.npz")
+    write_scorer_bundle(scorer)
+    pub = os.path.join(tmp, "published")
+    eng = ServingEngine(scorer, max_batch=BATCH, max_delay_ms=2.0)
+    eng.start()
+    watcher = PublicationWatcher(pub)
+    ctl = SwapController(eng, watcher, classifier_score(
+        x[:RES_CANARY_ROWS], y[:RES_CANARY_ROWS]), guard_margin=1.0,
+        probation_steps=RES_PROBATION)
+    x3 = x[:3]
+    events, replies, stop = [], [], threading.Event()
+    failures = []
+
+    def hammer():
+        try:
+            while not stop.is_set():
+                replies.append(eng(x3, timeout=300))
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            failures.append(exc)
+
+    spent = {"publish": [], "tick": []}
+
+    def publish(n_steps: int, faults=None) -> int:
+        for _ in range(n_steps):
+            trainer.step()
+        root.common.engine.faults = faults
+        t0 = time.perf_counter()
+        try:
+            version, _ = publish_bundle(trainer, pub)
+        finally:
+            root.common.engine.faults = None
+        spent["publish"].append(time.perf_counter() - t0)
+        return version
+
+    def tick(faults=None) -> list:
+        root.common.engine.faults = faults
+        t0 = time.perf_counter()
+        try:
+            got = ctl.tick()
+        finally:
+            root.common.engine.faults = None
+        spent["tick"].append(time.perf_counter() - t0)
+        events.extend(got)
+        return got
+
+    try:
+        expect_ladder_captures(eng, "publish_serve")
+        refs = {0: eng(x3, timeout=300)}
+        thread = threading.Thread(target=hammer)
+        thread.start()
+        t0 = time.perf_counter()
+        v1 = publish(2)
+        tick()
+        refs[v1] = eng(x3, timeout=300)
+        target = eng.requests_served + RES_PROBATION + 1
+        while eng.requests_served < target and thread.is_alive():
+            time.sleep(0.001)
+        tick()
+        failed = metrics.snapshot_failures("publish").value
+        v2 = publish(1, {"publish.corrupt": {"at": [1]}})
+        tick()
+        refused = v2 in watcher._bad and eng.model_version == v1 \
+            and metrics.snapshot_failures("publish").value == failed + 1
+        v3 = publish(1)
+        tick({"swap.canary_regress": {"at": [1], "penalty": 10.0}})
+        v4 = publish(1)
+        tick()
+        refs[v4] = eng(x3, timeout=300)
+        tick({"swap.probation_fail": {"at": [1]}})
+        loop_s = time.perf_counter() - t0
+        n = len(replies)
+        while len(replies) < n + 2 and thread.is_alive():
+            time.sleep(0.001)
+    finally:
+        stop.set()
+        thread.join(300)
+        final = eng.model_version
+        expect_ladder_captures(eng, "publish_serve after the swaps")
+        eng.shutdown()
+    if failures:
+        raise failures[0]
+    counts = read_counts()
+    seen = {v: 0 for v in refs}
+    for i, r in enumerate(replies):
+        hit = [v for v, ref in refs.items() if np.array_equal(r, ref)]
+        if not hit:
+            raise AssertionError(f"publish_serve: reply {i} is no "
+                                 f"version's bit for bit")
+        seen[hit[0]] += 1
+    manifest, _ = read_bundle(os.path.join(pub, f"model_v{v4:06d}.npz"))
+    say(f"  publishing into the graphed scorer engine on {card} "
+        f"({loop_s:.2f} s, {len(replies)} replies of 3 rows meanwhile, by "
+        f"version {seen}, each one version's bit for bit): events "
+        f"{events}; v{v2} (publish.corrupt) refused by the watcher "
+        f"{refused}; v{v3} (swap.canary_regress); serving v{final} at the "
+        f"end; the manifest's aot_programs {manifest.get('aot_programs')!r}"
+        f"; host seconds by publish "
+        f"{', '.join(f'{v:.2f}' for v in spent['publish'])} and by tick "
+        f"{', '.join(f'{v:.2f}' for v in spent['tick'])} (a tick with a "
+        f"candidate scores it on the numpy oracle, {RES_CANARY_ROWS} "
+        f"held-out row(s))")
+    kinds = [e.split(" ")[0] for e in events]
+    if kinds != ["promoted", f"v{v1}", "rejected", "promoted", "rolled"] \
+            or not refused or final != v1 or not seen[v1] \
+            or manifest.get("aot_programs") != AOT_PROGRAMS:
+        raise AssertionError("publish_serve: the publish, canary and "
+                             "rollback sequence")
+    return counts
+
+
+def elastic_card(card: str, tmp: str) -> None:
+    """Phase 18 (e): the :class:`ElasticSupervisor` with one-process gangs
+    of ``elastic_worker`` on the card (NCCL worlds of one): ``host.preempt``
+    at step 23 leads to the checkpoint on signal at the barrier step 24
+    and the exit ``EXIT_PREEMPTED``; a restart from that checkpoint ends
+    with parameters bit-equal to an uninterrupted run's, run beside the
+    preempted one."""
+    import threading
+    import numpy as np
+    from znicz_tpu_torch.loader.streaming import write_shards
+    from znicz_tpu_torch.resilience import supervisor as sup
+    rng = np.random.default_rng(21)
+    protos = rng.normal(0, 1, (4, 6, 6))
+    data = np.concatenate(
+        [p + 0.3 * rng.normal(size=(40, 6, 6)) for p in protos])
+    data = np.clip((data + 4.0) * 32.0, 0, 255).astype(np.uint8)
+    labels = np.repeat(np.arange(4), 40).astype(np.int32)
+    order = rng.permutation(len(data))
+    data, labels = data[order], labels[order]
+    shard_dir = os.path.join(tmp, "shards")
+    write_shards(shard_dir, data[:128], labels[:128],
+                 valid_data=data[128:], valid_labels=labels[128:],
+                 rows_per_shard=32)
+
+    def gang(tag, faults=None, initial=None):
+        work = os.path.join(tmp, tag)
+        snaps = os.path.join(work, "snaps")
+
+        def argv_for(pid, n, attempt):
+            return [sys.executable, "-m",
+                    "znicz_tpu_torch.resilience.elastic_worker",
+                    os.path.join(work, f"digest_a{attempt}_p{pid}.json"),
+                    shard_dir]
+
+        return sup.ElasticSupervisor(
+            argv_for, n_processes=1, work_dir=work, snapshot_dir=snaps,
+            snapshot_prefix="elastic", heartbeat_timeout_s=60.0,
+            start_grace_s=300.0, poll_interval_s=0.1, max_restarts=0,
+            initial_snapshot=initial,
+            env={"PYTHONPATH": REPO + os.pathsep
+                 + os.environ.get("PYTHONPATH", ""),
+                 "ZNICZ_ELASTIC_SNAPSHOT_DIR": snaps,
+                 "ZNICZ_HEARTBEAT_INTERVAL_S": "0.2"},
+            fault_env=({"ZNICZ_ELASTIC_FAULTS": json.dumps(faults)}
+                       if faults else None))
+
+    def digest(g) -> dict:
+        with open(os.path.join(g.work_dir, "digest_a0_p0.json")) as fh:
+            return json.load(fh)
+
+    ref = gang("uninterrupted")
+    drill = gang("preempted", {"host.preempt": {"process": 0, "at": [23]}})
+    results, errors, walls = {}, [], {}
+
+    def run(name, g):
+        t0 = time.perf_counter()
+        try:
+            results[name] = g.run()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+        walls[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(name, g))
+               for name, g in (("uninterrupted", ref), ("preempted", drill))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise errors[0]
+    pre = results["preempted"]
+    ckpt = sup.newest_good_snapshot(drill.snapshot_dir, "elastic")
+    resume = gang("restarted", initial=ckpt)
+    run("restarted", resume)
+    if errors:
+        raise errors[0]
+    got, want = digest(resume), digest(ref)
+    say(f"  elastic gangs of one on {card}: uninterrupted {walls['uninterrupted']:.1f} s "
+        f"({results['uninterrupted'].get('ok')}); preempted at step 23 "
+        f"{walls['preempted']:.1f} s: {pre.get('losses')}, "
+        f"{pre.get('reason')}, checkpoint {os.path.basename(ckpt or '')}; "
+        f"restarted from it {walls['restarted']:.1f} s (spawn to exit, "
+        f"resumed at step {results['restarted'].get('resumed_step')}, "
+        f"captures of one more step {got['warmed_step_captures']}, "
+        f"device {got['device']}); weights sha256 {got['weights_sha256'][:12]}"
+        f" against the uninterrupted run's {want['weights_sha256'][:12]}")
+    if pre.get("losses") != {"preempt": 1} or not ckpt \
+            or "preempt_s24" not in ckpt or not results["restarted"]["ok"] \
+            or results["restarted"].get("resumed_step") != 24 \
+            or got["resumed_from"] != ckpt \
+            or got["warmed_step_captures"] != 0 \
+            or got["weights_sha256"] != want["weights_sha256"] \
+            or not got["device"].startswith("cuda"):
+        raise AssertionError("elastic_card: the preemption drill")
+    EAGER["elastic_restart_s"] = walls["restarted"]
+
+
+def resilience_pass(card: str) -> dict:
+    """Phase 18: (a)–(e)."""
+    from znicz_tpu_torch.utils.config import root
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths["guard_alexnet"] = guard_alexnet(card, tmp)
+        paths["guard_seq"] = guard_seq(card)
+        say(f"  (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths["guard_lm_accum"] = guard_lm_accum(card)
+        say(f"  (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sdc_mnist(card)
+        say(f"  (c) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths["publish_serve"] = publish_serve(card, tmp)
+        say(f"  (d) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        elastic_card(card, tmp)
+        say(f"  (e) took {time.perf_counter() - t0:.1f} s")
+    root.common.engine.faults = None
+    return paths
+
+
+#: ``(workflow, anomaly_state)`` of each guard built since the last
+#: :func:`expect_no_anomalies` (the tensor, not the guard: the workflow
+#: may go)
+GUARD_STATES: list = []
+
+
+def track_guards() -> None:
+    """Keep each anomaly guard's state tensor as the guard is built."""
+    from znicz_tpu_torch.resilience.guard import AnomalyGuard
+    init = AnomalyGuard.initialize
+
+    def initialize(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        wf = self.workflow
+        GUARD_STATES.append((wf.name if wf is not None else self.name,
+                             self.anomaly_state))
+    AnomalyGuard.initialize = initialize
+
+
+def drilled(wf) -> None:
+    """Leave ``wf``'s guard out of the next :func:`expect_no_anomalies`:
+    its run plants a NaN on purpose."""
+    state = wf.anomaly_guard.anomaly_state
+    GUARD_STATES[:] = [(n, s) for n, s in GUARD_STATES if s is not state]
+
+
+def expect_no_anomalies(phase: str) -> None:
+    """Every guard built since the last call read: a path meant to be
+    clean that skipped a step (a non-finite loss or gradient) fails."""
+    states = [(name, tuple(int(v) for v in s.tolist()))
+              for name, s in GUARD_STATES]
+    GUARD_STATES.clear()
+    bad = [(name, st) for name, st in states if st[1] or st[2]]
+    say(f"  {phase}: {len(states)} guarded workflow(s) read, "
+        f"{len(bad)} with anomalous steps")
+    if bad:
+        raise AssertionError(f"{phase}: anomalous steps (streak, loss, "
+                             f"grad) on a clean path: {bad[:6]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6683,6 +7497,7 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
+    track_guards()
     say("phase 1: build")
     t0 = time.perf_counter()
     _cuda.build_all()
@@ -6739,12 +7554,15 @@ def main() -> int:
 
     # phases 4–7: the regions eager, as before the port had CUDA graphs
     set_graphs(False)
+    expect_no_anomalies("phase 3")
     say("phase 4: full-width bf16 training through StandardWorkflow")
     paths["training"] = train_slice()
 
+    expect_no_anomalies("phase 4")
     say("phase 5: full-width AlexNet training through StandardWorkflow")
     paths["alexnet"] = alexnet_slice()
 
+    expect_no_anomalies("phase 5")
     say("phase 6: the full-width sequence stack in f32, then short runs at "
         "head dims 32, 256, 512 and 4")
     paths["seq_f32"] = train_slice("float32")
@@ -6757,10 +7575,12 @@ def main() -> int:
                                       "f32_wide")
     paths["seq_dh4"] = dh4_pass()
 
+    expect_no_anomalies("phase 6")
     say("phase 7: CIFAR-10 through python -m znicz_tpu_torch, with "
         "snapshots and resume")
     paths["cifar"] = cifar_pass()
 
+    expect_no_anomalies("phase 7")
     say("phase 8: the three training paths with their regions as CUDA "
         "graphs")
     set_graphs(True)
@@ -6769,6 +7589,7 @@ def main() -> int:
     paths["alexnet_graphed"] = alexnet_graphed(smi)
     paths["seq_graphed"] = seq_graphed(smi)
 
+    expect_no_anomalies("phase 8")
     say("phase 9: the MLP family (MNIST 784-100-10, the MNIST-784 "
         "autoencoder, Wine with a schedule), graphed")
     t9 = time.perf_counter()
@@ -6777,6 +7598,7 @@ def main() -> int:
     paths["wine"] = wine_pass(smi)
     say(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    expect_no_anomalies("phase 9")
     say("phase 10: the byte LM (eager, graphed, accumulated, served), the "
         "LSTM chain and to_sequence")
     t10 = time.perf_counter()
@@ -6787,6 +7609,7 @@ def main() -> int:
     paths["to_sequence"] = to_sequence_pass()
     say(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    expect_no_anomalies("phase 10")
     say("phase 11: the numpy oracle, engine.debug_checks and "
         "engine.fp8_matmul")
     t11 = time.perf_counter()
@@ -6812,6 +7635,7 @@ def main() -> int:
     paths["fp8_lm"] = fp8_lm(smi)
     say(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    expect_no_anomalies("phase 11")
     say("phase 12: the small vision samples (hands, yale_faces, channels) "
         "and the conv autoencoders (mnist_ae, imagenet_ae, tied), graphed")
     t12 = time.perf_counter()
@@ -6822,6 +7646,7 @@ def main() -> int:
     paths["mnist_ae_tied"] = tied_ae_pass(smi)
     say(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    expect_no_anomalies("phase 12")
     say("phase 13: the RBM (mnist_rbm), the Kohonen map (kohonen) and the "
         "cutter chain with a zero filler and an image saver, graphed")
     t13 = time.perf_counter()
@@ -6830,6 +7655,7 @@ def main() -> int:
     paths["cutter_chain"] = chain_pass(smi)
     say(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    expect_no_anomalies("phase 13")
     say("phase 14: the scorer's buckets as CUDA graphs: hot swap under "
         "load, int8, the SDC shadow audit, the fault sites, request traces "
         "and the flight recorder")
@@ -6837,12 +7663,14 @@ def main() -> int:
     paths.update(serve_graphs_pass(smi))
     say(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
+    expect_no_anomalies("phase 14")
     say("phase 15: decode — the byte LM and the LSTM chain through "
         "DecodeEngine, each program a CUDA graph")
     t15 = time.perf_counter()
     paths["decode"] = decode_pass(smi)
     say(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
 
+    expect_no_anomalies("phase 15")
     say("phase 16: parallelism — the NCCL world of one through the "
         "launcher, the ring fold at full width, the temporal pipeline")
     t16 = time.perf_counter()
@@ -6854,10 +7682,20 @@ def main() -> int:
     paths["pipeline"] = pipeline_pass(smi)
     say(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
+    expect_no_anomalies("phase 16")
     say("phase 17: the input plane — AlexNet streamed from shards through "
         "the pinned staging ring, graphed, in turns with the resident "
         "loader")
     paths["stream"], paths["stream_resident"] = stream_pass(smi)
+
+    expect_no_anomalies("phase 17")
+    say("phase 18: resilience — the anomaly guard and the SDC fingerprints "
+        "in the graphed step, the sentinel, the publisher into the graphed "
+        "scorer, the elastic supervisor")
+    t18 = time.perf_counter()
+    GUARD_STATES.clear()  # phase 18's parts read their own guards
+    paths.update(resilience_pass(smi))
+    say(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

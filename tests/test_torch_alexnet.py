@@ -502,7 +502,8 @@ def test_uint8_gather_rounds_as_the_reference(scale, bias, dtype):
 def test_step_marks_each_unit_in_order():
     """``step(mark)`` names each unit just after it ran: the loader, the
     forwards and the evaluator on every minibatch, then the backward
-    units from the last to the first on a train minibatch."""
+    units from the last to the first on a train minibatch, and the
+    anomaly guard (on by default) last on every minibatch."""
     port = _port("float32")
     head = [port.loader.name, *(u.name for u in port.forwards),
             port.evaluator.name]
@@ -511,4 +512,5 @@ def test_step_marks_each_unit_in_order():
         port.step(names.append)
         assert port.loader.minibatch_class == cls
         assert names == head + ([u.name for u in reversed(port.gds)]
-                                if cls == TRAIN else [])
+                                if cls == TRAIN else []) \
+            + [port.anomaly_guard.name]

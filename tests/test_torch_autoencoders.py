@@ -69,7 +69,6 @@ GD = {"learning_rate": 0.005, "gradient_moment": 0.9}
 def port_config(tmp_path):
     reset_root()
     root.common.dirs.snapshots = str(tmp_path / "snapshots")
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
     ref_root.common.precision_type = "float32"

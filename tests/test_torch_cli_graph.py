@@ -87,22 +87,20 @@ def _graph(dot: str) -> tuple[set, set]:
 
 def test_dump_graph_writes_the_reference_graph(tmp_path):
     """The port's DOT of an initialized ``attention_seq`` has the nodes
-    and edges of the reference's (``--dump-graph --dry-run``, without the
-    anomaly guard the port has not ported), ``train_region`` among
-    them."""
+    and edges of the reference's (``--dump-graph --dry-run``, both with
+    the anomaly guard, their default), ``train_region`` and
+    ``anomaly_guard`` among them."""
     port_dot, ref_dot = tmp_path / "port.dot", tmp_path / "ref.dot"
     main = _cli("--dump-graph", str(port_dot))
-    ref_root.common.engine.anomaly_guard = False
-    try:
-        assert RefMain().run(["attention_seq", "--dump-graph", str(ref_dot),
-                              "--dry-run"]) == 0
-    finally:
-        ref_root.common.engine.anomaly_guard = True
+    assert RefMain().run(["attention_seq", "--dump-graph", str(ref_dot),
+                          "--dry-run"]) == 0
     port_text = port_dot.read_text()
     assert port_text.startswith('digraph "attention_seq"')
     nodes, edges = _graph(port_text)
     assert (nodes, edges) == _graph(ref_dot.read_text())
     assert ("train_region", "RegionUnit") in nodes
+    assert ("anomaly_guard", "AnomalyGuard") in nodes
+    assert ("anomaly_guard", "train_region") in edges
     assert ("decision", "repeater") in edges
     wf = main.launcher.workflow
     assert wf.is_initialized and wf.loader.epoch_number == 0

@@ -11,7 +11,9 @@ against the reference's, on the CPU.
   every site whose module is ported has a live ``fire("<site>"`` call
   in ``znicz_tpu_torch/``, every other site is listed with the ROADMAP
   item that owns its module, and no call names an unknown site; the
-  streaming loader's three sites fire live and are absorbed;
+  streaming loader's three sites fire live and are absorbed, and so do
+  the eleven resilience sites (the guard's, the publisher's and the
+  supervisor's), each in one small drill;
 - ``snapshot.write_fail`` is absorbed: training goes on, the failure is
   counted, and ``destination`` keeps the last good snapshot, which
   loads (the port of
@@ -24,6 +26,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import make_blobs
 from znicz_tpu.resilience import faults as ref_faults
@@ -40,12 +43,6 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "znicz_tpu_torch"
 #: the sites whose modules the port has not ported yet, by the ROADMAP
 #: item that owns each (ROADMAP.md, queue A)
 UNFIRED = {
-    "train.nonfinite_loss": "A11", "train.nonfinite_grad": "A11",
-    "sdc.flip_param": "A11", "sdc.flip_grad": "A11",
-    "publish.corrupt": "A11", "swap.canary_regress": "A11",
-    "swap.probation_fail": "A11", "host.loss": "A11",
-    "host.preempt": "A11", "heartbeat.stall": "A11",
-    "checkpoint.signal_corrupt": "A11",
     "fleet.tenant_flood": "A12", "fleet.replica_loss": "A12",
     "disagg.handoff_drop": "A12", "aotcache.corrupt": "A12",
     "fleet.model_corrupt": "A13",
@@ -171,8 +168,19 @@ def test_every_ported_site_has_a_live_fire_call():
         "observe.recorder_stall": {"recorder.py"},
         "loader.reader_death": {"streaming.py"},
         "loader.corrupt_shard": {"streaming.py"},
-        "loader.short_read": {"streaming.py"}}
-    assert set(UNFIRED.values()) <= {"A11", "A12", "A13"}
+        "loader.short_read": {"streaming.py"},
+        "train.nonfinite_loss": {"guard.py"},
+        "train.nonfinite_grad": {"guard.py"},
+        "sdc.flip_param": {"guard.py"},
+        "sdc.flip_grad": {"guard.py"},
+        "publish.corrupt": {"publisher.py"},
+        "swap.canary_regress": {"publisher.py"},
+        "swap.probation_fail": {"publisher.py"},
+        "host.loss": {"supervisor.py"},
+        "host.preempt": {"supervisor.py"},
+        "heartbeat.stall": {"supervisor.py"},
+        "checkpoint.signal_corrupt": {"supervisor.py"}}
+    assert set(UNFIRED.values()) <= {"A12", "A13"}
 
 
 @pytest.mark.parametrize("site", sorted(faults.SITES))
@@ -266,3 +274,184 @@ def test_snapshot_write_failure_tolerated_keeps_last_good(tmp_path):
     state = Snapshotter.load(written[0])
     assert isinstance(state, dict) and np.isfinite(
         wf.decision.min_validation_n_err_pt)
+
+
+# ----------------------------------------------------------------------
+# the resilience sites, each fired live
+# ----------------------------------------------------------------------
+def _mlp(name, snap_dir=None, max_epochs=1):
+    data, labels = make_blobs(24, 3, 10, spread=1.2)
+    prng.seed_all(5)
+    wf = StandardWorkflow(
+        name=name,
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=data[:48], train_labels=labels[:48],
+            valid_data=data[48:], valid_labels=labels[48:],
+            minibatch_size=12),
+        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": 8},
+                 "<-": {"learning_rate": 0.05, "gradient_moment": 0.9}},
+                {"type": "softmax", "->": {"output_sample_shape": 3},
+                 "<-": {"learning_rate": 0.05}}],
+        decision_config={"max_epochs": max_epochs},
+        snapshotter_config=(None if snap_dir is None else
+                            {"prefix": name, "directory": snap_dir}))
+    wf.initialize(device="cpu")
+    return wf
+
+
+class _Engine:
+    """The part of a serving engine the swap controller drives."""
+
+    def __init__(self, bundle):
+        self.bundle, self.model_version = bundle, 0
+        self.outcomes, self.served = [], 0
+
+    def current_bundle(self):
+        return self.bundle
+
+    def swap_weights(self, state, *, version=None, outcome="promoted"):
+        self.bundle, self.model_version = state, version
+        self.outcomes.append(outcome)
+
+    def record_swap_outcome(self, outcome):
+        self.outcomes.append(outcome)
+
+    def stats(self):
+        return {"served": self.served}
+
+    def ready(self):
+        return True
+
+
+def _fire_guard_site(site, tmp_path):
+    wf = _mlp(site)
+    wf.run()
+    state = wf.anomaly_guard.read_state()
+    if site == "train.nonfinite_loss":
+        assert state == (0, 1, 0)
+    elif site == "train.nonfinite_grad":
+        assert state == (0, 0, 1)
+    elif site == "sdc.flip_param":
+        assert wf.anomaly_guard.read_sdc_fingerprint()[3] == 1.0
+    else:
+        root.common.engine.faults = None
+        clean = _mlp("clean")
+        clean.run()
+        assert not torch.equal(wf.forwards[0].weights,
+                               clean.forwards[0].weights)
+
+
+def _fire_publisher_site(site, tmp_path):
+    from znicz_tpu_torch.export import read_bundle
+    from znicz_tpu_torch.resilience.publisher import (PublicationWatcher,
+                                                      SwapController,
+                                                      publish_bundle)
+    plan = root.common.engine.faults
+    root.common.engine.faults = None
+    wf = _mlp("publish")
+    wf.run()
+    pub = str(tmp_path / "pub")
+    _, path = publish_bundle(wf, pub)
+    if site == "publish.corrupt":
+        root.common.engine.faults = plan
+        publish_bundle(wf, pub)
+        watcher = PublicationWatcher(pub)
+        assert watcher.poll()[0] == 1  # v2 refused, v1 the fallback
+        assert 2 in watcher._bad
+        return
+    engine = _Engine(read_bundle(path))
+    watcher = PublicationWatcher(pub)
+    ctl = SwapController(engine, watcher,
+                         score_fn=lambda manifest, params: 1.0,
+                         guard_margin=0.0, probation_steps=5)
+    root.common.engine.faults = plan
+    events = ctl.tick()
+    if site == "swap.canary_regress":
+        assert events[0].startswith("rejected v1") \
+            and engine.outcomes == ["rejected"]
+    else:
+        events += ctl.tick()
+        assert engine.outcomes == ["promoted", "rolled_back"] \
+            and events[-1].startswith("rolled back v1")
+
+
+_WORKER = """\
+import os, sys
+sys.path.insert(0, {repo!r})
+from znicz_tpu_torch.resilience import supervisor as sup
+from znicz_tpu_torch.utils.config import root
+from znicz_tpu_torch.workflow import Workflow
+root.common.engine.faults = {{"host.loss": {{"at": [2]}}}}
+s = sup.WorkerSupervisor(Workflow(name="w"), process_index=0,
+                         process_count=1).attach()
+for _ in range(3):
+    s.on_step()
+print("survived")
+"""
+
+
+def _fire_supervisor_site(site, tmp_path):
+    import subprocess
+    import sys
+
+    from znicz_tpu_torch.resilience import supervisor as sup
+    from znicz_tpu_torch.workflow import Workflow
+    if site == "host.loss":
+        script = tmp_path / "worker.py"
+        script.write_text(_WORKER.format(repo=str(PKG.parent)))
+        root.common.engine.faults = None
+        done = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=300)
+        assert done.returncode == 1 and "survived" not in done.stdout
+        root.common.engine.faults = {site: {"at": [1]}}
+        assert faults.fire(site) is not None  # the plan this process holds
+        return
+    if site == "checkpoint.signal_corrupt":
+        wf = _mlp("ckpt", snap_dir=str(tmp_path / "snaps"))
+        s = sup.WorkerSupervisor(wf, process_index=0, process_count=1)
+        s.request_preempt("test")
+        with pytest.raises(sup.Preempted) as exc:
+            s.checkpoint_on_signal()
+        with pytest.raises(Exception):
+            Snapshotter._load_verified(exc.value.snapshot_path)
+        return
+    hb = str(tmp_path / "hb")
+    s = sup.WorkerSupervisor(Workflow(name="w"), directory=hb,
+                             process_index=0, process_count=1).attach()
+    try:
+        if site == "heartbeat.stall":
+            root.common.engine.faults = {site: {"at": [1], "sleep_s": 0.0}}
+        s.on_step()  # the barrier of a preemption is the next step
+        if site == "host.preempt":
+            assert sup.preempt_flag(hb)["barrier_step"] == 2
+        else:
+            s.on_step()
+            assert s.writer.step == 1  # frozen at the stall
+    finally:
+        s.detach()
+
+
+@pytest.mark.parametrize("site", [
+    "train.nonfinite_loss", "train.nonfinite_grad", "sdc.flip_param",
+    "sdc.flip_grad", "publish.corrupt", "swap.canary_regress",
+    "swap.probation_fail", "host.loss", "host.preempt", "heartbeat.stall",
+    "checkpoint.signal_corrupt"])
+def test_resilience_site_fires_live(site, tmp_path):
+    """Each resilience site fires once in a small live drill and has its
+    effect: a skipped and counted step, the sticky self-check, a changed
+    update, a bundle the watcher refuses, a canary rejection, a
+    probation rollback, a process that dies, a preemption barrier, a
+    frozen heartbeat, a checkpoint whose digest no longer checks."""
+    # a flip before the first train step has no claimed value to differ
+    # from: the drill flips before the second
+    root.common.dirs.snapshots = str(tmp_path / "snapshots")
+    root.common.engine.faults = {
+        site: {"at": [2 if site == "sdc.flip_param" else 1]}}
+    injected = metrics.faults_injected(site).value
+    if site.startswith(("train.", "sdc.")):
+        _fire_guard_site(site, tmp_path)
+    elif site.startswith(("publish.", "swap.")):
+        _fire_publisher_site(site, tmp_path)
+    else:
+        _fire_supervisor_site(site, tmp_path)
+    assert metrics.faults_injected(site).value == injected + 1

@@ -60,7 +60,6 @@ TOL = 1e-5
 @pytest.fixture(autouse=True)
 def port_config():
     reset_root()
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
     ref_root.common.engine.fp8_matmul = False

@@ -24,7 +24,6 @@ from znicz_tpu.loader.fullbatch import ArrayLoader as RefLoader
 from znicz_tpu.models.samples import wine as ref_wine
 from znicz_tpu.models.standard_workflow import StandardWorkflow as RefWorkflow
 from znicz_tpu.utils import prng as ref_prng
-from znicz_tpu.utils.config import root as ref_root
 from znicz_tpu_torch import datasets
 from znicz_tpu_torch.loader.base import TRAIN
 from znicz_tpu_torch.loader.fullbatch import ArrayLoader
@@ -47,7 +46,6 @@ TOL = 1e-5
 @pytest.fixture(autouse=True)
 def port_config():
     reset_root()
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

@@ -322,6 +322,32 @@ def test_cutter_chain_steps_beside_the_reference(device, zero_fill):
         assert not np.any(w[MASK] == 0.0)
 
 
+def test_a_zero_filler_trips_the_sdc_self_check_in_both_packages():
+    """C17: the filler multiplies the conv's weights after the step's
+    committed fingerprint (slot 0) was folded, so the next train step's
+    fold of the stored value (slot 2) differs from it and the sticky
+    self-check (slot 3) counts one each train step after the first, in
+    the reference as in the port: a false SDC alarm on a clean run
+    (the card's phase 13 reads it too).  Both packages with the guard
+    and the fingerprints on, the same counts."""
+    ref_root.common.engine.anomaly_guard = True
+    ref, port = _workflows("cpu")
+    fillers = _zero_fillers(ref, port, "cpu")
+    ref.initialize(device=_ref_device("cpu"))
+    port.initialize(device="cpu")
+    for filler, dev in zip(fillers, (ref.device, port.device)):
+        filler.zero_mask.reset((~MASK).astype(np.float32))
+        filler.zero_mask.initialize(dev)
+    for _ in range(5):   # two validation steps, three train steps
+        _ref_step(ref, "cpu")
+        port.step()
+    got = port.anomaly_guard.read_sdc_fingerprint()
+    want = ref.anomaly_guard.read_sdc_fingerprint()
+    assert got[3] == want[3] == 2.0
+    assert port.anomaly_guard.read_state() == \
+        ref.anomaly_guard.read_state() == (0, 0, 0)
+
+
 # -- accumulators ----------------------------------------------------------------
 def test_accumulators_against_the_reference():
     rng = np.random.default_rng(3)

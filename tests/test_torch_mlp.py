@@ -9,7 +9,7 @@ command line.
   1e-6 relative (f32 sums in another order); a non-finite step leaves
   the epoch sum alone in both.
 - The samples step side by side from one seed (the reference on its XLA
-  CPU backend, its anomaly guard off, which changes no finite step):
+  CPU backend; both packages at their defaults, the anomaly guard on):
   each parameter and momentum tensor within 1e-5 of its largest |value|
   (f32 summation order; measured ~2e-7 a step), the error counts and
   confusion counts exactly.  The autoencoder amplifies such differences
@@ -35,7 +35,6 @@ from znicz_tpu.models.samples import mnist784 as ref_mnist784
 from znicz_tpu.models.samples import wine as ref_wine
 from znicz_tpu.ops.evaluator import EvaluatorMSE as RefEvaluatorMSE
 from znicz_tpu.utils import prng as ref_prng
-from znicz_tpu.utils.config import root as ref_root
 from znicz_tpu_torch import datasets
 from znicz_tpu_torch.__main__ import Main
 from znicz_tpu_torch.loader.base import TEST, TRAIN, VALID
@@ -54,7 +53,6 @@ TOL = 1e-5
 def port_config(tmp_path):
     reset_root()
     root.common.dirs.snapshots = str(tmp_path / "snapshots")
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

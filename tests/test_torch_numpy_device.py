@@ -43,7 +43,6 @@ from znicz_tpu.models.samples import mnist784 as ref_mnist784
 from znicz_tpu.models.samples import wine as ref_wine
 from znicz_tpu.models.standard_workflow import StandardWorkflow as RefWorkflow
 from znicz_tpu.utils import prng as ref_prng
-from znicz_tpu.utils.config import root as ref_root
 from znicz_tpu_torch.__main__ import Main
 from znicz_tpu_torch.backends import CpuDevice, Device, NumpyDevice
 from znicz_tpu_torch.loader.base import TRAIN, VALID
@@ -66,7 +65,6 @@ TOL_CPU = 1e-5
 def port_config(tmp_path):
     reset_root()
     root.common.dirs.snapshots = str(tmp_path / "snapshots")
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

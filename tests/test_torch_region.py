@@ -20,8 +20,9 @@ single steps.
 - a resume mid-epoch writes the device cursor and the seed chains back,
   and goes on bit for bit, chunked or not;
 - the unit graph (``generate_graph``) has the reference's nodes and
-  edges, before and after ``initialize`` (the reference without its
-  anomaly guard, which the port has not ported);
+  edges, before and after ``initialize``, both packages at their
+  defaults (the anomaly guard in the control graph between the loader
+  and the region);
 - the region's bookkeeping around its graphs, with a stand-in for the
   CUDA graph API: a replay binds its capture's outputs, and refuses a
   device tensor rebound since the capture.
@@ -424,8 +425,7 @@ def test_cifar_graph_has_the_reference_nodes_and_edges():
                             snapshotter_config={"prefix": "cifar"})
     ref = RefWorkflow(name="cifar", loader_factory=_loader(RefLoader),
                       layers=ref_cifar.layers(dict(ref_root.cifar.as_dict())),
-                      snapshotter_config={"prefix": "cifar"},
-                      anomaly_guard=False)
+                      snapshotter_config={"prefix": "cifar"})
     assert _graph(port.generate_graph()) == _graph(ref.generate_graph())
     prng.seed_all(SEED)
     port.initialize(device="cpu")
@@ -433,5 +433,7 @@ def test_cifar_graph_has_the_reference_nodes_and_edges():
     nodes, edges = _graph(port.generate_graph())
     assert (nodes, edges) == _graph(ref.generate_graph())
     assert ("train_region", "RegionUnit") in nodes
-    assert {("loader", "train_region"), ("train_region", "decision")} <= {
+    assert ("anomaly_guard", "AnomalyGuard") in nodes
+    assert {("loader", "anomaly_guard"), ("anomaly_guard", "train_region"),
+            ("train_region", "decision")} <= {
         (a.replace("ArrayLoader", "loader"), b) for a, b in edges}

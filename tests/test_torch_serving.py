@@ -322,16 +322,20 @@ def test_port_imports_neither_jax_nor_the_reference():
     # the sequence units of the token LM among them, the RBM, the SOM
     # and the cutter, the fault plan, the flight recorder and the
     # quantizer (host-only modules the port copies), decode, the
-    # parallel package (its host-only code copied too) and the input
-    # plane
+    # parallel package (its host-only code copied too), the input
+    # plane and resilience (the guard, the sentinel, the publisher, the
+    # supervisors and the drill worker)
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
                                 "decode", "axis", "distributed", "mesh",
                                 "partition", "process_shard",
                                 "ring_attention", "pipeline", "streaming",
-                                "image", "imagenet")} \
+                                "image", "imagenet", "guard", "integrity",
+                                "publisher", "supervisor",
+                                "elastic_worker")} \
         <= {p.name for p in files}
+    assert REPO / "znicz_tpu_torch" / "resilience" / "supervisor.py" in files
     # the input plane, the native pool's loader among them
     assert REPO / "znicz_tpu_torch" / "native" / "__init__.py" in files
     assert REPO / "znicz_tpu_torch" / "loader" / "streaming.py" in files

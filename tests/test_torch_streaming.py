@@ -66,7 +66,6 @@ def port_config():
     reset_root()
     root.common.engine.read_backoff_s = 0.0
     ref_root.common.engine.read_backoff_s = 0.0
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

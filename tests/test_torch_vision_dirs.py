@@ -44,7 +44,6 @@ DIRS = {"hands": ("hands", 2, 14), "yale_faces": ("yalefaces", 4, 6),
 def port_config(tmp_path):
     reset_root()
     root.common.dirs.snapshots = str(tmp_path / "snapshots")
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

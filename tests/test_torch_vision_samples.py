@@ -42,7 +42,6 @@ STEPS = {"hands": 5, "yale_faces": 5, "channels": 4}
 def port_config(tmp_path):
     reset_root()
     root.common.dirs.snapshots = str(tmp_path / "snapshots")
-    ref_root.common.engine.anomaly_guard = False  # the port has none
     yield
     reset_root()
 

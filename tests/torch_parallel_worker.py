@@ -382,8 +382,95 @@ def mode_env(rank, world):
             "backend": torch.distributed.get_backend()}
 
 
+def mode_guard(rank, world):
+    """The anomaly guard over 2 ranks: a NaN in one rank's block of a
+    gradient under ZeRO-1 (after the reduce-scatter) and under tensor
+    parallelism (one model block), the fingerprints of the sharded
+    tensors beside the logical tensors, and ``run_accumulated(2)`` under
+    ZeRO-1 with ``train.nonfinite_grad`` at the second optimizer step."""
+    import torch.distributed as dist
+    from znicz_tpu_torch.parallel import make_mesh
+    from znicz_tpu_torch.parallel.axis import data_axis
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    out = {"fingerprints": {}}
+    for arm, (n_data, n_model) in (("zero1", (world, 1)),
+                                   ("tp", (1, world))):
+        mesh = make_mesh(n_data=n_data, n_model=n_model, device_type="cpu")
+        root.common.engine.zero1 = "auto" if arm == "zero1" else False
+        prng.seed_all(1234)
+        wf = build_fc(hidden2=12, model_parallel=arm == "tp")
+        wf.initialize(device=cpu_device(mesh))
+        gd = wf.gds[0]
+        fwd = gd.forward_unit
+        guard = wf.anomaly_guard
+        tensors = (fwd.weights, fwd.bias, gd.accumulated_gradient_weights,
+                   gd.accumulated_gradient_bias)
+
+        def bits():
+            return [t.detach().clone() for t in tensors]
+
+        rng = np.random.default_rng(rank + 5)
+        gw = torch.from_numpy(rng.normal(size=tuple(fwd.weights.shape))
+                              .astype(np.float32))
+        gb = torch.from_numpy(rng.normal(size=tuple(fwd.bias.shape))
+                              .astype(np.float32))
+        bad = gw.clone()
+        if arm == "zero1":
+            # the last row along the shard dim: after the reduce-scatter
+            # only the last rank's shard holds it
+            dim = gd._zero1_for(fwd.weights).data_shard_dim
+            if rank == 0:
+                bad.select(dim, bad.shape[dim] - 1).fill_(float("nan"))
+        elif rank == world - 1:
+            bad[0, 0] = float("nan")  # this model block only
+        group = wf.device.group("data")
+        before = bits()
+        guard.step_flags.fill_(1.0)
+        with data_axis(group):
+            gd.apply_weights(bad)
+            gd.apply_bias(gb)
+        after = bits()
+        flags = guard.step_flags.tolist()
+        guard.step_flags.fill_(1.0)
+        guard.sdc_fingerprint.zero_()
+        w_before = fwd.full_tensor("weights", fwd.weights).detach().clone()
+        with data_axis(group):
+            gd.apply_weights(gw)
+        w_after = fwd.full_tensor("weights", fwd.weights).detach().clone()
+        if arm == "zero1":
+            logical = gw.clone()
+            dist.all_reduce(logical, group=group)
+        else:
+            logical = fwd.full_tensor("weights", gw)
+        fp = guard.sdc_fingerprint.tolist()
+        out[arm] = {
+            "skipped_unchanged": all(torch.equal(a, b)
+                                     for a, b in zip(before, after)),
+            "finite_moved": not torch.equal(w_before, w_after),
+            "flags": flags}
+        for slot, name, value in ((2, "param_before", w_before),
+                                  (1, "grad", logical),
+                                  (0, "param_after", w_after)):
+            out["fingerprints"][f"{arm}.{name}"] = (
+                fp[slot], value.numpy().copy())
+    mesh = make_mesh(device_type="cpu")
+    root.common.engine.zero1 = "auto"
+    root.common.engine.grad_accum = 2
+    root.common.engine.faults = {"train.nonfinite_grad": {"at": [2]}}
+    prng.seed_all(1234)
+    wf = build_fc(hidden2=None)
+    wf.initialize(device=cpu_device(mesh))
+    wf.run_accumulated(2)
+    out["accumulated"] = {
+        "state": list(wf.anomaly_guard.read_state()),
+        "params": params(wf),
+        "fingerprint": wf.anomaly_guard.read_sdc_fingerprint().tolist()}
+    return out
+
+
 MODES = {"dp": mode_dp, "zero1": mode_zero1, "tp": mode_tp,
-         "ring": mode_ring, "env": mode_env}
+         "ring": mode_ring, "env": mode_env, "guard": mode_guard}
 
 
 def spawn_world(mode: str, world: int, tmp_dir: str,

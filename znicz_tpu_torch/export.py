@@ -153,7 +153,7 @@ def _sequence_meta(layers: list[dict], input_shape) -> dict | None:
             "dim": dim, "cache": cache}
 
 
-def export_forward(workflow, path: str) -> str:
+def export_forward(workflow, path: str, extra: dict | None = None) -> str:
     """Write the forward chain of a trained
     :class:`~znicz_tpu_torch.models.standard_workflow.StandardWorkflow`
     to ``path`` as the reference's ``export_forward`` does: the
@@ -163,7 +163,8 @@ def export_forward(workflow, path: str) -> str:
     ``layer{i}_{attr}`` arrays in one compressed ``.npz``, written to a
     temporary file and renamed into place.  Under tensor parallelism the
     parameters are gathered from their blocks first (a collective every
-    process joins) and process 0 writes.  Returns the path."""
+    process joins) and process 0 writes.  ``extra`` adds keys to the
+    manifest (the publisher's ``aot_programs``).  Returns the path."""
     from znicz_tpu_torch.parallel.distributed import process_info
     layers = []
     for spec, unit in zip(workflow.layers_config, workflow.forwards):
@@ -189,6 +190,7 @@ def export_forward(workflow, path: str) -> str:
     manifest["kind"] = "scorer" if seq is None else "lm"
     if seq is not None:
         manifest["sequence"] = seq
+    manifest.update(extra or {})
     # a parameter held in blocks over processes (tensor parallelism) is
     # gathered (every process calls this in lockstep); process 0 writes
     arrays = {f"layer{i}_{attr}": unit.full_tensor(

@@ -34,8 +34,18 @@ workflow on the device, loads the staged state and trains it.
   cannot join a mesh, and ``n_model``/``n_seq`` > 1 needs distributed
   mode.  Process 0 writes the snapshots; the others fence on them.
 
-Not ported yet: the graphics server, the web status page and the worker
-supervisor (A12, A13); they are not offered.
+- elastic supervision: ``ZNICZ_HEARTBEAT_DIR`` (or
+  ``engine.heartbeat_dir``) attaches a
+  :class:`~znicz_tpu_torch.resilience.supervisor.WorkerSupervisor` to the
+  run (heartbeats, the preemption barrier, the hang watchdog), and
+  SIGTERM then asks for the barriered checkpoint at a near step boundary
+  instead of the emergency snapshot; ``ZNICZ_RESUME_SNAPSHOT`` names the
+  snapshot a restarted gang resumes from, as the
+  :class:`~znicz_tpu_torch.resilience.supervisor.ElasticSupervisor` sets
+  it.
+
+Not ported yet: the graphics server and the web status page (A13); they
+are not offered.
 """
 
 from __future__ import annotations
@@ -74,6 +84,10 @@ class Launcher(Logger):
         if backend not in (None, "cuda", "cpu", "numpy"):
             raise ValueError(f"backend '{backend}' (cuda, cpu or numpy)")
         self.backend = backend
+        if snapshot is None:
+            # the elastic restart contract: the gang supervisor names the
+            # snapshot to resume from, so the same command line resumes
+            snapshot = os.environ.get("ZNICZ_RESUME_SNAPSHOT") or None
         self.snapshot = snapshot
         self.retries = int(retries)
         self.chunk = 1 if chunk is None else int(chunk)
@@ -87,6 +101,7 @@ class Launcher(Logger):
         self._snapshot_state: dict | None = None
         self._interrupted = False
         self._old_handlers: dict[int, Any] = {}
+        self._worker_supervisor = None
         # distributed mode ---------------------------------------------
         self.coordinator = listen or master
         self.process_id = process_id
@@ -219,6 +234,12 @@ class Launcher(Logger):
         if self._snapshot_state is not None:
             workflow.load_state(self._snapshot_state)
             self._snapshot_state = None
+        from znicz_tpu_torch.resilience import supervisor as _supervisor
+        sup_cfg = _supervisor.worker_config()
+        if sup_cfg is not None and self._worker_supervisor is None:
+            self._worker_supervisor = _supervisor.WorkerSupervisor(
+                workflow, is_master=self.is_master, **sup_cfg)
+            self._worker_supervisor.attach()
         self._install_signal_handlers(workflow)
         try:
             if self.chunk > 1 and hasattr(workflow, "run_chunked"):
@@ -230,6 +251,9 @@ class Launcher(Logger):
             raise
         finally:
             self._restore_signal_handlers()
+            if self._worker_supervisor is not None:
+                self._worker_supervisor.detach()
+                self._worker_supervisor = None
         return workflow
 
     # -- failures --------------------------------------------------------
@@ -237,6 +261,14 @@ class Launcher(Logger):
         def handler(signum, frame):
             if self._interrupted:  # the second signal: out at once
                 raise KeyboardInterrupt
+            supervisor = self._worker_supervisor
+            if supervisor is not None and signum == signal.SIGTERM:
+                # preemption: the whole gang checkpoints at one barrier
+                # step boundary and exits EXIT_PREEMPTED (one flag file
+                # here, nothing else in the handler)
+                self._interrupted = True
+                supervisor.request_preempt(f"signal {signum}")
+                return
             self._interrupted = True
             self.warning("signal %d: emergency snapshot + stop", signum)
             self._emergency_snapshot(workflow)

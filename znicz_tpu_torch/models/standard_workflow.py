@@ -14,10 +14,11 @@ links and gates:
 
 .. code-block:: text
 
-    start → repeater → loader (host pick) → train_region → decision ─→ repeater
-                                                             ├─→ lr_adjuster
-                                                             ├─(improved)→ snapshotter
-                                                             └─(complete)→ end
+    start → repeater → loader (host pick) → anomaly_guard (host: arm the
+          drill leaves) → train_region → decision ─→ repeater
+                                                   ├─→ lr_adjuster
+                                                   ├─(improved)→ snapshotter
+                                                   └─(complete)→ end
 
 ``train_region`` is a :class:`~znicz_tpu_torch.accelerated_units.RegionUnit`
 over the hot chain (:meth:`hot_chain_units`):
@@ -25,7 +26,8 @@ over the hot chain (:meth:`hot_chain_units`):
 .. code-block:: text
 
     loader gather → forwards → evaluator → backward units (train only)
-                  → side units linked after the last backward unit
+                  → anomaly guard → side units linked after the last
+                    backward unit
 
 On the card it replays a CUDA graph captured once per key (train,
 validation, test minibatches); on the CPU it runs the same members
@@ -70,9 +72,23 @@ optimizer step through the temporal pipeline
 (:class:`~znicz_tpu_torch.parallel.pipeline.PipelineExecutor`, 1F1B or
 GPipe over the M microbatches), on ``run_accumulated``'s trajectory.
 
-Not ported with it (later slices): the anomaly guard (A11), the
-population engine's ``promote_lr_leaves`` (A13), the plotters and the
-publisher (A12).
+The anomaly guard is on by default, as in the reference
+(``anomaly_guard`` argument, else ``root.common.engine.anomaly_guard``;
+:meth:`link_anomaly_guard`, :mod:`~znicz_tpu_torch.resilience.guard`):
+the evaluator seeds its flags, every weighted backward unit guards its
+update and folds the SDC fingerprints, the guard commits the verdict
+inside the region, and the decision reads it after the step and calls
+:meth:`rollback_to_snapshot` after ``engine.anomaly_rollback_k``
+anomalous steps in a row.  With the fingerprints
+(``engine.sdc_fingerprints``, on by default) the workflow carries an
+:class:`~znicz_tpu_torch.resilience.integrity.IntegritySentinel`
+(``integrity``), whose audit replays steps on :meth:`build_shadow`.
+:meth:`link_weight_publisher` publishes the forward chain into a
+serving handoff directory every N epochs.
+
+Not ported with it (later slices): the population engine's
+``promote_lr_leaves`` (A13), the plotters and the report publisher
+(A13).
 """
 
 from __future__ import annotations
@@ -93,6 +109,7 @@ from znicz_tpu_torch.ops.decision import DecisionGD, DecisionMSE
 from znicz_tpu_torch.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from znicz_tpu_torch.ops.lr_adjust import LearningRateAdjust
 from znicz_tpu_torch.ops.nn_units import WeightlessGradientUnit, gd_for
+from znicz_tpu_torch.resilience.guard import AnomalyGuard
 from znicz_tpu_torch.units import Repeater
 from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.snapshotter import Snapshotter
@@ -136,6 +153,7 @@ class StandardWorkflow(AcceleratedWorkflow):
                  decision_config: dict[str, Any] | None = None,
                  snapshotter_config: dict[str, Any] | None = None,
                  lr_adjuster_config: dict[str, Any] | None = None,
+                 anomaly_guard: bool | None = None,
                  **kwargs) -> None:
         if loader_factory is None:
             raise ValueError("loader_factory is required")
@@ -149,16 +167,29 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.layers_config = list(layers)
         self.loss = loss
         self.compute_dtype = torch.float32
+        # kept for the SDC audit's shadow clone (build_shadow)
+        self._loader_factory = loader_factory
+        self._evaluator_config = dict(evaluator_config or {})
+        self._decision_config = dict(decision_config or {})
         self.repeater = Repeater(self, name="repeater")
         self.loader = loader_factory(self)
         if not isinstance(self.loader, Loader):
             raise TypeError(f"loader_factory gave {type(self.loader)}")
         self.forwards = torch.nn.ModuleList()
         self.gds = torch.nn.ModuleList()
+        self.anomaly_guard: AnomalyGuard | None = None
+        #: the SDC sentinel (with the guard's fingerprints)
+        self.integrity = None
+        #: the in-process supervisor, when the launcher attached one
+        self._worker_supervisor = None
         self.link_forwards()
         self.link_evaluator(**(evaluator_config or {}))
         self.link_decision(**(decision_config or {}))
         self.link_gds()
+        guard_on = (anomaly_guard if anomaly_guard is not None
+                    else bool(root.common.engine.get("anomaly_guard", True)))
+        if guard_on:
+            self.link_anomaly_guard()
         self.link_loop()
         self.lr_adjuster: LearningRateAdjust | None = None
         if lr_adjuster_config is None and any(
@@ -253,6 +284,53 @@ class StandardWorkflow(AcceleratedWorkflow):
             next_gd = unit
         self.gds.extend(reversed(gds))
 
+    def link_anomaly_guard(self) -> None:
+        """Attach the anomaly guard (the reference's): the evaluator
+        seeds its flags, every backward unit guards its update, and with
+        ``engine.sdc_fingerprints`` folds its fingerprints into the
+        guard's vector, which the sentinel reads."""
+        from znicz_tpu_torch.resilience.integrity import IntegritySentinel
+        guard = AnomalyGuard(self, name="anomaly_guard")
+        self.anomaly_guard = guard
+        self.evaluator.link_attrs(guard, "step_flags", "fault_inject",
+                                  two_way=False)
+        for gd_unit in self.gds:
+            gd_unit.link_attrs(guard, ("anomaly_flag", "step_flags"),
+                               two_way=False)
+        if guard.has_fingerprint:
+            self.evaluator.link_attrs(guard, "sdc_fingerprint",
+                                      two_way=False)
+            for gd_unit in self.gds:
+                gd_unit.link_attrs(guard, "sdc_fingerprint", "sdc_inject",
+                                   two_way=False)
+            self.integrity = IntegritySentinel(self)
+
+    def rollback_to_snapshot(self, streak: int) -> bool:
+        """The anomaly streak's recovery (the decision calls it after
+        ``engine.anomaly_rollback_k`` anomalous steps in a row): load
+        the snapshotter's last snapshot (digest-checked) in place, so the
+        captured step replays on with no recapture, and go on from its
+        position.  Without a snapshot the guard has still kept the
+        weights finite, so the run goes on with a warning.  Returns True
+        when it rolled back."""
+        import os
+        snap = self.snapshotter
+        path = snap.destination if snap is not None else None
+        if self.anomaly_guard is not None:
+            self.anomaly_guard.reset_streak()
+            self.anomaly_guard.reset_sdc_fingerprint()
+        if not path or not os.path.exists(path):
+            self.warning("anomaly streak %d with no snapshot to roll back "
+                         "to: the anomalous updates were skipped, going "
+                         "on as it is", streak)
+            return False
+        self.load_state(Snapshotter.load(path))
+        _metrics.anomaly_rollbacks(self.name).inc()
+        _metrics.recoveries("rollback").inc()
+        self.warning("anomaly streak %d: rolled back to %s and resumed",
+                     streak, path)
+        return True
+
     def link_loop(self) -> None:
         """The training loop's control flow."""
         decision = self.decision
@@ -277,6 +355,10 @@ class StandardWorkflow(AcceleratedWorkflow):
         for gd_unit in reversed(self.gds):
             gd_unit.link_from(prev)
             prev = gd_unit
+        if self.anomaly_guard is not None:
+            # the guard commits the verdict after the last backward unit
+            self.anomaly_guard.link_from(prev)
+            prev = self.anomaly_guard
         return prev
 
     def _relink_end_point_last(self) -> None:
@@ -334,6 +416,38 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.image_saver = s
         return s
 
+    def link_weight_publisher(self, **config):
+        """Publish the trained forward chain every N epochs into a
+        serving handoff directory (the reference's; a serving process's
+        :class:`~znicz_tpu_torch.resilience.publisher.PublicationWatcher`
+        picks the bundles up for canary-gated hot swaps).  Config:
+        ``directory``, ``prefix``, ``every_n_epochs``, ``quantize``,
+        ``calib``.  It fires after the decision at each epoch's end."""
+        from znicz_tpu_torch.resilience.publisher import WeightPublisher
+        decision = self.decision
+        p = WeightPublisher(self, name="weight_publisher", **config)
+        p.link_from(decision)
+        self._relink_end_point_last()
+        p.gate_skip = Bool._derived(lambda: not decision.epoch_ended)
+        self.weight_publisher = p
+        return p
+
+    def build_shadow(self) -> "StandardWorkflow":
+        """A numpy-oracle clone for the SDC sentinel's audit: the same
+        declarative config (so the same unit names, and ``load_state``
+        restores it tensor for tensor), no guard (the shadow is the
+        trusted oracle), no snapshots."""
+        shadow = StandardWorkflow(
+            name=f"{self.name}_shadow", loader_factory=self._loader_factory,
+            layers=self.layers_config, loss=self.loss,
+            evaluator_config=self._evaluator_config,
+            decision_config={**self._decision_config, "max_epochs": None,
+                             "fail_iterations": 10 ** 9},
+            snapshotter_config=None, anomaly_guard=False)
+        shadow._max_fires = 10 ** 9
+        shadow.initialize(device="numpy")
+        return shadow
+
     def hot_chain_units(self) -> list:
         """The per-minibatch hot chain in the region's order, then the
         accelerated side units linked after its last unit (a
@@ -341,9 +455,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         after it."""
         chain = [self.loader, *self.forwards, self.evaluator,
                  *reversed(self.gds)]
+        guard = self.anomaly_guard
         side = [u for u in chain[-1].links_to
-                if u is not self.decision and isinstance(u, AcceleratedUnit)]
-        return chain + side
+                if u is not self.decision and u is not guard
+                and isinstance(u, AcceleratedUnit)]
+        return chain + ([guard] if guard is not None else []) + side
 
     # -- lifecycle ------------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:
@@ -364,10 +480,19 @@ class StandardWorkflow(AcceleratedWorkflow):
                             name="train_region")
         region.initialize(device=self.device)
         region._initialized = True
-        self.decision.unlink_from(self.gds[0] if self.gds
-                                  else self.evaluator)
+        last = self.gds[0] if self.gds else self.evaluator
+        guard = self.anomaly_guard
         self.forwards[0].unlink_from(self.loader)
-        region.link_from(self.loader)
+        if guard is None:
+            self.decision.unlink_from(last)
+            region.link_from(self.loader)
+        else:
+            # like the loader, the guard stays in the control graph for
+            # its host_run (the drill leaves), before the region
+            self.decision.unlink_from(guard)
+            guard.unlink_from(last)
+            guard.link_from(self.loader)
+            region.link_from(guard)
         self.decision.link_from(region)
         self._region_unit = region
 
@@ -496,9 +621,11 @@ class StandardWorkflow(AcceleratedWorkflow):
         The backward units must have their microbatch buffers: set
         ``root.common.engine.grad_accum`` before :meth:`initialize`.
         The train set must divide into whole accumulated steps, and the
-        loader's schedule must be on the device.  The reference's
-        anomaly guard, ZeRO-1 and SDC fingerprints compose here once
-        they are ported (A9, A11).  ``M == 1`` is :meth:`run`."""
+        loader's schedule must be on the device.  The anomaly guard's
+        flags AND across the M microbatches (one NaN anywhere skips the
+        whole optimizer step), its drill leaves are armed once an
+        optimizer step, and it commits, and the fingerprints fold, once,
+        in the apply phase.  ``M == 1`` is :meth:`run`."""
         region = self.region
         loader = self.loader
         if self._oracle:
@@ -529,6 +656,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         adjuster = self.lr_adjuster
         side_units = [u for u in decision.links_to
                       if u not in (self.repeater, self.end_point, adjuster)]
+        guard = self.anomaly_guard
         _metrics.grad_accum_microbatches(self.name).set(n_micro)
         self._begin_run()
         steps = 0
@@ -539,6 +667,8 @@ class StandardWorkflow(AcceleratedWorkflow):
                 if loader.minibatch_class == TRAIN:
                     for _ in range(n_micro - 1):
                         loader.run()
+                    if guard is not None:
+                        guard.host_run()  # once an optimizer step
                     region.run_accum(n_micro)
                     if adjuster is not None:
                         adjuster._fire()  # one optimizer step, whatever M
@@ -570,9 +700,9 @@ class StandardWorkflow(AcceleratedWorkflow):
         ``root.common.engine.grad_accum``), each stage accumulating M − 1
         microbatch gradients and applying once, so the trajectory is
         :meth:`run_accumulated`'s.  Validation and test minibatches run
-        through the unstaged region.  The anomaly guard's place in the
-        last backward op stays empty (ROADMAP A11).  The train set must
-        divide into whole pipelined steps."""
+        through the unstaged region.  The anomaly guard trails stage 0's
+        backward, as in the reference, and commits in the last op of the
+        step.  The train set must divide into whole pipelined steps."""
         from znicz_tpu_torch.parallel.pipeline import PipelineExecutor
         region = self.region
         loader = self.loader
@@ -600,6 +730,7 @@ class StandardWorkflow(AcceleratedWorkflow):
         adjuster = self.lr_adjuster
         side_units = [u for u in decision.links_to
                       if u not in (self.repeater, self.end_point, adjuster)]
+        guard = self.anomaly_guard
         self._begin_run()
         steps = 0
         with _tracing.TRACER.span(f"workflow:{self.name}", cat="workflow",
@@ -609,6 +740,8 @@ class StandardWorkflow(AcceleratedWorkflow):
                 if loader.minibatch_class == TRAIN:
                     for _ in range(n_micro - 1):
                         loader.run()
+                    if guard is not None:
+                        guard.host_run()
                     executor.run_step()
                     if adjuster is not None:
                         adjuster._fire()  # one optimizer step

@@ -17,7 +17,11 @@ token and per token, token counts, live slots, the KV page pool, the
 prefix cache, speculative verdicts, the per-phase p99 gauges and the
 swap drain's admission pause, and the input plane's: the input wait
 and staging time, the prefetch depth and events, the ready batches,
-and the shard reader's retries, quarantines and pipeline restarts.
+and the shard reader's retries, quarantines and pipeline restarts, and
+resilience's: the guard's anomalies and rollbacks, the last step's
+time, the SDC votes, audits, suspects and quarantines, publishes and
+artifact ages, int8 canary verdicts, the heartbeat ages ``/readyz``
+reads, hosts lost, elastic restarts and checkpoints on a signal.
 The hot-path series (unit times, transfer bytes) are gated on
 :func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
@@ -754,3 +758,120 @@ def phase_p99_seconds(engine: str, phase: str) -> Gauge:
         "znicz_phase_p99_seconds",
         "Exact windowed p99 latency per serving phase",
         labels=("engine", "phase")).labels(engine=engine, phase=phase)
+
+
+# ----------------------------------------------------------------------
+# resilience: the anomaly guard, the SDC sentinel, the publisher and the
+# supervisors (the reference's series of the same names)
+# ----------------------------------------------------------------------
+def step_anomalies(workflow: str, kind: str) -> Counter:
+    """Training steps whose loss (``kind=loss``) or gradients
+    (``kind=grad``) went non-finite; the guard skipped their update."""
+    return REGISTRY.counter(
+        "znicz_step_anomalies_total",
+        "Non-finite training steps by kind (update skipped)",
+        labels=("workflow", "kind")).labels(workflow=workflow, kind=kind)
+
+
+def anomaly_rollbacks(workflow: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_anomaly_rollbacks_total",
+        "Rollbacks to the last good snapshot after K consecutive "
+        "anomalous steps", labels=("workflow",)).labels(workflow=workflow)
+
+
+def last_step_timestamp(workflow: str) -> Gauge:
+    """Unix time of the last completed training step (``/readyz`` turns
+    it into staleness)."""
+    return REGISTRY.gauge(
+        "znicz_last_step_timestamp_seconds",
+        "Unix timestamp of the workflow's last completed step",
+        labels=("workflow",)).labels(workflow=workflow)
+
+
+def sdc_votes(workflow: str, verdict: str) -> Counter:
+    """Cross-replica fingerprint votes by verdict (``clean``,
+    ``divergent``)."""
+    return REGISTRY.counter(
+        "znicz_sdc_votes_total",
+        "Cross-replica fingerprint votes (clean/divergent)",
+        labels=("workflow", "verdict")).labels(workflow=workflow,
+                                               verdict=verdict)
+
+
+def sdc_audits(workflow: str, verdict: str) -> Counter:
+    """Redundant-compute audits by verdict (``match``, ``mismatch``)."""
+    return REGISTRY.counter(
+        "znicz_sdc_audits_total",
+        "Redundant-compute shadow audits (match/mismatch)",
+        labels=("workflow", "verdict")).labels(workflow=workflow,
+                                               verdict=verdict)
+
+
+def sdc_quarantined(kind: str) -> Counter:
+    """Corrupt compute units removed from service (``host``,
+    ``replica``)."""
+    return REGISTRY.counter(
+        "znicz_sdc_quarantined_total",
+        "Corrupt hosts/replicas quarantined after confirmed SDC",
+        labels=("kind",)).labels(kind=kind)
+
+
+def publishes_total(source: str) -> Counter:
+    """Bundles published to a serving handoff directory."""
+    return REGISTRY.counter(
+        "znicz_publishes_total",
+        "Model bundles published to the serving handoff directory",
+        labels=("source",)).labels(source=source)
+
+
+def snapshot_age_seconds(source: str) -> Gauge:
+    """Seconds since ``source`` last wrote a good artifact (a callback
+    gauge)."""
+    return REGISTRY.gauge(
+        "znicz_snapshot_age_seconds",
+        "Time since the last good snapshot/publish by source",
+        labels=("source",)).labels(source=source)
+
+
+def quant_canary(engine: str, outcome: str) -> Counter:
+    """Canary verdicts for int8 candidates only (``promoted``,
+    ``rejected``, ``rolled_back``)."""
+    return REGISTRY.counter(
+        "znicz_quant_canary_total",
+        "Canary outcomes for int8-quantized swap candidates",
+        labels=("engine", "outcome")).labels(engine=engine,
+                                             outcome=outcome)
+
+
+def heartbeat_age_seconds(process) -> Gauge:
+    """Seconds since process ``process`` last beat into the heartbeat
+    channel (a callback gauge the coordinator's monitor feeds;
+    ``/readyz`` reads peer liveness from it)."""
+    return REGISTRY.gauge(
+        "znicz_heartbeat_age_seconds",
+        "Seconds since each process's last heartbeat",
+        labels=("process",)).labels(process=process)
+
+
+def host_losses(kind: str) -> Counter:
+    """Processes the elastic supervisor declared gone, by kind
+    (``loss``, ``stall``, ``preempt``, ``sdc``)."""
+    return REGISTRY.counter(
+        "znicz_host_losses_total",
+        "Hosts lost to the elastic supervisor by kind",
+        labels=("kind",)).labels(kind=kind)
+
+
+def elastic_restarts() -> Counter:
+    """Gang relaunches onto the surviving processes."""
+    return REGISTRY.counter(
+        "znicz_elastic_restarts_total",
+        "Elastic gang restarts onto the surviving mesh").labels()
+
+
+def checkpoint_on_signal() -> Counter:
+    """Barriered preemption checkpoints completed."""
+    return REGISTRY.counter(
+        "znicz_checkpoint_on_signal_total",
+        "Preemption-triggered barriered checkpoints").labels()

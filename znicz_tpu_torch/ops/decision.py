@@ -18,18 +18,34 @@ them), :class:`DecisionMSE` on ``EvaluatorMSE``'s mean squared error.
 Each one's ``SNAPSHOT_ATTRS`` (the best metric so far, the epochs
 without improvement, the epoch's sums) go into a snapshot and come back
 from it, so a resumed run keeps its best and its stop rule's count.
-The reference's telemetry spans and resilience hooks (anomaly guard,
-heartbeats) are not ported with them.
+
+After its bookkeeping every firing runs the reference's resilience tick
+(:meth:`DecisionBase._resilience_tick`): the last-step gauge, the
+workflow's step hooks (the supervisor's heartbeat and preemption
+point), the SDC sentinel's ``on_step``, and every
+``engine.anomaly_check_interval`` steps (1 by default) one read of the
+anomaly guard's ``anomaly_state``, whose totals become the registry's
+``znicz_step_anomalies_total{kind}`` and
+``znicz_recoveries_total{kind=anomaly_step}``, and whose streak asks the
+workflow to roll back to its snapshot once it reaches
+``engine.anomaly_rollback_k`` (5).  On the card that read is one small
+device-to-host copy a step, as in the reference, but the tick does not
+wait for its step: it reads the copy the previous tick queued
+(:meth:`~znicz_tpu_torch.resilience.guard.AnomalyGuard.poll_state`), so
+the counters and the rollback come one tick later than the reference's.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 
 import numpy as np
 
 from znicz_tpu_torch.loader.base import CLASS_NAME, TRAIN, VALID
+from znicz_tpu_torch.observe import metrics as _metrics
 from znicz_tpu_torch.units import Unit
+from znicz_tpu_torch.utils.config import root
 
 
 class DecisionBase(Unit):
@@ -53,9 +69,47 @@ class DecisionBase(Unit):
 
     def run(self) -> None:
         self.decide()
+        self._resilience_tick()
+
+    def _resilience_tick(self) -> None:
+        """The reference's host hook, every firing: the step hooks, the
+        sentinel, and the guard's state turned into registry deltas and,
+        after ``anomaly_rollback_k`` anomalous steps in a row, a
+        rollback."""
         wf = self.workflow
-        if wf is not None:
-            wf.on_step_boundary()
+        if wf is None:
+            return
+        if _metrics.enabled():
+            _metrics.last_step_timestamp(wf.name).set(time.time())
+        wf.on_step_boundary()
+        sentinel = getattr(wf, "integrity", None)
+        if sentinel is not None:
+            sentinel.on_step()
+        guard = getattr(wf, "anomaly_guard", None)
+        if guard is None or not guard.is_initialized:
+            return
+        interval = int(root.common.engine.get("anomaly_check_interval", 1))
+        self._guard_tick = getattr(self, "_guard_tick", 0) + 1
+        if interval > 1 and self._guard_tick % interval:
+            return
+        state = guard.poll_state()
+        if state is None:  # the card's first poll: nothing landed yet
+            return
+        streak, loss_t, grad_t = state
+        base_l, base_g = guard._metric_base
+        if loss_t > base_l:
+            _metrics.step_anomalies(wf.name, "loss").inc(loss_t - base_l)
+        if grad_t > base_g:
+            _metrics.step_anomalies(wf.name, "grad").inc(grad_t - base_g)
+        delta = (loss_t - base_l) + (grad_t - base_g)
+        if delta > 0:
+            _metrics.recoveries("anomaly_step").inc(delta)
+            guard._metric_base = (loss_t, grad_t)
+            self.warning("%d non-finite step(s) skipped by the anomaly "
+                         "guard (streak %d)", delta, streak)
+        k = int(root.common.engine.get("anomaly_rollback_k", 5))
+        if streak >= k > 0 and hasattr(wf, "rollback_to_snapshot"):
+            wf.rollback_to_snapshot(streak)
 
     def decide(self) -> None:
         loader = self.loader

@@ -38,8 +38,17 @@ squared error) is summed over the data axis before it is added in
 
 Its math is f32 whatever the activations are stored in: the sum over a
 minibatch would lose small terms in bf16, and the decision selects
-models on it.  The reference's fault-injection and anomaly-guard hooks
-are not ported with them.
+models on it.
+
+The anomaly guard's hooks are the reference's
+(:mod:`~znicz_tpu_torch.resilience.guard`, linked by
+``StandardWorkflow``): each step seeds the guard's ``step_flags`` with
+``isfinite`` of its loss (the summed cross-entropy, or the squared
+error; under a data axis the sum over it, so every process agrees), or
+ANDs it in under gradient accumulation; the drill leaf
+``fault_inject`` (``[loss_add, grad_add]``) is added to the loss and to
+``err_output``; and a train step (the apply phase of an accumulated
+one) zeroes slots 0–2 of the guard's ``sdc_fingerprint``.
 
 On the numpy oracle each runs the reference's ``numpy_run``: numpy
 arrays in, the error out as an array, the counters and sums written in
@@ -52,7 +61,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from znicz_tpu_torch.accelerated_units import AcceleratedUnit
+from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
+                                               current_accum_phase)
+from znicz_tpu_torch.loader.base import TRAIN
 from znicz_tpu_torch.ops.nn_units import as_numpy, stored_f32
 from znicz_tpu_torch.parallel.axis import current_data_axis, maybe_psum
 
@@ -67,9 +78,57 @@ class EvaluatorBase(AcceleratedUnit):
     def __init__(self, workflow=None, name: str = "evaluator") -> None:
         super().__init__(workflow, name=name)
         self.err_output: torch.Tensor | None = None
+        # the anomaly guard's tensors, linked when the guard is on
+        self.step_flags: torch.Tensor | None = None
+        self.fault_inject: torch.Tensor | None = None
+        self.sdc_fingerprint: torch.Tensor | None = None
 
     def region_key(self) -> tuple:
         return (self.minibatch_class,)
+
+    def _inject(self, idx: int):
+        """The drill leaf's term (0 normally, NaN on an injected step),
+        or None without a plan that configures a train site."""
+        inj = self.fault_inject
+        return None if inj is None else inj[idx]
+
+    def _seed_step_flags(self, loss_ok: torch.Tensor) -> None:
+        """``step_flags`` ← ``[loss_ok, loss_ok]`` (in place), or ANDed
+        with it in a microbatch of an accumulated step (the guard resets
+        them after the apply phase); then, on a train step's apply, the
+        fingerprint's per-step slots zeroed."""
+        flags = self.step_flags
+        if flags is None:
+            return
+        phase = current_accum_phase()
+        f = loss_ok.float()
+        if phase is not None:
+            flags.mul_(f)
+        else:
+            flags.copy_(f.expand(2))
+        fp = self.sdc_fingerprint
+        if fp is not None and (phase is None or phase[0] == "apply") \
+                and int(self.minibatch_class) == TRAIN:
+            fp[:3].zero_()
+
+    def _np_inject(self, idx: int):
+        inj = self.fault_inject
+        return None if inj is None else float(as_numpy(inj)[idx])
+
+    def _np_seed_step_flags(self, loss_ok: bool) -> None:
+        flags = self.step_flags
+        if flags is None:
+            return
+        f = np.float32(1.0 if loss_ok else 0.0)
+        phase = current_accum_phase()
+        if phase is not None:
+            as_numpy(flags)[...] *= f
+        else:
+            as_numpy(flags)[...] = [f, f]
+        fp = self.sdc_fingerprint
+        if fp is not None and (phase is None or phase[0] == "apply") \
+                and int(self.minibatch_class) == TRAIN:
+            as_numpy(fp)[:3] = 0.0
 
     def _valid_mask(self, n_rows: int, device) -> tuple[torch.Tensor,
                                                         torch.Tensor]:
@@ -146,14 +205,22 @@ class EvaluatorSoftmax(EvaluatorBase):
         onehot = (labels[:, None] == torch.arange(
             p.shape[1], device=p.device)[None, :]).to(p.dtype)
         err = mask[:, None] * (p - onehot) / valid.clamp(min=1).to(p.dtype)
+        grad_inj = self._inject(1)
+        if grad_inj is not None:
+            err = err + grad_inj.to(err.dtype)
         self.n_err = maybe_psum(
             ((max_idx != labels) & mask).sum().to(torch.int32))
         self.epoch_n_err[minibatch_class] += self.n_err
         p_true = torch.clamp(p[torch.arange(n, device=p.device),
                                labels.long()], min=1e-30)
         loss = maybe_psum((mask * -torch.log(p_true)).sum())
+        loss_inj = self._inject(0)
+        if loss_inj is not None:
+            loss = loss + loss_inj
+        loss_ok = torch.isfinite(loss)
         self.epoch_loss[minibatch_class] += torch.where(
-            torch.isfinite(loss), loss, torch.zeros_like(loss))
+            loss_ok, loss, torch.zeros_like(loss))
+        self._seed_step_flags(loss_ok)
         if self.compute_confusion:
             # masked rows add 0; an atomic add, exact in int32
             c = p.shape[1]
@@ -177,8 +244,11 @@ class EvaluatorSoftmax(EvaluatorBase):
         mask = np.arange(n) < valid
         onehot = np.zeros_like(p)
         onehot[np.arange(n), t] = 1.0
-        self.err_output = stored_f32(
-            mask[:, None] * (p - onehot) / max(valid, 1))
+        err = mask[:, None] * (p - onehot) / max(valid, 1)
+        grad_inj = self._np_inject(1)
+        if grad_inj is not None:
+            err = err + grad_inj
+        self.err_output = stored_f32(err)
         pred = as_numpy(self.max_idx)
         n_err = int(np.sum((pred != t) & mask))
         as_numpy(self.n_err)[...] = n_err
@@ -186,8 +256,13 @@ class EvaluatorSoftmax(EvaluatorBase):
         as_numpy(self.epoch_n_err)[cls] += n_err
         p_true = np.maximum(p[np.arange(n), t], 1e-30)
         loss_sum = np.float32(np.sum(mask * -np.log(p_true)))
+        loss_inj = self._np_inject(0)
+        if loss_inj is not None:
+            loss_sum = loss_sum + np.float32(loss_inj)
+        loss_ok = bool(np.isfinite(loss_sum))
         as_numpy(self.epoch_loss)[cls] += float(
-            loss_sum if np.isfinite(loss_sum) else 0.0)
+            loss_sum if loss_ok else 0.0)
+        self._np_seed_step_flags(loss_ok)
         if self.compute_confusion:
             np.add.at(as_numpy(self.confusion_matrix)[cls],
                       (t[mask], pred[mask]), 1)
@@ -226,10 +301,18 @@ class EvaluatorMSE(EvaluatorBase):
         mask, valid = self._valid_mask(batch, y.device)
         diff = mask[:, None] * (y.reshape(batch, -1) - t)
         err = (diff * (2.0 / valid.clamp(min=1).float())).reshape(y.shape)
+        grad_inj = self._inject(1)
+        if grad_inj is not None:
+            err = err + grad_inj
         sse = maybe_psum((diff * diff).sum())
+        loss_inj = self._inject(0)
+        if loss_inj is not None:
+            sse = sse + loss_inj
         self.metrics.copy_(sse)
+        loss_ok = torch.isfinite(sse)
         self.epoch_sse[minibatch_class] += torch.where(
-            torch.isfinite(sse), sse, torch.zeros_like(sse))
+            loss_ok, sse, torch.zeros_like(sse))
+        self._seed_step_flags(loss_ok)
         return err
 
     def numpy_run(self) -> None:
@@ -239,9 +322,17 @@ class EvaluatorMSE(EvaluatorBase):
         valid = int(self.minibatch_valid)
         mask = np.arange(batch) < valid
         diff = mask[:, None] * (y.reshape(batch, -1) - t)
-        self.err_output = stored_f32(
-            (diff * (2.0 / max(valid, 1))).reshape(y.shape))
+        err = (diff * (2.0 / max(valid, 1))).reshape(y.shape)
+        grad_inj = self._np_inject(1)
+        if grad_inj is not None:
+            err = err + grad_inj
+        self.err_output = stored_f32(err)
         sse = np.float32(np.sum(diff * diff))
+        loss_inj = self._np_inject(0)
+        if loss_inj is not None:
+            sse = sse + np.float32(loss_inj)
         as_numpy(self.metrics)[...] = sse
+        loss_ok = bool(np.isfinite(sse))
         as_numpy(self.epoch_sse)[int(self.minibatch_class)] += \
-            sse if np.isfinite(sse) else 0.0
+            sse if loss_ok else 0.0
+        self._np_seed_step_flags(loss_ok)

@@ -44,8 +44,12 @@ over the data axis where the reference calls ``maybe_pmean``, and with
 ZeRO-1 (``root.common.engine.zero1``, on by default for a data axis of
 2 or more) reduce-scattered instead, each process updating its slice
 of the parameter and of its momentum, which it stores sharded and
-zero-padded, then all-gathering the parameter.  The anomaly guard and
-the SDC fingerprint belong to later slices.  Momentum is stored in bf16
+zero-padded, then all-gathering the parameter.  With the anomaly guard
+linked (``StandardWorkflow``'s default) every update is guarded as in
+the reference: ``ok = running flag AND isfinite(Σ g²)`` of the tensor's
+logical gradient, a skipped tensor keeping its parameter and momentum
+bit for bit, and each tensor's SDC fingerprints folded into the guard's
+vector (:meth:`GradientDescentBase.apply_param`).  Momentum is stored in bf16
 in bf16 mode with its math in f32, as in the reference.  With
 ``engine.fp8_matmul`` on, each parameter's gradient takes a round-trip
 through e4m3 after the accumulation mean and before the update, as in
@@ -77,6 +81,7 @@ from znicz_tpu_torch.parallel import partition
 from znicz_tpu_torch.parallel.axis import (DATA_AXIS, all_gather_flat,
                                            all_reduce, maybe_psum,
                                            reduce_scatter_flat)
+from znicz_tpu_torch.resilience import integrity as _integrity
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import register_defaults, root
 from znicz_tpu_torch.utils.prng import SeedChain
@@ -467,6 +472,17 @@ class GradientDescentBase(ModuleUnit):
         #: update then reads the rates from it, so a captured step takes
         #: the rate the schedule wrote before each replay
         self.register_buffer("lr_state", None)
+        #: the anomaly guard's tensors (linked by ``StandardWorkflow``):
+        #: ``anomaly_flag`` its ``step_flags``, ``sdc_fingerprint`` the
+        #: f32[5] the folds go into, ``sdc_inject`` the drill leaf; None
+        #: (a unit on its own) is the unguarded update
+        self.anomaly_flag = None
+        self.sdc_fingerprint = None
+        self.sdc_inject = None
+        #: ``<forward>.<attribute>`` → (forward, attribute) of every
+        #: parameter the fingerprint folds, in fold order (the host
+        #: recompute and the shadow audit read the same set)
+        self.__dict__["_fp_folded"] = {}
         if forward_unit.input_shape is not None:
             self.bind_forward()
 
@@ -729,6 +745,7 @@ class GradientDescentBase(ModuleUnit):
                 return
             grad = (buf + grad.float()) / n_micro
             buf.zero_()
+        self._fp_register(param)
         plan = self._zero1_for(param)
         if plan is not None:
             return self._apply_zero1(param, grad, acc, decay, lr, moment,
@@ -738,6 +755,8 @@ class GradientDescentBase(ModuleUnit):
         grad = maybe_psum(grad.float())
         if fp8_enabled():
             grad = fp8_round_trip(grad)
+        where = self._placement_of(param)
+        grad, ok = self._guard_check(param, grad, where, where)
         g = self._regularized(
             self._clipped(grad.float(), self._model_groups(param)), param,
             decay)
@@ -745,10 +764,131 @@ class GradientDescentBase(ModuleUnit):
             # f32 math whatever the accumulator stores; the weight takes
             # the f32 step, the store rounds to opt_state_dtype
             step = moment * acc.float() - lr * g
-            acc.copy_(step)
+            if ok is None:
+                acc.copy_(step)
+            else:
+                step = self._guarded_momentum(ok, step, acc)
             param.add_(step)
         else:
-            param.sub_(lr * g)
+            step = lr * g
+            if ok is not None:
+                # a skipped tensor: x - (+0.0) is x for every x
+                torch.where(ok, step, step.new_zeros(()), out=step)
+            param.sub_(step)
+        self._fold(0, param, where)
+
+    @staticmethod
+    def _guarded_momentum(ok, step, acc):
+        """The momentum ``acc`` ← ``step`` where ``ok``, kept bit for bit
+        where not (its old value read and written back in its own
+        dtype), and the step to add to the parameter: ``step``, or
+        ``-0.0`` (``x + (-0.0)`` is ``x`` for every ``x``, ``-0.0``
+        included).  The first select writes ``acc`` in place, in the
+        unguarded copy's place (``step`` rounded to the store's dtype
+        first, as the copy rounds it); the second writes ``step`` in
+        place, so the guard adds no tensor of the parameter's size but
+        the rounded step of a narrower store."""
+        torch.where(ok, step.to(acc.dtype), acc, out=acc)
+        return torch.where(ok, step, step.new_full((), -0.0), out=step)
+
+    # -- the anomaly guard and the SDC fingerprint ---------------------------
+    def _param_attr(self, param: torch.Tensor) -> str:
+        """The forward's attribute that holds ``param`` (by identity: a
+        tied unit's weights are another unit's tensor)."""
+        names = self.__dict__.setdefault("_param_names", {})
+        name = names.get(id(param))
+        if name is None:
+            fwd = self.forward_unit
+            for attr in ("weights", "bias", *(
+                    n for n, _ in fwd.named_parameters(recurse=False))):
+                if getattr(fwd, attr, None) is param:
+                    name = names[id(param)] = attr
+                    break
+            else:
+                raise KeyError(f"{self}: a parameter not of {fwd}")
+        return name
+
+    def _fp_register(self, param: torch.Tensor) -> str:
+        """Record that ``param`` is a tensor the fingerprint covers (with
+        the guard or without: the shadow audit's clone enumerates the
+        same set) and return its attribute."""
+        attr = self._param_attr(param)
+        self._fp_folded.setdefault(f"{self.forward_unit.name}.{attr}",
+                                   (self.forward_unit, attr))
+        return attr
+
+    def _placement_of(self, param: torch.Tensor):
+        """``(logical shape, cuts, groups)`` of the forward parameter
+        ``param``: its block of the logical tensor under tensor
+        parallelism (:func:`~znicz_tpu_torch.resilience.integrity.cuts_of`),
+        or the whole tensor; None without the guard."""
+        if self.anomaly_flag is None:
+            return None
+        fwd = self.forward_unit
+        resolved = fwd._sharded(self._param_attr(param)) \
+            if isinstance(fwd, ModuleUnit) else None
+        if resolved is None:
+            return tuple(param.shape), (), ()
+        cuts, groups = _integrity.cuts_of(resolved, self.device.mesh)
+        return tuple(resolved.logical_shape), cuts, groups
+
+    def _fold(self, slot: int, t: torch.Tensor, where) -> None:
+        """Add the fingerprint of the logical tensor that ``t`` is (a
+        block of, per ``where``) to slot ``slot`` of the guard's
+        vector."""
+        fpv = self.sdc_fingerprint
+        if fpv is None:
+            return
+        shape, cuts, groups = where
+        if not groups:  # the whole tensor: a gather and a fused dot-add
+            index, weights = _integrity.device_plan(shape, (), t.device)
+            fpv[slot:slot + 1].addmv_(t[index].float().view(1, -1), weights)
+            return
+        part = _integrity.fingerprint_partial(t, shape, cuts)
+        for group in groups:
+            part = all_reduce(part.reshape(1), group)[0]
+        fpv[slot:slot + 1].add_(part)
+
+    def _guard_check(self, param, grad, where, grad_where):
+        """The guard's part of one tensor's update, before the update
+        rule: the stored value folded (slot 2), the drill's flip of the
+        gradient's element 0 (``weights`` only), the gradient folded
+        (slot 1), and the verdict ``running flag AND isfinite(Σ g²)`` of
+        the logical gradient (its partial sums summed over the axes that
+        split it, so every process takes the same), ANDed into the
+        running flag.  ``where`` and ``grad_where`` place the parameter
+        and the gradient (:meth:`_placement_of`).  Returns ``(grad,
+        ok)``; ``ok`` is None without the guard."""
+        if where is None:
+            return grad, None
+        flags, fpv = self.anomaly_flag, self.sdc_fingerprint
+        shape, cuts, groups = grad_where
+        if fpv is not None:
+            self._fold(2, param, where)
+            sdc = self.sdc_inject
+            if sdc is not None and self._param_attr(param) == "weights" \
+                    and _integrity.holds_origin(cuts):
+                origin = (0,) * grad.dim()
+                grad = grad.clone()
+                grad[origin] = grad[origin] * (1.0 + sdc[1])
+        flat = grad.float().reshape(-1)
+        sq = torch.dot(flat, flat)
+        if not groups:
+            self._fold(1, grad, grad_where)
+        else:  # the partial sums of the blocks, summed over the axes
+            parts = [sq]
+            if fpv is not None:
+                parts.append(_integrity.fingerprint_partial(grad, shape,
+                                                            cuts))
+            both = torch.stack(parts)
+            for group in groups:
+                both = all_reduce(both, group)
+            sq = both[0]
+            if fpv is not None:
+                fpv[1:2].add_(both[1])
+        own_ok = torch.isfinite(sq)
+        flags[0:1].copy_(torch.where(own_ok, flags[0:1], 0.0))
+        return grad, flags[0] > 0.5
 
     def _zero1_for(self, param: torch.Tensor):
         """The ZeRO-1 plan of the forward parameter ``param`` (found by
@@ -790,18 +930,37 @@ class GradientDescentBase(ModuleUnit):
         if pad:
             w = torch.cat([w, w.new_zeros((pad,) + tuple(w.shape[1:]))])
         w_shard = w[rank * block:(rank + 1) * block]
+        where = self._placement_of(param)
+        if where is not None:
+            # this process's block of the logical gradient, in the
+            # parameter's layout
+            cuts, groups = _integrity.cuts_of(plan, self.device.mesh)
+            view, ok = self._guard_check(
+                param, shard.movedim(0, dim),
+                where, (tuple(plan.logical_shape), cuts, groups))
+            shard = view.movedim(dim, 0)
+        else:
+            ok = None
         shard = self._clipped(shard, (group,) + self._model_groups(param))
         gs = self._regularized(shard, w_shard, decay)
         if moment:
             acc_m = acc.movedim(dim, 0)
             step = moment * acc_m.float() - lr * gs
-            acc_m.copy_(step)
+            if ok is None:
+                acc_m.copy_(step)
+            else:
+                step = self._guarded_momentum(ok, step, acc_m)
             new = w_shard + step
         else:
-            new = w_shard - lr * gs
+            step = lr * gs
+            if ok is not None:
+                torch.where(ok, step, step.new_zeros(()), out=step)
+            new = w_shard - step
         whole = new.new_empty((block * n,) + tuple(new.shape[1:]))
         all_gather_flat(whole, new.contiguous(), group)
         param.copy_(whole[:rows].movedim(0, dim))
+        if where is not None:
+            self._fold(0, param, where)
 
     # -- the update rule on the numpy oracle (the reference's
     # _apply_weights_np/_apply_bias_np) ----------------------------------
@@ -844,6 +1003,29 @@ class GradientDescentBase(ModuleUnit):
                 return
             grad = (buf + grad) / np.float32(n_micro)
             buf[...] = 0.0
+        attr = self._fp_register(param)
+        fpv = self.sdc_fingerprint
+        if fpv is not None:
+            # the reference's _apply_weights_np/_apply_bias_np folds
+            fp = as_numpy(fpv)
+            fp[2] += _integrity.tensor_fingerprint(w)
+            sdc = self.sdc_inject
+            if sdc is not None and attr == "weights":
+                grad = np.array(grad, copy=True)
+                grad.ravel()[0] *= 1.0 + as_numpy(sdc)[1]
+            fp[1] += _integrity.tensor_fingerprint(grad)
+        flags = self.anomaly_flag
+        if flags is not None:
+            own = bool(np.isfinite(np.sum(np.square(grad,
+                                                    dtype=np.float64))))
+            flags = as_numpy(flags)
+            ok = own and flags[0] > 0.5
+            if not own:
+                flags[0] = 0.0
+            if not ok:  # skipped: the claimed fold covers the kept value
+                if fpv is not None:
+                    fp[0] += _integrity.tensor_fingerprint(w)
+                return
         g = self._np_regularized(self._np_clipped(grad), w, decay)
         if moment:
             a = as_numpy(acc)
@@ -852,6 +1034,8 @@ class GradientDescentBase(ModuleUnit):
             w += a
         else:
             w -= lr * g
+        if fpv is not None:
+            fp[0] += _integrity.tensor_fingerprint(w)
 
     def _np_rates(self) -> tuple[float, float]:
         """``(lr, lr_bias)`` as the oracle reads them: the host value of

@@ -15,8 +15,10 @@ as the workflow's ``train_region``.  Backward ops ride the accumulation
 phases: microbatch ``m < M − 1`` runs ``("accum", M)`` (gradients summed
 into the microbatch buffers, no parameter written), the last runs
 ``("apply", M)``, so the trained trajectory is ``run_accumulated``'s.
-The reference's anomaly guard, which trails stage 0's backward there,
-is not ported yet (ROADMAP A11): its slot stays empty.
+The anomaly guard (and any side unit linked after the backward chain)
+trails stage 0's backward, as in the reference: the last op of the
+step, the apply phase's, commits the step's verdict after every stage
+has applied its update.
 
 Microbatch context: 1F1B interleaves microbatches, so what a step binds
 per microbatch (each unit's outputs, errors, the minibatch, the
@@ -174,7 +176,8 @@ class PipelineExecutor(Logger):
         device = workflow.device
         chain = workflow.hot_chain_units()
         n_core = 2 + len(workflow.forwards) + len(workflow.gds)
-        side = chain[n_core:]  # units linked after the backward chain
+        # the guard and the units linked after the backward chain
+        side = chain[n_core:]
         self.fwd_regions, self.bwd_regions = [], []
         for s, idxs in enumerate(self.stages):
             f_units = [workflow.forwards[i] for i in idxs]

@@ -20,8 +20,10 @@ the existing ``dtype`` record, so every consumer (:class:`~znicz_tpu_torch.
 export.ExportedModel`, the swap validator) discovers
 quantization from the bundle alone.
 
-Calibration rides the publish pipeline (the publisher is ROADMAP A11):
-the publisher's canary/shadow stream supplies ``(x, y)`` and the numpy
+Calibration rides the publish pipeline
+(:func:`~znicz_tpu_torch.resilience.publisher.publish_bundle` with
+``quantize="int8"``): the publisher's canary/shadow stream supplies
+``(x, y)`` and the numpy
 f32 oracle (``ExportedModel(device="numpy")``) is the accuracy gate —
 a quantization whose calibration accuracy regresses past the swap
 guard margin is never published (the f32 bundle ships instead).  The ``quant.calib_corrupt`` fault site corrupts the scales

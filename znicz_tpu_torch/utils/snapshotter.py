@@ -29,7 +29,9 @@ goes on, and ``destination`` keeps pointing at the last good snapshot
 instead).
 
 The ``snapshot.write_fail`` fault site fires inside :meth:`write`, mid
-stream, and goes through the same tolerate-and-continue path.
+stream, and goes through the same tolerate-and-continue path.  A good
+write feeds ``znicz_snapshot_age_seconds{source=snapshot:<prefix>}``, a
+callback gauge of the seconds since it.
 
 Multi-process (the reference's discipline): every process gathers the
 state (sharded tensors are collectives) and records the same path, and
@@ -152,6 +154,10 @@ class Snapshotter(Unit):
             return
         self.info("snapshot → %s", path)
         self.destination = path
+        # the age of the last good snapshot, a callback gauge
+        from znicz_tpu_torch.resilience.publisher import \
+            mark_artifact_written
+        mark_artifact_written(f"snapshot:{self.prefix}")
         if pidx == 0 and self.keep_last:
             self.prune(self.directory, self.prefix, self.keep_last,
                        keep=path)

@@ -137,6 +137,10 @@ class Workflow(Container):
         if fn not in self._step_hooks:
             self._step_hooks.append(fn)
 
+    def remove_step_hook(self, fn) -> None:
+        if fn in self._step_hooks:
+            self._step_hooks.remove(fn)
+
     def on_step_boundary(self) -> None:
         """Called by the decision unit after each step's bookkeeping."""
         for fn in list(self._step_hooks):
