@@ -353,8 +353,35 @@ Phases (any failure raises and exits non-zero):
    ``host.preempt`` → the checkpoint on signal → a restart from it,
    bit-equal to an uninterrupted run (gangs of several processes need
    a card each and stay on the CPU under gloo).
+19. serving at scale and ops: (a) one ``FleetEngine`` holds the
+   phase-3 scorer at v1 (two replicas sharing one graphed model) and v2
+   (perturbed weights) at 0.75/0.25 traffic, and phase 15's decode LM
+   as ``kind="lm"``, for tenants ``hi`` (priority 0) and ``lo``
+   (priority 2, a token bucket, a deadline, a queue bound): every reply
+   of a closed loop of 1–16 rows is one version's lone-engine reply for
+   the same rows in the same bucket bit for bit, and within
+   ``SLICE_TOL`` of that version's CPU reply; the split is exact; decode's
+   greedy tokens equal a lone ``DecodeEngine``'s; ``hi``'s p50 and p99
+   alone and under ``fleet.tenant_flood`` (lo's shed, preempted and
+   expired counts; hi sheds and fails nothing); (b) ``fleet.replica_loss``
+   repaired by ``FleetAutoscaler`` with no new capture; (c) a shared
+   budget of 7 programs over two ladders of 5 evicting the
+   low-priority model's buckets, each re-capture counted and every
+   reply its lone engine's; B7, B5 and B4 (8 classes) counted on the
+   ``fleet`` path; (d) ``WebStatusServer`` on 127.0.0.1: ``/healthz``
+   200, ``/readyz`` 200 with the tenants and 503 while
+   ``serving.program_error`` holds an engine's breaker open,
+   ``/metrics`` with the ``znicz_fleet_*`` series; (e) the kernel-library
+   store: this process fills a fresh one; child processes on a copy of
+   the package with an empty ``build/`` load all nine libraries from it
+   with an ``nvcc`` that refuses to build, rebuild exactly one after
+   ``aotcache.corrupt``, import the pack ``publish_bundle`` wrote beside
+   a bundle through ``PublicationWatcher``; each child's reply bit-equal
+   to this process's, and the cold start to the first reply printed with
+   a store hit and, with phase 1's build in place of the load, with the
+   build.
 
-Each path of phases 3–18 runs with every launch counter set to 0 just
+Each path of phases 3–19 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  After each of phases 3–17 the state
 of every anomaly guard built in it is read: a step skipped as
@@ -372,6 +399,7 @@ result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import ctypes
@@ -382,6 +410,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1684,9 +1713,11 @@ def expect_device_launches(prof, before: dict, window: str,
     every window.  Any other disagreement raises at once."""
     from torch.autograd import DeviceType
     ran = dict.fromkeys(DEVICE_KERNELS, 0)
+    records = {}  # every device record of the window by name, for a miss
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        records[e.key] = records.get(e.key, 0) + e.count
         for name, (pattern, _) in DEVICE_KERNELS.items():
             if re.search(r"(?<!\w)" + pattern, e.key):
                 ran[name] += e.count
@@ -1699,6 +1730,9 @@ def expect_device_launches(prof, before: dict, window: str,
     if not any(c != r for c, r in seen.values()) \
             and bool(seen) != no_kernels:
         return True
+    say(f"  {window}: the window's device records by name: "
+        + "; ".join(f"{n} {key[:72]}" for key, n in sorted(
+            records.items(), key=lambda kv: -kv[1])))
     if not last_try and all(c >= r for c, r in seen.values()):
         say(f"  {window}: the profiler saw fewer kernels than were "
             f"counted; the window is repeated")
@@ -1982,7 +2016,8 @@ def device_busy(wf, steps: int = 3, window: str = "",
     ``BUSY_KERNEL_MS`` for phase 8.  In the same window the wrappers'
     counts must be the hand-written kernels the profiler saw run
     (:func:`expect_device_launches`; a window whose profiler lost a
-    record is repeated, ``PROFILE_TRIES`` windows at most); a
+    record is repeated, ``PROFILE_TRIES`` windows at most, each repeat
+    after one more step in the profiler's warm-up); a
     ``window`` that the profiler saw nothing of fails when it names a
     graphed path."""
     import torch
@@ -1994,10 +2029,22 @@ def device_busy(wf, steps: int = 3, window: str = "",
                        getattr(e, "self_cuda_time_total", 0)) / 1e3
 
     for attempt in range(1, PROFILE_TRIES + 1):
+        # a repeated window opens with one more step, whose records the
+        # profiler's warm-up drops: on some hosts the first replay after
+        # the profiler starts loses its opening kernels' records
+        # whatever the margin (C18)
+        warm = int(attempt > 1)
         torch.cuda.synchronize()
-        before = wrapper_launches()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(
+                         wait=0, warmup=1, active=1) if warm else None
+                     ) as prof:
+            for _ in range(warm):
+                wf.step()
+                torch.cuda.synchronize()
+                prof.step()  # the warm-up ends; what follows is kept
+            before = wrapper_launches()
             time.sleep(PROFILE_MARGIN_S)
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -5195,19 +5242,22 @@ def capture_race_and_rebinding(manifest: dict, params_a: dict,
         stop.set()
         t.join(300)
     replay = model(x[:4])
-    if model.captures != 3 or not np.array_equal(warm, replay):
+    # the ladder's cap (two programs) evicted bucket 1 for bucket 4
+    if model.captures != 2 or list(model._programs) != [2, 4] \
+            or not np.array_equal(warm, replay):
         raise AssertionError(f"serve_graphs: the lazily captured bucket "
                              f"({model.captures} captures) replays "
                              f"{np.abs(warm - replay).max():.3g} off its "
                              f"warm-up")
     say(f"  bucket 4 captured above a ladder of 2 while another thread "
         f"staged the swap {during} time(s) (thread-local capture): its "
-        f"replay bit-equal to the capture's warm-up reply")
+        f"replay bit-equal to the capture's warm-up reply; bucket 1, the "
+        f"least recently used, evicted by the ladder's cap")
     unit = model.forwards[2]
     unit.load_params({"weights": torch.from_numpy(params_b["layer2_weights"]),
                       "bias": torch.from_numpy(params_b["layer2_bias"])})
     try:
-        model(x[:1])
+        model(x[:2])
     except RuntimeError as exc:
         if "rebound" not in str(exc):
             raise
@@ -5543,6 +5593,19 @@ CPU_NEW = 24
 #: part from it mid-page (copy on write)
 PREFIX_SYSTEM, PREFIX_TAILS = 300, (1, 5, 40, 200)
 _DECODE_GRAPHED: list = []
+
+
+#: files a later phase reuses (phase 15's decode LM for phase 19), in
+#: :func:`keep_dir`
+KEPT: dict = {}
+
+
+def keep_dir() -> str:
+    """A directory that lives as long as this process."""
+    if "dir" not in KEPT:
+        KEPT["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+        atexit.register(shutil.rmtree, KEPT["dir"], True)
+    return KEPT["dir"]
 
 
 def set_decode_graphs(on: bool) -> None:
@@ -5885,6 +5948,7 @@ def decode_pass(card: str) -> dict:
         t0 = time.perf_counter()
         steps, best, met = train_decode_lm(path, DECODE_LAYERS, SEED + 16,
                                            DEC_STEP_CAP, DEC_ERR_BAR)
+        KEPT["decode_lm"] = shutil.copy(path, keep_dir())
         say(f"  the decode LM (V={LM_VOCAB}, D={DIM}, {HEADS} causal heads, "
             f"no layer norm, bf16, T={DEC_TRAIN_T}, B={DEC_BATCH}) graphed: "
             f"{steps} steps, best validation error {best:.2f} % — "
@@ -7183,8 +7247,7 @@ def publish_serve(card: str, tmp: str) -> dict:
     import torch
     from znicz_tpu_torch.export import read_bundle
     from znicz_tpu_torch.observe import metrics
-    from znicz_tpu_torch.resilience.publisher import (AOT_PROGRAMS,
-                                                      PublicationWatcher,
+    from znicz_tpu_torch.resilience.publisher import (PublicationWatcher,
                                                       SwapController,
                                                       classifier_score,
                                                       publish_bundle)
@@ -7291,14 +7354,18 @@ def publish_serve(card: str, tmp: str) -> dict:
             raise AssertionError(f"publish_serve: reply {i} is no "
                                  f"version's bit for bit")
         seen[hit[0]] += 1
-    manifest, _ = read_bundle(os.path.join(pub, f"model_v{v4:06d}.npz"))
+    newest = os.path.join(pub, f"model_v{v4:06d}.npz")
+    manifest, _ = read_bundle(newest)
+    # the kernel-library store is off here (phase 19 turns it on): no
+    # programs pack beside the bundles, and the reference's manifest
+    packed = os.path.exists(newest[:-len(".npz")] + ".programs.npz")
     say(f"  publishing into the graphed scorer engine on {card} "
         f"({loop_s:.2f} s, {len(replies)} replies of 3 rows meanwhile, by "
         f"version {seen}, each one version's bit for bit): events "
         f"{events}; v{v2} (publish.corrupt) refused by the watcher "
         f"{refused}; v{v3} (swap.canary_regress); serving v{final} at the "
-        f"end; the manifest's aot_programs {manifest.get('aot_programs')!r}"
-        f"; host seconds by publish "
+        f"end; a programs pack beside it {packed} (the store is off); "
+        f"host seconds by publish "
         f"{', '.join(f'{v:.2f}' for v in spent['publish'])} and by tick "
         f"{', '.join(f'{v:.2f}' for v in spent['tick'])} (a tick with a "
         f"candidate scores it on the numpy oracle, {RES_CANARY_ROWS} "
@@ -7306,7 +7373,7 @@ def publish_serve(card: str, tmp: str) -> dict:
     kinds = [e.split(" ")[0] for e in events]
     if kinds != ["promoted", f"v{v1}", "rejected", "promoted", "rolled"] \
             or not refused or final != v1 or not seen[v1] \
-            or manifest.get("aot_programs") != AOT_PROGRAMS:
+            or packed or "aot_programs" in manifest:
         raise AssertionError("publish_serve: the publish, canary and "
                              "rollback sequence")
     return counts
@@ -7474,6 +7541,562 @@ def expect_no_anomalies(phase: str) -> None:
                              f"grad) on a clean path: {bad[:6]}")
 
 
+# ----------------------------------------------------------------------
+# phase 19: serving at scale and ops — the fleet on the scorer's graphed
+# buckets, the kernel-library store, the web status page
+# ----------------------------------------------------------------------
+#: request sizes of the fleet's closed loops: every bucket of the ladder
+#: of 16, full and padded
+FLEET_ROWS = (1, 2, 3, 5, 8, 11, 16)
+#: closed-loop requests a turn (a multiple of 4, so the 0.75/0.25 split
+#: is exact over it)
+FLEET_REQUESTS = 28
+#: the decode LM in the fleet: a flat cache, 4 lanes, sequences to 512
+FLEET_LM = {"max_slots": 4, "max_t": 512, "max_prompt": 256,
+            "paged": False, "max_new_tokens": 16}
+#: the shared budget of (c): 7 programs for two ladders of 5
+FLEET_BUDGET = 7
+#: a child process of (e): builds (or loads) the kernels from the tree
+#: it is given, serves the scorer bundle (a path, or the newest bundle a
+#: ``PublicationWatcher`` surfaces from a directory) on the card and
+#: writes its reply and timings
+STORE_CHILD = r"""
+import json, os, sys, time
+tree, source, xpath, out, mode = sys.argv[1:6]
+sys.path.insert(0, tree)
+import numpy as np
+import torch
+from znicz_tpu_torch.ops import _cuda
+from znicz_tpu_torch.ops import flash_attention as fa
+from znicz_tpu_torch.ops import fused_kernels as fk
+from znicz_tpu_torch.serving import ServingEngine, aot_cache
+from znicz_tpu_torch.utils.config import root
+if os.environ.get("CHILD_FAULTS"):
+    root.common.engine.faults = json.loads(os.environ["CHILD_FAULTS"])
+bundle = source
+if mode == "poll":
+    from znicz_tpu_torch.resilience.publisher import PublicationWatcher
+    bundle = PublicationWatcher(source, prefix="scorer").poll()[1]
+t0 = time.time()
+_cuda.build_all()
+build_s = time.time() - t0
+eng = ServingEngine(bundle, max_batch=16, max_delay_ms=1.0)
+eng.start()
+y = eng(np.load(xpath), timeout=300)
+first = time.time() - float(os.environ["CHILD_T0"])
+eng.shutdown()
+np.save(out + ".npy", y)
+with open(out + ".json", "w") as f:
+    json.dump({"first_reply_s": first, "build_s": build_s,
+               "store": aot_cache.status(),
+               "build_dir": str(_cuda.build_dir()),
+               "launches": {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                            "layer_norm_forward": fk.layer_norm_forward.launches,
+                            "softmax_argmax": fk.softmax_argmax.launches}}, f)
+"""
+
+
+def fleet_replies_ok(replies, lone: dict, oracle: dict, label: str) -> dict:
+    """Each ``(rows, reply)`` is one version's lone-engine reply for the
+    same rows (the same bucket) bit for bit, and within ``SLICE_TOL`` of
+    that version's CPU reply; returns the replies counted by version."""
+    import numpy as np
+    served = dict.fromkeys(lone, 0)
+    for n, y in replies:
+        same = [v for v in lone if np.array_equal(y, lone[v][n])]
+        if len(same) != 1:
+            raise AssertionError(f"{label}: a {n}-row reply is no one "
+                                 f"version's lone-engine reply ({same})")
+        err = float(np.abs(y - oracle[same[0]][:n]).max())
+        if err > SLICE_TOL:
+            raise AssertionError(f"{label}: a {n}-row {same[0]} reply is "
+                                 f"{err:.3g} off the CPU's (tol "
+                                 f"{SLICE_TOL})")
+        served[same[0]] += 1
+    return served
+
+
+def fleet_closed_loop(fleet, x, tenant: str, n_requests: int) -> tuple:
+    """``n_requests`` requests of :data:`FLEET_ROWS` rows of ``x`` in
+    turn, each after the last reply; the ``(rows, reply)`` pairs and the
+    latencies in ms, sorted."""
+    out, lat = [], []
+    for i in range(n_requests):
+        n = FLEET_ROWS[i % len(FLEET_ROWS)]
+        t0 = time.perf_counter()
+        y = fleet("scorer", x[:n], tenant=tenant, timeout=300)
+        lat.append(1e3 * (time.perf_counter() - t0))
+        out.append((n, y))
+    return out, sorted(lat)
+
+
+def fleet_captures() -> float:
+    """Serving captures so far (``znicz_graph_captures_total{serving:*}``)."""
+    from znicz_tpu_torch.observe import metrics
+    fam = metrics.REGISTRY.get("znicz_graph_captures_total")
+    return sum(float(child.value) for key, child in fam.items()
+               if key[0].startswith("serving:"))
+
+
+def web_checks(fleet, lone, x) -> None:
+    """(d): the status page over the fleet on 127.0.0.1, fetched with
+    ``urllib``; ``/readyz`` 503 while the lone engine's breaker is held
+    open by ``serving.program_error``, 200 again after a probe closes
+    it."""
+    import urllib.error
+    import urllib.request
+    from znicz_tpu_torch.utils.config import root
+    from znicz_tpu_torch.web_status import WebStatusServer
+    server = WebStatusServer(port=0)
+    base = f"http://127.0.0.1:{server.port}"
+
+    def get(route):
+        try:
+            with urllib.request.urlopen(base + route, timeout=60) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read()
+
+    try:
+        server.register(fleet)
+        server.register(lone)
+        code, _ = get("/healthz")
+        ready, body = get("/readyz")
+        report = json.loads(body)
+        tenants = {k: v for k, v in report.get("tenants", {}).items()
+                   if k.startswith(f"{fleet._obs_id}/")}
+        _, scrape = get("/metrics")
+        series = sorted({line.split("{")[0] for line in
+                         scrape.decode().splitlines()
+                         if line.startswith("znicz_fleet_")})
+        say(f"  web page on 127.0.0.1:{server.port}: /healthz {code}, "
+            f"/readyz {ready} (tenants {tenants}), /metrics "
+            f"{len(series)} znicz_fleet_* series")
+        if code != 200 or ready != 200 \
+                or {f"{fleet._obs_id}/hi", f"{fleet._obs_id}/lo"} \
+                - set(tenants) \
+                or "znicz_fleet_requests_total" not in series:
+            raise AssertionError(f"web: /healthz {code}, /readyz {ready} "
+                                 f"{report.get('reasons')}, {series}")
+        root.common.engine.faults = {"serving.program_error": {"after": 1}}
+        try:
+            for _ in range(4):
+                try:
+                    lone(x[:1], timeout=300)
+                except Exception:  # noqa: BLE001 — the planted failure
+                    pass
+        finally:
+            root.common.engine.faults = None
+        held, body = get("/readyz")
+        reasons = json.loads(body)["reasons"]
+        t_open = time.perf_counter()
+        while True:  # the cooldown, then a probe closes the breaker
+            try:
+                lone(x[:1], timeout=300)
+                break
+            except Exception:  # noqa: BLE001 — still shedding
+                if time.perf_counter() - t_open > 60:
+                    raise
+                time.sleep(0.05)
+        after, _ = get("/readyz")
+        say(f"  serving.program_error ×4 on the lone engine: /readyz "
+            f"{held} ({reasons}), {after} once a probe closed the breaker")
+        if held != 503 or after != 200 or not any(
+                "breaker open" in r for r in reasons):
+            raise AssertionError(f"web: /readyz {held} then {after}")
+    finally:
+        server.stop()
+
+
+def store_checks(tmp: str, path_a: str, x, lone_reply, card: str,
+                 build_s: float) -> None:
+    """(e): the kernel-library store.  This process fills a fresh store;
+    children on a copy of the package with an empty ``build/`` then load
+    all nine libraries from it with an ``nvcc`` that refuses to build
+    (``--version`` answered by the real one, as the key reads it; every
+    build exits 1), rebuild exactly one library after
+    ``aotcache.corrupt`` rots its entry, and import a pack that
+    ``publish_bundle`` wrote and ``PublicationWatcher`` surfaced (these
+    two run together, after the first, whose cold start is timed
+    alone).  Every child serves a scorer bundle and its reply must be
+    this process's for the same bundle and rows, bit for bit.  The cold start with the
+    build is the hit child's with its load replaced by ``build_s``, this
+    process's own ``nvcc`` build of phase 1."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.ops import _cuda
+    from znicz_tpu_torch.resilience.publisher import publish_bundle
+    from znicz_tpu_torch.serving import aot_cache
+    from znicz_tpu_torch.utils.config import root
+    nvcc = _cuda.find_nvcc()
+    store = os.path.join(tmp, "store")
+    root.common.engine.aot_cache = store
+    try:
+        t0 = time.perf_counter()
+        _cuda.build_all()
+        entries = aot_cache.active_cache().entries()
+        say(f"  this process filled a fresh store with {len(entries)} "
+            f"libraries ({aot_cache.active_cache().total_bytes()} B) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if len(entries) != len(_cuda.SOURCES):
+            raise AssertionError("store: not every library was stored")
+        pub = os.path.join(tmp, "published")
+        wf = make_trainer(torch.from_numpy(x).to(torch.bfloat16),
+                          np.zeros(BATCH, np.int32), BATCH)
+        _, published = publish_bundle(wf, pub, prefix="scorer")
+        del wf
+        pack = aot_cache._pack_path(published)
+        if not os.path.exists(pack):
+            raise AssertionError("store: publish_bundle wrote no pack")
+    finally:
+        root.common.engine.aot_cache = None
+    from znicz_tpu_torch.serving import ServingEngine
+    with ServingEngine(published, max_batch=BATCH) as eng:
+        published_reply = eng(x[:3], timeout=300)
+    np.save(os.path.join(tmp, "x3.npy"), x[:3])
+    with open(os.path.join(tmp, "child.py"), "w") as f:
+        f.write(STORE_CHILD)
+    toolkits = {}
+    for name, body in (
+            ("refusing", f'for a in "$@"; do [ "$a" = "--version" ] && '
+                         f'exec {nvcc} --version; done\n'
+                         f'echo build >> "$NVCC_LOG"\nexit 1\n'),
+            ("logging", f'for a in "$@"; do [ "$a" = "--version" ] && '
+                        f'exec {nvcc} --version; done\n'
+                        f'echo build >> "$NVCC_LOG"\nexec {nvcc} "$@"\n')):
+        home = os.path.join(tmp, f"cuda_{name}")
+        os.makedirs(os.path.join(home, "bin"))
+        script = os.path.join(home, "bin", "nvcc")
+        with open(script, "w") as f:
+            f.write("#!/bin/sh\n" + body)
+        os.chmod(script, 0o755)
+        toolkits[name] = home
+
+    def start(label, toolkit, store_dir, source, mode="serve",
+              faults=None):
+        """A child on its own copy of the package, started."""
+        tree = os.path.join(tmp, f"tree_{label}")
+        shutil.copytree(os.path.join(REPO, "znicz_tpu_torch"),
+                        os.path.join(tree, "znicz_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        log = os.path.join(tmp, f"nvcc_{label}.log")
+        env = dict(os.environ, CUDA_HOME=toolkit, NVCC_LOG=log,
+                   CHILD_T0=repr(time.time()))
+        env.pop("ZNICZ_AOT_CACHE", None)
+        if store_dir is not None:
+            env["ZNICZ_AOT_CACHE"] = store_dir
+        if faults is not None:
+            env["CHILD_FAULTS"] = json.dumps(faults)
+        out = os.path.join(tmp, f"out_{label}")
+        with open(out + ".log", "w") as stream:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(tmp, "child.py"), tree,
+                 source, os.path.join(tmp, "x3.npy"), out, mode],
+                cwd=tree, env=env, stdout=stream, stderr=subprocess.STDOUT)
+        running.append(proc)
+        return label, tree, log, out, proc
+
+    def finish(job, want):
+        """The child's exit, its ``nvcc`` builds and its reply, checked."""
+        label, tree, log, out, proc = job
+        rc = proc.wait(timeout=600)
+        if rc != 0:
+            with open(out + ".log") as f:
+                raise AssertionError(f"store: child {label} exited {rc}:\n"
+                                     f"{f.read()[-8000:]}")
+        with open(out + ".json") as f:
+            info = json.load(f)
+        builds = (open(log).read().split() if os.path.exists(log) else [])
+        reply = np.load(out + ".npy")
+        same = bool(np.array_equal(reply, want))
+        say(f"  child {label}: {len(builds)} nvcc build(s), store "
+            f"{ {k: info['store'].get(k) for k in ('hits', 'misses', 'corrupt')} }, "
+            f"kernels loaded in {info['build_s']:.2f} s, cold start to "
+            f"the first reply {info['first_reply_s']:.2f} s, launches "
+            f"{info['launches']}, the 3-row reply bit-equal to this "
+            f"process's: {same}")
+        if not info["build_dir"].startswith(tree):
+            raise AssertionError(f"store: child {label} built outside its "
+                                 f"tree: {info['build_dir']}")
+        if not same or not all(info["launches"].values()):
+            raise AssertionError(f"store: child {label}'s reply or "
+                                 f"launches {info['launches']}")
+        return info, builds
+
+    running: list = []
+    try:
+        # the hit alone, for its cold start; then the other two together
+        hit, builds = finish(start("hit", toolkits["refusing"], store,
+                                   path_a), lone_reply)
+        if builds or hit["store"]["hits"] != len(_cuda.SOURCES):
+            raise AssertionError(f"store: the hit child built {builds}")
+        rotted = os.path.join(tmp, "store_rotted")
+        shutil.copytree(store, rotted)
+        jobs = (start("quarantine", toolkits["logging"], rotted, path_a,
+                      faults={"aotcache.corrupt": {"at": [1]}}),
+                start("publish", toolkits["refusing"],
+                      os.path.join(tmp, "store_cold"), pub, mode="poll"))
+        quarantine, builds = finish(jobs[0], lone_reply)
+        quarantined = [n for n in os.listdir(rotted)
+                       if n.endswith(".quarantined")]
+        if len(builds) != 1 or quarantine["store"]["corrupt"] != 1 \
+                or not quarantined:
+            raise AssertionError(f"store: the quarantine child built "
+                                 f"{builds}, quarantined {quarantined}")
+        polled, builds = finish(jobs[1], published_reply)
+        if builds or polled["store"]["hits"] != len(_cuda.SOURCES):
+            raise AssertionError(f"store: the publish child built {builds}")
+    finally:
+        for proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with_build = hit["first_reply_s"] - hit["build_s"] + build_s
+    say(f"  cold start to the first reply ({card}): "
+        f"{hit['first_reply_s']:.2f} s with a store hit (the libraries "
+        f"loaded in {hit['build_s']:.2f} s); with the nvcc build "
+        f"{with_build:.2f} s (the hit's, its load replaced by phase 1's "
+        f"build, {build_s:.1f} s)")
+
+
+def fleet_pass(card: str, decode_lm: str, build_s: float) -> dict:
+    """Phase 19.  (a) one ``FleetEngine`` holds the scorer at v1 (two
+    replicas) and v2 (perturbed weights) at 0.75/0.25, and the decode LM
+    of phase 15 as ``kind="lm"``; tenants ``hi`` (priority 0) and ``lo``
+    (priority 2, a token bucket, a deadline, a queue bound).  Every
+    scorer reply is one version's lone-engine reply bit for bit (the
+    same rows, the same bucket) and within ``SLICE_TOL`` of its CPU
+    reply; the split is exact; decode's greedy tokens are a lone
+    ``DecodeEngine``'s; hi's p50/p99 alone and under ``fleet.tenant_
+    flood``; (b) ``fleet.replica_loss`` repaired with no capture; (c) a
+    shared budget smaller than two ladders evicting the low-priority
+    model's buckets first, each re-capture counted, the replies right.
+    Returns the launches of (a)–(c); then (d) the web page and (e) the
+    store (``build_s``: phase 1's build, for the cold start with it)."""
+    import threading
+    import numpy as np
+    from znicz_tpu_torch.export import ExportedModel, read_bundle
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.serving import (DecodeEngine, FleetEngine,
+                                         ServingEngine, TenantClass)
+    from znicz_tpu_torch.utils.config import root
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.normal(0.0, 0.3, size=(BATCH, SEQ, DIM)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path_a = os.path.join(tmp, "scorer.npz")
+        write_scorer_bundle(path_a)
+        manifest, params_a = read_bundle(path_a)
+        path_b = write_bundle(os.path.join(tmp, "scorer_b.npz"), manifest,
+                              perturbed(params_a, SEED + 191))
+        paths = {"v1": path_a, "v2": path_b}
+        t0 = time.perf_counter()
+        oracle = {}
+        for v, p in paths.items():
+            cpu = ExportedModel.load(p, device="cpu")
+            oracle[v] = np.concatenate([cpu(x[i:i + 4])
+                                        for i in range(0, BATCH, 4)])
+        say(f"  the CPU's replies for 16 rows of both versions in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lone, engines = {}, {}
+        for v, p in paths.items():
+            eng = engines[v] = ServingEngine(p, max_batch=BATCH,
+                                             max_delay_ms=1.0,
+                                             retry_budget=0,
+                                             breaker_cooldown_ms=500.0)
+            eng.start()
+            lone[v] = {n: eng(x[:n], timeout=300) for n in FLEET_ROWS}
+        engines["v2"].shutdown()
+        fleet_replies_ok([(n, lone[v][n]) for v in lone for n in FLEET_ROWS],
+                         lone, oracle, "lone engines")
+        prompts = [[int(t) for t in rng.integers(0, LM_VOCAB, size=n)]
+                   for n in (5, 17, 64, 130)]
+        lone_lm = DecodeEngine(decode_lm, **FLEET_LM)
+        lone_lm.start()
+        try:
+            want_tokens = [[int(t) for t in lone_lm.submit(p).result(600)]
+                           for p in prompts]
+        finally:
+            lone_lm.shutdown()
+
+        reset_counts()
+        captures0 = fleet_captures()
+        fleet = FleetEngine(tenants=[
+            TenantClass("hi", priority=0),
+            TenantClass("lo", priority=2, rate=100.0, burst=BATCH,
+                        deadline_ms=250.0, max_queue_rows=BATCH)],
+            name="phase19")
+        t0 = time.perf_counter()
+        # a queue of one full bucket: hi's rows preempt lo's queued ones
+        fleet.add_model("scorer", path_a, max_batch=BATCH,
+                        max_delay_ms=1.0, max_queue=BATCH, replicas=2)
+        fleet.add_version("scorer", path_b, version="v2", max_batch=BATCH,
+                          max_delay_ms=1.0, max_queue=BATCH)
+        fleet.set_traffic("scorer", {"v1": 0.75, "v2": 0.25})
+        fleet.add_model("lm", decode_lm, kind="lm", **FLEET_LM)
+        try:
+            fleet.start()
+            say(f"  fleet of 3 versions started in "
+                f"{time.perf_counter() - t0:.2f} s, "
+                f"{fleet_captures() - captures0:.0f} serving captures")
+            replies, alone = fleet_closed_loop(fleet, x, "hi",
+                                               FLEET_REQUESTS)
+            split = fleet_replies_ok(replies, lone, oracle, "fleet")
+            stats = fleet.stats()["models"]["scorer"]["versions"]
+            served = {v: s["served"] for v, s in stats.items()}
+            say(f"  {FLEET_REQUESTS} hi requests of {FLEET_ROWS} rows: each "
+                f"one version's lone-engine reply bit for bit and within "
+                f"{SLICE_TOL} of the CPU's; by version {split} (engines "
+                f"{served}), hi alone p50 {pctl(alone, 50):.3f} ms, p99 "
+                f"{pctl(alone, 99):.3f} ms")
+            want_split = {"v1": FLEET_REQUESTS * 3 // 4,
+                          "v2": FLEET_REQUESTS // 4}
+            if split != want_split or served != want_split:
+                raise AssertionError(f"fleet: the split {split} / "
+                                     f"{served} is not {want_split}")
+            got_tokens = [[int(t) for t in fleet("lm", p, tenant=t,
+                                                 timeout=600)]
+                          for p, t in zip(prompts, ("hi", "lo") * 2)]
+            say(f"  decode through the fleet: {len(prompts)} prompts, "
+                f"greedy tokens equal to a lone DecodeEngine's: "
+                f"{got_tokens == want_tokens}")
+            if got_tokens != want_tokens:
+                raise AssertionError("fleet: decode tokens differ from a "
+                                     "lone DecodeEngine's")
+            shed0 = sum(e.stats()["resilience"]["shed"]
+                        for v in ("v1", "v2") for e in
+                        fleet._models["scorer"].versions[v].group.engines())
+            root.common.engine.faults = {
+                "fleet.tenant_flood": {"after": 1, "n": 32}}
+            stop, ticks = threading.Event(), []
+
+            def flood():
+                while not stop.is_set():
+                    ticks.append(fleet.tick())
+                    time.sleep(0.002)
+
+            flooder = threading.Thread(target=flood)
+            flooder.start()
+            try:
+                replies, flooded = fleet_closed_loop(fleet, x, "hi",
+                                                     FLEET_REQUESTS)
+            finally:
+                stop.set()
+                flooder.join(300)
+                root.common.engine.faults = None
+            for n, y in replies:  # coalesced with lo: any bucket
+                err = min(float(np.abs(y - oracle[v][:n]).max())
+                          for v in oracle)
+                if err > SLICE_TOL:
+                    raise AssertionError(f"fleet: a flooded {n}-row hi "
+                                         f"reply is {err:.3g} off")
+            tenants = fleet.stats()["tenants"]
+            preempted = sum(e.stats()["resilience"]["shed"]
+                            for v in ("v1", "v2") for e in
+                            fleet._models["scorer"].versions[v].group
+                            .engines()) - shed0
+            say(f"  hi under fleet.tenant_flood ({len(ticks)} floods of 32 "
+                f"lo rows): p50 {pctl(flooded, 50):.3f} ms, p99 "
+                f"{pctl(flooded, 99):.3f} ms (alone {pctl(alone, 50):.3f} / "
+                f"{pctl(alone, 99):.3f}); lo submitted "
+                f"{tenants['lo']['submitted']}, served "
+                f"{tenants['lo']['served']}, shed {tenants['lo']['shed']} "
+                f"(of which preempted in the engines {preempted}), expired "
+                f"{tenants['lo']['expired']}; hi shed "
+                f"{tenants['hi']['shed']}, failed {tenants['hi']['failed']}")
+            if tenants["hi"]["shed"] or tenants["hi"]["failed"] \
+                    or not tenants["lo"]["shed"]:
+                raise AssertionError(f"fleet: isolation {tenants}")
+
+            group = fleet._models["scorer"].versions["v1"].group
+            target = group.target  # 2, or more if the flood scaled it up
+            before = fleet_captures()
+            root.common.engine.faults = {"fleet.replica_loss": {"at": [1]}}
+            try:
+                t0 = time.perf_counter()
+                events = fleet.tick()
+                repair_ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                root.common.engine.faults = None
+            replies, _ = fleet_closed_loop(fleet, x, "hi", 8)
+            fleet_replies_ok(replies, lone, oracle, "after the repair")
+            say(f"  fleet.replica_loss: {events}; the tick that killed and "
+                f"repaired took {repair_ms:.1f} ms, {group.live()} live "
+                f"replicas of {target}, serving captures "
+                f"{fleet_captures() - before:.0f} new, 8 requests served")
+            if group.live() != target or fleet_captures() != before \
+                    or not any("repaired" in e for e in events):
+                raise AssertionError("fleet: the repair")
+        finally:
+            fleet.shutdown()
+            root.common.engine.faults = None
+
+        budget = FleetEngine(tenants=[TenantClass("hi", priority=0),
+                                      TenantClass("lo", priority=2)],
+                             max_programs=FLEET_BUDGET, autoscale=False,
+                             name="phase19_budget")
+        budget.add_model("premium", path_a, priority=0, max_batch=BATCH,
+                         max_delay_ms=1.0)
+        budget.add_model("cheap", path_b, priority=2, max_batch=BATCH,
+                         max_delay_ms=1.0)
+        try:
+            before = fleet_captures()
+            budget.start()
+            st = budget.budget.stats()
+            evicted = metrics.fleet_ladder_evictions(
+                "phase19_budget", "cheap@v1").value
+            say(f"  shared budget of {FLEET_BUDGET} programs over two "
+                f"ladders of 5: {st['per_model']} resident after start, "
+                f"{evicted:.0f} of cheap's evicted, "
+                f"{fleet_captures() - before:.0f} captures")
+            if st["per_model"] != {"premium@v1": 5, "cheap@v1": 2}:
+                raise AssertionError(f"budget: {st['per_model']}")
+            before = fleet_captures()
+            got = {}
+            for model_id, v in (("premium", "v1"), ("cheap", "v2")):
+                for n in (1, 3, 16):
+                    got[model_id, n] = budget(model_id, x[:n], tenant="hi",
+                                              timeout=300)
+                    if not np.array_equal(got[model_id, n], lone[v][n]):
+                        raise AssertionError(f"budget: {model_id}'s {n}-row "
+                                             f"reply")
+            recaptures = fleet_captures() - before
+            evicted = metrics.fleet_ladder_evictions(
+                "phase19_budget", "cheap@v1").value
+            say(f"  then 1, 3 and 16 rows on each: premium replayed, cheap "
+                f"re-captured {recaptures:.0f} bucket(s) (counted on "
+                f"znicz_graph_captures_total), {evicted:.0f} evictions of "
+                f"cheap in all, none of premium, every reply its lone "
+                f"engine's bit for bit")
+            if recaptures < 1 or metrics.fleet_ladder_evictions(
+                    "phase19_budget", "premium@v1").value:
+                raise AssertionError("budget: the re-captures")
+        finally:
+            budget.shutdown()
+        counts = read_counts()
+        fwd = counts["flash_attention_fwd"]
+        expect_counts("fleet", counts, {"flash_attention_fwd": fwd,
+                                        "layer_norm_forward": fwd,
+                                        "softmax_argmax_small": fwd})
+        expect_ln_register("fleet")
+        expect_new_routes("fleet")
+        if not fwd:
+            raise AssertionError("fleet: no kernel launched")
+
+        try:
+            fleet = FleetEngine(tenants=[TenantClass("hi", priority=0),
+                                         TenantClass("lo", priority=2)],
+                                autoscale=False, name="phase19_web")
+            fleet.add_model("scorer", path_a, max_batch=BATCH,
+                            max_delay_ms=1.0)
+            with fleet:
+                fleet("scorer", x[:1], tenant="hi", timeout=300)
+                web_checks(fleet, engines["v1"], x)
+        finally:
+            engines["v1"].shutdown()
+        store_checks(tmp, path_a, x, lone["v1"][3], card, build_s)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7501,7 +8124,8 @@ def main() -> int:
     say("phase 1: build")
     t0 = time.perf_counter()
     _cuda.build_all()
-    say(f"  built in {time.perf_counter() - t0:.1f} s into "
+    build_s = time.perf_counter() - t0
+    say(f"  built in {build_s:.1f} s into "
         f"{os.path.relpath(_cuda.build_dir(), REPO)}")
     spills = []
     for name in _cuda.SOURCES:
@@ -7696,6 +8320,12 @@ def main() -> int:
     GUARD_STATES.clear()  # phase 18's parts read their own guards
     paths.update(resilience_pass(smi))
     say(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    say("phase 19: serving at scale and ops — the fleet on the scorer's "
+        "graphed buckets, the web status page, the kernel-library store")
+    t19 = time.perf_counter()
+    paths["fleet"] = fleet_pass(smi, KEPT["decode_lm"], build_s)
+    say(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -318,7 +318,6 @@ def test_a_multi_process_flag_acts_as_in_the_reference(flags, kwargs,
 @pytest.mark.parametrize("flags,item", [
     (["--optimize", "2x4"], "A13"),
     (["--root", "attention_seq.learning_rate=Tune(0.1, 0.01, 1.0)"], "A13"),
-    (["--web-status", "0"], "A12"),
 ])
 def test_an_unported_flag_names_its_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError,

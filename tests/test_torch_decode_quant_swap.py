@@ -17,7 +17,7 @@ programs as CUDA graphs, in the port, on the CPU.
 - A cache update that rebinds its pool instead of writing it in place
   raises; a swap that leaves the prefix cache stale gives other tokens
   than a fresh engine on the new weights, which the engine's own swap
-  does not; the spill tier (ROADMAP A12) is refused.
+  does not; the spill tier (ROADMAP A12b) is refused.
 """
 
 from __future__ import annotations

@@ -43,9 +43,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "znicz_tpu_torch"
 #: the sites whose modules the port has not ported yet, by the ROADMAP
 #: item that owns each (ROADMAP.md, queue A)
 UNFIRED = {
-    "fleet.tenant_flood": "A12", "fleet.replica_loss": "A12",
-    "disagg.handoff_drop": "A12", "aotcache.corrupt": "A12",
-    "fleet.model_corrupt": "A13",
+    "disagg.handoff_drop": "A12b", "fleet.model_corrupt": "A13",
 }
 
 
@@ -179,8 +177,11 @@ def test_every_ported_site_has_a_live_fire_call():
         "host.loss": {"supervisor.py"},
         "host.preempt": {"supervisor.py"},
         "heartbeat.stall": {"supervisor.py"},
-        "checkpoint.signal_corrupt": {"supervisor.py"}}
-    assert set(UNFIRED.values()) <= {"A12", "A13"}
+        "checkpoint.signal_corrupt": {"supervisor.py"},
+        "fleet.tenant_flood": {"fleet.py"},
+        "fleet.replica_loss": {"fleet.py"},
+        "aotcache.corrupt": {"aot_cache.py"}}
+    assert set(UNFIRED.values()) <= {"A12b", "A13"}
 
 
 @pytest.mark.parametrize("site", sorted(faults.SITES))

@@ -20,9 +20,9 @@ snapshot-age cases of ``tests/test_swap.py``.
   sidecarless one counted) equal to the reference's on the same files,
   and the snapshot-age gauge fed by a good write.
 
-The reference's ``/readyz`` checks read its web status page, which the
-port does not have (ROADMAP A13); its decode-drain cases are
-``tests/test_torch_decode_quant_swap.py``'s.
+The reference's ``/readyz`` checks are ``tests/test_torch_web_status.
+py``'s, its programs pack ``tests/test_torch_aot_cache.py``'s; its
+decode-drain cases are ``tests/test_torch_decode_quant_swap.py``'s.
 """
 
 from __future__ import annotations
@@ -99,9 +99,10 @@ def _build(pkg: str, name: str, max_epochs: int, seed: int = 17, **kw):
 # publication and the watcher
 # ----------------------------------------------------------------------
 def test_publish_monotonic_versions_and_pickup(tmp_path):
-    """The port publishes v1 and v2 (sidecars, the manifest saying no
-    programs are packed); both packages' watchers surface v2 first and
-    then nothing; a bundle the reference publishes next is v3 to both."""
+    """The port publishes v1 and v2 (sidecars; the reference's manifest,
+    and no programs pack with the kernel-library store off); both
+    packages' watchers surface v2 first and then nothing; a bundle the
+    reference publishes next is v3 to both."""
     wf = _build("port", "pub_wf", 1)
     pubdir = str(tmp_path / "published")
     v1, p1 = pub.publish_bundle(wf, pubdir)
@@ -114,7 +115,8 @@ def test_publish_monotonic_versions_and_pickup(tmp_path):
         assert got is not None and got[0] == 2, "the newest version wins"
         manifest, params = got[2], got[3]
         assert manifest["workflow"] == "pub_wf"
-        assert manifest["aot_programs"] == pub.AOT_PROGRAMS
+        assert "aot_programs" not in manifest
+        assert not os.path.exists(p2[:-len(".npz")] + ".programs.npz")
         assert any(k.startswith("layer0_") for k in params)
         assert watcher.poll() is None, "nothing new: None"
     assert 0.0 <= metrics.snapshot_age_seconds("publish:model").value < 60

@@ -323,8 +323,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     # and the cutter, the fault plan, the flight recorder and the
     # quantizer (host-only modules the port copies), decode, the
     # parallel package (its host-only code copied too), the input
-    # plane and resilience (the guard, the sentinel, the publisher, the
-    # supervisors and the drill worker)
+    # plane, resilience (the guard, the sentinel, the publisher, the
+    # supervisors and the drill worker) and the operations plane (the
+    # fleet, the kernel-library store, the federator, the web page)
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
@@ -333,7 +334,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                                 "ring_attention", "pipeline", "streaming",
                                 "image", "imagenet", "guard", "integrity",
                                 "publisher", "supervisor",
-                                "elastic_worker")} \
+                                "elastic_worker", "fleet", "aot_cache",
+                                "federation", "web_status",
+                                "introspect")} \
         <= {p.name for p in files}
     assert REPO / "znicz_tpu_torch" / "resilience" / "supervisor.py" in files
     # the input plane, the native pool's loader among them

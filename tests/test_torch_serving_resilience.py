@@ -7,8 +7,9 @@ test_resilience_serving.py``'s bundle) serves through the port's
 ``ServingEngine(device="cpu")``; replies are held to the reference's
 ``ExportedModel`` within 1e-5 (f32, summation order only):
 
-- the engine tests of ``tests/test_resilience_serving.py`` that need no
-  unported module (the web status page waits for ROADMAP A12):
+- the engine tests of ``tests/test_resilience_serving.py`` (its
+  ``/healthz`` and ``/readyz`` tests are ``tests/test_torch_web_status.
+  py``'s):
   coalesced replies with expired rows mixed in, a deadlined request's
   rows never dispatched, ``serving.program_error`` retried to success,
   ``serving.latency_spike`` expiring a deadlined request queued behind

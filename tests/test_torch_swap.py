@@ -22,8 +22,10 @@ contract is bitwise:
   replay runs it again with the launch counters quiet), the engine's
   buckets are captured once each at ``start()`` and never again across
   swaps, the counters gain exactly the capture's launches a replay, a
-  bucket above the ladder is captured once, and a swap that rebinds a
-  parameter instead of copying into it makes the next replay raise.
+  bucket above the ladder is captured once (evicting the least recently
+  used bucket: the reference's cap of one ladder's programs), and a swap
+  that rebinds a parameter instead of copying into it makes the next
+  replay raise.
 """
 
 import contextlib
@@ -401,12 +403,16 @@ def test_graphed_bucket_above_the_ladder_and_a_rebinding_swap(
     probe.launches = 0
     model = ExportedModel.load(a, device="cpu", max_batch=4)
     assert model.warmup(4) == 3 and model.captures == 3
-    # bucket 16: captured on its first dispatch (the warm-up's reply)
+    # bucket 16: captured on its first dispatch (the warm-up's reply);
+    # the cap (three programs, the ladder up to 4) evicts bucket 1, the
+    # least recently used
     np.testing.assert_array_equal(model(x), want)
-    assert model.captures == 4 and probe.launches == 4
+    assert model.captures == 3 and probe.launches == 4
+    assert list(model._programs) == [2, 4, 16]
     np.testing.assert_array_equal(model(x), want)
-    assert model.captures == 4 and probe.launches == 5
+    assert model.captures == 3 and probe.launches == 5
     assert model._programs[16].graph.replays == 1
+    assert model.program_hits[16] == 1
     # a swap that rebinds a parameter (a new tensor) instead of copying
     # into the one the graphs read: the next replay refuses it
     _, params_b = read_bundle(b)

@@ -57,7 +57,6 @@ SAMPLES_PACKAGE = "znicz_tpu_torch.models.samples"
 #: (flag, what it does, the ROADMAP item that ports it)
 UNPORTED_FLAGS = {
     "optimize": ("--optimize", "the genetic hyper-parameter search", "A13"),
-    "web_status": ("--web-status", "the web status page", "A12"),
 }
 
 
@@ -145,7 +144,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="debug-level logging")
     p.add_argument("--web-status", type=int, metavar="PORT",
-                   help="live status page (not ported)")
+                   help="serve the live status page on PORT for the run "
+                        "(0: a free port)")
+    p.add_argument("--web-status-host", default="127.0.0.1",
+                   help="address the status page binds (default "
+                        "127.0.0.1)")
     p.add_argument("--optimize", metavar="GENSxPOP",
                    help="genetic hyper-parameter search (not ported)")
     p.add_argument("--chunk", type=int, metavar="N",
@@ -205,7 +208,9 @@ class Main(Logger):
                             listen=args.listen, master=args.master,
                             n_processes=args.nodes,
                             process_id=args.process_id,
-                            n_model=args.n_model)
+                            n_model=args.n_model,
+                            web_status=args.web_status,
+                            web_status_host=args.web_status_host)
         self.launcher = launcher  # for tests and embedding callers
         if args.dry_run or args.dump_graph:
             def initialize_only(**kwargs):

@@ -28,6 +28,20 @@ On the CPU and on the oracle the chain runs eagerly; there is no switch
 (:attr:`ExportedModel.graphed`).  A failed capture raises, naming the
 bucket.
 
+Residency, as in the reference: the programs are an LRU of at most
+:attr:`ExportedModel._program_capacity` buckets (the ladder up to
+``max_batch``), so a bucket above the ladder evicts the least recently
+used one, and a model may join a fleet's shared ladder budget
+(:meth:`ExportedModel.attach_program_budget`), which charges each new
+program :meth:`ExportedModel.program_nbytes` and may call
+:meth:`ExportedModel.drop_program` on it.  Dropping a bucket releases
+its CUDA graph and the graph's output under the model's lock with the
+collector off (a graph is never left to a reference cycle, whose
+collection could land inside another capture); the next request for
+the bucket captures it again.  The budget is charged after the caller
+lets go of the model's lock (:meth:`ExportedModel.settle_budget`),
+because an eviction takes another model's lock.
+
 Hot swap (:meth:`ExportedModel.swap_weights`) replaces the parameters
 without a new capture, in the reference's three phases: validate
 (:class:`SwapIncompatible`, the incumbent untouched), stage the new
@@ -79,6 +93,7 @@ import json
 import os
 import threading
 import time
+from collections import Counter, OrderedDict
 
 import numpy as np
 import torch
@@ -153,7 +168,7 @@ def _sequence_meta(layers: list[dict], input_shape) -> dict | None:
             "dim": dim, "cache": cache}
 
 
-def export_forward(workflow, path: str, extra: dict | None = None) -> str:
+def export_forward(workflow, path: str) -> str:
     """Write the forward chain of a trained
     :class:`~znicz_tpu_torch.models.standard_workflow.StandardWorkflow`
     to ``path`` as the reference's ``export_forward`` does: the
@@ -163,8 +178,7 @@ def export_forward(workflow, path: str, extra: dict | None = None) -> str:
     ``layer{i}_{attr}`` arrays in one compressed ``.npz``, written to a
     temporary file and renamed into place.  Under tensor parallelism the
     parameters are gathered from their blocks first (a collective every
-    process joins) and process 0 writes.  ``extra`` adds keys to the
-    manifest (the publisher's ``aot_programs``).  Returns the path."""
+    process joins) and process 0 writes.  Returns the path."""
     from znicz_tpu_torch.parallel.distributed import process_info
     layers = []
     for spec, unit in zip(workflow.layers_config, workflow.forwards):
@@ -190,7 +204,6 @@ def export_forward(workflow, path: str, extra: dict | None = None) -> str:
     manifest["kind"] = "scorer" if seq is None else "lm"
     if seq is not None:
         manifest["sequence"] = seq
-    manifest.update(extra or {})
     # a parameter held in blocks over processes (tensor parallelism) is
     # gathered (every process calls this in lockstep); process 0 writes
     arrays = {f"layer{i}_{attr}": unit.full_tensor(
@@ -384,8 +397,17 @@ class ExportedModel(Logger):
         #: ``(key, unit, attr)`` of every parameter, deduplicated by
         #: identity (a tied deconv's weights are its conv's)
         self._pairs = self._param_pairs()
-        #: bucket size → its program (the ladder bounds the count)
-        self._programs: dict[int, _Program] = {}
+        #: bucket size → its program, least recently used first (the
+        #: ladder bounds the count)
+        self._programs: "OrderedDict[int, _Program]" = OrderedDict()
+        #: bucket size → dispatches that found its program resident
+        self.program_hits: Counter = Counter()
+        #: the fleet's shared ladder budget this model charges, if any
+        self._shared_budget = None
+        self._budget_key = ""
+        self._budget_priority = 0
+        #: budget calls waiting for the model's lock to be let go
+        self._budget_ops: list[tuple] = []
         #: held by every dispatch (through the host copy of its reply),
         #: every capture and every publish: a publish never lands
         #: inside a dispatch
@@ -433,8 +455,13 @@ class ExportedModel(Logger):
 
     @property
     def captures(self) -> int:
-        """Buckets captured so far."""
+        """Resident buckets whose graph is captured."""
         return sum(p.graph is not None for p in self._programs.values())
+
+    @property
+    def _program_capacity(self) -> int:
+        """Resident programs at most: the ladder up to ``max_batch``."""
+        return len(ladder(self.max_batch))
 
     # ------------------------------------------------------------------
     def _dequantize(self, q: torch.Tensor, scale: torch.Tensor
@@ -568,22 +595,114 @@ class ExportedModel(Logger):
         :attr:`serve_dtype` and shape ``(size, *input_shape)``; the
         output is a device tensor that the next dispatch overwrites, so
         the caller copies it to the host first, holding
-        :attr:`_lock` (the engine's scheduler thread does).  Made
-        resident on first use; on the card the first dispatch captures
-        the bucket's graph."""
+        :attr:`_lock` (the engine's scheduler thread does), and then
+        calls :meth:`settle_budget`.  Made resident on first use (the
+        least recently used bucket leaves past the ladder); on the card
+        the first dispatch captures the bucket's graph."""
         with self._lock:
-            prog = self._programs.get(size)
-            if prog is None:
-                buf = None if self.host_only else torch.zeros(
-                    (size,) + self.input_shape, dtype=self.serve_dtype,
-                    device=self.device)
-                prog = self._programs[size] = _Program(size, buf)
-                self.programs_built += 1
+            prog = self._resident(size)
         return functools.partial(self._run_program, prog)
+
+    def _resident(self, size: int) -> _Program:
+        """The resident program of bucket ``size``, made resident on a
+        miss; called holding :attr:`_lock`.  The calls it owes a shared
+        budget wait in :attr:`_budget_ops`."""
+        owed = self._budget_ops if self._shared_budget is not None \
+            else []
+        prog = self._programs.get(size)
+        if prog is not None:
+            self._programs.move_to_end(size)
+            self.program_hits[size] += 1
+            owed.append(("touch", size))
+            return prog
+        buf = None if self.host_only else torch.zeros(
+            (size,) + self.input_shape, dtype=self.serve_dtype,
+            device=self.device)
+        prog = self._programs[size] = _Program(size, buf)
+        self.programs_built += 1
+        owed.append(("charge", size))
+        while len(self._programs) > self._program_capacity:
+            gone, old = self._programs.popitem(last=False)
+            self._release(old)
+            owed.append(("forget", gone))
+            self.debug("evicted the program of bucket %d (LRU, cap %d)",
+                       gone, self._program_capacity)
+        return prog
+
+    def _release(self, prog: _Program) -> None:
+        """Free a program's graph, its output and its input buffer, with
+        the collector off (called holding :attr:`_lock`, so never inside
+        this model's captures)."""
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            reset = getattr(prog.graph, "reset", None)
+            if reset is not None:
+                reset()
+            prog.graph = prog.out = prog.buf = None
+            prog.launches, prog.fixed = [], []
+        finally:
+            if collecting:
+                gc.enable()
+
+    def attach_program_budget(self, budget, key: str,
+                              priority: int = 0) -> None:
+        """Join a fleet's shared ladder budget: every program this model
+        makes resident is charged to ``budget`` under ``key`` at the
+        tenant ``priority`` (smaller is more important), and the budget
+        may call :meth:`drop_program` on any model it holds."""
+        self._shared_budget = budget
+        self._budget_key = str(key)
+        self._budget_priority = int(priority)
+        budget.register(key, self, priority)
+
+    def program_nbytes(self, size: int) -> int:
+        """The reference's estimate of one program's working set, which
+        the shared budget charges: the padded input batch's bytes times
+        the chain's depth plus one (the parameters are shared across
+        buckets and left out)."""
+        sample = int(np.prod(self.input_shape or (1,)))
+        itemsize = torch.empty((), dtype=self.serve_dtype).element_size()
+        return size * sample * itemsize * (len(self.forwards) + 1)
+
+    def drop_program(self, size: int) -> bool:
+        """Evict bucket ``size``'s program (shared-budget pressure): its
+        graph and output are released under :attr:`_lock`, so a
+        dispatch holding the lock finishes on it first, and the next
+        request for the bucket captures it again.  True when a resident
+        program was dropped."""
+        with self._lock:
+            prog = self._programs.pop(size, None)
+            if prog is None:
+                return False
+            self._release(prog)
+        self.debug("dropped the program of bucket %d (shared ladder "
+                   "budget)", size)
+        return True
+
+    def settle_budget(self) -> None:
+        """Pass the budget calls the last dispatches owe to the shared
+        budget; called without holding :attr:`_lock`, since a charge's
+        evictions take the victims' locks."""
+        with self._lock:
+            ops, self._budget_ops = self._budget_ops, []
+        budget = self._shared_budget
+        if budget is None:
+            return
+        for op, size in ops:
+            if op == "charge":
+                budget.charge(self._budget_key, size,
+                              self.program_nbytes(size))
+            elif op == "touch":
+                budget.touch(self._budget_key, size)
+            else:
+                budget.forget(self._budget_key, size)
 
     def _run_program(self, prog: _Program,
                      x_host: torch.Tensor) -> torch.Tensor:
         with self._lock:
+            if self._programs.get(prog.size) is not prog:
+                prog = self._resident(prog.size)  # dropped meanwhile
             if self.host_only:
                 return torch.from_numpy(
                     self._oracle_forward(x_host.float().numpy()))
@@ -666,6 +785,7 @@ class ExportedModel(Logger):
             with self._lock:
                 self.program_for(size)(torch.zeros(
                     (size,) + self.input_shape, dtype=self.serve_dtype))
+            self.settle_budget()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.programs_built - before
@@ -832,7 +952,9 @@ class ExportedModel(Logger):
             x = padded
         with self._lock:
             out = self.program_for(size)(x)
-            return out[:batch].float().cpu().numpy()
+            reply = out[:batch].float().cpu().numpy()
+        self.settle_budget()
+        return reply
 
     def predict_classes(self, x) -> np.ndarray:
         return np.argmax(self(x), axis=1)

@@ -44,8 +44,13 @@ workflow on the device, loads the staged state and trains it.
   :class:`~znicz_tpu_torch.resilience.supervisor.ElasticSupervisor` sets
   it.
 
-Not ported yet: the graphics server and the web status page (A13); they
-are not offered.
+- ``web_status`` (a port, 0 for a free one): process 0 serves the web
+  status page (:class:`~znicz_tpu_torch.web_status.WebStatusServer`) on
+  ``web_status_host`` (127.0.0.1 unless given) for the run, with the
+  workflow registered; :attr:`Launcher.web_server` is the server, kept
+  after the run for its caller to stop.
+
+Not ported yet: the graphics server (A13); it is not offered.
 """
 
 from __future__ import annotations
@@ -77,7 +82,9 @@ class Launcher(Logger):
                  listen: str | None = None, master: str | None = None,
                  n_processes: int | None = None,
                  process_id: int | None = None, n_model: int = 1,
-                 chunk: int | None = None, n_seq: int = 1) -> None:
+                 chunk: int | None = None, n_seq: int = 1,
+                 web_status: int | None = None,
+                 web_status_host: str = "127.0.0.1") -> None:
         super().__init__()
         if listen and master:
             raise ValueError("--listen and --master are exclusive")
@@ -96,6 +103,9 @@ class Launcher(Logger):
         #: model- and seq-axis sizes of the mesh (1: pure data parallel)
         self.n_model = 1 if n_model is None else int(n_model)
         self.n_seq = int(n_seq)
+        self.web_status = web_status  # a port (0: a free one) or None
+        self.web_status_host = web_status_host
+        self.web_server = None
         self.workflow = None
         self.device = None
         self._snapshot_state: dict | None = None
@@ -228,6 +238,13 @@ class Launcher(Logger):
     def run_workflow(self, workflow, **kwargs):
         """Initialize, load the staged snapshot, then run, with the
         signal handlers that write the emergency snapshot."""
+        if self.web_status is not None and self.web_server is None \
+                and self.is_master:
+            from znicz_tpu_torch.web_status import WebStatusServer
+            self.web_server = WebStatusServer(
+                port=self.web_status, host=self.web_status_host)
+        if self.web_server is not None:
+            self.web_server.register(workflow)
         device = self.make_device()
         if not workflow.is_initialized:
             workflow.initialize(device=device, **kwargs)

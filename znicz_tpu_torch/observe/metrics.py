@@ -21,7 +21,11 @@ and the shard reader's retries, quarantines and pipeline restarts, and
 resilience's: the guard's anomalies and rollbacks, the last step's
 time, the SDC votes, audits, suspects and quarantines, publishes and
 artifact ages, int8 canary verdicts, the heartbeat ages ``/readyz``
-reads, hosts lost, elastic restarts and checkpoints on a signal.
+reads, hosts lost, elastic restarts and checkpoints on a signal, and
+the operations plane's: the fleet's per-tenant series, replicas, scale
+events, traffic weights and ladder evictions, the kernel-library
+store's verdicts and bytes, the federator's folded ``znicz_fed_*``
+series and ``znicz_build_info``.
 The hot-path series (unit times, transfer bytes) are gated on
 :func:`enabled`; the rest are always counted.  The
 port's registry is its own: a process that imports both packages
@@ -207,6 +211,12 @@ class MetricsRegistry:
                                buckets=buckets)
             self._families[name] = fam
             return fam
+
+    def get(self, name: str) -> MetricFamily | None:
+        """The family named ``name``, or None before anything declared
+        it (what ``/readyz``, the federator and the autoscaler read)."""
+        with self._lock:
+            return self._families.get(name)
 
     def counter(self, name: str, help_: str = "",
                 labels: Iterable[str] = ()) -> MetricFamily:
@@ -700,7 +710,7 @@ def kv_bytes_per_lane(engine: str) -> Gauge:
 def kv_page_migrations(engine: str, direction: str) -> Counter:
     """KV pages moved between tiers or pools by direction (``spill``,
     ``restore``, ``handoff``).  The port has neither a second tier nor a
-    pool handoff yet (ROADMAP A12), so nothing writes it."""
+    pool handoff yet (ROADMAP A12b), so nothing writes it."""
     return REGISTRY.counter(
         "znicz_kv_page_migrations_total",
         "KV pages moved between cache tiers / serving pools",
@@ -875,3 +885,224 @@ def checkpoint_on_signal() -> Counter:
     return REGISTRY.counter(
         "znicz_checkpoint_on_signal_total",
         "Preemption-triggered barriered checkpoints").labels()
+
+
+# ----------------------------------------------------------------------
+# the fleet: the isolation proof is read from exactly these series
+# ----------------------------------------------------------------------
+def fleet_requests(fleet: str, tenant: str, event: str) -> Counter:
+    """Per-tenant request lifecycle on one fleet: ``submitted``,
+    ``served``, ``shed`` (rate limit, preemption, breaker), ``expired``
+    (deadline), ``failed``.  Under a low-priority flood only the
+    flooding tenant's ``shed`` child moves."""
+    return REGISTRY.counter(
+        "znicz_fleet_requests_total",
+        "Fleet requests by tenant and lifecycle event",
+        labels=("fleet", "tenant", "event")).labels(
+        fleet=fleet, tenant=tenant, event=event)
+
+
+def fleet_latency_seconds(fleet: str, tenant: str) -> Histogram:
+    """Per-tenant SLO latency: submit to reply for one-shot scoring,
+    submit to first token for generation."""
+    return REGISTRY.histogram(
+        "znicz_fleet_latency_seconds",
+        "Fleet SLO latency by tenant (reply for one-shot, TTFT for "
+        "generation)",
+        labels=("fleet", "tenant")).labels(fleet=fleet, tenant=tenant)
+
+
+def fleet_latency_p99_seconds(fleet: str, tenant: str) -> Gauge:
+    """Exact windowed per-tenant p99 (a callback over the fleet's
+    sliding window)."""
+    return REGISTRY.gauge(
+        "znicz_fleet_latency_p99_seconds",
+        "Exact windowed p99 fleet latency by tenant",
+        labels=("fleet", "tenant")).labels(fleet=fleet, tenant=tenant)
+
+
+def fleet_breaker_state(fleet: str, tenant: str) -> Gauge:
+    """Per-tenant circuit breaker (0 closed, 1 half-open, 2 open): one
+    tenant's breaker opening sheds only that tenant."""
+    return REGISTRY.gauge(
+        "znicz_fleet_breaker_state",
+        "Per-tenant fleet breaker state (0 closed, 1 half-open, "
+        "2 open)",
+        labels=("fleet", "tenant")).labels(fleet=fleet, tenant=tenant)
+
+
+def fleet_tenant_tokens(fleet: str, tenant: str) -> Gauge:
+    """Live token-bucket level per tenant (callback gauge)."""
+    return REGISTRY.gauge(
+        "znicz_fleet_tenant_tokens",
+        "Fleet admission token-bucket level by tenant",
+        labels=("fleet", "tenant")).labels(fleet=fleet, tenant=tenant)
+
+
+def fleet_models(fleet: str) -> Gauge:
+    """Models resident on one fleet."""
+    return REGISTRY.gauge(
+        "znicz_fleet_models",
+        "Models resident in the fleet",
+        labels=("fleet",)).labels(fleet=fleet)
+
+
+def quantized_models(fleet: str) -> Gauge:
+    """Fleet model versions serving int8-quantized bundles."""
+    return REGISTRY.gauge(
+        "znicz_quantized_models",
+        "Resident fleet models serving int8-quantized bundles",
+        labels=("fleet",)).labels(fleet=fleet)
+
+
+def fleet_replicas(fleet: str, model: str) -> Gauge:
+    """Live replicas per ``model@version`` (a ``fleet.replica_loss``
+    dips it until the autoscaler repairs the group)."""
+    return REGISTRY.gauge(
+        "znicz_fleet_replicas",
+        "Live serving replicas per fleet model",
+        labels=("fleet", "model")).labels(fleet=fleet, model=model)
+
+
+def fleet_scale_events(fleet: str, model: str, op: str) -> Counter:
+    """Autoscaler verdicts per ``model@version``: ``up``, ``down``,
+    ``repair``."""
+    return REGISTRY.counter(
+        "znicz_fleet_scale_events_total",
+        "Fleet autoscaler scale events per model",
+        labels=("fleet", "model", "op")).labels(
+        fleet=fleet, model=model, op=op)
+
+
+def fleet_traffic_weight(fleet: str, model: str, version: str) -> Gauge:
+    """Configured A/B traffic weight per model version."""
+    return REGISTRY.gauge(
+        "znicz_fleet_traffic_weight",
+        "Configured traffic fraction per fleet model version",
+        labels=("fleet", "model", "version")).labels(
+        fleet=fleet, model=model, version=version)
+
+
+def fleet_ladder_evictions(fleet: str, model: str) -> Counter:
+    """Bucket graphs dropped by the shared ladder budget; pressure
+    lands on the lowest-priority model's ladder first."""
+    return REGISTRY.counter(
+        "znicz_fleet_ladder_evictions_total",
+        "Bucket programs evicted by the shared fleet ladder budget",
+        labels=("fleet", "model")).labels(fleet=fleet, model=model)
+
+
+# ----------------------------------------------------------------------
+# the kernel-library store (serving/aot_cache.py)
+# ----------------------------------------------------------------------
+def aot_cache_events(site: str, outcome: str) -> Counter:
+    """Store verdicts by site: ``hit`` (a library loaded from the store,
+    no ``nvcc``), ``miss`` (no entry: ``nvcc`` built it) and
+    ``corrupt`` (digest or load failure: the entry quarantined and the
+    library built again, paired with
+    ``recoveries{kind="aotcache_fallback"}``)."""
+    return REGISTRY.counter(
+        "znicz_aot_cache_total",
+        "Kernel-library store lookups by site and outcome "
+        "(hit=loaded, miss=built, corrupt=quarantined+built)",
+        labels=("site", "outcome")).labels(site=site, outcome=outcome)
+
+
+def aot_cache_bytes(cache: str = "local") -> Gauge:
+    """Bytes of the libraries resident in the store (payloads only),
+    bounded by ``engine.aot_cache_bytes``."""
+    return REGISTRY.gauge(
+        "znicz_aot_cache_bytes",
+        "Bytes of kernel libraries resident in the store",
+        labels=("cache",)).labels(cache=cache)
+
+
+# ----------------------------------------------------------------------
+# metrics federation (observe/federation.py)
+# ----------------------------------------------------------------------
+def fed_sources(gang: str) -> Gauge:
+    """Child sources a federator folds a scrape."""
+    return REGISTRY.gauge(
+        "znicz_fed_sources",
+        "Sources folded into the federated gang-level scrape",
+        labels=("gang",)).labels(gang=gang)
+
+
+def fed_scrape_age_seconds(gang: str, source: str) -> Gauge:
+    """Seconds since ``source`` last folded (live callback gauge): a
+    child whose exporter died shows up as age."""
+    return REGISTRY.gauge(
+        "znicz_fed_scrape_age_seconds",
+        "Staleness of each federated source's last successful fold",
+        labels=("gang", "source")).labels(gang=gang, source=source)
+
+
+def fed_queue_age_seconds(gang: str, process: str, pool: str) -> Gauge:
+    """Each child's oldest-pending-request age by process and pool."""
+    return REGISTRY.gauge(
+        "znicz_fed_queue_age_seconds",
+        "Federated per-child serving queue age by process and pool",
+        labels=("gang", "process", "pool")).labels(
+        gang=gang, process=process, pool=pool)
+
+
+def fed_requests(gang: str, process: str, event: str) -> Gauge:
+    """Each child's request totals by event (a gauge: the federator
+    republishes the child's last-seen totals)."""
+    return REGISTRY.gauge(
+        "znicz_fed_requests",
+        "Federated per-child serving request totals by event",
+        labels=("gang", "process", "event")).labels(
+        gang=gang, process=process, event=event)
+
+
+def fed_heartbeat_age_seconds(gang: str, process: str) -> Gauge:
+    """Heartbeat staleness per gang member (the heartbeat fold)."""
+    return REGISTRY.gauge(
+        "znicz_fed_heartbeat_age_seconds",
+        "Federated seconds since each gang member's last heartbeat",
+        labels=("gang", "process")).labels(gang=gang, process=process)
+
+
+def fed_step(gang: str, process: str) -> Gauge:
+    """Per-member step counter: the spread of its children says which
+    host is slow."""
+    return REGISTRY.gauge(
+        "znicz_fed_step",
+        "Federated per-member training/serving step counter",
+        labels=("gang", "process")).labels(gang=gang, process=process)
+
+
+#: the live build_info child's label key (a richer one zeroes it)
+_build_info_live: tuple | None = None
+
+
+def set_build_info(*, platform: str = "?", processes: str = "?",
+                   fallback: bool = False) -> None:
+    """Register or refresh ``znicz_build_info`` (value 1, the build in
+    its labels: the port's version, torch's, CUDA's, the platform and
+    the process count), so a scrape tells which build it came from.
+    ``fallback=True`` (the web page) registers only when nothing richer
+    did; a richer registration zeroes the previous child."""
+    global _build_info_live
+    if fallback and _build_info_live is not None:
+        return
+    import torch
+
+    import znicz_tpu_torch
+    fam = REGISTRY.gauge(
+        "znicz_build_info",
+        "Build identity (value 1; read the labels): package version, "
+        "torch and CUDA versions, platform, process count",
+        labels=("version", "torch", "cuda", "platform", "processes"))
+    key = {"version": znicz_tpu_torch.__version__,
+           "torch": torch.__version__,
+           "cuda": str(torch.version.cuda), "platform": str(platform),
+           "processes": str(processes)}
+    key_t = tuple(sorted(key.items()))
+    if _build_info_live == key_t:
+        return
+    if _build_info_live is not None:
+        fam.labels(**dict(_build_info_live)).set(0)
+    fam.labels(**key).set(1)
+    _build_info_live = key_t

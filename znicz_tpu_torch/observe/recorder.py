@@ -27,7 +27,7 @@ dead disk underneath; the recorder degrades to counting drops on
 
 :func:`record` is the module-level hook instrumentation sites call;
 :meth:`FlightRecorder.dump_since` is the read API (the reference's
-``/flightrecord`` page; the port's web page waits for ROADMAP A12).
+``/flightrecord`` page of :mod:`znicz_tpu_torch.web_status`).
 All of it is gated on ``root.common.engine.telemetry``.
 """
 

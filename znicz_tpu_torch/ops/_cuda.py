@@ -12,6 +12,12 @@ without ``nvcc``.
 
 ``nvcc`` is found through ``CUDA_HOME``, then ``/usr/local/cuda/bin``,
 then ``PATH``; when none has it, :func:`library` raises.
+
+With the kernel-library store on (:mod:`znicz_tpu_torch.serving.
+aot_cache`: ``engine.aot_cache`` or ``ZNICZ_AOT_CACHE``), a library the
+build directory lacks is first asked of the store, ``nvcc`` builds only
+what the store does not hold (or held corrupt), and every library is
+put in the store.  With it off, nothing changes.
 """
 
 from __future__ import annotations
@@ -74,20 +80,41 @@ def build_dir() -> Path:
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every source that has no library yet, one ``nvcc`` per
+    """Compile every source that has no library yet (and that the
+    kernel-library store, when it is on, does not hold), one ``nvcc`` per
     source, all running at once.  Returns stem → library path.  The
     compiler's output (``-Xptxas -v``: registers, shared memory,
     spills per kernel) is kept beside each library as ``<stem>.log``,
     ending with a line ``nvcc wall time <s> s``.  Raises with the
     compiler's output when any build fails."""
+    from znicz_tpu_torch.serving import aot_cache
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {Path(name).stem: out_dir / f"lib{Path(name).stem}.so"
             for name in SOURCES}
     todo = {stem: lib for stem, lib in libs.items() if not lib.is_file()}
-    if not todo:
+    store = aot_cache.active_cache()
+    if store is None and not todo:
         return libs
     nvcc = find_nvcc()
+    keys = {}
+    if store is not None:
+        keys = {stem: aot_cache.library_key(stem, nvcc) for stem in libs}
+        for stem in list(todo):
+            if store.load(keys[stem], f"kernel:{stem}", str(todo[stem])):
+                del todo[stem]
+    if todo:
+        _nvcc(nvcc, todo, out_dir)
+    for stem, key in keys.items():
+        if not store.has(key):
+            store.put(key, str(libs[stem]), f"kernel:{stem}",
+                      meta={"stem": stem, "build_digest": out_dir.name})
+    return libs
+
+
+def _nvcc(nvcc: str, todo: dict[str, Path], out_dir: Path) -> None:
+    """Build the libraries ``todo`` (stem → path), one ``nvcc`` each,
+    all at once."""
     procs = {}
     start = time.perf_counter()
     for stem, lib in todo.items():
@@ -115,7 +142,6 @@ def build_all() -> dict[str, Path]:
             os.replace(tmp, todo[stem])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return libs
 
 
 def build_log(stem: str) -> str:

@@ -18,13 +18,16 @@ weights copied into the tensors the CUDA graphs read):
   writes (the others fence on the new version's sidecar,
   :func:`_fence_publish`); ``quantize="int8"`` rewrites the staged
   bundle through :mod:`~znicz_tpu_torch.serving.quantize` behind its
-  accuracy gate.  The reference also packs its compiled serving
-  programs beside the weights; the port has no program cache yet
-  (ROADMAP A12), so it packs none, and the manifest's
-  ``aot_programs`` says so;
+  accuracy gate.  With the kernel-library store on
+  (:mod:`~znicz_tpu_torch.serving.aot_cache`), the store's libraries
+  are packed beside the weights (``<prefix>_v<version>.programs.npz``,
+  best-effort, after the weights and their sidecar landed);
 - **watching** (the serving side): :class:`PublicationWatcher` loads
   only bundles whose digest checks, falls back to the newest older good
-  version when the latest is corrupt, and never retries a bad one;
+  version when the latest is corrupt, and never retries a bad one; it
+  imports a bundle's verified programs pack into the store before it
+  surfaces the bundle (a corrupt pack is refused and counted, and the
+  weights still surface);
 - **canary and rollback**: :class:`SwapController` scores a candidate
   with a shadow evaluator (:func:`classifier_score`, the numpy oracle
   on a held-out stream, so a canary adds no CUDA graph), rejects one
@@ -64,10 +67,6 @@ register_defaults("common", {"engine": {
 __all__ = ["publish_bundle", "published_versions", "PublicationWatcher",
            "SwapController", "WeightPublisher", "classifier_score",
            "mark_artifact_written"]
-
-#: what a published manifest's ``aot_programs`` says: the port has no
-#: program cache to pack from yet
-AOT_PROGRAMS = "none: the port has no AOT program cache yet (ROADMAP A12)"
 
 #: ``<prefix>_v<version>.npz`` — the publication naming contract
 _VERSION_RE = re.compile(r"_v(\d+)\.npz$")
@@ -243,7 +242,7 @@ def publish_bundle(workflow, directory: str,
     tmp = f"{final}.{os.getpid()}.staging"
     with _tracing.TRACER.span("publish_bundle", cat="snapshot",
                               version=version):
-        export_forward(workflow, tmp, extra={"aot_programs": AOT_PROGRAMS})
+        export_forward(workflow, tmp)
         if quantize is not None:
             _quantize_staged(tmp, quantize, calib)
         digest = _sha256_file(tmp)
@@ -259,6 +258,10 @@ def publish_bundle(workflow, directory: str,
     source = f"publish:{prefix}"
     _metrics.publishes_total(source).inc()
     mark_artifact_written(source)
+    # the kernel libraries beside the weights, once those are durable: a
+    # replica on a fresh host imports them and starts without nvcc
+    from znicz_tpu_torch.serving import aot_cache as _aot
+    _aot.publish_programs(directory, prefix, version, final)
     return version, final
 
 
@@ -324,6 +327,15 @@ class PublicationWatcher(Logger):
             self.version = version
             if fell_back:
                 _metrics.recoveries("publish_fallback").inc()
+            # the pack published beside the weights goes into the store
+            # before the bundle surfaces, so the next build_all loads
+            # instead of building; a corrupt pack is refused inside
+            # import_programs and the verified weights surface anyway
+            from znicz_tpu_torch.serving import aot_cache as _aot
+            imported = _aot.import_programs(path)
+            if imported:
+                self.debug("imported %d published kernel libraries for "
+                           "v%d", imported, version)
             return version, path, manifest, params
         return None
 

@@ -34,9 +34,12 @@ the card, one card a process):
   ``znicz_elastic_restarts_total``).
 
 Every wait here is on an event, a file or an exit code; the timeouts
-are the supervisor's own settings.  The reference's gang supervisor
-also folds the heartbeat channel into a metrics federator, a module
-the port does not have yet (ROADMAP A13).
+are the supervisor's own settings.  The gang supervisor is also the
+gang's metrics folder: each poll folds the heartbeat channel into a
+:class:`~znicz_tpu_torch.observe.federation.Federator` named
+``elastic`` (``znicz_fed_step`` and ``znicz_fed_heartbeat_age_seconds``
+by member), so one scrape of the supervisor says which worker is
+behind.
 """
 
 from __future__ import annotations
@@ -820,11 +823,18 @@ class ElasticSupervisor(Logger):
                 stall_timeout_s=self.stall_timeout_s,
                 start_grace_s=self.start_grace_s)
             self.monitor.register_gauges()
+            fed = None
+            if _metrics.enabled():
+                from znicz_tpu_torch.observe.federation import Federator
+                fed = Federator("elastic")
+                fed.add_heartbeats(hb_dir, n)
             procs = self._spawn(attempt, n, hb_dir, resume)
             dead: dict[int, str] = {}
             try:
                 while True:
                     time.sleep(self.poll_interval_s)
+                    if fed is not None:
+                        fed.scrape()
                     rcs = [proc.poll() for proc in procs]
                     if all(rc == 0 for rc in rcs):
                         self.summary.update({
@@ -905,6 +915,9 @@ class ElasticSupervisor(Logger):
                         time.sleep(self.poll_interval_s)
             finally:
                 self._fold_heartbeats(hb_dir, n)
+                if fed is not None:
+                    fed.scrape()  # the last fold before the dir goes cold
+                    fed.close()
                 self._kill(procs)
                 self._close_logs(procs)
             # Only ROOT-CAUSE hosts are gone; everyone else rejoins:

@@ -1,6 +1,7 @@
 """Serving: the bucket ladder, the continuous batcher, the one-shot engine
-over them, int8 weight quantization, and decode (KV caches, the
-prefill/decode programs and the token-batching engine) (port of
+over them, int8 weight quantization, decode (KV caches, the
+prefill/decode programs and the token-batching engine), the fleet of
+many models under per-tenant SLOs and the kernel-library store (port of
 ``znicz_tpu/serving``)."""
 
 from znicz_tpu_torch.serving.batcher import (  # noqa: F401
@@ -12,3 +13,6 @@ from znicz_tpu_torch.serving.engine import (  # noqa: F401
 from znicz_tpu_torch.serving.decode import (  # noqa: F401
     DecodeEngine, DecodeModel, KVCache, PagedKVCache, PoolExhausted,
     PrefixCache)
+from znicz_tpu_torch.serving.fleet import (  # noqa: F401
+    FleetAutoscaler, FleetEngine, ReplicaGroup, SharedLadderBudget,
+    TenantClass)

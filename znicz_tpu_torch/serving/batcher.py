@@ -414,7 +414,7 @@ class ContinuousBatcher(Logger):
             self._m_state.set(_STATE_CODE[_CLOSED])
             # pool="all": the one-shot batcher is a single queue —
             # the per-pool children (prefill/decode) belong to the
-            # disaggregated engine (ROADMAP A12)
+            # disaggregated engine (ROADMAP A12b)
             _metrics.serving_queue_age_seconds(
                 obs_id, pool="all").set_function(self.oldest_age_s)
         self._pending = PriorityQueue()

@@ -63,8 +63,11 @@ from these pieces:
    hot-swaps its weights after draining the lanes of the old ones.
 
 Left out, each with its owner in ROADMAP.md: the host-DRAM spill tier
-behind the prefix cache, page and carry I/O with pool replication, and
-the persisted program store (A12).
+behind the prefix cache and page and carry I/O with pool replication
+(A12b).  The reference's persisted decode programs have no counterpart:
+they are CUDA graphs here, captured at ``start()`` (the port's store,
+:mod:`~znicz_tpu_torch.serving.aot_cache`, holds the kernel
+libraries).
 """
 
 from __future__ import annotations
@@ -1594,7 +1597,7 @@ class DecodeEngine(_PageSetupMixin, Logger):
     sequences in flight decode to completion; pool exhaustion trips the
     same breaker.  ``spill_pages`` (or ``engine.kv_spill_pages``) above 0
     asks for the host-DRAM spill tier, which the port does not have yet
-    (ROADMAP A12): it raises."""
+    (ROADMAP A12b): it raises."""
 
     def __init__(self, model, *, max_slots: int = 4, max_t: int = 64,
                  max_prompt: int | None = None, prompt_align: int = 8,
@@ -1620,7 +1623,7 @@ class DecodeEngine(_PageSetupMixin, Logger):
         if int(spill_pages) > 0:
             raise NotImplementedError(
                 f"spill_pages={spill_pages}: the host-DRAM spill tier of "
-                f"the prefix cache is not ported yet (ROADMAP A12)")
+                f"the prefix cache is not ported yet (ROADMAP A12b)")
         if not isinstance(model, DecodeModel):
             from znicz_tpu_torch.export import ExportedModel
             if isinstance(model, (str, bytes)) \

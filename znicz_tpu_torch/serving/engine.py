@@ -440,7 +440,9 @@ class ServingEngine(Logger):
         if block == size:
             with self.model._lock, torch.inference_mode():
                 out = self.model.program_for(size)(buf)
-                return out[:total].float().cpu().numpy()
+                reply = out[:total].float().cpu().numpy()
+            self.model.settle_budget()
+            return reply
         outs = []
         with torch.inference_mode():
             for row, replica in zip(range(0, size, block), self.replicas):
@@ -448,6 +450,8 @@ class ServingEngine(Logger):
                     outs.append(replica.program_for(block)(
                         buf[row:row + block]))
             joined = [o.float().cpu() for o in outs]
+        for replica in self.replicas:
+            replica.settle_budget()
         return torch.cat(joined)[:total].numpy()
 
     # ------------------------------------------------------------------
@@ -586,6 +590,8 @@ class ServingEngine(Logger):
                         if audited else 0.0},
             },
         }
+        from znicz_tpu_torch.serving import aot_cache as _aot
+        out["aot_cache"] = _aot.status()
         if lat:
             pct = _metrics._percentile
             out["latency_ms"] = {
