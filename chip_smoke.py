@@ -381,7 +381,27 @@ Phases (any failure raises and exits non-zero):
    a store hit and, with phase 1's build in place of the load, with the
    build.
 
-Each path of phases 3–19 runs with every launch counter set to 0 just
+20. disaggregated decode: phase 15's LM at its full width and geometry
+   through ``DisaggEngine`` (2 prefill and 2 decode workers over private
+   paged caches, at most 4 of each, all partitions of one model's
+   arena): (a) greedy tokens equal to the fused ``DecodeEngine``'s on the
+   card and to the CPU engine's for ``CPU_LENGTHS`` (a parting only at a
+   CPU tie under ``TIE_TOL``), prefix sharing and copy on write in the
+   prefill workers, the LSTM chain's carry handoff against the CPU; (b)
+   the decode pool grown from 2 to 4 and a killed worker repaired by
+   ``PoolAutoscaler`` with no new capture; (c) the interference arm: 8
+   lanes decoding 512 tokens while 16 prompts of 1024 tokens land
+   mid-stream, the per-token p99 with and without the burst, fused and
+   disaggregated in turns, median of 3 (a finding: on one card both
+   pools share the chip and the model's dispatch lock); (d) the spill
+   arm: 32 system prompts of 256 tokens served twice through a page
+   pool a quarter of their pages with a host-DRAM tier behind each
+   prefill worker's trie, restores counted, the hit rate within 10 % of
+   an all-device pool's and the tokens its; (e) dropped handoffs
+   (``disagg.handoff_drop``) retried on a fresh prefill, ``balanced()``
+   true; (f) the handoff's and the restore's ms and bytes a page.
+
+Each path of phases 3–20 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  After each of phases 3–17 the state
 of every anomaly guard built in it is read: a step skipped as
@@ -5963,6 +5983,7 @@ def decode_pass(card: str) -> dict:
         x, y = lm_data(4 * BATCH, 64, SEED + 18)
         wf = make_lm(x, y, 4 * BATCH, BATCH, layers=LSTM_LAYERS)
         wf.export_forward(lstm)  # its weights the seed's
+        KEPT["lstm"] = shutil.copy(lstm, keep_dir())
         del wf
         manifest, params = read_bundle(path)
         qman, qparams, info = qz.quantize_bundle(manifest, params)
@@ -8097,6 +8118,421 @@ def fleet_pass(card: str, decode_lm: str, build_s: float) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 20: disaggregated decode — prefill and decode pools over private
+# paged caches, the page handoff through pinned staging, the host-DRAM
+# spill tier, PoolAutoscaler
+# ----------------------------------------------------------------------
+#: the pools: two of each at start, four at most (the caches the model
+#: plans beside its own); the autoscaler repairs only (its thresholds out
+#: of reach), so the interference arm keeps its pool sizes
+DISAGG_POOLS = {"prefill_replicas": 2, "decode_replicas": 2,
+                "max_prefill_replicas": 4, "max_decode_replicas": 4,
+                "handoff_retry_budget": 3, "max_queue_tokens": 10 ** 7,
+                "autoscale": True, "queue_age_up_s": 1e9,
+                "idle_down_s": 1e9}
+#: the interference arm: DISAGG_LANES lanes decode DISAGG_NEW tokens from
+#: DISAGG_PROMPT-token prompts while DISAGG_BURST prompts of the longest
+#: length land once a quarter of the lanes' tokens are out (one new token
+#: each, as the reference's benchmark: the burst adds prefill work only);
+#: a round is a pass without the burst and one with it, for each engine
+#: in turns
+DISAGG_LANES, DISAGG_PROMPT, DISAGG_NEW = 8, 64, 512
+DISAGG_BURST, DISAGG_ROUNDS = 16, 3
+#: the spill arm: SPILL_FAMILIES system prompts of SPILL_PREFIX tokens,
+#: each served twice with a SPILL_TAIL-token tail and SPILL_NEW new
+#: tokens, one request at a time, through pools of SPILL_POOL tokens (a
+#: quarter of the families' pages) with SPILL_FRAMES host frames behind
+#: each prefill worker's trie, against pools at their default size
+SPILL_FAMILIES, SPILL_PREFIX, SPILL_TAIL, SPILL_NEW = 32, 256, 32, 16
+SPILL_POOL, SPILL_FRAMES = 2048, 2048
+#: the chaos arm's dropped handoffs (arrival numbers at the site)
+DROP_AT = (2, 5, 9)
+#: page copies timed a measurement (the 1024-token prompt's 64 pages)
+COPY_PAGES, COPY_REPEATS = 64, 10
+
+
+def parted_at_ties(label: str, path: str, got, want, prompts, geometry,
+                   kwargs) -> int:
+    """Two runs' greedy tokens on the same prompts: where a pair parts,
+    the CPU's top-two logit margin there must be under ``TIE_TOL``.
+    Returns how many pairs parted at such a tie."""
+    ties = 0
+    for p, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        i = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        margin = cpu_margin(path, p, w[:i], geometry, kwargs)
+        say(f"  {label}: a {len(p)}-token prompt parts at token {i} "
+            f"({g[i:i + 3]} against {w[i:i + 3]}), the CPU's top-two "
+            f"margin there {margin:.3g} (tie bound {TIE_TOL})")
+        if margin >= TIE_TOL:
+            raise AssertionError(f"{label}: greedy tokens differ with a "
+                                 f"margin of {margin}")
+        ties += 1
+    return ties
+
+
+def disagg_engine(path: str, geometry=DECODE_GEOMETRY, **kwargs):
+    from znicz_tpu_torch.serving import DisaggEngine
+    return DisaggEngine(path, **{**geometry, **DISAGG_POOLS, **kwargs})
+
+
+def expect_disagg_graphed(eng, label: str) -> None:
+    """On the card, every program of the shared model is a captured
+    graph (no eager fallback), and the pools' staging is page-locked."""
+    model = eng.model
+    st = eng.stats()
+    say(f"  {label}: {st['programs_live']} programs resident, "
+        f"{st['captures']} captured in {st['warmup_seconds']:.2f} s, "
+        f"caches {st['caches']}, pools prefill "
+        f"{st['pools']['prefill']['live']} + decode "
+        f"{st['pools']['decode']['live']}")
+    if model.device.type != "cuda" or not model.graphed \
+            or not st["captures"] == st["programs_live"] > 0:
+        raise AssertionError(f"{label}: not graphed on the card ({st})")
+    if not eng._stager.cuda or not all(r.pinned
+                                       for r in eng._stager.rings):
+        raise AssertionError(f"{label}: staging not page-locked")
+
+
+def interference_pass(eng, lanes, burst) -> tuple[float, float, list]:
+    """One pass: the lanes decode DISAGG_NEW tokens each, the burst (if
+    any) submitted once a quarter of their tokens are out.  Returns the
+    pass's per-token p99 and longest gap in ms (a few stalls of the
+    lanes' ~4,000 gaps stay under the p99), and the lanes' tokens."""
+    from znicz_tpu_torch.observe import metrics
+    eng._token_win.clear()
+    futs = [eng.submit(p, max_new_tokens=DISAGG_NEW) for p in lanes]
+    bf = []
+    if burst:
+        mark = len(lanes) * DISAGG_NEW // 4
+        deadline = time.monotonic() + 120
+        while len(eng._token_win) < mark and time.monotonic() < deadline:
+            time.sleep(0.001)
+        bf = [eng.submit(b, max_new_tokens=1) for b in burst]
+    outs = [[int(t) for t in f.result(timeout=600)] for f in futs]
+    for f in bf:
+        f.result(timeout=600)
+    return (1e3 * metrics.window_p99(eng._token_win),
+            1e3 * max(eng._token_win), outs)
+
+
+def spill_arm(path: str, prompts, kwargs) -> tuple[list, dict]:
+    """The spill arm's requests one at a time through a disaggregated
+    engine with one prefill worker (one trie sees every prompt)."""
+    with disagg_engine(path, prefill_replicas=1, decode_replicas=1,
+                       max_new_tokens=SPILL_NEW, **kwargs) as eng:
+        outs = [[int(t) for t in eng.generate(p, timeout=600)]
+                for p in prompts]
+        st = eng.stats()
+        tier = eng.prefill_pool.engines()[0]._spill
+        if tier is not None and not tier.pinned:
+            raise AssertionError("the host tier's frames are not "
+                                 "page-locked")
+        pool_pages = eng.model.cache.pool_pages
+        if not eng.balanced():
+            raise AssertionError("spill arm: the token budget is "
+                                 "unbalanced")
+    pc = st["prefix_cache"]
+    pc["pool_pages"] = pool_pages
+    pc["hit_rate"] = pc["hits"] / max(1, pc["hits"] + pc["misses"])
+    return outs, pc
+
+
+def copy_costs(eng, card: str) -> dict:
+    """(f): the handoff's and the restore's copies, timed on the host
+    clock around synchronized work: the export of a 1024-token prompt's
+    pages (one gather and one fenced copy a pool), their landing one page
+    at a time (the staging ring's upload, then the ``page_in`` replay),
+    a spill (one page exported into a host frame) and a restore (a frame
+    through the ring and ``page_in``)."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.memory import HostPageTier
+    model = eng.model
+    cache = model.make_cache()
+    tier = HostPageTier(model.page_shapes(), COPY_PAGES,
+                        targets=model.page_stage)
+    try:
+        pids = [cache.alloc_page() for _ in range(COPY_PAGES)]
+        page_bytes = sum(int(np.prod(s)) * np.dtype(d).itemsize
+                         for s, d in model.page_shapes())
+
+        def per_page(fn, pages_a_call: int) -> float:
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COPY_REPEATS):
+                fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / (COPY_REPEATS
+                                                       * pages_a_call)
+
+        held: list = []
+
+        def export():
+            held[:] = model.export_pages(pids, cache=cache)
+
+        def land():
+            for pid, page in zip(pids, held):
+                with model.dispatch_lock:
+                    staged = eng._stager.upload(page)
+                    model.page_in(staged, pid, cache=cache)
+
+        def spill():
+            for pid in pids:
+                hid = tier.store(model.export_page(pid, cache=cache))
+                tier.free(hid)
+
+        out = {"page_bytes": page_bytes,
+               "export_ms": per_page(export, COPY_PAGES),
+               "land_ms": per_page(land, COPY_PAGES),
+               "spill_ms": per_page(spill, COPY_PAGES)}
+        hids = [tier.store(p) for p in held]
+
+        def restore():
+            for pid, hid in zip(pids, hids):
+                with model.dispatch_lock:
+                    model.page_in(tier.upload(hid), pid, cache=cache)
+
+        out["restore_ms"] = per_page(restore, COPY_PAGES)
+        # the landed pages hold what was exported, bit for bit
+        back = model.export_pages(pids, cache=cache)
+        for a, b in zip(back, held):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError("a page landed through the staging "
+                                     "ring differs from its export")
+    finally:
+        tier.shutdown()
+        model.release_cache(cache)
+    handoff_ms = out["export_ms"] + out["land_ms"]
+    shapes = " + ".join(f"{'×'.join(map(str, s))} {np.dtype(d).name}"
+                        for s, d in model.page_shapes())
+    say(f"  (f) copies on {card}, {out['page_bytes']} B a page ({shapes}): "
+        f"handoff {handoff_ms:.4f} ms a "
+        f"page (export {out['export_ms']:.4f}, batched over "
+        f"{COPY_PAGES}; landing {out['land_ms']:.4f}, a page at a time), "
+        f"{out['page_bytes'] / handoff_ms / 1e6:.3f} GB/s; spill "
+        f"{out['spill_ms']:.4f} ms a page; restore "
+        f"{out['restore_ms']:.4f} ms a page "
+        f"({out['page_bytes'] / out['restore_ms'] / 1e6:.3f} GB/s)")
+    return out
+
+
+def disagg_pass(card: str, path: str, lstm: str) -> dict:
+    """Phase 20 on phase 15's decode LM at its full width and geometry
+    (16 lanes, max_t 2048, prompts to 1024, 16-token pages) through
+    ``DisaggEngine``: 2 prefill and 2 decode workers over private caches,
+    at most 4 of each.  (a) greedy tokens equal to the fused engine's on
+    the card and to the CPU engine's (ties within ``TIE_TOL``), prefix
+    sharing and copy on write in the prefill workers, the LSTM chain's
+    carry handoff; (b) a scale-up from 2 to 4 decode workers and the
+    repair of a killed one by ``PoolAutoscaler`` capture nothing; (c) the
+    interference arm, fused against disagg in turns (a finding, not a
+    gate); (d) the spill arm; (e) dropped handoffs retried, the budget
+    balanced; (f) the copies' costs.  Decode runs none of B1–B9."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils.config import root
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    cpu_prompts = [[int(t) for t in rng.integers(0, LM_VOCAB, size=n)]
+                   for n in CPU_LENGTHS]
+    system = [int(t) for t in rng.integers(0, LM_VOCAB,
+                                           size=PREFIX_SYSTEM)]
+    half = PREFIX_SYSTEM // 2
+    prefix_prompts = [system + [int(t) for t in rng.integers(
+        0, LM_VOCAB, size=n)] for n in PREFIX_TAILS] \
+        + [system[:half] + [1, 2, 3], system[:half + 7] + [9] * 30]
+    rng = np.random.default_rng(SEED + 20)
+    fused = decode_engine(path, max_queue_tokens=10 ** 7)
+    fused.start()
+    eng = disagg_engine(path)
+    eng.start()
+    try:
+        expect_disagg_graphed(eng, "disagg")
+        # (a) the tokens
+        ta = time.perf_counter()
+        ties = {}
+        got = generate_all(eng, cpu_prompts, CPU_NEW)
+        want = generate_all(fused, cpu_prompts, CPU_NEW)
+        ties["disagg = fused"] = parted_at_ties(
+            "disagg against fused", path, got, want, cpu_prompts,
+            DECODE_GEOMETRY, {})
+        ties["disagg = CPU"] = tokens_vs_cpu(
+            "disagg", path, eng, cpu_prompts, CPU_NEW, DECODE_GEOMETRY, {})
+        ties["prefix sharing"] = tokens_vs_cpu(
+            "disagg + prefix sharing", path, eng, prefix_prompts, CPU_NEW,
+            DECODE_GEOMETRY, {})
+        pc = eng.stats()["prefix_cache"]
+        if not pc["hits"]:
+            raise AssertionError(f"no prefix hit in the prefill pool: {pc}")
+        lstm_rng = np.random.default_rng(SEED + 23)
+        lstm_prompts = [[int(t) for t in lstm_rng.integers(0, LM_VOCAB,
+                                                           size=n)]
+                        for n in LSTM_CPU_LENGTHS[::2]]
+        with disagg_engine(lstm, LSTM_DECODE_GEOMETRY) as leng:
+            expect_disagg_graphed(leng, "disagg LSTM")
+            if "carry-in" not in leng.model._programs["carry-in"]:
+                raise AssertionError("the LSTM chain's carry_in program "
+                                     "was not captured")
+            ties["LSTM"] = tokens_vs_cpu(
+                "disagg LSTM (carry handoff)", lstm, leng, lstm_prompts,
+                CPU_NEW, LSTM_DECODE_GEOMETRY, {})
+            lst = leng.stats()
+            if not lst["handoffs"]["total"] or not leng.balanced():
+                raise AssertionError(f"LSTM handoffs: {lst['handoffs']}")
+        say(f"  (a) took {time.perf_counter() - ta:.1f} s; sequences "
+            f"ended at a tie: {ties}; prefix hits {pc['hits']} of "
+            f"{pc['hits'] + pc['misses']}")
+        # (b) scale-up and repair capture nothing
+        tb = time.perf_counter()
+        caps, model_caps = capture_metric(), eng.model.captures
+        eng.decode_pool.scale_to(4, "scale-up")
+        if eng.decode_pool.live() != 4:
+            raise AssertionError("the decode pool did not grow to 4")
+        eng.decode_pool.kill_one()
+        deadline = time.monotonic() + 60
+        while eng.decode_pool.live() < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        repaired_s = time.perf_counter() - tb
+        again = generate_all(eng, cpu_prompts, CPU_NEW)
+        ties["after scale-up and repair"] = parted_at_ties(
+            "disagg after scale-up and repair", path, again, got,
+            cpu_prompts, DECODE_GEOMETRY, {})
+        new_caps = capture_metric() - caps
+        say(f"  (b) decode pool 2 → 4, one killed and repaired by "
+            f"PoolAutoscaler to {eng.decode_pool.live()} in "
+            f"{repaired_s:.2f} s: {new_caps:.0f} new captures "
+            f"(model {model_caps} → {eng.model.captures}), caches "
+            f"{eng.stats()['caches']}")
+        if eng.decode_pool.live() != 4 or new_caps \
+                or eng.model.captures != model_caps:
+            raise AssertionError("scale-up or repair captured a graph or "
+                                 "failed")
+        eng.decode_pool.scale_to(2, "back")
+        # (c) interference
+        lanes = [[int(t) for t in rng.integers(0, LM_VOCAB,
+                                               size=DISAGG_PROMPT)]
+                 for _ in range(DISAGG_LANES)]
+        burst = [[int(t) for t in rng.integers(
+            0, LM_VOCAB, size=DECODE_GEOMETRY["max_prompt"])]
+            for _ in range(DISAGG_BURST)]
+        tc = time.perf_counter()
+        arms = {"fused": fused, "disagg": eng}
+        for e in arms.values():
+            interference_pass(e, lanes, burst)  # warm
+        rows: dict = {k: [] for k in arms}
+        outs: dict = {}
+        for r in range(DISAGG_ROUNDS):
+            order = list(arms) if r % 2 == 0 else list(arms)[::-1]
+            for name in order:
+                base, base_max, o1 = interference_pass(arms[name], lanes,
+                                                       [])
+                hit, hit_max, o2 = interference_pass(arms[name], lanes,
+                                                     burst)
+                rows[name].append((base, hit, hit / base, base_max,
+                                   hit_max))
+                outs.setdefault(name, o1)
+                ties[f"{name} burst"] = ties.get(f"{name} burst", 0) \
+                    + parted_at_ties(f"{name} with the burst", path, o2,
+                                     o1, lanes, DECODE_GEOMETRY, {})
+        ties["interference disagg = fused"] = parted_at_ties(
+            "interference, disagg against fused", path, outs["disagg"],
+            outs["fused"], lanes, DECODE_GEOMETRY, {})
+        inter = {}
+        for name, rs in rows.items():
+            med = sorted(rs, key=lambda x: x[2])[len(rs) // 2]
+            inter[name] = {"base_p99_ms": med[0], "burst_p99_ms": med[1],
+                           "ratio": med[2],
+                           "pairs": [[round(a, 4), round(b, 4)]
+                                     for a, b, *_ in rs],
+                           "longest_gap_ms": [[round(a, 3), round(b, 3)]
+                                              for *_, a, b in rs]}
+        say(f"  (c) interference on {card} ({DISAGG_LANES} lanes × "
+            f"{DISAGG_NEW} tokens, a burst of {DISAGG_BURST} × "
+            f"{DECODE_GEOMETRY['max_prompt']}-token prompts, in turns, "
+            f"median of {DISAGG_ROUNDS}): per-token p99 without / with "
+            f"the burst: fused {inter['fused']['base_p99_ms']:.3f} / "
+            f"{inter['fused']['burst_p99_ms']:.3f} ms "
+            f"({inter['fused']['ratio']:.3f}×), disagg "
+            f"{inter['disagg']['base_p99_ms']:.3f} / "
+            f"{inter['disagg']['burst_p99_ms']:.3f} ms "
+            f"({inter['disagg']['ratio']:.3f}×); pairs {inter}; "
+            f"{time.perf_counter() - tc:.1f} s")
+        # (e) dropped handoffs
+        te = time.perf_counter()
+        before = eng.stats()["handoffs"]
+        root.common.engine.faults = {"disagg.handoff_drop":
+                                     {"at": list(DROP_AT)}}
+        try:
+            chaos = generate_all(eng, cpu_prompts + prefix_prompts, CPU_NEW)
+        finally:
+            root.common.engine.faults = None
+        after = eng.stats()["handoffs"]
+        dropped = after["dropped"] - before["dropped"]
+        retried = after["retried"] - before["retried"]
+        ties["chaos"] = parted_at_ties(
+            "disagg under dropped handoffs", path, chaos[:len(cpu_prompts)],
+            got, cpu_prompts, DECODE_GEOMETRY, {})
+        say(f"  (e) {dropped} handoffs dropped, {retried} retried on a "
+            f"fresh prefill, balanced() {eng.balanced()}, "
+            f"{time.perf_counter() - te:.1f} s")
+        if dropped != len(DROP_AT) or retried != dropped \
+                or not eng.balanced():
+            raise AssertionError("dropped handoffs were not retried "
+                                 "exactly once each with the budget "
+                                 "balanced")
+        # (f) the copies
+        copy_costs(eng, card)
+        st = eng.stats()
+        phase_p99 = {p: round(1e3 * metrics.window_p99(w), 4)
+                     for p, w in eng._phase_win.items()}
+        say(f"  disagg: {st['handoffs']}; phase p99 ms {phase_p99}; "
+            f"TTFT {st['ttft_ms']}; token {st['token_ms']}")
+    finally:
+        eng.shutdown()
+        fused.shutdown()
+    # (d) the spill arm
+    td = time.perf_counter()
+    families = [[int(t) for t in rng.integers(0, LM_VOCAB,
+                                              size=SPILL_PREFIX)]
+                for _ in range(SPILL_FAMILIES)]
+    spill_prompts = [f + [int(t) for t in rng.integers(0, LM_VOCAB,
+                                                       size=SPILL_TAIL)]
+                     for _ in range(2) for f in families]
+    all_outs, all_pc = spill_arm(path, spill_prompts, {})
+    sp_outs, sp_pc = spill_arm(path, spill_prompts,
+                               {"pool_tokens": SPILL_POOL,
+                                "spill_pages": SPILL_FRAMES})
+    working = SPILL_FAMILIES * SPILL_PREFIX // DECODE_GEOMETRY["page_tokens"]
+    ratio = working / sp_pc["pool_pages"]
+    ties["spill"] = parted_at_ties("spill arm against the all-device pool",
+                                   path, sp_outs, all_outs, spill_prompts,
+                                   DECODE_GEOMETRY, {})
+    say(f"  (d) spill arm: {working} family pages over a {sp_pc['pool_pages']}"
+        f"-page pool ({ratio:.1f}×), {SPILL_FRAMES} host frames: hit rate "
+        f"{sp_pc['hit_rate']:.4f} against {all_pc['hit_rate']:.4f} on an "
+        f"all-device pool; migrations {sp_pc['migrations']}; "
+        f"{time.perf_counter() - td:.1f} s")
+    if ratio < 4 or not sp_pc["migrations"]["restore"] \
+            or sp_pc["hit_rate"] < 0.9 * all_pc["hit_rate"]:
+        raise AssertionError(f"spill arm: {sp_pc} against {all_pc}")
+    launches = read_counts()
+    expect_counts("disagg", launches, {})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"  sequences ended at a tie, by arm: {ties}")
+    say(f"  phase 20 on {card}: peak device memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8326,6 +8762,13 @@ def main() -> int:
     t19 = time.perf_counter()
     paths["fleet"] = fleet_pass(smi, KEPT["decode_lm"], build_s)
     say(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    say("phase 20: disaggregated decode — prefill and decode pools over "
+        "private paged caches, the page handoff through pinned staging, "
+        "the host-DRAM spill tier, PoolAutoscaler")
+    t20 = time.perf_counter()
+    paths["disagg"] = disagg_pass(smi, KEPT["decode_lm"], KEPT["lstm"])
+    say(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

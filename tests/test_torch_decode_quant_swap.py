@@ -479,9 +479,16 @@ def test_decode_fault_sites_in_the_dispatch(bundles):
 
 
 def test_spill_tier_is_refused_naming_its_owner(bundles):
-    with pytest.raises(NotImplementedError, match="A12"):
-        engine(bundles["b"], max_slots=2, max_t=32, max_prompt=8,
-               spill_pages=4)
+    """``spill_pages`` and ``engine.kv_spill_pages`` build a host-DRAM tier
+    of that many frames behind the prefix cache."""
+    eng = engine(bundles["b"], max_slots=2, max_t=32, max_prompt=8,
+                 spill_pages=4)
+    assert eng._spill.capacity == 4 and eng._spill.used == 0
+    assert eng.stats()["prefix_cache"]["spill_capacity"] == 4
+    eng._spill.shutdown()
     root.common.engine.kv_spill_pages = 2
-    with pytest.raises(NotImplementedError, match="spill tier"):
-        engine(bundles["b"], max_slots=2, max_t=32, max_prompt=8)
+    eng = engine(bundles["b"], max_slots=2, max_t=32, max_prompt=8)
+    assert eng._spill.capacity == 2
+    assert [f.shape for f in eng._spill._frames] == [
+        (2,) + shape for shape, _dtype in eng.model.page_shapes()]
+    eng._spill.shutdown()

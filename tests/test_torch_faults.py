@@ -42,9 +42,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent / "znicz_tpu_torch"
 
 #: the sites whose modules the port has not ported yet, by the ROADMAP
 #: item that owns each (ROADMAP.md, queue A)
-UNFIRED = {
-    "disagg.handoff_drop": "A12b", "fleet.model_corrupt": "A13",
-}
+UNFIRED = {"fleet.model_corrupt": "A13"}
 
 
 @pytest.fixture(autouse=True)
@@ -180,8 +178,9 @@ def test_every_ported_site_has_a_live_fire_call():
         "checkpoint.signal_corrupt": {"supervisor.py"},
         "fleet.tenant_flood": {"fleet.py"},
         "fleet.replica_loss": {"fleet.py"},
-        "aotcache.corrupt": {"aot_cache.py"}}
-    assert set(UNFIRED.values()) <= {"A12b", "A13"}
+        "aotcache.corrupt": {"aot_cache.py"},
+        "disagg.handoff_drop": {"disagg.py"}}
+    assert set(UNFIRED.values()) <= {"A13"}
 
 
 @pytest.mark.parametrize("site", sorted(faults.SITES))

@@ -24,7 +24,10 @@ The streaming data plane's delivery keeps that rule too:
 :meth:`Vector.accept_device` copies a batch already on the device into
 the Vector's tensor (the reference swaps the pointer, which a replay
 would refuse), and :class:`StagingRing` is the bounded pool of host
-buffers (pinned on the card) its readers fill.
+buffers (pinned on the card) its readers fill.  The serving plane's KV
+pages travel the same way: :class:`PageStager` (pinned rings, one
+uploader thread, fixed device targets a captured ``page_in`` reads) and
+:class:`HostPageTier` (the host-DRAM frames behind a prefix trie).
 
 On a host-only device (the numpy oracle,
 :class:`~znicz_tpu_torch.backends.NumpyDevice`) the host array is the
@@ -379,3 +382,204 @@ class StagingRing:
 
     def release(self, slot: int) -> None:
         self._free.put(slot)
+
+
+class PageStager:
+    """Page-locked staging rings and one uploader thread for the KV-page
+    host→device traffic of the serving plane (port of the reference's
+    ``PageStager``): a spill restore bringing a cold prefix block back to
+    a device page, or a prefill→decode handoff landing a prompt's pages
+    in the decode pool's cache.
+
+    One :class:`StagingRing` a page pool (K and V share the page shape;
+    int8 pages add their f32 scale pools), so a staged page is a *set*
+    of buffers travelling together.  :meth:`upload` copies the set into
+    a slot of each ring, and the uploader thread copies the slots on its
+    side stream into the fixed device ``targets`` (the tensors a captured
+    ``page_in`` program reads), records an event, and releases the slots
+    once that event completed.  The caller's stream waits on the event
+    before :meth:`upload` returns the targets, so a replay enqueued after
+    it reads the new page.  The side stream first waits on an event of
+    the caller's stream, so a copy never overwrites the targets while an
+    earlier consumer still reads them.  The targets are shared by every
+    upload: a caller holds its consumer's lock (the model's dispatch
+    lock) from :meth:`upload` through the dispatch that reads them.
+    The ring bound is the back-pressure: a stalled uploader blocks
+    :meth:`upload` at ``acquire``, and the host memory stays
+    ``n_slots × page bytes``.  On the CPU the same threads copy into CPU
+    tensors, with no stream and no event."""
+
+    def __init__(self, shapes_dtypes: list[tuple[tuple, object]],
+                 n_slots: int = 2, device=None,
+                 targets: list | None = None) -> None:
+        import threading
+        if device is None:
+            device = targets[0].device if targets else "cpu"
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._rings = [StagingRing(n_slots, tuple(shape), dtype,
+                                   pin=self.cuda)
+                       for shape, dtype in shapes_dtypes]
+        if targets is None:
+            targets = [torch.empty(tuple(shape),
+                                   dtype=ring.tensor(0).dtype,
+                                   device=self.device)
+                       for (shape, _d), ring in zip(shapes_dtypes,
+                                                    self._rings)]
+        if [tuple(t.shape) for t in targets] \
+                != [tuple(s) for s, _d in shapes_dtypes]:
+            raise ValueError("staging targets do not match the page "
+                             "shapes")
+        self.targets = list(targets)
+        self._side = torch.cuda.Stream(self.device) if self.cuda else None
+        self._work: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._upload_loop, name="page-uploader", daemon=True)
+        self._thread.start()
+
+    @property
+    def nbytes(self) -> int:
+        """Page-locked host bytes of the rings."""
+        return sum(r.nbytes for r in self._rings)
+
+    @property
+    def rings(self) -> list:
+        return list(self._rings)
+
+    def _upload_loop(self) -> None:
+        while True:
+            item = self._work.get()
+            if item is None:
+                return
+            slots, ready, fut = item
+            try:
+                done = None
+                pairs = list(zip(self._rings, slots, self.targets))
+                if self.cuda:
+                    with torch.cuda.stream(self._side):
+                        self._side.wait_event(ready)
+                        for ring, slot, dst in pairs:
+                            dst.copy_(ring.tensor(slot), non_blocking=True)
+                        done = self._side.record_event()
+                    # the slots are reusable once their copies landed
+                    done.synchronize()
+                else:
+                    for ring, slot, dst in pairs:
+                        dst.copy_(ring.tensor(slot))
+                fut.set_result(done)
+            except Exception as exc:  # noqa: BLE001 — the caller's error
+                fut.set_exception(exc)
+            finally:
+                for ring, slot in zip(self._rings, slots):
+                    ring.release(slot)
+
+    def upload(self, pages: list, timeout: float = 30.0) -> list:
+        """Stage one page set and return the device targets holding it,
+        the caller's stream ordered after the copy."""
+        from concurrent.futures import Future
+        if self._closed:
+            raise RuntimeError("page stager shut down")
+        if len(pages) != len(self._rings):
+            raise ValueError(f"page set has {len(pages)} arrays, "
+                             f"stager expects {len(self._rings)}")
+        slots: list[int] = []
+        for ring, page in zip(self._rings, pages):
+            slot = ring.acquire(timeout=timeout)
+            if slot is None:
+                for r, s in zip(self._rings, slots):
+                    r.release(s)
+                raise TimeoutError(
+                    f"page staging ring full — uploader stalled past "
+                    f"{timeout}s")
+            np.copyto(ring.buffer(slot), np.asarray(page))
+            slots.append(slot)
+        ready = (torch.cuda.current_stream(self.device).record_event()
+                 if self.cuda else None)
+        fut: Future = Future()
+        self._work.put((slots, ready, fut))
+        done = fut.result(timeout=timeout)
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+        if _metrics.enabled():
+            _metrics.transfer_bytes("h2d").inc(
+                sum(int(np.asarray(p).nbytes) for p in pages))
+        return self.targets
+
+    def shutdown(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._work.put(None)
+        self._thread.join(timeout=5.0)
+
+
+class HostPageTier:
+    """The host-DRAM tier for cold KV pages (port of the reference's
+    ``HostPageTier``): the capacity under the device page pool that lets
+    a prefix working set outgrow ``pool_pages``.
+
+    Frames are allocated once, page-locked on the card (one
+    ``(capacity, *page shape)`` block a page pool), so the steady state
+    allocates nothing.  The free list hands out frame ids with the page
+    pool's exactly-once discipline: a frame is held by at most one trie
+    node, and a spilled block lives in exactly one tier (a device page
+    or a host frame).  Restores travel through the tier's
+    :class:`PageStager` into ``targets``."""
+
+    def __init__(self, shapes_dtypes: list[tuple[tuple, object]],
+                 capacity_pages: int, targets: list | None = None) -> None:
+        self.capacity = int(capacity_pages)
+        if self.capacity < 1:
+            raise ValueError(
+                f"host tier needs >= 1 page, got {capacity_pages}")
+        self.stager = PageStager(shapes_dtypes, targets=targets)
+        frames = [host_buffer((self.capacity,) + tuple(shape), dtype,
+                              self.stager.cuda)
+                  for shape, dtype in shapes_dtypes]
+        self._tensors = [t for t, _ in frames]
+        self._frames = [f for _, f in frames]
+        self._free = list(range(self.capacity - 1, -1, -1))
+
+    @property
+    def used(self) -> int:
+        return self.capacity - len(self._free)
+
+    @property
+    def full(self) -> bool:
+        return not self._free
+
+    @property
+    def pinned(self) -> bool:
+        return self.stager.cuda
+
+    @property
+    def nbytes(self) -> int:
+        return sum(f.nbytes for f in self._frames)
+
+    def store(self, pages: list) -> int | None:
+        """Land one exported page set in a free frame; None when the
+        tier is full (the caller falls back to eviction)."""
+        if not self._free:
+            return None
+        hid = self._free.pop()
+        for frame, page in zip(self._frames, pages):
+            np.copyto(frame[hid], np.asarray(page))
+        if _metrics.enabled():
+            _metrics.transfer_bytes("d2h").inc(
+                sum(int(np.asarray(p).nbytes) for p in pages))
+        return hid
+
+    def read(self, hid: int) -> list[np.ndarray]:
+        return [frame[hid] for frame in self._frames]
+
+    def upload(self, hid: int) -> list:
+        """The device targets holding frame ``hid`` (the restore's
+        host→device half), through the staging ring."""
+        return self.stager.upload(self.read(hid))
+
+    def free(self, hid: int) -> None:
+        self._free.append(hid)
+
+    def shutdown(self) -> None:
+        self.stager.shutdown()

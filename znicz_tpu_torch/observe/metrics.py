@@ -539,8 +539,11 @@ def serving_breaker_transitions(engine: str, to: str) -> Counter:
 
 def serving_queue_age_seconds(engine: str, pool: str = "all") -> Gauge:
     """Age of the oldest pending request (live callback gauge) — the
-    breaker's stall signal.  The one-shot engine is a single queue and
-    writes the ``all`` child, the same series the reference scrapes."""
+    breaker's stall signal and the autoscalers' scale-up trigger.  A
+    single-queue engine writes the ``all`` child, the same series the
+    reference scrapes; the disaggregated engine writes ``prefill`` (the
+    shared prompt queue's head) and ``decode`` (the oldest handoff no
+    decode replica accepted yet), so each pool scales on its own."""
     return REGISTRY.gauge(
         "znicz_serving_queue_age_seconds",
         "Age of the oldest request pending in the serving queue",
@@ -708,14 +711,27 @@ def kv_bytes_per_lane(engine: str) -> Gauge:
 
 
 def kv_page_migrations(engine: str, direction: str) -> Counter:
-    """KV pages moved between tiers or pools by direction (``spill``,
-    ``restore``, ``handoff``).  The port has neither a second tier nor a
-    pool handoff yet (ROADMAP A12b), so nothing writes it."""
+    """KV pages moved between tiers or pools by direction: ``spill`` (a
+    cold prefix block demoted from the device pool to the host-DRAM tier
+    under pool pressure), ``restore`` (a spilled block matched again and
+    brought back through the staging ring), ``handoff`` (one count a
+    page a prefill→decode transfer carries).  Spills rising at a flat
+    hit rate mean the working set outgrew the pool and the tier absorbs
+    it; restores outpacing spills mean thrash (the tier is too small)."""
     return REGISTRY.counter(
         "znicz_kv_page_migrations_total",
         "KV pages moved between cache tiers / serving pools",
         labels=("engine", "direction")).labels(engine=engine,
                                                direction=direction)
+
+
+def kv_spill_pages(engine: str) -> Gauge:
+    """Pages resident in the host-DRAM spill tier (a live callback
+    gauge); with ``znicz_kv_pages_used``, the two tiers' residency."""
+    return REGISTRY.gauge(
+        "znicz_kv_spill_pages",
+        "KV pages resident in the host-DRAM spill tier",
+        labels=("engine",)).labels(engine=engine)
 
 
 def prefix_cache_events(engine: str, event: str) -> Counter:

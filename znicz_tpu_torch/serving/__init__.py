@@ -1,8 +1,9 @@
 """Serving: the bucket ladder, the continuous batcher, the one-shot engine
 over them, int8 weight quantization, decode (KV caches, the
-prefill/decode programs and the token-batching engine), the fleet of
-many models under per-tenant SLOs and the kernel-library store (port of
-``znicz_tpu/serving``)."""
+prefill/decode programs and the token-batching engine), disaggregated
+decode (prefill and decode pools joined by page handoffs), the fleet of
+many models under per-tenant SLOs with the autoscalers, and the
+kernel-library store (port of ``znicz_tpu/serving``)."""
 
 from znicz_tpu_torch.serving.batcher import (  # noqa: F401
     ContinuousBatcher, DeadlineExceeded, Overloaded, PriorityQueue,
@@ -14,5 +15,7 @@ from znicz_tpu_torch.serving.decode import (  # noqa: F401
     DecodeEngine, DecodeModel, KVCache, PagedKVCache, PoolExhausted,
     PrefixCache)
 from znicz_tpu_torch.serving.fleet import (  # noqa: F401
-    FleetAutoscaler, FleetEngine, ReplicaGroup, SharedLadderBudget,
-    TenantClass)
+    FleetAutoscaler, FleetEngine, PoolAutoscaler, ReplicaGroup,
+    SharedLadderBudget, TenantClass)
+from znicz_tpu_torch.serving.disagg import (  # noqa: F401
+    DisaggEngine, Handoff)

@@ -412,9 +412,9 @@ class ContinuousBatcher(Logger):
                          if obs_id else None)
         if self._m_state is not None:
             self._m_state.set(_STATE_CODE[_CLOSED])
-            # pool="all": the one-shot batcher is a single queue —
-            # the per-pool children (prefill/decode) belong to the
-            # disaggregated engine (ROADMAP A12b)
+            # pool="all": the one-shot batcher is a single queue;
+            # its per-pool siblings, pool="prefill" and pool="decode",
+            # are the disaggregated engine's (serving/disagg.py)
             _metrics.serving_queue_age_seconds(
                 obs_id, pool="all").set_function(self.oldest_age_s)
         self._pending = PriorityQueue()

@@ -19,17 +19,29 @@ from these pieces:
    pool; every program writes them in place (``index_put_``,
    ``index_copy_``).  Page tables, refcounts and free lists stay numpy
    on the host.
+   A model may plan more caches than its own (``n_caches``, the pools of
+   :class:`~znicz_tpu_torch.serving.disagg.DisaggEngine`): they are
+   partitions of one arena, the same device arrays with each cache's
+   pages and slots at its own offsets, so one set of programs serves
+   every cache and :meth:`DecodeModel.make_cache` captures nothing.
 2. **Prefix sharing.**  :class:`PrefixCache`, a radix trie over
    block-aligned prompt prefixes: a request with a cached prefix shares
    its full pages by reference, copies a partly matched boundary page
    before its divergent tail lands (copy on write), and prefills only
-   the tail.  A weight swap clears it.
-3. **Programs.**  :class:`DecodeModel` plans the chain and owns six
+   the tail.  A weight swap clears it.  Behind it, optionally, a
+   host-DRAM tier (:class:`~znicz_tpu_torch.memory.HostPageTier`): under
+   pool pressure a cold block spills to a page-locked host frame and
+   stays matchable, and a match restores it through the staging ring
+   and the ``page_in`` program.
+3. **Programs.**  :class:`DecodeModel` plans the chain and owns eight
    program families: prefill (keyed by the prompt bucket), decode (the
    live-batch bucket), paged prefill (prompt bucket, block bucket),
    paged decode (batch bucket, block bucket), the window that verifies
    speculative drafts and admits a wave of prefix-hit tails (batch
-   bucket, window length, block bucket), and the page copy.  On the card
+   bucket, window length, block bucket), the page copy, and the page
+   and carry writes (``page_in``, ``carry_in``: one staged page set into
+   a page, one slot's LSTM carry rows into a slot) that land a spill
+   restore or a prefill→decode handoff.  On the card
    each program is one CUDA graph, captured at :meth:`DecodeModel.warmup`
    (``DecodeEngine.start()`` calls it), or on a key's first use past the
    warmed grid, after an eager warm-up on a side stream whose inputs
@@ -37,9 +49,11 @@ from these pieces:
    inputs (tokens, slots, positions, tables, starts, lengths) are views
    of one int32 device buffer that the host fills with one copy before a
    replay.  The graphs of one model share one memory pool, so each
-   dispatch copies its logits to the host before the next.  A replay
-   refuses when a cache, a weight or the encoding table it was captured
-   over has been rebound to another tensor.  A failed capture raises,
+   dispatch copies its logits to the host before the next, under the
+   model's dispatch lock (the disaggregated pools dispatch from several
+   threads).  A replay refuses when a cache, a weight, a staging tensor
+   or the encoding table it was captured over has been rebound to
+   another tensor.  A failed capture raises,
    naming the program; there is no eager fallback and no switch.  The
    CPU runs the same bodies eagerly (:attr:`DecodeModel.graphed`).
    Nothing in a body reads a device value on the host: every index that
@@ -62,10 +76,8 @@ from these pieces:
    classes, traces each request's queue, prefill and decode phases, and
    hot-swaps its weights after draining the lanes of the old ones.
 
-Left out, each with its owner in ROADMAP.md: the host-DRAM spill tier
-behind the prefix cache and page and carry I/O with pool replication
-(A12b).  The reference's persisted decode programs have no counterpart:
-they are CUDA graphs here, captured at ``start()`` (the port's store,
+The reference's persisted decode programs have no counterpart: they
+are CUDA graphs here, captured at ``start()`` (the port's store,
 :mod:`~znicz_tpu_torch.serving.aot_cache`, holds the kernel
 libraries).
 """
@@ -121,6 +133,10 @@ def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 class _Op:
@@ -194,11 +210,21 @@ class PagedKVCache:
     shared page (``ref > 1`` or pinned) is never written: a sequence
     writes at its append position, past every shared full block, and the
     boundary block of a partial prefix match is copied before its tail
-    lands.  All mutation happens on the scheduler thread."""
+    lands.  All mutation happens on the scheduler thread.
+
+    The cache may be one of ``n_caches`` partitions of an arena: the
+    arena's arrays hold ``n_caches · pool_pages`` pages and
+    ``n_caches · max_slots`` slots and one trash page and slot, and
+    partition ``index`` owns the pages from ``page_base`` and the slots
+    from ``slot_base``.  Its host bookkeeping is its own and counts from
+    0, as a lone cache's does; :meth:`dev_pages` and :meth:`dev_slots`
+    turn its ids into the arena's for a program's operands.  Partitions
+    share one list of arrays, so a rebinding shows in every one."""
 
     def __init__(self, specs: list[tuple], max_slots: int, page_tokens: int,
                  max_blocks: int, pool_pages: int, dtype=torch.float32,
-                 device="cpu") -> None:
+                 device="cpu", n_caches: int = 1, index: int = 0,
+                 arena: "PagedKVCache | None" = None) -> None:
         # specs: (name, kind, shape) or (name, kind, shape, dtype)
         self.max_slots = int(max_slots)
         self.trash_slot = self.max_slots
@@ -207,17 +233,30 @@ class PagedKVCache:
         self.pool_pages = int(pool_pages)
         self.trash_page = self.pool_pages
         self.specs = list(specs)
-        arrays = []
-        for spec in specs:
-            kind, shape = spec[1], spec[2]
-            sdtype = _torch_dtype(spec[3] if len(spec) > 3 else dtype)
-            if kind == "page":
-                lead = (self.pool_pages + 1, self.page_tokens)
-            else:  # slot-indexed (LSTM carries)
-                lead = (self.max_slots + 1,)
-            arrays.append(torch.zeros(lead + tuple(shape), dtype=sdtype,
-                                      device=device))
-        self.arrays: list = arrays
+        self.n_caches = int(n_caches)
+        self.index = int(index)
+        if not 0 <= self.index < self.n_caches:
+            raise ValueError(f"cache {index} outside an arena of "
+                             f"{n_caches}")
+        self.page_base = self.index * self.pool_pages
+        self.slot_base = self.index * self.max_slots
+        #: the arena's trash page and scratch slot
+        self.dev_trash_page = self.n_caches * self.pool_pages
+        self.dev_trash_slot = self.n_caches * self.max_slots
+        if arena is not None:
+            self.arrays: list = arena.arrays
+        else:
+            arrays = []
+            for spec in specs:
+                kind, shape = spec[1], spec[2]
+                sdtype = _torch_dtype(spec[3] if len(spec) > 3 else dtype)
+                if kind == "page":
+                    lead = (self.dev_trash_page + 1, self.page_tokens)
+                else:  # slot-indexed (LSTM carries)
+                    lead = (self.dev_trash_slot + 1,)
+                arrays.append(torch.zeros(lead + tuple(shape),
+                                          dtype=sdtype, device=device))
+            self.arrays = arrays
         #: indices of the page pools: what a copy on write copies
         self.pool_indices = tuple(i for i, s in enumerate(specs)
                                   if s[1] == "page")
@@ -309,8 +348,31 @@ class PagedKVCache:
     def trash_operand(self, nb: int) -> np.ndarray:
         return np.full(nb + 1, self.trash_page, np.int32)
 
+    def partition(self, index: int) -> "PagedKVCache":
+        """Fresh bookkeeping over partition ``index`` of this cache's
+        arena (no device memory is allocated)."""
+        return PagedKVCache(self.specs, self.max_slots, self.page_tokens,
+                            self.max_blocks, self.pool_pages,
+                            n_caches=self.n_caches, index=index, arena=self)
+
+    def dev_pages(self, ids) -> np.ndarray:
+        """Page ids of this cache (the trash page included) as the
+        arena's."""
+        ids = np.asarray(ids, np.int32)
+        return np.where(ids == self.trash_page, self.dev_trash_page,
+                        ids + self.page_base).astype(np.int32)
+
+    def dev_slots(self, slots) -> np.ndarray:
+        """Slot ids of this cache (the scratch slot included) as the
+        arena's."""
+        slots = np.asarray(slots, np.int32)
+        return np.where(slots == self.trash_slot, self.dev_trash_slot,
+                        slots + self.slot_base).astype(np.int32)
+
     def nbytes(self) -> int:
-        return int(sum(a.numel() * a.element_size() for a in self.arrays))
+        """This cache's share of the arena's device bytes."""
+        return int(sum(a.numel() * a.element_size() for a in self.arrays)
+                   // self.n_caches)
 
 
 class _TrieNode:
@@ -318,8 +380,9 @@ class _TrieNode:
 
     def __init__(self, key, page, parent) -> None:
         self.key = key          # the block's token ids (bytes)
-        self.page = page        # its page id
-        self.host = None        # a host-tier frame (no tier in the port)
+        self.page = page        # its page id, or None while spilled
+        self.host = None        # its host-tier frame, or None: a block
+        #                         lives in exactly one tier
         self.children: dict = {}
         self.parent = parent
         self.last_use = 0
@@ -337,7 +400,10 @@ class PrefixCache:
     tokens, as the first sampled token needs the last position's logits.
     Every node pins its page with one reference; :meth:`evict` unpins
     LRU leaves under pool pressure and :meth:`clear` drops everything (a
-    weight swap makes every cached K/V stale)."""
+    weight swap makes every cached K/V stale).  With a host tier, a node
+    may hold a host frame instead of a page (:meth:`spill_candidate`
+    picks the block to demote); the node stays in the trie, so the block
+    still matches."""
 
     def __init__(self, page_tokens: int) -> None:
         self.page_tokens = int(page_tokens)
@@ -358,7 +424,9 @@ class PrefixCache:
         """The longest cached prefix of ``tokens`` (capped at ``n-1``):
         ``(full_block_nodes, matched_tokens, cow)``, ``cow`` being
         ``(donor_node, extra_tokens)`` for a partial boundary match
-        (``matched_tokens`` includes ``extra_tokens``) or None."""
+        (``matched_tokens`` includes ``extra_tokens``) or None.  Nodes,
+        not page ids: a matched block may be spilled (``node.page`` is
+        None), and the caller restores it before sharing."""
         n = int(tokens.shape[0])
         ptok = self.page_tokens
         node = self.root
@@ -430,10 +498,29 @@ class PrefixCache:
             stack.extend(node.children.values())
         return out
 
+    def spill_candidate(self, cache: PagedKVCache):
+        """The least recently used block on a device page that nothing
+        but the trie holds (``ref == 1``: no live sequence maps it), or
+        None.  Safe to demote: the node stays in the trie, so a spill
+        loses the block's residency but not its hit.  Interior nodes
+        qualify too: a demotion orphans no child."""
+        best = None
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.page is not None \
+                    and int(cache.ref[node.page]) == 1 \
+                    and (best is None or node.last_use < best.last_use):
+                best = node
+        return best
+
     def evict(self, cache: PagedKVCache, pages_needed: int) -> int:
         """Unpin LRU leaf blocks until ``pages_needed`` pages are free
-        or no leaf is left; an unpinned page frees at once when no live
-        sequence holds it.  Returns the nodes evicted."""
+        or no leaf on a device page is left (a spilled leaf holds no
+        page, so dropping it would free nothing); an unpinned page frees
+        at once when no live sequence holds it.  Returns the nodes
+        evicted."""
         evicted = 0
         while cache.free_pages < pages_needed:
             leaves = [lf for lf in self._leaves() if lf.page is not None]
@@ -446,10 +533,20 @@ class PrefixCache:
             evicted += 1
         return evicted
 
+    def spilled_nodes(self) -> int:
+        """Blocks resident in the host tier."""
+        count, stack = 0, list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.host is not None:
+                count += 1
+        return count
+
     def clear(self, cache: PagedKVCache, tier=None) -> int:
         """Drop the whole trie (a weight swap: the cached K/V are
-        functions of the old weights), freeing a host tier's frames
-        through ``tier``.  Returns the nodes dropped."""
+        functions of the old weights) over both tiers, a spilled block's
+        frame freed through ``tier``.  Returns the nodes dropped."""
         dropped = 0
         stack = list(self.root.children.values())
         while stack:
@@ -524,14 +621,21 @@ class DecodeModel(Logger):
     (``engine.kv_quant``, paged only): int8 pages with one f32 scale a
     (token, head) row; ``kv_dtype`` the pools' dtype otherwise (f32).
     An int8 bundle's weights stay int8 on the device as ``(q, scale)``
-    pairs, dequantized in every body."""
+    pairs, dequantized in every body.
+
+    ``n_caches`` (paged only) plans that many caches beside the model's
+    own for :meth:`make_cache`, the private caches of a disaggregated
+    engine's pool replicas: with :attr:`cache` they are partitions of
+    one arena, so the programs warmed once serve all of them, and a
+    replica made or repaired within the bound captures nothing."""
 
     def __init__(self, model, *, max_slots: int = 4, max_t: int = 64,
                  max_prompt: int | None = None, prompt_align: int = 8,
                  device=None, paged: bool | None = None,
                  page_tokens: int | None = None,
                  pool_tokens: int | None = None, spec_k: int = 0,
-                 kv_quant: bool | None = None, kv_dtype=None) -> None:
+                 kv_quant: bool | None = None, kv_dtype=None,
+                 n_caches: int = 0) -> None:
         super().__init__()
         from znicz_tpu_torch.export import ExportedModel
         if isinstance(model, (str, bytes)) or hasattr(model, "__fspath__"):
@@ -584,6 +688,11 @@ class DecodeModel(Logger):
         self.device = model.device
         self._plan, cache_specs = self._build_plan()
         self.has_lstm = any(kind == "lstm" for _n, kind, _s in cache_specs)
+        self.n_caches = int(n_caches)
+        if self.n_caches and not self.paged:
+            raise ValueError("pool replication (n_caches > 0) needs the "
+                             "paged cache: a flat cache is bound to one "
+                             "engine's slots")
         if self.paged:
             self.page_tokens = next_pow2(min(int(page_tokens), self.max_t))
             self.max_blocks = self.max_t // self.page_tokens
@@ -614,7 +723,8 @@ class DecodeModel(Logger):
                                       (shape[-2],), np.float32))
             self.cache = PagedKVCache(specs, self.max_slots,
                                       self.page_tokens, self.max_blocks,
-                                      pool_pages, device=self.device)
+                                      pool_pages, device=self.device,
+                                      n_caches=1 + self.n_caches)
         else:
             self.page_tokens = self.max_t
             self.max_blocks = 1
@@ -627,10 +737,33 @@ class DecodeModel(Logger):
                 "speculative decoding needs the paged cache and an "
                 "attention-only sequence phase (LSTM carries cannot roll "
                 "back a rejected draft)")
+        #: the arena's partitions :meth:`make_cache` may hand out
+        self._free_caches = list(range(self.n_caches, 0, -1))
+        #: the tensors ``page_in`` and ``carry_in`` read: one page a page
+        #: pool, one row a carry array, written by a PageStager's
+        #: uploader (or by a copy in :meth:`page_in`)
+        self.page_stage: list = []
+        self.carry_stage: list = []
+        if self.paged:
+            cache = self.cache
+            self.page_stage = [torch.zeros(a.shape[1:], dtype=a.dtype,
+                                           device=self.device)
+                               for a in (cache.arrays[i]
+                                         for i in cache.pool_indices)]
+            self.carry_stage = [torch.zeros(a.shape[1:], dtype=a.dtype,
+                                            device=self.device)
+                                for a in (cache.arrays[i]
+                                          for i in cache.slot_indices)]
+        #: every dispatch (inputs, replay, the copy of its output) holds
+        #: it: the graphs share one memory pool and each program one
+        #: input buffer, and a disaggregated engine's pools dispatch from
+        #: several threads
+        self.dispatch_lock = threading.RLock()
         #: family → key → program
         self._programs: dict[str, dict] = {
             f: {} for f in ("prefill", "decode", "paged-prefill",
-                            "paged-decode", "window", "copy")}
+                            "paged-decode", "window", "copy", "page-in",
+                            "carry-in")}
         #: programs made resident (on the card: captured)
         self.compile_count = 0
         #: a failed dispatch leaves the card's caches half written: only
@@ -1006,15 +1139,45 @@ class DecodeModel(Logger):
             return None
         return body
 
+    def _page_in_body(self, prog: _Program):
+        pool_indices = self.cache.pool_indices
+        stage = self.page_stage
+        v = prog.views
+
+        def body():
+            caches = self.cache.arrays
+            dst = v["dst"].long()
+            for j, i in enumerate(pool_indices):
+                caches[i].index_copy_(0, dst, stage[j][None])
+            return None
+        return body
+
+    def _carry_in_body(self, prog: _Program):
+        slot_indices = self.cache.slot_indices
+        stage = self.carry_stage
+        v = prog.views
+
+        def body():
+            caches = self.cache.arrays
+            slot = v["slot"].long()
+            for j, i in enumerate(slot_indices):
+                caches[i].index_copy_(0, slot, stage[j][None])
+            return None
+        return body
+
     # ------------------------------------------------------------------
     # programs
     # ------------------------------------------------------------------
     def _bound(self) -> list[tuple[str, torch.Tensor]]:
         """Every tensor a program reads besides its inputs: the cache
-        arrays, the weights (an int8 key's q and scales) and the encoding
-        tables."""
+        arrays, the staging tensors, the weights (an int8 key's q and
+        scales) and the encoding tables."""
         out = [(f"cache array '{spec[0]}'", a)
                for spec, a in zip(self.cache.specs, self.cache.arrays)]
+        out += [(f"page staging tensor {j}", t)
+                for j, t in enumerate(self.page_stage)]
+        out += [(f"carry staging tensor {j}", t)
+                for j, t in enumerate(self.carry_stage)]
         for op, ws in zip(self._plan, self._weights):
             for key, leaf in zip(op.wkeys, ws):
                 if isinstance(leaf, tuple):
@@ -1148,8 +1311,8 @@ class DecodeModel(Logger):
         return self._program(
             "paged-prefill", (t_bucket, nb), "serving-prefill",
             [("tokens", (1, t_bucket), 0),
-             ("table", (nb + 1,), cache.trash_page),
-             ("slot", (1,), cache.trash_slot), ("start", (1,), 0),
+             ("table", (nb + 1,), cache.dev_trash_page),
+             ("slot", (1,), cache.dev_trash_slot), ("start", (1,), 0),
              ("length", (1,), 1)],
             lambda p: self._paged_prefill_body(p, t_bucket))
 
@@ -1158,8 +1321,8 @@ class DecodeModel(Logger):
         return self._program(
             "paged-decode", (b_bucket, nb), "serving-decode",
             [("tokens", (b_bucket,), 0),
-             ("tables", (b_bucket, nb + 1), cache.trash_page),
-             ("slots", (b_bucket,), cache.trash_slot),
+             ("tables", (b_bucket, nb + 1), cache.dev_trash_page),
+             ("slots", (b_bucket,), cache.dev_trash_slot),
              ("positions", (b_bucket,), 0)],
             self._paged_decode_body)
 
@@ -1169,7 +1332,7 @@ class DecodeModel(Logger):
         return self._program(
             "window", (b_bucket, w_len, nb), site,
             [("tokens", (b_bucket, w_len), 0),
-             ("tables", (b_bucket, nb + 1), cache.trash_page),
+             ("tables", (b_bucket, nb + 1), cache.dev_trash_page),
              ("positions", (b_bucket,), 0), ("lengths", (b_bucket,), 0)],
             lambda p: self._window_body(p, b_bucket, w_len))
 
@@ -1179,10 +1342,26 @@ class DecodeModel(Logger):
         return self.window_program(b_bucket, self.spec_k + 1, nb)
 
     def copy_program(self) -> _Program:
-        trash = self.cache.trash_page
+        trash = self.cache.dev_trash_page
         return self._program(
             "copy", "copy", "serving-page",
             [("src", (1,), trash), ("dst", (1,), trash)], self._copy_body)
+
+    def page_in_program(self) -> _Program:
+        if not (self.paged and self.cache.pool_indices):
+            raise RuntimeError("page_in needs a paged cache with page "
+                               "pools (an attention layer)")
+        return self._program(
+            "page-in", "page-in", "serving-page",
+            [("dst", (1,), self.cache.dev_trash_page)], self._page_in_body)
+
+    def carry_in_program(self) -> _Program:
+        if not (self.paged and self.has_lstm):
+            raise RuntimeError("carry_in needs a paged LSTM chain")
+        return self._program(
+            "carry-in", "carry-in", "serving-page",
+            [("slot", (1,), self.cache.dev_trash_slot)],
+            self._carry_in_body)
 
     def prompt_ladder(self) -> list[int]:
         return ladder(self.max_prompt, self.prompt_align)
@@ -1203,17 +1382,24 @@ class DecodeModel(Logger):
     def fresh_nb(self, t_bucket: int) -> int:
         return self.nb_for(t_bucket - 1)
 
-    def warmup(self, prefix_cache: bool = True) -> int:
+    def warmup(self, prefix_cache: bool = True, page_io: bool = False) -> int:
         """Make every program of the grid resident (on the card:
         captured), so a decode loop at any live-batch size, block depth
         and prompt mix makes none.  ``prefix_cache=False`` leaves out the
         tail prefills (``start > 0``), the admission windows and the
-        copy, which only prefix sharing dispatches.  Returns the programs
-        made resident."""
+        copy, which only prefix sharing dispatches.  ``page_io=True``
+        adds ``page_in`` (a chain with page pools) and ``carry_in`` (an
+        LSTM chain): spill restores and pool handoffs then make none
+        either.  Returns the programs made resident."""
         before = self.compile_count
         with self._collector_off() if self.graphed \
                 else contextlib.nullcontext():
             self._warm_grid(prefix_cache)
+            if page_io and self.paged:
+                if self.cache.pool_indices:
+                    self.page_in_program()
+                if self.has_lstm:
+                    self.carry_in_program()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.compile_count - before
@@ -1256,14 +1442,50 @@ class DecodeModel(Logger):
                    for p in progs.values())
 
     # ------------------------------------------------------------------
-    # dispatch (one thread: the engine's scheduler)
+    # the planned caches: partitions of the arena
+    # ------------------------------------------------------------------
+    def make_cache(self) -> PagedKVCache:
+        """One of the ``n_caches`` caches planned beside :attr:`cache`:
+        the same geometry, served by the same programs, so nothing is
+        made resident or captured for it.  Raises past the bound."""
+        if not self.paged:
+            raise RuntimeError("pool replication needs the paged cache")
+        with self.dispatch_lock:
+            if not self._free_caches:
+                raise RuntimeError(
+                    f"every planned cache is in use: the model was built "
+                    f"with n_caches={self.n_caches}, which bounds the pool "
+                    f"replicas it serves")
+            return self.cache.partition(self._free_caches.pop())
+
+    def release_cache(self, cache: PagedKVCache) -> None:
+        """Give back a cache :meth:`make_cache` handed out (its replica
+        stopped).  A later :meth:`make_cache` hands out fresh bookkeeping
+        over its partition; its stale pages are written before any
+        sequence reads them, as a freed page's are."""
+        with self.dispatch_lock:
+            if cache.arrays is not self.cache.arrays or cache.index == 0 \
+                    or cache.index in self._free_caches:
+                raise ValueError(f"cache {cache.index} was not handed out "
+                                 f"by this model's make_cache")
+            self._free_caches.append(cache.index)
+
+    @property
+    def caches_free(self) -> int:
+        return len(self._free_caches)
+
+    # ------------------------------------------------------------------
+    # dispatch (the engine's scheduler; a disaggregated engine's workers)
     # ------------------------------------------------------------------
     def run_prefill(self, tokens: np.ndarray, slot: int,
-                    start: int = 0) -> np.ndarray:
-        """Prefill one prompt window into ``slot``: ``tokens`` are the
-        positions ``start..start+len-1`` (the whole prompt at
-        ``start=0``, the unshared tail after a prefix hit, paged only).
-        Returns the last real position's logits (V,)."""
+                    start: int = 0,
+                    cache: PagedKVCache | None = None) -> np.ndarray:
+        """Prefill one prompt window into ``slot`` of ``cache`` (the
+        model's own by default): ``tokens`` are the positions
+        ``start..start+len-1`` (the whole prompt at ``start=0``, the
+        unshared tail after a prefix hit, paged only).  Returns the last
+        real position's logits (V,)."""
+        cache = self.cache if cache is None else cache
         n = int(tokens.shape[0])
         if start + n > self.max_prompt:
             raise ValueError(f"prompt of {start + n} tokens exceeds "
@@ -1271,17 +1493,21 @@ class DecodeModel(Logger):
         t_b = bucket_for(n, self.prompt_align)
         padded = np.zeros((1, t_b), np.int32)
         padded[0, :n] = tokens
-        if not self.paged:
-            if start:
-                raise ValueError("flat cache cannot tail-prefill")
-            out = self._run(self.prefill_program(t_b), tokens=padded,
-                            slot=slot, length=n)
+        with self.dispatch_lock:
+            if not self.paged:
+                if start:
+                    raise ValueError("flat cache cannot tail-prefill")
+                out = self._run(self.prefill_program(t_b), tokens=padded,
+                                slot=slot, length=n)
+                return self._logits(out)[0]
+            nb = self.nb_for(start + t_b - 1)
+            out = self._run(self.paged_prefill_program(t_b, nb),
+                            tokens=padded,
+                            table=cache.dev_pages(cache.table_operand(slot,
+                                                                      nb)),
+                            slot=cache.dev_slots(slot), start=start,
+                            length=n)
             return self._logits(out)[0]
-        nb = self.nb_for(start + t_b - 1)
-        out = self._run(self.paged_prefill_program(t_b, nb), tokens=padded,
-                        table=self.cache.table_operand(slot, nb), slot=slot,
-                        start=start, length=n)
-        return self._logits(out)[0]
 
     def _check_positions(self, positions: np.ndarray) -> None:
         if len(positions) and (int(positions.min()) < 0
@@ -1290,11 +1516,12 @@ class DecodeModel(Logger):
                              f"[0, max_t={self.max_t})")
 
     def run_decode(self, tokens: np.ndarray, slots: np.ndarray,
-                   positions: np.ndarray) -> np.ndarray:
-        """One token step for ``len(tokens)`` lanes, padded to the
-        covering batch bucket (padded lanes on the scratch slot or the
-        trash table).  Returns logits (n, V)."""
-        cache = self.cache
+                   positions: np.ndarray,
+                   cache: PagedKVCache | None = None) -> np.ndarray:
+        """One token step for ``len(tokens)`` lanes of ``cache``, padded
+        to the covering batch bucket (padded lanes on the scratch slot or
+        the trash table).  Returns logits (n, V)."""
+        cache = self.cache if cache is None else cache
         n = int(tokens.shape[0])
         self._check_positions(positions)
         b_b = bucket_for(n)
@@ -1304,28 +1531,31 @@ class DecodeModel(Logger):
             out[:n] = arr
             return out
 
-        if not self.paged:
-            out = self._run(self.decode_program(b_b),
-                            tokens=padded(tokens, 0),
-                            slots=padded(slots, cache.trash_slot),
-                            positions=padded(positions, 0))
+        with self.dispatch_lock:
+            if not self.paged:
+                out = self._run(self.decode_program(b_b),
+                                tokens=padded(tokens, 0),
+                                slots=padded(slots, cache.trash_slot),
+                                positions=padded(positions, 0))
+                return self._logits(out, n)
+            nb = self.nb_for(int(positions.max()))
+            tables = np.full((b_b, nb + 1), cache.trash_page, np.int32)
+            tables[:n, :nb] = cache.tables[slots, :nb]
+            out = self._run(
+                self.paged_decode_program(b_b, nb),
+                tokens=padded(tokens, 0), tables=cache.dev_pages(tables),
+                slots=cache.dev_slots(padded(slots, cache.trash_slot)),
+                positions=padded(positions, 0))
             return self._logits(out, n)
-        nb = self.nb_for(int(positions.max()))
-        tables = np.full((b_b, nb + 1), cache.trash_page, np.int32)
-        tables[:n, :nb] = cache.tables[slots, :nb]
-        out = self._run(self.paged_decode_program(b_b, nb),
-                        tokens=padded(tokens, 0), tables=tables,
-                        slots=padded(slots, cache.trash_slot),
-                        positions=padded(positions, 0))
-        return self._logits(out, n)
 
     def run_window(self, windows: np.ndarray, slots: np.ndarray,
                    positions: np.ndarray, lengths: np.ndarray,
-                   site: str = "serving-verify") -> np.ndarray:
+                   site: str = "serving-verify",
+                   cache: PagedKVCache | None = None) -> np.ndarray:
         """Token windows (n, W) starting at per-lane ``positions`` with
         ``lengths`` real tokens each, written and attended through the
         page tables in one forward.  Returns logits (n, W, V)."""
-        cache = self.cache
+        cache = self.cache if cache is None else cache
         n, w_len = windows.shape
         self._check_positions(positions)
         b_b = bucket_for(n)
@@ -1338,24 +1568,128 @@ class DecodeModel(Logger):
         pos[:n] = positions
         lens = np.zeros((b_b,), np.int32)
         lens[:n] = lengths
-        out = self._run(self.window_program(b_b, int(w_len), nb, site=site),
-                        tokens=win, tables=tables, positions=pos,
-                        lengths=lens)
-        return self._logits(out, n)
+        with self.dispatch_lock:
+            out = self._run(self.window_program(b_b, int(w_len), nb,
+                                                site=site),
+                            tokens=win, tables=cache.dev_pages(tables),
+                            positions=pos, lengths=lens)
+            return self._logits(out, n)
 
     def run_verify(self, windows: np.ndarray, slots: np.ndarray,
-                   positions: np.ndarray) -> np.ndarray:
+                   positions: np.ndarray,
+                   cache: PagedKVCache | None = None) -> np.ndarray:
         """Speculative verification: (n, spec_k+1) windows at per-lane
         ``positions``; logits at every window position."""
         if not self.spec_k:
             raise RuntimeError("spec_k=0 — no verify family planned")
         lengths = np.full((windows.shape[0],), self.spec_k + 1, np.int32)
-        return self.run_window(windows, slots, positions, lengths)
+        return self.run_window(windows, slots, positions, lengths,
+                               cache=cache)
 
-    def copy_page(self, src: int, dst: int) -> None:
+    def copy_page(self, src: int, dst: int,
+                  cache: PagedKVCache | None = None) -> None:
         """Copy one page across every pool: the copy on write a partial
         prefix match pays before its divergent tail."""
-        self._run(self.copy_program(), src=src, dst=dst)
+        cache = self.cache if cache is None else cache
+        with self.dispatch_lock:
+            self._run(self.copy_program(), src=cache.dev_pages(src),
+                      dst=cache.dev_pages(dst))
+
+    # ------------------------------------------------------------------
+    # page and carry I/O: the data plane of spill restores and
+    # prefill→decode handoffs
+    # ------------------------------------------------------------------
+    def page_shapes(self) -> list[tuple[tuple, np.dtype]]:
+        """(shape, dtype) of one page of each page pool: the frame of the
+        host tier and of a staging ring."""
+        return [(tuple(t.shape), _np_dtype(t.dtype))
+                for t in self.page_stage]
+
+    def carry_shapes(self) -> list[tuple[tuple, np.dtype]]:
+        """(shape, dtype) of one slot's carry rows (an LSTM chain)."""
+        return [(tuple(t.shape), _np_dtype(t.dtype))
+                for t in self.carry_stage]
+
+    def _fetch(self, tensors: list) -> list[np.ndarray]:
+        """Device tensors copied to page-locked host memory on the
+        current stream and fenced (the caller frees or overwrites their
+        pages next); on the CPU, the tensors themselves."""
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for out, t in zip(outs, tensors):
+            out.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).record_event().synchronize()
+        return [out.numpy() for out in outs]
+
+    def export_pages(self, pids, cache: PagedKVCache | None = None
+                     ) -> list[list[np.ndarray]]:
+        """Pages ``pids`` of ``cache`` copied to the host: one page set
+        (one (page_tokens, ...) array a page pool) a page, the unit the
+        host tier stores and a handoff ships.  One gather and one fenced
+        copy a pool for all of them."""
+        cache = self.cache if cache is None else cache
+        pids = [int(p) for p in pids]
+        if not cache.pool_indices or not pids:
+            return [[] for _ in pids]
+        idx = torch.as_tensor(cache.dev_pages(pids), dtype=torch.long,
+                              device=self.device)
+        with self.dispatch_lock:
+            host = self._fetch([cache.arrays[i].index_select(0, idx)
+                                for i in cache.pool_indices])
+        return [[h[b] for h in host] for b in range(len(pids))]
+
+    def export_page(self, pid: int, cache: PagedKVCache | None = None
+                    ) -> list[np.ndarray]:
+        """Page ``pid`` of ``cache`` copied to the host (one array a page
+        pool)."""
+        return self.export_pages([pid], cache)[0]
+
+    def page_in(self, pages, dst: int,
+                cache: PagedKVCache | None = None) -> None:
+        """Write one page set into page ``dst`` of ``cache``: ``pages``
+        are :attr:`page_stage` as a :class:`~znicz_tpu_torch.memory.
+        PageStager` filled them (the replay only, ordered after the
+        upload by the stager's event), or host arrays or tensors, first
+        copied into the staging tensors."""
+        cache = self.cache if cache is None else cache
+        if not cache.pool_indices:
+            return  # a chain without page pools moves no page content
+        with self.dispatch_lock:
+            self._stage(pages, self.page_stage)
+            self._run(self.page_in_program(), dst=cache.dev_pages(dst))
+
+    def export_carry(self, slot: int, cache: PagedKVCache | None = None
+                     ) -> list[np.ndarray]:
+        """Slot ``slot``'s LSTM carry rows (h and c a layer) copied to
+        the host: the slot-indexed half of a handoff."""
+        cache = self.cache if cache is None else cache
+        idx = int(cache.dev_slots(slot))
+        with self.dispatch_lock:
+            return self._fetch([cache.arrays[i][idx].clone()
+                                for i in cache.slot_indices])
+
+    def carry_in(self, rows, slot: int,
+                 cache: PagedKVCache | None = None) -> None:
+        """Write carry rows into slot ``slot`` of ``cache`` (as
+        :meth:`page_in` writes a page)."""
+        cache = self.cache if cache is None else cache
+        with self.dispatch_lock:
+            self._stage(rows, self.carry_stage)
+            self._run(self.carry_in_program(), slot=cache.dev_slots(slot))
+
+    @staticmethod
+    def _stage(values, stage: list) -> None:
+        if len(values) != len(stage):
+            raise ValueError(f"{len(values)} arrays for {len(stage)} "
+                             f"staging tensors")
+        for t, value in zip(stage, values):
+            if value is t:
+                continue  # a stager's upload landed it there
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.ascontiguousarray(value))
+            t.copy_(value)
 
     # ------------------------------------------------------------------
     # weight hot-swap
@@ -1437,11 +1771,11 @@ class DecodeModel(Logger):
                                                           np.float32))
                     staged.append((cur, torch.from_numpy(new).to(dev)))
                     host[key] = new.copy()
-        with torch.no_grad():
+        with self.dispatch_lock, torch.no_grad():
             for cur, new in staged:
                 cur.copy_(new)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.model._params.update(host)
         self.weights_version += 1
         return self.weights_version
@@ -1500,10 +1834,15 @@ class _Live:
 
 
 class _PageSetupMixin:
-    """Paged admission: prefix match → share, copy on write, allocate.
-    The host has ``self.model`` (a :class:`DecodeModel`), ``self.prefix``
-    (:class:`PrefixCache` or None), ``self._obs_id`` and the prefix
-    metric children."""
+    """Paged admission, shared by :class:`DecodeEngine` and the
+    disaggregated engine's prefill workers: prefix match → share, copy
+    on write, allocate, with the spill tier's room-making.  The host has
+    ``self.model`` (a :class:`DecodeModel`), ``self.prefix``
+    (:class:`PrefixCache` or None), ``self._spill`` (a
+    :class:`~znicz_tpu_torch.memory.HostPageTier` or None), ``self._obs_id``
+    and the prefix and migration metric children; :meth:`_kv_cache` names
+    the cache it schedules (a pool worker's private cache, the model's
+    own otherwise)."""
 
     def _kv_cache(self) -> PagedKVCache:
         return self.model.cache
@@ -1527,14 +1866,29 @@ class _PageSetupMixin:
             nodes, matched, cow = self.prefix.match_nodes(tokens)
         span = min(n + int(max_new), model.max_t)
         nblocks = -(-span // model.page_tokens)
-        # the matched pages are pinned into the slot's table before any
-        # room-making: eviction may unpin them but never free them
+        # Two-phase pinning.  Every matched block on a device page is
+        # pinned into the slot's table before any room-making: a restore
+        # below may spill or evict other trie pages, and a matched page
+        # must never be a victim.  Then the spilled matched blocks are
+        # restored one at a time, each pinned the moment it lands (ref 2,
+        # so spill_candidate cannot take it while the next restores).
+        # Spilled blocks can wait: evict() takes only leaves on device
+        # pages, and the host tier frees nothing on its own.
         donor_pinned = False
         try:
             for b, node in enumerate(nodes):
-                cache.share_block(slot, b, node.page)
-            if cow is not None:
+                if node.page is not None:
+                    cache.share_block(slot, b, node.page)
+            if cow is not None and cow[0].page is not None:
                 cache.ref[cow[0].page] += 1  # the donor's pin till copied
+                donor_pinned = True
+            for b, node in enumerate(nodes):
+                if node.page is None:
+                    self._restore_node(node)
+                    cache.share_block(slot, b, node.page)
+            if cow is not None and not donor_pinned:
+                self._restore_node(cow[0])
+                cache.ref[cow[0].page] += 1
                 donor_pinned = True
             need_new = nblocks - len(nodes)
             if cache.free_pages < need_new:
@@ -1544,7 +1898,7 @@ class _PageSetupMixin:
                 pid = cache.new_block(slot, base)
                 # the shared positions of the boundary block come along;
                 # the divergent tail overwrites its own copy
-                model.copy_page(cow[0].page, pid)
+                model.copy_page(cow[0].page, pid, cache=cache)
                 base += 1
             for b in range(base, nblocks):
                 cache.new_block(slot, b)
@@ -1563,16 +1917,46 @@ class _PageSetupMixin:
             self._m_tok_computed.inc(n - matched)
         return matched
 
+    def _restore_node(self, node) -> None:
+        """Bring one spilled trie block back to a device page through the
+        staging ring and ``page_in``; the node's trie pin moves tiers
+        with it (the frame freed, a fresh page at ref 1)."""
+        cache = self._kv_cache()
+        if cache.free_pages < 1:
+            self._make_room(1)
+        pid = cache.alloc_page()  # ref 1: the trie's pin, now on a page
+        with self.model.dispatch_lock:  # the staging tensors are shared
+            staged = self._spill.upload(node.host)
+            self.model.page_in(staged, pid, cache=cache)
+        self._spill.free(node.host)
+        node.page, node.host = pid, None
+        self._m_mig_restore.inc()
+
     def _make_room(self, pages_needed: int) -> None:
-        """Free pages for an admission by evicting LRU prefix blocks.  A
-        no-op without a prefix cache: ``new_block`` then raises
-        :class:`PoolExhausted` and admission requeues."""
+        """Free device pages for an admission: spill cold shareable
+        blocks to the host tier while it has frames, then fall back to
+        evicting LRU prefix blocks.  A no-op without a prefix cache:
+        ``new_block`` then raises :class:`PoolExhausted` and admission
+        requeues."""
         if self.prefix is None:
             return
-        evicted = self.prefix.evict(self._kv_cache(), pages_needed)
-        if evicted:
-            _metrics.prefix_cache_events(self._obs_id,
-                                         "evicted").inc(evicted)
+        cache = self._kv_cache()
+        while cache.free_pages < pages_needed:
+            if self._spill is not None and not self._spill.full:
+                victim = self.prefix.spill_candidate(cache)
+                if victim is not None:
+                    # the export is fenced before the page is freed
+                    hid = self._spill.store(self.model.export_page(
+                        victim.page, cache=cache))
+                    cache.ref_dec(victim.page)  # the trie held it alone
+                    victim.page, victim.host = None, hid
+                    self._m_mig_spill.inc()
+                    continue
+            evicted = self.prefix.evict(cache, pages_needed)
+            if evicted:
+                _metrics.prefix_cache_events(self._obs_id,
+                                             "evicted").inc(evicted)
+            return
 
 
 class DecodeEngine(_PageSetupMixin, Logger):
@@ -1596,8 +1980,10 @@ class DecodeEngine(_PageSetupMixin, Logger):
     circuit breaker sheds new prompts with :class:`Overloaded` while the
     sequences in flight decode to completion; pool exhaustion trips the
     same breaker.  ``spill_pages`` (or ``engine.kv_spill_pages``) above 0
-    asks for the host-DRAM spill tier, which the port does not have yet
-    (ROADMAP A12b): it raises."""
+    puts a host-DRAM tier of that many page-locked frames behind the
+    prefix cache: under pool pressure a cold prefix block spills to a
+    frame instead of being evicted, and a later match restores it, so
+    the shareable working set is ``pool_pages + spill_pages``."""
 
     def __init__(self, model, *, max_slots: int = 4, max_t: int = 64,
                  max_prompt: int | None = None, prompt_align: int = 8,
@@ -1618,12 +2004,6 @@ class DecodeEngine(_PageSetupMixin, Logger):
                  kv_quant: bool | None = None, kv_dtype=None,
                  spill_pages: int | None = None, device=None) -> None:
         super().__init__()
-        if spill_pages is None:
-            spill_pages = int(root.common.engine.get("kv_spill_pages", 0))
-        if int(spill_pages) > 0:
-            raise NotImplementedError(
-                f"spill_pages={spill_pages}: the host-DRAM spill tier of "
-                f"the prefix cache is not ported yet (ROADMAP A12b)")
         if not isinstance(model, DecodeModel):
             from znicz_tpu_torch.export import ExportedModel
             if isinstance(model, (str, bytes)) \
@@ -1681,6 +2061,15 @@ class DecodeEngine(_PageSetupMixin, Logger):
             prefix_cache and model.paged and not model.has_lstm)
         self.prefix = (PrefixCache(model.page_tokens)
                        if self.prefix_cache_enabled else None)
+        # the host-DRAM tier behind the trie: its restores land in the
+        # model's staging tensors
+        if spill_pages is None:
+            spill_pages = int(root.common.engine.get("kv_spill_pages", 0))
+        self._spill = None
+        if self.prefix_cache_enabled and int(spill_pages) > 0:
+            from znicz_tpu_torch.memory import HostPageTier
+            self._spill = HostPageTier(model.page_shapes(), int(spill_pages),
+                                       targets=model.page_stage)
         self._token_budget = None
         if model.paged:
             budget = (int(max_queue_tokens) if max_queue_tokens
@@ -1723,6 +2112,14 @@ class DecodeEngine(_PageSetupMixin, Logger):
                 model.cache.pages_used)
         _metrics.kv_bytes_per_lane(self._obs_id).set(
             model.cache.nbytes() / max(1, model.max_slots))
+        self._m_mig_spill = _metrics.kv_page_migrations(self._obs_id,
+                                                        "spill")
+        self._m_mig_restore = _metrics.kv_page_migrations(self._obs_id,
+                                                          "restore")
+        if self._spill is not None:
+            tier = self._spill
+            _metrics.kv_spill_pages(self._obs_id).set_function(
+                lambda: tier.used)
         _metrics.serving_queue_age_seconds(
             self._obs_id, pool="all").set_function(self._queue_age)
         self._m_prefix_hit = _metrics.prefix_cache_events(self._obs_id,
@@ -1786,7 +2183,8 @@ class DecodeEngine(_PageSetupMixin, Logger):
             return self
         t0 = time.monotonic()
         self.warmup_compiles = self.model.warmup(
-            prefix_cache=self.prefix_cache_enabled)
+            prefix_cache=self.prefix_cache_enabled,
+            page_io=self._spill is not None)
         if self.drafter is not None:
             self.warmup_compiles += self.drafter.warmup()
         self.warmup_seconds = time.monotonic() - t0
@@ -1799,13 +2197,14 @@ class DecodeEngine(_PageSetupMixin, Logger):
             "decode '%s': %d programs made resident in %.2fs (graphed=%s; "
             "prompt buckets %s, batch buckets %s, block buckets %s, "
             "slots=%d, max_t=%d, paged=%s, prefix_cache=%s, spec_k=%d, "
-            "cache=%.1f MB)",
+            "cache=%.1f MB, spill_pages=%d)",
             self.model.model.manifest.get("workflow", "?"),
             self.warmup_compiles, self.warmup_seconds, self.model.graphed,
             self.model.prompt_ladder(), self.model.batch_ladder(),
             self.model.block_ladder(), self.model.max_slots,
             self.model.max_t, self.model.paged, self.prefix_cache_enabled,
-            self.spec_k, self.model.cache.nbytes() / 1e6)
+            self.spec_k, self.model.cache.nbytes() / 1e6,
+            self._spill.capacity if self._spill is not None else 0)
         return self
 
     def shutdown(self, timeout: float = 60.0) -> None:
@@ -1818,6 +2217,8 @@ class DecodeEngine(_PageSetupMixin, Logger):
             self._thread.join(timeout=timeout)
             self._thread = None
         self._started = False
+        if self._spill is not None:
+            self._spill.shutdown()
         # a stopped engine is not shedding: its last breaker state must
         # not keep the process not-ready
         with self._cond:
@@ -2025,7 +2426,7 @@ class DecodeEngine(_PageSetupMixin, Logger):
         """Drop every cached prefix block (their K/V are the old
         weights')."""
         if self.prefix is not None:
-            dropped = self.prefix.clear(self.model.cache)
+            dropped = self.prefix.clear(self.model.cache, tier=self._spill)
             if dropped:
                 self.info("prefix cache invalidated by weight swap (%d "
                           "cached blocks dropped)", dropped)
@@ -2603,6 +3004,15 @@ class DecodeEngine(_PageSetupMixin, Logger):
                 "misses": int(self._m_prefix_miss.value),
                 "shared_tokens": int(self._m_tok_shared.value),
                 "computed_tokens": int(self._m_tok_computed.value),
+                "spilled_nodes": self.prefix.spilled_nodes(),
+                "spill_pages_used": (self._spill.used
+                                     if self._spill else 0),
+                "spill_capacity": (self._spill.capacity
+                                   if self._spill else 0),
+                "migrations": {
+                    "spill": int(self._m_mig_spill.value),
+                    "restore": int(self._m_mig_restore.value),
+                },
             } if self.prefix is not None else None),
             "speculative": ({
                 "draft_k": self.spec_k,

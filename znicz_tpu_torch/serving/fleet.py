@@ -1,6 +1,6 @@
-"""FleetEngine: many models in one process, per-tenant SLOs (port of
-``znicz_tpu/serving/fleet.py``, without ``PoolAutoscaler``, which
-scales the disaggregated engine: ROADMAP A12b).
+"""FleetEngine: many models in one process, per-tenant SLOs, and the
+autoscalers of its replica groups and of the disaggregated engine's
+pools (port of ``znicz_tpu/serving/fleet.py``).
 
 N exported bundles (one-shot scorers and decode LMs mixed) resident in
 one process on the card, requests routed by model id and version,
@@ -1105,9 +1105,9 @@ class FleetAutoscaler:
 
     Decode groups take part in repair only: a decode engine's slot
     occupancy is already its KV pool's admission currency, and a whole
-    extra engine captures its own programs.  The reference's
-    disaggregated engine and its ``PoolAutoscaler`` lift that limit
-    (ROADMAP A12b)."""
+    extra engine captures its own programs.  The disaggregated engine's
+    pools share one model's programs; :class:`PoolAutoscaler` scales
+    them."""
 
     def __init__(self, fleet: FleetEngine, *,
                  queue_age_up_s: float = 0.25,
@@ -1218,3 +1218,85 @@ class FleetAutoscaler:
                           f"{group.live()} (idle)")
             self._last_scale[gkey] = now
         return events
+
+
+class PoolAutoscaler:
+    """Per-pool replica autoscaling for a disaggregated engine (port of
+    the reference's ``PoolAutoscaler``).
+
+    ``pools`` maps a pool name (``"prefill"``, ``"decode"``) to its
+    :class:`ReplicaGroup`; a pool's signal is its child of
+    ``znicz_serving_queue_age_seconds{engine=<engine_id>, pool=<name>}``
+    (prefill: the shared prompt queue's head; decode: the oldest handoff
+    not yet accepted), so a prompt burst grows the prefill pool without
+    touching the decode pool, and a handoff backlog grows decode without
+    spending prefill compute.  The replicas share one warmed
+    :class:`~znicz_tpu_torch.serving.decode.DecodeModel` and each owns
+    one of the caches it planned (:meth:`DecodeModel.make_cache`), so a
+    scale-up captures no CUDA graph.
+
+    Each :meth:`tick`, a pool is **repaired** when live < target,
+    **grown** when its queue age exceeds ``queue_age_up_s`` and live <
+    max_replicas, and **shrunk** to ``min_replicas`` after
+    ``idle_down_s`` of zero queue age and no newly served work."""
+
+    def __init__(self, pools: dict[str, ReplicaGroup], engine_id: str, *,
+                 queue_age_up_s: float = 0.25, idle_down_s: float = 5.0,
+                 min_replicas: int = 1, cooldown_s: float = 0.5) -> None:
+        self.pools = dict(pools)
+        self.engine_id = engine_id
+        self.queue_age_up_s = float(queue_age_up_s)
+        self.idle_down_s = float(idle_down_s)
+        self.min_replicas = int(min_replicas)
+        self.cooldown_s = float(cooldown_s)
+        self._last_scale: dict[str, float] = {}
+        self._last_busy: dict[str, float] = {}
+        self._last_served: dict[str, int] = {}
+
+    def _pool_age(self, pool: str) -> float:
+        fam = _metrics.REGISTRY.get("znicz_serving_queue_age_seconds")
+        if fam is None:
+            return 0.0
+        for key, child in fam.items():
+            if key[0] == self.engine_id and key[1] == pool:
+                return float(child.value)
+        return 0.0
+
+    def tick(self) -> list[str]:
+        events: list[str] = []
+        now = time.monotonic()
+        for name, group in self.pools.items():
+            events.extend(self._tick_pool(name, group, now))
+        return events
+
+    def _scaled(self, name: str, op: str, now: float) -> None:
+        _metrics.fleet_scale_events(self.engine_id,
+                                    f"{self.engine_id}@{name}", op).inc()
+        self._last_scale[name] = now
+
+    def _tick_pool(self, name: str, group: ReplicaGroup,
+                   now: float) -> list[str]:
+        live = group.live()
+        if live < group.target:
+            group.scale_to(group.target, reason="repair")
+            self._scaled(name, "repair", now)
+            _metrics.recoveries("replica_respawn").inc()
+            return [f"repaired pool {name} → {group.live()} replicas"]
+        age = self._pool_age(name)
+        served = sum(int(getattr(e, "served", 0)) for e in group.engines())
+        if age > 0.0 or served != self._last_served.get(name, -1):
+            self._last_busy[name] = now
+        self._last_served[name] = served
+        if now - self._last_scale.get(name, 0.0) < self.cooldown_s:
+            return []
+        if age > self.queue_age_up_s and live < group.max_replicas:
+            group.scale_to(live + 1, reason="up")
+            self._scaled(name, "up", now)
+            return [f"scaled pool {name} up → {group.live()} "
+                    f"(queue_age={age:.2f}s)"]
+        if live > self.min_replicas \
+                and now - self._last_busy.get(name, now) > self.idle_down_s:
+            group.scale_to(live - 1, reason="down")
+            self._scaled(name, "down", now)
+            return [f"scaled pool {name} down → {group.live()} (idle)"]
+        return []
