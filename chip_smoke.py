@@ -400,8 +400,32 @@ Phases (any failure raises and exits non-zero):
    an all-device pool's and the tokens its; (e) dropped handoffs
    (``disagg.handoff_drop``) retried on a fresh prefill, ``balanced()``
    true; (f) the handoff's and the restore's ms and bytes a page.
+21. the report chain: which of matplotlib and pyzmq import (without
+   matplotlib the plotters run with the render thread off, as
+   ``--no-graphics`` runs them, and no PNG may be claimed; without
+   pyzmq the live-viewer arm is skipped with a line); (a) MNIST
+   784-100-10 (f32, B = 100, the confusion counts on) for 3 epochs
+   graphed, in turns with and without the side units (the error,
+   confusion and 28 × 28 weights plotters, a weight histogram, the
+   report publisher in md, html and json): no capture more with them,
+   the parameters bit-equal, 3 × 4 lines in ``events.jsonl``, the
+   confusion matrix's trace the validation count less the last epoch's
+   errors, the report's metrics the decision's and fired once under
+   ``run`` and under ``run_chunked(8)``, the step time (CUDA events,
+   median of the epochs) with and without them and the host time of an
+   epoch's firing; (b) ``KohonenHits`` on kohonen and ``MSEHistogram`` on
+   mnist_ae on short graphed runs: the hit map sums to the epoch's
+   samples, the histogram to the minibatch, no capture more; (c)
+   ``ChannelSplitter`` in a captured region: bit-equal to ``numpy_run``
+   at the captured addresses, a rebound output refused by the next
+   replay; (d) the forge: Wine packaged as two versions, uploaded to a
+   ``ForgeServer`` on 127.0.0.1, the newest fetched by ``ForgeClient``
+   and served by ``ExportedModel`` on its graphed buckets bit-equal to
+   the bundle exported directly, ``fleet.model_corrupt`` quarantining it
+   and the fetch falling back (counted); package, upload and fetch
+   times.
 
-Each path of phases 3–20 runs with every launch counter set to 0 just
+Each path of phases 3–21 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  After each of phases 3–17 the state
 of every anomaly guard built in it is read: a step skipped as
@@ -1786,6 +1810,15 @@ def expect_counts(path: str, counts: dict, want: dict) -> None:
            if v != want.get(k, 0)}
     if bad:
         raise AssertionError(f"{path}: launches (got, want) {bad}")
+
+
+def expect_only(path: str, counts: dict, name: str) -> None:
+    """Launches on a path whose count the ladder's warm-up sets: ``name``
+    launched, every other kernel not."""
+    ran = {k: v for k, v in counts.items() if v}
+    say(f"  launches on the {path} path: {ran}")
+    if set(ran) != {name}:
+        raise AssertionError(f"{path}: launches {ran}, want {name} only")
 
 
 def expect_ln_register(path: str) -> None:
@@ -8533,6 +8566,599 @@ def disagg_pass(card: str, path: str, lstm: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 21: the report chain — the plotters, the report publisher, the
+# aux units and the forge, on the graphed step
+# ----------------------------------------------------------------------
+#: MNIST's epochs in each turn of the side-unit arm
+REPORT_EPOCHS = 3
+#: the turns of the side-unit arm: (side units linked, run_chunked's
+#: steps a dispatch or 1 for ``run``); the two ``run`` turns with the
+#: units bracket the two without, and the chunked turn comes last
+REPORT_TURNS = ((True, 1), (False, 1), (False, 1), (True, 1), (True, 8))
+#: the plotters the side-unit arm links, by unit name (the multi
+#: histogram draws no PNG in either package: its payload kind has no
+#: drawing, as in the reference)
+REPORT_PLOTTERS = ("error_plotter", "confusion_matrix", "weights2d_l0",
+                   "weights_hist")
+REPORT_PNGS = ("confusion_matrix.png", "error_plotter.png",
+               "weights2d_l0.png")
+#: the short graphed runs of the hit map and the MSE histogram (epochs)
+HITS_EPOCHS, AE_HIST_EPOCHS = 2, 1
+#: the splitter's input: a minibatch of 100 RGB 28 × 28 frames, split
+#: into three towers (one repeats and permutes channels)
+SPLIT_SHAPE = (100, 28, 28, 3)
+SPLIT_GROUPS = ([0], [1, 2], [2, 0, 1])
+SPLIT_REPLAYS = 4
+#: the Wine bundle's epochs, forge versions and served rows
+FORGE_EPOCHS = 5
+FORGE_VERSIONS = ("1.0.0", "1.1.0")
+FORGE_ROWS = (1, 3, 10)
+
+
+def graphics_probe() -> dict:
+    """The graphics service's optional libraries on this machine: name →
+    version, or None where the import fails."""
+    import importlib
+    found = {}
+    for lib in ("matplotlib", "zmq"):
+        try:
+            found[lib] = getattr(importlib.import_module(lib),
+                                 "__version__", "?")
+        except ImportError:
+            found[lib] = None
+    return found
+
+
+def report_root(tmp: str, render: bool) -> None:
+    """The plots and the reports under ``tmp``, the render thread on or
+    off (``--no-graphics``), the process's graphics server dropped."""
+    from znicz_tpu_torch import graphics
+    from znicz_tpu_torch.utils.config import root
+    graphics.reset_server()
+    root.common.dirs.plots = os.path.join(tmp, "plots")
+    root.common.dirs.cache = tmp
+    root.common.graphics.render = render
+
+
+def epoch_marks(wf, device_events: bool) -> list:
+    """A mark at each epoch's end, recorded where the decision decides
+    (before the side units fire): a CUDA event on the card, the host
+    clock elsewhere; the caller adds the mark before the run."""
+    import torch
+
+    def mark():
+        if not device_events:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    marks = [mark()]
+    decide = wf.decision.decide
+
+    def decide_and_mark():
+        decide()
+        if wf.decision.epoch_ended:
+            marks.append(mark())
+
+    wf.decision.decide = decide_and_mark
+    return marks
+
+
+def epoch_ms(marks: list, steps: int, device_events: bool) -> list:
+    """Each epoch's time a step, ms, from :func:`epoch_marks`."""
+    import torch
+    if device_events:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) / steps for a, b in zip(marks, marks[1:])]
+    return [1e3 * (b - a) / steps for a, b in zip(marks, marks[1:])]
+
+
+def report_turn(tmp: str, side: bool, chunk: int, render: bool,
+                device=None) -> dict:
+    """One turn of the side-unit arm: MNIST 784-100-10 (f32, B = 100) from
+    ``SEED`` for ``REPORT_EPOCHS`` with the confusion counts, graphed on
+    the card, by ``run`` or ``run_chunked(chunk)``; with ``side``, the
+    error, confusion and weights plotters, a weight histogram and the
+    report publisher (md, html, json) linked after the decision."""
+    import torch
+    from znicz_tpu_torch.models.samples import mnist
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.ops.aux_units import MultiHistogram
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root
+    reset_root()
+    report_root(tmp, render)
+    prng.seed_all(SEED)
+    wf = mnist.build(max_epochs=REPORT_EPOCHS)
+    wf.evaluator.compute_confusion = True
+    if side:
+        wf.link_error_plotter()
+        wf.link_confusion_plotter()
+        wf.link_weights_plotter(sample_shape=(28, 28))
+        wf.link_publisher(formats=("md", "html", "json"))
+    wf.initialize(device=device)
+    if side:  # its weights exist once the forwards are initialized
+        hist = MultiHistogram(wf, name="weights_hist")
+        hist.watch_workflow_weights()
+        wf._epoch_side_unit(hist)
+    on_card = wf.device.type == "cuda"
+    before = metrics.graph_captures("train_region").value
+    marks = epoch_marks(wf, on_card)
+    reset_counts()
+    t0 = time.perf_counter()
+    if chunk > 1:
+        wf.run_chunked(chunk)
+    else:
+        wf.run()
+    if on_card:
+        torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    out = {"wf": wf, "launches": read_counts(), "host_s": host_s,
+           "step_ms": epoch_ms(marks, MNIST_STEPS, on_card),
+           "captures": wf.region.captures, "graphed": on_card,
+           "counter": metrics.graph_captures("train_region").value - before,
+           "params": {k: v.numpy() for k, v in params_of(wf).items()}}
+    return out
+
+
+def report_checks(turn: dict, tmp: str, render: bool, chunk: int) -> dict:
+    """What one turn with the side units must show: a line an epoch a
+    plotter in ``events.jsonl``, the confusion matrix's trace the
+    validation count less the last epoch's errors, the report fired once
+    with the decision's metrics and this run's PNGs (none claimed without
+    the render thread); returns the host ms of one epoch's firing of
+    the plotters and the publisher's ms."""
+    import numpy as np
+    from znicz_tpu_torch import graphics
+    from znicz_tpu_torch.loader.base import VALID
+    wf = turn["wf"]
+    if not graphics.flush_server():
+        raise AssertionError("report: the render thread did not drain")
+    plots = os.path.join(tmp, "plots")
+    events = [json.loads(line)
+              for line in open(os.path.join(plots, "events.jsonl"))]
+    by_name = sorted(e["name"] for e in events)
+    want = sorted(REPORT_PLOTTERS * REPORT_EPOCHS)
+    if by_name != want:
+        raise AssertionError(f"report (chunk {chunk}): events.jsonl has "
+                             f"{by_name}, want {want}")
+    cm = wf.decision.confusion_matrixes[VALID]
+    n_valid = wf.loader.class_lengths[VALID]
+    if int(cm.sum()) != n_valid or int(np.trace(cm)) != \
+            n_valid - wf.decision.last_epoch_n_err[VALID]:
+        raise AssertionError(f"report: confusion matrix trace "
+                             f"{np.trace(cm)} of {cm.sum()}, last epoch's "
+                             f"errors {wf.decision.last_epoch_n_err}")
+    pub = wf.publisher
+    if pub.run_count != 1 or len(pub.destinations) != 3:
+        raise AssertionError(f"report (chunk {chunk}): the publisher fired "
+                             f"{pub.run_count} time(s)")
+    blob = json.load(open(pub.destinations[-1]))
+    metrics = {"epochs": wf.loader.epoch_number,
+               "best validation error %":
+                   float(wf.decision.min_validation_n_err_pt)}
+    if blob["metrics"] != metrics:
+        raise AssertionError(f"report: metrics {blob['metrics']}, the "
+                             f"decision's {metrics}")
+    pngs = sorted(f for f in os.listdir(plots) if f.endswith(".png"))
+    claimed = sorted(os.path.basename(p) for p in blob["plots"])
+    want_pngs = sorted(REPORT_PNGS) if render else []
+    if pngs != want_pngs or claimed != want_pngs:
+        raise AssertionError(f"report: PNGs {pngs}, the report claims "
+                             f"{claimed}, want {want_pngs}")
+    page = open(pub.destinations[1]).read()
+    if render != ("data:image/png;base64," in page):
+        raise AssertionError("report: the html embeds the wrong plots")
+    fire_ms = sum(1e3 * u.run_time_total / u.run_count
+                  for u in wf.units if u.name in REPORT_PLOTTERS)
+    return {"fire_ms": fire_ms, "publish_ms": 1e3 * pub.run_time_total,
+            "events": len(events), "pngs": claimed}
+
+
+def report_arm(card: str, render: bool, device=None) -> dict:
+    """(a) The turns of :data:`REPORT_TURNS`: the side units capture
+    nothing more, leave the weights bit-equal to a run without them,
+    and fire as they should under ``run`` and ``run_chunked``; the step
+    time with and without them (median of the epochs) and the host time
+    of their firing."""
+    import numpy as np
+    turns = []
+    for i, (side, chunk) in enumerate(REPORT_TURNS):
+        tmp = tempfile.mkdtemp(prefix=f"report{i}_")
+        try:
+            turn = report_turn(tmp, side, chunk, render, device)
+            if side:
+                turn.update(report_checks(turn, tmp, render, chunk))
+            turn["side"], turn["chunk"] = side, chunk
+            del turn["wf"]
+            turns.append(turn)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    plain = [t for t in turns if not t["side"]]
+    keys = 3 if turns[0]["graphed"] else 0  # one a key (none eager)
+    for t in turns:
+        if (t["captures"], t["counter"]) != (keys, keys):
+            raise AssertionError(f"report: captures {t['captures']} "
+                                 f"(counter {t['counter']:.0f}) with side "
+                                 f"units {t['side']}, chunk {t['chunk']}; "
+                                 f"want {keys} (one a key)")
+        if t["chunk"] == 1:
+            bad = [k for k, v in plain[0]["params"].items()
+                   if not np.array_equal(v, t["params"][k])]
+            if bad:
+                raise AssertionError(f"report: parameters {bad} differ "
+                                     f"between the runs with and without "
+                                     f"the side units")
+    steps = REPORT_EPOCHS * MNIST_STEPS
+    expect_counts("report_mnist", turns[0]["launches"],
+                  {"softmax_argmax_cifar": steps})
+    med = {side: [float(np.median(t["step_ms"])) for t in turns
+                  if t["side"] == side and t["chunk"] == 1]
+           for side in (True, False)}
+    fire = [t["fire_ms"] for t in turns if t["side"]]
+    pub = [t["publish_ms"] for t in turns if t["side"]]
+    say(f"  report arm, MNIST 784-100-10 f32 B={MNIST_BATCH}, "
+        f"{REPORT_EPOCHS} epochs a turn, graphed, render thread "
+        f"{'on' if render else 'off (no matplotlib: --no-graphics)'}: "
+        f"captures {[t['captures'] for t in turns]} by turn (side units "
+        f"{[t['side'] for t in turns]}, chunk {[t['chunk'] for t in turns]}"
+        f"), the parameters bit-equal with and without the side units, "
+        f"{turns[0]['events']} events.jsonl lines a run, the report fired "
+        f"once under run and under run_chunked({REPORT_TURNS[-1][1]}), its "
+        f"plots {turns[0]['pngs']}")
+    say(f"  report arm on {card}: step ms (CUDA events, median of the "
+        f"epochs a turn) with the side units {[f'{v:.4f}' for v in med[True]]}"
+        f", without {[f'{v:.4f}' for v in med[False]]}; by epoch "
+        + "; ".join(f"{'with' if t['side'] else 'without'}"
+                    f"{'' if t['chunk'] == 1 else ' chunked'} "
+                    f"{[round(v, 4) for v in t['step_ms']]}"
+                    for t in turns))
+    say(f"  report arm on {card}: host ms of one epoch's firing of the "
+        f"four plotters (their reads back and submits) "
+        f"{[round(v, 3) for v in fire]}; the publisher's report "
+        f"{[round(v, 2) for v in pub]} ms; host s a turn "
+        f"{[round(t['host_s'], 3) for t in turns]}")
+    return turns[0]["launches"]
+
+
+def plotter_events(tmp: str, name: str) -> list:
+    path = os.path.join(tmp, "plots", "events.jsonl")
+    return [e for e in map(json.loads, open(path)) if e["name"] == name]
+
+
+def hits_and_hist_arm(card: str, render: bool, device=None) -> dict:
+    """(b) ``KohonenHits`` on the kohonen sample and ``MSEHistogram`` on
+    mnist_ae, each on a short graphed run: the hit map read at each
+    epoch's last step (between the region and the decision, which zeroes
+    the hits) sums to the epoch's samples, the histogram's counts to the
+    minibatch, and neither adds a capture."""
+    import numpy as np
+    from znicz_tpu_torch import graphics
+    from znicz_tpu_torch.models.samples import kohonen, mnist_ae
+    from znicz_tpu_torch.mutable import Bool
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.ops.nn_plotting_units import (KohonenHits,
+                                                       MSEHistogram)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="hits_")
+    try:
+        wf = make_mlp(kohonen, device=device, max_epochs=HITS_EPOCHS)
+        report_root(tmp, render)
+        hits = KohonenHits(wf, name="kohonen_hits")
+        hits.link_attrs(wf.forward, ("input", "hits"), two_way=False)
+        hits.shape_grid = wf.forward.shape_grid
+        region = wf._region_unit
+        wf.decision.unlink_from(region)
+        hits.link_from(region)
+        wf.decision.link_from(hits)
+        loader = wf.loader
+        hits.gate_skip = Bool._derived(lambda: not bool(loader.epoch_ended))
+        before = metrics.graph_captures("som_region").value
+        reset_counts()
+        wf.run()
+        out["report_kohonen"] = read_counts()
+        if not graphics.flush_server():
+            raise AssertionError("the render thread did not drain")
+        sums = [int(np.sum(e["data"]))
+                for e in plotter_events(tmp, "kohonen_hits")]
+        captures = (wf.region.captures,
+                    metrics.graph_captures("som_region").value - before)
+        say(f"  KohonenHits on kohonen ({HITS_EPOCHS} epochs graphed, "
+            f"{loader.total_samples} samples an epoch, an 8 × 8 map): hit "
+            f"map sums {sums} by epoch; captures {captures[0]} (counter "
+            f"{captures[1]:.0f})")
+        keys = 2 if wf.region.graphed else 0
+        if sums != [loader.total_samples] * HITS_EPOCHS \
+                or captures != (keys, keys):
+            raise AssertionError("kohonen hits: the hit map or the "
+                                 "captures are wrong")
+        expect_counts("report_kohonen", out["report_kohonen"], {})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="hist_")
+    try:
+        wf = make_ae(mnist_ae, device=device, max_epochs=AE_HIST_EPOCHS)
+        report_root(tmp, render)
+        hist = MSEHistogram(wf, name="mse_hist")
+        hist.link_attrs(wf.forwards[-1], "output", two_way=False)
+        hist.link_attrs(wf.evaluator, "target", two_way=False)
+        wf._epoch_side_unit(hist)
+        before = metrics.graph_captures("train_region").value
+        reset_counts()
+        wf.run()
+        out["report_mnist_ae"] = read_counts()
+        if not graphics.flush_server():
+            raise AssertionError("the render thread did not drain")
+        counts = [int(np.sum(e["data"]))
+                  for e in plotter_events(tmp, "mse_hist")]
+        batch = wf.loader.max_minibatch_size
+        captures = (wf.region.captures,
+                    metrics.graph_captures("train_region").value - before)
+        say(f"  MSEHistogram on mnist_ae ({AE_HIST_EPOCHS} epoch graphed, "
+            f"B = {batch}): the histogram's counts sum to {counts}; "
+            f"captures {captures[0]} (counter {captures[1]:.0f})")
+        keys = 3 if wf.region.graphed else 0
+        if counts != [batch] * AE_HIST_EPOCHS or captures != (keys, keys):
+            raise AssertionError("mse histogram: the counts or the "
+                                 "captures are wrong")
+        expect_counts("report_mnist_ae", out["report_mnist_ae"], {})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def splitter_arm(card: str, device=None) -> None:
+    """(c) ``ChannelSplitter`` in a captured region on the card: the
+    source and the splitter captured once, each replay's outputs
+    bit-equal to ``numpy_run`` on the same planes at the addresses of the
+    capture, and an output rebound after the capture refused by the next
+    replay."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.accelerated_units import AcceleratedUnit, JitRegion
+    from znicz_tpu_torch.dummy import DummyUnit, DummyWorkflow
+    from znicz_tpu_torch.ops.aux_units import ChannelSplitter
+
+    class Planes(AcceleratedUnit):
+        def __init__(self, workflow, x):
+            super().__init__(workflow, name="planes")
+            self.x = x
+            self.output = torch.empty_like(x)
+
+        def device_run(self):
+            torch.mul(self.x, 2.0, out=self.output)
+
+    wf = DummyWorkflow(device="cuda" if device is None else device)
+    dev = wf.device.torch_device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    x = torch.randn(SPLIT_SHAPE, generator=gen, device=dev)
+    src = Planes(wf, x)
+    src.initialize(device=wf.device)
+    split = ChannelSplitter(wf, groups=SPLIT_GROUPS, name="splitter")
+    split.link_attrs(src, ("input", "output"))
+    split.initialize(device=wf.device)
+    region = JitRegion("split_region", [src, split], wf.device)
+    ptrs = [v.devmem.data_ptr() for v in split.outputs]
+    for step in range(SPLIT_REPLAYS):
+        x.normal_(generator=gen)
+        region.run()
+        planes = src.output.cpu().numpy()
+        owf = DummyWorkflow(device="numpy")
+        oracle = ChannelSplitter(owf, groups=SPLIT_GROUPS)
+        oracle.link_attrs(DummyUnit(owf, output=planes), ("input", "output"))
+        oracle.initialize(device="numpy")
+        oracle.run()
+        for i, (got, want) in enumerate(zip(split.outputs, oracle.outputs)):
+            got.map_read()
+            if not np.array_equal(got.mem, want.mem):
+                raise AssertionError(f"splitter: replay {step}, group {i} "
+                                     f"differs from numpy_run")
+        if [v.devmem.data_ptr() for v in split.outputs] != ptrs:
+            raise AssertionError("splitter: an output moved")
+    graphed = region.graphed
+    if region.captures != (1 if graphed else 0):
+        raise AssertionError(f"splitter: {region.captures} captures")
+    split.out1._devmem = split.out1._devmem.clone()
+    refused = False
+    try:
+        region.run()
+    except RuntimeError as exc:
+        refused = "rebound" in str(exc)
+    if graphed and not refused:
+        raise AssertionError("splitter: a rebound output was not refused")
+    say(f"  ChannelSplitter {SPLIT_SHAPE} → groups {list(SPLIT_GROUPS)} in a "
+        f"region on {card}: {region.captures} capture, {SPLIT_REPLAYS} "
+        f"steps bit-equal to numpy_run at the captured addresses, a "
+        f"rebound output refused by the next replay: {refused}")
+
+
+def forge_arm(card: str, device=None) -> dict:
+    """(d) Wine trained graphed and packaged as v1.0.0 and, perturbed, as
+    v1.1.0; both uploaded to a ``ForgeServer`` on 127.0.0.1; the newest
+    fetched by ``ForgeClient`` and served by ``ExportedModel`` (graphed
+    buckets on the card) bit-equal to the bundle exported directly;
+    ``fleet.model_corrupt`` fired once: v1.1.0 quarantined, the fetch
+    falling back to v1.0.0, counted on
+    ``znicz_recoveries_total{kind=forge_fallback}``, served bit-equal to
+    v1.0.0's direct bundle.  The package, upload and fetch times on the
+    host clock."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch import datasets
+    from znicz_tpu_torch.export import ExportedModel
+    from znicz_tpu_torch.forge import (ForgeClient, ForgeRegistry,
+                                       ForgeServer, extract_model, package,
+                                       read_manifest)
+    from znicz_tpu_torch.models.samples import wine
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.utils.config import root
+    wf = make_mlp(wine, device=device, max_epochs=FORGE_EPOCHS)
+    reset_counts()
+    wf.run()
+    out = {"report_forge_train": read_counts()}
+    expect_counts("report_forge_train", out["report_forge_train"],
+                  {"softmax_argmax_wine": FORGE_EPOCHS * WINE_STEPS})
+    x = datasets.load_wine()[0][:max(FORGE_ROWS)]
+    tmp = tempfile.mkdtemp(prefix="forge_")
+    times = {"package": [], "upload": [], "fetch": []}
+    try:
+        report_root(tmp, False)
+        bundles, direct = [], []
+        gen = torch.Generator(device=wf.device.torch_device)
+        gen.manual_seed(SEED + 22)
+        for i, version in enumerate(FORGE_VERSIONS):
+            if i:  # the perturbed twin
+                with torch.no_grad():
+                    for u in wf.forwards:
+                        u.weights.add_(1e-2 * torch.randn(
+                            u.weights.shape, generator=gen,
+                            device=u.weights.device))
+            t0 = time.perf_counter()
+            bundles.append(package(wf, os.path.join(
+                tmp, f"wine-{version}.forge.tar.gz"), version=version))
+            times["package"].append(time.perf_counter() - t0)
+            direct.append(wf.export_forward(os.path.join(
+                tmp, f"direct-{version}.npz")))
+        registry = ForgeRegistry(os.path.join(tmp, "registry"))
+        server = ForgeServer(registry, port=0, host="127.0.0.1")
+        try:
+            client = ForgeClient(f"http://127.0.0.1:{server.port}")
+            for bundle in bundles:
+                t0 = time.perf_counter()
+                client.upload(bundle)
+                times["upload"].append(time.perf_counter() - t0)
+
+            def fetch_and_serve(label):
+                t0 = time.perf_counter()
+                fetched = client.fetch("wine", os.path.join(tmp, label))
+                times["fetch"].append(time.perf_counter() - t0)
+                version = read_manifest(fetched)["version"]
+                model_path = extract_model(fetched,
+                                           os.path.join(tmp, label))
+                return version, model_path
+
+            def replies(path):
+                model = ExportedModel.load(path, device=device)
+                model.warmup()
+                got = {n: model(x[:n]) for n in FORGE_ROWS}
+                return got, model.captures, model.graphed
+
+            reset_counts()
+            served = []
+            version, path = fetch_and_serve("newest")
+            served.append((version, replies(path), replies(direct[1])))
+            r0 = metrics.recoveries("forge_fallback").value
+            f0 = metrics.snapshot_failures("forge").value
+            root.common.engine.faults = {"fleet.model_corrupt": {"at": [1]}}
+            try:
+                version, path = fetch_and_serve("fallback")
+                fired = root.common.engine.faults.counts()
+            finally:
+                root.common.engine.faults = None
+            served.append((version, replies(path), replies(direct[0])))
+            out["report_forge_serve"] = read_counts()
+            recovered = metrics.recoveries("forge_fallback").value - r0
+            failed = metrics.snapshot_failures("forge").value - f0
+            quarantine = sorted(os.listdir(os.path.join(
+                tmp, "registry", "wine", "quarantine")))
+            listed = client.list()
+        finally:
+            server.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (version, (got, caps, graphed), (want, _, _)), expect in zip(
+            served, reversed(FORGE_VERSIONS)):
+        bad = [n for n in FORGE_ROWS if not np.array_equal(got[n], want[n])]
+        if version != expect or bad:
+            raise AssertionError(f"forge: served {version} (want {expect}), "
+                                 f"rows {bad} differ from the direct "
+                                 f"bundle's")
+    if fired != {"fleet.model_corrupt": 1} or (recovered, failed) != (1, 1) \
+            or quarantine != ["1.1.0.forge.tar.gz",
+                              "1.1.0.forge.tar.gz.sha256"] \
+            or listed != {"wine": ["1.0.0"]}:
+        raise AssertionError(f"forge: fired {fired}, recoveries "
+                             f"{recovered}, failures {failed}, quarantine "
+                             f"{quarantine}, listed {listed}")
+    serve = out["report_forge_serve"]
+    expect_only("report_forge_serve", serve, "softmax_argmax_wine")
+    say(f"  forge: Wine ({FORGE_EPOCHS} epochs graphed) packaged as "
+        f"{FORGE_VERSIONS[0]} and, perturbed, {FORGE_VERSIONS[1]}, uploaded "
+        f"to ForgeServer on 127.0.0.1; the newest fetched and served by "
+        f"ExportedModel on {card} ({served[0][1][1]} graphed buckets: "
+        f"{served[0][1][2]}), replies of {list(FORGE_ROWS)} rows bit-equal "
+        f"to the bundle exported directly; fleet.model_corrupt fired "
+        f"{fired}: {quarantine} quarantined, the fetch fell back to "
+        f"{served[1][0]} (bit-equal), forge_fallback recoveries +"
+        f"{recovered:.0f}, forge failures +{failed:.0f}; B4 launches while "
+        f"serving {serve['softmax_argmax_wine']}")
+    say(f"  forge on {card}'s host: package ms "
+        f"{[round(1e3 * v, 2) for v in times['package']]}, upload ms "
+        f"{[round(1e3 * v, 2) for v in times['upload']]}, fetch ms "
+        f"{[round(1e3 * v, 2) for v in times['fetch']]} (host clock)")
+    return out
+
+
+def report_pass(card: str, device=None) -> dict:
+    """Phase 21: the probe, then arms (a)–(d).  Returns the launches by
+    path."""
+    from znicz_tpu_torch import graphics
+    found = graphics_probe()
+    say(f"  graphics libraries on this machine: {found}")
+    render = found["matplotlib"] is not None
+    if not render:
+        say("  no matplotlib: the plotters run with the render thread off, "
+            "as --no-graphics runs them, and no PNG may be claimed")
+    if found["zmq"] is None:
+        say("  no pyzmq: the live-viewer arm (GraphicsClient) is skipped; "
+            "ForgeServer needs neither library")
+    else:
+        zmq_arm(card, render)
+    paths = {"report_mnist": report_arm(card, render, device)}
+    paths.update(hits_and_hist_arm(card, render, device))
+    splitter_arm(card, device)
+    paths.update(forge_arm(card, device))
+    graphics.reset_server()
+    return paths
+
+
+def zmq_arm(card: str, render: bool) -> None:
+    """The live-viewer channel: a PUB server on 127.0.0.1 and a SUB client
+    in this process, a payload received (and drawn with matplotlib)."""
+    import numpy as np
+    from znicz_tpu_torch.graphics import GraphicsClient, GraphicsServer
+    tmp = tempfile.mkdtemp(prefix="zmq_")
+    try:
+        srv = GraphicsServer(out_dir=os.path.join(tmp, "srv"), render=False,
+                             publish_port=0)
+        cli = GraphicsClient(srv.endpoint, out_dir=os.path.join(tmp, "cli"))
+        try:
+            got = False
+            for _ in range(50):
+                srv.submit({"kind": "image", "name": "live",
+                            "data": np.eye(8)})
+                if render:
+                    got = cli.poll_once(200)
+                elif cli._sub.poll(200):  # received; drawing needs matplotlib
+                    _topic, blob = cli._sub.recv_multipart()
+                    got = pickle.loads(blob)["name"] == "live"
+                if got:
+                    break
+        finally:
+            cli.close()
+            srv.stop()
+        if not got:
+            raise AssertionError("zmq: the client received nothing")
+        say(f"  zmq: a payload published on {srv.endpoint} received by "
+            f"GraphicsClient"
+            + (" and drawn" if render else " (not drawn: no matplotlib)"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8769,6 +9395,14 @@ def main() -> int:
     t20 = time.perf_counter()
     paths["disagg"] = disagg_pass(smi, KEPT["decode_lm"], KEPT["lstm"])
     say(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    say("phase 21: the report chain — the plotters, the report publisher, "
+        "the aux units and the forge on the graphed step")
+    t21 = time.perf_counter()
+    GUARD_STATES.clear()  # phase 21's workflows only
+    paths.update(report_pass(smi))
+    expect_no_anomalies("phase 21")
+    say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

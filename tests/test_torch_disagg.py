@@ -249,6 +249,26 @@ def test_scale_up_and_repair_capture_nothing(lm_bundle, fake_graphs):
     assert got == regen == [oracle(lm_bundle, p, 5) for p in prompts]
 
 
+def test_dispatch_logits_are_the_callers_own(lm_bundle, fake_graphs):
+    """C19: a replay's output is the program's buffer, so the logits a
+    dispatch returns must be a copy: with the stand-in for the CUDA graph
+    API, a second dispatch of the same program (another worker's, once
+    the dispatch lock is released) leaves the first caller's logits as
+    they were."""
+    model = DecodeModel(lm_bundle, device="cpu", n_caches=1, **GEOMETRY)
+    model.warmup()
+    first = model.run_prefill(np.array([1, 2, 3], np.int32), 0)
+    kept = first.copy()
+    second = model.run_prefill(np.array([5, 4, 7], np.int32), 1)
+    assert not np.array_equal(second, kept)
+    np.testing.assert_array_equal(first, kept)
+    steps = [model.run_decode(np.array([t, 2], np.int32),
+                              np.array([0, 1], np.int32),
+                              np.array([3, 3], np.int32))
+             for t in (1, 9)]
+    assert not np.array_equal(steps[0], steps[1])
+
+
 def test_rebound_staging_tensor_refused_by_the_next_replay(lm_bundle,
                                                            fake_graphs):
     model = DecodeModel(lm_bundle, device="cpu", n_caches=1, **GEOMETRY)

@@ -41,8 +41,8 @@ from znicz_tpu_torch.utils.snapshotter import Snapshotter
 PKG = pathlib.Path(__file__).resolve().parent.parent / "znicz_tpu_torch"
 
 #: the sites whose modules the port has not ported yet, by the ROADMAP
-#: item that owns each (ROADMAP.md, queue A)
-UNFIRED = {"fleet.model_corrupt": "A13"}
+#: item that owns each (ROADMAP.md, queue A): none is left
+UNFIRED: dict[str, str] = {}
 
 
 @pytest.fixture(autouse=True)
@@ -179,7 +179,8 @@ def test_every_ported_site_has_a_live_fire_call():
         "fleet.tenant_flood": {"fleet.py"},
         "fleet.replica_loss": {"fleet.py"},
         "aotcache.corrupt": {"aot_cache.py"},
-        "disagg.handoff_drop": {"disagg.py"}}
+        "disagg.handoff_drop": {"disagg.py"},
+        "fleet.model_corrupt": {"forge.py"}}
     assert set(UNFIRED.values()) <= {"A13"}
 
 

@@ -23,8 +23,8 @@ against the reference's, on the CPU: the cases of
   snapshot the gang names (a stub worker beating into the channel).
 
 The reference's ``rows_quarantined``/``/readyz`` and ``build_info``
-cases test its web status page, which the port does not have (ROADMAP
-A13).
+cases test its web status page; the port's page is held to them in
+``tests/test_torch_web_status.py``.
 """
 
 from __future__ import annotations

@@ -324,8 +324,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     # quantizer (host-only modules the port copies), decode, the
     # parallel package (its host-only code copied too), the input
     # plane, resilience (the guard, the sentinel, the publisher, the
-    # supervisors and the drill worker) and the operations plane (the
-    # fleet, the kernel-library store, the federator, the web page)
+    # supervisors and the drill worker), the operations plane (the
+    # fleet, the kernel-library store, the federator, the web page) and
+    # the report chain (the graphics server, the plotters, the report
+    # publisher, the aux units, the forge, the fixtures, the shell)
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
@@ -336,7 +338,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                                 "publisher", "supervisor",
                                 "elastic_worker", "fleet", "aot_cache",
                                 "federation", "web_status",
-                                "introspect")} \
+                                "introspect", "graphics", "plotting_units",
+                                "nn_plotting_units", "aux_units",
+                                "publishing", "forge", "dummy",
+                                "interaction")} \
         <= {p.name for p in files}
     assert REPO / "znicz_tpu_torch" / "resilience" / "supervisor.py" in files
     # the input plane, the native pool's loader among them

@@ -20,8 +20,8 @@ exit until it holds (``_until``, whose limit only stops a hung test),
 and the supervisors' own timeouts are set far past what a loaded
 machine needs, except the stall bound, which is what the stall drill
 measures.  The reference's ``/readyz`` case reads its web status page
-(ROADMAP A13) and its ``jax.distributed`` bring-up cases are the
-reference's own.
+(the port's is held to it in ``tests/test_torch_web_status.py``) and
+its ``jax.distributed`` bring-up cases are the reference's own.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The port's web status page (``znicz_tpu_torch/web_status.py``) on
 the CPU, with the reference's cases: ``tests/test_web_shell.py``'s web
-tests (its shell tests belong to ROADMAP A13's ``interaction.py``), and
+tests (its shell tests are ``tests/test_torch_shell.py``'s), and
 the ``/healthz`` and ``/readyz`` tests of ``tests/test_resilience_
 serving.py``, ``tests/test_swap.py``, ``tests/test_integrity.py`` and
 ``tests/test_supervisor.py``.

@@ -32,8 +32,10 @@ the model-parallel layers over M of them::
     python -m znicz_tpu_torch wine -b cpu --listen 127.0.0.1:29500 --nodes 2 --process-id 0
     python -m znicz_tpu_torch wine -b cpu --master 127.0.0.1:29500 --nodes 2 --process-id 1
 
-The reference's search and dashboard flags are in the parser and raise,
-naming the ROADMAP item that ports them.
+``--no-graphics`` turns the plotters' render thread off (they still
+log ``events.jsonl``), for a machine without matplotlib.  The
+reference's search flags (``--optimize``, a ``Tune(...)`` leaf) are in
+the parser and raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -143,6 +145,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "--root cifar.learning_rate=0.01")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="debug-level logging")
+    p.add_argument("--no-graphics", action="store_true",
+                   help="disable the plotting render thread")
     p.add_argument("--web-status", type=int, metavar="PORT",
                    help="serve the live status page on PORT for the run "
                         "(0: a free port)")
@@ -210,7 +214,8 @@ class Main(Logger):
                             process_id=args.process_id,
                             n_model=args.n_model,
                             web_status=args.web_status,
-                            web_status_host=args.web_status_host)
+                            web_status_host=args.web_status_host,
+                            graphics=False if args.no_graphics else None)
         self.launcher = launcher  # for tests and embedding callers
         if args.dry_run or args.dump_graph:
             def initialize_only(**kwargs):

@@ -50,7 +50,12 @@ workflow on the device, loads the staged state and trains it.
   workflow registered; :attr:`Launcher.web_server` is the server, kept
   after the run for its caller to stop.
 
-Not ported yet: the graphics server (A13); it is not offered.
+- ``graphics``: ``False`` turns the plotters' render thread off for the
+  run (``root.common.graphics.render``; the plotters still log
+  ``events.jsonl``), ``True`` turns it on and starts the process's
+  graphics server (:func:`znicz_tpu_torch.graphics.get_server`) before
+  the workflow runs; ``None`` leaves the config as it is.  The CLI's
+  ``--no-graphics`` passes ``False``.
 """
 
 from __future__ import annotations
@@ -84,7 +89,8 @@ class Launcher(Logger):
                  process_id: int | None = None, n_model: int = 1,
                  chunk: int | None = None, n_seq: int = 1,
                  web_status: int | None = None,
-                 web_status_host: str = "127.0.0.1") -> None:
+                 web_status_host: str = "127.0.0.1",
+                 graphics: bool | None = None) -> None:
         super().__init__()
         if listen and master:
             raise ValueError("--listen and --master are exclusive")
@@ -106,6 +112,7 @@ class Launcher(Logger):
         self.web_status = web_status  # a port (0: a free one) or None
         self.web_status_host = web_status_host
         self.web_server = None
+        self._graphics = graphics
         self.workflow = None
         self.device = None
         self._snapshot_state: dict | None = None
@@ -238,6 +245,11 @@ class Launcher(Logger):
     def run_workflow(self, workflow, **kwargs):
         """Initialize, load the staged snapshot, then run, with the
         signal handlers that write the emergency snapshot."""
+        if self._graphics is not None:
+            root.common.graphics.render = bool(self._graphics)
+            if self._graphics:
+                from znicz_tpu_torch import graphics
+                graphics.get_server()
         if self.web_status is not None and self.web_server is None \
                 and self.is_master:
             from znicz_tpu_torch.web_status import WebStatusServer

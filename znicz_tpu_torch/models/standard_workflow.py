@@ -86,9 +86,16 @@ anomalous steps in a row.  With the fingerprints
 :meth:`link_weight_publisher` publishes the forward chain into a
 serving handoff directory every N epochs.
 
-Not ported with it (later slices): the population engine's
-``promote_lr_leaves`` (A13), the plotters and the report publisher
-(A13).
+The observability side units are host units after the decision, never
+members of the region: :meth:`link_error_plotter`,
+:meth:`link_confusion_plotter`, :meth:`link_weights_plotter` and
+:meth:`link_shell` fire once an epoch, :meth:`link_publisher` once, when
+the decision raises ``complete``.  Each reads what it shows back from
+the device after the step's graph has run and binds nothing the graph
+reads, so linking them captures nothing more.
+
+Not ported with it (a later slice): the population engine's
+``promote_lr_leaves`` (A13b).
 """
 
 from __future__ import annotations
@@ -416,6 +423,71 @@ class StandardWorkflow(AcceleratedWorkflow):
         self.image_saver = s
         return s
 
+    # -- the observability side units (host units after the decision) ----
+    def _epoch_side_unit(self, unit) -> None:
+        """``unit`` after the decision, at each epoch's end."""
+        decision = self.decision
+        unit.link_from(decision)
+        self._relink_end_point_last()
+        unit.gate_skip = Bool._derived(lambda: not decision.epoch_ended)
+
+    def link_error_plotter(self, server=None):
+        """The error curves of each sample class, one point an epoch (the
+        reference's; the decision's ``epoch_n_err_pt``, or ``epoch_mse``
+        with the MSE loss)."""
+        from znicz_tpu_torch.loader.base import CLASS_NAME
+        from znicz_tpu_torch.plotting_units import AccumulatingPlotter
+        p = AccumulatingPlotter(self, name="error_plotter",
+                                server=server, ylabel="error %")
+        metric = ("epoch_n_err_pt" if self.loss == "softmax"
+                  else "epoch_mse")
+        for cls in range(3):
+            p.add_series(
+                CLASS_NAME[cls],
+                lambda cls=cls: (getattr(self.decision, metric)[cls]
+                                 if self.loader.class_lengths[cls] else None))
+        self._epoch_side_unit(p)
+        self.error_plotter = p
+        return p
+
+    def link_confusion_plotter(self, klass: int = 1, server=None):
+        """The confusion matrix of the validation set (or of ``klass``) as
+        a heatmap; the evaluator must count it
+        (``evaluator_config={"compute_confusion": True}``)."""
+        from znicz_tpu_torch.plotting_units import MatrixPlotter
+        if not getattr(self.evaluator, "compute_confusion", False):
+            raise ValueError(
+                "confusion plotter needs the evaluator built with "
+                "compute_confusion=True (pass evaluator_config)")
+        p = MatrixPlotter(
+            self, name="confusion_matrix", server=server,
+            fetch=lambda: self.decision.confusion_matrixes[klass])
+        self._epoch_side_unit(p)
+        self.confusion_plotter = p
+        return p
+
+    def link_weights_plotter(self, layer: int = 0, sample_shape=None,
+                             server=None):
+        """A layer's weight columns as a tiled image
+        (:class:`~znicz_tpu_torch.ops.nn_plotting_units.Weights2D`)."""
+        from znicz_tpu_torch.ops.nn_plotting_units import Weights2D
+        p = Weights2D(self, name=f"weights2d_l{layer}", server=server,
+                      sample_shape=sample_shape)
+        p.link_attrs(self.forwards[layer], ("input", "weights"),
+                     two_way=False)
+        self._epoch_side_unit(p)
+        self.weights_plotter = p
+        return p
+
+    def link_shell(self, **config):
+        """An interactive console once an epoch
+        (:class:`~znicz_tpu_torch.interaction.Shell`)."""
+        from znicz_tpu_torch.interaction import Shell
+        s = Shell(self, name="shell", **config)
+        self._epoch_side_unit(s)
+        self.shell = s
+        return s
+
     def link_weight_publisher(self, **config):
         """Publish the trained forward chain every N epochs into a
         serving handoff directory (the reference's; a serving process's
@@ -424,12 +496,22 @@ class StandardWorkflow(AcceleratedWorkflow):
         ``directory``, ``prefix``, ``every_n_epochs``, ``quantize``,
         ``calib``.  It fires after the decision at each epoch's end."""
         from znicz_tpu_torch.resilience.publisher import WeightPublisher
-        decision = self.decision
         p = WeightPublisher(self, name="weight_publisher", **config)
+        self._epoch_side_unit(p)
+        self.weight_publisher = p
+        return p
+
+    def link_publisher(self, **config):
+        """The post-training report
+        (:class:`~znicz_tpu_torch.publishing.Publisher`): it fires once,
+        when the decision raises ``complete``."""
+        from znicz_tpu_torch.publishing import Publisher
+        decision = self.decision
+        p = Publisher(self, name="publisher", **config)
         p.link_from(decision)
         self._relink_end_point_last()
-        p.gate_skip = Bool._derived(lambda: not decision.epoch_ended)
-        self.weight_publisher = p
+        p.gate_skip = Bool._derived(lambda: not decision.complete)
+        self.publisher = p
         return p
 
     def build_shadow(self) -> "StandardWorkflow":

@@ -1287,8 +1287,13 @@ class DecodeModel(Logger):
             return prog.body()
 
     def _logits(self, out, n: int | None = None) -> np.ndarray:
+        """The caller's own f32 host copy of a dispatch's logits.  Always
+        a copy: a replay's output is the program's buffer, which another
+        thread's next dispatch overwrites once the dispatch lock is
+        released (C19: on the CPU ``.cpu()`` returns that buffer
+        itself)."""
         out = out if n is None else out[:n]
-        return out.float().cpu().numpy()
+        return out.detach().to("cpu", torch.float32, copy=True).numpy()
 
     def prefill_program(self, t_bucket: int) -> _Program:
         trash = self.cache.trash_slot

@@ -46,9 +46,9 @@ GPU).  Decode replicas each build their engine on the same device.
 Drill sites (:mod:`znicz_tpu_torch.resilience.faults`):
 ``fleet.tenant_flood`` (a burst on one tenant at :meth:`FleetEngine.
 tick`) and ``fleet.replica_loss`` (a live replica killed: routing
-steers around it and the autoscaler repairs the group).  The
-reference's ``fleet.model_corrupt`` fires in its model registry
-(``forge.py``, ROADMAP A13).
+steers around it and the autoscaler repairs the group).
+``fleet.model_corrupt`` fires in the model registry
+(:meth:`znicz_tpu_torch.forge.ForgeRegistry.fetch`).
 
 Telemetry: ``znicz_fleet_requests_total{tenant,event}``,
 ``znicz_fleet_latency_seconds`` and ``znicz_fleet_latency_p99_seconds``,

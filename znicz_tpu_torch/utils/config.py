@@ -96,6 +96,10 @@ def _default_root() -> Config:
         "~/.cache/znicz_tpu/datasets")
     r.common.dirs.images = os.path.expanduser(
         "~/.cache/znicz_tpu_torch/images")
+    r.common.dirs.plots = os.path.expanduser(
+        "~/.cache/znicz_tpu_torch/plots")
+    r.common.graphics.render = True       # draw PNGs in the render thread
+    r.common.graphics.publish_port = None  # zmq PUB port for live clients
     return r
 
 
