@@ -424,8 +424,29 @@ Phases (any failure raises and exits non-zero):
    the bundle exported directly, ``fleet.model_corrupt`` quarantining it
    and the fetch falling back (counted); package, upload and fetch
    times.
+22. the population engine (``znicz_tpu_torch.population``): (a) MNIST
+   784-100-10 (f32, B = 100) as K = 8 members (seeds ``SEED`` + i,
+   no evolution) for 2 epochs, the K members' step one CUDA graph a
+   key (3 captures), 8 B4 launches a population step; then the 8
+   members one after another as ordinary graphed runs, every member's
+   weights, bias and momentum bit-equal to its slice and its best
+   validation error the member's fitness; the population step against
+   one member's step (CUDA events, medians, in turns); (b) the blobs net
+   of ``tests/test_population.py`` with dropout, K = 3 for 3 epochs,
+   bit-equal to 3 sequential runs (B3's seed chains a member); (c)
+   (a)'s population for 3 epochs with PBT and with GA, each twice from
+   one seed: the history, the rates and the weights equal, each PBT
+   loser's leaves its donor's before the explore, no capture after a
+   generation; (d) ``train_drafter`` at phase 15's drafter geometry on
+   its training data (K = 4, PBT every 2 epochs, a step budget), the
+   best member published into a temporary directory and served as phase
+   15's LM's drafter: the tokens those of the engine without
+   speculation, the acceptance rate beside phase 15's drafter's; (e)
+   ``python -m znicz_tpu_torch wine --optimize 2x4`` with a
+   ``Tune(...)`` learning rate in a child process on the card: exit 0,
+   the best genome in range.
 
-Each path of phases 3–21 runs with every launch counter set to 0 just
+Each path of phases 3–22 runs with every launch counter set to 0 just
 before it and read just after, and every B3 and B4 launch on them must
 take the route rebuilt for Hopper.  After each of phases 3–17 the state
 of every anomaly guard built in it is read: a step skipped as
@@ -5321,6 +5342,12 @@ def capture_race_and_rebinding(manifest: dict, params_a: dict,
                              "caught by the replay")
 
 
+#: the clean shadow audit's batches, by rows: one batch of one row, as
+#: the numpy oracle takes ~6.5 s a row of the scorer on the card's host
+#: (the planted arm's every-batch audits after it take 2 more batches)
+AUDIT_CLEAN_ROWS = (1,)
+
+
 def audit_checks(eng, manifest: dict, x, card: str) -> None:
     """The sampled SDC shadow audit on the graphed engine: at rate 1 a
     clean run audits every batch with no mismatch; a planted
@@ -5333,16 +5360,18 @@ def audit_checks(eng, manifest: dict, x, card: str) -> None:
     eng.shadow_audit_rate = 1.0
     stats0 = dict(eng._audit_stats)
     t0 = eng._audit_seconds
-    for n in (1, 2, 3):
+    for n in AUDIT_CLEAN_ROWS:
         eng(x[:n], timeout=300)
     sdc = eng.stats()["resilience"]["sdc"]
     audited = sdc["audited"] - stats0["audited"]
     per_batch = 1e3 * (eng._audit_seconds - t0) / max(audited, 1)
-    say(f"  shadow audit at rate 1, clean: {audited} of 3 batches audited "
-        f"on the numpy oracle, {sdc['mismatched']} mismatched (rtol "
-        f"{eng.sdc_audit_rtol}), host time {per_batch:.1f} ms a batch "
-        f"(2 rows a batch on average) on {card}'s host")
-    if audited != 3 or sdc["mismatched"] != stats0["mismatched"]:
+    say(f"  shadow audit at rate 1, clean: {audited} of "
+        f"{len(AUDIT_CLEAN_ROWS)} batch(es) of {AUDIT_CLEAN_ROWS} rows "
+        f"audited on the numpy oracle, {sdc['mismatched']} mismatched (rtol "
+        f"{eng.sdc_audit_rtol}), host time {per_batch:.1f} ms a batch on "
+        f"{card}'s host")
+    if audited != len(AUDIT_CLEAN_ROWS) \
+            or sdc["mismatched"] != stats0["mismatched"]:
         raise AssertionError(f"serve_graphs: the clean audit {sdc}")
     hooked = []
     eng.on_sdc_suspect = hooked.append
@@ -6073,6 +6102,7 @@ def decode_pass(card: str) -> dict:
         say(f"  the drafter on 16 runs of the training rule (32 tokens, 24 "
             f"new): {acc} of {drafted} drafts accepted "
             f"({100 * acc / max(1, drafted):.1f} %)")
+        KEPT["draft_accept"] = (acc, drafted)  # phase 22's yardstick
         self_spec = stats["paged, self-drafted"]["speculative"]
         say(f"  self-drafted: {self_spec['accepted']} of "
             f"{self_spec['accepted'] + self_spec['rejected']} drafts "
@@ -9159,6 +9189,498 @@ def zmq_arm(card: str, render: bool) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# phase 22: the population engine
+# ----------------------------------------------------------------------
+#: (a): MNIST's members and epochs; (c): the epochs with evolution
+POP_K, POP_EPOCHS, POP_EVOLVE_EPOCHS = 8, 2, 3
+#: (b): the blobs net of tests/test_population.py
+BLOBS_K, BLOBS_EPOCHS = 3, 3
+#: (a): steps a turn of the population step against one member's
+POP_TURN_STEPS = 20
+POP_TURNS = ("population", "member", "member", "population")
+#: (d): the drafter population and its step budget (20 steps an epoch:
+#: phase 15's lone drafter needs ~1,400 steps to leave chance)
+DRAFT_K, DRAFT_POP_EPOCHS = 4, 90
+#: (d): the decode engines' geometry (small: only the tokens and the
+#: drafter's acceptance are read)
+DRAFT_GEOMETRY = {"max_slots": 4, "max_t": 256, "max_prompt": 128,
+                  "prompt_align": 64, "page_tokens": 16}
+DRAFT_LENGTHS = (1, 17, 64, 100)
+#: (e): the child's search
+OPT_SPEC, OPT_EPOCHS = "2x4", 3
+
+
+def pop_tensors(wf) -> dict:
+    """Weights, bias and both momenta of every weighted layer, by
+    ``<layer index>.<attribute>``."""
+    import torch
+    out = {}
+    for i, (fwd, gd) in enumerate(zip(wf.forwards, wf.gds)):
+        for owner, names in ((fwd, ("weights", "bias")),
+                             (gd, ("accumulated_gradient_weights",
+                                   "accumulated_gradient_bias"))):
+            for name in names:
+                t = getattr(owner, name, None)
+                if isinstance(t, torch.Tensor):
+                    out[f"{i}.{name}"] = t
+    return out
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def pop_guard_clean(label: str, trainer) -> None:
+    """No member of the population skipped a step (the guard's state is
+    member state: each member's own)."""
+    wf = trainer.template
+    if wf.anomaly_guard is None:
+        return
+    st = trainer.region.read_leaf(wf.anomaly_guard.anomaly_state)
+    if st[:, 1:].any():
+        raise AssertionError(f"{label}: anomalous member steps (streak, "
+                             f"loss, grad) {st.tolist()}")
+
+
+def blobs_build(**kw):
+    """The blobs net of ``tests/test_population.py`` (dropout on)."""
+    import numpy as np
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    rng = np.random.default_rng(7)
+    centers = rng.normal(0.0, 1.0, size=(3, 10))
+    data = np.concatenate([centers[c] + 0.35 * rng.normal(size=(24, 10))
+                           for c in range(3)]).astype(np.float32)
+    labels = np.repeat(np.arange(3), 24).astype(np.int32)
+    order = rng.permutation(len(data))
+    data, labels = data[order], labels[order]
+    gd = {"learning_rate": 0.05, "gradient_moment": 0.9}
+    return StandardWorkflow(
+        name="pop_blobs", loader_factory=lambda w: ArrayLoader(
+            w, train_data=data[:48], train_labels=labels[:48],
+            valid_data=data[48:], valid_labels=labels[48:],
+            minibatch_size=12),
+        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": 16},
+                 "<-": gd},
+                {"type": "dropout", "->": {"dropout_ratio": 0.25}},
+                {"type": "softmax", "->": {"output_sample_shape": 3},
+                 "<-": gd}],
+        decision_config={"max_epochs": kw.get("max_epochs", BLOBS_EPOCHS)})
+
+
+def pop_vs_sequential(label: str, build, k: int, epochs: int,
+                      rows: dict) -> tuple:
+    """K members of ``build`` from ``SEED`` + i trained ``epochs`` epochs
+    as one population, graphed; then each member alone as an ordinary
+    graphed run, held to its slice bit for bit and its fitness to the
+    run's best validation error.  ``rows`` gives the kernels a member's
+    step launches (row → launches a step); the population's counts must
+    be at least K times them a step, and no other kernel may run.
+    Returns (trainer, the population's launches, the last member's
+    workflow)."""
+    import torch
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.population import PopulationTrainer
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import reset_root
+    reset_root()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = PopulationTrainer(build, k, base_seed=SEED, evolve=None,
+                                name=label)
+    trainer.initialize()
+    trainer.run(epochs)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    region = trainer.region
+    loader = trainer.template.loader
+    steps = epochs * len(loader._schedule)
+    captures = metrics.graph_captures(f"population:{label}").value
+    say(f"  {label}: K = {k} for {epochs} epochs ({steps} population "
+        f"steps) in {host_s:.2f} s on the host clock (builds included); "
+        f"captures {region.captures} (counter {captures:.0f}), one a key; "
+        f"best validation error by member, %: "
+        f"{[round(float(-f), 2) for f in trainer.member_best_fitness]}")
+    keys = len({cls for cls, _, _ in loader._schedule})
+    if region.captures != keys or captures != keys:
+        raise AssertionError(f"{label}: {region.captures} captures "
+                             f"(counter {captures}), want {keys}, one a key")
+    ran = {name: n for name, n in launches.items() if n}
+    say(f"  launches on the {label} population: {ran}")
+    for name, n in launches.items():
+        want = rows.get(name, 0) * k * steps
+        if (n < want) if name in rows else n:
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"want {'at least ' if rows else ''}{want}")
+    pop_guard_clean(label, trainer)
+    stacked = {name: region.read_leaf(t)
+               for name, t in pop_tensors(trainer.template).items()}
+    wf = None
+    for i in range(k):
+        reset_root()
+        prng.seed_all(SEED + i)
+        wf = build(max_epochs=epochs)
+        wf.initialize()
+        wf.run()
+        for name, t in pop_tensors(wf).items():
+            got = t.detach().float().cpu().numpy()
+            if not (got == stacked[name][i]).all():
+                raise AssertionError(
+                    f"{label}: member {i}'s {name} is not its sequential "
+                    f"run's (max_abs_err "
+                    f"{float(abs(got - stacked[name][i]).max()):.3g})")
+        fit = -wf.decision.min_validation_n_err_pt
+        if fit != trainer.member_best_fitness[i]:
+            raise AssertionError(f"{label}: member {i}'s fitness "
+                                 f"{trainer.member_best_fitness[i]}, its "
+                                 f"run's {fit}")
+    say(f"  {label}: each of the {k} members bit-equal to its sequential "
+        f"graphed run (weights, bias, momentum: {len(stacked)} tensors "
+        f"each), its fitness the run's")
+    return trainer, launches, wf
+
+
+def pop_step_turns(trainer, wf, card: str) -> dict:
+    """The population's step against one member's (``wf``, graphed), in
+    the turns of :data:`POP_TURNS`: each step between two CUDA events,
+    the train steps of the next epoch, medians."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.loader.base import TRAIN
+    region = trainer.region
+    loader = trainer.template.loader
+    out = {"population": [], "member": []}
+
+    def ahead(step, ldr):
+        while sum(1 for cls, _, _ in ldr._schedule[ldr._cursor:]
+                  if cls == TRAIN) < POP_TURN_STEPS \
+                or (ldr._cursor < len(ldr._schedule)
+                    and ldr._schedule[ldr._cursor][0] != TRAIN):
+            step()
+
+    for turn in POP_TURNS:
+        step, ldr = ((region.step, loader) if turn == "population"
+                     else (wf.step, wf.loader))
+        ahead(step, ldr)
+        events = []
+        for _ in range(POP_TURN_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        out[turn].append(float(np.median([a.elapsed_time(b)
+                                          for a, b in events])))
+    pop = float(np.median(out["population"]))
+    one = float(np.median(out["member"]))
+    k = trainer.n_members
+    say(f"  population step (K = {k}) against one member's step on "
+        f"{card}, median ms by turn (CUDA events around each call): "
+        f"population {out['population']}, member {out['member']}; "
+        f"{pop:.4f} ms against {one:.4f} ms: {pop / one:.2f} member "
+        f"steps, {pop / (k * one):.3f} of K sequential steps")
+    return {"population_ms": pop, "member_ms": one,
+            "turns": out}
+
+
+def pop_launches_a_step(trainer, name: str) -> None:
+    """One more population step: K launches of ``name``, nothing else."""
+    reset_counts()
+    trainer.region.step()
+    counts = {k: v for k, v in read_counts().items() if v}
+    say(f"  launches of one population step (K = {trainer.n_members}): "
+        f"{counts}")
+    if counts != {name: trainer.n_members}:
+        raise AssertionError(f"a population step launched {counts}, want "
+                             f"{ {name: trainer.n_members} }")
+
+
+def evolve_runs(card: str, build, strategy: str) -> dict:
+    """(a)'s population for :data:`POP_EVOLVE_EPOCHS` epochs evolving by
+    ``strategy`` every epoch, twice from one seed: the history, the rates
+    and the weights replay equal; no capture after a generation; under
+    PBT each loser's leaves (its rates aside) its donor's as they were
+    before the generation."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.observe import metrics
+    from znicz_tpu_torch.population import PopulationTrainer
+    from znicz_tpu_torch.utils.config import reset_root
+    runs, launches = [], {}
+    for run in range(2):
+        reset_root()
+        reset_counts()
+        name = f"pop_{strategy}_{run}"
+        trainer = PopulationTrainer(
+            build, POP_K, base_seed=SEED, evolve=strategy, evolve_every=1,
+            lr_bounds=(0.005, 0.3), seed=SEED + 31, name=name)
+        trainer.initialize()
+        region = trainer.region
+        checked = []
+        if strategy == "pbt":
+            apply = region.apply_evolution
+            slots = region.evolvable_slots()
+            lr_ids = {id(t) for t in region._lr_tensors}
+
+            def apply_checked(fn, fitness, gen, apply=apply, slots=slots):
+                before = [region.svec(region.leaves[j].home).clone()
+                          for j in slots]
+                draws = apply(fn, fitness, gen)
+                src = draws.src.cpu().numpy()
+                for j, was in zip(slots, before):
+                    if id(region.leaves[j].home) in lr_ids:
+                        continue
+                    now = region.svec(region.leaves[j].home)
+                    for i in np.flatnonzero(draws.explored.cpu().numpy()):
+                        if not torch.equal(now[i], was[src[i]]):
+                            raise AssertionError(
+                                f"{name}: loser {i}'s "
+                                f"{region.leaves[j].label} is not its "
+                                f"donor {src[i]}'s")
+                checked.append(int(draws.explored.sum()))
+                return draws
+            region.apply_evolution = apply_checked
+        trainer.run(POP_EVOLVE_EPOCHS)
+        torch.cuda.synchronize()
+        # every key is captured in the first epoch: a capture after a
+        # generation would be one more
+        captures = metrics.graph_captures(f"population:{name}").value
+        if captures != region.captures or captures != 3:
+            raise AssertionError(f"{name}: {captures:.0f} captures over "
+                                 f"{POP_EVOLVE_EPOCHS} epochs and "
+                                 f"{trainer.generations} generations, want "
+                                 f"3 (one a key)")
+        pop_guard_clean(name, trainer)
+        launches = add_counts(launches, read_counts())
+        w = region.read_leaf(trainer.template.forwards[0].weights)
+        runs.append((trainer.history, region.member_lrs(), w,
+                     trainer.generations, checked))
+        del trainer, region
+    (h0, lr0, w0, g0, c0), (h1, lr1, w1, g1, c1) = runs
+    if h0 != h1 or not np.array_equal(lr0, lr1) \
+            or not np.array_equal(w0, w1) or g0 != g1:
+        raise AssertionError(f"{strategy}: the two runs from one seed "
+                             f"differ")
+    say(f"  {strategy}: {g0} generations, two runs from one seed equal "
+        f"(history, rates {np.round(lr0, 5).tolist()}, weights); best "
+        f"fitness by epoch {[h['best'] for h in h0]}; no capture after a "
+        f"generation"
+        + (f"; losers checked against their donors: {c0}"
+           if strategy == "pbt" else ""))
+    return launches
+
+
+def drafter_arm(card: str, decode_lm: str) -> dict:
+    """(d): ``train_drafter`` at phase 15's drafter geometry and data, the
+    best member published and served as ``decode_lm``'s drafter."""
+    import numpy as np
+    import torch
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.population import train_drafter
+    from znicz_tpu_torch.utils.config import reset_root, root
+    x, y = lm_data(DEC_TRAIN + DEC_VALID, DEC_TRAIN_T, SEED + 17)
+    layers = narrowed(DECODE_LAYERS, DRAFT_DIM, DRAFT_HEADS)
+
+    def build(**kw):
+        return StandardWorkflow(
+            name="pop_drafter", loader_factory=lambda w: ArrayLoader(
+                w, train_data=x[:DEC_TRAIN], train_labels=y[:DEC_TRAIN],
+                valid_data=x[DEC_TRAIN:], valid_labels=y[DEC_TRAIN:],
+                minibatch_size=DEC_BATCH),
+            layers=[dict(spec) for spec in layers],
+            decision_config={"max_epochs": DRAFT_POP_EPOCHS})
+
+    reset_root()
+    root.common.precision_type = "bfloat16"
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        version, path, trainer = train_drafter(
+            build, DRAFT_K, publish_dir=tmp, evolve="pbt", evolve_every=2,
+            name="pop_drafter")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = read_counts()
+        steps = DRAFT_POP_EPOCHS * len(trainer.template.loader._schedule)
+        say(f"  train_drafter (K = {DRAFT_K}, D = {DRAFT_DIM}, "
+            f"{DRAFT_HEADS} heads, bf16, T = {DEC_TRAIN_T}, B = "
+            f"{DEC_BATCH}, PBT every 2 epochs): {DRAFT_POP_EPOCHS} epochs, "
+            f"{steps} population steps in {host_s:.1f} s on the host clock "
+            f"(builds included); "
+            f"best member {trainer.best_member} at "
+            f"{-trainer.best_fitness:.2f} % validation error; rates "
+            f"{np.round(trainer.region.member_lrs(), 5).tolist()}; "
+            f"published as version {version}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        pop_guard_clean("pop_drafter", trainer)
+        published_is_best(path, trainer)
+        del trainer
+        reset_root()
+        rng = np.random.default_rng(SEED + 32)
+        prompts = [[int(t) for t in rng.integers(0, LM_VOCAB, size=n)]
+                   for n in DRAFT_LENGTHS]
+        rule_runs = [[int(t) for t in (int(rng.integers(0, LM_VOCAB))
+                                       + np.arange(32)) % LM_VOCAB]
+                     for _ in range(16)]
+        edge = np.random.default_rng(SEED + 33)
+        edge_runs = [[int(t) for t in (int(edge.integers(0, LM_VOCAB))
+                                       + np.arange(DEC_TRAIN_T)) % LM_VOCAB]
+                     for _ in range(16)]
+        unshared = {"prefix_cache": False}
+        follows = {}
+        for label, bundle in (("the decode LM", decode_lm),
+                              ("the drafter alone", path)):
+            with decode_engine(bundle, DRAFT_GEOMETRY, **unshared) as eng:
+                if bundle == decode_lm:
+                    plain = generate_all(eng, prompts, CPU_NEW)
+                follows[label] = (
+                    rule_share(rule_runs, generate_all(eng, rule_runs, 24)),
+                    rule_share(edge_runs, generate_all(eng, edge_runs, 1)))
+        with decode_engine(decode_lm, DRAFT_GEOMETRY, spec_draft_k=SPEC_K,
+                           drafter=path, **unshared) as eng:
+            spec = generate_all(eng, prompts, CPU_NEW)
+            before = eng.stats()["speculative"]
+            generate_all(eng, rule_runs, 24)
+            after = eng.stats()["speculative"]
+    if spec != plain:
+        raise AssertionError("the population's drafter changed the tokens")
+    acc = after["accepted"] - before["accepted"]
+    drafted = acc + after["rejected"] - before["rejected"]
+    ref = KEPT.get("draft_accept")
+    say(f"  served as the decode LM's drafter (spec_draft_k={SPEC_K}): "
+        f"tokens equal to the engine's without speculation on "
+        f"{len(prompts)} prompts; on 16 runs of the training rule {acc} "
+        f"of {drafted} drafts accepted ({100 * acc / max(1, drafted):.1f} "
+        f"%), phase 15's drafter "
+        + (f"{ref[0]} of {ref[1]} ({100 * ref[0] / max(1, ref[1]):.1f} %)"
+           if ref else "not run"))
+    for label, ((hit, total), (e_hit, e_total)) in follows.items():
+        say(f"  {label}, greedy: {hit} of {total} new tokens follow the "
+            f"rule after 32-token rule prompts (positions 32–55, "
+            f"{100 * hit / total:.1f} %); {e_hit} of {e_total} after "
+            f"{DEC_TRAIN_T}-token ones (the one position training "
+            f"scores, {100 * e_hit / e_total:.1f} %)")
+    return launches
+
+
+def rule_share(runs, outs) -> tuple[int, int]:
+    """How many generated tokens follow the training rule (each the
+    token before it plus one, mod V), of how many."""
+    hit = total = 0
+    for prompt, out in zip(runs, outs):
+        prev = prompt[-1]
+        for tok in out:
+            hit += int(tok == (prev + 1) % LM_VOCAB)
+            total += 1
+            prev = tok
+    return hit, total
+
+
+def published_is_best(path: str, trainer) -> None:
+    """The published bundle holds the best member's parameters bit for
+    bit, as the population's stacked leaves on the card hold them."""
+    import numpy as np
+    from znicz_tpu_torch.export import read_bundle
+    _, params = read_bundle(path)
+    best, region = trainer.best_member, trainer.region
+    checked = others = 0
+    for i, unit in enumerate(trainer.template.forwards):
+        for attr in unit.EXPORT_PARAMS:
+            if not hasattr(unit, attr):
+                continue
+            key = f"layer{i}_{attr}"
+            stacked = np.asarray(region.read_leaf(getattr(unit, attr)),
+                                 dtype=np.float32)
+            if key not in params or stacked.shape != (
+                    (trainer.n_members,) + params[key].shape):
+                raise AssertionError(f"{key}: not a member leaf of the "
+                                     f"published shape")
+            if not np.array_equal(params[key].view(np.uint32),
+                                  stacked[best].view(np.uint32)):
+                raise AssertionError(f"the published {key} is not member "
+                                     f"{best}'s")
+            others += sum(not np.array_equal(stacked[m], stacked[best])
+                          for m in range(trainer.n_members) if m != best)
+            checked += 1
+    if not checked:
+        raise AssertionError("the drafter published no parameters")
+    say(f"  the published bundle: {checked} parameters bit-equal to best "
+        f"member {best}'s stacked leaves on the card ({others} "
+        f"member-parameter pairs of the others differ from them)")
+
+
+def optimize_child(card: str) -> None:
+    """(e): the genetic search through the command line, in a child
+    process on the card."""
+    cmd = [sys.executable, "-m", "znicz_tpu_torch", "wine", "--no-graphics",
+           "--optimize", OPT_SPEC, "--root", f"wine.max_epochs={OPT_EPOCHS}",
+           "--root", "wine.learning_rate=Tune(0.3, 0.05, 0.8)"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    host_s = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    found = re.search(r"best genome \(fitness ([-0-9.]+)\): "
+                      r"\{'wine\.learning_rate': ([-0-9.e]+)\}", log)
+    if proc.returncode != 0 or found is None:
+        raise AssertionError(f"--optimize exited {proc.returncode}:\n"
+                             f"{log[-6000:]}")
+    lr = float(found.group(2))
+    say(f"  python -m znicz_tpu_torch wine --optimize {OPT_SPEC} --root "
+        f"wine.max_epochs={OPT_EPOCHS} --root 'wine.learning_rate=Tune(0.3, "
+        f"0.05, 0.8)' on {card}: exit 0 in {host_s:.1f} s, best genome "
+        f"learning_rate {lr} (fitness {found.group(1)})")
+    if not 0.05 <= lr <= 0.8:
+        raise AssertionError(f"--optimize: the best rate {lr} is out of "
+                             f"its range")
+
+
+def population_pass(card: str, decode_lm: str) -> dict:
+    """Phase 22: the population engine's paths on the card; returns the
+    launches of the population runs (the ``population`` path)."""
+    from znicz_tpu_torch.models.samples import mnist
+
+    def mnist_build(**kw):
+        return mnist.build(**{"max_epochs": POP_EPOCHS, **kw})
+
+    launches = {}
+    t0 = time.perf_counter()
+    trainer, counts, wf = pop_vs_sequential(
+        "pop_mnist", mnist_build, POP_K, POP_EPOCHS,
+        {"softmax_argmax_cifar": 1})
+    launches = add_counts(launches, counts)
+    pop_launches_a_step(trainer, "softmax_argmax_cifar")
+    pop_step_turns(trainer, wf, card)
+    del trainer, wf
+    say(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trainer, counts, wf = pop_vs_sequential(
+        "pop_blobs", blobs_build, BLOBS_K, BLOBS_EPOCHS,
+        {"softmax_argmax_wine": 1, "dropout_apply": 0})
+    if not counts["dropout_apply"]:
+        raise AssertionError("pop_blobs: no dropout launch")
+    launches = add_counts(launches, counts)
+    del trainer, wf
+    say(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for strategy in ("pbt", "ga"):
+        launches = add_counts(launches, evolve_runs(card, mnist_build,
+                                                    strategy))
+    say(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = add_counts(launches, drafter_arm(card, decode_lm))
+    say(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    optimize_child(card)
+    say(f"  (e) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9403,6 +9925,15 @@ def main() -> int:
     paths.update(report_pass(smi))
     expect_no_anomalies("phase 21")
     say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    say("phase 22: the population engine — K members in one CUDA graph, "
+        "PBT and GA in place, train_drafter, --optimize")
+    t22 = time.perf_counter()
+    GUARD_STATES.clear()  # phase 22's sequential runs
+    set_graphs(True)
+    paths["population"] = population_pass(smi, KEPT["decode_lm"])
+    expect_no_anomalies("phase 22")
+    say(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -7,8 +7,8 @@ is held by a dry run here (its epochs take tens of seconds on the CPU)
 and trained on the card by ``chip_smoke.py``.  Beyond the reference's
 tests: a run resumed from a snapshot ends bit-equal to the run that was
 never interrupted (parameters, momentum, loader, decision and evaluator
-state), every flag of the reference's parser the port has not ported
-raises naming its ROADMAP item, the multi-process flags act as the
+state), the search flags that waited for a ROADMAP item act as the
+reference's now that the item is done, the multi-process flags act as the
 reference's launcher does given the same request, and with no ``-b``
 and no GPU the CLI raises instead of falling back to the CPU.
 """
@@ -320,9 +320,24 @@ def test_a_multi_process_flag_acts_as_in_the_reference(flags, kwargs,
     (["--root", "attention_seq.learning_rate=Tune(0.1, 0.01, 1.0)"], "A13"),
 ])
 def test_an_unported_flag_names_its_roadmap_item(flags, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet \\(ROADMAP {item}\\)"):
-        Main().run(["attention_seq", "-b", "cpu", *flags])
+    """The reference's search flags waited for ROADMAP ``item``, which
+    ROADMAP now marks done, and they act as the reference's:
+    ``--optimize`` with no ``Tune`` leaf in the tree returns 1, and a
+    ``Tune(...)`` leaf is read into a ``genetics.Tune`` that
+    ``--optimize`` finds."""
+    from znicz_tpu_torch.genetics import Tune, collect_tunes
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    assert f"**{item}b — done in PR " in roadmap
+    if flags[0] == "--optimize":
+        assert Main().run(["attention_seq", "-b", "cpu", *flags]) == 1
+        return
+    _apply_root_overrides(flags[1:])
+    leaf = root.attention_seq.learning_rate
+    assert isinstance(leaf, Tune)
+    assert (leaf.default, leaf.min_value, leaf.max_value) == (0.1, 0.01, 1.0)
+    assert collect_tunes(root)["attention_seq.learning_rate"] is leaf
 
 
 def test_no_backend_and_no_gpu_raises(monkeypatch):

@@ -3,8 +3,9 @@ port, on the CPU: the tests of the reference's
 ``tests/test_paged_decode.py`` through the port's ``DecodeEngine``.
 
 The bundles are the reference's fixtures (``train_and_export_lm``, the
-tiny LSTM LM, and a drafter distilled by ``train_and_export_drafter``
-with the reference's population engine); the ground truth is the
+tiny LSTM LM) and a drafter distilled as ``train_and_export_drafter``
+does, by the port's population engine (``train_drafter``); the ground
+truth is the
 step-by-step numpy oracle of ``tests/test_torch_decode.py``.  The data
 plane may only move bytes: the flat cache, the paged cache, prefix
 shared admissions, copy on write and the speculative draft/verify loop
@@ -42,15 +43,68 @@ def port_config():
     reset_root()
 
 
+def _distill_drafter(big_bundle: str, directory: str, n_members: int,
+                     epochs: int, n_chains: int, chain_tokens: int,
+                     seq_len: int = 8, seed: int = 3) -> str:
+    """The reference's ``train_and_export_drafter`` through the port: the
+    LM's own greedy chains (the port's engine on the CPU) cut into
+    (window → next token) samples, a population of small causal LMs
+    (different seeds, evolved rates) trained on them by the port's
+    ``train_drafter``, the fittest published."""
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    from znicz_tpu_torch.population import train_drafter
+
+    rng = np.random.default_rng(seed)
+    with engine(big_bundle, max_slots=8, max_t=64, max_prompt=seq_len,
+                prompt_align=4, max_new_tokens=chain_tokens,
+                paged=False) as eng:
+        futs = [eng.submit(rng.integers(0, VOCAB, size=int(ln)))
+                for ln in rng.integers(1, seq_len + 1, size=n_chains)]
+        chains = [np.asarray(f.result(timeout=600)) for f in futs]
+    xs, ys = [], []
+    for chain in chains:
+        for i in range(len(chain) - seq_len):
+            xs.append(chain[i:i + seq_len])
+            ys.append(chain[i + seq_len])
+    data = np.asarray(xs, np.float32)
+    labels = np.asarray(ys, np.int32)
+    order = rng.permutation(len(data))
+    data, labels = data[order], labels[order]
+    split = max(32, int(0.85 * len(data)))
+
+    def build(learning_rate=0.08, **kw):
+        lr = {"learning_rate": learning_rate, "gradient_moment": 0.9}
+        return StandardWorkflow(
+            name="drafter",
+            loader_factory=lambda w: ArrayLoader(
+                w, train_data=data[:split], train_labels=labels[:split],
+                valid_data=data[split:], valid_labels=labels[split:],
+                minibatch_size=32),
+            layers=[
+                {"type": "embedding", "->": {"vocab_size": VOCAB, "dim": 8},
+                 "<-": lr},
+                {"type": "pos_encoding", "->": {}},
+                {"type": "attention", "->": {"n_heads": 1, "causal": True},
+                 "<-": {**lr, "learning_rate": learning_rate / 2}},
+                {"type": "last_token", "->": {}},
+                {"type": "softmax", "->": {"output_sample_shape": VOCAB},
+                 "<-": lr},
+            ],
+            decision_config={"max_epochs": epochs})
+
+    _version, path, _trainer = train_drafter(
+        build, n_members, publish_dir=directory, device="cpu")
+    return path
+
+
 @pytest.fixture(scope="module")
 def drafter_bundle(lm_bundle, tmp_path_factory):
     """A drafter distilled from the LM's own greedy generations by the
-    reference's population engine (small: two members, two epochs)."""
-    from benchmarks.serve_bench import train_and_export_drafter
+    port's population engine (small: two members, two epochs)."""
     directory = str(tmp_path_factory.mktemp("drafter"))
-    return train_and_export_drafter(lm_bundle, directory, vocab=VOCAB,
-                                    n_members=2, epochs=2, n_chains=12,
-                                    chain_tokens=16)
+    return _distill_drafter(lm_bundle, directory, n_members=2, epochs=2,
+                            n_chains=12, chain_tokens=16)
 
 
 def oracle(man, P, prompt, n):
@@ -272,7 +326,7 @@ def test_matched_pages_survive_own_eviction_pressure(lm_bundle):
 # speculative decoding
 # ----------------------------------------------------------------------
 def test_spec_greedy_token_identical(lm_bundle, drafter_bundle):
-    """With a drafter distilled by the reference's population engine the
+    """With a drafter distilled by the port's population engine the
     speculative arm emits exactly the greedy tokens (the oracle's, and
     the reference's speculative engine's)."""
     man, P = params_of(lm_bundle)

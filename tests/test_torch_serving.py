@@ -327,7 +327,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     # supervisors and the drill worker), the operations plane (the
     # fleet, the kernel-library store, the federator, the web page) and
     # the report chain (the graphics server, the plotters, the report
-    # publisher, the aux units, the forge, the fixtures, the shell)
+    # publisher, the aux units, the forge, the fixtures, the shell) and
+    # the population engine, evolution, genetics and the ensemble
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
@@ -341,7 +342,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                                 "introspect", "graphics", "plotting_units",
                                 "nn_plotting_units", "aux_units",
                                 "publishing", "forge", "dummy",
-                                "interaction")} \
+                                "interaction", "engine", "evolution",
+                                "genetics", "ensemble")} \
         <= {p.name for p in files}
     assert REPO / "znicz_tpu_torch" / "resilience" / "supervisor.py" in files
     # the input plane, the native pool's loader among them

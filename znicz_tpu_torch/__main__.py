@@ -33,9 +33,13 @@ the model-parallel layers over M of them::
     python -m znicz_tpu_torch wine -b cpu --master 127.0.0.1:29500 --nodes 2 --process-id 1
 
 ``--no-graphics`` turns the plotters' render thread off (they still
-log ``events.jsonl``), for a machine without matplotlib.  The
-reference's search flags (``--optimize``, a ``Tune(...)`` leaf) are in
-the parser and raise, naming the ROADMAP item that ports them.
+log ``events.jsonl``), for a machine without matplotlib.
+``--optimize GENSxPOP`` runs the genetic hyper-parameter search
+(:mod:`~znicz_tpu_torch.genetics`) over every ``Tune`` leaf of the config
+tree, one trial of the sample a candidate; a leaf becomes one with
+``--root key="Tune(default, min, max)"``::
+
+    python -m znicz_tpu_torch wine -b cpu --optimize 2x3 --root wine.max_epochs=2 --root "wine.learning_rate=Tune(0.3, 0.05, 0.8)"
 """
 
 from __future__ import annotations
@@ -48,19 +52,12 @@ import logging
 import os
 import sys
 
-from znicz_tpu_torch.launcher import Launcher, not_ported
+from znicz_tpu_torch.launcher import Launcher
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import root
 from znicz_tpu_torch.utils.logger import Logger, setup_logging
 
 SAMPLES_PACKAGE = "znicz_tpu_torch.models.samples"
-
-#: flags of the reference's parser the port has not ported: attribute →
-#: (flag, what it does, the ROADMAP item that ports it)
-UNPORTED_FLAGS = {
-    "optimize": ("--optimize", "the genetic hyper-parameter search", "A13"),
-}
-
 
 def _import_module(spec: str, kind: str):
     """Import by file path, dotted name or bare sample name."""
@@ -91,12 +88,15 @@ def _apply_root_overrides(pairs: list[str]) -> None:
         key, raw = pair.split("=", 1)
         stripped = raw.strip()
         if stripped.startswith("Tune(") and stripped.endswith(")"):
-            raise not_ported(f"--root {key}=Tune(...): the genetic "
-                             f"hyper-parameter search", "A13")
-        try:
-            value = ast.literal_eval(raw)
-        except (ValueError, SyntaxError):
-            value = raw  # a plain string leaf
+            # a range for --optimize, e.g.
+            # --root wine.learning_rate="Tune(0.3, 0.05, 0.8)"
+            from znicz_tpu_torch.genetics import Tune
+            value = Tune(*ast.literal_eval(stripped[len("Tune"):]))
+        else:
+            try:
+                value = ast.literal_eval(raw)
+            except (ValueError, SyntaxError):
+                value = raw  # a plain string leaf
         node = root
         parts = key.split(".")
         if parts[0] == "root":
@@ -154,7 +154,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="address the status page binds (default "
                         "127.0.0.1)")
     p.add_argument("--optimize", metavar="GENSxPOP",
-                   help="genetic hyper-parameter search (not ported)")
+                   help="genetic hyper-parameter search over the Tune "
+                        "leaves of the config tree, e.g. --optimize 5x8")
     p.add_argument("--chunk", type=int, metavar="N",
                    help="train N steps per region dispatch "
                         "(StandardWorkflow.run_chunked)")
@@ -179,9 +180,6 @@ class Main(Logger):
     def run(self, argv: list[str] | None = None) -> int:
         args = make_parser().parse_args(argv)
         setup_logging(logging.DEBUG if args.verbose else logging.INFO)
-        for attr, (flag, what, item) in UNPORTED_FLAGS.items():
-            if getattr(args, attr) is not None:
-                raise not_ported(f"{flag}: {what}", item)
         if args.list_samples:
             print("\n".join(_list_samples()))
             return 0
@@ -233,12 +231,53 @@ class Main(Logger):
                 self.info("graph → %s", args.dump_graph)
             launcher.shutdown()
             return 0
+        if args.optimize:
+            return self._optimize(args, run_fn)
         try:
             launcher.boot(run_fn)
         except KeyboardInterrupt:
             self.warning("interrupted")
             return 130
         launcher.shutdown()
+        return 0
+
+    def _optimize(self, args, run_fn) -> int:
+        """The genetic search: every ``Tune`` leaf of the config tree
+        (outside ``root.common``) is a gene; each candidate trains a
+        fresh workflow through the sample's own ``run(load, main)``."""
+        from znicz_tpu_torch.genetics import (GeneticsOptimizer,
+                                              apply_genome, collect_tunes,
+                                              workflow_fitness)
+        gens, _, pop = args.optimize.partition("x")
+        generations, population = int(gens), int(pop or 8)
+        space = {path: tune for path, tune in collect_tunes(root).items()
+                 if not path.startswith("common.")}
+        if not space:
+            self.error("--optimize given but no Tune leaves in the config "
+                       "tree")
+            return 1
+        self.info("optimizing %d genes: %s", len(space), sorted(space))
+
+        def fitness(genome: dict) -> float:
+            # the same init and shuffle streams for every candidate:
+            # scores compare hyper-parameters, not seeds
+            prng.seed_all(int(root.common.seed))
+            # dotted genes go into the config tree, plain ones into the
+            # sample's build through the trial launcher
+            trial = Launcher(
+                backend=args.backend,
+                graphics=False if args.no_graphics else None,
+                load_kwargs=apply_genome(genome))
+            trial.boot(run_fn)
+            trial.shutdown()
+            return workflow_fitness(trial.workflow)
+
+        opt = GeneticsOptimizer(
+            space=space, fitness_fn=fitness, generations=generations,
+            population_size=population, seed=int(root.common.seed))
+        best = opt.run()
+        self.best_genome = best  # for tests and embedding callers
+        self.info("best genome (fitness %.4f): %s", opt.best_fitness, best)
         return 0
 
 

@@ -419,6 +419,61 @@ def _rebind(bindings) -> None:
             setattr(owner, name, value)
 
 
+def rebound_error(where: str, label: str) -> RuntimeError:
+    """A replay's refusal of a tensor bound anew after its capture."""
+    return RuntimeError(
+        f"{where}: {label} was rebound after the capture, whose graph "
+        f"reads and writes the tensor it held then; write it in place "
+        f"(copy_) instead")
+
+
+def check_bound(where: str, fixed) -> None:
+    """Before a replay: each ``(label, owner, name, ptr)`` still binds
+    the tensor the graph captured."""
+    for label, owner, name, ptr in fixed:
+        value = _get(owner, name)
+        if not isinstance(value, torch.Tensor) or value.data_ptr() != ptr:
+            raise rebound_error(where, label)
+
+
+def capture_graph(device: torch.device, span: str, vectors, warm_up,
+                  body) -> tuple:
+    """The capture discipline of every region's graph: ``warm_up()``
+    eagerly on a side stream, then ``body()`` captured into a new CUDA
+    graph under ``CAPTURE_LOCK``, ``vectors`` marked as traced and the
+    collector held off.  Returns ``(graph, launches, warm, captured)``:
+    the kernel launches of one replay (the capture itself counts none)
+    and what the two calls returned."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warm = warm_up()
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = launch_counts.snapshot()
+    graph = torch.cuda.CUDAGraph()
+    for vec in vectors:
+        vec._tracing = True
+    # a graph that nothing holds any more (a dropped workflow's) is
+    # destroyed when the collector finds its cycle: destroyed during a
+    # capture, it calls the driver, which invalidates the capture; so
+    # collect now, and not again until the capture has ended
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with _tracing.TRACER.span(span, cat="capture"), CAPTURE_LOCK:
+            with torch.cuda.graph(graph):
+                captured = body()
+    finally:
+        if collecting:
+            gc.enable()
+        for vec in vectors:
+            vec._tracing = False
+    launches = launch_counts.delta(before)
+    launch_counts.restore(before)  # the capture launched nothing
+    return graph, launches, warm, captured
+
+
 class JitRegion(Logger):
     """Runs an ordered chain of units as one step: replays of CUDA graphs
     captured once per static key on the card, the members in order
@@ -554,36 +609,16 @@ class JitRegion(Logger):
         """This step eagerly on a side stream (the warm-up), then the
         same chain captured into a graph for the key's later steps."""
         dev = self.device.torch_device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+
+        def warm_up():
             self._run_members(skips, checks=checks)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm = _bindings(self.units)
-        before = launch_counts.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        for vec in self._vectors:
-            vec._tracing = True
-        # a graph that nothing holds any more (a dropped workflow's) is
-        # destroyed when the collector finds its cycle: destroyed during
-        # a capture, it calls the driver, which invalidates the capture;
-        # so collect now, and not again until the capture has ended
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with _tracing.TRACER.span(f"capture:{self.name}",
-                                      cat="capture"), CAPTURE_LOCK:
-                with torch.cuda.graph(graph):
-                    self._run_members(skips, capture=True, checks=checks)
-        finally:
-            if collecting:
-                gc.enable()
-            for vec in self._vectors:
-                vec._tracing = False
+            return _bindings(self.units)
+
+        graph, launches, warm, _ = capture_graph(
+            dev, f"capture:{self.name}", self._vectors, warm_up,
+            lambda: self._run_members(skips, capture=True, checks=checks))
         outputs, fixed = _split(warm, _bindings(self.units), dev)
-        entry = _Graph(graph, launch_counts.delta(before), outputs, fixed)
-        launch_counts.restore(before)  # the capture launched nothing
+        entry = _Graph(graph, launches, outputs, fixed)
         # this step's values are the warm-up's
         _rebind((owner, name, warm[id(owner), name][2])
                 for owner, name, _ in outputs if (id(owner), name) in warm)
@@ -614,13 +649,7 @@ class JitRegion(Logger):
             if key not in before or before[key][2] is not value)
 
     def _replay(self, entry: _Graph, n: int) -> None:
-        for _, label, owner, name, ptr in entry.fixed:
-            value = _get(owner, name)
-            if not isinstance(value, torch.Tensor) or value.data_ptr() != ptr:
-                raise RuntimeError(
-                    f"region '{self.name}': {label} was rebound after the "
-                    f"capture, whose graph reads and writes the tensor it "
-                    f"held then; write it in place (copy_) instead")
+        check_bound(f"region '{self.name}'", (f[1:] for f in entry.fixed))
         _rebind(entry.outputs)
         for _ in range(n):
             entry.graph.replay()

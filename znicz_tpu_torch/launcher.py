@@ -90,7 +90,8 @@ class Launcher(Logger):
                  chunk: int | None = None, n_seq: int = 1,
                  web_status: int | None = None,
                  web_status_host: str = "127.0.0.1",
-                 graphics: bool | None = None) -> None:
+                 graphics: bool | None = None,
+                 load_kwargs: dict | None = None) -> None:
         super().__init__()
         if listen and master:
             raise ValueError("--listen and --master are exclusive")
@@ -113,6 +114,9 @@ class Launcher(Logger):
         self.web_status_host = web_status_host
         self.web_server = None
         self._graphics = graphics
+        #: build arguments a driver gives the sample's factory (the
+        #: ``--optimize`` trials' plain genes)
+        self.load_kwargs = dict(load_kwargs or {})
         self.workflow = None
         self.device = None
         self._snapshot_state: dict | None = None
@@ -212,7 +216,7 @@ class Launcher(Logger):
     def _load(self, factory: Callable, **kwargs):
         """Build the workflow and stage the snapshot to resume from;
         returns ``(workflow, snapshot_was_loaded)``."""
-        self.workflow = factory(**kwargs)
+        self.workflow = factory(**{**self.load_kwargs, **kwargs})
         loaded = False
         if self.snapshot:
             self._snapshot_state = Snapshotter.load(self.snapshot)

@@ -94,8 +94,9 @@ the decision raises ``complete``.  Each reads what it shows back from
 the device after the step's graph has run and binds nothing the graph
 reads, so linking them captures nothing more.
 
-Not ported with it (a later slice): the population engine's
-``promote_lr_leaves`` (A13b).
+:meth:`promote_lr_leaves` turns every weighted unit's rates into device
+state (``lr_state``), which the population engine
+(:mod:`znicz_tpu_torch.population`) stacks a member.
 """
 
 from __future__ import annotations
@@ -542,6 +543,22 @@ class StandardWorkflow(AcceleratedWorkflow):
                 if u is not self.decision and u is not guard
                 and isinstance(u, AcceleratedUnit)]
         return chain + ([guard] if guard is not None else []) + side
+
+    def promote_lr_leaves(self) -> None:
+        """Turn every weighted backward unit's rates into device state:
+        its ``lr_state`` (the tensor a learning-rate schedule writes)
+        holding ``[learning_rate, learning_rate_bias]`` as f32.  The
+        population engine calls it so that each member trains, and
+        evolution mutates, a rate of its own in one captured step.  A
+        unit whose ``lr_state`` a schedule already holds keeps it; a
+        second call changes nothing.  Call after ``initialize``.  The
+        update takes the same f32 rate through the same multiply, so a
+        promoted step is bit for bit the float-rate step."""
+        for gd_unit in self.gds:
+            weights = getattr(gd_unit.forward_unit, "weights", None)
+            if not isinstance(weights, torch.Tensor):
+                continue
+            gd_unit.claim_lr_state()
 
     # -- lifecycle ------------------------------------------------------------
     def initialize(self, device=None, **kwargs) -> None:

@@ -904,6 +904,53 @@ def checkpoint_on_signal() -> Counter:
 
 
 # ----------------------------------------------------------------------
+# the population engine: per-member fitness, generations and the
+# evolution ops (the reference's names and labels); its captures are
+# ``graph_captures("population:<name>")``
+# ----------------------------------------------------------------------
+def population_members(engine: str) -> Gauge:
+    """Members (model replicas) the population engine trains."""
+    return REGISTRY.gauge(
+        "znicz_population_members",
+        "Model replicas trained by the population engine",
+        labels=("engine",)).labels(engine=engine)
+
+
+def population_fitness(engine: str, member: int) -> Gauge:
+    """A member's fitness at the last epoch boundary (higher is better;
+    a classifier's is ``-validation_err_pt``)."""
+    return REGISTRY.gauge(
+        "znicz_population_fitness",
+        "Per-member population fitness (latest epoch; higher=better)",
+        labels=("engine", "member")).labels(engine=engine, member=member)
+
+
+def population_best_fitness(engine: str) -> Gauge:
+    """The best fitness any member has reached so far in the run."""
+    return REGISTRY.gauge(
+        "znicz_population_best_fitness",
+        "Best member fitness seen so far in the population run",
+        labels=("engine",)).labels(engine=engine)
+
+
+def population_generations(engine: str) -> Counter:
+    return REGISTRY.counter(
+        "znicz_population_generations_total",
+        "Evolution generations applied to the stacked population",
+        labels=("engine",)).labels(engine=engine)
+
+
+def population_evolution(engine: str, op: str) -> Counter:
+    """Evolution ops: ``exploit`` (a truncated member took a winner's
+    state), ``explore`` (its rate was perturbed), ``crossover`` (a slot
+    refilled by blending two parents), ``mutate`` (its rate mutated)."""
+    return REGISTRY.counter(
+        "znicz_population_evolution_total",
+        "Population evolution ops (exploit/explore/crossover/mutate)",
+        labels=("engine", "op")).labels(engine=engine, op=op)
+
+
+# ----------------------------------------------------------------------
 # the fleet: the isolation proof is read from exactly these series
 # ----------------------------------------------------------------------
 def fleet_requests(fleet: str, tenant: str, event: str) -> Counter:
