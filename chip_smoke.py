@@ -300,7 +300,16 @@ Phases (any failure raises and exits non-zero):
    the evaluator's sums all-reduces captured in the step's graph, held
    to the one-process graphed step (expected bit-equal), timed in turns
    beside it (ratio printed), the group's backend ``nccl`` and NCCL in
-   a profiler window; (b) the ring fold (``LocalRing``, 4 members of 512
+   a profiler window; then AlexNet (B = 128, bf16, dropout on) for 3
+   graphed steps on it, B1–B4 counted, held to one process (expected
+   bit-equal, the same dropout seeds); (d) B3 with its block map at
+   fc6/fc7's (128, 4096): 4 row blocks (the data layout), 2 column
+   blocks (the tensor-parallel one), 2 × 2, and columns cut at 2044
+   (the general kernel), each block's output and backward bit-equal to
+   the slices of one launch over the whole and to the plain version,
+   a block timed; dropout, stochastic pooling and ``Binarization`` run
+   as each rank of a data axis of 4 would, their draws stacked equal to
+   one draw over the batch; (b) the ring fold (``LocalRing``, 4 members of 512
    rows in one process) at the stack's attention, (16, 2048, 8, 64), in
    bf16 and f32, non-causal and causal: 16 hops of B7 forward and 16 of
    B8 and of B9 backward, counted, the output and dq, dk, dv held to one
@@ -3003,10 +3012,10 @@ def by_value(frozen: list):
     import torch
     from znicz_tpu_torch.ops import fused_kernels as fk
 
-    def dropout_apply(x, seed, ratio):
+    def dropout_apply(x, seed, ratio, block=None):
         if not torch.cuda.is_current_stream_capturing():
             frozen[:] = [int(seed)]
-        return fk.dropout_apply(x, frozen[0], ratio)
+        return fk.dropout_apply(x, frozen[0], ratio, block)
     return dropout_apply
 
 
@@ -6355,9 +6364,10 @@ def dp_nccl_pass(card: str) -> dict:
                              "the captured ones")
     device_busy(dp, window="dp_nccl graphed")
     del dp, single
+    alexnet = dp_alexnet(card, device)
     distributed.shutdown()
     torch.cuda.empty_cache()
-    return launches
+    return launches, alexnet
 
 
 def ring_operands(gen, dtype):
@@ -6459,6 +6469,207 @@ def ring_pass(card: str, dtype_name: str, causal: bool, gen) -> dict:
                                  f"fault")
     del q, k, v, do, got, whole, plain
     torch.cuda.empty_cache()
+    return launches
+
+
+#: graphed AlexNet steps in the NCCL world of one, against one process
+DP_ALEX_STEPS = 3
+#: B3's block layouts at fc6/fc7's (128, 4096): name, blocks as (row
+#: slice, column slice), the route each block must take.  The data
+#: layout (4 row blocks), the tensor-parallel one (2 column blocks),
+#: both (2 × 2), and columns cut at 2044, off 8, which the general
+#: kernel takes
+DROPOUT_BLOCKS = (
+    ("rows4", tuple((slice(32 * k, 32 * k + 32), slice(0, 4096))
+                    for k in range(4)), "vector"),
+    ("cols2", tuple((slice(0, 128), slice(2048 * k, 2048 * k + 2048))
+                    for k in range(2)), "vector"),
+    ("grid2x2", tuple((slice(64 * i, 64 * i + 64),
+                       slice(2048 * j, 2048 * j + 2048))
+                      for i in range(2) for j in range(2)), "vector"),
+    ("cols_off8", ((slice(0, 128), slice(0, 2044)),
+                   (slice(0, 128), slice(2044, 4096))), "general"))
+
+
+class BlockPlace:
+    """A process's place on a (data, model) mesh as a unit's device reads
+    it (sizes and coordinates, no process groups): lets one process run
+    a unit as rank (d, m) of such a mesh would, to hold its draw against
+    one draw over the whole."""
+
+    device_type = "cuda"
+
+    def __init__(self, n_data: int, data_rank: int) -> None:
+        self.shape = {"data": n_data, "model": 1}
+        self.coords = {"data": data_rank, "model": 0}
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return None
+
+
+def check_dropout_blocks(gen) -> dict:
+    """(d) B3 with its block map at fc6/fc7's (128, 4096), bf16 (and the
+    row blocks in f32): each block of :data:`DROPOUT_BLOCKS` launched on
+    its own with its map, its output and its backward's bit-equal to the
+    slices of one launch over the whole tensor and to the plain version
+    with the map, on the route the layout names; the first block of each
+    layout timed in a CUDA graph beside its bound.  Returns the layouts'
+    rows for the kernel line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    seed = int(np.random.default_rng(SEED + 28).integers(0, 2 ** 63))
+    seed_t = fk.seed_tensor(seed, "cuda")
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        x, err = (torch.randn(ALEX_BATCH, 4096, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        y = fk.dropout_apply(x, seed_t, DROP_RATIO)
+        dx = fk.dropout_apply(err, seed_t, DROP_RATIO)
+        for name, blocks, route in DROPOUT_BLOCKS:
+            if dtype_name == "float32" and name != "rows4":
+                continue
+            ok, took = True, []
+            for rs, cs in blocks:
+                block = fk.BlockMap(rs.start, cs.start, 4096)
+                xb, eb = x[rs, cs].contiguous(), err[rs, cs].contiguous()
+                before = dict(fk.dropout_apply.launches_by_route)
+                yb = fk.dropout_apply(xb, seed_t, DROP_RATIO, block)
+                db = fk.dropout_apply(eb, seed_t, DROP_RATIO, block)
+                took += _took(fk.dropout_apply, before)
+                ok &= torch.equal(yb, y[rs, cs]) and torch.equal(
+                    db, dx[rs, cs]) and torch.equal(yb, fk.dropout_apply_plain(
+                        xb, seed, DROP_RATIO, block))
+            torch.cuda.synchronize()
+            rs, cs = blocks[0]
+            block = fk.BlockMap(rs.start, cs.start, 4096)
+            xb = x[rs, cs].contiguous()
+            ms = graph_ms(lambda: fk.dropout_apply(xb, seed_t, DROP_RATIO,
+                                                   block))
+            plain_ms = graph_ms(lambda: fk.dropout_apply_plain(
+                xb, seed, DROP_RATIO, block), 10)
+            lib_ms = graph_ms(lambda: F.dropout(xb, DROP_RATIO,
+                                                training=True))
+            elem = xb.numel()
+            bound_ms, bound_by = bound(
+                2.0 * elem * xb.element_size(),
+                float(elem * PHILOX_OPS_PER_ELEMENT), PEAK_F32_FLOP_S)
+            key = name if dtype_name == "bfloat16" else f"{name}_f32"
+            say(f"  B3 block map {key}: {len(blocks)} blocks of "
+                f"{tuple(xb.shape)} {dtype_name}, routes {sorted(set(took))}"
+                f" (want {route}): output and backward bit-equal to the "
+                f"whole launch's slices and to the plain version {ok}; a "
+                f"block {ms:.5f} ms, plain {plain_ms:.4f} ms, F.dropout "
+                f"{lib_ms:.5f} ms (CUDA graphs), bound {bound_ms:.3g} ms "
+                f"({bound_by})")
+            if not ok or set(took) != {route}:
+                raise AssertionError(f"dropout block map {key}: bit-equal "
+                                     f"{ok}, routes {took}")
+            out[key] = {"blocks": len(blocks), "shape": list(xb.shape),
+                        "route": route, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+    return out
+
+
+def stochastic_unit_blocks() -> None:
+    """(d), continued: the units' draws on the card as rank k of a data
+    axis of 4 would draw them (:class:`BlockPlace`), each bit-equal to
+    its rows of one unit's draw over the whole batch from the same seed:
+    dropout at fc6's (128, 4096) bf16, stochastic pooling at AlexNet's
+    pool5 input (128, 13, 13, 256) bf16 (its output and its choices) and
+    ``Binarization`` at (128, 4096) f32."""
+    import torch
+    from znicz_tpu_torch.backends import CudaDevice
+    from znicz_tpu_torch.ops.dropout import DropoutForward
+    from znicz_tpu_torch.ops.pooling import StochasticPooling
+    from znicz_tpu_torch.ops.rbm_units import Binarization
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    cases = (
+        ("dropout", lambda: DropoutForward((4096,), torch.bfloat16,
+                                           dropout_ratio=DROP_RATIO),
+         torch.randn(ALEX_BATCH, 4096, generator=gen, device="cuda")
+         .to(torch.bfloat16), ("output",)),
+        ("stochastic_pooling", lambda: StochasticPooling(
+            (13, 13, 256), torch.bfloat16, kx=3, ky=3, sliding=(2, 2)),
+         torch.randn(ALEX_BATCH, 13, 13, 256, generator=gen, device="cuda")
+         .to(torch.bfloat16), ("output", "last_choice")),
+        ("binarization", lambda: Binarization((4096,), torch.float32),
+         torch.rand(ALEX_BATCH, 4096, generator=gen, device="cuda"),
+         ("output",)))
+    n, rows = 4, ALEX_BATCH // 4
+    for name, make, x, fields in cases:
+        got = {}
+        for rank in (None,) + tuple(range(n)):
+            unit = make()
+            place = None if rank is None else BlockPlace(n, rank)
+            unit.initialize(device=CudaDevice(dev, mesh=place))
+            unit.seed_chain.set_value(SEED + 30)
+            part = x if rank is None else x[rank * rows:(rank + 1) * rows]
+            with torch.no_grad():
+                unit.output = unit(part.contiguous())
+            got[rank] = [getattr(unit, f).clone() for f in fields]
+        torch.cuda.synchronize()
+        equal = all(torch.equal(torch.cat([got[r][i] for r in range(n)]),
+                                got[None][i]) for i in range(len(fields)))
+        say(f"  {name} as rank k of a data axis of {n} ({rows} rows each, "
+            f"{tuple(x.shape)} {x.dtype}): the ranks' {', '.join(fields)} "
+            f"stacked = one draw over the whole batch: {equal}")
+        if not equal:
+            raise AssertionError(f"{name}: the ranks' draws are not the "
+                                 f"whole batch's")
+
+
+def dp_alexnet(card: str, device) -> dict:
+    """(a), continued: AlexNet at B = 128 in bf16 with dropout on, its
+    region graphed, in the NCCL world of one (``device``, the launcher's
+    card with its mesh) for :data:`DP_ALEX_STEPS` steps: B1–B4 counted
+    (B3 four times a step), held to the same steps in one process
+    (expected bit-equal), each step's dropout seeds the one process's."""
+    import torch
+    steps = DP_ALEX_STEPS
+    set_graphs(True)
+    runs = {}
+    for arm, dev in (("nccl", device), ("single", None)):
+        wf = make_alexnet(ALEX_BATCH, steps * ALEX_BATCH, device=dev)
+        units = [u for u in wf.forwards
+                 if type(u).__name__ == "DropoutForward"]
+        seeds = []
+        wf.add_step_hook(lambda: seeds.append([int(u.seed) for u in units]))
+        reset_counts()
+        for _ in range(steps):
+            wf.step()
+        torch.cuda.synchronize()
+        runs[arm] = (wf, read_counts(), seeds)
+    dp, launches, seeds = runs["nccl"]
+    expect_counts("dp_alexnet", launches, {
+        "lrn_forward": steps, "lrn_forward_conv2": steps,
+        "lrn_backward": steps, "lrn_backward_conv2": steps,
+        "dropout_apply": 4 * steps, "softmax_argmax": steps})
+    worst, name, equal = params_diff(params_of(dp),
+                                     params_of(runs["single"][0]))
+    say(f"  AlexNet B={ALEX_BATCH} bf16, dropout on, {steps} graphed steps "
+        f"in the NCCL world of one on {card}: {dp.region.captures} "
+        f"capture(s), B3 launches {launches['dropout_apply']}; against one "
+        f"process: worst ‖dp − single‖ / ‖single‖ {worst:.3g} ({name}), "
+        f"{equal} of {len(params_of(dp))} parameters bit-equal (expected "
+        f"all; tol {GRAPH_TOL_BF16:.3g}); the dropout seeds the same "
+        f"{seeds == runs['single'][2]}")
+    if worst > GRAPH_TOL_BF16 or seeds != runs["single"][2]:
+        raise AssertionError("dp_alexnet: the NCCL step leaves the "
+                             "one-process step")
+    for wf, _, _ in runs.values():
+        wf.release_graphs()
     return launches
 
 
@@ -9880,9 +10091,13 @@ def main() -> int:
 
     expect_no_anomalies("phase 15")
     say("phase 16: parallelism — the NCCL world of one through the "
-        "launcher, the ring fold at full width, the temporal pipeline")
+        "launcher (the stack and AlexNet), B3's block map and the "
+        "stochastic units' blocks, the ring fold at full width, the "
+        "temporal pipeline")
     t16 = time.perf_counter()
-    paths["dp_nccl"] = dp_nccl_pass(smi)
+    paths["dp_nccl"], paths["dp_alexnet"] = dp_nccl_pass(smi)
+    rows["dropout_apply"]["blocks"] = check_dropout_blocks(gen)
+    stochastic_unit_blocks()
     for dtype_name in ("bfloat16", "float32"):
         for causal in (False, True):
             paths[f"ring_{dtype_name}{'_causal' if causal else ''}"] = \

@@ -9,7 +9,9 @@ to each other.  Tolerances: a data-parallel run against one device
 1e-5 (the fold reorders sums; measured ~3e-8), against the reference's
 mesh its own DP tolerance (rtol 1e-3, atol 1e-4); ZeRO-1 against the
 replicated update on the same mesh the reference's ``TIGHT`` (rtol 1e-5,
-atol 1e-6), bf16 state its bf16 band (rtol 1e-2, atol 1e-3).
+atol 1e-6), bf16 state its bf16 band (rtol 1e-2, atol 1e-3), the bf16
+reduce-scatter (``engine.bf16_grad_comms``) its band (rtol 0.05, atol
+5e-3).
 """
 
 import numpy as np
@@ -174,15 +176,6 @@ def test_process_shard_across_four_processes(dp_world):
         np.testing.assert_array_equal(got["merged"], want_merged)
 
 
-def test_a_unit_wrong_on_a_block_of_rows_refuses_the_mesh(dp_world):
-    """Dropout draws its mask from the seed and the element's index, so
-    over a data axis every process would drop the same positions: it
-    refuses, rather than train replicas with correlated masks."""
-    for rank in dp_world:
-        assert rank["dropout"] is not None
-        assert "data axis of 4" in rank["dropout"]
-
-
 @pytest.mark.parametrize("arm", list(worker.ZERO1_ARMS))
 def test_zero1_matches_replicated(zero1_world, arm):
     got = zero1_world[0][arm]
@@ -193,6 +186,30 @@ def test_zero1_matches_replicated(zero1_world, arm):
         assert got["dtype"] == "torch.bfloat16"
     for rank in zero1_world[1:]:
         for a, b in zip(got["zero1"], rank[arm]["zero1"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_zero1_bf16_grad_comms_parity(zero1_world):
+    """The bf16 reduce-scatter (``engine.bf16_grad_comms``, off by
+    default; the port of ``tests/test_zero1.py``'s parity test): within
+    the reference test's bf16 band (rtol 0.05, atol 5e-3) of the f32
+    reduce-scatter on the same mesh, and of the reference's bf16 arm on
+    its mesh; every rank the same weights."""
+    from tests.test_zero1 import run_arm
+    from znicz_tpu.utils.config import root as ref_root
+    got = zero1_world[0]["bf16_grad_comms"]
+    assert any(got["flags"]) and not any(got["default_flags"])
+    ref_root.common.engine.bf16_grad_comms = True
+    try:
+        ref, _ = run_arm("auto", gd_extra={"weights_decay": 0.01})
+    finally:
+        ref_root.common.engine.bf16_grad_comms = False
+    for f32, want, b in zip(zero1_world[0]["momentum_l2"]["zero1"], ref,
+                            got["params"]):
+        np.testing.assert_allclose(b, f32, rtol=0.05, atol=5e-3)
+        np.testing.assert_allclose(b, want, rtol=0.05, atol=5e-3)
+    for rank in zero1_world[1:]:
+        for a, b in zip(got["params"], rank["bf16_grad_comms"]["params"]):
             np.testing.assert_array_equal(a, b)
 
 

@@ -159,20 +159,6 @@ def mode_dp(rank, world):
         "merged": process_shard.merge_round_robin(
             [10.0 * i + rank for i in range(len(range(rank, 10, world)))],
             rank, world, 10)}
-    data, labels = make_blobs(40, N_CLASSES, DIM)
-    dropout = StandardWorkflow(
-        name="dropout",
-        loader_factory=lambda w: ArrayLoader(
-            w, train_data=data, train_labels=labels, minibatch_size=24),
-        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": 16}},
-                {"type": "dropout", "->": {"dropout_ratio": 0.5}},
-                {"type": "softmax", "->": {"output_sample_shape": 3}}],
-        decision_config={"max_epochs": 1})
-    try:
-        dropout.initialize(device=dev)
-        out["dropout"] = None
-    except ValueError as exc:
-        out["dropout"] = str(exc)
     return out
 
 
@@ -208,6 +194,18 @@ def mode_zero1(rank, world):
                     "plans": plans, "accs": accs,
                     "dtype": str(z1.forwards[0].compute_dtype)}
     z1 = train(mesh, zero1="auto", gd_extra={"weights_decay": 0.01})
+    from znicz_tpu_torch.utils.config import root
+    root.common.engine.bf16_grad_comms = True
+    try:
+        bf16 = train(mesh, zero1="auto", gd_extra={"weights_decay": 0.01})
+    finally:
+        root.common.engine.bf16_grad_comms = False
+    out["bf16_grad_comms"] = {
+        "params": params(bf16),
+        "flags": [bool(g.__dict__.get("_grad_comms_bf16"))
+                  for g in bf16.gds],
+        "default_flags": [bool(g.__dict__.get("_grad_comms_bf16"))
+                          for g in z1.gds]}
     state = z1.state_dict(allow_collective=True)
     z1.decision.max_epochs = 2
     z1.decision.complete = False
@@ -469,8 +467,364 @@ def mode_guard(rank, world):
     return out
 
 
+def build_dropout_chain(minibatch_size=24, ratio=0.5, model_parallel=True,
+                        name="dropout_chain"):
+    """A column ``All2All`` (12 → 16) → dropout → a row ``All2All``
+    (16 → 8) → softmax over 3, trained on the blobs with no validation
+    set, so that every step is a train step."""
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    data, labels = make_blobs(40, N_CLASSES, DIM)
+    gd = {"learning_rate": 0.1, "gradient_moment": 0.9}
+    col = {"model_parallel": "column"} if model_parallel else {}
+    row = {"model_parallel": "row"} if model_parallel else {}
+    wf = StandardWorkflow(
+        name=name,
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=data, train_labels=labels,
+            minibatch_size=minibatch_size),
+        layers=[{"type": "all2all_tanh",
+                 "->": {"output_sample_shape": 16, **col}, "<-": gd},
+                {"type": "dropout", "->": {"dropout_ratio": ratio}},
+                {"type": "all2all_tanh",
+                 "->": {"output_sample_shape": 8, **row}, "<-": gd},
+                {"type": "softmax",
+                 "->": {"output_sample_shape": N_CLASSES}, "<-": gd}],
+        decision_config={"max_epochs": 1})
+    wf._max_fires = 100_000
+    return wf
+
+
+def mode_c21(rank, world):
+    """The dropout between a column and a row layer on a ``model`` axis
+    of every rank: one train step, then the mask the dropout applied
+    (where its output is not zero: tanh of a nonzero input) and the seed
+    it drew, which the test holds to the column block of the one mask
+    one process draws for the whole ``(rows, 16)`` output."""
+    from znicz_tpu_torch.parallel import make_mesh
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    mesh = make_mesh(n_data=1, n_model=world, device_type="cpu")
+    root.common.engine.zero1 = False
+    prng.seed_all(1234)
+    wf = build_dropout_chain()
+    wf.initialize(device=cpu_device(mesh))
+    wf.step()
+    drop = wf.forwards[1]
+    return {"minibatch_class": int(wf.loader.minibatch_class),
+            "model_rank": mesh.index("model"),
+            "seed": int(drop.seed),
+            "ratio": drop.dropout_ratio,
+            "kept": (drop.output != 0).numpy().copy(),
+            "input_kept": (drop.input != 0).numpy().copy()}
+
+
+def train_steps(wf, device, steps=None):
+    """``wf`` initialized on ``device`` and run (its decision's epochs, or
+    ``steps`` steps), recording after each train step what each
+    stochastic unit drew: ``{unit name: [per-step draws]}`` — dropout's
+    mask of its seed (regenerated through its block map, so a ReLU's
+    zeros do not blur it), stochastic pooling's choices, the RBM's
+    binary samples."""
+    from znicz_tpu_torch.ops import fused_kernels as fk
+    from znicz_tpu_torch.ops.dropout import DropoutForward
+    from znicz_tpu_torch.ops.pooling import StochasticPooling
+    from znicz_tpu_torch.ops.rbm_units import Binarization
+    wf.initialize(device=device)
+    units = [u for u in wf.units
+             if isinstance(u, (DropoutForward, StochasticPooling,
+                               Binarization))]
+    draws = {f"{i}.{u.name}": [] for i, u in enumerate(units)}
+    for u in units:
+        if isinstance(u, StochasticPooling):
+            # the backward takes the choices: keep a copy at the forward
+            def forward(x, _forward=u.forward, _u=u):
+                y = _forward(x)
+                _u.__dict__["recorded_choice"] = _u.last_choice
+                return y
+            u.forward = forward
+
+    def record():
+        for key, u in zip(draws, units):
+            if u.forward_mode != "train" or u.seed is None:
+                continue
+            if isinstance(u, DropoutForward):
+                got = fk.dropout_apply_plain(
+                    torch.ones(tuple(u.output.shape)), u.seed,
+                    u.dropout_ratio, u.mask_block) != 0
+            elif isinstance(u, StochasticPooling):
+                got = u.recorded_choice
+            else:
+                got = u.output
+            draws[key].append(got.detach().numpy().copy())
+
+    wf.add_step_hook(record)
+    if steps is None:
+        wf.run()
+    else:
+        for _ in range(steps):
+            wf.step()
+    return draws
+
+
+def build_stochastic_conv(minibatch_size=24):
+    """conv (3 × 3, 4) → stochastic pooling 2 × 2 → FC 16 → dropout 0.5
+    → softmax over 3, on 96 random 8 × 8 × 3 images, train only."""
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    rng = np.random.default_rng(13)
+    x = rng.normal(0.0, 1.0, size=(96, 8, 8, 3)).astype(np.float32)
+    y = rng.integers(0, N_CLASSES, size=96).astype(np.int32)
+    gd = {"learning_rate": 0.05, "gradient_moment": 0.9}
+    wf = StandardWorkflow(
+        name="stochastic_conv",
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=x, train_labels=y, minibatch_size=minibatch_size),
+        layers=[{"type": "conv_tanh",
+                 "->": {"n_kernels": 4, "kx": 3, "ky": 3, "padding": 1},
+                 "<-": gd},
+                {"type": "stochastic_pooling", "->": {"kx": 2, "ky": 2}},
+                {"type": "all2all_tanh", "->": {"output_sample_shape": 16},
+                 "<-": gd},
+                {"type": "dropout", "->": {"dropout_ratio": 0.5}},
+                {"type": "softmax",
+                 "->": {"output_sample_shape": N_CLASSES}, "<-": gd}],
+        decision_config={"max_epochs": 1})
+    wf._max_fires = 100_000
+    return wf
+
+
+#: the narrow AlexNet: 35 × 35 × 3 uint8 frames, 10 classes, 96 of them
+ALEX_SIZE, ALEX_CLASSES, ALEX_FRAMES, ALEX_BATCH = 35, 10, 96, 32
+
+
+def build_narrow_alexnet(model_parallel=False, grad_comms_bf16=False):
+    """``alexnet.layers``' order cut to size (conv → LRN → max pool
+    twice, three convs, max pool, FC 32 → dropout 0.5 twice, softmax
+    over 10), trained on uint8 frames normalized in the gather, train
+    only; with ``model_parallel`` the first FC is column-parallel and
+    the second row-parallel."""
+    from znicz_tpu_torch import datasets
+    from znicz_tpu_torch.loader.fullbatch import ArrayLoader
+    from znicz_tpu_torch.models.standard_workflow import StandardWorkflow
+    gd = {"learning_rate": 0.02, "gradient_moment": 0.9,
+          "weights_decay": 5e-4}
+    lrn = {"n": 5, "alpha": 1e-4, "beta": 0.75, "k": 2.0}
+    pool = {"kx": 3, "ky": 3, "sliding": (2, 2)}
+
+    def conv(k, kx, **geom):
+        return {"type": "conv_str",
+                "->": {"n_kernels": k, "kx": kx, "ky": kx,
+                       "weights_stddev": 0.1, **geom}, "<-": gd}
+
+    def fc(n, split=None):
+        return {"type": "all2all_str",
+                "->": {"output_sample_shape": n, "weights_stddev": 0.1,
+                       **({"model_parallel": split} if split else {})},
+                "<-": gd}
+
+    x, y = datasets.synthetic_imagenet(ALEX_FRAMES, size=ALEX_SIZE,
+                                       n_classes=ALEX_CLASSES)
+    wf = StandardWorkflow(
+        name="narrow_alexnet",
+        loader_factory=lambda w: ArrayLoader(
+            w, train_data=x, train_labels=y, minibatch_size=ALEX_BATCH,
+            normalization_scale=2.0 / 255.0, normalization_bias=-1.0),
+        layers=[conv(8, 5, sliding=(2, 2)),
+                {"type": "norm", "->": dict(lrn)},
+                {"type": "max_pooling", "->": dict(pool)},
+                conv(12, 3, padding=1),
+                {"type": "norm", "->": dict(lrn)},
+                {"type": "max_pooling", "->": dict(pool)},
+                conv(16, 3, padding=1),
+                conv(16, 3, padding=1),
+                conv(12, 3, padding=1),
+                {"type": "max_pooling", "->": dict(pool)},
+                fc(32, "column" if model_parallel else None),
+                {"type": "dropout", "->": {"dropout_ratio": 0.5}},
+                fc(32, "row" if model_parallel else None),
+                {"type": "dropout", "->": {"dropout_ratio": 0.5}},
+                {"type": "softmax",
+                 "->": {"output_sample_shape": ALEX_CLASSES}, "<-": gd}],
+        decision_config={"max_epochs": 1})
+    wf._max_fires = 100_000
+    return wf
+
+
+def rbm_workflow():
+    """The ``mnist_rbm`` sample for one epoch."""
+    from znicz_tpu_torch.models.samples import mnist_rbm
+    return mnist_rbm.build(max_epochs=1)
+
+
+def kohonen_workflow():
+    """The ``kohonen`` sample for two epochs."""
+    from znicz_tpu_torch.models.samples import kohonen
+    return kohonen.build(max_epochs=2)
+
+
+def sample_state(wf) -> dict:
+    """Every unit's trained tensors in their logical shapes (gathered
+    from this process's shards: a collective every rank joins)."""
+    from znicz_tpu_torch.ops.nn_units import ModuleUnit
+    return {f"{i}.{u.name}.{name}": np.asarray(value)
+            for i, u in enumerate(wf.units) if isinstance(u, ModuleUnit)
+            for name, value in u.state_dict(allow_collective=True).items()
+            if isinstance(value, np.ndarray)}
+
+
+#: the data-parallel arms of :func:`mode_stochastic`: builder, ZeRO-1
+STOCHASTIC_ARMS = {
+    "stochastic_conv": (build_stochastic_conv, "auto"),
+    "narrow_alexnet": (build_narrow_alexnet, "auto"),
+    "mnist_rbm": (rbm_workflow, False),
+    "kohonen": (kohonen_workflow, False),
+}
+#: the seed of every arm (one process and the ranks alike)
+STOCHASTIC_SEED = 4321
+
+
+def stochastic_arm(name, device):
+    """One arm of :data:`STOCHASTIC_ARMS` on ``device``: its draws, its
+    trained tensors and each stochastic unit's chain value after the
+    run."""
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    builder, zero1 = STOCHASTIC_ARMS[name]
+    root.common.engine.zero1 = zero1
+    prng.seed_all(STOCHASTIC_SEED)
+    wf = builder()
+    draws = train_steps(wf, device)
+    return {"draws": draws, "state": sample_state(wf),
+            "chains": {u.name: u.seed_chain.get_value() for u in wf.units
+                       if "seed_chain" in vars(u)}}
+
+
+def mode_stochastic(rank, world):
+    """Every stochastic unit and batch statistic over a data axis of
+    every rank (:data:`STOCHASTIC_ARMS`); the narrow AlexNet over
+    (data 2, model 2); the SOM's and the RBM's units on their rows of
+    one batch; the pipe axis (2 stages of 2 ranks)."""
+    import torch.distributed as dist
+    from znicz_tpu_torch.parallel import make_mesh, mesh_for_stage
+    from znicz_tpu_torch.utils import prng
+    from znicz_tpu_torch.utils.config import root
+    mesh = make_mesh(device_type="cpu")
+    dev = cpu_device(mesh)
+    out = {name: stochastic_arm(name, dev) for name in STOCHASTIC_ARMS}
+    tp_mesh = make_mesh(n_data=world // 2, n_model=2, device_type="cpu")
+    root.common.engine.zero1 = "auto"
+    prng.seed_all(STOCHASTIC_SEED)
+    wf = build_narrow_alexnet(model_parallel=True)
+    out["narrow_alexnet_tp"] = {
+        "draws": train_steps(wf, cpu_device(tp_mesh)),
+        "params": params(wf),
+        "coords": (tp_mesh.index("data"), tp_mesh.index("model"))}
+    out["units"] = som_rbm_units(mesh)
+    # the pipe axis: 2 stages of world / 2 ranks, a stage's data axis
+    pipe = make_mesh(n_data=world // 2, n_pipe=2, device_type="cpu")
+    stages = [mesh_for_stage(pipe, k) for k in range(2)]
+    mine = stages[pipe.index("pipe")]
+    x = torch.tensor([float(rank)])
+    dist.all_reduce(x, group=mine.block_group)
+    y = torch.tensor([float(rank)])
+    dist.all_reduce(y, group=mine.group("data"))
+    out["pipe"] = {
+        "axis_names": pipe.axis_names, "shape": dict(pipe.shape),
+        "coords": dict(pipe.coords),
+        "stages": [(s.axis_names, dict(s.shape), sorted(
+            int(r) for r in np.ravel(s.ranks)), s.member) for s in stages],
+        "plain_is_identity": mesh_for_stage(mesh, 0) is mesh,
+        "block_sum": float(x), "data_sum": float(y),
+        "stage_params": params(train(mine, zero1="auto", hidden2=None)),
+        "pipe_params": params(train(pipe, zero1="auto", hidden2=None))}
+    return out
+
+
+def som_rbm_units(mesh):
+    """``KohonenForward`` + ``KohonenTrainer`` over 3 steps, and CD-1 of
+    ``GradientRBM`` from an injected sample and ``BatchWeights`` over 2
+    steps, each process on its rows of one batch under the data axis
+    (as a region runs them); the inputs are :func:`som_rbm_inputs`."""
+    from znicz_tpu_torch.ops.kohonen import KohonenForward, KohonenTrainer
+    from znicz_tpu_torch.ops.rbm_units import BatchWeights, GradientRBM
+    from znicz_tpu_torch.parallel.axis import data_axis
+    n, r = mesh.size("data"), mesh.index("data")
+    dev = cpu_device(mesh)
+    inp = som_rbm_inputs()
+
+    def mine(a):
+        rows = len(a) // n
+        return torch.from_numpy(a[r * rows:(r + 1) * rows].copy())
+
+    out = {}
+    fwd = KohonenForward(input_shape=inp["som_x"].shape[1:],
+                         shape=SOM_GRID)
+    fwd.load_params({"weights": torch.from_numpy(inp["som_w"].copy())})
+    fwd.initialize(device=dev)
+    tr = KohonenTrainer(learning_rate=0.4, decay_steps=50)
+    tr.link_attrs(fwd, "weights", "winners")
+    tr.shape_grid = SOM_GRID
+    tr.initialize(device=dev)
+    fwd.input = tr.input = mine(inp["som_x"])
+    with data_axis(mesh.group("data")):
+        for _ in range(3):
+            fwd.run()
+            tr.run()
+    out["som"] = {"winners": fwd.winners.numpy().copy(),
+                  "weights": fwd.weights.detach().numpy().copy(),
+                  "hits": fwd.hits.numpy().copy(), "time": float(tr.time)}
+    v0, h0, s0, w, hb, vb = (inp[k] for k in ("v0", "h0", "s0", "w", "hb",
+                                               "vb"))
+    grbm = GradientRBM(learning_rate=0.1, gradient_moment=0.9)
+    grbm.weights = torch.nn.Parameter(torch.from_numpy(w.copy()),
+                                      requires_grad=False)
+    grbm.hbias = torch.nn.Parameter(torch.from_numpy(hb.copy()),
+                                    requires_grad=False)
+    grbm.vbias = torch.from_numpy(vb.copy())
+    grbm.initialize(device=dev)
+    grbm.input, grbm.hidden, grbm.hidden_sample = (mine(a)
+                                                   for a in (v0, h0, s0))
+    bw = BatchWeights()
+    bw.initialize(device=dev)
+    bw.v, bw.h = mine(v0), mine(h0)
+    with data_axis(mesh.group("data")):
+        for _ in range(2):
+            grbm.run()
+        bw.run()
+    out["rbm"] = {"reconstruction": grbm.reconstruction.numpy().copy(),
+                  "weights": grbm.weights.detach().numpy().copy(),
+                  "hbias": grbm.hbias.detach().numpy().copy(),
+                  "vbias": grbm.vbias.numpy().copy()}
+    out["batch_weights"] = [t.numpy().copy() for t in (
+        bw.weights_batch, bw.v_mean, bw.h_mean)]
+    return out
+
+
+SOM_GRID = (3, 4)
+
+
+def som_rbm_inputs() -> dict:
+    """The SOM's batch (40, 5) and map (12, 5), and a CD-1 step's data
+    (40 rows of 12 visible, 6 hidden units) with its injected sample:
+    ``tests/test_torch_kohonen.py``'s and ``tests/test_torch_rbm.py``'s
+    shapes at 40 rows, from a seed."""
+    rng = np.random.default_rng(29)
+    som_x = rng.normal(size=(40, 5)).astype(np.float32)
+    som_w = rng.normal(size=(12, 5)).astype(np.float32)
+    v0 = (rng.uniform(size=(40, 12)) < 0.4).astype(np.float32)
+    w = rng.normal(0, 0.1, size=(12, 6)).astype(np.float32)
+    hb = rng.normal(0, 0.1, size=(6,)).astype(np.float32)
+    vb = rng.normal(0, 0.1, size=(12,)).astype(np.float32)
+    h0 = (1.0 / (1.0 + np.exp(-(v0 @ w + hb)))).astype(np.float32)
+    s0 = (rng.uniform(size=h0.shape) < h0).astype(np.float32)
+    return {"som_x": som_x, "som_w": som_w, "v0": v0, "h0": h0, "s0": s0,
+            "w": w, "hb": hb, "vb": vb}
+
+
 MODES = {"dp": mode_dp, "zero1": mode_zero1, "tp": mode_tp,
-         "ring": mode_ring, "env": mode_env, "guard": mode_guard}
+         "ring": mode_ring, "env": mode_env, "guard": mode_guard,
+         "c21": mode_c21, "stochastic": mode_stochastic}
 
 
 def spawn_world(mode: str, world: int, tmp_dir: str,

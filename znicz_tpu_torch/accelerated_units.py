@@ -181,11 +181,6 @@ class AcceleratedUnit(Unit):
     #: the attributes a step of the unit writes, whose floating tensors
     #: (or arrays, on the numpy oracle) ``engine.debug_checks`` checks
     WRITES: tuple = ()
-    #: False for a unit whose step is wrong on a block of a minibatch's
-    #: rows (a data axis of 2 or more): its ``initialize`` raises there,
-    #: naming :attr:`DATA_PARALLEL_NOTE`, rather than train replicas
-    DATA_PARALLEL = True
-    DATA_PARALLEL_NOTE = ""
 
     def __init__(self, workflow=None, name: str | None = None,
                  **kwargs) -> None:
@@ -201,11 +196,6 @@ class AcceleratedUnit(Unit):
         if device is None:
             raise ValueError(f"{self}: no device supplied")
         self.device = Device.create(device)
-        if self.device.n_data_shards > 1 and not self.DATA_PARALLEL:
-            raise ValueError(
-                f"{self}: {type(self).__name__} does not run over a data "
-                f"axis of {self.device.n_data_shards} yet "
-                f"({self.DATA_PARALLEL_NOTE}); train it on one device")
         super().initialize(**kwargs)
 
     @property
@@ -222,8 +212,15 @@ class AcceleratedUnit(Unit):
     @property
     def act_store_dtype(self) -> torch.dtype:
         """Storage dtype of activations and errors: bf16 in bf16 mode,
-        else f32 (parameters, gradients and loss sums stay f32)."""
-        return precision_dtypes(self.compute_dtype)[1]
+        else f32 (parameters, gradients and loss sums stay f32).  Opt
+        out: ``root.common.engine.bf16_activations = False`` stores them
+        in f32 in bf16 mode too (the products still take bf16
+        operands), as the reference's."""
+        store = precision_dtypes(self.compute_dtype)[1]
+        if store == torch.bfloat16 and not bool(
+                root.common.engine.get("bf16_activations", True)):
+            return torch.float32
+        return store
 
     def mxu_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``a @ b`` with an f32 result, the operands rounded to bf16

@@ -40,6 +40,19 @@
 //     elements one by one.
 // The general kernel takes a pointer off 16 bytes: a grid-stride loop, one
 // element per thread per step.
+//
+// The element index i is the element's place in the global tensor, so that
+// the processes of a sharded mesh, each holding a block of it, draw their
+// parts of the one mask that one process would draw for the whole.  x is
+// read as a (rows, cols) block of a global (rows', c_glob) tensor whose
+// first element sits at global index base = row0 * c_glob + col0 (row0
+// and col0 the block's first global row and column): local element
+// (r, c) has index (row0 + r) * c_glob + col0 + c.  A block of whole rows
+// (cols == c_glob, col0 == 0) is base + the local flat index, with no
+// division; one process holding all of x (base 0) is the identity.  The
+// vector kernel needs each 8-aligned run of local elements to be 8
+// consecutive global indices from a multiple of 8: base % 8 == 0, and for
+// a block of columns also cols % 8 == 0 and c_glob % 8 == 0.
 
 #include "rows.cuh"
 
@@ -78,6 +91,16 @@ __device__ __forceinline__ uint32_t philox_bits(unsigned long long i,
   return c0;
 }
 
+// the global index of local element i (see the header)
+__device__ __forceinline__ unsigned long long global_index(long long i,
+                                                           long long cols,
+                                                           long long base,
+                                                           long long c_glob) {
+  if (cols == c_glob) return static_cast<unsigned long long>(base + i);
+  const long long r = i / cols;
+  return static_cast<unsigned long long>(base + r * c_glob + (i - r * cols));
+}
+
 // philox_bits of the 8 indices i0 .. i0 + 7 (i0 % 8 == 0), side by side
 __device__ __forceinline__ void philox_bits8(unsigned long long i0,
                                              uint32_t k0, uint32_t k1,
@@ -106,7 +129,8 @@ __device__ __forceinline__ void philox_bits8(unsigned long long i0,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dropout_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
-                       long long n,
+                       long long n, long long cols, long long base,
+                       long long c_glob,
                        const unsigned long long* __restrict__ seed,
                        long long threshold, float scale) {
   const unsigned long long key = *seed;
@@ -119,7 +143,7 @@ __global__ void __launch_bounds__(THREADS)
        run < runs; run += stride) {
     const long long i0 = run * 8;
     uint32_t bits[8];
-    philox_bits8(static_cast<unsigned long long>(i0), k0, k1, bits);
+    philox_bits8(global_index(i0, cols, base, c_glob), k0, k1, bits);
     if (i0 + 8 <= n) {
       Raw8<T> raw;
       raw.load(x + i0);
@@ -144,6 +168,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                   long long cols, long long base, long long c_glob,
                    const unsigned long long* __restrict__ seed,
                    long long threshold, float scale) {
   const unsigned long long key = *seed;
@@ -154,13 +179,15 @@ __global__ void __launch_bounds__(THREADS)
                      threadIdx.x;
        i < n; i += stride) {
     const bool keep =
-        static_cast<long long>(philox_bits(i, k0, k1)) > threshold;
+        static_cast<long long>(philox_bits(
+            global_index(i, cols, base, c_glob), k0, k1)) > threshold;
     y[i] = from_f32<T>(keep ? to_f32(x[i]) * scale : 0.f);
   }
 }
 
 template <typename T>
-int launch_vec(const void* x, void* y, long long n, const void* seed,
+int launch_vec(const void* x, void* y, long long n, long long cols,
+               long long base, long long c_glob, const void* seed,
                long long threshold, float scale, cudaStream_t s) {
   int resident = 0;
   const cudaError_t e =
@@ -169,53 +196,77 @@ int launch_vec(const void* x, void* y, long long n, const void* seed,
   const long long want = ((n + 7) / 8 + THREADS - 1) / THREADS;
   const long long blocks = want < resident ? want : resident;
   dropout_vec_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n,
+      static_cast<const T*>(x), static_cast<T*>(y), n, cols, base, c_glob,
       static_cast<const unsigned long long*>(seed), threshold, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* x, void* y, long long n, const void* seed,
+int launch(const void* x, void* y, long long n, long long cols,
+           long long base, long long c_glob, const void* seed,
            long long threshold, float scale, cudaStream_t s) {
   const long long want = (n + THREADS - 1) / THREADS;
   const unsigned blocks =
       static_cast<unsigned>(want < 132 * 32 ? want : 132 * 32);
   dropout_kernel<T><<<blocks, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n,
+      static_cast<const T*>(x), static_cast<T*>(y), n, cols, base, c_glob,
       static_cast<const unsigned long long*>(seed), threshold, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void empty_kernel() {}
 
+// The block map's arguments (see the header) describe a block: cols >= 1
+// dividing n, c_glob >= cols, base >= 0.
+bool valid_map(long long n, long long cols, long long base,
+               long long c_glob) {
+  return cols >= 1 && n % cols == 0 && c_glob >= cols && base >= 0;
+}
+
 }  // namespace
 
-// The general route.  x and y: contiguous, n elements, dtype 0 = f32, 1 =
-// bf16; seed: the device address of the 64-bit key (low word k0, high word
-// k1).  Returns the launch's cudaError_t (0 on success).
+// The general route.  x and y: contiguous, n elements, read as a (n / cols,
+// cols) block of a global tensor c_glob wide whose first element has the
+// global index base (the identity: cols = c_glob = n, base = 0); dtype 0 =
+// f32, 1 = bf16; seed: the device address of the 64-bit key (low word k0,
+// high word k1).  Returns the launch's cudaError_t (0 on success,
+// cudaErrorInvalidValue for a map that is not one).
 extern "C" int znicz_dropout(const void* x, void* y, long long n,
+                             long long cols, long long base, long long c_glob,
                              const void* seed, long long threshold,
                              float scale, int dtype, void* stream) {
   if (n <= 0) return cudaSuccess;
+  if (!valid_map(n, cols, base, c_glob)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch<float>(x, y, n, seed, threshold, scale, s)
-             : launch<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
+             ? launch<float>(x, y, n, cols, base, c_glob, seed, threshold,
+                             scale, s)
+             : launch<__nv_bfloat16>(x, y, n, cols, base, c_glob, seed,
+                                     threshold, scale, s);
 }
 
 // The vector route: the arguments of znicz_dropout, with x and y on 16-byte
-// boundaries (cudaErrorInvalidValue otherwise).
+// boundaries and the map's 8-aligned runs global runs (base % 8 == 0; a
+// block of columns also cols % 8 == 0 and c_glob % 8 == 0);
+// cudaErrorInvalidValue otherwise.
 extern "C" int znicz_dropout_vec(const void* x, void* y, long long n,
-                                 const void* seed, long long threshold,
-                                 float scale, int dtype, void* stream) {
+                                 long long cols, long long base,
+                                 long long c_glob, const void* seed,
+                                 long long threshold, float scale, int dtype,
+                                 void* stream) {
   if (reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
+  if (!valid_map(n, cols, base, c_glob) || base % 8 ||
+      (cols != c_glob && (cols % 8 || c_glob % 8)))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? launch_vec<float>(x, y, n, seed, threshold, scale, s)
-             : launch_vec<__nv_bfloat16>(x, y, n, seed, threshold, scale, s);
+             ? launch_vec<float>(x, y, n, cols, base, c_glob, seed, threshold,
+                                 scale, s)
+             : launch_vec<__nv_bfloat16>(x, y, n, cols, base, c_glob, seed,
+                                         threshold, scale, s);
 }
 
 // One block of 32 threads of an empty kernel: the least time a launch

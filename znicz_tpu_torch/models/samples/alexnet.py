@@ -56,7 +56,17 @@ register_defaults("alexnet", DEFAULTS)
 
 
 def layers(cfg: dict) -> list[dict]:
-    """The layer list of ``cfg`` (``DEFAULTS`` keys)."""
+    """The layer list of ``cfg`` (``DEFAULTS`` keys).  ``cfg`` may also
+    set ``model_parallel``: true splits fc6 by its outputs (column) and
+    fc7 by its inputs (row) over a mesh's model axis, the reference's
+    ``All2All(model_parallel=...)``; the dropout between them draws each
+    process's block of the one mask."""
+    split = bool(cfg.get("model_parallel", False))
+
+    def fc(col_or_row: str) -> dict:
+        return {"output_sample_shape": 4096, "weights_stddev": 0.005,
+                **({"model_parallel": col_or_row} if split else {})}
+
     gd_cfg = {"learning_rate": cfg["learning_rate"],
               "gradient_moment": cfg["gradient_moment"],
               "weights_decay": cfg["weights_decay"]}
@@ -83,13 +93,9 @@ def layers(cfg: dict) -> list[dict]:
          "->": {"n_kernels": 256, "kx": 3, "ky": 3, "padding": 1,
                 "weights_stddev": 0.01}, "<-": gd_cfg},
         {"type": "max_pooling", "->": dict(pool)},
-        {"type": "all2all_str",
-         "->": {"output_sample_shape": 4096, "weights_stddev": 0.005},
-         "<-": gd_cfg},
+        {"type": "all2all_str", "->": fc("column"), "<-": gd_cfg},
         {"type": "dropout", "->": {"dropout_ratio": cfg["dropout"]}},
-        {"type": "all2all_str",
-         "->": {"output_sample_shape": 4096, "weights_stddev": 0.005},
-         "<-": gd_cfg},
+        {"type": "all2all_str", "->": fc("row"), "<-": gd_cfg},
         {"type": "dropout", "->": {"dropout_ratio": cfg["dropout"]}},
         {"type": "softmax",
          "->": {"output_sample_shape": cfg["n_classes"],

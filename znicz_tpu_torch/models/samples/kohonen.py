@@ -30,6 +30,7 @@ from znicz_tpu_torch.models.loop_workflow import LoopWorkflow
 from znicz_tpu_torch.ops.decision import DecisionBase
 from znicz_tpu_torch.ops.kohonen import KohonenForward, KohonenTrainer
 from znicz_tpu_torch.ops.nn_units import as_numpy
+from znicz_tpu_torch.parallel.axis import maybe_psum
 from znicz_tpu_torch.utils.config import register_defaults, root
 
 register_defaults("kohonen", {
@@ -104,7 +105,8 @@ class KohonenQE(KohonenForward):
     @torch.no_grad()
     def device_run(self) -> None:
         super().device_run()
-        self.epoch_qe.add_(self.output.sum())
+        # the global batch's sum on a data axis
+        self.epoch_qe.add_(maybe_psum(self.output.sum()))
 
     def numpy_run(self) -> None:
         super().numpy_run()

@@ -103,6 +103,12 @@ class All2All(Forward):
                                           self.device.mesh)
             setattr(self, name, torch.nn.Parameter(block, requires_grad=False))
 
+    @property
+    def output_feature_block(self) -> bool:
+        """A column layer's output is this process's block of the
+        features."""
+        return self.model_split == "column"
+
     def fold_err_input(self, err: torch.Tensor) -> torch.Tensor:
         """A column layer's ``err_input`` is a partial sum over its block
         of features: summed over ``model``.  Otherwise unchanged."""

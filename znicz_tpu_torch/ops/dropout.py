@@ -18,8 +18,14 @@ applies the mask of the same seed to the error, so the backward
 regenerates the forward's mask bit for bit.  The kernel's bits are
 Philox4x32-10 of (seed, element index), which the plain version
 computes too, so one seed gives the same mask on the card and on the
-CPU.  The reference's bits come from the TPU core or from
-``jax.random``; only their distribution is owed.
+CPU.  The index is the element's place in the global tensor: on a mesh
+each process holds a block of the unit's input (its rows under data
+parallelism, its features after a column-parallel layer), and draws
+that block's part of the one mask of the whole
+(:meth:`~znicz_tpu_torch.ops.nn_units.Stochastic.block_map`), as the
+reference draws one mask over the global array.  The reference's bits
+come from the TPU core or from ``jax.random``; only their distribution
+is owed.
 
 A snapshot carries the chain's next seed (``seed_chain``), so a resumed
 run draws the masks the uninterrupted one would have.
@@ -54,6 +60,9 @@ class DropoutForward(Stochastic, Forward):
         self.dropout_ratio = float(dropout_ratio)
         #: the numpy oracle's mask of the last train step (None in eval)
         self.mask: np.ndarray | None = None
+        #: where the last train step's input lies in the global tensor
+        #: (None: it is the whole), which the backward's mask reads too
+        self.mask_block = None
 
     def param_shapes(self) -> dict[str, tuple]:
         return {}
@@ -66,8 +75,9 @@ class DropoutForward(Stochastic, Forward):
             self.seed = None
             return x.to(self.output_store_dtype)
         seed = self.next_seed(x.device)
-        return dropout_apply(x.contiguous(), seed,
-                             self.dropout_ratio).to(self.output_store_dtype)
+        self.mask_block = self.block_map(x)
+        return dropout_apply(x.contiguous(), seed, self.dropout_ratio,
+                             self.mask_block).to(self.output_store_dtype)
 
     def numpy_mask(self, shape) -> np.ndarray:
         """The oracle's train mask (the reference's host rule)."""
@@ -98,7 +108,8 @@ class DropoutBackward(WeightlessGradientUnit):
         if fwd.seed is None:
             return err_output.to(self.act_store_dtype)
         return dropout_apply(err_output.contiguous(), fwd.seed,
-                             fwd.dropout_ratio).to(self.act_store_dtype)
+                             fwd.dropout_ratio,
+                             fwd.mask_block).to(self.act_store_dtype)
 
     def numpy_backprop(self, x, err_output, y=None):
         if not self.need_err_input:

@@ -32,10 +32,14 @@ Dropout and the softmax head:
   (counter = the element index, key = the seed) exceed
   ``ratio·(2³²−1)``, kept elements scaled by ``1/(1−ratio)``.  The
   plain version computes the same bits with int64 arithmetic, so a
-  seed gives the same mask on the card and on the CPU.  It picks one of
+  seed gives the same mask on the card and on the CPU.  The element
+  index is the element's place in the global tensor that x is a block
+  of (a :class:`BlockMap`: a process's rows under data parallelism,
+  its columns after a column-parallel layer), so the processes of a
+  mesh draw their parts of the one mask of the whole.  It picks one of
   the source's two kernels by :func:`dropout_route`: the vector kernel
-  (8 elements a thread) where the operands lie on 16-byte boundaries,
-  the general one elsewhere;
+  (8 elements a thread) where the operands lie on 16-byte boundaries
+  and the map keeps 8-aligned runs whole, the general one elsewhere;
 - :func:`softmax_argmax` wraps ``csrc/softmax_argmax.cu``, which
   replaces ``_softmax_argmax_kernel`` (B4) — the row softmax of f32
   logits and the int32 index of the first maximum.  It picks one of the
@@ -72,6 +76,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -112,9 +117,9 @@ def _lib(stem: str) -> ctypes.CDLL:
                     [p, p, p, ll, i, i, f, f, f, i, i, p], i)},
             "dropout": {
                 "znicz_dropout": (
-                    [p, p, ll, p, ll, f, i, p], i),
+                    [p, p, ll, ll, ll, ll, p, ll, f, i, p], i),
                 "znicz_dropout_vec": (
-                    [p, p, ll, p, ll, f, i, p], i),
+                    [p, p, ll, ll, ll, ll, p, ll, f, i, p], i),
                 "znicz_empty_launch": ([p], i)},
             "softmax_argmax": {
                 "znicz_softmax_argmax": ([p, p, p, ll, i, p], i),
@@ -508,13 +513,66 @@ def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi & _M32, lo & _M32
 
 
-def dropout_bits(n: int, seed: int, device: torch.device | str = "cpu",
+class BlockMap(NamedTuple):
+    """Where a ``(rows, cols)`` block lies in the global ``(rows', c_glob)``
+    tensor it is a part of: its first row ``row0`` and first column
+    ``col0``.  Local element ``(r, c)`` is global element ``(row0 + r) ·
+    c_glob + col0 + c``.  None in its place is the identity (the block
+    is the whole)."""
+
+    row0: int
+    col0: int
+    c_glob: int
+
+
+def map_args(rows: int, cols: int, block: BlockMap | None
+             ) -> tuple[int, int]:
+    """``(base, c_glob)`` of ``block`` for a ``(rows, cols)`` block: the
+    global index of its first element and the global width (the
+    identity's: 0 and the block's own width); raises for a map that
+    does not hold the block."""
+    if block is None:
+        return 0, cols
+    row0, col0, c_glob = (int(v) for v in block)
+    if row0 < 0 or col0 < 0 or col0 + cols > c_glob \
+            or (cols == c_glob and col0):
+        raise ValueError(f"block map {tuple(block)} cannot hold a "
+                         f"({rows}, {cols}) block")
+    return row0 * c_glob + col0, c_glob
+
+
+def block_indices(rows: int, cols: int, block: BlockMap | None = None,
+                  device: torch.device | str = "cpu") -> torch.Tensor:
+    """The global indices of a ``(rows, cols)`` block under ``block``
+    (int64, ``(rows, cols)``)."""
+    base, c_glob = map_args(rows, cols, block)
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    return base + r * c_glob + c
+
+
+def block_bits(rows: int, cols: int, seed, device: torch.device | str
+               = "cpu", block: BlockMap | None = None) -> torch.Tensor:
+    """:func:`dropout_bits` of a ``(rows, cols)`` block's elements under
+    ``block``, ``(rows, cols)``: with no map, ``dropout_bits(rows·cols)``
+    bit for bit."""
+    return philox_bits(block_indices(rows, cols, block, device), seed)
+
+
+def dropout_bits(n: int, seed, device: torch.device | str = "cpu",
                  start: int = 0) -> torch.Tensor:
     """The 32-bit random words of elements ``start..start+n−1`` (as
-    int64): word 0 of Philox4x32-10 at counter ``(i mod 2³², i div 2³²,
-    0, 0)`` and key ``(seed mod 2³², seed div 2³²)``, the arithmetic of
-    ``csrc/dropout.cu`` on int64 tensors masked to 32 bits."""
-    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    int64): :func:`philox_bits` of those indices."""
+    return philox_bits(torch.arange(start, start + n, dtype=torch.int64,
+                                    device=device), seed)
+
+
+def philox_bits(i: torch.Tensor, seed) -> torch.Tensor:
+    """The 32-bit random words of the elements of global indices ``i``
+    (int64): word 0 of Philox4x32-10 at counter ``(i mod 2³², i div
+    2³², 0, 0)`` and key ``(seed mod 2³², seed div 2³²)``, the
+    arithmetic of ``csrc/dropout.cu`` on int64 tensors masked to 32
+    bits (``seed`` an int or a 0-d int64 tensor)."""
     c0, c1 = i & _M32, i >> 32
     c2 = torch.zeros_like(i)
     c3 = torch.zeros_like(i)
@@ -547,12 +605,32 @@ DROPOUT_ROUTES = ("vector", "general")
 _DROPOUT_ENTRY = {"vector": "znicz_dropout_vec", "general": "znicz_dropout"}
 
 
-def dropout_route(*pointers: int) -> str:
-    """Which dropout kernel takes operands at the addresses ``pointers``:
-    ``"vector"`` (8 elements a thread, 16-byte accesses; any size, the
-    last short run element by element) when every pointer lies on a
-    16-byte boundary, else ``"general"``."""
-    return "vector" if all(p % 16 == 0 for p in pointers) else "general"
+def dropout_route(*pointers: int, cols: int | None = None,
+                  block: BlockMap | None = None) -> str:
+    """Which dropout kernel takes operands at the addresses ``pointers``,
+    a block ``cols`` wide under ``block``: ``"vector"`` (8 elements a
+    thread, 16-byte accesses; any size, the last short run element by
+    element) when every pointer lies on a 16-byte boundary and each
+    8-aligned run of the block's elements is a run of 8 global indices
+    from a multiple of 8 (the identity always; a block of whole rows
+    whose first index is a multiple of 8; a block of columns whose
+    width, first column and global width are multiples of 8), else
+    ``"general"``."""
+    if not all(p % 16 == 0 for p in pointers):
+        return "general"
+    if block is None:
+        return "vector"
+    base, c_glob = map_args(0, cols, block)
+    whole = cols == c_glob
+    return "vector" if base % 8 == 0 and (
+        whole or (cols % 8 == 0 and c_glob % 8 == 0)) else "general"
+
+
+def block_shape(x: torch.Tensor) -> tuple[int, int]:
+    """x as the ``(rows, cols)`` view the block map reads: dim 0 by the
+    rest (a 0-d or 1-d tensor one row)."""
+    rows = x.shape[0] if x.dim() > 1 else 1
+    return rows, x.numel() // max(rows, 1)
 
 
 def seed_tensor(seed, device) -> torch.Tensor:
@@ -574,27 +652,33 @@ def _seed_value(seed) -> int:
     return int(seed) & (2 ** 64 - 1)
 
 
-def dropout_apply(x: torch.Tensor, seed,
-                  drop_ratio: float) -> torch.Tensor:
+def dropout_apply(x: torch.Tensor, seed, drop_ratio: float,
+                  block: BlockMap | None = None) -> torch.Tensor:
     """Inverted dropout with the mask of ``seed``: y with x's shape and
     dtype.  The same seed gives the same mask for any tensor of the
     same size (the backward applies it to the error).  ``seed`` is a
     Python int or a 0-d int64 tensor on x's device; the kernel reads it
     through a pointer, so a seed tensor that the step advances gives
-    each replay of a captured graph its own mask.  On the card x is
+    each replay of a captured graph its own mask.  ``block`` places x,
+    read as :func:`block_shape`, in the global tensor whose mask it
+    draws a part of (None: x is the whole).  On the card x is
     contiguous f32 or bf16, and :func:`dropout_route` picks the
     kernel."""
     threshold, scale = _dropout_constants(x.dtype, drop_ratio)
+    rows, cols = block_shape(x)
+    base, c_glob = map_args(rows, cols, block)
     if x.device.type == "cpu":
-        return dropout_apply_plain(x, seed, drop_ratio)
+        return dropout_apply_plain(x, seed, drop_ratio, block)
     _check_card_tensor("x", x, _KERNEL_DTYPES)
     seed_t = seed_tensor(seed, x.device)
     y = torch.empty_like(x)
-    route = dropout_route(x.data_ptr(), y.data_ptr())
+    route = dropout_route(x.data_ptr(), y.data_ptr(), cols=cols,
+                          block=block)
     with torch.cuda.device(x.device):
         err = getattr(_lib("dropout"), _DROPOUT_ENTRY[route])(
-            x.data_ptr(), y.data_ptr(), x.numel(), seed_t.data_ptr(),
-            threshold, scale, _KERNEL_DTYPES[x.dtype], _stream(x))
+            x.data_ptr(), y.data_ptr(), x.numel(), max(cols, 1), base,
+            max(c_glob, 1), seed_t.data_ptr(), threshold, scale,
+            _KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "dropout_apply")
     dropout_apply.launches += 1
     dropout_apply.launches_by_route[route] += 1
@@ -607,13 +691,14 @@ dropout_apply.launches = 0
 dropout_apply.launches_by_route = dict.fromkeys(DROPOUT_ROUTES, 0)
 
 
-def dropout_apply_plain(x: torch.Tensor, seed,
-                        drop_ratio: float) -> torch.Tensor:
+def dropout_apply_plain(x: torch.Tensor, seed, drop_ratio: float,
+                        block: BlockMap | None = None) -> torch.Tensor:
     """The dropout kernel's function in plain PyTorch, bit for bit
     (``seed``: an int, or a 0-d int64 tensor read on the host)."""
     threshold, scale = _dropout_constants(x.dtype, drop_ratio)
-    keep = dropout_bits(x.numel(), _seed_value(seed),
-                        x.device).reshape(x.shape) > threshold
+    rows, cols = block_shape(x)
+    keep = block_bits(rows, cols, _seed_value(seed), x.device,
+                      block).reshape(x.shape) > threshold
     return torch.where(keep, x.float() * scale, 0.0).to(x.dtype)
 
 

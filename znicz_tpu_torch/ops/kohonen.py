@@ -24,6 +24,12 @@ schedule with no host work.  The trainer writes the shared ``weights``
 in place, and the decision zeroes ``hits`` in place once an epoch: a
 captured graph reads and writes the tensors it captured.
 
+On a data axis each process holds its rows of the minibatch: the hits
+it counts and the update's numerator ``Σ_b h_bi x_b`` and denominator
+``Σ_b h_bi`` are summed over the axis, and the update divides by the
+global row count, so every process takes the global batch's step, as
+the reference's GSPMD does.
+
 On the numpy oracle each unit runs the reference's numpy path.
 """
 
@@ -34,6 +40,8 @@ import torch
 
 from znicz_tpu_torch.ops.nn_units import (Forward, ModuleUnit, as_numpy,
                                           stored_f32)
+from znicz_tpu_torch.parallel.axis import (data_axis_size, maybe_psum,
+                                           maybe_psum_all)
 from znicz_tpu_torch.utils import prng
 
 
@@ -107,7 +115,9 @@ class KohonenForward(Forward):
     @torch.no_grad()
     def device_run(self) -> None:
         self.winners, self.output = self.lookup(self.input)
-        self.hits.index_add_(0, self.winners, torch.ones_like(self.winners))
+        hits = torch.zeros_like(self.hits).index_add_(
+            0, self.winners, torch.ones_like(self.winners))
+        self.hits.add_(maybe_psum(hits))
 
     def numpy_run(self) -> None:
         n = self.input.shape[0]
@@ -125,9 +135,6 @@ class KohonenTrainer(ModuleUnit):
     ``forward_mode`` (from the loader; part of the region's key: eval
     minibatches leave the map alone).  ``shape_grid`` is the forward's
     grid."""
-
-    DATA_PARALLEL = False
-    DATA_PARALLEL_NOTE = "its update is not folded over the data axis"
 
     WRITES = ()
 
@@ -178,7 +185,10 @@ class KohonenTrainer(ModuleUnit):
         lr = self.learning_rate * (0.01) ** frac
         return sigma, lr
 
-    def _update(self, xp, x, w, win, coords, t):
+    def _update(self, xp, x, w, win, coords, t, fold=None):
+        """The updated weights; ``fold`` (the device's) sums the
+        numerator and the denominator over the data axis, and the step
+        divides by the global row count."""
         sigma, lr = self._schedule(xp, t)
         n = x.shape[0]
         winc = coords[win]                       # (n, 2)
@@ -186,6 +196,9 @@ class KohonenTrainer(ModuleUnit):
         h = xp.exp(-d2 / (2.0 * sigma * sigma))  # (n, n_neurons)
         num = h.T @ x                            # (n_neurons, features)
         den = h.sum(axis=0)[:, None]             # (n_neurons, 1)
+        if fold is not None:
+            num, den = fold(num, den)
+            n *= data_axis_size()
         return w + lr / n * (num - den * w)
 
     @torch.no_grad()
@@ -196,7 +209,8 @@ class KohonenTrainer(ModuleUnit):
         n = x.shape[0]
         w = self.weights
         w.copy_(self._update(torch, x.reshape(n, -1).float(), w,
-                             self.winners.long(), self._coords, self.time))
+                             self.winners.long(), self._coords, self.time,
+                             maybe_psum_all))
         self.time.add_(1.0)
 
     def numpy_run(self) -> None:

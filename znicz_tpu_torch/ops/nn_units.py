@@ -32,7 +32,8 @@ Two precision rules carry over from the reference's XLA path:
   Autograd through it rounds the cotangent of each operand to bf16,
   where ``jax.vjp`` of the reference's ``mxu_dot`` does.
 - :attr:`AcceleratedUnit.act_store_dtype` — activations and errors between
-  layers are stored in bf16 in bf16 mode and in f32 otherwise.
+  layers are stored in bf16 in bf16 mode and in f32 otherwise, or with
+  ``root.common.engine.bf16_activations = False``.
 
 :class:`GradientDescentBase` is the reference's update rule, cut to what
 the training paths run (learning rates, L1/L2 decay, momentum,
@@ -50,7 +51,11 @@ the reference: ``ok = running flag AND isfinite(Σ g²)`` of the tensor's
 logical gradient, a skipped tensor keeping its parameter and momentum
 bit for bit, and each tensor's SDC fingerprints folded into the guard's
 vector (:meth:`GradientDescentBase.apply_param`).  Momentum is stored in bf16
-in bf16 mode with its math in f32, as in the reference.  With
+in bf16 mode with its math in f32, as in the reference, unless
+``root.common.engine.bf16_optimizer_state = False``; with
+``root.common.engine.bf16_grad_comms`` on (off by default), ZeRO-1
+reduce-scatters each weight gradient in bf16 and updates the upcast
+shard.  With
 ``engine.fp8_matmul`` on, each parameter's gradient takes a round-trip
 through e4m3 after the accumulation mean and before the update, as in
 the reference.
@@ -77,10 +82,11 @@ from znicz_tpu_torch.accelerated_units import (AcceleratedUnit,
                                                precision_dtypes)
 from znicz_tpu_torch.memory import Vector
 from znicz_tpu_torch.ops.fp8 import fp8_enabled, fp8_round_trip
+from znicz_tpu_torch.ops.fused_kernels import BlockMap, block_shape
 from znicz_tpu_torch.parallel import partition
-from znicz_tpu_torch.parallel.axis import (DATA_AXIS, all_gather_flat,
-                                           all_reduce, maybe_psum,
-                                           reduce_scatter_flat)
+from znicz_tpu_torch.parallel.axis import (DATA_AXIS, MODEL_AXIS,
+                                           all_gather_flat, all_reduce,
+                                           maybe_psum, reduce_scatter_flat)
 from znicz_tpu_torch.resilience import integrity as _integrity
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.config import register_defaults, root
@@ -245,6 +251,10 @@ class Forward(ModuleUnit):
         self.bias_filling = init_config.get("bias_filling", "uniform")
         self.bias_stddev = init_config.get("bias_stddev")
 
+    #: True when the output is this process's block of the features
+    #: (a column-parallel layer's), which the stochastic units' maps read
+    output_feature_block = False
+
     def check_input_shape(self) -> None:
         """Raise when :attr:`input_shape` does not suit the unit (called
         once the shape is known)."""
@@ -351,17 +361,44 @@ class Forward(ModuleUnit):
         return self.act_store_dtype
 
 
+def block_map(device, x: torch.Tensor, columns: bool = False
+              ) -> BlockMap | None:
+    """Where ``x``, this process's part of a batch-major tensor, lies in
+    the global tensor read as ``(rows, features)``
+    (:func:`~znicz_tpu_torch.ops.fused_kernels.block_shape`), or None
+    when it is the whole.  Its rows are block :attr:`~znicz_tpu_torch.
+    backends.Device.data_rank` of the data axis; with ``columns`` (the
+    output of a column-parallel layer) its features are block
+    ``model``-rank of the model axis.  The other axes leave a unit's
+    input whole (the ring gathers time at the attention's output).  The
+    map is a constant of the process, so a captured graph keeps it."""
+    mesh = None if device is None else device.mesh
+    if mesh is None:
+        return None
+    rows, cols = block_shape(x)
+    row0 = device.data_rank * rows
+    n_model = mesh.size(MODEL_AXIS)
+    col0, c_glob = 0, cols
+    if columns and n_model > 1:
+        col0, c_glob = mesh.index(MODEL_AXIS) * cols, cols * n_model
+    if not (row0 or col0) and c_glob == cols:
+        return None
+    return BlockMap(row0, col0, c_glob)
+
+
 class Stochastic:
     """Mixin of a forward that draws a seed a train step (dropout,
-    stochastic pooling) from its :class:`SeedChain`: a seed on the
-    device that the step advances, rooted in one draw from the default
-    generator.  ``forward_mode`` is part of the region key; the chain's
-    next seed is part of the snapshot (``seed_chain``)."""
+    stochastic pooling, the RBM's sampling) from its :class:`SeedChain`:
+    a seed on the device that the step advances, rooted in one draw from
+    the default generator.  ``forward_mode`` is part of the region key;
+    the chain's next seed is part of the snapshot (``seed_chain``).
 
-    DATA_PARALLEL = False
-    DATA_PARALLEL_NOTE = ("its kernel draws the mask from the seed and the "
-                          "element's index, so every process would drop "
-                          "the same positions of its rows")
+    On a mesh each process draws its part of the one draw of the global
+    tensor (:meth:`block_map`): the element's index in the global tensor
+    picks its bits.  Every process roots its chain in the same draw, as
+    every process seeds the default generator alike and makes the same
+    draws from it in the same order (the loader's shuffle seed, the
+    weight fills, the chains' roots), so the seeds agree."""
 
     def init_stochastic(self) -> None:
         self.forward_mode = "train"
@@ -376,6 +413,18 @@ class Stochastic:
 
     def region_key(self) -> tuple:
         return (self.forward_mode,)
+
+    @property
+    def output_feature_block(self) -> bool:
+        """True when the output is this process's block of the features
+        (an elementwise draw keeps its input's placement)."""
+        link = self._linked_attrs.get("input")
+        return link is not None and bool(
+            getattr(link.source, "output_feature_block", False))
+
+    def block_map(self, x: torch.Tensor) -> BlockMap | None:
+        """The map of ``x``, this step's input (:func:`block_map`)."""
+        return block_map(self.device, x, self.output_feature_block)
 
     def sync_host_state(self) -> None:
         if self.forward_mode == "train":
@@ -530,6 +579,11 @@ class GradientDescentBase(ModuleUnit):
                                  f"initialized yet")
         self.compute_dtype = self.forward_unit.compute_dtype
         self.bind_forward()
+        #: ZeRO-1 reduce-scatters the weight gradients in bf16
+        #: (``engine.bf16_grad_comms``, off by default, as in the
+        #: reference): half the bytes, the shard's math on the upcast
+        self._grad_comms_bf16 = bool(self.__dict__.get("_zero1")) and bool(
+            root.common.engine.get("bf16_grad_comms", False))
 
     @torch.no_grad()
     def claim_lr_state(self) -> None:
@@ -578,8 +632,14 @@ class GradientDescentBase(ModuleUnit):
     @property
     def opt_state_dtype(self) -> torch.dtype:
         """Storage dtype of the momentum accumulators: bf16 in bf16
-        mode (the math stays f32), else f32."""
-        return precision_dtypes(self.forward_unit.compute_dtype)[1]
+        mode (the math stays f32), else f32.  Opt out:
+        ``root.common.engine.bf16_optimizer_state = False`` keeps them
+        f32 in bf16 mode, as the reference's."""
+        store = precision_dtypes(self.forward_unit.compute_dtype)[1]
+        if store == torch.bfloat16 and not bool(
+                root.common.engine.get("bf16_optimizer_state", True)):
+            return torch.float32
+        return store
 
     @property
     def act_store_dtype(self) -> torch.dtype:
@@ -918,12 +978,15 @@ class GradientDescentBase(ModuleUnit):
         rank = self.device.data_rank
         dim, pad = plan.data_shard_dim, plan.data_shard_pad
         rows = param.shape[dim]
-        g = grad.float().movedim(dim, 0)
+        # the bytes the reduce-scatter moves; the shard's math is f32
+        g = grad.to(torch.bfloat16 if self.__dict__.get("_grad_comms_bf16")
+                    else torch.float32).movedim(dim, 0)
         if pad:
             g = torch.cat([g, g.new_zeros((pad,) + tuple(g.shape[1:]))])
         block = (rows + pad) // n
         shard = g.new_empty((block,) + tuple(g.shape[1:]))
         reduce_scatter_flat(shard, g, group)
+        shard = shard.float()
         if fp8_enabled():
             shard = fp8_round_trip(shard)
         w = param.movedim(dim, 0)

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from znicz_tpu_torch.ops.fused_kernels import dropout_bits
+from znicz_tpu_torch.ops.fused_kernels import block_bits
 from znicz_tpu_torch.ops.nn_units import Forward, Stochastic
 from znicz_tpu_torch.utils import prng
 
@@ -224,9 +224,12 @@ class StochasticPooling(Stochastic, Pooling):
     linked from the loader in a workflow.  A train step takes its seed
     from the unit's device seed chain (as dropout does) and its uniform
     draws from the Philox bits of that seed
-    (:func:`~znicz_tpu_torch.ops.fused_kernels.dropout_bits`, on the
+    (:func:`~znicz_tpu_torch.ops.fused_kernels.block_bits`, on the
     device, with no host sync), so a captured graph draws anew on each
-    replay."""
+    replay.  The bits of window ``(i, c, oy, ox)`` are those of its
+    index in the global batch's ``(n, c, oh, ow)`` windows, so on a
+    data axis each process draws its rows of the one draw of the whole
+    batch."""
 
     def __init__(self, *args, **kwargs) -> None:
         super().__init__(*args, **kwargs)
@@ -278,8 +281,10 @@ class StochasticPooling(Stochastic, Pooling):
             return self.store((probs * wins0).sum(dim=2))
         self.next_seed(x.device)
         n, c, _, oh, ow = wins.shape
-        # 24 random bits a window, a uniform draw in [0, 1)
-        bits = dropout_bits(n * c * oh * ow, self.seed, x.device)
+        # 24 random bits a window, a uniform draw in [0, 1); on a mesh
+        # this process's rows of the draw of the global batch
+        bits = block_bits(n, c * oh * ow, self.seed, x.device,
+                          self.block_map(wins[:, :, 0]))
         r = ((bits >> 8).float() * 2.0 ** -24).view(n, c, 1, oh, ow)
         cum = probs.cumsum(dim=2)
         # no draw may land past the last cell with mass when the sum of

@@ -30,6 +30,15 @@ seed of ``GradientRBM``'s own chain.
 ``hbias``), which it shares, and its own ``vbias`` in place: a captured
 graph reads and writes the addresses it captured.
 
+On a data axis each process holds its rows of the minibatch.  Its
+draws are its rows of the one draw of the global batch (the bits of an
+element's index in the global tensor,
+:meth:`~znicz_tpu_torch.ops.nn_units.Stochastic.block_map`), and the
+statistics are the global batch's: each process's sums over its rows,
+divided by the global row count, summed over the data axis in one
+all-reduce (:func:`~znicz_tpu_torch.parallel.axis.maybe_psum_all`),
+where the reference's GSPMD sums over the global batch.
+
 On the numpy oracle each unit runs the reference's numpy path, drawing
 its uniforms from the default generator's host stream in the
 reference's order, so the oracle's run equals the reference's oracle
@@ -43,9 +52,11 @@ import torch
 
 from znicz_tpu_torch.accelerated_units import AcceleratedUnit
 from znicz_tpu_torch.ops.evaluator import EvaluatorMSE
-from znicz_tpu_torch.ops.fused_kernels import dropout_bits
+from znicz_tpu_torch.ops.fused_kernels import (BlockMap, block_bits,
+                                               block_shape)
 from znicz_tpu_torch.ops.nn_units import (Forward, ModuleUnit, Stochastic,
-                                          as_numpy, stored_f32)
+                                          as_numpy, block_map, stored_f32)
+from znicz_tpu_torch.parallel.axis import data_axis_size, maybe_psum_all
 from znicz_tpu_torch.utils import prng
 from znicz_tpu_torch.utils.prng import SeedChain
 
@@ -54,10 +65,13 @@ def _sigmoid(xp, x):
     return 1.0 / (1.0 + xp.exp(-x))
 
 
-def bernoulli(p: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+def bernoulli(p: torch.Tensor, seed: torch.Tensor,
+              block: BlockMap | None = None) -> torch.Tensor:
     """``1[u < p]`` in f32, ``u`` the 24-bit uniform of each element
-    under ``seed`` (a 0-d int64 device tensor)."""
-    bits = dropout_bits(p.numel(), seed, p.device)
+    under ``seed`` (a 0-d int64 device tensor), p read as ``(rows,
+    features)`` placed in the global tensor by ``block`` (None: p is
+    the whole)."""
+    bits = block_bits(*block_shape(p), seed, p.device, block)
     u = ((bits >> 8).float() * 2.0 ** -24).view(p.shape)
     return (u < p.float()).float()
 
@@ -84,7 +98,8 @@ class Binarization(Stochastic, Forward):
 
     def forward(self, p: torch.Tensor) -> torch.Tensor:
         seed = self.next_seed(p.device)
-        return bernoulli(p, seed).to(self.output_store_dtype)
+        return bernoulli(p, seed, self.block_map(p)).to(
+            self.output_store_dtype)
 
     def numpy_forward(self, p: np.ndarray) -> np.ndarray:
         u = prng.get().numpy.uniform(size=p.shape)
@@ -94,10 +109,8 @@ class Binarization(Stochastic, Forward):
 class BatchWeights(AcceleratedUnit):
     """Batch outer product ``vᵀh / n`` plus column means: the sufficient
     statistics of one CD phase (the reference's ``BatchWeights``;
-    ``GradientRBM`` computes two of these)."""
-
-    DATA_PARALLEL = False
-    DATA_PARALLEL_NOTE = "a statistic over the whole minibatch"
+    ``GradientRBM`` computes two of these).  On a data axis, those of
+    the global batch (folded over the axis)."""
 
     WRITES = ("weights_batch", "v_mean", "h_mean")
 
@@ -109,14 +122,21 @@ class BatchWeights(AcceleratedUnit):
         self.h_mean = None              # (nh,)
 
     @staticmethod
-    def stats(xp, v, h):
-        n = v.shape[0]
-        return v.T @ h / n, v.mean(axis=0), h.mean(axis=0)
+    def stats(xp, v, h, n: int | None = None):
+        """``(vᵀh / n, Σv / n, Σh / n)`` over v's and h's rows, n the
+        row count of the batch they are a part of (their own by
+        default)."""
+        if n is None or n == v.shape[0]:
+            n = v.shape[0]
+            return v.T @ h / n, v.mean(axis=0), h.mean(axis=0)
+        return v.T @ h / n, v.sum(axis=0) / n, h.sum(axis=0) / n
 
     @torch.no_grad()
     def device_run(self) -> None:
-        self.weights_batch, self.v_mean, self.h_mean = self.stats(
-            torch, self.v.float(), self.h.float())
+        v = self.v.float()
+        self.weights_batch, self.v_mean, self.h_mean = maybe_psum_all(
+            *self.stats(torch, v, self.h.float(),
+                        v.shape[0] * data_axis_size()))
 
     def numpy_run(self) -> None:
         self.weights_batch, self.v_mean, self.h_mean = (
@@ -137,9 +157,6 @@ class GradientRBM(ModuleUnit):
     from the loader) gates the update, and is part of the region's key:
     an eval minibatch only computes the reconstruction.
     """
-
-    DATA_PARALLEL = False
-    DATA_PARALLEL_NOTE = "its update is not folded over the data axis"
 
     WRITES = ("reconstruction",)
 
@@ -213,17 +230,22 @@ class GradientRBM(ModuleUnit):
         w, hb, vb = self.weights, self.hbias, self.vbias
 
         def sample(p):
-            return bernoulli(p, self.seed_chain.next(p.device))
+            return bernoulli(p, self.seed_chain.next(p.device),
+                             block_map(self.device, p))
 
         v1, h1 = self._gibbs(torch, v0, h0, s0, w, hb, vb, sample)
         if self.forward_mode != "train":
             return v1
-        pos_w, pos_v, pos_h = BatchWeights.stats(torch, v0, h0)
-        neg_w, neg_v, neg_h = BatchWeights.stats(torch, v1, h1)
+        # the global batch's statistics: each process's rows over the
+        # global count, summed over the data axis
+        n_all = n * data_axis_size()
+        pos_w, pos_v, pos_h = BatchWeights.stats(torch, v0, h0, n_all)
+        neg_w, neg_v, neg_h = BatchWeights.stats(torch, v1, h1, n_all)
+        grads = maybe_psum_all(pos_w - neg_w, pos_v - neg_v, pos_h - neg_h)
         lr, m = self.learning_rate, self.gradient_moment
-        for param, grad, acc in ((w, pos_w - neg_w, self._acc_w),
-                                 (vb, pos_v - neg_v, self._acc_vb),
-                                 (hb, pos_h - neg_h, self._acc_hb)):
+        for param, grad, acc in zip((w, vb, hb), grads,
+                                    (self._acc_w, self._acc_vb,
+                                     self._acc_hb)):
             if m:
                 acc.copy_(m * acc + lr * grad)
                 param.add_(acc)

@@ -75,6 +75,30 @@ def maybe_psum(x: torch.Tensor) -> torch.Tensor:
     return all_reduce(x, group)
 
 
+def data_axis_size() -> int:
+    """Processes of the data axis the enclosing step runs under (1
+    outside one): the factor from a process's rows to the global
+    batch's."""
+    group = _active_data_axis.get()
+    if group is None:
+        return 1
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def maybe_psum_all(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each of ``xs`` summed over the data axis when inside one (one
+    all-reduce of their f32 concatenation), else ``xs`` unchanged."""
+    if _active_data_axis.get() is None:
+        return xs
+    flat = maybe_psum(torch.cat([x.reshape(-1).float() for x in xs]))
+    out, at = [], 0
+    for x in xs:
+        out.append(flat[at:at + x.numel()].view(x.shape))
+        at += x.numel()
+    return tuple(out)
+
+
 def maybe_pmean(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the data axis when inside one, else ``x``."""
     group = _active_data_axis.get()

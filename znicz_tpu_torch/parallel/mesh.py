@@ -5,8 +5,12 @@ The reference is one controller over a ``jax.sharding.Mesh`` whose
 collectives GSPMD inserts.  The port is one process a device, and
 :class:`Mesh` is this process's view of the global grid: a
 ``torch.distributed.device_mesh.DeviceMesh`` with the reference's axis
-names (``data``, ``model`` and, with ``n_seq > 1``, ``seq``), used for
-its process groups only.  The units write each collective out
+names (``data``, ``model`` and, with ``n_seq > 1``, ``seq``; with
+``n_pipe > 1`` a leading ``pipe``), used for its process groups only.
+A pipe axis gives each pipeline stage a contiguous block of ranks and
+one process group over it; :func:`mesh_for_stage` is stage k's
+``(data, model[, seq])`` mesh.  The pipeline executor stays temporal,
+in one process, as the reference's is.  The units write each collective out
 themselves (the gradient fold, Megatron's column→row pair, the ring's
 rotation, ZeRO-1's reduce-scatter and all-gather) on the group of the
 axis the reference's placement names.
@@ -22,14 +26,18 @@ from znicz_tpu_torch.parallel.axis import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
 
 
 class Mesh:
-    """This process's place in a ``(data, model[, seq])`` grid of
+    """This process's place in a ``([pipe, ]data, model[, seq])`` grid of
     processes, one device each.
 
     ``shape`` maps axis name → size (ordered as the grid); ``groups``
     each axis's process group among the processes that share this
     process's other coordinates; ``coords`` this process's index along
-    each axis.  Built by :func:`make_mesh` after
-    :func:`~znicz_tpu_torch.parallel.distributed.ensure_initialized`."""
+    each axis; ``ranks`` the grid of global ranks (nested lists, the
+    ranks in row-major order).  With a ``pipe`` axis, ``stage_groups``
+    holds one process group a stage over its block of ranks (a process
+    outside the block holds no group of it).  Built by :func:`make_mesh`
+    after :func:`~znicz_tpu_torch.parallel.distributed.ensure_initialized`;
+    :func:`mesh_for_stage` gives a stage's mesh."""
 
     def __init__(self, shape: dict, device_type: str) -> None:
         import torch.distributed as dist
@@ -45,6 +53,14 @@ class Mesh:
         self.coords = {ax: int(self.device_mesh.get_local_rank(ax))
                        for ax in self.axis_names}
         self.rank = dist.get_rank()
+        self.ranks = self.device_mesh.mesh.tolist()
+        #: stage → the process group over its block of ranks (with a
+        #: pipe axis; every process makes each group, in stage order)
+        self.stage_groups = {}
+        if PIPE_AXIS in self.shape:
+            for k, block in enumerate(self.ranks):
+                self.stage_groups[k] = dist.new_group(
+                    sorted(_flat(block)))
         self.warm_up()
 
     def size(self, axis: str) -> int:
@@ -70,6 +86,9 @@ class Mesh:
         dist.all_reduce(x)
         for group in self.groups.values():
             dist.all_reduce(x, group=group)
+        k = self.coords.get(PIPE_AXIS)
+        if k is not None:
+            dist.all_reduce(x, group=self.stage_groups[k])
         if self.device_type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -77,32 +96,83 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank}, at {self.coords})"
 
 
+class StageMesh:
+    """Pipeline stage k's ``(data, model[, seq])`` mesh: the block of the
+    pipe mesh's grid at pipe index k (:func:`mesh_for_stage`).  It reads
+    as a :class:`Mesh` (``shape``, ``axis_names``, ``size``, ``index``,
+    ``group``) over the stage's processes; ``block_group`` is the one
+    group over them all.  ``member`` is False in a process of another
+    stage, which holds no group of this one (``group`` None, ``index``
+    raises)."""
+
+    def __init__(self, mesh: Mesh, stage: int) -> None:
+        if not 0 <= stage < mesh.shape[PIPE_AXIS]:
+            raise ValueError(f"stage {stage} not on a pipe axis of "
+                             f"{mesh.shape[PIPE_AXIS]}")
+        self.stage = stage
+        self.shape = {ax: n for ax, n in mesh.shape.items()
+                      if ax != PIPE_AXIS}
+        self.axis_names = tuple(self.shape)
+        self.device_type = mesh.device_type
+        self.ranks = mesh.ranks[stage]
+        self.member = mesh.coords[PIPE_AXIS] == stage
+        self.rank = mesh.rank
+        self.block_group = mesh.stage_groups[stage] if self.member \
+            else None
+        self.groups = {ax: mesh.groups[ax] for ax in self.axis_names} \
+            if self.member else {}
+        self.coords = {ax: mesh.coords[ax] for ax in self.axis_names} \
+            if self.member else {}
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        if not self.member:
+            raise ValueError(f"process {self.rank} is not on stage "
+                             f"{self.stage}")
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+    def __repr__(self) -> str:
+        return (f"StageMesh(stage {self.stage}, {self.shape}, ranks "
+                f"{sorted(_flat(self.ranks))})")
+
+
+def _flat(nested) -> list:
+    """The ints of a nested list, in order."""
+    if isinstance(nested, list):
+        return [r for item in nested for r in _flat(item)]
+    return [int(nested)]
+
+
 def make_mesh(n_data: int | None = None, n_model: int = 1, n_seq: int = 1,
               device_type: str = "cuda", n_pipe: int = 1) -> Mesh:
-    """A ``(data, model[, seq])`` mesh over the processes of the
+    """A ``([pipe, ]data, model[, seq])`` mesh over the processes of the
     initialized process group, as the reference's ``make_mesh`` over
     its devices: ``n_data=None`` puts every remaining process on the
-    data axis, and ``n_data × n_model × n_seq`` must be the process
-    count.  The temporal pipeline runs in one process (no ``pipe``
-    axis): ``n_pipe`` > 1 raises."""
+    data axis, and ``n_pipe × n_data × n_model × n_seq`` must be the
+    process count.  ``n_pipe > 1`` puts a leading ``pipe`` axis first,
+    the slowest-varying, so each stage holds a contiguous block of
+    ranks (:func:`mesh_for_stage`)."""
     import torch.distributed as dist
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(parallel.distributed.ensure_initialized)")
-    if n_pipe != 1:
-        raise ValueError("a pipe axis across processes is not offered: "
-                         "the pipeline is temporal, in one process "
-                         "(StandardWorkflow.run_pipelined)")
     world = dist.get_world_size()
     if n_data is None:
-        if world % (n_model * n_seq):
+        if world % (n_model * n_seq * n_pipe):
             raise ValueError(f"{world} processes do not divide into "
-                             f"n_model={n_model} × n_seq={n_seq}")
-        n_data = world // (n_model * n_seq)
-    if n_data * n_model * n_seq != world:
-        raise ValueError(f"mesh {n_data} × {n_model} × {n_seq} != "
-                         f"{world} processes")
-    shape = {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+                             f"n_model={n_model} × n_seq={n_seq} × "
+                             f"n_pipe={n_pipe}")
+        n_data = world // (n_model * n_seq * n_pipe)
+    if n_pipe * n_data * n_model * n_seq != world:
+        raise ValueError(f"mesh {n_pipe} × {n_data} × {n_model} × {n_seq} "
+                         f"!= {world} processes")
+    shape = {PIPE_AXIS: n_pipe} if n_pipe > 1 else {}
+    shape.update({DATA_AXIS: n_data, MODEL_AXIS: n_model})
     if n_seq > 1:
         shape[SEQ_AXIS] = n_seq
     return Mesh(shape, device_type)
@@ -171,10 +241,11 @@ def zero1_partition(shape, n_shards: int,
 
 
 def mesh_for_stage(mesh, stage: int):
-    """The sub-mesh of pipeline stage ``stage``: a mesh without a
-    ``pipe`` axis (every mesh here: the pipeline is temporal) is
-    returned unchanged, as in the reference."""
+    """The ``(data, model[, seq])`` mesh of pipeline stage ``stage``
+    (a :class:`StageMesh`: the pipe mesh's block at pipe index
+    ``stage``); a mesh without a ``pipe`` axis is returned unchanged,
+    as in the reference."""
     names = getattr(mesh, "axis_names", ())
     if PIPE_AXIS not in names:
         return mesh
-    raise ValueError("a pipe axis across processes is not offered")
+    return StageMesh(mesh, stage)
