@@ -264,9 +264,11 @@ Phases (any failure raises and exits non-zero):
    1 clean on every batch, and a planted ``sdc.serving_bitflip``
    corrected from the oracle, the engine suspect, the hook called once
    (the audit's host time printed); then the int8 twin
-   (``quantize_bundle``) served graphed, its replies against the int8
-   numpy oracle (``INT8_ORACLE_TOL``) with the same argmax, its
-   ``bytes_ratio`` and resident weight bytes printed.
+   (``quantize_bundle``) served graphed, its 1-row reply against the
+   int8 numpy oracle (``INT8_ORACLE_TOL``) with the same argmax, its
+   3- and 16-row replies against it and each other on their shared
+   rows (``INT8_ROWS_TOL``), its ``bytes_ratio`` and resident weight
+   bytes printed.
 15. decode, through ``DecodeEngine`` on the card, each decode program a
    CUDA graph: the byte LM of phase 10 without its layer norm (the
    decoder takes none; bf16, trained graphed at T = 64 until the
@@ -334,7 +336,27 @@ Phases (any failure raises and exits non-zero):
    page-locked bytes and the staging tensors', the pinned H2D and the
    in-place D2D timed alone; a delivery that rebinds ``minibatch_raw``
    must be refused by the next replay, and ``loader.reader_death`` fired
-   mid-epoch must restart the pipeline with every batch still exact.
+   mid-epoch must restart the pipeline with every batch still exact;
+   (b) image decode on the card: the native pool built with g++ from
+   the checkout (its own JPEG and PNG decoders; its library's
+   DT_NEEDED naming zlib and neither libjpeg nor libpng), a
+   class-per-subdirectory tree of 16 × 64 ImageNet-sized frames written
+   with PIL (70 % baseline JPEG at quality 90 and 4:2:0, 10 %
+   progressive, 5 % each 4:4:4, grayscale, restart markers and PNG) and
+   every file decoded by the pool at its own size held to PIL's decode
+   (JPEGs within one level, with the count printed, PNGs bit-equal, no
+   failure), ``imagenet`` trained from the tree through ``python -m
+   znicz_tpu_torch`` at its defaults (1000 classes, B = 128, 227
+   crops): its validation step and 6 graphed train steps (11 or 16
+   where a profiler window lost a record and was repeated), the
+   replays' step time between CUDA events, the pool's wait, the
+   device's busy share, the wrappers' counts against the kernels the
+   profiler saw, no capture after the first graphed step, finite
+   losses, no anomaly, B1–B4 exactly once a layer a step; the pool's
+   decode rate over the whole tree at 256 resize and 227 crop with 1, 4
+   and all threads beside the step's demand and PIL's one thread at a
+   time over every 7th file (``tools/decode_ab.py``, in turns); ``hands``, ``yale_faces`` and ``channels`` over PNG trees,
+   3 graphed epochs each, B4 once a step.
 18. resilience, with the anomaly guard and the SDC fingerprints on, the
    default (every phase before runs with them too): (a) AlexNet at B =
    128 in bf16, graphed, and the full-width sequence stack: the step's
@@ -5215,6 +5237,13 @@ SERVE_GRAPH_TOL = 0.0
 #: on each activation); the bound is the shadow audit's own (rtol 0.05
 #: of max(|p|, 1)), which the engine's audit applies to the same pair
 INT8_ORACLE_TOL = 5e-2
+#: the int8 twin's replies to requests of 1, 3 and 16 rows on the rows
+#: they share, probabilities: each row is computed alone, but each bucket
+#: runs its products at its own row count, whose summation order may
+#: differ, and an f32 sum that moves across a bf16 rounding midpoint
+#: moves a logit by ~2e-4 (phase 15's DECODE_LOGIT_TOL note); the bound
+#: leaves room for a few such flips, 50 times under a mixed or padded row
+INT8_ROWS_TOL = 1e-3
 
 
 def perturbed(params: dict, seed: int) -> dict:
@@ -5388,13 +5417,14 @@ def audit_checks(eng, manifest: dict, x, card: str) -> None:
     root.common.engine.faults = {
         "sdc.serving_bitflip": {"at": [1], "factor": 64.0}}
     try:
-        got = eng(x[:2], timeout=300)
+        # one row a request: each row costs the full-width oracle ~6 s
+        got = eng(x[:1], timeout=300)
         again = eng(x[:1], timeout=300)
     finally:
         root.common.engine.faults = None
     oracle = ExportedModel(manifest, eng.current_bundle()[1],
                            device="numpy")
-    want = oracle(oracle_rows(x[:2]))
+    want = oracle(oracle_rows(x[:1]))
     sdc = eng.stats()["resilience"]["sdc"]
     say(f"  planted sdc.serving_bitflip (column 0 × 64): reply corrected "
         f"from the oracle (bit-equal {np.array_equal(got, want)}), suspect "
@@ -5612,18 +5642,28 @@ def serve_graphs_pass(card: str) -> dict:
             eng.shutdown()
         f32 = ExportedModel(manifest, params_a, device="cpu")
         oracle = ExportedModel(qman, qparams, device="numpy")
-        want = oracle(oracle_rows(x[:3]))
-    err = float(np.abs(replies[3] - want).max())
-    same = bool((replies[3].argmax(1) == want.argmax(1)).all())
+        # the 1-row reply: a row costs the full-width oracle ~6 s
+        want = oracle(oracle_rows(x[:1]))
+    err = float(np.abs(replies[1] - want).max())
+    same = bool((replies[1].argmax(1) == want.argmax(1)).all())
+    # the batched buckets on the rows they share with the 1-row reply,
+    # which the oracle holds, and with each other
+    shared = {f"{a} vs {b}": float(np.abs(replies[a][:b] - replies[b]).max())
+              for a, b in ((3, 1), (16, 1), (16, 3))}
     say(f"  int8 ({', '.join(qman['quant']['weights'])}): bytes_ratio "
         f"{info['bytes_ratio']:.4f} ({info['bytes_quant']} of "
         f"{info['bytes_f32']} B), resident weight bytes on the card "
-        f"{resident} (f32 chain {f32.resident_weight_bytes()}); 3-row "
+        f"{resident} (f32 chain {f32.resident_weight_bytes()}); 1-row "
         f"reply vs the int8 numpy oracle max_abs_err {err:.3g} (tol "
-        f"{INT8_ORACLE_TOL}), argmax agree={same}")
+        f"{INT8_ORACLE_TOL}), argmax agree={same}; the 3- and 16-row "
+        f"replies on their shared rows, max |Δ| {shared} (tol "
+        f"{INT8_ROWS_TOL})")
     if err > INT8_ORACLE_TOL or not same or resident != info["bytes_quant"]:
         raise AssertionError("serve_int8: the int8 replies disagree with "
                              "the oracle")
+    if max(shared.values()) > INT8_ROWS_TOL:
+        raise AssertionError(f"serve_int8: the batched buckets disagree "
+                             f"on shared rows: {shared}")
     return out
 
 
@@ -7060,6 +7100,432 @@ def stream_reader_death(shard_dir: str, glob, n_sched: int) -> None:
     if restarts != 1 or bad:
         raise AssertionError(f"stream: reader death gave {restarts} "
                              f"restarts, wrong batches at {bad}")
+
+
+# ----------------------------------------------------------------------
+# phase 17 (b): image decode on the card — the pool's own JPEG and PNG
+# decoders, imagenet trained from a JPEG tree, the PNG samples
+# ----------------------------------------------------------------------
+#: the JPEG tree: classes and images a class (ImageNet's layout)
+TREE_CLASSES, TREE_PER_CLASS = 16, 64
+#: the kind of image i is TREE_KINDS[i % 20]: 70 % baseline (quality 90,
+#: 4:2:0), 10 % progressive, 5 % each 4:4:4, grayscale, restart markers
+#: and PNG
+TREE_KINDS = ("baseline",) * 14 + ("progressive",) * 2 + (
+    "444", "gray", "restart", "png")
+#: imagenet's train steps from the tree: the capture, then profiler
+#: windows of a warm-up replay (its records dropped) and TREE_WINDOW kept
+#: replays each, a window repeated only when the profiler lost a record
+#: (``PROFILE_TRIES`` at most): 6 train steps, or 11 or 16
+TREE_WINDOW = 4
+#: the pool thread counts of the decode rates (over the whole tree), and
+#: PIL's yardstick over every 7th file (7 is coprime with the 20 of
+#: TREE_KINDS' cycle, so the subset keeps the mix)
+TREE_THREADS, TREE_PIL_EVERY = (1, 4, 0), 7
+#: the PNG samples' trees: (sample, directory, classes, images a class)
+PNG_SAMPLE_DIRS = (("hands", "hands", 2, 14),
+                   ("yale_faces", "yalefaces", 4, 6),
+                   ("channels", "channels", 3, 10))
+#: epochs of each PNG sample: a key's first step captures it, the last
+#: epoch replays only
+PNG_SAMPLE_EPOCHS = 3
+
+
+def tree_image(i: int):
+    """Image ``i`` of the tree: a textured frame (waves and noise, not
+    white noise) of an ImageNet size, 333–500 wide and 281–500 high."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + i)
+    h, w = int(rng.integers(281, 501)), int(rng.integers(333, 501))
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    planes = [128 + 90 * np.sin(x / rng.uniform(3, 40) + c)
+              * np.cos(y / rng.uniform(3, 40) - c) for c in range(3)]
+    noise = rng.integers(-14, 15, size=(h, w, 3), dtype=np.int16)
+    return np.clip(np.stack(planes, -1) + noise, 0, 255).astype(np.uint8)
+
+
+def write_tree(root: str) -> dict:
+    """The class-per-subdirectory tree, written with PIL in threads:
+    ``{path: (kind, (h, w))}``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+
+    def write(i: int):
+        kind = TREE_KINDS[i % len(TREE_KINDS)]
+        img = tree_image(i)
+        d = os.path.join(root, f"n{i // TREE_PER_CLASS:08d}")
+        path = os.path.join(d, f"{i:05d}.{'png' if kind == 'png' else 'jpg'}")
+        pil = Image.fromarray(img)
+        if kind == "png":
+            pil.save(path)
+        elif kind == "gray":
+            pil.convert("L").save(path, quality=90)
+        else:
+            pil.save(path, quality=90,
+                     subsampling=0 if kind == "444" else 2,
+                     progressive=kind == "progressive",
+                     **({"restart_marker_blocks": 4}
+                        if kind == "restart" else {}))
+        return path, (kind, img.shape[:2])
+
+    for c in range(TREE_CLASSES):
+        os.makedirs(os.path.join(root, f"n{c:08d}"), exist_ok=True)
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        return dict(ex.map(write, range(TREE_CLASSES * TREE_PER_CLASS)))
+
+
+def tree_against_pil(tree: dict) -> None:
+    """Every file of the tree through the pool at its own size (no
+    resize, the crop the whole frame) and through PIL (its bundled
+    libjpeg-turbo, zlib): the JPEGs bit-equal, or the differing pixels
+    and the largest difference printed and within one level; the PNGs
+    bit-equal; no file failed.  A pool of one thread a worker thread,
+    one file a submit."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from PIL import Image
+    from znicz_tpu_torch.native import ImagePipeline
+    local = threading.local()
+    pools = []
+
+    def check(item):
+        path, (kind, hw) = item
+        if not hasattr(local, "pipe"):
+            local.pipe = ImagePipeline(1)
+            pools.append(local.pipe)
+        out = np.empty((1, *hw, 3), np.uint8)
+        local.pipe.submit([path], out, out_hw=hw)
+        failed = local.pipe.wait()
+        with Image.open(path) as img:
+            want = np.asarray(img.convert("RGB"))
+        diff = np.abs(out[0].astype(np.int16) - want.astype(np.int16))
+        return kind, failed, int((diff.max(-1) > 0).sum()), int(diff.max())
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        results = list(ex.map(check, tree.items()))
+    for pipe in pools:
+        pipe.close()
+    by_kind = {}
+    for kind, failed, n_diff, worst in results:
+        k = by_kind.setdefault(kind, [0, 0, 0, 0, 0])
+        k[0] += 1
+        k[1] += failed
+        k[2] += n_diff == 0
+        k[3] += n_diff
+        k[4] = max(k[4], worst)
+    say(f"  {len(results)} files through the pool at their own sizes and "
+        f"through PIL in {time.perf_counter() - t0:.1f} s ({os.cpu_count()} "
+        f"threads): by "
+        f"kind (files, failed, bit-equal to PIL, differing pixels, max "
+        f"|Δ|): {by_kind}")
+    failed = sum(k[1] for k in by_kind.values())
+    worst = max(k[4] for kind, k in by_kind.items() if kind != "png")
+    if failed or worst > 1 or by_kind["png"][3]:
+        raise AssertionError(f"the pool against PIL: {failed} failed, "
+                             f"JPEGs off by up to {worst}, PNG pixels off "
+                             f"{by_kind['png'][3]}")
+
+
+def pool_build() -> float:
+    """The pool built from the checkout's sources with g++ (timed), its
+    library's DT_NEEDED entries printed: zlib, and neither libjpeg nor
+    libpng."""
+    from znicz_tpu_torch import native
+    from znicz_tpu_torch.native import ImagePipeline
+    path = native.library_path()
+    cached = path.exists()
+    t0 = time.perf_counter()
+    if not ImagePipeline.available():
+        raise AssertionError(f"the pool did not build: "
+                             f"{ImagePipeline.build_error()}")
+    build_s = time.perf_counter() - t0
+    dyn = subprocess.run(["readelf", "-d", str(path)], capture_output=True,
+                         text=True, check=True).stdout
+    needed = [line.split("[", 1)[1].rstrip("]") for line in dyn.splitlines()
+              if "(NEEDED)" in line]
+    say(f"  the pool {'loaded (built before)' if cached else 'built'} in "
+        f"{build_s:.2f} s with g++ from "
+        f"{', '.join(p.name for p in native.SOURCES)} into "
+        f"{os.path.relpath(path, REPO)}; DT_NEEDED {needed}")
+    if [n for n in needed if "jpeg" in n or "png" in n] \
+            or not any(n.startswith("libz.") for n in needed):
+        raise AssertionError(f"the pool links {needed}")
+    return build_s
+
+
+def imagenet_tree_cli(root: str, card: str) -> tuple[dict, float]:
+    """``python -m znicz_tpu_torch imagenet --root imagenet.train_dir=
+    <tree>`` in this process at the sample's defaults (1000 classes,
+    B = 128, 256 resize, 227 random crops and flips, the 4 % validation
+    carve), stopped once a profiler window over the replays has read the
+    launches right: a CUDA event after each step's decision (the step
+    time between two, median over the replays with no profiler work
+    between them), the pool's wait a step, the region's captures, the
+    train loss a step (finite), the window's busy share and the
+    wrappers' counts against the kernels it saw
+    (:func:`expect_device_launches`; the window repeated, as in
+    :func:`device_busy`, only when the profiler saw fewer), B1–B4's
+    launches exactly one a layer a step.  Returns the launches and the
+    step's kernels (ms): the device's time a step, which sets the rate
+    the pool must feed."""
+    import math
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from znicz_tpu_torch.__main__ import Main
+    from znicz_tpu_torch.loader.base import TRAIN
+    from znicz_tpu_torch.ops.decision import DecisionBase
+    from znicz_tpu_torch.utils.config import reset_root
+    reset_root()
+    steps = []
+    # the window: idle, warm (its warm-up replay runs) or kept
+    win = {"state": "idle", "tries": 0}
+    decide = DecisionBase.decide
+
+    def profile_window(decision, n_train: int) -> bool:
+        """The window's work after train step ``n_train``: True where
+        it did some (the next step's gap holds it)."""
+        acted = False
+        if win["state"] == "warm":
+            torch.cuda.synchronize()
+            win["prof"].step()  # the warm-up ends; what follows is kept
+            win["before"] = wrapper_launches()
+            time.sleep(PROFILE_MARGIN_S)
+            win["t0"] = time.perf_counter()
+            win["state"], win["last"] = "kept", n_train + TREE_WINDOW
+            return True
+        if win["state"] == "kept" and n_train == win["last"]:
+            torch.cuda.synchronize()
+            win["wall_ms"] = (time.perf_counter() - win["t0"]) * 1e3
+            time.sleep(PROFILE_MARGIN_S)
+            win["prof"].__exit__(None, None, None)
+            win["state"], acted = "idle", True
+            try:
+                if expect_device_launches(
+                        win["prof"], win["before"], "imagenet replays",
+                        last_try=win["tries"] == PROFILE_TRIES):
+                    win["wf"] = decision.workflow
+                    decision.complete = True
+                    return True
+            except AssertionError as exc:
+                win["error"] = exc
+                decision.complete = True
+                return True
+        if win["state"] == "idle" and n_train >= 1:  # after the capture
+            torch.cuda.synchronize()
+            win["prof"] = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1))
+            win["prof"].__enter__()
+            win["state"] = "warm"
+            win["tries"] += 1
+            acted = True
+        return acted
+
+    def decide_and_record(decision):
+        wf = decision.workflow
+        loader = wf.loader
+        loss_in = wf.evaluator.epoch_loss[TRAIN].clone()
+        decide(decision)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        steps.append({"cls": loader.minibatch_class, "event": event,
+                      "wait": loader.prefetch_wait_s,
+                      "captures": wf.region.captures, "loss_in": loss_in,
+                      "loss_out": wf.evaluator.epoch_loss[TRAIN].clone(),
+                      "host": time.perf_counter(), "acted": False})
+        if loader.minibatch_class == TRAIN:
+            n_train = sum(step["cls"] == TRAIN for step in steps)
+            steps[-1]["n_train"] = n_train
+            steps[-1]["acted"] = profile_window(decision, n_train)
+
+    reset_counts()
+    DecisionBase.decide = decide_and_record
+    t0 = time.perf_counter()
+    try:
+        main = Main()
+        rc = main.run(["imagenet", "--root", f"imagenet.train_dir={root}"])
+    finally:
+        DecisionBase.decide = decide
+        if win["state"] != "idle":
+            win["prof"].__exit__(None, None, None)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    if "error" in win:
+        raise win["error"]
+    if rc or "wf" not in win:
+        raise AssertionError(f"imagenet: exit code {rc}, profiler windows "
+                             f"{win['tries']}")
+    counts = read_counts()
+    wf = win["wf"]
+    loader = wf.loader
+    classes = [step["cls"] for step in steps]
+    train = [i for i, cls in enumerate(classes) if cls == TRAIN]
+    head = tuple(wf.forwards[-1].output.shape)
+    say(f"  python -m znicz_tpu_torch imagenet --root imagenet.train_dir="
+        f"<tree> on {card}: {len(steps)} steps ({len(train)} train, "
+        f"{win['tries']} profiler window(s)) in {host_s:.1f} s on the "
+        f"host clock, build and initialize included; decoder "
+        f"{loader.decoder} ({loader.n_threads or os.cpu_count()} "
+        f"threads), dataset {tuple(loader.class_lengths)} (test, "
+        f"validation, train) over {len(loader.file_paths)} files, head "
+        f"{head}")
+    if loader.decoder != "native" or wf.device.type != "cuda" \
+            or head != (ALEX_BATCH, 1000) or classes[0] == TRAIN:
+        raise AssertionError(f"imagenet: decoder {loader.decoder} on "
+                             f"{wf.device}, head {head}, steps {classes}")
+    gaps = [steps[i - 1]["event"].elapsed_time(steps[i]["event"])
+            for i in train[1:]]
+    host_gaps = [1e3 * (steps[i]["host"] - steps[i - 1]["host"])
+                 for i in train[1:]]
+    # the replays whose gap holds no profiler work and no other step (the
+    # first replay's batch was decoded during the capture step)
+    quiet = [steps[i - 1]["event"].elapsed_time(steps[i]["event"])
+             for i in train[2:]
+             if classes[i - 1] == TRAIN and not steps[i - 1]["acted"]]
+    step_ms = float(np.median(quiet))
+    waits = [1e3 * (steps[i]["wait"] - steps[i - 1]["wait"])
+             for i in train[1:]]
+    captures = [steps[i]["captures"] for i in train]
+    losses = [float(steps[i]["loss_in"] - steps[i - 1]["loss_out"])
+              for i in train]
+    say(f"  train steps between CUDA events (ms): "
+        f"{[round(g, 3) for g in gaps]} (on the host clock "
+        f"{[round(g, 3) for g in host_gaps]}); the {len(quiet)} with no "
+        f"profiler work in their gap, median {step_ms:.3f} ms "
+        f"({ALEX_BATCH / step_ms * 1e3:.0f} img/s); the pool's wait a "
+        f"train step (ms) {[round(v, 3) for v in waits]} (prefetch hits "
+        f"{loader.prefetch_hits}, misses {loader.prefetch_misses}); region "
+        f"captures after each train step {captures}; train loss a step "
+        f"{[round(v, 4) for v in losses]}")
+    if captures[1:] != [captures[1]] * (len(captures) - 1) \
+            or not all(math.isfinite(v) and v > 0 for v in losses):
+        raise AssertionError("imagenet: a capture after the first graphed "
+                             "step, or a loss that is not finite")
+    prof = win["prof"]
+    spans = {u.name for u in wf.units}
+    busy_ms = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) / 1e3
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in spans
+                  and not e.key.startswith(("workflow:", "chunk:",
+                                            "capture:")))
+    # (a window that holds an epoch's first steps holds its validation
+    # step's forward too)
+    kernel_ms = busy_ms / TREE_WINDOW
+    busy = busy_ms / win["wall_ms"]
+    say(f"  device busy {busy_ms:.3f} ms of {win['wall_ms']:.3f} ms over "
+        f"the last window's {TREE_WINDOW} replayed train steps "
+        f"({100 * busy:.1f} % busy) on {card}: the step's kernels "
+        f"{kernel_ms:.3f} ms, so AlexNet (f32, the sample's precision) "
+        f"asks {ALEX_BATCH / kernel_ms * 1e3:.0f} img/s of the pool")
+    # a validation step begins each epoch
+    per_epoch = -(-loader.class_lengths[TRAIN] // ALEX_BATCH)
+    n_valid = len(steps) - len(train)
+    expect_counts("imagenet_tree", counts, {
+        "lrn_forward": len(steps), "lrn_forward_conv2": len(steps),
+        "lrn_backward": len(train), "lrn_backward_conv2": len(train),
+        "dropout_apply": 4 * len(train), "softmax_argmax": len(steps)})
+    if n_valid != -(-len(train) // per_epoch):
+        raise AssertionError(f"imagenet: {n_valid} validation steps in "
+                             f"{len(train)} train steps")
+    return counts, kernel_ms
+
+
+def png_samples(datasets: str, card: str) -> dict:
+    """``hands``, ``yale_faces`` and ``channels`` over PNG trees written
+    under ``datasets`` (the reference's layout), each through
+    ``Main().run`` for ``PNG_SAMPLE_EPOCHS`` epochs, graphed: the
+    directory read by ``FullBatchImageLoader`` with the native pool, B4
+    once a step, no capture in the last epoch."""
+    import importlib
+    import numpy as np
+    from PIL import Image
+    from znicz_tpu_torch.loader.image import FullBatchImageLoader
+    from znicz_tpu_torch.utils.config import root
+    paths = {}
+    rows = {name: row for name, _b, _c, row, _bar in A6A}
+    rng = np.random.default_rng(SEED + 17)
+    for name, directory, n_classes, per_class in PNG_SAMPLE_DIRS:
+        # the sample's defaults register when its module is imported
+        importlib.import_module(f"znicz_tpu_torch.models.samples.{name}")
+        size = dict(getattr(root, name).as_dict())["image_size"]
+        for c in range(n_classes):
+            d = os.path.join(datasets, directory, f"c{c}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(per_class):
+                level = 40 + 160 * c / max(1, n_classes - 1)
+                arr = np.clip(rng.normal(level, 20, (size + 3, size + 5, 3)),
+                              0, 255).astype(np.uint8)
+                Image.fromarray(arr).save(os.path.join(d, f"{i}.png"))
+        reset_counts()
+        wf, errors, captures = mlp_cli(
+            name, "--root", f"common.dirs.datasets={datasets}", "--root",
+            f"{name}.max_epochs={PNG_SAMPLE_EPOCHS}")
+        launches = read_counts()
+        steps = PNG_SAMPLE_EPOCHS * steps_per_epoch(wf.loader)
+        say(f"  {name} from {n_classes} × {per_class} PNGs on {card}: "
+            f"{type(wf.loader).__name__} ({wf.loader.decoder}), dataset "
+            f"{tuple(wf.loader.class_lengths)}, {steps} steps, validation "
+            f"error by epoch {errors} %, captures by epoch {captures}")
+        if not isinstance(wf.loader, FullBatchImageLoader) \
+                or wf.loader.decoder != "native" \
+                or captures[-1] != captures[-2]:
+            raise AssertionError(f"{name}: loader {wf.loader}, decoder "
+                                 f"{wf.loader.decoder}, captures {captures}")
+        expect_counts(f"{name}_png", launches, {rows[name]: steps})
+        paths[f"{name}_png"] = launches
+    return paths
+
+
+def image_decode_pass(card: str) -> dict:
+    """Phase 17 (b): the pool built with g++ (no libjpeg, no libpng),
+    the JPEG tree written and held to PIL, imagenet trained from it
+    through the CLI, the decode rates against the step's demand and
+    PIL's (``tools/decode_ab.py``), the PNG samples.  Returns the paths'
+    launches."""
+    import importlib.util
+    t0 = time.perf_counter()
+    pool_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        root = os.path.join(tmp, "train")
+        tree = write_tree(root)
+        kinds = {k: sum(v[0] == k for v in tree.values())
+                 for k in dict.fromkeys(TREE_KINDS)}
+        say(f"  wrote {len(tree)} files ({TREE_CLASSES} classes × "
+            f"{TREE_PER_CLASS}) in {time.perf_counter() - t1:.1f} s: {kinds}")
+        tree_against_pil(tree)
+        paths = {}
+        paths["imagenet_tree"], kernel_ms = imagenet_tree_cli(root, card)
+        spec = importlib.util.spec_from_file_location(
+            "decode_ab", os.path.join(REPO, "tools", "decode_ab.py"))
+        decode_ab = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(decode_ab)
+        timed = sorted(tree)
+        t1 = time.perf_counter()
+        rates = decode_ab.ab(timed, TREE_THREADS, pil_every=TREE_PIL_EVERY)
+        demand = ALEX_BATCH / kernel_ms * 1e3
+        for t, runs in rates.items():
+            pool = " / ".join(f"{r:.1f}" for r in runs["pool"])
+            pil = " / ".join(f"{r:.1f}" for r in runs["pil"])
+            say(f"  decode at 256 resize, 227 crop, on {card}'s host: the "
+                f"pool with {t or os.cpu_count()} thread(s) over the "
+                f"{len(timed)} files {pool} img/s, PIL one thread at a "
+                f"time over every {TREE_PIL_EVERY}th "
+                f"({len(timed[::TREE_PIL_EVERY])} files) {pil} img/s (pool, "
+                f"PIL, PIL, pool); AlexNet's kernels ask {demand:.0f} "
+                f"img/s")
+        say(f"  the decode rates took {time.perf_counter() - t1:.1f} s")
+        paths.update(png_samples(os.path.join(tmp, "datasets"), card))
+    say(f"  phase 17 (b) took {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 
@@ -9948,6 +10414,7 @@ def main() -> int:
         + ", ".join(f"{w}: {smem(w)} B" for w in (64, 128, 256, 512)))
 
     say("phase 2: kernels against their plain versions")
+    t2 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = check_flash(gen)
@@ -9961,9 +10428,11 @@ def main() -> int:
     rows.update(check_dropout(gen, floor_ms))
     rows.update(check_softmax_argmax(gen, floor_ms))
     off_path = {name: rows.pop(name) for name in OFF_PATH_ROWS}
+    say(f"  phase 2 took {time.perf_counter() - t2:.1f} s")
 
     paths = {}
     say("phase 3: full-width bf16 scorer through ServingEngine")
+    t3 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "scorer.npz")
         write_scorer_bundle(path)
@@ -9971,19 +10440,25 @@ def main() -> int:
                                               fk.layer_norm_forward,
                                               fk.softmax_argmax), smi)
 
+    say(f"  phase 3 took {time.perf_counter() - t3:.1f} s")
     # phases 4–7: the regions eager, as before the port had CUDA graphs
     set_graphs(False)
     expect_no_anomalies("phase 3")
     say("phase 4: full-width bf16 training through StandardWorkflow")
+    t4 = time.perf_counter()
     paths["training"] = train_slice()
+    say(f"  phase 4 took {time.perf_counter() - t4:.1f} s")
 
     expect_no_anomalies("phase 4")
     say("phase 5: full-width AlexNet training through StandardWorkflow")
+    t5 = time.perf_counter()
     paths["alexnet"] = alexnet_slice()
+    say(f"  phase 5 took {time.perf_counter() - t5:.1f} s")
 
     expect_no_anomalies("phase 5")
     say("phase 6: the full-width sequence stack in f32, then short runs at "
         "head dims 32, 256, 512 and 4")
+    t6 = time.perf_counter()
     paths["seq_f32"] = train_slice("float32")
     paths["seq_dh32"] = seq_pass("seq_dh32", "bfloat16", 2 * HEADS, "dh32")
     paths["seq_dh256"] = seq_pass("seq_dh256", "bfloat16", 2, "dh256")
@@ -9993,20 +10468,25 @@ def main() -> int:
     paths["seq_f32_dh512"] = seq_pass("seq_f32_dh512", "float32", 1,
                                       "f32_wide")
     paths["seq_dh4"] = dh4_pass()
+    say(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
 
     expect_no_anomalies("phase 6")
     say("phase 7: CIFAR-10 through python -m znicz_tpu_torch, with "
         "snapshots and resume")
+    t7 = time.perf_counter()
     paths["cifar"] = cifar_pass()
+    say(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
     expect_no_anomalies("phase 7")
     say("phase 8: the three training paths with their regions as CUDA "
         "graphs")
+    t8 = time.perf_counter()
     set_graphs(True)
     paths["cifar_graphed"] = cifar_graphed(smi)
     set_graphs(True)
     paths["alexnet_graphed"] = alexnet_graphed(smi)
     paths["seq_graphed"] = seq_graphed(smi)
+    say(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
     expect_no_anomalies("phase 8")
     say("phase 9: the MLP family (MNIST 784-100-10, the MNIST-784 "
@@ -10108,8 +10588,10 @@ def main() -> int:
     expect_no_anomalies("phase 16")
     say("phase 17: the input plane — AlexNet streamed from shards through "
         "the pinned staging ring, graphed, in turns with the resident "
-        "loader")
+        "loader, then (b) image decode on the card: the pool's own JPEG "
+        "and PNG decoders, imagenet from a JPEG tree, the PNG samples")
     paths["stream"], paths["stream_resident"] = stream_pass(smi)
+    paths.update(image_decode_pass(smi))
 
     expect_no_anomalies("phase 17")
     say("phase 18: resilience — the anomaly guard and the SDC fingerprints "

@@ -328,7 +328,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     # fleet, the kernel-library store, the federator, the web page) and
     # the report chain (the graphics server, the plotters, the report
     # publisher, the aux units, the forge, the fixtures, the shell) and
-    # the population engine, evolution, genetics and the ensemble
+    # the population engine, evolution, genetics and the ensemble, and
+    # the decode A/B tool over the native pool's own decoders
     assert {f"{m}.py" for m in ("embedding", "pos_encoding", "seq_reshape",
                                 "lstm", "rbm_units", "kohonen", "cutter",
                                 "faults", "recorder", "quantize",
@@ -343,7 +344,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                                 "nn_plotting_units", "aux_units",
                                 "publishing", "forge", "dummy",
                                 "interaction", "engine", "evolution",
-                                "genetics", "ensemble")} \
+                                "genetics", "ensemble", "decode_ab")} \
         <= {p.name for p in files}
     assert REPO / "znicz_tpu_torch" / "resilience" / "supervisor.py" in files
     # the input plane, the native pool's loader among them

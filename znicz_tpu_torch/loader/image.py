@@ -2,17 +2,20 @@
 resident (port of ``znicz_tpu/loader/image.py``).
 
 The decode and augment is the native worker pool
-(:mod:`znicz_tpu_torch.native`: libjpeg/libpng, bilinear resize,
-crop/flip), double-buffered: the pool decodes batch N+1 on the host's
-cores while the device computes batch N.  ``use_native``:
+(:mod:`znicz_tpu_torch.native`: the package's own JPEG and PNG
+decoders, which give the reference pool's libjpeg/libpng bytes and link
+only zlib; bilinear resize, crop/flip), double-buffered: the pool
+decodes batch N+1 on the host's cores while the device computes batch
+N.  ``use_native``:
 
 - ``True``: the pool, or an error carrying its build error;
 - ``False``: PIL (imported when it decodes, so the package imports on a
   machine without it);
 - ``None`` (the default): on the CPU the pool if it builds, else PIL,
-  as in the reference; **on a CUDA device it means True**, so a pool
-  that cannot build there raises, and no card quietly decodes with
-  PIL.  :attr:`ImageLoader.decoder` records which decoder ran.
+  as in the reference; **on a CUDA device it means True**: the pool is
+  the card's only decoder, a pool that cannot build there raises, and
+  no card quietly decodes with PIL.  :attr:`ImageLoader.decoder`
+  records which decoder ran.
 
 Two modes:
 
@@ -186,7 +189,7 @@ class ImageLoader(StagedLoader):
         self._pipe = None
         #: the decode buffers and their meta rows (page-locked on the
         #: card): the pool fills one while the device reads the other
-        self._buffers: list[tuple[torch.Tensor, np.ndarray]] = []
+        self._decode_bufs: list[tuple[torch.Tensor, np.ndarray]] = []
         self._metas: list[tuple[torch.Tensor, np.ndarray]] = []
         #: per buffer, the event after its copy to the card
         self._copied: list = []
@@ -232,7 +235,7 @@ class ImageLoader(StagedLoader):
         cuda = self.device.type == "cuda"
         n_bufs = 2 if (native and self.prefetch) else 1
         shape = (self.local_rows,) + self.sample_shape
-        self._buffers = [host_buffer(shape, np.uint8, cuda)
+        self._decode_bufs = [host_buffer(shape, np.uint8, cuda)
                          for _ in range(n_bufs)]
         self._metas = [host_buffer((self.meta_len,), np.int64, cuda)
                        for _ in range(n_bufs)]
@@ -350,7 +353,7 @@ class ImageLoader(StagedLoader):
             t0 = time.perf_counter()
             self._ready(buf)
             self._decode_sync(idx, self.minibatch_class,
-                              self._buffers[buf][1],
+                              self._decode_bufs[buf][1],
                               self._decode_seed(*cur))
             if _metrics.enabled() and self._pipe is not None:
                 # a synchronous decode is input time the step waits
@@ -361,7 +364,7 @@ class ImageLoader(StagedLoader):
         meta = self._metas[buf][1]
         self.fill_meta(meta, count, idx, np.asarray(
             [self.file_labels[i] for i in idx], dtype=np.int64))
-        self.deliver(self._buffers[buf][0], self._metas[buf][0])
+        self.deliver(self._decode_bufs[buf][0], self._metas[buf][0])
         if self._copied[buf] is not None:
             self._copied[buf].record()
         # queue the next step's decode now: the pool works on N+1 while
@@ -370,7 +373,7 @@ class ImageLoader(StagedLoader):
             nidx, ncls, pos = self._peek_next()
             self._decode_buf = nxt = 1 - buf
             self._ready(nxt)
-            self._submit(nidx, ncls, self._buffers[nxt][1],
+            self._submit(nidx, ncls, self._decode_bufs[nxt][1],
                          self._decode_seed(*pos))
             self._pending = pos
 

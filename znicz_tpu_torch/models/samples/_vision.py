@@ -1,8 +1,9 @@
 """What the small vision samples share (``hands``, ``yale_faces``,
 ``channels``): the loader of the sample's real image directory, when
 there is one (:class:`~znicz_tpu_torch.loader.image.
-FullBatchImageLoader`, as in the reference), and the flattened
-grayscale classifier of the first two."""
+FullBatchImageLoader` on the native pool, as in the reference; on the
+card too, where the pool's own PNG decoder reads the tree), and the
+flattened grayscale classifier of the first two."""
 
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ tree (the standard ImageNet layout); ``valid_dir`` is optional (else
 :class:`~znicz_tpu_torch.loader.image.FileImageLoader` on the native
 decode pool: resize to 256, random 227 crops and horizontal flips on
 train, center crops on evaluation, double-buffered so the decode of
-batch N+1 overlaps the device's step on batch N.  On the card the pool
-must build (``use_native`` None means True there), or the loader
-raises with its build error.  The layers are :mod:`.alexnet`'s::
+batch N+1 overlaps the device's step on batch N.  The pool's JPEG and
+PNG decoders are the package's own (zlib is the one library it links),
+so it builds on the card's machine too; there it is the decoder
+(``use_native`` None means True), with no PIL fallback.  The layers
+are :mod:`.alexnet`'s::
 
     python -m znicz_tpu_torch imagenet --root imagenet.train_dir=<tree>
 """

@@ -1,20 +1,24 @@
 """The native image decode pool (port of ``znicz_tpu/native``).
 
 :class:`ImagePipeline` wraps ``pipeline.cpp``, a copy of the JAX
-package's: a worker pool of libjpeg/libpng decode, bilinear resize,
-crop, flip and affine normalize, writing float32 or raw uint8 NHWC
-minibatches, one batch in flight per pool.  It is compiled on first use
-with ``g++ -O3 -march=native`` into ``build/znicz_tpu_torch/native/`` at
-the root of the checkout (beside the CUDA kernels' libraries) and loaded
-with ``ctypes``.  The library's name is a hash of the source and of the
+package's worker pool: JPEG and PNG decode, bilinear resize, crop, flip
+and affine normalize, writing float32 or raw uint8 NHWC minibatches, one
+batch in flight per pool.  Its decoders are the package's own
+(``jpeg_decode.cpp``, ``png_decode.cpp``): they give the bytes the JAX
+package's pool gets from libjpeg-turbo and libpng, and link only zlib,
+so the pool builds wherever g++ and zlib are, the card's machine
+included.  It is compiled on first use with ``g++ -O3 -march=native``
+into ``build/znicz_tpu_torch/native/`` at the root of the checkout
+(beside the CUDA kernels' libraries) and loaded with ``ctypes``.  The
+library's name is a hash of every source it is built from and of the
 host's CPU flags (``-march=native``: a machine builds its own), and each
 process compiles into a file of its own before renaming it into place,
 so concurrent first uses do not interleave.  Nothing is built at import.
 
-``ImagePipeline.available()`` is False when the compiler or the image
-libraries are missing; :meth:`ImagePipeline.build_error` says why.  The
-image loaders decide what that means (:mod:`znicz_tpu_torch.loader.
-image`): PIL on the CPU, an error on the card.
+``ImagePipeline.available()`` is False when the compiler or zlib is
+missing; :meth:`ImagePipeline.build_error` says why.  The image loaders
+decide what that means (:mod:`znicz_tpu_torch.loader.image`): PIL on the
+CPU, an error on the card.
 """
 
 from __future__ import annotations
@@ -28,9 +32,13 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "pipeline.cpp"
-BUILD_DIR = _SRC.parent.parent.parent / "build" / "znicz_tpu_torch" / "native"
-_LIBS = ("-ljpeg", "-lpng")
+_DIR = Path(__file__).resolve().parent
+#: the sources compiled into the one library, then the header they share
+SOURCES = (_DIR / "pipeline.cpp", _DIR / "jpeg_decode.cpp",
+           _DIR / "png_decode.cpp")
+_HEADERS = (_DIR / "image_decode.h",)
+BUILD_DIR = _DIR.parent.parent / "build" / "znicz_tpu_torch" / "native"
+_LIBS = ("-lz",)
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -38,8 +46,12 @@ _build_error: str | None = None
 
 
 def library_path() -> Path:
-    """Where the library for this source and this host's CPU goes."""
-    h = hashlib.sha256(_SRC.read_bytes())
+    """Where the library for these sources and this host's CPU goes: a
+    change to any source or header gives another name."""
+    h = hashlib.sha256()
+    for src in (*SOURCES, *_HEADERS):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     try:
         with open("/proc/cpuinfo") as f:
             for line in f:
@@ -59,7 +71,8 @@ def _build() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
         cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-               "-std=c++17", str(_SRC), "-o", tmp, "-pthread", *_LIBS]
+               "-std=c++17", *map(str, SOURCES), "-o", tmp, "-pthread",
+               *_LIBS]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except FileNotFoundError as exc:
@@ -91,7 +104,7 @@ def _get_lib() -> "ctypes.CDLL | None":
         if _lib is None and _build_error is None:
             try:
                 _lib = _build()
-            except (RuntimeError, OSError) as exc:  # no compiler or libs
+            except (RuntimeError, OSError) as exc:  # no compiler or zlib
                 _build_error = str(exc)
         return _lib
 
@@ -183,4 +196,4 @@ class ImagePipeline:
             pass
 
 
-__all__ = ["ImagePipeline", "BUILD_DIR", "library_path"]
+__all__ = ["ImagePipeline", "BUILD_DIR", "SOURCES", "library_path"]

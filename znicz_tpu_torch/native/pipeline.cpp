@@ -2,9 +2,11 @@
 // znicz_tpu/native/pipeline.cpp; the C entry points are the same).
 //
 // The host-side image decode path of the image loaders: a C++ worker
-// pool doing JPEG (libjpeg) / PNG (libpng) decode, bilinear resize,
-// crop, horizontal flip and affine normalization straight into the
-// loader's minibatch buffer (float32 or raw uint8 NHWC).
+// pool doing JPEG / PNG decode, bilinear resize, crop, horizontal flip
+// and affine normalization straight into the loader's minibatch buffer
+// (float32 or raw uint8 NHWC).  The decoders are the package's own
+// (jpeg_decode.cpp, png_decode.cpp: the bytes libjpeg-turbo and libpng
+// give, with zlib the one library linked).
 //
 // Exposed as a plain C ABI consumed via ctypes
 // (znicz_tpu_torch/native/__init__.py) — one asynchronous batch in
@@ -22,9 +24,7 @@
 #include <thread>
 #include <vector>
 
-#include <csetjmp>
-#include <jpeglib.h>
-#include <png.h>
+#include "image_decode.h"
 
 namespace {
 
@@ -43,61 +43,12 @@ struct Image {
   int w = 0, h = 0;
 };
 
-struct JpegErr {
-  jpeg_error_mgr mgr;
-  jmp_buf jb;
-};
-
-static void jpeg_err_exit(j_common_ptr cinfo) {
-  JpegErr *err = reinterpret_cast<JpegErr *>(cinfo->err);
-  longjmp(err->jb, 1);
-}
-
 static bool decode_jpeg(const uint8_t *buf, size_t len, Image &out) {
-  jpeg_decompress_struct cinfo;
-  JpegErr jerr;
-  cinfo.err = jpeg_std_error(&jerr.mgr);
-  jerr.mgr.error_exit = jpeg_err_exit;
-  if (setjmp(jerr.jb)) {
-    jpeg_destroy_decompress(&cinfo);
-    return false;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, const_cast<uint8_t *>(buf),
-               static_cast<unsigned long>(len));
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    return false;
-  }
-  cinfo.out_color_space = JCS_RGB;
-  jpeg_start_decompress(&cinfo);
-  out.w = static_cast<int>(cinfo.output_width);
-  out.h = static_cast<int>(cinfo.output_height);
-  out.px.resize(static_cast<size_t>(out.w) * out.h * 3);
-  const size_t stride = static_cast<size_t>(out.w) * 3;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    uint8_t *row = out.px.data() + cinfo.output_scanline * stride;
-    jpeg_read_scanlines(&cinfo, &row, 1);
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return true;
+  return znicz_native::decode_jpeg_rgb(buf, len, out.px, out.w, out.h);
 }
 
 static bool decode_png(const uint8_t *buf, size_t len, Image &out) {
-  png_image img;
-  std::memset(&img, 0, sizeof(img));
-  img.version = PNG_IMAGE_VERSION;
-  if (!png_image_begin_read_from_memory(&img, buf, len)) return false;
-  img.format = PNG_FORMAT_RGB;
-  out.w = static_cast<int>(img.width);
-  out.h = static_cast<int>(img.height);
-  out.px.resize(PNG_IMAGE_SIZE(img));
-  if (!png_image_finish_read(&img, nullptr, out.px.data(), 0, nullptr)) {
-    png_image_free(&img);
-    return false;
-  }
-  return true;
+  return znicz_native::decode_png_rgb(buf, len, out.px, out.w, out.h);
 }
 
 static bool read_file(const char *path, std::vector<uint8_t> &buf) {
