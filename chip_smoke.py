@@ -1676,12 +1676,14 @@ def check_softmax_argmax(gen, floor_ms: float) -> dict:
 # ----------------------------------------------------------------------
 # phase 3: the serving slice at full width
 # ----------------------------------------------------------------------
-def write_scorer_bundle(path: str) -> None:
+def write_scorer_bundle(path: str, seq: int = SEQ, dim: int = DIM,
+                        dtype: str = "bfloat16") -> None:
     """A bf16 attention → layer_norm → softmax scorer bundle in the
-    reference's export format, weights from ``SEED``."""
+    reference's export format, weights from ``SEED`` (``seq`` × ``dim``
+    samples: phase 3's unless told otherwise)."""
     import numpy as np
     rng = np.random.default_rng(SEED)
-    t, d, c = SEQ, DIM, CLASSES
+    t, d, c = seq, dim, CLASSES
 
     def normal(shape, std):
         return rng.normal(0.0, std, size=shape).astype(np.float32)
@@ -1702,7 +1704,7 @@ def write_scorer_bundle(path: str) -> None:
     manifest = {
         "format": "znicz-tpu-forward", "version": 1,
         "workflow": "chip_smoke_scorer", "loss": "softmax",
-        "input_shape": [t, d], "dtype": "bfloat16", "kind": "scorer",
+        "input_shape": [t, d], "dtype": dtype, "kind": "scorer",
         "layers": [{"type": kind, "config": cfg, "has_weights": True,
                     "has_bias": True, "name": f"{kind}{i}"}
                    for i, (kind, cfg) in enumerate(layers)],
@@ -7484,9 +7486,101 @@ def png_samples(datasets: str, card: str) -> dict:
     return paths
 
 
+#: the committed arithmetic-coded JPEGs (C22) and their digests: the
+#: reference pool's RGB bytes, computed where libjpeg is
+ARITH_DIR = os.path.join(REPO, "tests", "torch_jpeg_arith")
+#: the ImageNet-sized ones, timed beside a Huffman coding of the frame
+ARITH_TIMED = {"imagenet_420_sof9.jpg": {"subsampling": 2},
+               "imagenet_420_sof10.jpg": {"subsampling": 2,
+                                          "progressive": True}}
+#: decodes a file when timing the pool on one
+ARITH_REPEATS = 25
+
+
+def pool_file_ms(pipe, path: str, hw) -> float:
+    """The pool's median ms to decode ``path`` at its own size, one
+    file a submit, after one untimed decode."""
+    import numpy as np
+    out = np.empty((1, *hw, 3), np.uint8)
+    times = []
+    for i in range(ARITH_REPEATS + 1):
+        t0 = time.perf_counter()
+        pipe.submit([path], out, out_hw=hw)
+        pipe.wait()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return 1e3 * sorted(times)[len(times) // 2]
+
+
+def arith_files(card: str, tmp: str) -> None:
+    """Phase 17 (b)'s arithmetic-coded JPEGs (SOF9, SOF10; C22): each
+    committed file of ``tests/torch_jpeg_arith/`` through the pool at its
+    own size, held to its ``digests.json`` entry (the reference pool's
+    bytes and failed count); held to PIL too where the card's PIL
+    decodes arithmetic coding (within one level, as the tree's files),
+    the truncated file left to the digest; the pool's ms a file for the
+    ImageNet-sized ones beside a Huffman coding (PIL, quality 90) of the
+    same frame."""
+    import hashlib
+    import numpy as np
+    from PIL import Image
+    from znicz_tpu_torch.native import ImagePipeline
+    with open(os.path.join(ARITH_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    pipe = ImagePipeline(1)
+    lines, bad = [], []
+    try:
+        for name, entry in sorted(digests.items()):
+            path = os.path.join(ARITH_DIR, name)
+            hw = tuple(entry["hw"])
+            out = np.zeros((1, *hw, 3), np.uint8)
+            pipe.submit([path], out, out_hw=hw)
+            failed = pipe.wait()
+            sha = hashlib.sha256(out[0].tobytes()).hexdigest()
+            if failed != entry["failed"] or sha != entry["sha256"]:
+                bad.append(name)
+            if "truncated" in name:
+                pil = "not compared (truncated)"
+            else:
+                try:
+                    with Image.open(path) as img:
+                        want = np.asarray(img.convert("RGB"))
+                    diff = np.abs(want.astype(np.int16) - out[0])
+                    pil = ("bit-equal" if not diff.any() else
+                           f"{int((diff.max(-1) > 0).sum())} pixels off, "
+                           f"max |Δ| {int(diff.max())}")
+                    if diff.max() > 1:
+                        bad.append(f"{name} against PIL")
+                except OSError as exc:
+                    pil = f"PIL refuses it ({exc})"
+            timed = ""
+            if name in ARITH_TIMED:
+                twin = os.path.join(tmp, f"huffman_{name}")
+                Image.fromarray(out[0]).save(twin, quality=90,
+                                             **ARITH_TIMED[name])
+                timed = (f", pool {pool_file_ms(pipe, path, hw):.2f} ms a "
+                         f"decode against {pool_file_ms(pipe, twin, hw):.2f}"
+                         f" ms for its Huffman twin "
+                         f"({os.path.getsize(path)} / "
+                         f"{os.path.getsize(twin)} bytes)")
+            lines.append(f"{name} {hw[1]}x{hw[0]}: digest "
+                         f"{'equal' if name not in bad else 'DIFFERS'}, "
+                         f"PIL {pil}{timed}")
+    finally:
+        pipe.close()
+    say(f"  {len(digests)} arithmetic-coded JPEGs (C22) through the pool "
+        f"on {card}'s host, median of {ARITH_REPEATS} decodes where timed, "
+        f"one thread:")
+    for line in lines:
+        say(f"    {line}")
+    if bad:
+        raise AssertionError(f"arithmetic-coded JPEGs: {bad}")
+
+
 def image_decode_pass(card: str) -> dict:
     """Phase 17 (b): the pool built with g++ (no libjpeg, no libpng),
-    the JPEG tree written and held to PIL, imagenet trained from it
+    the committed arithmetic-coded JPEGs held to their digests
+    (:func:`arith_files`), the JPEG tree written and held to PIL, imagenet trained from it
     through the CLI, the decode rates against the step's demand and
     PIL's (``tools/decode_ab.py``), the PNG samples.  Returns the paths'
     launches."""
@@ -7494,6 +7588,7 @@ def image_decode_pass(card: str) -> dict:
     t0 = time.perf_counter()
     pool_build()
     with tempfile.TemporaryDirectory() as tmp:
+        arith_files(card, tmp)
         t1 = time.perf_counter()
         root = os.path.join(tmp, "train")
         tree = write_tree(root)
@@ -8140,17 +8235,12 @@ def publish_serve(card: str, tmp: str) -> dict:
     return counts
 
 
-def elastic_card(card: str, tmp: str) -> None:
-    """Phase 18 (e): the :class:`ElasticSupervisor` with one-process gangs
-    of ``elastic_worker`` on the card (NCCL worlds of one): ``host.preempt``
-    at step 23 leads to the checkpoint on signal at the barrier step 24
-    and the exit ``EXIT_PREEMPTED``; a restart from that checkpoint ends
-    with parameters bit-equal to an uninterrupted run's, run beside the
-    preempted one."""
-    import threading
+def drill_shards(directory: str) -> str:
+    """The elastic drills' set (``tests/test_torch_elastic.py``'s): 128
+    + 32 frames of 6 × 6 over 4 classes, in shards of 32 rows under
+    ``directory``; returns the shard directory."""
     import numpy as np
     from znicz_tpu_torch.loader.streaming import write_shards
-    from znicz_tpu_torch.resilience import supervisor as sup
     rng = np.random.default_rng(21)
     protos = rng.normal(0, 1, (4, 6, 6))
     data = np.concatenate(
@@ -8159,10 +8249,23 @@ def elastic_card(card: str, tmp: str) -> None:
     labels = np.repeat(np.arange(4), 40).astype(np.int32)
     order = rng.permutation(len(data))
     data, labels = data[order], labels[order]
-    shard_dir = os.path.join(tmp, "shards")
+    shard_dir = os.path.join(directory, "shards")
     write_shards(shard_dir, data[:128], labels[:128],
                  valid_data=data[128:], valid_labels=labels[128:],
                  rows_per_shard=32)
+    return shard_dir
+
+
+def elastic_card(card: str, tmp: str) -> None:
+    """Phase 18 (e): the :class:`ElasticSupervisor` with one-process gangs
+    of ``elastic_worker`` on the card (NCCL worlds of one): ``host.preempt``
+    at step 23 leads to the checkpoint on signal at the barrier step 24
+    and the exit ``EXIT_PREEMPTED``; a restart from that checkpoint ends
+    with parameters bit-equal to an uninterrupted run's, run beside the
+    preempted one."""
+    import threading
+    from znicz_tpu_torch.resilience import supervisor as sup
+    shard_dir = drill_shards(tmp)
 
     def gang(tag, faults=None, initial=None):
         work = os.path.join(tmp, tag)

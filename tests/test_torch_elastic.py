@@ -17,6 +17,11 @@ survivor's next collective fails, the supervisor restarts a gang of one
 from the newest good snapshot (epoch 2's), and the final parameters are
 bit-equal to a one-process gang resumed from the same snapshot.
 
+The gang of three: ``host.loss`` kills process 2 of three at step 25;
+the two survivors restart from the newest good snapshot and end
+bit-equal to a gang of two resumed from it (``tools/parallel_cards.py``
+runs the same drill with four processes on four cards).
+
 The worker takes its card unless ``ZNICZ_ELASTIC_PLATFORM=cpu`` asks
 for the CPU (the gangs here ask); with no card it refuses.
 """
@@ -53,7 +58,7 @@ def _write_drill_shards(tmp_path) -> str:
 
 
 def _supervisor(tmp_path, shard_dir, tag, n_processes, fault_recipe=None,
-                initial_snapshot=None, max_restarts=2):
+                initial_snapshot=None, max_restarts=2, batch=16):
     work = str(tmp_path / tag)
     snaps = os.path.join(work, "snaps")
 
@@ -78,7 +83,8 @@ def _supervisor(tmp_path, shard_dir, tag, n_processes, fault_recipe=None,
              "ZNICZ_ELASTIC_PLATFORM": "cpu",
              "ZNICZ_ELASTIC_SNAPSHOT_DIR": snaps,
              "ZNICZ_COLLECTIVE_TIMEOUT_S": "600",
-             "ZNICZ_HEARTBEAT_INTERVAL_S": "0.2"},
+             "ZNICZ_HEARTBEAT_INTERVAL_S": "0.2",
+             "ZNICZ_ELASTIC_BATCH": str(batch)},
         fault_env=fault_env)
 
 
@@ -146,6 +152,36 @@ def test_elastic_kill_resume_bitwise_parity(tmp_path):
     assert elastic["weights_sha256"] == reference["weights_sha256"], (
         elastic["weight_sums"], reference["weight_sums"])
     assert elastic["weight_sums"] == reference["weight_sums"]
+
+
+def test_gang_of_three_loses_process_two(tmp_path):
+    """The shape of the four-card drill on the CPU, one process less: a
+    gang of three (minibatch 24, which three and two processes split)
+    loses process 2 at step 25; the two survivors restart from the
+    newest good snapshot, each binding the device of its new rank, and
+    end bit-equal to a gang of two resumed from the same snapshot."""
+    shard_dir = _write_drill_shards(tmp_path)
+    drill = _supervisor(
+        tmp_path, shard_dir, "drill3", n_processes=3, batch=24,
+        fault_recipe={"host.loss": {"process": 2, "at": [25]}})
+    summary = drill.run()
+    assert summary["ok"], summary
+    assert summary["restarts"] == 1 and summary["losses"] == {"loss": 1}
+    assert summary["final_processes"] == 2
+    resume = summary["resume_snapshots"][1]
+    assert resume and os.path.exists(resume), summary
+    survivors = [_digest(drill.work_dir, 1, pid) for pid in (0, 1)]
+    assert [d["process_id"] for d in survivors] == [0, 1]
+    assert all(d["n_processes"] == 2 and d["resumed_from"] == resume
+               and d["local_batch"] == 12 and d["epochs_done"] == 6
+               and d["warmed_step_captures"] == 0 for d in survivors)
+    assert survivors[0]["weights_sha256"] == survivors[1]["weights_sha256"]
+    ref = _supervisor(tmp_path, shard_dir, "ref2", n_processes=2, batch=24,
+                      initial_snapshot=resume, max_restarts=0)
+    assert ref.run()["ok"]
+    reference = _digest(ref.work_dir, attempt=0)
+    assert survivors[0]["weights_sha256"] == reference["weights_sha256"], (
+        survivors[0]["weight_sums"], reference["weight_sums"])
 
 
 def test_elastic_worker_takes_the_card_unless_asked_for_the_cpu(tmp_path):

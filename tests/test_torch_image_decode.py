@@ -19,8 +19,11 @@ one file a submit, and the two give the same ``failed`` count.
   CMYK JPEGs (refused), all as the reference pool handles them; a PNG
   header far larger than its data fails holding no more memory than
   the RGB output;
-- arithmetic-coded JPEGs: libjpeg decodes them, this decoder refuses
-  them (ROADMAP C22);
+- arithmetic-coded JPEGs (SOF9, SOF10; ROADMAP C22), bit-equal at every
+  sampling, quality, with restart markers and with non-default DAC
+  conditioning; truncated at every scan start and with damaged scan
+  data, the same ``failed`` counts; the committed files of
+  ``tests/torch_jpeg_arith/`` against their ``digests.json``;
 - the library links zlib and no image library, and its name follows
   every source it is built from;
 - C23: ``FileImageLoader`` in a graphed region (a stand-in for the CUDA
@@ -61,9 +64,11 @@ JPEG_WRITER = r"""
 #include <stdio.h>
 #include <stdlib.h>
 #include <jpeglib.h>
-/* jpeg_writer OUT RAW W H NCOMP QUALITY "h0,v0,h1,v1,..." ARITH PROGRESSIVE */
+/* jpeg_writer OUT RAW W H NCOMP QUALITY "h0,v0,h1,v1,..." ARITH PROGRESSIVE
+   [RESTART_MCUS "L,U,K"]: a restart interval, and the arithmetic coder's
+   DC conditioning bounds and AC threshold for every table */
 int main(int argc, char **argv) {
-  if (argc != 10) return 2;
+  if (argc != 10 && argc != 12) return 2;
   int w = atoi(argv[3]), h = atoi(argv[4]), nc = atoi(argv[5]);
   size_t n = (size_t)w * h * nc;
   unsigned char *px = malloc(n);
@@ -91,6 +96,16 @@ int main(int argc, char **argv) {
   }
   c.arith_code = atoi(argv[8]);
   if (atoi(argv[9])) jpeg_simple_progression(&c);
+  if (argc == 12) {
+    c.restart_interval = (unsigned)atoi(argv[10]);
+    int l, u, k;
+    if (sscanf(argv[11], "%d,%d,%d", &l, &u, &k) != 3) return 2;
+    for (int t = 0; t < NUM_ARITH_TBLS; ++t) {
+      c.arith_dc_L[t] = (UINT8)l;
+      c.arith_dc_U[t] = (UINT8)u;
+      c.arith_ac_K[t] = (UINT8)k;
+    }
+  }
   jpeg_start_compress(&c, TRUE);
   while (c.next_scanline < c.image_height) {
     JSAMPROW row = px + (size_t)c.next_scanline * w * nc;
@@ -106,8 +121,9 @@ int main(int argc, char **argv) {
 
 @pytest.fixture(scope="module")
 def jpeg_writer(tmp_path_factory):
-    """``write(path, img, quality, sampling, arith, progressive)`` through
-    the system's libjpeg."""
+    """``write(path, img, quality, sampling, arith, progressive, restart,
+    dac)`` through the system's libjpeg (``restart``: MCUs between
+    restart markers, ``dac``: ``(L, U, K)`` for every table)."""
     d = tmp_path_factory.mktemp("jpeg_writer")
     (d / "jpeg_writer.c").write_text(JPEG_WRITER)
     exe = d / "jpeg_writer"
@@ -115,14 +131,18 @@ def jpeg_writer(tmp_path_factory):
                     "-ljpeg"], check=True, capture_output=True)
 
     def write(path, img, quality=90, sampling="2,2,1,1,1,1", arith=0,
-              progressive=0):
+              progressive=0, restart=None, dac=None):
         h, w = img.shape[:2]
         nc = 1 if img.ndim == 2 else img.shape[2]
         raw = f"{path}.raw"
         np.ascontiguousarray(img, np.uint8).tofile(raw)
+        extra = [] if restart is None and dac is None else [
+            str(restart or 0), ",".join(map(str, dac or (0, 1, 5)))]
         subprocess.run([str(exe), str(path), raw, str(w), str(h), str(nc),
                         str(quality), sampling, str(arith),
-                        str(progressive)], check=True, capture_output=True)
+                        str(progressive), *extra], check=True,
+                       capture_output=True)
+        os.remove(raw)
         return Path(path).read_bytes()
     return write
 
@@ -545,18 +565,141 @@ def test_truncated_progressive_jpeg_at_each_scan(tmp_path):
             assert failed == 0
 
 
-def test_arithmetic_coding_is_refused(tmp_path, jpeg_writer):
-    """ROADMAP C22: the system's libjpeg decodes arithmetic-coded
-    frames (SOF9, SOF10); the port's decoder refuses them, so its pool
-    counts such a file failed and zero-fills it."""
-    img = texture(np.random.default_rng(10), 24, 30)
+# ------------------------------------------ arithmetic coding (C22)
+#: variant -> the libjpeg writer's arguments (``arith=1`` added); each
+#: written sequential (SOF9) and progressive (SOF10)
+ARITH_VARIANTS = {
+    "420": dict(sampling="2,2,1,1,1,1"),
+    "422": dict(sampling="2,1,1,1,1,1"),
+    "444": dict(sampling="1,1,1,1,1,1"),
+    "440": dict(sampling="1,2,1,1,1,1"),
+    "411": dict(sampling="4,1,1,1,1,1"),
+    "gray": dict(sampling="1,1"),
+    "quality50": dict(quality=50),
+    "quality100": dict(quality=100),
+    "restart_markers": dict(restart=2),
+    "dac_wide": dict(dac=(3, 6, 20)),
+    "dac_narrow": dict(dac=(1, 1, 1), restart=5),
+}
+ARITH_DIR = Path(__file__).resolve().parent / "torch_jpeg_arith"
+
+
+def dac_entries(data: bytes) -> list:
+    """The values of every DAC segment's entries (a progressive file
+    has one before each scan that uses new tables; an FF byte in the
+    coded data is followed by a stuffed zero, so FF CC is a marker)."""
+    values, i = [], data.find(b"\xff\xcc")
+    while i >= 0:
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        values += data[i + 5:i + 2 + length:2]
+        i = data.find(b"\xff\xcc", i + 2)
+    return values
+
+
+@pytest.mark.parametrize("progressive", [0, 1], ids=["sof9", "sof10"])
+@pytest.mark.parametrize("variant", sorted(ARITH_VARIANTS))
+def test_arithmetic_coding_equals_the_reference_pool(tmp_path, jpeg_writer,
+                                                     variant, progressive):
+    """C22: arithmetic-coded frames decode bit-equal to libjpeg's (the
+    QM decoder, its statistics reset at every scan and restart, the DAC
+    segment's conditioning), at every size of ``SIZES``."""
+    kwargs = ARITH_VARIANTS[variant]
+    rng = np.random.default_rng(100 + sorted(ARITH_VARIANTS).index(variant))
+    channels = 1 if variant == "gray" else 3
+    for h, w in SIZES:
+        img = texture(rng, h, w, channels)
+        path = tmp_path / f"{variant}_{progressive}_{h}x{w}.jpg"
+        data = jpeg_writer(path, img, arith=1, progressive=progressive,
+                           **kwargs)
+        assert (b"\xff\xca" if progressive else b"\xff\xc9") in data
+        l, u, k = kwargs.get("dac", (0, 1, 5))
+        assert set(dac_entries(data)) == {l + (u << 4), k}
+        failed, _ = assert_same(path, (h, w))
+        assert failed == 0
+
+
+def scan_starts(data: bytes) -> list:
+    return [i for i in range(len(data) - 1)
+            if data[i] == 0xFF and data[i + 1] == 0xDA]
+
+
+def test_truncated_arithmetic_jpeg_at_each_scan(tmp_path, jpeg_writer):
+    """Cut at the start of every scan (and within the first and the last
+    scan): libjpeg reads a fake EOI past the end, the QM decoder feeds
+    zeros after the marker, a progressive frame is smoothed; the bytes
+    and the ``failed`` counts are the reference's."""
+    rng = np.random.default_rng(12)
+    for name, channels, kwargs in (
+            ("420", 3, dict(sampling="2,2,1,1,1,1")),
+            ("444", 3, dict(sampling="1,1,1,1,1,1", restart=3)),
+            ("gray", 1, dict(sampling="1,1"))):
+        img = texture(rng, 53, 70, channels)
+        for progressive in (0, 1):
+            data = jpeg_writer(tmp_path / f"{name}_{progressive}.jpg", img,
+                               quality=80, arith=1, progressive=progressive,
+                               **kwargs)
+            starts = scan_starts(data)
+            assert len(starts) == (1 if not progressive else
+                                   (6 if channels == 1 else 10))
+            cuts = starts[1:] + [starts[0] + 40, (starts[-1] + len(data)) // 2]
+            for k, cut in enumerate(cuts):
+                path = tmp_path / f"{name}_{progressive}_cut{k}.jpg"
+                path.write_bytes(data[:cut])
+                failed, _ = assert_same(path, (53, 70))
+                assert failed == 0
+
+
+def test_damaged_arithmetic_scan_data_as_the_reference(tmp_path,
+                                                       jpeg_writer):
+    """A run of the entropy-coded data overwritten (zeros, ones, a
+    constant, noise; never 0xFF, so no marker appears): the QM decoder
+    meets codes the encoder never wrote and goes on from the state they
+    leave, as libjpeg does; every damaged file's pixels and count are
+    the reference's."""
+    rng = np.random.default_rng(13)
+    img = texture(rng, 64, 80)
     for progressive in (0, 1):
-        path = tmp_path / f"arith{progressive}.jpg"
-        jpeg_writer(path, img, arith=1, progressive=progressive)
-        want, want_failed = decode(RefPipeline, path, (24, 30))
-        got, got_failed = decode(ImagePipeline, path, (24, 30))
-        assert want_failed == 0 and want.any()
-        assert got_failed == 1 and not got.any()
+        for restart in (None, 4):
+            data = bytearray(jpeg_writer(
+                tmp_path / f"clean_{progressive}_{restart}.jpg", img,
+                arith=1, progressive=progressive, restart=restart,
+                dac=(0, 1, 5)))
+            body = [i for i in range(scan_starts(data)[0] + 20,
+                                     len(data) - 2)
+                    if data[i] != 0xFF and data[i - 1] != 0xFF]
+            for trial, fill in enumerate((0x00, 0xFE, 0x7F, None)):
+                # 24 bytes from a point in the data: a constant run or noise
+                bad = bytearray(data)
+                i = int(rng.choice(body))
+                run = (rng.integers(0, 255, 24) if fill is None
+                       else np.full(24, fill)).astype(np.uint8).tobytes()
+                bad[i:i + 24] = run[:max(0, len(data) - 2 - i)]
+                path = tmp_path / f"bad_{progressive}_{restart}_{trial}.jpg"
+                path.write_bytes(bytes(bad))
+                assert_same(path, (64, 80))
+
+
+def test_committed_arithmetic_files_match_their_digests():
+    """``tests/torch_jpeg_arith/`` (the card's phase 17 (b) reads it):
+    each file decoded by the reference's pool gives the ``digests.json``
+    entry, so the files and the digests cannot drift apart, and the
+    port's pool gives the same bytes."""
+    import hashlib
+    import json
+    digests = json.loads((ARITH_DIR / "digests.json").read_text())
+    files = sorted(p.name for p in ARITH_DIR.glob("*.jpg"))
+    assert files == sorted(digests) and len(files) >= 7
+    total = sum((ARITH_DIR / f).stat().st_size for f in files)
+    assert total <= 300_000, total
+    for name in files:
+        entry = digests[name]
+        hw = tuple(entry["hw"])
+        want, want_failed = decode(RefPipeline, ARITH_DIR / name, hw)
+        assert want_failed == entry["failed"] == 0, name
+        assert hashlib.sha256(want.tobytes()).hexdigest() \
+            == entry["sha256"], name
+        got, got_failed = decode(ImagePipeline, ARITH_DIR / name, hw)
+        assert got_failed == 0 and np.array_equal(got, want), name
 
 
 # --------------------------------------------------------------- the build

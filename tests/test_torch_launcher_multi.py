@@ -11,6 +11,12 @@
   records; both then resume from the same snapshot and again agree,
   with the run that one process resumes from it (within 1e-5: the fold
   reorders sums).
+- ``--n-model 2`` over the same two processes (a data 1 × model 2
+  mesh; the workflow's hidden layer a column-parallel and row-parallel
+  pair): both end with the same whole weights, within 2⁻⁸ of one
+  process's run; process 0 alone writes, and its snapshot holds every
+  tensor whole, the momentum of the split layers included (C25), and
+  resumes on one process.
 - The teardown: the workflow's CUDA graphs released before the group,
   and a region capturing again after the release.
 """
@@ -46,14 +52,34 @@ def test_env_contract_starts_a_gloo_world(tmp_path):
                    "mesh": {"data": 1, "model": 1}, "backend": "gloo"}
 
 
+def _env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def _one_process(tmp_path, tag, *args):
+    """The command line on one process (no distributed mode); returns
+    its dump."""
+    out = tmp_path / f"out_{tag}"
+    out.mkdir()
+    proc = subprocess.run(
+        [sys.executable, "-m", "znicz_tpu_torch", WORKFLOW, "-b", "cpu",
+         "--root", f"dist.snapshots={out}", "--root", f"dist.out={out}",
+         *args], cwd=REPO, env=_env(), capture_output=True, text=True,
+        timeout=900)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
+    with open(out / "rank0.pkl", "rb") as f:
+        return pickle.load(f)
+
+
 def _two_processes(tmp_path, tag, *args):
     """Both processes of one command line; returns their dumps."""
     out = tmp_path / f"out_{tag}"
     out.mkdir()
     coordinator = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "1"
+    env = _env()
     procs = []
     for pid, flag in ((0, "--listen"), (1, "--master")):
         procs.append(subprocess.Popen(
@@ -125,6 +151,66 @@ def test_both_resume_from_the_same_snapshot(cli_runs, tmp_path):
     assert single["count"] == 1
     for a, b in zip(single["params"], resumed[0]["params"]):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+
+
+TP = ("--root", "dist.model_parallel=True")
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """``--n-model 2`` on two processes, and the same workflow on one."""
+    tmp = tmp_path_factory.mktemp("tp")
+    two = _two_processes(tmp, "tp", "--n-model", "2", *TP)
+    one = _one_process(tmp, "one", *TP)
+    return tmp, two, one
+
+
+def _rel(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_n_model_two_agrees_with_one_process(tp_runs):
+    """Both processes hold the whole column and row layers (gathered
+    from their blocks), bit-equal to each other and within 2⁻⁸ of one
+    process's run (the row layer's partial products are summed over the
+    model axis: another order of the sums)."""
+    _, two, one = tp_runs
+    assert "mesh={'data': 1, 'model': 2}" in two[0]["device"]
+    assert [d["count"] for d in two] == [2, 2]
+    shapes = [p.shape for p in one["params"]]
+    assert shapes == [(12, 16), (16,), (16, 16), (16,), (16, 3), (3,)]
+    for a, b in zip(two[0]["params"], two[1]["params"]):
+        np.testing.assert_array_equal(a, b)
+    assert [p.shape for p in two[0]["params"]] == shapes
+    worst = max(_rel(a, b) for a, b in zip(two[0]["params"],
+                                           one["params"]))
+    assert worst <= 2.0 ** -8, worst
+
+
+def test_n_model_two_snapshot_is_whole_and_resumes_on_one_process(
+        tp_runs):
+    """Process 0 alone writes; every tensor of its snapshot has the
+    shape of the one-process run's, the split layers' momentum
+    included (C25: it held process 0's block, and a resume on one
+    process refused it); the snapshot resumes on one process."""
+    from znicz_tpu_torch.utils.snapshotter import Snapshotter
+    tmp, two, one = tp_runs
+    assert two[0]["wrote"] > 0 and two[1]["wrote"] == 0
+    assert two[0]["destination"] == two[1]["destination"]
+
+    def shapes(path):
+        units = Snapshotter.load(path)["__units__"]
+        return {(unit, name): np.shape(value)
+                for unit, state in units.items()
+                for name, value in state.items()
+                if isinstance(value, np.ndarray)}
+
+    got, want = shapes(two[0]["destination"]), shapes(one["destination"])
+    assert got == want
+    assert got["GDTanh", "accumulated_gradient_weights"] == (16, 16)
+    resumed = _one_process(tmp, "resumed", "-s", two[0]["destination"],
+                           "--root", "dist.max_epochs=3", *TP)
+    assert resumed["epoch"] == 2 and resumed["count"] == 1
 
 
 def test_the_teardown_releases_graphs_before_the_group(monkeypatch):

@@ -103,3 +103,72 @@ def test_resolve_device_follows_the_visible_cards(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine.resolve_device()
+
+
+def test_a_replica_captures_on_its_own_card(bundles, monkeypatch):
+    """C24: ``torch.cuda.graph`` without ``stream=`` captures on a stream
+    made once for the process on the device current at its first use,
+    so a replica on ``cuda:1`` captured its kernels on a stream of
+    ``cuda:0``.  With a stand-in for the CUDA graph API that tracks the
+    current device: a model whose device is ``cuda:1`` (its chain on the
+    host) runs its warm-up on a stream of ``cuda:1``, captures under
+    ``cuda:1``'s guard on that stream, passed as ``stream=``, into a
+    pool made there, and replays under the guard; the caller's current
+    device is ``cuda:0`` before and after."""
+    import contextlib
+
+    from znicz_tpu_torch.export import ExportedModel
+    current = [0]
+    log = []
+
+    class Stream:
+        def __init__(self, device=None):
+            self.device = torch.device("cuda", current[0]) \
+                if device is None else torch.device(device)
+
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def device(dev):
+        prev, current[0] = current[0], torch.device(dev).index
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    @contextlib.contextmanager
+    def stream(s):
+        log.append(("warm-up", s.device.index, current[0]))
+        yield
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None, capture_error_mode="global"):
+        log.append(("capture", current[0],
+                    None if stream is None else stream.device.index, pool))
+        yield
+
+    class Graph:
+        def replay(self):
+            log.append(("replay", current[0]))
+
+    model = ExportedModel.load(bundles[0], device="cpu", max_batch=4)
+    prog = model._resident(4)
+    model.device = torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: Stream(dev))
+    monkeypatch.setattr(torch.cuda, "stream", stream)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", current[0]))
+    x = torch.from_numpy(make_blobs(40, 3, 12)[0][:4].astype(np.float32))
+    prog.buf.copy_(x)
+    warm = model._capture(prog)
+    model._replay(prog)
+    assert log == [("warm-up", 1, 1), ("capture", 1, 1, ("pool", 1)),
+                   ("replay", 1)]
+    assert current == [0] and model._side.device == torch.device("cuda", 1)
+    assert prog.graph is not None and prog.out.shape == warm.shape == (4, 3)

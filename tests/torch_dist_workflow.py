@@ -3,10 +3,13 @@
 --listen|--master HOST:PORT --nodes 2 --process-id I``.
 
 The reference tests' blobs MLP with a snapshotter into
-``root.dist.snapshots``; after training, each process pickles what the
-test compares (its parameters, its snapshotter's destination, whether it
-wrote a snapshot itself) into ``root.dist.out``/``rank<I>.pkl``.  It
-imports only numpy and the port.
+``root.dist.snapshots``; with ``--root dist.model_parallel=True`` its
+hidden layer is a column-parallel and row-parallel pair (tensor
+parallelism over ``--n-model``'s axis, whole layers on one process).
+After training, each process pickles what the test compares (its
+parameters, its snapshotter's destination, whether it wrote a snapshot
+itself) into ``root.dist.out``/``rank<I>.pkl``.  It imports only numpy
+and the port.
 """
 
 from __future__ import annotations
@@ -39,16 +42,23 @@ def blobs(n_per_class=40, n_classes=3, dim=12, seed=7):
 def build() -> StandardWorkflow:
     data, labels = blobs()
     gd = {"learning_rate": 0.1, "gradient_moment": 0.9}
+    hidden = [{"type": "all2all_tanh", "->": {"output_sample_shape": 16},
+               "<-": gd}]
+    if root.dist.get("model_parallel", False):
+        hidden = [{"type": "all2all_tanh",
+                   "->": {"output_sample_shape": 16,
+                          "model_parallel": "column"}, "<-": gd},
+                  {"type": "all2all_tanh",
+                   "->": {"output_sample_shape": 16,
+                          "model_parallel": "row"}, "<-": gd}]
     wf = StandardWorkflow(
         name="dist",
         loader_factory=lambda w: ArrayLoader(
             w, train_data=data[:96], train_labels=labels[:96],
             valid_data=data[96:], valid_labels=labels[96:],
             minibatch_size=24),
-        layers=[{"type": "all2all_tanh", "->": {"output_sample_shape": 16},
-                 "<-": gd},
-                {"type": "softmax", "->": {"output_sample_shape": 3},
-                 "<-": gd}],
+        layers=hidden + [{"type": "softmax",
+                          "->": {"output_sample_shape": 3}, "<-": gd}],
         decision_config={"max_epochs": int(root.dist.max_epochs)},
         snapshotter_config={"prefix": "dist",
                             "directory": str(root.dist.snapshots),

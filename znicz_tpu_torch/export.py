@@ -341,6 +341,13 @@ class _Staged:
         self.seconds = seconds
 
 
+def _device_guard(dev: torch.device):
+    """``torch.cuda.device(dev)`` for a card; nothing for the host, whose
+    chain is captured only under a stand-in for the CUDA graph API."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
 def _is_oracle(device) -> bool:
     return isinstance(device, NumpyDevice) or (
         isinstance(device, str) and device == "numpy")
@@ -413,6 +420,9 @@ class ExportedModel(Logger):
         #: inside a dispatch
         self._lock = threading.RLock()
         self._pool = None
+        #: the stream of this model's device its warm-ups and captures
+        #: run on
+        self._side = None
         #: programs made resident (one per warmed bucket)
         self.programs_built = 0
         self.weights_version = 0
@@ -714,47 +724,56 @@ class ExportedModel(Logger):
             return self._replay(prog)
 
     def _graph_pool(self):
-        """The memory pool every bucket's graph shares."""
+        """The memory pool every bucket's graph shares (made on this
+        model's device: called under its guard)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
     def _capture(self, prog: _Program) -> torch.Tensor:
-        """The chain at ``prog``'s bucket eagerly on a side stream (the
-        warm-up, whose output is this dispatch's reply), then captured
-        into the bucket's graph over the resident input buffer, with the
-        collector off (a graph it destroyed mid-capture would invalidate
-        the capture) and in thread-local mode (another thread staging a
-        swap's weights meanwhile is no part of it)."""
+        """The chain at ``prog``'s bucket eagerly on this model's side
+        stream (the warm-up, whose output is this dispatch's reply), then
+        captured on that stream into the bucket's graph over the resident
+        input buffer, with the collector off (a graph it destroyed
+        mid-capture would invalidate the capture) and in thread-local
+        mode (another thread staging a swap's weights meanwhile is no
+        part of it).  All of it under the model's device guard, the
+        stream given to ``torch.cuda.graph``: its default capture stream
+        is made once for the process, on whatever device was current,
+        and a replica on another card would capture on it (C24)."""
         dev = self.device
         name = self.manifest.get("workflow", "model")
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            warm = self.forward_padded(prog.buf)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if warm.is_cuda:
-            warm.record_stream(torch.cuda.current_stream(dev))
-        before = launch_counts.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with _tracing.TRACER.span(f"capture:{name}:b{prog.size}",
-                                      cat="capture"):
-                with torch.cuda.graph(graph, pool=self._graph_pool(),
-                                      capture_error_mode="thread_local"):
-                    out = self.forward_padded(prog.buf)
-            launches = launch_counts.delta(before)
-        except Exception as exc:
-            raise RuntimeError(
-                f"'{name}': the CUDA-graph capture of bucket {prog.size} "
-                f"failed: {exc}") from exc
-        finally:
-            if collecting:
-                gc.enable()
-            launch_counts.restore(before)  # the capture launched nothing
+        with _device_guard(dev):
+            if self._side is None:
+                self._side = torch.cuda.Stream(dev)
+            side = self._side
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm = self.forward_padded(prog.buf)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if warm.is_cuda:
+                warm.record_stream(torch.cuda.current_stream(dev))
+            before = launch_counts.snapshot()
+            graph = torch.cuda.CUDAGraph()
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with _tracing.TRACER.span(f"capture:{name}:b{prog.size}",
+                                          cat="capture"):
+                    with torch.cuda.graph(graph, pool=self._graph_pool(),
+                                          stream=side,
+                                          capture_error_mode="thread_local"):
+                        out = self.forward_padded(prog.buf)
+                launches = launch_counts.delta(before)
+            except Exception as exc:
+                raise RuntimeError(
+                    f"'{name}': the CUDA-graph capture of bucket "
+                    f"{prog.size} failed: {exc}") from exc
+            finally:
+                if collecting:
+                    gc.enable()
+                launch_counts.restore(before)  # the capture launched nothing
         prog.graph, prog.out, prog.launches = graph, out, launches
         prog.fixed = [(key, t.data_ptr()) for key, t in self._bound_tensors()]
         _metrics.graph_captures(f"serving:{name}").inc()
@@ -769,7 +788,8 @@ class ExportedModel(Logger):
                     f"bucket {prog.size}: parameter {key} was rebound "
                     f"after the capture, whose graph reads the tensor it "
                     f"held then; write it in place (copy_) instead")
-        prog.graph.replay()
+        with _device_guard(self.device):
+            prog.graph.replay()
         launch_counts.add(prog.launches)
         return prog.out
 

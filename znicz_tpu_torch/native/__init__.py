@@ -7,7 +7,11 @@ batch in flight per pool.  Its decoders are the package's own
 (``jpeg_decode.cpp``, ``png_decode.cpp``): they give the bytes the JAX
 package's pool gets from libjpeg-turbo and libpng, and link only zlib,
 so the pool builds wherever g++ and zlib are, the card's machine
-included.  It is compiled on first use with ``g++ -O3 -march=native``
+included.  The JPEG decoder reads what libjpeg-turbo 2.1 reads:
+sequential and progressive 8-bit frames, Huffman- or arithmetic-coded
+(SOF0/1/2, SOF9/10), gray or three-component; it refuses what that
+library refuses (CMYK/YCCK, 12-bit and lossless frames), and the pool
+counts such a file failed and zero-fills it.  It is compiled on first use with ``g++ -O3 -march=native``
 into ``build/znicz_tpu_torch/native/`` at the root of the checkout
 (beside the CUDA kernels' libraries) and loaded with ``ctypes``.  The
 library's name is a hash of every source it is built from and of the

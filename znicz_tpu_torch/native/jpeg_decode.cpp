@@ -1,16 +1,18 @@
 // A JPEG decoder whose output is byte-equal to libjpeg-turbo 2.1's default
-// decompression to JCS_RGB on x86: Huffman-coded sequential (SOF0, SOF1)
-// and progressive (SOF2) 8-bit files, 1 or 3 components, the accurate
-// integer IDCT (jpeg_idct_islow, with the arithmetic of its SIMD version),
-// fancy upsampling, the YCbCr->RGB tables of jdcolor.c and, for a
-// progressive file whose coefficients are not all refined, block smoothing
+// decompression to JCS_RGB on x86: sequential (SOF0, SOF1, SOF9) and
+// progressive (SOF2, SOF10) 8-bit files, Huffman- or arithmetic-coded
+// (jdhuff.c, jdphuff.c and the QM coder of jdarith.c with its DAC
+// conditioning), 1 or 3 components, the accurate integer IDCT
+// (jpeg_idct_islow, with the arithmetic of its SIMD version), fancy
+// upsampling, the YCbCr->RGB tables of jdcolor.c and, for a progressive
+// file whose coefficients are not all refined, block smoothing
 // (jdcoefct.c's decompress_smooth_data).  It follows libjpeg's handling
 // of a damaged stream too: past the end of the file the source reads a
-// fake EOI, the entropy decoder feeds zero bits after a marker, and the
-// rest of a segment decodes as zeros.  What libjpeg refuses (CMYK/YCCK,
-// 12-bit and lossless frames, a bad table) makes decode_jpeg_rgb return
-// false, and so do arithmetic-coded frames (SOF9/SOF10), which libjpeg
-// decodes.
+// fake EOI, the entropy decoders feed zero bits after a marker, and the
+// rest of a segment decodes as zeros (the arithmetic decoder's blocks
+// after a bad code stay zero until the next restart).  What libjpeg-turbo
+// 2.1 refuses (CMYK/YCCK, 12-bit and lossless frames, a bad table) makes
+// decode_jpeg_rgb return false.
 
 #include "image_decode.h"
 
@@ -67,6 +69,71 @@ const uint8_t kAcChromVal[162] = {
     0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// ITU T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed probability
+// 0.5 (T.851) the sign and refinement decisions use
+#define QM(i, qe, nl, nm, sw) \
+  ((int64_t{qe} << 16) | (int64_t{nm} << 8) | (int64_t{sw} << 7) | (nl))
+const int64_t kAritab[114] = {
+    QM(0, 0x5a1d, 1, 1, 1),      QM(1, 0x2586, 14, 2, 0),
+    QM(2, 0x1114, 16, 3, 0),     QM(3, 0x080b, 18, 4, 0),
+    QM(4, 0x03d8, 20, 5, 0),     QM(5, 0x01da, 23, 6, 0),
+    QM(6, 0x00e5, 25, 7, 0),     QM(7, 0x006f, 28, 8, 0),
+    QM(8, 0x0036, 30, 9, 0),     QM(9, 0x001a, 33, 10, 0),
+    QM(10, 0x000d, 35, 11, 0),   QM(11, 0x0006, 9, 12, 0),
+    QM(12, 0x0003, 10, 13, 0),   QM(13, 0x0001, 12, 13, 0),
+    QM(14, 0x5a7f, 15, 15, 1),   QM(15, 0x3f25, 36, 16, 0),
+    QM(16, 0x2cf2, 38, 17, 0),   QM(17, 0x207c, 39, 18, 0),
+    QM(18, 0x17b9, 40, 19, 0),   QM(19, 0x1182, 42, 20, 0),
+    QM(20, 0x0cef, 43, 21, 0),   QM(21, 0x09a1, 45, 22, 0),
+    QM(22, 0x072f, 46, 23, 0),   QM(23, 0x055c, 48, 24, 0),
+    QM(24, 0x0406, 49, 25, 0),   QM(25, 0x0303, 51, 26, 0),
+    QM(26, 0x0240, 52, 27, 0),   QM(27, 0x01b1, 54, 28, 0),
+    QM(28, 0x0144, 56, 29, 0),   QM(29, 0x00f5, 57, 30, 0),
+    QM(30, 0x00b7, 59, 31, 0),   QM(31, 0x008a, 60, 32, 0),
+    QM(32, 0x0068, 62, 33, 0),   QM(33, 0x004e, 63, 34, 0),
+    QM(34, 0x003b, 32, 35, 0),   QM(35, 0x002c, 33, 9, 0),
+    QM(36, 0x5ae1, 37, 37, 1),   QM(37, 0x484c, 64, 38, 0),
+    QM(38, 0x3a0d, 65, 39, 0),   QM(39, 0x2ef1, 67, 40, 0),
+    QM(40, 0x261f, 68, 41, 0),   QM(41, 0x1f33, 69, 42, 0),
+    QM(42, 0x19a8, 70, 43, 0),   QM(43, 0x1518, 72, 44, 0),
+    QM(44, 0x1177, 73, 45, 0),   QM(45, 0x0e74, 74, 46, 0),
+    QM(46, 0x0bfb, 75, 47, 0),   QM(47, 0x09f8, 77, 48, 0),
+    QM(48, 0x0861, 78, 49, 0),   QM(49, 0x0706, 79, 50, 0),
+    QM(50, 0x05cd, 48, 51, 0),   QM(51, 0x04de, 50, 52, 0),
+    QM(52, 0x040f, 50, 53, 0),   QM(53, 0x0363, 51, 54, 0),
+    QM(54, 0x02d4, 52, 55, 0),   QM(55, 0x025c, 53, 56, 0),
+    QM(56, 0x01f8, 54, 57, 0),   QM(57, 0x01a4, 55, 58, 0),
+    QM(58, 0x0160, 56, 59, 0),   QM(59, 0x0125, 57, 60, 0),
+    QM(60, 0x00f6, 58, 61, 0),   QM(61, 0x00cb, 59, 62, 0),
+    QM(62, 0x00ab, 61, 63, 0),   QM(63, 0x008f, 61, 32, 0),
+    QM(64, 0x5b12, 65, 65, 1),   QM(65, 0x4d04, 80, 66, 0),
+    QM(66, 0x412c, 81, 67, 0),   QM(67, 0x37d8, 82, 68, 0),
+    QM(68, 0x2fe8, 83, 69, 0),   QM(69, 0x293c, 84, 70, 0),
+    QM(70, 0x2379, 86, 71, 0),   QM(71, 0x1edf, 87, 72, 0),
+    QM(72, 0x1aa9, 87, 73, 0),   QM(73, 0x174e, 72, 74, 0),
+    QM(74, 0x1424, 72, 75, 0),   QM(75, 0x119c, 74, 76, 0),
+    QM(76, 0x0f6b, 74, 77, 0),   QM(77, 0x0d51, 75, 78, 0),
+    QM(78, 0x0bb6, 77, 79, 0),   QM(79, 0x0a40, 77, 48, 0),
+    QM(80, 0x5832, 80, 81, 1),   QM(81, 0x4d1c, 88, 82, 0),
+    QM(82, 0x438e, 89, 83, 0),   QM(83, 0x3bdd, 90, 84, 0),
+    QM(84, 0x34ee, 91, 85, 0),   QM(85, 0x2eae, 92, 86, 0),
+    QM(86, 0x299a, 93, 87, 0),   QM(87, 0x2516, 86, 71, 0),
+    QM(88, 0x5570, 88, 89, 1),   QM(89, 0x4ca9, 95, 90, 0),
+    QM(90, 0x44d9, 96, 91, 0),   QM(91, 0x3e22, 97, 92, 0),
+    QM(92, 0x3824, 99, 93, 0),   QM(93, 0x32b4, 99, 94, 0),
+    QM(94, 0x2e17, 93, 86, 0),   QM(95, 0x56a8, 95, 96, 1),
+    QM(96, 0x4f46, 101, 97, 0),  QM(97, 0x47e5, 102, 98, 0),
+    QM(98, 0x41cf, 103, 99, 0),  QM(99, 0x3c3d, 104, 100, 0),
+    QM(100, 0x375e, 99, 93, 0),  QM(101, 0x5231, 105, 102, 0),
+    QM(102, 0x4c0f, 106, 103, 0), QM(103, 0x4639, 107, 104, 0),
+    QM(104, 0x415e, 103, 99, 0), QM(105, 0x5627, 105, 106, 1),
+    QM(106, 0x50e7, 108, 107, 0), QM(107, 0x4b85, 109, 103, 0),
+    QM(108, 0x5597, 110, 109, 0), QM(109, 0x504f, 111, 107, 0),
+    QM(110, 0x5a10, 110, 111, 1), QM(111, 0x5522, 112, 109, 0),
+    QM(112, 0x59eb, 112, 111, 1), QM(113, 0x5a1d, 113, 113, 0)};
+#undef QM
 
 enum Marker {
   kSOF0 = 0xC0, kSOF1 = 0xC1, kSOF2 = 0xC2, kSOF3 = 0xC3, kDHT = 0xC4,
@@ -283,13 +350,17 @@ class Decoder {
           throw Fail();  // JERR_SOI_DUPLICATE
         case kSOF0:
         case kSOF1:
-          get_sof(false);
+          get_sof(false, false);
           break;
         case kSOF2:
-          get_sof(true);
+          get_sof(true, false);
           break;
-        case kSOF9:   // arithmetic coding: not decoded here
+        case kSOF9:
+          get_sof(false, true);
+          break;
         case kSOF10:
+          get_sof(true, true);
+          break;
         case kSOF3:
         case kSOF5:
         case kSOF6:
@@ -340,7 +411,7 @@ class Decoder {
     }
   }
 
-  void get_sof(bool progressive) {
+  void get_sof(bool progressive, bool arith) {
     int length = u16();
     int precision = byte();
     int hh = u16(), ww = u16(), nc = byte();
@@ -352,6 +423,7 @@ class Decoder {
     height_ = hh;
     width_ = ww;
     progressive_ = progressive;
+    arith_ = arith;
     comps_.assign(nc, Component());
     for (auto &c : comps_) {
       c.id = byte();
@@ -398,13 +470,21 @@ class Decoder {
     ++scan_number_;
   }
 
+  // jdmarker.c's get_dac: DC tables' conditioning bounds L and U, AC
+  // tables' K
   void get_dac() {
     long length = u16() - 2L;
     while (length > 0) {
       int index = byte(), val = byte();
       length -= 2;
-      if (index < 0 || index >= 32) throw Fail();  // JERR_DAC_INDEX
-      if (index < 16 && (val & 15) > (val >> 4)) throw Fail();  // JERR_DAC_VALUE
+      if (index < 0 || index >= 2 * kArithTbls) throw Fail();  // JERR_DAC_INDEX
+      if (index >= kArithTbls) {
+        arith_ac_k_[index - kArithTbls] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_l_[index] = static_cast<uint8_t>(val & 15);
+        arith_dc_u_[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_l_[index] > arith_dc_u_[index]) throw Fail();  // JERR_DAC_VALUE
+      }
     }
     if (length != 0) throw Fail();  // JERR_BAD_LENGTH
   }
@@ -711,7 +791,10 @@ class Decoder {
     eobrun_ = 0;
     for (int &d : last_dc_) d = 0;
     restarts_to_go_ = restart_interval_;
-    if (progressive_) {
+    if (progressive_) check_progression();
+    if (arith_) {
+      start_arith_pass();
+    } else if (progressive_) {
       start_progressive_pass();
     } else {  // Ss, Se, Ah and Al are not read (JWRN_NOT_SEQUENTIAL)
       for (int i = 0; i < comps_in_scan_; ++i) {
@@ -748,8 +831,9 @@ class Decoder {
     }
   }
 
-  // jdphuff.c's start_pass_phuff_decoder
-  void start_progressive_pass() {
+  // the checks and the coefficient bookkeeping that jdphuff.c's
+  // start_pass_phuff_decoder and jdarith.c's start_pass share
+  void check_progression() {
     const bool dc_band = ss_ == 0;
     bool bad = false;
     if (dc_band) {
@@ -768,6 +852,11 @@ class Decoder {
         prev[k] = scan_number_ > 1 ? bits[k] : 0;
       for (int k = ss_; k <= se_; ++k) bits[k] = al_;
     }
+  }
+
+  // the rest of jdphuff.c's start_pass_phuff_decoder: the tables
+  void start_progressive_pass() {
+    const bool dc_band = ss_ == 0;
     for (int i = 0; i < comps_in_scan_; ++i) {
       if (dc_band) {
         if (ah_ == 0) derive(true, scan_[i]->dc_tbl, dc_tbl_[i]);
@@ -778,6 +867,10 @@ class Decoder {
   }
 
   void decode_mcu(int16_t **blocks, int n) {
+    if (arith_) {
+      arith_mcu(blocks, n);
+      return;
+    }
     if (restart_interval_ && restarts_to_go_ == 0) process_restart();
     if (!progressive_) {
       if (!insufficient_) decode_sequential(blocks, n);
@@ -913,6 +1006,265 @@ class Decoder {
         if (coef != 0) correct(coef);
       }
       --eobrun_;
+    }
+  }
+
+
+  // ------------------------------------------------------ arithmetic
+  // jdarith.c: the QM decoder of ITU T.81 Annex D with libjpeg's
+  // statistics areas (64 bins a DC table, 256 an AC table), reset at
+  // every scan and every restart.  A bad code (a magnitude or a run
+  // past its end) sets ct to -1, and the rest of the interval decodes
+  // nothing: its blocks keep what they hold.
+
+  // jdarith.c's start_pass, after the progression checks
+  void start_arith_pass() {
+    for (int i = 0; i < comps_in_scan_; ++i) {
+      const Component &c = *scan_[i];
+      if (!progressive_ || (ss_ == 0 && ah_ == 0)) {
+        std::memset(dc_stats_[c.dc_tbl], 0, sizeof(dc_stats_[0]));
+        last_dc_[i] = 0;
+        dc_context_[i] = 0;
+      }
+      if (!progressive_ || ss_ != 0)
+        std::memset(ac_stats_[c.ac_tbl], 0, sizeof(ac_stats_[0]));
+    }
+    qm_c_ = 0;
+    qm_a_ = 0;
+    qm_ct_ = -16;  // the first decision reads 2 bytes into C
+  }
+
+  // jdarith.c's process_restart
+  void arith_restart() {
+    read_restart_marker();
+    start_arith_pass();
+    restarts_to_go_ = restart_interval_;
+  }
+
+  // jdarith.c's get_byte and arith_decode: a marker met in the data
+  // is left in unread_marker_, and zeros are fed from there on
+  int qm_decode(uint8_t *st) {
+    while (qm_a_ < 0x8000) {
+      if (--qm_ct_ < 0) {
+        int data = 0;
+        if (!unread_marker_) {
+          data = byte();
+          if (data == 0xFF) {
+            do {
+              data = byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;  // a stuffed zero
+            } else {
+              unread_marker_ = data;
+              data = 0;
+            }
+          }
+        }
+        qm_c_ = (qm_c_ << 8) | data;
+        if ((qm_ct_ += 8) < 0 && ++qm_ct_ == 0) qm_a_ = 0x8000;
+      }
+      qm_a_ <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = qm_a_ - qe;
+    qm_a_ = temp;
+    temp <<= qm_ct_;
+    if (qm_c_ >= temp) {
+      qm_c_ -= temp;
+      if (qm_a_ < qe) {  // conditional LPS exchange
+        qm_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        qm_a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (qm_a_ < 0x8000) {  // conditional MPS exchange
+      if (qm_a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void arith_mcu(int16_t **blocks, int n) {
+    if (restart_interval_) {
+      if (restarts_to_go_ == 0) arith_restart();
+      --restarts_to_go_;
+    }
+    if (progressive_ && ss_ == 0 && ah_ != 0) {
+      arith_dc_refine(blocks, n);  // jdarith.c does not test ct here
+      return;
+    }
+    if (qm_ct_ == -1) return;
+    if (!progressive_) {
+      arith_sequential(blocks, n);
+    } else if (ss_ == 0) {
+      arith_dc_first(blocks, n);
+    } else if (ah_ == 0) {
+      arith_ac_first(blocks[0]);
+    } else {
+      arith_ac_refine(blocks[0]);
+    }
+  }
+
+  // Figures F.19 to F.24 for a DC difference, with the conditioning of
+  // F.1.4.4.1.2; false on a magnitude overflow (ct is then -1)
+  bool arith_dc_diff(int ci, int tbl) {
+    uint8_t *stats = dc_stats_[tbl];
+    uint8_t *st = stats + dc_context_[ci];
+    if (qm_decode(st) == 0) {
+      dc_context_[ci] = 0;
+      return true;
+    }
+    const int sign = qm_decode(st + 1);
+    st += 2 + sign;
+    int m = qm_decode(st);
+    if (m != 0) {
+      st = stats + 20;
+      while (qm_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          qm_ct_ = -1;  // JWRN_ARITH_BAD_CODE
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < ((1 << arith_dc_l_[tbl]) >> 1))
+      dc_context_[ci] = 0;
+    else if (m > ((1 << arith_dc_u_[tbl]) >> 1))
+      dc_context_[ci] = 12 + sign * 4;
+    else
+      dc_context_[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (qm_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc_[ci] = (last_dc_[ci] + v) & 0xffff;
+    return true;
+  }
+
+  // Figure F.20 from coefficient k on: the EOB decision has been made;
+  // the zero run, the sign and the magnitude of the next nonzero
+  // coefficient; returns its value with k at its index, 0 on a bad code
+  int arith_ac_value(int tbl, int &k, int se) {
+    uint8_t *stats = ac_stats_[tbl];
+    uint8_t *st = stats + 3 * (k - 1);
+    while (qm_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) {
+        qm_ct_ = -1;  // spectral overflow
+        return 0;
+      }
+    }
+    const int sign = qm_decode(fixed_bin_);
+    st += 2;
+    int m = qm_decode(st);
+    if (m != 0 && qm_decode(st)) {
+      m <<= 1;
+      st = stats + (k <= arith_ac_k_[tbl] ? 189 : 217);
+      while (qm_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          qm_ct_ = -1;  // magnitude overflow
+          return 0;
+        }
+        ++st;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (qm_decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // decode_mcu: the DC difference and AC coefficients 1..63
+  void arith_sequential(int16_t **blocks, int n) {
+    for (int b = 0; b < n; ++b) {
+      const int ci = block_index(b);
+      const Component &c = *scan_[ci];
+      int16_t *blk = blocks[b];
+      if (!arith_dc_diff(ci, c.dc_tbl)) return;
+      blk[0] = static_cast<int16_t>(last_dc_[ci]);
+      for (int k = 1; k <= 63; ++k) {
+        if (qm_decode(ac_stats_[c.ac_tbl] + 3 * (k - 1))) break;  // EOB
+        const int v = arith_ac_value(c.ac_tbl, k, 63);
+        if (qm_ct_ == -1) return;
+        blk[kNatural[k]] = static_cast<int16_t>(v);
+      }
+    }
+  }
+
+  // decode_mcu_DC_first
+  void arith_dc_first(int16_t **blocks, int n) {
+    for (int b = 0; b < n; ++b) {
+      const int ci = block_index(b);
+      if (!arith_dc_diff(ci, scan_[ci]->dc_tbl)) return;
+      blocks[b][0] = static_cast<int16_t>(
+          static_cast<unsigned>(last_dc_[ci]) << al_);
+    }
+  }
+
+  // decode_mcu_DC_refine: the next bit of each DC value, at p = 0.5
+  void arith_dc_refine(int16_t **blocks, int n) {
+    const int p1 = 1 << al_;
+    for (int b = 0; b < n; ++b)
+      if (qm_decode(fixed_bin_))
+        blocks[b][0] = static_cast<int16_t>(blocks[b][0] | p1);
+  }
+
+  // decode_mcu_AC_first
+  void arith_ac_first(int16_t *blk) {
+    const int tbl = scan_[0]->ac_tbl;
+    for (int k = ss_; k <= se_; ++k) {
+      if (qm_decode(ac_stats_[tbl] + 3 * (k - 1))) break;  // EOB
+      const int v = arith_ac_value(tbl, k, se_);
+      if (qm_ct_ == -1) return;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al_);
+    }
+  }
+
+  // decode_mcu_AC_refine: no correction-bit buffer as in jdphuff.c; each
+  // coefficient already nonzero takes its bit where the scan reaches it
+  void arith_ac_refine(int16_t *blk) {
+    const int tbl = scan_[0]->ac_tbl;
+    const int p1 = 1 << al_;
+    const int m1 = static_cast<int>(~0u << al_);
+    int kex = se_;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss_; k <= se_; ++k) {
+      uint8_t *st = ac_stats_[tbl] + 3 * (k - 1);
+      if (k > kex && qm_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t &coef = blk[kNatural[k]];
+        if (coef) {
+          if (qm_decode(st + 2))
+            coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+          break;
+        }
+        if (qm_decode(st + 1)) {  // newly nonzero
+          coef = static_cast<int16_t>(qm_decode(fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se_) {
+          qm_ct_ = -1;  // spectral overflow
+          return;
+        }
+      }
     }
   }
 
@@ -1184,13 +1536,21 @@ class Decoder {
   bool saw_sof_ = false, saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = 0;
   int precision_ = 8, width_ = 0, height_ = 0;
-  bool progressive_ = false, multi_scan_ = false, ycc_ = false;
+  bool progressive_ = false, arith_ = false, multi_scan_ = false,
+       ycc_ = false;
   int max_h_ = 1, max_v_ = 1;
   std::vector<Component> comps_;
   HuffSpec dc_spec_[4], ac_spec_[4];
   uint16_t qspec_[4][64] = {};
   bool qdefined_[4] = {false, false, false, false};
   int restart_interval_ = 0;
+  // DAC conditioning, libjpeg's defaults until a DAC segment sets them
+  static constexpr int kArithTbls = 16;
+  uint8_t arith_dc_l_[kArithTbls] = {};
+  uint8_t arith_dc_u_[kArithTbls] = {1, 1, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 1, 1, 1, 1, 1};
+  uint8_t arith_ac_k_[kArithTbls] = {5, 5, 5, 5, 5, 5, 5, 5,
+                                     5, 5, 5, 5, 5, 5, 5, 5};
 
   // the scan in progress
   int comps_in_scan_ = 0;
@@ -1207,6 +1567,13 @@ class Decoder {
   uint64_t acc_ = 0;
   int nbits_ = 0;
   bool insufficient_ = false;
+  // the QM decoder's registers and statistics
+  int64_t qm_c_ = 0, qm_a_ = 0;
+  int qm_ct_ = -16;  // bits left in C's buffer byte; -1 after a bad code
+  int dc_context_[4] = {0, 0, 0, 0};
+  uint8_t dc_stats_[kArithTbls][64] = {};
+  uint8_t ac_stats_[kArithTbls][256] = {};
+  uint8_t fixed_bin_[4] = {113, 0, 0, 0};
 };
 
 }  // namespace

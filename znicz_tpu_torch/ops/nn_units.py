@@ -571,6 +571,7 @@ class GradientDescentBase(ModuleUnit):
                               device=param.device)
             self.register_buffer(f"micro_accum_{suffix}", buf)
             self._micro_accum[id(param)] = buf
+            self.place_as_forward(f"micro_accum_{suffix}", attr)
 
     def initialize(self, device=None, **kwargs) -> None:
         super().initialize(device=device, **kwargs)
@@ -658,9 +659,28 @@ class GradientDescentBase(ModuleUnit):
             dim, pad = plan.data_shard_dim, plan.data_shard_pad
             shape = list(shape)
             shape[dim] = (shape[dim] + pad) // self.device.n_data_shards
+        elif moment and value is not None:
+            self.place_as_forward(name, param)
         self.register_buffer(name, torch.zeros(
             shape, dtype=self.opt_state_dtype, device=value.device)
             if moment and value is not None else None)
+
+    def place_as_forward(self, name: str, param: str) -> None:
+        """Place buffer ``name`` as the forward's ``param`` when that is
+        a tensor-parallel block (the buffer is then the same block of the
+        logical buffer): a snapshot gathers it whole and a load cuts this
+        process's block, as for the parameter (C25)."""
+        fwd = self.forward_unit
+        tp = fwd.placements.get(param) if isinstance(fwd, ModuleUnit) \
+            else None
+        if tp is None or tp.model_shard_dim is None:
+            self.placements.pop(name, None)
+            return
+        # this unit's own record (not a leaf of the workflow's table,
+        # which lists the parameters and ZeRO-1's shards)
+        self.placements[name] = partition.materialize(
+            partition.model_sharded(tp.model_shard_dim, tp.model_shard_axis),
+            f"{self.name}/{name}", tuple(tp.logical_shape), 1)
 
     def zero1_plan(self, param: str, acc: str | None = None):
         """The ZeRO-1 placement of the forward's ``param`` (its
